@@ -1,0 +1,273 @@
+"""TraceCtx: the linear SSA-like program representation.
+
+Reference parity: thunder/core/trace.py (`TraceCtx:46`, `python:309`,
+`python_callable:400`, `from_trace:434`, tracectx contextvars `:453-474`,
+`detached_trace:508`, `TraceProvenance:29`).
+
+A trace is a list of ``BoundSymbol``s plus the signature (proxied args) and
+output. It prints as valid Python and compiles to a callable. Every transform
+is trace→trace and stamps a ``TraceProvenance`` so the full compilation
+history is inspectable — reading the generated program is the primary
+debugging tool, as in the reference.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import time
+from contextlib import contextmanager
+from typing import Any, Callable, Optional, Sequence
+
+from thunder_tpu_torch.core import baseutils, codeutils
+from thunder_tpu_torch.core.baseutils import check
+from thunder_tpu_torch.core.codeutils import SigInfo
+from thunder_tpu_torch.core.proxies import Proxy, TensorProxy
+from thunder_tpu_torch.core.pytree import tree_flatten
+from thunder_tpu_torch.core.symbol import BoundSymbol
+
+
+class TraceProvenance:
+    def __init__(self, pss: str):
+        self.pss = pss
+
+    def __repr__(self) -> str:
+        return f"# Constructed by {self.pss}"
+
+
+class TraceCtx:
+    def __init__(self, fn: Optional[Callable] = None, *, prologue: bool = False):
+        self.fn = fn
+        self.args: tuple = ()
+        self.kwargs: dict = {}
+        self.output: Any = None
+        self.bound_symbols: list[BoundSymbol] = []
+        self._scopes: list[list[BoundSymbol]] = [self.bound_symbols]
+        self._names: set[str] = set()
+        self._counter = baseutils.NamedCounter()
+        self.provenance: Optional[TraceProvenance] = None
+        self.name: str = "prologue" if prologue else "computation"
+        self._siginfo: Optional[SigInfo] = None
+        # Free-form metadata transforms may attach (e.g. saved_for_backward).
+        self.tags: dict[str, Any] = {}
+
+    # -- naming --------------------------------------------------------------
+
+    def make_name(self, prefix: str = "t") -> str:
+        while True:
+            name = f"{prefix}{self._counter.next(prefix)}"
+            if name not in self._names:
+                self._names.add(name)
+                return name
+
+    def add_name(self, name: str) -> None:
+        # Strict: the trace IR is SSA, so a name registered twice means two
+        # proxies would alias one name — the verifier's ssa rules depend on
+        # registration being unique (reference: trace.py add_name raises too).
+        check(
+            name not in self._names,
+            lambda: f"Name {name!r} is already registered in this trace",
+            ValueError,
+        )
+        self._names.add(name)
+
+    def has_name(self, name: str) -> bool:
+        return name in self._names
+
+    # -- scopes --------------------------------------------------------------
+
+    def push_scope(self, scope: list) -> None:
+        self._scopes.append(scope)
+
+    def pop_scope(self) -> list:
+        check(len(self._scopes) > 1, "Cannot pop the root scope")
+        return self._scopes.pop()
+
+    @property
+    def current_scope(self) -> list:
+        return self._scopes[-1]
+
+    def add_bound_symbol(self, bsym: BoundSymbol) -> None:
+        self.current_scope.append(bsym)
+
+    # -- signature -----------------------------------------------------------
+
+    @property
+    def siginfo(self) -> SigInfo:
+        if self._siginfo is not None:
+            return self._siginfo
+        params = []
+        for a in self.args:
+            if isinstance(a, Proxy):
+                params.append(a.name)
+            else:
+                params.append(codeutils.prettyprint(a))
+        return SigInfo(self.name, params)
+
+    def set_siginfo(self, siginfo: SigInfo) -> None:
+        self._siginfo = siginfo
+
+    # -- codegen -------------------------------------------------------------
+
+    def pass_name(self) -> Optional[str]:
+        """The provenance pass name without its timing suffix (``"Transform
+        for execution"`` from ``"Transform for execution (took 3.2 ms)"``) —
+        the one parsing point shared by annotated codegen and
+        instrumentation attribution (observability/instrument.py)."""
+        if self.provenance is None:
+            return None
+        pss = self.provenance.pss
+        cut = pss.find(" (took")
+        return pss[:cut] if cut >= 0 else pss
+
+    def _annotate_tag(self) -> str:
+        """Compact pass-provenance tag for profiler scope names: the pass
+        name with spaces collapsed — e.g. "Transform_for_execution"."""
+        pss = self.pass_name()
+        return (pss or self.name).replace(" ", "_")
+
+    def python(self, *, print_depth: int = 1, include_header: bool = True, annotate: bool = False) -> str:
+        """Render the trace as Python source. ``annotate=True`` wraps each
+        value-producing op in ``torch.profiler.record_function`` so op names
+        show in profiler timelines (reference: thunder/core/profile.py:15
+        `add_markers`, env THUNDER_ANNOTATE_TRACES). The range name carries
+        the trace-line index and the pass provenance (``L<idx>.<sym>#<pass>``),
+        so a profiler row maps back to both the generated line and the
+        transform that produced it."""
+        lines: list[str] = []
+        if include_header:
+            if self.provenance is not None:
+                lines.append(repr(self.provenance))
+            lines.append("import thunder_tpu_torch.core.dtypes as dtypes")
+            lines.append("import thunder_tpu_torch.core.devices as devices")
+            lines.append("")
+        lines.append(self.siginfo.prettyprint())
+        body: list[str] = []
+        tag = self._annotate_tag() if annotate else ""
+        for i, bsym in enumerate(self.bound_symbols):
+            if annotate and bsym.flat_proxy_outs:
+                scope = f"L{i}.{bsym.sym.name}#{tag}"
+                body.append(f"{baseutils.indent(1)}with __annotate_scope({scope!r}):")
+                body.extend(bsym.python(indent=2, print_depth=print_depth))
+            else:
+                body.extend(bsym.python(indent=1, print_depth=print_depth))
+        if not body:
+            body = [f"{baseutils.indent(1)}pass"]
+        lines.extend(body)
+        return "\n".join(lines) + "\n"
+
+    def gen_ctx(self) -> dict[str, Any]:
+        """Build the exec namespace: every call target of every top-level
+        bound symbol, plus dtypes/devices modules and per-bsym call ctx."""
+        from thunder_tpu_torch.core import dtypes, devices
+
+        ctx: dict[str, Any] = {"dtypes": dtypes, "devices": devices}
+        for bsym in self.bound_symbols:
+            if bsym.sym.python_printer is not None:
+                ctx.update(bsym._call_ctx)
+                continue
+            name, target = bsym.gen_call_target()
+            if isinstance(target, tuple):  # (module label, module object)
+                label, mod = target
+                ctx[label] = mod
+            else:
+                existing = ctx.get(name)
+                check(
+                    existing is None or existing is target,
+                    lambda: f"Name collision in generated code: {name}",
+                )
+                ctx[name] = target
+            ctx.update(bsym._call_ctx)
+        return ctx
+
+    def python_callable(self, **exec_ctx) -> Callable:
+        import os
+
+        def _env_flag(name: str) -> bool:
+            return os.environ.get(name, "").lower() not in ("", "0", "false", "off")
+
+        annotate = _env_flag("THUNDER_ANNOTATE_TRACES")
+        source = self.python(include_header=False, annotate=annotate)
+        ctx = self.gen_ctx()
+        if annotate:
+            import torch
+
+            ctx["__annotate_scope"] = torch.profiler.record_function
+        ctx.update(exec_ctx)
+        fn = baseutils.compile_and_exec(self.siginfo.name, source, ctx)
+        fn.__thunder_trace__ = self
+        return fn
+
+    def __repr__(self) -> str:
+        return self.python()
+
+
+def from_trace(trc: TraceCtx) -> TraceCtx:
+    """A new empty trace inheriting signature/names from ``trc``
+    (reference: trace.py `from_trace:434`)."""
+    new = TraceCtx(trc.fn)
+    new.args = trc.args
+    new.kwargs = trc.kwargs
+    new.output = trc.output
+    new.name = trc.name
+    new._siginfo = trc._siginfo
+    new._names = set(trc._names)
+    new._counter = trc._counter  # share so fresh proxies never collide
+    new.tags = dict(trc.tags)
+    return new
+
+
+# -- tracing context management ----------------------------------------------
+
+_tracectx = contextvars.ContextVar("tracectx", default=None)
+
+# Trace-level grad mode (torch.no_grad/enable_grad during acquisition):
+# False ⇒ Symbol.__call__ detaches op outputs via stop_gradient, matching
+# eager's "values computed under no_grad are leaves" semantics.
+_grad_mode_ctx = contextvars.ContextVar("trace_grad_mode", default=True)
+
+
+def get_tracectx() -> Optional[TraceCtx]:
+    return _tracectx.get()
+
+
+def set_tracectx(trace: TraceCtx):
+    return _tracectx.set(trace)
+
+
+def reset_tracectx(token) -> None:
+    _tracectx.reset(token)
+
+
+@contextmanager
+def tracectx(trace: Optional[TraceCtx]):
+    tok = _tracectx.set(trace)
+    try:
+        yield trace
+    finally:
+        _tracectx.reset(tok)
+
+
+@contextmanager
+def detached_trace():
+    """A fresh throwaway trace context (reference: trace.py:508)."""
+    trace = TraceCtx()
+    with tracectx(trace):
+        yield trace
+
+
+# -- provenance stamping -------------------------------------------------------
+#
+# Every pass stamps provenance through wrap_in_trace_provenance/mark. The
+# reference package also runs its static trace verifier and its observability
+# taps at this point; both are later parts of the port (ROADMAP.md).
+
+
+def wrap_in_trace_provenance(trc: TraceCtx, pass_name: str, start_ns: int) -> TraceCtx:
+    elapsed_ms = (time.perf_counter_ns() - start_ns) / 1e6
+    trc.provenance = TraceProvenance(f"{pass_name} (took {elapsed_ms:.2f} ms)")
+    return trc
+
+
+def mark(trc: TraceCtx, pass_name: str) -> TraceCtx:
+    trc.provenance = TraceProvenance(pass_name)
+    return trc

@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` with its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use, into ``thunder_tpu_torch/_build/<hash of sources and flags>/``
+(listed in ``.gitignore``), from the package's own sources only. A later
+process with the same sources loads the library without building.
+
+There is no fallback: no ``nvcc``, a failed build or a failed launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libthunder_kernels.so"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {"bfloat16": 0, "float16": 1, "float32": 2}
+
+_c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "thunder_flash_fwd": [_c_void_p] * 4 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
+    "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int, _c_void_p],
+    "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
+}
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output, with the -Xptxas -v register/spill lines
+
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (shutil.which("nvcc"), CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_parallel(cmds: list[list[str]]) -> str:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
+def build() -> BuildInfo:
+    """Build the library if this set of sources has not been built yet."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / LIB_NAME
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            log_path = out_dir / "build.log"
+            return BuildInfo(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
+        nvcc = _nvcc()
+        start = time.perf_counter()
+        objs = [out_dir / (src.stem + ".o") for src in _sources()]
+        log = _run_parallel([
+            [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        tmp = out_dir / (LIB_NAME + ".tmp")
+        log += _run_parallel([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)
+        (out_dir / "build.log").write_text(log)
+        return BuildInfo(lib_path, time.perf_counter() - start, log)
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.thunder_cuda_error_string.argtypes = [ctypes.c_int]
+        handle.thunder_cuda_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if status != 0:
+        msg = lib().thunder_cuda_error_string(status).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} (error {status})")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def dtype_code(t) -> int:
+    return DTYPE_CODES[str(t.dtype).removeprefix("torch.")]
