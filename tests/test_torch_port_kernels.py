@@ -16,6 +16,7 @@ in bf16), while the port's plain versions compute in f32 and round once.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import torch
 
 import thunder_tpu
 import thunder_tpu.torch as jtorch
+from thunder_tpu.executors import flashex as jflashex
 from thunder_tpu.executors import pallasex
 
 import thunder_tpu_torch as tt
@@ -130,6 +132,76 @@ def test_flash_checker_refuses(qshape, kvshape, kwargs):
     assert not flashex._sdpa_checker(q, k, v, is_causal=True, **kwargs)
 
 
+# The residual pair: forward with logsumexp, backward from (out, lse). The
+# JAX functions run the splash kernels in Pallas interpret mode. Tolerances:
+# the JAX package rounds q*scale to bf16 before its kernels (a relative
+# change of up to 2^-9 in each score, so up to ~1e-2 in lse at |scores| of a
+# few units), and its backward rounds at other places than the port's.
+_RES_CASES = [
+    ((1, 2, 128, 100), (1, 2, 128, 100), True),  # open_llama_3b's head size
+    ((1, 4, 128, 32), (1, 2, 128, 32), True),  # GQA
+    ((1, 2, 128, 64), (1, 2, 128, 64), False),  # full attention
+]
+
+
+def _jax_bf16(*xs):
+    return [jnp.asarray(x, dtype=jnp.bfloat16) for x in xs]
+
+
+@pytest.mark.parametrize("qshape,kvshape,causal", _RES_CASES)
+def test_flash_lse_plain_matches_jax_fwd_res(_jax_flash_on_cpu, qshape, kvshape, causal):
+    q, k, v = _np(*qshape, seed=20), _np(*kvshape, seed=21), _np(*kvshape, seed=22)
+    gqa = qshape[1] != kvshape[1]
+    jout, jlse = jflashex._sdpa_fwd_res_impl(*_jax_bf16(q, k, v), None, causal, None, gqa)
+    qt, kt, vt = (_torch(x, torch.bfloat16) for x in (q, k, v))
+    out, lse = flashex.flash_attention_fwd_lse(qt, kt, vt, causal=causal, scale=1.0 / math.sqrt(qshape[-1]))
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == qshape[:3]
+    np.testing.assert_allclose(_f32(out), _f32(jout), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_f32(lse), _f32(jlse), rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("qshape,kvshape,causal", _RES_CASES)
+def test_flash_bwd_plain_matches_jax_bwd_res(_jax_flash_on_cpu, qshape, kvshape, causal):
+    q, k, v, g = _np(*qshape, seed=23), _np(*kvshape, seed=24), _np(*kvshape, seed=25), _np(*qshape, seed=26)
+    gqa = qshape[1] != kvshape[1]
+    jq, jk, jv, jg = _jax_bf16(q, k, v, g)
+    # Both backwards start from the JAX package's saved (out, lse).
+    jout, jlse = jflashex._sdpa_fwd_res_impl(jq, jk, jv, None, causal, None, gqa)
+    want = jflashex._sdpa_bwd_res_impl(jg, jq, jk, jv, jout, jlse, None, causal, None, gqa)
+    qt, kt, vt, gt = (_torch(x, torch.bfloat16) for x in (q, k, v, g))
+    out, lse = _torch(np.array(_f32(jout)), torch.bfloat16), _torch(np.array(_f32(jlse)))
+    scale = 1.0 / math.sqrt(qshape[-1])
+    got = flashex.flash_attention_bwd(gt, qt, kt, vt, out, lse, causal=causal, scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=0, atol=3e-2 * np.abs(_f32(b)).max(), err_msg=name)
+
+
+def test_flash_bwd_plain_matches_autograd_in_f32():
+    """In float32 (no roundings of P or dS that matter) the plain backward
+    is the exact gradient: held against torch autograd of plain attention."""
+    B, H, G, T, D = 1, 4, 2, 64, 32
+    q, k, v, g = (_torch(_np(*shape, seed=30 + i)) for i, shape in
+                  enumerate([(B, H, T, D), (B, G, T, D), (B, G, T, D), (B, H, T, D)]))
+    scale = 0.2
+    out, lse = flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=scale)
+    got = flashex.flash_attention_bwd_plain(g, q, k, v, out, lse, causal=True, scale=scale)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(qa, ka, va, is_causal=True, scale=scale,
+                                                           enable_gqa=True)
+    want = torch.autograd.grad(ref, (qa, ka, va), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_residual_eligibility_needs_equal_lengths():
+    q = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16)
+    assert flashex.residual_eligible(q, q, q)
+    assert not flashex.residual_eligible(q, kv, kv)  # S != L stays on the recompute path
+    assert not flashex.residual_eligible(q.float(), q.float(), q.float())
+
+
 # =============================================================================
 # Rotary embedding
 # =============================================================================
@@ -164,6 +236,35 @@ def test_rope_strided_view_matches_contiguous():
     x = qkv[..., H * D:2 * H * D].reshape(B, T, H, D).permute(0, 2, 1, 3)
     cos, sin = (_torch(a) for a in _cos_sin(T, D))
     torch.testing.assert_close(fusedex.apply_rope(x, cos, sin), fusedex.apply_rope(x.contiguous(), cos, sin))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_backward_matches_jax(dtype):
+    """The rope backward is the rope with -sin. jax.vjp cannot differentiate
+    through a pallas_call, so it is held against jax.vjp of the same
+    rotate-half written in jax.numpy, and against ``pallasex._rope_impl``
+    with -sin, which is what the JAX package's VJP rule runs."""
+    B, H, T, D = 2, 3, 16, 100
+    g = _np(B, H, T, D, seed=12)
+    cos, sin = _cos_sin(T, D)
+
+    def rope(x):
+        x1, x2 = x[..., : D // 2], x[..., D // 2:]
+        return x * jnp.asarray(cos) + jnp.concatenate([-x2, x1], axis=-1) * jnp.asarray(sin)
+
+    _, vjp = jax.vjp(rope, jnp.asarray(_np(B, H, T, D, seed=13)))
+    exact = _f32(vjp(jnp.asarray(g))[0])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jax_bwd = _f32(pallasex._rope_impl(*(jnp.asarray(a, dtype=jdt) for a in (g, cos, -sin))))
+    gt, ct, st = (_torch(a, tdt) for a in (g, cos, sin))
+    got = _f32(fusedex.apply_rope(gt, ct, -st))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, jax_bwd, rtol=1e-5, atol=1e-6)
+    else:
+        lim = 2 * 2.0 ** -7 * np.abs(exact).max()  # inputs and result rounded to bf16
+        np.testing.assert_allclose(got, exact, rtol=0, atol=lim)
+        np.testing.assert_allclose(got, jax_bwd, rtol=0, atol=lim)
 
 
 def test_rope_checker_refuses_mixed_dtypes_and_partial_rotary():
@@ -237,6 +338,35 @@ def test_ce_bf16_logits_claimed_and_match_decomposition():
     assert "fused_cross_entropy" in tt.last_traces(fast)[-1].python()
     # The decomposition's log_softmax rounds to bf16 before the mean.
     np.testing.assert_allclose(got.float().item(), want.float().item(), rtol=1e-2)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ce_bwd_plain_matches_pallas(reduction, dtype):
+    N, V = 64, 256
+    logits = _np(N, V, seed=14, scale=3.0)
+    target = np.random.RandomState(15).randint(0, V, N).astype(np.int64)
+    target[::5] = -100  # ignored rows
+    g = np.float32(1.7)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _f32(pallasex._ce_bwd_impl(jnp.asarray(g), jnp.asarray(logits, dtype=jdt), jnp.asarray(target.astype(np.int32)),
+                                      -100, reduction))
+    got = fusedex._ce_bwd_impl(torch.tensor(g), _torch(logits, tdt), torch.from_numpy(target), -100, reduction)
+    assert got.dtype == tdt and got.shape == (N, V)
+    assert (got[::5] == 0).all()
+    # f32: summation order only; bf16: both round the f32 result once, and
+    # the JAX kernel reads bf16 logits the same way.
+    atol = (1e-6 if dtype == "float32" else 2.0 ** -8) * np.abs(want).max()
+    np.testing.assert_allclose(_f32(got), want, rtol=1e-5 if dtype == "float32" else 0, atol=atol)
+
+
+def test_ce_row_scale_needs_no_host_sync_and_clamps_the_count():
+    target = torch.full((8,), -100)
+    scale = fusedex.ce_row_scale(torch.tensor(2.0), target, -100, "mean")
+    assert scale.shape == (8,) and (scale == 0).all()
+    target[:2] = 3
+    assert torch.equal(fusedex.ce_row_scale(torch.tensor(2.0), target, -100, "mean")[:3], torch.tensor([1.0, 1.0, 0.0]))
+    assert torch.equal(fusedex.ce_row_scale(torch.tensor(2.0), target, -100, "sum")[:3], torch.tensor([2.0, 2.0, 0.0]))
 
 
 def test_ce_checker_refuses_weights_smoothing_and_none_reduction():

@@ -3,7 +3,8 @@
 A JIT compiler for programs written against a torch-like language: it traces
 a program into the IR, runs dce/cse, lets the executors claim it, prints it
 as Python and runs it eagerly on one device (CUDA unless the caller passes
-``device="cpu"``). The kernel executors (``flash``, ``fused``) launch
+``device="cpu"``); ``grad`` and ``value_and_grad`` add the backward to the
+traced program. The kernel executors (``flash``, ``fused``) launch
 hand-written CUDA kernels for Hopper (``csrc/``); the ``torch`` executor
 lowers every other prim to a PyTorch operator.
 
@@ -12,6 +13,6 @@ is easy to find. This package imports neither JAX nor ``thunder_tpu``.
 """
 
 from thunder_tpu_torch import models
-from thunder_tpu_torch.api import cache_hits, cache_misses, jit, last_traces
+from thunder_tpu_torch.api import cache_hits, cache_misses, grad, jit, last_traces, value_and_grad
 
-__all__ = ["jit", "last_traces", "cache_hits", "cache_misses", "models"]
+__all__ = ["jit", "grad", "value_and_grad", "last_traces", "cache_hits", "cache_misses", "models"]

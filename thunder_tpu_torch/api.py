@@ -3,11 +3,13 @@
 Reference parity: thunder/__init__.py (`jit:299`, the prologue-guarded cache
 loop `:409-447`) and the functional frontend of thunder/functional.py.
 
-The counterpart of ``thunder_tpu/api.py``, cut to the forward path: trace the
-program into the IR, run dce and cse, let the executors claim it, print it as
-Python with ``del`` statements after each last use, and run it eagerly on one
-device. The prologue re-checks every input's metadata on each call and is
-what decides a cache hit.
+The counterpart of ``thunder_tpu/api.py``: trace the program into the IR,
+run dce and cse and any trace transform asked for (``grad`` and
+``value_and_grad`` add the autodiff transform, after which the
+attention-residual pass rewrites the joint trace's attention pairs), let the
+executors claim it, print it as Python with ``del`` statements after each
+last use, and run it eagerly on one device. The prologue re-checks every
+input's metadata on each call and is what decides a cache hit.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register ex
 from thunder_tpu_torch.executors import flashex, fusedex  # kernel executors  # noqa: F401
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import get_executor, resolve_executors
+from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
 
 # The kernel executors claim their composite ops whole; the torch executor
@@ -201,6 +204,12 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     traces.append(comp_trc)
     comp_trc = cse(comp_trc)
     traces.append(comp_trc)
+    for transform in cd.trace_transforms:
+        comp_trc = transform(comp_trc)
+        traces.append(comp_trc)
+    # A joint fw+bw trace (from grad): let the flash backward run from the
+    # saved (out, lse) instead of recomputing the softmax.
+    comp_trc = save_sdpa_residuals_joint(comp_trc, cd.executors_list)
     extrace = transform_for_execution(comp_trc, cd.executors_list)
     traces.append(extrace)
     # The program runs eagerly: the dels are what free each intermediate's
@@ -241,6 +250,7 @@ def jit(
     *,
     executors: Optional[Sequence] = None,
     device: Any = None,
+    _trace_transforms: Sequence[Callable] = (),
 ) -> Callable:
     """Compile ``fn`` for eager execution on one device.
 
@@ -249,14 +259,17 @@ def jit(
     lists executors or their names in priority order; the default is
     ``[flash, fused, torch]``. On CUDA tensors the kernel executors launch
     their kernels or raise; on CPU tensors they run their plain versions.
+    ``_trace_transforms`` (private) are trace-to-trace transforms run after
+    dce/cse, before claiming.
     """
     if fn is None:
-        return functools.partial(jit, executors=executors, device=device)
+        return functools.partial(jit, executors=executors, device=device, _trace_transforms=_trace_transforms)
 
     cd = CompileData(
         fn=fn,
         executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
         device=devices.resolve_device(device),
+        trace_transforms=tuple(_trace_transforms),
     )
     cs = CompileStats()
 
@@ -279,6 +292,36 @@ def jit(
     fn_._lc_cd = cd
     fn_._lc_cs = cs
     return fn_
+
+
+# =============================================================================
+# Autodiff entry points (reference: thunder/__init__.py `grad:888`)
+# =============================================================================
+
+
+def grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
+    """Compile ``fn`` (a scalar-loss function) into a function returning
+    gradients w.r.t. its float tensor inputs, fw+bw claimed and run as one
+    program.
+
+    Grads are returned as a tuple ordered like the function's float tensor
+    leaves (pytree inputs are flattened in argument order). ``jit_kwargs``
+    are :func:`jit`'s options. ``grad`` of a ``vmap``-ed function comes with
+    ``vmap`` (ROADMAP.md)."""
+    if fn is None:
+        return functools.partial(grad, **jit_kwargs)
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+
+    return jit(fn, _trace_transforms=(lambda trc: grad_transform(trc, return_value=False),), **jit_kwargs)
+
+
+def value_and_grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
+    """Like :func:`grad` but returns ``(value, grads)``."""
+    if fn is None:
+        return functools.partial(value_and_grad, **jit_kwargs)
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+
+    return jit(fn, _trace_transforms=(lambda trc: grad_transform(trc, return_value=True),), **jit_kwargs)
 
 
 def last_traces(fn: Callable) -> list:

@@ -21,6 +21,9 @@ class CompileData:
     fn: Callable
     executors_list: tuple = ()
     device: Any = None  # the torch.device the entry runs on
+    # Trace-to-trace transforms run after dce/cse and before claiming
+    # (``grad`` / ``value_and_grad`` pass the autodiff transform here).
+    trace_transforms: tuple = ()
 
 
 @dataclass

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU splash-attention kernel reached from
 // thunder_tpu/executors/flashex.py `_sdpa_impl` -> `_sdpa_runtime` ->
-// `_splash_sdpa` (kernel built by `_splash_kernel`).
+// `_splash_sdpa` (kernel built by `_splash_kernel`), and, when given an lse
+// pointer, the residual-saving forward `_splash_fwd_res` /
+// `_sdpa_fwd_res_impl`, which also returns the per-row logsumexp that the
+// backward (flash_bwd.cu) consumes.
 //
 // What it computes: O = softmax(scale * Q K^T + causal mask) V with an online
 // softmax, never materialising the (Tq, Tkv) scores in device memory.
@@ -17,7 +20,9 @@
 //   rounds q*scale to bf16 before its kernel instead; the two agree within
 //   the stated tolerance). The running max and sum are f32; P is rounded to
 //   the input type for P.V, which accumulates in f32; O is written once in
-//   the input type.
+//   the input type. lse (B, H, Tq) f32, written only when the pointer is not
+//   null: m + log(l) in natural log of the scaled scores, -inf for a query
+//   that sees no key.
 //
 // Bound on an H100: 4*B*H*Tq*Tkv*D/2 FLOP for causal attention over 989
 //   TFLOP/s bf16 (compute-bound at the model's shapes: at B=2, H=32, T=2048,
@@ -54,6 +59,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // null: not wanted
   int B, H, G, Tq, Tkv, D, DP;
   long long sq[3], sk[3], sv[3];  // b, h, t strides in elements
   float scale_log2;               // scale * log2(e)
@@ -200,8 +206,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
   // O / l, a row at a time across the warp; a row that saw no key is zero.
   for (int r = 0; r < 16; ++r) {
     const float l = __shfl_sync(0xffffffffu, l_i, 2 * r);
+    const float m = __shfl_sync(0xffffffffu, m_i, 2 * r);
     const int q = m0 + warp * 16 + r;
     if (q >= p.Tq) continue;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[static_cast<long long>(bh) * p.Tq + q] = l > 0.f ? m * 0.6931471805599453f + logf(l) : -INFINITY;
     const float inv = l > 0.f ? 1.f / l : 0.f;
     T* og = static_cast<T*>(p.o) + (static_cast<long long>(bh) * p.Tq + q) * p.D;
     const float* orow = Os + (warp * 16 + r) * LDO;
@@ -226,7 +235,7 @@ int launch(const FlashParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int H,
+extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                                  int G, int Tq, int Tkv, int D, long long sqb, long long sqh,
                                  long long sqt, long long skb, long long skh, long long skt,
                                  long long svb, long long svh, long long svt, float scale,
@@ -236,6 +245,7 @@ extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, vo
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.B = B;
   p.H = H;
   p.G = G;

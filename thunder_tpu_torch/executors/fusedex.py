@@ -1,20 +1,26 @@
-"""Fused kernels: rotary embedding and cross-entropy forward.
+"""Fused kernels: rotary embedding and cross-entropy forward and backward.
 
 The counterpart of ``thunder_tpu/executors/pallasex.py``, whose rope
-(``_rope_kernel``) and cross-entropy forward (``_ce_fwd_kernel``) are Pallas
-TPU kernels. Here they are hand-written CUDA kernels, ``csrc/rope.cu`` and
-``csrc/cross_entropy.cu``. The cross-entropy backward and the opt-in norm
-kernels of ``pallasex.py`` are later parts of the port (ROADMAP.md).
+(``_rope_kernel``) and cross-entropy forward and backward (``_ce_fwd_kernel``,
+``_ce_bwd_kernel``) are Pallas TPU kernels. Here they are hand-written CUDA
+kernels, ``csrc/rope.cu`` and ``csrc/cross_entropy.cu``. The opt-in norm
+kernels of ``pallasex.py`` are a later part of the port (ROADMAP.md).
 
 Claims:
 - ``torch.apply_rope``: full-rotary rotate-half over (B, H, T, D) with
   (T, D) cos/sin, all one dtype (mixed dtypes are refused, not promoted),
-  T % 8 == 0 — the checker of ``pallasex._rope_checker``;
+  T % 8 == 0 — the checker of ``pallasex._rope_checker``. Its backward is
+  ``apply_rope(g, cos, -sin)`` (the VJP rule in ``torch/__init__.py``),
+  which this claim takes too, so the backward runs the same kernel;
 - ``torch.cross_entropy`` with no class weights, no label smoothing and
   ``mean`` or ``sum`` reduction, on (N, V) f32 or bf16 logits with int32 or
   int64 targets. The kernel writes each row's loss in f32 (0 for an
   ignored row); the wrapper sums and, for the mean, divides by
-  max(#valid, 1), as ``pallasex._ce_impl`` does.
+  max(#valid, 1), as ``pallasex._ce_impl`` does;
+- ``torch.cross_entropy_bwd`` under the same conditions: the kernel writes
+  (softmax − onehot)·row_scale in the logits' dtype, with row_scale built
+  on the device from the cotangent (no host sync), as
+  ``pallasex._ce_bwd_impl`` builds it.
 
 Each wrapper launches its kernel on CUDA tensors, or raises; on CPU tensors it
 runs the plain PyTorch version beside it.
@@ -160,3 +166,70 @@ def _ce_impl(input, target, weight=None, ignore_index=-100, reduction="mean", la
 
 
 ex.register_implementation("torch.cross_entropy", fn=_ce_impl, checker=_ce_checker)
+
+
+# =============================================================================
+# Cross-entropy backward
+# =============================================================================
+
+
+def ce_row_scale(g, target: torch.Tensor, ignore_index: int, reduction: str) -> torch.Tensor:
+    """Per-row scale (N,) f32 of dlogits, on target's device with no host
+    sync: g·valid/max(#valid, 1) for the mean, g·valid for the sum."""
+    valid = (target != ignore_index).to(torch.float32)
+    scale = torch.as_tensor(g, device=target.device).to(torch.float32) * valid
+    if reduction == "mean":
+        scale = scale / valid.sum().clamp_min(1.0)
+    return scale
+
+
+def cross_entropy_bwd_plain(logits: torch.Tensor, target: torch.Tensor, row_scale: torch.Tensor) -> torch.Tensor:
+    """(softmax(x) − onehot(target))·row_scale in f32, rounded once to the
+    logits' dtype. A target outside [0, V) has no onehot column."""
+    x = logits.float()
+    cols = torch.arange(x.shape[-1], device=x.device)
+    onehot = (cols[None, :] == target.long()[:, None]).to(torch.float32)
+    return ((torch.softmax(x, dim=-1) - onehot) * row_scale[:, None]).to(logits.dtype)
+
+
+def cross_entropy_bwd(logits: torch.Tensor, target: torch.Tensor, row_scale: torch.Tensor) -> torch.Tensor:
+    """dlogits (N, V), contiguous, in the logits' dtype."""
+    if logits.device.type == "cpu":
+        return cross_entropy_bwd_plain(logits, target, row_scale)
+    if not (logits.is_cuda and target.device == logits.device and row_scale.device == logits.device):
+        raise ValueError(f"ce_bwd: logits, target, row_scale must be on one CUDA device, got {logits.device}, "
+                         f"{target.device}, {row_scale.device}")
+    if logits.dtype not in (torch.float32, torch.bfloat16) or target.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ce_bwd: needs f32/bf16 logits and int32/int64 targets, got {logits.dtype}, {target.dtype}")
+    if logits.ndim != 2 or target.shape != logits.shape[:1] or row_scale.shape != logits.shape[:1]:
+        raise ValueError(f"ce_bwd: unsupported shapes logits {tuple(logits.shape)}, target {tuple(target.shape)}, "
+                         f"row_scale {tuple(row_scale.shape)}")
+    logits = logits if logits.stride(-1) == 1 else logits.contiguous()
+    N, V = logits.shape
+    target = target.contiguous()
+    row_scale = row_scale.to(torch.float32).contiguous()
+    out = torch.empty((N, V), dtype=logits.dtype, device=logits.device)
+    vec4 = V % 4 == 0 and logits.stride(0) % 4 == 0 and logits.data_ptr() % (4 * logits.element_size()) == 0
+    lib = _build.lib()
+    with torch.cuda.device(logits.device):
+        status = lib.thunder_ce_bwd(
+            logits.data_ptr(), target.data_ptr(), row_scale.data_ptr(), out.data_ptr(), N, V, logits.stride(0),
+            _build.dtype_code(logits), int(target.dtype == torch.int64), int(vec4), _build.stream_of(logits),
+        )
+    _build.check(status, "ce_bwd")
+    cross_entropy_bwd.launches += 1
+    return out
+
+
+cross_entropy_bwd.launches = 0
+
+
+def _ce_bwd_checker(g, input, target, ignore_index=-100, reduction="mean") -> bool:
+    return _ce_checker(input, target, None, ignore_index, reduction)
+
+
+def _ce_bwd_impl(g, input, target, ignore_index=-100, reduction="mean"):
+    return cross_entropy_bwd(input, target, ce_row_scale(g, target, int(ignore_index), reduction))
+
+
+ex.register_implementation("torch.cross_entropy_bwd", fn=_ce_bwd_impl, checker=_ce_bwd_checker)

@@ -15,12 +15,13 @@ import copy
 import time
 from typing import Sequence
 
+from thunder_tpu_torch.core import prims
 from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.core.prims import OpTags, PrimIDs
-from thunder_tpu_torch.core.proxies import Proxy, variableify
+from thunder_tpu_torch.core.proxies import CollectionProxy, Proxy, variableify
 from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.symbol import BoundSymbol, Symbol
-from thunder_tpu_torch.core.trace import TraceCtx, from_trace, wrap_in_trace_provenance
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in_trace_provenance
 from thunder_tpu_torch.extend import OperatorExecutor, get_always_executors
 
 _PASSTHROUGH_IDS = {
@@ -96,8 +97,6 @@ def del_last_used(trace: TraceCtx) -> TraceCtx:
     each intermediate's device memory as soon as it is dead; without them
     every intermediate would stay alive until the program returns.
     """
-    from thunder_tpu_torch.core import prims
-
     start = time.perf_counter_ns()
     flat_out, _ = tree_flatten(trace.output)
     keep = {variableify(p) for p in flat_out if isinstance(p, Proxy)}
@@ -122,3 +121,45 @@ def del_last_used(trace: TraceCtx) -> TraceCtx:
     ntrace = from_trace(trace)
     ntrace.bound_symbols = new_bsyms
     return wrap_in_trace_provenance(ntrace, "Delete Last Used", start)
+
+
+def _clear_printer(bsym) -> str:
+    return f"{bsym.args[0].name}.clear()"
+
+
+# ``coll.clear()`` on a list the program was given (reference:
+# thunder/executors/passes.py clear_mutable_collection).
+clear_collection = Symbol(
+    "clear_collection",
+    lambda coll: None,
+    id="clear_collection",
+    is_prim=True,
+    tags=(OpTags.DONT_DCE,),
+    python_printer=_clear_printer,
+    module="prims",
+)
+
+
+def take_saved_as_list(bw_trace: TraceCtx, n_saved: int) -> TraceCtx:
+    """Make a backward trace take its first ``n_saved`` args (the tensors
+    saved for it) as one list, which it unpacks and then clears.
+
+    Run eagerly, a tensor passed as an argument stays referenced by the
+    caller for the whole call, so ``del`` inside the backward would free no
+    saved tensor before it returns. Given as a list that the backward
+    clears, each saved tensor is freed at its ``del``, after its last use —
+    as long as the caller keeps no other reference (reference: thunder's
+    backward takes ``saved_for_backward`` and clears it).
+    Run before ``del_last_used``."""
+    start = time.perf_counter_ns()
+    saved, rest = tuple(bw_trace.args[:n_saved]), tuple(bw_trace.args[n_saved:])
+    new = from_trace(bw_trace)
+    with tracectx(new):
+        coll = CollectionProxy(list(saved), name="saved_for_backward")
+    new.args = (coll,) + rest
+    new.bound_symbols = [
+        prims.unpack_sequence.bind(coll, n_saved, output=list(saved)),
+        clear_collection.bind(coll, output=None),
+        *bw_trace.bound_symbols,
+    ]
+    return wrap_in_trace_provenance(new, "Take saved for backward as a list", start)

@@ -1492,9 +1492,98 @@ def cross_entropy_bwd(g, input, target, ignore_index: int = -100, reduction: str
     return clang.maybe_convert_to_dtype(d, input.dtype)
 
 
-# The VJP rules of the composites above (sdpa, cross_entropy, the norms,
-# apply_rope) register with the autodiff transform, which comes with the
-# training slice of the port (ROADMAP.md).
+def _register_composite_vjps():
+    from thunder_tpu_torch.transforms.autodiff import register_vjp
+
+    def _sdpa_args(args, kwargs):
+        names = ("query", "key", "value", "attn_mask", "dropout_p", "is_causal", "scale", "enable_gqa")
+        defaults = {"attn_mask": None, "dropout_p": 0.0, "is_causal": False, "scale": None, "enable_gqa": False}
+        bound = dict(zip(names, args))
+        bound.update(kwargs)
+        for k, dflt in defaults.items():
+            bound.setdefault(k, dflt)
+        return bound
+
+    def _sdpa_checker(*args, **kwargs):
+        b = _sdpa_args(args, kwargs)
+        m = b["attn_mask"]
+        # Masked SDPA keeps the composite backward (no mask cotangent is
+        # produced) unless the mask itself requires grad.
+        mask_ok = m is None or not getattr(m, "requires_grad", False)
+        return mask_ok and float(pyval(b["dropout_p"])) == 0.0
+
+    @register_vjp("torch.scaled_dot_product_attention", checker=_sdpa_checker)
+    def _sdpa_vjp(bsym, g):
+        from thunder_tpu_torch.transforms.autodiff import grads_by_name
+
+        b = _sdpa_args(bsym.args, bsym.kwargs)
+        dq, dk, dv = sdpa_bwd(g, b["query"], b["key"], b["value"], b["attn_mask"],
+                              b["is_causal"], b["scale"], b["enable_gqa"])
+        names = ("query", "key", "value", "attn_mask", "dropout_p", "is_causal",
+                 "scale", "enable_gqa")
+        return grads_by_name(bsym, names, {"query": dq, "key": dk, "value": dv})
+
+    def _ce_checker(input, target, weight=None, ignore_index=-100, reduction="mean", label_smoothing=0.0):
+        return weight is None and float(pyval(label_smoothing)) == 0.0 and reduction in ("mean", "sum")
+
+    @register_vjp("torch.cross_entropy", checker=_ce_checker)
+    def _ce_vjp(bsym, g):
+        bound = dict(zip(("input", "target", "weight", "ignore_index", "reduction"), bsym.args))
+        bound.update(bsym.kwargs)
+        d = cross_entropy_bwd(
+            g, bound["input"], bound["target"],
+            bound.get("ignore_index", -100), bound.get("reduction", "mean"),
+        )
+        return (d,) + (None,) * (len(bsym.args) - 1)
+
+    def _rms_checker(a, normalized_shape, weight=None, eps=None):
+        return len(tuple(normalized_shape)) == 1  # last-dim norm only
+
+    def _ln_checker(a, normalized_shape, weight=None, bias=None, eps=1e-5):
+        return len(tuple(normalized_shape)) == 1
+
+    @register_vjp("torch.layer_norm", checker=_ln_checker)
+    def _layer_norm_vjp(bsym, g):
+        from thunder_tpu_torch.transforms.autodiff import grads_by_name
+
+        names = ("a", "normalized_shape", "weight", "bias", "eps")
+        bound = dict(zip(names, bsym.args))
+        bound.update(bsym.kwargs)
+        eps = bound.get("eps", 1e-5)
+        dx, dw, db = layer_norm_bwd(g, bound["a"], bound.get("weight"), bound.get("bias"),
+                                    float(pyval(eps)))
+        grad_map = {"a": dx}
+        if bound.get("weight") is not None:
+            grad_map["weight"] = dw
+        if bound.get("bias") is not None:
+            grad_map["bias"] = db
+        return grads_by_name(bsym, names, grad_map)
+
+    @register_vjp("torch.rms_norm", checker=_rms_checker)
+    def _rms_norm_vjp(bsym, g):
+        from thunder_tpu_torch.transforms.autodiff import grads_by_name
+
+        names = ("a", "normalized_shape", "weight", "eps")
+        bound = dict(zip(names, bsym.args))
+        bound.update(bsym.kwargs)
+        eps = bound.get("eps")
+        dx, dw = rms_norm_bwd(g, bound["a"], bound.get("weight"),
+                              1e-6 if eps is None else float(pyval(eps)))
+        grad_map = {"a": dx}
+        if bound.get("weight") is not None:
+            grad_map["weight"] = dw
+        return grads_by_name(bsym, names, grad_map)
+
+    @register_vjp("torch.apply_rope")
+    def _rope_vjp(bsym, g):
+        # y = x*cos + rot(x)*sin with rot adjoint = -rot and both cos/sin
+        # halves equal ⇒ dx = apply_rope(g, cos, -sin): the backward is the
+        # SAME composite (and the same rope kernel claims it).
+        x, cos, sin = bsym.args
+        return (apply_rope(g, cos, clang.neg(sin)), None, None)
+
+
+_register_composite_vjps()
 
 
 # =============================================================================
