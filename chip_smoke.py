@@ -10,10 +10,13 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds the CUDA kernels from ``thunder_tpu_torch/csrc`` for sm_90a and
    prints the build seconds and ptxas' register/spill lines;
-3. runs each kernel at the shapes open_llama_3b's loss (B=2), forward (B=10)
-   and training step (B=2) give it, holds it against its plain PyTorch
-   version on the same inputs row by row, and times kernel, plain version
-   and the nearest single PyTorch call (CUDA events);
+3. runs each kernel at the shapes its paths give it: open_llama_3b's loss
+   (B=2), forward (B=10) and training step (B=2); the norm executor's
+   RMSNorm at open_llama_3b's (4096, 3200) and LayerNorm at pythia-410m's
+   (4096, 1024); the training kernels at pythia-410m's shapes. Each is held
+   against its plain PyTorch version on the same inputs row by row and
+   timed on the card beside its plain version and the nearest single
+   PyTorch call (CUDA events);
 4. checks the whole path at open_llama_3b's full width with 2 layers, forward
    at B=10, loss and gradients (``value_and_grad``) at B=2: the default
    executors against the torch executor alone, then the same with a planted
@@ -25,7 +28,19 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    T=2048 and runs 3 steps: prints the build seconds of each pass, the step
    seconds, the peak device memory and the loss, checks the launches of each
    kernel against the claimed traces and one param's in-place SGD update;
-7. prints one JSON line describing every kernel, then the device line.
+7. checks pythia-410m at full width with 2 layers, forward and gradients at
+   B=2: the norm executor's stack against the torch executor alone, then
+   with a planted fault in the LayerNorm forward and one in its backward,
+   which must fail;
+8. runs the LitGPT benchmark (``benchmarks/litgpt.py``) on the full
+   24-layer pythia-410m at B=2, T=2048 with AdamW, under the default stack
+   and under ``+norm`` (2 warm-up and 5 timed steps each): prints s/iter,
+   tokens/s, MFU, peak memory and the loss, checks the launches of each
+   kernel against the claimed trace, and one more step's AdamW update of a
+   param against the formula;
+9. runs the LitGPT benchmark on open_llama_3b under ``+norm`` with SGD
+   (1 warm-up and 3 timed steps), with the same checks;
+10. prints one JSON line describing every kernel, then the device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -62,18 +77,35 @@ def require(ok: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """The card's time for one call of ``fn``: the average over ``iters``
+    calls launched back to back, between two CUDA events. A sleep kernel
+    holds the card while the host enqueues the calls, so the host's time to
+    launch them (Python, a wrapper's checks) does not show, as it would for
+    a kernel of a few microseconds; if the card woke before the last call
+    was queued, it sleeps twice as long and the calls are timed again."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
+    t = time.perf_counter()
     for _ in range(iters):
         fn()
-    stop.record()
+    sleep_s = 2 * (time.perf_counter() - t) + 1e-3
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    for _ in range(4):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))  # cycles; the H100's clock is below 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        hidden = not start.query()  # the card was still asleep when the last call was queued
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(stop) / iters
+        sleep_s *= 2
+    raise SystemExit("FAILED: time_ms could not hide the host's launches behind the card's sleep")
 
 
 def _library_ms(*calls):
@@ -155,7 +187,31 @@ def _path_inputs(cfg, batch: int, gen):
     return heads(0, H), heads(H, G), heads(H + G, G), emb.cos().to(torch.bfloat16), emb.sin().to(torch.bfloat16)
 
 
-def check_kernels(cfg) -> list[dict]:
+def _recorder(rows: dict):
+    """``record(name, batch, err, rel, limit, **timing)``: log one check of a
+    kernel and fold it into its row: the largest errors over every check,
+    and the timing of the check at the loss path's batch (or, for a kernel
+    first checked here, of its first check)."""
+
+    def record(name, batch, err, rel, limit, **timing):
+        new = name not in rows
+        row = rows.setdefault(name, dict(name=name, route="cuda", max_abs_err=0.0, row_rel_err=0.0,
+                                         row_rel_limit=limit))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["row_rel_err"] = max(row["row_rel_err"], rel)
+        t = timing
+        log(f"  {name:8s} {str(batch):>6s} max_abs_err={err:.3e} row_rel_err={rel:.3e} (limit {limit:.3e}) "
+            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+        require(rel <= limit, f"{name} kernel disagrees with its plain version at {batch} ({rel} > {limit})")
+        if batch == LOSS_BATCH or new:
+            row.update(timing)
+
+    return record
+
+
+def check_kernels(cfg, rows: dict) -> None:
     """Rope and flash at both path batches (loss B=2, forward B=10), CE at the
     loss path's (B*T, V), and the training step's kernels (flash forward with
     logsumexp, flash backward, rope with -sin, CE backward) at B=2. Each is
@@ -168,21 +224,7 @@ def check_kernels(cfg) -> list[dict]:
     from thunder_tpu_torch.executors import flashex, fusedex
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows: dict[str, dict] = {}
-
-    def record(name, batch, err, rel, limit, **timing):
-        row = rows.setdefault(name, dict(name=name, route="cuda", max_abs_err=0.0, row_rel_err=0.0,
-                                         row_rel_limit=limit))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["row_rel_err"] = max(row["row_rel_err"], rel)
-        t = timing
-        log(f"  {name:8s} B={batch:<2d} max_abs_err={err:.3e} row_rel_err={rel:.3e} (limit {limit:.3e}) "
-            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-            f"library_ms={'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')} "
-            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
-        require(rel <= limit, f"{name} kernel disagrees with its plain version at B={batch} ({rel} > {limit})")
-        if batch == LOSS_BATCH:
-            row.update(timing)
+    record = _recorder(rows)
 
     for B in (LOSS_BATCH, FWD_BATCH):
         q_view, k_view, v_view, cos, sin = _path_inputs(cfg, B, gen)
@@ -330,7 +372,155 @@ def check_kernels(cfg) -> list[dict]:
            library_ms=time_ms(lambda: torch.autograd.grad(ref, lr_, retain_graph=True), 20))
     del got, want, ref, lr_, logits
     torch.cuda.empty_cache()
-    return list(rows.values())
+
+
+# The norm kernels and their plain versions compute in f32 and round each
+# output once: y and dx within one bf16 ulp (2^-7) of the row's largest
+# |value|; dw and db are f32 sums over the rows in another order, 1e-5 of
+# the vector's largest |value|. Set from bf16 rounding, before any reading.
+NORM_ROW_REL = 2.0 ** -7
+NORM_DW_REL = 1e-5
+
+
+def check_norm_kernels(llama, pythia, rows: dict) -> None:
+    """The norm executor's four kernels at their path shapes: RMSNorm on
+    open_llama_3b's (B*T, 3200) bf16 rows with eps 1e-6, LayerNorm with
+    bias on pythia-410m's (B*T, 1024) with eps 1e-5. Each is held against
+    its plain version and timed beside ``F.rms_norm``/``F.layer_norm`` and
+    their autograd backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.executors import normex
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    record = _recorder(rows)
+    N = LOSS_BATCH * SEQ
+    for cfg, layer_norm in ((llama, False), (pythia, True)):
+        D, eps = cfg.n_embd, cfg.norm_eps
+        # A residual stream with a per-row offset and a weight and bias away
+        # from their init, so that every term of the kernels shows.
+        x = (torch.randn((N, D), generator=gen, device="cuda") * 2
+             + torch.randn((N, 1), generator=gen, device="cuda")).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.1 * torch.randn((D,), generator=gen, device="cuda")).to(torch.bfloat16) if layer_norm else None
+        g = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+        tag, shape = ("ln", f"{N}x{D}") if layer_norm else ("rms", f"{N}x{D}")
+        src, repl = "thunder_tpu_torch/csrc/norm.cu", "thunder_tpu/executors/pallasex.py"
+        nb = N * D * 2
+
+        if layer_norm:
+            fwd = lambda: normex.layer_norm_fwd(x, w, b, eps)  # noqa: E731
+            bwd = lambda: normex.layer_norm_bwd(g, x, w, eps, with_bias=True)  # noqa: E731
+            lib_fwd = lambda: F.layer_norm(x, (D,), w, b, eps)  # noqa: E731
+            params = (w, b)
+        else:
+            fwd = lambda: normex.rms_norm_fwd(x, w, eps)  # noqa: E731
+            bwd = lambda: normex.rms_norm_bwd(g, x, w, eps) + (None,)  # noqa: E731
+            lib_fwd = lambda: F.rms_norm(x, (D,), w, eps)  # noqa: E731
+            params = (w,)
+        plain_fwd = lambda: normex.norm_fwd_plain(x, w, b, eps, layer_norm=layer_norm)  # noqa: E731
+        plain_bwd = lambda: normex.norm_bwd_plain(g, x, w, eps, layer_norm=layer_norm,  # noqa: E731
+                                                  with_bias=layer_norm)
+
+        got, want = fwd(), plain_fwd()
+        b_ms, b_by = bound(2 * nb + len(params) * D * 2, 6.0 * N * D, PEAK_F32_FLOPS)
+        record(f"{tag}_fwd", shape, (got.float() - want.float()).abs().max().item(), row_rel_err(got, want),
+               NORM_ROW_REL, source=src, replaces=f"{repl}:{410 if layer_norm else 299}",
+               ms=time_ms(fwd, 50), plain_ms=time_ms(plain_fwd, 10), bound_ms=b_ms, bound_by=b_by,
+               library_ms=_library_ms(lib_fwd))
+        del got, want
+
+        (dx, dw, db), (want_dx, want_dw, want_db) = bwd(), plain_bwd()
+        require(bool(torch.isfinite(dx).all()), f"{tag}_bwd produced non-finite values")
+        vec_rel = max(((a - r).abs().max() / r.abs().max()).item()
+                      for a, r in ((dw, want_dw), (db, want_db)) if r is not None)
+        log(f"  {tag}_bwd dw{'/db' if layer_norm else ''} rel_err={vec_rel:.3e} (limit {NORM_DW_REL:.0e})")
+        require(vec_rel <= NORM_DW_REL, f"{tag}_bwd: dw/db differ from the plain version ({vec_rel})")
+        # Read g, x and w; write dx and the f32 dw (and db).
+        b_ms, b_by = bound(3 * nb + D * 2 + len(params) * D * 4, 12.0 * N * D, PEAK_F32_FLOPS)
+        xr = x.detach().clone().requires_grad_()
+        pr = [p.detach().clone().requires_grad_() for p in params]
+        ref = F.layer_norm(xr, (D,), pr[0], pr[1], eps) if layer_norm else F.rms_norm(xr, (D,), pr[0], eps)
+        record(f"{tag}_bwd", shape, (dx.float() - want_dx.float()).abs().max().item(), row_rel_err(dx, want_dx),
+               NORM_ROW_REL, source=src, replaces=f"{repl}:{424 if layer_norm else 309}",
+               ms=time_ms(bwd, 50), plain_ms=time_ms(plain_bwd, 10), bound_ms=b_ms, bound_by=b_by,
+               library_ms=_library_ms(lambda: torch.autograd.grad(ref, [xr, *pr], g, retain_graph=True)))
+        del dx, dw, db, want_dx, want_dw, want_db, ref, xr, pr, x, g
+        torch.cuda.empty_cache()
+
+
+def check_pythia_shapes(cfg, rows: dict) -> None:
+    """The training step's attention and cross-entropy kernels at
+    pythia-410m's shapes (B=2): q/k/v (2, 16, 2048, 64), where q and k come
+    contiguous from the decomposed partial rope and v is a strided view of
+    the qkv projection, and logits (4096, 50304) f32. Held to the same
+    limits as at open_llama_3b's shapes; the errors join the rows, the
+    times are logged."""
+    import torch
+
+    from thunder_tpu_torch.executors import flashex, fusedex
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    record = _recorder(rows)
+    B, H, D = LOSS_BATCH, cfg.n_head, cfg.head_size
+    scale = 1.0 / math.sqrt(D)
+    pairs = SEQ * (SEQ + 1) // 2
+    q_view, k_view, v, _, _ = _path_inputs(cfg, B, gen)
+    q, k = q_view.contiguous(), k_view.contiguous()
+    del q_view, k_view
+    shape = f"{B}x{H}x{SEQ}x{D}"
+
+    out, lse = flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale)
+    want_out, want_lse = flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=scale)
+    lse_rel = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+    require(lse_rel <= LSE_REL, f"flash_fwd_lse at {shape}: lse differs from the plain version ({lse_rel})")
+    nb = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
+    b_ms, b_by = bound(nb, 4.0 * B * H * D * pairs, PEAK_BF16_FLOPS)
+    record("flash_fwd_lse", shape, (out.float() - want_out.float()).abs().max().item(),
+           row_rel_err(out, want_out), FLASH_ROW_REL,
+           ms=time_ms(lambda: flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale), 20),
+           plain_ms=time_ms(lambda: flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=scale), 3, 1),
+           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del want_out, want_lse
+
+    dout = torch.randn((B, SEQ, H, D), generator=gen, device="cuda").to(torch.bfloat16).permute(0, 2, 1, 3)
+    got = flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale)
+    want = flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=True, scale=scale)
+    eps = 2.0 ** -7
+    nb = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) * 2 + lse.numel() * 4
+    b_ms, b_by = bound(nb, 10.0 * B * H * D * pairs, PEAK_BF16_FLOPS)
+    record("flash_bwd", shape, max((a.float() - r.float()).abs().max().item() for a, r in zip(got, want)),
+           max(row_rel_err(a, r, floor=eps * eps) for a, r in zip(got, want)), FLASH_BWD_ROW_REL,
+           ms=time_ms(lambda: flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale), 10),
+           plain_ms=time_ms(lambda: flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=True,
+                                                                      scale=scale), 3, 1),
+           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del got, want, q, k, v, out, lse, dout
+    torch.cuda.empty_cache()
+
+    N, V = B * SEQ, cfg.padded_vocab_size
+    logits = torch.randn((N, V), generator=gen, device="cuda")
+    targets = torch.randint(0, cfg.vocab_size, (N,), generator=gen, device="cuda")
+    targets[::97] = -100
+    shape = f"{N}x{V}"
+    got = fusedex.cross_entropy_rows(logits, targets, -100)
+    want = fusedex.cross_entropy_rows_plain(logits, targets, -100)
+    b_ms, b_by = bound(logits.numel() * 4 + targets.numel() * 8 + N * 4, 4.0 * N * V, PEAK_F32_FLOPS)
+    record("ce_fwd", shape, (got - want).abs().max().item(), row_rel_err(got[:, None], want[:, None]), 1e-5,
+           ms=time_ms(lambda: fusedex.cross_entropy_rows(logits, targets, -100), 20),
+           plain_ms=time_ms(lambda: fusedex.cross_entropy_rows_plain(logits, targets, -100), 10),
+           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row_scale = fusedex.ce_row_scale(torch.ones((), device="cuda"), targets, -100, "mean")
+    got = fusedex.cross_entropy_bwd(logits, targets, row_scale)
+    want = fusedex.cross_entropy_bwd_plain(logits, targets, row_scale)
+    b_ms, b_by = bound(logits.numel() * 4 * 2 + targets.numel() * 8 + N * 4, 5.0 * N * V, PEAK_F32_FLOPS)
+    record("ce_bwd", shape, (got - want).abs().max().item(), row_rel_err(got, want), CE_BWD_ROW_REL,
+           ms=time_ms(lambda: fusedex.cross_entropy_bwd(logits, targets, row_scale), 20),
+           plain_ms=time_ms(lambda: fusedex.cross_entropy_bwd_plain(logits, targets, row_scale), 10),
+           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del got, want, logits
+    torch.cuda.empty_cache()
 
 
 # =============================================================================
@@ -341,11 +531,13 @@ def check_kernels(cfg) -> list[dict]:
 def _wrappers() -> dict:
     """Each kernel's wrapper by row name. The rope backward is the rope
     kernel's wrapper: its launches are those made during a backward."""
-    from thunder_tpu_torch.executors import flashex, fusedex
+    from thunder_tpu_torch.executors import flashex, fusedex, normex
 
     return {"flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
             "ce_fwd": fusedex.cross_entropy_rows, "flash_fwd_lse": flashex.flash_attention_fwd_lse,
-            "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd}
+            "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd,
+            "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
+            "ln_fwd": normex.layer_norm_fwd, "ln_bwd": normex.layer_norm_bwd}
 
 
 def _launch_counts() -> dict:
@@ -537,6 +729,7 @@ def run_train(cfg, launches: dict) -> None:
     import torch
 
     from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.parallel.train import scalar_as
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -595,10 +788,11 @@ def run_train(cfg, launches: dict) -> None:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         if step == 0:
-            # SGD in place, bf16-true: the same four roundings, recomputed.
-            upd = torch.mul(p0, train.WD)
+            # SGD in place, bf16-true: the same four roundings, with the
+            # scalars in bf16 as JAX's weak typing takes them, recomputed.
+            upd = torch.mul(p0, scalar_as(train.WD, p0.dtype))
             upd = torch.add(g0, upd)
-            upd.mul_(train.LR)
+            upd.mul_(scalar_as(train.LR, p0.dtype))
             want = p0 - upd
             moved = (probe != p0).float().mean().item()
             log(f"  step 1 SGD on lm_head_w: in place {probe.data_ptr() == ptr}, equal to the recomputed update "
@@ -612,6 +806,216 @@ def run_train(cfg, launches: dict) -> None:
         f"loss {', '.join(f'{x:.6f}' for x in losses)}; launches per step {got}")
     require(all(math.isfinite(x) and abs(x - math.log(cfg.vocab_size)) < 2.0 for x in losses),
             "training loss is not near ln V")
+
+
+# =============================================================================
+# Phase 7: pythia-410m at full width, 2 layers, with the norm executor
+# =============================================================================
+
+PYTHIA = "pythia-410m"
+NORM_STACK = "norm,flash,fused,torch"
+# The +norm stack against the torch executor alone. They hold attention's
+# bf16 roundings apart as in phase 4, and the norm kernels apply the weight
+# in f32 where the decomposition rounds the normed value first (one bf16
+# ulp). Set from a sound run's readings (logits 1.28e-2, loss 5.4e-6, worst
+# grad 1.03e-2; PERF.md): about 2.5 times each. A planted fault in the
+# LayerNorm forward (no bias) must exceed the forward's limits, and one in
+# its backward (no db) the gradients'.
+PYTHIA_LOGITS_ROW_REL = 2.0 ** -5
+PYTHIA_LOSS_REL = 2e-5
+PYTHIA_GRAD_REL = 2.0 ** -5
+
+
+def _perturbed_params(cfg, gen):
+    """Random params whose norm weights and biases and linear biases are
+    drawn away from their init (ones and zeros), so that a norm kernel that
+    drops its bias, or a linear that drops its own, shows."""
+    import torch
+
+    from thunder_tpu_torch.models import gpt
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+
+    def perturb(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif k == "weight":  # a norm's weight
+                v.add_((0.1 * torch.randn(v.shape, generator=gen, device="cuda")).to(v.dtype))
+            elif k == "bias" or k.endswith("_b"):
+                v.copy_(0.02 * torch.randn(v.shape, generator=gen, device="cuda"))
+
+    for block in params["blocks"]:
+        perturb(block)
+    perturb(params["ln_f"])
+    return params
+
+
+def check_pythia_two_layers(cfg) -> None:
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import normex
+    from thunder_tpu_torch.models import gpt
+
+    cfg2 = replace(cfg, name=cfg.name + "-2layer", n_layer=2)
+    params = _perturbed_params(cfg2, torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    idx = torch.from_numpy(rng.randint(0, cfg2.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg2.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    names = [pytree.keystr(k) for k, _ in pytree.tree_flatten_with_path(params)[0]]
+    stack = NORM_STACK.split(",")
+
+    def run(executors):
+        fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg2), executors=executors)
+        vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg2), executors=executors)
+        logits = fwd(params, idx).float()
+        loss, g = vg(params, idx, tgt)
+        out = logits, float(loss), [x.float() for x in g]
+        torch.cuda.synchronize()
+        if executors is not None and "norm" in executors:
+            src = tt.last_traces(vg)[-1].python()
+            n = 2 * cfg2.n_layer + 1
+            require(src.count("norm_layer_norm(") == n and src.count("norm_layer_norm_bwd(") == n,
+                    "the 2-layer +norm trace does not claim every LayerNorm")
+        return out
+
+    want_logits, want_loss, want_grads = run(["torch"])
+
+    def compare(label, logits, loss, grads) -> tuple[bool, bool]:
+        """(forward within its limits, gradients within theirs)."""
+        rel = row_rel_err(logits, want_logits)
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item() for g, w in zip(grads, want_grads)]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        fwd_ok = math.isfinite(loss) and rel <= PYTHIA_LOGITS_ROW_REL and loss_rel <= PYTHIA_LOSS_REL
+        grad_ok = all(math.isfinite(r) for r in rels) and rels[worst] <= PYTHIA_GRAD_REL
+        log(f"  2-layer {label}: logits B={LOSS_BATCH} row_rel_err={rel:.3e} (limit {PYTHIA_LOGITS_ROW_REL:.3e}); "
+            f"loss {loss:.6f} vs torch {want_loss:.6f} rel_err={loss_rel:.3e} (limit {PYTHIA_LOSS_REL:.0e}) -> "
+            f"{'pass' if fwd_ok else 'FAIL'}; grads worst norm-relative error {rels[worst]:.3e} on {names[worst]} "
+            f"(limit {PYTHIA_GRAD_REL:.3e}), median {sorted(rels)[len(rels) // 2]:.3e} -> "
+            f"{'pass' if grad_ok else 'FAIL'}")
+        return fwd_ok, grad_ok
+
+    sound = compare("+norm", *run(stack))
+    real_fwd, real_bwd = normex.layer_norm_fwd, normex.layer_norm_bwd
+
+    def planted_fwd(x, weight, bias, eps=1e-5):
+        return real_fwd(x, weight, None, eps)
+
+    def planted_bwd(g, x, weight, eps=1e-5, *, with_bias):
+        dx, dw, db = real_bwd(g, x, weight, eps, with_bias=with_bias)
+        return dx, dw, None if db is None else torch.zeros_like(db)
+
+    planted_fwd.launches = planted_bwd.launches = 0  # the kernels count their launches on the module's names
+    seen = {}
+    for part, label, name, fake in (
+            (0, "planted fault (LayerNorm forward without its bias)", "layer_norm_fwd", planted_fwd),
+            (1, "planted fault (LayerNorm backward without db)", "layer_norm_bwd", planted_bwd)):
+        real = getattr(normex, name)
+        setattr(normex, name, fake)
+        try:
+            seen[label] = not compare(label, *run(stack))[part]
+        finally:
+            setattr(normex, name, real)
+    require(all(sound), "the 2-layer pythia model with the norm kernels differs from the torch executor")
+    for label, failed in seen.items():
+        require(failed, f"the 2-layer pythia comparison did not see a {label}")
+    del params, want_grads, want_logits
+
+
+# =============================================================================
+# Phases 8 and 9: the LitGPT training benchmark (benchmarks/litgpt.py)
+# =============================================================================
+
+# Each claimed op of the joint trace and the kernel wrapper that runs it.
+CLAIMED = {"flash_fwd_lse": "flash_sdpa_fwd_res(", "flash_bwd": "flash_sdpa_bwd_res(", "rope": "fused_apply_rope(",
+           "ce_fwd": "fused_cross_entropy(", "ce_bwd": "fused_cross_entropy_bwd(", "rms_fwd": "norm_rms_norm(",
+           "rms_bwd": "norm_rms_norm_bwd(", "ln_fwd": "norm_layer_norm(", "ln_bwd": "norm_layer_norm_bwd(",
+           "flash_fwd": "flash_scaled_dot_product_attention("}
+
+
+def run_litgpt(model: str, stack: str, expected: dict, launches: dict, *, optimizer: str, warmup: int,
+               iters: int) -> dict:
+    """``litgpt.run_one`` on ``model`` at B=2, T=2048 with the executors
+    ``stack``: prints its summary, checks the claimed ops per step against
+    ``expected`` and the launches of the run against the claims, and adds
+    them to ``launches``. Returns the summary and the run (its state after
+    the last step)."""
+    import torch
+
+    from thunder_tpu_torch.benchmarks import litgpt
+    from thunder_tpu_torch.models import gpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = litgpt.parse_args(["--model", model, "--micro-batch", str(LOSS_BATCH), "--seq", str(SEQ),
+                              "--iters", str(iters), "--warmup", str(warmup), "--optimizer", optimizer])
+    t0 = time.perf_counter()
+    run = litgpt.prepare(args, stack)
+    torch.cuda.synchronize()
+    src = run.extrace.python()
+    claimed = {k: src.count(v) for k, v in CLAIMED.items()}
+    log(f"  {model} [{stack}] built in {time.perf_counter() - t0:.3f} s (init_params, trace, claim); "
+        f"claimed per step {claimed}")
+    require(claimed == {k: expected.get(k, 0) for k in CLAIMED},
+            f"{model} [{stack}]: the claimed trace holds {claimed}, expected {expected}")
+    _zero_counts()
+    summary = litgpt.run_one(args, stack, prepared=run)
+    counts = _launch_counts()
+    steps = warmup + iters
+    log(f"  {json.dumps(summary)}")
+    log(f"  {model} [{stack}]: {summary['median_iter_time_s']} s/iter (median of {iters}), "
+        f"{summary['tokens_per_sec']} tokens/s, MFU {summary.get('mfu')} of 989 TFLOP/s, "
+        f"peak {summary['memory_used_GB']} GB, loss {summary['loss_first']} -> {summary['loss_last']}; "
+        f"launches over {steps} steps {counts}")
+    for k, n in claimed.items():
+        require(counts[k] == n * steps, f"{model} [{stack}]: {k} launched {counts[k]} times in {steps} steps, "
+                                        f"the trace claims {n} a step")
+        launches[k] = launches.get(k, 0) + counts[k]
+    losses = [float(x) for x in run.losses]
+    ln_v = math.log(gpt.name_to_config(model).vocab_size)
+    require(all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 2.0,
+            f"{model} [{stack}]: the first loss {losses[0]} is not near ln V = {ln_v:.4f}")
+    return summary, run
+
+
+def check_adamw_step(run) -> None:
+    """One more step of ``run`` (a ``litgpt.prepare`` AdamW run), with
+    lm_head_w's new value, moments and step count held against the AdamW
+    formula recomputed here from its grad (the claimed program's own, at
+    the same params): the JAX package's arithmetic in bf16, op by op."""
+    import torch
+
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.parallel.train import scalar_as
+
+    lr, wd, b1, b2, eps = 3e-4, 0.1, 0.9, 0.95, 1e-8  # litgpt's --lr default; build_train_step's defaults
+    p0, m0, v0 = run.params["lm_head_w"], run.opt["m"]["lm_head_w"].clone(), run.opt["v"]["lm_head_w"].clone()
+    step0 = int(run.opt["step"])
+    flat = tree_flatten(run.params)[0]
+    i = next(j for j, p in enumerate(flat) if p is p0)
+    with torch.no_grad():
+        _, grads = run.step.loss_and_grads(*flat, run.idx, run.tgt)
+    g = grads[i].float().to(p0.dtype)
+    del grads, flat
+    run.fn()
+    r = lambda x: scalar_as(x, p0.dtype)  # noqa: E731
+    m = m0 * r(b1) + g * r(1 - b1)
+    v = v0 * r(b2) + (g * g) * r(1 - b2)
+    t = torch.tensor(float(step0 + 1), device=p0.device)
+    c1, c2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+    update = (m.float() / c1) / (torch.sqrt(v.float() / c2) + eps) + wd * p0.float()
+    want = p0 - update.to(p0.dtype) * r(lr)
+    p1, m1, v1 = run.params["lm_head_w"], run.opt["m"]["lm_head_w"], run.opt["v"]["lm_head_w"]
+    ok = torch.equal(p1, want) and torch.equal(m1, m) and torch.equal(v1, v) and int(run.opt["step"]) == step0 + 1
+    moved = (p1 != p0).float().mean().item()
+    log(f"  AdamW step {step0 + 1} on lm_head_w: params, moments and step equal to the recomputed formula {ok} "
+        f"(max |param diff| {(p1.float() - want.float()).abs().max().item():.3e}); {moved:.4%} of its values moved")
+    require(ok, "the AdamW update of lm_head_w differs from the formula")
+    require(moved > 0, "the AdamW step moved no value of lm_head_w")
 
 
 def main() -> int:
@@ -642,8 +1046,12 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3] kernels at {CFG_NAME} path shapes")
-    rows = check_kernels(cfg)
+    pythia = gpt.name_to_config(PYTHIA)
+    log(f"[3] kernels at {CFG_NAME}'s and {PYTHIA}'s path shapes")
+    rows: dict[str, dict] = {}
+    check_kernels(cfg, rows)
+    check_norm_kernels(cfg, pythia, rows)
+    check_pythia_shapes(pythia, rows)
 
     log(f"[4] {CFG_NAME} at full width, 2 layers: default executors vs torch executor, forward and gradients")
     check_two_layers(cfg)
@@ -654,6 +1062,25 @@ def main() -> int:
     log(f"[6] {CFG_NAME}, {cfg.n_layer} layers: training step")
     run_train(cfg, launches)
 
+    log(f"[7] {PYTHIA} at full width, 2 layers: {NORM_STACK} vs torch executor, forward and gradients")
+    check_pythia_two_layers(pythia)
+
+    n = pythia.n_layer
+    log(f"[8] {PYTHIA}, {n} layers: litgpt training benchmark, AdamW, default executors and {NORM_STACK}")
+    attn = {"flash_fwd_lse": n, "flash_bwd": n, "ce_fwd": 1, "ce_bwd": 1}
+    run_litgpt(PYTHIA, "flash,fused,torch", attn, launches, optimizer="adamw", warmup=2, iters=5)
+    _, run = run_litgpt(PYTHIA, NORM_STACK, {**attn, "ln_fwd": 2 * n + 1, "ln_bwd": 2 * n + 1}, launches,
+                        optimizer="adamw", warmup=2, iters=5)
+    check_adamw_step(run)
+    del run
+
+    n = cfg.n_layer
+    log(f"[9] {CFG_NAME}, {n} layers: litgpt training benchmark, SGD, {NORM_STACK}")
+    run_litgpt(CFG_NAME, NORM_STACK, {"flash_fwd_lse": n, "flash_bwd": n, "ce_fwd": 1, "ce_bwd": 1, "rope": 4 * n,
+                                      "rms_fwd": 2 * n + 1, "rms_bwd": 2 * n + 1},
+               launches, optimizer="sgd", warmup=1, iters=3)
+
+    rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: (launches[r["name"]] if k == "launches" else r[k]) for k in keys} for r in rows]

@@ -250,6 +250,132 @@ def test_ce_bwd_refuses_a_device_mix(dev):
         fusedex.cross_entropy_bwd(logits, target, torch.ones(8, device=dev))
 
 
+# =============================================================================
+# The norm executor's kernels: RMSNorm and LayerNorm, forward and backward
+# =============================================================================
+
+# (N, D, dtype, layer_norm, bias): the path shapes (open_llama_3b's RMSNorm,
+# pythia-410m's LayerNorm), an f16 row whose D is not a multiple of the
+# block's 256 threads, an odd D (one-element loads) and f32.
+_NORM_SHAPES = [
+    (4096, 3200, torch.bfloat16, False, False),
+    (4096, 1024, torch.bfloat16, True, True),
+    (33, 1000, torch.float16, True, False),
+    (17, 1001, torch.bfloat16, True, True),
+    (7, 384, torch.float32, False, False),
+    (5, 2600, torch.float32, True, True),
+]
+
+
+def _norm_inputs(N, D, dtype, bias, dev, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(N, D) * 2 + 0.5).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.randn(D) * 0.1 + 1).astype(np.float32)).to(dev, dtype)
+    b = torch.from_numpy((rng.randn(D) * 0.1).astype(np.float32)).to(dev, dtype) if bias else None
+    g = torch.from_numpy(rng.randn(N, D).astype(np.float32)).to(dev, dtype)
+    return x, w, b, g
+
+
+def _assert_vec_close(got: torch.Tensor, want: torch.Tensor, rel: float) -> None:
+    """dw/db: f32 sums over the rows in another order, within ``rel`` of
+    the vector's largest |value|."""
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("N,D,dtype,layer_norm,bias", _NORM_SHAPES)
+def test_norm_fwd_matches_plain(dev, N, D, dtype, layer_norm, bias):
+    """One rounding of an f32 result to the output type in both: within one
+    ulp of the row's largest |value|. In f32 the row sums taken in another
+    order show: 64 ulps (7.6e-6) of the row's largest |value|."""
+    from thunder_tpu_torch.executors import normex
+
+    x, w, b, _ = _norm_inputs(N, D, dtype, bias, dev, 30)
+    if layer_norm:
+        before = normex.layer_norm_fwd.launches
+        got = normex.layer_norm_fwd(x, w, b, 1e-5)
+        assert normex.layer_norm_fwd.launches == before + 1
+    else:
+        before = normex.rms_norm_fwd.launches
+        got = normex.rms_norm_fwd(x, w, 1e-6)
+        assert normex.rms_norm_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want = normex.norm_fwd_plain(x, w, b, 1e-5 if layer_norm else 1e-6, layer_norm=layer_norm)
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_rows_close(got, want, 64 if dtype == torch.float32 else 1)
+
+
+@pytest.mark.parametrize("N,D,dtype,layer_norm,bias", _NORM_SHAPES)
+def test_norm_bwd_matches_plain(dev, N, D, dtype, layer_norm, bias):
+    """dx: one rounding of an f32 result, one ulp of the row's largest
+    |value| (64 in f32, where the row sums taken in another order show);
+    dw/db: f32 column sums in another order, 1e-5 of the largest |value|."""
+    from thunder_tpu_torch.executors import normex
+
+    x, w, _, g = _norm_inputs(N, D, dtype, bias, dev, 31)
+    eps = 1e-5 if layer_norm else 1e-6
+    if layer_norm:
+        before = normex.layer_norm_bwd.launches
+        dx, dw, db = normex.layer_norm_bwd(g, x, w, eps, with_bias=bias)
+        assert normex.layer_norm_bwd.launches == before + 1
+    else:
+        before = normex.rms_norm_bwd.launches
+        (dx, dw), db = normex.rms_norm_bwd(g, x, w, eps), None
+        assert normex.rms_norm_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    want_dx, want_dw, want_db = normex.norm_bwd_plain(g, x, w, eps, layer_norm=layer_norm, with_bias=bias)
+    assert dx.shape == x.shape and dx.dtype == dtype
+    _assert_rows_close(dx, want_dx, 64 if dtype == torch.float32 else 1)
+    _assert_vec_close(dw, want_dw, 1e-5)
+    assert (db is None) == (want_db is None)
+    if db is not None:
+        _assert_vec_close(db, want_db, 1e-5)
+
+
+def test_norm_scalar_path_on_unaligned_rows(dev):
+    """A base pointer that is not 16-byte aligned takes the one-element
+    loads; the result is the same as the plain version's."""
+    from thunder_tpu_torch.executors import normex
+
+    N, D = 64, 1024
+    buf = _randn((N * D + 1,), torch.bfloat16, dev, 32)
+    x = buf[1:].view(N, D)
+    assert x.data_ptr() % 16 != 0
+    w = torch.ones(D, dtype=torch.bfloat16, device=dev)
+    b = torch.zeros(D, dtype=torch.bfloat16, device=dev)
+    _assert_rows_close(normex.layer_norm_fwd(x, w, b, 1e-5), normex.norm_fwd_plain(x, w, b, 1e-5, layer_norm=True), 1)
+    g = _randn((N, D), torch.bfloat16, dev, 33)
+    dx, dw, db = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+    want_dx, want_dw, want_db = normex.norm_bwd_plain(g, x, w, 1e-5, layer_norm=True, with_bias=True)
+    _assert_rows_close(dx, want_dx, 1)
+    _assert_vec_close(dw, want_dw, 1e-5)
+    _assert_vec_close(db, want_db, 1e-5)
+
+
+def test_norm_bwd_is_reproducible(dev):
+    from thunder_tpu_torch.executors import normex
+
+    x, w, _, g = _norm_inputs(4096, 1024, torch.bfloat16, True, dev, 34)
+    a = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+    b = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))  # no atomics: the same bits every run
+    c, d = normex.rms_norm_bwd(g, x, w), normex.rms_norm_bwd(g, x, w)
+    assert all(torch.equal(p, q) for p, q in zip(c, d))
+
+
+def test_norm_refuses_a_device_mix_and_mixed_types(dev):
+    from thunder_tpu_torch.executors import normex
+
+    x, w, b, g = _norm_inputs(8, 256, torch.bfloat16, True, dev, 35)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        normex.layer_norm_fwd(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="share one of"):
+        normex.rms_norm_fwd(x, w.float())
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        normex.rms_norm_bwd(g[:, :128], x, w)
+
+
 def test_rope_with_negated_sin_undoes_rope(dev):
     """The rope backward is the rope kernel with -sin: a rotation by -theta,
     the inverse of the forward's."""

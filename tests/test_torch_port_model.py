@@ -110,6 +110,73 @@ def test_init_params_is_seeded_and_shaped():
     assert abs(a["wte"].std().item() - 0.02) < 2e-3
 
 
+# =============================================================================
+# The pythia (GPT-NeoX) family: LayerNorm with bias, biased linears, exact
+# GELU, the parallel residual and partial rotary (16 of 64 features)
+# =============================================================================
+
+PYTHIA_SMALL = dict(name="pythia-410m-test", n_layer=2, n_embd=256, n_head=4, vocab_size=512,
+                    padded_vocab_size=512, intermediate_size=1024, block_size=128)
+
+
+def _pythia_inputs(dtype):
+    """pythia-410m cut to 2 layers of width 256 (head size 64, so 16
+    rotated features), on both sides; the JAX package's params with every
+    bias and norm weight drawn away from its init (zeros and ones), so that
+    each of those terms shows in the comparison."""
+    jcfg = dataclasses.replace(jgpt.name_to_config("pythia-410m"), **PYTHIA_SMALL)
+    tcfg = dataclasses.replace(tgpt.name_to_config("pythia-410m"), **PYTHIA_SMALL)
+    assert tcfg.parallel_residual and tcfg.bias and tcfg.norm_class == "LayerNorm" and tcfg.rope_n_elem == 16
+    rng = np.random.RandomState(2)
+
+    def draw(path, x):
+        key = jax.tree_util.keystr(path)
+        a = np.asarray(x, np.float32)
+        if key.endswith("['bias']") or key.endswith("_b']"):
+            a = 0.02 * rng.randn(*a.shape)
+        elif key.endswith("['weight']"):
+            a = 1 + 0.1 * rng.randn(*a.shape)
+        return jax.numpy.asarray(a, dtype=x.dtype)
+
+    jparams = jax.tree_util.tree_map_with_path(draw, jgpt.init_params(jcfg, dtype=dtype, seed=0))
+    tparams = tgpt.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    rng = np.random.RandomState(0)
+    idx = rng.randint(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    tgt = rng.randint(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    return jcfg, tcfg, jparams, tparams, idx, tgt
+
+
+def _pythia_run_both(dtype):
+    jcfg, tcfg, jparams, tparams, idx, tgt = _pythia_inputs(dtype)
+    jf = thunder_tpu.jit(lambda p, i: jgpt.forward(p, i, jcfg))
+    jl = thunder_tpu.jit(lambda p, i, t: jgpt.loss_fn(p, i, t, jcfg))
+    tf = tt.jit(lambda p, i: tgpt.forward(p, i, tcfg), device="cpu")
+    tl = tt.jit(lambda p, i, t: tgpt.loss_fn(p, i, t, tcfg), device="cpu")
+    want = (np.asarray(jf(jparams, idx), np.float32), float(jl(jparams, idx, tgt)))
+    got = (tf(tparams, idx).float().numpy(), float(tl(tparams, idx, tgt)))
+    jsyms = [b.sym.name for b in thunder_tpu.last_traces(jf)[0].bound_symbols]
+    tsyms = [b.sym.name for b in tt.last_traces(tf)[0].bound_symbols]
+    return got, want, jsyms, tsyms, tt.last_traces(tl)[-1].python()
+
+
+def test_pythia_f32_forward_and_loss_match_jax():
+    (logits, loss), (jlogits, jloss), jsyms, tsyms, _ = _pythia_run_both(jdtypes.float32)
+    assert tsyms == jsyms  # the same program, symbol by symbol
+    assert tsyms.count("layer_norm") == 2 * 2 + 1 and tsyms.count("gelu") == 2
+    assert logits.shape == (B, T, 512)
+    np.testing.assert_allclose(logits, jlogits, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-4)
+
+
+def test_pythia_bf16_forward_and_loss_match_jax(_jax_flash_on_cpu):
+    (logits, loss), (jlogits, jloss), _, _, src = _pythia_run_both(jdtypes.bfloat16)
+    assert src.count("flash_scaled_dot_product_attention(") == 2
+    assert "fused_apply_rope(" not in src  # partial rotary: the rope kernel refuses it, as in the JAX package
+    assert np.isfinite(logits).all()
+    np.testing.assert_allclose(logits, jlogits, rtol=0, atol=5e-2 * np.abs(jlogits).max())
+    np.testing.assert_allclose(loss, jloss, rtol=1e-2)
+
+
 def test_init_params_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -38,14 +38,15 @@ from thunder_tpu_torch.core.proxies import (
 from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.trace import TraceCtx, mark, tracectx
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
-from thunder_tpu_torch.executors import flashex, fusedex  # kernel executors  # noqa: F401
+from thunder_tpu_torch.executors import flashex, fusedex, normex  # kernel executors  # noqa: F401
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import get_executor, resolve_executors
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
 
 # The kernel executors claim their composite ops whole; the torch executor
-# lowers every remaining prim.
+# lowers every remaining prim. The "norm" executor (normex) is opt-in, by
+# name, as in the JAX package.
 DEFAULT_EXECUTORS = (flashex.ex, fusedex.ex, torchex.ex)
 
 

@@ -1,17 +1,24 @@
 """Where the device time of a GPT forward and training step goes, on one card.
 
     python -m thunder_tpu_torch.benchmarks.profile_gpt [--batch 10]
+    python -m thunder_tpu_torch.benchmarks.profile_gpt --model pythia-410m \
+        --executors norm,flash,fused,torch --step litgpt
 
-Runs ``jit(forward)`` of open_llama_3b at ``--batch`` x T=2048, then one
-training step (``benchmarks/train.py``: forward, backward, SGD) at B=2 x
-T=2048, with random weights from a seed. Each is timed three times with the
-host clock around ``torch.cuda.synchronize()``, then profiled once with
+Runs ``jit(forward)`` of ``--model`` (default open_llama_3b) at ``--batch``
+x T=2048 with ``--executors`` (default: the default stack), then one
+training step at B=2 x T=2048, with random weights from a seed: with
+``--step bench`` (the default) ``benchmarks/train.py``'s (split forward
+and backward with remat, then SGD; default executors only), with ``--step
+litgpt`` the LitGPT benchmark's (``benchmarks/litgpt.py``: one joint fw+bw
+program with ``--executors``, then AdamW). Each is timed three times with
+the host clock around ``torch.cuda.synchronize()``, then profiled once with
 ``torch.profiler``, and the device time of its kernels is summed by group:
-the port's own kernels (flash forward, flash backward, rope, cross-entropy),
-matrix products, and every other PyTorch kernel (the decomposed norms,
-activations, copies, the qkv slice backward's pads and adds, the SGD
-update). Prints one JSON line for each. The device busy share is the summed
-kernel time over the wall time of an unprofiled call.
+the port's own kernels (flash forward, flash backward, rope, cross-entropy,
+norm), matrix products, and every other PyTorch kernel (the decomposed
+norms, activations, copies, the qkv slice backward's pads and adds, the
+optimizer update). Prints one JSON line for each. The device busy share is
+the summed kernel time over the wall time of an unprofiled call; the
+enqueue time is the host's time to return from the call, before the sync.
 """
 
 from __future__ import annotations
@@ -20,7 +27,6 @@ import argparse
 import json
 import time
 
-CONFIG = "open_llama_3b"
 SEQ = 2048
 CALLS = 3
 TRAIN_BATCH = 2
@@ -35,6 +41,8 @@ def _group(name: str) -> str:
         return "rope"
     if "ce_fwd_kernel" in name or "ce_bwd_kernel" in name:
         return "ce"
+    if "norm_fwd_kernel" in name or "norm_bwd_kernel" in name:
+        return "norm"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     return "other"
@@ -97,21 +105,37 @@ def main(argv=None) -> None:
     import torch
 
     import thunder_tpu_torch as tt
-    from thunder_tpu_torch.benchmarks.train import build_train
     from thunder_tpu_torch.models import gpt
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=10)
+    ap.add_argument("--model", default="open_llama_3b")
+    ap.add_argument("--executors", default="", help="comma list in priority order (default: the default stack)")
+    ap.add_argument("--step", choices=("bench", "litgpt"), default="bench")
     args = ap.parse_args(argv)
+    executors = [e for e in args.executors.split(",") if e] or None
+    if args.step == "bench" and executors is not None:
+        ap.error("--step bench runs the default executors only")
 
-    cfg = gpt.name_to_config(CONFIG)
+    cfg = gpt.name_to_config(args.model)
     params = gpt.init_params(cfg, seed=0, device="cuda")
     idx = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (args.batch, SEQ))).cuda()
-    fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg))
-    _profile("forward", lambda: fwd(params, idx), config=cfg.name, batch=args.batch, seq=SEQ)
+    fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg), executors=executors)
+    info = dict(config=cfg.name, executors=args.executors or "default")
+    _profile("forward", lambda: fwd(params, idx), batch=args.batch, seq=SEQ, **info)
     del fwd, idx
-    tr = build_train(cfg, TRAIN_BATCH, SEQ, params=params)
-    _profile("train_step", tr.step, config=cfg.name, batch=TRAIN_BATCH, seq=SEQ)
+    if args.step == "bench":
+        from thunder_tpu_torch.benchmarks.train import build_train
+
+        tr = build_train(cfg, TRAIN_BATCH, SEQ, params=params)
+        _profile("train_step", tr.step, batch=TRAIN_BATCH, seq=SEQ, optimizer="sgd", **info)
+        return
+    from thunder_tpu_torch.benchmarks import litgpt
+
+    del params
+    run = litgpt.prepare(litgpt.parse_args(["--model", args.model, "--micro-batch", str(TRAIN_BATCH),
+                                            "--seq", str(SEQ)]), args.executors or None)
+    _profile("train_step", run.fn, batch=TRAIN_BATCH, seq=SEQ, optimizer="adamw", step="litgpt", **info)
 
 
 if __name__ == "__main__":

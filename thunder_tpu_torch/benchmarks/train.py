@@ -67,15 +67,12 @@ class Train:
     @torch.no_grad()
     def sgd_(self, grads: list) -> None:
         """``p -= lr·(g + wd·p)`` in place, one rounding to the param's dtype
-        per operation (as the JAX step's bf16 arithmetic rounds); each grad
-        is dropped from ``grads`` once used."""
-        for i, p in enumerate(self.flat_params):
-            g, grads[i] = grads[i], None
-            upd = torch.mul(p, WD)
-            upd = torch.add(g.to(p.dtype), upd)
-            del g
-            upd.mul_(LR)
-            p.sub_(upd)
+        per operation and the scalars in that dtype, as the JAX step's bf16
+        arithmetic computes it (``parallel.train.sgd_update``); each grad is
+        dropped from ``grads`` once used."""
+        from thunder_tpu_torch.parallel.train import sgd_update
+
+        sgd_update(self.flat_params, grads, LR, WD, in_place=True)
 
     def step(self) -> torch.Tensor:
         loss, grads = self.forward_backward()

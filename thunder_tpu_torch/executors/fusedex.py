@@ -4,7 +4,7 @@ The counterpart of ``thunder_tpu/executors/pallasex.py``, whose rope
 (``_rope_kernel``) and cross-entropy forward and backward (``_ce_fwd_kernel``,
 ``_ce_bwd_kernel``) are Pallas TPU kernels. Here they are hand-written CUDA
 kernels, ``csrc/rope.cu`` and ``csrc/cross_entropy.cu``. The opt-in norm
-kernels of ``pallasex.py`` are a later part of the port (ROADMAP.md).
+kernels of ``pallasex.py`` are ``normex.py``'s.
 
 Claims:
 - ``torch.apply_rope``: full-rotary rotate-half over (B, H, T, D) with

@@ -1,0 +1,271 @@
+"""Fused RMSNorm and LayerNorm, forward and backward: the opt-in ``"norm"`` executor.
+
+The counterpart of the ``"norm"`` executor of
+``thunder_tpu/executors/pallasex.py``, whose RMSNorm (``_rms_fwd_kernel``,
+``_rms_bwd_kernel``) and LayerNorm (``_ln_fwd_kernel``, ``_ln_bwd_kernel``)
+are Pallas TPU kernels. Here they are the hand-written CUDA kernels of
+``csrc/norm.cu``. As in the JAX package the executor is registered but is
+not one of ``api.DEFAULT_EXECUTORS``: a program asks for it by name
+(``executors=["norm", ...]``).
+
+Claims ``torch.rms_norm``, ``torch.rms_norm_bwd``, ``torch.layer_norm`` and
+``torch.layer_norm_bwd`` (the composites and VJP rules of
+``torch/__init__.py``) when the norm is over the last dim only (a 1-D
+``normalized_shape``), the weight is given with shape (D,), the bias (if
+any) has shape (D,), and input, weight and bias share one of bf16, f16 and
+f32. The shared type is this port's condition: the decomposition promotes a
+mixed weight, the kernel would not, so a mixed one stays decomposed. The JAX
+checkers' ``D % 128`` and ``rows % 8`` are dropped: they are the TPU's lane
+and sublane tiling, and the CUDA kernels mask any D and any row count.
+
+Each kernel computes what the Pallas kernel computes, not the ltorch
+decomposition: everything in f32, the weight (and bias) applied in f32 and
+the result rounded once (the decomposition rounds the normed value to the
+input's type before the weight multiply, one ulp of difference); a two-pass
+variance; RMSNorm's eps 1e-6 when none is given; the backward recomputes
+rstd from x, since nothing is saved; dw and db are f32 sums of per-block
+partials, cast once to the weight's type; db is None without a bias.
+
+Each wrapper launches its kernel on CUDA tensors, or raises; on CPU tensors
+it runs the plain PyTorch version beside it. The backward wrappers return dw
+and db in f32; the claimed implementations cast them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.core.proxies import pyval
+from thunder_tpu_torch.executors import _build
+from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+
+ex = OperatorExecutor("norm")
+register_executor(ex)
+
+RMS_EPS = 1e-6  # RMSNorm's eps when none is given (pallasex._rms_impl)
+# The backward gives each block a run of consecutive rows so that there are
+# about this many blocks: enough to fill the card's SMs twice, few enough
+# that the (blocks, D) f32 partials stay small beside g, x and dx.
+_BWD_BLOCKS = 256
+_MAX_D = 14 * 1024  # the backward's 4·D f32 of shared memory within 227 KB
+
+
+# =============================================================================
+# Plain versions
+# =============================================================================
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1]).float()
+
+
+def _stats(xf: torch.Tensor, eps: float, layer_norm: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mu, rstd) per row in f32; mu is 0 for RMSNorm. The variance takes
+    two passes: the mean, then the mean of the centred squares."""
+    if not layer_norm:
+        return torch.zeros_like(xf[:, :1]), torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    return mu, torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+
+
+def norm_fwd_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float, *,
+                   layer_norm: bool) -> torch.Tensor:
+    """(x − mu)·rstd·w (+ b) in f32, rounded once to x's dtype."""
+    xf = _rows(x)
+    mu, rstd = _stats(xf, eps, layer_norm)
+    y = (xf - mu) * rstd * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float, *, layer_norm: bool,
+                   with_bias: bool = False) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dx in x's dtype, dw in f32, db in f32 or None) with mu and rstd
+    recomputed from x: dx = rstd·(wg − m1 − xhat·m2), m2 = mean(wg·xhat),
+    m1 = mean(wg) for LayerNorm and 0 for RMSNorm; dw = Σ g·xhat and
+    db = Σ g over the rows. The kernel sums dw and db by blocks of rows;
+    the two differ only in summation order."""
+    xf, gf = _rows(x), _rows(g)
+    mu, rstd = _stats(xf, eps, layer_norm)
+    xhat = (xf - mu) * rstd
+    wg = gf * weight.float()
+    m2 = (wg * xhat).mean(-1, keepdim=True)
+    m1 = wg.mean(-1, keepdim=True) if layer_norm else 0.0
+    dx = (rstd * (wg - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+    db = gf.sum(0) if layer_norm and with_bias else None
+    return dx, (gf * xhat).sum(0), db
+
+
+# =============================================================================
+# The kernels' wrappers
+# =============================================================================
+
+
+def _check_cuda(kernel: str, x: torch.Tensor, g: Optional[torch.Tensor], *params: Optional[torch.Tensor]) -> None:
+    """x and g (..., D), weight and bias (D,): one CUDA device, one type."""
+    params = tuple(p for p in params if p is not None)
+    ts = (x,) + (() if g is None else (g,)) + params
+    if not (x.is_cuda and all(t.device == x.device for t in ts)):
+        raise ValueError(f"{kernel}: every tensor must be on one CUDA device, got {[str(t.device) for t in ts]}")
+    if str(x.dtype).removeprefix("torch.") not in _build.DTYPE_CODES or any(t.dtype != x.dtype for t in ts):
+        raise ValueError(f"{kernel}: every tensor must share one of bf16/f16/f32, got {[t.dtype for t in ts]}")
+    D = x.shape[-1] if x.ndim else 0
+    if not (0 < D <= _MAX_D) or (g is not None and g.shape != x.shape) or any(p.shape != (D,) for p in params):
+        raise ValueError(f"{kernel}: unsupported shapes {[tuple(t.shape) for t in ts]} (0 < D <= {_MAX_D})")
+
+
+def _vec_ok(D: int, *ts: Optional[torch.Tensor]) -> bool:
+    """16-byte loads need D to be a multiple of 16 bytes' worth of elements
+    and every base pointer 16-byte aligned (rows are contiguous)."""
+    return all(t is None or (D * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0) for t in ts)
+
+
+def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> torch.Tensor:
+    _check_cuda(kernel, x, None, weight, bias)
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    w, b = weight.contiguous(), None if bias is None else bias.contiguous()
+    y = torch.empty_like(x2)
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        status = lib.thunder_norm_fwd(
+            x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), x2.shape[0], D,
+            float(eps), int(layer_norm), _build.dtype_code(x), int(_vec_ok(D, x2, w, b, y)), _build.stream_of(x),
+        )
+    _build.check(status, kernel)
+    return y.reshape(x.shape)
+
+
+def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bias: bool):
+    _check_cuda(kernel, x, g, weight)
+    D = x.shape[-1]
+    x2, g2, w = x.reshape(-1, D).contiguous(), g.reshape(-1, D).contiguous(), weight.contiguous()
+    N = x2.shape[0]
+    rows_per_block = max(1, math.ceil(N / _BWD_BLOCKS))
+    blocks = math.ceil(N / rows_per_block)
+    dx = torch.empty_like(x2)
+    dw_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device) if with_bias else None
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        status = lib.thunder_norm_bwd(
+            g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
+            None if db_part is None else db_part.data_ptr(), N, D, rows_per_block, float(eps), int(layer_norm),
+            _build.dtype_code(x), int(_vec_ok(D, g2, x2, w, dx)), _build.stream_of(x),
+        )
+    _build.check(status, kernel)
+    return dx.reshape(x.shape), dw_part.sum(0), None if db_part is None else db_part.sum(0)
+
+
+def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
+    """RMSNorm of x (..., D) over its last dim, times weight (D,)."""
+    if x.device.type == "cpu":
+        return norm_fwd_plain(x, weight, None, eps, layer_norm=False)
+    y = _launch_fwd("rms_fwd", x, weight, None, eps, False)
+    rms_norm_fwd.launches += 1
+    return y
+
+
+rms_norm_fwd.launches = 0
+
+
+def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                 eps: float = RMS_EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw in f32) of RMSNorm from its cotangent g."""
+    if x.device.type == "cpu":
+        return norm_bwd_plain(g, x, weight, eps, layer_norm=False)[:2]
+    dx, dw, _ = _launch_bwd("rms_bwd", g, x, weight, eps, False, False)
+    rms_norm_bwd.launches += 1
+    return dx, dw
+
+
+rms_norm_bwd.launches = 0
+
+
+def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                   eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of x (..., D) over its last dim, times weight (D,), plus
+    bias (D,) when given."""
+    if x.device.type == "cpu":
+        return norm_fwd_plain(x, weight, bias, eps, layer_norm=True)
+    y = _launch_fwd("ln_fwd", x, weight, bias, eps, True)
+    layer_norm_fwd.launches += 1
+    return y
+
+
+layer_norm_fwd.launches = 0
+
+
+def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
+                   with_bias: bool) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dx, dw in f32, db in f32 or None) of LayerNorm from its cotangent g."""
+    if x.device.type == "cpu":
+        return norm_bwd_plain(g, x, weight, eps, layer_norm=True, with_bias=with_bias)
+    out = _launch_bwd("ln_bwd", g, x, weight, eps, True, with_bias)
+    layer_norm_bwd.launches += 1
+    return out
+
+
+layer_norm_bwd.launches = 0
+
+
+# =============================================================================
+# Claiming
+# =============================================================================
+
+
+def _shapes_ok(a, weight, bias=None) -> bool:
+    shape = getattr(a, "shape", ())
+    if len(shape) < 1 or weight is None:
+        return False
+    D = shape[-1]
+    dt = dtypes.to_dtype(a.dtype)
+    if dt not in (dtypes.bfloat16, dtypes.float16, dtypes.float32):
+        return False
+    return all(t is None or (tuple(t.shape) == (D,) and dtypes.to_dtype(t.dtype) == dt) for t in (weight, bias))
+
+
+def _rms_fwd_checker(a, normalized_shape, weight=None, eps=None) -> bool:
+    return len(tuple(normalized_shape)) == 1 and _shapes_ok(a, weight)
+
+
+def _rms_bwd_checker(g, a, weight, eps) -> bool:
+    return _shapes_ok(a, weight) and _shapes_ok(g, weight)
+
+
+def _ln_fwd_checker(a, normalized_shape, weight=None, bias=None, eps=1e-5) -> bool:
+    return len(tuple(normalized_shape)) == 1 and _shapes_ok(a, weight, bias)
+
+
+def _ln_bwd_checker(g, a, weight, bias, eps) -> bool:
+    return _shapes_ok(a, weight, bias) and _shapes_ok(g, weight)
+
+
+def _rms_impl(a, normalized_shape, weight=None, eps=None):
+    return rms_norm_fwd(a, weight, RMS_EPS if eps is None else float(pyval(eps)))
+
+
+def _rms_bwd_impl(g, a, weight, eps):
+    dx, dw = rms_norm_bwd(g, a, weight, float(pyval(eps)))
+    return dx, dw.to(weight.dtype)
+
+
+def _ln_impl(a, normalized_shape, weight=None, bias=None, eps=1e-5):
+    return layer_norm_fwd(a, weight, bias, float(pyval(eps)))
+
+
+def _ln_bwd_impl(g, a, weight, bias, eps):
+    dx, dw, db = layer_norm_bwd(g, a, weight, float(pyval(eps)), with_bias=bias is not None)
+    return dx, dw.to(weight.dtype), None if db is None else db.to(weight.dtype)
+
+
+ex.register_implementation("torch.rms_norm", fn=_rms_impl, checker=_rms_fwd_checker)
+ex.register_implementation("torch.rms_norm_bwd", fn=_rms_bwd_impl, checker=_rms_bwd_checker)
+ex.register_implementation("torch.layer_norm", fn=_ln_impl, checker=_ln_fwd_checker)
+ex.register_implementation("torch.layer_norm_bwd", fn=_ln_bwd_impl, checker=_ln_bwd_checker)
