@@ -13,7 +13,9 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
 3. runs each kernel at the shapes its paths give it: open_llama_3b's loss
    (B=2), forward (B=10) and training step (B=2); the norm executor's
    RMSNorm at open_llama_3b's (4096, 3200) and LayerNorm at pythia-410m's
-   (4096, 1024); the training kernels at pythia-410m's shapes. Each is held
+   (4096, 1024); the training kernels at pythia-410m's shapes; the masked
+   forward and recompute backward on the padded path's (2, 32, 2048, 100),
+   with a planted fault (the padding ignored) that must fail. Each is held
    against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
    PyTorch call (CUDA events);
@@ -40,7 +42,18 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    param against the formula;
 9. runs the LitGPT benchmark on open_llama_3b under ``+norm`` with SGD
    (1 warm-up and 3 timed steps), with the same checks;
-10. prints one JSON line describing every kernel, then the device line.
+10. checks ``thunder_tpu_torch.jit(module)`` on the Llama stand-in below
+   (HF ``LlamaForCausalLM``'s names and SDPA-path arithmetic) at
+   open_llama_3b's full width with 2 layers, on a batch whose row 0 is
+   left-padded by 512 tokens: the default executors against the torch
+   executor alone for the valid rows' logits, the loss and every gradient,
+   then with the masked kernels ignoring the padding, which must fail; and
+   an ALiBi-like bias, which must take the exact branch;
+11. runs the stand-in at full depth (26 layers) on that padded batch: the
+   forward without grad, the all-ones mask (the value guard's second
+   entry), 3 ``torch.optim.SGD`` steps with a falling loss, launches checked
+   against the claimed traces, and one profiled forward and step;
+12. prints one JSON line describing every kernel, then the device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -54,7 +67,11 @@ import math
 import subprocess
 import sys
 import time
-from dataclasses import replace
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+from torch import nn
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -123,6 +140,238 @@ def _library_ms(*calls):
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# =============================================================================
+# The Llama stand-in: the module that phases 10-11 jit
+# =============================================================================
+#
+# The machine with the card has no ``transformers``, so the nn.Module path
+# runs on this plain-torch Llama. Its module and parameter names are those of
+# HF's ``LlamaForCausalLM``, and it follows the arithmetic of transformers
+# 4.57's SDPA path: rotate-half rope from ``inv_freq`` in f32, cast to the
+# model's dtype; RMSNorm in f32, cast back, then scaled by the weight;
+# SwiGLU; ``repeat_kv`` before SDPA when there is a mask, GQA in SDPA when
+# there is none; and HF's mask: none (and ``is_causal``) when
+# ``attention_mask.all()`` holds, else a bool (B, 1, T, T) causal∧padding
+# mask. The CPU tests hold it against ``transformers.LlamaForCausalLM`` with
+# the same state_dict. It is the smoke test's model, not a package feature.
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """The fields of HF's LlamaConfig that the stand-in reads."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 3200
+    intermediate_size: int = 8640
+    num_hidden_layers: int = 26
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+# open_llama_3b (the JAX package's config, thunder_tpu/models/gpt.py:116-119)
+OPEN_LLAMA_3B = LlamaConfig()
+
+
+class LlamaRMSNorm(nn.Module):
+    def __init__(self, hidden_size: int, eps: float, **factory):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden_size, **factory))
+        self.variance_epsilon = eps
+
+    def forward(self, hidden_states):
+        input_dtype = hidden_states.dtype
+        hidden_states = hidden_states.to(torch.float32)
+        variance = hidden_states.pow(2).mean(-1, keepdim=True)
+        hidden_states = hidden_states * torch.rsqrt(variance + self.variance_epsilon)
+        return self.weight * hidden_states.to(input_dtype)
+
+
+class LlamaRotaryEmbedding(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        dim = config.head_dim
+        inv_freq = 1.0 / (config.rope_theta ** (torch.arange(0, dim, 2, dtype=torch.int64, device=device).float() / dim))
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
+
+    def forward(self, x, position_ids):
+        inv_freq_expanded = self.inv_freq[None, :, None].float().expand(position_ids.shape[0], -1, 1)
+        position_ids_expanded = position_ids[:, None, :].float()
+        freqs = (inv_freq_expanded.float() @ position_ids_expanded.float()).transpose(1, 2)
+        emb = torch.cat((freqs, freqs), dim=-1)
+        return emb.cos().to(dtype=x.dtype), emb.sin().to(dtype=x.dtype)
+
+
+def _rotate_half(x):
+    x1 = x[..., : x.shape[-1] // 2]
+    x2 = x[..., x.shape[-1] // 2:]
+    return torch.cat((-x2, x1), dim=-1)
+
+
+def _repeat_kv(hidden_states, n_rep: int):
+    batch, num_key_value_heads, slen, head_dim = hidden_states.shape
+    if n_rep == 1:
+        return hidden_states
+    hidden_states = hidden_states[:, :, None, :, :].expand(batch, num_key_value_heads, n_rep, slen, head_dim)
+    return hidden_states.reshape(batch, num_key_value_heads * n_rep, slen, head_dim)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, **factory):
+        super().__init__()
+        hd, H, G = config.head_dim, config.num_attention_heads, config.num_key_value_heads
+        self.head_dim = hd
+        self.num_key_value_groups = H // G
+        self.scaling = hd ** -0.5
+        self.q_proj = nn.Linear(config.hidden_size, H * hd, bias=False, **factory)
+        self.k_proj = nn.Linear(config.hidden_size, G * hd, bias=False, **factory)
+        self.v_proj = nn.Linear(config.hidden_size, G * hd, bias=False, **factory)
+        self.o_proj = nn.Linear(H * hd, config.hidden_size, bias=False, **factory)
+
+    def forward(self, hidden_states, position_embeddings, attention_mask):
+        input_shape = hidden_states.shape[:-1]
+        hidden_shape = (*input_shape, -1, self.head_dim)
+        query = self.q_proj(hidden_states).view(hidden_shape).transpose(1, 2)
+        key = self.k_proj(hidden_states).view(hidden_shape).transpose(1, 2)
+        value = self.v_proj(hidden_states).view(hidden_shape).transpose(1, 2)
+        cos, sin = position_embeddings
+        cos, sin = cos.unsqueeze(1), sin.unsqueeze(1)
+        query = (query * cos) + (_rotate_half(query) * sin)
+        key = (key * cos) + (_rotate_half(key) * sin)
+        # transformers' sdpa_attention_forward: GQA inside SDPA without a
+        # mask, repeat_kv with one; is_causal only without a mask.
+        sdpa_kwargs = {}
+        if attention_mask is None:
+            sdpa_kwargs = {"enable_gqa": True}
+        else:
+            key = _repeat_kv(key, self.num_key_value_groups)
+            value = _repeat_kv(value, self.num_key_value_groups)
+            attention_mask = attention_mask[:, :, :, : key.shape[-2]]
+        is_causal = query.shape[2] > 1 and attention_mask is None
+        out = torch.nn.functional.scaled_dot_product_attention(
+            query, key, value, attn_mask=attention_mask, dropout_p=0.0, scale=self.scaling, is_causal=is_causal,
+            **sdpa_kwargs)
+        out = out.transpose(1, 2).contiguous()
+        out = out.reshape(*input_shape, -1).contiguous()
+        return self.o_proj(out)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, **factory):
+        super().__init__()
+        self.gate_proj = nn.Linear(config.hidden_size, config.intermediate_size, bias=False, **factory)
+        self.up_proj = nn.Linear(config.hidden_size, config.intermediate_size, bias=False, **factory)
+        self.down_proj = nn.Linear(config.intermediate_size, config.hidden_size, bias=False, **factory)
+
+    def forward(self, x):
+        return self.down_proj(torch.nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, **factory):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, **factory)
+        self.mlp = LlamaMLP(config, **factory)
+        self.input_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **factory)
+        self.post_attention_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **factory)
+
+    def forward(self, hidden_states, attention_mask, position_embeddings):
+        residual = hidden_states
+        hidden_states = self.self_attn(self.input_layernorm(hidden_states), position_embeddings, attention_mask)
+        hidden_states = residual + hidden_states
+        residual = hidden_states
+        return residual + self.mlp(self.post_attention_layernorm(hidden_states))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, **factory):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **factory)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **factory) for _ in range(config.num_hidden_layers)])
+        self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, **factory)
+        self.rotary_emb = LlamaRotaryEmbedding(config, device=factory.get("device"))
+
+    @staticmethod
+    def causal_mask(attention_mask, T: int):
+        """HF's SDPA mask: None when every token is valid (the caller then
+        runs causal SDPA), else a bool (B, 1, T, T) mask, query i seeing key
+        j iff j <= i and key j is valid. ``attention_mask.all()`` is a
+        branch on data: under the jit it becomes a value guard."""
+        if attention_mask is None or attention_mask.all():
+            return None
+        idx = torch.arange(T, device=attention_mask.device)
+        causal = idx[None, :] <= idx[:, None]
+        return causal[None, None, :, :] & attention_mask.bool()[:, None, None, :]
+
+    def forward(self, input_ids, attention_mask=None):
+        hidden_states = self.embed_tokens(input_ids)
+        T = input_ids.shape[1]
+        position_ids = torch.arange(T, device=input_ids.device).unsqueeze(0)
+        mask = self.causal_mask(attention_mask, T)
+        position_embeddings = self.rotary_emb(hidden_states, position_ids)
+        for layer in self.layers:
+            hidden_states = layer(hidden_states, mask, position_embeddings)
+        return self.norm(hidden_states)
+
+
+class LlamaForCausalLM(nn.Module):
+    """HF's module tree and forward: ``{"logits"}``, and ``{"loss"}`` when
+    ``labels`` are given: cross-entropy of the f32 logits against labels
+    already aligned with them (the next token; −100 where nothing is to be
+    predicted, e.g. at pads), mean over the labelled positions."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__()
+        factory = {"device": device, "dtype": dtype}
+        self.config = config
+        self.model = LlamaModel(config, **factory)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **factory)
+
+    def forward(self, input_ids, attention_mask=None, labels=None):
+        logits = self.lm_head(self.model(input_ids, attention_mask))
+        out = {"logits": logits}
+        if labels is not None:
+            V = logits.shape[-1]
+            out["loss"] = torch.nn.functional.cross_entropy(logits.float().reshape(-1, V), labels.reshape(-1),
+                                                            ignore_index=-100)
+        return out
+
+
+def llama(config: LlamaConfig, *, seed: int, device, dtype=torch.bfloat16) -> LlamaForCausalLM:
+    """The stand-in with random weights from ``seed``: matrices and the
+    embedding N(0, 0.02) (HF's initializer_range), norm weights 1, drawn on
+    ``device`` in f32 and rounded to ``dtype``."""
+    with torch.no_grad():
+        m = LlamaForCausalLM(config, device=device, dtype=dtype)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for name, p in m.named_parameters():
+            if not name.endswith("layernorm.weight") and name != "model.norm.weight":
+                p.copy_(torch.empty(p.shape, device=device).normal_(0.0, 0.02, generator=gen))
+    return m
+
+
+def padded_batch(B: int, T: int, vocab: int, left_pad: dict, *, seed: int, device):
+    """(input_ids, attention_mask, labels): token ids from ``seed``; batch row
+    b left-padded by ``left_pad.get(b, 0)`` tokens (mask 0, id 0); labels the
+    next token, −100 at the last position and wherever the query or the next
+    token is a pad, so pad rows carry no weight."""
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, vocab, (B, T))).to(device)
+    am = torch.ones((B, T), dtype=torch.int64, device=device)
+    for b, n in left_pad.items():
+        am[b, :n] = 0
+        ids[b, :n] = 0
+    labels = torch.full((B, T), -100, dtype=torch.int64, device=device)
+    labels[:, :-1] = ids[:, 1:]
+    labels[:, :-1][(am[:, :-1] == 0) | (am[:, 1:] == 0)] = -100
+    return ids, am, labels
 
 
 # =============================================================================
@@ -523,6 +772,162 @@ def check_pythia_shapes(cfg, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The recompute-path backward against the plain recompute end to end: the
+# two forwards' outputs differ by up to FLASH_ROW_REL, which moves Di = rowsum(
+# dout*out) and with it every dS; twice the residual backward's limit. Set
+# from that reasoning before any reading (the CUDA tests hold it too).
+FLASH_RECOMPUTE_ROW_REL = 2.0 ** -4
+# The masked cases of phase 3: (label, Tq, padding, causal). The path's own
+# case first (row 0 left-padded by 512 tokens, causal): its timings are the
+# row's. A key-padding mask (the "keypad" case) runs full attention, every
+# query valid.
+MASK_CASES = (("left512", SEQ, ("left", 0, 512), True), ("right300", SEQ, ("right", 1, 300), True),
+              ("keypad", SEQ, ("left", 0, 512), False), ("Tq1024", SEQ // 2, ("left", 0, 512), True))
+
+
+def _segments(B: int, Tq: int, Tkv: int, padding, causal: bool):
+    """(q_seg, kv_seg) int32 on the card, 1 valid and 0 pad, as the flash
+    executor's plan gives them: batch row ``padding[1]`` padded by
+    ``padding[2]`` tokens on the ``padding[0]`` side; under a causal 4-D
+    mask the queries are the last Tq key positions, under a key-padding
+    mask every query is valid."""
+    import torch
+
+    side, row, n = padding
+    kv = torch.ones((B, Tkv), dtype=torch.int32, device="cuda")
+    if side == "left":
+        kv[row, :n] = 0
+    else:
+        kv[row, Tkv - n:] = 0
+    q = kv[:, Tkv - Tq:].contiguous() if causal else torch.ones((B, Tq), dtype=torch.int32, device="cuda")
+    return q, kv
+
+
+def _valid_pairs(q_seg, kv_seg, causal: bool) -> int:
+    """(query, key) pairs between valid tokens that attention must compute
+    (the bound's work): both segment ids 1, and j <= i + Tkv - Tq if causal."""
+    import torch
+
+    Tq, Tkv = q_seg.shape[1], kv_seg.shape[1]
+    i = torch.arange(Tq, device="cuda")[:, None]
+    j = torch.arange(Tkv, device="cuda")[None, :]
+    vis = (q_seg[:, :, None] == 1) & (kv_seg[:, None, :] == 1)
+    if causal:
+        vis = vis & (j <= i + (Tkv - Tq))[None]
+    return int(vis.sum().item())
+
+
+def check_masked_kernels(cfg, rows: dict) -> None:
+    """Kernel rows 9 (flash forward under segment ids) and 8 (the
+    recompute-path backward) at the padded path's shapes, B=2, H=32,
+    T=2048, D=100 bf16, q and k from rope and v a strided view: row 0
+    left-padded by 512 tokens (the path's case, timed), a right-padded row,
+    a key-padding mask (full attention) and Tq = 1024 over Tkv = 2048. Each
+    against its plain version; then a planted fault (the segments ignored)
+    must fail the forward's limit. Every row is compared, pad queries too."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.executors import flashex, fusedex
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B, H, D = LOSS_BATCH, cfg.n_head, cfg.head_size
+    scale = 1.0 / math.sqrt(D)
+    q_view, k_view, v, cos, sin = _path_inputs(cfg, B, gen)
+    q_full, k = fusedex.apply_rope(q_view, cos, sin), fusedex.apply_rope(k_view, cos, sin)
+    del q_view, k_view
+    dout_full = torch.randn((B, SEQ, H, D), generator=gen, device="cuda").to(torch.bfloat16).permute(0, 2, 1, 3)
+
+    def fold(name, label, err, rel, limit):
+        row = rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["row_rel_err"] = max(row["row_rel_err"], rel)
+        log(f"  {name:8s} {label:>8s} max_abs_err={err:.3e} row_rel_err={rel:.3e} (limit {limit:.3e})")
+        require(rel <= limit, f"{name} kernel disagrees with its plain version at {label} ({rel} > {limit})")
+
+    eps = 2.0 ** -7
+    for label, Tq, padding, causal in MASK_CASES:
+        q, dout = q_full[:, :, SEQ - Tq:], dout_full[:, :, SEQ - Tq:]
+        q_seg, kv_seg = _segments(B, Tq, SEQ, padding, causal)
+        seg = dict(q_seg=q_seg, kv_seg=kv_seg)
+
+        # -- row 9: the forward under segment ids ----------------------------
+        got = flashex.flash_attention_fwd_seg(q, k, v, q_seg, kv_seg, causal=causal, scale=scale)
+        want_out, want_lse = flashex.flash_attention_lse_plain(q, k, v, causal=causal, scale=scale, **seg)
+        require(bool(torch.isfinite(got).all()), f"flash_fwd_seg produced non-finite values at {label}")
+        err, rel = (got.float() - want_out.float()).abs().max().item(), row_rel_err(got, want_out)
+        lse = torch.empty((B, H, Tq), dtype=torch.float32, device="cuda")
+        out = flashex._launch_fwd(q, k, v, causal, scale, lse, q_seg, kv_seg)
+        lse_rel = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        require(torch.equal(out, got) and lse_rel <= LSE_REL, f"flash_fwd_seg with lse at {label}: lse rel_err "
+                                                              f"{lse_rel} (limit {LSE_REL})")
+        pairs = _valid_pairs(q_seg, kv_seg, causal)
+        seg_bytes = (q_seg.numel() + kv_seg.numel()) * 4
+        if label == MASK_CASES[0][0]:
+            mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
+            mask &= torch.ones((Tq, SEQ), dtype=torch.bool, device="cuda").tril(SEQ - Tq)
+            nb = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 + seg_bytes
+            b_ms, b_by = bound(nb, 4.0 * H * D * pairs, PEAK_BF16_FLOPS)
+            _recorder(rows)(
+                "flash_fwd_seg", label, err, rel, FLASH_ROW_REL, source="thunder_tpu_torch/csrc/flash_attn.cu",
+                replaces="thunder_tpu/executors/flashex.py:355",
+                ms=time_ms(lambda: flashex.flash_attention_fwd_seg(q, k, v, q_seg, kv_seg, causal=causal,
+                                                                   scale=scale), 20),
+                plain_ms=time_ms(lambda: flashex.flash_attention_plain(q, k, v, causal=causal, scale=scale, **seg),
+                                 3, 1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 10))
+            # The planted fault: the same inputs with the segments ignored.
+            wrong = flashex.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+            planted = row_rel_err(wrong, want_out)
+            log(f"  flash_fwd_seg planted fault (segments ignored): row_rel_err={planted:.3e} (must exceed "
+                f"{FLASH_ROW_REL:.3e})")
+            require(planted > FLASH_ROW_REL, "the masked-kernel comparison did not see the segments ignored")
+            del wrong
+        else:
+            fold("flash_fwd_seg", label, err, rel, FLASH_ROW_REL)
+        del got, want_out, want_lse
+
+        # -- row 8: the recompute-path backward ------------------------------
+        got = flashex.flash_attention_bwd_recompute(dout, q, k, v, causal=causal, scale=scale, **seg)
+        require(all(bool(torch.isfinite(g).all()) for g in got), f"flash_bwd_recompute non-finite at {label}")
+        want = flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale, **seg)
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        rel = max(row_rel_err(g, w, floor=eps * eps) for g, w in zip(got, want))
+        del want
+        e2e = flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale, **seg)
+        rel_e2e = max(row_rel_err(g, w, floor=eps * eps) for g, w in zip(got, e2e))
+        log(f"  flash_bwd_recompute {label}: against the plain recompute end to end row_rel_err={rel_e2e:.3e} "
+            f"(limit {FLASH_RECOMPUTE_ROW_REL:.3e})")
+        require(rel_e2e <= FLASH_RECOMPUTE_ROW_REL, f"flash_bwd_recompute differs from the plain recompute at {label}")
+        del e2e
+        if label == MASK_CASES[0][0]:
+            # Read q, k, v, dout and the segments once; write dq, dk, dv once.
+            nb = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2 + dout.numel() * 2 + seg_bytes
+            b_ms, b_by = bound(nb, (4.0 + 10.0) * H * D * pairs, PEAK_BF16_FLOPS)
+            qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+            def library():  # the same function in one PyTorch call each way: SDPA forward, autograd backward
+                ref = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+                return torch.autograd.grad(ref, (qr, kr, vr), dout)
+
+            _recorder(rows)(
+                "flash_bwd_recompute", label, err, rel, FLASH_BWD_ROW_REL, source="thunder_tpu_torch/csrc/flash_bwd.cu",
+                replaces="thunder_tpu/executors/flashex.py:474",
+                ms=time_ms(lambda: flashex.flash_attention_bwd_recompute(dout, q, k, v, causal=causal, scale=scale,
+                                                                         **seg), 10),
+                plain_ms=time_ms(lambda: flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal,
+                                                                                     scale=scale, **seg), 3, 1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10))
+            del qr, kr, vr, mask
+        else:
+            fold("flash_bwd_recompute", label, err, rel, FLASH_BWD_ROW_REL)
+        del got, out, lse
+        torch.cuda.empty_cache()
+    del q_full, k, v, dout_full
+    torch.cuda.empty_cache()
+
+
 # =============================================================================
 # Phases 4 and 5: the whole path
 # =============================================================================
@@ -537,7 +942,9 @@ def _wrappers() -> dict:
             "ce_fwd": fusedex.cross_entropy_rows, "flash_fwd_lse": flashex.flash_attention_fwd_lse,
             "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd,
             "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
-            "ln_fwd": normex.layer_norm_fwd, "ln_bwd": normex.layer_norm_bwd}
+            "ln_fwd": normex.layer_norm_fwd, "ln_bwd": normex.layer_norm_bwd,
+            "flash_fwd_seg": flashex.flash_attention_fwd_seg, "flash_bwd_recompute": flashex.flash_attention_bwd_recompute,
+            "sdpa_exact": flashex.sdpa_exact}
 
 
 def _launch_counts() -> dict:
@@ -1018,6 +1425,265 @@ def check_adamw_step(run) -> None:
     require(moved > 0, "the AdamW step moved no value of lm_head_w")
 
 
+# =============================================================================
+# Phases 10 and 11: jit(nn.Module) on a padded batch (the Llama stand-in)
+# =============================================================================
+
+LLAMA_PAD = {0: 512}  # batch row 0 left-padded by 512 tokens
+LLAMA_LR = 6e-4  # bench.py's SGD learning rate
+# The ALiBi-like bias through the exact branch against the torch executor's
+# decomposition, which rounds q*scale and the scores to bf16 where the exact
+# branch keeps f32 scores: four bf16 ulps of the row's largest |value|.
+EXACT_ROW_REL = 2.0 ** -5
+
+
+def check_llama_two_layers() -> None:
+    """The stand-in at open_llama_3b's full width with 2 layers through
+    ``thunder_tpu_torch.jit(module)`` on the padded batch: the default
+    executors against the torch executor alone, for the valid rows' logits
+    (without grad), the loss and every parameter's gradient; then with the
+    masked forward kernel ignoring its segments (the padding), and the
+    recompute backward ignoring them, each of which must fail; then an
+    ALiBi-like additive bias on SDPA, which must take the exact branch."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import flashex
+
+    cfg2 = replace(OPEN_LLAMA_3B, num_hidden_layers=2)
+    m = llama(cfg2, seed=SEED, device="cuda")
+    ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg2.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
+    valid = am.bool()
+
+    def run(executors):
+        tm = tt.jit(m, executors=executors)
+        with torch.no_grad():
+            logits = tm(ids, am)["logits"].float()
+        out = tm(ids, am, labels)
+        out["loss"].backward()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        return logits, out["loss"].item(), grads
+
+    want_logits, want_loss, want_grads = run(["torch"])
+
+    def compare(label, logits, loss, grads) -> tuple[bool, bool]:
+        rel = row_rel_err(logits[valid], want_logits[valid])
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        rels = {n: ((g - want_grads[n]).norm() / want_grads[n].norm().clamp_min(1e-30)).item() for n, g in grads.items()}
+        worst = max(rels, key=rels.get)
+        fwd_ok = math.isfinite(loss) and rel <= LOGITS_ROW_REL and loss_rel <= LOSS_REL
+        grad_ok = all(math.isfinite(r) for r in rels.values()) and rels[worst] <= GRAD_REL
+        log(f"  2-layer llama {label}: valid-row logits row_rel_err={rel:.3e} (limit {LOGITS_ROW_REL:.3e}); loss "
+            f"{loss:.6f} vs torch {want_loss:.6f} rel_err={loss_rel:.3e} (limit {LOSS_REL:.0e}); worst grad "
+            f"norm-relative error {rels[worst]:.3e} on {worst} (limit {GRAD_REL:.3e}) -> forward "
+            f"{'pass' if fwd_ok else 'FAIL'}, grads {'pass' if grad_ok else 'FAIL'}")
+        return fwd_ok, grad_ok
+
+    _zero_counts()
+    sound = compare("kernels", *run(None))
+    counts = _launch_counts()
+    require(counts["flash_fwd_seg"] == 2 * 2 and counts["flash_bwd_recompute"] == 2 and counts["sdpa_exact"] == 0,
+            f"2-layer llama: the masked kernels did not carry attention ({counts})")
+    real_fwd, real_bwd = flashex.flash_attention_fwd_seg, flashex.flash_attention_bwd_recompute
+
+    def planted_fwd(q, k, v, q_seg, kv_seg, *, causal, scale):
+        return flashex.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+
+    def planted_bwd(dout, q, k, v, *, causal, scale, q_seg=None, kv_seg=None):
+        return real_bwd(dout, q, k, v, causal=True, scale=scale)
+
+    planted_fwd.launches = planted_bwd.launches = 0
+    flashex.flash_attention_fwd_seg = planted_fwd
+    try:
+        fault_fwd = compare("planted fault (forward without its padding)", *run(None))
+    finally:
+        flashex.flash_attention_fwd_seg = real_fwd
+    flashex.flash_attention_bwd_recompute = planted_bwd
+    try:
+        fault_bwd = compare("planted fault (backward without its padding)", *run(None))
+    finally:
+        flashex.flash_attention_bwd_recompute = real_bwd
+    require(all(sound), "2-layer llama with the kernels differs from the torch executor")
+    require(not fault_fwd[0], "the 2-layer llama comparison did not see the forward's padding ignored")
+    require(not fault_bwd[1], "the 2-layer llama gradient comparison did not see the backward's padding ignored")
+    del m, want_logits, want_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # An ALiBi-like bias: additive, one slope, -inf above the diagonal. Its
+    # entries are neither 0 nor <= -1e9, so the kernels cannot express it.
+    class Biased(nn.Module):
+        def forward(self, q, k, v, bias):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    H, D = OPEN_LLAMA_3B.num_attention_heads, OPEN_LLAMA_3B.head_dim
+    q, k, v = (torch.randn((LOSS_BATCH, H, SEQ, D), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    i = torch.arange(SEQ, device="cuda")
+    dist = (i[:, None] - i[None, :]).float()
+    bias = torch.where(dist >= 0, -0.0625 * dist, -math.inf).to(torch.bfloat16)[None, None]
+    _zero_counts()
+    with torch.no_grad():
+        got = tt.jit(Biased())(q, k, v, bias)
+        counts = _launch_counts()
+        want = tt.jit(Biased(), executors=["torch"])(q, k, v, bias)
+    exact = flashex._exact_sdpa(q, k, v, bias, causal=False, scale=1.0 / math.sqrt(D))
+    rel = row_rel_err(got, want)
+    log(f"  ALiBi-like bias: exact branch taken {counts['sdpa_exact']} time(s), masked kernel "
+        f"{counts['flash_fwd_seg']}; equal to the exact arithmetic {torch.equal(got, exact)}; against the torch "
+        f"executor row_rel_err={rel:.3e} (limit {EXACT_ROW_REL:.3e})")
+    require(counts["sdpa_exact"] == 1 and counts["flash_fwd_seg"] == 0 and counts["flash_fwd"] == 0,
+            f"the ALiBi-like bias did not take the exact branch alone ({counts})")
+    require(torch.equal(got, exact) and rel <= EXACT_ROW_REL, "the exact branch's values are wrong")
+
+
+def run_llama(launches: dict) -> None:
+    """The stand-in at open_llama_3b's full width and depth (26 layers) on
+    the padded batch, B=2 x T=2048, through ``thunder_tpu_torch.jit``:
+    the forward without grad (3 calls), the same on an all-ones mask (the
+    value guard takes the unmasked causal path), and 3 training steps
+    (loss with labels -100 at pads, ``.backward()``, ``torch.optim.SGD``),
+    each with its launches checked against the claimed traces; then one
+    profiled forward and step (``profile_gpt.profile_call``)."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.executors import flashex
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = OPEN_LLAMA_3B
+    n = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    m = llama(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  llama init: {time.perf_counter() - t0:.2f} s, {sum(p.numel() for p in m.parameters()) / 1e9:.3f} B params, "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
+    ones = torch.ones_like(am)
+    tm = tt.jit(m)
+    stats = tm._lc_cs
+
+    def forward(mask):
+        with torch.no_grad():
+            return tm(ids, mask)["logits"]
+
+    def drive(label, mask, per_call, calls):
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        reads0 = flashex.mask_plan.host_reads
+        times = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            out = forward(mask)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        counts = _launch_counts()
+        reads = flashex.mask_plan.host_reads - reads0
+        log(f"  {label}: first call {times[0]:.3f} s, then {', '.join(f'{x:.4f}' for x in times[1:])} s/call; "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mask verdicts read "
+            f"{reads}; launches {counts}")
+        for k, v in per_call.items():
+            require(counts[k] == v * calls, f"{label}: {k} launched {counts[k]} times, expected {v * calls}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, reads
+
+    none = {"flash_fwd_lse": 0, "flash_bwd": 0, "flash_bwd_recompute": 0, "sdpa_exact": 0, "ce_fwd": 0, "rope": 0}
+    logits, reads = drive(f"forward padded B={LOSS_BATCH} T={SEQ}", am, {"flash_fwd_seg": n, "flash_fwd": 0, **none}, 3)
+    require(tuple(logits.shape) == (LOSS_BATCH, SEQ, cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits[am.bool()]).all()), "padded forward: valid-row logits are not finite")
+    require(reads == 3, f"the mask verdict was read {reads} times in 3 calls, expected once a call")
+    require((stats.cache_misses, stats.cache_hits) == (1, 2), "padded forward: expected 1 miss and 2 hits")
+    src = tt.last_traces(tm)[-1].python()
+    require(src.count("flash_scaled_dot_product_attention(") == n, "the padded forward does not claim every SDPA")
+    del logits
+    logits, reads = drive("forward all-ones mask", ones, {"flash_fwd": n, "flash_fwd_seg": 0, **none}, 2)
+    require(bool(torch.isfinite(logits).all()) and reads == 0, "all-ones forward: non-finite logits or a mask read")
+    require((stats.cache_misses, stats.cache_hits) == (2, 3), f"all-ones mask: cache misses/hits "
+            f"{stats.cache_misses}/{stats.cache_hits}, expected 2/3 (the value guard's second entry)")
+    forward(am)
+    require((stats.cache_misses, stats.cache_hits) == (2, 4), "the padded entry was not found again")
+    log(f"  value guard: cache misses {stats.cache_misses}, hits {stats.cache_hits}")
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = torch.optim.SGD(m.parameters(), lr=LLAMA_LR)
+    weights = torch.cuda.memory_allocated()
+    times, losses = [], []
+    per_fw = {"flash_fwd_seg": n, "ce_fwd": 1, "sdpa_exact": 0, "flash_fwd": 0, "flash_fwd_lse": 0}
+    per_bw = {"flash_bwd_recompute": n, "ce_bwd": 1, "sdpa_exact": 0, "flash_bwd": 0, "flash_fwd_seg": 0}
+    for step in range(TRAIN_STEPS):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _zero_counts()
+        out = tm(ids, am, labels)
+        fw_counts = _launch_counts()
+        _zero_counts()
+        out["loss"].backward()
+        bw_counts = _launch_counts()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(out["loss"].item())
+        del out
+        if step == 0:
+            fw_src, bw_src = tt.last_traces(tm)[-1].python(), stats.last_backward_traces[-1].python()
+            claimed = {"flash_fwd_seg": fw_src.count("flash_scaled_dot_product_attention("),
+                       "ce_fwd": fw_src.count("fused_cross_entropy("),
+                       "flash_bwd_recompute": bw_src.count("flash_sdpa_bwd("),
+                       "ce_bwd": bw_src.count("fused_cross_entropy_bwd(")}
+            log(f"  train: claimed per step {claimed}; weights {weights / 2**30:.2f} GiB")
+            require(claimed == {"flash_fwd_seg": n, "ce_fwd": 1, "flash_bwd_recompute": n, "ce_bwd": 1},
+                    "the training traces do not claim every SDPA, SDPA backward and cross-entropy")
+        for want, got in ((per_fw, fw_counts), (per_bw, bw_counts)):
+            bad = {k: got[k] for k, v in want.items() if got[k] != v}
+            require(not bad, f"train step {step + 1}: launches {bad}, expected {want}")
+        for counts in (fw_counts, bw_counts):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  llama train B={LOSS_BATCH} T={SEQ}: step 1 {times[0]:.4f} s, then "
+        f"{', '.join(f'{x:.4f}' for x in times[1:])} s/step; max_memory_allocated (steps 2-{TRAIN_STEPS}) = "
+        f"{peak / 2**30:.2f} GiB; loss {', '.join(f'{x:.6f}' for x in losses)}")
+    require(all(math.isfinite(x) and abs(x - math.log(cfg.vocab_size)) < 2.0 for x in losses),
+            "llama training loss is not near ln V")
+    require(losses[-1] < losses[0], "llama training loss did not fall")
+
+    def step():
+        out = tm(ids, am, labels)
+        out["loss"].backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    # The mask verdict's own cost: the checks over the path's (2, 1, 2048,
+    # 2048) mask and the host read, on an idle card, for a fresh mask each
+    # time (the memo would answer a repeat).
+    mask = m.model.causal_mask(am, SEQ)
+    q = torch.empty((LOSS_BATCH, cfg.num_attention_heads, SEQ, cfg.head_dim), dtype=torch.bfloat16, device="cuda")
+    costs = []
+    for _ in range(5):
+        fresh = mask.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plan = flashex.mask_plan(fresh, q, q, False)
+        costs.append((time.perf_counter() - t) * 1e3)
+    require(plan.flash and plan.causal, "the path's mask did not verify as causal∧padding")
+    log(f"  mask verdict on the path's mask, idle card: {', '.join(f'{x:.3f}' for x in costs)} ms")
+    del mask, q, fresh, plan
+
+    reads0 = flashex.mask_plan.host_reads
+    profile_call("llama_forward_padded", lambda: forward(am), batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
+                 module="chip_smoke.LlamaForCausalLM")
+    profile_call("llama_train_step_padded", step, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b", optimizer="sgd",
+                 module="chip_smoke.LlamaForCausalLM")
+    log(f"  mask verdicts read over the 10 profiled calls: {flashex.mask_plan.host_reads - reads0}")
+
+
 def main() -> int:
     import torch
 
@@ -1047,11 +1713,12 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     pythia = gpt.name_to_config(PYTHIA)
-    log(f"[3] kernels at {CFG_NAME}'s and {PYTHIA}'s path shapes")
+    log(f"[3] kernels at {CFG_NAME}'s and {PYTHIA}'s path shapes, and the masked kernels at the padded path's")
     rows: dict[str, dict] = {}
     check_kernels(cfg, rows)
     check_norm_kernels(cfg, pythia, rows)
     check_pythia_shapes(pythia, rows)
+    check_masked_kernels(cfg, rows)
 
     log(f"[4] {CFG_NAME} at full width, 2 layers: default executors vs torch executor, forward and gradients")
     check_two_layers(cfg)
@@ -1079,6 +1746,14 @@ def main() -> int:
     run_litgpt(CFG_NAME, NORM_STACK, {"flash_fwd_lse": n, "flash_bwd": n, "ce_fwd": 1, "ce_bwd": 1, "rope": 4 * n,
                                       "rms_fwd": 2 * n + 1, "rms_bwd": 2 * n + 1},
                launches, optimizer="sgd", warmup=1, iters=3)
+
+    log(f"[10] the Llama stand-in at {CFG_NAME}'s full width, 2 layers, padded batch: jit(module) vs torch "
+        "executor, forward and gradients; the exact branch")
+    check_llama_two_layers()
+
+    log(f"[11] the Llama stand-in, {OPEN_LLAMA_3B.num_hidden_layers} layers, padded batch: forward without grad, "
+        "all-ones mask, 3 SGD steps")
+    run_llama(launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

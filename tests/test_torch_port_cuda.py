@@ -389,3 +389,125 @@ def test_rope_with_negated_sin_undoes_rope(dev):
     cos, sin = emb.cos(), emb.sin()
     back = fusedex.apply_rope(fusedex.apply_rope(x, cos, sin), cos, -sin)
     torch.testing.assert_close(back, x, rtol=1e-5, atol=1e-5)
+
+
+# =============================================================================
+# Masked and padded attention: the forward under segment ids (kernel row 9)
+# and the recompute-path backward (row 8)
+# =============================================================================
+
+# (B, H, G, Tq, Tkv, D, causal, dtype, padding of batch row 0): the path
+# shape (open_llama_3b, row 0 left-padded by 512 tokens); left padding that
+# empties the first one, two and all but the last 64-key tile for every
+# valid query; right padding; no padding; GQA; Tq != Tkv; odd T; full
+# attention with one-element loads. q, k and v are strided views.
+_SEG_SHAPES = [
+    (2, 32, 32, 2048, 2048, 100, True, torch.bfloat16, ("left", 512)),
+    (2, 4, 4, 256, 256, 64, True, torch.bfloat16, ("left", 64)),
+    (2, 4, 4, 256, 256, 64, True, torch.bfloat16, ("left", 128)),
+    (2, 4, 4, 256, 256, 64, True, torch.bfloat16, ("left", 192)),
+    (2, 4, 4, 256, 256, 100, True, torch.bfloat16, ("right", 100)),
+    (2, 4, 4, 256, 256, 100, True, torch.bfloat16, ("none", 0)),
+    (2, 8, 2, 128, 128, 64, True, torch.bfloat16, ("left", 40)),
+    (2, 2, 2, 128, 256, 32, True, torch.float16, ("left", 70)),
+    (2, 2, 2, 97, 97, 100, True, torch.bfloat16, ("right", 30)),
+    (2, 2, 2, 96, 96, 30, False, torch.bfloat16, ("left", 20)),
+]
+
+
+def _segments(B, Tq, Tkv, padding, dev):
+    """(q_seg, kv_seg) int32, 1 valid and 0 pad, with batch row 0 padded as
+    ``padding`` says; the queries are the last Tq key positions."""
+    kind, n = padding
+    kv = torch.ones((B, Tkv), dtype=torch.int32)
+    if kind == "left":
+        kv[0, :n] = 0
+    elif kind == "right":
+        kv[0, Tkv - n:] = 0
+    return kv[:, Tkv - Tq:].contiguous().to(dev), kv.to(dev)
+
+
+@pytest.mark.parametrize("B,H,G,Tq,Tkv,D,causal,dtype,padding", _SEG_SHAPES)
+def test_flash_fwd_seg_matches_plain(dev, B, H, G, Tq, Tkv, D, causal, dtype, padding):
+    """The forward under segment ids holds to the unmasked forward's limit:
+    two roundings of the row's largest |value|. Every row is compared, pad
+    queries too (they attend the pad keys they may see)."""
+    from thunder_tpu_torch.executors import flashex
+
+    q, _, _ = _qkv_views(B, H, G, Tq, D, dtype, dev, 40)
+    _, k, v = _qkv_views(B, H, G, Tkv, D, dtype, dev, 41)
+    q_seg, kv_seg = _segments(B, Tq, Tkv, padding, dev)
+    scale = 1.0 / math.sqrt(D)
+    before = flashex.flash_attention_fwd_seg.launches
+    got = flashex.flash_attention_fwd_seg(q, k, v, q_seg, kv_seg, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert flashex.flash_attention_fwd_seg.launches == before + 1
+    want = flashex.flash_attention_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    _assert_rows_close(got, want, 2)
+    # The forward with logsumexp, as the recompute runs it: lse within f32
+    # summation noise of the plain version's, -inf for a query that sees no key.
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
+    out = flashex._launch_fwd(q, k, v, causal, scale, lse, q_seg, kv_seg)
+    want_out, want_lse = flashex.flash_attention_lse_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg,
+                                                           kv_seg=kv_seg)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,G,Tq,Tkv,D,causal,dtype,padding", _SEG_SHAPES)
+def test_flash_bwd_recompute_matches_plain(dev, B, H, G, Tq, Tkv, D, causal, dtype, padding):
+    """The recompute-path backward against the plain backward from the
+    kernel forward's own (out, lse), the pair the wrapper recomputes: the
+    residual backward's limit, 4 ulps of the row's largest |value| with an
+    eps² floor. Against the plain recompute end to end, whose out and lse
+    differ from the kernel's by up to two ulps (which moves Di), 8 ulps."""
+    from thunder_tpu_torch.executors import flashex
+
+    q, _, _ = _qkv_views(B, H, G, Tq, D, dtype, dev, 42)
+    _, k, v = _qkv_views(B, H, G, Tkv, D, dtype, dev, 43)
+    q_seg, kv_seg = _segments(B, Tq, Tkv, padding, dev)
+    scale = 1.0 / math.sqrt(D)
+    dout = _randn((B, Tq, H, D), dtype, dev, 44).permute(0, 2, 1, 3)
+    before = flashex.flash_attention_bwd_recompute.launches
+    got = flashex.flash_attention_bwd_recompute(dout, q, k, v, causal=causal, scale=scale, q_seg=q_seg,
+                                                kv_seg=kv_seg)
+    torch.cuda.synchronize()
+    assert flashex.flash_attention_bwd_recompute.launches == before + 1
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
+    out = flashex._launch_fwd(q, k, v, causal, scale, lse, q_seg, kv_seg)
+    want = flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale, q_seg=q_seg,
+                                             kv_seg=kv_seg)
+    end_to_end = flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale,
+                                                             q_seg=q_seg, kv_seg=kv_seg)
+    eps = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, end_to_end):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        assert torch.isfinite(g).all(), name
+        _assert_rows_close(g, w, 4, floor=eps * eps * w.float().abs().max().item())
+        _assert_rows_close(g, e, 8, floor=eps * eps * e.float().abs().max().item())
+
+
+def test_flash_bwd_recompute_is_reproducible(dev):
+    from thunder_tpu_torch.executors import flashex
+
+    q, k, v = _qkv_views(2, 4, 4, 256, 100, torch.bfloat16, dev, 45)
+    q_seg, kv_seg = _segments(2, 256, 256, ("left", 100), dev)
+    dout = _randn((2, 4, 256, 100), torch.bfloat16, dev, 46)
+    a = flashex.flash_attention_bwd_recompute(dout, q, k, v, causal=True, scale=0.1, q_seg=q_seg, kv_seg=kv_seg)
+    b = flashex.flash_attention_bwd_recompute(dout, q, k, v, causal=True, scale=0.1, q_seg=q_seg, kv_seg=kv_seg)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits every run
+
+
+def test_flash_seg_refuses_bad_segments(dev):
+    from thunder_tpu_torch.executors import flashex
+
+    q, k, v = _qkv_views(2, 2, 2, 64, 32, torch.bfloat16, dev, 47)
+    q_seg, kv_seg = _segments(2, 64, 64, ("left", 10), dev)
+    with pytest.raises(ValueError, match="int32"):
+        flashex.flash_attention_fwd_seg(q, k, v, q_seg.long(), kv_seg, causal=True, scale=0.1)
+    with pytest.raises(ValueError, match="int32"):
+        flashex.flash_attention_fwd_seg(q, k, v, q_seg, kv_seg[:, :32].contiguous(), causal=True, scale=0.1)
+    with pytest.raises(ValueError, match="go together"):
+        flashex.flash_attention_bwd_recompute(q, q, k, v, causal=True, scale=0.1, q_seg=q_seg)

@@ -1,0 +1,740 @@
+"""The port's nn.Module frontend against the JAX package's, on the CPU.
+
+Each case of ``tests/test_torch_frontend.py`` that needs neither sequence
+bucketing nor distribution, run on one torch module through
+``thunder_tpu.jit(m)`` (the JAX package), ``thunder_tpu_torch.jit(m,
+device="cpu")`` (the port) and eager torch, with the same weights (the same
+module, its grads cleared between runs), held to that test's own
+tolerances. Then the Llama stand-in of ``chip_smoke.py`` against
+``transformers.LlamaForCausalLM`` with the same state_dict, and the port's
+own contract: devices, options, the value guard's cache counts, launches of
+the masked path.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+import thunder_tpu
+
+import thunder_tpu_torch as tt
+from thunder_tpu_torch.common import ThunderSharpEdgeError
+from thunder_tpu_torch.executors import flashex
+
+
+def _seed():
+    torch.manual_seed(0)
+    np.random.seed(0)
+
+
+class MLP(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fc1 = nn.Linear(8, 32)
+        self.fc2 = nn.Linear(32, 4)
+        self.norm = nn.LayerNorm(32)
+
+    def forward(self, x):
+        h = F.gelu(self.fc1(x))
+        h = self.norm(h)
+        return self.fc2(h)
+
+
+class TinyAttention(nn.Module):
+    def __init__(self, dim=32, heads=4):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.proj = nn.Linear(dim, dim, bias=False)
+
+    def forward(self, x):
+        B, T, C = x.shape
+        qkv = self.qkv(x).view(B, T, 3, self.heads, C // self.heads)
+        q, k, v = qkv.unbind(2)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        y = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        y = y.transpose(1, 2).reshape(B, T, C)
+        return self.proj(y)
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().float().numpy()
+
+
+def _both(m):
+    """The module jitted by each package: (JAX package, port)."""
+    return thunder_tpu.jit(m), tt.jit(m, device="cpu")
+
+
+def _grads(m) -> dict:
+    """The module's grads as numpy, then cleared."""
+    out = {n: _np(p.grad) for n, p in m.named_parameters() if p.grad is not None}
+    m.zero_grad(set_to_none=True)
+    return out
+
+
+def _assert_forward(m, *args, rtol, atol, key=None, rows=None, **kwargs):
+    """Port and JAX package against eager (and so against each other)."""
+    jm, tm = _both(m)
+    with torch.no_grad():
+        want = m(*args, **kwargs)
+    outs = [jm(*args, **kwargs), tm(*args, **kwargs)]
+    if key is not None:
+        want, outs = getattr(want, key), [o[key] for o in outs]
+    for name, got in zip(("thunder_tpu", "thunder_tpu_torch"), outs):
+        assert isinstance(got, torch.Tensor), name
+        g, w = _np(got), _np(want)
+        if rows is not None:
+            g, w = g[rows], w[rows]
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=name)
+    return tm
+
+
+# =============================================================================
+# TestForward, TestBackward, TestStateDict
+# =============================================================================
+
+
+class TestForward:
+    def test_mlp_matches_eager(self):
+        _seed()
+        _assert_forward(MLP().eval(), torch.randn(4, 8), rtol=1e-3, atol=1e-4)
+
+    def test_attention_matches_eager(self):
+        _seed()
+        _assert_forward(TinyAttention().eval(), torch.randn(2, 16, 32), rtol=1e-3, atol=1e-4)
+
+    def test_cache_hits(self):
+        _seed()
+        m = MLP().eval()
+        tm = tt.jit(m, device="cpu")
+        x = torch.randn(4, 8)
+        tm(x)
+        tm(x)
+        assert len(tm._cache) == 1 and (tt.cache_misses(tm), tt.cache_hits(tm)) == (1, 1)
+        tm(torch.randn(6, 8))  # new shape → new entry
+        assert len(tm._cache) == 2
+        with torch.no_grad():  # grad mode is part of the key: a forward-only entry
+            tm(x)
+        assert len(tm._cache) == 3
+        assert tt.last_backward_traces(tm) == []
+
+
+class TestBackward:
+    def test_param_grads_match_eager(self):
+        _seed()
+        m = MLP()
+        x, t = torch.randn(4, 8), torch.randn(4, 4)
+        want_loss = F.mse_loss(m(x), t)
+        want_loss.backward()
+        want = _grads(m)
+        for fn in _both(m):
+            loss = F.mse_loss(fn(x), t)
+            loss.backward()
+            np.testing.assert_allclose(loss.item(), want_loss.item(), rtol=1e-4)
+            got = _grads(m)
+            assert got.keys() == want.keys()
+            for n in want:
+                np.testing.assert_allclose(got[n], want[n], rtol=1e-3, atol=1e-4, err_msg=n)
+
+    def test_grads_land_in_the_param_dtype(self):
+        """bf16 params get bf16 grads, so an optimizer steps them as eager's."""
+        _seed()
+        m = MLP().to(torch.bfloat16)
+        tt.jit(m, device="cpu")(torch.randn(4, 8, dtype=torch.bfloat16)).float().sum().backward()
+        assert all(p.grad is not None and p.grad.dtype == torch.bfloat16 for p in m.parameters())
+
+    def test_input_grads(self):
+        _seed()
+        m = MLP()
+        x0 = torch.randn(4, 8)
+        xr = x0.clone().requires_grad_(True)
+        m(xr).sum().backward()
+        for fn in _both(m):
+            x = x0.clone().requires_grad_(True)
+            fn(x).sum().backward()
+            assert x.grad is not None
+            np.testing.assert_allclose(x.grad.numpy(), xr.grad.numpy(), rtol=1e-3, atol=1e-4)
+
+    def test_optimizer_step_matches_eager(self):
+        """A plain training loop, no resync: the port's params are the
+        module's own tensors, so each optimizer step is seen by the next
+        call."""
+        _seed()
+        m_ref, m_jax, m_port = MLP(), MLP(), MLP()
+        m_jax.load_state_dict(m_ref.state_dict())
+        m_port.load_state_dict(m_ref.state_dict())
+        x, t = torch.randn(4, 8), torch.randn(4, 4)
+        runs = [(m_ref, m_ref), (m_jax, thunder_tpu.jit(m_jax)), (m_port, tt.jit(m_port, device="cpu"))]
+        for m, fn in runs:
+            opt = torch.optim.SGD(m.parameters(), lr=0.1)
+            for _ in range(3):
+                opt.zero_grad()
+                F.mse_loss(fn(x), t).backward()
+                opt.step()
+        for m, _ in runs[1:]:
+            for (n, p1), (_, p2) in zip(m.named_parameters(), m_ref.named_parameters()):
+                np.testing.assert_allclose(_np(p1), _np(p2), rtol=1e-3, atol=1e-4, err_msg=n)
+
+    def test_training_loss_decreases_without_resync(self):
+        for jit in (thunder_tpu.jit, lambda m: tt.jit(m, device="cpu")):
+            _seed()
+            m = MLP()
+            tm = jit(m)
+            opt = torch.optim.Adam(m.parameters(), lr=1e-2)
+            x, t = torch.randn(16, 8), torch.randn(16, 4)
+            losses = []
+            for _ in range(10):
+                opt.zero_grad()
+                loss = F.mse_loss(tm(x), t)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            assert losses[-1] < 0.5 * losses[0], losses
+
+    def test_mixed_requires_grad_inputs(self):
+        """A non-requires-grad tensor input before a requires-grad one: the
+        cotangents go to the right inputs."""
+
+        class TwoInput(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.fc = nn.Linear(8, 8)
+
+            def forward(self, a, b):
+                return (self.fc(b) * a).sum()
+
+        _seed()
+        m = TwoInput()
+        a = torch.randn(4, 8)
+        b0 = torch.randn(4, 8)
+        br = b0.clone().requires_grad_(True)
+        m(a, br).backward()
+        m.zero_grad(set_to_none=True)
+        for fn in _both(m):
+            b = b0.clone().requires_grad_(True)
+            fn(a, b).backward()
+            assert a.grad is None and b.grad is not None
+            np.testing.assert_allclose(b.grad.numpy(), br.grad.numpy(), rtol=1e-3, atol=1e-4)
+
+    def test_attention_backward(self):
+        _seed()
+        m = TinyAttention()
+        x = torch.randn(2, 16, 32)
+        m(x).pow(2).sum().backward()
+        want = _grads(m)
+        for fn in _both(m):
+            fn(x).pow(2).sum().backward()
+            got = _grads(m)
+            for n in want:
+                np.testing.assert_allclose(got[n], want[n], rtol=1e-2, atol=1e-3, err_msg=n)
+
+
+class TestStateDict:
+    def test_load_state_dict_resyncs(self):
+        _seed()
+        m = MLP().eval()
+        x = torch.randn(4, 8)
+        m2 = MLP()
+        for fn in _both(m):
+            m.load_state_dict(MLP().state_dict())
+            out1 = _np(fn(x))
+            fn.load_state_dict(m2.state_dict())
+            out2 = _np(fn(x))
+            want = _np(m2.eval()(x))
+            assert not np.allclose(out1, out2)
+            np.testing.assert_allclose(out2, want, rtol=1e-3, atol=1e-4)
+
+
+# =============================================================================
+# TestHuggingFace: unmodified transformers models
+# =============================================================================
+
+
+class TestHuggingFace:
+    def test_gptneox_forward(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.GPTNeoXConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=64, rotary_pct=0.25, max_position_embeddings=32,
+            use_parallel_residual=True, hidden_act="gelu",
+        )
+        m = transformers.GPTNeoXForCausalLM(cfg).eval()
+        idx = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (2, 16)))
+        _assert_forward(m, idx, key="logits", rtol=1e-3, atol=1e-4)
+
+    def test_llama_forward(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.LlamaConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, intermediate_size=88, max_position_embeddings=32,
+            tie_word_embeddings=False,
+        )
+        m = transformers.LlamaForCausalLM(cfg).eval()
+        idx = torch.from_numpy(np.random.RandomState(1).randint(0, 64, (2, 16)))
+        _assert_forward(m, idx, key="logits", rtol=1e-3, atol=1e-4)
+
+    def test_mistral_forward(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.MistralConfig(
+            vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+        )
+        torch.manual_seed(0)
+        m = transformers.MistralForCausalLM(cfg).eval()
+        idx = torch.from_numpy(np.random.RandomState(2).randint(0, 128, (2, 16)))
+        _assert_forward(m, idx, key="logits", rtol=1e-3, atol=1e-4)
+
+    def test_gpt2_forward_and_backward(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.GPT2Config(vocab_size=64, n_positions=32, n_embd=32, n_layer=2, n_head=4)
+        torch.manual_seed(3)
+        m = transformers.GPT2LMHeadModel(cfg).eval()
+        idx = torch.from_numpy(np.random.RandomState(3).randint(0, 64, (2, 16)))
+        _assert_forward(m, idx, key="logits", rtol=2e-3, atol=2e-3)
+        m(idx).logits.float().pow(2).mean().backward()
+        want = _grads(m)
+        assert len(want) >= 10
+        for fn in _both(m):
+            fn(idx)["logits"].float().pow(2).mean().backward()
+            got = _grads(m)
+            for n in want:
+                assert n in got, n
+                np.testing.assert_allclose(got[n], want[n], rtol=2e-2, atol=1e-4, err_msg=n)
+
+    def test_t5_encoder_decoder(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=2, num_heads=4,
+                                    decoder_start_token_id=0)
+        torch.manual_seed(5)
+        m = transformers.T5ForConditionalGeneration(cfg).eval()
+        enc = torch.from_numpy(np.random.RandomState(5).randint(0, 64, (2, 10)))
+        dec = torch.from_numpy(np.random.RandomState(6).randint(0, 64, (2, 6)))
+        _assert_forward(m, key="logits", rtol=2e-3, atol=2e-3, input_ids=enc, decoder_input_ids=dec)
+
+    def test_bert_encoder_with_attention_mask(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.BertConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=64, max_position_embeddings=32, type_vocab_size=2,
+        )
+        torch.manual_seed(4)
+        m = transformers.BertModel(cfg).eval()
+        idx = torch.from_numpy(np.random.RandomState(4).randint(0, 64, (2, 12)))
+        mask = torch.ones(2, 12, dtype=torch.long)
+        mask[0, 8:] = 0  # right padding
+        _assert_forward(m, key="last_hidden_state", rows=mask.bool().numpy(), rtol=2e-3, atol=2e-3,
+                        input_ids=idx, attention_mask=mask)
+
+    def test_gptneox_backward(self):
+        transformers = pytest.importorskip("transformers")
+        cfg = transformers.GPTNeoXConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=64, rotary_pct=0.25, max_position_embeddings=32,
+        )
+        m = transformers.GPTNeoXForCausalLM(cfg)
+        idx = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (2, 16)))
+        m(idx).logits.float().pow(2).mean().backward()
+        want = _grads(m)
+        assert len(want) > 5
+        for fn in _both(m):
+            fn(idx)["logits"].float().pow(2).mean().backward()
+            got = _grads(m)
+            for n in want:
+                np.testing.assert_allclose(got[n], want[n], rtol=2e-2, atol=1e-4, err_msg=n)
+
+
+# =============================================================================
+# A custom autograd.Function and a ConvNet
+# =============================================================================
+
+
+class TestCustomAutogradFunction:
+    def test_function_forward_and_grad(self):
+        """The Function's forward is traced op by op and its gradient is the
+        analytic one, equal to its hand-written backward here."""
+
+        class SquarePlus(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                ctx.save_for_backward(x)
+                return x * x + x
+
+            @staticmethod
+            def backward(ctx, g):
+                (x,) = ctx.saved_tensors
+                return g * (2 * x + 1)
+
+        class M(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.lin = nn.Linear(8, 8)
+
+            def forward(self, x):
+                return SquarePlus.apply(self.lin(x)).sum()
+
+        torch.manual_seed(0)
+        m = M()
+        x = torch.randn(3, 8)
+        want = m(x)
+        want.backward()
+        want_g = _grads(m)
+        for fn in _both(m):
+            out = fn(x)
+            torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+            out.backward()
+            got = _grads(m)
+            np.testing.assert_allclose(got["lin.weight"], want_g["lin.weight"], rtol=1e-4, atol=1e-5)
+
+
+class SmallResNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 8, 3, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(8)
+        self.conv2 = nn.Conv2d(8, 8, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(8)
+        self.fc = nn.Linear(8, 5)
+
+    def forward(self, x):
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.max_pool2d(h, 2)
+        h = F.relu(self.bn2(self.conv2(h)) + h)  # residual
+        h = F.adaptive_avg_pool2d(h, 1).flatten(1)
+        return self.fc(h)
+
+
+class TestConvNet:
+    """conv2d + BatchNorm (running-stats epilogue) + ReLU + max-pool +
+    adaptive-avg-pool + linear: training parity, then eval mode."""
+
+    @pytest.mark.parametrize("package", ["thunder_tpu", "thunder_tpu_torch"])
+    def test_train_parity_and_running_stats(self, package):
+        torch.manual_seed(0)
+        m_ref, m_jit = SmallResNet(), SmallResNet()
+        m_jit.load_state_dict(m_ref.state_dict())
+        tm = thunder_tpu.jit(m_jit) if package == "thunder_tpu" else tt.jit(m_jit, device="cpu")
+        x = torch.randn(4, 3, 8, 8)
+        t = torch.randint(0, 5, (4,))
+        opt_ref = torch.optim.SGD(m_ref.parameters(), lr=0.05)
+        opt_jit = torch.optim.SGD(m_jit.parameters(), lr=0.05)
+        for _ in range(3):
+            opt_jit.zero_grad()
+            loss_j = F.cross_entropy(tm(x), t)
+            loss_j.backward()
+            opt_jit.step()
+            opt_ref.zero_grad()
+            loss_r = F.cross_entropy(m_ref(x), t)
+            loss_r.backward()
+            opt_ref.step()
+            torch.testing.assert_close(loss_j, loss_r, rtol=2e-3, atol=1e-4)
+        torch.testing.assert_close(m_jit.bn1.running_mean, m_ref.bn1.running_mean, rtol=2e-3, atol=1e-4)
+        torch.testing.assert_close(m_jit.bn1.running_var, m_ref.bn1.running_var, rtol=2e-3, atol=1e-4)
+        tm.eval()
+        m_ref.eval()
+        with torch.no_grad():
+            torch.testing.assert_close(tm(x), m_ref(x), rtol=2e-3, atol=1e-4)
+
+
+# =============================================================================
+# TestMaskedHuggingFace: a left-padded Llama batch
+# =============================================================================
+
+
+def _hf_llama(transformers):
+    cfg = transformers.LlamaConfig(
+        vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, intermediate_size=88, max_position_embeddings=256,
+        tie_word_embeddings=False, attn_implementation="sdpa",
+    )
+    torch.manual_seed(0)
+    return transformers.LlamaForCausalLM(cfg).eval()
+
+
+class TestMaskedHuggingFace:
+    @pytest.fixture(autouse=True)
+    def _jax_flash_on_cpu(self, monkeypatch):
+        """The JAX package's splash kernels in Pallas interpret mode, as its
+        own test runs them."""
+        monkeypatch.setenv("THUNDER_FLASH_FORCE", "1")
+
+    def test_llama_padded_mask_claims_flash(self):
+        """bf16, valid rows to 5e-2 (the JAX test's tolerance): both
+        packages claim the masked SDPA, and the port runs it through the
+        masked kernel's plain version, never the exact branch."""
+        transformers = pytest.importorskip("transformers")
+        m = _hf_llama(transformers).to(torch.bfloat16)
+        idx = torch.from_numpy(np.random.RandomState(1).randint(0, 64, (2, 128)))
+        am = torch.ones(2, 128, dtype=torch.long)
+        am[0, :40] = 0  # left padding on row 0
+        with torch.no_grad():
+            want = _np(m(idx, attention_mask=am).logits)
+        jm, tm = _both(m)
+        before = flashex.sdpa_exact.launches
+        for name, fn in (("thunder_tpu", jm), ("thunder_tpu_torch", tm)):
+            got = _np(fn(idx, attention_mask=am)["logits"])
+            np.testing.assert_allclose(got[0, 40:], want[0, 40:], rtol=5e-2, atol=5e-2, err_msg=name)
+            np.testing.assert_allclose(got[1], want[1], rtol=5e-2, atol=5e-2, err_msg=name)
+        assert "flash_scaled_dot_product_attention" in thunder_tpu.last_traces(jm)[-1].python()
+        assert tt.last_traces(tm)[-1].python().count("flash_scaled_dot_product_attention(") == 2
+        assert flashex.sdpa_exact.launches == before
+
+    def test_llama_padded_backward_claims_the_recompute_path(self):
+        """With grad, the masked SDPA stays off the residual pair: the
+        backward runs ``torch.sdpa_bwd`` on flash (the recompute path), and
+        the valid rows' gradients match eager (the JAX GPT-2 test's
+        tolerances; pad query rows carry no loss)."""
+        transformers = pytest.importorskip("transformers")
+        m = _hf_llama(transformers).to(torch.bfloat16)
+        idx = torch.from_numpy(np.random.RandomState(2).randint(0, 64, (2, 128)))
+        am = torch.ones(2, 128, dtype=torch.long)
+        am[0, :40] = 0
+        w = am.bool()[:, :, None].float()
+        (m(idx, attention_mask=am).logits.float() * w).pow(2).mean().backward()
+        want = _grads(m)
+        tm = tt.jit(m, device="cpu")
+        (tm(idx, attention_mask=am)["logits"].float() * w).pow(2).mean().backward()
+        got = _grads(m)
+        bw = tt.last_backward_traces(tm)[-1].python()
+        assert bw.count("flash_sdpa_bwd(") == 2 and "sdpa_bwd_res" not in bw
+        for n in want:
+            scale = np.abs(want[n]).max()
+            np.testing.assert_allclose(got[n], want[n], rtol=0, atol=5e-2 * scale, err_msg=n)
+
+    def test_mask_value_guard_controls_cache(self):
+        """The JAX test's cache counts, in each package: a new mask content
+        with the same metadata is a controlled retrace; both entries stay."""
+        transformers = pytest.importorskip("transformers")
+        m = _hf_llama(transformers)
+        idx = torch.from_numpy(np.random.RandomState(1).randint(0, 64, (2, 128)))
+        padded = torch.ones(2, 128, dtype=torch.long)
+        padded[0, :40] = 0
+        ones = torch.ones(2, 128, dtype=torch.long)
+        with torch.no_grad():
+            want_p = _np(m(idx, attention_mask=padded).logits)
+            want_1 = _np(m(idx, attention_mask=ones).logits)
+        for fn in _both(m):
+            cs = fn._lc_cs
+            got_p = fn(idx, attention_mask=padded)["logits"]
+            assert cs.cache_misses == 1
+            fn(idx, attention_mask=padded)
+            assert (cs.cache_misses, cs.cache_hits) == (1, 1)
+            got_1 = fn(idx, attention_mask=ones)["logits"]
+            assert cs.cache_misses == 2
+            fn(idx, attention_mask=ones)
+            fn(idx, attention_mask=padded)
+            assert cs.cache_misses == 2 and cs.cache_hits == 3
+            np.testing.assert_allclose(_np(got_1), want_1, rtol=1e-3, atol=1e-3)
+            np.testing.assert_allclose(_np(got_p)[0, 40:], want_p[0, 40:], rtol=1e-3, atol=1e-3)
+
+
+# =============================================================================
+# The Llama stand-in of chip_smoke.py against transformers
+# =============================================================================
+
+
+def _standin_and_hf(transformers, dtype=torch.float32):
+    import chip_smoke
+
+    cfg = chip_smoke.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=88, num_hidden_layers=2,
+                                 num_attention_heads=4, num_key_value_heads=2)
+    m = chip_smoke.llama(cfg, seed=0, device="cpu", dtype=dtype)
+    hcfg = transformers.LlamaConfig(
+        vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=88, max_position_embeddings=256, tie_word_embeddings=False,
+        attn_implementation="sdpa", rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+    )
+    h = transformers.LlamaForCausalLM(hcfg).eval().to(dtype)
+    h.load_state_dict(m.state_dict(), strict=True)  # the same names, every one
+    # ``.to(dtype)`` also casts HF's rope buffer; a model loaded in bf16
+    # (from_pretrained(torch_dtype=...)) keeps it in f32, as the stand-in does.
+    h.model.rotary_emb.inv_freq = m.model.rotary_emb.inv_freq.clone()
+    return chip_smoke, m, h, hcfg
+
+
+@pytest.mark.parametrize("left_pad", [0, 30])
+def test_standin_matches_transformers_llama(left_pad):
+    """Same state_dict, same logits in f32 (the same arithmetic: 1e-5), and
+    the same mask: None without padding, HF's bool causal∧padding mask with."""
+    transformers = pytest.importorskip("transformers")
+    from transformers.masking_utils import create_causal_mask
+
+    chip_smoke, m, h, hcfg = _standin_and_hf(transformers)
+    ids, am, _ = chip_smoke.padded_batch(2, 80, 64, {0: left_pad} if left_pad else {}, seed=1, device="cpu")
+    with torch.no_grad():
+        got, want = m(ids, am)["logits"], h(ids, attention_mask=am).logits
+        pos = torch.arange(80)
+        hf_mask = create_causal_mask(config=hcfg, input_embeds=h.model.embed_tokens(ids), attention_mask=am,
+                                     cache_position=pos, past_key_values=None, position_ids=pos[None])
+    valid = am.bool()
+    torch.testing.assert_close(got[valid], want[valid], rtol=1e-5, atol=1e-5)
+    mask = m.model.causal_mask(am, 80)
+    if left_pad:
+        assert mask.dtype == torch.bool and torch.equal(mask, hf_mask)
+    else:
+        assert mask is None and hf_mask is None
+
+
+def test_standin_bf16_matches_transformers():
+    """In bf16 the stand-in rounds where HF does: equal logits."""
+    transformers = pytest.importorskip("transformers")
+    chip_smoke, m, h, _ = _standin_and_hf(transformers, torch.bfloat16)
+    ids, am, _ = chip_smoke.padded_batch(2, 80, 64, {0: 30}, seed=2, device="cpu")
+    with torch.no_grad():
+        got, want = m(ids, am)["logits"], h(ids, attention_mask=am).logits
+    assert torch.equal(got[am.bool()], want[am.bool()])
+
+
+def test_standin_training_step_through_the_port():
+    """The smoke test's path at a tiny size: jit(stand-in) on a left-padded
+    bf16 batch, loss with labels -100 at pads, backward and an SGD step,
+    against eager on a copy. The forward claims the masked SDPA and
+    cross-entropy, the backward the recompute path; the exact branch never
+    runs. Loss within 1e-2 relative, grads within 5e-2 of each tensor's
+    largest |value| (bf16 roundings at other places: the decomposed eager
+    SDPA against the kernels' plain versions)."""
+    import copy
+
+    import chip_smoke
+
+    cfg = chip_smoke.LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=160, num_hidden_layers=2,
+                                 num_attention_heads=4, num_key_value_heads=4)
+    m = chip_smoke.llama(cfg, seed=3, device="cpu")
+    ref = copy.deepcopy(m)
+    ids, am, labels = chip_smoke.padded_batch(2, 128, 128, {0: 40}, seed=4, device="cpu")
+    want = ref(ids, am, labels)["loss"]
+    want.backward()
+    before = flashex.sdpa_exact.launches
+    tm = tt.jit(m, device="cpu")
+    loss = tm(ids, am, labels)["loss"]
+    loss.backward()
+    fw, bw = tt.last_traces(tm)[-1].python(), tt.last_backward_traces(tm)[-1].python()
+    assert fw.count("flash_scaled_dot_product_attention(") == 2 and fw.count("fused_cross_entropy(") == 1
+    assert bw.count("flash_sdpa_bwd(") == 2 and bw.count("fused_cross_entropy_bwd(") == 1
+    assert flashex.sdpa_exact.launches == before
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-2)
+    for (n, p), (_, r) in zip(m.named_parameters(), ref.named_parameters()):
+        assert p.grad.dtype == torch.bfloat16, n
+        scale = r.grad.float().abs().max().item()
+        np.testing.assert_allclose(_np(p.grad), _np(r.grad), rtol=0, atol=5e-2 * scale, err_msg=n)
+    opt = torch.optim.SGD(m.parameters(), lr=0.5)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    assert tm(ids, am, labels)["loss"].item() < loss.item()
+
+
+# =============================================================================
+# The port's contract
+# =============================================================================
+
+
+def test_jit_module_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.jit(MLP())
+    tt.jit(MLP(), device="cpu")(torch.randn(2, 8))
+
+
+def test_jit_module_raises_on_a_tensor_off_its_device():
+    m = MLP().to("meta")
+    with pytest.raises(ValueError, match="parameter or buffer 'fc1.weight' is on meta"):
+        tt.jit(m, device="cpu")
+    tm = tt.jit(MLP(), device="cpu")
+    with pytest.raises(ValueError, match="argument 0 holds a tensor on meta"):
+        tm(torch.empty(4, 8, device="meta"))
+
+
+def test_jit_module_options_of_later_slices_raise():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tt.jit(MLP(), device="cpu", seq_bucket=128)
+    tm = tt.jit(MLP(), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tm.configure_distributed({"mode": "ddp"})
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tm.no_sync()
+    with pytest.raises(TypeError, match="unexpected options"):
+        tt.jit(MLP(), device="cpu", cache="symbolic values")
+    with pytest.raises(TypeError, match="unexpected options"):
+        tt.jit(lambda x: x, device="cpu", rematerialize=False)
+
+
+@pytest.mark.parametrize("rematerialize", [True, False])
+def test_jit_module_rematerialize_option(rematerialize):
+    _seed()
+    m = MLP()
+    x = torch.randn(4, 8)
+    tt.jit(m, device="cpu", rematerialize=rematerialize)(x).sum().backward()
+    got = _grads(m)
+    m(x).sum().backward()
+    want = _grads(m)
+    for n in want:
+        np.testing.assert_allclose(got[n], want[n], rtol=1e-4, atol=1e-5, err_msg=n)
+
+
+def test_sharp_edges_policy():
+    """A ``random`` call while tracing: silent by default, an error under
+    sharp_edges="error", for a function and for a module alike."""
+
+    class Noisy(nn.Module):
+        def forward(self, x):
+            return x * random.random()
+
+    import thunder_tpu_torch.torch as ltorch
+
+    x = torch.ones(3)
+    tt.jit(lambda x: ltorch.mul(x, random.random()), device="cpu")(x)
+    tt.jit(Noisy(), device="cpu")(x)
+    with pytest.raises(ThunderSharpEdgeError, match="random.random"):
+        tt.jit(lambda x: ltorch.mul(x, random.random()), device="cpu", sharp_edges="error")(x)
+    with pytest.raises(ThunderSharpEdgeError, match="random.random"):
+        tt.jit(Noisy(), device="cpu", sharp_edges="error")(x)
+    with pytest.warns(UserWarning, match="random.random"):
+        tt.jit(Noisy(), device="cpu", sharp_edges="warn")(x)
+
+
+def test_torch_calls_on_proxies_route_to_ltorch():
+    """``torch.*`` calls in a traced function reach the ltorch mirror through
+    TensorProxy.__torch_function__, as in the JAX package."""
+    f = tt.jit(lambda x: torch.tanh(x) + torch.nn.functional.relu(x), device="cpu")
+    x = torch.randn(5)
+    torch.testing.assert_close(f(x), torch.tanh(x) + torch.relu(x))
+    src = tt.last_traces(f)[-1].python()
+    assert "torch_tanh" in src or "tanh" in src
+
+
+def test_indexed_updates_match_eager():
+    """``index_put`` (accumulating, with repeated indices) and a slice
+    assignment, the indexed-update prims the torch executor lowers, in both
+    packages; the slice assignment's gradient in the port (index_put has no
+    VJP rule in either package)."""
+
+    class M(nn.Module):
+        def forward(self, x, idx, v):
+            y = x.index_put((idx,), v, accumulate=True)
+            z = x.clone()
+            z[1:3] = 5.0
+            return y, z
+
+    m = M()
+    x = torch.randn(6, 3)
+    idx = torch.tensor([0, 2, 2])
+    v = torch.randn(3, 3)
+    want = m(x, idx, v)
+    for fn in _both(m):
+        for got, w in zip(fn(x, idx, v), want):
+            torch.testing.assert_close(got, w, rtol=1e-6, atol=1e-6)
+
+    class Sliced(nn.Module):
+        def forward(self, x):
+            z = x.clone()
+            z[1:3] = 5.0
+            return (z * z).sum()
+
+    xr, xe = x.clone().requires_grad_(), x.clone().requires_grad_()
+    tt.jit(Sliced(), device="cpu")(xr).backward()
+    Sliced()(xe).backward()
+    torch.testing.assert_close(xr.grad, xe.grad)

@@ -203,6 +203,219 @@ def test_residual_eligibility_needs_equal_lengths():
 
 
 # =============================================================================
+# Masked attention: the forward under segment ids (kernel row 9) and the
+# recompute-path backward (row 8), through the flash executor's runtime
+# plan, held against the JAX package's TestFlashMasks cases
+# (tests/test_kernel_executors.py), run as those tests run them: splash in
+# Pallas interpret mode with THUNDER_FLASH_FORCE=1. The tolerances are those
+# tests' own (rtol 2e-2, atol 8e-3 in bf16; gradients rtol 5e-2, atol 2e-2).
+# =============================================================================
+
+_MB, _MH, _MT, _MD = 2, 2, 128, 32
+
+
+def _masked_inputs():
+    q, k, v = (_np(_MB, _MH, _MT, _MD, seed=s, scale=0.5) for s in (50, 51, 52))
+    return q, k, v
+
+
+def _sdpa_masked_both(q, k, v, m):
+    """(JAX output, port output, exact-branch count) of SDPA under mask m,
+    each package with its flash executor; the port's trace must claim it."""
+
+    def jf(q, k, v, m):
+        return jtorch.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+    def tf(q, k, v, m):
+        return ttorch.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+    want = _f32(thunder_tpu.jit(jf)(*_jax_bf16(q, k, v), m))
+    port = tt.jit(tf, device="cpu")
+    before = flashex.sdpa_exact.launches
+    got = port(*(_torch(x, torch.bfloat16) for x in (q, k, v)), torch.from_numpy(m))
+    assert "flash_scaled_dot_product_attention" in tt.last_traces(port)[-1].python()
+    return want, _f32(got), flashex.sdpa_exact.launches - before
+
+
+def _hf_mask(pad):
+    """HF-style 4D additive causal+padding mask incl. _unmask_unattended (as
+    the JAX package's TestFlashMasks builds it)."""
+    B, T = pad.shape
+    MIN = np.finfo(np.float32).min
+    m4 = np.zeros((B, 1, T, T), dtype=np.float32)
+    tri = np.triu(np.ones((T, T), dtype=bool), k=1)
+    for b in range(B):
+        mb = np.zeros((T, T), dtype=np.float32)
+        mb[tri] = MIN
+        mb[:, pad[b]] = MIN
+        fully = (mb == MIN).all(axis=1)
+        mb[fully, :] = 0.0
+        m4[b, 0] = mb
+    return m4
+
+
+def test_masked_bool_keypad_runs_the_kernel(_jax_flash_on_cpu):
+    q, k, v = _masked_inputs()
+    m = np.ones((_MB, 1, 1, _MT), dtype=bool)
+    m[0, :, :, :40] = False  # left padding
+    want, got, exact = _sdpa_masked_both(q, k, v, m)
+    assert exact == 0
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=8e-3)
+
+
+def test_masked_additive_keypad_runtime_verified(_jax_flash_on_cpu):
+    q, k, v = _masked_inputs()
+    m = np.zeros((_MB, 1, 1, _MT), dtype=np.float32)
+    m[0, :, :, :40] = np.finfo(np.float32).min
+    want, got, exact = _sdpa_masked_both(q, k, v, m)
+    assert exact == 0
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=8e-3)
+
+
+def test_masked_bool_keypad_all_masked_row_gives_zeros(_jax_flash_on_cpu):
+    """A batch row with no valid key takes the exact branch: torch's safe
+    softmax gives zeros there."""
+    q, k, v = _masked_inputs()
+    m = np.ones((_MB, 1, 1, _MT), dtype=bool)
+    m[0] = False
+    want, got, exact = _sdpa_masked_both(q, k, v, m)
+    assert exact == 1
+    np.testing.assert_allclose(got[0], 0.0, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=8e-3)
+
+
+def test_masked_additive_all_masked_row_attends_uniformly(_jax_flash_on_cpu):
+    """An additive row uniformly <= -1e9 passes the 0-or-very-negative check,
+    but softmax is shift-invariant: the exact branch attends uniformly where
+    segment ids would mask every key."""
+    q, k, v = _masked_inputs()
+    m = np.zeros((_MB, 1, 1, _MT), dtype=np.float32)
+    m[0] = np.finfo(np.float32).min
+    want, got, exact = _sdpa_masked_both(q, k, v, m)
+    assert exact == 1
+    vb = _f32(_torch(v, torch.bfloat16))
+    np.testing.assert_allclose(got[0], np.broadcast_to(vb[0].mean(axis=-2, keepdims=True), got[0].shape),
+                               rtol=2e-2, atol=8e-3)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=8e-3)
+
+
+def test_masked_additive_bias_takes_the_exact_branch(_jax_flash_on_cpu):
+    """A real (ALiBi-style) bias fails the runtime check: the exact branch,
+    f32 scores and torch's safe softmax, counted once."""
+    q, k, v = _masked_inputs()
+    m = (np.random.RandomState(3).randn(_MB, 1, 1, _MT) * 0.1).astype(np.float32)
+    want, got, exact = _sdpa_masked_both(q, k, v, m)
+    assert exact == 1
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=8e-3)
+
+
+def test_masked_hf_4d_causal_padding_mask(_jax_flash_on_cpu):
+    """The HF 4-D mask runs the kernel under segment ids; pad-query rows are
+    undefined in the JAX package (finite garbage) and attend the pad keys in
+    the port, so valid rows are compared, as the JAX test compares them."""
+    q, k, v = _masked_inputs()
+    pad = np.zeros((_MB, _MT), dtype=bool)
+    pad[0, :40] = True
+    want, got, exact = _sdpa_masked_both(q, k, v, _hf_mask(pad))
+    assert exact == 0
+    for b in range(_MB):
+        rows = ~pad[b]
+        np.testing.assert_allclose(got[b][:, rows], want[b][:, rows], rtol=2e-2, atol=8e-3)
+
+
+def test_masked_hf_4d_mask_grads(_jax_flash_on_cpu):
+    """value_and_grad through the HF 4-D mask: ``torch.sdpa_bwd`` is claimed
+    by flash (the recompute-path backward) in both packages."""
+    q, k, v = _masked_inputs()
+    pad = np.zeros((_MB, _MT), dtype=bool)
+    pad[0, :40] = True
+    m4 = _hf_mask(pad)
+    w = np.ones((_MB, 1, _MT, 1), dtype=np.float32)
+    w[0, :, pad[0], :] = 0.0  # zero cotangents at the pad-query rows
+
+    def jloss(q, k, v, m, w):
+        o = jtorch.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        return jtorch.sum(o * o * w)
+
+    def tloss(q, k, v, m, w):
+        o = ttorch.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        return ttorch.sum(o * o * w)
+
+    jvg = thunder_tpu.value_and_grad(jloss)
+    ls, gs = jvg(*_jax_bf16(q, k, v), m4, w)
+    assert "flash_sdpa_bwd" in thunder_tpu.last_traces(jvg)[-1].python()
+    tvg = tt.value_and_grad(tloss, device="cpu")
+    before = flashex.sdpa_exact.launches
+    lf, gf = tvg(*(_torch(x, torch.bfloat16) for x in (q, k, v)), torch.from_numpy(m4), torch.from_numpy(w))
+    assert "flash_sdpa_bwd(" in tt.last_traces(tvg)[-1].python()
+    assert flashex.sdpa_exact.launches == before
+    np.testing.assert_allclose(float(lf), float(ls), rtol=2e-2)
+    for name, a, b in zip("qkv", gf[:3], gs[:3]):
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=5e-2, atol=2e-2, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("pad", [("left", 40), ("right", 30), ("none", 0)])
+def test_recompute_bwd_plain_matches_autograd_in_f32(pad):
+    """In float32 the plain recompute backward under segment ids is the
+    exact gradient of attention under the equivalent bool mask (pad queries
+    attending the pad keys they may see): held against torch autograd,
+    GQA included; 1e-4 relative for f32 summation order."""
+    B, H, G, T, D = 2, 4, 2, 96, 32
+    q, k, v, g = (_torch(_np(*shape, seed=60 + i)) for i, shape in
+                  enumerate([(B, H, T, D), (B, G, T, D), (B, G, T, D), (B, H, T, D)]))
+    kv = torch.ones((B, T), dtype=torch.int32)
+    side, n = pad
+    if side == "left":
+        kv[0, :n] = 0
+    elif side == "right":
+        kv[1, T - n:] = 0
+    seg = dict(q_seg=kv.clone(), kv_seg=kv)
+    got = flashex.flash_attention_bwd_recompute(g, q, k, v, causal=True, scale=0.2, **seg)
+    mask = (kv[:, None, :, None] == kv[:, None, None, :]) & torch.ones(T, T, dtype=torch.bool).tril()
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(qa, ka, va, attn_mask=mask, scale=0.2, enable_gqa=True)
+    want = torch.autograd.grad(ref, (qa, ka, va), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    out = flashex.flash_attention_fwd_seg(q, k, v, seg["q_seg"], kv, causal=True, scale=0.2)
+    torch.testing.assert_close(out, ref.detach(), rtol=1e-4, atol=1e-5)
+
+
+def test_mask_verdict_is_read_once_per_mask():
+    """Two SDPA calls on one mask tensor (two layers) read the host once; a
+    new version of the mask (an in-place write) is read again."""
+    q, k, v = (_torch(_np(1, 2, 128, 32, seed=s), torch.bfloat16) for s in (70, 71, 72))
+    m = torch.ones((1, 1, 128, 128), dtype=torch.bool).tril()
+    m[..., :10] = False
+    m[..., :10, :10] = torch.ones(10, 10, dtype=torch.bool).tril()  # pad rows see pad keys: any value
+    before = flashex.mask_plan.host_reads
+    p1 = flashex.mask_plan(m, q, k, False)
+    p2 = flashex.mask_plan(m, q, k, False)
+    assert p1 is p2 and p1.flash and p1.causal and flashex.mask_plan.host_reads == before + 1
+    assert p1.kv_seg[0, :10].eq(0).all() and p1.kv_seg[0, 10:].eq(1).all()
+    m[0, 0, -1, 0] = True  # now the last row sees a pad key: no longer causal∧padding
+    p3 = flashex.mask_plan(m, q, k, False)
+    assert flashex.mask_plan.host_reads == before + 2 and not p3.flash
+
+
+@pytest.mark.parametrize(
+    "mask,kwargs,claimed",
+    [
+        (torch.ones(1, 1, 128, 128, dtype=torch.bool), {"is_causal": True}, False),  # mask and is_causal
+        (torch.ones(128, 128, dtype=torch.bool), {}, False),  # 2-D: the query axis, not key padding
+        (torch.ones(1, 2, 128, 128, dtype=torch.bool), {}, False),  # per-head mask
+        (torch.zeros(1, 1, 128, 128, requires_grad=True), {}, False),  # a mask that requires grad
+        (torch.ones(128, dtype=torch.bool), {}, True),  # (Tkv,) key padding
+        (torch.zeros(2, 1, 128, 128), {}, True),  # additive 4-D
+    ],
+)
+def test_masked_checker(mask, kwargs, claimed):
+    q = torch.zeros(2, 2, 128, 32, dtype=torch.bfloat16)
+    assert flashex._sdpa_checker(q, q, q, mask, **kwargs) is claimed
+    assert flashex._bwd_checker(q, q, q, q, mask, **kwargs) is claimed
+
+
+# =============================================================================
 # Rotary embedding
 # =============================================================================
 

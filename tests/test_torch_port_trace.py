@@ -122,10 +122,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'thunder_tpu'))\n"
         "print(len(mods), ','.join(bad))\n"
+        "print(','.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True)
-    n, bad = out.stdout.split(" ", 1)
+    first, mods = out.stdout.splitlines()
+    n, bad = first.split(" ", 1)
     assert int(n) > 30 and bad.strip() == ""
+    # The nn.Module frontend is among them.
+    assert {"thunder_tpu_torch.frontend.module", "thunder_tpu_torch.frontend.dispatch",
+            "thunder_tpu_torch.frontend.sharp"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():

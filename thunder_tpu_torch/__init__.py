@@ -13,6 +13,15 @@ is easy to find. This package imports neither JAX nor ``thunder_tpu``.
 """
 
 from thunder_tpu_torch import models
-from thunder_tpu_torch.api import cache_hits, cache_misses, grad, jit, last_traces, value_and_grad
+from thunder_tpu_torch.api import (
+    cache_hits,
+    cache_misses,
+    grad,
+    jit,
+    last_backward_traces,
+    last_traces,
+    value_and_grad,
+)
 
-__all__ = ["jit", "grad", "value_and_grad", "last_traces", "cache_hits", "cache_misses", "models"]
+__all__ = ["jit", "grad", "value_and_grad", "last_traces", "last_backward_traces", "cache_hits", "cache_misses",
+           "models"]

@@ -19,7 +19,13 @@ from typing import Any, Callable, Optional, Sequence
 
 from thunder_tpu_torch import clang  # registers the clang language  # noqa: F401
 from thunder_tpu_torch import torch as ltorch  # registers the torch language  # noqa: F401
-from thunder_tpu_torch.common import CacheEntry, CompileData, CompileStats
+from thunder_tpu_torch.common import (
+    CacheEntry,
+    CompileData,
+    CompileStats,
+    resolve_sharp_edges_option,
+    sharp_edges_policy,
+)
 from thunder_tpu_torch.core import devices, prims
 from thunder_tpu_torch.core.baseutils import GuardFailure
 from thunder_tpu_torch.core.codeutils import SigInfo
@@ -176,8 +182,10 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict) -> tuple[TraceCtx, Tr
     flat_concrete, _ = tree_flatten((args, kwargs))
     comp_trc._concrete_leaves = [c for c, p in zip(flat_concrete, leaves) if isinstance(p, TensorProxy)]
 
+    from thunder_tpu_torch.frontend.sharp import sharp_edge_interceptors
+
     with tracectx(comp_trc):
-        with langctx_ctx(Languages.TORCH):
+        with langctx_ctx(Languages.TORCH), sharp_edge_interceptors():
             result = fn(*proxied_args, **proxied_kwargs)
         prims.python_return(result)
     comp_trc.output = result
@@ -196,7 +204,8 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict) -> tuple[TraceCtx, Tr
 
 
 def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
-    plg_trc, comp_trc = trace_program(cd.fn, args, kwargs)
+    with sharp_edges_policy(cd.sharp_edges):
+        plg_trc, comp_trc = trace_program(cd.fn, args, kwargs)
     mark(comp_trc, "Acquisition")
     mark(plg_trc, "Prologue construction")
 
@@ -251,7 +260,9 @@ def jit(
     *,
     executors: Optional[Sequence] = None,
     device: Any = None,
+    sharp_edges: Any = "allow",
     _trace_transforms: Sequence[Callable] = (),
+    **module_options,
 ) -> Callable:
     """Compile ``fn`` for eager execution on one device.
 
@@ -260,17 +271,37 @@ def jit(
     lists executors or their names in priority order; the default is
     ``[flash, fused, torch]``. On CUDA tensors the kernel executors launch
     their kernels or raise; on CPU tensors they run their plain versions.
+    ``sharp_edges`` ("allow", "warn" or "error") says what a tracing-unsafe
+    construct (``random``, clocks, ``os.environ`` read while tracing) does.
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
+
+    A ``torch.nn.Module`` gives a ``ThunderModule`` (``frontend/module.py``),
+    which also takes ``rematerialize=`` (default True); the JAX package's
+    ``seq_bucket=``/``seq_pad_value=`` raise, naming the slice of the port
+    that brings them.
     """
     if fn is None:
-        return functools.partial(jit, executors=executors, device=device, _trace_transforms=_trace_transforms)
+        return functools.partial(jit, executors=executors, device=device, sharp_edges=sharp_edges,
+                                 _trace_transforms=_trace_transforms, **module_options)
+
+    import torch
+
+    if isinstance(fn, torch.nn.Module):
+        if _trace_transforms:
+            raise NotImplementedError("trace transforms are not supported on the nn.Module frontend")
+        from thunder_tpu_torch.frontend.module import thunder_module
+
+        return thunder_module(fn, executors=executors, device=device, sharp_edges=sharp_edges, **module_options)
+    if module_options:
+        raise TypeError(f"jit() got unexpected options {sorted(module_options)}")
 
     cd = CompileData(
         fn=fn,
         executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
         device=devices.resolve_device(device),
         trace_transforms=tuple(_trace_transforms),
+        sharp_edges=resolve_sharp_edges_option(sharp_edges),
     )
     cs = CompileStats()
 
@@ -327,6 +358,12 @@ def value_and_grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
 
 def last_traces(fn: Callable) -> list:
     return fn._lc_cs.last_traces
+
+
+def last_backward_traces(fn: Callable) -> list:
+    """The backward traces of the last call of a jitted module that ran a
+    backward (empty otherwise); a function's ``grad`` traces are joint."""
+    return fn._lc_cs.last_backward_traces
 
 
 def cache_hits(fn: Callable) -> int:

@@ -19,6 +19,8 @@ norms, activations, copies, the qkv slice backward's pads and adds, the
 optimizer update). Prints one JSON line for each. The device busy share is
 the summed kernel time over the wall time of an unprofiled call; the
 enqueue time is the host's time to return from the call, before the sync.
+``chip_smoke.py`` profiles the jitted Llama module on a padded batch with
+``profile_call``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _profile(label: str, fn, **info) -> None:
+def profile_call(label: str, fn, **info) -> None:
     """Time ``fn`` CALLS times, profile it once, print one JSON line."""
     import torch
     from torch.autograd import DeviceType
@@ -122,20 +124,20 @@ def main(argv=None) -> None:
     idx = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (args.batch, SEQ))).cuda()
     fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg), executors=executors)
     info = dict(config=cfg.name, executors=args.executors or "default")
-    _profile("forward", lambda: fwd(params, idx), batch=args.batch, seq=SEQ, **info)
+    profile_call("forward", lambda: fwd(params, idx), batch=args.batch, seq=SEQ, **info)
     del fwd, idx
     if args.step == "bench":
         from thunder_tpu_torch.benchmarks.train import build_train
 
         tr = build_train(cfg, TRAIN_BATCH, SEQ, params=params)
-        _profile("train_step", tr.step, batch=TRAIN_BATCH, seq=SEQ, optimizer="sgd", **info)
+        profile_call("train_step", tr.step, batch=TRAIN_BATCH, seq=SEQ, optimizer="sgd", **info)
         return
     from thunder_tpu_torch.benchmarks import litgpt
 
     del params
     run = litgpt.prepare(litgpt.parse_args(["--model", args.model, "--micro-batch", str(TRAIN_BATCH),
                                             "--seq", str(SEQ)]), args.executors or None)
-    _profile("train_step", run.fn, batch=TRAIN_BATCH, seq=SEQ, optimizer="adamw", step="litgpt", **info)
+    profile_call("train_step", run.fn, batch=TRAIN_BATCH, seq=SEQ, optimizer="adamw", step="litgpt", **info)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,97 @@
-"""CompileData / CompileStats / CacheEntry.
+"""CompileData / CompileStats / CacheEntry, and the sharp-edges option.
 
 Reference parity: thunder/common.py (`CompileData:138`, `CompileStats:54`,
-`CacheEntry` in thunder/__init__.py:281). Cut to the jit path of this
-package: constant-values caching (every tensor's metadata and every number's
-value is guarded by the prologue), no cache or sharp-edge options; the
-reference package's symbolic-values caching, distribution state, de-opt
-ladder and compile-phase spans come with later parts of the port.
+`CacheEntry` in thunder/__init__.py:281) and thunder/core/options.py
+(SHARP_EDGES_OPTIONS). Cut to the jit path of this package:
+constant-values caching (every tensor's metadata and every number's value is
+guarded by the prologue), no cache option; the reference package's
+symbolic-values caching, distribution state, de-opt ladder, observability
+taps and compile-phase spans come with later parts of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import enum
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable
+
+
+class SHARP_EDGES_OPTIONS(enum.Enum):
+    ALLOW = enum.auto()
+    WARN = enum.auto()
+    ERROR = enum.auto()
+
+
+_string_to_sharp_edges = {
+    "allow": SHARP_EDGES_OPTIONS.ALLOW,
+    "warn": SHARP_EDGES_OPTIONS.WARN,
+    "error": SHARP_EDGES_OPTIONS.ERROR,
+}
+
+
+def resolve_sharp_edges_option(x: Any) -> SHARP_EDGES_OPTIONS:
+    if isinstance(x, SHARP_EDGES_OPTIONS):
+        return x
+    if isinstance(x, str):
+        opt = _string_to_sharp_edges.get(x.lower())
+        if opt is not None:
+            return opt
+    raise ValueError(f"Unknown sharp_edges option {x!r} (allow|warn|error)")
+
+
+class ThunderSharpEdgeWarning(UserWarning):
+    """A tracing-unsafe construct was observed (reference:
+    thunder/core/options.py:146 + jit_ext.py `_general_jit_sharp_edge:468`)."""
+
+
+class ThunderSharpEdgeError(RuntimeError):
+    """sharp_edges='error': a tracing-unsafe construct was observed."""
+
+
+_sharp_edges_policy = contextvars.ContextVar("sharp_edges_policy", default=SHARP_EDGES_OPTIONS.ALLOW)
+_sharp_edges_suppressed = contextvars.ContextVar("sharp_edges_suppressed", default=False)
+
+
+@contextlib.contextmanager
+def suppress_sharp_edges():
+    """Scope for framework-internal work during tracing (e.g. guarded
+    concretization) whose own env/clock reads are not the user's sharp
+    edges."""
+    tok = _sharp_edges_suppressed.set(True)
+    try:
+        yield
+    finally:
+        _sharp_edges_suppressed.reset(tok)
+
+
+def sharp_edge(msg: str) -> None:
+    """Report a tracing-unsafe construct per the active policy: ALLOW is
+    silent (the reference's default), WARN emits ThunderSharpEdgeWarning,
+    ERROR raises ThunderSharpEdgeError."""
+    if _sharp_edges_suppressed.get():
+        return
+    policy = _sharp_edges_policy.get()
+    if policy is SHARP_EDGES_OPTIONS.ALLOW:
+        return
+    full = (
+        f"sharp edge: {msg}. The trace specializes on the observed value; "
+        f"changes to it will NOT recompile. Pass sharp_edges='allow' to silence."
+    )
+    if policy is SHARP_EDGES_OPTIONS.ERROR:
+        raise ThunderSharpEdgeError(full)
+    warnings.warn(full, ThunderSharpEdgeWarning, stacklevel=3)
+
+
+@contextlib.contextmanager
+def sharp_edges_policy(policy: SHARP_EDGES_OPTIONS):
+    tok = _sharp_edges_policy.set(policy)
+    try:
+        yield
+    finally:
+        _sharp_edges_policy.reset(tok)
 
 
 @dataclass
@@ -24,6 +104,7 @@ class CompileData:
     # Trace-to-trace transforms run after dce/cse and before claiming
     # (``grad`` / ``value_and_grad`` pass the autodiff transform here).
     trace_transforms: tuple = ()
+    sharp_edges: SHARP_EDGES_OPTIONS = SHARP_EDGES_OPTIONS.ALLOW
 
 
 @dataclass
@@ -47,3 +128,4 @@ class CompileStats:
         self.cache_hits: int = 0
         self.cache_misses: int = 0
         self.last_traces: list = []
+        self.last_backward_traces: list = []

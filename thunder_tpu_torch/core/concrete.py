@@ -71,7 +71,10 @@ def concretize_scalar(proxy, kind: str) -> Optional[Any]:
     if leaves is None:
         return None
 
-    return _concretize_scalar(proxy, kind, trc, leaves)
+    from thunder_tpu_torch.common import suppress_sharp_edges
+
+    with suppress_sharp_edges():
+        return _concretize_scalar(proxy, kind, trc, leaves)
 
 
 def _concretize_scalar(proxy, kind: str, trc, leaves):
@@ -104,10 +107,13 @@ def _concretize_scalar(proxy, kind: str, trc, leaves):
     dev = devices.Device().torch_device()
     vals = [bridge.to_torch(c, dev) if bridge.is_concrete_tensor(c) else c for c in leaves]
 
-    raw = fn(*vals)
-    if raw is None:
-        raise RuntimeError(f"concretization of {proxy.name} produced no value")
-    value = {"bool": bool, "int": int, "float": float}[kind](_item(raw))
+    from thunder_tpu_torch.frontend.module import suspended_tracing_patches
+
+    with suspended_tracing_patches():
+        raw = fn(*vals)
+        if raw is None:
+            raise RuntimeError(f"concretization of {proxy.name} produced no value")
+        value = {"bool": bool, "int": int, "float": float}[kind](_item(raw))
 
     guards = getattr(trc, "_value_guards", None)
     if guards is None:

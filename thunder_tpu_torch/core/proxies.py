@@ -451,14 +451,13 @@ class TensorProxy(Proxy):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        """A torch function called on a proxy: the programs this package
-        traces call the ltorch mirror (``thunder_tpu_torch.torch``) directly;
-        routing real torch functions through it belongs to the torch
-        frontend, which this package does not have yet."""
-        raise NotImplementedError(
-            f"{getattr(func, '__name__', func)} was called on a TensorProxy; "
-            "call the thunder_tpu_torch.torch mirror instead"
-        )
+        """torch-dispatch hook: makes torch's C++ argument parsers accept
+        proxies in Tensor positions and routes the call to the ltorch mirror
+        (the frontend seat of the reference's interpreter lookasides,
+        thunder/core/jit_ext.py `general_jit_lookaside:871`)."""
+        from thunder_tpu_torch.frontend.dispatch import torch_dispatch
+
+        return torch_dispatch(func, types, args, kwargs)
 
     def replace(self, name: Optional[str] = None, **changes) -> "TensorProxy":
         p = TensorProxy(

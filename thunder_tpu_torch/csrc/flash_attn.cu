@@ -1,11 +1,15 @@
-// Flash-attention forward (causal or full, no mask) for sm_90a.
+// Flash-attention forward (causal or full, optionally under segment ids)
+// for sm_90a.
 //
 // Replaces the TPU splash-attention kernel reached from
 // thunder_tpu/executors/flashex.py `_sdpa_impl` -> `_sdpa_runtime` ->
-// `_splash_sdpa` (kernel built by `_splash_kernel`), and, when given an lse
-// pointer, the residual-saving forward `_splash_fwd_res` /
-// `_sdpa_fwd_res_impl`, which also returns the per-row logsumexp that the
-// backward (flash_bwd.cu) consumes.
+// `_splash_sdpa` (kernel built by `_splash_kernel`): with no mask, and, given
+// segment ids, the masked and padded cases of `_sdpa_runtime` (key-padding
+// and HF 4-D masks, verified on the host) that `_splash_sdpa` lowers to
+// splash `SegmentIds`. When given an lse pointer it is also the
+// residual-saving forward `_splash_fwd_res` / `_sdpa_fwd_res_impl`, and the
+// recompute inside `_sdpa_bwd_impl`: the per-row logsumexp that the backward
+// (flash_bwd.cu) consumes.
 //
 // What it computes: O = softmax(scale * Q K^T + causal mask) V with an online
 // softmax, never materialising the (Tq, Tkv) scores in device memory.
@@ -14,8 +18,10 @@
 //   kernel reads them through their b/h/t strides, so the slices of the fused
 //   qkv projection are never copied. GQA reads kv head h / (H / G).
 //   Causal: query i sees key j iff j <= i + (Tkv - Tq) (bottom-right aligned,
-//   as the JAX package's decomposition and splash kernel do). A query that
-//   sees no key gets a zero row.
+//   as the JAX package's decomposition and splash kernel do). Segment ids:
+//   q_seg (B, Tq) and kv_seg (B, Tkv) int32, contiguous, both or neither;
+//   query i also needs q_seg[b, i] == kv_seg[b, j] to see key j (splash's
+//   SegmentIds semantics). A query that sees no key gets a zero row.
 // Numerics: scores are accumulated in f32 and scaled in f32 (the JAX package
 //   rounds q*scale to bf16 before its kernel instead; the two agree within
 //   the stated tolerance). The running max and sum are f32; P is rounded to
@@ -36,6 +42,12 @@
 //   exp(m_old - m_new) is a plain loop (WMMA's register layout is opaque).
 //   Rows of 200 bytes (D = 100) are only 8-byte aligned, so loads are 8-byte
 //   (4 elements) where D and the strides allow, else one element at a time.
+//   Segment ids of each key tile are staged in shared memory beside it. A
+//   tile whose keys a row cannot see (left padding empties the leading tiles
+//   of every valid query) leaves that row's running max at -inf; the rescale
+//   and the probabilities are guarded for it, so no exp(-inf - -inf) occurs.
+//   Every tile up to the causal diagonal is visited whatever the segments:
+//   pad queries attend pad keys, so no tile is empty for every row.
 //   This is the simple version: no TMA, no wgmma, no pipelining.
 
 #include <mma.h>
@@ -60,6 +72,8 @@ struct FlashParams {
   const void* v;
   void* o;
   float* lse;  // null: not wanted
+  const int* qseg;   // (B, Tq) segment ids, or null with kvseg: no segments
+  const int* kvseg;  // (B, Tkv)
   int B, H, G, Tq, Tkv, D, DP;
   long long sq[3], sk[3], sv[3];  // b, h, t strides in elements
   float scale_log2;               // scale * log2(e)
@@ -100,6 +114,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
   float* Ss = reinterpret_cast<float*>(Vs + BN * LDK);
   T* Ps = reinterpret_cast<T*>(Ss + BM * LDS);
   float* Os = reinterpret_cast<float*>(Ps + BM * LDP);
+  int* Kseg = reinterpret_cast<int*>(Os + BM * LDO);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -123,6 +138,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
   const int row = warp * 16 + r_local;
   const int qi = m0 + row;
   const int offset = p.Tkv - p.Tq;
+  const bool seg = p.qseg != nullptr;
+  const int qs = seg && qi < p.Tq ? p.qseg[static_cast<long long>(b) * p.Tq + qi] : 0;
   float m_i = -INFINITY;
   float l_i = 0.f;
 
@@ -133,6 +150,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<T, VEC>(Ks, LDK, kb, p.sk[2], n0, p.Tkv, p.D);
     load_tile<T, VEC>(Vs, LDK, vb, p.sv[2], n0, p.Tkv, p.D);
+    if (seg)
+      for (int c = threadIdx.x; c < BN; c += NTHREADS)
+        Kseg[c] = n0 + c < p.Tkv ? p.kvseg[static_cast<long long>(b) * p.Tkv + n0 + c] : 0;
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows.
@@ -160,7 +180,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
     float mx = -INFINITY;
     for (int c = half * 32; c < half * 32 + 32; ++c) {
       const int j = n0 + c;
-      const bool ok = j < p.Tkv && (!p.causal || j <= qi + offset);
+      const bool ok = j < p.Tkv && (!p.causal || j <= qi + offset) && (!seg || Kseg[c] == qs);
       const float s = ok ? srow[c] * p.scale_log2 : -INFINITY;
       srow[c] = s;
       mx = fmaxf(mx, s);
@@ -223,7 +243,7 @@ int launch(const FlashParams& p, cudaStream_t stream) {
   const int LDK = p.DP + 8;
   const int LDO = p.DP + 4;
   const size_t smem = static_cast<size_t>(BM + 2 * BN) * LDK * sizeof(T) + BM * LDS * sizeof(float) +
-                      BM * LDP * sizeof(T) + static_cast<size_t>(BM) * LDO * sizeof(float);
+                      BM * LDP * sizeof(T) + static_cast<size_t>(BM) * LDO * sizeof(float) + BN * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -235,7 +255,8 @@ int launch(const FlashParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                                 const int* qseg, const int* kvseg, int B, int H,
                                  int G, int Tq, int Tkv, int D, long long sqb, long long sqh,
                                  long long sqt, long long skb, long long skh, long long skt,
                                  long long svb, long long svh, long long svt, float scale,
@@ -246,6 +267,8 @@ extern "C" int thunder_flash_fwd(const void* q, const void* k, const void* v, vo
   p.v = v;
   p.o = o;
   p.lse = lse;
+  p.qseg = qseg;
+  p.kvseg = kvseg;
   p.B = B;
   p.H = H;
   p.G = G;

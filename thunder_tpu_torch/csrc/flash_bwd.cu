@@ -1,10 +1,14 @@
 // Flash-attention backward from the saved output and logsumexp, for sm_90a.
 //
-// Replaces the TPU kernel reached from thunder_tpu/executors/flashex.py
+// Replaces the TPU kernels reached from thunder_tpu/executors/flashex.py
 // `_sdpa_bwd_res_impl` (splash attention's `_splash_attention_bwd`, run from
-// the saved (out, lse) that `_splash_fwd_res` returns).
+// the saved (out, lse) that `_splash_fwd_res` returns) and, after a forward
+// with lse under the same segment ids (flash_attn.cu), `_sdpa_bwd_impl`: the
+// recompute-path backward of masked, padded or Tq != Tkv attention, which the
+// JAX package runs as the VJP of `_sdpa_runtime`.
 //
-// What it computes, for causal or full attention with no mask:
+// What it computes, for causal or full attention, optionally under segment
+// ids:
 //   Di = rowsum(dout * out)                       (f32)
 //   P  = exp(scale * q k^T - lse)                 (f32; 0 where masked)
 //   dV = P^T dout,  dP = dout v^T,  dS = P * (dP - Di)
@@ -14,7 +18,10 @@
 //   contiguous). dq (B, H, Tq, D) and dk/dv (B, G, Tkv, D) are contiguous and
 //   in the input type; dk/dv are summed over the H/G query heads of each kv
 //   group. Causal: query i sees key j iff j <= i + (Tkv - Tq), as in the
-//   forward. P and dS are rounded to the input type before the tensor-core
+//   forward. Segment ids q_seg (B, Tq), kv_seg (B, Tkv) int32 (both or
+//   neither): query i sees key j only if q_seg[b, i] == kv_seg[b, j], so P
+//   is 0 wherever the segments differ, as well as where causality masks and
+//   where a row's lse is -inf (a query that saw no key). P and dS are rounded to the input type before the tensor-core
 //   products that take them (P^T dout, dS k, dS^T q); every product
 //   accumulates in f32. The plain version (executors/flashex.py
 //   `flash_attention_bwd_plain`) rounds at the same places.
@@ -77,6 +84,8 @@ struct BwdParams {
   float scale;
   float scale_log2;  // scale * log2(e)
   int causal;
+  const int* qseg;   // (B, Tq), or null with kvseg: no segments
+  const int* kvseg;  // (B, Tkv)
 };
 
 // Rows [row0, row0 + NR) of a (T, D) matrix with row stride st into a shared
@@ -153,20 +162,30 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_di_kernel(BwdParams p) {
 }
 
 // lse (in log2 units) and Di of query rows [m0, m0 + BM) into rowv[0..BM) and
-// rowv[BM..2 BM); a row past Tq gets lse -inf (P = 0) and Di 0.
-__device__ __forceinline__ void load_row_stats(float* rowv, const BwdParams& p, long long bh, int m0) {
+// rowv[BM..2 BM), and their segment ids into qsegs[0..BM); a row past Tq gets
+// lse -inf (P = 0) and Di 0.
+__device__ __forceinline__ void load_row_stats(float* rowv, int* qsegs, const BwdParams& p, long long bh,
+                                               int m0) {
+  const long long b = bh / p.H;
   for (int r = threadIdx.x; r < BM; r += NTHREADS) {
     const int i = m0 + r;
     rowv[r] = i < p.Tq ? p.lse[bh * p.Tq + i] * LOG2E : -INFINITY;
     rowv[BM + r] = i < p.Tq ? p.di[bh * p.Tq + i] : 0.f;
+    if (p.qseg != nullptr) qsegs[r] = i < p.Tq ? p.qseg[b * p.Tq + i] : 0;
   }
+}
+
+// Segment ids of keys [n0, n0 + BN) into ksegs (when there are segments).
+__device__ __forceinline__ void load_key_segs(int* ksegs, const BwdParams& p, long long b, int n0) {
+  if (p.kvseg == nullptr) return;
+  for (int c = threadIdx.x; c < BN; c += NTHREADS) ksegs[c] = n0 + c < p.Tkv ? p.kvseg[b * p.Tkv + n0 + c] : 0;
 }
 
 // P = exp2(scale_log2 * S - lse2) where query m0 + r sees key n0 + c, else 0;
 // written over S in f32 and, when Pt is not null, into Pt in the input type.
 template <typename T>
-__device__ __forceinline__ void probabilities(float* Ss, T* Pt, const float* rowv, const BwdParams& p, int m0,
-                                              int n0) {
+__device__ __forceinline__ void probabilities(float* Ss, T* Pt, const float* rowv, const int* qsegs,
+                                              const int* ksegs, const BwdParams& p, int m0, int n0) {
   const int offset = p.Tkv - p.Tq;
   for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
     const int r = idx / BN;
@@ -174,7 +193,8 @@ __device__ __forceinline__ void probabilities(float* Ss, T* Pt, const float* row
     const int i = m0 + r;
     const int j = n0 + c;
     const float l2 = rowv[r];
-    const bool ok = i < p.Tq && j < p.Tkv && (!p.causal || j <= i + offset) && l2 != -INFINITY;
+    const bool ok = i < p.Tq && j < p.Tkv && (!p.causal || j <= i + offset) && l2 != -INFINITY &&
+                    (p.qseg == nullptr || qsegs[r] == ksegs[c]);
     const float pv = ok ? exp2f(Ss[r * LDS + c] * p.scale_log2 - l2) : 0.f;
     Ss[r * LDS + c] = pv;
     if (Pt != nullptr) Pt[r * LDP + c] = from_float<T>(pv);
@@ -206,6 +226,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkdv_kernel(BwdParams p) {
   float* dPs = Ss + BM * LDS;
   T* Pt = reinterpret_cast<T*>(dPs + BM * LDS);
   float* rowv = reinterpret_cast<float*>(Pt + BM * LDP);
+  int* qsegs = reinterpret_cast<int*>(rowv + 2 * BM);
+  int* ksegs = qsegs + BM;
 
   const int n0 = blockIdx.x * BN;
   const int bg = blockIdx.y;
@@ -219,6 +241,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkdv_kernel(BwdParams p) {
                         p.D);
   load_rows<T, VEC, BN>(Vs, LDK, static_cast<const T*>(p.v) + b * p.sv[0] + g * p.sv[1], p.sv[2], n0, p.Tkv,
                         p.D);
+  load_key_segs(ksegs, p, b, n0);
 
   // The first query tile with a query that sees a key of this tile.
   const int m_begin = p.causal ? max(0, n0 - (p.Tkv - p.Tq)) / BM * BM : 0;
@@ -231,12 +254,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkdv_kernel(BwdParams p) {
       __syncthreads();  // every warp is done with the previous tile
       load_rows<T, VEC, BM>(Qs, LDK, qb, p.sq[2], m0, p.Tq, p.D);
       load_rows<T, VEC, BM>(dOs, LDK, dob, p.sdo[2], m0, p.Tq, p.D);
-      load_row_stats(rowv, p, bh, m0);
+      load_row_stats(rowv, qsegs, p, bh, m0);
       __syncthreads();
       mma_tiles<T, false, true>(Ss, LDS, Qs, LDK, Ks, LDK, BM, BN, p.DP, false);    // S = Q K^T
       mma_tiles<T, false, true>(dPs, LDS, dOs, LDK, Vs, LDK, BM, BN, p.DP, false);  // dP = dO V^T
       __syncthreads();
-      probabilities<T>(Ss, Pt, rowv, p, m0, n0);
+      probabilities<T>(Ss, Pt, rowv, qsegs, ksegs, p, m0, n0);
       __syncthreads();
       mma_tiles<T, true, false>(dVa, LDA, Pt, LDP, dOs, LDK, BN, p.DP, BM, true);  // dV += P^T dO
       __syncthreads();
@@ -272,6 +295,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(BwdParams p) {
   float* dPs = Ss + BM * LDS;
   T* dSt = reinterpret_cast<T*>(dPs + BM * LDS);
   float* rowv = reinterpret_cast<float*>(dSt + BM * LDP);
+  int* qsegs = reinterpret_cast<int*>(rowv + 2 * BM);
+  int* ksegs = qsegs + BM;
 
   const int m0 = blockIdx.x * BM;
   const int bh = blockIdx.y;
@@ -287,7 +312,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(BwdParams p) {
                         p.D);
   load_rows<T, VEC, BM>(dOs, LDK, static_cast<const T*>(p.dout) + b * p.sdo[0] + h * p.sdo[1], p.sdo[2], m0,
                         p.Tq, p.D);
-  load_row_stats(rowv, p, bh, m0);
+  load_row_stats(rowv, qsegs, p, bh, m0);
 
   int n_end = p.Tkv;
   if (p.causal) n_end = min(p.Tkv, m0 + BM + (p.Tkv - p.Tq));
@@ -295,11 +320,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(BwdParams p) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_rows<T, VEC, BN>(Ks, LDK, kb, p.sk[2], n0, p.Tkv, p.D);
     load_rows<T, VEC, BN>(Vs, LDK, vb, p.sv[2], n0, p.Tkv, p.D);
+    load_key_segs(ksegs, p, b, n0);
     __syncthreads();
     mma_tiles<T, false, true>(Ss, LDS, Qs, LDK, Ks, LDK, BM, BN, p.DP, false);    // S = Q K^T
     mma_tiles<T, false, true>(dPs, LDS, dOs, LDK, Vs, LDK, BM, BN, p.DP, false);  // dP = dO V^T
     __syncthreads();
-    probabilities<T>(Ss, nullptr, rowv, p, m0, n0);
+    probabilities<T>(Ss, nullptr, rowv, qsegs, ksegs, p, m0, n0);
     __syncthreads();
     score_grads<T>(dSt, Ss, dPs, rowv);
     __syncthreads();
@@ -320,7 +346,7 @@ int launch(const BwdParams& p, cudaStream_t stream) {
   const int LDK = p.DP + 8;
   const int LDA = p.DP + 4;
   const size_t common = static_cast<size_t>(2 * BM + 2 * BN) * LDK * sizeof(T) + 2 * BM * LDS * sizeof(float) +
-                        BM * LDP * sizeof(T) + 2 * BM * sizeof(float);
+                        BM * LDP * sizeof(T) + 2 * BM * sizeof(float) + (BM + BN) * sizeof(int);
   const size_t smem_dkdv = common + static_cast<size_t>(2 * BN) * LDA * sizeof(float);
   const size_t smem_dq = common + static_cast<size_t>(BM) * LDA * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, VEC>,
@@ -346,7 +372,8 @@ int launch(const BwdParams& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int thunder_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                 const float* lse, void* dq, void* dk, void* dv, float* di, int B, int H, int G,
+                                 const float* lse, void* dq, void* dk, void* dv, float* di, const int* qseg,
+                                 const int* kvseg, int B, int H, int G,
                                  int Tq, int Tkv, int D, long long sqb, long long sqh, long long sqt,
                                  long long skb, long long skh, long long skt, long long svb, long long svh,
                                  long long svt, long long sob, long long soh, long long sot, long long sdob,
@@ -378,6 +405,8 @@ extern "C" int thunder_flash_bwd(const void* q, const void* k, const void* v, co
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   p.causal = causal;
+  p.qseg = qseg;
+  p.kvseg = kvseg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == thunder::kBF16)
     return vec4 ? launch<__nv_bfloat16, 4>(p, s) : launch<__nv_bfloat16, 1>(p, s);

@@ -35,8 +35,8 @@ DTYPE_CODES = {"bfloat16": 0, "float16": 1, "float32": 2}
 
 _c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "thunder_flash_fwd": [_c_void_p] * 5 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
-    "thunder_flash_bwd": [_c_void_p] * 10 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
+    "thunder_flash_fwd": [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
+    "thunder_flash_bwd": [_c_void_p] * 12 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
     "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int, _c_void_p],
     "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],

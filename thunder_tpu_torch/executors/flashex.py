@@ -2,24 +2,49 @@
 
 The counterpart of ``thunder_tpu/executors/flashex.py``, whose forward runs
 JAX's splash-attention Pallas kernel (``_sdpa_impl`` → ``_sdpa_runtime`` →
-``_splash_sdpa``) and whose residual pair (``_sdpa_fwd_res_impl``,
-``_sdpa_bwd_res_impl``) runs its forward with logsumexp and its backward.
-Here the forward is ``csrc/flash_attn.cu`` (online-softmax flash attention
-with tensor-core WMMA, no (B, H, S, S) scores in device memory; it also
-writes the per-row logsumexp when asked) and the backward is
-``csrc/flash_bwd.cu`` (dq, dk, dv from the saved output and logsumexp).
+``_splash_sdpa``), whose residual pair (``_sdpa_fwd_res_impl``,
+``_sdpa_bwd_res_impl``) runs its forward with logsumexp and its backward,
+and whose recompute-path backward (``_sdpa_bwd_impl``) differentiates the
+forward again. Here the forward is ``csrc/flash_attn.cu`` (online-softmax
+flash attention with tensor-core WMMA, no (B, H, S, S) scores in device
+memory; it writes the per-row logsumexp when asked, and takes optional
+segment ids) and the backward is ``csrc/flash_bwd.cu`` (dq, dk, dv from an
+output and logsumexp, under the same optional segment ids).
 
 Claims:
-- ``torch.scaled_dot_product_attention`` with no mask (causal or full), no
-  dropout, half precision (bf16/f16, like the JAX package's checker and the
-  reference's fused-SDPA executors: float32 stays decomposed), 4-D inputs
-  with S and L ≥ 64 and D ≤ 256, and GQA where H is a multiple of G;
+- ``torch.scaled_dot_product_attention``: no dropout, half precision
+  (bf16/f16, like the JAX package's checker and the reference's fused-SDPA
+  executors: float32 stays decomposed), 4-D inputs with S and L ≥ 64 and
+  D ≤ 256, GQA where H is a multiple of G, and a mask of one of these shape
+  classes (``_mask_kind``; ``is_causal`` and a mask are mutually exclusive,
+  and a mask that requires grad is refused):
+  - none: causal or full attention;
+  - key padding, bool or additive, of shape (L,), (B, 1, 1, L) or
+    (1, 1, 1, L);
+  - a 4-D (1|B, 1, S, L) mask, the shape HF builds for a padded batch;
+- ``torch.sdpa_bwd``, the recompute-path backward, under the same
+  conditions: masked, padded and Tq ≠ Tkv pairs that the attention-residual
+  pass leaves alone;
 - ``torch.sdpa_fwd_res`` / ``torch.sdpa_bwd_res``, the pair that the
   attention-residual pass (``transforms/attention_residuals.py``) swaps in
-  for (sdpa, sdpa_bwd) when ``residual_eligible`` holds: the checks above
-  plus S == L.
-Masked and padded cases and the recompute-path backward (``sdpa_bwd``) are
-later parts of the port (ROADMAP.md).
+  for (sdpa, sdpa_bwd) when ``residual_eligible`` holds: no mask and S == L.
+
+A mask's values are checked when the program runs, as ``_sdpa_runtime``
+does (``_mask_plan``): a key-padding mask must leave every batch row a key
+(additive entries must be 0 or ≤ −1e9), and a 4-D mask must equal
+causal∧kv_valid or full∧kv_valid on every row whose query is valid. Such a
+mask runs the kernels under segment ids (valid 1, pad 0); any other mask
+(an ALiBi bias, say) takes the exact branch, ``sdpa_exact``: f32 scores and
+torch's safe softmax, the JAX package's ``_xla_sdpa``. The exact branch is
+the reference's semantics for masks the kernel cannot express, not a
+fallback for a kernel that fails: a kernel that fails to build or launch
+raises. JAX decides on the device with ``lax.cond``; here the verdict is
+read on the host once per mask tensor and kept on the tensor
+(``_thunder_flash_plan``, keyed on its ``_version`` and the shapes), so the
+layers of one call, and the backward, which receives the same tensor, read
+it once. Under segment ids a pad query attends the pad keys it may see,
+where splash leaves it undefined; both are finite, and the consumers of a
+padded batch read valid rows only.
 
 Each wrapper launches its kernel on CUDA tensors, or raises; on CPU tensors it
 runs its plain version, the same arithmetic in plain PyTorch. Strides: q, k
@@ -31,6 +56,8 @@ nothing (only a tensor whose last dim is strided would be copied).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -45,10 +72,11 @@ register_executor(ex)
 _MIN_SEQ = 64  # below this the decomposition is as cheap as a kernel launch
 _MAX_HEAD = 256
 _MAX_BH = 65535  # the grid's y extent
+_NEG_BIG = -1e9  # additive-mask entries at or below this count as masked
 
 
 # =============================================================================
-# The kernel and its plain version
+# The kernels' plain versions
 # =============================================================================
 
 
@@ -58,24 +86,28 @@ def _expand_heads(q: torch.Tensor, *kv: torch.Tensor) -> list[torch.Tensor]:
     return [t.repeat_interleave(H // G, dim=1) if G != H else t for t in kv]
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, scale: float) -> torch.Tensor:
-    """scale·q·kᵀ in f32 with the causal mask aligned bottom-right (−inf)."""
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, scale: float, q_seg=None,
+            kv_seg=None) -> torch.Tensor:
+    """scale·q·kᵀ in f32 with the causal mask aligned bottom-right and, given
+    segment ids, the pairs whose segments differ masked (−inf)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         Tq, Tkv = q.shape[-2], k.shape[-2]
         i = torch.arange(Tq, device=q.device)[:, None]
         j = torch.arange(Tkv, device=q.device)[None, :]
         s = s.masked_fill(j > i + (Tkv - Tq), -math.inf)
+    if q_seg is not None:
+        s = s.masked_fill(q_seg[:, None, :, None] != kv_seg[:, None, None, :], -math.inf)
     return s
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                              scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                              scale: float, q_seg=None, kv_seg=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_plain`` and the per-row logsumexp (B, H, Tq) in f32
     of the scaled, masked scores (natural log; −inf where a query sees no
     key)."""
     k, v = _expand_heads(q, k, v)
-    s = _scores(q, k, causal=causal, scale=scale)
+    s = _scores(q, k, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
     m = s.amax(-1, keepdim=True)
     m = torch.where(m == -math.inf, torch.zeros_like(m), m)
     p = torch.exp(s - m)
@@ -86,25 +118,28 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                          scale: float) -> torch.Tensor:
+                          scale: float, q_seg=None, kv_seg=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: f32 scores scaled in f32,
-    causal mask aligned bottom-right, f32 softmax statistics, P rounded to the
-    input type before P·V, and a zero row where a query sees no key."""
-    return flash_attention_lse_plain(q, k, v, causal=causal, scale=scale)[0]
+    causal mask aligned bottom-right, query i seeing key j only where
+    ``q_seg[b, i] == kv_seg[b, j]`` when segment ids are given, f32 softmax
+    statistics, P rounded to the input type before P·V, and a zero row where
+    a query sees no key."""
+    return flash_attention_lse_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)[0]
 
 
-def flash_attention_bwd_plain(dout, q, k, v, out, lse, *, causal: bool, scale: float):
-    """The backward kernel's arithmetic in plain PyTorch, from the saved
-    output and logsumexp: Di = rowsum(dout∘out), P = exp(scale·qkᵀ − lse)
-    (masked, 0 where lse is −inf), dV = Pᵀ·dout, dP = dout·vᵀ,
-    dS = P∘(dP − Di), dQ = scale·dS·k, dK = scale·dSᵀ·q, all in f32, with P
-    and dS rounded to the input type before the products that take them, as
-    the kernel's tensor-core products do. dk/dv are summed over the query
-    heads of each kv group. Returns (dq, dk, dv) in the input dtype."""
+def flash_attention_bwd_plain(dout, q, k, v, out, lse, *, causal: bool, scale: float, q_seg=None, kv_seg=None):
+    """The backward kernel's arithmetic in plain PyTorch, from an output and
+    its logsumexp: Di = rowsum(dout∘out), P = exp(scale·qkᵀ − lse)
+    (masked by causality and segments, 0 where lse is −inf), dV = Pᵀ·dout,
+    dP = dout·vᵀ, dS = P∘(dP − Di), dQ = scale·dS·k, dK = scale·dSᵀ·q, all
+    in f32, with P and dS rounded to the input type before the products that
+    take them, as the kernel's tensor-core products do. dk/dv are summed over
+    the query heads of each kv group. Returns (dq, dk, dv) in the input
+    dtype."""
     B, H, Tq, D = q.shape
     G, Tkv = k.shape[1], k.shape[2]
     ke, ve = _expand_heads(q, k, v)
-    s = _scores(q, ke, causal=causal, scale=scale)
+    s = _scores(q, ke, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
     lse_col = lse.float()[..., None]
     p = torch.exp(s - lse_col)
     p = torch.where((s > -math.inf) & (lse_col > -math.inf), p, torch.zeros_like(p))
@@ -121,6 +156,20 @@ def flash_attention_bwd_plain(dout, q, k, v, out, lse, *, causal: bool, scale: f
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_recompute_plain(dout, q, k, v, *, causal: bool, scale: float, q_seg=None, kv_seg=None):
+    """The recompute-path backward's arithmetic: ``flash_attention_lse_plain``
+    under the same segments, then ``flash_attention_bwd_plain`` from its
+    output and logsumexp."""
+    out, lse = flash_attention_lse_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
+    return flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale, q_seg=q_seg,
+                                     kv_seg=kv_seg)
+
+
+# =============================================================================
+# The kernels' wrappers
+# =============================================================================
+
+
 def _check_cuda_inputs(q, k, v, kernel: str) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{kernel}: q, k, v must be on one CUDA device, got {q.device}, {k.device}, {v.device}")
@@ -135,14 +184,30 @@ def _check_cuda_inputs(q, k, v, kernel: str) -> None:
         raise ValueError(f"{kernel}: B*H = {B * H} exceeds the grid's y limit")
 
 
+def _seg_ptrs(q, k, q_seg, kv_seg, kernel: str) -> tuple:
+    """The segment ids' pointers (None, None without segments), after
+    checking them: int32 (B, Tq) and (B, Tkv), contiguous, on q's device."""
+    if q_seg is None and kv_seg is None:
+        return None, None
+    if q_seg is None or kv_seg is None:
+        raise ValueError(f"{kernel}: q_seg and kv_seg go together")
+    B, Tq, Tkv = q.shape[0], q.shape[2], k.shape[2]
+    for name, t, shape in (("q_seg", q_seg, (B, Tq)), ("kv_seg", kv_seg, (B, Tkv))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous int32 {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return q_seg.data_ptr(), kv_seg.data_ptr()
+
+
 def _vec4_ok(D: int, *ts: torch.Tensor) -> bool:
     """8-byte loads need D, the b/h/t strides and the base pointers to be
     multiples of 4 elements (8 bytes)."""
     return D % 4 == 0 and all(t.data_ptr() % 8 == 0 and all(s % 4 == 0 for s in t.stride()[:3]) for t in ts)
 
 
-def _launch_fwd(q, k, v, causal: bool, scale: float, lse) -> torch.Tensor:
+def _launch_fwd(q, k, v, causal: bool, scale: float, lse, q_seg=None, kv_seg=None) -> torch.Tensor:
     _check_cuda_inputs(q, k, v, "flash_fwd")
+    segs = _seg_ptrs(q, k, q_seg, kv_seg, "flash_fwd")
     # The kernel reads rows through the b/h/t strides; only a strided last
     # dim (never on the model's path) is copied.
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
@@ -153,11 +218,44 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, lse) -> torch.Tensor:
     with torch.cuda.device(q.device):
         status = lib.thunder_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            B, H, G, Tq, Tkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+            *segs, B, H, G, Tq, Tkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
             int(bool(causal)), _build.dtype_code(q), int(_vec4_ok(D, q, k, v)), _build.stream_of(q),
         )
     _build.check(status, "flash_fwd")
     return out
+
+
+def _launch_bwd(dout, q, k, v, out, lse, causal: bool, scale: float, q_seg=None, kv_seg=None):
+    _check_cuda_inputs(q, k, v, "flash_bwd")
+    segs = _seg_ptrs(q, k, q_seg, kv_seg, "flash_bwd")
+    B, H, Tq, D = q.shape
+    G, Tkv = k.shape[1], k.shape[2]
+    if not all(t.device == q.device for t in (dout, out, lse)):
+        raise ValueError(f"flash_bwd: dout, out, lse must be on {q.device}, got {dout.device}, {out.device}, "
+                         f"{lse.device}")
+    if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd: dout/out must be {q.dtype} and lse float32, got {dout.dtype}, {out.dtype}, "
+                         f"{lse.dtype}")
+    if tuple(dout.shape) != (B, H, Tq, D) or tuple(out.shape) != (B, H, Tq, D) or tuple(lse.shape) != (B, H, Tq):
+        raise ValueError(f"flash_bwd: unsupported shapes dout {tuple(dout.shape)}, out {tuple(out.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, G, Tkv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, G, Tkv, D), dtype=q.dtype, device=q.device)
+    di = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        status = lib.thunder_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(), *segs, B, H, G, Tq, Tkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+            float(scale), int(bool(causal)), _build.dtype_code(q), int(_vec4_ok(D, q, k, v, out, dout)),
+            _build.stream_of(q),
+        )
+    _build.check(status, "flash_bwd")
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -195,39 +293,189 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
     dv (B, G, Tkv, D) are summed over the query heads of each kv group."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale)
-    _check_cuda_inputs(q, k, v, "flash_bwd")
-    B, H, Tq, D = q.shape
-    G, Tkv = k.shape[1], k.shape[2]
-    if not all(t.device == q.device for t in (dout, out, lse)):
-        raise ValueError(f"flash_bwd: dout, out, lse must be on {q.device}, got {dout.device}, {out.device}, "
-                         f"{lse.device}")
-    if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError(f"flash_bwd: dout/out must be {q.dtype} and lse float32, got {dout.dtype}, {out.dtype}, "
-                         f"{lse.dtype}")
-    if tuple(dout.shape) != (B, H, Tq, D) or tuple(out.shape) != (B, H, Tq, D) or tuple(lse.shape) != (B, H, Tq):
-        raise ValueError(f"flash_bwd: unsupported shapes dout {tuple(dout.shape)}, out {tuple(out.shape)}, "
-                         f"lse {tuple(lse.shape)}")
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, out, dout))
-    lse = lse.contiguous()
-    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, G, Tkv, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, G, Tkv, D), dtype=q.dtype, device=q.device)
-    di = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    lib = _build.lib()
-    with torch.cuda.device(q.device):
-        status = lib.thunder_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(), B, H, G, Tq, Tkv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
-            float(scale), int(bool(causal)), _build.dtype_code(q), int(_vec4_ok(D, q, k, v, out, dout)),
-            _build.stream_of(q),
-        )
-    _build.check(status, "flash_bwd")
+    grads = _launch_bwd(dout, q, k, v, out, lse, causal, scale)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attention_bwd.launches = 0
+
+
+def flash_attention_fwd_seg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_seg: torch.Tensor,
+                            kv_seg: torch.Tensor, *, causal: bool, scale: float) -> torch.Tensor:
+    """Attention under segment ids: query i of batch row b sees key j only
+    where ``q_seg[b, i] == kv_seg[b, j]`` (and, when causal, j ≤ i + Tkv −
+    Tq). The forward kernel, given the segments' pointers."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
+    out = _launch_fwd(q, k, v, causal, scale, None, q_seg, kv_seg)
+    flash_attention_fwd_seg.launches += 1
+    return out
+
+
+flash_attention_fwd_seg.launches = 0
+
+
+def flash_attention_bwd_recompute(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                  causal: bool, scale: float, q_seg: Optional[torch.Tensor] = None,
+                                  kv_seg: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of attention with nothing saved: the forward kernel
+    recomputes (out, lse) under the same segments, then the backward kernel
+    runs from them. One count per call; the call launches both kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale, q_seg=q_seg,
+                                                   kv_seg=kv_seg)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _launch_fwd(q, k, v, causal, scale, lse, q_seg, kv_seg)
+    grads = _launch_bwd(dout, q, k, v, out, lse, causal, scale, q_seg, kv_seg)
+    flash_attention_bwd_recompute.launches += 1
+    return grads
+
+
+flash_attention_bwd_recompute.launches = 0
+
+
+# =============================================================================
+# The exact branch: masks the kernels cannot express
+# =============================================================================
+
+
+def _exact_sdpa(q, k, v, mask, *, causal: bool, scale: float) -> torch.Tensor:
+    k, v = _expand_heads(q, k, v)
+    s = _scores(q, k, causal=causal, scale=scale)
+    if mask is not None:
+        s = s.masked_fill(~mask, -math.inf) if mask.dtype == torch.bool else s + mask.float()
+    # torch-sdpa safe softmax: a fully masked row gives zeros, not NaN.
+    dead = s.amax(-1, keepdim=True) == -math.inf
+    p = torch.where(dead, torch.zeros_like(s), torch.softmax(s, dim=-1))
+    return torch.matmul(p.to(q.dtype), v)
+
+
+def sdpa_exact(q, k, v, mask, *, causal: bool, scale: float) -> torch.Tensor:
+    """SDPA with f32 scores and torch's safe softmax, in plain PyTorch: the
+    JAX package's ``_xla_sdpa``, the branch of ``_sdpa_runtime`` for masks
+    that fail the value checks. Every call counts, on any device."""
+    sdpa_exact.launches += 1
+    return _exact_sdpa(q, k, v, mask, causal=causal, scale=scale)
+
+
+sdpa_exact.launches = 0
+
+
+def sdpa_exact_bwd(g, q, k, v, mask, *, causal: bool, scale: float):
+    """(dq, dk, dv) of ``sdpa_exact``, by autograd over its arithmetic (the
+    JAX package differentiates ``_xla_sdpa``); dk and dv are summed over the
+    query heads of each kv group. Counts on ``sdpa_exact``."""
+    sdpa_exact.launches += 1
+    with torch.enable_grad():
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        out = _exact_sdpa(qr, kr, vr, mask, causal=causal, scale=scale)
+        return torch.autograd.grad(out, (qr, kr, vr), g)
+
+
+# =============================================================================
+# Mask classification and the runtime verdict
+# =============================================================================
+
+
+def _is_bool(m) -> bool:
+    if isinstance(m, torch.Tensor):
+        return m.dtype == torch.bool
+    return dtypes.is_boolean_dtype(m.dtype)
+
+
+def _mask_kind_of(shape: tuple, is_bool: bool, B: int, Tq: int, Tkv: int) -> str:
+    if shape in {(Tkv,), (B, 1, 1, Tkv), (1, 1, 1, Tkv)}:
+        return "keypad" if is_bool else "keypad_verify"
+    if len(shape) == 4 and shape[0] in (1, B) and shape[1] == 1 and shape[2] == Tq and shape[3] == Tkv:
+        return "verify4d"
+    return "no"
+
+
+def _mask_kind(m, q, k) -> str:
+    """'none' | 'keypad' | 'keypad_verify' | 'verify4d' | 'no', from shapes
+    alone (``flashex.py:119-137`` of the JAX package): key-padding shapes
+    are those torch broadcasts to (B, H, Tq, Tkv) constant over the query
+    axis; a 2-D (X, Tkv) mask aligns X with the query axis, so it is not one.
+    A mask that requires grad is refused (the kernels give no mask
+    cotangent)."""
+    if m is None:
+        return "none"
+    if not hasattr(m, "shape") or getattr(m, "requires_grad", False):
+        return "no"
+    return _mask_kind_of(tuple(m.shape), _is_bool(m), q.shape[0], q.shape[-2], k.shape[-2])
+
+
+@dataclass(frozen=True)
+class MaskPlan:
+    """How one SDPA call runs: the kernels (causal or full, under segment
+    ids valid 1 / pad 0) or, when ``flash`` is False, the exact branch."""
+
+    flash: bool
+    causal: bool = False
+    q_seg: Optional[torch.Tensor] = None
+    kv_seg: Optional[torch.Tensor] = None
+
+
+def _verify_mask(m: torch.Tensor, B: int, Tq: int, Tkv: int, causal: bool) -> MaskPlan:
+    """The value checks of ``_sdpa_runtime`` (``flashex.py:342-414``), with
+    their verdict read on the host once."""
+    kind = _mask_kind_of(tuple(m.shape), m.dtype == torch.bool, B, Tq, Tkv)  # the checker has classed it
+    ones_q = torch.ones((B, Tq), dtype=torch.int32, device=m.device)
+    if kind in ("keypad", "keypad_verify"):
+        mm = m.reshape(-1, Tkv).expand(B, Tkv)
+        kv_valid = mm if kind == "keypad" else mm == 0
+        # A row with no valid key takes the exact branch: torch's safe
+        # softmax gives zeros there, and an all-(-1e9) additive row attends
+        # uniformly, where segments would mask everything.
+        ok = kv_valid.any(-1).all()
+        if kind == "keypad_verify":
+            ok = ok & (kv_valid | (mm <= _NEG_BIG)).all()
+        if not bool(ok):
+            return MaskPlan(False)
+        return MaskPlan(True, causal, ones_q, kv_valid.to(torch.int32).contiguous())
+
+    if Tq > Tkv:  # a query row has no key position of its own to read validity from
+        return MaskPlan(False)
+    m4 = m.expand(B, 1, Tq, Tkv)[:, 0]
+    visible = m4 if m4.dtype == torch.bool else m4 == 0
+    kv_valid = visible[:, -1, :]  # the last query sees every valid key, causal or not
+    q_valid = kv_valid[:, Tkv - Tq:]  # self-attention: the queries are the last Tq keys
+    i = torch.arange(Tq, device=m.device)[:, None]
+    j = torch.arange(Tkv, device=m.device)[None, :]
+    tri = i + (Tkv - Tq) >= j
+    pad_row = ~q_valid[:, :, None]  # only rows with a valid query must match
+    ok_causal = ((tri[None] & kv_valid[:, None, :]) == visible) | pad_row
+    ok_full = (kv_valid[:, None, :] == visible) | pad_row
+    verdict = torch.stack([ok_causal.all(), ok_full.all()])
+    if m4.dtype != torch.bool:
+        verdict = verdict & (visible | (m4 <= _NEG_BIG)).all()
+    is_causal, is_full = verdict.tolist()
+    if not (is_causal or is_full):
+        return MaskPlan(False)
+    return MaskPlan(True, bool(is_causal), q_valid.to(torch.int32).contiguous(),
+                    kv_valid.to(torch.int32).contiguous())
+
+
+def mask_plan(m: Optional[torch.Tensor], q: torch.Tensor, k: torch.Tensor, causal: bool) -> MaskPlan:
+    """The plan for SDPA of q over k under mask ``m``. The verdict is kept on
+    the mask tensor, keyed on its ``_version`` and the shapes, so every layer
+    that receives the same mask in one call, and the backward, which
+    receives it again, read the host once. ``mask_plan.host_reads`` counts
+    the reads."""
+    if m is None:
+        return MaskPlan(True, causal)
+    key = (m._version, q.shape[0], q.shape[-2], k.shape[-2], causal)
+    memo = getattr(m, "_thunder_flash_plan", None)
+    if memo is not None and memo[0] == key:
+        return memo[1]
+    plan = _verify_mask(m, q.shape[0], q.shape[-2], k.shape[-2], causal)
+    mask_plan.host_reads += 1
+    m._thunder_flash_plan = (key, plan)
+    return plan
+
+
+mask_plan.host_reads = 0
 
 
 # =============================================================================
@@ -248,11 +496,7 @@ def _half(t) -> bool:
     return dtypes.to_dtype(t.dtype) in (dtypes.bfloat16, dtypes.float16)
 
 
-def _sdpa_checker(*args, **kwargs) -> bool:
-    b = _sdpa_bound(args, kwargs)
-    q, k, v = b["query"], b["key"], b["value"]
-    if b["attn_mask"] is not None or float(pyval(b["dropout_p"])) != 0.0:
-        return False
+def _shapes_ok(q, k, v, enable_gqa) -> bool:
     if not (len(q.shape) == len(k.shape) == len(v.shape) == 4):
         return False
     if not (_half(q) and q.dtype == k.dtype == v.dtype):
@@ -261,9 +505,28 @@ def _sdpa_checker(*args, **kwargs) -> bool:
     G, L = k.shape[1], k.shape[2]
     if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[-1] != D:
         return False
-    if G != H and not (bool(pyval(b["enable_gqa"])) and H % G == 0):
+    if G != H and not (bool(pyval(enable_gqa)) and H % G == 0):
         return False
     return D <= _MAX_HEAD and S >= _MIN_SEQ and L >= _MIN_SEQ and B * H <= _MAX_BH
+
+
+def _mask_ok(mask, q, k, is_causal) -> bool:
+    """torch: ``is_causal`` and a mask are mutually exclusive."""
+    kind = _mask_kind(mask, q, k)
+    return kind != "no" and (kind == "none" or not bool(pyval(is_causal)))
+
+
+def _sdpa_checker(*args, **kwargs) -> bool:
+    b = _sdpa_bound(args, kwargs)
+    q, k, v = b["query"], b["key"], b["value"]
+    if float(pyval(b["dropout_p"])) != 0.0:
+        return False
+    return _shapes_ok(q, k, v, b["enable_gqa"]) and _mask_ok(b["attn_mask"], q, k, b["is_causal"])
+
+
+def _bwd_checker(g, query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False) -> bool:
+    return (_shapes_ok(query, key, value, enable_gqa) and g.dtype == query.dtype
+            and tuple(g.shape) == tuple(query.shape) and _mask_ok(attn_mask, query, key, is_causal))
 
 
 def _scale_of(q, scale) -> float:
@@ -272,11 +535,30 @@ def _scale_of(q, scale) -> float:
 
 def _sdpa_impl(*args, **kwargs):
     b = _sdpa_bound(args, kwargs)
-    q = b["query"]
-    return flash_attention_fwd(q, b["key"], b["value"], causal=bool(b["is_causal"]), scale=_scale_of(q, b["scale"]))
+    q, k, v, mask = b["query"], b["key"], b["value"], b["attn_mask"]
+    scale, causal = _scale_of(q, b["scale"]), bool(b["is_causal"])
+    if mask is None:
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    plan = mask_plan(mask, q, k, causal)
+    if not plan.flash:
+        return sdpa_exact(q, k, v, mask, causal=causal, scale=scale)
+    return flash_attention_fwd_seg(q, k, v, plan.q_seg, plan.kv_seg, causal=plan.causal, scale=scale)
+
+
+def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False):
+    """The recompute-path backward (``flashex.py:474-496`` of the JAX
+    package): the forward again with logsumexp under the same plan, then the
+    backward kernel; dk/dv come summed over each kv group."""
+    scale, causal = _scale_of(query, scale), bool(is_causal)
+    plan = mask_plan(attn_mask, query, key, causal)
+    if not plan.flash:
+        return sdpa_exact_bwd(g, query, key, value, attn_mask, causal=causal, scale=scale)
+    return flash_attention_bwd_recompute(g, query, key, value, causal=plan.causal, scale=scale, q_seg=plan.q_seg,
+                                         kv_seg=plan.kv_seg)
 
 
 ex.register_implementation("torch.scaled_dot_product_attention", fn=_sdpa_impl, checker=_sdpa_checker)
+ex.register_implementation("torch.sdpa_bwd", fn=_sdpa_bwd_impl, checker=_bwd_checker)
 
 
 # =============================================================================

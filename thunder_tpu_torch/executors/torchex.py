@@ -4,10 +4,13 @@ Reference parity: thunder/executors/torchex.py (`ex:40` — the default
 operator executor); it takes the seat that ``executors/jaxex.py`` holds in
 the JAX package. The claimed trace runs eagerly, one torch call per line.
 
-It covers the prims that the GPT forward and loss reach, and the elementwise,
-reduction and shape prims around them. A prim without a lowering here is not
-claimed, and the claiming pass raises "No executor for primitive ..." for
-it. The full OpInfo matrix is a later part of the port.
+It covers the prims that the GPT forward and loss reach, the elementwise,
+reduction and shape prims around them, and those that the nn.Module
+frontend's models reach besides: indexed updates (``setitem``,
+``index_put``), convolution and pooling, and their backwards. A prim
+without a lowering here is not claimed, and the claiming pass raises "No
+executor for primitive ..." for it (the random-number prims, for one). The
+full OpInfo matrix is a later part of the port.
 
 Numeric notes, as in the JAX package:
 - ``prims.div`` is true division for floats and *floor* division for
@@ -20,6 +23,7 @@ Numeric notes, as in the JAX package:
 
 from __future__ import annotations
 
+import math
 from numbers import Number
 
 import torch
@@ -149,6 +153,18 @@ _reg(PrimIDs.TAKE, _take)
 _reg(PrimIDs.TAKE_ALONG_AXIS, lambda a, idx, dim: torch.take_along_dim(a, idx.long(), dim))
 _reg(PrimIDs.GATHER, lambda a, idx, dim: torch.take_along_dim(a, idx.long(), dim))
 _reg(PrimIDs.SCATTER_ADD, lambda a, idx, val, dim: a.scatter_add(dim, idx.long(), val))
+
+
+def _setitem(a, key, value):
+    # Out of place; the value is cast to the target dtype, as torch's
+    # setitem does (7.5 into an int32 tensor stores 7).
+    out = a.clone()
+    out[key] = value.to(a.dtype) if isinstance(value, torch.Tensor) else value
+    return out
+
+
+_reg(PrimIDs.SETITEM, _setitem)
+_reg(PrimIDs.INDEX_PUT, lambda a, indices, values, accumulate: a.index_put(tuple(indices), values, accumulate))
 _reg(PrimIDs.ARGSORT, lambda a, dim, descending: torch.argsort(a, dim=dim, descending=descending, stable=True))
 _reg(PrimIDs.SORT, lambda a, dim, descending: tuple(torch.sort(a, dim=dim, descending=descending, stable=True)))
 
@@ -300,4 +316,58 @@ def _embedding_backward(grad, idx, num_weights, embed_dim):
 
 
 _reg(PrimIDs.EMBEDDING_BACKWARD, _embedding_backward)
+
+
+def _conv_args(a, stride, padding, dilation) -> tuple:
+    """Per-spatial-dim stride, padding and dilation (a short list repeats
+    its last entry, as the JAX package's lowering reads it)."""
+    n = a.ndim - 2
+
+    def per_dim(v):
+        return [int(v[i] if i < len(v) else v[-1]) for i in range(n)]
+
+    return per_dim(stride), per_dim(padding), per_dim(dilation), [0] * n
+
+
+def _convolution(a, weight, bias, stride, padding, dilation, groups):
+    stride, padding, dilation, out_pad = _conv_args(a, stride, padding, dilation)
+    return torch.convolution(a, weight, bias, stride, padding, dilation, False, out_pad, groups)
+
+
+def _convolution_bwd(g, a, weight, stride, padding, dilation, groups):
+    stride, padding, dilation, out_pad = _conv_args(a, stride, padding, dilation)
+    dx, dw, _ = torch.ops.aten.convolution_backward(g, a, weight, None, stride, padding, dilation, False, out_pad,
+                                                    groups, [True, True, False])
+    return dx, dw
+
+
+_reg(PrimIDs.CONVOLUTION, _convolution)
+_reg(PrimIDs.CONVOLUTION_BWD, _convolution_bwd)
+
+
+def _pool(a, kind, window, strides, padding):
+    """Max or average over windows of the trailing len(window) dims, with
+    (lo, hi) padding per dim: -inf for max, zeros for average, which divides
+    by the full window (count_include_pad, torch's default)."""
+    k = len(window)
+    lead, spatial = a.shape[: a.ndim - k], a.shape[a.ndim - k:]
+    pad = [int(p) for lo_hi in reversed(padding) for p in lo_hi]
+    if kind == "max":
+        fill, pool = -math.inf, (F.max_pool1d, F.max_pool2d, F.max_pool3d)[k - 1]
+    else:
+        fill, pool = 0.0, (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[k - 1]
+    out = pool(F.pad(a.reshape(-1, *spatial), pad, value=fill), tuple(window), tuple(strides))
+    return out.reshape(*lead, *out.shape[1:])
+
+
+def _pool_bwd(g, a, kind, window, strides, padding):
+    """The pool's adjoint, by autograd over ``_pool``: torch's own routing
+    of a max window's grad to the element its forward picked."""
+    with torch.enable_grad():
+        x = a.detach().requires_grad_()
+        return torch.autograd.grad(_pool(x, kind, window, strides, padding), x, g)[0]
+
+
+_reg(PrimIDs.POOL, _pool)
+_reg(PrimIDs.POOL_BWD, _pool_bwd)
 

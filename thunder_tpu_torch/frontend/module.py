@@ -1,0 +1,578 @@
+"""ThunderModule: ``thunder_tpu_torch.jit(torch.nn.Module)``, on one device.
+
+Reference parity: ``ThunderModule`` (thunder/__init__.py:178) and the
+torch-autograd bridge ``ThunderFunction`` (thunder/executors/torch_autograd.py:20).
+The counterpart of ``thunder_tpu/frontend/module.py`` without its
+distributed and sequence-bucketing parts.
+
+Acquisition (the seat of thunder's bytecode interpreter, see
+``frontend/__init__.py``): parameters and buffers are swapped for
+TensorProxies directly in each submodule's ``_parameters``/``_buffers``
+dicts, the original ``forward`` runs under a ``TorchFunctionMode`` that maps
+every torch call to its ltorch symbol, and the recorded trace goes through
+the functional path's passes: value guards, dce/cse, the autodiff split,
+attention residuals, rematerialization, claiming, and ``del`` after each
+last use.
+
+Execution: the parameters are the module's own torch tensors; there is no
+device copy to keep in step, so an optimizer's in-place update is seen by
+the next call. A parameter or input that is not on the jit's device raises,
+naming it; nothing is moved. When grad is enabled and some parameter or
+input requires it, the forward and backward run inside a
+``torch.autograd.Function`` whose inputs are exactly those tensors, so
+autograd accumulates each gradient into its ``.grad`` in the parameter's
+dtype and any torch optimizer works unchanged. When grad is disabled
+(``torch.no_grad()``) the forward alone is compiled and run, and nothing is
+saved for a backward that cannot come.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+import torch
+
+from thunder_tpu_torch.core.proxies import TensorProxy
+from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+
+
+def _make_dispatch_mode():
+    """TorchFunctionMode routing torch.* calls to ltorch symbols (factory
+    functions; tensor-position dispatch comes from
+    TensorProxy.__torch_function__, see frontend/dispatch.py)."""
+    from torch.overrides import TorchFunctionMode
+
+    from thunder_tpu_torch.frontend.dispatch import torch_dispatch
+
+    class TorchToLtorch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            return torch_dispatch(func, types, args, kwargs)
+
+    return TorchToLtorch()
+
+
+def _named_slots(module) -> list[tuple[str, dict, str, Any]]:
+    """(qualified_name, owner_dict, key, tensor) for every param/buffer."""
+    out = []
+    for prefix, sub in module.named_modules():
+        for d in (sub._parameters, sub._buffers):
+            for k, v in list(d.items()):
+                if v is not None:
+                    qual = f"{prefix}.{k}" if prefix else k
+                    out.append((qual, d, k, v))
+    return out
+
+
+class _patched_factories:
+    """Context: torch factory functions (arange/zeros/...) routed to ltorch.
+
+    Factories taking a ``device=`` kwarg fail in torch's C++ argument parser
+    when handed a thunder Device (e.g. HF's
+    ``torch.arange(..., device=input_ids.device)``): the parse error fires
+    before any __torch_function__ hook can run, so the only interception
+    point is the Python attribute itself."""
+
+    _NAMES = ("arange", "zeros", "ones", "empty", "full", "rand", "randn", "tensor", "linspace")
+
+    def __enter__(self):
+        import thunder_tpu_torch.torch as ltorch
+
+        self._saved = {}
+        for name in self._NAMES:
+            if hasattr(ltorch, name):
+                self._saved[name] = getattr(torch, name)
+                setattr(torch, name, getattr(ltorch, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(torch, name, fn)
+        return False
+
+
+class _patched_module_setattr:
+    """Context: ``nn.Module.__setattr__`` accepts TensorProxy assignments to
+    registered params/buffers during tracing (torch's own setattr raises
+    TypeError for non-Tensor values). The new proxy simply replaces the dict
+    entry; the epilogue diff in ``_compile`` picks it up afterwards
+    (reference: thunder records setattr side effects during tracing and
+    replays them, thunder/core/jit_ext.py:1302)."""
+
+    def __enter__(self):
+        self._orig = torch.nn.Module.__setattr__
+        orig = self._orig
+
+        def setattr_(mod, name, value):
+            if isinstance(value, TensorProxy):
+                for dd in (mod.__dict__.get("_buffers"), mod.__dict__.get("_parameters")):
+                    if dd is not None and name in dd:
+                        dd[name] = value
+                        return
+                object.__setattr__(mod, name, value)
+                return
+            orig(mod, name, value)
+
+        torch.nn.Module.__setattr__ = setattr_
+        return self
+
+    def __exit__(self, *exc):
+        torch.nn.Module.__setattr__ = self._orig
+        return False
+
+
+class _library_lookasides:
+    """Context: proxy-friendly substitutes for third-party helpers that are
+    opaque to dispatch interception (reference parity: the interpreter
+    frontend's lookaside table, thunder/core/jit_ext.py:344 — same idea,
+    scoped to tracing). Without ``transformers`` it does nothing.
+
+    Currently: ``transformers.masking_utils._vmap_for_bhqkv`` — HF builds 4D
+    attention masks by ``torch.vmap``-ing a per-position mask closure over
+    index tensors; torch.vmap rejects TensorProxy inputs. Broadcasting the
+    index tensors is semantically identical for every HF ``mask_function``
+    (elementwise predicates and tensor indexing) and traces cleanly.
+    """
+
+    def __enter__(self):
+        self._saved = None
+        try:
+            from transformers import masking_utils as mu
+        except ImportError:
+            return self
+        orig = getattr(mu, "_vmap_for_bhqkv", None)
+        if orig is None:
+            return self
+
+        def broadcast_for_bhqkv(mask_function, bh_indices: bool = True):
+            if bh_indices:
+                def wrapped(b, h, q, kv):
+                    return mask_function(
+                        b[:, None, None, None], h[None, :, None, None],
+                        q[None, None, :, None], kv[None, None, None, :],
+                    )
+            else:
+                def wrapped(q, kv):
+                    return mask_function(q[:, None], kv[None, :])
+            return wrapped
+
+        self._saved = (mu, orig)
+        mu._vmap_for_bhqkv = broadcast_for_bhqkv
+        return self
+
+    def __exit__(self, *exc):
+        if self._saved is not None:
+            mu, orig = self._saved
+            mu._vmap_for_bhqkv = orig
+        return False
+
+
+class _patched_dtype_introspection:
+    """Context: ``torch.finfo``/``torch.iinfo`` accept thunder dtypes.
+
+    HF mask utilities call ``torch.finfo(tensor.dtype)`` on values that are
+    TensorProxies during tracing (e.g. BERT's additive-mask expansion,
+    transformers/modeling_attn_mask_utils.py); proxies carry thunder dtypes,
+    which stock finfo rejects. Translate before delegating."""
+
+    def __enter__(self):
+        from thunder_tpu_torch.core import dtypes
+
+        self._orig = (torch.finfo, torch.iinfo)
+        orig_finfo, orig_iinfo = self._orig
+
+        def to_torch_dtype(x):
+            return dtypes.to_torch_dtype(x) if isinstance(x, dtypes.dtype) else x
+
+        class _Finfo:
+            def __new__(cls, dtype=None):
+                if dtype is None:  # stock semantics: finfo of the default dtype
+                    return orig_finfo()
+                return orig_finfo(to_torch_dtype(dtype))
+
+        class _Iinfo:
+            def __new__(cls, dtype):
+                return orig_iinfo(to_torch_dtype(dtype))
+
+        torch.finfo = _Finfo
+        torch.iinfo = _Iinfo
+        return self
+
+    def __exit__(self, *exc):
+        torch.finfo, torch.iinfo = self._orig
+        return False
+
+
+class _swapped_params:
+    """Context: module params/buffers replaced by ``values[qual_name]``."""
+
+    def __init__(self, module, values: dict):
+        self.module = module
+        self.values = values
+        self._saved: list = []
+
+    def __enter__(self):
+        for qual, d, k, v in _named_slots(self.module):
+            self._saved.append((d, k, v))
+            d[k] = self.values[qual]
+        return self
+
+    def __exit__(self, *exc):
+        for d, k, v in self._saved:
+            d[k] = v
+        self._saved.clear()
+        return False
+
+
+class _tracing_patches:
+    """Every context above, entered together around the module's forward."""
+
+    active: list = []  # the entered instances, innermost last
+
+    def __enter__(self):
+        self._ctxs = [_patched_module_setattr(), _patched_factories(), _library_lookasides(),
+                      _patched_dtype_introspection(), _make_dispatch_mode()]
+        for c in self._ctxs:
+            c.__enter__()
+        _tracing_patches.active.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _tracing_patches.active.pop()
+        for c in reversed(self._ctxs):
+            c.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def suspended_tracing_patches():
+    """Plain torch for a staged program that runs eagerly while a module is
+    being traced (guarded concretization, ``core/concrete.py``): its torch
+    calls must not be routed to ltorch or meet patched factories. The JAX
+    package needs no such scope: its staged programs run on JAX ops."""
+    if not _tracing_patches.active:
+        yield
+        return
+    ctxs = _tracing_patches.active[-1]._ctxs
+    for c in reversed(ctxs):
+        c.__exit__(None, None, None)
+    try:
+        yield
+    finally:
+        for c in ctxs:
+            c.__enter__()
+
+
+# Options of the JAX package's module frontend that need sequence bucketing,
+# a later part of the port.
+_SEQ_BUCKETING = ("seq_bucket", "seq_pad_value")
+
+
+class ThunderModule:
+    """Compiled wrapper around a torch.nn.Module (reference: __init__.py:178).
+
+    Caching: compiled entries are keyed on the input metadata (shape,
+    device, dtype, requires_grad per leaf, the value of every number or
+    string, the pytree spec) and on torch's grad mode; traces that
+    specialized on input-derived scalars (``core/concrete.py``) share a key
+    and are told apart by their value guards. The parameters are the
+    module's own tensors, read at every call. ``last_traces``,
+    ``cache_hits`` and ``cache_misses`` work on a jitted module as on a
+    jitted function."""
+
+    def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
+                 rematerialize: bool = True, **options):
+        from thunder_tpu_torch.api import DEFAULT_EXECUTORS
+        from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
+        from thunder_tpu_torch.core import devices
+        from thunder_tpu_torch.extend import resolve_executors
+
+        for name in options:
+            if name in _SEQ_BUCKETING:
+                raise NotImplementedError(f"jit(nn.Module, {name}=...) needs sequence bucketing (ROADMAP item 7: "
+                                          "core/bucketing.py, transforms/padmask.py), not yet ported")
+        if options:
+            raise TypeError(f"jit(nn.Module) got unexpected options {sorted(options)}")
+        if getattr(module, "_thunder_dist", None) is not None:
+            raise NotImplementedError("a module tagged by ddp()/fsdp() needs the distributed slice of the port "
+                                      "(ROADMAP slice 5), not yet ported")
+        self._module = module
+        self._rematerialize = bool(rematerialize)
+        self._cache: dict[Any, list[dict]] = {}  # metadata key → entries (value-guard disambiguated)
+        self._lc_cd = CompileData(
+            fn=module,
+            executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
+            device=devices.resolve_device(device),
+            sharp_edges=resolve_sharp_edges_option(sharp_edges),
+        )
+        self._lc_cs = CompileStats()
+        self._params()  # a parameter off the jit's device raises here, not at the first call
+
+    # -- module surface (reference: thunder/__init__.py:246-250) --------------
+
+    def state_dict(self, *args, **kwargs):
+        return self._module.state_dict(*args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        r = self._module.load_state_dict(*args, **kwargs)
+        self.resync_params()
+        return r
+
+    def resync_params(self) -> None:
+        """Check that every param/buffer is on the jit's device. The module's
+        tensors are what each call runs on, so nothing needs copying; kept
+        for the JAX package's surface, where it re-bridges device copies."""
+        self._params()
+
+    def named_parameters(self, *a, **kw):
+        return self._module.named_parameters(*a, **kw)
+
+    def parameters(self, *a, **kw):
+        return self._module.parameters(*a, **kw)
+
+    def train(self, mode: bool = True):
+        self._module.train(mode)
+        self._cache.clear()  # dropout etc. change the trace
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    @property
+    def original_module(self):
+        return self._module
+
+    def configure_distributed(self, cfg) -> None:
+        raise NotImplementedError("configure_distributed needs the distributed slice of the port (ROADMAP "
+                                  "slice 5), not yet ported")
+
+    def no_sync(self):
+        raise NotImplementedError("no_sync needs the distributed slice of the port (ROADMAP slice 5), "
+                                  "not yet ported")
+
+    # -- inputs ---------------------------------------------------------------
+
+    def _params(self) -> dict:
+        """The module's params and buffers by qualified name, each checked to
+        be on the jit's device."""
+        dev = self._lc_cd.device
+        params = {}
+        for qual, _, _, t in _named_slots(self._module):
+            if not _on(t, dev):
+                raise ValueError(f"parameter or buffer {qual!r} is on {t.device}, the module is jitted for {dev}; "
+                                 "move the module before jit (nothing is moved for it)")
+            params[qual] = t
+        return params
+
+    def _check_inputs(self, args: tuple, kwargs: dict) -> None:
+        dev = self._lc_cd.device
+        named = [(f"argument {i}", a) for i, a in enumerate(args)] + [(f"argument {k!r}", v) for k, v in kwargs.items()]
+        for name, tree in named:
+            for x in tree_flatten(tree)[0]:
+                if isinstance(x, torch.Tensor) and not _on(x, dev):
+                    raise ValueError(f"{name} holds a tensor on {x.device}, the module is jitted for {dev} "
+                                     "(nothing is moved for it)")
+
+    def _cache_key(self, args: tuple, kwargs: dict, grad: bool):
+        from thunder_tpu_torch.executors import bridge
+
+        def leaf_key(x):
+            if bridge.is_concrete_tensor(x):
+                shape, dev, dt, rg = bridge.tensor_metadata(x)
+                return (tuple(shape), dev, str(dt), rg)
+            return x if isinstance(x, (int, float, bool, str, type(None))) else type(x).__name__
+
+        flat, spec = tree_flatten((args, kwargs))
+        return (tuple(leaf_key(x) for x in flat), str(spec), grad)
+
+    # -- compilation ----------------------------------------------------------
+
+    def _compile(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
+        from thunder_tpu_torch.api import trace_program
+        from thunder_tpu_torch.common import sharp_edges_policy
+        from thunder_tpu_torch.core import dtypes, prims
+        from thunder_tpu_torch.core.concrete import value_guards_of
+        from thunder_tpu_torch.core.symbol import resolve_inplace
+        from thunder_tpu_torch.executors import bridge
+        from thunder_tpu_torch.executors.passes import del_last_used, take_saved_as_list, transform_for_execution
+        from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals
+        from thunder_tpu_torch.transforms.autodiff import forward_and_backward_from_trace
+        from thunder_tpu_torch.transforms.common import cse, dce
+
+        module = self._module
+        executors = self._lc_cd.executors_list
+
+        def functional_fwd(params: dict, *fargs, **fkwargs):
+            with _swapped_params(module, params), _tracing_patches():
+                out = module(*fargs, **fkwargs)
+                # Epilogue diff (reference: jit_ext.py:1302
+                # `process_recorded_modifications`): any param/buffer whose
+                # proxy was replaced (setattr) or updated in place (BatchNorm
+                # running stats, step counters) becomes an extra, detached
+                # output replayed onto the module after execution.
+                updates = {}
+                for qual, _, _, cur in _named_slots(module):
+                    base = params.get(qual)
+                    final = resolve_inplace(cur) if isinstance(cur, TensorProxy) else cur
+                    if isinstance(base, TensorProxy) and isinstance(final, TensorProxy) and final is not base:
+                        updates[qual] = prims.stop_gradient(final)
+            if updates:
+                return {"__out": _normalize_output(out), "__updates": updates}
+            return _normalize_output(out)
+
+        with sharp_edges_policy(self._lc_cd.sharp_edges):
+            _, comp = trace_program(functional_fwd, (params,) + args, kwargs)
+        vguards = value_guards_of(comp)
+        traces = [comp]
+        comp = cse(dce(comp))
+        traces.append(comp)
+
+        # Mark requires_grad on the trace's tensor args, which align with the
+        # concrete tensor leaves of ((params, *args), kwargs) in pytree order.
+        flat_concrete, _ = tree_flatten(((params,) + args, kwargs))
+        concrete = [x for x in flat_concrete if bridge.is_concrete_tensor(x)]
+        wrt = []  # positions in the flat tensor inputs of the grads the backward returns
+        for i, (proxy_arg, conc) in enumerate(zip(comp.args, concrete)):
+            rg = grad and bool(getattr(conc, "requires_grad", False)) and dtypes.is_inexact_dtype(proxy_arg.dtype)
+            proxy_arg._requires_grad = rg
+            if rg:
+                wrt.append(i)
+        has_updates = isinstance(comp.output, dict) and "__updates" in comp.output
+
+        if not wrt:
+            ex = del_last_used(transform_for_execution(comp, executors))
+            traces.append(ex)
+            return {"fwd": ex.python_callable(), "bwd": None, "traces": traces, "has_updates": has_updates,
+                    "value_guards": vguards}
+
+        fw, bw = forward_and_backward_from_trace(comp)
+        fw, bw = save_sdpa_residuals(fw, bw, executors)
+        if self._rematerialize:
+            from thunder_tpu_torch.transforms.rematerialization import rematerialize_forward_and_backward
+
+            fw, bw = rematerialize_forward_and_backward(fw, bw)
+        n_saved = len(fw.tags["saved_for_backward"])
+        fw_ex = del_last_used(transform_for_execution(fw, executors))
+        bw_ex = del_last_used(take_saved_as_list(transform_for_execution(bw, executors), n_saved))
+        return {"fwd": fw_ex.python_callable(), "bwd": bw_ex.python_callable(), "wrt": wrt,
+                "traces": traces + [fw_ex, bw_ex], "has_updates": has_updates, "value_guards": vguards}
+
+    # -- call -----------------------------------------------------------------
+
+    def __call__(self, *args, **kwargs):
+        from thunder_tpu_torch.core import devices
+
+        with devices.default_device(self._lc_cd.device):
+            return self._call_impl(args, kwargs)
+
+    def _call_impl(self, args: tuple, kwargs: dict):
+        from thunder_tpu_torch.core.concrete import check_value_guards
+        from thunder_tpu_torch.executors import bridge
+
+        params = self._params()
+        self._check_inputs(args, kwargs)
+        cs = self._lc_cs
+        grad = torch.is_grad_enabled()
+        key = self._cache_key(args, kwargs, grad)
+        flat_concrete, _ = tree_flatten(((params,) + args, kwargs))
+        inputs = [x for x in flat_concrete if bridge.is_concrete_tensor(x)]
+        # A metadata key maps to a LIST of entries: traces that specialized
+        # on input-derived scalar values (core/concrete.py value guards) are
+        # disambiguated by re-evaluating their guards on the actual inputs.
+        entry = None
+        for cand in reversed(self._cache.get(key, ())):
+            if not cand["value_guards"] or check_value_guards(cand["value_guards"], inputs):
+                entry = cand
+                break
+        if entry is None:
+            cs.cache_misses += 1
+            entry = self._compile(params, args, kwargs, grad)
+            self._cache.setdefault(key, []).append(entry)
+        else:
+            cs.cache_hits += 1
+        traces = entry["traces"]
+        cs.last_traces = traces[:-1] if entry["bwd"] is not None else list(traces)
+        cs.last_backward_traces = traces[-1:] if entry["bwd"] is not None else []
+
+        if entry["bwd"] is None:
+            with torch.no_grad():
+                out = entry["fwd"](*inputs)
+        else:
+            out = _run_thunder_function(entry, inputs)
+        return self._postprocess_output(entry, out)
+
+    def _postprocess_output(self, entry: dict, out):
+        """Split epilogue updates off the output tree and replay them onto
+        the module's buffers."""
+        if not entry["has_updates"]:
+            return out
+        self._apply_updates(out["__updates"])
+        return out["__out"]
+
+    def _apply_updates(self, updates: dict) -> None:
+        named = {qual: t for qual, _, _, t in _named_slots(self._module)}
+        with torch.no_grad():
+            for qual, val in updates.items():
+                t = named.get(qual)
+                if t is not None:
+                    t.copy_(val.to(t.dtype))
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (dev.type == "cpu" or t.device == dev)
+
+
+def _run_thunder_function(entry: dict, inputs: list):
+    """Run a compiled forward and backward as one ``torch.autograd.Function``
+    (reference parity: thunder/executors/torch_autograd.py:20). Its inputs are
+    the tensors that the backward returns grads for, so autograd sends each
+    grad to the right ``.grad`` or upstream node; the outputs are the tensor
+    leaves of the forward's output tree, rebuilt around its other leaves."""
+    holder: dict = {}
+    wrt = entry["wrt"]
+
+    class ThunderFunction(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *grad_inputs):
+            out, saved = entry["fwd"](*inputs)
+            ctx.thunder_saved = list(saved)
+            flat, spec = tree_flatten(out)
+            pos = [i for i, x in enumerate(flat) if isinstance(x, torch.Tensor)]
+            holder.update(flat=flat, spec=spec, pos=pos)
+            return tuple(flat[i] for i in pos)
+
+        @staticmethod
+        def backward(ctx, *cotangents):
+            saved, ctx.thunder_saved = ctx.thunder_saved, None
+            # The backward clears ``saved`` as it goes (take_saved_as_list),
+            # so each saved tensor is freed after its last use.
+            grads = entry["bwd"](saved, *cotangents)
+            return tuple(grads)
+
+    outs = ThunderFunction.apply(*(inputs[i] for i in wrt))
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    flat = list(holder["flat"])
+    for i, t in zip(holder["pos"], outs):
+        flat[i] = t
+    return tree_unflatten(flat, holder["spec"])
+
+
+def _normalize_output(out):
+    """Convert dataclass-style outputs (an HF ModelOutput, an OrderedDict
+    subclass) into a plain dict of traceable entries; opaque stateful
+    objects (KV caches) are dropped."""
+    if type(out) in (dict, tuple, list) or isinstance(out, TensorProxy):
+        return out
+    if hasattr(out, "items") and hasattr(out, "to_tuple"):  # ModelOutput duck-type
+        kept = {}
+        for k, v in out.items():
+            flat, _ = tree_flatten(v)
+            if all(isinstance(x, TensorProxy) or x is None or isinstance(x, (int, float, bool)) for x in flat):
+                kept[k] = v
+        return kept
+    return out
+
+
+def thunder_module(module, **jit_options) -> ThunderModule:
+    return ThunderModule(module, **jit_options)
