@@ -15,8 +15,9 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    RMSNorm at open_llama_3b's (4096, 3200) and LayerNorm at pythia-410m's
    (4096, 1024); the training kernels at pythia-410m's shapes; the masked
    forward and recompute backward on the padded path's (2, 32, 2048, 100),
-   with a planted fault (the padding ignored) that must fail. Each is held
-   against its plain PyTorch version on the same inputs row by row and
+   with a planted fault (the padding ignored) that must fail; the legacy
+   route's forward and backward (row 10) at the training path's. Each is
+   held against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
    PyTorch call (CUDA events);
 4. checks the whole path at open_llama_3b's full width with 2 layers, forward
@@ -24,24 +25,32 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    executors against the torch executor alone, then the same with a planted
    attention fault in the forward and one in the backward, which must fail;
 5. runs the full 26-layer open_llama_3b: ``jit(loss_fn)`` at B=2, T=2048 and
-   ``jit(forward)`` at B=10, T=2048, with random weights from a seed, and
-   checks that each kernel was launched the expected number of times;
+   ``jit(forward)`` at B=10, T=2048, with random weights from a seed, each
+   staged as a CUDA graph (warm-up, capture, replay), and checks that each
+   kernel was launched the expected number of times;
 6. builds the 26-layer training step (``benchmarks/train.py``) at B=2,
-   T=2048 and runs 3 steps: prints the build seconds of each pass, the step
-   seconds, the peak device memory and the loss, checks the launches of each
-   kernel against the claimed traces and one param's in-place SGD update;
+   T=2048 and runs 3 unstaged steps: prints the build seconds of each pass,
+   the step seconds, the peak device memory and the loss, checks the
+   launches of each kernel against the claimed traces and one param's
+   in-place SGD update; then puts the params back and runs 3 staged steps
+   (``Train.step``, one CUDA graph) from the same state, launches checked
+   per step, losses against the unstaged ones; each step is then timed and
+   profiled, and s/step, enqueue ms, busy share and peak memory printed
+   side by side;
 7. checks pythia-410m at full width with 2 layers, forward and gradients at
    B=2: the norm executor's stack against the torch executor alone, then
    with a planted fault in the LayerNorm forward and one in its backward,
    which must fail;
 8. runs the LitGPT benchmark (``benchmarks/litgpt.py``) on the full
    24-layer pythia-410m at B=2, T=2048 with AdamW, under the default stack
-   and under ``+norm`` (2 warm-up and 5 timed steps each): prints s/iter,
+   and under ``+norm`` (2 warm-up and 5 timed steps each, staged: the
+   warm-up is the eager first call and the capture): prints s/iter,
    tokens/s, MFU, peak memory and the loss, checks the launches of each
    kernel against the claimed trace, and one more step's AdamW update of a
-   param against the formula;
+   param against the formula; then the default stack's step unstaged and
+   staged from the same state, side by side as in phase 6;
 9. runs the LitGPT benchmark on open_llama_3b under ``+norm`` with SGD
-   (1 warm-up and 3 timed steps), with the same checks;
+   (2 warm-up and 3 timed steps), with the same checks;
 10. checks ``thunder_tpu_torch.jit(module)`` on the Llama stand-in below
    (HF ``LlamaForCausalLM``'s names and SDPA-path arithmetic) at
    open_llama_3b's full width with 2 layers, on a batch whose row 0 is
@@ -52,8 +61,12 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
 11. runs the stand-in at full depth (26 layers) on that padded batch: the
    forward without grad, the all-ones mask (the value guard's second
    entry), 3 ``torch.optim.SGD`` steps with a falling loss, launches checked
-   against the claimed traces, and one profiled forward and step;
-12. prints one JSON line describing every kernel, then the device line.
+   against the claimed traces, and one profiled forward and step (the
+   module frontend runs unstaged);
+12. runs 3 staged open_llama_3b training steps under
+   ``THUNDER_FLASH_IMPL=legacy``: the legacy route's launches (row 10)
+   against the claimed traces, the losses against phase 6's splash route;
+13. prints one JSON line describing every kernel, then the device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -928,6 +941,76 @@ def check_masked_kernels(cfg, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def check_legacy_kernels(cfg, rows: dict) -> None:
+    """Kernel row 10, the legacy route (``_legacy_flash``), at the training
+    path's (2, 32, 2048, 100) bf16 causal, q and k from rope and v a strided
+    view: its forward wrapper against ``flash_attention_plain`` (row 1's
+    limit), its backward (the forward with lse, then the backward kernel)
+    against the plain backward from that forward's (out, lse) (row 7's
+    limit) and against the plain recompute end to end (row 8's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.executors import flashex, fusedex
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, H, D = LOSS_BATCH, cfg.n_head, cfg.head_size
+    scale = 1.0 / math.sqrt(D)
+    q_view, k_view, v, cos, sin = _path_inputs(cfg, B, gen)
+    q, k = fusedex.apply_rope(q_view, cos, sin), fusedex.apply_rope(k_view, cos, sin)
+    del q_view, k_view
+    dout = torch.randn((B, SEQ, H, D), generator=gen, device="cuda").to(torch.bfloat16).permute(0, 2, 1, 3)
+    pairs = SEQ * (SEQ + 1) // 2
+    record = _recorder(rows)
+
+    got = flashex.legacy_flash_fwd(q, k, v, causal=True, scale=scale)
+    want = flashex.flash_attention_plain(q, k, v, causal=True, scale=scale)
+    require(bool(torch.isfinite(got).all()), "legacy_flash_fwd produced non-finite values")
+    nb = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
+    b_ms, b_by = bound(nb, 4.0 * B * H * D * pairs, PEAK_BF16_FLOPS)
+    record("legacy_fwd", B, (got.float() - want.float()).abs().max().item(), row_rel_err(got, want), FLASH_ROW_REL,
+           source="thunder_tpu_torch/csrc/flash_attn.cu", replaces="thunder_tpu/executors/flashex.py:422",
+           ms=time_ms(lambda: flashex.legacy_flash_fwd(q, k, v, causal=True, scale=scale), 20),
+           plain_ms=time_ms(lambda: flashex.flash_attention_plain(q, k, v, causal=True, scale=scale), 3, 1),
+           bound_ms=b_ms, bound_by=b_by,
+           library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+    del got, want
+
+    eps = 2.0 ** -7
+    got = flashex.legacy_flash_bwd(dout, q, k, v, causal=True, scale=scale)
+    require(all(bool(torch.isfinite(g).all()) for g in got), "legacy_flash_bwd produced non-finite values")
+    lse = torch.empty((B, H, SEQ), dtype=torch.float32, device="cuda")
+    out = flashex._launch_fwd(q, k, v, True, scale, lse)
+    want = flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=True, scale=scale)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    rel = max(row_rel_err(g, w, floor=eps * eps) for g, w in zip(got, want))
+    del want, out, lse
+    e2e = flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=True, scale=scale)
+    rel_e2e = max(row_rel_err(g, w, floor=eps * eps) for g, w in zip(got, e2e))
+    log(f"  legacy_bwd: against the plain recompute end to end row_rel_err={rel_e2e:.3e} "
+        f"(limit {FLASH_RECOMPUTE_ROW_REL:.3e})")
+    require(rel_e2e <= FLASH_RECOMPUTE_ROW_REL, "legacy_flash_bwd differs from the plain recompute")
+    del e2e
+    # Read q, k, v and dout once; write dq, dk, dv once. The recomputed
+    # forward's 4 FLOP per pair and the backward's 10.
+    nb = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + dout.numel()) * 2
+    b_ms, b_by = bound(nb, (4.0 + 10.0) * B * H * D * pairs, PEAK_BF16_FLOPS)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def library():  # the same function in one PyTorch call each way: SDPA forward, autograd backward
+        ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        return torch.autograd.grad(ref, (qr, kr, vr), dout)
+
+    record("legacy_bwd", B, err, rel, FLASH_BWD_ROW_REL, source="thunder_tpu_torch/csrc/flash_bwd.cu",
+           replaces="thunder_tpu/executors/flashex.py:422",
+           ms=time_ms(lambda: flashex.legacy_flash_bwd(dout, q, k, v, causal=True, scale=scale), 10),
+           plain_ms=time_ms(lambda: flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=True,
+                                                                                scale=scale), 3, 1),
+           bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10))
+    del got, qr, kr, vr, q, k, v, dout
+    torch.cuda.empty_cache()
+
+
 # =============================================================================
 # Phases 4 and 5: the whole path
 # =============================================================================
@@ -944,7 +1027,8 @@ def _wrappers() -> dict:
             "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
             "ln_fwd": normex.layer_norm_fwd, "ln_bwd": normex.layer_norm_bwd,
             "flash_fwd_seg": flashex.flash_attention_fwd_seg, "flash_bwd_recompute": flashex.flash_attention_bwd_recompute,
-            "sdpa_exact": flashex.sdpa_exact}
+            "sdpa_exact": flashex.sdpa_exact, "legacy_fwd": flashex.legacy_flash_fwd,
+            "legacy_bwd": flashex.legacy_flash_bwd}
 
 
 def _launch_counts() -> dict:
@@ -1090,11 +1174,13 @@ def run_full(cfg) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         counts = _launch_counts()
-        log(f"  {label}: first call (trace + run) {times[0]:.3f} s, then "
-            f"{', '.join(f'{x:.4f}' for x in times[1:])} s/call; "
+        log(f"  {label}: first call (trace + eager warm-up) {times[0]:.3f} s, then (capture, replay) "
+            f"{', '.join(f'{x:.4f}' for x in times[1:])} s/call; staged {tt.last_staging(fn).staged}; "
             f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
         for k, n in per_call.items():
             require(counts[k] == n * calls, f"{label}: {k} launched {counts[k]} times, expected {n * calls}")
+        st = tt.last_staging(fn)
+        require(st.staged and st.captures == 1 and st.replays == calls - 1, f"{label}: not staged as expected: {st}")
         for k in launches:
             launches[k] += counts[k]
         return out
@@ -1128,14 +1214,45 @@ def run_full(cfg) -> dict:
 TRAIN_STEPS = 3
 
 
-def run_train(cfg, launches: dict) -> None:
-    """``build_train`` on the full model at B=2, T=2048, then 3 steps. Each
-    step is driven through its parts (forward, backward, SGD), with the
-    launch counts zeroed before and read after the forward and the backward,
-    so the rope's forward and backward launches are told apart."""
+def staging_summary(label: str, losses: list, times: list, peak: int, prof: dict) -> dict:
+    """Log one run of a training step: s/step (host clock around each step,
+    ending in a synchronize), the enqueue ms, busy share and device ms of
+    ``profile_call``'s timed and profiled calls, peak memory, the losses."""
+    log(f"  {label}: {', '.join(f'{x:.4f}' for x in times)} s/step; profiled: wall "
+        f"{', '.join(f'{x:.2f}' for x in prof['wall_ms'])} ms, enqueue {', '.join(f'{x:.2f}' for x in prof['enqueue_ms'])}"
+        f" ms, device {prof['device_ms']:.2f} ms, busy {prof['busy_share']:.4f}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; loss {', '.join(f'{x:.6f}' for x in losses)}")
+    return dict(losses=losses, times=times, peak=peak, wall_ms=prof["wall_ms"], enqueue_ms=prof["enqueue_ms"],
+                device_ms=prof["device_ms"], busy=prof["busy_share"])
+
+
+def compare_staging(label: str, eager: dict, staged: dict) -> None:
+    """The staged step against the unstaged one from the same initial state:
+    the first TRAIN_STEPS losses within LOSS_REL (the 2-layer loss limit),
+    and whether they are bit-equal."""
+    n = TRAIN_STEPS
+    worst = max(abs(a - b) / abs(b) for a, b in zip(staged["losses"][:n], eager["losses"][:n]))
+    log(f"  {label}: staged vs unstaged losses bit-equal {staged['losses'][:n] == eager['losses'][:n]}, "
+        f"worst rel_err {worst:.3e} (limit {LOSS_REL:.0e}); s/step {min(staged['times'][2:]):.4f} vs "
+        f"{min(eager['times'][1:]):.4f}; enqueue {min(staged['enqueue_ms']):.2f} vs {min(eager['enqueue_ms']):.2f} "
+        f"ms; busy {staged['busy']:.4f} vs {eager['busy']:.4f}; peak {staged['peak'] / 2**30:.2f} vs "
+        f"{eager['peak'] / 2**30:.2f} GiB")
+    require(worst <= LOSS_REL, f"{label}: the staged step's losses differ from the unstaged step's")
+
+
+def run_train(cfg, launches: dict) -> list:
+    """``build_train`` on the full model at B=2, T=2048, then 3 unstaged
+    steps. Each is driven through its parts (forward, backward, SGD), with
+    the launch counts zeroed before and read after the forward and the
+    backward, so the rope's forward and backward launches are told apart.
+    Then the params are put back and the staged step (``Train.step``, one
+    CUDA graph) runs 3 steps from the same state, its launches checked per
+    step and its losses against the unstaged ones; then each step is timed
+    and profiled (``profile_call``). Returns the unstaged losses."""
     import torch
 
     from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
     from thunder_tpu_torch.parallel.train import scalar_as
 
     gc.collect()
@@ -1161,6 +1278,7 @@ def run_train(cfg, launches: dict) -> None:
             and per_bw == {"flash_bwd": n, "rope_bwd": 2 * n, "ce_bwd": 1},
             "the training traces do not claim every attention, rope and cross-entropy op")
 
+    initial = [p.detach().to("cpu") for p in tr.flat_params]  # host memory: the peaks below are the step's own
     weights = torch.cuda.memory_allocated()
     log(f"  allocated with the weights: {weights / 2**30:.2f} GiB")
     probe = tr.params["lm_head_w"]
@@ -1213,6 +1331,53 @@ def run_train(cfg, launches: dict) -> None:
         f"loss {', '.join(f'{x:.6f}' for x in losses)}; launches per step {got}")
     require(all(math.isfinite(x) and abs(x - math.log(cfg.vocab_size)) < 2.0 for x in losses),
             "training loss is not near ln V")
+    eager_losses = losses
+    eager = staging_summary("unstaged step", losses, times, peak, profile_call("train_step_unstaged", tr.step_eager,
+                                                                               batch=LOSS_BATCH, seq=SEQ))
+    staged = run_staged_train(tr, initial, {**per_fw, "rope": per_fw["rope"] + per_bw["rope_bwd"],
+                                            "flash_bwd": per_bw["flash_bwd"], "ce_bwd": per_bw["ce_bwd"]}, launches)
+    compare_staging(f"train B={LOSS_BATCH} T={SEQ}", eager, staged)
+    return eager_losses
+
+
+def run_staged_train(tr, initial: list, per_step: dict, launches: dict) -> dict:
+    """``tr``'s params put back to ``initial``, then ``Train.step`` (staged)
+    for TRAIN_STEPS steps: the warm-up, the capture (with its first replay)
+    and replays, each step's launches against ``per_step``; then timed and
+    profiled replays. Returns its summary."""
+    import torch
+
+    with torch.no_grad():
+        for p, p0 in zip(tr.flat_params, initial):
+            p.copy_(p0)
+    initial.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    times, losses = [], []
+    for step in range(TRAIN_STEPS):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()  # the capture's pool counts
+        _zero_counts()
+        t = time.perf_counter()
+        loss = tr.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        counts = _launch_counts()
+        got = {k: counts[k] for k in per_step}
+        require(got == per_step, f"staged train step {step + 1}: launches {got}, the traces claim {per_step}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated()
+    st = tr.staging
+    log(f"  staged step: warm-up {st.first_call_s:.3f} s, capture with its first replay {st.capture_s:.3f} s, "
+        f"captures {st.captures}, replays {st.replays}, guard misses {st.guard_misses}, bytes copied per call "
+        f"{st.copied_bytes_per_call}")
+    require(st.staged and st.captures == 1 and st.guard_misses == 0, f"the train step did not stage: {st}")
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+
+    return staging_summary("staged step", losses, times, peak,
+                           profile_call("train_step_staged", tr.step, batch=LOSS_BATCH, seq=SEQ))
 
 
 # =============================================================================
@@ -1387,6 +1552,51 @@ def run_litgpt(model: str, stack: str, expected: dict, launches: dict, *, optimi
     require(all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) < 2.0,
             f"{model} [{stack}]: the first loss {losses[0]} is not near ln V = {ln_v:.4f}")
     return summary, run
+
+
+def compare_litgpt_staging(model: str, stack: str) -> None:
+    """The LitGPT step of ``model`` (AdamW, ``stack``) unstaged
+    (``step.eager``) and staged, each from a fresh ``litgpt.prepare`` (the
+    same seed-0 weights and batch): TRAIN_STEPS steps each, then timed and
+    profiled (``profile_call``); the losses compared."""
+    import torch
+
+    from thunder_tpu_torch.benchmarks import litgpt
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+
+    args = litgpt.parse_args(["--model", model, "--micro-batch", str(LOSS_BATCH), "--seq", str(SEQ)])
+    out = {}
+    for mode in ("unstaged", "staged"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = litgpt.prepare(args, stack)
+        fn = run.step if mode == "staged" else run.step.eager
+        state = [run.params, run.opt]
+
+        def one():
+            state[0], state[1], loss = fn(state[0], state[1], run.idx, run.tgt)
+            return loss
+
+        times, losses = [], []
+        for i in range(TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = one()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        if mode == "staged":
+            st = run.step.staging
+            log(f"  staged step: warm-up {st.first_call_s:.3f} s, capture with its first replay {st.capture_s:.3f} s, "
+                f"guard misses {st.guard_misses}, bytes copied per call {st.copied_bytes_per_call}")
+            require(st.staged and st.captures == 1 and st.guard_misses == 0, f"the LitGPT step did not stage: {st}")
+        out[mode] = staging_summary(f"{model} [{stack}] {mode} step", losses, times, peak,
+                                    profile_call(f"litgpt_step_{mode}", one, batch=LOSS_BATCH, seq=SEQ, config=model,
+                                                 executors=stack, optimizer="adamw"))
+        del run, fn, state, one
+    compare_staging(f"{model} [{stack}]", out["unstaged"], out["staged"])
 
 
 def check_adamw_step(run) -> None:
@@ -1684,6 +1894,67 @@ def run_llama(launches: dict) -> None:
     log(f"  mask verdicts read over the 10 profiled calls: {flashex.mask_plan.host_reads - reads0}")
 
 
+def run_legacy_train(cfg, splash_losses: list, launches: dict) -> None:
+    """``build_train`` and 3 staged steps (``Train.step``) of the full
+    open_llama_3b under ``THUNDER_FLASH_IMPL=legacy``: the claimed traces
+    hold the legacy route (no residual pair), each step launches row 10's
+    wrappers as often as they claim, and the losses are the splash route's
+    of phase 6 (the same function) within LOSS_REL. The variable is
+    restored afterwards."""
+    import os
+
+    import torch
+
+    from thunder_tpu_torch.benchmarks import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    prev = os.environ.get("THUNDER_FLASH_IMPL")
+    os.environ["THUNDER_FLASH_IMPL"] = "legacy"
+    try:
+        t0 = time.perf_counter()
+        tr = train.build_train(cfg, LOSS_BATCH, SEQ, device="cuda", seed=SEED)
+        build_s = time.perf_counter() - t0
+        src = tr.fw_trace.python() + tr.bw_trace.python()
+        per_step = {"legacy_fwd": src.count("flash_scaled_dot_product_attention("),
+                    "legacy_bwd": src.count("flash_sdpa_bwd("), "flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd": 0,
+                    "flash_bwd_recompute": 0}
+        log(f"  build_train under legacy: {build_s:.3f} s; claimed per step {per_step}")
+        n = cfg.n_layer
+        require(per_step["legacy_fwd"] == n and per_step["legacy_bwd"] == n and "sdpa_fwd_res" not in src,
+                "the legacy traces do not claim every attention and its recompute backward")
+        times, losses = [], []
+        for step in range(TRAIN_STEPS):
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t = time.perf_counter()
+            loss = tr.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            counts = _launch_counts()
+            got = {k: counts[k] for k in per_step}
+            require(got == per_step, f"legacy step {step + 1}: launches {got}, the traces claim {per_step}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        st = tr.staging
+        require(st.staged and st.captures == 1, f"the legacy train step did not stage: {st}")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, splash_losses))
+        log(f"  legacy train B={LOSS_BATCH} T={SEQ}, staged: {', '.join(f'{x:.4f}' for x in times)} s/step (warm-up, "
+            f"capture, replay); max_memory_allocated (steps 2-{TRAIN_STEPS}) {peak / 2**30:.2f} GiB; loss "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; splash route's (phase 6) bit-equal {losses == splash_losses}, "
+            f"worst rel_err {worst:.3e} (limit {LOSS_REL:.0e})")
+        require(worst <= LOSS_REL, "the legacy route's losses differ from the splash route's")
+        del tr
+    finally:
+        if prev is None:
+            os.environ.pop("THUNDER_FLASH_IMPL", None)
+        else:
+            os.environ["THUNDER_FLASH_IMPL"] = prev
+
+
 def main() -> int:
     import torch
 
@@ -1719,6 +1990,7 @@ def main() -> int:
     check_norm_kernels(cfg, pythia, rows)
     check_pythia_shapes(pythia, rows)
     check_masked_kernels(cfg, rows)
+    check_legacy_kernels(cfg, rows)
 
     log(f"[4] {CFG_NAME} at full width, 2 layers: default executors vs torch executor, forward and gradients")
     check_two_layers(cfg)
@@ -1726,8 +1998,8 @@ def main() -> int:
     log(f"[5] {CFG_NAME}, {cfg.n_layer} layers")
     launches = run_full(cfg)
 
-    log(f"[6] {CFG_NAME}, {cfg.n_layer} layers: training step")
-    run_train(cfg, launches)
+    log(f"[6] {CFG_NAME}, {cfg.n_layer} layers: training step, unstaged and staged")
+    splash_losses = run_train(cfg, launches)
 
     log(f"[7] {PYTHIA} at full width, 2 layers: {NORM_STACK} vs torch executor, forward and gradients")
     check_pythia_two_layers(pythia)
@@ -1740,12 +2012,13 @@ def main() -> int:
                         optimizer="adamw", warmup=2, iters=5)
     check_adamw_step(run)
     del run
+    compare_litgpt_staging(PYTHIA, "flash,fused,torch")
 
     n = cfg.n_layer
     log(f"[9] {CFG_NAME}, {n} layers: litgpt training benchmark, SGD, {NORM_STACK}")
     run_litgpt(CFG_NAME, NORM_STACK, {"flash_fwd_lse": n, "flash_bwd": n, "ce_fwd": 1, "ce_bwd": 1, "rope": 4 * n,
                                       "rms_fwd": 2 * n + 1, "rms_bwd": 2 * n + 1},
-               launches, optimizer="sgd", warmup=1, iters=3)
+               launches, optimizer="sgd", warmup=2, iters=3)
 
     log(f"[10] the Llama stand-in at {CFG_NAME}'s full width, 2 layers, padded batch: jit(module) vs torch "
         "executor, forward and gradients; the exact branch")
@@ -1754,6 +2027,9 @@ def main() -> int:
     log(f"[11] the Llama stand-in, {OPEN_LLAMA_3B.num_hidden_layers} layers, padded batch: forward without grad, "
         "all-ones mask, 3 SGD steps")
     run_llama(launches)
+
+    log(f"[12] {CFG_NAME}, {cfg.n_layer} layers: 3 staged training steps under THUNDER_FLASH_IMPL=legacy")
+    run_legacy_train(cfg, splash_losses, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -511,3 +511,188 @@ def test_flash_seg_refuses_bad_segments(dev):
         flashex.flash_attention_fwd_seg(q, k, v, q_seg, kv_seg[:, :32].contiguous(), causal=True, scale=0.1)
     with pytest.raises(ValueError, match="go together"):
         flashex.flash_attention_bwd_recompute(q, q, k, v, causal=True, scale=0.1, q_seg=q_seg)
+
+
+# =============================================================================
+# Kernel row 10: the legacy route (THUNDER_FLASH_IMPL=legacy)
+# =============================================================================
+
+
+@pytest.mark.parametrize("B,H,G,S,D,causal", [(1, 4, 2, 256, 100, True), (2, 2, 2, 128, 64, False)])
+def test_legacy_flash_matches_plain(dev, B, H, G, S, D, causal):
+    """The legacy wrappers launch rows 1 and 8's kernels: the forward within
+    the forward kernel's 2 ulps, the backward within the recompute
+    backward's 8 ulps of the plain recompute end to end (eps² floor)."""
+    from thunder_tpu_torch.executors import flashex
+
+    q, _, _ = _qkv_views(B, H, G, S, D, torch.bfloat16, dev, 60)
+    _, k, v = _qkv_views(B, H, G, S, D, torch.bfloat16, dev, 61)
+    dout = _randn((B, H, S, D), torch.bfloat16, dev, 62)
+    scale = 1.0 / math.sqrt(D)
+    before = (flashex.legacy_flash_fwd.launches, flashex.legacy_flash_bwd.launches)
+    out = flashex.legacy_flash_fwd(q, k, v, causal=causal, scale=scale)
+    grads = flashex.legacy_flash_bwd(dout, q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (flashex.legacy_flash_fwd.launches, flashex.legacy_flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_rows_close(out, flashex.flash_attention_plain(q, k, v, causal=causal, scale=scale), 2)
+    want = flashex.flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        _assert_rows_close(g, w, 8, floor=2.0 ** -14 * w.float().abs().max().item())
+
+
+# =============================================================================
+# Staging: entries captured as CUDA graphs (executors/staging.py)
+# =============================================================================
+
+_TINY = "llama-hs100-tiny"  # open_llama_3b's head size at a test width: n_embd 200, 2 layers
+
+
+def _tiny_batch(cfg, dev, seed, B=2, T=128):
+    rng = np.random.RandomState(seed)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).to(dev)
+    return idx, torch.roll(idx, -1, dims=1)
+
+
+def _counts():
+    from thunder_tpu_torch.executors import _build
+
+    return {name: n for (_, name), n in _build.launch_counts().items()}
+
+
+def test_staged_jit_replays_with_fresh_outputs_new_inputs_and_counted_launches(dev):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config(_TINY)
+    params = gpt.init_params(cfg, seed=0, device=dev)
+    loss_fn = lambda p, i, t: gpt.loss_fn(p, i, t, cfg)  # noqa: E731
+    staged, eager = tt.jit(loss_fn), tt.jit(loss_fn, disable_jit_staging=True)
+    batches = [_tiny_batch(cfg, dev, s) for s in range(4)]  # a new batch tensor, at a new address, each call
+    before = _counts()
+    got = [staged(params, *b) for b in batches]
+    counts = _counts()
+    stats = tt.last_staging(staged)
+    assert stats.staged and stats.reason is None
+    assert (stats.captures, stats.replays, stats.guard_misses) == (1, 3, 0)
+    assert stats.first_call_s > 0 and stats.capture_s > 0 and stats.copied_bytes_per_call > 0
+    want = [eager(params, *b) for b in batches]
+    assert not tt.last_staging(eager).staged
+    # Same kernels in the same order: the same bits; and each call's result is
+    # its own (the later calls did not overwrite it).
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len({g.data_ptr() for g in got}) == len(got)
+    # A replay counts what its capture launched: launches per call.
+    n = cfg.n_layer
+    delta = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+    assert delta == {"flash_attention_fwd": 4 * n, "apply_rope": 8 * n, "cross_entropy_rows": 4}
+
+    # Params at new addresses: the address guard misses, the entry captures
+    # again with them copied, and the answer is that of the new params.
+    moved = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in params.items()}
+    moved["lm_head_w"].mul_(0.5)
+    got2 = [staged(moved, *batches[0]) for _ in range(2)]
+    assert stats.guard_misses == 1 and stats.captures == 2
+    want2 = eager(moved, *batches[0])
+    assert all(torch.equal(g, want2) for g in got2) and not torch.equal(want2, want[0])
+
+
+def test_staged_grads_equal_unstaged(dev):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config(_TINY)
+    params = gpt.init_params(cfg, seed=1, device=dev)
+    f = lambda p, i, t: gpt.loss_fn(p, i, t, cfg)  # noqa: E731
+    staged, eager = tt.value_and_grad(f), tt.value_and_grad(f, disable_jit_staging=True)
+    idx, tgt = _tiny_batch(cfg, dev, 5)
+    results = [staged(params, idx, tgt) for _ in range(3)]
+    assert tt.last_staging(staged).replays == 2
+    want_loss, want_grads = eager(params, idx, tgt)
+    for loss, grads in results:
+        torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+        for g, w in zip(grads, want_grads):  # the embedding backward adds with atomics
+            torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=2.0 ** -7 * w.float().abs().max().item())
+    assert results[0][1][0].data_ptr() != results[1][1][0].data_ptr()
+
+
+def test_an_unforeseen_host_read_raises(dev):
+    """A host read inside a staged program that the predicate did not see:
+    at the warm-up it raises under the sync check; from the capture on it
+    raises from the capture. Neither runs the program eagerly instead."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.executors.staging import StagingError
+    from thunder_tpu_torch.extend import OperatorExecutor
+
+    reads = {"on": False}
+    ex = OperatorExecutor("host_reader")
+
+    def neg(a):
+        if reads["on"]:
+            a.sum().item()
+        return torch.neg(a)
+
+    ex.register_implementation(PrimIDs.NEG, fn=neg)
+    x = _randn((64,), torch.float32, dev, 70)
+    jf = tt.jit(lambda x: -x * 2.0, executors=[ex, "torch"])
+    assert torch.equal(jf(x), -x * 2.0)  # the warm-up, no read
+    reads["on"] = True
+    with pytest.raises(StagingError, match="capture failed at `.*host_reader_neg"):
+        jf(x)
+    jf = tt.jit(lambda x: -x * 2.0, executors=[ex, "torch"])
+    with pytest.raises(StagingError, match="reads the host at `.*host_reader_neg"):
+        jf(x)
+
+
+def test_staged_train_step_matches_the_eager_step(dev):
+    """``Train.step`` (staged) against ``Train.step_eager`` from the same
+    state: the loss within the 2-layer loss limit (1e-4) each step, the params
+    updated in place."""
+    from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config(_TINY)
+    a = train.build_train(cfg, 2, 128, device=dev, seed=0)
+    b = train.build_train(cfg, 2, 128, device=dev, seed=0)
+    ptrs = [p.data_ptr() for p in a.flat_params]
+    got = [float(a.step()) for _ in range(3)]
+    want = [float(b.step_eager()) for _ in range(3)]
+    assert a.staging.staged and (a.staging.captures, a.staging.replays) == (1, 2)
+    assert [p.data_ptr() for p in a.flat_params] == ptrs
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-4 * abs(w)
+    assert got[2] < got[0]
+
+
+@pytest.mark.parametrize("optimizer,donate", [("adamw", False), ("sgd", True)])
+def test_staged_build_train_step(dev, optimizer, donate):
+    """Without donation the staged step leaves its inputs as they were and
+    returns fresh params; with it the params are the caller's, updated in
+    place. Losses as the unstaged step's from the same state."""
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step
+
+    cfg = gpt.name_to_config(_TINY)
+    idx, tgt = _tiny_batch(cfg, dev, 3)
+
+    def run(use_eager):
+        params = gpt.init_params(cfg, seed=0, device=dev)
+        step, opt = build_train_step(cfg, params, idx, tgt, optimizer=optimizer, donate=donate)
+        fn = step.eager if use_eager else step
+        losses, p, o = [], params, opt
+        for _ in range(3):
+            held = {k: v.clone() for k, v in p.items() if isinstance(v, torch.Tensor)}
+            new_p, o, loss = fn(p, o, idx, tgt)
+            same = all(torch.equal(held[k], p[k]) for k in held)
+            assert same != donate  # inputs updated only under donation
+            assert (new_p["lm_head_w"] is p["lm_head_w"]) == donate
+            losses.append(float(loss))
+            p = new_p
+        return losses, step
+
+    got, step = run(False)
+    want, _ = run(True)
+    assert step.staging.staged and step.staging.replays == 2
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-4 * abs(w)

@@ -1,4 +1,4 @@
-"""The jit entry point: acquisition → dce/cse → claiming → eager execution.
+"""The jit entry point: acquisition → dce/cse → claiming → staging.
 
 Reference parity: thunder/__init__.py (`jit:299`, the prologue-guarded cache
 loop `:409-447`) and the functional frontend of thunder/functional.py.
@@ -8,8 +8,12 @@ run dce and cse and any trace transform asked for (``grad`` and
 ``value_and_grad`` add the autodiff transform, after which the
 attention-residual pass rewrites the joint trace's attention pairs), let the
 executors claim it, print it as Python with ``del`` statements after each
-last use, and run it eagerly on one device. The prologue re-checks every
-input's metadata on each call and is what decides a cache hit.
+last use, and stage it on one device: on CUDA the claimed program is
+captured whole as a CUDA graph (``executors/staging.py``, the seat of
+``jax.jit``; the first call runs eagerly, the second captures, later calls
+replay), unless ``disable_jit_staging`` is set or the program reads the host;
+on the CPU it runs eagerly. The prologue re-checks every input's metadata on
+each call and is what decides a cache hit.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.trace import TraceCtx, mark, tracectx
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
 from thunder_tpu_torch.executors import flashex, fusedex, normex  # kernel executors  # noqa: F401
+from thunder_tpu_torch.executors import staging
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import get_executor, resolve_executors
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
@@ -228,12 +233,17 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     traces.append(extrace)
 
     plg_ex = transform_for_execution(plg_trc, (get_executor("python"),))
+    computation_fn, staging_stats = staging.stage(
+        extrace.python_callable(), [extrace], cd.device, name=getattr(cd.fn, "__name__", "computation"),
+        disabled=cd.disable_jit_staging,
+    )
     entry = CacheEntry(
         prologue_fn=plg_ex.python_callable(),
-        computation_fn=extrace.python_callable(),
+        computation_fn=computation_fn,
         prologue_traces=[plg_trc, plg_ex],
         computation_traces=traces,
         value_guards=value_guards_of(traces[0]),
+        staging=staging_stats,
     )
     cs.last_traces = traces
     cs.cache_entries.append(entry)
@@ -261,10 +271,11 @@ def jit(
     executors: Optional[Sequence] = None,
     device: Any = None,
     sharp_edges: Any = "allow",
+    disable_jit_staging: bool = False,
     _trace_transforms: Sequence[Callable] = (),
     **module_options,
 ) -> Callable:
-    """Compile ``fn`` for eager execution on one device.
+    """Compile ``fn`` for one device.
 
     ``device`` is where the program runs: CUDA unless the caller passes
     ``device="cpu"``; asking for CUDA with no card raises here. ``executors``
@@ -273,17 +284,24 @@ def jit(
     their kernels or raise; on CPU tensors they run their plain versions.
     ``sharp_edges`` ("allow", "warn" or "error") says what a tracing-unsafe
     construct (``random``, clocks, ``os.environ`` read while tracing) does.
+    On CUDA each compiled entry is staged as a CUDA graph (its first call
+    runs eagerly, its second captures, later calls replay;
+    ``executors/staging.py``); ``disable_jit_staging=True`` runs every call
+    eagerly, and an entry that reads the host (``item``, a masked attention's
+    verdict) runs eagerly anyway. ``last_staging(fn)`` says which, and why.
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
 
     A ``torch.nn.Module`` gives a ``ThunderModule`` (``frontend/module.py``),
     which also takes ``rematerialize=`` (default True); the JAX package's
     ``seq_bucket=``/``seq_pad_value=`` raise, naming the slice of the port
-    that brings them.
+    that brings them. A module runs unstaged: its autograd bridge runs the
+    forward and the backward apart.
     """
     if fn is None:
         return functools.partial(jit, executors=executors, device=device, sharp_edges=sharp_edges,
-                                 _trace_transforms=_trace_transforms, **module_options)
+                                 disable_jit_staging=disable_jit_staging, _trace_transforms=_trace_transforms,
+                                 **module_options)
 
     import torch
 
@@ -302,6 +320,7 @@ def jit(
         device=devices.resolve_device(device),
         trace_transforms=tuple(_trace_transforms),
         sharp_edges=resolve_sharp_edges_option(sharp_edges),
+        disable_jit_staging=bool(disable_jit_staging),
     )
     cs = CompileStats()
 
@@ -315,10 +334,11 @@ def jit(
         entry, inps = _probe_entries(cs, args, kwargs, cd.device)
         if entry is not None:
             cs.cache_hits += 1
-            return entry.computation_fn(*inps)
-        cs.cache_misses += 1
-        entry = _compile_entry(cd, cs, args, kwargs)
-        inps = [bridge.to_torch(x, cd.device) for x in entry.prologue_fn(*args, **kwargs)]
+        else:
+            cs.cache_misses += 1
+            entry = _compile_entry(cd, cs, args, kwargs)
+            inps = [bridge.to_torch(x, cd.device) for x in entry.prologue_fn(*args, **kwargs)]
+        cs.last_staging = entry.staging
         return entry.computation_fn(*inps)
 
     fn_._lc_cd = cd
@@ -364,6 +384,12 @@ def last_backward_traces(fn: Callable) -> list:
     """The backward traces of the last call of a jitted module that ran a
     backward (empty otherwise); a function's ``grad`` traces are joint."""
     return fn._lc_cs.last_backward_traces
+
+
+def last_staging(fn: Callable):
+    """The ``StagingStats`` of the entry ``fn`` ran last: whether it is
+    staged as a CUDA graph and, if not, why (``executors/staging.py``)."""
+    return fn._lc_cs.last_staging
 
 
 def cache_hits(fn: Callable) -> int:

@@ -151,12 +151,14 @@ def run_benchmark(
     """Run ``fn`` ``warmup`` times, then time ``iters`` calls, each ended by
     :func:`force_completion`. ``pipelined=True`` dispatches every timed call
     and waits once at the end; the per-call times then all equal the
-    average."""
+    average. The peak memory is taken over the warm-up and the timed calls:
+    a staged step allocates its graph's pool when its warm-up captures it,
+    and its replays allocate nothing there."""
     dev = torch.device(device)
-    for _ in range(warmup):
-        force_completion(fn())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(warmup):
+        force_completion(fn())
     if pipelined:
         t0 = time.perf_counter()
         out = None

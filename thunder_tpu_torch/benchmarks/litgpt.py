@@ -2,9 +2,10 @@
 
 The counterpart of ``thunder_tpu/benchmarks/litgpt.py``: a model name ×
 batch × sequence training benchmark (``parallel.build_train_step``: one
-joint fw+bw program, then AdamW or SGD) reporting iteration time, tokens
-per second, model TFLOP/s and MFU against the card's peak, and peak device
-memory; plus the executor-matrix comparison, whose columns are executor
+joint fw+bw program, then AdamW or SGD, staged whole as a CUDA graph on the
+card, as the JAX package stages it under ``jax.jit``) reporting iteration
+time, tokens per second, model TFLOP/s and MFU against the card's peak, and
+peak device memory; plus the executor-matrix comparison, whose columns are executor
 stacks (torch only → +flash → +fused → +norm).
 
     python -m thunder_tpu_torch.benchmarks.litgpt --model pythia-410m \\
@@ -112,6 +113,7 @@ def prepare(args, executors: Optional[str] = None) -> Prepared:
     if args.forward_only:
         from thunder_tpu_torch import api
         from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.executors import staging
         from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
         from thunder_tpu_torch.extend import resolve_executors
         from thunder_tpu_torch.transforms.common import dce
@@ -120,7 +122,7 @@ def prepare(args, executors: Optional[str] = None) -> Prepared:
             _, comp = api.trace_program(lambda p, i: m.forward(p, i, cfg), (params, idx), {})
             ex = resolve_executors(ex_list) if ex_list else api.DEFAULT_EXECUTORS
             extrace = del_last_used(transform_for_execution(dce(comp), ex))
-        fwd = extrace.python_callable()
+        fwd, _ = staging.stage(extrace.python_callable(), [extrace], dev, name="forward")
         flat = tree_flatten(params)[0] + [idx]
         return Prepared(name=f"{args.model}-fwd", fn=torch.no_grad()(lambda: fwd(*flat)), device=dev,
                         extrace=extrace, tokens=tokens, flops=forward_flops_per_token(n_params) * tokens,

@@ -10,13 +10,15 @@ training step at B=2 x T=2048, with random weights from a seed: with
 ``--step bench`` (the default) ``benchmarks/train.py``'s (split forward
 and backward with remat, then SGD; default executors only), with ``--step
 litgpt`` the LitGPT benchmark's (``benchmarks/litgpt.py``: one joint fw+bw
-program with ``--executors``, then AdamW). Each is timed three times with
-the host clock around ``torch.cuda.synchronize()``, then profiled once with
-``torch.profiler``, and the device time of its kernels is summed by group:
-the port's own kernels (flash forward, flash backward, rope, cross-entropy,
-norm), matrix products, and every other PyTorch kernel (the decomposed
-norms, activations, copies, the qkv slice backward's pads and adds, the
-optimizer update). Prints one JSON line for each. The device busy share is
+program with ``--executors``, then AdamW). Each is staged as a CUDA graph
+(``executors/staging.py``): two untimed calls warm it up and capture it,
+then it is timed three times with the host clock around
+``torch.cuda.synchronize()`` (the enqueue time is the replay's), then
+profiled once with ``torch.profiler``, and the device time of its kernels
+is summed by group: the port's own kernels (flash forward, flash backward,
+rope, cross-entropy, norm), matrix products, and every other PyTorch kernel
+(the decomposed norms, activations, copies, the qkv slice backward's pads
+and adds, the optimizer update). Prints one JSON line for each. The device busy share is
 the summed kernel time over the wall time of an unprofiled call; the
 enqueue time is the host's time to return from the call, before the sync.
 ``chip_smoke.py`` profiles the jitted Llama module on a padded batch with
@@ -50,13 +52,16 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile_call(label: str, fn, **info) -> None:
-    """Time ``fn`` CALLS times, profile it once, print one JSON line."""
+def profile_call(label: str, fn, **info) -> dict:
+    """Call ``fn`` twice (a staged call's warm-up and capture), time it
+    CALLS times, profile it once, print one JSON line and return it as a
+    dict."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
     walls, enqueues = [], []
     for _ in range(CALLS):
@@ -88,7 +93,7 @@ def profile_call(label: str, fn, **info) -> None:
     ops.sort(reverse=True)
     device_ms = sum(by_group.values())
     wall_ms = min(walls) * 1e3
-    print(json.dumps({
+    result = {
         "what": label,
         "device": torch.cuda.get_device_name(0),
         **info,
@@ -99,7 +104,9 @@ def profile_call(label: str, fn, **info) -> None:
         "device_ms_by_group": by_group,
         "top_kernels": [{"ms": ms, "count": n, "name": k} for ms, n, k in top[:12]],
         "top_ops": [{"ms": ms, "count": n, "name": k} for ms, n, k in ops[:16]],
-    }), flush=True)
+    }
+    print(json.dumps(result), flush=True)
+    return result
 
 
 def main(argv=None) -> None:

@@ -18,6 +18,12 @@ A step runs ``loss, saved = fw(*params, idx, tgt)``, then
 place** (the counterpart of the JAX step's donated params), freeing each
 grad as it is used. Gradients are for every float param, in the order of
 the params' pytree leaves.
+
+``Train.step`` is that step staged whole, as ``bench.py:159`` stages it: on
+the card, one CUDA graph (``executors/staging.py``) that reads and updates
+the params in place by address; its first call runs eagerly, its second
+captures, later calls replay. ``Train.step_eager`` runs the same step
+unstaged, op by op.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ class Train:
     fw_trace: Any  # the claimed forward, with dels
     bw_trace: Any  # the claimed backward, with dels
     seconds: dict = field(default_factory=dict)
+    staged: Any = None  # run_step staged (executors/staging.stage), set by build_train
+    staging: Any = None  # its StagingStats
 
     def forward(self) -> tuple[torch.Tensor, list]:
         """(loss, saved): the augmented forward; ``saved`` is the list that
@@ -74,10 +82,25 @@ class Train:
 
         sgd_update(self.flat_params, grads, LR, WD, in_place=True)
 
-    def step(self) -> torch.Tensor:
-        loss, grads = self.forward_backward()
-        self.sgd_(grads)
+    def run_step(self, flat_params: list, idx: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        """One step on these params (updated in place) and this batch: the
+        program that ``step`` stages."""
+        loss, saved = self.fw_fn(*flat_params, idx, tgt)
+        saved = list(saved)  # the backward empties this list as it goes; nothing else may hold its tensors
+        grads = list(self.bw_fn(saved, torch.ones((), dtype=loss.dtype, device=loss.device)))
+        from thunder_tpu_torch.parallel.train import sgd_update
+
+        with torch.no_grad():
+            sgd_update(flat_params, grads, LR, WD, in_place=True)
         return loss
+
+    def step(self) -> torch.Tensor:
+        """One training step, staged as a CUDA graph on the card; the loss."""
+        return self.staged(self.flat_params, self.idx, self.tgt)
+
+    def step_eager(self) -> torch.Tensor:
+        """One training step, unstaged; the loss."""
+        return self.run_step(self.flat_params, self.idx, self.tgt)
 
 
 def build_train(cfg, batch: int, seq: int, *, device: Any = None, params: Optional[dict] = None,
@@ -92,6 +115,7 @@ def build_train(cfg, batch: int, seq: int, *, device: Any = None, params: Option
     from thunder_tpu_torch import api
     from thunder_tpu_torch.core import devices
     from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.executors import staging
     from thunder_tpu_torch.executors.passes import del_last_used, take_saved_as_list, transform_for_execution
     from thunder_tpu_torch.models import gpt
     from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals
@@ -132,5 +156,7 @@ def build_train(cfg, batch: int, seq: int, *, device: Any = None, params: Option
         fw_ex, bw_ex, fw_fn, bw_fn = timed("claim", claim, fw, bw)
 
     flat_params = [p for p in tree_flatten(params)[0] if isinstance(p, torch.Tensor)]
-    return Train(params=params, flat_params=flat_params, idx=idx_t, tgt=tgt_t, fw_fn=fw_fn, bw_fn=bw_fn,
-                 fw_trace=fw_ex, bw_trace=bw_ex, seconds=seconds)
+    tr = Train(params=params, flat_params=flat_params, idx=idx_t, tgt=tgt_t, fw_fn=fw_fn, bw_fn=bw_fn,
+               fw_trace=fw_ex, bw_trace=bw_ex, seconds=seconds)
+    tr.staged, tr.staging = staging.stage(tr.run_step, [fw_ex, bw_ex], dev, name="train step")
+    return tr

@@ -4,7 +4,8 @@ Reference parity: thunder/common.py (`CompileData:138`, `CompileStats:54`,
 `CacheEntry` in thunder/__init__.py:281) and thunder/core/options.py
 (SHARP_EDGES_OPTIONS). Cut to the jit path of this package:
 constant-values caching (every tensor's metadata and every number's value is
-guarded by the prologue), no cache option; the reference package's
+guarded by the prologue), no cache option; staging as a CUDA graph
+(``disable_jit_staging``, executors/staging.py); the reference package's
 symbolic-values caching, distribution state, de-opt ladder, observability
 taps and compile-phase spans come with later parts of the port.
 """
@@ -105,6 +106,9 @@ class CompileData:
     # (``grad`` / ``value_and_grad`` pass the autodiff transform here).
     trace_transforms: tuple = ()
     sharp_edges: SHARP_EDGES_OPTIONS = SHARP_EDGES_OPTIONS.ALLOW
+    # Run every entry eagerly instead of capturing it as a CUDA graph
+    # (executors/staging.py; reference: thunder_tpu/common.py:139).
+    disable_jit_staging: bool = False
 
 
 @dataclass
@@ -118,6 +122,9 @@ class CacheEntry:
     # Guards over input-derived scalar values that the trace specialized on
     # (core/concrete.py): all must re-evaluate equal for a cache hit.
     value_guards: tuple = ()
+    # Whether computation_fn is staged as a CUDA graph, or why not, and its
+    # counters (executors/staging.py StagingStats).
+    staging: Any = None
 
 
 class CompileStats:
@@ -129,3 +136,4 @@ class CompileStats:
         self.cache_misses: int = 0
         self.last_traces: list = []
         self.last_backward_traces: list = []
+        self.last_staging = None  # the StagingStats of the entry that ran last

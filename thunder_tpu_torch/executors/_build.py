@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -133,6 +134,31 @@ def check(status: int, kernel: str) -> None:
     if status != 0:
         msg = lib().thunder_cuda_error_string(status).decode()
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} (error {status})")
+
+
+# Every kernel wrapper, by (module, name). A wrapper adds one to its
+# ``launches`` attribute where it launches its kernel; a CUDA graph's replay
+# adds what its capture launched (``executors/staging.py``). The counts are
+# read through the module's attribute, so a wrapper swapped for a stand-in
+# counts on the stand-in.
+KERNEL_WRAPPERS: list[tuple[str, str]] = []
+
+
+def counted(fn):
+    """Register a kernel wrapper and start its launch count at 0."""
+    fn.launches = 0
+    KERNEL_WRAPPERS.append((fn.__module__, fn.__name__))
+    return fn
+
+
+def launch_counts() -> dict[tuple[str, str], int]:
+    """Every registered wrapper's launch count."""
+    return {key: getattr(sys.modules[key[0]], key[1]).launches for key in KERNEL_WRAPPERS}
+
+
+def add_launches(counts: dict[tuple[str, str], int]) -> None:
+    for (mod, name), n in counts.items():
+        getattr(sys.modules[mod], name).launches += n
 
 
 def stream_of(t) -> ctypes.c_void_p:

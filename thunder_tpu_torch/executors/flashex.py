@@ -29,6 +29,15 @@ Claims:
   attention-residual pass (``transforms/attention_residuals.py``) swaps in
   for (sdpa, sdpa_bwd) when ``residual_eligible`` holds: no mask and S == L.
 
+``THUNDER_FLASH_IMPL=legacy`` selects the JAX package's other route,
+``_legacy_flash`` (the Pallas TPU ``flash_attention``; ``splash``, the
+default, is the route above). Under it the two checkers claim what the JAX
+package's claim (``flashex.py:171-193``): no mask, S == L, S % 128 == 0,
+besides the conditions above; ``residual_eligible`` is False, so the
+backward is the recompute route; and the claims run ``legacy_flash_fwd``
+and ``legacy_flash_bwd``. The variable is read, as in the JAX package, when
+a claim is checked and when it runs.
+
 A mask's values are checked when the program runs, as ``_sdpa_runtime``
 does (``_mask_plan``): a key-padding mask must leave every batch row a key
 (additive entries must be 0 or ≤ −1e9), and a 4-D mask must equal
@@ -56,6 +65,7 @@ nothing (only a tensor whose last dim is strided would be copied).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -73,6 +83,12 @@ _MIN_SEQ = 64  # below this the decomposition is as cheap as a kernel launch
 _MAX_HEAD = 256
 _MAX_BH = 65535  # the grid's y extent
 _NEG_BIG = -1e9  # additive-mask entries at or below this count as masked
+_LEGACY_ALIGN = 128  # the legacy route's sequence quantum (the TPU kernel's block)
+
+
+def _impl_name() -> str:
+    """``THUNDER_FLASH_IMPL``: "splash" (the default) or "legacy"."""
+    return os.environ.get("THUNDER_FLASH_IMPL", "splash")
 
 
 # =============================================================================
@@ -258,6 +274,7 @@ def _launch_bwd(dout, q, k, v, out, lse, causal: bool, scale: float, q_seg=None,
     return dq, dk, dv
 
 
+@_build.counted
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                         scale: float) -> torch.Tensor:
     """Causal or full attention of q (B, H, Tq, D) over k/v (B, G, Tkv, D)."""
@@ -268,9 +285,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
     return out
 
 
-flash_attention_fwd.launches = 0
-
-
+@_build.counted
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_fwd`` that also returns the per-row logsumexp
@@ -283,9 +298,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     return out, lse
 
 
-flash_attention_fwd_lse.launches = 0
-
-
+@_build.counted
 def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, *, causal: bool,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -298,9 +311,7 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
     return grads
 
 
-flash_attention_bwd.launches = 0
-
-
+@_build.counted
 def flash_attention_fwd_seg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_seg: torch.Tensor,
                             kv_seg: torch.Tensor, *, causal: bool, scale: float) -> torch.Tensor:
     """Attention under segment ids: query i of batch row b sees key j only
@@ -313,9 +324,7 @@ def flash_attention_fwd_seg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
     return out
 
 
-flash_attention_fwd_seg.launches = 0
-
-
+@_build.counted
 def flash_attention_bwd_recompute(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   causal: bool, scale: float, q_seg: Optional[torch.Tensor] = None,
                                   kv_seg: Optional[torch.Tensor] = None):
@@ -332,7 +341,52 @@ def flash_attention_bwd_recompute(dout: torch.Tensor, q: torch.Tensor, k: torch.
     return grads
 
 
-flash_attention_bwd_recompute.launches = 0
+# =============================================================================
+# Row 10: the legacy route (THUNDER_FLASH_IMPL=legacy)
+# =============================================================================
+#
+# Replaces ``flashex._legacy_flash`` (``thunder_tpu/executors/flashex.py:422-
+# 444``), the Pallas TPU ``flash_attention`` (forward; its backward is
+# ``jax.vjp`` of it: the forward again with its residuals, then the dK/dV and
+# dQ kernels). On the domain the legacy checkers claim (no mask, S == L,
+# S % 128 == 0, half precision) it computes what rows 1 and 8 compute: f32
+# scores scaled in f32 (``flash_attention.py:408-409``), causal as col <= row
+# (``:432``), which for S == L is the bottom-right alignment of
+# ``csrc/flash_attn.cu``. So the route launches those kernels, through
+# wrappers of its own that count its launches. The JAX package expands k/v
+# to H heads and sums dk/dv over each group; the kernels take G kv heads and
+# sum inside (the same function). Bound: the forward's 4·B·H·D FLOP per
+# causal (query, key) pair, the backward's 14 (the recomputed forward's 4 and
+# the backward's 10), at the bf16 tensor-core rate; the kernels keep their
+# accumulators in shared memory and stay far from it, as rows 1 and 8 do.
+
+
+@_build.counted
+def legacy_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                     scale: float) -> torch.Tensor:
+    """Row 10's forward: attention of q (B, H, S, D) over k/v (B, G, S, D),
+    the row-1 kernel (``flash_attention_plain`` on CPU tensors)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    out = _launch_fwd(q, k, v, causal, scale, None)
+    legacy_flash_fwd.launches += 1
+    return out
+
+
+@_build.counted
+def legacy_flash_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                     scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row 10's backward, ``jax.vjp`` of ``_legacy_flash``: the forward
+    kernel again with logsumexp, then the backward kernel (the row-8 route
+    without segments; ``flash_attention_bwd_recompute_plain`` on CPU
+    tensors). dk/dv (B, G, S, D) come summed over each kv group."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _launch_fwd(q, k, v, causal, scale, lse)
+    grads = _launch_bwd(dout, q, k, v, out, lse, causal, scale)
+    legacy_flash_bwd.launches += 1
+    return grads
 
 
 # =============================================================================
@@ -351,15 +405,13 @@ def _exact_sdpa(q, k, v, mask, *, causal: bool, scale: float) -> torch.Tensor:
     return torch.matmul(p.to(q.dtype), v)
 
 
+@_build.counted
 def sdpa_exact(q, k, v, mask, *, causal: bool, scale: float) -> torch.Tensor:
     """SDPA with f32 scores and torch's safe softmax, in plain PyTorch: the
     JAX package's ``_xla_sdpa``, the branch of ``_sdpa_runtime`` for masks
     that fail the value checks. Every call counts, on any device."""
     sdpa_exact.launches += 1
     return _exact_sdpa(q, k, v, mask, causal=causal, scale=scale)
-
-
-sdpa_exact.launches = 0
 
 
 def sdpa_exact_bwd(g, q, k, v, mask, *, causal: bool, scale: float):
@@ -516,17 +568,29 @@ def _mask_ok(mask, q, k, is_causal) -> bool:
     return kind != "no" and (kind == "none" or not bool(pyval(is_causal)))
 
 
+def _legacy_ok(mask, q, k) -> bool:
+    """The legacy route's domain (``flashex.py:177-179``, ``:191-193``)."""
+    S, L = q.shape[-2], k.shape[-2]
+    return mask is None and S == L and S % _LEGACY_ALIGN == 0
+
+
+def _route_ok(mask, q, k, is_causal) -> bool:
+    if _impl_name() == "legacy":
+        return _legacy_ok(mask, q, k)
+    return _mask_ok(mask, q, k, is_causal)
+
+
 def _sdpa_checker(*args, **kwargs) -> bool:
     b = _sdpa_bound(args, kwargs)
     q, k, v = b["query"], b["key"], b["value"]
     if float(pyval(b["dropout_p"])) != 0.0:
         return False
-    return _shapes_ok(q, k, v, b["enable_gqa"]) and _mask_ok(b["attn_mask"], q, k, b["is_causal"])
+    return _shapes_ok(q, k, v, b["enable_gqa"]) and _route_ok(b["attn_mask"], q, k, b["is_causal"])
 
 
 def _bwd_checker(g, query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False) -> bool:
     return (_shapes_ok(query, key, value, enable_gqa) and g.dtype == query.dtype
-            and tuple(g.shape) == tuple(query.shape) and _mask_ok(attn_mask, query, key, is_causal))
+            and tuple(g.shape) == tuple(query.shape) and _route_ok(attn_mask, query, key, is_causal))
 
 
 def _scale_of(q, scale) -> float:
@@ -537,6 +601,8 @@ def _sdpa_impl(*args, **kwargs):
     b = _sdpa_bound(args, kwargs)
     q, k, v, mask = b["query"], b["key"], b["value"], b["attn_mask"]
     scale, causal = _scale_of(q, b["scale"]), bool(b["is_causal"])
+    if _impl_name() == "legacy":
+        return legacy_flash_fwd(q, k, v, causal=causal, scale=scale)
     if mask is None:
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     plan = mask_plan(mask, q, k, causal)
@@ -550,6 +616,8 @@ def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=
     package): the forward again with logsumexp under the same plan, then the
     backward kernel; dk/dv come summed over each kv group."""
     scale, causal = _scale_of(query, scale), bool(is_causal)
+    if _impl_name() == "legacy":
+        return legacy_flash_bwd(g, query, key, value, causal=causal, scale=scale)
     plan = mask_plan(attn_mask, query, key, causal)
     if not plan.flash:
         return sdpa_exact_bwd(g, query, key, value, attn_mask, causal=causal, scale=scale)
@@ -557,8 +625,18 @@ def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=
                                          kv_seg=plan.kv_seg)
 
 
-ex.register_implementation("torch.scaled_dot_product_attention", fn=_sdpa_impl, checker=_sdpa_checker)
-ex.register_implementation("torch.sdpa_bwd", fn=_sdpa_bwd_impl, checker=_bwd_checker)
+def _sdpa_reads_host(*args, **kwargs) -> bool:
+    """A masked claim reads its mask's verdict on the host (``mask_plan``)."""
+    return _sdpa_bound(args, kwargs)["attn_mask"] is not None
+
+
+def _bwd_reads_host(g, query, key, value, attn_mask=None, *args, **kwargs) -> bool:
+    return attn_mask is not None
+
+
+ex.register_implementation("torch.scaled_dot_product_attention", fn=_sdpa_impl, checker=_sdpa_checker,
+                           reads_host=_sdpa_reads_host)
+ex.register_implementation("torch.sdpa_bwd", fn=_sdpa_bwd_impl, checker=_bwd_checker, reads_host=_bwd_reads_host)
 
 
 # =============================================================================
@@ -570,8 +648,9 @@ ex.register_implementation("torch.sdpa_bwd", fn=_sdpa_bwd_impl, checker=_bwd_che
 def residual_eligible(q, k, v, *, enable_gqa=False) -> bool:
     """The attention-residual pass asks before rewriting: the forward
     checker's conditions plus S == L (no mask, D ≤ 256), as the JAX package
-    asks (``thunder_tpu/executors/flashex.py:505-514``)."""
-    if not _sdpa_checker(q, k, v, None, 0.0, True, None, enable_gqa):
+    asks (``thunder_tpu/executors/flashex.py:505-514``). The legacy route has
+    no residual pair (``:509``)."""
+    if _impl_name() != "splash" or not _sdpa_checker(q, k, v, None, 0.0, True, None, enable_gqa):
         return False
     return q.shape[-2] == k.shape[-2]
 

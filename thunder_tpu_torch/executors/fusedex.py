@@ -52,6 +52,7 @@ def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos.float() + rotated * sin.float()).to(x.dtype)
 
 
+@_build.counted
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half rope of x (B, H, T, D) with cos/sin (T, D). x may be a
     strided view (last dim contiguous); the result is contiguous."""
@@ -76,9 +77,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     _build.check(status, "rope")
     apply_rope.launches += 1
     return out
-
-
-apply_rope.launches = 0
 
 
 def _rope_checker(x, cos, sin) -> bool:
@@ -114,6 +112,7 @@ def cross_entropy_rows_plain(logits: torch.Tensor, target: torch.Tensor, ignore_
     return torch.where(valid, loss, torch.zeros_like(loss))
 
 
+@_build.counted
 def cross_entropy_rows(logits: torch.Tensor, target: torch.Tensor, ignore_index: int) -> torch.Tensor:
     """Per-row loss (N,) in f32 of logits (N, V) against targets (N,)."""
     if logits.device.type == "cpu":
@@ -139,9 +138,6 @@ def cross_entropy_rows(logits: torch.Tensor, target: torch.Tensor, ignore_index:
     _build.check(status, "ce_fwd")
     cross_entropy_rows.launches += 1
     return loss
-
-
-cross_entropy_rows.launches = 0
 
 
 def _ce_checker(input, target, weight=None, ignore_index=-100, reduction="mean", label_smoothing=0.0) -> bool:
@@ -175,9 +171,10 @@ ex.register_implementation("torch.cross_entropy", fn=_ce_impl, checker=_ce_check
 
 def ce_row_scale(g, target: torch.Tensor, ignore_index: int, reduction: str) -> torch.Tensor:
     """Per-row scale (N,) f32 of dlogits, on target's device with no host
-    sync: g·valid/max(#valid, 1) for the mean, g·valid for the sum."""
+    sync and no copy to the device (a number ``g`` stays a 0-d CPU tensor):
+    g·valid/max(#valid, 1) for the mean, g·valid for the sum."""
     valid = (target != ignore_index).to(torch.float32)
-    scale = torch.as_tensor(g, device=target.device).to(torch.float32) * valid
+    scale = (g if isinstance(g, torch.Tensor) else torch.tensor(g)).to(torch.float32) * valid
     if reduction == "mean":
         scale = scale / valid.sum().clamp_min(1.0)
     return scale
@@ -192,6 +189,7 @@ def cross_entropy_bwd_plain(logits: torch.Tensor, target: torch.Tensor, row_scal
     return ((torch.softmax(x, dim=-1) - onehot) * row_scale[:, None]).to(logits.dtype)
 
 
+@_build.counted
 def cross_entropy_bwd(logits: torch.Tensor, target: torch.Tensor, row_scale: torch.Tensor) -> torch.Tensor:
     """dlogits (N, V), contiguous, in the logits' dtype."""
     if logits.device.type == "cpu":
@@ -219,9 +217,6 @@ def cross_entropy_bwd(logits: torch.Tensor, target: torch.Tensor, row_scale: tor
     _build.check(status, "ce_bwd")
     cross_entropy_bwd.launches += 1
     return out
-
-
-cross_entropy_bwd.launches = 0
 
 
 def _ce_bwd_checker(g, input, target, ignore_index=-100, reduction="mean") -> bool:

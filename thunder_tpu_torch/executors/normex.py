@@ -163,6 +163,7 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
     return dx.reshape(x.shape), dw_part.sum(0), None if db_part is None else db_part.sum(0)
 
 
+@_build.counted
 def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
     """RMSNorm of x (..., D) over its last dim, times weight (D,)."""
     if x.device.type == "cpu":
@@ -172,9 +173,7 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) ->
     return y
 
 
-rms_norm_fwd.launches = 0
-
-
+@_build.counted
 def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
                  eps: float = RMS_EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw in f32) of RMSNorm from its cotangent g."""
@@ -185,9 +184,7 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     return dx, dw
 
 
-rms_norm_bwd.launches = 0
-
-
+@_build.counted
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                    eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of x (..., D) over its last dim, times weight (D,), plus
@@ -199,9 +196,7 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
     return y
 
 
-layer_norm_fwd.launches = 0
-
-
+@_build.counted
 def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
                    with_bias: bool) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx, dw in f32, db in f32 or None) of LayerNorm from its cotangent g."""
@@ -210,9 +205,6 @@ def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: 
     out = _launch_bwd("ln_bwd", g, x, weight, eps, True, with_bias)
     layer_norm_bwd.launches += 1
     return out
-
-
-layer_norm_bwd.launches = 0
 
 
 # =============================================================================

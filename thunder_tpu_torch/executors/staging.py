@@ -1,0 +1,249 @@
+"""Staging: a program captured whole as one CUDA graph, the seat of ``jax.jit``.
+
+The counterpart of the JAX package's staging: ``api.py:683-688`` decides
+whether an entry stages (``will_stage``), ``:774-784`` stages it under
+``jax.jit``, and ``bench.py:159`` and ``parallel/train.py:213`` stage their
+training steps whole. Here a staged callable's first call runs eagerly (the
+warm-up, as XLA compiles at an entry's first run), under
+``torch.cuda.set_sync_debug_mode("error")``, so that a host read raises
+there; its second call captures one ``torch.cuda.CUDAGraph`` in a private
+memory pool and replays it; every later call replays it.
+
+What stays unstaged (:func:`unstaged_reason`): ``disable_jit_staging``; a
+program holding a ``DEVICE_SYNC_OP`` (``prims.item``); a program with a
+claim whose implementation reads a device value on the host (the flash
+executor's masked SDPA, whose verdict the JAX package takes on the device
+with ``lax.cond``: a graph would bake one mask's verdict into every later
+mask's replays); and any device but CUDA. Each gives its reason.
+
+Inputs are the tensor leaves of the call's arguments, read one of two ways:
+- in place, by address: a leaf whose address was the same on the warm-up
+  and capture calls (the params and optimizer state of a training step, a
+  params dict passed every call). The graph reads, and where the program
+  updates it in place writes, the caller's tensor: the counterpart of
+  donation. Each call checks the address; a miss re-captures with that leaf
+  copied, and is counted;
+- copied: every other leaf (a new batch each call) is copied into a buffer
+  the stage owns before each replay; one that the program updates in place
+  (seen in the warm-up through the tensor's version counter) is copied back
+  after it.
+The tree's structure, its other leaves and each tensor's shape, strides,
+dtype and device are the stage's signature: another one warms up and
+captures anew, and is counted as a miss too. A replay never reads a stale
+address.
+
+Outputs: a tensor output that is an input comes back as the caller's tensor;
+every other is copied out of the graph's pool into a fresh tensor, so a
+result the caller holds is never overwritten by a later call (``jax.jit``
+returns fresh arrays). Launch counters keep meaning launches per call: a
+replay adds to each kernel wrapper's count what its capture launched.
+
+No fallback: a capture that fails raises ``StagingError``, naming the line of
+the program that was running; nothing runs eagerly in its place.
+"""
+
+from __future__ import annotations
+
+import linecache
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from thunder_tpu_torch.core.prims import OpTags
+from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+from thunder_tpu_torch.executors import _build
+
+
+class StagingError(RuntimeError):
+    """A staged program could not be captured as a CUDA graph."""
+
+
+@dataclass
+class StagingStats:
+    """How one entry runs. ``reason`` says why it is not staged (None when
+    it is). Seconds are the host's, each ending in a synchronize: the
+    warm-up call and the last capture (with its first replay). Bytes are
+    those copied per replay: inputs in, updated inputs back, outputs out."""
+
+    staged: bool
+    reason: Optional[str] = None
+    first_call_s: float = 0.0
+    capture_s: float = 0.0
+    captures: int = 0
+    replays: int = 0
+    guard_misses: int = 0
+    copied_bytes_per_call: int = 0
+
+
+def unstaged_reason(traces: Sequence, device: torch.device, disabled: bool = False) -> Optional[str]:
+    """Why the claimed ``traces`` run eagerly on ``device``, or None when
+    they stage (``api.py:683-688`` of the JAX package)."""
+    if disabled:
+        return "disable_jit_staging=True"
+    for trc in traces:
+        for bsym in trc.bound_symbols:
+            if OpTags.DEVICE_SYNC_OP in bsym.sym.tags:
+                return f"{bsym.sym.name} syncs the device with the host"
+            ex = bsym.sym.executor
+            if ex is not None and ex.reads_host(bsym):
+                return f"the {ex.name} executor's {bsym.sym.name} reads a device value on the host"
+    if device.type != "cuda":
+        return f"the {device.type} device has no CUDA graphs"
+    return None
+
+
+def _signature(leaves: list) -> tuple:
+    return tuple(
+        (tuple(x.shape), x.stride(), x.dtype, x.device, x.requires_grad) if isinstance(x, torch.Tensor) else x
+        for x in leaves
+    )
+
+
+def _copy(dst: list, src: list) -> None:
+    """Copy each of ``src`` into ``dst``, a few launches for the lot (a step
+    without donation copies every param and optimizer moment twice): one
+    foreach copy per dtype, since a list that mixes dtypes takes the
+    one-launch-per-tensor path."""
+    groups: dict = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault(s.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _where(exc: BaseException) -> str:
+    """The deepest line of a generated program on the exception's traceback
+    (or on that of the exception it was raised during)."""
+    where = ""
+    while exc is not None and not where:
+        tb = exc.__traceback__
+        while tb is not None:
+            name = tb.tb_frame.f_code.co_filename
+            if name.startswith("<thunder_tpu_torch.gen"):
+                where = f" at `{linecache.getline(name, tb.tb_lineno).strip()}`"
+            tb = tb.tb_next
+        exc = exc.__context__
+    return where
+
+
+class CudaGraphStage:
+    """``fn`` staged as one CUDA graph. ``eager`` is ``fn`` itself, unstaged;
+    ``stats`` is the entry's :class:`StagingStats`."""
+
+    def __init__(self, fn: Callable, *, name: str):
+        self.eager = fn
+        self.name = name
+        self.stats = StagingStats(staged=True)
+        self._spec = None
+        self._sig = None
+        self._warm_addrs: dict[int, int] = {}
+        self._mutated: set[int] = set()
+        self._graph = None
+
+    def __call__(self, *args):
+        leaves, spec = tree_flatten(args)
+        sig = _signature(leaves)
+        if self._sig is None or spec != self._spec or sig != self._sig:
+            if self._sig is not None:
+                self.stats.guard_misses += 1
+            return self._warm_up(args, leaves, spec, sig)
+        if self._graph is None:
+            return self._capture(leaves, {i for i, a in self._warm_addrs.items() if leaves[i].data_ptr() == a})
+        missed = {i for i in self._by_address if leaves[i].data_ptr() != self._addrs[i]}
+        if missed:
+            self.stats.guard_misses += 1
+            return self._capture(leaves, self._by_address - missed)
+        return self._replay(leaves)
+
+    def _warm_up(self, args: tuple, leaves: list, spec, sig: tuple):
+        self._graph = None
+        tensors = {i: x for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)}
+        versions = {i: t._version for i, t in tensors.items()}
+        t0 = time.perf_counter()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.eager(*args)
+        except RuntimeError as e:
+            if "synchronizing" not in str(e):
+                raise
+            raise StagingError(f"staging {self.name}: the program reads the host{_where(e)}: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        self.stats.first_call_s = time.perf_counter() - t0
+        self._spec, self._sig = spec, sig
+        self._warm_addrs = {i: t.data_ptr() for i, t in tensors.items()}
+        self._mutated = {i for i, t in tensors.items() if t._version != versions[i]}
+        return out
+
+    def _capture(self, leaves: list, by_address: set):
+        t0 = time.perf_counter()
+        self._graph = self._static = self._outs = None  # a re-capture frees the old graph's pool first
+        copied = [i for i in self._warm_addrs if i not in by_address]
+        static = list(leaves)
+        for i in copied:
+            static[i] = torch.empty_like(leaves[i]).copy_(leaves[i])
+        before = _build.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.eager(*tree_unflatten(static, self._spec))
+        except Exception as e:
+            raise StagingError(f"staging {self.name}: the CUDA graph capture failed{_where(e)}: {e}") from e
+        after = _build.launch_counts()
+        self._delta = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        out_leaves, self._out_spec = tree_flatten(out)
+        # Each output leaf: ("in", i) for input leaf i, ("new", t) for a tensor
+        # in the graph's pool, copied out per call, ("const", x) otherwise.
+        ids = {id(static[i]): i for i in self._warm_addrs}
+        self._outs = [("in", ids[id(o)]) if id(o) in ids else ("new", o) if isinstance(o, torch.Tensor)
+                      else ("const", o) for o in out_leaves]
+        self._graph, self._static, self._copied = graph, static, copied
+        self._by_address = set(by_address)
+        self._addrs = {i: leaves[i].data_ptr() for i in by_address}
+        self._copy_back = [i for i in copied if i in self._mutated]
+        self.stats.copied_bytes_per_call = (sum(_nbytes(leaves[i]) for i in copied + self._copy_back)
+                                            + sum(_nbytes(o) for kind, o in self._outs if kind == "new"))
+        self.stats.captures += 1
+        graph.replay()
+        result = self._results(leaves)
+        torch.cuda.synchronize()
+        self.stats.capture_s = time.perf_counter() - t0
+        return result
+
+    def _replay(self, leaves: list):
+        _copy([self._static[i] for i in self._copied], [leaves[i] for i in self._copied])
+        self._graph.replay()
+        _build.add_launches(self._delta)
+        return self._results(leaves)
+
+    def _results(self, leaves: list):
+        self.stats.replays += 1
+        _copy([leaves[i] for i in self._copy_back], [self._static[i] for i in self._copy_back])
+        pooled = [x for kind, x in self._outs if kind == "new"]
+        fresh = [torch.empty_like(x) for x in pooled]
+        _copy(fresh, pooled)
+        fresh = iter(fresh)
+        outs = [leaves[x] if kind == "in" else next(fresh) if kind == "new" else x for kind, x in self._outs]
+        return tree_unflatten(outs, self._out_spec)
+
+
+def stage(fn: Callable, traces: Sequence, device: torch.device, *, name: str,
+          disabled: bool = False) -> tuple[Callable, StagingStats]:
+    """``(callable, stats)``: ``fn`` staged as a CUDA graph, or ``fn`` itself
+    with the reason it is not (:func:`unstaged_reason` over the claimed
+    ``traces`` that ``fn`` runs)."""
+    reason = unstaged_reason(traces, device, disabled)
+    if reason is not None:
+        return fn, StagingStats(staged=False, reason=reason)
+    staged = CudaGraphStage(fn, name=name)
+    return staged, staged.stats

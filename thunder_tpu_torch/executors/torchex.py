@@ -56,13 +56,17 @@ def _is_int(x) -> bool:
 
 
 def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    """A number as a 0-d tensor of ``like``'s dtype on the CPU: it takes the
+    number in the tensor's type, as JAX's weak typing does, and torch passes
+    a 0-d CPU tensor to a CUDA kernel as an argument, so it needs no copy to
+    the device (which a CUDA graph could not hold)."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=like.dtype)
 
 
 def _on_numbers(fn):
     """Lift a torch function of tensors to Python-number operands: two
     numbers compute as 0-d tensors and come back as a number; one number
-    beside a tensor becomes a 0-d tensor of the tensor's dtype."""
+    beside a tensor becomes a 0-d CPU tensor of the tensor's dtype."""
 
     def lowered(*args):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -87,7 +91,15 @@ _reg(PrimIDs.DEVICE_PUT, lambda a, device: a.to(_dev(device)))
 _reg(PrimIDs.ITEM, lambda a: a.item())
 _reg(PrimIDs.SHALLOW_COPY, lambda a: a)
 _reg(PrimIDs.STOP_GRADIENT, lambda a: a.detach())
-_reg(PrimIDs.COPY_, lambda src, dst: _as_tensor(src, dst).to(dst.dtype).expand(dst.shape).clone())
+
+
+def _copy_(src, dst):
+    if not isinstance(src, torch.Tensor):
+        return torch.full(dst.shape, src, dtype=dst.dtype, device=dst.device)
+    return src.to(dst.dtype).expand(dst.shape).clone()
+
+
+_reg(PrimIDs.COPY_, _copy_)
 
 
 # -- creation -----------------------------------------------------------------
@@ -101,10 +113,23 @@ def _iota(length, *, start, step, device, dtype):
 
 
 _reg(PrimIDs.IOTA, _iota)
-_reg(
-    PrimIDs.TENSOR_FROM_SEQUENCE,
-    lambda seq, *, device, dtype: torch.tensor(seq, dtype=_td(dtype) if dtype else None, device=_dev(device)),
-)
+
+
+def _tensor_from_sequence(seq, *, device, dtype):
+    """The sequence's values on the host; on a card each is filled in by a
+    kernel, with no copy from host memory (which a CUDA graph could not
+    hold)."""
+    host = torch.tensor(seq, dtype=_td(dtype) if dtype else None)
+    dev = _dev(device)
+    if dev.type == "cpu":
+        return host
+    out = torch.empty(host.shape, dtype=host.dtype, device=dev)
+    for i, v in enumerate(host.reshape(-1).tolist()):
+        out.view(-1)[i].fill_(v)
+    return out
+
+
+_reg(PrimIDs.TENSOR_FROM_SEQUENCE, _tensor_from_sequence)
 
 
 # -- shape --------------------------------------------------------------------

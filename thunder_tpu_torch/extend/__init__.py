@@ -27,6 +27,10 @@ class ImplInfo:
 
     fn: Optional[Callable] = None  # concrete implementation
     checker: Optional[Callable] = None  # (*args, **kwargs) -> bool
+    # (*args, **kwargs) -> bool: the implementation reads a device value on
+    # the host when it runs, which a CUDA graph cannot hold
+    # (executors/staging.py leaves such a program unstaged).
+    reads_host: Optional[Callable] = None
 
 
 class OperatorExecutor:
@@ -55,11 +59,17 @@ class OperatorExecutor:
         return info.fn if info is not None else None
 
     def register_implementation(
-        self, sym_or_id: Symbol | Any, *, fn: Callable, checker: Optional[Callable] = None
+        self, sym_or_id: Symbol | Any, *, fn: Callable, checker: Optional[Callable] = None,
+        reads_host: Optional[Callable] = None,
     ) -> None:
         """Map an IR symbol to this executor (reference: `register_implementation:247`)."""
         sym_id = sym_or_id.id if isinstance(sym_or_id, Symbol) else sym_or_id
-        self.implmap[sym_id] = ImplInfo(fn=fn, checker=checker)
+        self.implmap[sym_id] = ImplInfo(fn=fn, checker=checker, reads_host=reads_host)
+
+    def reads_host(self, bsym: BoundSymbol) -> bool:
+        """Whether this executor's implementation of ``bsym`` reads the host."""
+        info = self.implmap.get(bsym.sym.id)
+        return info is not None and info.reads_host is not None and bool(info.reads_host(*bsym.args, **bsym.kwargs))
 
 
 # -- global registry ----------------------------------------------------------

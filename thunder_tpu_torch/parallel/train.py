@@ -12,7 +12,9 @@ The optimizer runs outside the trace, on the grads the program returns:
 AdamW with the JAX package's arithmetic (:func:`adamw_update`), or its
 bf16-true SGD with weight decay. With ``donate=True`` the params (and the
 AdamW state) are updated in place, the counterpart of donating them to the
-JAX step. The sharded step (``mesh``, ``param_specs``, ``batch_spec``)
+JAX step. The step is staged whole, as ``thunder_tpu/parallel/train.py:213``
+stages it under ``jax.jit``: on the card one CUDA graph
+(``executors/staging.py``) runs the program and the optimizer. The sharded step (``mesh``, ``param_specs``, ``batch_spec``)
 comes with the distribution slice of the port and raises here.
 """
 
@@ -165,9 +167,12 @@ def build_train_step(
     for inputs shaped like ``idx`` and ``targets`` (int tensors on the
     params' device). Returns ``(step_fn, opt_state)``, plus the claimed
     joint trace with ``return_extrace=True``;
-    ``step_fn(params, opt_state, idx, targets) -> (params, opt_state, loss)``.
+    ``step_fn(params, opt_state, idx, targets) -> (params, opt_state, loss)``,
+    staged as a CUDA graph on the card (``executors/staging.py``: the first
+    call runs eagerly, the second captures, later calls replay).
     ``step_fn.loss_and_grads`` is the claimed program itself:
-    ``(*param_leaves, idx, targets) -> (loss, grads)``.
+    ``(*param_leaves, idx, targets) -> (loss, grads)``; ``step_fn.eager``
+    is the step unstaged, and ``step_fn.staging`` its ``StagingStats``.
 
     ``grads_in_f32`` casts each grad to f32 before the update. ``donate``
     updates params and optimizer state in place (the returned ones are the
@@ -180,7 +185,7 @@ def build_train_step(
     loss_and_grads, extrace = _compile_loss_and_grads(config, params, idx, targets, executors)
 
     @torch.no_grad()
-    def step(params, opt_state, idx, targets):
+    def eager_step(params, opt_state, idx, targets):
         flat_p, p_spec = tree_flatten(params)
         loss, grads = loss_and_grads(*flat_p, idx, targets)
         grads = [g.float() for g in grads] if grads_in_f32 else list(grads)
@@ -191,6 +196,9 @@ def build_train_step(
                                              weight_decay=weight_decay, in_place=donate)
         return new_params, new_state, loss
 
-    step.loss_and_grads = loss_and_grads
+    from thunder_tpu_torch.executors import staging
+
+    step, stats = staging.stage(eager_step, [extrace], idx.device, name="train step")
+    step.loss_and_grads, step.eager, step.staging = loss_and_grads, eager_step, stats
     opt_state = adamw_init(params) if optimizer == "adamw" else {"step": 0}
     return (step, opt_state, extrace) if return_extrace else (step, opt_state)
