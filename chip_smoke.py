@@ -150,6 +150,33 @@ def _library_ms(*calls):
     return None
 
 
+def _lse_library_calls(q, k, v, scale: float) -> tuple:
+    """One PyTorch call each that computes causal attention and saves its
+    logsumexp: the aten efficient and flash ops (which refuse some head
+    sizes), then SDPA on inputs that require grad (which pads the head and
+    saves the logsumexp for its backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    return (
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, True, 0.0, True, scale=scale),
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False, scale=scale),
+        lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale),
+    )
+
+
+def _sdpa_bwd_library_ms(q, k, v, dout, scale: float) -> float:
+    """The time of SDPA's autograd backward: (dq, dk, dv) of causal attention
+    from its saved forward."""
+    import torch
+    import torch.nn.functional as F
+
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, scale=scale)
+    return time_ms(lambda: torch.autograd.grad(ref, (qr, kr, vr), dout, retain_graph=True), 10)
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -570,10 +597,7 @@ def check_kernels(cfg, rows: dict) -> None:
            ms=time_ms(lambda: flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale), 20),
            plain_ms=time_ms(lambda: flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=scale), 3, 1),
            bound_ms=b_ms, bound_by=b_by,
-           library_ms=_library_ms(
-               lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, True, 0.0, True,
-                                                                               scale=scale),
-               lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False, scale=scale)))
+           library_ms=_library_ms(*_lse_library_calls(q, k, v, scale)))
     del want_out, want_lse
 
     # flash backward (B): dout strided as the backward of the head transpose
@@ -590,17 +614,14 @@ def check_kernels(cfg, rows: dict) -> None:
     # Read q, k, v, out, dout and lse once; write dq, dk, dv once.
     nb = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) * 2 + lse.numel() * 4
     b_ms, b_by = bound(nb, flops, PEAK_BF16_FLOPS)
-    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     record("flash_bwd", B, err, rel, FLASH_BWD_ROW_REL, source="thunder_tpu_torch/csrc/flash_bwd.cu",
            replaces="thunder_tpu/executors/flashex.py:555",
            ms=time_ms(lambda: flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale), 10),
            plain_ms=time_ms(lambda: flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=True,
                                                                       scale=scale), 3, 1),
-           bound_ms=b_ms, bound_by=b_by,
-           library_ms=time_ms(lambda: torch.autograd.grad(ref, (qr, kr, vr), dout, retain_graph=True), 10))
+           bound_ms=b_ms, bound_by=b_by, library_ms=_sdpa_bwd_library_ms(q, k, v, dout, scale))
     dq = got[0]
-    del ref, qr, kr, vr, got, out, lse, dout, v
+    del got, out, lse, dout, v
 
     # rope backward (D): the rope kernel on dq (contiguous) with -sin.
     msin = -sin
@@ -743,7 +764,7 @@ def check_pythia_shapes(cfg, rows: dict) -> None:
            row_rel_err(out, want_out), FLASH_ROW_REL,
            ms=time_ms(lambda: flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale), 20),
            plain_ms=time_ms(lambda: flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=scale), 3, 1),
-           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+           bound_ms=b_ms, bound_by=b_by, library_ms=_library_ms(*_lse_library_calls(q, k, v, scale)))
     del want_out, want_lse
 
     dout = torch.randn((B, SEQ, H, D), generator=gen, device="cuda").to(torch.bfloat16).permute(0, 2, 1, 3)
@@ -757,7 +778,7 @@ def check_pythia_shapes(cfg, rows: dict) -> None:
            ms=time_ms(lambda: flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale), 10),
            plain_ms=time_ms(lambda: flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=True,
                                                                       scale=scale), 3, 1),
-           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+           bound_ms=b_ms, bound_by=b_by, library_ms=_sdpa_bwd_library_ms(q, k, v, dout, scale))
     del got, want, q, k, v, out, lse, dout
     torch.cuda.empty_cache()
 
@@ -1980,7 +2001,7 @@ def main() -> int:
     _build.lib()
     log(f"  built {info.path.name} in {info.seconds:.1f} s")
     for line in info.log.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line or line.startswith("nvcc "):
             log(f"  {line.strip()}")
 
     pythia = gpt.name_to_config(PYTHIA)

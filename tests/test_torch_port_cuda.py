@@ -202,6 +202,61 @@ def test_flash_bwd_is_reproducible(dev):
     assert all(torch.equal(x, y) for x, y in zip(a, b))  # no atomics: the same bits every run
 
 
+def test_flash_fwd_is_reproducible(dev):
+    from thunder_tpu_torch.executors import flashex
+
+    q, k, v = _qkv_views(2, 4, 2, 256, 100, torch.bfloat16, dev, 18)
+    a = flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=0.1)
+    b = flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=0.1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))  # fixed reduction order: the same bits every run
+
+
+def _check_fwd_and_bwd(dev, B, H, G, Tq, Tkv, D, causal, dtype, seed):
+    """The forward with lse within 2 ulps of the row max (lse to 1e-5), and
+    the backward from its (out, lse) within 4 ulps with the eps² floor: the
+    limits of ``test_flash_fwd_lse_matches_plain`` and
+    ``test_flash_bwd_matches_plain``."""
+    from thunder_tpu_torch.executors import flashex
+
+    q, _, _ = _qkv_views(B, H, G, Tq, D, dtype, dev, seed)
+    _, k, v = _qkv_views(B, H, G, Tkv, D, dtype, dev, seed + 1)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flashex.flash_attention_fwd_lse(q, k, v, causal=causal, scale=scale)
+    want_out, want_lse = flashex.flash_attention_lse_plain(q, k, v, causal=causal, scale=scale)
+    _assert_rows_close(out, want_out, 2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    dout = _randn((B, Tq, H, D), dtype, dev, seed + 2).permute(0, 2, 1, 3)
+    got = flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    want = flashex.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale)
+    eps = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype and torch.isfinite(g).all(), name
+        _assert_rows_close(g, w, 4, floor=eps * eps * w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("D", [16, 32, 33, 64, 65, 112, 113, 128, 129, 256])
+def test_flash_head_bucket_edges_match_plain(dev, D):
+    """Each head size at an edge of the kernels' buckets (32, 64, 112, 128,
+    256: a head runs padded to the smallest that holds it; above 128 the
+    output columns are split over two blocks)."""
+    _check_fwd_and_bwd(dev, 1, 4, 2, 128, 128, D, True, torch.bfloat16, 80)
+
+
+@pytest.mark.parametrize(
+    "Tq,Tkv,D,causal,dtype",
+    [
+        (100, 150, 100, True, torch.bfloat16),  # neither length a multiple of the 64-row tiles
+        (150, 100, 100, True, torch.bfloat16),  # Tq > Tkv: leading queries see no key
+        (77, 203, 64, False, torch.float16),
+        (203, 77, 200, True, torch.bfloat16),  # heads above 128: 32-row tiles in the backward
+        (33, 97, 256, False, torch.bfloat16),
+    ],
+)
+def test_flash_ragged_tiles_match_plain(dev, Tq, Tkv, D, causal, dtype):
+    _check_fwd_and_bwd(dev, 2, 2, 1, Tq, Tkv, D, causal, dtype, 84)
+
+
 def test_flash_bwd_refuses_a_device_mix(dev):
     from thunder_tpu_torch.executors import flashex
 
@@ -374,6 +429,27 @@ def test_norm_refuses_a_device_mix_and_mixed_types(dev):
         normex.rms_norm_fwd(x, w.float())
     with pytest.raises(ValueError, match="unsupported shapes"):
         normex.rms_norm_bwd(g[:, :128], x, w)
+
+
+def test_embedding_backward_is_reproducible(dev):
+    """The torch executor's embedding backward sums the rows of each index in
+    a fixed order (``index_put`` with ``accumulate``: a stable sort, then one
+    writer per row): the same bits every run, where ``index_add_``'s atomics
+    differ. Against the sum of each index's rows in f64: each of the ~256
+    adds into an index's row may round to bf16 (2^-9 of the partial sum),
+    and those errors add as a random walk, ~16 * 2^-9 = 2^-5 of the largest
+    |value|; 2^-4 of it leaves a factor of two."""
+    from thunder_tpu_torch.executors import torchex
+
+    rng = np.random.RandomState(22)
+    idx = torch.from_numpy(rng.randint(0, 16, 4096)).to(dev)
+    g = _randn((4096, 3200), torch.bfloat16, dev, 23)
+    a = torchex._embedding_backward(g, idx, 32000, 3200)
+    b = torchex._embedding_backward(g, idx, 32000, 3200)
+    assert torch.equal(a, b)
+    want = torch.zeros((32000, 3200), dtype=torch.float64, device=dev).index_add_(0, idx, g.double())
+    assert (a.double() - want).abs().max().item() <= 2.0 ** -4 * want.abs().max().item()
+    assert not a[16:].any()
 
 
 def test_rope_with_negated_sin_undoes_rope(dev):
@@ -611,8 +687,8 @@ def test_staged_grads_equal_unstaged(dev):
     want_loss, want_grads = eager(params, idx, tgt)
     for loss, grads in results:
         torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
-        for g, w in zip(grads, want_grads):  # the embedding backward adds with atomics
-            torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=2.0 ** -7 * w.float().abs().max().item())
+        # The same kernels in the same order, none adding with atomics: the same bits.
+        assert all(torch.equal(g, w) for g, w in zip(grads, want_grads))
     assert results[0][1][0].data_ptr() != results[1][1][0].data_ptr()
 
 

@@ -202,6 +202,34 @@ def test_residual_eligibility_needs_equal_lengths():
     assert not flashex.residual_eligible(q.float(), q.float(), q.float())
 
 
+def test_head_bucket_covers_every_head_size():
+    """Every head size the checker claims (1..256) runs in a bucket the
+    kernels are built for that holds it; open_llama_3b's 100 runs in 112,
+    pythia's 64 in 64; 257 and 0 raise."""
+    for D in range(1, flashex._MAX_HEAD + 1):
+        dp = flashex._head_bucket(D)
+        assert dp in flashex._HEAD_BUCKETS and dp >= D and dp % 16 == 0, D
+    assert flashex._head_bucket(100) == 112 and flashex._head_bucket(64) == 64
+    for D in (0, flashex._MAX_HEAD + 1):
+        with pytest.raises(ValueError, match="head size"):
+            flashex._head_bucket(D)
+
+
+def test_vec_width_follows_alignment():
+    """16-byte copies where D, the strides and the pointers allow; the
+    (B, H, T, 100) rows of open_llama_3b start 8-byte aligned (4 elements);
+    a view at an odd element offset takes plain 2-byte loads."""
+    x = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
+    assert flashex._vec_width(128, x) == 8
+    y = torch.zeros(1, 2, 64, 100, dtype=torch.bfloat16)
+    assert flashex._vec_width(100, y) == 4
+    z = torch.zeros(1, 2, 64, 30, dtype=torch.bfloat16)
+    assert flashex._vec_width(30, z) == 2
+    buf = torch.zeros(1 + 2 * 64 * 64, dtype=torch.bfloat16)
+    odd = buf[1:].view(1, 2, 64, 64)
+    assert flashex._vec_width(64, x[..., :64], odd) == 1
+
+
 # =============================================================================
 # Masked attention: the forward under segment ids (kernel row 9) and the
 # recompute-path backward (row 8), through the flash executor's runtime

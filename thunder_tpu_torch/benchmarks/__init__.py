@@ -5,9 +5,10 @@ end-to-end metrics (average and median iteration time, tokens per second,
 model FLOP/s against the card's peak, peak memory), with the same outlier
 pruning. Completion is forced with ``torch.cuda.synchronize()`` and a scalar
 read, since PyTorch returns before the card finishes. Peak memory is
-``torch.cuda.max_memory_allocated`` over the timed iterations (reset after
-warm-up). The peak rate is looked up by the card's name; on a card not in
-the table, or on the CPU, MFU is left out.
+``torch.cuda.max_memory_allocated`` over the warm-up and the timed
+iterations (reset before the warm-up, which captures a staged step's graph
+and allocates its pool). The peak rate is looked up by the card's name; on
+a card not in the table, or on the CPU, MFU is left out.
 """
 
 from __future__ import annotations

@@ -36,8 +36,8 @@ DTYPE_CODES = {"bfloat16": 0, "float16": 1, "float32": 2}
 
 _c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "thunder_flash_fwd": [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
-    "thunder_flash_bwd": [_c_void_p] * 12 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float, _c_int, _c_int, _c_int, _c_void_p],
+    "thunder_flash_fwd": [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float] + [_c_int] * 4 + [_c_void_p],
+    "thunder_flash_bwd": [_c_void_p] * 12 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float] + [_c_int] * 4 + [_c_void_p],
     "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int, _c_void_p],
     "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
@@ -50,7 +50,7 @@ _SIGNATURES = {
 class BuildInfo:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output, with the -Xptxas -v register/spill lines
+    log: str  # nvcc's output, with the -Xptxas -v register/spill lines and each source's seconds
 
 
 _lib = None
@@ -77,12 +77,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_parallel(cmds: list[list[str]]) -> str:
+def _run_parallel(cmds: list[list[str]], label=None) -> str:
+    """Run ``cmds`` at once; their output, and for each a line "nvcc <label>:
+    <seconds> s" (the time to its exit) where ``label`` names it."""
+    start = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    ends = {}
+    while len(ends) < len(procs):
+        for i, proc in enumerate(procs):
+            if i not in ends and proc.poll() is not None:
+                ends[i] = time.perf_counter() - start
+        time.sleep(0.05)
     outs, failed = [], []
-    for cmd, proc in zip(cmds, procs):
+    for i, (cmd, proc) in enumerate(zip(cmds, procs)):
         out, _ = proc.communicate()
         outs.append(out)
+        if label is not None:
+            outs.append(f"nvcc {label(cmd)}: {ends[i]:.1f} s\n")
         if proc.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
     if failed:
@@ -106,7 +117,7 @@ def build() -> BuildInfo:
         log = _run_parallel([
             [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
             for src, obj in zip(_sources(), objs)
-        ])
+        ], label=lambda cmd: Path(cmd[-3]).name)
         tmp = out_dir / (LIB_NAME + ".tmp")
         log += _run_parallel([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, lib_path)

@@ -6,10 +6,12 @@ JAX's splash-attention Pallas kernel (``_sdpa_impl`` → ``_sdpa_runtime`` →
 ``_sdpa_bwd_res_impl``) runs its forward with logsumexp and its backward,
 and whose recompute-path backward (``_sdpa_bwd_impl``) differentiates the
 forward again. Here the forward is ``csrc/flash_attn.cu`` (online-softmax
-flash attention with tensor-core WMMA, no (B, H, S, S) scores in device
-memory; it writes the per-row logsumexp when asked, and takes optional
-segment ids) and the backward is ``csrc/flash_bwd.cu`` (dq, dk, dv from an
-output and logsumexp, under the same optional segment ids).
+flash attention on ``mma.sync`` with register accumulators, no (B, H, S, S)
+scores in device memory; it writes the per-row logsumexp when asked, and
+takes optional segment ids) and the backward is ``csrc/flash_bwd.cu`` and
+``csrc/flash_bwd_dq.cu`` (dq, dk, dv from an output and logsumexp, under the
+same optional segment ids). Heads run padded to a size of
+``_HEAD_BUCKETS``.
 
 Claims:
 - ``torch.scaled_dot_product_attention``: no dropout, half precision
@@ -81,7 +83,12 @@ register_executor(ex)
 
 _MIN_SEQ = 64  # below this the decomposition is as cheap as a kernel launch
 _MAX_HEAD = 256
-_MAX_BH = 65535  # the grid's y extent
+# The head sizes the kernels are built for (``csrc/flash_common.cuh``
+# ``THUNDER_FLASH_HEAD_BUCKETS``): a head runs in the smallest bucket that
+# holds it, padded with zeros.
+_HEAD_BUCKETS = (32, 64, 112, 128, 256)
+_TILE = 64  # query and key tiles of the kernels' grids
+_MAX_TILES = 65535  # the grids' y extent, in tiles of the sequence
 _NEG_BIG = -1e9  # additive-mask entries at or below this count as masked
 _LEGACY_ALIGN = 128  # the legacy route's sequence quantum (the TPU kernel's block)
 
@@ -193,11 +200,11 @@ def _check_cuda_inputs(q, k, v, kernel: str) -> None:
         raise ValueError(f"{kernel}: q, k, v must all be bf16 or all f16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{kernel}: q, k, v must be (B, H, T, D)")
-    B, H, _, D = q.shape
+    B, H, Tq, D = q.shape
     if k.shape[0] != B or v.shape != k.shape or k.shape[-1] != D or D > _MAX_HEAD or H % k.shape[1]:
         raise ValueError(f"{kernel}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if B * H > _MAX_BH:
-        raise ValueError(f"{kernel}: B*H = {B * H} exceeds the grid's y limit")
+    if not _seq_ok(Tq, k.shape[2]):
+        raise ValueError(f"{kernel}: sequences of {Tq} and {k.shape[2]} exceed the grid's y limit")
 
 
 def _seg_ptrs(q, k, q_seg, kv_seg, kernel: str) -> tuple:
@@ -215,10 +222,29 @@ def _seg_ptrs(q, k, q_seg, kv_seg, kernel: str) -> tuple:
     return q_seg.data_ptr(), kv_seg.data_ptr()
 
 
-def _vec4_ok(D: int, *ts: torch.Tensor) -> bool:
-    """8-byte loads need D, the b/h/t strides and the base pointers to be
-    multiples of 4 elements (8 bytes)."""
-    return D % 4 == 0 and all(t.data_ptr() % 8 == 0 and all(s % 4 == 0 for s in t.stride()[:3]) for t in ts)
+def _seq_ok(Tq: int, Tkv: int) -> bool:
+    return -(-max(Tq, Tkv) // _TILE) <= _MAX_TILES
+
+
+def _head_bucket(D: int) -> int:
+    """The padded head size the kernels run a head of D columns in: the
+    smallest of ``_HEAD_BUCKETS`` that holds it (100 → 112)."""
+    for dp in _HEAD_BUCKETS:
+        if 1 <= D <= dp:
+            return dp
+    raise ValueError(f"flash: head size {D} is outside 1..{_MAX_HEAD}")
+
+
+def _vec_width(D: int, *ts: torch.Tensor) -> int:
+    """Elements per global-to-shared copy (``cp.async`` of 16, 8 or 4 bytes;
+    1 is a plain 2-byte load): the widest that D, every b/h/t stride and
+    every base pointer are multiples of. A D = 100 row is 200 bytes, so the
+    rows of a contiguous (B, H, T, 100) tensor start 8-byte aligned: 4."""
+    for vec in (8, 4, 2):
+        if D % vec == 0 and all(t.data_ptr() % (2 * vec) == 0 and all(s % vec == 0 for s in t.stride()[:3])
+                                for t in ts):
+            return vec
+    return 1
 
 
 def _launch_fwd(q, k, v, causal: bool, scale: float, lse, q_seg=None, kv_seg=None) -> torch.Tensor:
@@ -235,7 +261,7 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, lse, q_seg=None, kv_seg=Non
         status = lib.thunder_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
             *segs, B, H, G, Tq, Tkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
-            int(bool(causal)), _build.dtype_code(q), int(_vec4_ok(D, q, k, v)), _build.stream_of(q),
+            int(bool(causal)), _build.dtype_code(q), _vec_width(D, q, k, v), _head_bucket(D), _build.stream_of(q),
         )
     _build.check(status, "flash_fwd")
     return out
@@ -267,7 +293,7 @@ def _launch_bwd(dout, q, k, v, out, lse, causal: bool, scale: float, q_seg=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(), *segs, B, H, G, Tq, Tkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
-            float(scale), int(bool(causal)), _build.dtype_code(q), int(_vec4_ok(D, q, k, v, out, dout)),
+            float(scale), int(bool(causal)), _build.dtype_code(q), _vec_width(D, q, k, v, out, dout), _head_bucket(D),
             _build.stream_of(q),
         )
     _build.check(status, "flash_bwd")
@@ -357,8 +383,7 @@ def flash_attention_bwd_recompute(dout: torch.Tensor, q: torch.Tensor, k: torch.
 # to H heads and sums dk/dv over each group; the kernels take G kv heads and
 # sum inside (the same function). Bound: the forward's 4·B·H·D FLOP per
 # causal (query, key) pair, the backward's 14 (the recomputed forward's 4 and
-# the backward's 10), at the bf16 tensor-core rate; the kernels keep their
-# accumulators in shared memory and stay far from it, as rows 1 and 8 do.
+# the backward's 10), at the bf16 tensor-core rate.
 
 
 @_build.counted
@@ -559,7 +584,7 @@ def _shapes_ok(q, k, v, enable_gqa) -> bool:
         return False
     if G != H and not (bool(pyval(enable_gqa)) and H % G == 0):
         return False
-    return D <= _MAX_HEAD and S >= _MIN_SEQ and L >= _MIN_SEQ and B * H <= _MAX_BH
+    return D <= _MAX_HEAD and S >= _MIN_SEQ and L >= _MIN_SEQ and _seq_ok(S, L)
 
 
 def _mask_ok(mask, q, k, is_causal) -> bool:

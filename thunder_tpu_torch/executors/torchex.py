@@ -177,7 +177,38 @@ _reg(PrimIDs.TRANSPOSE, lambda a, perm: a.permute(tuple(perm)))
 _reg(PrimIDs.TAKE, _take)
 _reg(PrimIDs.TAKE_ALONG_AXIS, lambda a, idx, dim: torch.take_along_dim(a, idx.long(), dim))
 _reg(PrimIDs.GATHER, lambda a, idx, dim: torch.take_along_dim(a, idx.long(), dim))
-_reg(PrimIDs.SCATTER_ADD, lambda a, idx, val, dim: a.scatter_add(dim, idx.long(), val))
+
+
+# Accumulating scatters must give the same bits on every run, as
+# ``.at[idx].add`` does in the JAX package. On CUDA, ``index_add_`` and
+# ``scatter_add`` add with atomics in no fixed order, while ``index_put``
+# with ``accumulate=True`` sorts the indices stably and adds each run of
+# equal indices in order, one writer per row (the kernel that
+# ``torch.use_deterministic_algorithms`` routes the other two to), with no
+# host sync and no data-dependent shape, so a CUDA-graph capture takes it.
+# On the CPU it is the other way round: ``index_put`` adds large f32 inputs
+# from parallel threads with atomics, ``index_add_`` and ``scatter_add`` in
+# order.
+def _scatter_add_sorted(a, idx, val, dim):
+    """``a.scatter_add(dim, idx, val)`` as ``index_put``: ``idx`` along
+    ``dim`` and each other dim's own position (the JAX package's
+    ``_scatter_add``); ``val`` is read over ``idx``'s extent, as torch reads
+    it."""
+    idx = idx.long()
+    index = tuple(
+        idx if d == dim else torch.arange(n, device=idx.device).view([-1 if e == d else 1 for e in range(idx.ndim)])
+        for d, n in enumerate(idx.shape))
+    val = val[tuple(slice(0, n) for n in idx.shape)]
+    return a.index_put(index, val, accumulate=True)
+
+
+def _scatter_add(a, idx, val, dim):
+    if a.is_cuda:
+        return _scatter_add_sorted(a, idx, val, dim)
+    return a.scatter_add(dim, idx.long(), val)
+
+
+_reg(PrimIDs.SCATTER_ADD, _scatter_add)
 
 
 def _setitem(a, key, value):
@@ -189,6 +220,8 @@ def _setitem(a, key, value):
 
 
 _reg(PrimIDs.SETITEM, _setitem)
+# With ``accumulate``, on CUDA this is the sorted, in-order sum of
+# ``_scatter_add_sorted``.
 _reg(PrimIDs.INDEX_PUT, lambda a, indices, values, accumulate: a.index_put(tuple(indices), values, accumulate))
 _reg(PrimIDs.ARGSORT, lambda a, dim, descending: torch.argsort(a, dim=dim, descending=descending, stable=True))
 _reg(PrimIDs.SORT, lambda a, dim, descending: tuple(torch.sort(a, dim=dim, descending=descending, stable=True)))
@@ -336,8 +369,13 @@ _reg(PrimIDs.EMBEDDING, lambda idx, w: F.embedding(idx, w))
 
 
 def _embedding_backward(grad, idx, num_weights, embed_dim):
+    """The rows of ``grad`` summed by index, in the order they come (see
+    ``_scatter_add_sorted``): the same bits on every run."""
     out = torch.zeros((num_weights, embed_dim), dtype=grad.dtype, device=grad.device)
-    return out.index_add_(0, idx.reshape(-1).long(), grad.reshape(-1, embed_dim))
+    idx, rows = idx.reshape(-1).long(), grad.reshape(-1, embed_dim)
+    if grad.is_cuda:
+        return out.index_put_((idx,), rows, accumulate=True)
+    return out.index_add_(0, idx, rows)
 
 
 _reg(PrimIDs.EMBEDDING_BACKWARD, _embedding_backward)
