@@ -19,7 +19,8 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    route's forward and backward (row 10) at the training path's. Each is
    held against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
-   PyTorch call (CUDA events);
+   PyTorch call (CUDA events); each norm backward's launch plan (CTAs, row
+   groups, warps a row, ring depth) is printed with its achieved TB/s;
 4. checks the whole path at open_llama_3b's full width with 2 layers, forward
    at B=10, loss and gradients (``value_and_grad``) at B=2: the default
    executors against the torch executor alone, then the same with a planted
@@ -77,6 +78,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -175,6 +177,23 @@ def _sdpa_bwd_library_ms(q, k, v, dout, scale: float) -> float:
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, scale=scale)
     return time_ms(lambda: torch.autograd.grad(ref, (qr, kr, vr), dout, retain_graph=True), 10)
+
+
+def kernel_split_us(fn, calls: int = 20) -> dict:
+    """Device microseconds a call of ``fn`` spends in each CUDA kernel, from
+    ``torch.profiler`` over ``calls`` calls; empty when the profiler sees no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / calls for e in prof.key_averages()
+            if e.device_time_total > 0 and e.count >= calls}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -721,13 +740,28 @@ def check_norm_kernels(llama, pythia, rows: dict) -> None:
         log(f"  {tag}_bwd dw{'/db' if layer_norm else ''} rel_err={vec_rel:.3e} (limit {NORM_DW_REL:.0e})")
         require(vec_rel <= NORM_DW_REL, f"{tag}_bwd: dw/db differ from the plain version ({vec_rel})")
         # Read g, x and w; write dx and the f32 dw (and db).
-        b_ms, b_by = bound(3 * nb + D * 2 + len(params) * D * 4, 12.0 * N * D, PEAK_F32_FLOPS)
+        bwd_bytes = 3 * nb + D * 2 + len(params) * D * 4
+        b_ms, b_by = bound(bwd_bytes, 12.0 * N * D, PEAK_F32_FLOPS)
         xr = x.detach().clone().requires_grad_()
         pr = [p.detach().clone().requires_grad_() for p in params]
         ref = F.layer_norm(xr, (D,), pr[0], pr[1], eps) if layer_norm else F.rms_norm(xr, (D,), pr[0], eps)
+        ms = time_ms(bwd, 50)
+        plan = normex.bwd_plan(N, D, x.element_size(), layer_norm,
+                               torch.cuda.get_device_properties(0).multi_processor_count, normex._align(D, g, x, w))
+        log(f"  {tag}_bwd plan: {plan.mode}, {plan.ctas} CTAs, {plan.groups} row groups of {plan.warps_per_row} "
+            f"warp(s), ring depth {plan.depth}, sums in {'registers' if plan.registers else 'device memory'}, "
+            f"{plan.smem} B shared; {bwd_bytes / ms / 1e9:.3f} TB/s "
+            f"against {PEAK_BYTES / 1e12:.2f} TB/s ({b_ms / ms:.1%} of the bound)")
+        # The row kernel's own device time (the column sums are scheduled
+        # while it drains, so theirs overlaps it).
+        split = kernel_split_us(bwd)
+        rows_us = next((v for k, v in split.items() if "norm_bwd_kernel" in k), None)
+        log(f"  {tag}_bwd profiler: " + ("not measured (no device time)" if rows_us is None else
+            "; ".join(f"{re.search(r'norm_[a-z_]+', k).group(0)} {v:.2f} us" for k, v in split.items() if "norm_" in k)
+            + f"; row kernel {bwd_bytes / rows_us / 1e6:.3f} TB/s"))
         record(f"{tag}_bwd", shape, (dx.float() - want_dx.float()).abs().max().item(), row_rel_err(dx, want_dx),
                NORM_ROW_REL, source=src, replaces=f"{repl}:{424 if layer_norm else 309}",
-               ms=time_ms(bwd, 50), plain_ms=time_ms(plain_bwd, 10), bound_ms=b_ms, bound_by=b_by,
+               ms=ms, plain_ms=time_ms(plain_bwd, 10), bound_ms=b_ms, bound_by=b_by,
                library_ms=_library_ms(lambda: torch.autograd.grad(ref, [xr, *pr], g, retain_graph=True)))
         del dx, dw, db, want_dx, want_dw, want_db, ref, xr, pr, x, g
         torch.cuda.empty_cache()

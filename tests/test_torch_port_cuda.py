@@ -311,7 +311,12 @@ def test_ce_bwd_refuses_a_device_mix(dev):
 
 # (N, D, dtype, layer_norm, bias): the path shapes (open_llama_3b's RMSNorm,
 # pythia-410m's LayerNorm), an f16 row whose D is not a multiple of the
-# block's 256 threads, an odd D (one-element loads) and f32.
+# block's 256 threads, an odd D (one-element loads) and f32. Then the
+# backward's plans (normex.bwd_plan): 16384 (above the old 14336 limit; the
+# column sums in device memory), falcon-7b's 4544 and 5120 (8 warps a row),
+# fewer rows than blocks (1, 5), a ragged last round of row groups (4097),
+# rows 4-byte aligned only (1002: 4-byte loads from device memory), and
+# 60000, too wide for one ring slot (and, in the forward, for shared memory).
 _NORM_SHAPES = [
     (4096, 3200, torch.bfloat16, False, False),
     (4096, 1024, torch.bfloat16, True, True),
@@ -319,6 +324,14 @@ _NORM_SHAPES = [
     (17, 1001, torch.bfloat16, True, True),
     (7, 384, torch.float32, False, False),
     (5, 2600, torch.float32, True, True),
+    (16, 16384, torch.bfloat16, False, False),
+    (64, 4544, torch.bfloat16, True, True),
+    (64, 5120, torch.bfloat16, False, False),
+    (1, 1024, torch.bfloat16, True, True),
+    (5, 3200, torch.bfloat16, False, False),
+    (4097, 1024, torch.bfloat16, True, True),
+    (33, 1002, torch.bfloat16, True, True),
+    (3, 60000, torch.bfloat16, True, True),
 ]
 
 
@@ -408,15 +421,49 @@ def test_norm_scalar_path_on_unaligned_rows(dev):
     _assert_vec_close(db, want_db, 1e-5)
 
 
-def test_norm_bwd_is_reproducible(dev):
+@pytest.mark.parametrize("N,D,layer_norm", [(4096, 1024, True), (4096, 3200, False)])
+def test_norm_bwd_is_reproducible(dev, N, D, layer_norm):
+    """No atomics: dx, dw and db have the same bits every run, at both path
+    shapes."""
     from thunder_tpu_torch.executors import normex
 
-    x, w, _, g = _norm_inputs(4096, 1024, torch.bfloat16, True, dev, 34)
-    a = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
-    b = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
-    assert all(torch.equal(p, q) for p, q in zip(a, b))  # no atomics: the same bits every run
-    c, d = normex.rms_norm_bwd(g, x, w), normex.rms_norm_bwd(g, x, w)
-    assert all(torch.equal(p, q) for p, q in zip(c, d))
+    x, w, _, g = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, 34)
+    if layer_norm:
+        a = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+        b = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+    else:
+        a, b = normex.rms_norm_bwd(g, x, w), normex.rms_norm_bwd(g, x, w)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("N,D,layer_norm", [(4096, 1024, True), (4096, 3200, False), (16, 16384, False)])
+def test_norm_bwd_replays_in_a_cuda_graph(dev, N, D, layer_norm):
+    """A backward captured in a CUDA graph and replayed on new inputs copied
+    into the captured buffers gives the eager call's bits, three times over:
+    its two launches (rows, then the column sums) hold no state between
+    calls."""
+    from thunder_tpu_torch.executors import normex
+
+    def bwd(g, x, w):
+        if layer_norm:
+            return normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+        return normex.rms_norm_bwd(g, x, w)
+
+    x, w, _, g = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, 36)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd(g, x, w)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bwd(g, x, w)
+    for seed in (37, 38, 39):
+        nx, nw, _, ng = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, seed)
+        x.copy_(nx), w.copy_(nw), g.copy_(ng)
+        graph.replay()
+        want = bwd(ng, nx, nw)
+        assert all(torch.equal(p, q) for p, q in zip(out, want))
 
 
 def test_norm_refuses_a_device_mix_and_mixed_types(dev):

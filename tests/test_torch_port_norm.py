@@ -186,3 +186,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_on_the_card():
     (x, w, _, _), _ = _inputs(4, 256, torch.bfloat16, 7)
     with pytest.raises(ValueError, match="one CUDA device"):
         normex._check_cuda("rms_fwd", x, None, w)
+
+
+# A width above the old kernels' 14336 limit (Llama-3.1-405B's 16384): the JAX
+# package's checkers take any D % 128 == 0, and so does the port's.
+WIDE = 16384
+
+
+@pytest.mark.parametrize("layer_norm", [False, True])
+def test_wide_rows_plain_matches_pallas_and_are_claimed(layer_norm):
+    (x, w, b, g), (jx, jw, jb, jg) = _inputs(8, WIDE, torch.float32, 8)
+    if layer_norm:
+        y = normex.layer_norm_fwd(x, w, b, 1e-5)
+        _assert_rows_close(y, pallasex._ln_impl(jx, (WIDE,), jw, jb, 1e-5), 1e-5)
+        dx, dw, db = normex.layer_norm_bwd(g, x, w, 1e-5, with_bias=True)
+        jdx, jdw, jdb = pallasex._ln_bwd_impl(jg, jx, jw, jb, 1e-5)
+        _assert_rows_close(db, jdb, 1e-5)
+    else:
+        y = normex.rms_norm_fwd(x, w, 1e-6)
+        _assert_rows_close(y, pallasex._rms_impl(jx, (WIDE,), jw, 1e-6), 1e-5)
+        dx, dw = normex.rms_norm_bwd(g, x, w, 1e-6)
+        jdx, jdw = pallasex._rms_bwd_impl(jg, jx, jw, 1e-6)
+    _assert_rows_close(dx, jdx, 1e-5)
+    _assert_rows_close(dw, jdw, 1e-5)
+
+    vg = tt.value_and_grad(_norm_program(WIDE), executors=["norm", "torch"], device="cpu")
+    vg(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    src = tt.last_traces(vg)[-1].python()
+    assert all(c in src for c in CLAIMS)
+
+
+# (N, D, elem_size, layer_norm, sm_count, align) -> (mode, warps a row, groups,
+# ring depth, ctas, sums in registers), from csrc/norm.cu's limits: 8 warps a
+# block, lanes holding at most 32 columns, 3 ring slots, 232448 bytes.
+_PLANS = [
+    ((4096, 1024, 2, True, 132, 16), ("ring", 1, 8, 3, 132, True)),  # pythia-410m's LayerNorm
+    ((4096, 3200, 2, False, 132, 16), ("ring", 4, 2, 3, 132, True)),  # open_llama_3b's RMSNorm
+    ((4096, 3200, 2, False, 114, 16), ("ring", 4, 2, 3, 114, True)),  # the CTA count follows the SMs
+    ((1, 1024, 2, True, 132, 16), ("ring", 1, 8, 3, 1, True)),  # fewer rows than CTAs
+    ((5, 3200, 2, False, 132, 16), ("ring", 4, 2, 3, 3, True)),
+    ((64, 4544, 2, True, 132, 16), ("ring", 8, 1, 3, 64, True)),  # falcon-7b
+    ((8, 16384, 2, False, 132, 16), ("ring", 8, 1, 3, 8, False)),  # sums in device memory
+    ((8192, 8192, 4, True, 132, 16), ("ring", 8, 1, 2, 132, True)),  # the fold buffers cut the ring
+    ((3, 60000, 2, True, 132, 16), ("direct", 8, 1, 0, 3, False)),  # too wide for one slot
+    ((64, 1024, 2, True, 132, 1), ("scalar", 1, 8, 0, 8, True)),  # an unaligned base pointer
+    ((17, 1001, 2, True, 132, 1), ("scalar", 1, 8, 0, 3, True)),  # an odd D in bf16
+    ((33, 1002, 2, True, 132, 4), ("direct", 1, 8, 0, 5, True)),  # rows 4-byte aligned only
+    ((0, 1024, 2, False, 132, 16), ("ring", 1, 8, 3, 1, True)),  # no rows: one block writes zero sums
+]
+
+
+@pytest.mark.parametrize("args,want", _PLANS)
+def test_bwd_launch_plan(args, want):
+    plan = normex.bwd_plan(*args)
+    assert (plan.mode, plan.warps_per_row, plan.groups, plan.depth, plan.ctas, plan.registers) == want
+    N, D, size, layer_norm, _, _ = args
+    assert plan.groups * plan.warps_per_row == 8
+    assert plan.smem <= 232448
+    if plan.mode == "ring":  # ring slots of (x row, g row) after the fold buffers
+        fold = -(-plan.groups * D * 4 * (2 if layer_norm else 1) // 16) * 16 if plan.registers else 0
+        assert plan.smem == fold + plan.groups * plan.depth * 2 * D * size
+
+
+def test_align_takes_the_largest_common_divisor_of_offsets_and_pointers():
+    buf = torch.zeros(4096 + 8, dtype=torch.bfloat16)
+    base = buf.data_ptr() % 16 // 2  # elements to the next 16-byte boundary
+    start = (8 - base) % 8
+    x = buf[start:start + 4096].view(4, 1024)
+    assert normex._align(1024, x) == 16
+    assert normex._align(1002, buf[start:start + 4008].view(4, 1002)) == 4
+    assert normex._align(1024, buf[start + 2:start + 2 + 4096].view(4, 1024)) == 4
+    assert normex._align(1024, buf[start + 1:start + 1 + 4096].view(4, 1024)) == 1
+    assert normex._align(1024, x, None) == 16

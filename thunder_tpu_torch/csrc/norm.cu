@@ -15,10 +15,8 @@
 //            xhat = (x - mu) * rstd, wg = g * w,
 //            dx = rstd * (wg - m1 - xhat * m2), m2 = mean(wg * xhat),
 //            m1 = mean(wg) for LN and 0 for RMS;
-//            each block writes its f32 column sums of g * xhat (dw) and, for
-//            LN, of g (db) over its rows into a (n_blocks, D) buffer; the
-//            Python wrapper sums the buffer once (as the JAX package sums its
-//            per-block partials outside the kernel) and casts to w's type.
+//            dw = sum of g * xhat and, for LN, db = sum of g over the rows,
+//            in f32 (the Python wrapper casts them to w's type).
 //
 // Bound on an H100: bytes. The forward reads x and writes y once: at
 //   open_llama_3b's (4096, 3200) bf16 that is 52.4 MB, 15.6 us at 3.35 TB/s;
@@ -26,18 +24,48 @@
 //   and writes dx: 78.6 MB (23.5 us) and 25.2 MB (7.5 us). The arithmetic,
 //   a few operations per element, is far below the card's rate.
 //
-// Design: the forward runs one block of 256 threads per row. The backward
-//   runs one block per run of consecutive rows (rows_per_block, chosen by the
-//   wrapper so that there are about 256 blocks), so that the f32 column
-//   partials cost one (n_blocks, D) buffer rather than one row per row. Each
-//   thread owns the same columns of every row, so the row cached in shared
-//   memory as f32 (x, and g in the backward) and the column accumulators
-//   need no synchronisation: only the block sums do (warp shuffles, then the
-//   warps' sums read in one order by every thread). Loads and stores are 16
-//   bytes wide where D and the pointers allow, one element otherwise. No
-//   atomics: the same inputs give the same bits on every run.
+// Forward: one block of 256 threads per row, the row cached in shared memory
+//   as f32; a row too wide for shared memory (D * 4 bytes above what a block
+//   may ask for) is read from device memory again instead.
+//
+// Backward: the bound is bytes, so the design keeps rows in flight and the
+//   per-row work short.
+//   - Rows in flight. A persistent grid of one block of 8 warps per SM
+//     (the wrapper passes the SM count). The warps form row groups of `wpr`
+//     warps (1 at pythia-410m's D = 1024, 4 at open_llama_3b's 3200); group
+//     j of all blocks walks rows j, j + groups, ... Each group has a ring of
+//     up to 3 row slots in shared memory holding x and g in their own type.
+//     One lane asks the Tensor Memory Accelerator for a whole row of each
+//     with a bulk copy (cp.async.bulk) that completes on the slot's
+//     mbarrier: ~100 KB in flight on every SM at the path shapes. A group
+//     copies its slot into registers and hands it back at once, so the
+//     refill overlaps the whole row's work.
+//   - No whole-block barrier per row. Row sums are warp shuffles; a group of
+//     several warps adds its warps' sums in a fixed order after a named
+//     barrier of that group only (bar.sync id, 32 * wpr).
+//   - Registers. A lane owns the same columns (at most 32) of every row and
+//     keeps x (then xhat), g, w and its f32 sums of g * xhat (and g) in
+//     registers. The passes have no branches (columns past the row's end
+//     hold zeros) and each row sum runs as two chains, so the columns' work
+//     interleaves. Rows too wide for that add their column sums into the
+//     block's partial row in device memory instead, one owner per column.
+//   - The column sums. Each group writes its sums to its own rows of shared
+//     memory, and each block adds them in group order into one (D,) partial
+//     row. A second small kernel sums the blocks' rows in a fixed order into
+//     dw (and db); it is launched as a programmatic dependent of the first,
+//     so it is scheduled while the row kernel drains.
+//   - Rows that break the bulk copy's 16-byte rules, or too wide for one
+//     slot, take the same passes reading device memory directly (4-byte
+//     loads where rows allow, else one element).
+//   No atomics: the same inputs give the same bits on every run.
+// Replaced design: one block per run of 16 rows, the row cached in shared
+//   memory as f32, two whole-block barriers per row sum, no row loading while
+//   a row was reduced, and two torch reductions of the (blocks, D) partials.
 
 #include "common.cuh"
+
+#include <cstdint>
+#include <type_traits>
 
 using thunder::from_float;
 using thunder::to_float;
@@ -47,6 +75,7 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
+constexpr size_t MAX_SMEM = 232448;  // what a block may ask for on sm_90
 
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* p, float out[VEC]) {
@@ -74,6 +103,10 @@ __device__ __forceinline__ void store_vec(T* p, const float in[VEC]) {
   }
 }
 
+// =============================================================================
+// Forward
+// =============================================================================
+
 // The sum of v over the block, the same bits in every thread: the xor
 // butterfly leaves every lane of a warp with the same sum, and every thread
 // adds the warps' sums in one order. `red` is NWARPS floats of shared memory.
@@ -89,34 +122,46 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
-// (mu, rstd) of the row cached in xs (mu = 0 for RMS). `partial` is this
-// thread's sum of x (LN) or x^2 (RMS) over its columns.
-template <int VEC, bool LN>
-__device__ __forceinline__ float2 row_stats(const float* xs, float partial, int D, float eps, float* red) {
+// (mu, rstd) of the row (mu = 0 for RMS); row(c, v) gives chunk c's values.
+// `partial` is this thread's sum of x (LN) or x^2 (RMS) over its columns.
+template <int VEC, bool LN, typename Row>
+__device__ __forceinline__ float2 row_stats(const Row& row, float partial, int D, float eps, float* red) {
   const int nchunk = D / VEC;
   if (!LN) return make_float2(0.f, rsqrtf(block_sum(partial, red) / D + eps));
   const float mu = block_sum(partial, red) / D;
   float s2 = 0.f;
   for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
+    float v[VEC];
+    row(c, v);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      const float d = xs[c * VEC + e] - mu;
+      const float d = v[e] - mu;
       s2 += d * d;
     }
   }
   return make_float2(mu, rsqrtf(block_sum(s2, red) / D + eps));
 }
 
-template <typename T, int VEC, bool LN>
+// STREAM: the row is read from device memory on each pass instead of being
+// cached in shared memory (rows wider than a block's shared memory).
+template <typename T, int VEC, bool LN, bool STREAM>
 __global__ void __launch_bounds__(NTHREADS)
     norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
                     T* __restrict__ y, int D, float eps) {
-  extern __shared__ float xs[];  // D floats: this row of x in f32
+  extern __shared__ float xs[];  // D floats: this row of x in f32 (not STREAM)
   __shared__ float red[NWARPS];
   const long long row = blockIdx.x;
   const T* xr = x + row * D;
   T* yr = y + row * D;
   const int nchunk = D / VEC;
+  auto cached = [&](int c, float v[VEC]) {
+    if constexpr (STREAM) {
+      load_vec<T, VEC>(xr + c * VEC, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = xs[c * VEC + e];
+    }
+  };
 
   float partial = 0.f;
   for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
@@ -124,109 +169,485 @@ __global__ void __launch_bounds__(NTHREADS)
     load_vec<T, VEC>(xr + c * VEC, v);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      xs[c * VEC + e] = v[e];
+      if constexpr (!STREAM) xs[c * VEC + e] = v[e];
       partial += LN ? v[e] : v[e] * v[e];
     }
   }
-  const float2 st = row_stats<VEC, LN>(xs, partial, D, eps, red);
+  const float2 st = row_stats<VEC, LN>(cached, partial, D, eps, red);
 
   for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
-    float wv[VEC], bv[VEC], out[VEC];
+    float xv[VEC], wv[VEC], bv[VEC], out[VEC];
+    cached(c, xv);
     load_vec<T, VEC>(w + c * VEC, wv);
     if (LN && b != nullptr) load_vec<T, VEC>(b + c * VEC, bv);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      out[e] = (xs[c * VEC + e] - st.x) * st.y * wv[e];
+      out[e] = (xv[e] - st.x) * st.y * wv[e];
       if (LN && b != nullptr) out[e] += bv[e];
     }
     store_vec<T, VEC>(yr + c * VEC, out);
   }
 }
 
-template <typename T, int VEC, bool LN>
-__global__ void __launch_bounds__(NTHREADS)
+// =============================================================================
+// Backward
+// =============================================================================
+
+// How the backward reads its rows (normex.bwd_plan picks it).
+enum BwdMode : int { kRing = 0, kDirect = 1, kScalar = 2 };
+constexpr int MAX_DEPTH = 3;    // ring slots a row group
+constexpr int LANE_COLS = 32;   // columns a lane keeps its dw/db sums of in registers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// U consecutive elements (4 bytes, or one element when U == 1).
+template <typename T, int U>
+__device__ __forceinline__ void store_unit(T* p, const float in[U]) {
+  if constexpr (U == 1) {
+    *p = from_float<T>(in[0]);
+  } else {
+    uint32_t raw;
+    T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < U; ++e) v[e] = from_float<T>(in[e]);
+    *reinterpret_cast<uint32_t*>(p) = raw;
+  }
+}
+
+// The U elements of a unit as they lie in memory, in 32 bits (one element
+// of 2 bytes is zero-extended), and their f32 values.
+template <typename T, int U>
+__device__ __forceinline__ uint32_t load_raw(const T* p) {
+  if constexpr (U * sizeof(T) == 4) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    static_assert(U == 1 && sizeof(T) == 2, "units of 4 bytes or one 2-byte element");
+    return *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void unpack(uint32_t raw, float out[U]) {
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < U; ++e) out[e] = to_float(v[e]);
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void load_unit(const T* p, float out[U]) {
+  unpack<T, U>(load_raw<T, U>(p), out);
+}
+
+// The sums of a row group of `wpr` warps: xor butterflies in each warp, then
+// (wpr > 1) the warps' sums, written to one of two buffers and added in warp
+// order by every thread after the group's named barrier. Two buffers in turn
+// need one barrier a sum: a warp writes a buffer again only after the next
+// sum's barrier, which every warp reaches after reading it.
+struct GroupSum {
+  float2* buf;  // 2 * wpr
+  int wpr, warp, lane, bar_id, phase;
+
+  __device__ __forceinline__ float2 operator()(float2 v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+    }
+    if (wpr == 1) return v;
+    float2* b = buf + phase * wpr;
+    if (lane == 0) b[warp] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "r"(32 * wpr) : "memory");
+    float2 t = make_float2(0.f, 0.f);
+    for (int i = 0; i < wpr; ++i) {
+      t.x += b[i].x;
+      t.y += b[i].y;
+    }
+    phase ^= 1;
+    return t;
+  }
+
+  __device__ __forceinline__ void sync() const {
+    if (wpr == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "r"(32 * wpr) : "memory");
+    }
+  }
+};
+
+// The four passes over one row held at xr, gr (shared or device memory),
+// for rows too wide for registers: the statistics, then m1 and m2, then dx
+// and this thread's column sums, added into the block's partial rows pw, pb
+// in device memory (w is read there too).
+template <typename T, int U, bool LN>
+__device__ __forceinline__ void bwd_row(const T* xr, const T* gr, T* __restrict__ dxr, const T* __restrict__ w,
+                                        int D, int nunits, int gt, int tg, float eps, float* __restrict__ pw,
+                                        float* __restrict__ pb, GroupSum& gsum) {
+  float s1 = 0.f;
+  for (int u = gt; u < nunits; u += tg) {
+    float xv[U];
+    load_unit<T, U>(xr + u * U, xv);
+#pragma unroll
+    for (int e = 0; e < U; ++e) s1 += LN ? xv[e] : xv[e] * xv[e];
+  }
+  float mu = 0.f, rstd;
+  if constexpr (LN) {
+    mu = gsum(make_float2(s1, 0.f)).x / D;
+    float s2 = 0.f;
+    for (int u = gt; u < nunits; u += tg) {
+      float xv[U];
+      load_unit<T, U>(xr + u * U, xv);
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        const float d = xv[e] - mu;
+        s2 += d * d;
+      }
+    }
+    rstd = rsqrtf(gsum(make_float2(s2, 0.f)).x / D + eps);
+  } else {
+    rstd = rsqrtf(gsum(make_float2(s1, 0.f)).x / D + eps);
+  }
+
+  float a1 = 0.f, a2 = 0.f;
+  for (int u = gt; u < nunits; u += tg) {
+    float xv[U], gv[U], wk[U];
+    load_unit<T, U>(xr + u * U, xv);
+    load_unit<T, U>(gr + u * U, gv);
+    load_unit<T, U>(w + u * U, wk);
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float xhat = (xv[e] - mu) * rstd;
+      const float wg = gv[e] * wk[e];
+      a1 += wg;
+      a2 += wg * xhat;
+    }
+  }
+  const float2 m = gsum(make_float2(a1, a2));
+  const float m2 = m.y / D;
+  const float m1 = LN ? m.x / D : 0.f;
+
+  for (int u = gt; u < nunits; u += tg) {
+    float xv[U], gv[U], wk[U], out[U];
+    load_unit<T, U>(xr + u * U, xv);
+    load_unit<T, U>(gr + u * U, gv);
+    load_unit<T, U>(w + u * U, wk);
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float xhat = (xv[e] - mu) * rstd;
+      out[e] = rstd * (gv[e] * wk[e] - m1 - xhat * m2);
+      pw[u * U + e] += gv[e] * xhat;
+      if (LN && pb != nullptr) pb[u * U + e] += gv[e];
+    }
+    store_unit<T, U>(dxr + u * U, out);
+  }
+}
+
+// The register version of bwd_row for rows whose lane slices fit in
+// registers: load_row reads this thread's units of x and g (KMAX
+// independent loads each, so one latency for the row), and bwd_row_regs runs
+// the same four passes on them, with the same order of every sum.
+template <typename T, int U, int KMAX>
+__device__ __forceinline__ void load_row(const T* xr, const T* gr, int nunits, int gt, int tg, uint32_t (&xq)[KMAX],
+                                         uint32_t (&gq)[KMAX]) {
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int u = gt + k * tg;
+    xq[k] = u < nunits ? load_raw<T, U>(xr + u * U) : 0u;
+    gq[k] = u < nunits ? load_raw<T, U>(gr + u * U) : 0u;
+  }
+}
+
+template <typename T, int U, bool LN, int KMAX>
+__device__ __forceinline__ void bwd_row_regs(const uint32_t (&xq)[KMAX], const uint32_t (&gq)[KMAX],
+                                             T* __restrict__ dxr, int D, int nunits, int gt, int tg, float eps,
+                                             const float (&wv)[KMAX * U], float (&aw)[KMAX * U],
+                                             float (&ab)[KMAX * U], GroupSum& gsum) {
+  // Units past the row's end hold x = g = w = 0, which add nothing to any
+  // sum but the centred squares; so only those and the store look at the
+  // bound, and the units' chains interleave without branches.
+  // Each sum runs as two chains (even and odd columns of the lane), added at
+  // the end: half the dependent latency, the same order on every run. x is
+  // unpacked once, and overwritten with xhat in the third pass. Means are
+  // taken as sums times 1/D.
+  const float inv_d = 1.f / D;
+  float xf[KMAX * U], s1[2] = {0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    unpack<T, U>(xq[k], &xf[k * U]);
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float v = xf[k * U + e];
+      s1[(k * U + e) & 1] += LN ? v : v * v;
+    }
+  }
+  float mu = 0.f, rstd;
+  if constexpr (LN) {
+    mu = gsum(make_float2(s1[0] + s1[1], 0.f)).x * inv_d;
+    float s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const bool in = gt + k * tg < nunits;
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        const float d = in ? xf[k * U + e] - mu : 0.f;
+        s2[(k * U + e) & 1] += d * d;
+      }
+    }
+    rstd = rsqrtf(gsum(make_float2(s2[0] + s2[1], 0.f)).x * inv_d + eps);
+  } else {
+    rstd = rsqrtf(gsum(make_float2(s1[0] + s1[1], 0.f)).x * inv_d + eps);
+  }
+
+  float a1[2] = {0.f, 0.f}, a2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    float gv[U];
+    unpack<T, U>(gq[k], gv);
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float xhat = (xf[k * U + e] - mu) * rstd;
+      const float wg = gv[e] * wv[k * U + e];
+      xf[k * U + e] = xhat;
+      a1[(k * U + e) & 1] += wg;
+      a2[(k * U + e) & 1] += wg * xhat;
+    }
+  }
+  const float2 m = gsum(make_float2(a1[0] + a1[1], a2[0] + a2[1]));
+  const float m2 = m.y * inv_d;
+  const float m1 = LN ? m.x * inv_d : 0.f;
+
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int u = gt + k * tg;
+    float gv[U], out[U];
+    unpack<T, U>(gq[k], gv);
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float xhat = xf[k * U + e];
+      out[e] = rstd * (gv[e] * wv[k * U + e] - m1 - xhat * m2);
+      aw[k * U + e] += gv[e] * xhat;
+      if constexpr (LN) ab[k * U + e] += gv[e];
+    }
+    if (u < nunits) store_unit<T, U>(dxr + u * U, out);
+  }
+}
+
+// Shared memory of the backward (normex.bwd_plan mirrors it): the fold
+// buffers (REG only: each group's D floats for dw and, LN, db), rounded up
+// to 16 bytes, then each group's ring of `depth` slots of (x row, g row).
+__host__ __device__ inline size_t fold_bytes(int D, int groups, bool ln, bool reg) {
+  return reg ? ((static_cast<size_t>(groups) * D * 4 * (ln ? 2 : 1) + 15) / 16) * 16 : 0;
+}
+
+template <typename T, int MODE, bool LN>
+__global__ void __launch_bounds__(NTHREADS, 1)
     norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ db_part, int N,
-                    int D, int rows_per_block, float eps) {
-  // xs: the row of x, then of xhat; gs: the row of g; dw_acc, db_acc (LN):
-  // this block's column sums. D floats each, in f32.
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* gs = smem + D;
-  float* dw_acc = smem + 2 * D;
-  float* db_acc = smem + 3 * D;
-  __shared__ float red[NWARPS];
-  const int nchunk = D / VEC;
+                    T* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ db_part, int N, int D,
+                    int wpr, int depth, float eps) {
+  constexpr int U = MODE == kScalar ? 1 : static_cast<int>(4 / sizeof(T));
+  constexpr int KMAX = LANE_COLS / U;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bars[NWARPS * MAX_DEPTH];
+  __shared__ float2 red[2 * NWARPS];
 
-  for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      dw_acc[c * VEC + e] = 0.f;
-      if (LN) db_acc[c * VEC + e] = 0.f;
+  const int tg = 32 * wpr;                      // threads a group
+  const int groups = NWARPS / wpr;              // groups a block
+  const int grp = threadIdx.x / tg, gt = threadIdx.x % tg;
+  const int nunits = D / U;
+  const bool reg = (nunits + tg - 1) / tg <= KMAX;
+  const size_t row_bytes = static_cast<size_t>(D) * sizeof(T);
+  unsigned char* ring = smem + fold_bytes(D, groups, LN, reg) + static_cast<size_t>(grp) * depth * 2 * row_bytes;
+  uint64_t* gbars = bars + grp * MAX_DEPTH;
+  GroupSum gsum{red + grp * 2 * (wpr > 1 ? wpr : 0), wpr, gt / 32, gt % 32, 1 + grp, 0};
+
+  float* pw = dw_part + static_cast<long long>(blockIdx.x) * D;
+  float* pb = LN && db_part != nullptr ? db_part + static_cast<long long>(blockIdx.x) * D : nullptr;
+
+  if constexpr (MODE == kRing) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NWARPS * MAX_DEPTH; ++i) mbar_init(&bars[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
-
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, N);
-  for (int row = r0; row < r1; ++row) {
-    const T* xr = x + static_cast<long long>(row) * D;
-    const T* gr = g + static_cast<long long>(row) * D;
-    T* dxr = dx + static_cast<long long>(row) * D;
-
-    float partial = 0.f;
-    for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
-      float xv[VEC], gv[VEC];
-      load_vec<T, VEC>(xr + c * VEC, xv);
-      load_vec<T, VEC>(gr + c * VEC, gv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        xs[c * VEC + e] = xv[e];
-        gs[c * VEC + e] = gv[e];
-        partial += LN ? xv[e] : xv[e] * xv[e];
-      }
-    }
-    const float2 st = row_stats<VEC, LN>(xs, partial, D, eps, red);
-
-    float a1 = 0.f, a2 = 0.f;
-    for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
-      float wv[VEC];
-      load_vec<T, VEC>(w + c * VEC, wv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int i = c * VEC + e;
-        const float xhat = (xs[i] - st.x) * st.y;
-        const float wg = gs[i] * wv[e];
-        xs[i] = xhat;
-        a1 += wg;
-        a2 += wg * xhat;
-      }
-    }
-    const float m2 = block_sum(a2, red) / D;
-    const float m1 = LN ? block_sum(a1, red) / D : 0.f;
-
-    for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
-      float wv[VEC], out[VEC];
-      load_vec<T, VEC>(w + c * VEC, wv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int i = c * VEC + e;
-        const float xhat = xs[i];
-        out[e] = st.y * (gs[i] * wv[e] - m1 - xhat * m2);
-        dw_acc[i] += gs[i] * xhat;
-        if (LN) db_acc[i] += gs[i];
-      }
-      store_vec<T, VEC>(dxr + c * VEC, out);
+  if (!reg) {  // one group a block (wpr == 8): the partial rows are the sums
+    for (int c = threadIdx.x; c < D; c += NTHREADS) {
+      pw[c] = 0.f;
+      if (pb != nullptr) pb[c] = 0.f;
     }
   }
+  __syncthreads();
+  // Let the column-sum kernel be scheduled early; it waits for this grid's end.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
-  float* dwr = dw_part + static_cast<long long>(blockIdx.x) * D;
-  float* dbr = LN && db_part != nullptr ? db_part + static_cast<long long>(blockIdx.x) * D : nullptr;
-  for (int c = threadIdx.x; c < nchunk; c += NTHREADS) {
+  const int first = blockIdx.x * groups + grp, stride = gridDim.x * groups;
+  const int nrows = first < N ? (N - 1 - first) / stride + 1 : 0;
+
+  auto run = [&](auto reg_tag) {
+    constexpr bool REG = decltype(reg_tag)::value;
+    float wv[KMAX * U], aw[KMAX * U], ab[KMAX * U];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      dwr[c * VEC + e] = dw_acc[c * VEC + e];
-      if (dbr != nullptr) dbr[c * VEC + e] = db_acc[c * VEC + e];
+    for (int i = 0; i < KMAX * U; ++i) {
+      wv[i] = 0.f;
+      aw[i] = 0.f;
+      ab[i] = 0.f;
     }
+    auto load_weight = [&] {  // after the ring's first copies are in flight
+      if constexpr (REG) {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if (gt + k * tg < nunits) load_unit<T, U>(w + (gt + k * tg) * U, &wv[k * U]);
+        }
+      }
+    };
+
+    if constexpr (MODE == kRing) {
+      auto fetch = [&](int i, int s) {  // row i of this group into slot s = i % depth
+        const long long row = first + static_cast<long long>(i) * stride;
+        unsigned char* slot = ring + static_cast<size_t>(s) * 2 * row_bytes;
+        mbar_expect_tx(&gbars[s], static_cast<uint32_t>(2 * row_bytes));
+        bulk_load(slot, x + row * D, static_cast<uint32_t>(row_bytes), &gbars[s]);
+        bulk_load(slot + row_bytes, g + row * D, static_cast<uint32_t>(row_bytes), &gbars[s]);
+      };
+      if (gt == 0) {
+        for (int i = 0; i < depth && i < nrows; ++i) fetch(i, i);
+      }
+      load_weight();
+      uint32_t phase = 0;  // of slot s's barrier: flips each time the ring wraps
+      for (int i = 0, s = 0; i < nrows; ++i, s = s + 1 == depth ? 0 : s + 1) {
+        const long long row = first + static_cast<long long>(i) * stride;
+        const T* slot = reinterpret_cast<const T*>(ring + static_cast<size_t>(s) * 2 * row_bytes);
+        mbar_wait(&gbars[s], phase);
+        if (s + 1 == depth) phase ^= 1;
+        if constexpr (REG) {
+          uint32_t xq[KMAX], gq[KMAX];
+          load_row<T, U, KMAX>(slot, slot + D, nunits, gt, tg, xq, gq);
+          gsum.sync();  // every thread of the group has read the slot: refill it
+          if (gt == 0 && i + depth < nrows) fetch(i + depth, s);
+          bwd_row_regs<T, U, LN, KMAX>(xq, gq, dx + row * D, D, nunits, gt, tg, eps, wv, aw, ab, gsum);
+        } else {
+          bwd_row<T, U, LN>(slot, slot + D, dx + row * D, w, D, nunits, gt, tg, eps, pw, pb, gsum);
+          gsum.sync();  // every thread of the group is done with the slot
+          if (gt == 0 && i + depth < nrows) fetch(i + depth, s);
+        }
+      }
+    } else {
+      load_weight();
+      for (int i = 0; i < nrows; ++i) {
+        const long long row = first + static_cast<long long>(i) * stride;
+        if constexpr (REG) {
+          uint32_t xq[KMAX], gq[KMAX];
+          load_row<T, U, KMAX>(x + row * D, g + row * D, nunits, gt, tg, xq, gq);
+          bwd_row_regs<T, U, LN, KMAX>(xq, gq, dx + row * D, D, nunits, gt, tg, eps, wv, aw, ab, gsum);
+        } else {
+          bwd_row<T, U, LN>(x + row * D, g + row * D, dx + row * D, w, D, nunits, gt, tg, eps, pw, pb, gsum);
+        }
+      }
+    }
+
+    if constexpr (REG) {
+      // Each group writes its sums to its own rows; then each column's
+      // groups are added in group order into the block's partial row.
+      float* fw = reinterpret_cast<float*>(smem);  // (groups, D), then (groups, D) for db
+      float* fb = fw + static_cast<size_t>(groups) * D;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (gt + k * tg < nunits) {
+#pragma unroll
+          for (int e = 0; e < U; ++e) {
+            const int c = (gt + k * tg) * U + e;
+            fw[grp * D + c] = aw[k * U + e];
+            if constexpr (LN) fb[grp * D + c] = ab[k * U + e];
+          }
+        }
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < D; c += NTHREADS) {
+        float sw = 0.f, sb = 0.f;
+        for (int q = 0; q < groups; ++q) {
+          sw += fw[q * D + c];
+          if constexpr (LN) sb += fb[q * D + c];
+        }
+        pw[c] = sw;
+        if (pb != nullptr) pb[c] = sb;
+      }
+    }
+  };
+  if (reg) {
+    run(std::true_type{});
+  } else {
+    run(std::false_type{});
+  }
+}
+
+// out[c] = sum over r of part[r, c], r in a fixed order: 32 slices of rows
+// (r = s, s + 32, ..., loaded 8 at a time, so a slice is one or two round
+// trips) for 32 columns a block, then the slices in order. blockIdx.y picks
+// dw (0) or db (1).
+__global__ void __launch_bounds__(1024)
+    norm_colsum_kernel(const float* __restrict__ pw, float* __restrict__ ow, const float* __restrict__ pb,
+                       float* __restrict__ ob, int rows, int D) {
+  __shared__ float red[32][33];
+  // Launched as a programmatic dependent of the row kernel: wait until that
+  // grid has finished and its partial rows are visible.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const float* p = blockIdx.y ? pb : pw;
+  float* o = blockIdx.y ? ob : ow;
+  const int c = threadIdx.x % 32, s = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + c;
+  float acc = 0.f;
+  if (col < D) {
+    for (int r0 = s; r0 < rows; r0 += 32 * 8) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = r0 + 32 * j;
+        v[j] = r < rows ? p[static_cast<long long>(r) * D + col] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += v[j];
+    }
+  }
+  red[s][c] = acc;
+  __syncthreads();
+  if (s == 0 && col < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < 32; ++q) t += red[q][c];
+    o[col] = t;
   }
 }
 
@@ -243,8 +664,10 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int 
                cudaStream_t stream) {
   if (N == 0) return 0;
   constexpr int V = 16 / sizeof(T);
-  auto kernel = vec ? norm_fwd_kernel<T, V, LN> : norm_fwd_kernel<T, 1, LN>;
-  const size_t smem = static_cast<size_t>(D) * sizeof(float);
+  const bool stream_rows = static_cast<size_t>(D) * sizeof(float) > MAX_SMEM;
+  auto kernel = stream_rows ? (vec ? norm_fwd_kernel<T, V, LN, true> : norm_fwd_kernel<T, 1, LN, true>)
+                            : (vec ? norm_fwd_kernel<T, V, LN, false> : norm_fwd_kernel<T, 1, LN, false>);
+  const size_t smem = stream_rows ? 0 : static_cast<size_t>(D) * sizeof(float);
   if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<N, NTHREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
                                         static_cast<const T*>(b), static_cast<T*>(y), D, eps);
@@ -252,17 +675,40 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int 
 }
 
 template <typename T, bool LN>
-int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw_part, float* db_part, int N,
-               int D, int rows_per_block, float eps, int vec, cudaStream_t stream) {
-  if (N == 0) return 0;
-  constexpr int V = 16 / sizeof(T);
-  auto kernel = vec ? norm_bwd_kernel<T, V, LN> : norm_bwd_kernel<T, 1, LN>;
-  const size_t smem = static_cast<size_t>(LN ? 4 : 3) * D * sizeof(float);
+int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
+               float* db_part, int N, int D, int ctas, int wpr, int depth, int mode, float eps,
+               cudaStream_t stream) {
+  if (ctas < 1 || wpr < 1 || wpr > NWARPS || NWARPS % wpr != 0 || depth < 0 || depth > MAX_DEPTH ||
+      (mode == kRing) != (depth > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = mode == kRing     ? norm_bwd_kernel<T, kRing, LN>
+                : mode == kDirect ? norm_bwd_kernel<T, kDirect, LN>
+                                  : norm_bwd_kernel<T, kScalar, LN>;
+  const int U = mode == kScalar ? 1 : static_cast<int>(4 / sizeof(T));
+  const int tg = 32 * wpr, nunits = D / U;
+  const bool reg = (nunits + tg - 1) / tg <= LANE_COLS / U;
+  const size_t smem =
+      fold_bytes(D, NWARPS / wpr, LN, reg) + static_cast<size_t>(NWARPS / wpr) * depth * 2 * static_cast<size_t>(D) * sizeof(T);
+  if (smem > MAX_SMEM || (!reg && wpr != NWARPS)) return static_cast<int>(cudaErrorInvalidValue);
   if (int err = allow_smem(kernel, smem)) return err;
-  const int blocks = (N + rows_per_block - 1) / rows_per_block;
-  kernel<<<blocks, NTHREADS, smem, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x),
-                                             static_cast<const T*>(w), static_cast<T*>(dx), dw_part, db_part,
-                                             N, D, rows_per_block, eps);
+  kernel<<<ctas, NTHREADS, smem, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x),
+                                           static_cast<const T*>(w), static_cast<T*>(dx), dw_part, db_part, N, D,
+                                           wpr, depth, eps);
+  if (int err = thunder::launch_status()) return err;
+  // The column sums may be scheduled while the row kernel's blocks drain
+  // (programmatic dependent launch); they wait for its end themselves.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + 31) / 32, LN && db_part != nullptr ? 2 : 1);
+  cfg.blockDim = dim3(1024);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (int err = static_cast<int>(cudaLaunchKernelEx(&cfg, norm_colsum_kernel, static_cast<const float*>(dw_part), dw,
+                                                    static_cast<const float*>(db_part), db, ctas, D)))
+    return err;
   return thunder::launch_status();
 }
 
@@ -278,15 +724,17 @@ int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, in
 }
 
 template <bool LN>
-int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw_part, float* db_part, int N,
-                 int D, int rows_per_block, float eps, int dtype, int vec, cudaStream_t s) {
+int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
+                 float* db_part, int N, int D, int ctas, int wpr, int depth, int mode, float eps, int dtype,
+                 cudaStream_t s) {
   switch (dtype) {
     case thunder::kBF16:
-      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw_part, db_part, N, D, rows_per_block, eps, vec, s);
+      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode,
+                                           eps, s);
     case thunder::kF16:
-      return launch_bwd<__half, LN>(g, x, w, dx, dw_part, db_part, N, D, rows_per_block, eps, vec, s);
+      return launch_bwd<__half, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, s);
     case thunder::kF32:
-      return launch_bwd<float, LN>(g, x, w, dx, dw_part, db_part, N, D, rows_per_block, eps, vec, s);
+      return launch_bwd<float, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -301,11 +749,17 @@ extern "C" int thunder_norm_fwd(const void* x, const void* w, const void* b, voi
                     : dispatch_fwd<false>(x, w, nullptr, y, N, D, eps, dtype, vec, s);
 }
 
-// db_part is written for LayerNorm when it is not null.
-extern "C" int thunder_norm_bwd(const void* g, const void* x, const void* w, void* dx, float* dw_part,
-                                float* db_part, int N, int D, int rows_per_block, float eps, int layer_norm,
-                                int dtype, int vec, void* stream) {
+// Two launches: the row kernel on `ctas` blocks of 8 warps in row groups of
+// `wpr` warps with rings of `depth` slots (mode 0; 0 for modes 1 and 2),
+// writing dx and the blocks' partial rows dw_part (and, for LayerNorm when
+// it is not null, db_part), each (ctas, D) f32; then their column sums into
+// dw (and db), (D,) f32.
+extern "C" int thunder_norm_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db,
+                                float* dw_part, float* db_part, int N, int D, int ctas, int wpr, int depth,
+                                int mode, float eps, int layer_norm, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return layer_norm ? dispatch_bwd<true>(g, x, w, dx, dw_part, db_part, N, D, rows_per_block, eps, dtype, vec, s)
-                    : dispatch_bwd<false>(g, x, w, dx, dw_part, nullptr, N, D, rows_per_block, eps, dtype, vec, s);
+  return layer_norm
+             ? dispatch_bwd<true>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, dtype, s)
+             : dispatch_bwd<false>(g, x, w, dx, dw, nullptr, dw_part, nullptr, N, D, ctas, wpr, depth, mode, eps,
+                                   dtype, s);
 }

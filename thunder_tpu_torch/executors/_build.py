@@ -42,7 +42,7 @@ _SIGNATURES = {
     "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
     "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 3 + [_c_void_p],
-    "thunder_norm_bwd": [_c_void_p] * 6 + [_c_int] * 3 + [_c_float] + [_c_int] * 3 + [_c_void_p],
+    "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float] + [_c_int] * 2 + [_c_void_p],
 }
 
 

@@ -33,7 +33,9 @@ and db in f32; the claimed implementations cast them.
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -47,11 +49,60 @@ ex = OperatorExecutor("norm")
 register_executor(ex)
 
 RMS_EPS = 1e-6  # RMSNorm's eps when none is given (pallasex._rms_impl)
-# The backward gives each block a run of consecutive rows so that there are
-# about this many blocks: enough to fill the card's SMs twice, few enough
-# that the (blocks, D) f32 partials stay small beside g, x and dx.
-_BWD_BLOCKS = 256
-_MAX_D = 14 * 1024  # the backward's 4·D f32 of shared memory within 227 KB
+
+# The backward's launch plan; the constants are those of csrc/norm.cu.
+_WARPS = 8  # warps a block, one block an SM
+_MAX_DEPTH = 3  # ring slots a row group
+_LANE_COLS = 32  # columns a lane keeps its dw/db sums of in registers
+_MAX_SMEM = 232448  # shared memory a block may ask for on sm_90
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How ``norm_bwd_kernel`` walks the rows (csrc/norm.cu):
+
+    - ``mode``: "ring" (rows copied into shared memory by the Tensor Memory
+      Accelerator, ``depth`` slots a row group), "direct" (read from device
+      memory in 4-byte units) or "scalar" (one element at a time);
+    - ``warps_per_row``: the warps of a row group, ``groups`` of them a block;
+    - ``ctas``: blocks, one an SM at most;
+    - ``registers``: whether a lane keeps its column sums in registers (else
+      in the block's partial row in device memory, one group a block);
+    - ``smem``: dynamic shared memory a block, bytes.
+    """
+
+    mode: str
+    warps_per_row: int
+    groups: int
+    depth: int
+    ctas: int
+    registers: bool
+    smem: int
+
+
+def bwd_plan(N: int, D: int, elem_size: int, layer_norm: bool, sm_count: int, align: int) -> BwdPlan:
+    """The backward's plan for N rows of D elements of ``elem_size`` bytes on
+    a card of ``sm_count`` SMs, where ``align`` (16, 4 or 1) divides every
+    row's byte offset and base pointer. A row group is the fewest warps
+    (1, 2, 4, 8) whose lanes hold at most 32 columns each; the ring takes
+    as many slots (up to 3) as fit beside the fold buffers, and a row too
+    wide for one slot is read directly. With sums in registers, each group
+    has D f32 of fold buffer (2·D for LayerNorm) beside its ring."""
+    unit = 1 if align < 4 else max(1, 4 // elem_size)
+    nunits = D // unit
+    kmax = _LANE_COLS // unit
+    wpr = next((w for w in (1, 2, 4) if math.ceil(nunits / (32 * w)) <= kmax), _WARPS)
+    registers = math.ceil(nunits / (32 * wpr)) <= kmax
+    groups = _WARPS // wpr
+    fold = -(-groups * D * 4 * (2 if layer_norm else 1) // 16) * 16 if registers else 0
+    slot = 2 * D * elem_size
+    depth = min(_MAX_DEPTH, (_MAX_SMEM - fold) // (groups * slot)) if align >= 16 else 0
+    mode = "ring" if depth > 0 else "direct" if align >= 4 else "scalar"
+    ctas = max(1, min(sm_count, math.ceil(N / groups)))
+    return BwdPlan(mode, wpr, groups, depth, ctas, registers, fold + groups * depth * slot)
+
+
+_MODES = {"ring": 0, "direct": 1, "scalar": 2}
 
 
 # =============================================================================
@@ -116,14 +167,20 @@ def _check_cuda(kernel: str, x: torch.Tensor, g: Optional[torch.Tensor], *params
     if str(x.dtype).removeprefix("torch.") not in _build.DTYPE_CODES or any(t.dtype != x.dtype for t in ts):
         raise ValueError(f"{kernel}: every tensor must share one of bf16/f16/f32, got {[t.dtype for t in ts]}")
     D = x.shape[-1] if x.ndim else 0
-    if not (0 < D <= _MAX_D) or (g is not None and g.shape != x.shape) or any(p.shape != (D,) for p in params):
-        raise ValueError(f"{kernel}: unsupported shapes {[tuple(t.shape) for t in ts]} (0 < D <= {_MAX_D})")
+    if D < 1 or (g is not None and g.shape != x.shape) or any(p.shape != (D,) for p in params):
+        raise ValueError(f"{kernel}: unsupported shapes {[tuple(t.shape) for t in ts]} (D >= 1)")
 
 
-def _vec_ok(D: int, *ts: Optional[torch.Tensor]) -> bool:
-    """16-byte loads need D to be a multiple of 16 bytes' worth of elements
-    and every base pointer 16-byte aligned (rows are contiguous)."""
-    return all(t is None or (D * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0) for t in ts)
+def _align(D: int, *ts: Optional[torch.Tensor]) -> int:
+    """The largest of 16, 4 and 1 bytes that divides every row's offset
+    (D elements, rows contiguous) and every base pointer."""
+    return next(a for a in (16, 4, 1) if all(
+        t is None or (D * t.element_size() % a == 0 and t.data_ptr() % a == 0) for t in ts))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> torch.Tensor:
@@ -136,31 +193,34 @@ def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> t
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_fwd(
             x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), x2.shape[0], D,
-            float(eps), int(layer_norm), _build.dtype_code(x), int(_vec_ok(D, x2, w, b, y)), _build.stream_of(x),
+            float(eps), int(layer_norm), _build.dtype_code(x), int(_align(D, x2, w, b, y) == 16), _build.stream_of(x),
         )
     _build.check(status, kernel)
     return y.reshape(x.shape)
 
 
 def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bias: bool):
+    """dx, and dw and db in f32, from two launches: the row kernel, which
+    writes each block's partial column sums, and the kernel that sums them."""
     _check_cuda(kernel, x, g, weight)
     D = x.shape[-1]
     x2, g2, w = x.reshape(-1, D).contiguous(), g.reshape(-1, D).contiguous(), weight.contiguous()
     N = x2.shape[0]
-    rows_per_block = max(1, math.ceil(N / _BWD_BLOCKS))
-    blocks = math.ceil(N / rows_per_block)
     dx = torch.empty_like(x2)
-    dw_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device) if with_bias else None
+    plan = bwd_plan(N, D, x.element_size(), layer_norm, _sm_count(x.device.index), _align(D, g2, x2, w, dx))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw, dw_part = torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)
+    db, db_part = (torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)) if with_bias else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.lib()
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_bwd(
-            g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
-            None if db_part is None else db_part.data_ptr(), N, D, rows_per_block, float(eps), int(layer_norm),
-            _build.dtype_code(x), int(_vec_ok(D, g2, x2, w, dx)), _build.stream_of(x),
+            g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(), ptr(db), dw_part.data_ptr(),
+            ptr(db_part), N, D, plan.ctas, plan.warps_per_row, plan.depth, _MODES[plan.mode], float(eps),
+            int(layer_norm), _build.dtype_code(x), _build.stream_of(x),
         )
     _build.check(status, kernel)
-    return dx.reshape(x.shape), dw_part.sum(0), None if db_part is None else db_part.sum(0)
+    return dx.reshape(x.shape), dw, db
 
 
 @_build.counted
