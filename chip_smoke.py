@@ -19,8 +19,10 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    route's forward and backward (row 10) at the training path's. Each is
    held against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
-   PyTorch call (CUDA events); each norm backward's launch plan (CTAs, row
-   groups, warps a row, ring depth) is printed with its achieved TB/s;
+   PyTorch call (CUDA events); the launch plans of rope (at both batches
+   and in the backward), of each norm forward and backward are printed with
+   the achieved TB/s, the share of the bound and a ``torch.profiler``
+   split of the kernel's own device time;
 4. checks the whole path at open_llama_3b's full width with 2 layers, forward
    at B=10, loss and gradients (``value_and_grad``) at B=2: the default
    executors against the torch executor alone, then the same with a planted
@@ -194,6 +196,18 @@ def kernel_split_us(fn, calls: int = 20) -> dict:
         torch.cuda.synchronize()
     return {e.key: e.device_time_total / calls for e in prof.key_averages()
             if e.device_time_total > 0 and e.count >= calls}
+
+
+def log_plan_and_split(tag: str, plan, nbytes: float, ms: float, bound_ms: float, fn, kernel: str) -> None:
+    """Log a kernel's launch plan, its rate against the card's and its share
+    of the bound, then its own device time from ``kernel_split_us`` (the
+    kernels whose name holds ``kernel``)."""
+    log(f"  {tag} plan: {plan}; {nbytes / ms / 1e9:.3f} TB/s against {PEAK_BYTES / 1e12:.2f} TB/s "
+        f"({bound_ms / ms:.1%} of the bound)")
+    split = {k: v for k, v in kernel_split_us(fn).items() if kernel in k}
+    log(f"  {tag} profiler: " + ("not measured (no device time)" if not split else "; ".join(
+        f"{re.search(kernel + r'[a-z_]*', k).group(0)} {v:.2f} us, {nbytes / v / 1e6:.3f} TB/s"
+        for k, v in split.items())))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -543,11 +557,14 @@ def check_kernels(cfg, rows: dict) -> None:
         err = (got.float() - want.float()).abs().max().item()
         nb = q_view.numel() * 2 * 2 + cos.numel() * 2 * 2
         b_ms, b_by = bound(nb, 3.0 * q_view.numel(), PEAK_F32_FLOPS)
+        rope = lambda: fusedex.apply_rope(q_view, cos, sin)  # noqa: E731
+        ms = time_ms(rope, 50)
         record("rope", B, err, row_rel_err(got, want), ROPE_ROW_REL,
                source="thunder_tpu_torch/csrc/rope.cu", replaces="thunder_tpu/executors/pallasex.py:220",
-               ms=time_ms(lambda: fusedex.apply_rope(q_view, cos, sin), 50),
-               plain_ms=time_ms(lambda: fusedex.rope_plain(q_view, cos, sin), 20),
+               ms=ms, plain_ms=time_ms(lambda: fusedex.rope_plain(q_view, cos, sin), 20),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log_plan_and_split(f"rope B={B}", fusedex.rope_plan_of(q_view, cos, sin, got), nb, ms, b_ms, rope,
+                           "rope_kernel")
         del got, want
 
         # -- flash: q, k rope outputs (contiguous), v a strided view -------------
@@ -648,11 +665,13 @@ def check_kernels(cfg, rows: dict) -> None:
     want = fusedex.rope_plain(dq, cos, msin)
     nb = dq.numel() * 2 * 2 + cos.numel() * 2 * 2
     b_ms, b_by = bound(nb, 3.0 * dq.numel(), PEAK_F32_FLOPS)
+    rope = lambda: fusedex.apply_rope(dq, cos, msin)  # noqa: E731
+    ms = time_ms(rope, 50)
     record("rope_bwd", B, (got.float() - want.float()).abs().max().item(), row_rel_err(got, want), ROPE_ROW_REL,
            source="thunder_tpu_torch/csrc/rope.cu", replaces="thunder_tpu/torch/__init__.py:1579",
-           ms=time_ms(lambda: fusedex.apply_rope(dq, cos, msin), 50),
-           plain_ms=time_ms(lambda: fusedex.rope_plain(dq, cos, msin), 20),
+           ms=ms, plain_ms=time_ms(lambda: fusedex.rope_plain(dq, cos, msin), 20),
            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log_plan_and_split("rope_bwd", fusedex.rope_plan_of(dq, cos, msin, got), nb, ms, b_ms, rope, "rope_kernel")
     del got, want, dq, q, k
     torch.cuda.empty_cache()
 
@@ -693,7 +712,7 @@ def check_norm_kernels(llama, pythia, rows: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from thunder_tpu_torch.executors import normex
+    from thunder_tpu_torch.executors import _build, normex
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     record = _recorder(rows)
@@ -726,11 +745,15 @@ def check_norm_kernels(llama, pythia, rows: dict) -> None:
                                                   with_bias=layer_norm)
 
         got, want = fwd(), plain_fwd()
-        b_ms, b_by = bound(2 * nb + len(params) * D * 2, 6.0 * N * D, PEAK_F32_FLOPS)
+        fwd_bytes = 2 * nb + len(params) * D * 2
+        b_ms, b_by = bound(fwd_bytes, 6.0 * N * D, PEAK_F32_FLOPS)
+        ms = time_ms(fwd, 50)
         record(f"{tag}_fwd", shape, (got.float() - want.float()).abs().max().item(), row_rel_err(got, want),
                NORM_ROW_REL, source=src, replaces=f"{repl}:{410 if layer_norm else 299}",
-               ms=time_ms(fwd, 50), plain_ms=time_ms(plain_fwd, 10), bound_ms=b_ms, bound_by=b_by,
+               ms=ms, plain_ms=time_ms(plain_fwd, 10), bound_ms=b_ms, bound_by=b_by,
                library_ms=_library_ms(lib_fwd))
+        log_plan_and_split(f"{tag}_fwd", normex.fwd_plan_of(x, w, b, got, layer_norm), fwd_bytes, ms, b_ms, fwd,
+                           "norm_fwd_kernel")
         del got, want
 
         (dx, dw, db), (want_dx, want_dw, want_db) = bwd(), plain_bwd()
@@ -746,8 +769,7 @@ def check_norm_kernels(llama, pythia, rows: dict) -> None:
         pr = [p.detach().clone().requires_grad_() for p in params]
         ref = F.layer_norm(xr, (D,), pr[0], pr[1], eps) if layer_norm else F.rms_norm(xr, (D,), pr[0], eps)
         ms = time_ms(bwd, 50)
-        plan = normex.bwd_plan(N, D, x.element_size(), layer_norm,
-                               torch.cuda.get_device_properties(0).multi_processor_count, normex._align(D, g, x, w))
+        plan = normex.bwd_plan(N, D, x.element_size(), layer_norm, _build.sm_count(0), normex._align(D, g, x, w))
         log(f"  {tag}_bwd plan: {plan.mode}, {plan.ctas} CTAs, {plan.groups} row groups of {plan.warps_per_row} "
             f"warp(s), ring depth {plan.depth}, sums in {'registers' if plan.registers else 'device memory'}, "
             f"{plan.smem} B shared; {bwd_bytes / ms / 1e9:.3f} TB/s "

@@ -76,18 +76,93 @@ def test_flash_fwd_matches_plain(dev, B, H, G, Tq, Tkv, D, causal, dtype):
     _assert_rows_close(got, want, 2)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_rope_matches_plain(dev, dtype):
+_BF16, _F16, _F32 = torch.bfloat16, torch.float16, torch.float32
+
+# (B, T, H, G, D, which, dtype, offset): x is head group `which` (q, k or v)
+# of a fused qkv projection (B, T, (H + 2G) * D) whose last dim starts
+# `offset` elements into its buffer, or a contiguous (B, H, T, D). The cases
+# cover every route of fusedex.rope_plan: copies of 16, 8, 4 and 2 bytes,
+# flat tiles, partner reads of 8, 4, 2 and 1 elements, 16-byte or
+# one-element stores, ragged tiles and head groups, and the direct route.
+_ROPE_CASES = [
+    (2, 64, 3, 3, 100, "k", _BF16, 0),  # head size 100: rows 8- and 16-byte aligned
+    (2, 64, 3, 3, 100, "k", _F16, 0),
+    (2, 64, 3, 3, 100, "k", _F32, 0),
+    (2, 64, 4, 4, 64, "q", _BF16, 0),  # pythia-410m's head size: 16-byte copies, 8-element partners
+    (2, 64, 4, 2, 80, "k", _BF16, 0),
+    (2, 64, 4, 2, 72, "q", _BF16, 0),  # 4-element partners
+    (2, 64, 4, 2, 128, "v", _BF16, 0),
+    (2, 64, 8, 2, 100, "q", _BF16, 0),  # GQA: q, k and v of one projection
+    (2, 64, 8, 2, 100, "k", _BF16, 0),
+    (2, 64, 8, 2, 100, "v", _BF16, 0),
+    (2, 64, 4, 4, 100, "contiguous", _BF16, 0),  # the backward's dq: flat 16-byte copies
+    (2, 100, 4, 4, 100, "q", _BF16, 0),  # T not a multiple of the tile
+    (2, 100, 4, 4, 100, "contiguous", _BF16, 0),  # a ragged flat tile
+    (1, 77, 1, 1, 100, "q", _BF16, 0),  # B = H = 1, odd T: one-element stores
+    (1, 64, 1, 1, 64, "contiguous", _BF16, 0),
+    (8, 512, 7, 7, 100, "q", _BF16, 0),  # head groups of 2, the last one short
+    (2, 64, 4, 4, 100, "q", _BF16, 2),  # rows 4-byte aligned only
+    (2, 64, 4, 4, 100, "q", _BF16, 1),  # 2-byte aligned: one element a copy
+    (2, 64, 2, 2, 98, "q", _BF16, 0),  # D / 2 odd: one-element partners
+    (2, 64, 4, 4, 100, "q", _F16, 0),
+    (2, 64, 4, 4, 100, "q", _F32, 0),
+    (2, 64, 4, 4, 64, "contiguous", _F32, 0),
+    (2, 64, 2, 2, 98, "q", _F32, 0),
+    (10, 2048, 32, 32, 100, "q", _BF16, 0),  # the B=10 forward's q
+    (1, 3, 1, 1, 60000, "contiguous", _F32, 0),  # a row too wide for shared memory
+]
+
+
+def _rope_input(B, T, H, G, D, which, dtype, offset, dev, seed):
+    if which == "contiguous":
+        return _randn((B, H, T, D), dtype, dev, seed)
+    buf = _randn((B, T, (H + 2 * G) * D + offset), dtype, dev, seed)
+    qkv = buf[..., offset:]
+    lo, n = {"q": (0, H), "k": (H * D, G), "v": ((H + G) * D, G)}[which]
+    return qkv[..., lo:lo + n * D].reshape(B, T, n, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,T,H,G,D,which,dtype,offset", _ROPE_CASES)
+def test_rope_matches_plain(dev, B, T, H, G, D, which, dtype, offset):
     from thunder_tpu_torch.executors import fusedex
 
-    B, T, H, D = 2, 64, 3, 100
-    qkv = _randn((B, T, 3 * H * D), dtype, dev, 2)
-    x = qkv[..., H * D:2 * H * D].reshape(B, T, H, D).permute(0, 2, 1, 3)
+    x = _rope_input(B, T, H, G, D, which, dtype, offset, dev, 2)
     cos, sin = _randn((T, D), dtype, dev, 3), _randn((T, D), dtype, dev, 4)
+    before = fusedex.apply_rope.launches
     got = fusedex.apply_rope(x, cos, sin)
     torch.cuda.synchronize()
+    assert fusedex.apply_rope.launches == before + 1
     want = fusedex.rope_plain(x, cos, sin)
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
     _assert_rows_close(got, want, 1)
+
+
+@pytest.mark.parametrize("which", ["q", "contiguous"])
+def test_rope_replays_in_a_cuda_graph(dev, which):
+    """Rope captured in a CUDA graph and replayed on new inputs copied into
+    the captured buffers gives the eager call's bits, three times over: the
+    path's strided q view with sin, and the backward's contiguous input with
+    -sin."""
+    from thunder_tpu_torch.executors import fusedex
+
+    B, T, H, D = 2, 2048, 32, 100
+    x = _rope_input(B, T, H, H, D, which, torch.bfloat16, 0, dev, 40)
+    cos, sin = _randn((T, D), torch.bfloat16, dev, 41), _randn((T, D), torch.bfloat16, dev, 42)
+    if which == "contiguous":
+        sin = -sin
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fusedex.apply_rope(x, cos, sin)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fusedex.apply_rope(x, cos, sin)
+    for seed in (43, 44, 45):
+        x.copy_(_rope_input(B, T, H, H, D, which, torch.bfloat16, 0, dev, seed))
+        cos.copy_(_randn((T, D), torch.bfloat16, dev, seed + 10))
+        graph.replay()
+        assert torch.equal(out, fusedex.apply_rope(x, cos, sin))
 
 
 @pytest.mark.parametrize(
@@ -317,6 +392,9 @@ def test_ce_bwd_refuses_a_device_mix(dev):
 # fewer rows than blocks (1, 5), a ragged last round of row groups (4097),
 # rows 4-byte aligned only (1002: 4-byte loads from device memory), and
 # 60000, too wide for one ring slot (and, in the forward, for shared memory).
+# The forward's plans (normex.fwd_plan): rows in registers in 16-byte units
+# (1, 4 and 8 warps a row), 4-byte units (1002) and one element (1001);
+# 16384 takes a block a row, 60000 a block a row read twice.
 _NORM_SHAPES = [
     (4096, 3200, torch.bfloat16, False, False),
     (4096, 1024, torch.bfloat16, True, True),
@@ -464,6 +542,44 @@ def test_norm_bwd_replays_in_a_cuda_graph(dev, N, D, layer_norm):
         graph.replay()
         want = bwd(ng, nx, nw)
         assert all(torch.equal(p, q) for p, q in zip(out, want))
+
+
+@pytest.mark.parametrize("N,D,layer_norm", [(4096, 1024, True), (4096, 3200, False), (16, 16384, False)])
+def test_norm_fwd_is_reproducible(dev, N, D, layer_norm):
+    """The forward has the same bits every run, at both path shapes and on
+    the block-a-row route (16384)."""
+    from thunder_tpu_torch.executors import normex
+
+    x, w, b, _ = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, 46)
+    fwd = (lambda: normex.layer_norm_fwd(x, w, b, 1e-5)) if layer_norm else (lambda: normex.rms_norm_fwd(x, w))
+    assert torch.equal(fwd(), fwd())
+
+
+@pytest.mark.parametrize("N,D,layer_norm", [(4096, 1024, True), (4096, 3200, False), (16, 16384, False)])
+def test_norm_fwd_replays_in_a_cuda_graph(dev, N, D, layer_norm):
+    """A forward captured in a CUDA graph and replayed on new inputs copied
+    into the captured buffers gives the eager call's bits, three times over."""
+    from thunder_tpu_torch.executors import normex
+
+    def fwd(x, w, b):
+        return normex.layer_norm_fwd(x, w, b, 1e-5) if layer_norm else normex.rms_norm_fwd(x, w)
+
+    x, w, b, _ = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, 47)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd(x, w, b)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fwd(x, w, b)
+    for seed in (48, 49, 50):
+        nx, nw, nb, _ = _norm_inputs(N, D, torch.bfloat16, layer_norm, dev, seed)
+        x.copy_(nx), w.copy_(nw)
+        if b is not None:
+            b.copy_(nb)
+        graph.replay()
+        assert torch.equal(out, fwd(nx, nw, nb))
 
 
 def test_norm_refuses_a_device_mix_and_mixed_types(dev):

@@ -16,6 +16,8 @@ that rounding: 1e-5 of the vector's largest |value| against the JAX
 package's f32 result.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -258,3 +260,51 @@ def test_align_takes_the_largest_common_divisor_of_offsets_and_pointers():
     assert normex._align(1024, buf[start + 2:start + 2 + 4096].view(4, 1024)) == 4
     assert normex._align(1024, buf[start + 1:start + 1 + 4096].view(4, 1024)) == 1
     assert normex._align(1024, x, None) == 16
+
+
+# (N, D, elem_size, sm_count, align, blocks_per_sm) -> (mode, unit, warps a
+# row, groups, ctas): every _NORM_SHAPES width of the card tests, and the
+# widths beyond 8 warps' registers. One warp a row at pythia-410m's 1024
+# (four 16-byte units a lane), four at open_llama_3b's 3200; the grid is
+# the blocks the SMs hold at once (the LayerNorm kernel's registers allow
+# one 8-warp block an SM, the RMSNorm kernel's two).
+_FWD_PLANS = [
+    ((4096, 3200, 2, 132, 16, 2), ("rows", 8, 4, 2, 264)),  # open_llama_3b's RMSNorm
+    ((4096, 1024, 2, 132, 16, 1), ("rows", 8, 1, 8, 132)),  # pythia-410m's LayerNorm
+    ((4096, 1024, 2, 114, 16, 1), ("rows", 8, 1, 8, 114)),  # the grid follows the SMs
+    ((33, 1000, 2, 132, 16, 1), ("rows", 8, 1, 8, 5)),
+    ((17, 1001, 2, 132, 1, 1), ("rows", 1, 1, 8, 3)),  # an odd D in bf16: one element
+    ((7, 384, 4, 132, 16, 1), ("rows", 4, 1, 8, 1)),
+    ((5, 2600, 4, 132, 16, 1), ("rows", 4, 4, 2, 3)),
+    ((16, 16384, 2, 132, 16, 1), ("block", 8, 8, 1, 16)),  # wider than 8 warps' registers
+    ((64, 4544, 2, 132, 16, 1), ("rows", 8, 8, 1, 64)),  # falcon-7b
+    ((64, 5120, 2, 132, 16, 2), ("rows", 8, 8, 1, 64)),
+    ((1, 1024, 2, 132, 16, 1), ("rows", 8, 1, 8, 1)),
+    ((5, 3200, 2, 132, 16, 2), ("rows", 8, 4, 2, 3)),
+    ((4097, 1024, 2, 132, 16, 1), ("rows", 8, 1, 8, 132)),
+    ((33, 1002, 2, 132, 4, 1), ("rows", 2, 1, 8, 5)),  # rows 4-byte aligned only
+    ((64, 1024, 2, 132, 1, 1), ("rows", 1, 1, 8, 8)),  # an unaligned base pointer
+    ((3, 60000, 2, 132, 16, 1), ("stream", 8, 8, 1, 3)),  # too wide for shared memory as f32
+    ((8, 8192, 2, 132, 16, 1), ("rows", 8, 8, 1, 8)),  # the widest row in registers
+    ((8, 8200, 2, 132, 16, 1), ("block", 8, 8, 1, 8)),
+    ((4, 60000, 2, 132, 4, 1), ("stream", 1, 8, 1, 4)),
+    ((0, 1024, 2, 132, 16, 1), ("rows", 8, 1, 8, 1)),  # no rows: the C side launches nothing
+]
+
+
+@pytest.mark.parametrize("args,want", _FWD_PLANS)
+def test_fwd_launch_plan(args, want):
+    plan = normex.fwd_plan(*args)
+    assert (plan.mode, plan.unit, plan.warps_per_row, plan.groups, plan.ctas) == want
+    N, D, size, sm_count, align, per_sm = args
+    assert plan.groups * plan.warps_per_row == 8 and D % plan.unit == 0
+    if plan.mode == "rows":  # a lane holds at most 32 columns; one wave of blocks
+        assert math.ceil(D / plan.unit / (32 * plan.warps_per_row)) * plan.unit <= 32
+        assert plan.ctas <= sm_count * per_sm and plan.unit * size in (16, 4, size)
+    else:
+        assert plan.unit in (1, 16 // size) and (plan.mode == "stream") == (D * 4 > 232448)
+
+
+@pytest.mark.parametrize("size,align,unit", [(2, 16, 8), (2, 4, 2), (2, 1, 1), (4, 16, 4), (4, 4, 1), (4, 1, 1)])
+def test_fwd_unit_is_the_widest_load_the_rows_allow(size, align, unit):
+    assert normex.fwd_unit(size, align) == unit

@@ -24,9 +24,28 @@
 //   and writes dx: 78.6 MB (23.5 us) and 25.2 MB (7.5 us). The arithmetic,
 //   a few operations per element, is far below the card's rate.
 //
-// Forward: one block of 256 threads per row, the row cached in shared memory
-//   as f32; a row too wide for shared memory (D * 4 bytes above what a block
-//   may ask for) is read from device memory again instead.
+// Forward: the bound is bytes, so the design keeps rows in flight with little
+//   work a byte (normex.fwd_plan picks the route, its constants mirror these).
+//   - A row in registers. A group of `wpr` warps takes a row (one warp at
+//     pythia-410m's D = 1024 bf16: 32 lanes x four 16-byte units; four warps
+//     at open_llama_3b's 3200); a lane holds at most 32 columns. Row sums are
+//     warp shuffles, and a group of several warps adds its warps' sums after
+//     a named barrier of the group only. No shared-memory copy of the row,
+//     no whole-block barrier.
+//   - A persistent grid of `ctas` blocks of 8 warps, one wave: as many
+//     blocks as the SMs hold at once (thunder_norm_fwd_blocks_per_sm says how
+//     many the kernel's registers allow: one at LayerNorm's 159 a thread, two
+//     at RMSNorm's 119). Group j of all blocks walks rows j, j + groups, ...
+//     Each group loads its weight (and bias) once into registers, and loads
+//     its next row while it reduces the current one, so two rows a group are
+//     in flight. The passes are branch-free: units past the row's end hold
+//     zeros.
+//   - Rows too wide for 8 warps' registers take a block a row, the row cached
+//     in shared memory as f32 (`norm_fwd_kernel_block`), or, too wide for
+//     shared memory, read from device memory again (its STREAM route).
+//   Replaced design (kept for those widths): a block of 256 threads a row
+//   (half of them idle at D = 1024 bf16), the row written to shared memory
+//   and read back, two whole-block barriers a row sum.
 //
 // Backward: the bound is bytes, so the design keeps rows in flight and the
 //   per-row work short.
@@ -104,7 +123,7 @@ __device__ __forceinline__ void store_vec(T* p, const float in[VEC]) {
 }
 
 // =============================================================================
-// Forward
+// Forward, a block a row (wide rows)
 // =============================================================================
 
 // The sum of v over the block, the same bits in every thread: the xor
@@ -142,11 +161,12 @@ __device__ __forceinline__ float2 row_stats(const Row& row, float partial, int D
   return make_float2(mu, rsqrtf(block_sum(s2, red) / D + eps));
 }
 
-// STREAM: the row is read from device memory on each pass instead of being
-// cached in shared memory (rows wider than a block's shared memory).
+// A block a row, for rows too wide for norm_fwd_kernel's registers. STREAM:
+// the row is read from device memory on each pass instead of being cached in
+// shared memory (rows wider than a block's shared memory).
 template <typename T, int VEC, bool LN, bool STREAM>
 __global__ void __launch_bounds__(NTHREADS)
-    norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+    norm_fwd_kernel_block(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
                     T* __restrict__ y, int D, float eps) {
   extern __shared__ float xs[];  // D floats: this row of x in f32 (not STREAM)
   __shared__ float red[NWARPS];
@@ -308,6 +328,124 @@ struct GroupSum {
     }
   }
 };
+
+// =============================================================================
+// Forward, rows in registers
+// =============================================================================
+
+enum FwdMode : int { kRows = 0, kBlock = 1, kStream = 2 };
+
+// A unit of U elements as it lies in memory: 16 bytes, or (load_raw) 4 bytes
+// or one 2-byte element in 32 bits.
+template <typename T, int U>
+using Raw = std::conditional_t<U * sizeof(T) == 16, uint4, uint32_t>;
+
+template <typename T, int U>
+__device__ __forceinline__ Raw<T, U> load_any(const T* p) {
+  if constexpr (U * sizeof(T) == 16) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    return load_raw<T, U>(p);
+  }
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void unpack_any(const Raw<T, U>& raw, float* out) {
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < U; ++e) out[e] = to_float(v[e]);
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void store_any(T* p, const float* in) {
+  if constexpr (U * sizeof(T) == 16) {
+    store_vec<T, U>(p, in);
+  } else {
+    store_unit<T, U>(p, in);
+  }
+}
+
+// Row groups of `wpr` warps on a persistent grid; a lane owns units gt,
+// gt + 32 * wpr, ... (K at most) of every row it visits, holds the weight's
+// and bias's in registers, and loads its group's next row while it reduces
+// the current one.
+template <typename T, int U, bool LN>
+__global__ void __launch_bounds__(NTHREADS)
+    norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+                    T* __restrict__ y, int N, int D, int wpr, float eps) {
+  constexpr int K = LANE_COLS / U;
+  using R = Raw<T, U>;
+  __shared__ float2 red[2 * NWARPS];
+  const int tg = 32 * wpr, groups = NWARPS / wpr;
+  const int grp = threadIdx.x / tg, gt = threadIdx.x % tg;
+  const int nunits = D / U;
+  GroupSum gsum{red + grp * 2 * (wpr > 1 ? wpr : 0), wpr, gt / 32, gt % 32, 1 + grp, 0};
+  const int first = blockIdx.x * groups + grp, stride = gridDim.x * groups;
+
+  R xq[K], nq[K], wq[K], bq[K];
+  auto load_row = [&](int row, R(&q)[K]) {
+    const T* xr = x + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = gt + k * tg;
+      q[k] = u < nunits ? load_any<T, U>(xr + u * U) : R{};
+    }
+  };
+  if (first < N) load_row(first, xq);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int u = gt + k * tg;
+    wq[k] = u < nunits ? load_any<T, U>(w + u * U) : R{};
+    bq[k] = LN && b != nullptr && u < nunits ? load_any<T, U>(b + u * U) : R{};
+  }
+
+  for (int row = first; row < N; row += stride) {
+    if (row + stride < N) load_row(row + stride, nq);
+    float xf[K * U], s1[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      unpack_any<T, U>(xq[k], &xf[k * U]);
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        const float v = xf[k * U + e];
+        s1[(k * U + e) & 1] += LN ? v : v * v;
+      }
+    }
+    float mu = 0.f, rstd;
+    if constexpr (LN) {
+      mu = gsum(make_float2(s1[0] + s1[1], 0.f)).x / D;
+      float s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const bool in = gt + k * tg < nunits;
+#pragma unroll
+        for (int e = 0; e < U; ++e) {
+          const float d = in ? xf[k * U + e] - mu : 0.f;
+          s2[(k * U + e) & 1] += d * d;
+        }
+      }
+      rstd = rsqrtf(gsum(make_float2(s2[0] + s2[1], 0.f)).x / D + eps);
+    } else {
+      rstd = rsqrtf(gsum(make_float2(s1[0] + s1[1], 0.f)).x / D + eps);
+    }
+    T* yr = y + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = gt + k * tg;
+      float wv[U], bv[U], out[U];
+      unpack_any<T, U>(wq[k], wv);
+      unpack_any<T, U>(bq[k], bv);
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        out[e] = (xf[k * U + e] - mu) * rstd * wv[e];
+        if (LN) out[e] += bv[e];
+      }
+      if (u < nunits) store_any<T, U>(yr + u * U, out);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) xq[k] = nq[k];
+  }
+}
 
 // The four passes over one row held at xr, gr (shared or device memory),
 // for rows too wide for registers: the statistics, then m1 and m2, then dx
@@ -659,18 +797,41 @@ int allow_smem(K kernel, size_t bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// The register route's kernel for a unit of `unit` elements (V: 16 bytes,
+// W: 4 bytes, or 1), or null.
 template <typename T, bool LN>
-int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int vec,
-               cudaStream_t stream) {
+auto fwd_rows_kernel(int unit) -> decltype(&norm_fwd_kernel<T, 1, LN>) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int W = sizeof(T) < 4 ? static_cast<int>(4 / sizeof(T)) : 1;
+  return unit == V ? norm_fwd_kernel<T, V, LN> : unit == W ? norm_fwd_kernel<T, W, LN>
+                                               : unit == 1 ? norm_fwd_kernel<T, 1, LN> : nullptr;
+}
+
+template <typename T, bool LN>
+int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int mode, int unit,
+               int wpr, int ctas, cudaStream_t stream) {
   if (N == 0) return 0;
   constexpr int V = 16 / sizeof(T);
-  const bool stream_rows = static_cast<size_t>(D) * sizeof(float) > MAX_SMEM;
-  auto kernel = stream_rows ? (vec ? norm_fwd_kernel<T, V, LN, true> : norm_fwd_kernel<T, 1, LN, true>)
-                            : (vec ? norm_fwd_kernel<T, V, LN, false> : norm_fwd_kernel<T, 1, LN, false>);
+  const T *xt = static_cast<const T*>(x), *wt = static_cast<const T*>(w), *bt = static_cast<const T*>(b);
+  T* yt = static_cast<T*>(y);
+  if (mode == kRows) {
+    auto kernel = fwd_rows_kernel<T, LN>(unit);
+    if (kernel == nullptr || ctas < 1 || wpr < 1 || wpr > NWARPS || NWARPS % wpr != 0 || D % unit != 0 ||
+        (D / unit + 32 * wpr - 1) / (32 * wpr) > LANE_COLS / unit)
+      return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<ctas, NTHREADS, 0, stream>>>(xt, wt, bt, yt, N, D, wpr, eps);
+    return thunder::launch_status();
+  }
+  if ((mode != kBlock && mode != kStream) || (unit != V && unit != 1) || D % unit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool stream_rows = mode == kStream;
+  auto kernel = stream_rows
+                    ? (unit == V ? norm_fwd_kernel_block<T, V, LN, true> : norm_fwd_kernel_block<T, 1, LN, true>)
+                    : (unit == V ? norm_fwd_kernel_block<T, V, LN, false> : norm_fwd_kernel_block<T, 1, LN, false>);
   const size_t smem = stream_rows ? 0 : static_cast<size_t>(D) * sizeof(float);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<N, NTHREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                        static_cast<const T*>(b), static_cast<T*>(y), D, eps);
+  kernel<<<N, NTHREADS, smem, stream>>>(xt, wt, bt, yt, D, eps);
   return thunder::launch_status();
 }
 
@@ -713,12 +874,12 @@ int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw,
 }
 
 template <bool LN>
-int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int dtype,
-                 int vec, cudaStream_t s) {
+int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int dtype, int mode,
+                 int unit, int wpr, int ctas, cudaStream_t s) {
   switch (dtype) {
-    case thunder::kBF16: return launch_fwd<__nv_bfloat16, LN>(x, w, b, y, N, D, eps, vec, s);
-    case thunder::kF16: return launch_fwd<__half, LN>(x, w, b, y, N, D, eps, vec, s);
-    case thunder::kF32: return launch_fwd<float, LN>(x, w, b, y, N, D, eps, vec, s);
+    case thunder::kBF16: return launch_fwd<__nv_bfloat16, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
+    case thunder::kF16: return launch_fwd<__half, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
+    case thunder::kF32: return launch_fwd<float, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -742,11 +903,38 @@ int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* d
 }  // namespace
 
 // layer_norm = 0: RMSNorm (b is ignored); 1: LayerNorm (b may be null).
+// mode 0: row groups of `wpr` warps on `ctas` blocks, loading `unit`
+// elements at once (16 bytes, 4 bytes or 1); mode 1: a block a row, the row
+// cached in shared memory; mode 2: a block a row, read twice (unit 16 bytes
+// or 1 in modes 1 and 2; wpr and ctas unused).
 extern "C" int thunder_norm_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps,
-                                int layer_norm, int dtype, int vec, void* stream) {
+                                int layer_norm, int dtype, int mode, int unit, int wpr, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return layer_norm ? dispatch_fwd<true>(x, w, b, y, N, D, eps, dtype, vec, s)
-                    : dispatch_fwd<false>(x, w, nullptr, y, N, D, eps, dtype, vec, s);
+  return layer_norm ? dispatch_fwd<true>(x, w, b, y, N, D, eps, dtype, mode, unit, wpr, ctas, s)
+                    : dispatch_fwd<false>(x, w, nullptr, y, N, D, eps, dtype, mode, unit, wpr, ctas, s);
+}
+
+// How many blocks of the register route's kernel (layer_norm, dtype, unit as
+// in thunder_norm_fwd) an SM holds at once, or a negative CUDA error.
+extern "C" int thunder_norm_fwd_blocks_per_sm(int layer_norm, int dtype, int unit) {
+  auto occupancy = [](auto kernel) {
+    int n = 0;
+    if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NTHREADS, 0);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  };
+  switch (dtype) {
+    case thunder::kBF16:
+      return layer_norm ? occupancy(fwd_rows_kernel<__nv_bfloat16, true>(unit))
+                        : occupancy(fwd_rows_kernel<__nv_bfloat16, false>(unit));
+    case thunder::kF16:
+      return layer_norm ? occupancy(fwd_rows_kernel<__half, true>(unit))
+                        : occupancy(fwd_rows_kernel<__half, false>(unit));
+    case thunder::kF32:
+      return layer_norm ? occupancy(fwd_rows_kernel<float, true>(unit))
+                        : occupancy(fwd_rows_kernel<float, false>(unit));
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Two launches: the row kernel on `ctas` blocks of 8 warps in row groups of

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -38,10 +39,11 @@ _c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_lon
 _SIGNATURES = {
     "thunder_flash_fwd": [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float] + [_c_int] * 4 + [_c_void_p],
     "thunder_flash_bwd": [_c_void_p] * 12 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float] + [_c_int] * 4 + [_c_void_p],
-    "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int, _c_void_p],
+    "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int] * 9 + [_c_void_p],
     "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
-    "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 3 + [_c_void_p],
+    "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 6 + [_c_void_p],
+    "thunder_norm_fwd_blocks_per_sm": [_c_int] * 3,
     "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float] + [_c_int] * 2 + [_c_void_p],
 }
 
@@ -170,6 +172,20 @@ def launch_counts() -> dict[tuple[str, str], int]:
 def add_launches(counts: dict[tuple[str, str], int]) -> None:
     for (mod, name), n in counts.items():
         getattr(sys.modules[mod], name).launches += n
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ptr_align(*ts) -> int:
+    """The largest of 16, 8, 4, 2 and 1 bytes that divides every base pointer
+    (``None`` is skipped)."""
+    return next(a for a in (16, 8, 4, 2, 1) if all(t is None or t.data_ptr() % a == 0 for t in ts))
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -28,6 +28,8 @@ runs the plain PyTorch version beside it.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from thunder_tpu_torch.core import dtypes
@@ -52,6 +54,87 @@ def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos.float() + rotated * sin.float()).to(x.dtype)
 
 
+# The rope kernel's launch plan; the constants are those of csrc/rope.cu.
+_ROPE_TILE_BYTES = 4096  # bytes of one head's tile of x (rows of t), at most
+_ROPE_HEADS = 32  # heads a block walks, at most
+_ROPE_STAGE = 8  # heads a stage (two stages of x in shared memory)
+_ROPE_MIN_BLOCKS = 1  # blocks an SM at least, before heads a block are cut
+_MAX_SMEM = 232448  # shared memory a block may ask for on sm_90
+
+
+@dataclass(frozen=True)
+class RopePlan:
+    """How ``rope_kernel`` (csrc/rope.cu) walks x (B, H, T, D):
+
+    - ``rows``, ``heads``: a block's tile of t (a power of two) and the
+      group of heads it walks, in stages of ``stage`` heads, two of them in
+      shared memory at once; ``grid`` is (tiles of t, head groups, B);
+    - ``load``: bytes of each copy of x into shared memory (16, 8, 4, or
+      the element size), ``flat``: a head's rows lie back to back, so its
+      tile is copied as one run;
+    - ``vec``: elements a thread computes and stores at once (16 bytes, or
+      1), ``pair``: elements of the partner half read at once;
+    - ``direct``: a row too wide for shared memory, read from device memory
+      one element at a time (``rows`` = ``heads`` = ``vec`` = 1);
+    - ``smem``: dynamic shared memory a block (cos, sin and two stages), bytes.
+    """
+
+    rows: int
+    heads: int
+    stage: int
+    load: int
+    flat: bool
+    vec: int
+    pair: int
+    direct: bool
+    grid: tuple[int, int, int]
+    smem: int
+
+
+def rope_plan(B: int, H: int, T: int, D: int, elem_size: int, strides: tuple[int, int, int], align: int,
+              sm_count: int, table_align: int = 16) -> RopePlan:
+    """The rope kernel's plan for x (B, H, T, D) of ``elem_size``-byte
+    elements with element strides ``strides`` (b, h, t) whose base pointer
+    ``align`` (a power of two up to 16) divides; ``table_align`` divides the
+    base pointers of cos, sin and the output. A head's tile is the most rows
+    (a power of two) that fit ``_ROPE_TILE_BYTES`` and shared memory; a
+    block walks the largest divisor of H up to ``_ROPE_HEADS`` (fewer while
+    the grid has under ``_ROPE_MIN_BLOCKS`` blocks an SM); every width is
+    the widest that the pointers, strides and lengths allow."""
+    es, row = elem_size, D * elem_size
+    if (2 + 2) * row > _MAX_SMEM:  # cos, sin and two stages of one row
+        return RopePlan(1, 1, 1, es, False, 1, 1, True, (T, H, B), 0)
+    rows = 1 << max(0, min(_ROPE_TILE_BYTES // row, 1 << max(0, T - 1).bit_length()).bit_length() - 1)
+    tile = rows * row
+    heads = max(d for d in range(1, min(H, _ROPE_HEADS) + 1) if H % d == 0)
+    blocks = lambda hg: B * -(-T // rows) * -(-H // hg)  # noqa: E731
+    while heads > 1 and blocks(heads) < _ROPE_MIN_BLOCKS * sm_count:
+        heads = -(-heads // 2)
+    stage = min(heads, _ROPE_STAGE, (_MAX_SMEM // tile - 2) // 2)
+    # A head's output tile, and the (rows, D) slice of cos and sin, start on
+    # 16 bytes when every tile and every head does.
+    vec = 16 // es if table_align % 16 == 0 and tile % 16 == 0 and (T * row) % 16 == 0 else 1
+    pair = next(p for p in (8, 4, 2, 1) if p <= vec and (D // 2) % p == 0)
+    sb, sh, st = strides
+    flat = st == D or T == 1
+    # Each copy's unit divides the base pointer, every stride of a dimension
+    # with more than one index, and the runs: a row, or a flat tile (the last
+    # one ragged) and the offset between tiles.
+    used = [s for s, n in ((sb, B), (sh, H)) if n > 1] + ([] if flat else [st])
+    runs = [rows * D, (T % rows) * D] if flat else [D]
+    load = next((u for u in (16, 8, 4) if u >= es and align % u == 0
+                 and all(s * es % u == 0 for s in used) and all(n * es % u == 0 for n in runs)), es)
+    grid = (-(-T // rows), -(-H // heads), B)
+    return RopePlan(rows, heads, stage, load, flat, vec, pair, False, grid, (2 + 2 * stage) * tile)
+
+
+def rope_plan_of(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, out: torch.Tensor) -> RopePlan:
+    """The plan for x (B, H, T, D), cos and sin (contiguous) and out on their CUDA device."""
+    B, H, T, D = x.shape
+    return rope_plan(B, H, T, D, x.element_size(), x.stride()[:3], _build.ptr_align(x),
+                     _build.sm_count(x.device.index), _build.ptr_align(cos, sin, out))
+
+
 @_build.counted
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half rope of x (B, H, T, D) with cos/sin (T, D). x may be a
@@ -68,11 +151,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x = x if x.stride(-1) == 1 else x.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
     out = torch.empty((B, H, T, D), dtype=x.dtype, device=x.device)
+    plan = rope_plan_of(x, cos, sin, out)
     lib = _build.lib()
     with torch.cuda.device(x.device):
         status = lib.thunder_rope(
-            x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B, H, T, D,
-            *x.stride()[:3], _build.dtype_code(x), _build.stream_of(x),
+            x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B, H, T, D, *x.stride()[:3],
+            plan.rows, plan.heads, plan.stage, plan.load, plan.vec, plan.pair, int(plan.flat), int(plan.direct),
+            _build.dtype_code(x), _build.stream_of(x),
         )
     _build.check(status, "rope")
     apply_rope.launches += 1

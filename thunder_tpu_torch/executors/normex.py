@@ -105,6 +105,62 @@ def bwd_plan(N: int, D: int, elem_size: int, layer_norm: bool, sm_count: int, al
 _MODES = {"ring": 0, "direct": 1, "scalar": 2}
 
 
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward walks the rows (csrc/norm.cu):
+
+    - ``mode``: "rows" (``norm_fwd_kernel``: a row in the registers of a
+      group of ``warps_per_row`` warps, ``groups`` of them a block, on a
+      persistent grid of ``ctas`` blocks), "block" (``norm_fwd_kernel_block``:
+      a block a row, the row cached in shared memory as f32) or "stream"
+      (a block a row, read from device memory twice);
+    - ``unit``: elements of each load and store (16 bytes, 4 bytes or one).
+    """
+
+    mode: str
+    unit: int
+    warps_per_row: int
+    groups: int
+    ctas: int
+
+
+def fwd_unit(elem_size: int, align: int) -> int:
+    """Elements of the register route's loads: 16 bytes, 4 bytes or one."""
+    return 16 // elem_size if align >= 16 else max(1, 4 // elem_size) if align >= 4 else 1
+
+
+def fwd_plan(N: int, D: int, elem_size: int, sm_count: int, align: int, blocks_per_sm: int) -> FwdPlan:
+    """The forward's plan for N rows of D elements of ``elem_size`` bytes on
+    a card of ``sm_count`` SMs, ``align`` (16, 4 or 1) as in ``bwd_plan``,
+    where an SM holds ``blocks_per_sm`` blocks of the register route's
+    kernel at once (its register count decides; csrc/norm.cu reports it). A
+    row group is the fewest warps (1, 2, 4, 8) whose lanes hold at most 32
+    columns each, in units of ``fwd_unit``; the grid is one wave, every
+    block resident at once, so each group walks its rows with the next one
+    in flight. A row wider than 8 warps' registers takes a block, "stream"
+    when its f32 copy would not fit in shared memory."""
+    unit = fwd_unit(elem_size, align)
+    nunits = D // unit
+    wpr = next((w for w in (1, 2, 4, 8) if math.ceil(nunits / (32 * w)) <= _LANE_COLS // unit), None)
+    if wpr is None:
+        mode = "stream" if D * 4 > _MAX_SMEM else "block"
+        return FwdPlan(mode, 16 // elem_size if align >= 16 else 1, _WARPS, 1, N)
+    groups = _WARPS // wpr
+    return FwdPlan("rows", unit, wpr, groups, max(1, min(math.ceil(N / groups), sm_count * blocks_per_sm)))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_blocks_per_sm(layer_norm: bool, dtype_code: int, unit: int) -> int:
+    """Blocks of the register route's kernel that an SM holds at once."""
+    n = _build.lib().thunder_norm_fwd_blocks_per_sm(int(layer_norm), dtype_code, unit)
+    if n < 1:
+        raise RuntimeError(f"norm forward: no block of the register route fits an SM (CUDA error {-n})")
+    return n
+
+
+_FWD_MODES = {"rows": 0, "block": 1, "stream": 2}
+
+
 # =============================================================================
 # Plain versions
 # =============================================================================
@@ -178,9 +234,15 @@ def _align(D: int, *ts: Optional[torch.Tensor]) -> int:
         t is None or (D * t.element_size() % a == 0 and t.data_ptr() % a == 0) for t in ts))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def fwd_plan_of(x2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], y: torch.Tensor,
+                layer_norm: bool) -> FwdPlan:
+    """The forward's plan for rows x2 (N, D), weight, bias and output y on
+    their CUDA device."""
+    D = x2.shape[-1]
+    align = _align(D, x2, w, b, y)
+    with torch.cuda.device(x2.device):
+        per_sm = fwd_blocks_per_sm(layer_norm, _build.dtype_code(x2), fwd_unit(x2.element_size(), align))
+    return fwd_plan(x2.shape[0], D, x2.element_size(), _build.sm_count(x2.device.index), align, per_sm)
 
 
 def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> torch.Tensor:
@@ -189,11 +251,13 @@ def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> t
     x2 = x.reshape(-1, D).contiguous()
     w, b = weight.contiguous(), None if bias is None else bias.contiguous()
     y = torch.empty_like(x2)
+    plan = fwd_plan_of(x2, w, b, y, layer_norm)
     lib = _build.lib()
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_fwd(
             x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), x2.shape[0], D,
-            float(eps), int(layer_norm), _build.dtype_code(x), int(_align(D, x2, w, b, y) == 16), _build.stream_of(x),
+            float(eps), int(layer_norm), _build.dtype_code(x), _FWD_MODES[plan.mode], plan.unit,
+            plan.warps_per_row, plan.ctas, _build.stream_of(x),
         )
     _build.check(status, kernel)
     return y.reshape(x.shape)
@@ -207,7 +271,7 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
     x2, g2, w = x.reshape(-1, D).contiguous(), g.reshape(-1, D).contiguous(), weight.contiguous()
     N = x2.shape[0]
     dx = torch.empty_like(x2)
-    plan = bwd_plan(N, D, x.element_size(), layer_norm, _sm_count(x.device.index), _align(D, g2, x2, w, dx))
+    plan = bwd_plan(N, D, x.element_size(), layer_norm, _build.sm_count(x.device.index), _align(D, g2, x2, w, dx))
     f32 = dict(dtype=torch.float32, device=x.device)
     dw, dw_part = torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)
     db, db_part = (torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)) if with_bias else (None, None)
