@@ -61,15 +61,32 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    executor alone for the valid rows' logits, the loss and every gradient,
    then with the masked kernels ignoring the padding, which must fail; and
    an ALiBi-like bias, which must take the exact branch;
-11. runs the stand-in at full depth (26 layers) on that padded batch: the
-   forward without grad, the all-ones mask (the value guard's second
-   entry), 3 ``torch.optim.SGD`` steps with a falling loss, launches checked
-   against the claimed traces, and one profiled forward and step (the
-   module frontend runs unstaged);
+11. runs the stand-in at full depth (26 layers) on that padded batch, its
+   forward and backward staged as a CUDA graph each (the mask verdict taken
+   when the entry compiles and held by its value guard, one host read a
+   call): the forward without grad, the all-ones mask (the value guard's
+   second entry), 3 ``torch.optim.SGD`` steps with a falling loss, launches
+   checked against the claimed traces; then the staged module against the
+   same module jitted with ``disable_jit_staging=True`` from the same state
+   (forward logits, a step's loss and grads, ``torch.equal``; enqueue ms and
+   a step's peak memory both ways), and one profiled forward and step each
+   way;
 12. runs 3 staged open_llama_3b training steps under
    ``THUNDER_FLASH_IMPL=legacy``: the legacy route's launches (row 10)
    against the claimed traces, the losses against phase 6's splash route;
-13. prints one JSON line describing every kernel, then the device line.
+13. trains open_llama_3b in mixed precision: f32 weights from the seed,
+   ``value_and_grad(loss_fn, autocast="bfloat16")`` and the f32 SGD update
+   of ``parallel.train.sgd_update``: the 2-layer cut against the torch
+   executor (phase 4's limits), then 26 layers, 3 steps unstaged and 3
+   staged as one CUDA graph from the same state, launches against the
+   trace (rope on f32 rows), losses bit-equal, s/step, enqueue, peak memory
+   beside phase 6's bf16 step;
+14. checks the keyed draw kernel (``csrc/rng.cu``) against its plain
+   version at (2, 2048, 3200) and (4096, 32000), bf16 and f32, bit-equal,
+   timed with its bound; then a staged ``jit(F.dropout(x, 0.1))`` on
+   (2, 2048, 3200) bf16: a fresh mask each replay, staged equal to
+   unstaged after ``seed``, the keep rate within 5 sigma of its expectation;
+15. prints one JSON line describing every kernel, then the device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -93,6 +110,12 @@ from torch import nn
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+# 32-bit integer operations a second: 132 SMs x 128 lanes (the integer ALU
+# and the FMA pipe, which also issues integer adds) x the 1.98 GHz boost
+# clock of the 67 TFLOP/s f32 rate; the most the card issues.
+PEAK_INT32_OPS = 132 * 128 * 1.98e9
+# threefry-2x32's 32-bit integer operations per element drawn (csrc/rng.cu).
+RNG_OPS_PER_ELEMENT = 76
 
 CFG_NAME = "open_llama_3b"
 SEQ = 2048
@@ -1096,9 +1119,9 @@ def check_legacy_kernels(cfg, rows: dict) -> None:
 def _wrappers() -> dict:
     """Each kernel's wrapper by row name. The rope backward is the rope
     kernel's wrapper: its launches are those made during a backward."""
-    from thunder_tpu_torch.executors import flashex, fusedex, normex
+    from thunder_tpu_torch.executors import flashex, fusedex, normex, rngex
 
-    return {"flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
+    return {"rng_draw": rngex.draw, "flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
             "ce_fwd": fusedex.cross_entropy_rows, "flash_fwd_lse": flashex.flash_attention_fwd_lse,
             "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd,
             "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
@@ -1414,7 +1437,7 @@ def run_train(cfg, launches: dict) -> list:
     staged = run_staged_train(tr, initial, {**per_fw, "rope": per_fw["rope"] + per_bw["rope_bwd"],
                                             "flash_bwd": per_bw["flash_bwd"], "ce_bwd": per_bw["ce_bwd"]}, launches)
     compare_staging(f"train B={LOSS_BATCH} T={SEQ}", eager, staged)
-    return eager_losses
+    return eager_losses, staged
 
 
 def run_staged_train(tr, initial: list, per_step: dict, launches: dict) -> dict:
@@ -1836,6 +1859,7 @@ def run_llama(launches: dict) -> None:
     profiled forward and step (``profile_gpt.profile_call``)."""
     import thunder_tpu_torch as tt
     from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.core.concrete import check_value_guards
     from thunder_tpu_torch.executors import flashex
 
     gc.collect()
@@ -1859,7 +1883,7 @@ def run_llama(launches: dict) -> None:
     def drive(label, mask, per_call, calls):
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
-        reads0 = flashex.mask_plan.host_reads
+        reads0, guards0 = flashex.mask_plan.host_reads, check_value_guards.host_reads
         times = []
         for _ in range(calls):
             t = time.perf_counter()
@@ -1868,26 +1892,29 @@ def run_llama(launches: dict) -> None:
             times.append(time.perf_counter() - t)
         counts = _launch_counts()
         reads = flashex.mask_plan.host_reads - reads0
+        guard_reads = check_value_guards.host_reads - guards0
         log(f"  {label}: first call {times[0]:.3f} s, then {', '.join(f'{x:.4f}' for x in times[1:])} s/call; "
-            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mask verdicts read "
-            f"{reads}; launches {counts}")
+            f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; masks read {reads}, "
+            f"value-guard reads {guard_reads}; launches {counts}")
+        require(reads == 0, f"{label}: a mask was read on the host {reads} times; its verdict is the entry's")
         for k, v in per_call.items():
             require(counts[k] == v * calls, f"{label}: {k} launched {counts[k]} times, expected {v * calls}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-        return out, reads
+        return out, guard_reads
 
     none = {"flash_fwd_lse": 0, "flash_bwd": 0, "flash_bwd_recompute": 0, "sdpa_exact": 0, "ce_fwd": 0, "rope": 0}
     logits, reads = drive(f"forward padded B={LOSS_BATCH} T={SEQ}", am, {"flash_fwd_seg": n, "flash_fwd": 0, **none}, 3)
     require(tuple(logits.shape) == (LOSS_BATCH, SEQ, cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits[am.bool()]).all()), "padded forward: valid-row logits are not finite")
-    require(reads == 3, f"the mask verdict was read {reads} times in 3 calls, expected once a call")
+    require(reads == 2, f"the value guards were read {reads} times in 3 calls (the first compiles), expected 2")
     require((stats.cache_misses, stats.cache_hits) == (1, 2), "padded forward: expected 1 miss and 2 hits")
     src = tt.last_traces(tm)[-1].python()
     require(src.count("flash_scaled_dot_product_attention(") == n, "the padded forward does not claim every SDPA")
     del logits
     logits, reads = drive("forward all-ones mask", ones, {"flash_fwd": n, "flash_fwd_seg": 0, **none}, 2)
-    require(bool(torch.isfinite(logits).all()) and reads == 0, "all-ones forward: non-finite logits or a mask read")
+    require(bool(torch.isfinite(logits).all()), "all-ones forward: non-finite logits")
+    require(reads == 2, f"all-ones forward: the value guards were read {reads} times, expected 2 (one entry each call)")
     require((stats.cache_misses, stats.cache_hits) == (2, 3), f"all-ones mask: cache misses/hits "
             f"{stats.cache_misses}/{stats.cache_hits}, expected 2/3 (the value guard's second entry)")
     forward(am)
@@ -1899,6 +1926,18 @@ def run_llama(launches: dict) -> None:
 
     opt = torch.optim.SGD(m.parameters(), lr=LLAMA_LR)
     weights = torch.cuda.memory_allocated()
+    # The unstaged module's peak over the same steps, from the same state
+    # of the card (the staged forward entries above hold their pools in
+    # both), before the staged training entry exists.
+    tm_eager = tt.jit(m, disable_jit_staging=True)
+    for step in range(TRAIN_STEPS):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        tm_eager(ids, am, labels)["loss"].backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
     times, losses = [], []
     per_fw = {"flash_fwd_seg": n, "ce_fwd": 1, "sdpa_exact": 0, "flash_fwd": 0, "flash_fwd_lse": 0}
     per_bw = {"flash_bwd_recompute": n, "ce_bwd": 1, "sdpa_exact": 0, "flash_bwd": 0, "flash_fwd_seg": 0}
@@ -1936,10 +1975,13 @@ def run_llama(launches: dict) -> None:
     peak = torch.cuda.max_memory_allocated()
     log(f"  llama train B={LOSS_BATCH} T={SEQ}: step 1 {times[0]:.4f} s, then "
         f"{', '.join(f'{x:.4f}' for x in times[1:])} s/step; max_memory_allocated (steps 2-{TRAIN_STEPS}) = "
-        f"{peak / 2**30:.2f} GiB; loss {', '.join(f'{x:.6f}' for x in losses)}")
+        f"{peak / 2**30:.2f} GiB staged, {eager_peak / 2**30:.2f} GiB unstaged (this run, the same steps before "
+        f"them); loss {', '.join(f'{x:.6f}' for x in losses)}")
     require(all(math.isfinite(x) and abs(x - math.log(cfg.vocab_size)) < 2.0 for x in losses),
             "llama training loss is not near ln V")
     require(losses[-1] < losses[0], "llama training loss did not fall")
+
+    compare_llama_staging(m, tm, tm_eager, ids, am, labels)
 
     def step():
         out = tm(ids, am, labels)
@@ -1949,7 +1991,8 @@ def run_llama(launches: dict) -> None:
 
     # The mask verdict's own cost: the checks over the path's (2, 1, 2048,
     # 2048) mask and the host read, on an idle card, for a fresh mask each
-    # time (the memo would answer a repeat).
+    # time (the memo would answer a repeat); the value guard runs the same
+    # checks each call.
     mask = m.model.causal_mask(am, SEQ)
     q = torch.empty((LOSS_BATCH, cfg.num_attention_heads, SEQ, cfg.head_dim), dtype=torch.bfloat16, device="cuda")
     costs = []
@@ -1963,12 +2006,64 @@ def run_llama(launches: dict) -> None:
     log(f"  mask verdict on the path's mask, idle card: {', '.join(f'{x:.3f}' for x in costs)} ms")
     del mask, q, fresh, plan
 
-    reads0 = flashex.mask_plan.host_reads
+    reads0 = check_value_guards.host_reads
     profile_call("llama_forward_padded", lambda: forward(am), batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
-                 module="chip_smoke.LlamaForCausalLM")
+                 module="chip_smoke.LlamaForCausalLM", staged=True)
     profile_call("llama_train_step_padded", step, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b", optimizer="sgd",
-                 module="chip_smoke.LlamaForCausalLM")
-    log(f"  mask verdicts read over the 10 profiled calls: {flashex.mask_plan.host_reads - reads0}")
+                 module="chip_smoke.LlamaForCausalLM", staged=True)
+    log(f"  value-guard reads over the profiled calls (one a call): {check_value_guards.host_reads - reads0}")
+
+    def forward_eager():
+        with torch.no_grad():
+            return tm_eager(ids, am)["logits"]
+
+    def step_eager():
+        out = tm_eager(ids, am, labels)
+        out["loss"].backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    profile_call("llama_forward_padded_unstaged", forward_eager, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
+                 module="chip_smoke.LlamaForCausalLM", staged=False)
+    profile_call("llama_train_step_padded_unstaged", step_eager, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
+                 optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=False)
+
+
+def compare_llama_staging(m, tm, tm_eager, ids, am, labels) -> None:
+    """The staged module (``tm``: its forward and backward a CUDA graph
+    each) against the same module jitted with ``disable_jit_staging=True``
+    (``tm_eager``), from the same state: the forward without grad and a
+    step's loss and grads, ``torch.equal``; the enqueue ms of each, from a
+    call after the first (which traces, or warms up)."""
+    cs = tm._lc_cs
+    out = {}
+    for label, fn in (("staged", tm), ("unstaged", tm_eager)):
+        with torch.no_grad():
+            logits = fn(ids, am)["logits"]
+        enq = []
+        for _ in range(2):
+            m.zero_grad(set_to_none=True)
+            t = time.perf_counter()
+            res = fn(ids, am, labels)
+            res["loss"].backward()
+            enq.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+        out[label] = (logits, res["loss"].detach(), [p.grad for p in m.parameters()], enq[-1])
+        if label == "staged":
+            fst, bst = cs.last_staging, cs.last_backward_staging
+            require(fst.staged and bst.staged, f"the module step is not staged: forward {fst}, backward {bst}")
+        del logits, res
+    (l_s, loss_s, g_s, e_s), (l_e, loss_e, g_e, e_e) = out["staged"], out["unstaged"]
+    same_fwd, same_loss = torch.equal(l_s, l_e), torch.equal(loss_s, loss_e)
+    same_grads = all(torch.equal(a, b) for a, b in zip(g_s, g_e))
+    log(f"  staged vs unstaged module: forward logits equal {same_fwd}, loss equal {same_loss} "
+        f"({loss_s.item():.6f}), all {len(g_s)} grads equal {same_grads}; enqueue of a fw+bw step {e_s:.2f} ms staged "
+        f"vs {e_e:.2f} ms unstaged; staged forward: captures {cs.last_staging.captures}, guard misses "
+        f"{cs.last_staging.guard_misses}, bytes copied per call {cs.last_staging.copied_bytes_per_call}; backward: "
+        f"captures {cs.last_backward_staging.captures}, guard misses {cs.last_backward_staging.guard_misses}, "
+        f"bytes copied per call {cs.last_backward_staging.copied_bytes_per_call}")
+    require(same_fwd and same_loss and same_grads, "the staged module differs from the unstaged module")
+    m.zero_grad(set_to_none=True)
 
 
 def run_legacy_train(cfg, splash_losses: list, launches: dict) -> None:
@@ -2032,6 +2127,271 @@ def run_legacy_train(cfg, splash_losses: list, launches: dict) -> None:
             os.environ["THUNDER_FLASH_IMPL"] = prev
 
 
+# =============================================================================
+# Phase 13: open_llama_3b mixed-precision training (f32 weights, bf16 products)
+# =============================================================================
+
+
+# Rope in f32: x*cos + rot(x)*sin, where a fused multiply-add rounds once
+# and the plain version twice: within a few f32 ulps (2^-23) of the row's
+# largest |value|; four, set from that before any reading.
+ROPE_F32_ROW_REL = 2.0 ** -21
+
+
+def check_autocast_two_layers(cfg) -> None:
+    """Rope on f32 rows at the path's shape against its plain version; then
+    the 2-layer cut at full width with f32 weights under
+    ``autocast="bfloat16"``: ``value_and_grad`` with the default executors
+    against the torch executor alone, loss and every gradient at phase 4's
+    limits (both run the products and attention in bf16)."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    # Rope on f32 rows, as autocast gives it q and k (rows 2 and 5 in f32):
+    # the kernel against its plain version on the q view of an f32 qkv.
+    from thunder_tpu_torch.executors import fusedex
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, _, _, cos, sin = _path_inputs(cfg, LOSS_BATCH, gen)
+    qkv32 = q.float().permute(0, 2, 1, 3).reshape(LOSS_BATCH, SEQ, -1)  # a fresh f32 buffer
+    q32 = qkv32.reshape(LOSS_BATCH, SEQ, cfg.n_head, cfg.head_size).permute(0, 2, 1, 3)
+    for label, sign in (("rope", 1.0), ("rope_bwd", -1.0)):
+        got = fusedex.apply_rope(q32, cos.float(), sign * sin.float())
+        want = fusedex.rope_plain(q32, cos.float(), sign * sin.float())
+        torch.cuda.synchronize()
+        rel = row_rel_err(got, want)
+        log(f"  {label} f32 {list(q32.shape)}: max_abs_err={(got - want).abs().max().item():.3e} row_rel_err={rel:.3e} "
+            f"(limit {ROPE_F32_ROW_REL:.3e})")
+        require(rel <= ROPE_F32_ROW_REL, f"{label} on f32 rows disagrees with its plain version")
+    del q, q32, qkv32, got, want
+
+    cfg2 = replace(cfg, name=cfg.name + "-2layer", n_layer=2)
+    params = gpt.init_params(cfg2, seed=SEED, device="cuda", dtype=torch.float32)
+    rng = np.random.RandomState(SEED)
+    idx = torch.from_numpy(rng.randint(0, cfg2.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg2.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    names = [pytree.keystr(k) for k, _ in pytree.tree_flatten_with_path(params)[0]]
+
+    def grads(executors):
+        f = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg2), autocast="bfloat16", executors=executors)
+        loss, g = f(params, idx, tgt)
+        torch.cuda.synchronize()
+        require(all(x.dtype == torch.float32 for x in g), "autocast gradients of f32 weights are not f32")
+        return float(loss), g
+
+    want_loss, want = grads(["torch"])
+    loss, got = grads(None)
+    rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item() for g, w in zip(got, want)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    ok = math.isfinite(loss) and loss_rel <= LOSS_REL and rels[worst] <= GRAD_REL
+    log(f"  2-layer autocast: loss {loss:.6f} vs torch {want_loss:.6f} rel_err={loss_rel:.3e} (limit {LOSS_REL:.0e}); "
+        f"worst grad norm-relative error {rels[worst]:.3e} on {names[worst]} (limit {GRAD_REL:.3e}) -> "
+        f"{'pass' if ok else 'FAIL'}")
+    require(ok, "2-layer autocast gradients with the kernels differ from the torch executor's")
+
+
+def run_autocast_train(cfg, launches: dict, bf16_staged: dict) -> None:
+    """open_llama_3b at full width and depth with f32 weights from the seed:
+    ``value_and_grad(loss_fn, autocast="bfloat16")`` and the f32 SGD update
+    (``parallel.train.sgd_update``, in place), the whole step staged as one
+    CUDA graph. 3 steps unstaged (the same step with the entry under
+    ``disable_jit_staging=True`` and no graph), the params put back, 3 staged
+    steps: launches of the claimed kernels per step against the trace (rope
+    on f32 rows), losses bit-equal; then the staged step timed and profiled
+    beside phase 6's bf16 staged step."""
+    import numpy as np
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.executors import staging
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel.train import sgd_update
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda", dtype=torch.float32)
+    flat = tree_flatten(params)[0]
+    log(f"  f32 weights: {sum(p.numel() for p in flat) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.RandomState(SEED)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), autocast="bfloat16", disable_jit_staging=True)
+
+    def step(p, i, t):
+        loss, grads = vg(p, i, t)
+        sgd_update(tree_flatten(p)[0], list(grads), train.LR, train.WD, in_place=True)
+        return loss
+
+    staged = staging.CudaGraphStage(step, name="open_llama_3b autocast step")
+    initial = [p.detach().to("cpu") for p in flat]
+    n = cfg.n_layer
+    per_step = None
+
+    def run(fn, label):
+        nonlocal per_step
+        losses, times = [], []
+        for k in range(TRAIN_STEPS):
+            if k == 1:
+                gc.collect()
+                torch.cuda.empty_cache()  # the warm-up's cached blocks: the graph's pool is private
+                torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t = time.perf_counter()
+            loss = fn(params, idx, tgt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            counts = _launch_counts()
+            if per_step is None:
+                trc = tt.last_traces(vg)[-1]
+                src = trc.python()
+                ropes = [b for b in trc.bound_symbols if b.sym.name == "apply_rope"]
+                require(ropes and all(b.args[0].dtype.name == "float32" for b in ropes),
+                        "autocast: the rope claims do not run on f32 rows")
+                per_step = {"rope": src.count("fused_apply_rope("), "flash_fwd_lse": src.count("flash_sdpa_fwd_res("),
+                            "flash_bwd": src.count("flash_sdpa_bwd_res("), "ce_fwd": src.count("fused_cross_entropy("),
+                            "ce_bwd": src.count("fused_cross_entropy_bwd("), "flash_fwd": 0}
+                log(f"  claimed per step: {per_step} (rope on f32 rows, attention on bf16 casts)")
+                require(per_step == {"rope": 4 * n, "flash_fwd_lse": n, "flash_bwd": n, "ce_fwd": 1, "ce_bwd": 1,
+                                     "flash_fwd": 0}, "the autocast step does not claim every rope, SDPA and CE op")
+            got = {k2: counts[k2] for k2 in per_step}
+            require(got == per_step, f"{label} step {k + 1}: launches {got}, the trace claims {per_step}")
+            for k2, v in got.items():
+                launches[k2] = launches.get(k2, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {label}: {', '.join(f'{x:.4f}' for x in times)} s/step; max_memory_allocated (steps 2-{TRAIN_STEPS}) "
+            f"{peak / 2**30:.2f} GiB; loss {', '.join(f'{x:.6f}' for x in losses)}")
+        require(all(math.isfinite(x) and abs(x - math.log(cfg.vocab_size)) < 2.0 for x in losses),
+                f"{label}: loss is not near ln V")
+        return losses, times, peak
+
+    eager_losses, _, eager_peak = run(step, "unstaged autocast step")
+    with torch.no_grad():
+        for p, p0 in zip(flat, initial):
+            p.copy_(p0)
+    initial.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, times, peak = run(staged, "staged autocast step")
+    st = staged.stats
+    require(st.staged and st.captures == 1 and st.guard_misses == 0, f"the autocast step did not stage: {st}")
+    require(losses == eager_losses, f"staged autocast losses {losses} are not bit-equal to the unstaged {eager_losses}")
+    prof = profile_call("autocast_train_step_staged", lambda: staged(params, idx, tgt), batch=LOSS_BATCH, seq=SEQ,
+                        config=CFG_NAME, weights="float32", autocast="bfloat16", optimizer="sgd")
+    log(f"  autocast step staged: {min(prof['wall_ms']):.2f} ms/step (wall, profiled run's timed calls), enqueue "
+        f"{min(prof['enqueue_ms']):.2f} ms, device {prof['device_ms']:.2f} ms, busy {prof['busy_share']:.4f}, peak "
+        f"{peak / 2**30:.2f} GiB (unstaged {eager_peak / 2**30:.2f}); losses bit-equal to unstaged True; "
+        f"phase 6 bf16 step staged {min(bf16_staged['wall_ms']):.2f} ms/step, enqueue "
+        f"{min(bf16_staged['enqueue_ms']):.2f} ms, peak {bf16_staged['peak'] / 2**30:.2f} GiB")
+    del params, flat, staged, vg
+
+
+# =============================================================================
+# Phase 14: keyed random draws (csrc/rng.cu) and a staged dropout
+# =============================================================================
+
+
+def check_draw_kernel(rows: dict) -> None:
+    """The draw kernel against its plain version at open_llama_3b's
+    activation shape (2, 2048, 3200) and at the logits' (4096, 32000), in
+    bf16 and f32: uniform draws bit-equal (the same integer hash, the same
+    roundings), normal draws within 1e-5 of |x| + 1 or two bf16 ulps
+    (erfinvf against torch's erfinv); timed beside the plain version and ``torch.rand`` (a yardstick
+    only: other bits)."""
+    import torch
+
+    from thunder_tpu_torch.executors import rngex
+
+    record = _recorder(rows)
+    key = torch.tensor(rngex.prng_key_words(SEED + 1), dtype=torch.int64, device="cuda")
+    for shape in ((LOSS_BATCH, SEQ, 3200), (LOSS_BATCH * SEQ, 32000)):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = rngex.draw(key, 3, shape, dtype)
+            want = rngex.draw_plain(key, 3, shape, dtype)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            require(same, f"rng_draw {dtype} {shape}: {(got != want).sum().item()} of {got.numel()} values differ")
+            gn = rngex.draw(key, 4, shape, dtype, normal=True)
+            wn = rngex.draw_plain(key, 4, shape, dtype, normal=True)
+            # CUDA's erfinvf against torch's erfinv: 1e-5 of |x| + 1 (the two
+            # erfinv implementations of the CPU tests), or two ulps of bf16.
+            n_limit = max(2 * torch.finfo(dtype).eps, 1e-5)
+            n_err = ((gn.float() - wn.float()).abs() / (wn.float().abs() + 1.0)).max().item()
+            require(n_err <= n_limit, f"rng_draw normal {dtype} {shape}: {n_err} > {n_limit}")
+            del gn, wn, got, want
+            n = math.prod(shape)
+            b_ms, b_by = bound(n * dtype.itemsize + 16, RNG_OPS_PER_ELEMENT * n, PEAK_INT32_OPS)
+            ms = time_ms(lambda: rngex.draw(key, 3, shape, dtype), 20)
+            # One call: the plain version queues some 300 launches, and a
+            # longer run fills the launch queue behind time_ms's sleep.
+            plain_ms = time_ms(lambda: rngex.draw_plain(key, 3, shape, dtype), 1, warmup=1)
+            rand_ms = time_ms(lambda: torch.rand(shape, dtype=dtype, device="cuda"), 20)
+            label = f"{str(dtype).removeprefix('torch.')}{list(shape)}"
+            log(f"  rng_draw {label}: normal draws within {n_err:.2e} (limit {n_limit:.2e}); torch.rand (other bits, "
+                f"a yardstick) {rand_ms:.4f} ms; {n * RNG_OPS_PER_ELEMENT / ms / 1e9:.2f} TOP/s of threefry")
+            record("rng_draw", label, err, 0.0 if same else 1.0, 0.0, source="thunder_tpu_torch/csrc/rng.cu",
+                   replaces="thunder_tpu/executors/jaxex.py:89 (jax.random under jax.jit; no TPU kernel)", ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def run_dropout(launches: dict) -> None:
+    """``jit(F.dropout(x, 0.1))`` on open_llama_3b's activations (2, 2048,
+    3200) bf16, staged: 4 calls after ``seed``, each drawing a fresh mask
+    through the draw kernel; the same 4 calls unstaged after the same seed
+    give ``torch.equal`` outputs; the keep rate within 5 sigma of its
+    expectation. A bf16 draw has 8 random bits (7 of mantissa), so u takes
+    the values k/128 and u < bf16(0.9) keeps 115 of them: the expectation
+    is 115/128 = 0.8984375, not 0.9."""
+    import torch
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((LOSS_BATCH, SEQ, 3200), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.where(x == 0, torch.ones_like(x), x)  # a kept element is then never 0
+    staged = tt.jit(lambda x: F.dropout(x, 0.1))
+    eager = tt.jit(lambda x: F.dropout(x, 0.1), disable_jit_staging=True)
+    calls = 4
+    tt.seed(SEED)
+    _zero_counts()
+    got = [staged(x) for _ in range(calls)]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    st = tt.last_staging(staged)
+    require(st.staged and (st.captures, st.replays) == (1, calls - 1), f"dropout did not stage: {st}")
+    require(counts["rng_draw"] == calls, f"dropout: rng_draw launched {counts['rng_draw']} times in {calls} calls")
+    launches["rng_draw"] = launches.get("rng_draw", 0) + counts["rng_draw"]
+    require("rng_key" in tt.last_traces(staged)[-1].python(), "the dropout trace takes no key")
+    masks = [g != 0 for g in got]
+    fresh = all(not torch.equal(a, b) for a, b in zip(masks, masks[1:]))
+    tt.seed(SEED)
+    same = all(torch.equal(g, eager(x)) for g in got)
+    thr = float(torch.tensor(0.9, dtype=torch.bfloat16))
+    p = sum(1 for k in range(128) if k / 128 < thr) / 128
+    n = x.numel()
+    sigma = math.sqrt(p * (1 - p) / n)
+    rates = [m.float().mean().item() for m in masks]
+    worst = max(abs(r - p) for r in rates) / sigma
+    log(f"  dropout p=0.1 bf16 {list(x.shape)}: {calls} calls staged (captures {st.captures}, replays {st.replays}); "
+        f"a fresh mask each call {fresh}; staged == unstaged after seed {same}; keep rates "
+        f"{', '.join(f'{r:.6f}' for r in rates)}, expected {p} (worst {worst:.2f} sigma; 0.9 is "
+        f"{abs(0.9 - p) / sigma:.1f} sigma away)")
+    require(fresh, "a staged replay repeated the previous call's mask")
+    require(same, "staged dropout draws differ from the unstaged ones after the same seed")
+    require(worst <= 5.0, f"the keep rate is {worst:.2f} sigma from its expectation")
+
+
 def main() -> int:
     import torch
 
@@ -2076,7 +2436,7 @@ def main() -> int:
     launches = run_full(cfg)
 
     log(f"[6] {CFG_NAME}, {cfg.n_layer} layers: training step, unstaged and staged")
-    splash_losses = run_train(cfg, launches)
+    splash_losses, bf16_staged = run_train(cfg, launches)
 
     log(f"[7] {PYTHIA} at full width, 2 layers: {NORM_STACK} vs torch executor, forward and gradients")
     check_pythia_two_layers(pythia)
@@ -2107,6 +2467,15 @@ def main() -> int:
 
     log(f"[12] {CFG_NAME}, {cfg.n_layer} layers: 3 staged training steps under THUNDER_FLASH_IMPL=legacy")
     run_legacy_train(cfg, splash_losses, launches)
+
+    log(f"[13] {CFG_NAME}: mixed precision (f32 weights, autocast=bfloat16), 2 layers vs the torch executor, then "
+        f"{cfg.n_layer} layers, 3 steps unstaged and staged")
+    check_autocast_two_layers(cfg)
+    run_autocast_train(cfg, launches, bf16_staged)
+
+    log("[14] keyed random draws: the draw kernel at the path's shapes, a staged dropout")
+    check_draw_kernel(rows)
+    run_dropout(launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -935,3 +935,234 @@ def test_staged_build_train_step(dev, optimizer, donate):
     assert step.staging.staged and step.staging.replays == 2
     for g, w in zip(got, want):
         assert abs(g - w) <= 1e-4 * abs(w)
+
+
+# -- Keyed random draws (csrc/rng.cu) ------------------------------------------
+
+_DRAW_CASES = [((1,), torch.float32), ((7,), torch.bfloat16), ((3, 1031), torch.float16),
+               ((2, 2048, 3200), torch.bfloat16), ((4096, 32000), torch.float32), ((33, 65), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", _DRAW_CASES)
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.5, 3.7)])
+def test_draw_kernel_is_bit_equal_to_plain(dev, shape, dtype, lo, hi):
+    """The kernel and the plain version compute the same integer hash and
+    round the float steps alike: the same bits."""
+    from thunder_tpu_torch.executors import rngex
+
+    key = torch.tensor(rngex.prng_key_words(1234), dtype=torch.int64, device=dev)
+    for salt in (0, 5, None):
+        got = rngex.draw(key, salt, shape, dtype, lo, hi)
+        want = rngex.draw_plain(key, salt, shape, dtype, lo, hi)
+        torch.cuda.synchronize()
+        assert got.shape == shape and got.dtype == dtype
+        assert torch.equal(got, want), f"salt {salt}: {(got != want).sum().item()} of {got.numel()} differ"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_normal_draw_kernel_matches_plain(dev, dtype):
+    """The same uniform bits; erfinv is CUDA's erfinvf in the kernel and
+    torch's erfinv in the plain version: within two ulps of the result."""
+    from thunder_tpu_torch.executors import rngex
+
+    key = torch.tensor(rngex.prng_key_words(7), dtype=torch.int64, device=dev)
+    got = rngex.draw(key, 3, (257, 129), dtype, normal=True)
+    want = rngex.draw_plain(key, 3, (257, 129), dtype, normal=True)
+    eps = torch.finfo(dtype).eps
+    torch.testing.assert_close(got, want, rtol=2 * eps, atol=2 * eps)
+
+
+def test_staged_dropout_draws_afresh_on_each_replay_and_equals_unstaged(dev):
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import rngex
+
+    x = _randn((4, 64, 256), torch.bfloat16, dev, 0)
+    staged = tt.jit(lambda x: F.dropout(x, 0.1))
+    eager = tt.jit(lambda x: F.dropout(x, 0.1), disable_jit_staging=True)
+    before = rngex.draw.launches
+    tt.seed(77)
+    got = [staged(x) for _ in range(5)]
+    stats = tt.last_staging(staged)
+    assert stats.staged and (stats.captures, stats.replays) == (1, 4)
+    assert rngex.draw.launches - before == 5
+    masks = [g == 0 for g in got]
+    assert all(not torch.equal(a, b) for a, b in zip(masks, masks[1:]))
+    tt.seed(77)
+    want = [eager(x) for _ in range(5)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_staged_input_update_is_copied_back(dev):
+    """An input updated in place by the program: its final value comes out
+    of the graph and is copied into the caller's tensor each call."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+
+    def f(a, b):
+        ltorch.add_(a, b)
+        return ltorch.mul(a, 2.0)
+
+    b = _randn((64, 128), torch.float32, dev, 1)
+    a_staged, a_eager = _randn((64, 128), torch.float32, dev, 0), _randn((64, 128), torch.float32, dev, 0)
+    staged, eager = tt.jit(f), tt.jit(f, disable_jit_staging=True)
+    for _ in range(4):
+        out_s, out_e = staged(a_staged, b), eager(a_eager, b)
+        assert torch.equal(out_s, out_e) and torch.equal(a_staged, a_eager)
+    assert tt.last_staging(staged).replays == 3
+    torch.testing.assert_close(a_staged, _randn((64, 128), torch.float32, dev, 0) + 4 * b, rtol=1e-6, atol=1e-6)
+
+
+def test_staged_module_equals_the_unstaged_module(dev):
+    """``jit(module)``'s forward and backward staged as a graph each: the
+    outputs and grads of three calls as the unstaged module's, dropout draws
+    included (the same seed)."""
+    import thunder_tpu_torch as tt
+
+    def make():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 128), torch.nn.GELU(), torch.nn.Dropout(0.1),
+                                   torch.nn.Linear(128, 32)).to(dev)
+
+    m_s, m_e = make(), make()
+    staged, eager = tt.jit(m_s), tt.jit(m_e, disable_jit_staging=True)
+    x = _randn((16, 64), torch.float32, dev, 2)
+    for net, tm in ((m_s, staged), (m_e, eager)):
+        tt.seed(5)
+        outs = []
+        for _ in range(3):
+            net.zero_grad(set_to_none=True)
+            out = tm(x)
+            out.square().sum().backward()
+            outs.append((out.detach(), [p.grad.clone() for p in net.parameters()]))
+        net.outs = outs
+    assert tt.last_staging(staged).staged and tt.last_staging(staged).replays == 2
+    assert tt.compile_stats(staged).last_backward_staging.staged
+    assert not tt.last_staging(eager).staged
+    for (o_s, g_s), (o_e, g_e) in zip(m_s.outs, m_e.outs):
+        assert torch.equal(o_s, o_e)
+        assert all(torch.equal(a, b) for a, b in zip(g_s, g_e))
+    assert not torch.equal(m_s.outs[0][0], m_s.outs[1][0])
+
+
+@pytest.mark.parametrize("batches", ["same_input_twice", "fresh_input_each_call"])
+def test_staged_module_lends_its_saved_tensors_and_two_forwards_keep_theirs(dev, batches):
+    """The staged forward lends its saved tensors to the backward's graph (no
+    copy either way once the backward has settled). Two forwards in flight,
+    the second a replay with no guard miss: the same input twice (R-Drop, its
+    dropout drawing two masks), or a fresh batch tensor each call (a copied
+    input). The second replay first moves the first forward's saved tensors
+    out of the graph's buffers: the forward is not captured again, and the
+    grads of the two losses' sum are the unstaged module's."""
+    import thunder_tpu_torch as tt
+
+    def make():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(), torch.nn.Dropout(0.1),
+                                   torch.nn.Linear(256, 64)).to(dev)
+
+    x = _randn((32, 64), torch.float32, dev, 0)
+    fresh = [x + i for i in range(6)]  # six live tensors: six addresses
+    batch = (lambda i: x) if batches == "same_input_twice" else (lambda i: fresh[i])
+    m_s, m_e = make(), make()
+    staged, eager = tt.jit(m_s), tt.jit(m_e, disable_jit_staging=True)
+    for net, tm in ((m_s, staged), (m_e, eager)):
+        tt.seed(11)
+        for i in range(4):  # warm-up, capture, settle, replays
+            net.zero_grad(set_to_none=True)
+            tm(batch(i)).square().sum().backward()
+        net.zero_grad(set_to_none=True)
+        a, b = tm(batch(4)), tm(batch(5))  # two forwards in flight
+        (a.square().sum() + b.square().sum()).backward()
+        net.outs = (a.detach(), b.detach())
+        net.grads = [p.grad.clone() for p in net.parameters()]
+    fst = tt.compile_stats(staged).last_staging
+    assert fst.staged and (fst.captures, fst.guard_misses, fst.replays) == (1, 0, 5)
+    assert all(torch.equal(s, e) for s, e in zip(m_s.outs, m_e.outs))
+    assert not torch.equal(*m_s.outs)
+    assert all(torch.equal(s, e) for s, e in zip(m_s.grads, m_e.grads))
+
+
+def test_staged_module_keeps_one_graph_per_mask_verdict(dev):
+    """A module's masked attention, staged, over masks of three verdicts
+    (causal, full, the exact branch) in turn: each verdict is an entry of its
+    own (a value guard) with its own graph, so no replay runs under another
+    mask's verdict. Outputs equal to the unstaged module's; no mask read on
+    the host."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import flashex
+
+    class Attn(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.randn(64, 64, dtype=torch.bfloat16) * 0.1)
+
+        def forward(self, x, mask):
+            q = (x @ self.w).reshape(2, 128, 4, 16).transpose(1, 2)
+            return F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+
+    torch.manual_seed(0)
+    m = Attn().to(dev)
+    staged, eager = tt.jit(m), tt.jit(m, disable_jit_staging=True)
+    x = _randn((2, 128, 64), torch.bfloat16, dev, 0)
+    i = torch.arange(128, device=dev)
+    masks = {2: (i[None, :] <= i[:, None])[None, None].expand(2, 1, 128, 128).contiguous(),
+             1: torch.ones((2, 1, 128, 128), dtype=torch.bool, device=dev),
+             0: torch.rand((2, 1, 128, 128), device=dev) > 0.3}
+    reads = flashex.mask_plan.host_reads
+    with torch.no_grad():
+        for n, verdict in enumerate([2, 1, 0] * 3):
+            assert torch.equal(staged(x, masks[verdict]), eager(x, masks[verdict]))
+            st = tt.last_staging(staged)
+            assert st.staged and (st.captures, st.replays) == (int(n >= 3), n // 3)
+    assert tt.compile_stats(staged).cache_misses == 3
+    assert flashex.mask_plan.host_reads == reads
+
+
+def test_settled_backward_copies_only_its_cotangents(dev):
+    import thunder_tpu_torch as tt
+
+    torch.manual_seed(0)
+    m = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(), torch.nn.Linear(256, 64)).to(dev)
+    tm = tt.jit(m)
+    x = _randn((32, 64), torch.float32, dev, 0)
+    for _ in range(4):
+        m.zero_grad(set_to_none=True)
+        tm(x).sum().backward()
+    cs = tt.compile_stats(tm)
+    fst, bst = cs.last_staging, cs.last_backward_staging
+    assert (bst.captures, bst.guard_misses) == (1, 0)
+    # In: the (32, 64) f32 cotangent; out: nothing, the grads are lent.
+    assert bst.copied_bytes_per_call == 32 * 64 * 4
+    assert fst.copied_bytes_per_call == 32 * 64 * 4  # only the output: the saved tensors are lent
+
+
+def test_staged_module_lends_its_grads_unless_they_are_kept(dev):
+    """The staged backward lends its grads: autograd takes them as ``.grad``
+    with no copy. Under gradient accumulation a ``.grad`` still holds a lent
+    buffer when the backward's graph would run again: the graph is captured
+    anew, the old buffers left to the grads, and it copies its grads from
+    then on. The accumulated grads are the unstaged module's."""
+    import thunder_tpu_torch as tt
+
+    def make():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(), torch.nn.Linear(256, 64)).to(dev)
+
+    m_s, m_e = make(), make()
+    staged, eager = tt.jit(m_s), tt.jit(m_e, disable_jit_staging=True)
+    x = _randn((32, 64), torch.float32, dev, 0)
+    for net, tm in ((m_s, staged), (m_e, eager)):
+        for _ in range(4):  # warm-up, settle, capture, replay
+            net.zero_grad(set_to_none=True)
+            tm(x).square().sum().backward()
+        for _ in range(3):  # accumulated
+            tm(x).square().sum().backward()
+        net.grads = [p.grad.clone() for p in net.parameters()]
+    bst = tt.compile_stats(staged).last_backward_staging
+    grads = sum(p.numel() * 4 for p in m_s.parameters())
+    assert (bst.captures, bst.guard_misses, bst.copied_bytes_per_call) == (2, 0, 32 * 64 * 4 + grads)
+    assert all(torch.equal(a, b) for a, b in zip(m_s.grads, m_e.grads))

@@ -627,6 +627,46 @@ def test_standin_training_step_through_the_port():
     assert tm(ids, am, labels)["loss"].item() < loss.item()
 
 
+class _MaskedAttention(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = nn.Parameter(torch.randn(64, 64, dtype=torch.bfloat16) * 0.1)
+
+    def forward(self, x, mask):
+        q = (x @ self.w).reshape(2, 128, 4, 16).transpose(1, 2)
+        return F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+
+
+def test_module_mask_verdict_is_a_value_guard():
+    """A module's masked attention takes its mask's verdict when the entry
+    compiles (causal 2, full 1, the exact branch 0) and runs with it, reading
+    no mask on the host; a later mask with another verdict misses that
+    entry's value guard, and each verdict's entry is found again. The guards
+    of every entry tried are read on the host at once: one read a call. Outputs against eager torch to 2e-2 (bf16)."""
+    from thunder_tpu_torch.core.concrete import check_value_guards
+
+    torch.manual_seed(0)
+    m = _MaskedAttention()
+    tm = tt.jit(m, device="cpu")
+    x = torch.randn(2, 128, 64, dtype=torch.bfloat16)
+    i = torch.arange(128)
+    masks = {2: (i[None, :] <= i[:, None])[None, None].expand(2, 1, 128, 128).clone(),
+             1: torch.ones(2, 1, 128, 128, dtype=torch.bool),
+             0: torch.rand(2, 1, 128, 128) > 0.3}
+    reads = flashex.mask_plan.host_reads
+    for n, verdict in enumerate([2, 1, 0, 2, 1, 0]):
+        exact, guard_reads = flashex.sdpa_exact.launches, check_value_guards.host_reads
+        with torch.no_grad():
+            got = tm(x, masks[verdict])
+        src = tt.last_traces(tm)[-1].python()
+        assert src.count(f"verdict={verdict})") == 1
+        assert flashex.sdpa_exact.launches - exact == (verdict == 0)
+        assert (tm._lc_cs.cache_misses, tm._lc_cs.cache_hits) == (min(n + 1, 3), max(n - 2, 0))
+        assert check_value_guards.host_reads - guard_reads == (n > 0)  # the first call compiles
+        torch.testing.assert_close(got, m(x, masks[verdict]), rtol=2e-2, atol=2e-2)
+    assert flashex.mask_plan.host_reads == reads
+
+
 # =============================================================================
 # The port's contract
 # =============================================================================
@@ -738,3 +778,26 @@ def test_indexed_updates_match_eager():
     tt.jit(Sliced(), device="cpu")(xr).backward()
     Sliced()(xe).backward()
     torch.testing.assert_close(xr.grad, xe.grad)
+
+
+def test_a_module_is_freed_after_its_outputs():
+    """Once a module's outputs and its jit are dropped, the module, its
+    params and the compiled (on a card, staged) programs go too: the
+    autograd bridge keeps no output tensor in its closure, which would tie
+    the output's grad_fn to itself beyond the cycle collector's reach."""
+    import gc
+    import weakref
+
+    def run():
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.GELU(), torch.nn.Linear(16, 4))
+        tm = tt.jit(m, device="cpu")
+        x = torch.randn(3, 8)
+        for _ in range(2):
+            out = tm(x)
+            out.sum().backward()
+        return weakref.ref(m), weakref.ref(tm), weakref.ref(m[0].weight)
+
+    refs = run()
+    gc.collect()
+    assert all(r() is None for r in refs)

@@ -128,9 +128,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     first, mods = out.stdout.splitlines()
     n, bad = first.split(" ", 1)
     assert int(n) > 30 and bad.strip() == ""
-    # The nn.Module frontend is among them.
+    # The nn.Module frontend, the RNG and autocast transforms and the draw
+    # kernel's wrapper are among them.
     assert {"thunder_tpu_torch.frontend.module", "thunder_tpu_torch.frontend.dispatch",
-            "thunder_tpu_torch.frontend.sharp"} <= set(mods.split(","))
+            "thunder_tpu_torch.frontend.sharp", "thunder_tpu_torch.transforms.rng",
+            "thunder_tpu_torch.transforms.autocast", "thunder_tpu_torch.executors.rngex"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():
@@ -138,3 +140,34 @@ def test_port_sources_have_no_jax_imports():
     files = sorted((REPO / "thunder_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert len(files) > 10 and offenders == []
+
+
+def test_introspection_has_the_jax_packages_keys_and_counts():
+    """``cache_info``, ``compile_data``, ``compile_stats``,
+    ``last_prologue_traces`` and ``last_compile_options`` on the same
+    function and calls (``thunder_tpu/api.py:1404``, ``:2310-2338``). The
+    port has no fast path: its hits are all prologue hits."""
+    import thunder_tpu.torch as jtorch
+
+    jf = thunder_tpu.jit(lambda a: jtorch.sin(a) * 2)
+    tf = tt.jit(lambda a: ttorch.sin(a) * 2, device="cpu")
+    a, b = np.ones((3, 3), np.float32), np.ones((2, 2), np.float32)
+    for x in (a, a, a, b, a):
+        jf(x)
+        tf(x)
+    ji, ti = thunder_tpu.cache_info(jf), tt.cache_info(tf)
+    assert set(ti) == set(ji)
+    for k in ("cache_option", "calls", "hits", "misses", "compiles", "recompiles", "degradation_level"):
+        assert ti[k] == ji[k], k
+    assert ti["slow_hits"] + ti["fast_hits"] == ji["slow_hits"] + ji["fast_hits"] == ti["hits"]
+    assert len(ti["entries"]) == len(ji["entries"]) == 2
+    for te, je in zip(ti["entries"], ji["entries"]):
+        assert set(te) == set(je)
+        assert (te["index"], te["symbolic"], te["buckets"], te["hits"]) == (je["index"], je["symbolic"],
+                                                                           je["buckets"], je["hits"])
+    assert ti["trace_seconds"] > 0 and ti["first_run_seconds"] > 0
+    assert type(tt.compile_data(tf)).__name__ == type(thunder_tpu.compile_data(jf)).__name__ == "CompileData"
+    assert type(tt.compile_stats(tf)).__name__ == type(thunder_tpu.compile_stats(jf)).__name__ == "CompileStats"
+    jp, tp = thunder_tpu.last_prologue_traces(jf), tt.last_prologue_traces(tf)
+    assert len(tp) == len(jp) == 2 and "(2, 2)" in tp[0].python() and "(2, 2)" in jp[0].python()
+    assert tt.last_compile_options(tf) == thunder_tpu.last_compile_options(jf) == {}

@@ -16,14 +16,21 @@ is easy to find. This package imports neither JAX nor ``thunder_tpu``.
 from thunder_tpu_torch import models
 from thunder_tpu_torch.api import (
     cache_hits,
+    cache_info,
     cache_misses,
+    compile_data,
+    compile_stats,
     grad,
     jit,
     last_backward_traces,
+    last_compile_options,
+    last_prologue_traces,
     last_staging,
     last_traces,
+    seed,
     value_and_grad,
 )
 
-__all__ = ["jit", "grad", "value_and_grad", "last_traces", "last_backward_traces", "last_staging", "cache_hits",
-           "cache_misses", "models"]
+__all__ = ["jit", "grad", "value_and_grad", "seed", "last_traces", "last_prologue_traces", "last_backward_traces",
+           "last_staging", "last_compile_options", "cache_hits", "cache_misses", "cache_info", "compile_data",
+           "compile_stats", "models"]

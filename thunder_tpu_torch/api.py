@@ -19,6 +19,7 @@ each call and is what decides a cache hit.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Any, Callable, Optional, Sequence
 
 from thunder_tpu_torch import clang  # registers the clang language  # noqa: F401
@@ -46,14 +47,16 @@ from thunder_tpu_torch.core.proxies import (
     tensorproxy_from_concrete,
 )
 from thunder_tpu_torch.core.pytree import tree_flatten
+from thunder_tpu_torch.core.symbol import resolve_inplace, resolve_inplace_tree
 from thunder_tpu_torch.core.trace import TraceCtx, mark, tracectx
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
 from thunder_tpu_torch.executors import flashex, fusedex, normex  # kernel executors  # noqa: F401
-from thunder_tpu_torch.executors import staging
+from thunder_tpu_torch.executors import rngex, staging
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import get_executor, resolve_executors
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
+from thunder_tpu_torch.transforms.rng import RNG_TAG, functionalize_rng_ops
 
 # The kernel executors claim their composite ops whole; the torch executor
 # lowers every remaining prim. The "norm" executor (normex) is opt-in, by
@@ -166,12 +169,16 @@ def _build_prologue(args: tuple, kwargs: dict, proxied_args: tuple, proxied_kwar
     return plg
 
 
-def trace_program(fn: Callable, args: tuple, kwargs: dict) -> tuple[TraceCtx, TraceCtx]:
+def trace_program(fn: Callable, args: tuple, kwargs: dict, *,
+                  record_input_mutations: bool = False) -> tuple[TraceCtx, TraceCtx]:
     """Acquire ``fn`` as (prologue_trace, computation_trace).
 
     The computation trace takes the tensor leaves of ``(args, kwargs)`` in
     pytree order; numbers and strings are baked in and guarded by the
-    prologue."""
+    prologue. With ``record_input_mutations`` (the jit path; the module
+    frontend has its own epilogue) the input tensors that ``fn`` updates in
+    place are listed on ``comp_trc._input_mutations`` and their final values
+    returned beside the output, ``{"__out": ..., "__muts": (...)}``."""
     comp_trc = TraceCtx(fn)
     comp_trc.name = "computation"
 
@@ -192,6 +199,16 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict) -> tuple[TraceCtx, Tr
     with tracectx(comp_trc):
         with langctx_ctx(Languages.TORCH), sharp_edge_interceptors():
             result = fn(*proxied_args, **proxied_kwargs)
+        if getattr(comp_trc, "_inplace_seen", False):
+            result = resolve_inplace_tree(result)
+        # In-place updates of input tensors (``x.add_(1)``) are returned as
+        # extra outputs and copied into the caller's tensors after the run
+        # (the JAX package's epilogue, thunder_tpu/api.py:319, :969, for
+        # tensors; a container that fn mutates is not replayed).
+        muts = [i for i, p in enumerate(tensor_leaves) if resolve_inplace(p) is not p] if record_input_mutations else []
+        comp_trc._input_mutations = muts
+        if muts:
+            result = {"__out": result, "__muts": tuple(resolve_inplace(tensor_leaves[i]) for i in muts)}
         prims.python_return(result)
     comp_trc.output = result
 
@@ -209,10 +226,12 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict) -> tuple[TraceCtx, Tr
 
 
 def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
+    start = time.perf_counter()
     with sharp_edges_policy(cd.sharp_edges):
-        plg_trc, comp_trc = trace_program(cd.fn, args, kwargs)
+        plg_trc, comp_trc = trace_program(cd.fn, args, kwargs, record_input_mutations=True)
     mark(comp_trc, "Acquisition")
     mark(plg_trc, "Prologue construction")
+    phases = {"trace": time.perf_counter() - start}
 
     traces = [comp_trc]
     comp_trc = dce(comp_trc)
@@ -225,6 +244,11 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     # A joint fw+bw trace (from grad): let the flash backward run from the
     # saved (out, lse) instead of recomputing the softmax.
     comp_trc = save_sdpa_residuals_joint(comp_trc, cd.executors_list)
+    # Random draws read a key passed in each call (thunder_tpu/api.py:651).
+    comp_trc = functionalize_rng_ops(comp_trc)
+    if comp_trc.tags.get(RNG_TAG):
+        traces.append(comp_trc)
+    phases["transforms"] = time.perf_counter() - start - phases["trace"]
     extrace = transform_for_execution(comp_trc, cd.executors_list)
     traces.append(extrace)
     # The program runs eagerly: the dels are what free each intermediate's
@@ -235,8 +259,9 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     plg_ex = transform_for_execution(plg_trc, (get_executor("python"),))
     computation_fn, staging_stats = staging.stage(
         extrace.python_callable(), [extrace], cd.device, name=getattr(cd.fn, "__name__", "computation"),
-        disabled=cd.disable_jit_staging,
+        disabled=cd.disable_jit_staging, fresh=_key_input if comp_trc.tags.get(RNG_TAG) else None,
     )
+    phases["claim"] = time.perf_counter() - start - phases["trace"] - phases["transforms"]
     entry = CacheEntry(
         prologue_fn=plg_ex.python_callable(),
         computation_fn=computation_fn,
@@ -244,25 +269,95 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
         computation_traces=traces,
         value_guards=value_guards_of(traces[0]),
         staging=staging_stats,
+        needs_rng=bool(comp_trc.tags.get(RNG_TAG)),
+        input_mutations=list(traces[0]._input_mutations),
     )
+    entry.stats.trace_s = time.perf_counter() - start
+    entry.stats.phases = phases
+    cs.trace_seconds += entry.stats.trace_s
+    cs.compile_count += 1
     cs.last_traces = traces
+    cs.last_prologue_traces = entry.prologue_traces
     cs.cache_entries.append(entry)
     return entry
+
+
+def _key_input(args: tuple) -> set:
+    """The RNG key's position in a program's flat inputs: the last."""
+    return {len(args) - 1}
 
 
 def _probe_entries(cs: CompileStats, args: tuple, kwargs: dict, device):
     """Run each entry's prologue, newest first; GuardFailure is the
     controlled miss (reference: thunder/__init__.py:409-447)."""
     for entry in reversed(cs.cache_entries):
+        cs.prologue_runs += 1
+        entry.stats.prologue_runs += 1
         try:
             flat_inps = entry.prologue_fn(*args, **kwargs)
         except GuardFailure:
+            entry.stats.guard_fails += 1
             continue
         inps = [bridge.to_torch(x, device) for x in flat_inps]
         if entry.value_guards and not check_value_guards(entry.value_guards, inps):
+            entry.stats.guard_fails += 1
             continue
         return entry, inps
     return None, None
+
+
+def _replay_input_mutations(entry: CacheEntry, args: tuple, kwargs: dict, out: dict) -> Any:
+    """Copy each updated input's final value into the caller's tensor (a
+    numpy input: its array), then return the program's own output."""
+    import numpy as np
+    import torch
+
+    callers = [x for x in tree_flatten((args, kwargs))[0] if bridge.is_concrete_tensor(x)]
+    for i, val in zip(entry.input_mutations, out["__muts"]):
+        target = callers[i]
+        if isinstance(target, torch.Tensor):
+            with torch.no_grad():
+                target.copy_(val.to(target.dtype))
+        else:
+            np.copyto(target, val.detach().cpu().numpy().astype(target.dtype, copy=False))
+    return out["__out"]
+
+
+# The global RNG seed (thunder_tpu/api.py:957-966): the k-th call of a
+# program with random draws after ``seed(n)`` draws from PRNGKey(n + k).
+_global_rng = {"seed": 0}
+
+
+def seed(n: int) -> None:
+    """Set the global RNG seed used for traces with random ops."""
+    _global_rng["seed"] = int(n)
+
+
+def _next_key(device) -> "torch.Tensor":
+    """The next call's key, copied to ``device`` before the program runs
+    (outside any CUDA-graph capture, which refuses a host-to-device copy);
+    a staged program takes it as an ordinary copied input."""
+    _global_rng["seed"] += 1
+    return rngex.host_key(rngex.prng_key_words(_global_rng["seed"]), device)
+
+
+def _autocast_transforms(autocast: Any) -> tuple:
+    """The ``autocast=`` option as the trace transform put first
+    (thunder_tpu/api.py:1620-1627): a dtype or its name, or True for bf16."""
+    if not autocast:
+        return ()
+    from thunder_tpu_torch.core import dtypes
+    from thunder_tpu_torch.transforms.autocast import autocast as autocast_transform
+
+    if isinstance(autocast, bool):
+        dtype = dtypes.bfloat16
+    elif isinstance(autocast, str):  # numpy knows no "bfloat16" without ml_dtypes
+        dtype = getattr(dtypes, autocast.removeprefix("torch."), None)
+        if not isinstance(dtype, dtypes.dtype):
+            raise ValueError(f"autocast={autocast!r} names no dtype")
+    else:
+        dtype = dtypes.to_dtype(autocast)
+    return (lambda trc: autocast_transform(trc, dtype),)
 
 
 def jit(
@@ -272,6 +367,7 @@ def jit(
     device: Any = None,
     sharp_edges: Any = "allow",
     disable_jit_staging: bool = False,
+    autocast: Any = None,
     _trace_transforms: Sequence[Callable] = (),
     **module_options,
 ) -> Callable:
@@ -289,19 +385,24 @@ def jit(
     ``executors/staging.py``); ``disable_jit_staging=True`` runs every call
     eagerly, and an entry that reads the host (``item``, a masked attention's
     verdict) runs eagerly anyway. ``last_staging(fn)`` says which, and why.
+    ``autocast`` ("bfloat16", "float16", a dtype, or True for bf16) runs
+    the matrix products in that dtype, inputs cast down and results back
+    (``transforms/autocast.py``), before any other trace transform.
+    A program that draws random numbers takes a fresh key each call
+    (``seed``, ``transforms/rng.py``).
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
 
     A ``torch.nn.Module`` gives a ``ThunderModule`` (``frontend/module.py``),
-    which also takes ``rematerialize=`` (default True); the JAX package's
-    ``seq_bucket=``/``seq_pad_value=`` raise, naming the slice of the port
-    that brings them. A module runs unstaged: its autograd bridge runs the
-    forward and the backward apart.
+    which also takes ``rematerialize=`` (default True) and ``autocast=``;
+    the JAX package's ``seq_bucket=``/``seq_pad_value=`` raise, naming the
+    slice of the port that brings them. On CUDA its compiled forward and
+    backward are staged as a CUDA graph each.
     """
     if fn is None:
         return functools.partial(jit, executors=executors, device=device, sharp_edges=sharp_edges,
-                                 disable_jit_staging=disable_jit_staging, _trace_transforms=_trace_transforms,
-                                 **module_options)
+                                 disable_jit_staging=disable_jit_staging, autocast=autocast,
+                                 _trace_transforms=_trace_transforms, **module_options)
 
     import torch
 
@@ -310,7 +411,8 @@ def jit(
             raise NotImplementedError("trace transforms are not supported on the nn.Module frontend")
         from thunder_tpu_torch.frontend.module import thunder_module
 
-        return thunder_module(fn, executors=executors, device=device, sharp_edges=sharp_edges, **module_options)
+        return thunder_module(fn, executors=executors, device=device, sharp_edges=sharp_edges,
+                              disable_jit_staging=disable_jit_staging, autocast=autocast, **module_options)
     if module_options:
         raise TypeError(f"jit() got unexpected options {sorted(module_options)}")
 
@@ -318,9 +420,10 @@ def jit(
         fn=fn,
         executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
         device=devices.resolve_device(device),
-        trace_transforms=tuple(_trace_transforms),
+        trace_transforms=_autocast_transforms(autocast) + tuple(_trace_transforms),
         sharp_edges=resolve_sharp_edges_option(sharp_edges),
         disable_jit_staging=bool(disable_jit_staging),
+        compile_options={} if autocast is None else {"autocast": autocast},
     )
     cs = CompileStats()
 
@@ -331,15 +434,31 @@ def jit(
             return _dispatch(args, kwargs)
 
     def _dispatch(args: tuple, kwargs: dict):
+        cs.calls += 1
+        start = time.perf_counter_ns()
         entry, inps = _probe_entries(cs, args, kwargs, cd.device)
-        if entry is not None:
+        cs.cache_lookup_ns += time.perf_counter_ns() - start
+        first = entry is None
+        if not first:
             cs.cache_hits += 1
         else:
             cs.cache_misses += 1
             entry = _compile_entry(cd, cs, args, kwargs)
             inps = [bridge.to_torch(x, cd.device) for x in entry.prologue_fn(*args, **kwargs)]
+        entry.stats.hits += 1
         cs.last_staging = entry.staging
-        return entry.computation_fn(*inps)
+        if entry.needs_rng:
+            inps = inps + [_next_key(cd.device)]
+        start = time.perf_counter()
+        out = entry.computation_fn(*inps)
+        if first:
+            if cd.device.type == "cuda":
+                torch.cuda.synchronize(cd.device)
+            entry.stats.first_run_s = time.perf_counter() - start
+            cs.first_run_seconds += entry.stats.first_run_s
+        if entry.input_mutations:
+            out = _replay_input_mutations(entry, args, kwargs, out)
+        return out
 
     fn_._lc_cd = cd
     fn_._lc_cs = cs
@@ -376,8 +495,29 @@ def value_and_grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
     return jit(fn, _trace_transforms=(lambda trc: grad_transform(trc, return_value=True),), **jit_kwargs)
 
 
+def compile_data(fn: Callable) -> CompileData:
+    return fn._lc_cd
+
+
+def compile_stats(fn: Callable) -> CompileStats:
+    return fn._lc_cs
+
+
+def last_compile_options(fn: Callable) -> dict:
+    """The compile options a pass read, with what for (reference:
+    thunder_tpu/api.py:2337): none, as in the JAX package, since no pass
+    reads one yet."""
+    return {}
+
+
 def last_traces(fn: Callable) -> list:
     return fn._lc_cs.last_traces
+
+
+def last_prologue_traces(fn: Callable) -> list:
+    """The prologue traces of the entry compiled last: as built, and
+    claimed."""
+    return fn._lc_cs.last_prologue_traces
 
 
 def last_backward_traces(fn: Callable) -> list:
@@ -398,3 +538,35 @@ def cache_hits(fn: Callable) -> int:
 
 def cache_misses(fn: Callable) -> int:
     return fn._lc_cs.cache_misses
+
+
+def cache_info(fn: Callable) -> dict:
+    """Cache counters and seconds, with the keys of the JAX package's
+    ``cache_info`` (thunder_tpu/api.py:1404). The port has no fast path: every
+    hit is found by running prologues (``slow_hits``; ``fast_hits`` is 0),
+    no de-opt ladder (``degradation_level`` 0) and no liveness planner
+    (``predicted_peak_bytes`` None)."""
+    cs = fn._lc_cs
+    phases: dict = {}
+    for e in cs.cache_entries:
+        for k, v in e.stats.phases.items():
+            phases[k] = phases.get(k, 0.0) + v
+    return {
+        "cache_option": "constant_values",
+        "calls": cs.calls,
+        "hits": cs.cache_hits,
+        "misses": cs.cache_misses,
+        "fast_hits": 0,
+        "slow_hits": cs.cache_hits,
+        "prologue_runs": cs.prologue_runs,
+        "compiles": cs.compile_count,
+        "recompiles": cs.recompile_count,
+        "trace_seconds": cs.trace_seconds,
+        "first_run_seconds": cs.first_run_seconds,
+        "cache_lookup_us_total": cs.cache_lookup_ns / 1e3,
+        "compile_phase_seconds": phases,
+        "degradation_level": 0,
+        "entries": [dict(index=i, symbolic=False, buckets="exact", fast_hits=0, degradation_level=0,
+                         predicted_peak_bytes=None, **e.stats.as_dict())
+                    for i, e in enumerate(cs.cache_entries)],
+    }

@@ -16,7 +16,7 @@ import contextlib
 import contextvars
 import enum
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 
@@ -109,6 +109,27 @@ class CompileData:
     # Run every entry eagerly instead of capturing it as a CUDA graph
     # (executors/staging.py; reference: thunder_tpu/common.py:139).
     disable_jit_staging: bool = False
+    # The compile options given to jit (``autocast``).
+    compile_options: dict = field(default_factory=dict)
+
+
+class EntryStats:
+    """One cache entry's counters (reference: thunder_tpu/common.py:156),
+    those the port keeps: it has no fast path, de-opt ladder or liveness
+    planner (``api.cache_info``)."""
+
+    __slots__ = ("hits", "prologue_runs", "guard_fails", "trace_s", "first_run_s", "phases")
+
+    def __init__(self):
+        self.hits = 0  # calls this entry served, its first included
+        self.prologue_runs = 0
+        self.guard_fails = 0  # prologue or value-guard rejections while probing
+        self.trace_s = 0.0  # host seconds tracing, transforming and claiming it
+        self.first_run_s = 0.0  # its first run, ending in a synchronize on CUDA
+        self.phases: dict = {}
+
+    def as_dict(self) -> dict:
+        return {k: getattr(self, k) for k in self.__slots__}
 
 
 @dataclass
@@ -125,6 +146,12 @@ class CacheEntry:
     # Whether computation_fn is staged as a CUDA graph, or why not, and its
     # counters (executors/staging.py StagingStats).
     staging: Any = None
+    # The program takes a fresh RNG key as its last input (transforms/rng.py).
+    needs_rng: bool = False
+    # Positions of the input tensors the program updates in place: their
+    # final values are its extra outputs, copied into the caller's tensors.
+    input_mutations: list = field(default_factory=list)
+    stats: EntryStats = field(default_factory=EntryStats)
 
 
 class CompileStats:
@@ -134,6 +161,18 @@ class CompileStats:
         self.cache_entries: list[CacheEntry] = []
         self.cache_hits: int = 0
         self.cache_misses: int = 0
+        self.calls: int = 0
+        self.prologue_runs: int = 0
+        self.compile_count: int = 0
+        self.trace_seconds: float = 0.0
+        self.first_run_seconds: float = 0.0
+        self.cache_lookup_ns: int = 0
         self.last_traces: list = []
+        self.last_prologue_traces: list = []
         self.last_backward_traces: list = []
         self.last_staging = None  # the StagingStats of the entry that ran last
+        self.last_backward_staging = None  # a module's: that of the backward it ran with
+
+    @property
+    def recompile_count(self) -> int:
+        return max(self.compile_count - 1, 0)

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import torch
+
 
 def _item(raw):
     """A staged scalar program's result (a 0-d tensor or a number) as a
@@ -40,14 +42,15 @@ class ValueGuard:
         self.expected = expected
         self.description = description
 
-    def evaluate(self, tensor_inputs) -> bool:
+    def holds(self, tensor_inputs):
+        """Whether the subprogram reproduces the value on ``tensor_inputs``:
+        a bool, or a 0-d bool tensor where the value lies, not yet read."""
         raw = self.fn(*tensor_inputs)
         if raw is None:
             raise RuntimeError(f"value guard produced no value: {self.description}")
-        got = _item(raw)
         if self.kind == "bool":
-            return bool(got) == self.expected
-        return got == self.expected
+            raw = raw != 0 if isinstance(raw, torch.Tensor) else bool(raw)
+        return raw == self.expected
 
     def __repr__(self) -> str:
         return f"<ValueGuard {self.kind} == {self.expected!r} ({self.description})>"
@@ -126,11 +129,41 @@ def value_guards_of(trc) -> tuple:
     return tuple(getattr(trc, "_value_guards", ()) or ())
 
 
+def first_holding(guard_sets, tensor_inputs) -> Optional[int]:
+    """The index of the first of ``guard_sets`` whose guards all hold on
+    ``tensor_inputs``, or None. Each guard is compared where its value lies,
+    and every comparison is read on the host together: one read a call
+    (counted in ``check_value_guards.host_reads``), however many sets are
+    tried."""
+    sets = []  # per set: the comparisons still to read, or None when it fails
+    for guards in guard_sets:
+        pending = []
+        for g in guards:
+            try:
+                ok = g.holds(tensor_inputs)
+            except Exception:
+                pending = None
+                break
+            if isinstance(ok, torch.Tensor):
+                pending.append(ok.reshape(()))
+            elif not ok:
+                pending = None
+                break
+        sets.append(pending)
+        if pending == []:
+            break  # holds with nothing to read: no later set is needed
+    flat = [t for pending in sets if pending for t in pending]
+    if flat:
+        check_value_guards.host_reads += 1
+        flags = iter(torch.stack([t.to(flat[0].device) for t in flat]).tolist())
+        sets = [None if pending is None else [next(flags) for _ in pending] for pending in sets]
+    return next((i for i, got in enumerate(sets) if got is not None and all(got)), None)
+
+
 def check_value_guards(guards, tensor_inputs) -> bool:
-    for g in guards:
-        try:
-            if not g.evaluate(tensor_inputs):
-                return False
-        except Exception:
-            return False
-    return True
+    """Whether every guard holds on ``tensor_inputs``, read as
+    :func:`first_holding` reads them."""
+    return first_holding([guards], tensor_inputs) == 0
+
+
+check_value_guards.host_reads = 0

@@ -53,8 +53,10 @@ raises. JAX decides on the device with ``lax.cond``; here the verdict is
 read on the host once per mask tensor and kept on the tensor
 (``_thunder_flash_plan``, keyed on its ``_version`` and the shapes), so the
 layers of one call, and the backward, which receives the same tensor, read
-it once. Under segment ids a pad query attends the pad keys it may see,
-where splash leaves it undefined; both are finite, and the consumers of a
+it once. The module frontend takes it when it compiles an entry and gives
+it to the claims (:func:`with_verdicts`), which then read nothing; a value
+guard holds later calls to it. Under segment ids a pad query attends the
+pad keys it may see, where splash leaves it undefined; both are finite, and the consumers of a
 padded batch read valid rows only.
 
 Each wrapper launches its kernel on CUDA tensors, or raises; on CPU tensors it
@@ -75,6 +77,7 @@ import torch
 
 from thunder_tpu_torch.core import dtypes
 from thunder_tpu_torch.core.proxies import pyval
+from thunder_tpu_torch.core.trace import from_trace
 from thunder_tpu_torch.executors import _build
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
 
@@ -494,65 +497,112 @@ class MaskPlan:
     kv_seg: Optional[torch.Tensor] = None
 
 
-def _verify_mask(m: torch.Tensor, B: int, Tq: int, Tkv: int, causal: bool) -> MaskPlan:
-    """The value checks of ``_sdpa_runtime`` (``flashex.py:342-414``), with
-    their verdict read on the host once."""
-    kind = _mask_kind_of(tuple(m.shape), m.dtype == torch.bool, B, Tq, Tkv)  # the checker has classed it
-    ones_q = torch.ones((B, Tq), dtype=torch.int32, device=m.device)
+def _valid(m: torch.Tensor, B: int, Tq: int, Tkv: int) -> tuple:
+    """``(kind, mm, visible, q_valid, kv_valid)`` of a mask the checker has
+    classed: ``mm`` the mask at (B, Tkv) or (B, Tq, Tkv), ``visible`` what
+    each query may see, and the valid queries and keys."""
+    kind = _mask_kind_of(tuple(m.shape), m.dtype == torch.bool, B, Tq, Tkv)
     if kind in ("keypad", "keypad_verify"):
         mm = m.reshape(-1, Tkv).expand(B, Tkv)
         kv_valid = mm if kind == "keypad" else mm == 0
+        return kind, mm, kv_valid, torch.ones((B, Tq), dtype=torch.bool, device=m.device), kv_valid
+    mm = m.expand(B, 1, Tq, Tkv)[:, 0]
+    visible = mm if mm.dtype == torch.bool else mm == 0
+    kv_valid = visible[:, -1, :]  # the last query sees every valid key, causal or not
+    return kind, mm, visible, kv_valid[:, Tkv - Tq:], kv_valid  # self-attention: the queries are the last Tq keys
+
+
+def mask_verdict(m: torch.Tensor, B: int, Tq: int, Tkv: int, causal: bool) -> torch.Tensor:
+    """The value checks of ``_sdpa_runtime`` (``flashex.py:342-414``) as a
+    0-d int64 tensor on the mask's device, not read here: 0 for the exact
+    branch, 1 for the kernels without causality, 2 for them causal."""
+    kind, mm, visible, q_valid, kv_valid = _valid(m, B, Tq, Tkv)
+    if kind in ("keypad", "keypad_verify"):
         # A row with no valid key takes the exact branch: torch's safe
         # softmax gives zeros there, and an all-(-1e9) additive row attends
         # uniformly, where segments would mask everything.
         ok = kv_valid.any(-1).all()
         if kind == "keypad_verify":
             ok = ok & (kv_valid | (mm <= _NEG_BIG)).all()
-        if not bool(ok):
-            return MaskPlan(False)
-        return MaskPlan(True, causal, ones_q, kv_valid.to(torch.int32).contiguous())
-
-    if Tq > Tkv:  # a query row has no key position of its own to read validity from
-        return MaskPlan(False)
-    m4 = m.expand(B, 1, Tq, Tkv)[:, 0]
-    visible = m4 if m4.dtype == torch.bool else m4 == 0
-    kv_valid = visible[:, -1, :]  # the last query sees every valid key, causal or not
-    q_valid = kv_valid[:, Tkv - Tq:]  # self-attention: the queries are the last Tq keys
+        return ok.to(torch.int64) * (2 if causal else 1)
     i = torch.arange(Tq, device=m.device)[:, None]
     j = torch.arange(Tkv, device=m.device)[None, :]
     tri = i + (Tkv - Tq) >= j
     pad_row = ~q_valid[:, :, None]  # only rows with a valid query must match
-    ok_causal = ((tri[None] & kv_valid[:, None, :]) == visible) | pad_row
-    ok_full = (kv_valid[:, None, :] == visible) | pad_row
-    verdict = torch.stack([ok_causal.all(), ok_full.all()])
-    if m4.dtype != torch.bool:
-        verdict = verdict & (visible | (m4 <= _NEG_BIG)).all()
-    is_causal, is_full = verdict.tolist()
-    if not (is_causal or is_full):
-        return MaskPlan(False)
-    return MaskPlan(True, bool(is_causal), q_valid.to(torch.int32).contiguous(),
-                    kv_valid.to(torch.int32).contiguous())
+    ok_causal = (((tri[None] & kv_valid[:, None, :]) == visible) | pad_row).all()
+    ok_full = ((kv_valid[:, None, :] == visible) | pad_row).all()
+    if mm.dtype != torch.bool:
+        exact = (visible | (mm <= _NEG_BIG)).all()
+        ok_causal, ok_full = ok_causal & exact, ok_full & exact
+    return torch.where(ok_causal, 2, ok_full.to(torch.int64))
 
 
-def mask_plan(m: Optional[torch.Tensor], q: torch.Tensor, k: torch.Tensor, causal: bool) -> MaskPlan:
-    """The plan for SDPA of q over k under mask ``m``. The verdict is kept on
-    the mask tensor, keyed on its ``_version`` and the shapes, so every layer
-    that receives the same mask in one call, and the backward, which
+def mask_plan(m: Optional[torch.Tensor], q: torch.Tensor, k: torch.Tensor, causal: bool,
+              verdict: Optional[int] = None) -> MaskPlan:
+    """The plan of one masked SDPA call. Its :func:`mask_verdict` is
+    ``verdict`` when the claim was given one (the module frontend takes it
+    when it compiles and guards it), else read on the host once per mask
+    tensor and kept on it, keyed on its ``_version`` and the shapes, so every
+    layer that receives the same mask in one call, and the backward, which
     receives it again, read the host once. ``mask_plan.host_reads`` counts
     the reads."""
     if m is None:
         return MaskPlan(True, causal)
-    key = (m._version, q.shape[0], q.shape[-2], k.shape[-2], causal)
+    B, Tq, Tkv = q.shape[0], q.shape[-2], k.shape[-2]
+    key = (m._version, B, Tq, Tkv, causal, verdict)
     memo = getattr(m, "_thunder_flash_plan", None)
     if memo is not None and memo[0] == key:
         return memo[1]
-    plan = _verify_mask(m, q.shape[0], q.shape[-2], k.shape[-2], causal)
-    mask_plan.host_reads += 1
+    if verdict is None:
+        verdict = int(mask_verdict(m, B, Tq, Tkv, causal))
+        mask_plan.host_reads += 1
+    plan = MaskPlan(False)
+    if verdict:
+        _, _, _, q_valid, kv_valid = _valid(m, B, Tq, Tkv)
+        plan = MaskPlan(True, verdict == 2, q_valid.to(torch.int32).contiguous(), kv_valid.to(torch.int32).contiguous())
     m._thunder_flash_plan = (key, plan)
     return plan
 
 
 mask_plan.host_reads = 0
+
+
+def _masked_site(bsym):
+    """``(mask proxy, (B, Tq, Tkv, causal))`` of a claim of this executor
+    that reads its mask's verdict on the host, else None."""
+    if bsym.sym.executor is not ex or not ex.reads_host(bsym):
+        return None
+    if bsym.sym.id == "torch.sdpa_bwd":
+        b = {"is_causal": False, **dict(zip(("g", "query", "key", "value", "attn_mask", "is_causal"), bsym.args)),
+             **bsym.kwargs}
+    else:
+        b = _sdpa_bound(bsym.args, bsym.kwargs)
+    q, k = b["query"], b["key"]
+    return b["attn_mask"], (q.shape[0], q.shape[-2], k.shape[-2], bool(pyval(b["is_causal"])))
+
+
+def masked_sites(trace) -> list:
+    """:func:`_masked_site` of each distinct mask in ``trace``, in the order
+    the trace first passes it."""
+    sites = {}
+    for bsym in trace.bound_symbols:
+        site = _masked_site(bsym)
+        if site is not None and site[0].name not in sites:
+            sites[site[0].name] = site
+    return list(sites.values())
+
+
+def with_verdicts(trace, verdicts: dict):
+    """``trace`` with each masked claim of this executor given its mask's
+    verdict (``verdicts``: mask name to :func:`mask_verdict`'s value), so
+    that none reads the host when it runs."""
+    new = from_trace(trace)
+    for bsym in trace.bound_symbols:
+        site = _masked_site(bsym)
+        if site is not None:
+            bsym = bsym.from_bsym(kwargs={**bsym.kwargs, "verdict": verdicts[site[0].name]})
+        new.bound_symbols.append(bsym)
+    return new
 
 
 # =============================================================================
@@ -562,7 +612,8 @@ mask_plan.host_reads = 0
 
 def _sdpa_bound(args, kwargs) -> dict:
     names = ("query", "key", "value", "attn_mask", "dropout_p", "is_causal", "scale", "enable_gqa")
-    defaults = {"attn_mask": None, "dropout_p": 0.0, "is_causal": False, "scale": None, "enable_gqa": False}
+    defaults = {"attn_mask": None, "dropout_p": 0.0, "is_causal": False, "scale": None, "enable_gqa": False,
+                "verdict": None}
     b = dict(defaults)
     b.update(zip(names, args))
     b.update(kwargs)
@@ -630,20 +681,20 @@ def _sdpa_impl(*args, **kwargs):
         return legacy_flash_fwd(q, k, v, causal=causal, scale=scale)
     if mask is None:
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    plan = mask_plan(mask, q, k, causal)
+    plan = mask_plan(mask, q, k, causal, b["verdict"])
     if not plan.flash:
         return sdpa_exact(q, k, v, mask, causal=causal, scale=scale)
     return flash_attention_fwd_seg(q, k, v, plan.q_seg, plan.kv_seg, causal=plan.causal, scale=scale)
 
 
-def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False):
+def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False, verdict=None):
     """The recompute-path backward (``flashex.py:474-496`` of the JAX
     package): the forward again with logsumexp under the same plan, then the
     backward kernel; dk/dv come summed over each kv group."""
     scale, causal = _scale_of(query, scale), bool(is_causal)
     if _impl_name() == "legacy":
         return legacy_flash_bwd(g, query, key, value, causal=causal, scale=scale)
-    plan = mask_plan(attn_mask, query, key, causal)
+    plan = mask_plan(attn_mask, query, key, causal, verdict)
     if not plan.flash:
         return sdpa_exact_bwd(g, query, key, value, attn_mask, causal=causal, scale=scale)
     return flash_attention_bwd_recompute(g, query, key, value, causal=plan.causal, scale=scale, q_seg=plan.q_seg,
@@ -651,12 +702,14 @@ def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=
 
 
 def _sdpa_reads_host(*args, **kwargs) -> bool:
-    """A masked claim reads its mask's verdict on the host (``mask_plan``)."""
-    return _sdpa_bound(args, kwargs)["attn_mask"] is not None
+    """A masked claim reads its mask's verdict on the host (``mask_plan``),
+    unless it was given one (:func:`with_verdicts`)."""
+    b = _sdpa_bound(args, kwargs)
+    return b["attn_mask"] is not None and b["verdict"] is None
 
 
-def _bwd_reads_host(g, query, key, value, attn_mask=None, *args, **kwargs) -> bool:
-    return attn_mask is not None
+def _bwd_reads_host(g, query, key, value, attn_mask=None, *args, verdict=None, **kwargs) -> bool:
+    return attn_mask is not None and verdict is None
 
 
 ex.register_implementation("torch.scaled_dot_product_attention", fn=_sdpa_impl, checker=_sdpa_checker,

@@ -14,7 +14,9 @@ program holding a ``DEVICE_SYNC_OP`` (``prims.item``); a program with a
 claim whose implementation reads a device value on the host (the flash
 executor's masked SDPA, whose verdict the JAX package takes on the device
 with ``lax.cond``: a graph would bake one mask's verdict into every later
-mask's replays); and any device but CUDA. Each gives its reason.
+mask's replays), unless the claim was given its verdict (the module
+frontend gives it when it compiles, and guards it); and any device but
+CUDA. Each gives its reason.
 
 Inputs are the tensor leaves of the call's arguments, read one of two ways:
 - in place, by address: a leaf whose address was the same on the warm-up
@@ -23,7 +25,8 @@ Inputs are the tensor leaves of the call's arguments, read one of two ways:
   updates it in place writes, the caller's tensor: the counterpart of
   donation. Each call checks the address; a miss re-captures with that leaf
   copied, and is counted;
-- copied: every other leaf (a new batch each call) is copied into a buffer
+- copied: every other leaf (a new batch each call; an RNG key, always) is
+  copied into a buffer
   the stage owns before each replay; one that the program updates in place
   (seen in the warm-up through the tensor's version counter) is copied back
   after it.
@@ -35,7 +38,17 @@ address.
 Outputs: a tensor output that is an input comes back as the caller's tensor;
 every other is copied out of the graph's pool into a fresh tensor, so a
 result the caller holds is never overwritten by a later call (``jax.jit``
-returns fresh arrays). Launch counters keep meaning launches per call: a
+returns fresh arrays). A stage may lend some outputs instead
+(``lend_from``: the module forward's saved tensors, which its backward's
+graph then reads at those addresses, ``settle`` letting that graph see them
+before it captures; the module backward's grads, which autograd takes as
+``.grad``): the caller gets aliases of the pool's buffers, with no copy.
+Before the graph runs again, an alias it handed out that is still alive is
+moved to memory of its own; if a lent buffer is still held by a tensor the
+stage did not hand out (autograd's ``.grad`` kept past the next backward,
+as under gradient accumulation), the graph is captured anew, leaving the
+old pool to its holders, and copies its outputs from then on. No caller
+sees its tensor change. Launch counters keep meaning launches per call: a
 replay adds to each kernel wrapper's count what its capture launched.
 
 No fallback: a capture that fails raises ``StagingError``, naming the line of
@@ -46,10 +59,12 @@ from __future__ import annotations
 
 import linecache
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from thunder_tpu_torch.core.prims import OpTags
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
@@ -138,9 +153,28 @@ class CudaGraphStage:
     """``fn`` staged as one CUDA graph. ``eager`` is ``fn`` itself, unstaged;
     ``stats`` is the entry's :class:`StagingStats`."""
 
-    def __init__(self, fn: Callable, *, name: str):
+    def __init__(self, fn: Callable, *, name: str, fresh: Optional[Callable[[tuple], set]] = None,
+                 lend_from: Optional[Callable[[Any], int]] = None, settle: bool = False):
         self.eager = fn
         self.name = name
+        # ``fresh(args)``: the flat indices of the inputs that are new each
+        # call (an RNG key, a backward's cotangents): always copied, never
+        # read by address, whatever address the allocator happens to reuse.
+        self.fresh = fresh
+        # ``lend_from(out)``: the output leaves from that flat index on are
+        # lent, not copied: the caller gets aliases of the graph's own
+        # buffers. ``_lent``: the aliases handed out since the last run;
+        # ``_held``: each lent buffer's storage and its count of references
+        # when nothing outside the stage held it.
+        self.lend_from = lend_from
+        self._lent: list = []
+        self._held: list = []
+        # ``settle``: inputs that moved between the warm-up and the next call
+        # (a backward's saved tensors, eager at first, then the forward
+        # graph's) get one more eager call before the capture, so the graph
+        # reads them by address.
+        self.settle = settle
+        self._settled = False
         self.stats = StagingStats(staged=True)
         self._spec = None
         self._sig = None
@@ -154,9 +188,16 @@ class CudaGraphStage:
         if self._sig is None or spec != self._spec or sig != self._sig:
             if self._sig is not None:
                 self.stats.guard_misses += 1
+            self._settled = not self.settle
             return self._warm_up(args, leaves, spec, sig)
         if self._graph is None:
-            return self._capture(leaves, {i for i, a in self._warm_addrs.items() if leaves[i].data_ptr() == a})
+            stable = {i for i, a in self._warm_addrs.items() if leaves[i].data_ptr() == a}
+            if self.fresh is not None:
+                stable -= self.fresh(args)
+            if not self._settled and stable != set(self._warm_addrs) - (self.fresh(args) if self.fresh else set()):
+                self._settled = True
+                return self._warm_up(args, leaves, spec, sig)
+            return self._capture(leaves, stable)
         missed = {i for i in self._by_address if leaves[i].data_ptr() != self._addrs[i]}
         if missed:
             self.stats.guard_misses += 1
@@ -185,9 +226,22 @@ class CudaGraphStage:
         self._mutated = {i for i, t in tensors.items() if t._version != versions[i]}
         return out
 
+    def _reclaim(self) -> bool:
+        """Before the graph overwrites the buffers it lent: move every alias
+        handed out and still alive to memory of its own, and say whether a
+        lent buffer is still held all the same."""
+        for ref in self._lent:
+            alias = ref()
+            if alias is not None:
+                alias.set_(alias.clone())
+        self._lent = []
+        return any(torch._C._storage_Use_Count(ref.cdata) > n for ref, n in self._held)
+
     def _capture(self, leaves: list, by_address: set):
         t0 = time.perf_counter()
+        self._reclaim()
         self._graph = self._static = self._outs = None  # a re-capture frees the old graph's pool first
+        self._held = []
         copied = [i for i in self._warm_addrs if i not in by_address]
         static = list(leaves)
         for i in copied:
@@ -207,10 +261,19 @@ class CudaGraphStage:
         ids = {id(static[i]): i for i in self._warm_addrs}
         self._outs = [("in", ids[id(o)]) if id(o) in ids else ("new", o) if isinstance(o, torch.Tensor)
                       else ("const", o) for o in out_leaves]
-        self._graph, self._static, self._copied = graph, static, copied
+        # Only the buffers the stage copies into: a leaf read in place is the
+        # caller's to keep alive, or to free.
+        self._graph, self._copied = graph, copied
+        self._static = [x if i in copied else None for i, x in enumerate(static)]
         self._by_address = set(by_address)
         self._addrs = {i: leaves[i].data_ptr() for i in by_address}
         self._copy_back = [i for i in copied if i in self._mutated]
+        first_lent = len(self._outs) if self.lend_from is None else self.lend_from(out)
+        self._outs = [("lent", o) if kind == "new" and j >= first_lent else (kind, o)
+                      for j, (kind, o) in enumerate(self._outs)]
+        del out, out_leaves, static
+        storages = [StorageWeakRef(o.untyped_storage()) for kind, o in self._outs if kind == "lent"]
+        self._held = [(ref, torch._C._storage_Use_Count(ref.cdata)) for ref in storages]
         self.stats.copied_bytes_per_call = (sum(_nbytes(leaves[i]) for i in copied + self._copy_back)
                                             + sum(_nbytes(o) for kind, o in self._outs if kind == "new"))
         self.stats.captures += 1
@@ -221,6 +284,9 @@ class CudaGraphStage:
         return result
 
     def _replay(self, leaves: list):
+        if self._reclaim():
+            self.lend_from = None
+            return self._capture(leaves, self._by_address)
         _copy([self._static[i] for i in self._copied], [leaves[i] for i in self._copied])
         self._graph.replay()
         _build.add_launches(self._delta)
@@ -233,17 +299,28 @@ class CudaGraphStage:
         fresh = [torch.empty_like(x) for x in pooled]
         _copy(fresh, pooled)
         fresh = iter(fresh)
-        outs = [leaves[x] if kind == "in" else next(fresh) if kind == "new" else x for kind, x in self._outs]
+        outs, aliases = [], {}
+        for kind, x in self._outs:
+            if kind == "lent":
+                # An alias, one a buffer (autograd then takes a buffer lent
+                # twice as it would the same tensor twice: it copies it): the
+                # caller may drop it, or it is moved (_reclaim).
+                if id(x) not in aliases:
+                    aliases[id(x)] = x.detach()
+                    self._lent.append(weakref.ref(aliases[id(x)]))
+                x = aliases[id(x)]
+            outs.append(leaves[x] if kind == "in" else next(fresh) if kind == "new" else x)
         return tree_unflatten(outs, self._out_spec)
 
 
 def stage(fn: Callable, traces: Sequence, device: torch.device, *, name: str,
-          disabled: bool = False) -> tuple[Callable, StagingStats]:
+          disabled: bool = False, **options) -> tuple[Callable, StagingStats]:
     """``(callable, stats)``: ``fn`` staged as a CUDA graph, or ``fn`` itself
     with the reason it is not (:func:`unstaged_reason` over the claimed
-    ``traces`` that ``fn`` runs)."""
+    ``traces`` that ``fn`` runs). ``options`` are :class:`CudaGraphStage`'s
+    (``fresh``, ``lend_from``, ``settle``)."""
     reason = unstaged_reason(traces, device, disabled)
     if reason is not None:
         return fn, StagingStats(staged=False, reason=reason)
-    staged = CudaGraphStage(fn, name=name)
+    staged = CudaGraphStage(fn, name=name, **options)
     return staged, staged.stats

@@ -9,8 +9,7 @@ reduction and shape prims around them, and those that the nn.Module
 frontend's models reach besides: indexed updates (``setitem``,
 ``index_put``), convolution and pooling, and their backwards. A prim
 without a lowering here is not claimed, and the claiming pass raises "No
-executor for primitive ..." for it (the random-number prims, for one). The
-full OpInfo matrix is a later part of the port.
+executor for primitive ..." for it.
 
 Numeric notes, as in the JAX package:
 - ``prims.div`` is true division for floats and *floor* division for
@@ -31,6 +30,7 @@ import torch.nn.functional as F
 
 from thunder_tpu_torch.core import devices, dtypes
 from thunder_tpu_torch.core.prims import PrimIDs
+from thunder_tpu_torch.executors import rngex
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
 
 ex = OperatorExecutor("torch")
@@ -130,6 +130,53 @@ def _tensor_from_sequence(seq, *, device, dtype):
 
 
 _reg(PrimIDs.TENSOR_FROM_SEQUENCE, _tensor_from_sequence)
+
+
+# -- random draws -------------------------------------------------------------
+#
+# The keyed draws are ``jax.random.uniform``/``normal`` of ``fold_in(key,
+# salt)``, bit for bit for uniform (``executors/rngex.py``; on CUDA the draw
+# kernel, ``csrc/rng.cu``). The RNG pass (``transforms/rng.py``) rewrites
+# every unkeyed draw of a jitted program into a keyed one; an unkeyed draw
+# run directly takes the next key of its own host counter, as the JAX
+# package's eager ``uniform`` does (``jaxex.py:104-118``), and refuses to run
+# inside a CUDA-graph capture, where that key would become a constant.
+
+
+def _uniform_keyed(shape, minval, maxval, key, salt, *, device, dtype):
+    return rngex.draw(key, salt, shape, _td(dtype), minval, maxval)
+
+
+def _randn_keyed(shape, key, salt, *, device, dtype):
+    return rngex.draw(key, salt, shape, _td(dtype), normal=True)
+
+
+_host_rng = {"seed": 0}
+
+
+def _eager_key(device) -> torch.Tensor:
+    dev = _dev(device)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("an unkeyed random draw cannot be captured in a CUDA graph: its key would be a constant "
+                           "of the graph (the RNG pass keys the draws of a jitted program)")
+    _host_rng["seed"] += 1
+    return rngex.host_key(rngex.prng_key_words(_host_rng["seed"]), dev)
+
+
+def _uniform_philox(shape, minval, maxval, *, seed, offset, device, dtype):
+    """``uniform(fold_in(PRNGKey(seed), offset))``: constant by design, so
+    its key may be filled in on the device (and baked into a graph)."""
+    key = rngex.key_on(rngex.prng_key_words(seed), _dev(device))
+    return rngex.draw(key, offset, shape, _td(dtype), minval, maxval)
+
+
+_reg(PrimIDs.UNIFORM_KEYED, _uniform_keyed)
+_reg(PrimIDs.RANDN_KEYED, _randn_keyed)
+_reg(PrimIDs.UNIFORM, lambda shape, minval, maxval, *, device, dtype: rngex.draw(
+    _eager_key(device), None, shape, _td(dtype), minval, maxval))
+_reg(PrimIDs.RANDN, lambda shape, *, device, dtype: rngex.draw(_eager_key(device), None, shape, _td(dtype),
+                                                               normal=True))
+_reg(PrimIDs.UNIFORM_PHILOX, _uniform_philox)
 
 
 # -- shape --------------------------------------------------------------------

@@ -24,6 +24,20 @@ autograd accumulates each gradient into its ``.grad`` in the parameter's
 dtype and any torch optimizer works unchanged. When grad is disabled
 (``torch.no_grad()``) the forward alone is compiled and run, and nothing is
 saved for a backward that cannot come.
+
+On CUDA the compiled forward and backward each run as a CUDA graph
+(``executors/staging.py``), as the JAX package puts each under ``jax.jit``
+(``thunder_tpu/frontend/module.py:849-857``, ``:950-951``). A masked
+attention's verdict is taken when an entry is compiled and given to its
+claims, and a value guard holds each later call to it, so each verdict has
+its own entry and graphs. The forward lends its saved tensors to the
+backward, whose graph reads them where the forward's graph wrote them; the
+backward lends its grads to autograd, and copies them only once a
+``.grad`` is kept past the next backward (``staging.CudaGraphStage``).
+``autocast=`` applies ``transforms/autocast.py`` before the split (the JAX
+package's module frontend takes the option and leaves the products in
+f32); random draws take a fresh key each call, as the functional entries'
+do.
 """
 
 from __future__ import annotations
@@ -281,8 +295,8 @@ class ThunderModule:
     jitted function."""
 
     def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
-                 rematerialize: bool = True, **options):
-        from thunder_tpu_torch.api import DEFAULT_EXECUTORS
+                 rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None, **options):
+        from thunder_tpu_torch.api import DEFAULT_EXECUTORS, _autocast_transforms
         from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
         from thunder_tpu_torch.core import devices
         from thunder_tpu_torch.extend import resolve_executors
@@ -303,7 +317,10 @@ class ThunderModule:
             fn=module,
             executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
             device=devices.resolve_device(device),
+            trace_transforms=_autocast_transforms(autocast),
             sharp_edges=resolve_sharp_edges_option(sharp_edges),
+            disable_jit_staging=bool(disable_jit_staging),
+            compile_options={} if autocast is None else {"autocast": autocast},
         )
         self._lc_cs = CompileStats()
         self._params()  # a parameter off the jit's device raises here, not at the first call
@@ -398,6 +415,7 @@ class ThunderModule:
         from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals
         from thunder_tpu_torch.transforms.autodiff import forward_and_backward_from_trace
         from thunder_tpu_torch.transforms.common import cse, dce
+        from thunder_tpu_torch.transforms.rng import RNG_TAG, functionalize_rng_ops
 
         module = self._module
         executors = self._lc_cd.executors_list
@@ -426,6 +444,9 @@ class ThunderModule:
         traces = [comp]
         comp = cse(dce(comp))
         traces.append(comp)
+        for transform in self._lc_cd.trace_transforms:  # autocast
+            comp = transform(comp)
+            traces.append(comp)
 
         # Mark requires_grad on the trace's tensor args, which align with the
         # concrete tensor leaves of ((params, *args), kwargs) in pytree order.
@@ -438,12 +459,21 @@ class ThunderModule:
             if rg:
                 wrt.append(i)
         has_updates = isinstance(comp.output, dict) and "__updates" in comp.output
+        # Random draws read a key passed in each call, the forward's last
+        # input; the backward sees the forward's draws as saved tensors, or
+        # recomputes them from the saved key, bit for bit.
+        comp = functionalize_rng_ops(comp)
+        needs_rng = bool(comp.tags.get(RNG_TAG))
+        if needs_rng:
+            traces.append(comp)
+        entry = {"wrt": wrt, "has_updates": has_updates, "needs_rng": needs_rng, "stages": None}
 
         if not wrt:
-            ex = del_last_used(transform_for_execution(comp, executors))
+            guard, claimed, _ = _with_mask_verdicts(transform_for_execution(comp, executors), None, concrete, needs_rng)
+            ex = del_last_used(claimed)
             traces.append(ex)
-            return {"fwd": ex.python_callable(), "bwd": None, "traces": traces, "has_updates": has_updates,
-                    "value_guards": vguards}
+            return {**entry, "fwd": ex.python_callable(), "bwd": None, "traces": traces, "fw_trace": ex,
+                    "value_guards": vguards + guard}
 
         fw, bw = forward_and_backward_from_trace(comp)
         fw, bw = save_sdpa_residuals(fw, bw, executors)
@@ -452,10 +482,38 @@ class ThunderModule:
 
             fw, bw = rematerialize_forward_and_backward(fw, bw)
         n_saved = len(fw.tags["saved_for_backward"])
-        fw_ex = del_last_used(transform_for_execution(fw, executors))
-        bw_ex = del_last_used(take_saved_as_list(transform_for_execution(bw, executors), n_saved))
-        return {"fwd": fw_ex.python_callable(), "bwd": bw_ex.python_callable(), "wrt": wrt,
-                "traces": traces + [fw_ex, bw_ex], "has_updates": has_updates, "value_guards": vguards}
+        guard, fw_claimed, bw_claimed = _with_mask_verdicts(transform_for_execution(fw, executors),
+                                                            transform_for_execution(bw, executors), concrete, needs_rng)
+        fw_ex = del_last_used(fw_claimed)
+        bw_ex = del_last_used(take_saved_as_list(bw_claimed, n_saved))
+        return {**entry, "fwd": fw_ex.python_callable(), "bwd": bw_ex.python_callable(),
+                "traces": traces + [fw_ex, bw_ex], "fw_trace": fw_ex, "bw_trace": bw_ex,
+                "value_guards": vguards + guard}
+
+    def _staged(self, entry: dict) -> tuple:
+        """The entry's forward and backward, each staged as a CUDA graph
+        (``executors/staging.py``) at the entry's first call, with their
+        stats. An entry holds one mask verdict (a value guard), so a graph
+        never replays under another mask's verdict."""
+        from thunder_tpu_torch.api import _key_input
+        from thunder_tpu_torch.executors import staging
+
+        if entry["stages"] is None:
+            cd, name = self._lc_cd, type(self._module).__name__
+            # The forward lends its saved tensors (its output's second part)
+            # to the backward, whose graph reads them in place; the backward
+            # lends its grads to autograd, which takes them as ``.grad``.
+            lend = (lambda out: len(tree_flatten(out[0])[0])) if entry["bwd"] is not None else None
+            fwd, fstats = staging.stage(entry["fwd"], [entry["fw_trace"]], cd.device, name=f"{name}.forward",
+                                        disabled=cd.disable_jit_staging,
+                                        fresh=_key_input if entry["needs_rng"] else None, lend_from=lend)
+            bwd, bstats = None, None
+            if entry["bwd"] is not None:
+                bwd, bstats = staging.stage(entry["bwd"], [entry["bw_trace"]], cd.device, name=f"{name}.backward",
+                                            disabled=cd.disable_jit_staging, settle=True, fresh=_cotangents,
+                                            lend_from=lambda out: 0)
+            entry["stages"] = (fwd, bwd, fstats, bstats)
+        return entry["stages"]
 
     # -- call -----------------------------------------------------------------
 
@@ -466,7 +524,7 @@ class ThunderModule:
             return self._call_impl(args, kwargs)
 
     def _call_impl(self, args: tuple, kwargs: dict):
-        from thunder_tpu_torch.core.concrete import check_value_guards
+        from thunder_tpu_torch.core.concrete import first_holding
         from thunder_tpu_torch.executors import bridge
 
         params = self._params()
@@ -479,11 +537,9 @@ class ThunderModule:
         # A metadata key maps to a LIST of entries: traces that specialized
         # on input-derived scalar values (core/concrete.py value guards) are
         # disambiguated by re-evaluating their guards on the actual inputs.
-        entry = None
-        for cand in reversed(self._cache.get(key, ())):
-            if not cand["value_guards"] or check_value_guards(cand["value_guards"], inputs):
-                entry = cand
-                break
+        cands = list(reversed(self._cache.get(key, ())))
+        held = first_holding([c["value_guards"] for c in cands], inputs)
+        entry = None if held is None else cands[held]
         if entry is None:
             cs.cache_misses += 1
             entry = self._compile(params, args, kwargs, grad)
@@ -493,12 +549,17 @@ class ThunderModule:
         traces = entry["traces"]
         cs.last_traces = traces[:-1] if entry["bwd"] is not None else list(traces)
         cs.last_backward_traces = traces[-1:] if entry["bwd"] is not None else []
+        if entry["needs_rng"]:
+            from thunder_tpu_torch.api import _next_key
 
-        if entry["bwd"] is None:
+            inputs = inputs + [_next_key(self._lc_cd.device)]
+
+        fwd, bwd, cs.last_staging, cs.last_backward_staging = self._staged(entry)
+        if bwd is None:
             with torch.no_grad():
-                out = entry["fwd"](*inputs)
+                out = fwd(*inputs)
         else:
-            out = _run_thunder_function(entry, inputs)
+            out = _run_thunder_function(fwd, bwd, entry["wrt"], inputs)
         return self._postprocess_output(entry, out)
 
     def _postprocess_output(self, entry: dict, out):
@@ -522,23 +583,83 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
     return t.device.type == dev.type and (dev.type == "cpu" or t.device == dev)
 
 
-def _run_thunder_function(entry: dict, inputs: list):
+def _cotangents(args: tuple) -> set:
+    """A backward's inputs are ``(saved, *cotangents)``: the cotangents'
+    positions in its flat inputs, after the saved tensors."""
+    n = len(args[0])
+    return set(range(n, n + len(args) - 1))
+
+
+def _with_mask_verdicts(fw_claimed, bw_claimed, inputs: list, needs_rng: bool) -> tuple:
+    """``(guards, fw, bw)``: the claimed traces with each masked attention's
+    verdict (``flashex.mask_verdict``) taken on this call's ``inputs`` and
+    given to its claims, so that none reads the host when it runs, and the
+    value guard that holds a later call to those verdicts, read with the
+    entry's other guards. The JAX package decides on the device with
+    ``lax.cond``. A backward mask is one the forward computed, saved or
+    recomputed under its name."""
+    from thunder_tpu_torch.core import prims
+    from thunder_tpu_torch.core.concrete import ValueGuard
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.core.trace import from_trace, tracectx
+    from thunder_tpu_torch.executors import flashex
+    from thunder_tpu_torch.transforms.common import dce
+
+    sites = flashex.masked_sites(fw_claimed)
+    if not sites:
+        return (), fw_claimed, bw_claimed
+    names = [m.name for m, _ in sites]
+    missing = {m.name for m, _ in flashex.masked_sites(bw_claimed or fw_claimed)} - set(names)
+    if missing:
+        raise NotImplementedError(f"the backward reads the verdict of masks the forward does not compute: {missing}")
+    trc = from_trace(fw_claimed)
+    trc.bound_symbols.extend(b for b in fw_claimed.bound_symbols if b.sym.id != PrimIDs.RETURN)
+    with tracectx(trc):
+        prims.python_return(tuple(m for m, _ in sites))
+    trc.output = tuple(m for m, _ in sites)
+    masks_of = dce(trc).python_callable()
+    key = [None] if needs_rng else []  # the forward's last input, which no mask reads
+
+    def verdicts(*tensor_inputs):
+        """The verdicts as the digits of one base-3 number."""
+        with torch.no_grad():
+            masks = masks_of(*tensor_inputs, *key)
+            return sum(flashex.mask_verdict(m, *shape) * 3**i for i, (m, (_, shape)) in enumerate(zip(masks, sites)))
+
+    code = int(verdicts(*inputs))
+    by_name = {name: code // 3**i % 3 for i, name in enumerate(names)}
+    guard = ValueGuard(verdicts, "int", code, f"mask verdicts of {', '.join(names)}")
+    return ((guard,), flashex.with_verdicts(fw_claimed, by_name),
+            None if bw_claimed is None else flashex.with_verdicts(bw_claimed, by_name))
+
+
+def _run_thunder_function(fwd, bwd, wrt: list, inputs: list):
     """Run a compiled forward and backward as one ``torch.autograd.Function``
     (reference parity: thunder/executors/torch_autograd.py:20). Its inputs are
     the tensors that the backward returns grads for, so autograd sends each
     grad to the right ``.grad`` or upstream node; the outputs are the tensor
     leaves of the forward's output tree, rebuilt around its other leaves."""
     holder: dict = {}
-    wrt = entry["wrt"]
 
     class ThunderFunction(torch.autograd.Function):
         @staticmethod
         def forward(ctx, *grad_inputs):
-            out, saved = entry["fwd"](*inputs)
-            ctx.thunder_saved = list(saved)
+            out, saved = fwd(*inputs)
             flat, spec = tree_flatten(out)
             pos = [i for i, x in enumerate(flat) if isinstance(x, torch.Tensor)]
-            holder.update(flat=flat, spec=spec, pos=pos)
+            # A saved tensor that is also an output is detached: it would
+            # otherwise carry the requires_grad autograd sets on the outputs,
+            # and the staged backward's signature would change with it. Every
+            # other is held as given: the staged forward lends its saved
+            # tensors and moves these very objects out of its graph's
+            # buffers if they are still held when it runs again.
+            returned = {id(flat[i]) for i in pos}
+            ctx.thunder_saved = [t.detach() if id(t) in returned else t for t in saved]
+            # Only the tree's other leaves: an output tensor held here would
+            # keep its own grad_fn, and through this class's closure the
+            # staged programs and their pools, alive past the outputs' life
+            # (autograd's nodes are not traversed by the cycle collector).
+            holder.update(flat=[None if i in pos else x for i, x in enumerate(flat)], spec=spec, pos=pos)
             return tuple(flat[i] for i in pos)
 
         @staticmethod
@@ -546,7 +667,7 @@ def _run_thunder_function(entry: dict, inputs: list):
             saved, ctx.thunder_saved = ctx.thunder_saved, None
             # The backward clears ``saved`` as it goes (take_saved_as_list),
             # so each saved tensor is freed after its last use.
-            grads = entry["bwd"](saved, *cotangents)
+            grads = bwd(saved, *cotangents)
             return tuple(grads)
 
     outs = ThunderFunction.apply(*(inputs[i] for i in wrt))

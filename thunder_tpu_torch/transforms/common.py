@@ -19,6 +19,11 @@ def has_tag(bsym: BoundSymbol, tag: OpTags) -> bool:
     return bsym.has_tag(tag)
 
 
+def has_random_op(bsym: BoundSymbol) -> bool:
+    """Whether ``bsym`` is a random prim or holds one at any depth."""
+    return bsym.has_tag(OpTags.RANDOM_OP) or any(has_random_op(s) for s in bsym.subsymbols)
+
+
 def dce(trace: TraceCtx, keep: Sequence[Proxy] = ()) -> TraceCtx:
     """Dead-code elimination via a backward liveness sweep
     (reference: transform_common.py `dce:41`)."""
@@ -58,8 +63,10 @@ def cse(trace: TraceCtx) -> TraceCtx:
         bsym = bsym.from_bsym_swap_proxies(swap_map, skip_output=True)
         # Effectful ops (SIDE_EFFECT/IN_PLACE) must never be merged: two
         # identical copy_ calls are two observable writes, not one value.
+        # Nor two draws: a composite that holds one (dropout) is a draw too,
+        # where the JAX package's check sees only a top-level random prim.
         if (
-            has_tag(bsym, OpTags.RANDOM_OP)
+            has_random_op(bsym)
             or has_tag(bsym, OpTags.DONT_DCE)
             or has_tag(bsym, OpTags.SIDE_EFFECT)
             or has_tag(bsym, OpTags.IN_PLACE)
