@@ -16,7 +16,9 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    (4096, 1024); the training kernels at pythia-410m's shapes; the masked
    forward and recompute backward on the padded path's (2, 32, 2048, 100),
    with a planted fault (the padding ignored) that must fail; the legacy
-   route's forward and backward (row 10) at the training path's. Each is
+   route's forward and backward (row 10) at the training path's; the int8
+   GEMM at open_llama_3b's five products (M = 4096), bit-equal, with a
+   planted fault (the K tail unread) that must differ. Each is
    held against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
    PyTorch call (CUDA events); the launch plans of rope (at both batches
@@ -70,7 +72,9 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    same module jitted with ``disable_jit_staging=True`` from the same state
    (forward logits, a step's loss and grads, ``torch.equal``; enqueue ms and
    a step's peak memory both ways), and one profiled forward and step each
-   way;
+   way: the staged step's peak at most 1 GiB and its device time at most 1%
+   above the unstaged step's (the forward and backward graphs share one
+   memory pool);
 12. runs 3 staged open_llama_3b training steps under
    ``THUNDER_FLASH_IMPL=legacy``: the legacy route's launches (row 10)
    against the claimed traces, the losses against phase 6's splash route;
@@ -86,7 +90,23 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    timed with its bound; then a staged ``jit(F.dropout(x, 0.1))`` on
    (2, 2048, 3200) bf16: a fresh mask each replay, staged equal to
    unstaged after ``seed``, the keep rate within 5 sigma of its expectation;
-15. prints one JSON line describing every kernel, then the device line.
+15. trains open_llama_3b (26 layers, B=2, T=2048) with every linear of
+   the forward through the int8 GEMM (``executors=["quant", "flash",
+   "fused", "torch"]``, straight-through bf16 backward, phase 6's SGD):
+   the loss with the kernel bit-equal to the loss with its plain version
+   in its seat, and a planted fault (the K tail unread) that must differ;
+   3 steps unstaged, then 3 staged from the same state (losses bit-equal,
+   131 int8 GEMMs a step), the first loss against phase 6's bf16 step's on
+   the same weights, each later step's fall against the bf16 step's,
+   s/step, enqueue and peak memory;
+16. serves open_llama_3b's forward (26 layers, B=2) under
+   ``cache="symbolic values"`` at T = 2048, 1950, 2000 and 1900: two
+   128-wide buckets, one entry and one CUDA graph each, cropped logits
+   against the exact-shape jit, s/call and padding waste per T; the loss
+   under padding against the exact loss, the CE kernel still claimed; then
+   the Llama stand-in at 2 layers under ``jit(module, seq_bucket=128)`` at
+   T = 1950 and 2000 with one forward capture;
+17. prints one JSON line describing every kernel, then the device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -1119,9 +1139,9 @@ def check_legacy_kernels(cfg, rows: dict) -> None:
 def _wrappers() -> dict:
     """Each kernel's wrapper by row name. The rope backward is the rope
     kernel's wrapper: its launches are those made during a backward."""
-    from thunder_tpu_torch.executors import flashex, fusedex, normex, rngex
+    from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex, rngex
 
-    return {"rng_draw": rngex.draw, "flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
+    return {"int8_gemm": quantex.int8_gemm, "rng_draw": rngex.draw, "flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
             "ce_fwd": fusedex.cross_entropy_rows, "flash_fwd_lse": flashex.flash_attention_fwd_lse,
             "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd,
             "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
@@ -2009,8 +2029,8 @@ def run_llama(launches: dict) -> None:
     reads0 = check_value_guards.host_reads
     profile_call("llama_forward_padded", lambda: forward(am), batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
                  module="chip_smoke.LlamaForCausalLM", staged=True)
-    profile_call("llama_train_step_padded", step, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b", optimizer="sgd",
-                 module="chip_smoke.LlamaForCausalLM", staged=True)
+    staged_prof = profile_call("llama_train_step_padded", step, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
+                               optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=True)
     log(f"  value-guard reads over the profiled calls (one a call): {check_value_guards.host_reads - reads0}")
 
     def forward_eager():
@@ -2025,8 +2045,26 @@ def run_llama(launches: dict) -> None:
 
     profile_call("llama_forward_padded_unstaged", forward_eager, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
                  module="chip_smoke.LlamaForCausalLM", staged=False)
-    profile_call("llama_train_step_padded_unstaged", step_eager, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
-                 optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=False)
+    eager_prof = profile_call("llama_train_step_padded_unstaged", step_eager, batch=LOSS_BATCH, seq=SEQ,
+                              config="open_llama_3b", optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=False)
+    # The staged step at eager memory: its forward and backward graphs share
+    # one pool, the backward reusing the saved activations as they die.
+    gap = (peak - eager_peak) / 2**30
+    dev_ratio = staged_prof["device_ms"] / eager_prof["device_ms"]
+    log(f"  staged step against unstaged, this run: peak {peak / 2**30:.2f} vs {eager_peak / 2**30:.2f} GiB "
+        f"({gap:+.2f} GiB, limit +{STAGED_PEAK_GAP_GIB:.0f}); device {staged_prof['device_ms']:.2f} vs "
+        f"{eager_prof['device_ms']:.2f} ms ({dev_ratio - 1:+.2%}, limit +{STAGED_DEVICE_RATIO - 1:.0%})")
+    require(gap <= STAGED_PEAK_GAP_GIB, f"the staged module step's peak is {gap:.2f} GiB above the unstaged step's")
+    require(dev_ratio <= STAGED_DEVICE_RATIO, f"the staged module step's device time is {dev_ratio - 1:.2%} above "
+            "the unstaged step's")
+
+
+# The staged module step against the unstaged one in the same run: peak
+# memory at most this far above (a pool shared by the forward and backward
+# graphs; what is left is the capture stream's cuBLAS workspace and the
+# copied outputs), device time at most this factor.
+STAGED_PEAK_GAP_GIB = 1.0
+STAGED_DEVICE_RATIO = 1.01
 
 
 def compare_llama_staging(m, tm, tm_eager, ids, am, labels) -> None:
@@ -2392,6 +2430,324 @@ def run_dropout(launches: dict) -> None:
     require(worst <= 5.0, f"the keep rate is {worst:.2f} sigma from its expectation")
 
 
+# =============================================================================
+# Phase 3 (int8 row), 15: the int8 linear (executors/quantex.py, csrc/int8_gemm.cu)
+# =============================================================================
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+QUANT_STACK = ["quant", "flash", "fused", "torch"]
+# open_llama_3b's five products at M = B*T = 4096: (label, N, K).
+INT8_SHAPES = (("qkv", 9600, 3200), ("attn proj", 3200, 3200), ("fc_1, fc_2", 8640, 3200),
+               ("mlp proj", 3200, 8640), ("lm_head", 32000, 3200))
+# The int8 training step against phase 6's bf16 step from the same seed and
+# data. Step 1 runs both on the same weights: int8 products move each
+# linear's output by about 1% (per-tensor activation and per-row weight
+# scales, 127 levels) and the mean loss over 4096 tokens by about 1e-3
+# (relative); the limit is twice that. Later steps compare two trajectories
+# (the straight-through grads see the int8 forward), so they are held to
+# training, not to equality: the int8 loss falls every step, by at least
+# half of the bf16 step's fall.
+QUANT_LOSS_REL = 2e-3
+QUANT_FALL_SHARE = 0.5
+
+
+def check_int8_kernel(rows: dict) -> None:
+    """The int8 GEMM (``quantex.int8_gemm``) against its plain version at
+    open_llama_3b's five products with M = 4096, on the quantized values of
+    random bf16 activations and weights, bf16 out: bit-equal (the int32 sums
+    are exact, the epilogue rounds as the plain version does). Each timed
+    beside its bound (2*M*N*K at 1,979 TOP/s int8 against the bytes at 3.35
+    TB/s), the plain version, ``torch._int_mm`` (the int32 product alone, a
+    yardstick) and the bf16 ``torch.matmul`` the quant stack replaces. A
+    planted fault (the K tail left unread) must differ."""
+    import torch
+
+    from thunder_tpu_torch.executors import quantex
+
+    record = _recorder(rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    M = LOSS_BATCH * SEQ
+    for label, N, K in INT8_SHAPES:
+        a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((N, K), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        qa, sa = quantex.quantize_per_tensor(a.float(), 127.0)
+        qw, sw = quantex.quantize_per_channel(w.float(), 127.0)
+        scale = sa * sw[:, 0]
+        got = quantex.int8_gemm(qa, qw, scale, None, torch.bfloat16)
+        want = quantex.int8_gemm_plain(qa, qw, scale, None, torch.bfloat16)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        require(same, f"int8_gemm {label}: {(got != want).sum().item()} of {got.numel()} values differ from the plain")
+        cut = K - 16
+        fault = quantex.int8_gemm(qa[:, :cut].contiguous(), qw[:, :cut].contiguous(), scale, None, torch.bfloat16)
+        require(not torch.equal(fault, want), f"int8_gemm {label}: the planted fault (K tail unread) went unseen")
+        del got, want, fault
+        b_ms, b_by = bound(M * K + N * K + 4 * N + 2 * M * N, 2 * M * N * K, PEAK_INT8_OPS)
+        ms = time_ms(lambda: quantex.int8_gemm(qa, qw, scale, None, torch.bfloat16), 10)
+        plain_ms = time_ms(lambda: quantex.int8_gemm_plain(qa, qw, scale, None, torch.bfloat16), 2, warmup=1)
+        int_mm_ms = _library_ms(lambda: torch._int_mm(qa, qw.t()))
+        bf16_ms = time_ms(lambda: torch.matmul(a, w.t()), 10)
+        log(f"  int8_gemm {label} (M={M}, N={N}, K={K}): {2 * M * N * K / ms / 1e9:.1f} TOP/s, "
+            f"{b_ms / ms:.1%} of the bound; torch._int_mm {int_mm_ms if int_mm_ms is None else round(int_mm_ms, 4)} "
+            f"ms, bf16 torch.matmul {bf16_ms:.4f} ms; the K-tail fault differs")
+        # The row's timing is its first check's: qkv, the first product a layer runs.
+        record("int8_gemm", label, err, 0.0 if same else 1.0, 0.0, source="thunder_tpu_torch/csrc/int8_gemm.cu",
+               replaces="thunder_tpu/executors/quantex.py:134 (lax.dot_general int8 x int8 -> int32; no Pallas kernel)",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=int_mm_ms)
+        del a, w, qa, qw
+
+
+def run_quant_train(cfg, launches: dict, bf16_losses: list) -> None:
+    """open_llama_3b at full width and depth, B=2 x T=2048, bf16, through
+    ``value_and_grad(loss_fn, executors=QUANT_STACK)``: every linear of the
+    forward (26 x 5 + the lm_head: 131) through the int8 GEMM, the backward
+    straight-through in bf16, and phase 6's bf16-true SGD, from phase 6's
+    seed and data. First the loss with the kernel against the loss with its
+    plain version in the kernel's seat (bit-equal), and with a planted fault
+    (the K tail unread) that must differ; then 3 steps unstaged and, from
+    the same state, 3 staged as one CUDA graph: launches per step, losses
+    bit-equal between the two, the first within QUANT_LOSS_REL of phase 6's
+    bf16 step's and each later fall at least QUANT_FALL_SHARE of its; s/step,
+    enqueue and peak memory."""
+    import numpy as np
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.executors import quantex, staging
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel.train import sgd_update
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    flat = tree_flatten(params)[0]
+    idx = torch.from_numpy(np.random.RandomState(SEED).randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.roll(idx, -1, dims=1)
+    n = cfg.n_layer
+    per_fw = 5 * n + 1
+
+    loss_fn = tt.jit(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), executors=QUANT_STACK, disable_jit_staging=True)
+    kernel = quantex.int8_gemm
+    l_kernel = float(loss_fn(params, idx, tgt))
+
+    def plain(qa, qw, scale, bias, dtype):
+        return quantex.int8_gemm_plain(qa, qw, scale, bias, dtype)
+
+    def tail_unread(qa, qw, scale, bias, dtype):
+        cut = qa.shape[1] - 16
+        return kernel(qa[:, :cut].contiguous(), qw[:, :cut].contiguous(), scale, bias, dtype)
+
+    plain.launches = tail_unread.launches = 0  # the wrapper counts on whatever sits in its seat
+    try:
+        quantex.int8_gemm = plain
+        l_plain = float(loss_fn(params, idx, tgt))
+        quantex.int8_gemm = tail_unread
+        l_fault = float(loss_fn(params, idx, tgt))
+    finally:
+        quantex.int8_gemm = kernel
+    src = tt.last_traces(loss_fn)[-1].python()
+    claimed = src.count("quant_linear(")
+    log(f"  quant loss: kernel {l_kernel:.6f}, plain version in its seat {l_plain:.6f} (bit-equal {l_kernel == l_plain}),"
+        f" planted fault (K tail unread) {l_fault:.6f}; linears claimed by quant {claimed}")
+    require(claimed == per_fw, f"the quant stack claims {claimed} linears of the loss, expected {per_fw}")
+    require(l_kernel == l_plain, "the int8 GEMM's loss differs from its plain version's")
+    require(l_fault != l_plain, "the planted fault (K tail unread) went unseen")
+    del loss_fn
+
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), executors=QUANT_STACK, disable_jit_staging=True)
+
+    def step(p, i, t):
+        loss, grads = vg(p, i, t)
+        sgd_update(tree_flatten(p)[0], list(grads), train.LR, train.WD, in_place=True)
+        return loss
+
+    staged = staging.CudaGraphStage(step, name="open_llama_3b int8 step")
+    initial = [p.detach().to("cpu") for p in flat]
+
+    def run(fn, label):
+        losses, times = [], []
+        for k in range(TRAIN_STEPS):
+            if k == 1:
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t = time.perf_counter()
+            loss = fn(params, idx, tgt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            counts = _launch_counts()
+            require(counts["int8_gemm"] == per_fw and counts["flash_fwd_lse"] == n and counts["flash_bwd"] == n,
+                    f"{label} step {k + 1}: int8_gemm {counts['int8_gemm']} (expected {per_fw}), flash "
+                    f"{counts['flash_fwd_lse']}/{counts['flash_bwd']} (expected {n})")
+            for k2 in ("int8_gemm", "flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd"):
+                launches[k2] = launches.get(k2, 0) + counts[k2]
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {label}: {', '.join(f'{x:.4f}' for x in times)} s/step; max_memory_allocated (steps 2-{TRAIN_STEPS}) "
+            f"{peak / 2**30:.2f} GiB; int8_gemm launches per step {per_fw}; loss {', '.join(f'{x:.6f}' for x in losses)}")
+        return losses, times, peak
+
+    eager_losses, _, eager_peak = run(step, "unstaged int8 step")
+    with torch.no_grad():
+        for p, p0 in zip(flat, initial):
+            p.copy_(p0)
+    initial.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, _, peak = run(staged, "staged int8 step")
+    st = staged.stats
+    require(st.staged and st.captures == 1 and st.guard_misses == 0, f"the int8 step did not stage: {st}")
+    require(losses == eager_losses, f"staged int8 losses {losses} are not bit-equal to the unstaged {eager_losses}")
+    first = abs(losses[0] - bf16_losses[0]) / abs(bf16_losses[0])
+    falls = [(a0 - a1) / (b0 - b1) for a0, a1, b0, b1 in zip(losses, losses[1:], bf16_losses, bf16_losses[1:])]
+    prof = profile_call("quant_train_step_staged", lambda: staged(params, idx, tgt), batch=LOSS_BATCH, seq=SEQ,
+                        config=CFG_NAME, executors=",".join(QUANT_STACK), optimizer="sgd")
+    log(f"  int8 step staged: {min(prof['wall_ms']):.2f} ms/step (wall, profiled run's timed calls), enqueue "
+        f"{min(prof['enqueue_ms']):.2f} ms, device {prof['device_ms']:.2f} ms, busy {prof['busy_share']:.4f}, peak "
+        f"{peak / 2**30:.2f} GiB (unstaged {eager_peak / 2**30:.2f}); against phase 6's bf16 steps "
+        f"{', '.join(f'{x:.6f}' for x in bf16_losses)}: step 1 rel {first:.3e} (limit {QUANT_LOSS_REL:.0e}), each "
+        f"later fall {', '.join(f'{x:.3f}' for x in falls)} of the bf16 step's (limit {QUANT_FALL_SHARE})")
+    require(first <= QUANT_LOSS_REL, f"the int8 step's first loss is {first:.3e} from the bf16 step's")
+    require(all(x >= QUANT_FALL_SHARE for x in falls), f"the int8 loss does not fall with the bf16 loss: {falls}")
+    del params, flat, staged, vg
+
+
+# =============================================================================
+# Phase 16: symbolic values on the serving path
+# =============================================================================
+
+SYM_LENGTHS = (2048, 1950, 2000, 1900)  # buckets (1920, 2048] and (1792, 1920] of 128
+# A cropped output against the exact-shape jit at the same T. The two run
+# the same ops on other shapes (M = 2*2048 rows against 2*T in every
+# product), and cuBLAS sums a product in another order at each shape: bf16
+# roundings apart that 26 layers compound, where phase 4's limit is set for
+# 2 layers. The padded run is held bit-equal to the exact-shape run at the
+# bucket's ceiling on the same tokens, which shows the padding exact; so
+# what it prints against the exact run at T is what two unpadded runs of
+# the two lengths differ by, and the limit is twice phase 4's.
+SYM_ROW_REL = 2.0 ** -3
+
+
+def run_symbolic_serving(cfg, launches: dict) -> None:
+    """open_llama_3b's forward at full width and depth, B=2, under
+    ``jit(forward, cache="symbolic values")`` with dim 1 of the tokens
+    marked and 128-wide sequence buckets, over T = 2048, 1950, 2000, 1900:
+    two buckets, one entry and one CUDA graph each, captured at the bucket's
+    ceiling. Three passes: the first warms up and captures, the second
+    completes the captures, the third only replays and is timed. Each
+    cropped output bit-equal to an exact-shape jit at the bucket's ceiling
+    on the same tokens, and within SYM_ROW_REL of one at the same T; the
+    loss under padding (tokens and targets marked) bit-equal to the exact
+    loss at the ceiling with the pad targets ignored, and within LOSS_REL of
+    the exact loss; then the Llama stand-in, 2 layers, under
+    ``jit(module, seq_bucket=128)`` at T = 1950 and 2000: one forward
+    capture, logits against the exact-shape module."""
+    import numpy as np
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.models import gpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    leaf = len(tree_flatten(params)[0])  # the tokens' index among the tensor leaves
+    fwd = lambda p, i: gpt.forward(p, i, cfg)  # noqa: E731
+    sym = tt.jit(fwd, cache="symbolic values", symbolic_dims={leaf: (1,)}, buckets={"seq": 128})
+    exact = tt.jit(fwd, disable_jit_staging=True)
+    ids = {T: torch.from_numpy(np.random.RandomState(SEED + T).randint(0, cfg.vocab_size, (LOSS_BATCH, T))).cuda()
+           for T in SYM_LENGTHS}
+    n = cfg.n_layer
+    times = {}
+    for p in range(3):
+        for T in SYM_LENGTHS:
+            _zero_counts()
+            t = time.perf_counter()
+            out = sym(params, ids[T])
+            torch.cuda.synchronize()
+            times[T] = time.perf_counter() - t
+            counts = _launch_counts()
+            require(tuple(out.shape) == (LOSS_BATCH, T, cfg.padded_vocab_size), f"symbolic T={T}: shape {out.shape}")
+            require(counts["flash_fwd"] == n and counts["rope"] == 2 * n, f"symbolic T={T}: launches {counts}")
+            for k in ("flash_fwd", "rope"):
+                launches[k] = launches.get(k, 0) + counts[k]
+            if p == 0:
+                ceil = -(-T // 128) * 128
+                padded = torch.cat([ids[T], ids[T].new_zeros((LOSS_BATCH, ceil - T))], dim=1)
+                same = torch.equal(out, exact(params, padded)[:, :T])
+                err = row_rel_err(out, exact(params, ids[T]))
+                log(f"  symbolic T={T}: cropped logits bit-equal to the exact-shape jit at the ceiling {ceil} on the "
+                    f"same tokens {same}; against the exact-shape jit at T row_rel_err {err:.3e} (limit "
+                    f"{SYM_ROW_REL:.3e})")
+                require(same, f"symbolic T={T}: logits differ from the exact-shape run at the bucket's ceiling")
+                require(err <= SYM_ROW_REL, f"symbolic T={T}: logits differ from the exact-shape run")
+            del out
+    cs = tt.compile_stats(sym)
+    info = tt.cache_info(sym)
+    stages = [e.staging for e in cs.cache_entries]
+    log(f"  symbolic entries {[e['buckets'] for e in info['entries']]}: captures {[s.captures for s in stages]}, "
+        f"replays {[s.replays for s in stages]}, guard misses {[s.guard_misses for s in stages]}; compiles "
+        f"{info['compiles']}, hits {info['hits']}")
+    require(info["compiles"] == 2 and all(s.staged and s.captures == 1 and s.guard_misses == 0 for s in stages),
+            "symbolic serving: expected two entries, one capture each")
+    for T in SYM_LENGTHS:
+        ceil = -(-T // 128) * 128
+        log(f"  symbolic T={T} (bucket ceiling {ceil}, padding waste {(ceil - T) / ceil:.2%}): "
+            f"{times[T]:.4f} s/call (a replay)")
+    del sym, exact
+
+    T = SYM_LENGTHS[1]
+    tgt = torch.roll(ids[T], -1, dims=1)
+    lf = lambda p, i, t: gpt.loss_fn(p, i, t, cfg)  # noqa: E731
+    sym_loss = tt.jit(lf, cache="symbolic values", symbolic_dims={leaf: (1,), leaf + 1: (1,)}, buckets={"seq": 128})
+    got = [float(sym_loss(params, ids[T], tgt)) for _ in range(3)]
+    exact_loss = tt.jit(lf, disable_jit_staging=True)
+    want = float(exact_loss(params, ids[T], tgt))
+    # The exact-shape loss at the ceiling with the pad rows' targets ignored:
+    # what the padded program computes.
+    pad = 2048 - T
+    at_ceiling = float(exact_loss(params, torch.cat([ids[T], ids[T].new_zeros((LOSS_BATCH, pad))], 1),
+                                  torch.cat([tgt, tgt.new_full((LOSS_BATCH, pad), -100)], 1)))
+    rel = max(abs(g - want) / abs(want) for g in got)
+    src = tt.last_traces(sym_loss)[-1].python()
+    log(f"  loss under padding T={T} (ceiling 2048): {', '.join(f'{g:.6f}' for g in got)} against the exact "
+        f"{want:.6f}, rel {rel:.3e} (limit {LOSS_REL:.0e}); bit-equal to the exact loss at the ceiling with the pad "
+        f"targets ignored ({at_ceiling:.6f}) {all(g == at_ceiling for g in got)}; the CE kernel claimed "
+        f"{'fused_cross_entropy(' in src}")
+    require(all(g == at_ceiling for g in got), "the loss under padding differs from the exact loss at the ceiling")
+    require(rel <= LOSS_REL, "the loss under padding differs from the exact loss")
+    require("fused_cross_entropy(" in src, "the padded loss does not run the CE kernel")
+    require(tt.last_staging(sym_loss).staged, "the symbolic loss did not stage")
+    del sym_loss, params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = replace(OPEN_LLAMA_3B, num_hidden_layers=2)
+    m = llama(cfg2, seed=SEED, device="cuda")
+    tm = tt.jit(m, seq_bucket=128)
+    ref = tt.jit(m, disable_jit_staging=True)
+    with torch.no_grad():
+        for T in (1950, 2000):
+            x = torch.from_numpy(np.random.RandomState(T).randint(0, cfg2.vocab_size, (LOSS_BATCH, T))).cuda()
+            got = tm(x)["logits"]
+            err = row_rel_err(got, ref(x)["logits"])
+            require(tuple(got.shape) == (LOSS_BATCH, T, cfg2.vocab_size) and err <= LOGITS_ROW_REL,
+                    f"seq_bucket T={T}: shape {tuple(got.shape)}, row_rel_err {err:.3e}")
+            log(f"  Llama stand-in, 2 layers, seq_bucket=128, T={T}: logits against the exact-shape module "
+                f"row_rel_err {err:.3e}")
+    st, cs = tt.compile_stats(tm).last_staging, tt.compile_stats(tm)
+    log(f"  seq_bucket: cache misses {cs.cache_misses}, hits {cs.cache_hits}; forward captures {st.captures}, "
+        f"replays {st.replays}")
+    require(cs.cache_misses == 1 and st.staged and st.captures == 1, "seq_bucket: expected one entry, one capture")
+    del m, tm, ref
+
+
 def main() -> int:
     import torch
 
@@ -2428,6 +2784,7 @@ def main() -> int:
     check_pythia_shapes(pythia, rows)
     check_masked_kernels(cfg, rows)
     check_legacy_kernels(cfg, rows)
+    check_int8_kernel(rows)
 
     log(f"[4] {CFG_NAME} at full width, 2 layers: default executors vs torch executor, forward and gradients")
     check_two_layers(cfg)
@@ -2476,6 +2833,14 @@ def main() -> int:
     log("[14] keyed random draws: the draw kernel at the path's shapes, a staged dropout")
     check_draw_kernel(rows)
     run_dropout(launches)
+
+    log(f"[15] {CFG_NAME}, {cfg.n_layer} layers: the int8 training step ({','.join(QUANT_STACK)}), SGD, "
+        "unstaged and staged")
+    run_quant_train(cfg, launches, splash_losses)
+
+    log(f"[16] symbolic values on the serving path: {CFG_NAME}'s forward over T = "
+        f"{', '.join(map(str, SYM_LENGTHS))} in 128-wide buckets; the Llama stand-in under seq_bucket=128")
+    run_symbolic_serving(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -1166,3 +1166,186 @@ def test_staged_module_lends_its_grads_unless_they_are_kept(dev):
     grads = sum(p.numel() * 4 for p in m_s.parameters())
     assert (bst.captures, bst.guard_misses, bst.copied_bytes_per_call) == (2, 0, 32 * 64 * 4 + grads)
     assert all(torch.equal(a, b) for a, b in zip(m_s.grads, m_e.grads))
+
+
+# The int8 linear's product (csrc/int8_gemm.cu): int32 sums are exact and
+# the epilogue rounds as the plain version does, so the two are bit-equal.
+_INT8_SHAPES = [(4096, 9600, 3200), (333, 517, 64), (129, 65, 100), (77, 250, 8640), (1, 3, 3200), (200, 300, 65)]
+
+
+@pytest.mark.parametrize("M,N,K", _INT8_SHAPES)
+@pytest.mark.parametrize("dtype,with_bias", [(torch.bfloat16, False), (torch.float32, True), (torch.float16, True)])
+def test_int8_gemm_is_bit_equal_to_plain(dev, M, N, K, dtype, with_bias):
+    from thunder_tpu_torch.executors import quantex
+
+    gen = torch.Generator(device="cpu").manual_seed(M + N + K)
+    qa = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).to(dev)
+    qw = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(dev)
+    scale = (torch.rand(N, generator=gen) * 1e-3 + 1e-5).to(dev)
+    bias = _randn((N,), dtype, dev, 3) if with_bias else None
+    n = quantex.int8_gemm.launches
+    got = quantex.int8_gemm(qa, qw, scale, bias, dtype)
+    torch.cuda.synchronize()
+    assert quantex.int8_gemm.launches == n + 1
+    want = quantex.int8_gemm_plain(qa, qw, scale, bias, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_int8_gemm_reads_an_unaligned_operand(dev):
+    """A view whose base is not 16-byte aligned takes the byte-wise path."""
+    from thunder_tpu_torch.executors import quantex
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    qa = torch.randint(-127, 128, (64 * 129 + 1,), generator=gen, dtype=torch.int8).to(dev)[1:].view(64, 129)
+    qw = torch.randint(-127, 128, (96, 129), generator=gen, dtype=torch.int8).to(dev)
+    scale = torch.full((96,), 0.01, device=dev)
+    got = quantex.int8_gemm(qa, qw, scale, None, torch.float32)
+    assert torch.equal(got, quantex.int8_gemm_plain(qa, qw, scale, None, torch.float32))
+
+
+def test_quant_linear_claims_and_launches_the_kernel(dev):
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+    from thunder_tpu_torch.executors import quantex
+
+    a, w = _randn((4, 32, 256), torch.bfloat16, dev, 0), _randn((512, 256), torch.bfloat16, dev, 1) * 0.05
+    f = tt.jit(lambda a, w: ltorch.linear(a, w), executors=["quant", "torch"], disable_jit_staging=True)
+    n = quantex.int8_gemm.launches
+    out = f(a, w)
+    assert quantex.int8_gemm.launches == n + 1
+    want = quantex.quant_linear(a.cpu(), w.cpu())
+    assert torch.equal(out.cpu(), want)
+
+
+def test_staged_container_write_survives_the_next_call(dev):
+    """A staged entry's tensor written into the caller's dict is a fresh
+    tensor, not a buffer of the graph's pool: the next replay leaves it."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+
+    def f(d):
+        d["k"] = ltorch.mul(d["x"], 2.0)
+        return ltorch.sum(d["x"])
+
+    jf = tt.jit(f)
+    held = []
+    for i in range(4):
+        d = {"x": torch.full((64, 128), float(i), device=dev)}
+        jf(d)
+        held.append(d["k"])
+    assert tt.last_staging(jf).staged and tt.last_staging(jf).replays == 3
+    for i, k in enumerate(held):
+        assert torch.equal(k, torch.full((64, 128), 2.0 * i, device=dev)), i
+
+
+def test_one_graph_per_bucket_and_replays_equal_unstaged(dev):
+    """``cache="symbolic values"``: lengths 100 and 120 share the (0, 128]
+    bucket, one entry and one graph, captured at 128; 200 is the next
+    bucket. Every call equals the unstaged entry's, and the shorter call
+    after the longer reads no leftover row (the padded tail is zeroed)."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+
+    def f(x, w):
+        return ltorch.mean(ltorch.matmul(ltorch.exp(x), w), 1)
+
+    w = _randn((64, 32), torch.float32, dev, 1)
+    opts = dict(cache="symbolic values", symbolic_dims={0: (1,)}, buckets={"seq": 128})
+    staged, eager = tt.jit(f, **opts), tt.jit(f, disable_jit_staging=True, **opts)
+    for T in (120, 100, 120, 100, 200, 100):
+        x = _randn((2, T, 64), torch.float32, dev, T)
+        got, want = staged(x, w), eager(x, w)
+        assert got.shape == (2, 32) and torch.equal(got, want), T
+        torch.testing.assert_close(got, torch.exp(x).matmul(w).mean(1), rtol=1e-5, atol=1e-5)
+    info = tt.cache_info(staged)
+    assert info["compiles"] == 2 and [e["buckets"] for e in info["entries"]] == ["leaf0.dim1∈(0,128]",
+                                                                                   "leaf0.dim1∈(128,256]"]
+    first = tt.compile_stats(staged).cache_entries[0].staging
+    assert first.staged and (first.captures, first.replays, first.guard_misses) == (1, 4, 0)
+
+
+def test_staged_module_step_shares_one_pool_and_frees_saved_tensors(dev):
+    """The staged module's forward and backward graphs share one memory
+    pool: the backward's capture reuses the saved tensors' memory as they
+    die, so a staged step's peak is the unstaged step's within a margin, and
+    its grads equal the unstaged module's."""
+    import thunder_tpu_torch as tt
+
+    def make():
+        torch.manual_seed(0)
+        layers = [m for _ in range(8) for m in (torch.nn.Linear(1024, 1024), torch.nn.GELU())]
+        return torch.nn.Sequential(*layers, torch.nn.Linear(1024, 8)).to(dev)
+
+    import gc
+
+    x = _randn((4096, 1024), torch.float32, dev, 0)
+    peaks, grads = {}, {}
+    for label, kw in (("unstaged", dict(disable_jit_staging=True)), ("staged", {})):
+        gc.collect()  # the previous run's module and graphs, held in reference cycles
+        net = make()
+        tm = tt.jit(net, **kw)
+        for step in range(4):
+            net.zero_grad(set_to_none=True)
+            if step == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            tm(x).square().mean().backward()
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() - base  # above what the run holds between steps
+        grads[label] = [p.grad.cpu() for p in net.parameters()]
+        if label == "staged":
+            cs = tt.compile_stats(tm)
+            assert (cs.last_staging.captures, cs.last_backward_staging.captures) == (1, 1)
+        del tm, net
+    assert all(torch.equal(a, b) for a, b in zip(grads["staged"], grads["unstaged"]))
+    # The saved activations are 8 x 16 MiB; the backward's grads (32 MiB)
+    # and its 16 MiB temporaries go where they die, as in eager. The gap
+    # left is cuBLAS's workspace for the capture's stream (32 MiB on an
+    # H100, allocated in the pool at the first product captured), and the
+    # small output's copies; without the reuse it is over 96 MiB.
+    assert peaks["staged"] <= peaks["unstaged"] + (40 << 20), (peaks["staged"] / 2**20, peaks["unstaged"] / 2**20)
+
+
+def test_staged_seq_bucket_module_trains_as_unstaged(dev):
+    """``jit(module, seq_bucket=64)`` staged: lengths 50 and 60 share one
+    entry, one forward graph and one backward graph (the padded inputs are
+    copied in each call), and each step's output and grads equal the
+    unstaged module's."""
+    import thunder_tpu_torch as tt
+
+    class Causal(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.wte = torch.nn.Embedding(64, 128)
+            self.qkv = torch.nn.Linear(128, 384)
+            self.head = torch.nn.Linear(128, 64)
+
+        def forward(self, idx):
+            x = self.wte(idx)
+            B, T, C = x.shape
+            qkv = self.qkv(x).view(B, T, 3, 4, 32).permute(2, 0, 3, 1, 4)
+            y = torch.nn.functional.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], is_causal=True)
+            return self.head(x + y.transpose(1, 2).reshape(B, T, C))
+
+    def make():
+        torch.manual_seed(0)
+        return Causal().to(dev, torch.bfloat16)
+
+    m_s, m_e = make(), make()
+    staged, eager = tt.jit(m_s, seq_bucket=64), tt.jit(m_e, seq_bucket=64, disable_jit_staging=True)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    for T in (50, 60, 50, 60):
+        idx = torch.randint(0, 64, (2, T), generator=gen).to(dev)
+        outs = []
+        for net, tm in ((m_s, staged), (m_e, eager)):
+            net.zero_grad(set_to_none=True)
+            out = tm(idx)
+            out.float().square().mean().backward()
+            outs.append((out.detach(), [p.grad.clone() for p in net.parameters()]))
+        (o_s, g_s), (o_e, g_e) = outs
+        assert o_s.shape == (2, T, 64) and torch.equal(o_s, o_e), T
+        assert all(torch.equal(a, b) for a, b in zip(g_s, g_e)), T
+    cs = tt.compile_stats(staged)
+    assert cs.cache_misses == 1 and cs.last_staging.captures == 1 and cs.last_backward_staging.captures == 1
+    assert cs.last_staging.guard_misses == 0

@@ -689,8 +689,8 @@ def test_jit_module_raises_on_a_tensor_off_its_device():
 
 
 def test_jit_module_options_of_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.jit(MLP(), device="cpu", seq_bucket=128)
+    # seq_bucket= (ROADMAP item 7) is ported: the module takes it.
+    assert tt.jit(MLP(), device="cpu", seq_bucket=128)._seq_bucket == 128
     tm = tt.jit(MLP(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         tm.configure_distributed({"mode": "ddp"})

@@ -7,7 +7,7 @@ symbol to the port's symbol of that name, a function to a copy whose globals
 (and closure cells) name the port's modules and symbols instead. The JAX
 executor lists of ``tests/framework.py`` map to the port's: ``jax`` (the
 operator executor alone) to ``torch``, ``kernels`` to the default stack,
-``quant`` (the int8 linear, not ported yet: ROADMAP item 5) to ``torch``.
+``quant`` (the int8 linear) to ``quant`` then ``torch``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ for _mod, _port in ((jclang, tclang), (jtorch, ttorch)):
         if isinstance(_val, JSymbol) or callable(_val):
             _NAMES[id(_val)] = (_port, _name)
 
-PORT_EXECUTORS = {"jax": ["torch"], "kernels": None, "quant": ["torch"]}
+PORT_EXECUTORS = {"jax": ["torch"], "kernels": None, "quant": ["quant", "torch"]}
 
 
 def _rebind_value(v):

@@ -33,12 +33,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 # Executor stacks for --matrix, from the torch executor alone to the full
-# stack. "flash,fused,torch" is api.DEFAULT_EXECUTORS; norm is opt-in.
+# stack. "flash,fused,torch" is api.DEFAULT_EXECUTORS; norm and quant are opt-in.
 MATRIX_STACKS: tuple[tuple[str, str], ...] = (
     ("torch", "torch"),
     ("+flash", "flash,torch"),
     ("+fused (default)", "flash,fused,torch"),
     ("+norm", "norm,flash,fused,torch"),
+    ("+quant int8", "quant,flash,fused,torch"),
 )
 
 

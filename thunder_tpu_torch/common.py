@@ -17,7 +17,7 @@ import contextvars
 import enum
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 
 class SHARP_EDGES_OPTIONS(enum.Enum):
@@ -109,7 +109,10 @@ class CompileData:
     # Run every entry eagerly instead of capturing it as a CUDA graph
     # (executors/staging.py; reference: thunder_tpu/common.py:139).
     disable_jit_staging: bool = False
-    # The compile options given to jit (``autocast``).
+    # "constant values" or "symbolic values" (api.jit's ``cache``).
+    cache_option: str = "constant values"
+    # The compile options given to jit (``autocast``; under symbolic values
+    # ``bucket_policy`` and ``symbolic_dims``).
     compile_options: dict = field(default_factory=dict)
 
 
@@ -148,9 +151,16 @@ class CacheEntry:
     staging: Any = None
     # The program takes a fresh RNG key as its last input (transforms/rng.py).
     needs_rng: bool = False
-    # Positions of the input tensors the program updates in place: their
-    # final values are its extra outputs, copied into the caller's tensors.
-    input_mutations: list = field(default_factory=list)
+    # Replays the writes the program made to its inputs onto the caller's
+    # objects (api._build_epilogue), or None.
+    epilogue_fn: Optional[Callable] = None
+    # cache="symbolic values": the bucket spec (core/bucketing.py), the
+    # inputs' tree and leaf metadata (for "auto" marks), and the buffers the
+    # entry pads its marked inputs into and fills its true extents in.
+    sym_spec: Any = None
+    treedef: Any = None
+    leaf_meta: tuple = ()
+    pad_buffers: dict = field(default_factory=dict)
     stats: EntryStats = field(default_factory=EntryStats)
 
 

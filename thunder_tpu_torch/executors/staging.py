@@ -40,8 +40,8 @@ every other is copied out of the graph's pool into a fresh tensor, so a
 result the caller holds is never overwritten by a later call (``jax.jit``
 returns fresh arrays). A stage may lend some outputs instead
 (``lend_from``: the module forward's saved tensors, which its backward's
-graph then reads at those addresses, ``settle`` letting that graph see them
-before it captures; the module backward's grads, which autograd takes as
+graph then reads at those addresses; the module backward's grads, which
+autograd takes as
 ``.grad``): the caller gets aliases of the pool's buffers, with no copy.
 Before the graph runs again, an alias it handed out that is still alive is
 moved to memory of its own; if a lent buffer is still held by a tensor the
@@ -50,6 +50,21 @@ as under gradient accumulation), the graph is captured anew, leaving the
 old pool to its holders, and copies its outputs from then on. No caller
 sees its tensor change. Launch counters keep meaning launches per call: a
 replay adds to each kernel wrapper's count what its capture launched.
+
+A module's forward and backward are a pair (:class:`GraphPair`): their two
+graphs are captured into one memory pool, the backward's right after the
+forward's, in the same step (the forward captures when the pair needs it, and
+the backward captures only in that window). The forward keeps no reference
+to what it lends, so the backward's capture sees each saved tensor freed at
+its last use and puts its own buffers there, as eager does; at later replays
+the forward hands out views of the addresses its graph writes, and the
+autograd node that holds them keeps the stages, and so the pool, alive.
+Before the forward replays over the pool, a grad the backward lent that is
+still held is moved out if it is the stage's own alias, and otherwise the
+pair is captured anew into a fresh pool, the old graphs kept until no lent
+tensor reads them, and the backward copies its grads from then on.
+A backward whose saved tensors are not where its graph reads them (a second
+forward moved the first's out of the pool) runs eagerly.
 
 No fallback: a capture that fails raises ``StagingError``, naming the line of
 the program that was running; nothing runs eagerly in its place.
@@ -149,12 +164,60 @@ def _where(exc: BaseException) -> str:
     return where
 
 
+class GraphPair:
+    """A module entry's forward and backward stages, captured into one
+    memory pool: ``pool`` is the current one; ``window`` is open from the
+    forward's capture to the next forward call, while the saved tensors it
+    handed out are the graph's own tensors, owned by their holders;
+    ``want_capture`` asks the forward to capture anew at its next call;
+    ``retired`` keeps older graphs alive while a tensor lent from their pool
+    is."""
+
+    def __init__(self):
+        self.pool = None
+        self.window = False
+        self.want_capture = False
+        self.forward: Optional["CudaGraphStage"] = None
+        self.backward: Optional["CudaGraphStage"] = None
+        self.retired: list = []
+
+    def retire(self) -> None:
+        """Start a new pool: the current graphs are dropped, or kept while a
+        tensor lent from them (a view of their pool) is still held."""
+        graphs = [st._graph for st in (self.forward, self.backward) if st is not None and st._graph is not None]
+        # The backward's lent grads are its graph's own tensors, which keep
+        # their memory; the forward's saved tensors are views of the pool.
+        live = [ref for ref, _ in self.forward._held if not ref.expired()] if self.forward is not None else []
+        if graphs and live:
+            self.retired.append((graphs, live))
+        self.retired = [(g, r) for g, r in self.retired if any(not x.expired() for x in r)]
+        for st in (self.forward, self.backward):
+            if st is not None:
+                st._graph = None
+        self.pool = torch.cuda.graph_pool_handle()
+        self.window = self.want_capture = False
+
+
+def _meta(t: torch.Tensor) -> tuple:
+    s = t.untyped_storage()
+    return (s.data_ptr(), s.nbytes(), t.storage_offset(), tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+def _view_of(meta: tuple) -> torch.Tensor:
+    """A tensor over the pool's memory at ``meta``, which it does not own:
+    what a graph wrote there at its last replay."""
+    ptr, nbytes, offset, shape, stride, dtype, device = meta
+    storage = torch._C._construct_storage_from_data_pointer(ptr, device, nbytes)
+    return torch.empty(0, dtype=dtype, device=device).set_(storage, offset, shape, stride)
+
+
 class CudaGraphStage:
     """``fn`` staged as one CUDA graph. ``eager`` is ``fn`` itself, unstaged;
     ``stats`` is the entry's :class:`StagingStats`."""
 
     def __init__(self, fn: Callable, *, name: str, fresh: Optional[Callable[[tuple], set]] = None,
-                 lend_from: Optional[Callable[[Any], int]] = None, settle: bool = False):
+                 lend_from: Optional[Callable[[Any], int]] = None, pair: Optional[GraphPair] = None,
+                 role: str = "forward"):
         self.eager = fn
         self.name = name
         # ``fresh(args)``: the flat indices of the inputs that are new each
@@ -169,12 +232,11 @@ class CudaGraphStage:
         self.lend_from = lend_from
         self._lent: list = []
         self._held: list = []
-        # ``settle``: inputs that moved between the warm-up and the next call
-        # (a backward's saved tensors, eager at first, then the forward
-        # graph's) get one more eager call before the capture, so the graph
-        # reads them by address.
-        self.settle = settle
-        self._settled = False
+        # ``pair``: the module's forward and backward share a pool
+        # (:class:`GraphPair`); ``role`` says which this is.
+        self.pair, self.role = pair, role
+        if pair is not None:
+            setattr(pair, role, self)
         self.stats = StagingStats(staged=True)
         self._spec = None
         self._sig = None
@@ -185,29 +247,76 @@ class CudaGraphStage:
     def __call__(self, *args):
         leaves, spec = tree_flatten(args)
         sig = _signature(leaves)
+        pair = self.pair
+        window = pair is not None and pair.window
+        if pair is not None and self.role == "forward":
+            pair.window = False
         if self._sig is None or spec != self._spec or sig != self._sig:
             if self._sig is not None:
                 self.stats.guard_misses += 1
-            self._settled = not self.settle
+            if pair is not None:
+                pair.want_capture = True
             return self._warm_up(args, leaves, spec, sig)
+        if pair is not None:
+            return self._pair_call(args, leaves, window)
         if self._graph is None:
             stable = {i for i, a in self._warm_addrs.items() if leaves[i].data_ptr() == a}
             if self.fresh is not None:
                 stable -= self.fresh(args)
-            if not self._settled and stable != set(self._warm_addrs) - (self.fresh(args) if self.fresh else set()):
-                self._settled = True
-                return self._warm_up(args, leaves, spec, sig)
-            return self._capture(leaves, stable)
+            return self._capture(args, leaves, stable)
         missed = {i for i in self._by_address if leaves[i].data_ptr() != self._addrs[i]}
         if missed:
             self.stats.guard_misses += 1
-            return self._capture(leaves, self._by_address - missed)
-        return self._replay(leaves)
+            return self._capture(args, leaves, self._by_address - missed)
+        return self._replay(args, leaves)
+
+    def _pair_call(self, args: tuple, leaves: list, window: bool):
+        """One call of a stage of a :class:`GraphPair`."""
+        pair = self.pair
+        fresh = self.fresh(args) if self.fresh is not None else set()
+        if self.role == "backward":
+            if window:
+                pair.window = False
+                # Right after the forward's capture: read every saved tensor
+                # where the forward's graph writes it.
+                return self._capture(args, leaves, set(self._warm_addrs) - fresh)
+            held = self._graph is not None and self._reclaim()
+            if self._graph is None or held or any(leaves[i].data_ptr() != a for i, a in self._addrs.items()):
+                # No graph for this pool yet, or a grad it lent still held:
+                # eager now, and the pair captures anew in the next step. Or
+                # saved tensors moved out of the pool: eager, this once.
+                if self._graph is None or held:
+                    pair.want_capture = True
+                    self.lend_from = None if held else self.lend_from
+                leaves.clear()
+                return self.eager(*args)
+            return self._replay(args, leaves)
+        held = pair.backward is not None and pair.backward._graph is not None and pair.backward._reclaim()
+        if held:
+            # A grad lent from the pool is still held (accumulation): leave
+            # it the old pool, and copy the grads from now on.
+            pair.backward.lend_from = None
+        # A saved tensor still held past the stage's own alias: the same.
+        held = self._reclaim() or held
+        stable = {i for i, a in self._warm_addrs.items() if leaves[i].data_ptr() == a} - fresh
+        if self._graph is None or held or pair.want_capture:
+            return self._capture(args, leaves, stable)
+        missed = {i for i in self._by_address if leaves[i].data_ptr() != self._addrs[i]}
+        if missed:
+            self.stats.guard_misses += 1
+            return self._capture(args, leaves, self._by_address - missed)
+        return self._replay(args, leaves)
 
     def _warm_up(self, args: tuple, leaves: list, spec, sig: tuple):
         self._graph = None
         tensors = {i: x for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)}
         versions = {i: t._version for i, t in tensors.items()}
+        addrs = {i: t.data_ptr() for i, t in tensors.items()}
+        # Weak references only, so a backward frees each saved tensor at its
+        # last use (the program clears the list it is given).
+        refs = {i: weakref.ref(t) for i, t in tensors.items()}
+        del tensors
+        leaves.clear()
         t0 = time.perf_counter()
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -222,8 +331,8 @@ class CudaGraphStage:
         torch.cuda.synchronize()
         self.stats.first_call_s = time.perf_counter() - t0
         self._spec, self._sig = spec, sig
-        self._warm_addrs = {i: t.data_ptr() for i, t in tensors.items()}
-        self._mutated = {i for i, t in tensors.items() if t._version != versions[i]}
+        self._warm_addrs = addrs
+        self._mutated = {i for i, r in refs.items() if r() is not None and r()._version != versions[i]}
         return out
 
     def _reclaim(self) -> bool:
@@ -237,56 +346,78 @@ class CudaGraphStage:
         self._lent = []
         return any(torch._C._storage_Use_Count(ref.cdata) > n for ref, n in self._held)
 
-    def _capture(self, leaves: list, by_address: set):
+    def _capture(self, args: tuple, leaves: list, by_address: set):
         t0 = time.perf_counter()
         self._reclaim()
+        pair = self.pair
+        if pair is not None and self.role == "forward":
+            pair.retire()
         self._graph = self._static = self._outs = None  # a re-capture frees the old graph's pool first
         self._held = []
         copied = [i for i in self._warm_addrs if i not in by_address]
-        static = list(leaves)
-        for i in copied:
-            static[i] = torch.empty_like(leaves[i]).copy_(leaves[i])
+        copies = {i: torch.empty_like(leaves[i]).copy_(leaves[i]) for i in copied}
+        self._addrs = {i: leaves[i].data_ptr() for i in by_address}
+        static = [copies.get(i, x) for i, x in enumerate(leaves)]
+        call = tree_unflatten(static, self._spec)
+        copied_bytes = sum(_nbytes(leaves[i]) for i in copied + [i for i in copied if i in self._mutated])
+        if pair is not None and self.role == "backward":
+            # The saved tensors reach the program only in its own list, which
+            # it clears as it goes, so that the capture frees each at its
+            # last use and reuses its memory, as eager does.
+            ids = {id(x): i for i, x in copies.items()}
+            for i in by_address:
+                leaves[i] = None
+            if isinstance(args[0], list):
+                args[0].clear()
+        else:
+            ids = {id(static[i]): i for i in self._warm_addrs}
+        del static
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
-                out = self.eager(*tree_unflatten(static, self._spec))
+            with torch.cuda.graph(graph, pool=None if pair is None else pair.pool):
+                out = self.eager(*call)
         except Exception as e:
             raise StagingError(f"staging {self.name}: the CUDA graph capture failed{_where(e)}: {e}") from e
+        del call
         after = _build.launch_counts()
         self._delta = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
         out_leaves, self._out_spec = tree_flatten(out)
         # Each output leaf: ("in", i) for input leaf i, ("new", t) for a tensor
         # in the graph's pool, copied out per call, ("const", x) otherwise.
-        ids = {id(static[i]): i for i in self._warm_addrs}
         self._outs = [("in", ids[id(o)]) if id(o) in ids else ("new", o) if isinstance(o, torch.Tensor)
                       else ("const", o) for o in out_leaves]
         # Only the buffers the stage copies into: a leaf read in place is the
         # caller's to keep alive, or to free.
         self._graph, self._copied = graph, copied
-        self._static = [x if i in copied else None for i, x in enumerate(static)]
+        self._static = [copies.get(i) for i in range(len(leaves))]
         self._by_address = set(by_address)
-        self._addrs = {i: leaves[i].data_ptr() for i in by_address}
         self._copy_back = [i for i in copied if i in self._mutated]
         first_lent = len(self._outs) if self.lend_from is None else self.lend_from(out)
         self._outs = [("lent", o) if kind == "new" and j >= first_lent else (kind, o)
                       for j, (kind, o) in enumerate(self._outs)]
-        del out, out_leaves, static
+        del out, out_leaves, copies
         storages = [StorageWeakRef(o.untyped_storage()) for kind, o in self._outs if kind == "lent"]
         self._held = [(ref, torch._C._storage_Use_Count(ref.cdata)) for ref in storages]
-        self.stats.copied_bytes_per_call = (sum(_nbytes(leaves[i]) for i in copied + self._copy_back)
-                                            + sum(_nbytes(o) for kind, o in self._outs if kind == "new"))
+        self.stats.copied_bytes_per_call = copied_bytes + sum(_nbytes(o) for kind, o in self._outs if kind == "new")
         self.stats.captures += 1
         graph.replay()
         result = self._results(leaves)
+        if pair is not None and self.role == "forward":
+            # Keep no reference to the pool's tensors: what the graph lent is
+            # its holders' to free, so that the backward's capture, next,
+            # reuses it; later replays hand out views of the same addresses.
+            self._outs = [(kind, _meta(o)) if kind in ("new", "lent") else (kind, o) for kind, o in self._outs]
+            self._held = [(ref, 0) for ref in storages]
+            pair.window = True
         torch.cuda.synchronize()
         self.stats.capture_s = time.perf_counter() - t0
         return result
 
-    def _replay(self, leaves: list):
-        if self._reclaim():
+    def _replay(self, args: tuple, leaves: list):
+        if self._reclaim() and self.pair is None:
             self.lend_from = None
-            return self._capture(leaves, self._by_address)
+            return self._capture(args, leaves, self._by_address)
         _copy([self._static[i] for i in self._copied], [leaves[i] for i in self._copied])
         self._graph.replay()
         _build.add_launches(self._delta)
@@ -295,20 +426,26 @@ class CudaGraphStage:
     def _results(self, leaves: list):
         self.stats.replays += 1
         _copy([leaves[i] for i in self._copy_back], [self._static[i] for i in self._copy_back])
-        pooled = [x for kind, x in self._outs if kind == "new"]
+        pooled = [x if isinstance(x, torch.Tensor) else _view_of(x) for kind, x in self._outs if kind == "new"]
         fresh = [torch.empty_like(x) for x in pooled]
         _copy(fresh, pooled)
+        del pooled
         fresh = iter(fresh)
         outs, aliases = [], {}
+        if any(kind == "lent" and isinstance(x, tuple) for kind, x in self._outs):
+            self._held = []
         for kind, x in self._outs:
             if kind == "lent":
                 # An alias, one a buffer (autograd then takes a buffer lent
                 # twice as it would the same tensor twice: it copies it): the
                 # caller may drop it, or it is moved (_reclaim).
-                if id(x) not in aliases:
-                    aliases[id(x)] = x.detach()
-                    self._lent.append(weakref.ref(aliases[id(x)]))
-                x = aliases[id(x)]
+                key = x if isinstance(x, tuple) else id(x)
+                if key not in aliases:
+                    aliases[key] = x.detach() if isinstance(x, torch.Tensor) else _view_of(x)
+                    self._lent.append(weakref.ref(aliases[key]))
+                    if isinstance(x, tuple):
+                        self._held.append((StorageWeakRef(aliases[key].untyped_storage()), 0))
+                x = aliases[key]
             outs.append(leaves[x] if kind == "in" else next(fresh) if kind == "new" else x)
         return tree_unflatten(outs, self._out_spec)
 
@@ -318,7 +455,7 @@ def stage(fn: Callable, traces: Sequence, device: torch.device, *, name: str,
     """``(callable, stats)``: ``fn`` staged as a CUDA graph, or ``fn`` itself
     with the reason it is not (:func:`unstaged_reason` over the claimed
     ``traces`` that ``fn`` runs). ``options`` are :class:`CudaGraphStage`'s
-    (``fresh``, ``lend_from``, ``settle``)."""
+    (``fresh``, ``lend_from``, ``pair``, ``role``)."""
     reason = unstaged_reason(traces, device, disabled)
     if reason is not None:
         return fn, StagingStats(staged=False, reason=reason)

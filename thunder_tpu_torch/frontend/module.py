@@ -3,7 +3,8 @@
 Reference parity: ``ThunderModule`` (thunder/__init__.py:178) and the
 torch-autograd bridge ``ThunderFunction`` (thunder/executors/torch_autograd.py:20).
 The counterpart of ``thunder_tpu/frontend/module.py`` without its
-distributed and sequence-bucketing parts.
+distributed parts; ``seq_bucket=`` pads dim 1 of the inputs to a bucket
+and crops the outputs back, so each bucket is one entry.
 
 Acquisition (the seat of thunder's bytecode interpreter, see
 ``frontend/__init__.py``): parameters and buffers are swapped for
@@ -31,9 +32,10 @@ On CUDA the compiled forward and backward each run as a CUDA graph
 attention's verdict is taken when an entry is compiled and given to its
 claims, and a value guard holds each later call to it, so each verdict has
 its own entry and graphs. The forward lends its saved tensors to the
-backward, whose graph reads them where the forward's graph wrote them; the
+backward, whose graph reads them where the forward's graph wrote them and,
+captured into the same memory pool, reuses their memory as they die; the
 backward lends its grads to autograd, and copies them only once a
-``.grad`` is kept past the next backward (``staging.CudaGraphStage``).
+``.grad`` is kept past the next forward (``staging.GraphPair``).
 ``autocast=`` applies ``transforms/autocast.py`` before the split (the JAX
 package's module frontend takes the option and leaves the products in
 f32); random draws take a fresh key each call, as the functional entries'
@@ -277,11 +279,6 @@ def suspended_tracing_patches():
             c.__enter__()
 
 
-# Options of the JAX package's module frontend that need sequence bucketing,
-# a later part of the port.
-_SEQ_BUCKETING = ("seq_bucket", "seq_pad_value")
-
-
 class ThunderModule:
     """Compiled wrapper around a torch.nn.Module (reference: __init__.py:178).
 
@@ -295,16 +292,18 @@ class ThunderModule:
     jitted function."""
 
     def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
-                 rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None, **options):
+                 rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None,
+                 seq_bucket: Any = None, seq_pad_value: Any = None, **options):
         from thunder_tpu_torch.api import DEFAULT_EXECUTORS, _autocast_transforms
         from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
         from thunder_tpu_torch.core import devices
         from thunder_tpu_torch.extend import resolve_executors
 
-        for name in options:
-            if name in _SEQ_BUCKETING:
-                raise NotImplementedError(f"jit(nn.Module, {name}=...) needs sequence bucketing (ROADMAP item 7: "
-                                          "core/bucketing.py, transforms/padmask.py), not yet ported")
+        # Sequence bucketing (thunder_tpu/frontend/module.py:977); the fill
+        # is None when the caller chose none (0 is used, with a warning).
+        self._seq_bucket = None if seq_bucket is None else int(seq_bucket)
+        self._seq_pad_value = seq_pad_value
+        self._seq_crop_cache: dict = {}
         if options:
             raise TypeError(f"jit(nn.Module) got unexpected options {sorted(options)}")
         if getattr(module, "_thunder_dist", None) is not None:
@@ -466,7 +465,8 @@ class ThunderModule:
         needs_rng = bool(comp.tags.get(RNG_TAG))
         if needs_rng:
             traces.append(comp)
-        entry = {"wrt": wrt, "has_updates": has_updates, "needs_rng": needs_rng, "stages": None}
+        entry = {"wrt": wrt, "has_updates": has_updates, "needs_rng": needs_rng, "stages": None,
+                 "n_params": len(params)}
 
         if not wrt:
             guard, claimed, _ = _with_mask_verdicts(transform_for_execution(comp, executors), None, concrete, needs_rng)
@@ -504,14 +504,23 @@ class ThunderModule:
             # to the backward, whose graph reads them in place; the backward
             # lends its grads to autograd, which takes them as ``.grad``.
             lend = (lambda out: len(tree_flatten(out[0])[0])) if entry["bwd"] is not None else None
+            fresh = _key_input if entry["needs_rng"] else None
+            if self._seq_bucket:
+                # Padded inputs are new tensors each call: always copied in,
+                # whatever address the allocator hands them.
+                n = entry["n_params"]
+                fresh = lambda args: set(range(n, len(args)))  # noqa: E731
+            # With a backward, the two graphs share one memory pool
+            # (staging.GraphPair), so the backward reuses the saved tensors'
+            # memory as they die, as eager does.
+            pair = staging.GraphPair() if entry["bwd"] is not None else None
             fwd, fstats = staging.stage(entry["fwd"], [entry["fw_trace"]], cd.device, name=f"{name}.forward",
-                                        disabled=cd.disable_jit_staging,
-                                        fresh=_key_input if entry["needs_rng"] else None, lend_from=lend)
+                                        disabled=cd.disable_jit_staging, fresh=fresh, lend_from=lend, pair=pair)
             bwd, bstats = None, None
             if entry["bwd"] is not None:
                 bwd, bstats = staging.stage(entry["bwd"], [entry["bw_trace"]], cd.device, name=f"{name}.backward",
-                                            disabled=cd.disable_jit_staging, settle=True, fresh=_cotangents,
-                                            lend_from=lambda out: 0)
+                                            disabled=cd.disable_jit_staging, fresh=_cotangents,
+                                            lend_from=lambda out: 0, pair=pair, role="backward")
             entry["stages"] = (fwd, bwd, fstats, bstats)
         return entry["stages"]
 
@@ -521,7 +530,128 @@ class ThunderModule:
         from thunder_tpu_torch.core import devices
 
         with devices.default_device(self._lc_cd.device):
+            if self._seq_bucket:
+                pargs, pkwargs, t, t_pad = self._apply_seq_bucketing(args, kwargs)
+                if t is not None and t_pad != t:
+                    plan = self._seq_crop_plan(args, kwargs, pargs, pkwargs, t, t_pad)
+                    return self._crop_seq_outputs(self._call_impl(pargs, pkwargs), t, t_pad, plan)
             return self._call_impl(args, kwargs)
+
+    # -- sequence bucketing (thunder_tpu/frontend/module.py:975-1165) ---------
+
+    def _apply_seq_bucketing(self, args: tuple, kwargs: dict):
+        """Pad dim 1 of every tensor input of rank 2 or more up to the next
+        multiple of ``seq_bucket``, so every T of a bucket runs one entry
+        (and, on CUDA, one forward graph and one backward graph).
+
+        Sound for causal models: a padded tail position cannot reach a real
+        one under causal attention, outputs are cropped back to T along dim
+        1, and autograd sends zero cotangents through the pad, so grads match
+        the unpadded run. ``seq_pad_value`` (default 0) fills the pad; pick a
+        token the loss ignores when a target is among the inputs. Returns
+        ``(args, kwargs, T, T_padded)``, T None when the inputs disagree."""
+        bucket = self._seq_bucket
+        flat, spec = tree_flatten((args, kwargs))
+        lens = {int(x.shape[1]) for x in flat if isinstance(x, torch.Tensor) and x.ndim >= 2}
+        if len(lens) != 1:
+            return args, kwargs, None, None  # ambiguous: the exact-shape path
+        t = lens.pop()
+        t_pad = -(-t // bucket) * bucket
+        if t_pad == t:
+            return args, kwargs, t, t
+        fill = 0 if self._seq_pad_value is None else self._seq_pad_value
+        if self._seq_pad_value is None and not getattr(self, "_seq_pad_warned", False):
+            # An integer target padded with the default fill gains fill-token
+            # positions in a loss computed inside the module: say so once.
+            kinds = {str(x.dtype) for x in flat if isinstance(x, torch.Tensor) and x.ndim >= 2 and x.shape[1] == t}
+            if len(kinds) > 1:
+                import warnings
+
+                warnings.warn(f"seq_bucket pads every dim-1={t} tensor input (dtypes {sorted(kinds)}) with "
+                              "seq_pad_value=0; if one of these is a loss target, pass an explicit "
+                              "seq_pad_value your loss ignores (e.g. -100)", stacklevel=3)
+                self._seq_pad_warned = True
+
+        def pad_leaf(x):
+            if not (isinstance(x, torch.Tensor) and x.ndim >= 2 and x.shape[1] == t):
+                return x
+            pad = torch.full((x.shape[0], t_pad - t) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device)
+            return torch.cat([x, pad], dim=1)
+
+        new_args, new_kwargs = tree_unflatten([pad_leaf(x) for x in flat], spec)
+        return new_args, new_kwargs, t, t_pad
+
+    def _seq_crop_plan(self, args, kwargs, pargs, pkwargs, t: int, t_pad: int):
+        """Which output leaves carry the padded sequence dim: a leaf whose
+        dim 1 is T on the unpadded inputs and T_padded on the padded ones,
+        every other dim equal, found by running the module under
+        ``FakeTensorMode`` on both (shapes only, no compute). An output whose
+        dim 1 is T_padded by coincidence is not cropped. Returns
+        ``(n_leaves, {leaf: padded shape})``, or None when the probe cannot
+        run (the shape heuristic then decides); a failure is retried once
+        before None is kept."""
+        key = (self._cache_key(pargs, pkwargs, torch.is_grad_enabled()), t, t_pad)
+        if key in self._seq_crop_cache:
+            return self._seq_crop_cache[key]
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        def probe_shapes(a, kw):
+            with torch.no_grad(), FakeTensorMode(allow_non_fake_inputs=True):
+                out = self._module(*a, **kw)
+            flat, _ = tree_flatten(_normalize_output(out))
+            return [tuple(x.shape) if hasattr(x, "shape") else None for x in flat]
+
+        # A forward that replaces a slot, registers a buffer or caches a
+        # tensor on an attribute would leave a fake tensor behind: restore
+        # every slot and instance dict, and drop what the probe created.
+        snapshot = [(d, k, v) for _, d, k, v in _named_slots(self._module)]
+        pre_keys = {(id(d), k) for d, k, _ in snapshot}
+        dict_snapshot = [(m.__dict__, dict(m.__dict__)) for m in self._module.modules()]
+        plan, failed = None, False
+        try:
+            s_unpadded, s_padded = probe_shapes(args, kwargs), probe_shapes(pargs, pkwargs)
+            if len(s_unpadded) == len(s_padded):
+                crops = {i: sp for i, (su, sp) in enumerate(zip(s_unpadded, s_padded))
+                         if su is not None and sp is not None and len(su) == len(sp) >= 2
+                         and su[1] == t and sp[1] == t_pad and su[:1] == sp[:1] and su[2:] == sp[2:]}
+                plan = (len(s_padded), crops)
+        except Exception:  # noqa: BLE001 - the probe is advisory; the heuristic takes over
+            failed = True
+        finally:
+            for d, snap in dict_snapshot:
+                for k in list(d):
+                    if k not in snap:
+                        del d[k]
+                    elif d[k] is not snap[k]:
+                        d[k] = snap[k]
+            for d, k, v in snapshot:
+                if d.get(k) is not v:
+                    d[k] = v
+            for _, d, k, _v in _named_slots(self._module):
+                if (id(d), k) not in pre_keys:
+                    del d[k]
+        if failed:
+            fails = self.__dict__.setdefault("_seq_crop_probe_fails", {})
+            fails[key] = fails.get(key, 0) + 1
+            if fails[key] >= 2:  # a module that cannot be fake-probed: stop probing each call
+                self._seq_crop_cache[key] = None
+        else:
+            self._seq_crop_cache[key] = plan
+        return plan
+
+    def _crop_seq_outputs(self, out, t: int, t_pad: int, plan=None):
+        if plan is not None:
+            n_leaves, crops = plan
+            flat, spec = tree_flatten(out)
+            if len(flat) == n_leaves and all(isinstance(flat[i], torch.Tensor) and tuple(flat[i].shape) == shape
+                                             for i, shape in crops.items()):
+                for i in crops:
+                    flat[i] = flat[i].narrow(1, 0, t)
+                return tree_unflatten(flat, spec)
+            # the plan does not describe this output: the heuristic decides
+        flat, spec = tree_flatten(out)
+        return tree_unflatten([x.narrow(1, 0, t) if isinstance(x, torch.Tensor) and x.ndim >= 2
+                               and x.shape[1] == t_pad else x for x in flat], spec)
 
     def _call_impl(self, args: tuple, kwargs: dict):
         from thunder_tpu_torch.core.concrete import first_holding
