@@ -17,8 +17,12 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    forward and recompute backward on the padded path's (2, 32, 2048, 100),
    with a planted fault (the padding ignored) that must fail; the legacy
    route's forward and backward (row 10) at the training path's; the int8
-   GEMM at open_llama_3b's five products (M = 4096), bit-equal, with a
-   planted fault (the K tail unread) that must differ. Each is
+   GEMM (``wgmma``/TMA) at open_llama_3b's five products (M = 4096),
+   bit-equal, with a planted fault (the K tail unread) that must differ,
+   timed beside the ``mma.sync`` kernel it replaces on that path; the
+   quantization kernels at the path's activations (per tensor) and weights
+   (per row), bit-equal, with a planted fault (products with the
+   reciprocal in place of the divisions) that must differ. Each is
    held against its plain PyTorch version on the same inputs row by row and
    timed on the card beside its plain version and the nearest single
    PyTorch call (CUDA events); the launch plans of rope (at both batches
@@ -91,14 +95,15 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    (2, 2048, 3200) bf16: a fresh mask each replay, staged equal to
    unstaged after ``seed``, the keep rate within 5 sigma of its expectation;
 15. trains open_llama_3b (26 layers, B=2, T=2048) with every linear of
-   the forward through the int8 GEMM (``executors=["quant", "flash",
-   "fused", "torch"]``, straight-through bf16 backward, phase 6's SGD):
-   the loss with the kernel bit-equal to the loss with its plain version
-   in its seat, and a planted fault (the K tail unread) that must differ;
-   3 steps unstaged, then 3 staged from the same state (losses bit-equal,
-   131 int8 GEMMs a step), the first loss against phase 6's bf16 step's on
-   the same weights, each later step's fall against the bf16 step's,
-   s/step, enqueue and peak memory;
+   the forward through the quantization kernels and the int8 GEMM
+   (``executors=["quant", "flash", "fused", "torch"]``, straight-through
+   bf16 backward, phase 6's SGD): the loss with the kernels bit-equal to
+   the loss with their plain versions in their seats, and a planted fault
+   (the K tail unread) that must differ; 3 steps unstaged, then 3 staged
+   from the same state (losses bit-equal, 131 int8 GEMMs and 131 of each
+   quantization a step), device time by kernel group, the first loss
+   against phase 6's bf16 step's on the same weights, each later step's
+   fall against the bf16 step's, s/step, enqueue and peak memory;
 16. serves open_llama_3b's forward (26 layers, B=2) under
    ``cache="symbolic values"`` at T = 2048, 1950, 2000 and 1900: two
    128-wide buckets, one entry and one CUDA graph each, cropped logits
@@ -1141,7 +1146,8 @@ def _wrappers() -> dict:
     kernel's wrapper: its launches are those made during a backward."""
     from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex, rngex
 
-    return {"int8_gemm": quantex.int8_gemm, "rng_draw": rngex.draw, "flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
+    return {"int8_gemm": quantex.int8_gemm, "quantize_tensor": quantex.quantize_tensor,
+            "quantize_rows": quantex.quantize_rows, "rng_draw": rngex.draw, "flash_fwd": flashex.flash_attention_fwd, "rope": fusedex.apply_rope,
             "ce_fwd": fusedex.cross_entropy_rows, "flash_fwd_lse": flashex.flash_attention_fwd_lse,
             "flash_bwd": flashex.flash_attention_bwd, "ce_bwd": fusedex.cross_entropy_bwd,
             "rms_fwd": normex.rms_norm_fwd, "rms_bwd": normex.rms_norm_bwd,
@@ -2452,13 +2458,15 @@ QUANT_FALL_SHARE = 0.5
 
 
 def check_int8_kernel(rows: dict) -> None:
-    """The int8 GEMM (``quantex.int8_gemm``) against its plain version at
-    open_llama_3b's five products with M = 4096, on the quantized values of
-    random bf16 activations and weights, bf16 out: bit-equal (the int32 sums
-    are exact, the epilogue rounds as the plain version does). Each timed
-    beside its bound (2*M*N*K at 1,979 TOP/s int8 against the bytes at 3.35
-    TB/s), the plain version, ``torch._int_mm`` (the int32 product alone, a
-    yardstick) and the bf16 ``torch.matmul`` the quant stack replaces. A
+    """The int8 GEMM (``quantex.int8_gemm``, the ``wgmma``/TMA kernel at
+    these shapes) against its plain version at open_llama_3b's five products
+    with M = 4096, on the quantized values of random bf16 activations and
+    weights, bf16 out: bit-equal (the int32 sums are exact, the epilogue
+    rounds as the plain version does). Each timed beside its bound (2*M*N*K
+    at 1,979 TOP/s int8 against the bytes at 3.35 TB/s), the plain version,
+    the ``mma.sync`` kernel that ran these products before ("was", through
+    ``quantex.int8_gemm_sync``), ``torch._int_mm`` (the int32 product alone,
+    a yardstick) and the bf16 ``torch.matmul`` the quant stack replaces. A
     planted fault (the K tail left unread) must differ."""
     import torch
 
@@ -2470,27 +2478,32 @@ def check_int8_kernel(rows: dict) -> None:
     for label, N, K in INT8_SHAPES:
         a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.randn((N, K), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
-        qa, sa = quantex.quantize_per_tensor(a.float(), 127.0)
-        qw, sw = quantex.quantize_per_channel(w.float(), 127.0)
+        qa, sa = quantex.quantize_per_tensor(a, 127.0)
+        qw, sw = quantex.quantize_per_channel(w, 127.0)
         scale = sa * sw[:, 0]
+        require(quantex.tma_describes(qa, qw), f"int8_gemm {label}: the path's operands do not take the TMA route")
         got = quantex.int8_gemm(qa, qw, scale, None, torch.bfloat16)
         want = quantex.int8_gemm_plain(qa, qw, scale, None, torch.bfloat16)
+        was = quantex.int8_gemm_sync(qa, qw, scale, None, torch.bfloat16)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         err = (got.float() - want.float()).abs().max().item()
         require(same, f"int8_gemm {label}: {(got != want).sum().item()} of {got.numel()} values differ from the plain")
+        require(torch.equal(was, want), f"int8_gemm_sync {label}: differs from the plain version")
         cut = K - 16
         fault = quantex.int8_gemm(qa[:, :cut].contiguous(), qw[:, :cut].contiguous(), scale, None, torch.bfloat16)
         require(not torch.equal(fault, want), f"int8_gemm {label}: the planted fault (K tail unread) went unseen")
-        del got, want, fault
+        del got, want, fault, was
         b_ms, b_by = bound(M * K + N * K + 4 * N + 2 * M * N, 2 * M * N * K, PEAK_INT8_OPS)
         ms = time_ms(lambda: quantex.int8_gemm(qa, qw, scale, None, torch.bfloat16), 10)
+        was_ms = time_ms(lambda: quantex.int8_gemm_sync(qa, qw, scale, None, torch.bfloat16), 10)
         plain_ms = time_ms(lambda: quantex.int8_gemm_plain(qa, qw, scale, None, torch.bfloat16), 2, warmup=1)
         int_mm_ms = _library_ms(lambda: torch._int_mm(qa, qw.t()))
         bf16_ms = time_ms(lambda: torch.matmul(a, w.t()), 10)
         log(f"  int8_gemm {label} (M={M}, N={N}, K={K}): {2 * M * N * K / ms / 1e9:.1f} TOP/s, "
-            f"{b_ms / ms:.1%} of the bound; torch._int_mm {int_mm_ms if int_mm_ms is None else round(int_mm_ms, 4)} "
-            f"ms, bf16 torch.matmul {bf16_ms:.4f} ms; the K-tail fault differs")
+            f"{b_ms / ms:.1%} of the bound; was (mma.sync) {was_ms:.4f} ms; torch._int_mm "
+            f"{int_mm_ms if int_mm_ms is None else round(int_mm_ms, 4)} ms, bf16 torch.matmul {bf16_ms:.4f} ms; "
+            f"the K-tail fault differs")
         # The row's timing is its first check's: qkv, the first product a layer runs.
         record("int8_gemm", label, err, 0.0 if same else 1.0, 0.0, source="thunder_tpu_torch/csrc/int8_gemm.cu",
                replaces="thunder_tpu/executors/quantex.py:134 (lax.dot_general int8 x int8 -> int32; no Pallas kernel)",
@@ -2498,18 +2511,86 @@ def check_int8_kernel(rows: dict) -> None:
         del a, w, qa, qw
 
 
+# The quantization's inputs on the int8 path (M = 4096): the activations
+# each linear quantizes per tensor, and the weights it quantizes per row;
+# the first of each is its row's timed shape.
+QUANT_ACTS = ((4096, 3200), (4096, 8640))
+QUANT_WEIGHTS = tuple((N, K) for _, N, K in INT8_SHAPES)
+# f32 operations an element: |x| and the max, the division, the rounding,
+# the clamp.
+QUANT_OPS_PER_ELEMENT = 4
+
+
+def check_quant_kernels(rows: dict) -> None:
+    """``quantex.quantize_tensor`` and ``quantex.quantize_rows`` against
+    their plain versions at the int8 path's shapes, bf16 in: q and the
+    scales bit-equal. A planted fault (products with the reciprocal in place
+    of both divisions) must differ: per row it moves the scales' bits; one
+    scale and bf16's few distinct quotients may leave a single tensor's bits
+    as they were, so per tensor it must differ on at least one of the
+    path's inputs (the activations, and a weight under
+    ``per_channel_weights=False``). Each row is timed at its first shape
+    beside its bound (the input read once, q written once, at 3.35 TB/s)
+    and its plain version; no single PyTorch call computes the
+    quantization with its own scale (library_ms null)."""
+    import torch
+
+    from thunder_tpu_torch.executors import quantex
+
+    record = _recorder(rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    fault_seen = []
+    for kind, shapes in (("tensor", QUANT_ACTS + QUANT_WEIGHTS[:1]), ("rows", QUANT_WEIGHTS)):
+        kernel = quantex.quantize_tensor if kind == "tensor" else quantex.quantize_rows
+        plain = quantex.quantize_per_tensor if kind == "tensor" else quantex.quantize_per_channel
+        launch = quantex._quantize_tensor_launch if kind == "tensor" else quantex._quantize_rows_launch
+        for i, shape in enumerate(shapes):
+            x = (torch.randn(shape, generator=gen, device="cuda") * (1.0 if shape in QUANT_ACTS else 0.02)).to(
+                torch.bfloat16)
+            q, s = kernel(x, 127.0)
+            qp, sp = plain(x, 127.0)
+            fq, fs = launch(x, 127.0, fault_reciprocal=True)
+            torch.cuda.synchronize()
+            same = torch.equal(q, qp) and torch.equal(s, sp)
+            differs = not (torch.equal(fq, qp) and torch.equal(fs, sp))
+            fault_seen.append((kind, differs))
+            log(f"  quantize_{kind} {shape}: q and scale bit-equal {same}; the reciprocal fault differs {differs} "
+                f"(q {(fq != qp).sum().item()} of {q.numel()}, scales {(fs != sp).sum().item()} of {s.numel()})")
+            require(same, f"quantize_{kind} {shape}: differs from its plain version")
+            if kind == "rows":
+                require(differs, f"quantize_rows {shape}: the planted fault (reciprocal products) went unseen")
+            if i == 0:
+                n = x.numel()
+                b_ms, b_by = bound(3 * n + 4 * (shape[0] if kind == "rows" else 1), QUANT_OPS_PER_ELEMENT * n,
+                                   PEAK_F32_FLOPS)
+                ms = time_ms(lambda: kernel(x, 127.0), 20)
+                plain_ms = time_ms(lambda: plain(x, 127.0), 5)
+                log(f"  quantize_{kind} {shape}: {3 * n / ms / 1e9:.3f} TB/s, {b_ms / ms:.1%} of the bound")
+                record(f"quantize_{kind}", str(shape), 0.0 if same else 1.0, 0.0 if same else 1.0, 0.0,
+                       source="thunder_tpu_torch/csrc/quantize.cu",
+                       replaces=("thunder_tpu/executors/quantex.py:99 (_quantize_per_tensor, an XLA fusion; "
+                                 "no Pallas kernel)" if kind == "tensor" else
+                                 "thunder_tpu/executors/quantex.py:108 (_quantize_per_channel, an XLA fusion; "
+                                 "no Pallas kernel)"),
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            del x, q, s, qp, sp, fq, fs
+    require(any(d for k, d in fault_seen if k == "tensor"),
+            "quantize_tensor: the planted fault (reciprocal products) went unseen on every path input")
+
+
 def run_quant_train(cfg, launches: dict, bf16_losses: list) -> None:
     """open_llama_3b at full width and depth, B=2 x T=2048, bf16, through
     ``value_and_grad(loss_fn, executors=QUANT_STACK)``: every linear of the
-    forward (26 x 5 + the lm_head: 131) through the int8 GEMM, the backward
-    straight-through in bf16, and phase 6's bf16-true SGD, from phase 6's
-    seed and data. First the loss with the kernel against the loss with its
-    plain version in the kernel's seat (bit-equal), and with a planted fault
-    (the K tail unread) that must differ; then 3 steps unstaged and, from
-    the same state, 3 staged as one CUDA graph: launches per step, losses
-    bit-equal between the two, the first within QUANT_LOSS_REL of phase 6's
-    bf16 step's and each later fall at least QUANT_FALL_SHARE of its; s/step,
-    enqueue and peak memory."""
+    forward (26 x 5 + the lm_head: 131) through the quantization kernels and
+    the int8 GEMM, the backward straight-through in bf16, and phase 6's
+    bf16-true SGD, from phase 6's seed and data. First the loss with the
+    kernels against the loss with their plain versions in their seats
+    (bit-equal), and with a planted fault (the K tail unread) that must
+    differ; then 3 steps unstaged and, from the same state, 3 staged as one
+    CUDA graph: launches per step, losses bit-equal between the two, the
+    first within QUANT_LOSS_REL of phase 6's bf16 step's and each later fall
+    at least QUANT_FALL_SHARE of its; s/step, enqueue, peak memory and the
+    device time by kernel group."""
     import numpy as np
     import torch
 
@@ -2531,30 +2612,44 @@ def run_quant_train(cfg, launches: dict, bf16_losses: list) -> None:
     per_fw = 5 * n + 1
 
     loss_fn = tt.jit(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), executors=QUANT_STACK, disable_jit_staging=True)
-    kernel = quantex.int8_gemm
+    seats = ("int8_gemm", "quantize_tensor", "quantize_rows")
+    kernels = {k: getattr(quantex, k) for k in seats}
     l_kernel = float(loss_fn(params, idx, tgt))
 
-    def plain(qa, qw, scale, bias, dtype):
+    def plain_gemm(qa, qw, scale, bias, dtype):
         return quantex.int8_gemm_plain(qa, qw, scale, bias, dtype)
+
+    def plain_tensor(x, qmax):
+        return quantex.quantize_per_tensor(x, qmax)
+
+    def plain_rows(w, qmax):
+        return quantex.quantize_per_channel(w, qmax)
 
     def tail_unread(qa, qw, scale, bias, dtype):
         cut = qa.shape[1] - 16
-        return kernel(qa[:, :cut].contiguous(), qw[:, :cut].contiguous(), scale, bias, dtype)
+        return kernels["int8_gemm"](qa[:, :cut].contiguous(), qw[:, :cut].contiguous(), scale, bias, dtype)
 
-    plain.launches = tail_unread.launches = 0  # the wrapper counts on whatever sits in its seat
+    plains = dict(zip(seats, (plain_gemm, plain_tensor, plain_rows)))
+    for fn in (*plains.values(), tail_unread):
+        fn.launches = 0  # the wrapper counts on whatever sits in its seat
     try:
-        quantex.int8_gemm = plain
+        for k, fn in plains.items():
+            setattr(quantex, k, fn)
         l_plain = float(loss_fn(params, idx, tgt))
+        for k, fn in kernels.items():
+            setattr(quantex, k, fn)
         quantex.int8_gemm = tail_unread
         l_fault = float(loss_fn(params, idx, tgt))
     finally:
-        quantex.int8_gemm = kernel
+        for k, fn in kernels.items():
+            setattr(quantex, k, fn)
     src = tt.last_traces(loss_fn)[-1].python()
     claimed = src.count("quant_linear(")
-    log(f"  quant loss: kernel {l_kernel:.6f}, plain version in its seat {l_plain:.6f} (bit-equal {l_kernel == l_plain}),"
+    log(f"  quant loss: kernels {l_kernel:.6f}, plain versions in their seats {l_plain:.6f} (bit-equal "
+        f"{l_kernel == l_plain}),"
         f" planted fault (K tail unread) {l_fault:.6f}; linears claimed by quant {claimed}")
     require(claimed == per_fw, f"the quant stack claims {claimed} linears of the loss, expected {per_fw}")
-    require(l_kernel == l_plain, "the int8 GEMM's loss differs from its plain version's")
+    require(l_kernel == l_plain, "the int8 kernels' loss differs from their plain versions'")
     require(l_fault != l_plain, "the planted fault (K tail unread) went unseen")
     del loss_fn
 
@@ -2582,14 +2677,15 @@ def run_quant_train(cfg, launches: dict, bf16_losses: list) -> None:
             times.append(time.perf_counter() - t)
             losses.append(float(loss))
             counts = _launch_counts()
-            require(counts["int8_gemm"] == per_fw and counts["flash_fwd_lse"] == n and counts["flash_bwd"] == n,
-                    f"{label} step {k + 1}: int8_gemm {counts['int8_gemm']} (expected {per_fw}), flash "
-                    f"{counts['flash_fwd_lse']}/{counts['flash_bwd']} (expected {n})")
-            for k2 in ("int8_gemm", "flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd"):
+            require(all(counts[s] == per_fw for s in seats) and counts["flash_fwd_lse"] == n
+                    and counts["flash_bwd"] == n,
+                    f"{label} step {k + 1}: {', '.join(f'{s} {counts[s]}' for s in seats)} (expected {per_fw} "
+                    f"each), flash {counts['flash_fwd_lse']}/{counts['flash_bwd']} (expected {n})")
+            for k2 in seats + ("flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd"):
                 launches[k2] = launches.get(k2, 0) + counts[k2]
         peak = torch.cuda.max_memory_allocated()
         log(f"  {label}: {', '.join(f'{x:.4f}' for x in times)} s/step; max_memory_allocated (steps 2-{TRAIN_STEPS}) "
-            f"{peak / 2**30:.2f} GiB; int8_gemm launches per step {per_fw}; loss {', '.join(f'{x:.6f}' for x in losses)}")
+            f"{peak / 2**30:.2f} GiB; int8_gemm and each quantization's launches per step {per_fw}; loss {', '.join(f'{x:.6f}' for x in losses)}")
         return losses, times, peak
 
     eager_losses, _, eager_peak = run(step, "unstaged int8 step")
@@ -2608,7 +2704,8 @@ def run_quant_train(cfg, launches: dict, bf16_losses: list) -> None:
     prof = profile_call("quant_train_step_staged", lambda: staged(params, idx, tgt), batch=LOSS_BATCH, seq=SEQ,
                         config=CFG_NAME, executors=",".join(QUANT_STACK), optimizer="sgd")
     log(f"  int8 step staged: {min(prof['wall_ms']):.2f} ms/step (wall, profiled run's timed calls), enqueue "
-        f"{min(prof['enqueue_ms']):.2f} ms, device {prof['device_ms']:.2f} ms, busy {prof['busy_share']:.4f}, peak "
+        f"{min(prof['enqueue_ms']):.2f} ms, device {prof['device_ms']:.2f} ms, busy {prof['busy_share']:.4f}, by group "
+        f"{ {k: round(v, 3) for k, v in prof['device_ms_by_group'].items()} }, peak "
         f"{peak / 2**30:.2f} GiB (unstaged {eager_peak / 2**30:.2f}); against phase 6's bf16 steps "
         f"{', '.join(f'{x:.6f}' for x in bf16_losses)}: step 1 rel {first:.3e} (limit {QUANT_LOSS_REL:.0e}), each "
         f"later fall {', '.join(f'{x:.3f}' for x in falls)} of the bf16 step's (limit {QUANT_FALL_SHARE})")
@@ -2785,6 +2882,7 @@ def main() -> int:
     check_masked_kernels(cfg, rows)
     check_legacy_kernels(cfg, rows)
     check_int8_kernel(rows)
+    check_quant_kernels(rows)
 
     log(f"[4] {CFG_NAME} at full width, 2 layers: default executors vs torch executor, forward and gradients")
     check_two_layers(cfg)

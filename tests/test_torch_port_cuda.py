@@ -1168,9 +1168,19 @@ def test_staged_module_lends_its_grads_unless_they_are_kept(dev):
     assert all(torch.equal(a, b) for a, b in zip(m_s.grads, m_e.grads))
 
 
-# The int8 linear's product (csrc/int8_gemm.cu): int32 sums are exact and
-# the epilogue rounds as the plain version does, so the two are bit-equal.
-_INT8_SHAPES = [(4096, 9600, 3200), (333, 517, 64), (129, 65, 100), (77, 250, 8640), (1, 3, 3200), (200, 300, 65)]
+# The int8 linear's product (csrc/int8_gemm.cu, wgmma/TMA; csrc/int8_gemm_sync.cu,
+# mma.sync, for operands TMA cannot describe): int32 sums are exact and the
+# epilogue rounds as the plain version does, so each route is bit-equal to it.
+_INT8_SHAPES = [(4096, 9600, 3200), (333, 517, 64), (129, 65, 100), (77, 250, 8640), (1, 3, 3200), (200, 300, 65),
+                (130, 257, 128), (255, 513, 3200), (4096, 3200, 8640)]
+
+
+def _int8_operands(M, N, K, dev):
+    gen = torch.Generator(device="cpu").manual_seed(M + N + K)
+    qa = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).to(dev)
+    qw = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(dev)
+    scale = (torch.rand(N, generator=gen) * 1e-3 + 1e-5).to(dev)
+    return qa, qw, scale
 
 
 @pytest.mark.parametrize("M,N,K", _INT8_SHAPES)
@@ -1178,15 +1188,12 @@ _INT8_SHAPES = [(4096, 9600, 3200), (333, 517, 64), (129, 65, 100), (77, 250, 86
 def test_int8_gemm_is_bit_equal_to_plain(dev, M, N, K, dtype, with_bias):
     from thunder_tpu_torch.executors import quantex
 
-    gen = torch.Generator(device="cpu").manual_seed(M + N + K)
-    qa = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).to(dev)
-    qw = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(dev)
-    scale = (torch.rand(N, generator=gen) * 1e-3 + 1e-5).to(dev)
+    qa, qw, scale = _int8_operands(M, N, K, dev)
     bias = _randn((N,), dtype, dev, 3) if with_bias else None
-    n = quantex.int8_gemm.launches
+    n = quantex.int8_gemm.launches + quantex.int8_gemm_sync.launches
     got = quantex.int8_gemm(qa, qw, scale, bias, dtype)
     torch.cuda.synchronize()
-    assert quantex.int8_gemm.launches == n + 1
+    assert quantex.int8_gemm.launches + quantex.int8_gemm_sync.launches == n + 1
     want = quantex.int8_gemm_plain(qa, qw, scale, bias, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
 
@@ -1201,6 +1208,128 @@ def test_int8_gemm_reads_an_unaligned_operand(dev):
     scale = torch.full((96,), 0.01, device=dev)
     got = quantex.int8_gemm(qa, qw, scale, None, torch.float32)
     assert torch.equal(got, quantex.int8_gemm_plain(qa, qw, scale, None, torch.float32))
+
+
+@pytest.mark.parametrize("K,offset,route", [(3200, 0, "int8_gemm"), (128, 0, "int8_gemm"), (100, 0, "int8_gemm_sync"),
+                                            (3200, 16, "int8_gemm"), (3200, 8, "int8_gemm_sync")])
+def test_int8_gemm_route_is_chosen_by_shape(dev, K, offset, route):
+    """An operand TMA can describe (16-byte-aligned base and rows) launches
+    the wgmma kernel, any other the mma.sync kernel; each route counts its
+    own launches, and both are bit-equal to the plain version."""
+    from thunder_tpu_torch.executors import quantex
+
+    qa, qw, scale = _int8_operands(64, 96, K, dev)
+    buf = torch.zeros(64 * K + offset, dtype=torch.int8, device=dev)
+    qa = buf[offset:].view(64, K).copy_(qa)
+    counts = {r: getattr(quantex, r).launches for r in ("int8_gemm", "int8_gemm_sync")}
+    got = quantex.int8_gemm(qa, qw, scale, None, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {r: getattr(quantex, r).launches - n for r, n in counts.items()} == {
+        r: int(r == route) for r in counts}
+    assert torch.equal(got, quantex.int8_gemm_plain(qa, qw, scale, None, torch.bfloat16))
+
+
+def test_int8_gemm_k_tail_is_read(dev):
+    """K = 8640 leaves half of the last 128-byte stage past the end: the sum
+    must hold the tail's terms (the K tail left unread differs)."""
+    from thunder_tpu_torch.executors import quantex
+
+    qa, qw, scale = _int8_operands(256, 256, 8640, dev)
+    want = quantex.int8_gemm_plain(qa, qw, scale, None, torch.float32)
+    assert torch.equal(quantex.int8_gemm(qa, qw, scale, None, torch.float32), want)
+    cut = quantex.int8_gemm(qa[:, :8640 - 16].contiguous(), qw[:, :8640 - 16].contiguous(), scale, None,
+                            torch.float32)
+    assert not torch.equal(cut, want)
+
+
+# The quantization kernels (csrc/quantize.cu) against their plain versions:
+# the same division, rounding and max, so the same bits.
+_QUANT_SHAPES = [(9600, 3200), (3200, 8640), (77, 101), (5, 3, 8), (4096, 3200), (33, 8640), (1, 7)]
+
+
+def _quant_input(shape, dtype, dev, seed, contiguous=True):
+    x = _randn(shape[:-1] + (shape[-1] + (0 if contiguous else 24),), dtype, dev, seed) * 0.05
+    return x if contiguous else x[..., 24:]
+
+
+@pytest.mark.parametrize("shape", _QUANT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_quantize_kernels_are_bit_equal_to_plain(dev, shape, dtype, contiguous):
+    from thunder_tpu_torch.executors import quantex
+
+    x = _quant_input(shape, dtype, dev, sum(shape), contiguous)
+    n = quantex.quantize_tensor.launches
+    q, s = quantex.quantize_tensor(x, 127.0)
+    torch.cuda.synchronize()
+    assert quantex.quantize_tensor.launches == n + 1
+    qp, sp = quantex.quantize_per_tensor(x, 127.0)
+    assert q.dtype == torch.int8 and tuple(q.shape) == shape and torch.equal(q, qp) and torch.equal(s, sp)
+    if x.ndim == 2:
+        n = quantex.quantize_rows.launches
+        q, s = quantex.quantize_rows(x, 127.0)
+        torch.cuda.synchronize()
+        assert quantex.quantize_rows.launches == n + 1
+        qp, sp = quantex.quantize_per_channel(x, 127.0)
+        assert tuple(s.shape) == (shape[0], 1) and torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("qmax", [127.0, 127.0 / 4])
+def test_quantize_kernels_zero_rows_ties_and_nan(dev, qmax):
+    """An all-zero row takes the 1e-6 floor; halves round to even; a NaN in
+    the input makes the scale NaN, as torch.amax propagates it."""
+    from thunder_tpu_torch.executors import quantex
+
+    x = _randn((6, 256), torch.float32, dev, 5)
+    x[1] = 0.0
+    x[2, :4] = torch.tensor([qmax, 0.5, 1.5, -2.5], device=dev)
+    x[2, 4:] = 0.25
+    q, s = quantex.quantize_rows(x, qmax)
+    qp, sp = quantex.quantize_per_channel(x, qmax)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert s[2, 0].item() == 1.0 and q[2, :4].tolist() == [127 if qmax == 127.0 else 32, 0, 2, -2]
+    x[4, 7] = float("nan")
+    q, s = quantex.quantize_rows(x, qmax)
+    qp, sp = quantex.quantize_per_channel(x, qmax)
+    assert torch.isnan(s[4, 0]) and torch.isnan(sp[4, 0])
+    keep = torch.arange(6, device=dev) != 4
+    assert torch.equal(s[keep], sp[keep]) and torch.equal(q[keep], qp[keep])
+    qt, st = quantex.quantize_tensor(x, qmax)
+    assert torch.isnan(st) and torch.isnan(quantex.quantize_per_tensor(x, qmax)[1])
+
+
+def test_quantize_tensor_replayed_graph_takes_each_calls_max(dev):
+    """The amax word is zeroed inside the captured work: two replays on
+    inputs with different maxima give different scales, each the plain
+    version's."""
+    from thunder_tpu_torch.executors import quantex
+
+    x = _randn((512, 3200), torch.bfloat16, dev, 7)
+    quantex.quantize_tensor(x, 127.0)  # load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = quantex.quantize_tensor(x, 127.0)
+    scales = []
+    for factor in (4.0, 0.5):
+        x.copy_(_randn((512, 3200), torch.bfloat16, dev, 7) * factor)
+        graph.replay()
+        torch.cuda.synchronize()
+        qp, sp = quantex.quantize_per_tensor(x, 127.0)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        scales.append(s.item())
+    assert scales[0] > scales[1]
+
+
+def test_quantize_reciprocal_fault_differs(dev):
+    """The planted fault (products with the reciprocal in place of the
+    divisions) moves the per-row scales' bits: the comparison sees it."""
+    from thunder_tpu_torch.executors import quantex
+
+    w = _randn((9600, 3200), torch.bfloat16, dev, 8) * 0.02
+    q, s = quantex._quantize_rows_launch(w, 127.0, fault_reciprocal=True)
+    qp, sp = quantex.quantize_per_channel(w, 127.0)
+    assert not torch.equal(s, sp)
 
 
 def test_quant_linear_claims_and_launches_the_kernel(dev):

@@ -224,3 +224,132 @@ def test_jax_int32_dot_matches_on_a_vocabulary_sized_product():
     got = tq.quant_linear(a, w).float().numpy()
     assert (np.abs(got - want.astype(np.float32)) <= np.spacing(np.abs(want.astype(np.float32))) * 2 ** 16).all()
     assert jax.default_backend() == "cpu"
+
+
+# =============================================================================
+# The quantization wrappers (csrc/quantize.cu on the card): their CPU route,
+# bit for bit against the JAX package's _quantize_per_tensor /
+# _quantize_per_channel, which quantize the operand's values in f32
+# =============================================================================
+
+
+def _qmax(margin: int) -> float:
+    return tq.QuantRecipe(margin=margin).qmax
+
+
+_Q_DTYPES = ["float32", "bfloat16", "float16"]
+
+
+@pytest.mark.parametrize("dtype", _Q_DTYPES)
+@pytest.mark.parametrize("margin", [0, 2])
+@pytest.mark.parametrize("shape", [(7, 100), (3, 5, 64), (96, 3200)])
+def test_quantize_tensor_cpu_route_is_the_jax_packages(dtype, margin, shape):
+    x32, x = _as(_t(*shape, seed=11), dtype)
+    n = tq.quantize_tensor.launches
+    q, s = tq.quantize_tensor(x, _qmax(margin))
+    assert tq.quantize_tensor.launches == n  # nothing launched on the CPU
+    jqx, jsx = jq._quantize_per_tensor(jnp.asarray(x32), jq.QuantRecipe(margin=margin).qmax)
+    assert q.dtype == torch.int8 and tuple(q.shape) == shape and s.dtype == torch.float32 and s.ndim == 0
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqx))
+    assert s.numpy().tobytes() == np.asarray(jsx).tobytes()
+
+
+@pytest.mark.parametrize("dtype", _Q_DTYPES)
+@pytest.mark.parametrize("margin", [0, 2])
+@pytest.mark.parametrize("shape", [(5, 64), (33, 257), (48, 3200)])
+def test_quantize_rows_cpu_route_is_the_jax_packages(dtype, margin, shape):
+    w32, w = _as(_t(*shape, seed=12, scale=0.05), dtype)
+    n = tq.quantize_rows.launches
+    q, s = tq.quantize_rows(w, _qmax(margin))
+    assert tq.quantize_rows.launches == n
+    jqw, jsw = jq._quantize_per_channel(jnp.asarray(w32), jq.QuantRecipe(margin=margin).qmax)
+    assert tuple(q.shape) == shape and tuple(s.shape) == (shape[0], 1)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqw))
+    assert s.numpy().tobytes() == np.asarray(jsw).tobytes()
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+@pytest.mark.parametrize("dtype", _Q_DTYPES)
+def test_weight_quantization_both_ways_is_the_jax_packages(per_channel, dtype):
+    """The weight as ``quant_linear`` quantizes it under either recipe: a
+    scale a row, or one scale broadcast to every row."""
+    w32, w = _as(_t(40, 128, seed=13, scale=0.05), dtype)
+    if per_channel:
+        q, s = tq.quantize_rows(w, 127.0)
+    else:
+        q, s = tq.quantize_tensor(w, 127.0)
+        s = s.expand(w.shape[0], 1)
+    jqw, jsw = jq._quantize_per_channel(jnp.asarray(w32), 127.0, per_channel)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqw))
+    assert s.contiguous().numpy().tobytes() == np.ascontiguousarray(np.asarray(jsw)).tobytes()
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+@pytest.mark.parametrize("margin", [0, 2])
+def test_quant_linear_under_each_recipe_matches_the_jax_packages(per_channel, margin):
+    a32, a = _as(_t(6, 128, seed=14), "bfloat16")
+    w32, w = _as(_t(24, 128, seed=15, scale=0.05), "bfloat16")
+    try:
+        tq.set_recipe(tq.QuantRecipe(margin=margin, per_channel_weights=per_channel))
+        jq.set_recipe(jq.QuantRecipe(margin=margin, per_channel_weights=per_channel))
+        got = tq.quant_linear(a, w).float().numpy()
+        want = np.asarray(jq._quant_linear_impl(jnp.asarray(a32, jnp.bfloat16), jnp.asarray(w32, jnp.bfloat16)))
+    finally:
+        tq.set_recipe(tq.QuantRecipe())
+        jq.set_recipe(jq.QuantRecipe())
+    want = want.astype(np.float32)
+    assert (np.abs(got - want) <= np.spacing(np.abs(want)) * 2 ** 16).all()
+
+
+@pytest.mark.parametrize("dtype", _Q_DTYPES)
+def test_an_all_zero_row_takes_the_1e6_floor(dtype):
+    w32, w = _as(_t(4, 64, seed=16), dtype)
+    w32[2] = 0.0
+    w[2] = 0
+    q, s = tq.quantize_rows(w, 127.0)
+    jqw, jsw = jq._quantize_per_channel(jnp.asarray(w32), 127.0)
+    assert s.numpy().tobytes() == np.asarray(jsw).tobytes()
+    assert s[2, 0].item() == np.float32(np.float32(1e-6) / np.float32(127.0))
+    assert (q[2] == 0).all()
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqw))
+    qz, sz = tq.quantize_tensor(torch.zeros(3, 64, dtype=w.dtype), 127.0)
+    jqz, jsz = jq._quantize_per_tensor(jnp.zeros((3, 64), jnp.float32), 127.0)
+    assert sz.numpy().tobytes() == np.asarray(jsz).tobytes() and (qz == 0).all()
+
+
+@pytest.mark.parametrize("dtype", _Q_DTYPES)
+def test_ties_round_half_to_even(dtype):
+    """amax 127 gives the scale 1.0 exactly, so each x / s is x: the halves
+    round to the even neighbour (0.5 -> 0, 1.5 -> 2, 2.5 -> 2, -2.5 -> -2)."""
+    vals = [127.0, 0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, -3.5, 4.5, 100.5, -126.5]
+    x32 = np.array([vals] * 2, dtype=np.float32)
+    x = torch.from_numpy(x32).to(getattr(torch, dtype))
+    assert torch.equal(x.float(), torch.from_numpy(x32))  # every value exact in the type
+    want = np.array([127, 0, 2, 2, 4, 0, -2, -2, -4, 4, 100, -126], dtype=np.int8)
+    for q, s, (jqx, jsx) in (
+        (*tq.quantize_tensor(x, 127.0), jq._quantize_per_tensor(jnp.asarray(x32), 127.0)),
+        (*tq.quantize_rows(x, 127.0), jq._quantize_per_channel(jnp.asarray(x32), 127.0)),
+    ):
+        assert (s.numpy() == 1.0).all()
+        np.testing.assert_array_equal(q.numpy()[0], want)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jqx))
+
+
+def test_quant_linear_runs_the_cpu_routes_without_launching():
+    a, w = torch.randn(3, 4, 96), torch.randn(16, 96) * 0.05
+    before = (tq.quantize_tensor.launches, tq.quantize_rows.launches, tq.int8_gemm.launches,
+              tq.int8_gemm_sync.launches)
+    out = tq.quant_linear(a, w)
+    assert tuple(out.shape) == (3, 4, 16)
+    assert (tq.quantize_tensor.launches, tq.quantize_rows.launches, tq.int8_gemm.launches,
+            tq.int8_gemm_sync.launches) == before
+
+
+@pytest.mark.parametrize("K,offset,ok", [(3200, 0, True), (8640, 0, True), (100, 0, False), (64, 1, False)])
+def test_the_gemm_route_is_chosen_by_shape_and_alignment(K, offset, ok):
+    """TMA describes contiguous operands with 16-byte-aligned bases and rows
+    (K % 16 == 0); anything else goes to the mma.sync route."""
+    buf = torch.zeros(8 * K + 16, dtype=torch.int8)
+    base = (-buf.data_ptr()) % 16 + offset
+    qa = buf[base:base + 8 * K].view(8, K)
+    assert tq.tma_describes(qa, torch.zeros(4, K, dtype=torch.int8)) is ok

@@ -30,7 +30,14 @@ from thunder_tpu_torch.api import (
     seed,
     value_and_grad,
 )
+from thunder_tpu_torch.common import (
+    CACHE_OPTIONS,
+    SHARP_EDGES_OPTIONS,
+    ThunderSharpEdgeError,
+    ThunderSharpEdgeWarning,
+)
 
 __all__ = ["jit", "grad", "value_and_grad", "seed", "last_traces", "last_prologue_traces", "last_backward_traces",
            "last_staging", "last_compile_options", "cache_hits", "cache_misses", "cache_info", "compile_data",
-           "compile_stats", "models"]
+           "compile_stats", "models", "CACHE_OPTIONS", "SHARP_EDGES_OPTIONS", "ThunderSharpEdgeError",
+           "ThunderSharpEdgeWarning"]

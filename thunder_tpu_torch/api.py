@@ -30,6 +30,7 @@ from typing import Any, Callable, Optional, Sequence
 from thunder_tpu_torch import clang  # registers the clang language  # noqa: F401
 from thunder_tpu_torch import torch as ltorch  # registers the torch language  # noqa: F401
 from thunder_tpu_torch.common import (
+    CACHE_OPTIONS,
     CacheEntry,
     sharp_edge,
     CompileData,
@@ -135,8 +136,11 @@ def _build_prologue(args: tuple, kwargs: dict, proxied_args: tuple, proxied_kwar
                 prims.check_string_value(p, p.value)
             elif isinstance(p, AnyProxy) and p.value is None:
                 prims.check_none(p)
-            # Any other leaf is an opaque object: it is baked into the trace
-            # and cannot be guarded.
+            else:
+                # An opaque leaf: its value is baked into the trace with no
+                # prologue check, so report it per the sharp-edges policy.
+                sharp_edge(f"input {getattr(p, 'name', p)!r} of type "
+                           f"{type(getattr(p, 'value', concrete)).__name__} cannot be guarded")
 
         def unpack_into(coll_proxy: CollectionProxy, concrete: Any, proxied: Any) -> None:
             if isinstance(concrete, (tuple, list)):
@@ -804,6 +808,8 @@ def jit(
 
     import torch
 
+    if isinstance(cache, CACHE_OPTIONS):
+        cache = cache.value
     if cache not in (CONSTANT_VALUES, SYMBOLIC_VALUES):
         raise ValueError(f"cache={cache!r}: expected {CONSTANT_VALUES!r} or {SYMBOLIC_VALUES!r}")
     if isinstance(fn, torch.nn.Module):

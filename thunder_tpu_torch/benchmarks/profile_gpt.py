@@ -16,7 +16,8 @@ then it is timed three times with the host clock around
 ``torch.cuda.synchronize()`` (the enqueue time is the replay's), then
 profiled once with ``torch.profiler``, and the device time of its kernels
 is summed by group: the port's own kernels (flash forward, flash backward,
-rope, cross-entropy, norm), matrix products, and every other PyTorch kernel
+rope, cross-entropy, norm, and the int8 linear's quantization and int8
+GEMM), matrix products, and every other PyTorch kernel
 (the decomposed norms, activations, copies, the qkv slice backward's pads
 and adds, the optimizer update). Prints one JSON line for each. The device busy share is
 the summed kernel time over the wall time of an unprofiled call; the
@@ -47,6 +48,10 @@ def _group(name: str) -> str:
         return "ce"
     if "norm_fwd_kernel" in name or "norm_bwd_kernel" in name:
         return "norm"
+    if "quantize_rows_kernel" in name or "quantize_tensor_kernel" in name or "amax_kernel" in name:
+        return "quant"
+    if "int8_gemm" in name:
+        return "int8_gemm"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul"
     return "other"

@@ -2,9 +2,9 @@
 
 Reference parity: thunder/common.py (`CompileData:138`, `CompileStats:54`,
 `CacheEntry` in thunder/__init__.py:281) and thunder/core/options.py
-(SHARP_EDGES_OPTIONS). Cut to the jit path of this package:
+(CACHE_OPTIONS, SHARP_EDGES_OPTIONS). Cut to the jit path of this package:
 constant-values caching (every tensor's metadata and every number's value is
-guarded by the prologue), no cache option; staging as a CUDA graph
+guarded by the prologue) and symbolic values; staging as a CUDA graph
 (``disable_jit_staging``, executors/staging.py); the reference package's
 symbolic-values caching, distribution state, de-opt ladder, observability
 taps and compile-phase spans come with later parts of the port.
@@ -18,6 +18,16 @@ import enum
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
+
+
+class CACHE_OPTIONS(enum.Enum):
+    """The reference's cache options by their ``jit(cache=...)`` strings;
+    the port's ``jit`` takes ``CONSTANT_VALUES`` and ``SYMBOLIC_VALUES``."""
+
+    NO_CACHING = "no caching"
+    CONSTANT_VALUES = "constant values"
+    SAME_INPUT = "same input"
+    SYMBOLIC_VALUES = "symbolic values"
 
 
 class SHARP_EDGES_OPTIONS(enum.Enum):

@@ -344,7 +344,16 @@ def tensor_constant(value):
     if hit is not None:
         return hit[1]
     # A captured tensor is baked into the trace as a constant: the prologue
-    # does not guard it, so a later mutation of it is not seen.
+    # does not guard it, so a later mutation of it is not seen. Reported per
+    # the sharp-edges policy, once per captured object.
+    from thunder_tpu_torch.common import sharp_edge
+
+    sharp_edge(
+        f"captured concrete tensor (shape {tuple(getattr(value, 'shape', ()))}) "
+        "baked into the trace as a constant — it is not a guarded input; "
+        "later mutation of the captured array will NOT be seen. Pass it as "
+        "an argument to make it an input"
+    )
     proxy = tensor_constant_sym(_ConstHandle(bridge.to_torch(value, devices.Device().torch_device())))
     # Keep the source object alive for the trace's lifetime so its id can't
     # be reused by a different array.

@@ -45,7 +45,11 @@ _SIGNATURES = {
     "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 6 + [_c_void_p],
     "thunder_norm_fwd_blocks_per_sm": [_c_int] * 3,
     "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float] + [_c_int] * 2 + [_c_void_p],
-    "thunder_int8_gemm": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
+    "thunder_int8_gemm": [_c_void_p] * 5 + [_c_int] * 4 + [_c_void_p],
+    "thunder_int8_gemm_sync": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
+    "thunder_quantize_rows": [_c_void_p, _c_ll, _c_int, _c_int, _c_float] + [_c_int] * 3 + [_c_void_p] * 3,
+    "thunder_quantize_tensor": [_c_void_p] + [_c_ll] * 3 + [_c_float] + [_c_int] * 3 + [_c_void_p] * 3
+    + [_c_int, _c_void_p],
     "thunder_rng_draw": [_c_void_p, _c_int, ctypes.c_uint, _c_void_p, _c_ll, _c_int, _c_int] + [_c_float] * 3
     + [_c_int, _c_void_p],
 }

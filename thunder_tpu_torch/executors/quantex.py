@@ -5,11 +5,14 @@ one per-tensor scale and weights a scale per output channel (row), both
 from the current call's amax (no delayed history), and the backward stays
 in the original dtype (straight-through: autodiff decomposes ``linear``
 before claiming, so the grad trace's products fall to the torch executor).
-The quantization is torch code on the device, in the reference's order of
-operations, so ``q`` and the scales have its bits (``torch.round`` rounds
-half to even, as ``jnp.round`` does); the int8 × int8 → int32 product with
-its rescale and bias is the kernel ``csrc/int8_gemm.cu``, in the seat of the
-reference's ``lax.dot_general`` (``quantex.py:134-142``).
+On the card the quantization is the kernel ``csrc/quantize.cu``, in the seat
+of the XLA fusions of the reference's ``_quantize_per_tensor`` and
+``_quantize_per_channel`` (``quantex.py:101-119``): one pass over the
+operand in its own type, with the bits of the plain versions here, which
+follow the reference's order of operations (``torch.round`` rounds half to
+even, as ``jnp.round`` does). The int8 × int8 → int32 product with its
+rescale and bias is the kernel ``csrc/int8_gemm.cu`` (``wgmma``, TMA), in the
+seat of the reference's ``lax.dot_general`` (``quantex.py:134-142``).
 
 Opt-in (it changes numerics)::
 
@@ -79,7 +82,8 @@ def _linear_checker(a, w, bias=None) -> bool:
 
 
 # =============================================================================
-# Quantization (torch ops, the reference's order of operations)
+# Quantization: the plain versions (torch ops, the reference's order of
+# operations) and the wrappers of csrc/quantize.cu
 # =============================================================================
 
 
@@ -90,22 +94,96 @@ def _div(x: torch.Tensor, qmax: float) -> torch.Tensor:
 
 
 def quantize_per_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(q int8, scale 0-d f32): scale = max(amax, 1e-6) / qmax."""
+    """The plain version of ``quantize_tensor``: (q int8, scale 0-d f32),
+    scale = max(amax, 1e-6) / qmax, all in f32."""
+    x = x.float()
     scale = _div(torch.clamp_min(x.abs().amax(), 1e-6), qmax)
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
 
-def quantize_per_channel(w: torch.Tensor, qmax: float, per_channel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """(q int8, scale (out, 1) f32) of an (out, in) weight."""
-    if not per_channel:
-        q, s = quantize_per_tensor(w, qmax)
-        return q, s.expand(w.shape[0], 1)
+def quantize_per_channel(w: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``quantize_rows``: (q int8, scale (out, 1) f32)
+    of an (out, in) weight, all in f32."""
+    w = w.float()
     scale = _div(torch.clamp_min(w.abs().amax(dim=1, keepdim=True), 1e-6), qmax)
     return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
 
 
+def _quantize_operand(x: torch.Tensor, name: str) -> tuple[torch.Tensor, int, bool]:
+    """(x as a 2-D matrix with its last dim innermost, its row stride in
+    elements, whether the kernels may read it as 16-byte vectors)."""
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"{name}: expected an f32, bf16 or f16 tensor, got {x.dtype}")
+    x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
+    if x2.stride(-1) != 1 or (x2.shape[0] > 1 and x2.stride(0) < x2.shape[1]):
+        x2 = x2.contiguous()
+    ld = x2.stride(0) if x2.shape[0] > 1 else x2.shape[1]
+    per = 16 // x2.element_size()
+    return x2, ld, x2.shape[1] % per == 0 and ld % per == 0 and x2.data_ptr() % 16 == 0
+
+
+def _quantize_rows_launch(w: torch.Tensor, qmax: float, fault_reciprocal: bool = False):
+    w2, ld, vec = _quantize_operand(w, "quantize_rows")
+    N, K = w2.shape
+    q = torch.empty((N, K), dtype=torch.int8, device=w.device)
+    scale = torch.empty((N, 1), dtype=torch.float32, device=w.device)
+    status = _build.lib().thunder_quantize_rows(
+        ctypes.c_void_p(w2.data_ptr()), ld, N, K, qmax, _build.dtype_code(w2), int(vec), int(fault_reciprocal),
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(scale.data_ptr()), _build.stream_of(w2))
+    _build.check(status, "quantize_rows")
+    return q, scale
+
+
+@_build.counted
+def quantize_rows(w: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int8 of w's shape, scale (rows, 1) f32) of a (rows, K) weight, a
+    scale a row: ``csrc/quantize.cu`` on a CUDA tensor (one pass, in w's own
+    type), the plain version on a CPU tensor."""
+    if w.device.type == "cpu":
+        return quantize_per_channel(w, qmax)
+    if not w.is_cuda or w.ndim != 2 or w.numel() == 0:
+        raise ValueError(f"quantize_rows: expected a non-empty 2-D CUDA tensor, got {tuple(w.shape)} on {w.device}")
+    out = _quantize_rows_launch(w, qmax)
+    quantize_rows.launches += 1
+    return out
+
+
+def _quantize_tensor_launch(x: torch.Tensor, qmax: float, fault_reciprocal: bool = False):
+    x2, ld, vec = _quantize_operand(x, "quantize_tensor")
+    rows, cols = x2.shape
+    if ld == cols:  # contiguous: one flat row
+        rows, cols = 1, rows * cols
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    amax = torch.empty((1,), dtype=torch.int32, device=x.device)
+    per = 16 // x2.element_size() if vec else 1
+    blocks = max(1, min(-(-rows * cols // (per * 256)), 8 * _build.sm_count(x.device.index or 0)))
+    status = _build.lib().thunder_quantize_tensor(
+        ctypes.c_void_p(x2.data_ptr()), ld, rows, cols, qmax, _build.dtype_code(x2), int(vec), int(fault_reciprocal),
+        ctypes.c_void_p(amax.data_ptr()), ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(scale.data_ptr()), blocks,
+        _build.stream_of(x2))
+    _build.check(status, "quantize_tensor")
+    return q, scale
+
+
+@_build.counted
+def quantize_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int8 of x's shape, scale 0-d f32), one scale for the whole tensor:
+    ``csrc/quantize.cu`` on a CUDA tensor (a grid amax, then one pass, in
+    x's own type), the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return quantize_per_tensor(x, qmax)
+    if not x.is_cuda or x.ndim == 0 or x.numel() == 0:
+        raise ValueError(f"quantize_tensor: expected a non-empty CUDA tensor of at least one dim, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    out = _quantize_tensor_launch(x, qmax)
+    quantize_tensor.launches += 1
+    return out
+
+
 # =============================================================================
-# The kernel's wrapper
+# The product's wrappers: csrc/int8_gemm.cu (wgmma/TMA) and, for operands TMA
+# cannot describe, csrc/int8_gemm_sync.cu (mma.sync)
 # =============================================================================
 
 
@@ -120,14 +198,9 @@ def int8_gemm_plain(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bia
     return out.to(dtype)
 
 
-@_build.counted
-def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-              dtype: torch.dtype) -> torch.Tensor:
-    """out (M, N) of ``dtype`` = float(qa (M, K) · qw (N, K)ᵀ) · scale (N,)
-    (+ bias (N,), added in f32): ``csrc/int8_gemm.cu`` on CUDA tensors, the
-    plain version on CPU tensors."""
-    if qa.device.type == "cpu":
-        return int8_gemm_plain(qa, qw, scale, bias, dtype)
+def _gemm_operands(qa, qw, scale, bias, dtype):
+    """Check the operands of a CUDA call; return them contiguous, the bias
+    in f32."""
     M, K = qa.shape
     N = qw.shape[0]
     ts = (qa, qw, scale) + (() if bias is None else (bias,))
@@ -142,14 +215,51 @@ def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Opt
         raise ValueError(f"int8_gemm: expected a bias of shape ({N},), got {tuple(bias.shape)}")
     if str(dtype).removeprefix("torch.") not in _build.DTYPE_CODES:
         raise ValueError(f"int8_gemm: no output type {dtype}")
-    qa, qw, scale = qa.contiguous(), qw.contiguous(), scale.contiguous()
     bias = None if bias is None else bias.float().contiguous()
-    out = torch.empty((M, N), dtype=dtype, device=qa.device)
-    aligned = int(K % 16 == 0 and _build.ptr_align(qa, qw) == 16)
-    status = _build.lib().thunder_int8_gemm(
-        ctypes.c_void_p(qa.data_ptr()), ctypes.c_void_p(qw.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
-        ctypes.c_void_p(None if bias is None else bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        M, N, K, _build.DTYPE_CODES[str(dtype).removeprefix("torch.")], aligned, _build.stream_of(qa))
+    return qa.contiguous(), qw.contiguous(), scale.contiguous(), bias
+
+
+def _gemm_args(qa, qw, scale, bias, dtype):
+    """A fresh (M, N) output and the C entry points' leading arguments."""
+    out = torch.empty((qa.shape[0], qw.shape[0]), dtype=dtype, device=qa.device)
+    return out, (ctypes.c_void_p(qa.data_ptr()), ctypes.c_void_p(qw.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
+                 ctypes.c_void_p(None if bias is None else bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                 qa.shape[0], qw.shape[0], qa.shape[1], _build.DTYPE_CODES[str(dtype).removeprefix("torch.")])
+
+
+def tma_describes(qa: torch.Tensor, qw: torch.Tensor) -> bool:
+    """Whether TMA can read both contiguous int8 operands: 16-byte-aligned
+    bases and rows (K % 16 == 0). Decided from shapes and pointers alone."""
+    return qa.shape[-1] % 16 == 0 and _build.ptr_align(qa, qw) == 16
+
+
+@_build.counted
+def int8_gemm_sync(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``int8_gemm`` on the ``mma.sync`` kernel (``csrc/int8_gemm_sync.cu``),
+    which reads any operand: the route for what TMA cannot describe."""
+    qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)
+    out, args = _gemm_args(qa, qw, scale, bias, dtype)
+    status = _build.lib().thunder_int8_gemm_sync(*args, int(tma_describes(qa, qw)), _build.stream_of(qa))
+    _build.check(status, "int8_gemm_sync")
+    int8_gemm_sync.launches += 1
+    return out
+
+
+@_build.counted
+def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+              dtype: torch.dtype) -> torch.Tensor:
+    """out (M, N) of ``dtype`` = float(qa (M, K) · qw (N, K)ᵀ) · scale (N,)
+    (+ bias (N,), added in f32): the plain version on CPU tensors; on CUDA
+    tensors ``csrc/int8_gemm.cu`` (``wgmma``, TMA) where ``tma_describes``
+    the operands, else ``int8_gemm_sync``. Each route counts its own launches."""
+    if qa.device.type == "cpu":
+        return int8_gemm_plain(qa, qw, scale, bias, dtype)
+    qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)
+    if not tma_describes(qa, qw):
+        return int8_gemm_sync(qa, qw, scale, bias, dtype)
+    out, args = _gemm_args(qa, qw, scale, bias, dtype)
+    status = _build.lib().thunder_int8_gemm(*args, _build.stream_of(qa))
     _build.check(status, "int8_gemm")
     int8_gemm.launches += 1
     return out
@@ -161,12 +271,17 @@ def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Opt
 
 
 def quant_linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``linear(a, w, bias)`` with a and w quantized to int8 (thunder_tpu/
-    executors/quantex.py:123 ``_quant_linear_impl``)."""
+    """``linear(a, w, bias)`` with a and w quantized to int8 in their own
+    types (thunder_tpu/executors/quantex.py:123 ``_quant_linear_impl``)."""
     r = _recipe
-    qa, sa = quantize_per_tensor(a.float(), r.qmax)
-    qw, sw = quantize_per_channel(w.float(), r.qmax, r.per_channel_weights)
-    out = int8_gemm(qa.reshape(-1, a.shape[-1]), qw, sa * sw[:, 0], bias, a.dtype)
+    qa, sa = quantize_tensor(a.reshape(-1, a.shape[-1]), r.qmax)
+    if r.per_channel_weights:
+        qw, sw = quantize_rows(w, r.qmax)
+        sw = sw[:, 0]
+    else:
+        qw, sw = quantize_tensor(w, r.qmax)
+        sw = sw.expand(w.shape[0])
+    out = int8_gemm(qa, qw, sa * sw, bias, a.dtype)
     return out.reshape(*a.shape[:-1], w.shape[0])
 
 

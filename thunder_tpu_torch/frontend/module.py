@@ -49,6 +49,7 @@ from typing import Any
 
 import torch
 
+from thunder_tpu_torch.common import suppress_sharp_edges
 from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 
@@ -153,7 +154,10 @@ class _library_lookasides:
     def __enter__(self):
         self._saved = None
         try:
-            from transformers import masking_utils as mu
+            # The first import runs library code (its environment reads),
+            # not the traced forward: no sharp edge of the caller's.
+            with suppress_sharp_edges():
+                from transformers import masking_utils as mu
         except ImportError:
             return self
         orig = getattr(mu, "_vmap_for_bhqkv", None)
