@@ -36,7 +36,9 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
 5. runs the full 26-layer open_llama_3b: ``jit(loss_fn)`` at B=2, T=2048 and
    ``jit(forward)`` at B=10, T=2048, with random weights from a seed, each
    staged as a CUDA graph (warm-up, capture, replay), and checks that each
-   kernel was launched the expected number of times;
+   kernel was launched the expected number of times; prints the host µs of
+   a cache hit of the staged loss through each lookup (the prologues, the
+   O(1) key, ``cache="same input"``) and ``cache_info``'s ``fast_hits``;
 6. builds the 26-layer training step (``benchmarks/train.py``) at B=2,
    T=2048 and runs 3 unstaged steps: prints the build seconds of each pass,
    the step seconds, the peak device memory and the loss, checks the
@@ -75,10 +77,10 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    checked against the claimed traces; then the staged module against the
    same module jitted with ``disable_jit_staging=True`` from the same state
    (forward logits, a step's loss and grads, ``torch.equal``; enqueue ms and
-   a step's peak memory both ways), and one profiled forward and step each
-   way: the staged step's peak at most 1 GiB and its device time at most 1%
-   above the unstaged step's (the forward and backward graphs share one
-   memory pool);
+   a step's peak memory both ways), and one profiled forward each way and
+   two profiled steps each way, in turns: the staged step's peak at most
+   1 GiB and its mean device time at most 1% above the unstaged step's (the
+   forward and backward graphs share one memory pool);
 12. runs 3 staged open_llama_3b training steps under
    ``THUNDER_FLASH_IMPL=legacy``: the legacy route's launches (row 10)
    against the claimed traces, the losses against phase 6's splash route;
@@ -111,7 +113,22 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    under padding against the exact loss, the CE kernel still claimed; then
    the Llama stand-in at 2 layers under ``jit(module, seq_bucket=128)`` at
    T = 1950 and 2000 with one forward capture;
-17. prints one JSON line describing every kernel, then the device line.
+18. per-sample gradients at open_llama_3b's full width, bf16: (a) 2 layers,
+   ``vmap(grad(loss_fn), in_axes=(None, 0, 0))`` over 2 samples of
+   (1, 2048), the default stack and ``+norm``, each sample's grads against
+   ``grad(loss_fn)`` at B=1 (the jit path, the same kernels) and against
+   the vmap under the torch executor alone (phase 4's limit), one launch a
+   call site (the B=1 program's launches), and a planted fault in a
+   batching rule (flash reading slice 0's k and v for every slice; the
+   norm backward's dw folded over the slices) that must fail; (b) 2 layers,
+   ``value_and_grad(vmap(loss_fn))`` against the sum of (a)'s per-sample
+   grads, and ``jvp`` with the grads as tangents against their squared
+   norm, with no kernel launch; (c) 26 layers, ``vmap(grad)`` staged as one
+   CUDA graph, its launches a call against the claimed trace and the B=1
+   grad program's, s/call, enqueue, peak memory and device ms by group,
+   beside ``grad(loss_fn)`` at B=2 on the same tokens;
+17. after phase 18, prints one JSON line describing every kernel, then the
+   device line.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -1322,6 +1339,7 @@ def run_full(cfg) -> dict:
     # the loss is about ln V + s^2 / 2 ~ 11.0.
     log(f"  loss = {loss:.6f} (ln V = {math.log(cfg.vocab_size):.4f})")
     require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 2.0, "loss is not near ln V")
+    report_dispatch(loss_fn, (params, idx, tgt), cfg)
     del loss_fn
 
     idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (FWD_BATCH, SEQ))).cuda()
@@ -1331,6 +1349,51 @@ def run_full(cfg) -> dict:
     require(tuple(logits.shape) == (FWD_BATCH, SEQ, cfg.padded_vocab_size), f"logits shape {tuple(logits.shape)}")
     require(bool(torch.isfinite(logits).all()), "forward logits are not finite")
     return launches
+
+
+def report_dispatch(loss_fn, args: tuple, cfg) -> None:
+    """The host's time of a cache hit of the staged 26-layer loss (its
+    params dict has 3 + 9 per layer tensor leaves), through each lookup:
+    the slow tier (every prologue run, the fast table cleared before each
+    call), the O(1) key (``cache_info``'s ``fast_hits``), and an entry of
+    ``cache="same input"`` (no guard). Each: the lookup's own µs
+    (``cache_lookup_ns``) and the call's until it returns, the graph's
+    replay enqueued (no sync), the least of 5 calls."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    def hit_us(fn, clear: bool) -> tuple:
+        cs = tt.compile_stats(fn)
+        lookup, call = [], []
+        for _ in range(5):
+            if clear:
+                cs.fast_cache.clear()
+            n0, t = cs.cache_lookup_ns, time.perf_counter()
+            fn(*args)
+            call.append((time.perf_counter() - t) * 1e6)
+            lookup.append((cs.cache_lookup_ns - n0) / 1e3)
+            torch.cuda.synchronize()
+        return min(lookup), min(call)
+
+    fast0 = tt.cache_info(loss_fn)["fast_hits"]
+    slow = hit_us(loss_fn, True)
+    fast = hit_us(loss_fn, False)
+    fast_hits = tt.cache_info(loss_fn)["fast_hits"] - fast0
+    same = tt.jit(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), cache="same input")
+    for _ in range(2):  # warm-up, capture
+        same(*args)
+    same_us = hit_us(same, False)
+    torch.cuda.synchronize()
+    leaves = sum(isinstance(x, torch.Tensor) for x in torch.utils._pytree.tree_leaves(args))
+    log(f"  dispatch of a hit ({leaves} tensor leaves), host µs (lookup, call enqueued): slow tier (prologues) "
+        f"{slow[0]:.1f}, {slow[1]:.1f}; fast tier (O(1) key) {fast[0]:.1f}, "
+        f"{fast[1]:.1f}; cache='same input' {same_us[0]:.1f}, {same_us[1]:.1f}; cache_info fast_hits {fast_hits} of "
+        f"the 5 fast-tier calls, slow_hits {tt.cache_info(loss_fn)['slow_hits']}")
+    require(fast_hits == 5, f"the fast tier took {fast_hits} of 5 hits")
+    require(tt.last_staging(same).staged and tt.compile_stats(same).cache_misses == 1,
+            "the same-input entry did not stage or compiled twice")
 
 
 # =============================================================================
@@ -2053,13 +2116,26 @@ def run_llama(launches: dict) -> None:
                  module="chip_smoke.LlamaForCausalLM", staged=False)
     eager_prof = profile_call("llama_train_step_padded_unstaged", step_eager, batch=LOSS_BATCH, seq=SEQ,
                               config="open_llama_3b", optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=False)
+    # The device times in turns, staged, unstaged, unstaged, staged: a drift
+    # of the card's clocks over the four profiles (each kernel of one
+    # profile a percent or two slower than the same kernel of another)
+    # cancels in the two means.
+    eager_prof2 = profile_call("llama_train_step_padded_unstaged", step_eager, batch=LOSS_BATCH, seq=SEQ,
+                               config="open_llama_3b", optimizer="sgd", module="chip_smoke.LlamaForCausalLM",
+                               staged=False)
+    staged_prof2 = profile_call("llama_train_step_padded", step, batch=LOSS_BATCH, seq=SEQ, config="open_llama_3b",
+                                optimizer="sgd", module="chip_smoke.LlamaForCausalLM", staged=True)
+    staged_ms = (staged_prof["device_ms"] + staged_prof2["device_ms"]) / 2
+    eager_ms = (eager_prof["device_ms"] + eager_prof2["device_ms"]) / 2
     # The staged step at eager memory: its forward and backward graphs share
     # one pool, the backward reusing the saved activations as they die.
     gap = (peak - eager_peak) / 2**30
-    dev_ratio = staged_prof["device_ms"] / eager_prof["device_ms"]
+    dev_ratio = staged_ms / eager_ms
     log(f"  staged step against unstaged, this run: peak {peak / 2**30:.2f} vs {eager_peak / 2**30:.2f} GiB "
-        f"({gap:+.2f} GiB, limit +{STAGED_PEAK_GAP_GIB:.0f}); device {staged_prof['device_ms']:.2f} vs "
-        f"{eager_prof['device_ms']:.2f} ms ({dev_ratio - 1:+.2%}, limit +{STAGED_DEVICE_RATIO - 1:.0%})")
+        f"({gap:+.2f} GiB, limit +{STAGED_PEAK_GAP_GIB:.0f}); device (staged, unstaged, unstaged, staged) "
+        f"{staged_prof['device_ms']:.2f}, {eager_prof['device_ms']:.2f}, {eager_prof2['device_ms']:.2f}, "
+        f"{staged_prof2['device_ms']:.2f} ms: means {staged_ms:.2f} vs {eager_ms:.2f} ({dev_ratio - 1:+.2%}, limit "
+        f"+{STAGED_DEVICE_RATIO - 1:.0%})")
     require(gap <= STAGED_PEAK_GAP_GIB, f"the staged module step's peak is {gap:.2f} GiB above the unstaged step's")
     require(dev_ratio <= STAGED_DEVICE_RATIO, f"the staged module step's device time is {dev_ratio - 1:.2%} above "
             "the unstaged step's")
@@ -2845,6 +2921,212 @@ def run_symbolic_serving(cfg, launches: dict) -> None:
     del m, tm, ref
 
 
+# =============================================================================
+# Phase 18: per-sample gradients (vmap, grad of vmap, jvp)
+# =============================================================================
+
+PS_SAMPLES = 2  # V: the vmapped samples, each (1, SEQ)
+# The kernel whose call sites a claimed trace holds, by the op it claims.
+CLAIM_ROWS = {"flash_sdpa_fwd_res(": "flash_fwd_lse", "flash_sdpa_bwd_res(": "flash_bwd",
+              "fused_apply_rope(": "rope", "fused_cross_entropy(": "ce_fwd", "fused_cross_entropy_bwd(": "ce_bwd",
+              "norm_rms_norm(": "rms_fwd", "norm_rms_norm_bwd(": "rms_bwd"}
+
+
+def _claimed_sites(trace) -> dict:
+    src = trace.python()
+    return {row: src.count(op) for op, row in CLAIM_ROWS.items() if src.count(op)}
+
+
+def _faulty_flash_fwd_lse():
+    """A planted fault in the flash forward's batching rule: every slice
+    attends slice 0's k and v."""
+    from thunder_tpu_torch.executors import batching, flashex
+
+    def vmap(apply, V, in_dims, q, k, v, causal, scale):
+        k0, v0 = (batching.front(t, d, V)[:1].expand(V, *batching.front(t, d, V).shape[1:]) for t, d in
+                  ((k, in_dims[1]), (v, in_dims[2])))
+        out, lse = apply(batching.fold(q, in_dims[0], V), batching.fold(k0, 0, V), batching.fold(v0, 0, V), causal,
+                         scale)
+        return (batching.unfold(out, V), batching.unfold(lse, V)), (0, 0)
+
+    return batching._rule("FaultyFlashFwdLseRule", lambda q, k, v, causal, scale: flashex.flash_attention_fwd_lse(
+        q, k, v, causal=causal, scale=scale), vmap)
+
+
+def _faulty_norm_bwd():
+    """A planted fault in the norm backward's rule: the slices folded into one
+    segment, so every slice gets the column sum over all of them."""
+    from thunder_tpu_torch.executors import batching
+
+    def vmap(apply, V, in_dims, g, x, weight, eps, layer_norm, with_bias, segments):
+        dx, dw, db = apply(batching.fold(g, in_dims[0], V), batching.fold(x, in_dims[1], V), weight, eps, layer_norm,
+                           with_bias, segments)
+        expand = lambda t: None if t is None else t.unsqueeze(0).expand(V, *t.shape)  # noqa: E731
+        return (batching.unfold(dx, V), expand(dw), expand(db)), (0, 0, None if db is None else 0)
+
+    return batching._rule("FaultyNormBwdRule", batching._norm_bwd, vmap)
+
+
+def run_per_sample(cfg, launches: dict) -> None:
+    """Phase 18. (a) 2 layers at full width: ``vmap(grad(loss_fn))`` over V
+    samples, default stack and ``+norm``, against ``grad(loss_fn)`` at B = 1
+    on each sample (the jit path's wrappers) and against the same vmap under
+    the torch executor alone, each param's grad held by its norm-relative
+    error (phase 4's limit); a planted fault in a rule must fail. (b) 2
+    layers: ``value_and_grad(vmap(loss_fn))`` against the sum of (a)'s
+    per-sample grads; ``jvp`` with the grads as tangents against their
+    squared norm, with no kernel launch. (c) 26 layers: ``vmap(grad)``
+    staged, its launches a call against the claimed trace and the B = 1
+    grad program's, s/call, enqueue, peak memory and device ms by group,
+    beside ``grad(loss_fn)`` at B = 2 (the same tokens)."""
+    import numpy as np
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.executors import _build, batching
+    from thunder_tpu_torch.models import gpt
+
+    V = PS_SAMPLES
+    rng = np.random.RandomState(SEED + 18)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    cfg2 = replace(cfg, name=cfg.name + "-2layer", n_layer=2)
+    params = gpt.init_params(cfg2, seed=SEED, device="cuda")
+    names = [torch.utils._pytree.keystr(k) for k, _ in torch.utils._pytree.tree_flatten_with_path(params)[0]]
+
+    def loss2(p, i, t):
+        return gpt.loss_fn(p, i, t, cfg2)
+
+    def counted(fn, *args):
+        _zero_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _launch_counts().items() if v}
+
+    def worst(got, want, label) -> float:
+        rels = [((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
+                for g, w in zip(got, want)]
+        k = max(range(len(rels)), key=rels.__getitem__)
+        log(f"    {label}: worst norm-relative error {rels[k]:.3e} on {names[k]}")
+        return rels[k]
+
+    for stack in (None, NORM_STACK.split(",")):
+        label = "default stack" if stack is None else NORM_STACK
+        grad1 = tt.grad(loss2, executors=stack)
+        per_sample = tt.vmap(grad1, in_axes=(None, 0, 0))
+        got, n_vmap = counted(per_sample, params, idx, tgt)
+        for k in launches:
+            launches[k] = launches.get(k, 0) + n_vmap.get(k, 0)
+        ref, n_one = [], {}
+        for s in range(V):
+            r, n = counted(grad1, params, idx[s], tgt[s])
+            ref.append(r)
+            n_one = n
+        torch_ps = tt.vmap(tt.grad(loss2, executors=["torch"]), in_axes=(None, 0, 0))(params, idx, tgt)
+        sites = _claimed_sites(tt.compile_stats(per_sample).last_traces[-1])
+        log(f"  (a) 2 layers, {label}: vmap(grad) over V={V} x (1, {SEQ}); launches a call {n_vmap}, the B=1 grad "
+            f"program's {n_one}, call sites in the claimed trace {sites}")
+        require(n_vmap == n_one == sites, f"{label}: vmap launches {n_vmap} differ from B=1 {n_one} / trace {sites}")
+        errs = []
+        for s in range(V):
+            errs.append(worst([g[s] for g in got], ref[s], f"sample {s} vs grad at B=1"))
+            errs.append(worst([g[s] for g in got], [g[s] for g in torch_ps], f"sample {s} vs the torch executor"))
+        if stack is not None:
+            nw = [i for i, nm in enumerate(names) if "norm" in nm or "ln" in nm]
+            dw = max(((got[i][s].float() - ref[s][i].float()).norm() / ref[s][i].float().norm()).item()
+                     for i in nw for s in range(V))
+            log(f"    per-sample norm weight grads ({len(nw)} params, shape (V, D) each): worst {dw:.3e}")
+        require(max(errs) <= GRAD_REL, f"{label}: per-sample grads differ (limit {GRAD_REL:.3e})")
+        # A planted fault in one rule must fail the comparison with B = 1.
+        seat, faulty = (("flash_fwd_lse", _faulty_flash_fwd_lse()) if stack is None
+                        else ("norm_bwd", _faulty_norm_bwd()))
+        real = getattr(batching, seat)
+        setattr(batching, seat, faulty)
+        try:
+            bad = tt.vmap(tt.grad(loss2, executors=stack), in_axes=(None, 0, 0))(params, idx, tgt)
+            fault = max(worst([g[s] for g in bad], ref[s], f"planted fault in {seat}'s rule, sample {s}")
+                        for s in range(V))
+        finally:
+            setattr(batching, seat, real)
+        require(fault > GRAD_REL, f"the per-sample comparison did not see a planted fault in {seat}'s rule")
+        del got, ref, torch_ps, bad, per_sample, grad1
+
+    # (b) grad of vmap and jvp, 2 layers.
+    per_sample = tt.vmap(tt.grad(loss2), in_axes=(None, 0, 0))(params, idx, tgt)
+    (vals, summed), n_vg = counted(tt.value_and_grad(tt.vmap(loss2, in_axes=(None, 0, 0))), params, idx, tgt)
+    for k in launches:
+        launches[k] = launches.get(k, 0) + n_vg.get(k, 0)
+    err = worst(summed, [g.sum(0) for g in per_sample], "(b) value_and_grad(vmap(loss)) vs the per-sample sum")
+    losses = [float(tt.jit(loss2)(params, idx[s], tgt[s])) for s in range(V)]
+    val_err = max(abs(float(vals[s]) - losses[s]) / abs(losses[s]) for s in range(V))
+    log(f"  (b) values {[f'{float(v):.6f}' for v in vals]} vs jit(loss) {[f'{x:.6f}' for x in losses]} "
+        f"(rel {val_err:.3e}); launches {n_vg}")
+    require(err <= GRAD_REL and val_err <= LOSS_REL, "grad(vmap(loss)) is not the sum of the per-sample grads")
+    lval, g1 = tt.value_and_grad(loss2)(params, idx[0], tgt[0])
+    tangents = torch.utils._pytree.tree_unflatten(list(g1), torch.utils._pytree.tree_structure(params))
+    want = sum(float((g.float() * g.float()).sum()) for g in g1)
+    (jl, jt), n_jvp = counted(tt.jvp, loss2, (params, idx[0], tgt[0]), (tangents, 0, 0))
+    jvp_rel = abs(float(jt) - want) / abs(want)
+    log(f"  (b) jvp: loss {float(jl):.6f} (value_and_grad {float(lval):.6f}), tangent {float(jt):.6e} vs <grad, t> = "
+        f"{want:.6e} (rel {jvp_rel:.3e}, limit {GRAD_REL:.3e}); kernel launches under jvp {n_jvp}; "
+        f"{tt.compile_stats(tt.jvp).executors_note}")
+    require(not n_jvp and jvp_rel <= GRAD_REL and abs(float(jl) - float(lval)) <= LOSS_REL * abs(float(lval)),
+            "jvp disagrees with value_and_grad or launched a kernel")
+    del params, per_sample, summed, g1, tangents
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) 26 layers, staged.
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+
+    def loss(p, i, t):
+        return gpt.loss_fn(p, i, t, cfg)
+
+    grad = tt.grad(loss)
+    per_sample = tt.vmap(grad, in_axes=(None, 0, 0))
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    for _ in range(3):  # warm-up, capture, replay
+        _zero_counts()
+        t = time.perf_counter()
+        out = per_sample(params, idx, tgt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts.append({k: v for k, v in _launch_counts().items() if v})
+        del out
+    peak = torch.cuda.max_memory_allocated()
+    st = tt.last_staging(per_sample)
+    sites = _claimed_sites(tt.compile_stats(per_sample).last_traces[-1])
+    _, n_one = counted(grad, params, idx[0], tgt[0])
+    log(f"  (c) {cfg.n_layer} layers, vmap(grad) V={V} x (1, {SEQ}): {', '.join(f'{x:.4f}' for x in times)} s/call "
+        f"(trace + warm-up, capture, replay); staged {st.staged}, captures {st.captures}; launches a call "
+        f"{counts[-1]}, the trace's call sites {sites}, the B=1 grad's {n_one}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    require(st.staged and all(c == sites == n_one for c in counts), "the staged per-sample grads' launches differ")
+    for k in launches:
+        launches[k] = launches.get(k, 0) + sum(c.get(k, 0) for c in counts)
+    prof = profile_call("per_sample_grads_staged", lambda: per_sample(params, idx, tgt), batch=V, seq=SEQ,
+                        config=CFG_NAME)
+    del per_sample
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat_idx, flat_tgt = idx.reshape(V, SEQ), tgt.reshape(V, SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        grad(params, flat_idx, flat_tgt)
+    torch.cuda.synchronize()
+    b2_peak = torch.cuda.max_memory_allocated()
+    b2 = profile_call("grad_b2_staged", lambda: grad(params, flat_idx, flat_tgt), batch=V, seq=SEQ, config=CFG_NAME)
+    for label, pr, pk in (("vmap(grad), V=2 x (1, 2048)", prof, peak), ("grad, B=2", b2, b2_peak)):
+        log(f"  (c) {label}: {min(pr['wall_ms']):.2f} ms/call, enqueue {min(pr['enqueue_ms']):.2f} ms, device "
+            f"{pr['device_ms']:.2f} ms, busy {pr['busy_share']:.4f}, by group "
+            f"{ {k: round(v, 3) for k, v in pr['device_ms_by_group'].items()} }, peak {pk / 2**30:.2f} GiB")
+    del params, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2939,6 +3221,10 @@ def main() -> int:
     log(f"[16] symbolic values on the serving path: {CFG_NAME}'s forward over T = "
         f"{', '.join(map(str, SYM_LENGTHS))} in 128-wide buckets; the Llama stand-in under seq_bucket=128")
     run_symbolic_serving(cfg, launches)
+
+    log(f"[18] per-sample gradients: vmap(grad(loss_fn)) over {PS_SAMPLES} samples of (1, {SEQ}), grad of vmap, "
+        f"jvp; 2 layers, then {cfg.n_layer} layers staged")
+    run_per_sample(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -1478,3 +1478,213 @@ def test_staged_seq_bucket_module_trains_as_unstaged(dev):
     cs = tt.compile_stats(staged)
     assert cs.cache_misses == 1 and cs.last_staging.captures == 1 and cs.last_backward_staging.captures == 1
     assert cs.last_staging.guard_misses == 0
+
+
+# =============================================================================
+# vmap: the kernels' batching rules on the card (executors/batching.py)
+# =============================================================================
+
+_V = 3
+
+
+def _launched(*wrappers):
+    return [w.launches for w in wrappers]
+
+
+@pytest.mark.parametrize("in_dims", [(0, 0, 0), (0, None, None), (1, 1, None)], ids=str)
+def test_flash_rules_under_vmap_launch_once_and_match_plain(dev, in_dims):
+    from thunder_tpu_torch.executors import batching, flashex
+
+    shapes = [(1, 4, 256, 100), (1, 2, 256, 100), (1, 2, 256, 100)]
+    ops = [_randn(s, torch.bfloat16, dev, 30 + i) if d is None
+           else torch.stack([_randn(s, torch.bfloat16, dev, 40 + 3 * i + j) for j in range(_V)], d)
+           for i, (s, d) in enumerate(zip(shapes, in_dims))]
+    dout = torch.stack([_randn(shapes[0], torch.bfloat16, dev, 60 + j) for j in range(_V)])
+
+    def sl(t, d, j):
+        return t if d is None else t.select(d, j)
+
+    wrappers = (flashex.flash_attention_fwd_lse, flashex.flash_attention_bwd)
+    before = _launched(*wrappers)
+    out, lse = torch.func.vmap(lambda q, k, v: batching.flash_fwd_lse(q, k, v, True, 0.1), in_dims=in_dims)(*ops)
+    grads = torch.func.vmap(lambda g, q, k, v, o, s: batching.flash_bwd(g, q, k, v, o, s, True, 0.1),
+                            in_dims=(0,) + in_dims + (0, 0))(dout, *ops, out, lse)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launched(*wrappers), before)] == [1, 1]
+    for j in range(_V):
+        q, k, v = (sl(t, d, j) for t, d in zip(ops, in_dims))
+        wo, wl = flashex.flash_attention_lse_plain(q, k, v, causal=True, scale=0.1)
+        _assert_rows_close(out[j], wo, 2)
+        torch.testing.assert_close(lse[j], wl, rtol=0, atol=2e-2)
+        want = flashex.flash_attention_bwd_plain(dout[j], q, k, v, wo, wl, causal=True, scale=0.1)
+        for g, w in zip(grads, want):
+            _assert_rows_close(g[j], w, 8, floor=2e-2 * float(w.float().abs().max()))
+
+
+def test_legacy_and_recompute_rules_under_vmap(dev):
+    """Row 10's wrappers and the recompute backward fold the slices as the
+    flash rules do: one launch a call."""
+    from thunder_tpu_torch.executors import batching, flashex
+
+    q, k, v, dout = (torch.stack([_randn((1, 4, 256, 64), torch.bfloat16, dev, 10 * i + j) for j in range(_V)])
+                     for i in range(4))
+    wrappers = (flashex.legacy_flash_fwd, flashex.legacy_flash_bwd, flashex.flash_attention_bwd_recompute)
+    before = _launched(*wrappers)
+    out = torch.func.vmap(lambda a, b, c: batching.legacy_fwd(a, b, c, True, 0.125))(q, k, v)
+    lg = torch.func.vmap(lambda g, a, b, c: batching.legacy_bwd(g, a, b, c, True, 0.125))(dout, q, k, v)
+    rg = torch.func.vmap(lambda g, a, b, c: batching.flash_bwd_recompute(g, a, b, c, True, 0.125))(dout, q, k, v)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launched(*wrappers), before)] == [1, 1, 1]
+    for j in range(_V):
+        _assert_rows_close(out[j], flashex.flash_attention_plain(q[j], k[j], v[j], causal=True, scale=0.125), 2)
+        want = flashex.flash_attention_bwd_recompute_plain(dout[j], q[j], k[j], v[j], causal=True, scale=0.125)
+        for got in (lg, rg):
+            for g, w in zip(got, want):
+                _assert_rows_close(g[j], w, 8, floor=2e-2 * float(w.float().abs().max()))
+
+
+def test_rope_and_cross_entropy_rules_under_vmap(dev):
+    from thunder_tpu_torch.executors import batching, fusedex
+
+    x = torch.stack([_randn((2, 4, 128, 100), torch.bfloat16, dev, j) for j in range(_V)], 1)
+    cos, sin = _randn((128, 100), torch.bfloat16, dev, 7), _randn((128, 100), torch.bfloat16, dev, 8)
+    before = fusedex.apply_rope.launches
+    got = torch.func.vmap(batching.rope, in_dims=(1, None, None))(x, cos, sin)
+    assert fusedex.apply_rope.launches == before + 1
+    for j in range(_V):
+        _assert_rows_close(got[j], fusedex.rope_plain(x[:, j], cos, sin), 1)
+    logits = torch.stack([_randn((256, 32000), torch.float32, dev, 10 + j) for j in range(_V)])
+    target = torch.randint(0, 32000, (_V, 256), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    target[:, ::7] = -100
+    scale = torch.rand(_V, 256, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    wrappers = (fusedex.cross_entropy_rows, fusedex.cross_entropy_bwd)
+    before = _launched(*wrappers)
+    rows = torch.func.vmap(lambda a, t: batching.ce_rows(a, t, -100))(logits, target)
+    dl = torch.func.vmap(batching.ce_bwd)(logits, target, scale)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launched(*wrappers), before)] == [1, 1]
+    for j in range(_V):
+        torch.testing.assert_close(rows[j], fusedex.cross_entropy_rows_plain(logits[j], target[j], -100),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dl[j], fusedex.cross_entropy_bwd_plain(logits[j], target[j], scale[j]),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("layer_norm,D", [(False, 3200), (True, 1024), (False, 100)])
+def test_norm_rules_under_vmap_keep_dw_per_slice(dev, layer_norm, D):
+    """The backward's column sums run in V segments: dw (and db) come a row
+    a slice, each the sum over its own slice's rows only."""
+    from thunder_tpu_torch.executors import batching, normex
+
+    x = torch.stack([_randn((2, 512, D), torch.bfloat16, dev, j) for j in range(_V)])
+    g = torch.stack([_randn((2, 512, D), torch.bfloat16, dev, 20 + j) for j in range(_V)])
+    w = _randn((D,), torch.bfloat16, dev, 40)
+    b = _randn((D,), torch.bfloat16, dev, 41) if layer_norm else None
+    fwd, bwd = (normex.layer_norm_fwd, normex.layer_norm_bwd) if layer_norm else (normex.rms_norm_fwd,
+                                                                                 normex.rms_norm_bwd)
+    before = _launched(fwd, bwd)
+    y = torch.func.vmap(lambda a: batching.norm_fwd(a, w, b, 1e-5, layer_norm))(x)
+    dx, dw, db = torch.func.vmap(lambda gg, a: batching.norm_bwd(gg, a, w, 1e-5, layer_norm, layer_norm, 1),
+                                 out_dims=(0, 0, 0 if layer_norm else None))(g, x)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_launched(fwd, bwd), before)] == [1, 1]
+    assert dw.shape == (_V, D) and (db is None) == (not layer_norm)
+    for j in range(_V):
+        _assert_rows_close(y[j], normex.norm_fwd_plain(x[j], w, b, 1e-5, layer_norm=layer_norm), 1)
+        wdx, wdw, wdb = normex.norm_bwd_plain(g[j], x[j], w, 1e-5, layer_norm=layer_norm, with_bias=layer_norm)
+        _assert_rows_close(dx[j], wdx, 2)
+        torch.testing.assert_close(dw[j], wdw, rtol=1e-4, atol=1e-4 * float(wdw.abs().max()))
+        if layer_norm:
+            torch.testing.assert_close(db[j], wdb, rtol=1e-4, atol=1e-4 * float(wdb.abs().max()))
+
+
+def test_per_sample_grads_on_the_card_launch_once_a_call_site(dev):
+    """vmap(grad(loss)) of a 2-layer model at open_llama_3b's head size: the
+    B = 1 grad program's launches, once each, and each slice's grads within
+    phase 4's limit (2^-4 of the largest element) of grad at B = 1."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import _build
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config("llama-hs100-tiny")
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+    idx = torch.randint(0, cfg.vocab_size, (2, 1, 128), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    g = tt.grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg))
+    ps = tt.vmap(g, in_axes=(None, 0, 0))
+    for _ in range(3):  # warm-up, capture, replay
+        before = _build.launch_counts()
+        got = ps(params, idx, idx.roll(1, -1))
+        torch.cuda.synchronize()
+        n_vmap = {k: v - before[k] for k, v in _build.launch_counts().items() if v != before[k]}
+    before = _build.launch_counts()
+    want = [g(params, idx[s], idx[s].roll(1, -1)) for s in range(2)]
+    torch.cuda.synchronize()
+    n_grad = {k: (v - before[k]) // 2 for k, v in _build.launch_counts().items() if v != before[k]}
+    assert n_vmap == n_grad and n_vmap
+    assert tt.last_staging(ps).staged
+    for s in range(2):
+        for a, w in zip(got, want[s]):
+            err = float((a[s].float() - w.float()).abs().max())
+            assert err <= 2.0 ** -4 * float(w.float().abs().max()) + 1e-6
+
+
+def test_same_input_call_with_other_shapes_raises_from_staging(dev):
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.clang as clang
+    from thunder_tpu_torch.executors.staging import StagingError
+
+    jf = tt.jit(lambda x: clang.mul(x, 2.0), cache="same input")
+    a = torch.ones(64, device=dev)
+    for _ in range(3):
+        torch.testing.assert_close(jf(a), a * 2)
+    big = torch.ones(4096, device=dev)
+    with pytest.raises(StagingError, match="same input"):
+        jf(big)
+    torch.testing.assert_close(jf(a), a * 2)  # the graph still holds its own buffers
+
+
+def test_no_caching_entry_runs_eagerly(dev):
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.clang as clang
+
+    jf = tt.jit(lambda x: clang.mul(x, 2.0), cache="no caching")
+    a = torch.ones(64, device=dev)
+    for _ in range(3):
+        torch.testing.assert_close(jf(a), a * 2)
+    assert not tt.last_staging(jf).staged and "no caching" in tt.last_staging(jf).reason
+
+
+def test_kernel_wrapper_refuses_a_dual_tensor(dev):
+    from torch.autograd import forward_ad
+
+    from thunder_tpu_torch.executors import flashex, fusedex
+
+    x = _randn((1, 2, 128, 64), torch.bfloat16, dev, 0)
+    cos, sin = _randn((128, 64), torch.bfloat16, dev, 1), _randn((128, 64), torch.bfloat16, dev, 2)
+    before = fusedex.apply_rope.launches, flashex.flash_attention_fwd.launches
+    with forward_ad.dual_level():
+        dual = forward_ad.make_dual(x, torch.ones_like(x))
+        with pytest.raises(NotImplementedError, match="rope"):
+            fusedex.apply_rope(dual, cos, sin)
+        with pytest.raises(NotImplementedError, match="flash_fwd"):
+            flashex.flash_attention_fwd(dual, x, x, causal=True, scale=0.125)
+    with pytest.raises(NotImplementedError, match="flash_fwd"):
+        torch.func.jvp(lambda q: flashex.flash_attention_fwd(q, x, x, causal=True, scale=0.125), (x,), (x,))
+    assert (fusedex.apply_rope.launches, flashex.flash_attention_fwd.launches) == before
+
+
+def test_jvp_on_the_card_launches_no_kernel(dev):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import _build
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config("llama-hs100-tiny")
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+    idx = torch.randint(0, cfg.vocab_size, (1, 128), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    tangent = {k: v for k, v in params.items()}
+    before = _build.launch_counts()
+    loss, t = tt.jvp(lambda p, i, tg: gpt.loss_fn(p, i, tg, cfg), (params, idx, idx.roll(1, -1)),
+                     (tangent, 0, 0))
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == before
+    assert torch.isfinite(loss) and torch.isfinite(t)

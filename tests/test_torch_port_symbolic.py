@@ -218,7 +218,23 @@ def rank_change_is_exact_miss(P):
     return P.cache_info(jf)["compiles"]
 
 
-SYMBOLIC_CASES = [one_compile_per_bucket_explicit_marks, auto_marks_from_variation, masked_mean_matches_unpadded,
+def fast_tier_keeps_bucket_guards(P):
+    """A length learned by the O(1) tier reaches its own bucket's entry; a
+    length in another bucket misses it, compiles, and is learned in turn."""
+    jf = P.jit(lambda x: P.clang.mul(x, 3.0), cache=SYM, symbolic_dims={0: (0,)}, buckets={"batch": "pow2"})
+    order = (5, 6, 9, 6, 12, 5, 9, 12)  # (4, 8] twice, (8, 16], then each again
+    outs = []
+    for b in order:
+        x = np.arange(b * 2, dtype=np.float32).reshape(b, 2)
+        out = _np(jf(x))
+        np.testing.assert_allclose(out, 3 * x)
+        outs.append(out)
+    info = P.cache_info(jf)
+    assert (info["compiles"], info["fast_hits"], info["slow_hits"]) == (2, 4, 2)
+    return outs
+
+
+SYMBOLIC_CASES = [fast_tier_keeps_bucket_guards, one_compile_per_bucket_explicit_marks, auto_marks_from_variation, masked_mean_matches_unpadded,
                   masked_mean_keepdim, masked_contraction_right_operand, empty_batch_in_bucket,
                   masked_amax_over_padded_dim, grad_crops_to_true_extents, rank_change_is_exact_miss]
 

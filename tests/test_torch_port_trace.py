@@ -145,8 +145,8 @@ def test_port_sources_have_no_jax_imports():
 def test_introspection_has_the_jax_packages_keys_and_counts():
     """``cache_info``, ``compile_data``, ``compile_stats``,
     ``last_prologue_traces`` and ``last_compile_options`` on the same
-    function and calls (``thunder_tpu/api.py:1404``, ``:2310-2338``). The
-    port has no fast path: its hits are all prologue hits."""
+    function and calls (``thunder_tpu/api.py:1404``, ``:2310-2338``), the
+    hits split alike between the O(1) key lookup and the prologues."""
     import thunder_tpu.torch as jtorch
 
     jf = thunder_tpu.jit(lambda a: jtorch.sin(a) * 2)
@@ -160,6 +160,7 @@ def test_introspection_has_the_jax_packages_keys_and_counts():
     for k in ("cache_option", "calls", "hits", "misses", "compiles", "recompiles", "degradation_level"):
         assert ti[k] == ji[k], k
     assert ti["slow_hits"] + ti["fast_hits"] == ji["slow_hits"] + ji["fast_hits"] == ti["hits"]
+    assert (ti["fast_hits"], ti["slow_hits"]) == (ji["fast_hits"], ji["slow_hits"])
     assert len(ti["entries"]) == len(ji["entries"]) == 2
     for te, je in zip(ti["entries"], ji["entries"]):
         assert set(te) == set(je)

@@ -27,6 +27,9 @@ import time
 import warnings
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
+import torch
+
 from thunder_tpu_torch import clang  # registers the clang language  # noqa: F401
 from thunder_tpu_torch import torch as ltorch  # registers the torch language  # noqa: F401
 from thunder_tpu_torch.common import (
@@ -35,11 +38,12 @@ from thunder_tpu_torch.common import (
     sharp_edge,
     CompileData,
     CompileStats,
+    resolve_cache_option,
     resolve_sharp_edges_option,
     sharp_edges_policy,
 )
 from thunder_tpu_torch.core import devices, prims
-from thunder_tpu_torch.core.baseutils import GuardFailure
+from thunder_tpu_torch.core.baseutils import GuardFailure, check
 from thunder_tpu_torch.core.bucketing import BucketPolicy, make_symbolic_spec
 from thunder_tpu_torch.core.codeutils import SigInfo
 from thunder_tpu_torch.core.concrete import check_value_guards, value_guards_of
@@ -54,14 +58,15 @@ from thunder_tpu_torch.core.proxies import (
     proxy,
     tensorproxy_from_concrete,
 )
-from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+from thunder_tpu_torch.core.prims import PrimIDs
+from thunder_tpu_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from thunder_tpu_torch.core.symbol import resolve_inplace, resolve_inplace_tree
-from thunder_tpu_torch.core.trace import TraceCtx, mark, tracectx
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, mark, tracectx
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
 from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex  # kernel executors  # noqa: F401
-from thunder_tpu_torch.executors import rngex, staging
+from thunder_tpu_torch.executors import batching, rngex, staging
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
-from thunder_tpu_torch.extend import get_executor, resolve_executors
+from thunder_tpu_torch.extend import add_default_executor, get_executor, resolve_executors
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
 from thunder_tpu_torch.transforms.padmask import analyze_crop_plan, thread_pad_masks
@@ -69,8 +74,12 @@ from thunder_tpu_torch.transforms.rng import RNG_TAG, functionalize_rng_ops
 
 # The kernel executors claim their composite ops whole; the torch executor
 # lowers every remaining prim. The "norm" (normex) and "quant" (quantex)
-# executors are opt-in, by name, as in the JAX package.
+# executors are opt-in, by name, as in the JAX package. These are the
+# registry's defaults (``extend.get_default_executors``), which
+# ``add_default_executor`` changes for every later compile.
 DEFAULT_EXECUTORS = (flashex.ex, fusedex.ex, torchex.ex)
+for _ex in reversed(DEFAULT_EXECUTORS):
+    add_default_executor(_ex, front=True)
 
 
 # =============================================================================
@@ -361,7 +370,8 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     values"`` the marked dims are lifted into bucket guards and the entry is
     traced on the inputs padded to the bucket ceilings
     (thunder_tpu/api.py:450-481)."""
-    sym_spec = _symbolic_spec_for_call(cd, cs, args, kwargs) if cd.cache_option == SYMBOLIC_VALUES else None
+    sym_spec = (_symbolic_spec_for_call(cd, cs, args, kwargs) if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES
+                else None)
     if sym_spec is not None:
         args, kwargs = _pad_example(args, kwargs, sym_spec)
     start = time.perf_counter()
@@ -412,10 +422,24 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     extrace = del_last_used(extrace)
     traces.append(extrace)
 
+    plg_traces = [plg_trc]
+    if cd.cache_option is CACHE_OPTIONS.SAME_INPUT:
+        # The caller asserts every call repeats the first one's metadata and
+        # values (thunder_tpu/api.py:729-745): the prologue keeps its
+        # unpacking and loses its checks. A staged entry's own signature
+        # check stays, and raises on inputs of another shape.
+        plg_trc = _strip_guards(plg_trc)
+        plg_traces.append(plg_trc)
     plg_ex = transform_for_execution(plg_trc, (get_executor("python"),))
+    plg_traces.append(plg_ex)
+    _maybe_dump_trace(extrace)
+    disabled = cd.disable_jit_staging
+    if cd.cache_option is CACHE_OPTIONS.NO_CACHING:
+        disabled = "cache='no caching' compiles every call, so its program is never called twice"
     computation_fn, staging_stats = staging.stage(
         extrace.python_callable(), [extrace], cd.device, name=getattr(cd.fn, "__name__", "computation"),
-        disabled=cd.disable_jit_staging, fresh=_key_input if comp_trc.tags.get(RNG_TAG) else None,
+        disabled=disabled, fresh=_key_input if comp_trc.tags.get(RNG_TAG) else None,
+        strict=cd.cache_option is CACHE_OPTIONS.SAME_INPUT,
     )
     phases["claim"] = time.perf_counter() - start - phases["trace"] - phases["transforms"]
     flat, treedef = tree_flatten((args, kwargs))
@@ -423,7 +447,7 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
         prologue_fn=plg_ex.python_callable(),
         computation_fn=computation_fn,
         epilogue_fn=_build_epilogue(input_mutations) if input_mutations else None,
-        prologue_traces=[plg_trc, plg_ex],
+        prologue_traces=plg_traces,
         computation_traces=traces,
         value_guards=value_guards,
         staging=staging_stats,
@@ -438,8 +462,44 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
     cs.compile_count += 1
     cs.last_traces = traces
     cs.last_prologue_traces = entry.prologue_traces
-    cs.cache_entries.append(entry)
+    if cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
+        cs.cache_entries.append(entry)
     return entry
+
+
+_GUARD_IDS = {
+    PrimIDs.CHECK_TENSOR_SHAPE_AND_METADATA,
+    PrimIDs.CHECK_NUMBER_TYPE_AND_VALUE,
+    PrimIDs.CHECK_STRING_VALUE,
+    PrimIDs.CHECK_LEN,
+    PrimIDs.CHECK_KEYS,
+    PrimIDs.CHECK_NONE,
+}
+
+
+def _strip_guards(plg: TraceCtx) -> TraceCtx:
+    """The prologue without its ``CHECK_*`` guards (``cache="same input"``)."""
+    stripped = from_trace(plg)
+    stripped.bound_symbols = [b for b in plg.bound_symbols if b.sym.id not in _GUARD_IDS]
+    return stripped
+
+
+# The trace dump (thunder_tpu/api.py:938-951): each compile's final program
+# is appended to a file, for a person to read or edit.
+_execution_callback_file = {"path": None}
+
+
+def set_execution_callback_file(path: Optional[str]) -> None:
+    """Append every later compile's final program to ``path`` (None stops)."""
+    _execution_callback_file["path"] = path
+
+
+def _maybe_dump_trace(trc: TraceCtx) -> None:
+    path = _execution_callback_file["path"]
+    if path:
+        with open(path, "a") as f:
+            f.write(trc.python())
+            f.write("\n\n")
 
 
 def _key_input(args: tuple) -> set:
@@ -447,10 +507,13 @@ def _key_input(args: tuple) -> set:
     return {len(args) - 1}
 
 
+_FAST_CACHE_MAX = 4096
+
+
 def _probe_entries(cs: CompileStats, args: tuple, kwargs: dict, device):
-    """Run each entry's prologue, newest first; GuardFailure is the
-    controlled miss (reference: thunder/__init__.py:409-447). Returns the
-    entry, the caller's tensor leaves and the program's inputs
+    """The slow tier: run each entry's prologue, newest first; GuardFailure
+    is the controlled miss (reference: thunder/__init__.py:409-447). Returns
+    the entry, the caller's tensor leaves and the program's inputs
     (:func:`_prepare_inputs`)."""
     for entry in reversed(cs.cache_entries):
         cs.prologue_runs += 1
@@ -468,6 +531,30 @@ def _probe_entries(cs: CompileStats, args: tuple, kwargs: dict, device):
     return None, None, None
 
 
+def _fast_probe(cs: CompileStats, key: tuple, flat: list, device):
+    """The O(1) tier (thunder_tpu/api.py:1733-1762): the entry learned for
+    this (tree structure, leaf metadata) key, with no prologue run; its value
+    guards are checked again, so a key that several value specializations
+    share still reaches the right one."""
+    entry = cs.fast_cache.get(key)
+    if entry is None:
+        return None, None, None
+    flat_inps = [x for x in flat if bridge.is_concrete_tensor(x)]
+    prepared = _prepare_inputs(entry, flat_inps, device)
+    if entry.value_guards and not check_value_guards(entry.value_guards, prepared[0]):
+        return None, None, None
+    cs.fast_hits += 1
+    entry.stats.fast_hits += 1
+    return entry, flat_inps, prepared
+
+
+def _learn(cs: CompileStats, key: tuple, entry: CacheEntry) -> None:
+    """Teach the fast tier a key; the table is emptied past 4096 keys."""
+    if len(cs.fast_cache) > _FAST_CACHE_MAX:
+        cs.fast_cache.clear()
+    cs.fast_cache[key] = entry
+
+
 def _prepare_inputs(entry: CacheEntry, flat_inps, device) -> tuple[list, Optional[dict]]:
     """``(inputs, true extents)``: the caller's tensor leaves on ``device``;
     for a symbolic entry each marked leaf is written into the entry's buffer
@@ -478,8 +565,6 @@ def _prepare_inputs(entry: CacheEntry, flat_inps, device) -> tuple[list, Optiona
     spec = entry.sym_spec
     if spec is None:
         return inps, None
-    import torch
-
     extents = spec.true_extents(flat_inps)
     bufs = entry.pad_buffers
     for li, dims in spec.marks.items():
@@ -504,8 +589,6 @@ def _extent_inputs(entry: CacheEntry, extents: dict, device) -> list:
     """The true extents the masked reductions read, one 0-d int32 input
     each, filled in place before the program runs: an ordinary input of a
     staged graph, read by address, never a constant of the capture."""
-    import torch
-
     out = []
     for cid in entry.sym_spec.mask_classes:
         t = entry.pad_buffers.get(("extent", cid))
@@ -521,8 +604,6 @@ def _crop_outputs(entry: CacheEntry, out: Any, extents: dict) -> Any:
     crop plan of ``transforms/padmask.py``). A result that shares memory
     with the entry's input buffers is copied out, since the next call
     writes them."""
-    import torch
-
     flat, spec = tree_flatten(out)
     for i, dims in entry.sym_spec.crop_plan or ():
         if i < len(flat) and isinstance(flat[i], torch.Tensor):
@@ -546,9 +627,6 @@ def _build_epilogue(muts: list) -> Callable:
     key), ``resync`` (a list rebuilt). A tensor written into a container is
     an output of the program: a fresh tensor, never a staged graph's buffer
     (``executors/staging.py`` copies every output out of its pool)."""
-    import numpy as np
-    import torch
-
     def navigate(args, kwargs, path):
         obj = args if path[0] == "args" else kwargs
         for k in path[1:]:
@@ -596,28 +674,51 @@ def _build_epilogue(muts: list) -> Callable:
 
 
 # =============================================================================
-# Symbolic values (thunder_tpu/api.py:1196-1363)
+# Dispatch keys and symbolic values (thunder_tpu/api.py:1196-1363)
 # =============================================================================
 
-CONSTANT_VALUES = "constant values"
-SYMBOLIC_VALUES = "symbolic values"
+
+def _leaf_part(x: Any) -> tuple:
+    """Hashable metadata of one leaf, what the prologue guards: a tensor's
+    shape, dtype, device type, requires_grad and framework; a number's or
+    string's type and value; an opaque object's type."""
+    if isinstance(x, torch.Tensor):
+        return ("T", x.shape, x.dtype, x.device.type, x.requires_grad, "torch")
+    if isinstance(x, np.ndarray):
+        return ("T", x.shape, x.dtype, None, False, "numpy")
+    if isinstance(x, (bool, int, float, complex, str)) or x is None:
+        return (type(x).__name__, x)
+    return ("O", type(x).__name__)
 
 
 def _leaf_meta(flat: list) -> tuple:
-    """Hashable metadata of each leaf, what the prologue guards: a tensor's
-    shape, dtype, device type, requires_grad and framework; a number's or
-    string's type and value; an opaque object's type."""
-    parts = []
-    for x in flat:
-        if bridge.is_concrete_tensor(x):
-            shape, dev, dt, rg = bridge.tensor_metadata(x)
-            parts.append(("T", tuple(int(s) for s in shape), str(dt), str(dev).split(":")[0], rg,
-                          bridge.framework_of(x)))
-        elif isinstance(x, (bool, int, float, complex, str)) or x is None:
-            parts.append((type(x).__name__, x))
+    return tuple(_leaf_part(x) for x in flat)
+
+
+def _dispatch_key(tree: Any) -> tuple[tuple, list]:
+    """``(key, leaves)`` of a call's ``(args, kwargs)`` in one walk: the key
+    of the fast tier (thunder_tpu/api.py:1733-1762) is the tree's structure
+    (each container's type and length or keys) and every leaf's
+    :func:`_leaf_part`; the leaves come in the order the prologue returns
+    them (dicts in insertion order)."""
+    parts: list = []
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, (tuple, list)):
+            parts.append((type(x), len(x)))
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            parts.append((type(x), tuple(x)))
+            for v in x.values():
+                walk(v)
         else:
-            parts.append(("O", type(x).__name__))
-    return tuple(parts)
+            leaves.append(x)
+            parts.append(_leaf_part(x))
+
+    walk(tree)
+    return tuple(parts), leaves
 
 
 def _symbolic_spec_for_call(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict):
@@ -687,9 +788,6 @@ def _pad_example(args: tuple, kwargs: dict, sym_spec) -> tuple[tuple, dict]:
 
 
 def _pad_concrete(x: Any, targets: dict):
-    import numpy as np
-    import torch
-
     widths = [(0, max(0, int(targets.get(d, n)) - int(n))) for d, n in enumerate(x.shape)]
     if not any(w for _, w in widths):
         return x
@@ -743,7 +841,7 @@ def jit(
     *,
     executors: Optional[Sequence] = None,
     device: Any = None,
-    cache: str = CONSTANT_VALUES,
+    cache: Any = "constant values",
     symbolic_dims: Any = "auto",
     buckets: Optional[dict] = None,
     sharp_edges: Any = "allow",
@@ -761,8 +859,14 @@ def jit(
     ``executors/quantex.py``) are opt-in. On CUDA tensors the kernel
     executors launch their kernels or raise; on CPU tensors they run their
     plain versions.
-    ``cache`` is ``"constant values"`` (the default: an entry per input
-    shape, dtype and number value) or ``"symbolic values"``: marked tensor
+    ``cache`` (a string or a ``CACHE_OPTIONS`` member) is ``"constant
+    values"`` (the default: an entry per input shape, dtype and number
+    value; a hit is found in O(1) by the inputs' metadata, else by running
+    the entries' prologues), ``"no caching"`` (every call compiles and runs
+    eagerly), ``"same input"`` (the caller asserts every call repeats the
+    first one: the prologue's guards are stripped and every call runs the
+    newest entry; a staged entry given inputs of another shape raises
+    ``StagingError``) or ``"symbolic values"``: marked tensor
     dims are guarded by bucket (``lo < d <= hi``) instead of by extent, the
     inputs are zero-padded to the bucket ceiling, reductions over padded
     dims are masked against the true extents (``transforms/padmask.py``) and
@@ -806,16 +910,11 @@ def jit(
                                  disable_jit_staging=disable_jit_staging, autocast=autocast,
                                  _trace_transforms=_trace_transforms, **module_options)
 
-    import torch
-
-    if isinstance(cache, CACHE_OPTIONS):
-        cache = cache.value
-    if cache not in (CONSTANT_VALUES, SYMBOLIC_VALUES):
-        raise ValueError(f"cache={cache!r}: expected {CONSTANT_VALUES!r} or {SYMBOLIC_VALUES!r}")
+    cache = resolve_cache_option(cache)
     if isinstance(fn, torch.nn.Module):
         if _trace_transforms:
             raise NotImplementedError("trace transforms are not supported on the nn.Module frontend")
-        if cache != CONSTANT_VALUES:
+        if cache is not CACHE_OPTIONS.CONSTANT_VALUES:
             raise TypeError("jit(nn.Module) got unexpected options ['cache']: a module buckets its sequences "
                             "with seq_bucket=")
         from thunder_tpu_torch.frontend.module import thunder_module
@@ -826,12 +925,12 @@ def jit(
         raise TypeError(f"jit() got unexpected options {sorted(module_options)}")
 
     compile_options = {} if autocast is None else {"autocast": autocast}
-    if cache == SYMBOLIC_VALUES:
+    if cache is CACHE_OPTIONS.SYMBOLIC_VALUES:
         # The bucket rules, resolved once: defaults <- THUNDER_TPU_BUCKETS <- buckets=.
         compile_options.update(bucket_policy=BucketPolicy.resolve(buckets), symbolic_dims=symbolic_dims)
     cd = CompileData(
         fn=fn,
-        executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
+        executors_list=resolve_executors(executors),
         device=devices.resolve_device(device),
         trace_transforms=_autocast_transforms(autocast) + tuple(_trace_transforms),
         sharp_edges=resolve_sharp_edges_option(sharp_edges),
@@ -850,7 +949,25 @@ def jit(
     def _dispatch(args: tuple, kwargs: dict):
         cs.calls += 1
         start = time.perf_counter_ns()
-        entry, flat_inps, prepared = _probe_entries(cs, args, kwargs, cd.device)
+        entry = flat_inps = prepared = key = None
+        if cd.cache_option is CACHE_OPTIONS.SAME_INPUT and cs.cache_entries:
+            # The newest entry, with no probing: its prologue only unpacks
+            # (thunder_tpu/api.py:1721-1731).
+            entry = cs.cache_entries[-1]
+            cs.prologue_runs += 1
+            entry.stats.prologue_runs += 1
+            flat_inps = entry.prologue_fn(*args, **kwargs)
+            prepared = _prepare_inputs(entry, flat_inps, cd.device)
+        elif cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
+            # Two tiers: the key learned for these inputs' metadata, else
+            # every prologue, newest first; a prologue hit teaches the key.
+            key, flat = _dispatch_key((args, kwargs))
+            entry, flat_inps, prepared = _fast_probe(cs, key, flat, cd.device)
+            if entry is None and cs.cache_entries:
+                entry, flat_inps, prepared = _probe_entries(cs, args, kwargs, cd.device)
+                if entry is not None:
+                    cs.slow_hits += 1
+                    _learn(cs, key, entry)
         cs.cache_lookup_ns += time.perf_counter_ns() - start
         first = entry is None
         if not first:
@@ -858,6 +975,10 @@ def jit(
         else:
             cs.cache_misses += 1
             entry = _compile_entry(cd, cs, args, kwargs)
+            if key is not None:
+                _learn(cs, key, entry)
+            cs.prologue_runs += 1
+            entry.stats.prologue_runs += 1
             flat_inps = entry.prologue_fn(*args, **kwargs)
             prepared = _prepare_inputs(entry, flat_inps, cd.device)
         entry.stats.hits += 1
@@ -897,10 +1018,14 @@ def grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
 
     Grads are returned as a tuple ordered like the function's float tensor
     leaves (pytree inputs are flattened in argument order). ``jit_kwargs``
-    are :func:`jit`'s options. ``grad`` of a ``vmap``-ed function comes with
-    ``vmap`` (ROADMAP.md)."""
+    are :func:`jit`'s options. ``grad`` of a :func:`vmap`-ed function takes
+    the pullback of the batched program with ones cotangents on its outputs
+    (:func:`_grad_of_vmapped`); ``vmap(grad(f))`` gives per-sample
+    gradients."""
     if fn is None:
         return functools.partial(grad, **jit_kwargs)
+    if getattr(fn, "_lc_vmap_spec", None) is not None:
+        return _grad_of_vmapped(fn, return_value=False, options=jit_kwargs)
     from thunder_tpu_torch.transforms.autodiff import grad_transform
 
     return jit(fn, _trace_transforms=(lambda trc: grad_transform(trc, return_value=False),), **jit_kwargs)
@@ -910,9 +1035,358 @@ def value_and_grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
     """Like :func:`grad` but returns ``(value, grads)``."""
     if fn is None:
         return functools.partial(value_and_grad, **jit_kwargs)
+    if getattr(fn, "_lc_vmap_spec", None) is not None:
+        return _grad_of_vmapped(fn, return_value=True, options=jit_kwargs)
     from thunder_tpu_torch.transforms.autodiff import grad_transform
 
     return jit(fn, _trace_transforms=(lambda trc: grad_transform(trc, return_value=True),), **jit_kwargs)
+
+
+# =============================================================================
+# Function transforms: vmap, grad of a vmapped function, jvp
+# (thunder_tpu/api.py:1938-2290)
+# =============================================================================
+#
+# The JAX package applies jax.vmap and jax.jvp to the claimed program; here
+# torch.func.vmap and torch.func.jvp apply to the claimed program's
+# callable. Under vmap every kernel claim runs through its batching rule
+# (executors/batching.py): one launch a call site. The JAX package catches a
+# kernel's transform error and re-stages without kernels; the port does not:
+# a kernel without a rule raises, naming it.
+
+_TRANSFORM_OPTIONS = ("executors", "device", "disable_jit_staging")
+
+
+def _unwrap_compiled(fn: Callable) -> tuple[Callable, tuple, dict]:
+    """``(function, trace transforms, options)`` of a function compiled by
+    ``jit``/``grad``/``value_and_grad``, so that vmap and jvp re-stage the
+    original function with its transforms (grad, autocast) and options
+    instead of tracing through the compiled wrapper; ``(fn, (), {})`` for a
+    plain function."""
+    if isinstance(fn, torch.nn.Module):
+        raise NotImplementedError("vmap/jvp of an nn.Module: pass a function of its parameters")
+    cd = getattr(fn, "_lc_cd", None)
+    if cd is None:
+        return fn, (), {}
+    return cd.fn, tuple(cd.trace_transforms), {"executors": cd.executors_list, "device": cd.device,
+                                               "disable_jit_staging": cd.disable_jit_staging}
+
+
+def _transform_options(options: dict, defaults: dict, what: str) -> tuple:
+    """``(executors, device, disable_jit_staging)`` of a transform: its own
+    options over those of the compiled function it wraps."""
+    unknown = sorted(set(options) - set(_TRANSFORM_OPTIONS))
+    if unknown:
+        raise ValueError(f"{what} supports only the options {list(_TRANSFORM_OPTIONS)}; got {unknown}")
+    merged = {**defaults, **{k: v for k, v in options.items() if v is not None}}
+    return (resolve_executors(merged.get("executors")), devices.resolve_device(merged.get("device")),
+            bool(merged.get("disable_jit_staging", False)))
+
+
+def _staged_flat_fn(fn: Callable, args: tuple, kwargs: dict, *, executors: Sequence,
+                    trace_transforms: Sequence[Callable] = (), batched: bool = False):
+    """Trace ``fn`` on the example ``(args, kwargs)`` and claim it through
+    ``_compile_entry``'s passes. Returns ``(callable, claimed trace, whether
+    it draws)``: the callable takes the tensor leaves of ``(args, kwargs)``
+    in pytree order, then an RNG key if it draws; numbers and strings are
+    constants of the trace. With ``batched``, each kernel claim is bound to
+    its batching rule (``batching.batched_callable``). A function that
+    writes into its inputs is refused: no epilogue runs on this path."""
+    _, comp = trace_program(fn, args, kwargs)
+    if comp._input_mutations:
+        kinds = ", ".join(sorted({m[0] for m in comp._input_mutations}))
+        raise NotImplementedError(f"the traced function mutates its inputs ({kinds}), which cannot be combined "
+                                  "with vmap/jvp (the mutation epilogue does not run on this path): make the "
+                                  "function pure or apply updates outside it")
+    comp = cse(dce(comp))
+    for transform in trace_transforms:
+        comp = transform(comp)
+    comp = functionalize_rng_ops(save_sdpa_residuals_joint(comp, executors))
+    extrace = del_last_used(transform_for_execution(comp, executors))
+    call = batching.batched_callable(extrace) if batched else extrace.python_callable()
+    return call, extrace, bool(comp.tags.get(RNG_TAG))
+
+
+def _meta_key(flat_values: list, extra: tuple = ()) -> tuple:
+    """Every leaf's metadata (a tensor's shape and dtype, a number's value,
+    an object's type): non-tensor leaves are constants of the staged trace,
+    so another value is another entry."""
+    parts = []
+    for x in flat_values:
+        if bridge.is_concrete_tensor(x):
+            shape, _dev, dt, _rg = bridge.tensor_metadata(x)
+            parts.append((tuple(shape), str(dt)))
+        elif isinstance(x, (int, float, bool, str, type(None))):
+            parts.append((type(x).__name__, x))
+        else:
+            parts.append(type(x).__name__)
+    return tuple(parts) + tuple(extra)
+
+
+def _vmap_flatten(args: tuple, kwargs: dict, in_axes, device) -> tuple[tuple, list, list]:
+    """``(axes a positional arg, axes a tensor leaf, tensor leaves on
+    device)``: an arg's axis applies to every tensor leaf of it; kwargs are
+    unbatched. The one flattening that vmap and grad of vmap share."""
+    if isinstance(in_axes, (tuple, list)):
+        check(len(in_axes) == len(args), lambda: f"vmap in_axes has {len(in_axes)} entries but the call has "
+                                                 f"{len(args)} positional arguments", ValueError)
+        axes = tuple(in_axes)
+    else:
+        axes = (in_axes,) * len(args)
+    flat_axes, flat_args = [], []
+    for a, ax in list(zip(args, axes)) + [(kwargs, None)]:
+        for x in tree_flatten(a)[0]:
+            if bridge.is_concrete_tensor(x):
+                flat_axes.append(ax)
+                flat_args.append(bridge.to_torch(x, device))
+    return axes, flat_axes, flat_args
+
+
+def _vmap_example(args: tuple, axes: tuple, device) -> tuple:
+    """Slice 0 of every batched tensor leaf (``x.select(ax, 0)`` on the
+    device): the example the program is traced on."""
+
+    def slice0(x, ax):
+        if ax is None or not bridge.is_concrete_tensor(x):
+            return x
+        return bridge.to_torch(x, device).select(ax, 0)
+
+    return tuple(tree_map(lambda x, _ax=ax: slice0(x, _ax), a) for a, ax in zip(args, axes))
+
+
+def _stage_vmapped(cs: CompileStats, fn: Callable, transforms: tuple, example: tuple, kwargs: dict, flat_axes: list,
+                   out_dims, *, executors, device, disabled: bool, name: str) -> Callable:
+    """Trace on one slice, bind the kernels to their batching rules, and
+    stage ``torch.func.vmap`` of the program as a CUDA graph under jit's
+    predicate (the seat of ``jax.jit(jax.vmap(...))``). Returns the call,
+    which takes the batched tensor leaves."""
+    start = time.perf_counter()
+    flat_fn, extrace, needs_rng = _staged_flat_fn(fn, example, kwargs, executors=executors,
+                                                  trace_transforms=transforms, batched=True)
+    # The key is the same for every slice: every slice draws the same
+    # numbers, as under jax.vmap.
+    in_dims = tuple(flat_axes) + ((None,) if needs_rng else ())
+    staged, stats = staging.stage(torch.func.vmap(flat_fn, in_dims=in_dims, out_dims=out_dims), [extrace], device,
+                                  name=name, disabled=disabled, fresh=_key_input if needs_rng else None)
+    cs.trace_seconds += time.perf_counter() - start
+    cs.compile_count += 1
+    cs.last_traces = [extrace]
+
+    def run(*flat_args):
+        cs.last_staging = stats
+        return staged(*flat_args, *([_next_key(device)] if needs_rng else []))
+
+    return run
+
+
+def vmap(fn: Callable, in_axes=0, out_axes=0, **options) -> Callable:
+    """Vectorizing map of a traced program (reference transforms.py
+    `vmap:2051`; thunder_tpu/api.py:2137-2199).
+
+    ``fn`` is traced on one slice (slice 0 of each batched leaf), claimed by
+    the executors (the kernels included) and run under ``torch.func.vmap``;
+    on CUDA the batched program is staged as one CUDA graph, under the same
+    predicate as ``jit``. Every kernel claim runs through its batching rule
+    (``executors/batching.py``), which folds the slices into the kernel's
+    own batch or rows: one launch a call site, whatever the number of
+    slices. A claimed kernel without a rule (masked attention, the int8
+    linear) raises ``NotImplementedError``, naming it. ``in_axes`` is one
+    axis or one per positional argument (None: unbatched; it applies to
+    every tensor leaf of the argument); kwargs are unbatched. A keyed draw
+    takes one key for all slices, so every slice draws the same numbers, as
+    under ``jax.vmap``.
+
+    ``options`` are ``executors``, ``device`` and ``disable_jit_staging``,
+    over those of a compiled ``fn``: ``vmap(grad(f))`` re-stages the
+    original f with its grad transform and options (per-sample gradients).
+    Staging is cached on the inputs' metadata and axes
+    (``compile_stats(vmapped)``)."""
+    inner_fn, transforms, defaults = _unwrap_compiled(fn)
+    executors, device, disabled = _transform_options(options, defaults, "vmap")
+    cache: dict = {}
+    cs = CompileStats()
+    name = f"vmap({getattr(inner_fn, '__name__', 'fn')})"
+
+    def vmapped(*args, **kwargs):
+        cs.calls += 1
+        with devices.default_device(device):
+            axes, flat_axes, flat_args = _vmap_flatten(args, kwargs, in_axes, device)
+            key = _meta_key(tree_flatten((args, kwargs))[0], extra=(tuple(flat_axes), out_axes))
+            run = cache.get(key)
+            if run is None:
+                cs.cache_misses += 1
+                run = cache[key] = _stage_vmapped(cs, inner_fn, transforms, _vmap_example(args, axes, device), kwargs,
+                                                  flat_axes, out_axes, executors=executors, device=device,
+                                                  disabled=disabled, name=name)
+            else:
+                cs.cache_hits += 1
+            return run(*flat_args)
+
+    vmapped._lc_cs = cs
+    vmapped._lc_vmap_spec = {"fn": inner_fn, "transforms": transforms, "in_axes": in_axes, "out_axes": out_axes,
+                             "options": {"executors": executors, "device": device, "disable_jit_staging": disabled}}
+    return vmapped
+
+
+def _grad_of_vmapped(vfn: Callable, *, return_value: bool, options: dict) -> Callable:
+    """``grad``/``value_and_grad`` of a :func:`vmap`-ed function
+    (thunder_tpu/api.py:1938-2015): the pullback of the batched program with
+    ones cotangents on every float output, w.r.t. every float tensor leaf.
+    It runs as the vmap of each slice's pullback (``grad_transform`` with
+    ones cotangents): a batched leaf takes its slices' grads at its axis, an
+    unbatched leaf their sum over the slices (the pullback of its
+    broadcast). Staged and cached as vmap is; of jit's options only
+    ``executors``, ``device`` and ``disable_jit_staging`` apply."""
+    from thunder_tpu_torch.transforms.autodiff import _is_float_tensor, grad_transform
+
+    spec = vfn._lc_vmap_spec
+    executors, device, disabled = _transform_options(options, spec["options"], "grad(vmap(f))")
+    in_axes, out_axes = spec["in_axes"], spec["out_axes"]
+
+    def pullback(trc):
+        wrt = [a for a in trc.args if _is_float_tensor(a)]
+        return grad_transform(trc, return_value=return_value, wrt=wrt, ones_cotangent=True)
+
+    transforms = spec["transforms"] + (pullback,)
+    cache: dict = {}
+    cs = CompileStats()
+    name = f"grad(vmap({getattr(spec['fn'], '__name__', 'fn')}))"
+
+    def wrapper(*args, **kwargs):
+        cs.calls += 1
+        with devices.default_device(device):
+            axes, flat_axes, flat_args = _vmap_flatten(args, kwargs, in_axes, device)
+            key = _meta_key(tree_flatten((args, kwargs))[0], extra=(tuple(flat_axes), out_axes, return_value))
+            run = cache.get(key)
+            if run is None:
+                cs.cache_misses += 1
+                run = cache[key] = _stage_vmapped(cs, spec["fn"], transforms, _vmap_example(args, axes, device),
+                                                  kwargs, flat_axes, (out_axes, 0) if return_value else 0,
+                                                  executors=executors, device=device, disabled=disabled, name=name)
+            else:
+                cs.cache_hits += 1
+            result = run(*flat_args)
+        value, per_slice = result if return_value else (None, result)
+        diff_axes = [ax for x, ax in zip(flat_args, flat_axes) if x.is_floating_point()]
+        grads = tuple(g.sum(0) if ax is None else g.movedim(0, ax) for g, ax in zip(per_slice, diff_axes))
+        return (value, grads) if return_value else grads
+
+    wrapper._lc_cs = cs
+    return wrapper
+
+
+class _JvpCache:
+    """Staged-jvp cache keyed on a weak reference to the function, not its
+    ``id`` (which a new closure at a reused address would alias); a
+    function that cannot be weakly referenced is keyed strongly, an
+    unhashable one is not cached. LRU, 256 entries
+    (thunder_tpu/api.py:2202-2259)."""
+
+    MAX_ENTRIES = 256
+
+    def __init__(self):
+        from collections import OrderedDict
+
+        self._entries = OrderedDict()
+
+    def _purge(self, dead_ref) -> None:
+        for k in [k for k in self._entries if k[0] is dead_ref]:
+            del self._entries[k]
+
+    def get(self, fn, key):
+        import weakref
+
+        try:
+            ref = weakref.ref(fn)
+        except TypeError:
+            ref = fn
+        try:
+            value = self._entries.get((ref, key))
+        except TypeError:  # unhashable callable: never cached
+            return None
+        if value is not None:
+            self._entries.move_to_end((ref, key))
+        return value
+
+    def put(self, fn, key, value) -> None:
+        import weakref
+
+        try:
+            ref = weakref.ref(fn, self._purge)
+        except TypeError:
+            ref = fn
+        try:
+            self._entries[(ref, key)] = value
+            self._entries.move_to_end((ref, key))
+        except TypeError:  # unhashable callable: not cached
+            return
+        while len(self._entries) > self.MAX_ENTRIES:
+            self._entries.popitem(last=False)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
+_jvp_cache = _JvpCache()
+_jvp_stats = CompileStats()
+_JVP_EXECUTORS = ("torch",)
+_jvp_stats.executors_note = ("jvp claims with the torch executor only: the kernels have no forward-mode rule "
+                             "(the JAX package's are custom_vjp, and its jvp ends on the jax executor)")
+
+
+def jvp(fn: Callable, primals: tuple, tangents: tuple, *, device: Any = None):
+    """Forward-mode derivative of a traced program (reference `jvp:2324`;
+    thunder_tpu/api.py:2265-2290): ``(outputs, output tangents)``.
+
+    The port's kernels have no forward-mode rule, and neither have the JAX
+    package's (``custom_vjp``; its jvp ends on its jax executor). So jvp
+    claims with the torch executor alone, decided here before tracing and
+    recorded in ``compile_stats(jvp).executors_note``, and runs
+    ``torch.func.jvp`` over the claimed program, unstaged (the reference's
+    ``jax.jvp(cached, ...)`` is not jitted either). No kernel wrapper sees a
+    tangent: each refuses one (``_build.refuse_transformed``).
+    ``tangents`` has the structure of ``primals``; a tangent is taken for
+    each float tensor leaf, and the leaves of other primals (integer
+    indices, numbers) are ignored. The program runs on ``device``: the
+    primals' torch device, else CUDA unless ``device="cpu"``. Staging is
+    cached per (function, input metadata)."""
+    p_leaves = tree_flatten(tuple(primals))[0]
+    t_leaves = tree_flatten(tuple(tangents))[0]
+    check(len(p_leaves) == len(t_leaves), lambda: "jvp: tangents must have the structure of primals", ValueError)
+    if device is None:
+        device = next((x.device for x in p_leaves if isinstance(x, torch.Tensor)), None)
+    device = devices.resolve_device(device)
+    cs = _jvp_stats
+    cs.calls += 1
+    with devices.default_device(device):
+        flat = [bridge.to_torch(x, device) for x in p_leaves if bridge.is_concrete_tensor(x)]
+        tans = [bridge.to_torch(t, device) for x, t in zip(p_leaves, t_leaves) if bridge.is_concrete_tensor(x)]
+        key = _meta_key(p_leaves, extra=(str(device),))
+        cached = _jvp_cache.get(fn, key)
+        if cached is None:
+            cs.cache_misses += 1
+            cached = _staged_flat_fn(fn, tuple(primals), {}, executors=resolve_executors(_JVP_EXECUTORS))
+            _jvp_cache.put(fn, key, cached)
+        else:
+            cs.cache_hits += 1
+        call, extrace, needs_rng = cached
+        cs.last_traces = [extrace]
+        diff = [i for i, x in enumerate(flat) if x.is_floating_point()]
+        extra = [_next_key(device)] if needs_rng else []
+
+        def of_diff(*d):
+            full = list(flat)
+            for i, x in zip(diff, d):
+                full[i] = x
+            return call(*full, *extra)
+
+        return torch.func.jvp(of_diff, tuple(flat[i] for i in diff), tuple(tans[i] for i in diff))
+
+
+jvp._lc_cs = _jvp_stats
 
 
 def compile_data(fn: Callable) -> CompileData:
@@ -962,22 +1436,22 @@ def cache_misses(fn: Callable) -> int:
 
 def cache_info(fn: Callable) -> dict:
     """Cache counters and seconds, with the keys of the JAX package's
-    ``cache_info`` (thunder_tpu/api.py:1404). The port has no fast path: every
-    hit is found by running prologues (``slow_hits``; ``fast_hits`` is 0),
-    no de-opt ladder (``degradation_level`` 0) and no liveness planner
-    (``predicted_peak_bytes`` None)."""
+    ``cache_info`` (thunder_tpu/api.py:1404): hits split into ``fast_hits``
+    (found by the inputs' metadata key) and ``slow_hits`` (found by running
+    prologues). The port has no de-opt ladder (``degradation_level`` 0) and
+    no liveness planner (``predicted_peak_bytes`` None)."""
     cd, cs = fn._lc_cd, fn._lc_cs
     phases: dict = {}
     for e in cs.cache_entries:
         for k, v in e.stats.phases.items():
             phases[k] = phases.get(k, 0.0) + v
     return {
-        "cache_option": cd.cache_option.replace(" ", "_"),
+        "cache_option": cd.cache_option.name.lower(),
         "calls": cs.calls,
         "hits": cs.cache_hits,
         "misses": cs.cache_misses,
-        "fast_hits": 0,
-        "slow_hits": cs.cache_hits,
+        "fast_hits": cs.fast_hits,
+        "slow_hits": cs.slow_hits,
         "prologue_runs": cs.prologue_runs,
         "compiles": cs.compile_count,
         "recompiles": cs.recompile_count,
@@ -987,8 +1461,7 @@ def cache_info(fn: Callable) -> dict:
         "compile_phase_seconds": phases,
         "degradation_level": 0,
         "entries": [dict(index=i, symbolic=e.sym_spec is not None,
-                         buckets="exact" if e.sym_spec is None else e.sym_spec.describe(), fast_hits=0,
-                         degradation_level=0,
+                         buckets="exact" if e.sym_spec is None else e.sym_spec.describe(), degradation_level=0,
                          predicted_peak_bytes=None, **e.stats.as_dict())
                     for i, e in enumerate(cs.cache_entries)],
     }

@@ -3,11 +3,12 @@
 Reference parity: thunder/common.py (`CompileData:138`, `CompileStats:54`,
 `CacheEntry` in thunder/__init__.py:281) and thunder/core/options.py
 (CACHE_OPTIONS, SHARP_EDGES_OPTIONS). Cut to the jit path of this package:
-constant-values caching (every tensor's metadata and every number's value is
-guarded by the prologue) and symbolic values; staging as a CUDA graph
-(``disable_jit_staging``, executors/staging.py); the reference package's
-symbolic-values caching, distribution state, de-opt ladder, observability
-taps and compile-phase spans come with later parts of the port.
+the four cache options (every tensor's metadata and every number's value
+guarded by the prologue, symbolic values, no caching, and "same input",
+which strips the guards); staging as a CUDA graph (``disable_jit_staging``,
+executors/staging.py); the reference package's distribution state, de-opt
+ladder, observability taps and compile-phase spans come with later parts of
+the port.
 """
 
 from __future__ import annotations
@@ -21,13 +22,24 @@ from typing import Any, Callable, Optional
 
 
 class CACHE_OPTIONS(enum.Enum):
-    """The reference's cache options by their ``jit(cache=...)`` strings;
-    the port's ``jit`` takes ``CONSTANT_VALUES`` and ``SYMBOLIC_VALUES``."""
+    """The cache options by their ``jit(cache=...)`` strings
+    (thunder_tpu/common.py:18-30)."""
 
     NO_CACHING = "no caching"
     CONSTANT_VALUES = "constant values"
     SAME_INPUT = "same input"
     SYMBOLIC_VALUES = "symbolic values"
+
+
+def resolve_cache_option(x: Any) -> CACHE_OPTIONS:
+    """A member, or its string in any case."""
+    if isinstance(x, CACHE_OPTIONS):
+        return x
+    if isinstance(x, str):
+        for opt in CACHE_OPTIONS:
+            if opt.value == x.lower():
+                return opt
+    raise ValueError(f"Unknown cache option cache={x!r}: expected one of {[o.value for o in CACHE_OPTIONS]}")
 
 
 class SHARP_EDGES_OPTIONS(enum.Enum):
@@ -119,8 +131,8 @@ class CompileData:
     # Run every entry eagerly instead of capturing it as a CUDA graph
     # (executors/staging.py; reference: thunder_tpu/common.py:139).
     disable_jit_staging: bool = False
-    # "constant values" or "symbolic values" (api.jit's ``cache``).
-    cache_option: str = "constant values"
+    # api.jit's ``cache``: a CACHE_OPTIONS member.
+    cache_option: CACHE_OPTIONS = CACHE_OPTIONS.CONSTANT_VALUES
     # The compile options given to jit (``autocast``; under symbolic values
     # ``bucket_policy`` and ``symbolic_dims``).
     compile_options: dict = field(default_factory=dict)
@@ -128,13 +140,14 @@ class CompileData:
 
 class EntryStats:
     """One cache entry's counters (reference: thunder_tpu/common.py:156),
-    those the port keeps: it has no fast path, de-opt ladder or liveness
-    planner (``api.cache_info``)."""
+    those the port keeps: it has no de-opt ladder or liveness planner
+    (``api.cache_info``)."""
 
-    __slots__ = ("hits", "prologue_runs", "guard_fails", "trace_s", "first_run_s", "phases")
+    __slots__ = ("hits", "fast_hits", "prologue_runs", "guard_fails", "trace_s", "first_run_s", "phases")
 
     def __init__(self):
         self.hits = 0  # calls this entry served, its first included
+        self.fast_hits = 0  # hits found by the O(1) key lookup, no prologue run
         self.prologue_runs = 0
         self.guard_fails = 0  # prologue or value-guard rejections while probing
         self.trace_s = 0.0  # host seconds tracing, transforming and claiming it
@@ -181,6 +194,11 @@ class CompileStats:
         self.cache_entries: list[CacheEntry] = []
         self.cache_hits: int = 0
         self.cache_misses: int = 0
+        # The O(1) dispatch tier (api._dispatch): (tree structure, leaf
+        # metadata) -> entry, learned on a compile or a prologue (slow) hit.
+        self.fast_cache: dict = {}
+        self.fast_hits: int = 0
+        self.slow_hits: int = 0
         self.calls: int = 0
         self.prologue_runs: int = 0
         self.compile_count: int = 0
@@ -191,6 +209,9 @@ class CompileStats:
         self.last_prologue_traces: list = []
         self.last_backward_traces: list = []
         self.last_staging = None  # the StagingStats of the entry that ran last
+        # Why a transform claims with other executors than it was given
+        # (jvp: the torch executor alone), or None.
+        self.executors_note: Optional[str] = None
         self.last_backward_staging = None  # a module's: that of the backward it ran with
 
     @property

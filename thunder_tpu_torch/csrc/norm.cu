@@ -73,6 +73,12 @@
 //     row. A second small kernel sums the blocks' rows in a fixed order into
 //     dw (and db); it is launched as a programmatic dependent of the first,
 //     so it is scheduled while the row kernel drains.
+//   - Segments (vmap's batching rule, executors/batching.py). The N rows may
+//     be `segs` equal runs of N / segs rows, one a vmapped slice, each with
+//     its own dw (and db): the blocks split into `segs` equal sets, set s
+//     walks only segment s's rows, and the column-sum kernel sums each set's
+//     partial rows into row s of dw (segs, D). One segment is the plain
+//     backward, with the same bits.
 //   - Rows that break the bulk copy's 16-byte rules, or too wide for one
 //     slot, take the same passes reading device memory directly (4-byte
 //     loads where rows allow, else one element).
@@ -614,8 +620,8 @@ __host__ __device__ inline size_t fold_bytes(int D, int groups, bool ln, bool re
 template <typename T, int MODE, bool LN>
 __global__ void __launch_bounds__(NTHREADS, 1)
     norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ db_part, int N, int D,
-                    int wpr, int depth, float eps) {
+                    T* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ db_part, int seg_rows,
+                    int seg_blocks, int D, int wpr, int depth, float eps) {
   constexpr int U = MODE == kScalar ? 1 : static_cast<int>(4 / sizeof(T));
   constexpr int KMAX = LANE_COLS / U;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -651,8 +657,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // Let the column-sum kernel be scheduled early; it waits for this grid's end.
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
-  const int first = blockIdx.x * groups + grp, stride = gridDim.x * groups;
-  const int nrows = first < N ? (N - 1 - first) / stride + 1 : 0;
+  // This block's segment: its rows are seg_rows from `base`, walked by the
+  // seg_blocks blocks of the segment.
+  const long long base = static_cast<long long>(blockIdx.x / seg_blocks) * seg_rows;
+  const int first = (blockIdx.x % seg_blocks) * groups + grp, stride = seg_blocks * groups;
+  const int nrows = first < seg_rows ? (seg_rows - 1 - first) / stride + 1 : 0;
 
   auto run = [&](auto reg_tag) {
     constexpr bool REG = decltype(reg_tag)::value;
@@ -674,7 +683,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
     if constexpr (MODE == kRing) {
       auto fetch = [&](int i, int s) {  // row i of this group into slot s = i % depth
-        const long long row = first + static_cast<long long>(i) * stride;
+        const long long row = base + first + static_cast<long long>(i) * stride;
         unsigned char* slot = ring + static_cast<size_t>(s) * 2 * row_bytes;
         mbar_expect_tx(&gbars[s], static_cast<uint32_t>(2 * row_bytes));
         bulk_load(slot, x + row * D, static_cast<uint32_t>(row_bytes), &gbars[s]);
@@ -686,7 +695,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       load_weight();
       uint32_t phase = 0;  // of slot s's barrier: flips each time the ring wraps
       for (int i = 0, s = 0; i < nrows; ++i, s = s + 1 == depth ? 0 : s + 1) {
-        const long long row = first + static_cast<long long>(i) * stride;
+        const long long row = base + first + static_cast<long long>(i) * stride;
         const T* slot = reinterpret_cast<const T*>(ring + static_cast<size_t>(s) * 2 * row_bytes);
         mbar_wait(&gbars[s], phase);
         if (s + 1 == depth) phase ^= 1;
@@ -705,7 +714,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     } else {
       load_weight();
       for (int i = 0; i < nrows; ++i) {
-        const long long row = first + static_cast<long long>(i) * stride;
+        const long long row = base + first + static_cast<long long>(i) * stride;
         if constexpr (REG) {
           uint32_t xq[KMAX], gq[KMAX];
           load_row<T, U, KMAX>(x + row * D, g + row * D, nunits, gt, tg, xq, gq);
@@ -754,7 +763,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // out[c] = sum over r of part[r, c], r in a fixed order: 32 slices of rows
 // (r = s, s + 32, ..., loaded 8 at a time, so a slice is one or two round
 // trips) for 32 columns a block, then the slices in order. blockIdx.y picks
-// dw (0) or db (1).
+// dw (0) or db (1); blockIdx.z the segment, whose `rows` partial rows it
+// sums into its own output row.
 __global__ void __launch_bounds__(1024)
     norm_colsum_kernel(const float* __restrict__ pw, float* __restrict__ ow, const float* __restrict__ pb,
                        float* __restrict__ ob, int rows, int D) {
@@ -762,8 +772,8 @@ __global__ void __launch_bounds__(1024)
   // Launched as a programmatic dependent of the row kernel: wait until that
   // grid has finished and its partial rows are visible.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const float* p = blockIdx.y ? pb : pw;
-  float* o = blockIdx.y ? ob : ow;
+  const float* p = (blockIdx.y ? pb : pw) + static_cast<long long>(blockIdx.z) * rows * D;
+  float* o = (blockIdx.y ? ob : ow) + static_cast<long long>(blockIdx.z) * D;
   const int c = threadIdx.x % 32, s = threadIdx.x / 32;
   const int col = blockIdx.x * 32 + c;
   float acc = 0.f;
@@ -837,10 +847,10 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int 
 
 template <typename T, bool LN>
 int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
-               float* db_part, int N, int D, int ctas, int wpr, int depth, int mode, float eps,
+               float* db_part, int N, int D, int segs, int ctas, int wpr, int depth, int mode, float eps,
                cudaStream_t stream) {
   if (ctas < 1 || wpr < 1 || wpr > NWARPS || NWARPS % wpr != 0 || depth < 0 || depth > MAX_DEPTH ||
-      (mode == kRing) != (depth > 0))
+      (mode == kRing) != (depth > 0) || segs < 1 || segs > 65535 || N % segs != 0 || ctas % segs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = mode == kRing     ? norm_bwd_kernel<T, kRing, LN>
                 : mode == kDirect ? norm_bwd_kernel<T, kDirect, LN>
@@ -853,13 +863,13 @@ int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw,
   if (smem > MAX_SMEM || (!reg && wpr != NWARPS)) return static_cast<int>(cudaErrorInvalidValue);
   if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<ctas, NTHREADS, smem, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x),
-                                           static_cast<const T*>(w), static_cast<T*>(dx), dw_part, db_part, N, D,
-                                           wpr, depth, eps);
+                                           static_cast<const T*>(w), static_cast<T*>(dx), dw_part, db_part, N / segs,
+                                           ctas / segs, D, wpr, depth, eps);
   if (int err = thunder::launch_status()) return err;
   // The column sums may be scheduled while the row kernel's blocks drain
   // (programmatic dependent launch); they wait for its end themselves.
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((D + 31) / 32, LN && db_part != nullptr ? 2 : 1);
+  cfg.gridDim = dim3((D + 31) / 32, LN && db_part != nullptr ? 2 : 1, segs);
   cfg.blockDim = dim3(1024);
   cfg.stream = stream;
   cudaLaunchAttribute attr;
@@ -868,7 +878,7 @@ int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   if (int err = static_cast<int>(cudaLaunchKernelEx(&cfg, norm_colsum_kernel, static_cast<const float*>(dw_part), dw,
-                                                    static_cast<const float*>(db_part), db, ctas, D)))
+                                                    static_cast<const float*>(db_part), db, ctas / segs, D)))
     return err;
   return thunder::launch_status();
 }
@@ -886,16 +896,18 @@ int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, in
 
 template <bool LN>
 int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
-                 float* db_part, int N, int D, int ctas, int wpr, int depth, int mode, float eps, int dtype,
-                 cudaStream_t s) {
+                 float* db_part, int N, int D, int segs, int ctas, int wpr, int depth, int mode, float eps,
+                 int dtype, cudaStream_t s) {
   switch (dtype) {
     case thunder::kBF16:
-      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode,
-                                           eps, s);
+      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth,
+                                           mode, eps, s);
     case thunder::kF16:
-      return launch_bwd<__half, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, s);
+      return launch_bwd<__half, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode, eps,
+                                    s);
     case thunder::kF32:
-      return launch_bwd<float, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, s);
+      return launch_bwd<float, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode, eps,
+                                   s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -941,13 +953,14 @@ extern "C" int thunder_norm_fwd_blocks_per_sm(int layer_norm, int dtype, int uni
 // `wpr` warps with rings of `depth` slots (mode 0; 0 for modes 1 and 2),
 // writing dx and the blocks' partial rows dw_part (and, for LayerNorm when
 // it is not null, db_part), each (ctas, D) f32; then their column sums into
-// dw (and db), (D,) f32.
+// dw (and db), (segs, D) f32: the rows are `segs` equal segments (N and
+// ctas multiples of segs), each summed on its own ctas / segs blocks.
 extern "C" int thunder_norm_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db,
-                                float* dw_part, float* db_part, int N, int D, int ctas, int wpr, int depth,
-                                int mode, float eps, int layer_norm, int dtype, void* stream) {
+                                float* dw_part, float* db_part, int N, int D, int segs, int ctas, int wpr,
+                                int depth, int mode, float eps, int layer_norm, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return layer_norm
-             ? dispatch_bwd<true>(g, x, w, dx, dw, db, dw_part, db_part, N, D, ctas, wpr, depth, mode, eps, dtype, s)
-             : dispatch_bwd<false>(g, x, w, dx, dw, nullptr, dw_part, nullptr, N, D, ctas, wpr, depth, mode, eps,
-                                   dtype, s);
+  return layer_norm ? dispatch_bwd<true>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode,
+                                         eps, dtype, s)
+                    : dispatch_bwd<false>(g, x, w, dx, dw, nullptr, dw_part, nullptr, N, D, segs, ctas, wpr, depth,
+                                          mode, eps, dtype, s);
 }

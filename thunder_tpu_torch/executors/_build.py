@@ -44,7 +44,7 @@ _SIGNATURES = {
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
     "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 6 + [_c_void_p],
     "thunder_norm_fwd_blocks_per_sm": [_c_int] * 3,
-    "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float] + [_c_int] * 2 + [_c_void_p],
+    "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 7 + [_c_float] + [_c_int] * 2 + [_c_void_p],
     "thunder_int8_gemm": [_c_void_p] * 5 + [_c_int] * 4 + [_c_void_p],
     "thunder_int8_gemm_sync": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
     "thunder_quantize_rows": [_c_void_p, _c_ll, _c_int, _c_int, _c_float] + [_c_int] * 3 + [_c_void_p] * 3,
@@ -174,6 +174,27 @@ def counted(fn):
 def launch_counts() -> dict[tuple[str, str], int]:
     """Every registered wrapper's launch count."""
     return {key: getattr(sys.modules[key[0]], key[1]).launches for key in KERNEL_WRAPPERS}
+
+
+def refuse_transformed(kernel: str, *ts) -> None:
+    """Raise unless every tensor of ``ts`` is a plain tensor: a kernel reads
+    its operands through ``data_ptr()``, so a functorch-wrapped tensor (the
+    batched tensor of ``torch.func.vmap``, the wrapper of ``torch.func.jvp``
+    or ``grad``) or one carrying a forward-mode tangent would lose its batch
+    or its tangent. Under vmap a kernel is reached through its batching
+    rule (``executors/batching.py``), which hands it plain tensors."""
+    import torch
+    from torch._C._functorch import is_functorch_wrapped_tensor
+    from torch.autograd import forward_ad
+
+    dual = forward_ad._current_level >= 0
+    for t in ts:
+        if isinstance(t, torch.Tensor) and (is_functorch_wrapped_tensor(t)
+                                            or (dual and forward_ad.unpack_dual(t).tangent is not None)):
+            raise NotImplementedError(
+                f"{kernel}: the kernel was given a tensor under a function transform (a vmap batch or a "
+                "forward-mode tangent), which a launch on its address would drop; under vmap a kernel runs "
+                "through its batching rule (executors/batching.py), and jvp claims no kernel")
 
 
 def add_launches(counts: dict[tuple[str, str], int]) -> None:

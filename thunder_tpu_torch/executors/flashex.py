@@ -307,6 +307,7 @@ def _launch_bwd(dout, q, k, v, out, lse, causal: bool, scale: float, q_seg=None,
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                         scale: float) -> torch.Tensor:
     """Causal or full attention of q (B, H, Tq, D) over k/v (B, G, Tkv, D)."""
+    _build.refuse_transformed("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     out = _launch_fwd(q, k, v, causal, scale, None)
@@ -319,6 +320,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_fwd`` that also returns the per-row logsumexp
     (B, H, Tq) in f32: the same kernel, told where to write it."""
+    _build.refuse_transformed("flash_fwd_lse", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, causal=causal, scale=scale)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -333,6 +335,7 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
                         scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention from the saved output and logsumexp; dk and
     dv (B, G, Tkv, D) are summed over the query heads of each kv group."""
+    _build.refuse_transformed("flash_bwd", dout, q, k, v, out, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, scale=scale)
     grads = _launch_bwd(dout, q, k, v, out, lse, causal, scale)
@@ -346,6 +349,7 @@ def flash_attention_fwd_seg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
     """Attention under segment ids: query i of batch row b sees key j only
     where ``q_seg[b, i] == kv_seg[b, j]`` (and, when causal, j ≤ i + Tkv −
     Tq). The forward kernel, given the segments' pointers."""
+    _build.refuse_transformed("flash_fwd_seg", q, k, v, q_seg, kv_seg)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale, q_seg=q_seg, kv_seg=kv_seg)
     out = _launch_fwd(q, k, v, causal, scale, None, q_seg, kv_seg)
@@ -360,6 +364,7 @@ def flash_attention_bwd_recompute(dout: torch.Tensor, q: torch.Tensor, k: torch.
     """(dq, dk, dv) of attention with nothing saved: the forward kernel
     recomputes (out, lse) under the same segments, then the backward kernel
     runs from them. One count per call; the call launches both kernels."""
+    _build.refuse_transformed("flash_bwd_recompute", dout, q, k, v, q_seg, kv_seg)
     if q.device.type == "cpu":
         return flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale, q_seg=q_seg,
                                                    kv_seg=kv_seg)
@@ -394,6 +399,7 @@ def legacy_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causa
                      scale: float) -> torch.Tensor:
     """Row 10's forward: attention of q (B, H, S, D) over k/v (B, G, S, D),
     the row-1 kernel (``flash_attention_plain`` on CPU tensors)."""
+    _build.refuse_transformed("legacy_flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     out = _launch_fwd(q, k, v, causal, scale, None)
@@ -408,6 +414,7 @@ def legacy_flash_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: to
     kernel again with logsumexp, then the backward kernel (the row-8 route
     without segments; ``flash_attention_bwd_recompute_plain`` on CPU
     tensors). dk/dv (B, G, S, D) come summed over each kv group."""
+    _build.refuse_transformed("legacy_flash_bwd", dout, q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_recompute_plain(dout, q, k, v, causal=causal, scale=scale)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)

@@ -139,6 +139,7 @@ def rope_plan_of(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, out: tor
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half rope of x (B, H, T, D) with cos/sin (T, D). x may be a
     strided view (last dim contiguous); the result is contiguous."""
+    _build.refuse_transformed("rope", x, cos, sin)
     if x.device.type == "cpu":
         return rope_plain(x, cos, sin)
     if not (x.is_cuda and cos.device == x.device and sin.device == x.device):
@@ -200,6 +201,7 @@ def cross_entropy_rows_plain(logits: torch.Tensor, target: torch.Tensor, ignore_
 @_build.counted
 def cross_entropy_rows(logits: torch.Tensor, target: torch.Tensor, ignore_index: int) -> torch.Tensor:
     """Per-row loss (N,) in f32 of logits (N, V) against targets (N,)."""
+    _build.refuse_transformed("ce_fwd", logits, target)
     if logits.device.type == "cpu":
         return cross_entropy_rows_plain(logits, target, ignore_index)
     if not (logits.is_cuda and target.device == logits.device):
@@ -238,8 +240,11 @@ def _ce_checker(input, target, weight=None, ignore_index=-100, reduction="mean",
     )
 
 
-def _ce_impl(input, target, weight=None, ignore_index=-100, reduction="mean", label_smoothing=0.0):
-    total = cross_entropy_rows(input, target, int(ignore_index)).sum()
+def _ce_impl(input, target, weight=None, ignore_index=-100, reduction="mean", label_smoothing=0.0, *, rows=None):
+    """The claimed cross-entropy: per-row losses from the kernel (``rows``,
+    under vmap its batching rule; by default ``cross_entropy_rows``), then
+    their sum or mean."""
+    total = (rows or cross_entropy_rows)(input, target, int(ignore_index)).sum()
     if reduction == "mean":
         count = (target != ignore_index).sum().to(torch.float32).clamp_min(1.0)
         total = total / count
@@ -277,6 +282,7 @@ def cross_entropy_bwd_plain(logits: torch.Tensor, target: torch.Tensor, row_scal
 @_build.counted
 def cross_entropy_bwd(logits: torch.Tensor, target: torch.Tensor, row_scale: torch.Tensor) -> torch.Tensor:
     """dlogits (N, V), contiguous, in the logits' dtype."""
+    _build.refuse_transformed("ce_bwd", logits, target, row_scale)
     if logits.device.type == "cpu":
         return cross_entropy_bwd_plain(logits, target, row_scale)
     if not (logits.is_cuda and target.device == logits.device and row_scale.device == logits.device):

@@ -80,14 +80,17 @@ class BwdPlan:
     smem: int
 
 
-def bwd_plan(N: int, D: int, elem_size: int, layer_norm: bool, sm_count: int, align: int) -> BwdPlan:
+def bwd_plan(N: int, D: int, elem_size: int, layer_norm: bool, sm_count: int, align: int,
+             segments: int = 1) -> BwdPlan:
     """The backward's plan for N rows of D elements of ``elem_size`` bytes on
     a card of ``sm_count`` SMs, where ``align`` (16, 4 or 1) divides every
     row's byte offset and base pointer. A row group is the fewest warps
     (1, 2, 4, 8) whose lanes hold at most 32 columns each; the ring takes
     as many slots (up to 3) as fit beside the fold buffers, and a row too
     wide for one slot is read directly. With sums in registers, each group
-    has D f32 of fold buffer (2·D for LayerNorm) beside its ring."""
+    has D f32 of fold buffer (2·D for LayerNorm) beside its ring. The rows
+    of ``segments`` equal segments (vmap's slices) are walked by equal sets
+    of blocks, a set a segment: ``ctas`` is a multiple of ``segments``."""
     unit = 1 if align < 4 else max(1, 4 // elem_size)
     nunits = D // unit
     kmax = _LANE_COLS // unit
@@ -98,7 +101,7 @@ def bwd_plan(N: int, D: int, elem_size: int, layer_norm: bool, sm_count: int, al
     slot = 2 * D * elem_size
     depth = min(_MAX_DEPTH, (_MAX_SMEM - fold) // (groups * slot)) if align >= 16 else 0
     mode = "ring" if depth > 0 else "direct" if align >= 4 else "scalar"
-    ctas = max(1, min(sm_count, math.ceil(N / groups)))
+    ctas = segments * max(1, min(sm_count // segments, math.ceil(N // segments / groups)))
     return BwdPlan(mode, wpr, groups, depth, ctas, registers, fold + groups * depth * slot)
 
 
@@ -192,12 +195,14 @@ def norm_fwd_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
 
 
 def norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float, *, layer_norm: bool,
-                   with_bias: bool = False) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+                   with_bias: bool = False, segments: int = 1
+                   ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(dx in x's dtype, dw in f32, db in f32 or None) with mu and rstd
     recomputed from x: dx = rstd·(wg − m1 − xhat·m2), m2 = mean(wg·xhat),
     m1 = mean(wg) for LayerNorm and 0 for RMSNorm; dw = Σ g·xhat and
-    db = Σ g over the rows. The kernel sums dw and db by blocks of rows;
-    the two differ only in summation order."""
+    db = Σ g over the rows, (D,), or with ``segments`` > 1 over each of
+    that many equal runs of rows, (segments, D). The kernel sums dw and db
+    by blocks of rows; the two differ only in summation order."""
     xf, gf = _rows(x), _rows(g)
     mu, rstd = _stats(xf, eps, layer_norm)
     xhat = (xf - mu) * rstd
@@ -205,8 +210,12 @@ def norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: 
     m2 = (wg * xhat).mean(-1, keepdim=True)
     m1 = wg.mean(-1, keepdim=True) if layer_norm else 0.0
     dx = (rstd * (wg - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
-    db = gf.sum(0) if layer_norm and with_bias else None
-    return dx, (gf * xhat).sum(0), db
+
+    def colsum(t):
+        return t.sum(0) if segments == 1 else t.reshape(segments, -1, t.shape[-1]).sum(1)
+
+    db = colsum(gf) if layer_norm and with_bias else None
+    return dx, colsum(gf * xhat), db
 
 
 # =============================================================================
@@ -263,24 +272,29 @@ def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> t
     return y.reshape(x.shape)
 
 
-def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bias: bool):
-    """dx, and dw and db in f32, from two launches: the row kernel, which
-    writes each block's partial column sums, and the kernel that sums them."""
+def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bias: bool, segments: int = 1):
+    """dx, and dw and db in f32 ((D,), or (segments, D)), from two launches:
+    the row kernel, which writes each block's partial column sums, and the
+    kernel that sums them, a segment's blocks into its own row."""
     _check_cuda(kernel, x, g, weight)
     D = x.shape[-1]
     x2, g2, w = x.reshape(-1, D).contiguous(), g.reshape(-1, D).contiguous(), weight.contiguous()
     N = x2.shape[0]
+    if segments < 1 or N % segments:
+        raise ValueError(f"{kernel}: {N} rows do not split into {segments} equal segments")
     dx = torch.empty_like(x2)
-    plan = bwd_plan(N, D, x.element_size(), layer_norm, _build.sm_count(x.device.index), _align(D, g2, x2, w, dx))
+    plan = bwd_plan(N, D, x.element_size(), layer_norm, _build.sm_count(x.device.index), _align(D, g2, x2, w, dx),
+                    segments)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dw, dw_part = torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)
-    db, db_part = (torch.empty(D, **f32), torch.empty((plan.ctas, D), **f32)) if with_bias else (None, None)
+    sums = (D,) if segments == 1 else (segments, D)
+    dw, dw_part = torch.empty(sums, **f32), torch.empty((plan.ctas, D), **f32)
+    db, db_part = (torch.empty(sums, **f32), torch.empty((plan.ctas, D), **f32)) if with_bias else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.lib()
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_bwd(
             g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(), ptr(db), dw_part.data_ptr(),
-            ptr(db_part), N, D, plan.ctas, plan.warps_per_row, plan.depth, _MODES[plan.mode], float(eps),
+            ptr(db_part), N, D, segments, plan.ctas, plan.warps_per_row, plan.depth, _MODES[plan.mode], float(eps),
             int(layer_norm), _build.dtype_code(x), _build.stream_of(x),
         )
     _build.check(status, kernel)
@@ -290,6 +304,7 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
 @_build.counted
 def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
     """RMSNorm of x (..., D) over its last dim, times weight (D,)."""
+    _build.refuse_transformed("rms_fwd", x, weight)
     if x.device.type == "cpu":
         return norm_fwd_plain(x, weight, None, eps, layer_norm=False)
     y = _launch_fwd("rms_fwd", x, weight, None, eps, False)
@@ -299,11 +314,13 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) ->
 
 @_build.counted
 def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
-                 eps: float = RMS_EPS) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dx, dw in f32) of RMSNorm from its cotangent g."""
+                 eps: float = RMS_EPS, segments: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw in f32) of RMSNorm from its cotangent g; dw (D,), or with
+    ``segments`` > 1 one row a segment of the rows, (segments, D)."""
+    _build.refuse_transformed("rms_bwd", g, x, weight)
     if x.device.type == "cpu":
-        return norm_bwd_plain(g, x, weight, eps, layer_norm=False)[:2]
-    dx, dw, _ = _launch_bwd("rms_bwd", g, x, weight, eps, False, False)
+        return norm_bwd_plain(g, x, weight, eps, layer_norm=False, segments=segments)[:2]
+    dx, dw, _ = _launch_bwd("rms_bwd", g, x, weight, eps, False, False, segments)
     rms_norm_bwd.launches += 1
     return dx, dw
 
@@ -313,6 +330,7 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
                    eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of x (..., D) over its last dim, times weight (D,), plus
     bias (D,) when given."""
+    _build.refuse_transformed("ln_fwd", x, weight, bias)
     if x.device.type == "cpu":
         return norm_fwd_plain(x, weight, bias, eps, layer_norm=True)
     y = _launch_fwd("ln_fwd", x, weight, bias, eps, True)
@@ -322,11 +340,13 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
 
 @_build.counted
 def layer_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
-                   with_bias: bool) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """(dx, dw in f32, db in f32 or None) of LayerNorm from its cotangent g."""
+                   with_bias: bool, segments: int = 1) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dx, dw in f32, db in f32 or None) of LayerNorm from its cotangent g;
+    dw and db per segment of the rows as ``rms_norm_bwd``'s."""
+    _build.refuse_transformed("ln_bwd", g, x, weight)
     if x.device.type == "cpu":
-        return norm_bwd_plain(g, x, weight, eps, layer_norm=True, with_bias=with_bias)
-    out = _launch_bwd("ln_bwd", g, x, weight, eps, True, with_bias)
+        return norm_bwd_plain(g, x, weight, eps, layer_norm=True, with_bias=with_bias, segments=segments)
+    out = _launch_bwd("ln_bwd", g, x, weight, eps, True, with_bias, segments)
     layer_norm_bwd.launches += 1
     return out
 

@@ -1,12 +1,15 @@
 """The claiming pass and codegen-adjacent passes.
 
 Reference parity: thunder/executors/passes.py (`transform_for_execution:131`
-— operator-executor claiming and always-executors — and `del_last_used:232`).
+— operator-executor claiming, always-executors and fusion passes — and
+`del_last_used:232`).
 
 Claiming walks each top-level bound symbol: the first executor in priority
 order whose checker accepts it claims it whole; otherwise the pass descends
 into the symbol's decomposition (subsymbols). Terminal prims must be claimed
-by someone (the torch executor covers those the port runs).
+by someone (the torch executor covers those the port runs). Then each
+fusion executor in the list rewrites the claimed trace with its
+``fusion_pass``, in list order (thunder_tpu/executors/passes.py:107-110).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from thunder_tpu_torch.core.proxies import CollectionProxy, Proxy, variableify
 from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.symbol import BoundSymbol, Symbol
 from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in_trace_provenance
-from thunder_tpu_torch.extend import OperatorExecutor, get_always_executors
+from thunder_tpu_torch.extend import Executor, FusionExecutor, get_always_executors
 
 _PASSTHROUGH_IDS = {
     PrimIDs.DEL,
@@ -37,13 +40,13 @@ _PASSTHROUGH_IDS = {
 }
 
 
-def _claimed(sym: Symbol, ex: OperatorExecutor) -> Symbol:
+def _claimed(sym: Symbol, ex: Executor) -> Symbol:
     new = copy.copy(sym)
     new.executor = ex
     return new
 
 
-def transform_for_execution(trace: TraceCtx, executors_list: Sequence[OperatorExecutor]) -> TraceCtx:
+def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor]) -> TraceCtx:
     """Claim every bound symbol. There is no re-claim after a failure: a
     kernel that fails raises, and nothing quietly takes its place."""
     start = time.perf_counter_ns()
@@ -86,6 +89,9 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[OperatorEx
 
     extrace = from_trace(trace)
     extrace.bound_symbols = new_bsyms
+    for ex in executors_list:
+        if isinstance(ex, FusionExecutor):
+            extrace = ex.fusion_pass(extrace)
     return wrap_in_trace_provenance(extrace, "Transform for execution", start)
 
 

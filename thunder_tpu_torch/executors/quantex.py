@@ -139,6 +139,7 @@ def quantize_rows(w: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Ten
     """(q int8 of w's shape, scale (rows, 1) f32) of a (rows, K) weight, a
     scale a row: ``csrc/quantize.cu`` on a CUDA tensor (one pass, in w's own
     type), the plain version on a CPU tensor."""
+    _build.refuse_transformed("quantize_rows", w)
     if w.device.type == "cpu":
         return quantize_per_channel(w, qmax)
     if not w.is_cuda or w.ndim != 2 or w.numel() == 0:
@@ -171,6 +172,7 @@ def quantize_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.T
     """(q int8 of x's shape, scale 0-d f32), one scale for the whole tensor:
     ``csrc/quantize.cu`` on a CUDA tensor (a grid amax, then one pass, in
     x's own type), the plain version on a CPU tensor."""
+    _build.refuse_transformed("quantize_tensor", x)
     if x.device.type == "cpu":
         return quantize_per_tensor(x, qmax)
     if not x.is_cuda or x.ndim == 0 or x.numel() == 0:
@@ -238,6 +240,7 @@ def int8_gemm_sync(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias
                    dtype: torch.dtype) -> torch.Tensor:
     """``int8_gemm`` on the ``mma.sync`` kernel (``csrc/int8_gemm_sync.cu``),
     which reads any operand: the route for what TMA cannot describe."""
+    _build.refuse_transformed("int8_gemm_sync", qa, qw, scale, bias)
     qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)
     out, args = _gemm_args(qa, qw, scale, bias, dtype)
     status = _build.lib().thunder_int8_gemm_sync(*args, int(tma_describes(qa, qw)), _build.stream_of(qa))
@@ -253,6 +256,7 @@ def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Opt
     (+ bias (N,), added in f32): the plain version on CPU tensors; on CUDA
     tensors ``csrc/int8_gemm.cu`` (``wgmma``, TMA) where ``tma_describes``
     the operands, else ``int8_gemm_sync``. Each route counts its own launches."""
+    _build.refuse_transformed("int8_gemm", qa, qw, scale, bias)
     if qa.device.type == "cpu":
         return int8_gemm_plain(qa, qw, scale, bias, dtype)
     qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)

@@ -133,6 +133,7 @@ def draw(key: torch.Tensor, salt, shape: tuple, dtype: torch.dtype, minval: floa
     (from ``key`` itself when ``salt`` is None): ``jax.random.uniform``/
     ``normal`` of that key. The key is read on the device, never on the
     host."""
+    _build.refuse_transformed("rng_draw", key)
     shape = tuple(int(s) for s in shape)
     if dtype not in _FLOAT_BITS:
         raise ValueError(f"rng: draws are f32, bf16 or f16, got {dtype}")

@@ -107,11 +107,12 @@ class StagingStats:
     copied_bytes_per_call: int = 0
 
 
-def unstaged_reason(traces: Sequence, device: torch.device, disabled: bool = False) -> Optional[str]:
+def unstaged_reason(traces: Sequence, device: torch.device, disabled: bool | str = False) -> Optional[str]:
     """Why the claimed ``traces`` run eagerly on ``device``, or None when
-    they stage (``api.py:683-688`` of the JAX package)."""
+    they stage (``api.py:683-688`` of the JAX package). ``disabled`` is
+    True (``disable_jit_staging``) or the caller's own reason."""
     if disabled:
-        return "disable_jit_staging=True"
+        return disabled if isinstance(disabled, str) else "disable_jit_staging=True"
     for trc in traces:
         for bsym in trc.bound_symbols:
             if OpTags.DEVICE_SYNC_OP in bsym.sym.tags:
@@ -217,9 +218,13 @@ class CudaGraphStage:
 
     def __init__(self, fn: Callable, *, name: str, fresh: Optional[Callable[[tuple], set]] = None,
                  lend_from: Optional[Callable[[Any], int]] = None, pair: Optional[GraphPair] = None,
-                 role: str = "forward"):
+                 role: str = "forward", strict: bool = False):
         self.eager = fn
         self.name = name
+        # ``strict``: inputs of another signature than the first call's
+        # raise instead of warming up anew (an entry of cache="same input",
+        # whose prologue checks nothing: this is its only check).
+        self.strict = strict
         # ``fresh(args)``: the flat indices of the inputs that are new each
         # call (an RNG key, a backward's cotangents): always copied, never
         # read by address, whatever address the allocator happens to reuse.
@@ -254,6 +259,10 @@ class CudaGraphStage:
         if self._sig is None or spec != self._spec or sig != self._sig:
             if self._sig is not None:
                 self.stats.guard_misses += 1
+                if self.strict:
+                    raise StagingError(
+                        f"staging {self.name}: the inputs' shapes, strides or dtypes differ from the first call's, "
+                        "and cache='same input' strips the guards that would have compiled a new entry")
             if pair is not None:
                 pair.want_capture = True
             return self._warm_up(args, leaves, spec, sig)
@@ -451,11 +460,11 @@ class CudaGraphStage:
 
 
 def stage(fn: Callable, traces: Sequence, device: torch.device, *, name: str,
-          disabled: bool = False, **options) -> tuple[Callable, StagingStats]:
+          disabled: bool | str = False, **options) -> tuple[Callable, StagingStats]:
     """``(callable, stats)``: ``fn`` staged as a CUDA graph, or ``fn`` itself
     with the reason it is not (:func:`unstaged_reason` over the claimed
     ``traces`` that ``fn`` runs). ``options`` are :class:`CudaGraphStage`'s
-    (``fresh``, ``lend_from``, ``pair``, ``role``)."""
+    (``fresh``, ``lend_from``, ``pair``, ``role``, ``strict``)."""
     reason = unstaged_reason(traces, device, disabled)
     if reason is not None:
         return fn, StagingStats(staged=False, reason=reason)

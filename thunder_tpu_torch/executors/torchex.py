@@ -27,6 +27,7 @@ from numbers import Number
 
 import torch
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from thunder_tpu_torch.core import devices, dtypes
 from thunder_tpu_torch.core.prims import PrimIDs
@@ -191,12 +192,16 @@ def _broadcast_in_dim(a, shape, bdims):
 
 
 def _pad(a, padding_value, padding_config):
-    if any(int(d) for _, _, d in padding_config):
-        # Interior padding: spread the elements d apart, then pad the edges.
-        shape = [n + (n - 1) * int(d) if n else 0 for n, (_, _, d) in zip(a.shape, padding_config)]
-        out = torch.full(shape, padding_value, dtype=a.dtype, device=a.device)
-        out[tuple(slice(None, None, int(d) + 1) for _, _, d in padding_config)] = a
-        a = out
+    # Interior padding: spread the elements d apart, a dim at a time, out of
+    # place (so that a batched ``a`` under torch.func.vmap may be written into
+    # the unbatched fill), then pad the edges.
+    for dim, (_, _, d) in enumerate(padding_config):
+        if int(d):
+            n = a.shape[dim]
+            shape = list(a.shape)
+            shape[dim] = n + (n - 1) * int(d) if n else 0
+            fill = torch.full(shape, padding_value, dtype=a.dtype, device=a.device)
+            a = fill.slice_scatter(a, dim, 0, None, int(d) + 1)
     pads = []
     for lo, hi, _ in reversed(padding_config):
         pads += [int(lo), int(hi)]
@@ -261,6 +266,13 @@ _reg(PrimIDs.SCATTER_ADD, _scatter_add)
 def _setitem(a, key, value):
     # Out of place; the value is cast to the target dtype, as torch's
     # setitem does (7.5 into an int32 tensor stores 7).
+    if isinstance(value, torch.Tensor) and is_functorch_wrapped_tensor(value):
+        # A batched value under torch.func.vmap cannot be written into a
+        # copy of an unbatched ``a``: scatter it by the flat positions that
+        # ``key`` selects, out of place (the same values land).
+        pos = torch.arange(a.numel(), device=a.device).view(a.shape)[key]
+        flat = value.to(a.dtype).expand(pos.shape).reshape(-1)
+        return a.reshape(-1).index_put((pos.reshape(-1),), flat).view(a.shape)
     out = a.clone()
     out[key] = value.to(a.dtype) if isinstance(value, torch.Tensor) else value
     return out
@@ -417,12 +429,14 @@ _reg(PrimIDs.EMBEDDING, lambda idx, w: F.embedding(idx, w))
 
 def _embedding_backward(grad, idx, num_weights, embed_dim):
     """The rows of ``grad`` summed by index, in the order they come (see
-    ``_scatter_add_sorted``): the same bits on every run."""
+    ``_scatter_add_sorted``): the same bits on every run. Out of place, so
+    that batched rows under torch.func.vmap add into the unbatched zeros
+    (the same kernels as the in-place forms)."""
     out = torch.zeros((num_weights, embed_dim), dtype=grad.dtype, device=grad.device)
     idx, rows = idx.reshape(-1).long(), grad.reshape(-1, embed_dim)
     if grad.is_cuda:
-        return out.index_put_((idx,), rows, accumulate=True)
-    return out.index_add_(0, idx, rows)
+        return out.index_put((idx,), rows, accumulate=True)
+    return out.index_add(0, idx, rows)
 
 
 _reg(PrimIDs.EMBEDDING_BACKWARD, _embedding_backward)

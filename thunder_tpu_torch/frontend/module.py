@@ -298,7 +298,7 @@ class ThunderModule:
     def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
                  rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None,
                  seq_bucket: Any = None, seq_pad_value: Any = None, **options):
-        from thunder_tpu_torch.api import DEFAULT_EXECUTORS, _autocast_transforms
+        from thunder_tpu_torch.api import _autocast_transforms
         from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
         from thunder_tpu_torch.core import devices
         from thunder_tpu_torch.extend import resolve_executors
@@ -318,7 +318,7 @@ class ThunderModule:
         self._cache: dict[Any, list[dict]] = {}  # metadata key → entries (value-guard disambiguated)
         self._lc_cd = CompileData(
             fn=module,
-            executors_list=DEFAULT_EXECUTORS if executors is None else resolve_executors(executors),
+            executors_list=resolve_executors(executors),
             device=devices.resolve_device(device),
             trace_transforms=_autocast_transforms(autocast),
             sharp_edges=resolve_sharp_edges_option(sharp_edges),

@@ -135,7 +135,7 @@ def _compile_loss_and_grads(config, params, idx: torch.Tensor, targets: torch.Te
     from thunder_tpu_torch.transforms.autodiff import grad_transform
     from thunder_tpu_torch.transforms.common import dce
 
-    ex_list = api.DEFAULT_EXECUTORS if executors is None else resolve_executors(executors)
+    ex_list = resolve_executors(executors)
     with devices.default_device(idx.device):
         _, comp = api.trace_program(lambda p, i, t: loss_fn(p, i, t, config), (params, idx, targets), {})
         joint = grad_transform(dce(comp), return_value=True)

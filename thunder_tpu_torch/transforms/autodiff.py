@@ -828,12 +828,17 @@ def grad_transform(
     *,
     return_value: bool = True,
     wrt: Optional[Sequence[TensorProxy]] = None,
+    ones_cotangent: bool = False,
 ) -> TraceCtx:
     """Primal trace → joint trace computing (value, grads).
 
-    The primal output must be a scalar float tensor (a loss). ``wrt`` defaults
-    to the trace's float tensor args marked requires_grad, else all float
-    tensor args. Grads are returned in ``wrt`` order.
+    The primal output must be a scalar float tensor (a loss), unless
+    ``ones_cotangent``: then every float tensor output is seeded with ones,
+    the pullback that ``grad`` of a vmapped function takes (the JAX
+    package's ``_grad_of_vmapped``, ``jax.vjp`` with ``ones_like``
+    cotangents). ``wrt`` defaults to the trace's float tensor args marked
+    requires_grad, else all float tensor args. Grads are returned in ``wrt``
+    order.
 
     Reference parity: the `grad` transform (thunder/core/transforms.py:1295),
     built joint-trace-first: the whole (fw+bw) program is one trace, claimed
@@ -842,9 +847,12 @@ def grad_transform(
     start = time.perf_counter_ns()
     flat_out, _ = tree_flatten(trace.output)
     out_tensors = [o for o in flat_out if isinstance(o, TensorProxy)]
-    check(len(out_tensors) == 1 and out_tensors[0].numel == 1,
-          lambda: "grad requires a single scalar tensor output (the loss)")
-    loss = out_tensors[0]
+    if ones_cotangent:
+        out_tensors = [o for o in out_tensors if _is_float_tensor(o)]
+        check(len(out_tensors) > 0, lambda: "grad: the function has no float tensor output")
+    else:
+        check(len(out_tensors) == 1 and out_tensors[0].numel == 1,
+              lambda: "grad requires a single scalar tensor output (the loss)")
 
     if wrt is None:
         wrt = [a for a in trace.args if _is_float_tensor(a) and a.requires_grad]
@@ -860,9 +868,9 @@ def grad_transform(
     gtrace.bound_symbols.extend(flat)
 
     with tracectx(gtrace):
-        seed = clang.full(tuple(loss.shape), 1.0, device=loss.device, dtype=loss.dtype)
         builder = BackwardBuilder()
-        builder.seed(loss, seed)
+        for out in out_tensors:
+            builder.seed(out, clang.full(tuple(out.shape), 1.0, device=out.device, dtype=out.dtype))
         builder.run(flat)
         grads = tuple(
             builder.cotangent_of(p) if builder.cotangent_of(p) is not None else _zeros_for(p) for p in wrt
