@@ -127,7 +127,30 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    CUDA graph, its launches a call against the claimed trace and the B=1
    grad program's, s/call, enqueue, peak memory and device ms by group,
    beside ``grad(loss_fn)`` at B=2 on the same tokens;
-17. after phase 18, prints one JSON line describing every kernel, then the
+19. the last batching rules at full width: (a) ``vmap(grad)`` of the
+   loss's functional form (``_fn_loss``: the GPT forward with an attention
+   mask and the rope tables as inputs) over 2 samples of (1, 2048), sample
+   0 left-padded by 512 under a 4-D causal mask: at 2 layers against
+   ``grad`` at B=1 (bit-equal counted), rows 8-9 once a call site, a
+   planted fault (one mask verdict shared by the slices, one of them under
+   a sliding window) that must fail; at 26 layers staged, profiled beside
+   ``grad`` at B=2; (b) two open_llama_3b models stacked under ``+norm``,
+   each with its own norm weights (1 + 0.1 N(0, 1), from its own seed) and
+   rope tables offset by its first position: the per-slice rules bit-equal
+   to each model's own calls, with a planted fault (slice 0's weight and
+   tables given to every slice) that must fail, one
+   RMSNorm and one rope launch a call site, logits against each model
+   alone; (c) per-sample grads under the ``quant`` stack: per-slice scales,
+   int8 operands and GEMM outputs bit-equal to each slice's own calls, one
+   launch of each quantization kernel and of the GEMM a call site;
+20. the analysis layer: (a) ``debug_checks=True`` on the staged 26-layer
+   step and the B=10 forward (no ERROR, the same results; the verifier's
+   seconds a pass) and ``examine.lint`` of the step; (b) the liveness
+   plan's predicted peaks against ``max_memory_allocated`` and
+   ``mem.predicted-oom`` at B=32 with nothing allocated; (c) ``cost.py``
+   against every kernel row's bound, and ``trace_cost`` of the step by kind
+   beside its device ms by group;
+17. after phase 20, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -630,6 +653,16 @@ def check_kernels(cfg, rows: dict) -> None:
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
         log_plan_and_split(f"rope B={B}", fusedex.rope_plan_of(q_view, cos, sin, got), nb, ms, b_ms, rope,
                            "rope_kernel")
+        if B == LOSS_BATCH:  # a table a batch row, as a vmapped table gives it
+            cos_s, sin_s = torch.stack([cos, cos.roll(1, 0)]), torch.stack([sin, sin.roll(1, 0)])
+            seg = fusedex.apply_rope(q_view, cos_s, sin_s)
+            same = all(torch.equal(seg[i:i + 1], fusedex.apply_rope(q_view[i:i + 1], cos_s[i], sin_s[i]))
+                       for i in range(B))
+            seg_ms = time_ms(lambda: fusedex.apply_rope(q_view, cos_s, sin_s), 50)
+            log(f"  rope B={B} with a table a row: {seg_ms:.4f} ms against {ms:.4f} shared "
+                f"({seg_ms / ms - 1:+.2%}); each row bit-equal to its own call {same}")
+            require(same, "rope with a table a row differs from each row's own call")
+            del seg
         del got, want
 
         # -- flash: q, k rope outputs (contiguous), v a strided view -------------
@@ -850,8 +883,42 @@ def check_norm_kernels(llama, pythia, rows: dict) -> None:
                NORM_ROW_REL, source=src, replaces=f"{repl}:{424 if layer_norm else 309}",
                ms=ms, plain_ms=time_ms(plain_bwd, 10), bound_ms=b_ms, bound_by=b_by,
                library_ms=_library_ms(lambda: torch.autograd.grad(ref, [xr, *pr], g, retain_graph=True)))
+        _time_norm_segments(tag, x, g, w, b, eps, layer_norm, fwd, bwd)
         del dx, dw, db, want_dx, want_dw, want_db, ref, xr, pr, x, g
         torch.cuda.empty_cache()
+
+
+def _time_norm_segments(tag, x, g, w, b, eps, layer_norm, fwd, bwd, V: int = 2) -> None:
+    """The norm kernels with a weight (and bias) a segment of the rows, as
+    a vmapped weight gives them (V segments): each segment's y and dx
+    bit-equal to the shared-weight call on its rows with its weight, and
+    their times beside the shared-weight times."""
+    import torch
+
+    from thunder_tpu_torch.executors import normex
+
+    ws = torch.stack([w] + [w.roll(i, 0) for i in range(1, V)])
+    bs = None if b is None else torch.stack([b] + [b.roll(i, 0) for i in range(1, V)])
+    n = x.shape[0] // V
+    if layer_norm:
+        sfwd = lambda: normex.layer_norm_fwd(x, ws, bs, eps)  # noqa: E731
+        sbwd = lambda: normex.layer_norm_bwd(g, x, ws, eps, with_bias=True, segments=V)  # noqa: E731
+        alone = lambda i: (normex.layer_norm_fwd(x[i * n:(i + 1) * n], ws[i], bs[i], eps),  # noqa: E731
+                           normex.layer_norm_bwd(g[i * n:(i + 1) * n], x[i * n:(i + 1) * n], ws[i], eps,
+                                                 with_bias=True)[0])
+    else:
+        sfwd = lambda: normex.rms_norm_fwd(x, ws, eps)  # noqa: E731
+        sbwd = lambda: normex.rms_norm_bwd(g, x, ws, eps, V)  # noqa: E731
+        alone = lambda i: (normex.rms_norm_fwd(x[i * n:(i + 1) * n], ws[i], eps),  # noqa: E731
+                           normex.rms_norm_bwd(g[i * n:(i + 1) * n], x[i * n:(i + 1) * n], ws[i], eps)[0])
+    y, dx = sfwd(), sbwd()[0]
+    same = all(torch.equal(y[i * n:(i + 1) * n], a) and torch.equal(dx[i * n:(i + 1) * n], d)
+               for i, (a, d) in ((i, alone(i)) for i in range(V)))
+    times = {k: (time_ms(f, 50), time_ms(sf, 50)) for k, f, sf in (("fwd", fwd, sfwd), ("bwd", bwd, sbwd))}
+    log(f"  {tag} with a weight{' and bias' if layer_norm else ''} a segment (V={V}): " + "; ".join(
+        f"{k} {t[1]:.4f} ms against {t[0]:.4f} shared ({t[1] / t[0] - 1:+.2%})" for k, t in times.items())
+        + f"; each segment's y and dx bit-equal to its own call {same}")
+    require(same, f"{tag} with a weight a segment differs from each segment's own call")
 
 
 def check_pythia_shapes(cfg, rows: dict) -> None:
@@ -2580,6 +2647,16 @@ def check_int8_kernel(rows: dict) -> None:
             f"{b_ms / ms:.1%} of the bound; was (mma.sync) {was_ms:.4f} ms; torch._int_mm "
             f"{int_mm_ms if int_mm_ms is None else round(int_mm_ms, 4)} ms, bf16 torch.matmul {bf16_ms:.4f} ms; "
             f"the K-tail fault differs")
+        if label == INT8_SHAPES[0][0]:  # V = 2 problems with a scale a problem, as a vmapped activation
+            qa2, scale2 = qa.reshape(2, M // 2, K), torch.stack([scale, scale.flip(0)])
+            got = quantex.int8_gemm(qa2, qw, scale2, None, torch.bfloat16)
+            same = all(torch.equal(got[i], quantex.int8_gemm(qa2[i], qw, scale2[i], None, torch.bfloat16))
+                       for i in range(2))
+            p_ms = time_ms(lambda: quantex.int8_gemm(qa2, qw, scale2, None, torch.bfloat16), 10)
+            log(f"  int8_gemm {label} over 2 problems with a scale a problem: {p_ms:.4f} ms against {ms:.4f} with "
+                f"one scale ({p_ms / ms - 1:+.2%}); each problem bit-equal to its own call {same}")
+            require(same, f"int8_gemm {label}: a problem differs from its own call")
+            del got
         # The row's timing is its first check's: qkv, the first product a layer runs.
         record("int8_gemm", label, err, 0.0 if same else 1.0, 0.0, source="thunder_tpu_torch/csrc/int8_gemm.cu",
                replaces="thunder_tpu/executors/quantex.py:134 (lax.dot_general int8 x int8 -> int32; no Pallas kernel)",
@@ -3085,17 +3162,10 @@ def run_per_sample(cfg, launches: dict) -> None:
 
     grad = tt.grad(loss)
     per_sample = tt.vmap(grad, in_axes=(None, 0, 0))
-    torch.cuda.reset_peak_memory_stats()
-    times, counts = [], []
-    for _ in range(3):  # warm-up, capture, replay
-        _zero_counts()
-        t = time.perf_counter()
-        out = per_sample(params, idx, tgt)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        counts.append({k: v for k, v in _launch_counts().items() if v})
-        del out
-    peak = torch.cuda.max_memory_allocated()
+    out, times, counts, mem = _three_calls(per_sample, params, idx, tgt)
+    del out
+    peak = max(m[2] for m in mem)
+    log(f"  (c) {_mem_line(mem)}")
     st = tt.last_staging(per_sample)
     sites = _claimed_sites(tt.compile_stats(per_sample).last_traces[-1])
     _, n_one = counted(grad, params, idx[0], tgt[0])
@@ -3123,6 +3193,697 @@ def run_per_sample(cfg, launches: dict) -> None:
             f"{pr['device_ms']:.2f} ms, busy {pr['busy_share']:.4f}, by group "
             f"{ {k: round(v, 3) for k, v in pr['device_ms_by_group'].items()} }, peak {pk / 2**30:.2f} GiB")
     del params, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# =============================================================================
+# Phase 19: the last batching rules at full width
+# =============================================================================
+
+PS_PAD = 512  # sample 0 of phase 19 (a) left-padded by this many tokens, as phase 11's batch
+ENSEMBLE_OFFSETS = (0, 512)  # each model's first position in phase 19 (b)
+ENSEMBLE_LOGITS_REL = 2.0 ** -6  # batched products may sum in another order
+
+
+def _fn_forward(params, idx, mask, cos, sin, cfg):
+    """The GPT forward of ``models/gpt.py`` in functional form with an
+    attention mask (None: causal) and the rope tables as inputs, for vmap
+    over a padded batch and over per-sample positions. The smoke test's
+    form, not a package feature."""
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.models import gpt
+
+    B, T = idx.shape
+    H, G, hs = cfg.n_head, cfg.query_groups, cfg.head_size
+    x = ttorch.embedding(idx, params["wte"])
+    for p in params["blocks"]:
+        a = p["attn"]
+        qkv = ttorch.linear(gpt._norm(x, p["norm_1"], cfg), a["qkv_w"], a.get("qkv_b"))
+        q, k, v = (ttorch.permute(ttorch.reshape(t, (B, T, n, hs)), (0, 2, 1, 3)) for t, n in
+                   ((qkv[..., :H * hs], H), (qkv[..., H * hs:(H + G) * hs], G), (qkv[..., (H + G) * hs:], G)))
+        q, k = ttorch.apply_rope(q, cos, sin), ttorch.apply_rope(k, cos, sin)
+        y = (ttorch.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=G != H) if mask is None else
+             ttorch.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=G != H))
+        x = x + ttorch.linear(ttorch.reshape(ttorch.permute(y, (0, 2, 1, 3)), (B, T, H * hs)), a["proj_w"],
+                              a.get("proj_b"))
+        x = x + gpt._mlp(gpt._norm(x, p["norm_2"], cfg), p["mlp"], cfg)
+    return ttorch.linear(gpt._norm(x, params["ln_f"], cfg), params["lm_head_w"])
+
+
+def _fn_loss(params, idx, tgt, mask, cos, sin, cfg):
+    import thunder_tpu_torch.torch as ttorch
+
+    logits = _fn_forward(params, idx, mask, cos, sin, cfg)
+    B, T, V = logits.shape
+    return ttorch.cross_entropy(ttorch.reshape(logits.float(), (B * T, V)), ttorch.reshape(tgt, (B * T,)))
+
+
+def _rope_tables(cfg, T: int, offset: int = 0):
+    """cos/sin (T, rope_n_elem) bf16 of positions offset .. offset + T."""
+    import torch
+
+    n = cfg.rope_n_elem
+    theta = cfg.rope_base ** (-torch.arange(0, n // 2, dtype=torch.float64, device="cuda") * 2 / n)
+    f = torch.arange(offset, offset + T, dtype=torch.float64, device="cuda")[:, None] * theta[None]
+    emb = torch.cat([f, f], 1)
+    return emb.cos().to(torch.bfloat16), emb.sin().to(torch.bfloat16)
+
+
+def _padded_samples(cfg, V: int, seed: int, window: int = 0):
+    """(idx, tgt, mask) for V samples of (1, SEQ): sample 0 left-padded by
+    PS_PAD tokens (its targets there ignored), the others whole; mask (V,
+    1, 1, SEQ, SEQ) bool, causal and the keys' padding. ``window`` > 0
+    gives sample 1 a sliding-window causal mask of that width instead,
+    which segment ids cannot express (the exact branch, verdict 0)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    tgt[0, 0, :PS_PAD] = -100
+    kv = torch.ones((V, SEQ), dtype=torch.bool, device="cuda")
+    kv[0, :PS_PAD] = False
+    mask = torch.ones((SEQ, SEQ), dtype=torch.bool, device="cuda").tril()[None] & kv[:, None, :]
+    if window:
+        mask[1] &= torch.ones((SEQ, SEQ), dtype=torch.bool, device="cuda").triu(-(window - 1))
+    return idx, tgt, mask[:, None, None]
+
+
+def _three_calls(fn, *args) -> tuple:
+    """A staged entry's warm-up, capture and replay, each call's output
+    dropped before the next call (as a training loop drops its grads):
+    (the last output, s a call, launches a call, (allocated before, after,
+    peak) bytes a call)."""
+    import torch
+
+    out, times, counts, mem = None, [], [], []
+    for _ in range(3):
+        out = None
+        _zero_counts()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts.append({k: v for k, v in _launch_counts().items() if v})
+        mem.append((before, torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()))
+    return out, times, counts, mem
+
+
+def _mem_line(mem) -> str:
+    return "memory_allocated before, after and peak of warm-up, capture, replay (GiB): " + "; ".join(
+        "/".join(f"{x / 2**30:.3f}" for x in m) for m in mem)
+
+
+def _count_calls(fn, *args):
+    import torch
+
+    _zero_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _launch_counts().items() if v}
+
+
+def _grad_gaps(got, wants, names) -> tuple:
+    """(worst norm-relative gap over the slices, its param, params bit-equal of all)."""
+    worst, where, equal, total = 0.0, "", 0, 0
+    for s, want in enumerate(wants):
+        for g, w, nm in zip(got, want, names):
+            total += 1
+            equal += int(torch_equal(g[s], w))
+            rel = ((g[s].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, where = rel, f"{nm}[{s}]"
+    return worst, where, f"{equal}/{total}"
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def run_masked_per_sample(cfg, launches: dict) -> dict:
+    """Phase 19 (a). ``vmap(grad(loss))`` over V=2 x (1, 2048) with a padded
+    4-D causal mask (sample 0 left-padded by 512): at 2 layers each sample's
+    grads against ``grad`` at B=1 on it (how many bit-equal, the worst
+    gap), rows 8-9 once a call site; a planted fault (one verdict shared by
+    the slices, with a slice under a sliding-window mask) must fail; at 26
+    layers staged, the gap against B=1, s/call, enqueue, device ms by group
+    and peak memory beside ``grad`` at B=2 on the same tokens and mask.
+    Returns what phase 20 (b) plans: the 26-layer vmap's trace and peak."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.executors import batching, flashex
+    from thunder_tpu_torch.models import gpt
+
+    V = PS_SAMPLES
+    idx, tgt, mask = _padded_samples(cfg, V, SEED + 19)
+    cos, sin = _rope_tables(cfg, SEQ)
+    axes = (None, 0, 0, 0, None, None)
+    cfg2 = replace(cfg, name=cfg.name + "-2layer", n_layer=2)
+    params = gpt.init_params(cfg2, seed=SEED, device="cuda")
+    names = [torch.utils._pytree.keystr(k) for k, _ in torch.utils._pytree.tree_flatten_with_path(params)[0]]
+
+    def loss2(p, i, t, m, c, s_):
+        return _fn_loss(p, i, t, m, c, s_, cfg2)
+
+    grad1 = tt.grad(loss2)
+    per_sample = tt.vmap(grad1, in_axes=axes)
+    got, n_vmap = _count_calls(per_sample, params, idx, tgt, mask, cos, sin)
+    src = tt.compile_stats(per_sample).last_traces[-1].python()
+    verdicts = sorted(set(re.findall(r"verdict=(\([0-9, ]+\))", src)))
+    b1 = [int(flashex.mask_verdict(mask[s], 1, SEQ, SEQ, False)) for s in range(V)]
+    wants = []
+    for s in range(V):
+        r, n_one = _count_calls(grad1, params, idx[s], tgt[s], mask[s], cos, sin)
+        wants.append(r)
+    worst, where, equal = _grad_gaps(got, wants, names)
+    log(f"  (a) 2 layers: vmap(grad) over V={V} x (1, {SEQ}), sample 0 left-padded by {PS_PAD}: verdicts given to "
+        f"the claims {verdicts}, B=1 verdicts {b1}; launches a call {n_vmap} (B=1 grad's {n_one}); grads bit-equal "
+        f"to B=1 {equal}, worst norm-relative gap {worst:.3e} on {where} (limit {GRAD_REL:.3e})")
+    require(n_vmap.get("flash_fwd_seg") == n_vmap.get("flash_bwd_recompute") == cfg2.n_layer
+            and "sdpa_exact" not in n_vmap, f"rows 8-9 are not launched once a call site: {n_vmap}")
+    require(worst <= GRAD_REL, "the masked per-sample grads differ from grad at B=1")
+    for k in launches:
+        launches[k] = launches.get(k, 0) + n_vmap.get(k, 0)
+    del got, wants
+
+    # The planted fault: the slices' verdicts replaced by slice 0's, with a
+    # slice under a sliding-window mask (the exact branch at B=1).
+    fidx, ftgt, fmask = _padded_samples(cfg, V, SEED + 19, window=256)
+    vloss = tt.vmap(loss2, in_axes=axes)
+    one = [float(tt.jit(loss2)(params, fidx[s], ftgt[s], fmask[s], cos, sin)) for s in range(V)]
+    sound = [float(x) for x in vloss(params, fidx, ftgt, fmask, cos, sin)]
+    real = batching._verdict_rows
+
+    def shared(q, k, m4, causal, verdicts, groups):
+        return real(q, k, m4, causal, None if verdicts is None else (tuple(verdicts)[0],) * groups, groups)
+
+    batching._verdict_rows = shared
+    try:
+        faulty = [float(x) for x in tt.vmap(loss2, in_axes=axes)(params, fidx, ftgt, fmask, cos, sin)]
+    finally:
+        batching._verdict_rows = real
+    gap = lambda xs: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(xs, one))  # noqa: E731
+    log(f"  (a) slice 1 under a 256-wide sliding window: B=1 losses {one}, vmap {sound} (gap {gap(sound):.3e}), planted fault "
+        f"(one verdict shared) {faulty} (gap {gap(faulty):.3e})")
+    require(gap(sound) <= LOSS_REL and gap(faulty) > LOSS_REL, "the shared-verdict fault went unseen, or the sound "
+                                                               "vmap differs from B=1")
+    del params, grad1, per_sample, vloss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26 layers, staged.
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    names = [torch.utils._pytree.keystr(k) for k, _ in torch.utils._pytree.tree_flatten_with_path(params)[0]]
+
+    def loss(p, i, t, m, c, s_):
+        return _fn_loss(p, i, t, m, c, s_, cfg)
+
+    grad = tt.grad(loss)
+    per_sample = tt.vmap(grad, in_axes=axes)
+    out, times, counts, mem = _three_calls(per_sample, params, idx, tgt, mask, cos, sin)
+    peak = max(m[2] for m in mem)
+    log(f"  (a) {_mem_line(mem)}")
+    st = tt.last_staging(per_sample)
+    worst = 0.0
+    for s in range(V):
+        want = grad(params, idx[s], tgt[s], mask[s], cos, sin)
+        w_s, where_s, _ = _grad_gaps([g[s:s + 1] for g in out], [want], names)
+        if w_s >= worst:
+            worst, where = w_s, where_s.replace("[0]", f"[{s}]")
+        del want
+    log(f"  (a) {cfg.n_layer} layers, vmap(grad) staged: {', '.join(f'{x:.4f}' for x in times)} s/call (trace + "
+        f"warm-up, capture, replay); staged {st.staged}; launches a call {counts[-1]}; worst gap against B=1 "
+        f"{worst:.3e} on {where} (limit {GRAD_REL:.3e}); max_memory_allocated {peak / 2**30:.2f} GiB")
+    require(st.staged and all(c.get("flash_fwd_seg") == c.get("flash_bwd_recompute") == cfg.n_layer for c in counts),
+            "the staged masked per-sample grads are not staged or launch rows 8-9 other than once a call site")
+    require(worst <= GRAD_REL, "the 26-layer masked per-sample grads differ from grad at B=1")
+    for k in launches:
+        launches[k] = launches.get(k, 0) + sum(c.get(k, 0) for c in counts)
+    del out
+    trace = tt.compile_stats(per_sample).last_traces[-1]
+    prof = profile_call("masked_per_sample_staged", lambda: per_sample(params, idx, tgt, mask, cos, sin), batch=V,
+                        seq=SEQ, config=CFG_NAME)
+    del per_sample
+    gc.collect()
+    torch.cuda.empty_cache()
+    fi, ft, fm = idx.reshape(V, SEQ), tgt.reshape(V, SEQ), mask.reshape(V, 1, SEQ, SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        grad(params, fi, ft, fm, cos, sin)
+    torch.cuda.synchronize()
+    b2_peak = torch.cuda.max_memory_allocated()
+    b2 = profile_call("masked_grad_b2", lambda: grad(params, fi, ft, fm, cos, sin), batch=V, seq=SEQ, config=CFG_NAME)
+    for label, pr, pk in (("vmap(grad), V=2 x (1, 2048)", prof, peak), ("grad, B=2", b2, b2_peak)):
+        log(f"  (a) {label}: {min(pr['wall_ms']):.2f} ms/call, enqueue {min(pr['enqueue_ms']):.2f} ms, device "
+            f"{pr['device_ms']:.2f} ms, busy {pr['busy_share']:.4f}, by group "
+            f"{ {k: round(v, 3) for k, v in pr['device_ms_by_group'].items()} }, peak {pk / 2**30:.2f} GiB")
+    del params, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"trace": trace, "inputs": (idx, tgt, mask, cos, sin), "staged_peak": peak}
+
+
+def _distinct_norms(params: dict, seed: int) -> dict:
+    """``params`` with every norm weight 1 + 0.1 N(0, 1) from ``seed``
+    (``init_params`` gives them all ones), so that stacked models differ in
+    them and a rule that reads one slice's weight for all is seen."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    norms = [p[k] for p in params["blocks"] for k in ("norm_1", "norm_2") if k in p] + [params["ln_f"]]
+    for n in norms:
+        w = n["weight"]
+        n["weight"] = (1 + 0.1 * torch.randn(w.shape, generator=gen, device="cuda")).to(w.dtype)
+    return params
+
+
+def run_ensemble(cfg, launches: dict) -> None:
+    """Phase 19 (b). Two open_llama_3b models (26 layers) stacked under
+    ``+norm``, each slice with its own norm weights and its rope tables
+    offset by its first position, at B=1 x T=2048 a slice: the per-slice
+    rules at the path's shapes bit-equal to each model's own calls, one
+    RMSNorm and one rope launch a call site, and each slice's logits
+    against its model alone within ENSEMBLE_LOGITS_REL."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import batching, fusedex, normex
+    from thunder_tpu_torch.models import gpt
+
+    V = len(ENSEMBLE_OFFSETS)
+    stacked = _distinct_norms(gpt.init_params(cfg, seed=SEED, device="cuda"), SEED + 30)
+    other = _distinct_norms(gpt.init_params(cfg, seed=SEED + 1, device="cuda"), SEED + 31)
+    stacked = torch.utils._pytree.tree_map(lambda a, b: torch.stack([a, b]), stacked, other)
+    del other
+    gc.collect()
+    torch.cuda.empty_cache()
+    tabs = [_rope_tables(cfg, SEQ, off) for off in ENSEMBLE_OFFSETS]
+    cos, sin = torch.stack([c for c, _ in tabs]), torch.stack([s_ for _, s_ in tabs])
+    idx = torch.from_numpy(np.random.RandomState(SEED + 20).randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    stack = NORM_STACK.split(",")
+
+    # The rules at the path's shapes, against each model's own calls.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = torch.randn((V, SEQ, cfg.n_embd), generator=gen, device="cuda").to(torch.bfloat16)
+    w = stacked["blocks"][0]["norm_1"]["weight"]
+    y = torch.func.vmap(lambda a, ww: batching.norm_fwd(a, ww, None, cfg.norm_eps, False))(x, w)
+    q = torch.randn((V, 1, cfg.n_head, SEQ, cfg.head_size), generator=gen, device="cuda").to(torch.bfloat16)
+    r = torch.func.vmap(batching.rope)(q, cos, sin)
+    require(not torch_equal(w[0], w[1]), "the ensemble's models share their norm weights")
+
+    def same_as_alone(y, r):
+        return [torch_equal(y[s], normex.rms_norm_fwd(x[s], w[s], cfg.norm_eps)) and
+                torch_equal(r[s], fusedex.apply_rope(q[s], cos[s], sin[s])) for s in range(V)]
+
+    same = same_as_alone(y, r)
+    log(f"  (b) the rules at the path's shapes: RMSNorm ({SEQ}, {cfg.n_embd}) with a weight a slice and rope "
+        f"(1, {cfg.n_head}, {SEQ}, {cfg.head_size}) with tables a slice, bit-equal to each model's own call {same}")
+    require(all(same), "a per-slice norm or rope rule differs from the model's own kernel call")
+    # The planted fault: slice 0's weight row (and tables) given to every slice.
+    bad_y = torch.func.vmap(lambda a, ww: batching.norm_fwd(a, ww, None, cfg.norm_eps, False))(
+        x, w[:1].expand_as(w).contiguous())
+    bad_r = torch.func.vmap(batching.rope)(q, cos[:1].expand_as(cos).contiguous(), sin[:1].expand_as(sin).contiguous())
+    planted = same_as_alone(bad_y, bad_r)
+    log(f"  (b) planted fault (slice 0's norm weight and rope tables for every slice): bit-equal {planted}")
+    require(not all(planted), "the per-slice comparison did not see slice 0's weight given to every slice")
+    del x, y, q, r, bad_y, bad_r
+
+    fwd = tt.vmap(lambda p, i, c, s_: _fn_forward(p, i, None, c, s_, cfg), in_axes=(0, 0, 0, 0), executors=stack)
+    logits, n = _count_calls(fwd, stacked, idx, cos, sin)
+    one = tt.jit(lambda p, i, c, s_: _fn_forward(p, i, None, c, s_, cfg), executors=stack)
+    rels = []
+    for s in range(V):
+        ps = torch.utils._pytree.tree_map(lambda t, _s=s: t[_s], stacked)
+        want = one(ps, idx[s], cos[s], sin[s])
+        rels.append(((logits[s].float() - want.float()).norm() / want.float().norm()).item())
+        del want, ps
+    n_l = cfg.n_layer
+    log(f"  (b) {n_l} layers, vmap(forward) over {V} models at offsets {ENSEMBLE_OFFSETS}: launches {n}; logits "
+        f"against each model alone, norm-relative {[f'{x:.3e}' for x in rels]} (limit {ENSEMBLE_LOGITS_REL:.3e})")
+    require(n.get("rms_fwd") == 2 * n_l + 1 and n.get("rope") == 2 * n_l and n.get("flash_fwd") == n_l,
+            f"the ensemble's norm, rope or flash kernels are not launched once a call site: {n}")
+    require(max(rels) <= ENSEMBLE_LOGITS_REL, "the ensemble's logits differ from each model alone")
+    for k in launches:
+        launches[k] = launches.get(k, 0) + n.get(k, 0)
+    del stacked, logits, fwd, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_quant_per_sample(cfg, launches: dict) -> None:
+    """Phase 19 (c). ``vmap(grad(loss_fn))`` under the quant stack, 26
+    layers, V=2 x (1, 2048): the per-slice quantization and GEMM at the
+    path's shapes bit-equal to each slice's own calls (its own scale), one
+    launch of each quantization kernel and of the GEMM a call site, the
+    grads against ``grad`` at B=1 within phase 18's limit."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.executors import batching, quantex
+    from thunder_tpu_torch.models import gpt
+
+    V = PS_SAMPLES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x = torch.stack([torch.randn((SEQ, cfg.n_embd), generator=gen, device="cuda") * (s + 1)
+                     for s in range(V)]).to(torch.bfloat16)
+    w = (torch.randn((3 * cfg.n_embd, cfg.n_embd), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    qx, sx = torch.func.vmap(lambda a: batching.quant_tensor(a, 127.0))(x)
+    qw, sw = quantex.quantize_rows(w, 127.0)
+    out = torch.func.vmap(lambda a, c: batching.int8_gemm(a, qw, c, None, torch.bfloat16))(qx, sx[:, None] * sw[:, 0])
+    same = []
+    for s in range(V):
+        q1, s1 = quantex.quantize_tensor(x[s], 127.0)
+        same.append(torch_equal(qx[s], q1) and torch_equal(sx[s], s1)
+                    and torch_equal(out[s], quantex.int8_gemm(q1, qw, s1 * sw[:, 0], None, torch.bfloat16)))
+    log(f"  (c) the rules at the path's shapes: activations ({SEQ}, {cfg.n_embd}) a slice, scales "
+        f"{[f'{float(v):.6e}' for v in sx]}, int8 operands, scales and GEMM outputs bit-equal to each slice's own "
+        f"calls {same}")
+    require(all(same), "the per-slice quantization or GEMM differs from the slice's own calls")
+    del x, w, qx, qw, out
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    names = [torch.utils._pytree.keystr(k) for k, _ in torch.utils._pytree.tree_flatten_with_path(params)[0]]
+    rng = np.random.RandomState(SEED + 23)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (V, 1, SEQ))).cuda()
+    grad = tt.grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), executors=QUANT_STACK)
+    per_sample = tt.vmap(grad, in_axes=(None, 0, 0))
+    times, counts = [], []
+    for _ in range(3):
+        _zero_counts()
+        t = time.perf_counter()
+        got = per_sample(params, idx, tgt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts.append({k: v for k, v in _launch_counts().items() if v})
+    sites = tt.compile_stats(per_sample).last_traces[-1].python().count("quant_linear(")
+    worst = 0.0
+    for s in range(V):
+        want = grad(params, idx[s], tgt[s])
+        w_s, where_s, _ = _grad_gaps([g[s:s + 1] for g in got], [want], names)
+        if w_s >= worst:
+            worst, where = w_s, where_s.replace("[0]", f"[{s}]")
+        del want
+    c = counts[-1]
+    log(f"  (c) {cfg.n_layer} layers, vmap(grad) under {','.join(QUANT_STACK)}: {', '.join(f'{x:.4f}' for x in times)}"
+        f" s/call; staged {tt.last_staging(per_sample).staged}; launches a call {c}; quant claims in the trace "
+        f"{sites}; worst gap against B=1 {worst:.3e} on {where} (limit {GRAD_REL:.3e})")
+    require(all(k.get("quantize_tensor") == k.get("quantize_rows") == k.get("int8_gemm") == sites for k in counts),
+            "the quant kernels are not launched once a call site under vmap")
+    require(worst <= GRAD_REL, "the quant per-sample grads differ from grad at B=1")
+    for k in launches:
+        launches[k] = launches.get(k, 0) + sum(cc.get(k, 0) for cc in counts)
+    del params, got, grad, per_sample
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# =============================================================================
+# Phase 20: the analysis layer on the card
+# =============================================================================
+
+LIVENESS_TOLERANCE = 0.15  # the JAX package's own (tests/test_static_planner.py:197-222)
+COST_BOUND_REL = 0.01
+
+
+def run_verifier(cfg) -> None:
+    """Phase 20 (a). ``debug_checks=True`` on the staged 26-layer training
+    step (value_and_grad at B=2) and the B=10 forward: no ERROR at any pass,
+    the same loss and logits as without; first-call seconds with and without
+    the checks and the verifier's ms per pass; ``examine.lint`` of the step."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import examine
+    from thunder_tpu_torch.core import trace as ttrace
+    from thunder_tpu_torch.models import gpt
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED + 24)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    fidx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (FWD_BATCH, SEQ))).cuda()
+    res = {}
+    for checks in (False, True):
+        ttrace.verify_seconds.clear()
+        vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), debug_checks=checks)
+        t = time.perf_counter()
+        loss, grads = vg(params, idx, tgt)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        for _ in range(2):  # capture, replay
+            loss2, _ = vg(params, idx, tgt)
+        torch.cuda.synchronize()
+        passes = list(ttrace.verify_seconds)
+        fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg), debug_checks=checks)
+        logits = fwd(params, fidx)
+        torch.cuda.synchronize()
+        res[checks] = (loss.clone(), loss2.clone(), first, passes, logits[:, -1].clone(), tt.last_staging(vg).staged)
+        del grads, logits, fwd
+        if checks:
+            lint_step = vg
+        else:  # free its graphs' pools before the checked compile
+            del vg
+            gc.collect()
+            torch.cuda.empty_cache()
+    (l0, r0, f0, _, z0, st0), (l1, r1, f1, p1, z1, st1) = res[False], res[True]
+    log(f"  (a) {cfg.n_layer} layers: value_and_grad at B={LOSS_BATCH} (staged {st0}/{st1}) first call "
+        f"{f0:.3f} s without checks, {f1:.3f} s with; the verifier ran at {len(p1)} passes, "
+        f"{1e3 * sum(p1) / max(len(p1), 1):.2f} ms a pass ({1e3 * sum(p1):.1f} ms in all, with the B={FWD_BATCH} "
+        f"forward's); losses {float(l0):.6f} / {float(l1):.6f} (bit-equal {torch_equal(l0, l1)}), replayed "
+        f"{float(r0):.6f} / {float(r1):.6f}; B={FWD_BATCH} last-position logits bit-equal {torch_equal(z0, z1)}")
+    require(torch_equal(l0, l1) and torch_equal(r0, r1) and torch_equal(z0, z1) and len(p1) >= 10,
+            "the checked compile's results differ from the unchecked, or the verifier did not run")
+    diags = examine.lint(lint_step, params, idx, tgt)
+    counts = {}
+    for d in diags:
+        counts[(d.rule, str(d.severity))] = counts.get((d.rule, str(d.severity)), 0) + 1
+    log(f"  (a) examine.lint of the step: {counts or 'clean'}")
+    require(not any(d.severity.name == "ERROR" for d in diags), "examine.lint found an ERROR on the step")
+    del params, lint_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _measured_peak(fn, inputs) -> int:
+    """``max_memory_allocated`` over one call of ``fn``, less what was
+    allocated before it other than its inputs (the plan counts the inputs)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = sum(t.untyped_storage().nbytes() for t in {id(t): t for t in inputs}.values())
+    stray = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - stray
+    del out
+    return peak
+
+
+def run_liveness(cfg, masked: dict) -> None:
+    """Phase 20 (b). ``examine.memory_report``'s predicted peak against
+    ``max_memory_allocated`` on the unstaged training step (B=2), the B=10
+    forward and phase 19 (a)'s masked per-sample step (its trace planned
+    with the batched inputs charged V times), each unstaged one held within
+    LIVENESS_TOLERANCE, the staged one's gap printed (the plan has no model
+    of a capture); then ``mem.predicted-oom`` on the step at B=32,
+    raised from the trace before any allocation."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import analysis, examine
+    from thunder_tpu_torch.analysis.liveness import claimed_trace
+    from thunder_tpu_torch.models import gpt
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    flat = torch.utils._pytree.tree_flatten(params)[0]
+    rng = np.random.RandomState(SEED + 25)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    fidx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (FWD_BATCH, SEQ))).cuda()
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), disable_jit_staging=True)
+    fwd = tt.jit(lambda p, i: gpt.forward(p, i, cfg), disable_jit_staging=True)
+    vg(params, idx, tgt)  # compile and warm up
+    fwd(params, fidx)
+    rows = []
+    for label, fn, args in (("train step, B=2 (unstaged)", vg, (params, idx, tgt)),
+                            (f"forward, B={FWD_BATCH} (unstaged)", fwd, (params, fidx))):
+        plan = examine.memory_report(fn, *args)
+        measured = _measured_peak(lambda: fn(*args), flat + [a for a in args[1:]])
+        rows.append((label, plan.peak_bytes, measured, plan, True))
+    # Phase 19 (a)'s step: the per-slice trace, its batched inputs charged V
+    # times, against the same vmap unstaged and against phase 19 (a)'s
+    # staged peak.
+    trc = masked["trace"]
+    n_par = len(flat)
+    args = [a for a in torch.utils._pytree.tree_flatten((trc.args, trc.kwargs))[0] if hasattr(a, "shape")]
+    batched = {a.name for a in args[n_par:n_par + 3]}  # idx, tgt, mask: after the params, before cos and sin
+    plan = analysis.plan_liveness(trc, batched=(PS_SAMPLES, batched))
+    inputs = masked["inputs"]
+    vf = tt.vmap(tt.grad(lambda p, i, t, m, c, s_: _fn_loss(p, i, t, m, c, s_, cfg), disable_jit_staging=True),
+                 in_axes=(None, 0, 0, 0, None, None))
+    vf(params, *inputs)
+    rows.append((f"masked vmap(grad), V={PS_SAMPLES} (unstaged)", plan.peak_bytes,
+                 _measured_peak(lambda: vf(params, *inputs), flat + list(inputs)), plan, True))
+    # Not held: the plan has no model of a CUDA graph's capture (its pool,
+    # static copies of the inputs); phase 19 (a) prints what each call holds.
+    rows.append((f"masked vmap(grad), V={PS_SAMPLES} (staged, phase 19 (a))", plan.peak_bytes, masked["staged_peak"],
+                 plan, False))
+    del vf
+    for label, pred, meas, plan, held in rows:
+        gap = (pred - meas) / meas
+        log(f"  (b) {label}: predicted peak {pred / 2**30:.3f} GiB (at L{plan.peak_index} {plan.peak_sym}), "
+            f"max_memory_allocated {meas / 2**30:.3f} GiB, gap {gap:+.2%} "
+            f"({'within' if abs(gap) <= LIVENESS_TOLERANCE else 'outside'} {LIVENESS_TOLERANCE:.0%}"
+            f"{'' if held else '; not held to it: the capture is not planned'})")
+        require(pred > 0 and meas > 0, f"{label}: no peak")
+        require(not held or abs(gap) <= LIVENESS_TOLERANCE,
+                f"{label}: the predicted peak is {gap:+.2%} from max_memory_allocated")
+    del vg, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The step at B=32 cannot fit: the rule says so from the trace alone.
+    big_idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (32, SEQ))).cuda()
+    step32 = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    trc = claimed_trace(step32, (params, big_idx, big_idx), {})
+    diags = analysis.verify(trc)
+    plan = analysis.plan_liveness(trc, include_rows=False)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    oom = [d for d in diags if d.rule == "mem.predicted-oom"]
+    log(f"  (b) train step at B=32: predicted peak {plan.peak_bytes / 2**30:.1f} GiB against "
+        f"{analysis.device_capacity_bytes() / 2**30:.1f} GiB; {oom[0].format() if oom else 'no finding'}; "
+        f"memory_allocated before {before} and after {after} bytes")
+    require(len(oom) == 1 and before == after, "mem.predicted-oom did not fire at B=32 before any allocation")
+    del params, big_idx, trc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_cost(cfg, rows: dict) -> None:
+    """Phase 20 (c). ``analysis.kernel_costs`` on the "h100" spec, for each
+    kernel row's claim traced at phase 3's shapes, against the row's
+    ``bound_ms`` (within COST_BOUND_REL); then ``trace_cost`` of the
+    26-layer step by kind beside ``profile_gpt``'s device ms by group."""
+    import os
+
+    import torch
+
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.clang as tclang
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch import analysis
+    from thunder_tpu_torch.api import _staged_flat_fn
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.extend import resolve_executors
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+
+    spec = analysis.resolve_device_spec("h100")
+    bf = torch.bfloat16
+    B, H, D, N, V = LOSS_BATCH, cfg.n_head, cfg.head_size, LOSS_BATCH * SEQ, cfg.padded_vocab_size
+    cpu = dict(device="cpu")
+
+    def claims(fn, args, executors, grad=False):
+        transforms = (lambda trc: grad_transform(trc, return_value=True),) if grad else ()
+        trc, _ = _staged_flat_fn(fn, args, {}, executors=resolve_executors(executors), trace_transforms=transforms)
+        return trc.bound_symbols
+
+    def kernel(bsyms, sym, name=None, **kw):
+        b = next(b for b in bsyms if b.sym.name == sym)
+        parts = analysis.kernel_costs(b, **kw)
+        return next(c for n_, c in parts if name is None or n_ == name)
+
+    q = torch.zeros((B, H, SEQ, D), dtype=bf, **cpu)
+    cs = torch.zeros((SEQ, D), dtype=bf, **cpu)
+    attn = lambda a, b_, c: ttorch.sum(ttorch.scaled_dot_product_attention(a, b_, c, is_causal=True).float())  # noqa
+    sd = claims(attn, (q, q, q), ["flash", "torch"])
+    sdg = claims(attn, (q, q, q), ["flash", "torch"], grad=True)
+    rope = claims(lambda x, c, s_: ttorch.apply_rope(x, c, s_), (q, cs, cs), ["fused", "torch"])
+    logits = torch.zeros((N, V), **cpu)
+    tg = torch.zeros((N,), dtype=torch.int64, **cpu)
+    ce = claims(lambda x, t: ttorch.cross_entropy(x, t), (logits, tg), ["fused", "torch"], grad=True)
+    costs = {"flash_fwd": kernel(sd, "scaled_dot_product_attention"), "flash_fwd_lse": kernel(sdg, "sdpa_fwd_res"),
+             "flash_bwd": kernel(sdg, "sdpa_bwd_res"), "rope": kernel(rope, "apply_rope"),
+             "rope_bwd": kernel(rope, "apply_rope"), "ce_fwd": kernel(ce, "cross_entropy"),
+             "ce_bwd": kernel(ce, "cross_entropy_bwd")}
+    del logits
+    pythia = gpt.name_to_config(PYTHIA)
+    for tag, (n_, d_, ln) in {"rms": (N, cfg.n_embd, False), "ln": (N, pythia.n_embd, True)}.items():
+        x = torch.zeros((n_, d_), dtype=bf, **cpu)
+        w = torch.zeros((d_,), dtype=bf, **cpu)
+        f = ((lambda a, ww, bb: ttorch.sum(ttorch.layer_norm(a, (d_,), ww, bb, 1e-5).float())) if ln else
+             (lambda a, ww: ttorch.sum(ttorch.rms_norm(a, (d_,), ww, 1e-6).float())))
+        bs = claims(f, (x, w, w) if ln else (x, w), ["norm", "torch"], grad=True)
+        costs[f"{tag}_fwd"] = kernel(bs, "layer_norm" if ln else "rms_norm")
+        costs[f"{tag}_bwd"] = kernel(bs, "layer_norm_bwd" if ln else "rms_norm_bwd")
+    label, Tq, padding, causal = MASK_CASES[0]
+    q_seg, kv_seg = _segments(B, Tq, SEQ, padding, causal)
+    pairs = _valid_pairs(q_seg, kv_seg, causal)
+    m = torch.zeros((B, 1, Tq, SEQ), dtype=torch.bool, **cpu)
+    masked = claims(lambda a, b_, c, mm: ttorch.sum(ttorch.scaled_dot_product_attention(a, b_, c, attn_mask=mm)
+                                                    .float()), (q, q, q, m), ["flash", "torch"], grad=True)
+    costs["flash_fwd_seg"] = kernel(masked, "scaled_dot_product_attention", valid_pairs=pairs)
+    costs["flash_bwd_recompute"] = kernel(masked, "sdpa_bwd", valid_pairs=pairs)
+    os.environ["THUNDER_FLASH_IMPL"] = "legacy"
+    try:
+        leg = claims(attn, (q, q, q), ["flash", "torch"], grad=True)
+    finally:
+        del os.environ["THUNDER_FLASH_IMPL"]
+    costs["legacy_fwd"] = kernel(leg, "scaled_dot_product_attention")
+    costs["legacy_bwd"] = kernel(leg, "sdpa_bwd")
+    draw = claims(lambda: tclang.uniform((B, SEQ, cfg.n_embd), 0.0, 1.0, device=tt.devices.Device("cpu"), dtype=tt.dtypes.bfloat16), (), ["torch"])
+    costs["rng_draw"] = kernel(draw, "uniform_keyed")
+    _, n_, k_ = INT8_SHAPES[0]
+    a = torch.zeros((N, k_), dtype=bf, **cpu)
+    qb = claims(lambda x, w: ttorch.linear(x, w), (a, torch.zeros((n_, k_), dtype=bf, **cpu)), ["quant", "torch"])
+    costs["int8_gemm"] = kernel(qb, "linear", "int8_gemm")
+    shape = QUANT_ACTS[0]
+    qa = claims(lambda x, w: ttorch.linear(x, w), (torch.zeros(shape, dtype=bf, **cpu),
+                                                    torch.zeros((64, shape[-1]), dtype=bf, **cpu)), ["quant", "torch"])
+    costs["quantize_tensor"] = kernel(qa, "linear", "quantize_tensor")
+    wshape = QUANT_WEIGHTS[0]
+    qr = claims(lambda x, w: ttorch.linear(x, w), (torch.zeros((64, wshape[-1]), dtype=bf, **cpu),
+                                                    torch.zeros(wshape, dtype=bf, **cpu)), ["quant", "torch"])
+    costs["quantize_rows"] = kernel(qr, "linear", "quantize_rows")
+    worst = 0.0
+    for name, row in rows.items():
+        c = costs.get(name)
+        require(c is not None, f"no cost rule reproduces kernel row {name}")
+        ms_, by = c.seconds(spec)
+        rel = abs(ms_ * 1e3 - row["bound_ms"]) / row["bound_ms"]
+        worst = max(worst, rel)
+        log(f"  (c) {name:20s} cost.py {ms_ * 1e3:.4f} ms ({by}) vs the row's bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}): {rel:.3%}")
+    require(worst <= COST_BOUND_REL and len(costs) == len(rows) == 19,
+            f"cost.py does not reproduce every kernel row's bound within {COST_BOUND_REL:.0%} (worst {worst:.3%})")
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED + 26)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg))
+    prof = profile_call("step_for_cost", lambda: vg(params, idx, idx), batch=LOSS_BATCH, seq=SEQ, config=CFG_NAME)
+    tc = analysis.trace_cost(tt.last_traces(vg)[-1], spec)
+    kinds = {k: round(v["roofline_s"] * 1e3, 3) for k, v in sorted(tc.by_kind().items(),
+                                                                    key=lambda kv: -kv[1]["roofline_s"])}
+    log(f"  (c) the staged step at B={LOSS_BATCH}: trace_cost bound {tc.roofline_s * 1e3:.2f} ms by kind {kinds}; "
+        f"measured device {prof['device_ms']:.2f} ms by group "
+        f"{ {k: round(v, 3) for k, v in prof['device_ms_by_group'].items()} }")
+    del params, vg
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3225,6 +3986,20 @@ def main() -> int:
     log(f"[18] per-sample gradients: vmap(grad(loss_fn)) over {PS_SAMPLES} samples of (1, {SEQ}), grad of vmap, "
         f"jvp; 2 layers, then {cfg.n_layer} layers staged")
     run_per_sample(cfg, launches)
+
+    log(f"[19] the last batching rules at full width: (a) masked per-sample grads over a padded batch, 2 then "
+        f"{cfg.n_layer} layers; (b) an ensemble of two models under {NORM_STACK}; (c) per-sample grads under the "
+        "quant stack")
+    masked = run_masked_per_sample(cfg, launches)
+    run_ensemble(cfg, launches)
+    run_quant_per_sample(cfg, launches)
+
+    log("[20] the analysis layer: (a) the verifier at every pass of the staged step and the forward; (b) predicted "
+        "peaks against max_memory_allocated, mem.predicted-oom; (c) cost.py against the kernel rows' bounds")
+    run_verifier(cfg)
+    run_liveness(cfg, masked)
+    del masked
+    run_cost(cfg, rows)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -1688,3 +1688,201 @@ def test_jvp_on_the_card_launches_no_kernel(dev):
     torch.cuda.synchronize()
     assert _build.launch_counts() == before
     assert torch.isfinite(loss) and torch.isfinite(t)
+
+
+# =============================================================================
+# The last batching rules: masked attention, the int8 linear, a norm weight
+# and rope tables a slice. Each slice's result against the unbatched wrapper
+# on that slice, bit for bit where the kernel computes a row (or a problem)
+# independently of the others; launches once a call site (masked attention:
+# once a verdict present).
+# =============================================================================
+
+
+def _slice_masks(T: int, pad: int, dev) -> torch.Tensor:
+    """(3, 1, 1, T, T) bool masks whose verdicts are 0, 1 and 2: a random
+    mask (the exact branch), a left-padded full mask, a left-padded causal one."""
+    gen = torch.Generator().manual_seed(5)
+    kv = torch.arange(T) >= pad
+    tri = torch.ones(T, T, dtype=torch.bool).tril()
+    full = kv[None, :].expand(T, T)
+    return torch.stack([torch.rand(T, T, generator=gen) > 0.3, full, tri & full])[:, None, None].to(dev)
+
+
+def test_masked_attention_rule_takes_each_slices_verdict(dev):
+    """Slices with verdicts 0, 1 and 2 in one call: one launch a verdict
+    present, and each slice bit-equal to the unbatched claim on it."""
+    from thunder_tpu_torch.executors import batching, flashex
+
+    T = 256
+    masks = _slice_masks(T, 64, dev)
+    q, k, v, g = (torch.stack([_randn((1, 4, T, 100), torch.bfloat16, dev, 10 * i + j) for j in range(3)])
+                  for i in range(4))
+    wrappers = (flashex.sdpa_exact, flashex.flash_attention_fwd_seg, flashex.flash_attention_bwd_recompute)
+    before = _launched(*wrappers)
+    out = torch.func.vmap(lambda a, b, c, m: batching.masked_fwd(a, b, c, m, False, 0.1, None, 1))(q, k, v, masks)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launched(*wrappers), before)] == [1, 2, 0]
+    before = _launched(*wrappers)
+    grads = torch.func.vmap(lambda gg, a, b, c, m: batching.masked_bwd(gg, a, b, c, m, False, 0.1, (0, 1, 2), 1))(
+        g, q, k, v, masks)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launched(*wrappers), before)] == [1, 0, 2]
+    for j in range(3):
+        assert torch.equal(out[j], flashex._sdpa_impl(q[j], k[j], v[j], attn_mask=masks[j].clone(), scale=0.1))
+        want = flashex._sdpa_bwd_impl(g[j], q[j], k[j], v[j], masks[j].clone(), False, 0.1)
+        for a, w in zip(grads, want):
+            assert torch.equal(a[j], w)
+
+
+def test_staged_masked_vmap_takes_the_branch_of_each_calls_verdicts(dev):
+    """A staged vmap of masked attention whose masks change verdicts between
+    calls: each set of verdicts is an entry with its own graph, held by one
+    guard read a call, and every call equals the unbatched jit on each slice."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.core.concrete import check_value_guards
+
+    T = 256
+    masks = _slice_masks(T, 64, dev)
+    q = torch.stack([_randn((1, 4, T, 64), torch.bfloat16, dev, j) for j in range(2)])
+    f = lambda a, m: ttorch.scaled_dot_product_attention(a, a, a, attn_mask=m)  # noqa: E731
+    vf, one = tt.vmap(f), tt.jit(f, disable_jit_staging=True)
+    for pair in ((1, 2), (1, 2), (1, 2), (0, 2), (1, 2), (0, 2), (0, 2)):
+        m = masks[list(pair)]
+        reads = check_value_guards.host_reads
+        got = vf(q, m)
+        assert check_value_guards.host_reads - reads >= 1
+        for j in range(2):
+            assert torch.equal(got[j], one(q[j], m[j]))
+    assert tt.compile_stats(vf).compile_count == 2
+    assert tt.last_staging(vf).staged
+
+
+def test_norm_rules_with_a_weight_a_slice(dev):
+    """RMSNorm and LayerNorm with a weight (and bias) a slice: one launch of
+    each kernel, y and dx bit-equal to each slice's own call, dw a row a
+    slice; a per-segment weight equal in every row to a shared one gives the
+    shared call's bits."""
+    from thunder_tpu_torch.executors import batching, normex
+
+    for layer_norm, D in ((False, 3200), (True, 1024)):
+        x = torch.stack([_randn((2, 256, D), torch.bfloat16, dev, j) for j in range(_V)])
+        g = torch.stack([_randn((2, 256, D), torch.bfloat16, dev, 20 + j) for j in range(_V)])
+        w = torch.stack([_randn((D,), torch.bfloat16, dev, 40 + j) for j in range(_V)])
+        b = torch.stack([_randn((D,), torch.bfloat16, dev, 50 + j) for j in range(_V)]) if layer_norm else None
+        fwd, bwd = (normex.layer_norm_fwd, normex.layer_norm_bwd) if layer_norm else (normex.rms_norm_fwd,
+                                                                                     normex.rms_norm_bwd)
+        before = _launched(fwd, bwd)
+        y = torch.func.vmap(lambda a, ww, bb: batching.norm_fwd(a, ww, bb, 1e-5, layer_norm, 1),
+                            in_dims=(0, 0, 0 if layer_norm else None))(x, w, b)
+        dx, dw, db = torch.func.vmap(lambda gg, a, ww: batching.norm_bwd(gg, a, ww, 1e-5, layer_norm, layer_norm, 1),
+                                     out_dims=(0, 0, 0 if layer_norm else None))(g, x, w)
+        torch.cuda.synchronize()
+        assert [a - c for a, c in zip(_launched(fwd, bwd), before)] == [1, 1]
+        for j in range(_V):
+            bj = b[j] if layer_norm else None
+            want_y = normex.layer_norm_fwd(x[j], w[j], bj, 1e-5) if layer_norm else normex.rms_norm_fwd(x[j], w[j],
+                                                                                                       1e-5)
+            assert torch.equal(y[j], want_y)
+            wdx, wdw, wdb = normex.norm_bwd_plain(g[j], x[j], w[j], 1e-5, layer_norm=layer_norm, with_bias=layer_norm)
+            own = (normex.layer_norm_bwd(g[j], x[j], w[j], 1e-5, with_bias=True) if layer_norm
+                   else normex.rms_norm_bwd(g[j], x[j], w[j], 1e-5))
+            assert torch.equal(dx[j], own[0])
+            torch.testing.assert_close(dw[j], wdw, rtol=1e-4, atol=1e-4 * float(wdw.abs().max()))
+        same = normex.rms_norm_fwd(x.reshape(-1, x.shape[-1]), w[0]) if not layer_norm else None
+        if same is not None:
+            assert torch.equal(normex.rms_norm_fwd(x.reshape(-1, x.shape[-1]), w[0].expand(_V, -1).contiguous()),
+                               same)
+
+
+def test_rope_rule_with_tables_a_slice(dev):
+    """Per-sample position offsets: cos/sin a slice, one launch, each slice
+    bit-equal to its own call."""
+    from thunder_tpu_torch.executors import batching, fusedex
+
+    x = torch.stack([_randn((1, 32, 256, 100), torch.bfloat16, dev, j) for j in range(_V)])
+    cos = torch.stack([_randn((256, 100), torch.bfloat16, dev, 60 + j) for j in range(_V)])
+    sin = torch.stack([_randn((256, 100), torch.bfloat16, dev, 70 + j) for j in range(_V)])
+    before = fusedex.apply_rope.launches
+    got = torch.func.vmap(batching.rope)(x, cos, sin)
+    torch.cuda.synchronize()
+    assert fusedex.apply_rope.launches == before + 1
+    for j in range(_V):
+        assert torch.equal(got[j], fusedex.apply_rope(x[j], cos[j], sin[j]))
+        _assert_rows_close(got[j], fusedex.rope_plain(x[j], cos[j], sin[j]), 1)
+
+
+@pytest.mark.parametrize("K", [3200, 100])
+def test_int8_gemm_problems_are_bit_equal_to_each_problem(dev, K):
+    """P problems in one launch, on either route, each operand shared or a
+    problem's own: each problem's bits are the plain product's."""
+    from thunder_tpu_torch.executors import quantex
+
+    gen = torch.Generator().manual_seed(K)
+    qa = torch.randint(-127, 128, (3, 200, K), generator=gen, dtype=torch.int8).to(dev)
+    qw = torch.randint(-127, 128, (3, 300, K), generator=gen, dtype=torch.int8).to(dev)
+    scale = (torch.rand(3, 300, generator=gen) * 1e-3 + 1e-5).to(dev)
+    bias = _randn((3, 300), torch.float32, dev, 1)
+    route = quantex.int8_gemm if K % 16 == 0 else quantex.int8_gemm_sync
+    for a, w, s, bb in ((qa, qw[0], scale, None), (qa[0], qw, scale, bias), (qa, qw, scale[0], bias[1]),
+                        (qa, qw, scale, bias)):
+        before = route.launches
+        got = quantex.int8_gemm(a, w, s, bb, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert route.launches == before + 1 and got.shape == (3, 200, 300)
+        for p in range(3):
+            pick = lambda t, r: t if t is None or t.ndim == r else t[p]  # noqa: E731
+            want = quantex.int8_gemm_plain(pick(a, 2), pick(w, 2), pick(s, 1), pick(bb, 1), torch.bfloat16)
+            assert torch.equal(got[p], want)
+
+
+def test_quant_linear_under_vmap_scales_each_slice_as_b1(dev):
+    """The int8 linear under vmap, the activation, the weight or both
+    batched: one launch of each quantization kernel and of the GEMM, and each
+    slice's output bit-equal to the jit call on it (its own amax and scale)."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.executors import quantex
+
+    x = torch.stack([_randn((2, 128, 3200), torch.bfloat16, dev, j) * (j + 1) for j in range(_V)])
+    w = torch.stack([_randn((1024, 3200), torch.bfloat16, dev, 30 + j) for j in range(_V)])
+    lin = lambda a, b: ttorch.linear(a, b)  # noqa: E731
+    one = tt.jit(lin, executors=["quant", "torch"], disable_jit_staging=True)
+    wrappers = (quantex.quantize_tensor, quantex.quantize_rows, quantex.int8_gemm)
+    for axes, a, b in (((0, None), x, w[0]), ((None, 0), x[0], w), ((0, 0), x, w)):
+        vf = tt.vmap(lin, in_axes=axes, executors=["quant", "torch"], disable_jit_staging=True)
+        before = _launched(*wrappers)
+        got = vf(a, b)
+        torch.cuda.synchronize()
+        assert [c - d for c, d in zip(_launched(*wrappers), before)] == [1, 1, 1]
+        for j in range(_V):
+            assert torch.equal(got[j], one(a if axes[0] is None else a[j], b if axes[1] is None else b[j]))
+    q, s = quantex.quantize_tensor(x.reshape(-1, 3200), 127.0, _V)
+    for j in range(_V):
+        qj, sj = quantex.quantize_per_tensor(x[j].reshape(-1, 3200), 127.0)
+        assert torch.equal(s[j], sj) and torch.equal(q.reshape(_V, -1, 3200)[j], qj)
+
+
+def test_capacity_and_spec_read_the_card(dev, monkeypatch):
+    """``device_capacity_bytes`` reads the card's ``total_memory`` (the
+    environment override first), ``resolve_device_spec`` its name; the
+    predicted-OOM rule fires on a trace over the capacity with nothing
+    allocated."""
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch import analysis
+    from thunder_tpu_torch.analysis.liveness import claimed_trace
+
+    monkeypatch.delenv("THUNDER_TPU_HBM_BYTES", raising=False)
+    assert analysis.device_capacity_bytes() == torch.cuda.get_device_properties(0).total_memory
+    spec = analysis.resolve_device_spec()
+    if "H100" in torch.cuda.get_device_name(0):
+        assert spec.name == "h100"
+    monkeypatch.setenv("THUNDER_TPU_HBM_BYTES", "1000")
+    assert analysis.device_capacity_bytes() == 1000
+    x = torch.ones(64, 64, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    trc = claimed_trace(lambda a: ttorch.sum(ttorch.tanh(ttorch.matmul(a, a)) * 2.0), (x,), {})
+    found = [d for d in analysis.verify(trc) if d.rule == "mem.predicted-oom"]
+    assert len(found) == 1 and torch.cuda.memory_allocated() == before

@@ -377,8 +377,11 @@ def test_rope_rule_folds_slices(d):
     cos, sin = _bf16(16, 8, seed=7), _bf16(16, 8, seed=8)
     got = torch.func.vmap(batching.rope, in_dims=(d, None, None))(x, cos, sin)
     _close(got, _loop(fusedex.apply_rope, (d, None, None), (x, cos, sin), V), 0)
-    with pytest.raises(NotImplementedError, match="per-slice cos/sin"):
-        torch.func.vmap(batching.rope, in_dims=(d, 0, None))(x, torch.stack([cos] * V), sin)
+    # A cos table a slice (per-sample positions), sin shared: each slice's
+    # rows rotate by their own table, bit for bit.
+    coses = torch.stack([_bf16(16, 8, seed=50 + j) for j in range(V)])
+    got = torch.func.vmap(batching.rope, in_dims=(d, 0, None))(x, coses, sin)
+    _close(got, _loop(fusedex.apply_rope, (d, 0, None), (x, coses, sin), V), 0)
 
 
 @pytest.mark.parametrize("dims", [(0, 0), (1, None), (0, 0, 0)], ids=str)
@@ -463,16 +466,28 @@ def test_one_wrapper_call_a_call_site(monkeypatch):
 
 
 def test_kernel_without_a_rule_raises():
-    x = torch.randn(V, 4, 64)
-    w = torch.randn(8, 64)
-    with pytest.raises(NotImplementedError, match="quant executor's linear.*amax"):
-        tt.vmap(lambda a, b: ttorch.linear(a, b), in_axes=(0, None), device="cpu",
-                executors=["quant", "torch"])(x, w)
+    """The int8 linear and masked attention, refused here before their rules
+    existed, now equal a loop over the slices; a claim of an executor with no
+    batching rule (one a user registers) still raises, naming it."""
+    from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+
+    x = torch.randn(V, 4, 64, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(8, 64, generator=torch.Generator().manual_seed(1))
+    lin = lambda a, b: ttorch.linear(a, b)  # noqa: E731
+    got = tt.vmap(lin, in_axes=(0, None), device="cpu", executors=["quant", "torch"])(x, w)
+    one = tt.jit(lin, device="cpu", executors=["quant", "torch"])
+    _close(got, torch.stack([one(x[i], w) for i in range(V)]), 0)
     q = _bf16(V, 1, 2, 64, 16)
     mask = torch.ones(1, 1, 64, 64, dtype=torch.bool).tril()
-    with pytest.raises(NotImplementedError, match="masked scaled_dot_product_attention.*rows 8-9"):
-        tt.vmap(lambda a, m: ttorch.scaled_dot_product_attention(a, a, a, attn_mask=m), in_axes=(0, None),
-                device="cpu")(q, mask)
+    attn = lambda a, m: ttorch.scaled_dot_product_attention(a, a, a, attn_mask=m)  # noqa: E731
+    got = tt.vmap(attn, in_axes=(0, None), device="cpu")(q, mask)
+    one = tt.jit(attn, device="cpu")
+    _close(got, torch.stack([one(q[i], mask) for i in range(V)]), 0)
+    ex = OperatorExecutor("no_rule_for_vmap")
+    register_executor(ex)
+    ex.register_implementation("torch.tanh", fn=torch.tanh, checker=lambda a: True)
+    with pytest.raises(NotImplementedError, match="no_rule_for_vmap executor's tanh has no batching rule"):
+        tt.vmap(lambda a: ttorch.tanh(a), device="cpu", executors=["no_rule_for_vmap", "torch"])(x)
 
 
 def test_wrappers_refuse_batched_and_dual_tensors():

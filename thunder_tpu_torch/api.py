@@ -61,7 +61,7 @@ from thunder_tpu_torch.core.proxies import (
 from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from thunder_tpu_torch.core.symbol import resolve_inplace, resolve_inplace_tree
-from thunder_tpu_torch.core.trace import TraceCtx, from_trace, mark, tracectx
+from thunder_tpu_torch.core.trace import TraceCtx, debug_checks, from_trace, mark, tracectx
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
 from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex  # kernel executors  # noqa: F401
 from thunder_tpu_torch.executors import batching, rngex, staging
@@ -366,10 +366,17 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict, *, record_input_mutat
 
 
 def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
-    """Trace, transform, claim and stage one entry. Under ``cache="symbolic
-    values"`` the marked dims are lifted into bucket guards and the entry is
-    traced on the inputs padded to the bucket ceilings
-    (thunder_tpu/api.py:450-481)."""
+    """Trace, transform, claim and stage one entry, under the compile's
+    ``debug_checks`` (the trace verifier after every pass;
+    thunder_tpu/api.py:451-458)."""
+    with debug_checks(cd.compile_options.get("debug_checks")):
+        return _compile_entry_impl(cd, cs, args, kwargs)
+
+
+def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
+    """Under ``cache="symbolic values"`` the marked dims are lifted into
+    bucket guards and the entry is traced on the inputs padded to the bucket
+    ceilings (thunder_tpu/api.py:450-481)."""
     sym_spec = (_symbolic_spec_for_call(cd, cs, args, kwargs) if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES
                 else None)
     if sym_spec is not None:
@@ -847,6 +854,7 @@ def jit(
     sharp_edges: Any = "allow",
     disable_jit_staging: bool = False,
     autocast: Any = None,
+    debug_checks: Optional[bool] = None,
     _trace_transforms: Sequence[Callable] = (),
     **module_options,
 ) -> Callable:
@@ -893,6 +901,11 @@ def jit(
     (``transforms/autocast.py``), before any other trace transform.
     A program that draws random numbers takes a fresh key each call
     (``seed``, ``transforms/rng.py``).
+    ``debug_checks=True`` runs the static trace verifier
+    (``thunder_tpu_torch/analysis``) on the output of every pass of each
+    compile and raises ``TraceVerificationError`` naming the pass that broke
+    the trace; ``False`` turns it off; None (the default) defers to the
+    ``THUNDER_TPU_CHECKS`` environment variable (thunder_tpu/api.py:1562).
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
 
@@ -908,7 +921,7 @@ def jit(
         return functools.partial(jit, executors=executors, device=device, cache=cache,
                                  symbolic_dims=symbolic_dims, buckets=buckets, sharp_edges=sharp_edges,
                                  disable_jit_staging=disable_jit_staging, autocast=autocast,
-                                 _trace_transforms=_trace_transforms, **module_options)
+                                 debug_checks=debug_checks, _trace_transforms=_trace_transforms, **module_options)
 
     cache = resolve_cache_option(cache)
     if isinstance(fn, torch.nn.Module):
@@ -920,11 +933,14 @@ def jit(
         from thunder_tpu_torch.frontend.module import thunder_module
 
         return thunder_module(fn, executors=executors, device=device, sharp_edges=sharp_edges,
-                              disable_jit_staging=disable_jit_staging, autocast=autocast, **module_options)
+                              disable_jit_staging=disable_jit_staging, autocast=autocast,
+                              debug_checks=debug_checks, **module_options)
     if module_options:
         raise TypeError(f"jit() got unexpected options {sorted(module_options)}")
 
     compile_options = {} if autocast is None else {"autocast": autocast}
+    if debug_checks is not None:
+        compile_options["debug_checks"] = bool(debug_checks)
     if cache is CACHE_OPTIONS.SYMBOLIC_VALUES:
         # The bucket rules, resolved once: defaults <- THUNDER_TPU_BUCKETS <- buckets=.
         compile_options.update(bucket_policy=BucketPolicy.resolve(buckets), symbolic_dims=symbolic_dims)
@@ -1054,7 +1070,7 @@ def value_and_grad(fn: Optional[Callable] = None, **jit_kwargs) -> Callable:
 # kernel's transform error and re-stages without kernels; the port does not:
 # a kernel without a rule raises, naming it.
 
-_TRANSFORM_OPTIONS = ("executors", "device", "disable_jit_staging")
+_TRANSFORM_OPTIONS = ("executors", "device", "disable_jit_staging", "debug_checks")
 
 
 def _unwrap_compiled(fn: Callable) -> tuple[Callable, tuple, dict]:
@@ -1069,29 +1085,30 @@ def _unwrap_compiled(fn: Callable) -> tuple[Callable, tuple, dict]:
     if cd is None:
         return fn, (), {}
     return cd.fn, tuple(cd.trace_transforms), {"executors": cd.executors_list, "device": cd.device,
-                                               "disable_jit_staging": cd.disable_jit_staging}
+                                               "disable_jit_staging": cd.disable_jit_staging,
+                                               "debug_checks": cd.compile_options.get("debug_checks")}
 
 
 def _transform_options(options: dict, defaults: dict, what: str) -> tuple:
-    """``(executors, device, disable_jit_staging)`` of a transform: its own
-    options over those of the compiled function it wraps."""
+    """``(executors, device, disable_jit_staging, debug_checks)`` of a
+    transform: its own options over those of the compiled function it
+    wraps."""
     unknown = sorted(set(options) - set(_TRANSFORM_OPTIONS))
     if unknown:
         raise ValueError(f"{what} supports only the options {list(_TRANSFORM_OPTIONS)}; got {unknown}")
     merged = {**defaults, **{k: v for k, v in options.items() if v is not None}}
     return (resolve_executors(merged.get("executors")), devices.resolve_device(merged.get("device")),
-            bool(merged.get("disable_jit_staging", False)))
+            bool(merged.get("disable_jit_staging", False)), merged.get("debug_checks"))
 
 
 def _staged_flat_fn(fn: Callable, args: tuple, kwargs: dict, *, executors: Sequence,
-                    trace_transforms: Sequence[Callable] = (), batched: bool = False):
+                    trace_transforms: Sequence[Callable] = ()):
     """Trace ``fn`` on the example ``(args, kwargs)`` and claim it through
-    ``_compile_entry``'s passes. Returns ``(callable, claimed trace, whether
-    it draws)``: the callable takes the tensor leaves of ``(args, kwargs)``
-    in pytree order, then an RNG key if it draws; numbers and strings are
-    constants of the trace. With ``batched``, each kernel claim is bound to
-    its batching rule (``batching.batched_callable``). A function that
-    writes into its inputs is refused: no epilogue runs on this path."""
+    ``_compile_entry``'s passes. Returns ``(claimed trace, whether it
+    draws)``: the trace's callable takes the tensor leaves of ``(args,
+    kwargs)`` in pytree order, then an RNG key if it draws; numbers and
+    strings are constants of the trace. A function that writes into its
+    inputs is refused: no epilogue runs on this path."""
     _, comp = trace_program(fn, args, kwargs)
     if comp._input_mutations:
         kinds = ", ".join(sorted({m[0] for m in comp._input_mutations}))
@@ -1103,8 +1120,7 @@ def _staged_flat_fn(fn: Callable, args: tuple, kwargs: dict, *, executors: Seque
         comp = transform(comp)
     comp = functionalize_rng_ops(save_sdpa_residuals_joint(comp, executors))
     extrace = del_last_used(transform_for_execution(comp, executors))
-    call = batching.batched_callable(extrace) if batched else extrace.python_callable()
-    return call, extrace, bool(comp.tags.get(RNG_TAG))
+    return extrace, bool(comp.tags.get(RNG_TAG))
 
 
 def _meta_key(flat_values: list, extra: tuple = ()) -> tuple:
@@ -1154,25 +1170,86 @@ def _vmap_example(args: tuple, axes: tuple, device) -> tuple:
     return tuple(tree_map(lambda x, _ax=ax: slice0(x, _ax), a) for a, ax in zip(args, axes))
 
 
+def _slice_verdicts(extrace, in_dims: tuple, needs_rng: bool):
+    """``(sites, code)`` of a claimed trace's masked attention under vmap:
+    its distinct masks (``flashex.masked_sites``) and a function of the
+    batched tensor leaves that gives, as one int64 vector on the device,
+    every slice's verdict of every mask (``flashex.mask_verdict``, taken a
+    slice as ``lax.cond`` under ``jax.vmap`` takes it), mask-major: V times
+    the number of masks, of any V. ``code`` is None when the trace has no
+    masked site."""
+    from thunder_tpu_torch.core.trace import from_trace
+
+    sites = flashex.masked_sites(extrace)
+    if not sites:
+        return sites, None
+    trc = from_trace(extrace)
+    trc.bound_symbols.extend(b for b in extrace.bound_symbols if b.sym.id not in (PrimIDs.RETURN, PrimIDs.DEL))
+    with tracectx(trc):
+        prims.python_return(tuple(m for m, _ in sites))
+    trc.output = tuple(m for m, _ in sites)
+    masks_of = torch.func.vmap(dce(trc).python_callable(), in_dims=in_dims, out_dims=0)
+    key = [None] if needs_rng else []  # the last input, which no mask reads
+
+    def code(*flat_args):
+        with torch.no_grad():
+            masks = masks_of(*flat_args, *key)
+            return torch.cat([torch.func.vmap(lambda m, _s=shape: flashex.mask_verdict(m, *_s))(mask).long()
+                              for mask, (_, shape) in zip(masks, sites)])
+
+    return sites, code
+
+
 def _stage_vmapped(cs: CompileStats, fn: Callable, transforms: tuple, example: tuple, kwargs: dict, flat_axes: list,
-                   out_dims, *, executors, device, disabled: bool, name: str) -> Callable:
+                   out_dims, *, executors, device, disabled: bool, name: str, checks: Optional[bool]) -> Callable:
     """Trace on one slice, bind the kernels to their batching rules, and
     stage ``torch.func.vmap`` of the program as a CUDA graph under jit's
     predicate (the seat of ``jax.jit(jax.vmap(...))``). Returns the call,
-    which takes the batched tensor leaves."""
+    which takes the batched tensor leaves.
+
+    A program with masked attention takes each slice's verdict of each mask
+    before it runs and gives them to the claims (``flashex.with_verdicts``,
+    a tuple a mask), so that no rule reads the host inside the graph; a value
+    guard holds the verdicts, read once a call with the other entries'
+    (``core/concrete.first_holding``), and each set of verdicts is an entry
+    with its own graph, as the module frontend keeps its masks."""
+    from thunder_tpu_torch.core.concrete import ValueGuard, first_holding
+
     start = time.perf_counter()
-    flat_fn, extrace, needs_rng = _staged_flat_fn(fn, example, kwargs, executors=executors,
-                                                  trace_transforms=transforms, batched=True)
+    with debug_checks(checks):
+        extrace, needs_rng = _staged_flat_fn(fn, example, kwargs, executors=executors, trace_transforms=transforms)
     # The key is the same for every slice: every slice draws the same
     # numbers, as under jax.vmap.
     in_dims = tuple(flat_axes) + ((None,) if needs_rng else ())
-    staged, stats = staging.stage(torch.func.vmap(flat_fn, in_dims=in_dims, out_dims=out_dims), [extrace], device,
-                                  name=name, disabled=disabled, fresh=_key_input if needs_rng else None)
+    sites, code = _slice_verdicts(extrace, in_dims, needs_rng)
     cs.trace_seconds += time.perf_counter() - start
-    cs.compile_count += 1
-    cs.last_traces = [extrace]
+    entries: list = []  # (guards, staged call, stats, trace)
+
+    def add_entry(flat_args) -> tuple:
+        t0 = time.perf_counter()
+        trc, guards = extrace, ()
+        if sites:
+            want = code(*flat_args)
+            digits = want.tolist()
+            check_value_guards.host_reads += 1
+            n = next(x.shape[ax] for x, ax in zip(flat_args, flat_axes) if ax is not None)
+            trc = flashex.with_verdicts(extrace, {m.name: tuple(digits[i * n:(i + 1) * n])
+                                                  for i, (m, _) in enumerate(sites)})
+            # The whole vector is compared on the device and read as one flag.
+            guards = (ValueGuard(lambda *a, _w=want: (code(*a) == _w).all(), "bool", True,
+                                 f"slice verdicts of {', '.join(m.name for m, _ in sites)}"),)
+        staged, stats = staging.stage(torch.func.vmap(batching.batched_callable(trc), in_dims=in_dims,
+                                                      out_dims=out_dims), [trc], device, name=name,
+                                      disabled=disabled, fresh=_key_input if needs_rng else None)
+        cs.trace_seconds += time.perf_counter() - t0
+        cs.compile_count += 1
+        entries.append((guards, staged, stats, trc))
+        return entries[-1]
 
     def run(*flat_args):
+        i = first_holding([e[0] for e in entries], flat_args) if entries else None
+        _, staged, stats, trc = entries[i] if i is not None else add_entry(flat_args)
+        cs.last_traces = [trc]
         cs.last_staging = stats
         return staged(*flat_args, *([_next_key(device)] if needs_rng else []))
 
@@ -1189,8 +1266,10 @@ def vmap(fn: Callable, in_axes=0, out_axes=0, **options) -> Callable:
     predicate as ``jit``. Every kernel claim runs through its batching rule
     (``executors/batching.py``), which folds the slices into the kernel's
     own batch or rows: one launch a call site, whatever the number of
-    slices. A claimed kernel without a rule (masked attention, the int8
-    linear) raises ``NotImplementedError``, naming it. ``in_axes`` is one
+    slices. Masked attention takes each slice's verdict before the call and
+    holds the vector of them as a value guard. A claimed kernel without a
+    rule (one of an executor registered later) raises
+    ``NotImplementedError``, naming it. ``in_axes`` is one
     axis or one per positional argument (None: unbatched; it applies to
     every tensor leaf of the argument); kwargs are unbatched. A keyed draw
     takes one key for all slices, so every slice draws the same numbers, as
@@ -1202,7 +1281,7 @@ def vmap(fn: Callable, in_axes=0, out_axes=0, **options) -> Callable:
     Staging is cached on the inputs' metadata and axes
     (``compile_stats(vmapped)``)."""
     inner_fn, transforms, defaults = _unwrap_compiled(fn)
-    executors, device, disabled = _transform_options(options, defaults, "vmap")
+    executors, device, disabled, checks = _transform_options(options, defaults, "vmap")
     cache: dict = {}
     cs = CompileStats()
     name = f"vmap({getattr(inner_fn, '__name__', 'fn')})"
@@ -1217,14 +1296,15 @@ def vmap(fn: Callable, in_axes=0, out_axes=0, **options) -> Callable:
                 cs.cache_misses += 1
                 run = cache[key] = _stage_vmapped(cs, inner_fn, transforms, _vmap_example(args, axes, device), kwargs,
                                                   flat_axes, out_axes, executors=executors, device=device,
-                                                  disabled=disabled, name=name)
+                                                  disabled=disabled, name=name, checks=checks)
             else:
                 cs.cache_hits += 1
             return run(*flat_args)
 
     vmapped._lc_cs = cs
     vmapped._lc_vmap_spec = {"fn": inner_fn, "transforms": transforms, "in_axes": in_axes, "out_axes": out_axes,
-                             "options": {"executors": executors, "device": device, "disable_jit_staging": disabled}}
+                             "options": {"executors": executors, "device": device, "disable_jit_staging": disabled,
+                                         "debug_checks": checks}}
     return vmapped
 
 
@@ -1240,7 +1320,7 @@ def _grad_of_vmapped(vfn: Callable, *, return_value: bool, options: dict) -> Cal
     from thunder_tpu_torch.transforms.autodiff import _is_float_tensor, grad_transform
 
     spec = vfn._lc_vmap_spec
-    executors, device, disabled = _transform_options(options, spec["options"], "grad(vmap(f))")
+    executors, device, disabled, checks = _transform_options(options, spec["options"], "grad(vmap(f))")
     in_axes, out_axes = spec["in_axes"], spec["out_axes"]
 
     def pullback(trc):
@@ -1262,7 +1342,8 @@ def _grad_of_vmapped(vfn: Callable, *, return_value: bool, options: dict) -> Cal
                 cs.cache_misses += 1
                 run = cache[key] = _stage_vmapped(cs, spec["fn"], transforms, _vmap_example(args, axes, device),
                                                   kwargs, flat_axes, (out_axes, 0) if return_value else 0,
-                                                  executors=executors, device=device, disabled=disabled, name=name)
+                                                  executors=executors, device=device, disabled=disabled, name=name,
+                                                  checks=checks)
             else:
                 cs.cache_hits += 1
             result = run(*flat_args)
@@ -1368,7 +1449,8 @@ def jvp(fn: Callable, primals: tuple, tangents: tuple, *, device: Any = None):
         cached = _jvp_cache.get(fn, key)
         if cached is None:
             cs.cache_misses += 1
-            cached = _staged_flat_fn(fn, tuple(primals), {}, executors=resolve_executors(_JVP_EXECUTORS))
+            extrace, needs_rng = _staged_flat_fn(fn, tuple(primals), {}, executors=resolve_executors(_JVP_EXECUTORS))
+            cached = (extrace.python_callable(), extrace, needs_rng)
             _jvp_cache.put(fn, key, cached)
         else:
             cs.cache_hits += 1
@@ -1438,8 +1520,11 @@ def cache_info(fn: Callable) -> dict:
     """Cache counters and seconds, with the keys of the JAX package's
     ``cache_info`` (thunder_tpu/api.py:1404): hits split into ``fast_hits``
     (found by the inputs' metadata key) and ``slow_hits`` (found by running
-    prologues). The port has no de-opt ladder (``degradation_level`` 0) and
-    no liveness planner (``predicted_peak_bytes`` None)."""
+    prologues). The port has no de-opt ladder (``degradation_level`` 0);
+    ``predicted_peak_bytes`` is the liveness planner's peak of the entry's
+    execution trace (``analysis/liveness.py``)."""
+    from thunder_tpu_torch.analysis.liveness import plan_liveness
+
     cd, cs = fn._lc_cd, fn._lc_cs
     phases: dict = {}
     for e in cs.cache_entries:
@@ -1462,6 +1547,7 @@ def cache_info(fn: Callable) -> dict:
         "degradation_level": 0,
         "entries": [dict(index=i, symbolic=e.sym_spec is not None,
                          buckets="exact" if e.sym_spec is None else e.sym_spec.describe(), degradation_level=0,
-                         predicted_peak_bytes=None, **e.stats.as_dict())
+                         predicted_peak_bytes=plan_liveness(e.computation_traces[-1], include_rows=False).peak_bytes,
+                         **e.stats.as_dict())
                     for i, e in enumerate(cs.cache_entries)],
     }

@@ -13,6 +13,7 @@ debugging tool, as in the reference.
 
 from __future__ import annotations
 
+import collections
 import contextvars
 import time
 from contextlib import contextmanager
@@ -255,19 +256,63 @@ def detached_trace():
         yield trace
 
 
-# -- provenance stamping -------------------------------------------------------
+# -- debug checks (the trace verifier's pipeline hook) ------------------------
 #
-# Every pass stamps provenance through wrap_in_trace_provenance/mark. The
-# reference package also runs its static trace verifier and its observability
-# taps at this point; both are later parts of the port (ROADMAP.md).
+# Every pass stamps provenance through wrap_in_trace_provenance/mark; with
+# checks enabled, that stamping point also runs the static verifier
+# (thunder_tpu_torch/analysis) on the pass's output, so the first malformed
+# trace is attributed to the pass that made it (thunder_tpu/core/trace.py:
+# 273-304). Enabled per compile by jit(debug_checks=True) (the context
+# variable) or process-wide by THUNDER_TPU_CHECKS=1. The JAX package's
+# observability taps at this point are a later part of the port (ROADMAP.md).
+
+_debug_checks_ctx = contextvars.ContextVar("trace_debug_checks", default=None)
+
+
+def debug_checks_enabled() -> bool:
+    v = _debug_checks_ctx.get()
+    if v is not None:
+        return v
+    import os
+
+    return os.environ.get("THUNDER_TPU_CHECKS", "").strip().lower() not in ("", "0", "false", "off")
+
+
+@contextmanager
+def debug_checks(enabled: Optional[bool]):
+    """Scope the verifier on (True) or off (False); None defers to the
+    enclosing scope and the THUNDER_TPU_CHECKS environment variable."""
+    if enabled is None:
+        yield
+        return
+    tok = _debug_checks_ctx.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _debug_checks_ctx.reset(tok)
+
+
+def _maybe_verify(trc: TraceCtx) -> TraceCtx:
+    if debug_checks_enabled():
+        from thunder_tpu_torch.analysis import verify_or_raise
+
+        start = time.perf_counter_ns()
+        verify_or_raise(trc)
+        verify_seconds.append((time.perf_counter_ns() - start) / 1e9)
+    return trc
+
+
+# The verifier's seconds at each pass it checked, the latest last (what the
+# checks cost: a caller clears it, compiles, and reads it).
+verify_seconds: collections.deque = collections.deque(maxlen=4096)
 
 
 def wrap_in_trace_provenance(trc: TraceCtx, pass_name: str, start_ns: int) -> TraceCtx:
     elapsed_ms = (time.perf_counter_ns() - start_ns) / 1e6
     trc.provenance = TraceProvenance(f"{pass_name} (took {elapsed_ms:.2f} ms)")
-    return trc
+    return _maybe_verify(trc)
 
 
 def mark(trc: TraceCtx, pass_name: str) -> TraceCtx:
     trc.provenance = TraceProvenance(pass_name)
-    return trc
+    return _maybe_verify(trc)

@@ -32,6 +32,14 @@
 //   them, staged through 16 KB of shared memory a consumer (256 bytes of
 //   each of its 64 rows a pass) so that out is written in 16-byte runs of
 //   whole rows, not in 4-byte pairs scattered over eight rows.
+// - Problems (vmap's batching rule, executors/batching.py): one launch may
+//   compute P products out[p] = qa[p] . qw[p]^T * s[p], an operand that the
+//   slices share given once (a row step of 0). The persistent tile walk runs
+//   over the P problems' tiles in turn; a tile's TMA boxes start at row
+//   p * a_rows + m0 of qa's map and p * b_rows + n0 of qw's, and its
+//   epilogue reads scale and bias row p and writes out[p]. A box that runs
+//   past a problem's last row reads the next problem's rows into rows or
+//   columns that are never stored. One problem is the plain product.
 // The tensor maps are built on the host at each call (`cuTensorMapEncodeTiled`,
 // reached through `cudaGetDriverEntryPoint`, so the library needs no -lcuda)
 // and passed as `__grid_constant__` parameters, so a CUDA graph captures them
@@ -167,11 +175,14 @@ __device__ __forceinline__ int epi_offset(int row, int byte) {
   return row * 256 + ((((byte >> 4) ^ row) & 7) | ((byte >> 4) & 8)) * 16 + (byte & 15);
 }
 
-// Tile `tile` of the grouped order: consecutive tiles take GROUP_M tile rows
-// by one tile column, then the next column, so that the qa rows of a group
-// stay in L2 while qw streams through once a group (not once a tile row).
-__device__ __forceinline__ void tile_origin(int tile, int M, int N, int& m0, int& n0) {
+// Tile `tile` of the grouped order: the problem `p` it belongs to, then,
+// inside it, consecutive tiles take GROUP_M tile rows by one tile column,
+// then the next column, so that the qa rows of a group stay in L2 while qw
+// streams through once a group (not once a tile row).
+__device__ __forceinline__ void tile_origin(int tile, int M, int N, int& p, int& m0, int& n0) {
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  p = tile / (tiles_m * tiles_n);
+  tile -= p * tiles_m * tiles_n;
   const int first_m = tile / (GROUP_M * tiles_n) * GROUP_M;
   const int group_m = min(tiles_m - first_m, GROUP_M), in_group = tile % (GROUP_M * tiles_n);
   m0 = (first_m + in_group % group_m) * BM;
@@ -182,13 +193,13 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                            const float* __restrict__ scale, const float* __restrict__ bias, T* __restrict__ out,
-                           int M, int N, int K) {
+                           int M, int N, int K, int P, int a_rows, int b_rows, int s_step, int bias_step) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* epi = ring + STAGES * STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * EPI_BYTES);
   uint64_t* empty = full + STAGES;
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN) * P;
   const int steps = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
@@ -208,15 +219,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        int m0, n0;
-        tile_origin(tile, M, N, m0, n0);
+        int p, m0, n0;
+        tile_origin(tile, M, N, p, m0, n0);
         for (int s = 0; s < steps; ++s, ++it) {
           const int st = it % STAGES;
           mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);  // the first round finds every stage free
           uint8_t* a = ring + st * STAGE_BYTES;
           mbar_expect_tx(&full[st], STAGE_BYTES);  // a box counts whole, zero-filled bytes included
-          tma_load(a, &map_a, &full[st], s * BK, m0);
-          tma_load(a + A_BYTES, &map_b, &full[st], s * BK, n0);
+          tma_load(a, &map_a, &full[st], s * BK, p * a_rows + m0);
+          tma_load(a + A_BYTES, &map_b, &full[st], s * BK, p * b_rows + n0);
         }
       }
     }
@@ -230,8 +241,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint8_t* stage = epi + c * EPI_BYTES;
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      int m0, n0;
-      tile_origin(tile, M, N, m0, n0);
+      int p, m0, n0;
+      tile_origin(tile, M, N, p, m0, n0);
+      const float* sp = scale + static_cast<long long>(p) * s_step;
+      const float* bp = bias != nullptr ? bias + static_cast<long long>(p) * bias_step : nullptr;
+      T* op = out + static_cast<long long>(p) * M * N;
       int d[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) d[i] = 0;
@@ -268,9 +282,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int jj = 0; jj < CW / 8; ++jj) {
           const int j = pass * (CW / 8) + jj;
           const int col = jj * 8 + (l % 4) * 2, n = n0 + j * 8 + (l % 4) * 2;
-          const float s0 = n < N ? scale[n] : 0.f, s1 = n + 1 < N ? scale[n + 1] : 0.f;
-          const float b0 = bias != nullptr && n < N ? bias[n] : 0.f;
-          const float b1 = bias != nullptr && n + 1 < N ? bias[n + 1] : 0.f;
+          const float s0 = n < N ? sp[n] : 0.f, s1 = n + 1 < N ? sp[n + 1] : 0.f;
+          const float b0 = bp != nullptr && n < N ? bp[n] : 0.f;
+          const float b1 = bp != nullptr && n + 1 < N ? bp[n + 1] : 0.f;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float v0 = __fmul_rn(__int2float_rn(d[j * 4 + h * 2]), s0);
@@ -288,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int m = m0 + c * 64 + row, n = n0 + pass * CW + unit * VEC;
           if (m >= M || n >= N) continue;
           const uint4 v = *reinterpret_cast<const uint4*>(stage + epi_offset(row, unit * 16));
-          T* dst = out + static_cast<long long>(m) * N + n;
+          T* dst = op + static_cast<long long>(m) * N + n;
           if (vec_ok && n + VEC <= N) {
             *reinterpret_cast<uint4*>(dst) = v;
           } else {
@@ -335,9 +349,10 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows)
 
 template <typename T>
 int launch(const void* qa, const void* qw, const float* scale, const float* bias, void* out, int M, int N, int K,
-           cudaStream_t stream) {
+           int P, int a_shared, int w_shared, int s_step, int bias_step, cudaStream_t stream) {
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, qa, M, K, BM) || !make_map(&map_b, qw, N, K, BN))
+  if (P < 1 || static_cast<long long>(P) * M > INT32_MAX || static_cast<long long>(P) * N > INT32_MAX ||
+      !make_map(&map_a, qa, a_shared ? M : P * M, K, BM) || !make_map(&map_b, qw, w_shared ? N : P * N, K, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = int8_gemm_wgmma_kernel<T>;
   const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -349,29 +364,34 @@ int launch(const void* qa, const void* qw, const float* scale, const float* bias
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n > 0 ? n : 1;
   }();
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int grid = tiles < sms ? tiles : sms;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, scale, bias, static_cast<T*>(out), M, N, K);
+  const long long tiles = static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN) * P;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, scale, bias, static_cast<T*>(out), M, N, K, P,
+                                                a_shared ? 0 : M, w_shared ? 0 : N, s_step, bias_step);
   return thunder::launch_status();
 }
 
 }  // namespace
 
-// qa (M, K) and qw (N, K) int8, K innermost, K % 16 == 0 and both bases
-// 16-byte aligned (the wrapper checks); scale (N,) f32; bias (N,) f32 or
-// null; out (M, N).
+// P problems: qa (P, M, K), or (M, K) shared when a_shared; qw (P, N, K),
+// or (N, K) when w_shared; int8, K innermost, K % 16 == 0 and both bases
+// 16-byte aligned (the wrapper checks); scale f32 and bias f32 (or null)
+// with problem p's N values at p * s_step and p * bias_step (a step of 0
+// shares them); out (P, M, N).
 extern "C" int thunder_int8_gemm(const void* qa, const void* qw, const void* scale, const void* bias, void* out,
-                                 int M, int N, int K, int dtype, void* stream) {
+                                 int M, int N, int K, int dtype, int P, int a_shared, int w_shared, int s_step,
+                                 int bias_step, void* stream) {
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case thunder::kF32:
-      return launch<float>(qa, qw, s, b, out, M, N, K, st);
+      return launch<float>(qa, qw, s, b, out, M, N, K, P, a_shared, w_shared, s_step, bias_step, st);
     case thunder::kF16:
-      return launch<__half>(qa, qw, s, b, out, M, N, K, st);
+      return launch<__half>(qa, qw, s, b, out, M, N, K, P, a_shared, w_shared, s_step, bias_step, st);
     case thunder::kBF16:
-      return launch<__nv_bfloat16>(qa, qw, s, b, out, M, N, K, st);
+      return launch<__nv_bfloat16>(qa, qw, s, b, out, M, N, K, P, a_shared, w_shared, s_step, bias_step, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,6 +21,9 @@
 // one `ldmatrix` of shared memory rows padded to 80 bytes (no bank
 // conflicts): four 8 x 16-byte matrices give a 16 x 32 fragment of A, or the
 // 8 x 32 fragments of B for two n-tiles.
+// Problems (vmap's batching rule): gridDim.z runs P products, each block
+// offsetting qa, qw, scale, bias and out to its own problem (a step of 0
+// for what the problems share); one problem is the plain product.
 // A row, a column or a K step past the end is zero-filled by the copy's
 // `src-size`; where K is not a multiple of 16 (rows not 16-byte aligned) the
 // tile is read byte by byte instead, zeros past K. The int32 sums are exact,
@@ -96,8 +99,14 @@ template <bool kAligned, typename T>
 __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qw,
                                                             const float* __restrict__ scale,
                                                             const float* __restrict__ bias, T* __restrict__ out, int M,
-                                                            int N, int K) {
+                                                            int N, int K, long long a_step, long long w_step,
+                                                            int s_step, int bias_step) {
   extern __shared__ __align__(16) int8_t smem[];
+  qa += blockIdx.z * a_step;
+  qw += blockIdx.z * w_step;
+  scale += blockIdx.z * s_step;
+  if (bias != nullptr) bias += blockIdx.z * bias_step;
+  out += static_cast<long long>(blockIdx.z) * M * N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // the warp's 64 x 32 of the tile
@@ -189,23 +198,29 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const int8_t* __rest
 
 template <typename T>
 int launch(const int8_t* qa, const int8_t* qw, const float* scale, const float* b, void* out, int M, int N, int K,
-           int aligned, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+           int aligned, int P, int a_shared, int w_shared, int s_step, int bias_step, cudaStream_t stream) {
+  if (P < 1 || P > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, P);
   T* o = static_cast<T*>(out);
   auto kernel = aligned ? int8_gemm_kernel<true, T> : int8_gemm_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(qa, qw, scale, b, o, M, N, K);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(qa, qw, scale, b, o, M, N, K,
+                                                a_shared ? 0 : static_cast<long long>(M) * K,
+                                                w_shared ? 0 : static_cast<long long>(N) * K, s_step, bias_step);
   return thunder::launch_status();
 }
 
 }  // namespace
 
-// qa (M, K) and qw (N, K) int8, K innermost; scale (N,) f32; bias (N,) f32
-// or null; out (M, N). `aligned`: K % 16 == 0 and both bases
-// 16-byte aligned (the wrapper decides).
+// P problems as in thunder_int8_gemm: qa (P, M, K) or shared (M, K), qw
+// (P, N, K) or shared (N, K), int8, K innermost; scale and bias (or null)
+// f32 with problem p's N values at p * s_step and p * bias_step; out (P, M,
+// N). `aligned`: K % 16 == 0 and both bases 16-byte aligned (the wrapper
+// decides).
 extern "C" int thunder_int8_gemm_sync(const void* qa, const void* qw, const void* scale, const void* bias, void* out,
-                                 int M, int N, int K, int dtype, int aligned, void* stream) {
+                                 int M, int N, int K, int dtype, int aligned, int P, int a_shared, int w_shared,
+                                 int s_step, int bias_step, void* stream) {
   const int8_t* a = static_cast<const int8_t*>(qa);
   const int8_t* w = static_cast<const int8_t*>(qw);
   const float* s = static_cast<const float*>(scale);
@@ -213,11 +228,11 @@ extern "C" int thunder_int8_gemm_sync(const void* qa, const void* qw, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case thunder::kF32:
-      return launch<float>(a, w, s, b, out, M, N, K, aligned, st);
+      return launch<float>(a, w, s, b, out, M, N, K, aligned, P, a_shared, w_shared, s_step, bias_step, st);
     case thunder::kF16:
-      return launch<__half>(a, w, s, b, out, M, N, K, aligned, st);
+      return launch<__half>(a, w, s, b, out, M, N, K, aligned, P, a_shared, w_shared, s_step, bias_step, st);
     case thunder::kBF16:
-      return launch<__nv_bfloat16>(a, w, s, b, out, M, N, K, aligned, st);
+      return launch<__nv_bfloat16>(a, w, s, b, out, M, N, K, aligned, P, a_shared, w_shared, s_step, bias_step, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

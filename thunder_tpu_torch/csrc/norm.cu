@@ -79,6 +79,11 @@
 //     walks only segment s's rows, and the column-sum kernel sums each set's
 //     partial rows into row s of dw (segs, D). One segment is the plain
 //     backward, with the same bits.
+//   - Per-segment weights (a vmapped weight, executors/batching.py): the
+//     weight (and LayerNorm's bias) may be (segs, D), row r of the forward
+//     reading row r / seg_rows of it and the backward's segment s reading row
+//     s; a shared (D,) weight is passed with no segment step, and its rows
+//     take the same instructions and give the same bits as before.
 //   - Rows that break the bulk copy's 16-byte rules, or too wide for one
 //     slot, take the same passes reading device memory directly (4-byte
 //     loads where rows allow, else one element).
@@ -173,10 +178,15 @@ __device__ __forceinline__ float2 row_stats(const Row& row, float partial, int D
 template <typename T, int VEC, bool LN, bool STREAM>
 __global__ void __launch_bounds__(NTHREADS)
     norm_fwd_kernel_block(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                    T* __restrict__ y, int D, float eps) {
+                    T* __restrict__ y, int D, int seg_rows, float eps) {
   extern __shared__ float xs[];  // D floats: this row of x in f32 (not STREAM)
   __shared__ float red[NWARPS];
   const long long row = blockIdx.x;
+  if (seg_rows > 0) {  // this row's segment's weight and bias
+    const long long off = row / seg_rows * D;
+    w += off;
+    if (b != nullptr) b += off;
+  }
   const T* xr = x + row * D;
   T* yr = y + row * D;
   const int nchunk = D / VEC;
@@ -378,7 +388,7 @@ __device__ __forceinline__ void store_any(T* p, const float* in) {
 template <typename T, int U, bool LN>
 __global__ void __launch_bounds__(NTHREADS)
     norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                    T* __restrict__ y, int N, int D, int wpr, float eps) {
+                    T* __restrict__ y, int N, int D, int seg_rows, int wpr, float eps) {
   constexpr int K = LANE_COLS / U;
   using R = Raw<T, U>;
   __shared__ float2 red[2 * NWARPS];
@@ -397,16 +407,27 @@ __global__ void __launch_bounds__(NTHREADS)
       q[k] = u < nunits ? load_any<T, U>(xr + u * U) : R{};
     }
   };
-  if (first < N) load_row(first, xq);
+  // The weight and bias of segment `seg` (seg_rows > 0: rows seg * seg_rows
+  // on read that segment's row of w and b; else one shared row).
+  auto load_params = [&](int seg) {
+    const long long off = static_cast<long long>(seg) * D;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int u = gt + k * tg;
-    wq[k] = u < nunits ? load_any<T, U>(w + u * U) : R{};
-    bq[k] = LN && b != nullptr && u < nunits ? load_any<T, U>(b + u * U) : R{};
-  }
+    for (int k = 0; k < K; ++k) {
+      const int u = gt + k * tg;
+      wq[k] = u < nunits ? load_any<T, U>(w + off + u * U) : R{};
+      bq[k] = LN && b != nullptr && u < nunits ? load_any<T, U>(b + off + u * U) : R{};
+    }
+  };
+  if (first < N) load_row(first, xq);
+  int seg = seg_rows > 0 && first < N ? first / seg_rows : 0;
+  load_params(seg);
 
   for (int row = first; row < N; row += stride) {
     if (row + stride < N) load_row(row + stride, nq);
+    if (seg_rows > 0 && row / seg_rows != seg) {
+      seg = row / seg_rows;
+      load_params(seg);
+    }
     float xf[K * U], s1[2] = {0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -621,7 +642,7 @@ template <typename T, int MODE, bool LN>
 __global__ void __launch_bounds__(NTHREADS, 1)
     norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* __restrict__ w,
                     T* __restrict__ dx, float* __restrict__ dw_part, float* __restrict__ db_part, int seg_rows,
-                    int seg_blocks, int D, int wpr, int depth, float eps) {
+                    int seg_blocks, int w_per_seg, int D, int wpr, int depth, float eps) {
   constexpr int U = MODE == kScalar ? 1 : static_cast<int>(4 / sizeof(T));
   constexpr int KMAX = LANE_COLS / U;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -660,6 +681,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // This block's segment: its rows are seg_rows from `base`, walked by the
   // seg_blocks blocks of the segment.
   const long long base = static_cast<long long>(blockIdx.x / seg_blocks) * seg_rows;
+  if (w_per_seg) w += static_cast<long long>(blockIdx.x / seg_blocks) * D;  // the segment's own weight
   const int first = (blockIdx.x % seg_blocks) * groups + grp, stride = seg_blocks * groups;
   const int nrows = first < seg_rows ? (seg_rows - 1 - first) / stride + 1 : 0;
 
@@ -818,9 +840,10 @@ auto fwd_rows_kernel(int unit) -> decltype(&norm_fwd_kernel<T, 1, LN>) {
 }
 
 template <typename T, bool LN>
-int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int mode, int unit,
-               int wpr, int ctas, cudaStream_t stream) {
+int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, int seg_rows, float eps, int mode,
+               int unit, int wpr, int ctas, cudaStream_t stream) {
   if (N == 0) return 0;
+  if (seg_rows < 0 || (seg_rows > 0 && N % seg_rows != 0)) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = 16 / sizeof(T);
   const T *xt = static_cast<const T*>(x), *wt = static_cast<const T*>(w), *bt = static_cast<const T*>(b);
   T* yt = static_cast<T*>(y);
@@ -829,7 +852,7 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int 
     if (kernel == nullptr || ctas < 1 || wpr < 1 || wpr > NWARPS || NWARPS % wpr != 0 || D % unit != 0 ||
         (D / unit + 32 * wpr - 1) / (32 * wpr) > LANE_COLS / unit)
       return static_cast<int>(cudaErrorInvalidValue);
-    kernel<<<ctas, NTHREADS, 0, stream>>>(xt, wt, bt, yt, N, D, wpr, eps);
+    kernel<<<ctas, NTHREADS, 0, stream>>>(xt, wt, bt, yt, N, D, seg_rows, wpr, eps);
     return thunder::launch_status();
   }
   if ((mode != kBlock && mode != kStream) || (unit != V && unit != 1) || D % unit != 0)
@@ -841,14 +864,14 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y, int N, int 
   const size_t smem = stream_rows ? 0 : static_cast<size_t>(D) * sizeof(float);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<N, NTHREADS, smem, stream>>>(xt, wt, bt, yt, D, eps);
+  kernel<<<N, NTHREADS, smem, stream>>>(xt, wt, bt, yt, D, seg_rows, eps);
   return thunder::launch_status();
 }
 
 template <typename T, bool LN>
 int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
-               float* db_part, int N, int D, int segs, int ctas, int wpr, int depth, int mode, float eps,
-               cudaStream_t stream) {
+               float* db_part, int N, int D, int segs, int w_per_seg, int ctas, int wpr, int depth, int mode,
+               float eps, cudaStream_t stream) {
   if (ctas < 1 || wpr < 1 || wpr > NWARPS || NWARPS % wpr != 0 || depth < 0 || depth > MAX_DEPTH ||
       (mode == kRing) != (depth > 0) || segs < 1 || segs > 65535 || N % segs != 0 || ctas % segs != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -864,7 +887,7 @@ int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw,
   if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<ctas, NTHREADS, smem, stream>>>(static_cast<const T*>(g), static_cast<const T*>(x),
                                            static_cast<const T*>(w), static_cast<T*>(dx), dw_part, db_part, N / segs,
-                                           ctas / segs, D, wpr, depth, eps);
+                                           ctas / segs, w_per_seg, D, wpr, depth, eps);
   if (int err = thunder::launch_status()) return err;
   // The column sums may be scheduled while the row kernel's blocks drain
   // (programmatic dependent launch); they wait for its end themselves.
@@ -884,30 +907,31 @@ int launch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw,
 }
 
 template <bool LN>
-int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps, int dtype, int mode,
-                 int unit, int wpr, int ctas, cudaStream_t s) {
+int dispatch_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, int seg_rows, float eps,
+                 int dtype, int mode, int unit, int wpr, int ctas, cudaStream_t s) {
   switch (dtype) {
-    case thunder::kBF16: return launch_fwd<__nv_bfloat16, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
-    case thunder::kF16: return launch_fwd<__half, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
-    case thunder::kF32: return launch_fwd<float, LN>(x, w, b, y, N, D, eps, mode, unit, wpr, ctas, s);
+    case thunder::kBF16:
+      return launch_fwd<__nv_bfloat16, LN>(x, w, b, y, N, D, seg_rows, eps, mode, unit, wpr, ctas, s);
+    case thunder::kF16: return launch_fwd<__half, LN>(x, w, b, y, N, D, seg_rows, eps, mode, unit, wpr, ctas, s);
+    case thunder::kF32: return launch_fwd<float, LN>(x, w, b, y, N, D, seg_rows, eps, mode, unit, wpr, ctas, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool LN>
 int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db, float* dw_part,
-                 float* db_part, int N, int D, int segs, int ctas, int wpr, int depth, int mode, float eps,
-                 int dtype, cudaStream_t s) {
+                 float* db_part, int N, int D, int segs, int w_per_seg, int ctas, int wpr, int depth, int mode,
+                 float eps, int dtype, cudaStream_t s) {
   switch (dtype) {
     case thunder::kBF16:
-      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth,
-                                           mode, eps, s);
+      return launch_bwd<__nv_bfloat16, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, w_per_seg, ctas, wpr,
+                                           depth, mode, eps, s);
     case thunder::kF16:
-      return launch_bwd<__half, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode, eps,
-                                    s);
+      return launch_bwd<__half, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, w_per_seg, ctas, wpr, depth,
+                                    mode, eps, s);
     case thunder::kF32:
-      return launch_bwd<float, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode, eps,
-                                   s);
+      return launch_bwd<float, LN>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, w_per_seg, ctas, wpr, depth,
+                                   mode, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -918,12 +942,14 @@ int dispatch_bwd(const void* g, const void* x, const void* w, void* dx, float* d
 // mode 0: row groups of `wpr` warps on `ctas` blocks, loading `unit`
 // elements at once (16 bytes, 4 bytes or 1); mode 1: a block a row, the row
 // cached in shared memory; mode 2: a block a row, read twice (unit 16 bytes
-// or 1 in modes 1 and 2; wpr and ctas unused).
-extern "C" int thunder_norm_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, float eps,
-                                int layer_norm, int dtype, int mode, int unit, int wpr, int ctas, void* stream) {
+// or 1 in modes 1 and 2; wpr and ctas unused). seg_rows 0: w and b are (D,);
+// else (N / seg_rows, D), row r reading row r / seg_rows.
+extern "C" int thunder_norm_fwd(const void* x, const void* w, const void* b, void* y, int N, int D, int seg_rows,
+                                float eps, int layer_norm, int dtype, int mode, int unit, int wpr, int ctas,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return layer_norm ? dispatch_fwd<true>(x, w, b, y, N, D, eps, dtype, mode, unit, wpr, ctas, s)
-                    : dispatch_fwd<false>(x, w, nullptr, y, N, D, eps, dtype, mode, unit, wpr, ctas, s);
+  return layer_norm ? dispatch_fwd<true>(x, w, b, y, N, D, seg_rows, eps, dtype, mode, unit, wpr, ctas, s)
+                    : dispatch_fwd<false>(x, w, nullptr, y, N, D, seg_rows, eps, dtype, mode, unit, wpr, ctas, s);
 }
 
 // How many blocks of the register route's kernel (layer_norm, dtype, unit as
@@ -955,12 +981,13 @@ extern "C" int thunder_norm_fwd_blocks_per_sm(int layer_norm, int dtype, int uni
 // it is not null, db_part), each (ctas, D) f32; then their column sums into
 // dw (and db), (segs, D) f32: the rows are `segs` equal segments (N and
 // ctas multiples of segs), each summed on its own ctas / segs blocks.
+// w_per_seg: w is (segs, D), segment s reading row s; else w is (D,).
 extern "C" int thunder_norm_bwd(const void* g, const void* x, const void* w, void* dx, float* dw, float* db,
-                                float* dw_part, float* db_part, int N, int D, int segs, int ctas, int wpr,
-                                int depth, int mode, float eps, int layer_norm, int dtype, void* stream) {
+                                float* dw_part, float* db_part, int N, int D, int segs, int w_per_seg, int ctas,
+                                int wpr, int depth, int mode, float eps, int layer_norm, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return layer_norm ? dispatch_bwd<true>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, ctas, wpr, depth, mode,
-                                         eps, dtype, s)
-                    : dispatch_bwd<false>(g, x, w, dx, dw, nullptr, dw_part, nullptr, N, D, segs, ctas, wpr, depth,
-                                          mode, eps, dtype, s);
+  return layer_norm ? dispatch_bwd<true>(g, x, w, dx, dw, db, dw_part, db_part, N, D, segs, w_per_seg, ctas, wpr,
+                                         depth, mode, eps, dtype, s)
+                    : dispatch_bwd<false>(g, x, w, dx, dw, nullptr, dw_part, nullptr, N, D, segs, w_per_seg, ctas,
+                                          wpr, depth, mode, eps, dtype, s);
 }

@@ -20,6 +20,12 @@
 //   entry point zeroes with a memset on the same stream first, so that a
 //   replayed CUDA graph starts from 0 too; then a grid-stride quantization
 //   that reads the max.
+// - Segments (vmap's batching rule, executors/batching.py): the tensor may
+//   be `segs` equal runs of elements, one a vmapped slice, each with its own
+//   amax word and scale: blockIdx.y is the segment, and its blocks walk only
+//   its run. The max is exact whatever the order, so each segment's scale
+//   and bits are those of the unbatched call on that slice; one segment is
+//   the per-tensor call as before.
 // Bits: the scale and each quotient are one correctly rounded division
 // (`__fdiv_rn`, not a product with a reciprocal), `rintf` rounds half to
 // even, and the build uses no fast math, so q and s have the bits of the
@@ -140,39 +146,46 @@ __device__ __forceinline__ const T* at(const T* x, long long ld, long long cols,
   return x + (i / cols) * ld + i % cols;
 }
 
+// Segment blockIdx.y holds elements [y * per, (y + 1) * per) of the
+// (rows, cols) matrix in row-major order, per = rows * cols / gridDim.y.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(TENSOR_THREADS) amax_kernel(const T* __restrict__ x, long long ld, long long rows,
                                                               long long cols, unsigned* __restrict__ amax) {
   __shared__ unsigned red[32];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long per = rows * cols / gridDim.y, first = blockIdx.y * per;
   unsigned m = 0;
   if constexpr (kVec) {
     constexpr int V = kVecElems<T>;
-    const long long nv = rows * cols / V;
+    const long long nv = per / V;
     for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; v < nv; v += stride)
-      m = max(m, vec_amax<T>(*reinterpret_cast<const uint4*>(at(x, ld, cols, v * V))));
+      m = max(m, vec_amax<T>(*reinterpret_cast<const uint4*>(at(x, ld, cols, first + v * V))));
   } else {
-    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < rows * cols; i += stride)
-      m = max(m, abs_bits(thunder::to_float(*at(x, ld, cols, i))));
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < per; i += stride)
+      m = max(m, abs_bits(thunder::to_float(*at(x, ld, cols, first + i))));
   }
   m = block_max(m, red);
-  if (threadIdx.x == 0) atomicMax(amax, m);
+  if (threadIdx.x == 0) atomicMax(amax + blockIdx.y, m);
 }
 
 template <typename T, bool kVec, bool kRecip>
 __global__ void __launch_bounds__(TENSOR_THREADS)
     quantize_tensor_kernel(const T* __restrict__ x, long long ld, long long rows, long long cols, float qmax,
                            const unsigned* __restrict__ amax, int8_t* __restrict__ q, float* __restrict__ scale) {
-  const float s = scale_of<kRecip>(*amax, qmax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale = s;
+  const float s = scale_of<kRecip>(amax[blockIdx.y], qmax);
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale[blockIdx.y] = s;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long per = rows * cols / gridDim.y, first = blockIdx.y * per;
   if constexpr (kVec) {
     constexpr int V = kVecElems<T>;
-    const long long nv = rows * cols / V;
-    for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; v < nv; v += stride)
-      store_vec<T, kRecip>(q + v * V, *reinterpret_cast<const uint4*>(at(x, ld, cols, v * V)), s);
+    const long long nv = per / V;
+    for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; v < nv; v += stride) {
+      const long long i = first + v * V;
+      store_vec<T, kRecip>(q + i, *reinterpret_cast<const uint4*>(at(x, ld, cols, i)), s);
+    }
   } else {
-    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < rows * cols; i += stride)
+    for (long long i = first + blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < first + per;
+         i += stride)
       q[i] = static_cast<int8_t>(quant<kRecip>(thunder::to_float(*at(x, ld, cols, i)), s));
   }
 }
@@ -187,15 +200,18 @@ int launch_rows(const void* x, long long ld, int rows, int K, float qmax, void* 
 
 template <typename T, bool kVec, bool kRecip>
 int launch_tensor(const void* x, long long ld, long long rows, long long cols, float qmax, void* amax, void* q,
-                  void* scale, int blocks, cudaStream_t st) {
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
+                  void* scale, int blocks, int segs, cudaStream_t st) {
+  if (segs < 1 || segs > 65535 || (rows * cols) % segs != 0 || (kVec && (rows * cols / segs) % kVecElems<T> != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned) * segs, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* xt = static_cast<const T*>(x);
   unsigned* a = static_cast<unsigned*>(amax);
-  amax_kernel<T, kVec><<<blocks, TENSOR_THREADS, 0, st>>>(xt, ld, rows, cols, a);
+  const dim3 grid(blocks, segs);
+  amax_kernel<T, kVec><<<grid, TENSOR_THREADS, 0, st>>>(xt, ld, rows, cols, a);
   const int status = thunder::launch_status();
   if (status != 0) return status;
-  quantize_tensor_kernel<T, kVec, kRecip><<<blocks, TENSOR_THREADS, 0, st>>>(
+  quantize_tensor_kernel<T, kVec, kRecip><<<grid, TENSOR_THREADS, 0, st>>>(
       xt, ld, rows, cols, qmax, a, static_cast<int8_t*>(q), static_cast<float*>(scale));
   return thunder::launch_status();
 }
@@ -216,8 +232,8 @@ struct Rows {
 template <typename T, bool kVec, bool kRecip>
 struct Tensor {
   static int run(const void* x, long long ld, long long rows, long long cols, float qmax, void* amax, void* q,
-                 void* scale, int blocks, cudaStream_t st) {
-    return launch_tensor<T, kVec, kRecip>(x, ld, rows, cols, qmax, amax, q, scale, blocks, st);
+                 void* scale, int blocks, int segs, cudaStream_t st) {
+    return launch_tensor<T, kVec, kRecip>(x, ld, rows, cols, qmax, amax, q, scale, blocks, segs, st);
   }
 };
 
@@ -246,11 +262,14 @@ extern "C" int thunder_quantize_rows(const void* x, long long ld, int rows, int 
                         static_cast<cudaStream_t>(stream));
 }
 
-// x (rows, cols) as above; q (rows, cols) int8 contiguous; scale a 0-d f32;
-// amax one 32-bit word of scratch; `blocks` the grid of both launches.
+// x (rows, cols) as above, `segs` equal runs of elements in row-major order
+// (one for a per-tensor scale; with `vec`, each run a whole number of
+// 16-byte vectors); q (rows, cols) int8 contiguous; scale (segs,) f32; amax
+// `segs` 32-bit words of scratch; `blocks` the blocks a segment in both
+// launches.
 extern "C" int thunder_quantize_tensor(const void* x, long long ld, long long rows, long long cols, float qmax,
                                        int dtype, int vec, int fault_reciprocal, void* amax, void* q, void* scale,
-                                       int blocks, void* stream) {
-  return dispatch<Tensor>(dtype, vec, fault_reciprocal, x, ld, rows, cols, qmax, amax, q, scale, blocks,
+                                       int blocks, int segs, void* stream) {
+  return dispatch<Tensor>(dtype, vec, fault_reciprocal, x, ld, rows, cols, qmax, amax, q, scale, blocks, segs,
                           static_cast<cudaStream_t>(stream));
 }

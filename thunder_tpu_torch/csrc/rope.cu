@@ -6,7 +6,9 @@
 // What it computes: out = x * cos + [-x2, x1] * sin, where x1 and x2 are the
 //   two halves of each head row. x (B, H, T, D) may be a strided view (last
 //   dim contiguous), as the q/k slices of the fused qkv projection are;
-//   cos/sin (T, D) are contiguous; out (B, H, T, D) is contiguous. All one
+//   cos/sin (T, D) are contiguous, or (B / seg_b, T, D) with a table a
+//   segment of seg_b batch rows (per-sample position offsets, a vmapped
+//   table: executors/batching.py); out (B, H, T, D) is contiguous. All one
 //   dtype (bf16, f16 or f32), any even D, any T. Each output is computed in
 //   f32 and rounded once.
 //
@@ -172,7 +174,7 @@ template <typename T, int VO, int PU, bool DIRECT>
 __global__ void __launch_bounds__(NTHREADS)
     rope_kernel(const T* __restrict__ x, const T* __restrict__ cos_t, const T* __restrict__ sin_t,
                 T* __restrict__ out, int H, int T_len, int D, long long sb, long long sh, long long st, int tt,
-                int hg, int hs, int vx, int flat) {
+                int hg, int hs, int vx, int flat, int seg_b) {
   // Shared memory: the tile's cos, then sin, then two buffers of a stage,
   // each `hs` tiles of x; a tile is tt * D elements, rows back to back.
   extern __shared__ __align__(16) unsigned char smem[];
@@ -181,8 +183,10 @@ __global__ void __launch_bounds__(NTHREADS)
   const int n = rows * D, half = D / 2, tile = tt * D;
   const int nstages = (heads + hs - 1) / hs;
   const T* xb = x + b * sb + h0 * sh + static_cast<long long>(t0) * st;
-  const T* ct = cos_t + static_cast<long long>(t0) * D;
-  const T* stt = sin_t + static_cast<long long>(t0) * D;
+  // The batch row's table: its segment's (T, D), or the one shared table.
+  const long long tab = (seg_b > 0 ? static_cast<long long>(b / seg_b) * T_len : 0) + t0;
+  const T* ct = cos_t + tab * D;
+  const T* stt = sin_t + tab * D;
   T* cs = reinterpret_cast<T*>(smem);
   T* ss = cs + tile;
   T* ring = ss + tile;
@@ -271,7 +275,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <typename T, int VO, int PU, bool DIRECT>
 int launch_kernel(const void* x, const void* c, const void* s, void* out, int B, int H, int T_len, int D,
-                  long long sb, long long sh, long long st, int tt, int hg, int hs, int vx, int flat,
+                  long long sb, long long sh, long long st, int tt, int hg, int hs, int vx, int flat, int seg_b,
                   cudaStream_t stream) {
   auto kernel = rope_kernel<T, VO, PU, DIRECT>;
   const size_t smem = DIRECT ? 0 : static_cast<size_t>(2 + 2 * hs) * tt * D * sizeof(T);
@@ -284,23 +288,23 @@ int launch_kernel(const void* x, const void* c, const void* s, void* out, int B,
   const dim3 grid((T_len + tt - 1) / tt, (H + hg - 1) / hg, B);
   kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(c),
                                            static_cast<const T*>(s), static_cast<T*>(out), H, T_len, D, sb, sh, st,
-                                           tt, hg, hs, vx, flat);
+                                           tt, hg, hs, vx, flat, seg_b);
   return thunder::launch_status();
 }
 
 template <typename T>
 int launch(const void* x, const void* c, const void* s, void* out, int B, int H, int T_len, int D, long long sb,
            long long sh, long long st, int tt, int hg, int hs, int vx, int vo, int pu, int flat,
-           int direct, cudaStream_t stream) {
+           int direct, int seg_b, cudaStream_t stream) {
   if (static_cast<long long>(B) * H * T_len * D == 0) return 0;
   constexpr int V = 16 / sizeof(T);
   const bool vx_ok = vx == 16 || vx == 8 || vx == 4 || vx == static_cast<int>(sizeof(T));
   if (D % 2 || tt < 1 || hg < 1 || hs < 1 || hs > hg || !vx_ok || B > 65535 ||
       (H + hg - 1) / hg > 65535 || (direct && (tt != 1 || vo != 1)) || (vo != 1 && vo != V) || pu < 1 || vo % pu ||
-      (D / 2) % pu)
+      (D / 2) % pu || seg_b < 0 || (seg_b > 0 && B % seg_b))
     return static_cast<int>(cudaErrorInvalidValue);
 #define THUNDER_ROPE(VO_, PU_, DIRECT_) \
-  launch_kernel<T, VO_, PU_, DIRECT_>(x, c, s, out, B, H, T_len, D, sb, sh, st, tt, hg, hs, vx, flat, stream)
+  launch_kernel<T, VO_, PU_, DIRECT_>(x, c, s, out, B, H, T_len, D, sb, sh, st, tt, hg, hs, vx, flat, seg_b, stream)
   if (direct) return THUNDER_ROPE(1, 1, true);
   if (vo == 1) return THUNDER_ROPE(1, 1, false);
   switch (pu) {
@@ -321,21 +325,23 @@ int launch(const void* x, const void* c, const void* s, void* out, int B, int H,
 // bytes of a copy of x into shared memory; vo the elements a thread stores at
 // once (16 bytes or 1); pu the elements of a partner read; flat: a head's
 // rows lie back to back (st == D); direct: x is read from device memory
-// (tt == 1, vo == 1).
+// (tt == 1, vo == 1); seg_b: 0 for one shared (T, D) table, else the batch
+// rows of each (T, D) table of cos and sin (B / seg_b tables, back to back).
 extern "C" int thunder_rope(const void* x, const void* cos_t, const void* sin_t, void* out, int B, int H,
                             int T_len, int D, long long sb, long long sh, long long st, int tt, int hg,
-                            int hs, int vx, int vo, int pu, int flat, int direct, int dtype, void* stream) {
+                            int hs, int vx, int vo, int pu, int flat, int direct, int seg_b, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case thunder::kBF16:
       return launch<__nv_bfloat16>(x, cos_t, sin_t, out, B, H, T_len, D, sb, sh, st, tt, hg, hs, vx, vo, pu,
-                                   flat, direct, s);
+                                   flat, direct, seg_b, s);
     case thunder::kF16:
       return launch<__half>(x, cos_t, sin_t, out, B, H, T_len, D, sb, sh, st, tt, hg, hs, vx, vo, pu, flat,
-                            direct, s);
+                            direct, seg_b, s);
     case thunder::kF32:
       return launch<float>(x, cos_t, sin_t, out, B, H, T_len, D, sb, sh, st, tt, hg, hs, vx, vo, pu, flat,
-                           direct, s);
+                           direct, seg_b, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

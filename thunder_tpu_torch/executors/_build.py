@@ -39,17 +39,17 @@ _c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_lon
 _SIGNATURES = {
     "thunder_flash_fwd": [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9 + [_c_float] + [_c_int] * 4 + [_c_void_p],
     "thunder_flash_bwd": [_c_void_p] * 12 + [_c_int] * 6 + [_c_ll] * 15 + [_c_float] + [_c_int] * 4 + [_c_void_p],
-    "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int] * 9 + [_c_void_p],
+    "thunder_rope": [_c_void_p] * 4 + [_c_int] * 4 + [_c_ll] * 3 + [_c_int] * 10 + [_c_void_p],
     "thunder_ce_fwd": [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_ll, _c_int, _c_void_p],
     "thunder_ce_bwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
-    "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 2 + [_c_float] + [_c_int] * 6 + [_c_void_p],
+    "thunder_norm_fwd": [_c_void_p] * 4 + [_c_int] * 3 + [_c_float] + [_c_int] * 6 + [_c_void_p],
     "thunder_norm_fwd_blocks_per_sm": [_c_int] * 3,
-    "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 7 + [_c_float] + [_c_int] * 2 + [_c_void_p],
-    "thunder_int8_gemm": [_c_void_p] * 5 + [_c_int] * 4 + [_c_void_p],
-    "thunder_int8_gemm_sync": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
+    "thunder_norm_bwd": [_c_void_p] * 8 + [_c_int] * 8 + [_c_float] + [_c_int] * 2 + [_c_void_p],
+    "thunder_int8_gemm": [_c_void_p] * 5 + [_c_int] * 9 + [_c_void_p],
+    "thunder_int8_gemm_sync": [_c_void_p] * 5 + [_c_int] * 10 + [_c_void_p],
     "thunder_quantize_rows": [_c_void_p, _c_ll, _c_int, _c_int, _c_float] + [_c_int] * 3 + [_c_void_p] * 3,
     "thunder_quantize_tensor": [_c_void_p] + [_c_ll] * 3 + [_c_float] + [_c_int] * 3 + [_c_void_p] * 3
-    + [_c_int, _c_void_p],
+    + [_c_int, _c_int, _c_void_p],
     "thunder_rng_draw": [_c_void_p, _c_int, ctypes.c_uint, _c_void_p, _c_ll, _c_int, _c_int] + [_c_float] * 3
     + [_c_int, _c_void_p],
 }

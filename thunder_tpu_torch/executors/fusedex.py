@@ -46,12 +46,21 @@ register_executor(ex)
 # =============================================================================
 
 
+def _tables(t: torch.Tensor, B: int) -> torch.Tensor:
+    """cos or sin in f32 against x (B, H, T, D): (T, D) as it is, a table a
+    segment of the batch (S, T, D) as (B, 1, T, D), batch row b taking table
+    b // (B / S)."""
+    tf = t.float()
+    return tf if tf.ndim == 2 else tf.repeat_interleave(B // tf.shape[0], 0)[:, None]
+
+
 def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x·cos + [−x2, x1]·sin, computed in f32 and rounded once to x's dtype."""
+    """x·cos + [−x2, x1]·sin, computed in f32 and rounded once to x's dtype;
+    cos/sin (T, D), or (S, T, D) with a table a segment of x's batch."""
     half = x.shape[-1] // 2
     xf = x.float()
     rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    return (xf * cos.float() + rotated * sin.float()).to(x.dtype)
+    return (xf * _tables(cos, x.shape[0]) + rotated * _tables(sin, x.shape[0])).to(x.dtype)
 
 
 # The rope kernel's launch plan; the constants are those of csrc/rope.cu.
@@ -137,8 +146,10 @@ def rope_plan_of(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, out: tor
 
 @_build.counted
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate-half rope of x (B, H, T, D) with cos/sin (T, D). x may be a
-    strided view (last dim contiguous); the result is contiguous."""
+    """Rotate-half rope of x (B, H, T, D) with cos/sin (T, D), or (S, T, D):
+    a table a segment of B / S batch rows (per-sample positions; a vmapped
+    table). x may be a strided view (last dim contiguous); the result is
+    contiguous."""
     _build.refuse_transformed("rope", x, cos, sin)
     if x.device.type == "cpu":
         return rope_plain(x, cos, sin)
@@ -147,7 +158,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     if not (x.dtype == cos.dtype == sin.dtype) or str(x.dtype).removeprefix("torch.") not in _build.DTYPE_CODES:
         raise ValueError(f"rope: x, cos, sin must share one of bf16/f16/f32, got {x.dtype}, {cos.dtype}, {sin.dtype}")
     B, H, T, D = x.shape
-    if tuple(cos.shape) != (T, D) or tuple(sin.shape) != (T, D) or D % 2:
+    S = cos.shape[0] if cos.ndim == 3 else 0
+    if (tuple(cos.shape[-2:]) != (T, D) or sin.shape != cos.shape or cos.ndim not in (2, 3) or D % 2
+            or (S and B % S)):
         raise ValueError(f"rope: unsupported shapes x {tuple(x.shape)}, cos {tuple(cos.shape)}, sin {tuple(sin.shape)}")
     x = x if x.stride(-1) == 1 else x.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
@@ -158,7 +171,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
         status = lib.thunder_rope(
             x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B, H, T, D, *x.stride()[:3],
             plan.rows, plan.heads, plan.stage, plan.load, plan.vec, plan.pair, int(plan.flat), int(plan.direct),
-            _build.dtype_code(x), _build.stream_of(x),
+            B // S if S else 0, _build.dtype_code(x), _build.stream_of(x),
         )
     _build.check(status, "rope")
     apply_rope.launches += 1

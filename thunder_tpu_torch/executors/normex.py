@@ -28,7 +28,10 @@ partials, cast once to the weight's type; db is None without a bias.
 
 Each wrapper launches its kernel on CUDA tensors, or raises; on CPU tensors
 it runs the plain PyTorch version beside it. The backward wrappers return dw
-and db in f32; the claimed implementations cast them.
+and db in f32; the claimed implementations cast them. Under vmap
+(``executors/batching.py``) the wrappers also take a weight (and bias) a
+segment of the rows, (S, D): the rows are S equal runs, one a slice, each
+normed with its own row of the weight.
 """
 
 from __future__ import annotations
@@ -173,6 +176,13 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1]).float()
 
 
+def _param_rows(p: torch.Tensor, N: int) -> torch.Tensor:
+    """A weight or bias in f32 against N rows: (D,) as it is, (S, D) one row
+    a row of x, segment s of the rows taking row s."""
+    pf = p.float()
+    return pf if pf.ndim == 1 else pf.repeat_interleave(N // pf.shape[0], 0)
+
+
 def _stats(xf: torch.Tensor, eps: float, layer_norm: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(mu, rstd) per row in f32; mu is 0 for RMSNorm. The variance takes
     two passes: the mean, then the mean of the centred squares."""
@@ -185,12 +195,13 @@ def _stats(xf: torch.Tensor, eps: float, layer_norm: bool) -> tuple[torch.Tensor
 
 def norm_fwd_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float, *,
                    layer_norm: bool) -> torch.Tensor:
-    """(x − mu)·rstd·w (+ b) in f32, rounded once to x's dtype."""
+    """(x − mu)·rstd·w (+ b) in f32, rounded once to x's dtype; w and b (D,)
+    or a row a segment of the rows, (S, D)."""
     xf = _rows(x)
     mu, rstd = _stats(xf, eps, layer_norm)
-    y = (xf - mu) * rstd * weight.float()
+    y = (xf - mu) * rstd * _param_rows(weight, xf.shape[0])
     if bias is not None:
-        y = y + bias.float()
+        y = y + _param_rows(bias, xf.shape[0])
     return y.to(x.dtype).reshape(x.shape)
 
 
@@ -202,11 +213,12 @@ def norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: 
     m1 = mean(wg) for LayerNorm and 0 for RMSNorm; dw = Σ g·xhat and
     db = Σ g over the rows, (D,), or with ``segments`` > 1 over each of
     that many equal runs of rows, (segments, D). The kernel sums dw and db
-    by blocks of rows; the two differ only in summation order."""
+    by blocks of rows; the two differ only in summation order. The weight
+    may be a row a segment, (segments, D)."""
     xf, gf = _rows(x), _rows(g)
     mu, rstd = _stats(xf, eps, layer_norm)
     xhat = (xf - mu) * rstd
-    wg = gf * weight.float()
+    wg = gf * _param_rows(weight, xf.shape[0])
     m2 = (wg * xhat).mean(-1, keepdim=True)
     m1 = wg.mean(-1, keepdim=True) if layer_norm else 0.0
     dx = (rstd * (wg - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
@@ -224,7 +236,8 @@ def norm_bwd_plain(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: 
 
 
 def _check_cuda(kernel: str, x: torch.Tensor, g: Optional[torch.Tensor], *params: Optional[torch.Tensor]) -> None:
-    """x and g (..., D), weight and bias (D,): one CUDA device, one type."""
+    """x and g (..., D), weight and bias (D,) or both (S, D) with S dividing
+    the rows: one CUDA device, one type."""
     params = tuple(p for p in params if p is not None)
     ts = (x,) + (() if g is None else (g,)) + params
     if not (x.is_cuda and all(t.device == x.device for t in ts)):
@@ -232,8 +245,12 @@ def _check_cuda(kernel: str, x: torch.Tensor, g: Optional[torch.Tensor], *params
     if str(x.dtype).removeprefix("torch.") not in _build.DTYPE_CODES or any(t.dtype != x.dtype for t in ts):
         raise ValueError(f"{kernel}: every tensor must share one of bf16/f16/f32, got {[t.dtype for t in ts]}")
     D = x.shape[-1] if x.ndim else 0
-    if D < 1 or (g is not None and g.shape != x.shape) or any(p.shape != (D,) for p in params):
-        raise ValueError(f"{kernel}: unsupported shapes {[tuple(t.shape) for t in ts]} (D >= 1)")
+    N = x.numel() // D if D else 0
+    shape = params[0].shape if params else (D,)
+    if (D < 1 or (g is not None and g.shape != x.shape) or any(p.shape != shape for p in params)
+            or shape[-1] != D or len(shape) > 2 or (len(shape) == 2 and (shape[0] < 1 or N % shape[0]))):
+        raise ValueError(f"{kernel}: unsupported shapes {[tuple(t.shape) for t in ts]} (D >= 1, the weight and "
+                         "bias (D,) or (S, D) with S dividing the rows)")
 
 
 def _align(D: int, *ts: Optional[torch.Tensor]) -> int:
@@ -261,11 +278,12 @@ def _launch_fwd(kernel: str, x, weight, bias, eps: float, layer_norm: bool) -> t
     w, b = weight.contiguous(), None if bias is None else bias.contiguous()
     y = torch.empty_like(x2)
     plan = fwd_plan_of(x2, w, b, y, layer_norm)
+    seg_rows = x2.shape[0] // w.shape[0] if w.ndim == 2 else 0
     lib = _build.lib()
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_fwd(
             x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), x2.shape[0], D,
-            float(eps), int(layer_norm), _build.dtype_code(x), _FWD_MODES[plan.mode], plan.unit,
+            seg_rows, float(eps), int(layer_norm), _build.dtype_code(x), _FWD_MODES[plan.mode], plan.unit,
             plan.warps_per_row, plan.ctas, _build.stream_of(x),
         )
     _build.check(status, kernel)
@@ -280,8 +298,9 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
     D = x.shape[-1]
     x2, g2, w = x.reshape(-1, D).contiguous(), g.reshape(-1, D).contiguous(), weight.contiguous()
     N = x2.shape[0]
-    if segments < 1 or N % segments:
-        raise ValueError(f"{kernel}: {N} rows do not split into {segments} equal segments")
+    if segments < 1 or N % segments or (w.ndim == 2 and w.shape[0] != segments):
+        raise ValueError(f"{kernel}: {N} rows do not split into {segments} equal segments, a weight row each "
+                         f"(weight {tuple(w.shape)})")
     dx = torch.empty_like(x2)
     plan = bwd_plan(N, D, x.element_size(), layer_norm, _build.sm_count(x.device.index), _align(D, g2, x2, w, dx),
                     segments)
@@ -294,7 +313,8 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
     with torch.cuda.device(x.device):
         status = lib.thunder_norm_bwd(
             g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(), ptr(db), dw_part.data_ptr(),
-            ptr(db_part), N, D, segments, plan.ctas, plan.warps_per_row, plan.depth, _MODES[plan.mode], float(eps),
+            ptr(db_part), N, D, segments, int(w.ndim == 2), plan.ctas, plan.warps_per_row, plan.depth,
+            _MODES[plan.mode], float(eps),
             int(layer_norm), _build.dtype_code(x), _build.stream_of(x),
         )
     _build.check(status, kernel)
@@ -303,7 +323,8 @@ def _launch_bwd(kernel: str, g, x, weight, eps: float, layer_norm: bool, with_bi
 
 @_build.counted
 def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
-    """RMSNorm of x (..., D) over its last dim, times weight (D,)."""
+    """RMSNorm of x (..., D) over its last dim, times weight (D,) or (S, D)
+    (a row a segment of the rows)."""
     _build.refuse_transformed("rms_fwd", x, weight)
     if x.device.type == "cpu":
         return norm_fwd_plain(x, weight, None, eps, layer_norm=False)
@@ -316,7 +337,8 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) ->
 def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
                  eps: float = RMS_EPS, segments: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw in f32) of RMSNorm from its cotangent g; dw (D,), or with
-    ``segments`` > 1 one row a segment of the rows, (segments, D)."""
+    ``segments`` > 1 one row a segment of the rows, (segments, D). The
+    weight is (D,), or (segments, D), a row a segment."""
     _build.refuse_transformed("rms_bwd", g, x, weight)
     if x.device.type == "cpu":
         return norm_bwd_plain(g, x, weight, eps, layer_norm=False, segments=segments)[:2]
@@ -329,7 +351,7 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                    eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of x (..., D) over its last dim, times weight (D,), plus
-    bias (D,) when given."""
+    bias (D,) when given; both may be (S, D), a row a segment of the rows."""
     _build.refuse_transformed("ln_fwd", x, weight, bias)
     if x.device.type == "cpu":
         return norm_fwd_plain(x, weight, bias, eps, layer_norm=True)

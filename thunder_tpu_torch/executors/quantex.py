@@ -93,10 +93,16 @@ def _div(x: torch.Tensor, qmax: float) -> torch.Tensor:
     return x / torch.full_like(x, qmax)
 
 
-def quantize_per_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_per_tensor(x: torch.Tensor, qmax: float, segments: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of ``quantize_tensor``: (q int8, scale 0-d f32),
-    scale = max(amax, 1e-6) / qmax, all in f32."""
+    scale = max(amax, 1e-6) / qmax, all in f32; with ``segments`` > 1 the
+    elements are that many equal runs, each with its own scale, (segments,)."""
     x = x.float()
+    if segments > 1:
+        runs = x.reshape(segments, -1)
+        scale = _div(torch.clamp_min(runs.abs().amax(1), 1e-6), qmax)
+        q = torch.clamp(torch.round(runs / scale[:, None]), -127, 127).to(torch.int8)
+        return q.reshape(x.shape), scale
     scale = _div(torch.clamp_min(x.abs().amax(), 1e-6), qmax)
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
@@ -149,36 +155,43 @@ def quantize_rows(w: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Ten
     return out
 
 
-def _quantize_tensor_launch(x: torch.Tensor, qmax: float, fault_reciprocal: bool = False):
+def _quantize_tensor_launch(x: torch.Tensor, qmax: float, fault_reciprocal: bool = False, segments: int = 1):
     x2, ld, vec = _quantize_operand(x, "quantize_tensor")
     rows, cols = x2.shape
     if ld == cols:  # contiguous: one flat row
         rows, cols = 1, rows * cols
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty((), dtype=torch.float32, device=x.device)
-    amax = torch.empty((1,), dtype=torch.int32, device=x.device)
+    scale = torch.empty(() if segments == 1 else (segments,), dtype=torch.float32, device=x.device)
+    amax = torch.empty((segments,), dtype=torch.int32, device=x.device)
     per = 16 // x2.element_size() if vec else 1
-    blocks = max(1, min(-(-rows * cols // (per * 256)), 8 * _build.sm_count(x.device.index or 0)))
+    per_seg = -(-rows * cols // (segments * per * 256))
+    blocks = max(1, min(per_seg, 8 * _build.sm_count(x.device.index or 0) // segments))
     status = _build.lib().thunder_quantize_tensor(
         ctypes.c_void_p(x2.data_ptr()), ld, rows, cols, qmax, _build.dtype_code(x2), int(vec), int(fault_reciprocal),
         ctypes.c_void_p(amax.data_ptr()), ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(scale.data_ptr()), blocks,
-        _build.stream_of(x2))
+        segments, _build.stream_of(x2))
     _build.check(status, "quantize_tensor")
     return q, scale
 
 
 @_build.counted
-def quantize_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_tensor(x: torch.Tensor, qmax: float, segments: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """(q int8 of x's shape, scale 0-d f32), one scale for the whole tensor:
     ``csrc/quantize.cu`` on a CUDA tensor (a grid amax, then one pass, in
-    x's own type), the plain version on a CPU tensor."""
+    x's own type), the plain version on a CPU tensor. With ``segments`` > 1
+    (vmap's slices, ``executors/batching.py``) x's rows are that many equal
+    runs, each quantized with its own scale: scale (segments,)."""
     _build.refuse_transformed("quantize_tensor", x)
+    rows = x.numel() // x.shape[-1] if x.ndim and x.shape[-1] else 0
+    if segments < 1 or (x.ndim and rows % segments):
+        raise ValueError(f"quantize_tensor: the {rows} rows of {tuple(x.shape)} do not split into {segments} "
+                         "equal segments")
     if x.device.type == "cpu":
-        return quantize_per_tensor(x, qmax)
+        return quantize_per_tensor(x, qmax, segments)
     if not x.is_cuda or x.ndim == 0 or x.numel() == 0:
         raise ValueError(f"quantize_tensor: expected a non-empty CUDA tensor of at least one dim, got "
                          f"{tuple(x.shape)} on {x.device}")
-    out = _quantize_tensor_launch(x, qmax)
+    out = _quantize_tensor_launch(x, qmax, segments=segments)
     quantize_tensor.launches += 1
     return out
 
@@ -189,44 +202,66 @@ def quantize_tensor(x: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.T
 # =============================================================================
 
 
+def _per_problem(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A scale or bias against the (..., M, N) product: (N,) as it is, a row
+    a problem (P, N) as (P, 1, N)."""
+    return t if t is None or t.ndim == 1 else t[:, None, :]
+
+
 def int8_gemm_plain(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
                     dtype: torch.dtype) -> torch.Tensor:
     """The int32 product exactly, in f64 (every partial sum is far below
-    2**53), then float(sum) * scale (+ bias), each rounded in f32."""
-    acc = (qa.double() @ qw.double().T).float()
-    out = acc * scale
+    2**53), then float(sum) * scale (+ bias), each rounded in f32; operands
+    as ``int8_gemm`` takes them."""
+    acc = (qa.double() @ qw.double().transpose(-1, -2)).float()
+    out = acc * _per_problem(scale)
     if bias is not None:
-        out = out + bias.float()
+        out = out + _per_problem(bias).float()
     return out.to(dtype)
 
 
 def _gemm_operands(qa, qw, scale, bias, dtype):
     """Check the operands of a CUDA call; return them contiguous, the bias
-    in f32."""
-    M, K = qa.shape
-    N = qw.shape[0]
+    in f32, and the problem count P (1 when every operand is 2-D/1-D)."""
+    M, K = qa.shape[-2:]
+    N = qw.shape[-2]
     ts = (qa, qw, scale) + (() if bias is None else (bias,))
+    P = max([1] + [t.shape[0] for t, r in ((qa, 3), (qw, 3), (scale, 2), (bias, 2)) if t is not None and t.ndim == r])
     if not all(t.is_cuda and t.device == qa.device for t in ts):
         raise ValueError(f"int8_gemm: every tensor must be on one CUDA device, got {[str(t.device) for t in ts]}")
-    if qa.dtype != torch.int8 or qw.dtype != torch.int8 or tuple(qw.shape) != (N, K) or qa.ndim != 2:
-        raise ValueError(f"int8_gemm: expected int8 qa (M, K) and qw (N, K), got {qa.dtype} {tuple(qa.shape)} "
-                         f"and {qw.dtype} {tuple(qw.shape)}")
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (N,):
-        raise ValueError(f"int8_gemm: expected an f32 scale of shape ({N},), got {scale.dtype} {tuple(scale.shape)}")
-    if bias is not None and tuple(bias.shape) != (N,):
-        raise ValueError(f"int8_gemm: expected a bias of shape ({N},), got {tuple(bias.shape)}")
+    if (qa.dtype != torch.int8 or qw.dtype != torch.int8 or tuple(qw.shape[-1:]) != (K,)
+            or tuple(qa.shape) not in ((M, K), (P, M, K)) or tuple(qw.shape) not in ((N, K), (P, N, K))):
+        raise ValueError(f"int8_gemm: expected int8 qa (M, K) or (P, M, K) and qw (N, K) or (P, N, K), got "
+                         f"{qa.dtype} {tuple(qa.shape)} and {qw.dtype} {tuple(qw.shape)}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) not in ((N,), (P, N)):
+        raise ValueError(f"int8_gemm: expected an f32 scale of shape ({N},) or ({P}, {N}), got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    if bias is not None and tuple(bias.shape) not in ((N,), (P, N)):
+        raise ValueError(f"int8_gemm: expected a bias of shape ({N},) or ({P}, {N}), got {tuple(bias.shape)}")
     if str(dtype).removeprefix("torch.") not in _build.DTYPE_CODES:
         raise ValueError(f"int8_gemm: no output type {dtype}")
     bias = None if bias is None else bias.float().contiguous()
-    return qa.contiguous(), qw.contiguous(), scale.contiguous(), bias
+    return qa.contiguous(), qw.contiguous(), scale.contiguous(), bias, P
 
 
-def _gemm_args(qa, qw, scale, bias, dtype):
-    """A fresh (M, N) output and the C entry points' leading arguments."""
-    out = torch.empty((qa.shape[0], qw.shape[0]), dtype=dtype, device=qa.device)
+def _gemm_args(qa, qw, scale, bias, dtype, P):
+    """A fresh (M, N) output, or (P, M, N) for P problems or any batched
+    operand, and the C entry points' leading arguments."""
+    M, K = qa.shape[-2:]
+    N = qw.shape[-2]
+    batched = any(t is not None and t.ndim == r for t, r in ((qa, 3), (qw, 3), (scale, 2), (bias, 2)))
+    out = torch.empty((P, M, N) if batched else (M, N), dtype=dtype, device=qa.device)
     return out, (ctypes.c_void_p(qa.data_ptr()), ctypes.c_void_p(qw.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
                  ctypes.c_void_p(None if bias is None else bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                 qa.shape[0], qw.shape[0], qa.shape[1], _build.DTYPE_CODES[str(dtype).removeprefix("torch.")])
+                 M, N, K, _build.DTYPE_CODES[str(dtype).removeprefix("torch.")])
+
+
+def _problem_args(qa, qw, scale, bias, P) -> tuple:
+    """The C entry points' problem arguments: P, whether qa and qw are
+    shared, and the scale's and bias's steps a problem (0: shared)."""
+    N = qw.shape[-2]
+    return (P, int(qa.ndim == 2), int(qw.ndim == 2), N if scale.ndim == 2 else 0,
+            N if bias is not None and bias.ndim == 2 else 0)
 
 
 def tma_describes(qa: torch.Tensor, qw: torch.Tensor) -> bool:
@@ -241,9 +276,10 @@ def int8_gemm_sync(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias
     """``int8_gemm`` on the ``mma.sync`` kernel (``csrc/int8_gemm_sync.cu``),
     which reads any operand: the route for what TMA cannot describe."""
     _build.refuse_transformed("int8_gemm_sync", qa, qw, scale, bias)
-    qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)
-    out, args = _gemm_args(qa, qw, scale, bias, dtype)
-    status = _build.lib().thunder_int8_gemm_sync(*args, int(tma_describes(qa, qw)), _build.stream_of(qa))
+    qa, qw, scale, bias, P = _gemm_operands(qa, qw, scale, bias, dtype)
+    out, args = _gemm_args(qa, qw, scale, bias, dtype, P)
+    status = _build.lib().thunder_int8_gemm_sync(*args, int(tma_describes(qa, qw)),
+                                                 *_problem_args(qa, qw, scale, bias, P), _build.stream_of(qa))
     _build.check(status, "int8_gemm_sync")
     int8_gemm_sync.launches += 1
     return out
@@ -255,15 +291,20 @@ def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Opt
     """out (M, N) of ``dtype`` = float(qa (M, K) · qw (N, K)ᵀ) · scale (N,)
     (+ bias (N,), added in f32): the plain version on CPU tensors; on CUDA
     tensors ``csrc/int8_gemm.cu`` (``wgmma``, TMA) where ``tma_describes``
-    the operands, else ``int8_gemm_sync``. Each route counts its own launches."""
+    the operands, else ``int8_gemm_sync``. Each route counts its own launches.
+
+    P problems in one launch (vmap's batching rule,
+    ``executors/batching.py``): qa (P, M, K), qw (P, N, K), scale and bias
+    (P, N), each operand given once (2-D, 1-D) where the problems share it;
+    out is then (P, M, N), problem p's rows rescaled with scale row p."""
     _build.refuse_transformed("int8_gemm", qa, qw, scale, bias)
     if qa.device.type == "cpu":
         return int8_gemm_plain(qa, qw, scale, bias, dtype)
-    qa, qw, scale, bias = _gemm_operands(qa, qw, scale, bias, dtype)
+    qa, qw, scale, bias, P = _gemm_operands(qa, qw, scale, bias, dtype)
     if not tma_describes(qa, qw):
         return int8_gemm_sync(qa, qw, scale, bias, dtype)
-    out, args = _gemm_args(qa, qw, scale, bias, dtype)
-    status = _build.lib().thunder_int8_gemm(*args, _build.stream_of(qa))
+    out, args = _gemm_args(qa, qw, scale, bias, dtype, P)
+    status = _build.lib().thunder_int8_gemm(*args, *_problem_args(qa, qw, scale, bias, P), _build.stream_of(qa))
     _build.check(status, "int8_gemm")
     int8_gemm.launches += 1
     return out
@@ -274,18 +315,23 @@ def int8_gemm(qa: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, bias: Opt
 # =============================================================================
 
 
-def quant_linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def quant_linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                 tensor=None, rows=None, gemm=None) -> torch.Tensor:
     """``linear(a, w, bias)`` with a and w quantized to int8 in their own
-    types (thunder_tpu/executors/quantex.py:123 ``_quant_linear_impl``)."""
+    types (thunder_tpu/executors/quantex.py:123 ``_quant_linear_impl``).
+    ``tensor``, ``rows`` and ``gemm`` are the batching rules under vmap
+    (``executors/batching.py``); by default the wrappers in this module's
+    seats, looked up at each call."""
+    tensor, rows, gemm = tensor or quantize_tensor, rows or quantize_rows, gemm or int8_gemm
     r = _recipe
-    qa, sa = quantize_tensor(a.reshape(-1, a.shape[-1]), r.qmax)
+    qa, sa = tensor(a.reshape(-1, a.shape[-1]), r.qmax)
     if r.per_channel_weights:
-        qw, sw = quantize_rows(w, r.qmax)
+        qw, sw = rows(w, r.qmax)
         sw = sw[:, 0]
     else:
-        qw, sw = quantize_tensor(w, r.qmax)
+        qw, sw = tensor(w, r.qmax)
         sw = sw.expand(w.shape[0])
-    out = int8_gemm(qa, qw, sa * sw, bias, a.dtype)
+    out = gemm(qa, qw, sa * sw, bias, a.dtype)
     return out.reshape(*a.shape[:-1], w.shape[0])
 
 

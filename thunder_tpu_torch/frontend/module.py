@@ -297,7 +297,7 @@ class ThunderModule:
 
     def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
                  rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None,
-                 seq_bucket: Any = None, seq_pad_value: Any = None, **options):
+                 seq_bucket: Any = None, seq_pad_value: Any = None, debug_checks: Any = None, **options):
         from thunder_tpu_torch.api import _autocast_transforms
         from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
         from thunder_tpu_torch.core import devices
@@ -323,7 +323,8 @@ class ThunderModule:
             trace_transforms=_autocast_transforms(autocast),
             sharp_edges=resolve_sharp_edges_option(sharp_edges),
             disable_jit_staging=bool(disable_jit_staging),
-            compile_options={} if autocast is None else {"autocast": autocast},
+            compile_options={**({} if autocast is None else {"autocast": autocast}),
+                             **({} if debug_checks is None else {"debug_checks": bool(debug_checks)})},
         )
         self._lc_cs = CompileStats()
         self._params()  # a parameter off the jit's device raises here, not at the first call
@@ -408,6 +409,14 @@ class ThunderModule:
     # -- compilation ----------------------------------------------------------
 
     def _compile(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
+        """One entry, under the module's ``debug_checks`` (the trace verifier
+        after every pass of the forward and backward)."""
+        from thunder_tpu_torch.core.trace import debug_checks
+
+        with debug_checks(self._lc_cd.compile_options.get("debug_checks")):
+            return self._compile_impl(params, args, kwargs, grad)
+
+    def _compile_impl(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
         from thunder_tpu_torch.api import trace_program
         from thunder_tpu_torch.common import sharp_edges_policy
         from thunder_tpu_torch.core import dtypes, prims
