@@ -150,7 +150,29 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    ``mem.predicted-oom`` at B=32 with nothing allocated; (c) ``cost.py``
    against every kernel row's bound, and ``trace_cost`` of the step by kind
    beside its device ms by group;
-17. after phase 20, prints one JSON line describing every kernel, then the
+21. the observability layer at open_llama_3b's full width: (a) the
+   26-layer staged loss and training step under ``jit(events=<path>)`` with
+   metrics on, the log replayed (no ERROR, the compile brackets paired, a
+   ``pass`` event with its ms for every timed pass), ``monitor.report()``'s
+   cache hits by kind against ``cache_info``, a fast hit's host µs with
+   metrics off and on in turns (medians within 5%); (b) 2 layers:
+   ``debug_watch="nan"`` with a planted +inf/-inf stopping at the first op
+   with a non-finite output, the unplanted instrumented loss bit-equal to
+   the unstaged one on the card, ``instrument="time"``'s flash, rope and CE
+   times between 1x and 2x phase 3's rows, ``instrument="memory"``'s peak
+   within 2% of ``max_memory_allocated``; (c) the staged ``build_train``
+   step built under ``THUNDER_ANNOTATE_TRACES=1``, profiled over 3 steps and
+   attributed to trace lines through the launch-order map of its eager
+   step: at least 95% attributed, the per-step total within 3% of
+   ``profile_call``'s device ms, the flash, rope and CE lines within 1% of
+   their groups in the profiled window (printed beside ``profile_call``'s)
+   with the wrappers' launch counts, each kernel line's joined
+   bound equal to phase 20 (c)'s, the top lines and "other" by line; (d) the
+   roofline sampler every 2 steps over 6: 3 probes, a ledger row for every
+   kernel line, no recapture, the steps between probes within 1% of
+   unsampled steps; (e) ``benchmarks.targets`` rows for ``sdpa`` and the
+   Llama block's train unit under ``kernels`` and ``torch``;
+17. after phase 21, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -3888,6 +3910,459 @@ def run_cost(cfg, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# =============================================================================
+# Phase 21: the observability layer
+# =============================================================================
+
+HIT_SAMPLES = 240  # fast hits timed with metrics off, and as many on, in turns
+HIT_ROUNDS = 12
+METRICS_OVERHEAD = 1.05  # the median hit with metrics on against off
+OPTIMER_BAND = (1.0, 2.0)  # a kernel line's OpTimer time over its phase 3 row's
+MEMORY_REL = 0.02  # MemoryHighWater's peak against max_memory_allocated
+ATTRIBUTED_SHARE = 0.95
+STEP_TOTAL_REL = 0.03  # the attributed ms a step against profile_call's device ms
+GROUP_REL = 0.01  # a kernel group's lines against profile_call's group
+ROOFLINE_STEP_REL = 0.01
+ROOFLINE_EVERY = 2
+ROOFLINE_STEPS = 6
+
+# The kernel lines of the staged step: the claim's symbol, its trace (the
+# pass tag prefix), the phase 3 row with its bound, profile_gpt's group.
+KERNEL_LINES = (("sdpa_fwd_res", "augmented_forward", "flash_fwd_lse", "flash_fwd"),
+                ("sdpa_bwd_res", "backward", "flash_bwd", "flash_bwd"),
+                ("apply_rope", "augmented_forward", "rope", "rope"),
+                ("apply_rope", "backward", "rope_bwd", "rope"),
+                ("cross_entropy", "augmented_forward", "ce_fwd", "ce"),
+                ("cross_entropy_bwd", "backward", "ce_bwd", "ce"))
+
+
+def _median(xs: list) -> float:
+    return float(np.median(np.asarray(xs)))
+
+
+def run_events(cfg) -> None:
+    """Phase 21 (a). The 26-layer staged loss and training step (``jit`` and
+    ``value_and_grad``) under ``jit(events=<path>)`` with metrics on, three
+    calls each (warm-up, capture, replay): the log replayed by
+    ``analysis.events`` (no ERROR; each ``compile_start`` closed; a ``pass``
+    event with its ms for every timed pass of each entry's traces), the
+    report's cache lines beside ``cache_info``; then the host µs of a fast
+    hit of the staged loss with metrics off and on, HIT_SAMPLES each in
+    HIT_ROUNDS turns, the medians held within METRICS_OVERHEAD."""
+    import tempfile
+
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.analysis import events as ev_replay
+    from thunder_tpu_torch.models import gpt
+
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED + 27)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_events_")
+    log_path = f"{logdir}/events.jsonl"
+    monitor.reset()
+    monitor.enable()
+    try:
+        loss_fn = tt.jit(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), events=log_path)
+        step_fn = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), events=log_path)
+        for _ in range(3):
+            loss_fn(params, idx, tgt)
+        out = None
+        for _ in range(3):
+            out = step_fn(params, idx, tgt)
+        torch.cuda.synchronize()
+        del out
+        report = monitor.report()
+    finally:
+        monitor.disable()
+    summary, diags = ev_replay.replay_events(log_path)
+    log("  (a) " + ev_replay.format_replay(summary, diags).replace("\n", "\n  (a) "))
+    require(not any(d.severity.name == "ERROR" for d in diags), "the event replay found an ERROR")
+    require(summary["kinds"].get("compile_start") == summary["kinds"].get("compile_end") == 2
+            and not any(d.rule == "events.unclosed-compile" for d in diags),
+            "compile_start/compile_end do not pair up")
+    records = [json.loads(line) for line in open(log_path) if line.strip()]
+    missing = []
+    for fn in (loss_fn, step_fn):
+        cs = tt.compile_stats(fn)
+        entry = cs.cache_entries[-1]
+        passes = [r for r in records if r["kind"] == "pass" and r["compile_id"] == entry.compile_id]
+        for trc in entry.computation_traces + entry.prologue_traces:
+            if trc.provenance is None or "(took" not in trc.provenance.pss:
+                continue
+            if not any(r["name"] == trc.pass_name() and r["trace"] == trc.name and r["ms"] is not None
+                       and r["n_bsyms"] == len(trc.bound_symbols) for r in passes):
+                missing.append(f"compile {entry.compile_id}: {trc.pass_name()} of {trc.name}")
+        phases = [r["phase"] for r in records if r["kind"] == "compile_phase" and r["compile_id"] == entry.compile_id]
+        log(f"  (a) compile {entry.compile_id}: {len(passes)} pass events "
+            f"({sum(r['ms'] is not None for r in passes)} timed), phases {phases}")
+        require(phases == ["trace", "transforms", "claim", "warmup", "capture"],
+                f"compile {entry.compile_id}'s phases are {phases}")
+    require(not missing, f"no pass event with ms for {missing}")
+    hits = report["thunder_tpu_cache_hits_total"]["values"]
+    infos = [tt.cache_info(f) for f in (loss_fn, step_fn)]
+    want = {"fast": sum(i["fast_hits"] for i in infos), "slow": sum(i["slow_hits"] for i in infos)}
+    got = {k: hits.get(f'{{kind="{k}"}}', 0) for k in want}
+    misses = report["thunder_tpu_cache_misses_total"]["values"].get("", 0)
+    log(f"  (a) monitor.report(): cache hits by kind {got}, misses {misses}; cache_info: fast_hits+slow_hits "
+        f"{want}, misses {sum(i['misses'] for i in infos)}, calls {sum(i['calls'] for i in infos)}")
+    require(got == want and misses == sum(i["misses"] for i in infos), "the report's cache lines differ from cache_info")
+
+    # A fast hit's host µs, metrics off and on in turns.
+    def hit_us() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss_fn(params, idx, tgt)
+        dt = (time.perf_counter() - t) * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    per = HIT_SAMPLES // HIT_ROUNDS
+    off, on = [], []
+    try:
+        for _ in range(HIT_ROUNDS):
+            monitor.disable()
+            off += [hit_us() for _ in range(per)]
+            monitor.enable()
+            on += [hit_us() for _ in range(per)]
+    finally:
+        monitor.disable()
+        monitor.reset()
+    m_off, m_on = _median(off), _median(on)
+    log(f"  (a) fast hit of the staged loss, host µs to return (replay enqueued): metrics off median {m_off:.1f} "
+        f"(p10 {np.percentile(off, 10):.1f}, p90 {np.percentile(off, 90):.1f}), on median {m_on:.1f} "
+        f"(p10 {np.percentile(on, 10):.1f}, p90 {np.percentile(on, 90):.1f}) over {len(off)} hits each: "
+        f"{m_on / m_off:.4f}x")
+    require(len(off) >= 200 and m_on <= METRICS_OVERHEAD * m_off,
+            f"metrics on cost {m_on / m_off:.4f}x a fast hit (limit {METRICS_OVERHEAD}x)")
+    del params, loss_fn, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_instrument(cfg, rows: dict) -> None:
+    """Phase 21 (b), 2 layers at full width: ``debug_watch="nan"`` with a
+    planted +inf and -inf in one row of layer 1's ``fc_1_w`` (a NaN where
+    the two products meet with one sign) raises ``NaNWatchError`` at the op
+    that a per-op callback finds first to make a non-finite value; the same
+    loss unplanted, instrumented, bit-equal to the unstaged call's;
+    ``instrument="time"``'s flash, rope and CE lines against phase 3's rows;
+    ``instrument="memory"``'s peak against ``max_memory_allocated``."""
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.observability.instrument import (CallbackHook, MemoryHighWater, NaNWatchError,
+                                                            instrument_reports)
+
+    cfg2 = replace(cfg, name=cfg.name + "-2layer", n_layer=2)
+    params = gpt.init_params(cfg2, seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED + 28)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    loss = lambda p, i, t: gpt.loss_fn(p, i, t, cfg2)  # noqa: E731
+
+    planted = {**params, "blocks": list(params["blocks"])}
+    mlp = dict(planted["blocks"][1]["mlp"])
+    w = mlp["fc_1_w"].clone()
+    w[0, 0], w[0, 1] = float("inf"), float("-inf")
+    mlp["fc_1_w"] = w
+    planted["blocks"][1] = {**planted["blocks"][1], "mlp": mlp}
+    flags = []
+    probe = tt.jit(loss, instrument=CallbackHook(lambda rec, outs: flags.append(
+        (rec.index, rec.sym_name, any(isinstance(x, torch.Tensor) and x.is_floating_point()
+                                      and not bool(torch.isfinite(x).all()) for x in outs)))))
+    probe(planted, idx, tgt)
+    first = next((i, s) for i, s, bad in flags if bad)
+    watched = tt.jit(loss, debug_watch="nan")
+    try:
+        watched(planted, idx, tgt)
+        raised = None
+    except NaNWatchError as e:
+        raised = e
+    log(f"  (b) debug_watch='nan', +inf/-inf planted in layer 1's fc_1_w: "
+        + (f"NaNWatchError at bsym {raised.bsym_index} {raised.sym_name!r} `{raised.trace_line}` "
+           f"(pass {raised.provenance}); the first op with a non-finite output (a per-op callback): bsym "
+           f"{first[0]} {first[1]!r}" if raised else "no error"))
+    require(raised is not None and (raised.bsym_index, raised.sym_name) == first,
+            "the NaN watch did not stop at the first op that made a non-finite value")
+    del planted, mlp, w, probe, watched
+
+    eager = tt.jit(loss, disable_jit_staging=True)
+    want = eager(params, idx, tgt)
+    clean = tt.jit(loss, debug_watch="nan")
+    got = clean(params, idx, tgt)
+    log(f"  (b) unplanted: instrumented loss {float(got):.6f} (staged {tt.last_staging(clean).staged}, "
+        f"{tt.last_staging(clean).reason!r}), unstaged {float(want):.6f}, bit-equal {torch_equal(got, want)}, "
+        f"on {got.device}")
+    require(torch_equal(got, want) and got.is_cuda, "the instrumented loss differs from the unstaged call's")
+
+    timed = tt.jit(loss, instrument="time")
+    for _ in range(3):
+        timed(params, idx, tgt)
+    rep = instrument_reports(timed)[0]
+    ops = {o["symbol"]: o for o in rep["ops"]}
+    top = ", ".join(f"{o['symbol']} {o['total_s'] / o['calls'] * 1e3:.4f} ms x{o['calls'] // 3}"
+                    for o in rep["ops"][:8])
+    log(f"  (b) instrument='time': {rep['total_s'] / 3 * 1e3:.2f} ms of op time a call, {rep['host_gaps']} ops whose "
+        f"launches outran the sleep; top: {top}")
+    for sym, row in (("scaled_dot_product_attention", "flash_fwd"), ("apply_rope", "rope"),
+                     ("cross_entropy", "ce_fwd")):
+        o = ops[sym]
+        per = o["total_s"] / o["calls"] * 1e3
+        ratio = per / rows[row]["ms"]
+        log(f"  (b) OpTimer {sym}: {per:.4f} ms a call ({o['calls']} calls) against phase 3's {row} "
+            f"{rows[row]['ms']:.4f} ms: {ratio:.3f}x")
+        require(OPTIMER_BAND[0] <= ratio <= OPTIMER_BAND[1],
+                f"OpTimer's {sym} is {ratio:.3f}x phase 3's {row} row (band {OPTIMER_BAND})")
+    del timed
+
+    hw = MemoryHighWater()
+    mem = tt.jit(loss, instrument=hw)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem(params, idx, tgt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(hw.peak_bytes - peak) / peak
+    log(f"  (b) instrument='memory': peak {hw.peak_bytes / 2**30:.4f} GiB at {hw.peak_op!r} (exact {hw.exact}), "
+        f"max_memory_allocated over the call {peak / 2**30:.4f} GiB: {rel:.3%}")
+    require(hw.exact and rel <= MEMORY_REL, f"MemoryHighWater's peak is {rel:.3%} from max_memory_allocated")
+    del params, mem, eager, clean, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_attribution(cfg, rows: dict, launches: dict):
+    """Phase 21 (c). The 26-layer ``build_train`` step, built under
+    ``THUNDER_ANNOTATE_TRACES=1`` and staged, profiled over 3 steps
+    (``thunder_tpu_torch.profile``), its graph's kernels placed through the
+    launch-order map of one annotated eager step (``scope_map_of``) and
+    joined with ``cost.py``'s ``h100`` spec: the attributed share (at least
+    ATTRIBUTED_SHARE; the per-step total within STEP_TOTAL_REL of
+    ``profile_call``'s, the mean of a call before and one after), the top 10
+    lines, the kernel lines against their groups in the profiled window
+    (within GROUP_REL, with the wrappers' launches), printed beside
+    ``profile_call``'s groups, and against phase 20 (c)'s bounds, "other"
+    split by line. Returns the Train for (d)."""
+    import os
+
+    import torch
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.benchmarks import train
+    from thunder_tpu_torch.benchmarks.profile_gpt import _group, profile_call
+    from thunder_tpu_torch.observability.attribution import scope_map_of
+
+    os.environ["THUNDER_ANNOTATE_TRACES"] = "1"
+    try:
+        tr = train.build_train(cfg, LOSS_BATCH, SEQ, device="cuda", seed=SEED)
+    finally:
+        del os.environ["THUNDER_ANNOTATE_TRACES"]
+    for _ in range(2):  # warm-up, capture
+        tr.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lmap = scope_map_of(tr.step_eager)
+    map_s = time.perf_counter() - t
+    # profile_call's device ms by group before and after the attributed
+    # profile, their mean the yardstick: the card's clock drifts by a few
+    # tenths of a percent between two windows a few seconds apart.
+    before = profile_call("train_step_before", tr.step, batch=LOSS_BATCH, seq=SEQ)
+    _zero_counts()
+    res = tt.profile(tr.step, steps=3, warmup=0, launch_map=lmap)
+    counts = _launch_counts()
+    after = profile_call("train_step_after", tr.step, batch=LOSS_BATCH, seq=SEQ)
+    join = monitor.attribution_report(res["trace_dir"], traces=[tr.fw_trace, tr.bw_trace], device="h100", steps=3,
+                                      launch_map=lmap)
+    attr = join.attribution
+    groups = set(before["device_ms_by_group"]) | set(after["device_ms_by_group"])
+    prof = {"device_ms": (before["device_ms"] + after["device_ms"]) / 2,
+            "device_ms_by_group": {g: (before["device_ms_by_group"].get(g, 0.0)
+                                       + after["device_ms_by_group"].get(g, 0.0)) / 2 for g in groups}}
+    step_ms = attr.attributed_us / 3 / 1e3
+    log(f"  (c) launch-order map: {len(lmap)} device ops of one eager step, {sum(s is not None for _, s in lmap)} "
+        f"in a line's range ({map_s:.2f} s); profile: {res['avg_s'] * 1e3:.2f} ms/step wall, graph kernels "
+        f"{attr.graph_placed} of {attr.graph_ops} placed, by step {attr.graph_steps}, "
+        f"{attr.graph_mismatched} step(s) differing from the map")
+    log(f"  (c) attributed {attr.coverage:.2%} of {attr.device_busy_us / 3e3:.2f} device ms a step to "
+        f"{len(attr.by_line)} lines: {step_ms:.2f} ms a step, profile_call's device ms {prof['device_ms']:.2f} "
+        f"(before {before['device_ms']:.2f}, after {after['device_ms']:.2f}; "
+        f"{(step_ms - prof['device_ms']) / prof['device_ms']:+.2%}); unattributed: "
+        + ", ".join(f"{n[:50]} {us / 3e3:.3f} ms" for n, us in sorted(attr.unattributed.items(),
+                                                                      key=lambda kv: -kv[1])[:4]))
+    require(attr.coverage >= ATTRIBUTED_SHARE, f"only {attr.coverage:.2%} of the step's device time is attributed")
+    require(abs(step_ms - prof["device_ms"]) <= STEP_TOTAL_REL * prof["device_ms"],
+            "the attributed ms a step is not within 3% of profile_call's device ms")
+    log("  (c) top 10 lines (ms a step and device ops a step, predicted bound ms, bound over measured), on "
+        "cost.py's h100 spec:")
+    for r in join.rows[:10]:
+        roof = "-" if r.roofline_us is None else f"{r.roofline_us / 1e3:.4f}"
+        eff = "-" if r.efficiency is None else f"{r.efficiency:.1%}"
+        log(f"  (c)   {r.label:60s} {r.sym:22s} {r.measured_us / 1e3:9.4f} ms x{r.calls:g}  bound {roof}  {eff}")
+
+    # The kernel lines against their groups (profile_gpt._group over every
+    # kernel of the same profiled window, so that a kernel the map left
+    # unattributed or put on another line shows), printed beside
+    # profile_call's groups, whose windows differ from this one by the
+    # card's clock (PERF.md); and against phase 20 (c)'s bounds.
+    by_group: dict = {}
+    group_n: dict = {}
+    window: dict = {}
+    for (ref, name), (us, n) in attr.ops.items():
+        g = _group(name)
+        window[g] = window.get(g, 0.0) + us / 3e3
+        if ref is not None and g != "other":
+            key = (g, ref.sym)
+            by_group[key] = by_group.get(key, 0.0) + us / 3e3
+            group_n[key] = group_n.get(key, 0) + n / 3
+    claimed = {"flash_fwd_lse": counts["flash_fwd_lse"] / 3, "flash_bwd": counts["flash_bwd"] / 3,
+               "rope": counts["rope"] / 3, "ce": (counts["ce_fwd"] + counts["ce_bwd"]) / 3}
+    for g, syms in (("flash_fwd", ("sdpa_fwd_res",)), ("flash_bwd", ("sdpa_bwd_res",)), ("rope", ("apply_rope",)),
+                    ("ce", ("cross_entropy", "cross_entropy_bwd"))):
+        lines_ms = sum(v for (gg, s), v in by_group.items() if gg == g and s in syms)
+        stray = {s: v for (gg, s), v in by_group.items() if gg == g and s not in syms}
+        n = sum(v for (gg, s), v in group_n.items() if gg == g and s in syms)
+        want_ms = window[g]
+        call_ms = prof["device_ms_by_group"].get(g, 0.0)
+        line_totals = sum(attr.by_line[ref] for ref in attr.by_line if ref.sym in syms) / 3e3
+        log(f"  (c) {g}: its kernels on the {'/'.join(syms)} lines {lines_ms:.4f} ms a step ({n:g} launches; the "
+            f"wrappers counted {claimed['flash_fwd_lse' if g == 'flash_fwd' else g]:g}), those lines in all "
+            f"{line_totals:.4f} ms; the group in the window {want_ms:.4f} ms ({(lines_ms - want_ms) / want_ms:+.3%}), "
+            f"profile_call's {call_ms:.4f} ms ({(lines_ms - call_ms) / call_ms:+.3%})"
+            + (f"; elsewhere {stray}" if stray else ""))
+        require(not stray and abs(lines_ms - want_ms) <= GROUP_REL * want_ms,
+                f"the {g} kernels' lines do not sum to their group within {GROUP_REL:.0%}")
+    require(group_n.get(("flash_fwd", "sdpa_fwd_res")) == claimed["flash_fwd_lse"]
+            and group_n.get(("rope", "apply_rope")) == claimed["rope"]
+            and sum(v for (g, s), v in group_n.items() if g == "ce") == claimed["ce"],
+            "the kernel lines' launches differ from the wrappers' counts")
+    for sym, trace_name, row, _ in KERNEL_LINES:
+        rws = [r for r in join.rows if r.sym == sym and (r.pass_name or "").startswith(trace_name)]
+        bounds = {round(r.roofline_us / 1e3, 6) for r in rws if r.roofline_us is not None}
+        rel = max((abs(b - rows[row]["bound_ms"]) / rows[row]["bound_ms"] for b in bounds), default=1.0)
+        log(f"  (c) {sym} in the {trace_name}: {len(rws)} lines, joined bound {sorted(bounds)} ms against "
+            f"phase 20 (c)'s {row} {rows[row]['bound_ms']:.4f} ms ({rel:.3%}); measured "
+            f"{sum(r.measured_us for r in rws) / 1e3:.4f} ms a step")
+        require(rws and rel <= COST_BOUND_REL, f"{sym}'s joined bound differs from the {row} row's")
+
+    # "other" by line: each line's ops outside the kernel groups and matmul.
+    other: dict = {}
+    for (ref, name), (us, n) in attr.ops.items():
+        if _group(name) == "other":
+            key = ref.label if ref is not None else "unattributed"
+            other[key] = other.get(key, 0.0) + us / 3e3
+    total_other = sum(other.values())
+    bound_of = {r.label: r for r in join.rows}
+    by_sym: dict = {}
+    for label, ms in other.items():
+        r = bound_of.get(label)
+        sym = r.sym if r is not None else label
+        agg = by_sym.setdefault(sym, [0.0, 0.0, 0])
+        agg[0] += ms
+        # A line's bound counts where all its time is "other" (not a
+        # product's line that also launched a small elementwise kernel).
+        if r is not None and r.roofline_us is not None and abs(r.measured_us / 1e3 - ms) <= 1e-9 + 1e-6 * ms:
+            agg[1] += r.roofline_us / 1e3
+        agg[2] += 1
+    log(f"  (c) 'other' {total_other:.2f} ms a step (profile_call's {prof['device_ms_by_group'].get('other', 0.0):.2f})"
+        f" over {len(other)} lines; by symbol (ms a step, the bound of its lines that are all 'other', lines): "
+        + ", ".join(f"{s} {v[0]:.2f}/{v[1]:.2f}/{v[2]}"
+                    for s, v in sorted(by_sym.items(), key=lambda kv: -kv[1][0])[:14]))
+    for label, ms in sorted(other.items(), key=lambda kv: -kv[1])[:15]:
+        r = bound_of.get(label)
+        roof = "-" if r is None or r.roofline_us is None else f"{r.roofline_us / 1e3:.4f}"
+        log(f"  (c)   other {label:60s} {ms:8.4f} ms, bound {roof} ms")
+    sgd = next((r for r in join.rows if r.sym == "sgd_update"), None)
+    param_bytes = sum(p.numel() * p.element_size() for p in tr.flat_params)
+    log(f"  (c) the SGD update: {0.0 if sgd is None else sgd.measured_us / 1e3:.4f} ms a step; its bound "
+        f"(each param read and written once, each grad read once, at {PEAK_BYTES / 1e12:.2f} TB/s) "
+        f"{3 * param_bytes / PEAK_BYTES * 1e3:.4f} ms")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return tr
+
+
+def run_roofline(tr, launches: dict) -> None:
+    """Phase 21 (d). The roofline sampler, every ROOFLINE_EVERY steps over
+    ROOFLINE_STEPS staged steps of (c)'s Train: exactly
+    ROOFLINE_STEPS / ROOFLINE_EVERY probes, a ledger row for every kernel
+    line, no recapture; the mean s/step of the steps between probes within
+    ROOFLINE_STEP_REL of unsampled staged steps."""
+    import torch
+
+    from thunder_tpu_torch import monitor
+
+    from thunder_tpu_torch.observability.roofline import RooflineLedger
+
+    captures = tr.staging.captures
+    _zero_counts()
+    # The ledger keeps the costliest lines up to its bound: room for every
+    # line of the step, so that no kernel line is evicted by cheaper ones.
+    sampler = monitor.roofline(every=ROOFLINE_EVERY, traces=[tr.fw_trace, tr.bw_trace], eager=tr.step_eager,
+                               device="h100", ledger=RooflineLedger(max_ops=8192))
+    between = []
+    try:
+        for step in range(ROOFLINE_STEPS):
+            probe = (step + 1) % ROOFLINE_EVERY == 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sampler.maybe_sample(tr.step)
+            torch.cuda.synchronize()
+            if not probe:
+                between.append(time.perf_counter() - t)
+        plain = []
+        for _ in range(len(between)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.step()
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t)
+        log("  (d) " + monitor.roofline_report(12).replace("\n", "\n  (d) "))
+    finally:
+        monitor.shutdown_roofline()
+    rows = sampler.ledger.rows()
+    labels = {e.label for e in rows}
+    # Every kernel line of the claimed traces, as its scope names it.
+    kernel_lines = {f"L{i}.{b.sym.name}#{trc._annotate_tag()}" for trc in (tr.fw_trace, tr.bw_trace)
+                    for i, b in enumerate(trc.bound_symbols) if b.sym.name in {k[0] for k in KERNEL_LINES}}
+    m_between, m_plain = float(np.mean(between)), float(np.mean(plain))
+    log(f"  (d) every={ROOFLINE_EVERY} over {ROOFLINE_STEPS} staged steps: {sampler.probes} probes, ledger "
+        f"{len(rows)} rows ({len(kernel_lines)} kernel lines, all in the ledger {kernel_lines <= labels}), "
+        f"captures {captures} -> {tr.staging.captures}; steps between probes "
+        f"{', '.join(f'{x:.4f}' for x in between)} s (mean {m_between:.4f}), unsampled "
+        f"{', '.join(f'{x:.4f}' for x in plain)} s (mean {m_plain:.4f}): {(m_between - m_plain) / m_plain:+.3%}")
+    require(sampler.probes == ROOFLINE_STEPS // ROOFLINE_EVERY, f"{sampler.probes} probes ran")
+    require(kernel_lines and kernel_lines <= labels, "a kernel line has no ledger row")
+    require(tr.staging.captures == captures, "the sampled steps recaptured the graph")
+    require(abs(m_between - m_plain) <= ROOFLINE_STEP_REL * m_plain,
+            "the steps between probes are not within 1% of the unsampled staged step")
+    for k, v in _launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def run_targets() -> None:
+    """Phase 21 (e). ``benchmarks.targets.run_target`` for ``sdpa`` and the
+    Llama block's train unit under ``kernels`` and ``torch``."""
+    import torch
+
+    from thunder_tpu_torch.benchmarks import targets
+
+    for unit in ("sdpa", "llama_block_train"):
+        for executor in ("kernels", "torch"):
+            s = targets.run_target(unit, executor, iters=10)
+            log(f"  (e) {json.dumps(s)}")
+            require(s.get("average_iter_time_s", 0) > 0, f"target {unit}[{executor}] printed no time")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4000,6 +4475,18 @@ def main() -> int:
     run_liveness(cfg, masked)
     del masked
     run_cost(cfg, rows)
+
+    log("[21] the observability layer: (a) metrics and the event log of the staged loss and step, replayed, a hit "
+        "with metrics off and on; (b) the NaN watch, OpTimer and MemoryHighWater on 2 layers; (c) the staged "
+        "training step profiled and attributed to trace lines; (d) the roofline sampler; (e) targets")
+    run_events(cfg)
+    run_instrument(cfg, rows)
+    tr = run_attribution(cfg, rows, launches)
+    run_roofline(tr, launches)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_targets()
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -1886,3 +1886,119 @@ def test_capacity_and_spec_read_the_card(dev, monkeypatch):
     trc = claimed_trace(lambda a: ttorch.sum(ttorch.tanh(ttorch.matmul(a, a)) * 2.0), (x,), {})
     found = [d for d in analysis.verify(trc) if d.rule == "mem.predicted-oom"]
     assert len(found) == 1 and torch.cuda.memory_allocated() == before
+
+
+# =============================================================================
+# The observability layer on the card
+# =============================================================================
+
+
+def test_profiled_cuda_call_with_no_kernel_event_raises(dev, tmp_path):
+    """No degraded mode: a profiled call that ran on CUDA and left no kernel
+    event in the trace raises, and counts a failed capture."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.observability import metrics as obsm
+
+    x = torch.ones(4, device=dev)
+    before = obsm.PROFILE_CAPTURES.value(ok="false")
+    with pytest.raises(RuntimeError, match="no kernel event"):
+        tt.profile(lambda: x, steps=1, warmup=0, trace_dir=str(tmp_path / "p"))
+    assert obsm.PROFILE_CAPTURES.value(ok="false") == before + 1
+    res = tt.profile(lambda: x * 2, steps=2, warmup=0, trace_dir=str(tmp_path / "q"))
+    assert res["profiler"] and res["attribution"] is None  # kernels, but no line's range
+
+
+def test_instrumented_entry_runs_on_the_card(dev):
+    """``debug_watch``/``instrument`` on CUDA inputs: the entry is not
+    staged, runs eagerly on the card, and its hooks read the card (OpTimer's
+    device times, MemoryHighWater's allocator peak)."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.observability.instrument import MemoryHighWater, OpTimer, instrument_reports
+
+    timer, hw = OpTimer(), MemoryHighWater()
+    f = lambda a: ttorch.sum(ttorch.tanh(ttorch.matmul(a, a)))  # noqa: E731
+    jf = tt.jit(f, debug_watch="nan", instrument=[timer, hw])
+    x = torch.randn(512, 512, device=dev)
+    torch.matmul(x, x)  # cuBLAS's one-time set-up on the host is not the op's time
+    out = jf(x)
+    assert out.is_cuda and not tt.last_staging(jf).staged and "debug_watch" in tt.last_staging(jf).reason
+    assert torch.equal(out, tt.jit(f, disable_jit_staging=True)(x))
+    rep = {r["hook"]: r for r in instrument_reports(jf)}
+    ops = {o["symbol"]: o for o in rep["OpTimer"]["ops"]}
+    assert ops["matmul"]["calls"] == 1 and 0 < ops["matmul"]["total_s"] < 0.1
+    assert hw.exact and hw.peak_bytes >= 512 * 512 * 4 * 2 and hw.peak_op
+
+
+def test_op_timer_sleep_is_capped_for_a_syncing_op(dev):
+    """An op that synchronizes inside (here the card is synchronized between
+    the hook's two calls) finishes after any sleep: each counts a host gap
+    and the sleep stops at ``OpTimer.MAX_SLEEP_S``, so forty such ops take
+    well under a second of sleep."""
+    import time
+
+    from thunder_tpu_torch.observability.instrument import OpRecord, OpTimer
+
+    timer = OpTimer()
+    rec = OpRecord(0, "item", None, "t0 = item(x)", None, "computation", device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(40):
+        timer.on_op_start(rec)
+        torch.cuda.synchronize()
+        timer.on_op_end(rec, ())
+    assert timer.host_gaps == 40 and timer._sleep_s == OpTimer.MAX_SLEEP_S
+    assert time.perf_counter() - t0 < 40 * OpTimer.MAX_SLEEP_S * 2
+
+
+def test_sampled_staged_calls_draw_as_unsampled(dev, monkeypatch):
+    """The roofline sampler on a staged entry with random draws: the first
+    probe runs the caller's call eagerly (its stage swapped for the eager
+    program) and takes the launch-order map from it, later probes profile
+    the graph and place its kernels by the map. Six sampled calls give the
+    outputs and leave the RNG counter of six unsampled calls; the graph is
+    captured once."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import api
+    from thunder_tpu_torch.observability.roofline import RooflineSampler
+
+    monkeypatch.setenv("THUNDER_ANNOTATE_TRACES", "1")
+    f = lambda x, w: F.dropout(torch.tanh(torch.matmul(x, w)), 0.5)  # noqa: E731
+    plain, sampled = tt.jit(f), tt.jit(f)
+    x, w = torch.randn(256, 256, device=dev), torch.randn(256, 256, device=dev)
+    monkeypatch.setitem(api._global_rng, "seed", 5)
+    want = [plain(x, w) for _ in range(6)]
+    counter = api._global_rng["seed"]
+    api._global_rng["seed"] = 5
+    sampler = RooflineSampler(sampled, every=2, device="h100")
+    got = [sampler.maybe_sample(sampled, x, w) for _ in range(6)]
+    assert sampler.probes == 3 and api._global_rng["seed"] == counter
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tt.last_staging(sampled).staged and tt.last_staging(sampled).captures == 1
+    attr = sampler.last_join.attribution
+    assert sampler._launch_map and attr.graph_ops > 0 and attr.graph_placed == attr.graph_ops
+
+
+def test_staged_attribution_places_every_graph_kernel(dev, tmp_path, monkeypatch):
+    """A staged entry built under annotation, profiled over its replays:
+    the launch-order map of its eager program places every kernel the graph
+    launched on a line; what stays unattributed is the stage's own copies."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.observability.attribution import scope_map_of
+
+    monkeypatch.setenv("THUNDER_ANNOTATE_TRACES", "1")
+    jf = tt.jit(lambda a, b: ttorch.sum(ttorch.gelu(ttorch.matmul(a, b)) * 2.0))
+    a, b = torch.randn(256, 512, device=dev), torch.randn(512, 256, device=dev)
+    for _ in range(2):  # warm-up, capture
+        jf(a, b)
+    assert tt.last_staging(jf).staged
+    lmap = scope_map_of(jf, a, b)
+    assert tt.last_staging(jf).captures == 1  # the map's eager call left the graph alone
+    res = tt.profile(jf, a, b, steps=3, warmup=0, trace_dir=str(tmp_path / "p"), launch_map=lmap)
+    attr = res["attribution"]
+    assert attr.graph_ops >= 3 * 3 and attr.graph_placed == attr.graph_ops
+    final = tt.last_traces(jf)[-1]
+    assert all(final.bound_symbols[r.line].sym.name == r.sym for r in attr.by_line)
+    assert {"matmul", "sum"} <= {r.sym for r in attr.by_line} and attr.coverage > 0.5

@@ -41,6 +41,8 @@ from thunder_tpu_torch.common import (
     ThunderSharpEdgeError,
     ThunderSharpEdgeWarning,
 )
+from thunder_tpu_torch import monitor  # the metrics facade (thunder_tpu/__init__.py:42)
+from thunder_tpu_torch.observability.profile import profile
 
 # The legacy entry point (thunder_tpu/__init__.py:45-49): kept out of
 # __all__ so that ``from thunder_tpu_torch import *`` cannot shadow the
@@ -50,4 +52,5 @@ compile = jit
 __all__ = ["jit", "grad", "value_and_grad", "vmap", "jvp", "seed", "last_traces", "last_prologue_traces",
            "last_backward_traces", "last_staging", "last_compile_options", "cache_hits", "cache_misses", "cache_info",
            "compile_data", "compile_stats", "set_execution_callback_file", "models", "CACHE_OPTIONS",
-           "SHARP_EDGES_OPTIONS", "ThunderSharpEdgeError", "ThunderSharpEdgeWarning", "dtypes", "devices"]
+           "SHARP_EDGES_OPTIONS", "ThunderSharpEdgeError", "ThunderSharpEdgeWarning", "dtypes", "devices",
+           "monitor", "profile"]

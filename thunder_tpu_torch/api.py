@@ -67,6 +67,8 @@ from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex  # ker
 from thunder_tpu_torch.executors import batching, rngex, staging
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import add_default_executor, get_executor, resolve_executors
+from thunder_tpu_torch.observability import events as obs_events
+from thunder_tpu_torch.observability import metrics as obsm
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
 from thunder_tpu_torch.transforms.padmask import analyze_crop_plan, thread_pad_masks
@@ -365,22 +367,52 @@ def trace_program(fn: Callable, args: tuple, kwargs: dict, *, record_input_mutat
 # =============================================================================
 
 
+def _fn_name(cd: CompileData) -> str:
+    return getattr(cd.fn, "__name__", repr(cd.fn))
+
+
 def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
     """Trace, transform, claim and stage one entry, under the compile's
     ``debug_checks`` (the trace verifier after every pass;
-    thunder_tpu/api.py:451-458)."""
-    with debug_checks(cd.compile_options.get("debug_checks")):
-        return _compile_entry_impl(cd, cs, args, kwargs)
+    thunder_tpu/api.py:451-458) and its observability bracket: a compile id
+    the passes' events carry, ``compile_start`` and, under ``cache="symbolic
+    values"``, ``bucket_select`` (thunder_tpu/api.py:456-480). The marked
+    dims are lifted into bucket guards and the entry is traced on the inputs
+    padded to the bucket ceilings."""
+    with debug_checks(cd.compile_options.get("debug_checks")), \
+            obs_events.compile_scope(cd.event_log) as compile_id:
+        obs_events.emit_event("compile_start", compile_id=compile_id, fn=_fn_name(cd),
+                              cache_option=cd.cache_option.name.lower(), call=cs.calls)
+        sym_spec = None
+        if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES:
+            sym_spec = _symbolic_spec_for_call(cd, cs, args, kwargs)
+        if sym_spec is not None:
+            obs_events.emit_event("bucket_select", compile_id=compile_id, buckets=sym_spec.describe(),
+                                  marks={str(li): sorted(d.keys()) for li, d in sym_spec.marks.items()})
+            args, kwargs = _pad_example(args, kwargs, sym_spec)
+        return _compile_entry_impl(cd, cs, args, kwargs, sym_spec, compile_id)
 
 
-def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
-    """Under ``cache="symbolic values"`` the marked dims are lifted into
-    bucket guards and the entry is traced on the inputs padded to the bucket
-    ceilings (thunder_tpu/api.py:450-481)."""
-    sym_spec = (_symbolic_spec_for_call(cd, cs, args, kwargs) if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES
-                else None)
-    if sym_spec is not None:
-        args, kwargs = _pad_example(args, kwargs, sym_spec)
+def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, **extra) -> None:
+    """One compile-pipeline span (thunder_tpu/api.py:543-565): a
+    ``compile_phase`` event correlated by compile id and the
+    ``thunder_tpu_compile_phase_s{phase=...}`` histogram. The port's phases:
+    trace, transforms, claim (claiming, the dels, codegen and the staging
+    wrapper), then the entry's first call (warmup: eager, on the card under
+    the sync check) and its CUDA-graph capture (capture, at the second
+    call). The port has no XLA compile."""
+    if obsm.enabled():
+        obsm.COMPILE_PHASE_S.observe(seconds, phase=phase)
+    target = log if log is not None else obs_events.active_log()
+    fields = dict(compile_id=compile_id, phase=phase, s=round(seconds, 6), **extra)
+    if target is not None:
+        target.emit("compile_phase", **fields)
+    else:
+        obs_events.tap_event("compile_phase", fields)
+
+
+def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict, sym_spec,
+                        compile_id: Optional[int]) -> CacheEntry:
     start = time.perf_counter()
     with sharp_edges_policy(cd.sharp_edges):
         plg_trc, comp_trc = trace_program(cd.fn, args, kwargs, record_input_mutations=True,
@@ -424,6 +456,16 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
     phases["transforms"] = time.perf_counter() - start - phases["trace"]
     extrace = transform_for_execution(comp_trc, cd.executors_list)
     traces.append(extrace)
+    claims = extrace.tags.get("claim_breakdown") or {}
+    # Per-op instrumentation (observability/instrument.py;
+    # thunder_tpu/api.py:710-720): each value-producing line bracketed by
+    # host hooks, after claiming (records carry the executor) and before the
+    # dels (which then land after the hooks that read the values).
+    if cd.instrument_hooks:
+        from thunder_tpu_torch.observability.instrument import instrument_for_execution
+
+        extrace = instrument_for_execution(extrace, cd.instrument_hooks)
+        traces.append(extrace)
     # The program runs eagerly: the dels are what free each intermediate's
     # device memory as soon as it is dead.
     extrace = del_last_used(extrace)
@@ -443,6 +485,8 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
     disabled = cd.disable_jit_staging
     if cd.cache_option is CACHE_OPTIONS.NO_CACHING:
         disabled = "cache='no caching' compiles every call, so its program is never called twice"
+    if cd.instrument_hooks:
+        disabled = "jit(debug_watch=/instrument=): the per-op hooks run on the host between the ops"
     computation_fn, staging_stats = staging.stage(
         extrace.python_callable(), [extrace], cd.device, name=getattr(cd.fn, "__name__", "computation"),
         disabled=disabled, fresh=_key_input if comp_trc.tags.get(RNG_TAG) else None,
@@ -465,8 +509,27 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
     )
     entry.stats.trace_s = time.perf_counter() - start
     entry.stats.phases = phases
+    entry.compile_id = compile_id
     cs.trace_seconds += entry.stats.trace_s
     cs.compile_count += 1
+    for phase in ("trace", "transforms", "claim"):
+        _record_compile_phase(compile_id, phase, phases[phase])
+    if staging_stats.staged:
+        computation_fn.on_capture = lambda s: _record_compile_phase(compile_id, "capture", s, log=cd.event_log)
+    # Compile-side metrics and the compile_end event with the claimed
+    # trace's executor breakdown (thunder_tpu/api.py:839-860).
+    if obsm.enabled():
+        obsm.COMPILES.inc()
+        if cs.compile_count > 1:
+            obsm.RECOMPILES.inc()
+        if sym_spec is not None:
+            obsm.BUCKET_COMPILES.inc()
+        obsm.COMPILE_MS.observe(entry.stats.trace_s * 1e3)
+        for ex_name, n in claims.items():
+            obsm.CLAIMED_BSYMS.inc(n, executor=ex_name)
+    obs_events.emit_compile_end(compile_id, _fn_name(cd), entry.stats.trace_s * 1e3, extrace,
+                                symbolic=sym_spec is not None, recompile=cs.compile_count > 1,
+                                staged=staging_stats.staged)
     cs.last_traces = traces
     cs.last_prologue_traces = entry.prologue_traces
     if cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
@@ -806,6 +869,27 @@ def _pad_concrete(x: Any, targets: dict):
     return out.requires_grad_(x.requires_grad)
 
 
+def _observe_dispatch(entry: CacheEntry, hit_kind: Optional[str], lookup_ns: int, start_ns: int,
+                      flat_inps: list) -> None:
+    """A call's metrics, with metrics on: a hit's kind (fast, slow,
+    same_input; None: a miss), lookup and whole-dispatch host µs, and
+    under symbolic values the elements of padding dispatched (the bucket
+    ceiling's extents less the call's; thunder_tpu/executors/jaxex.py:630)."""
+    if hit_kind is not None:
+        obsm.CACHE_HITS.inc(kind=hit_kind)
+        obsm.CACHE_LOOKUP_US.observe(lookup_ns / 1e3)
+        obsm.DISPATCH_US.observe((time.perf_counter_ns() - start_ns) / 1e3)
+    spec = entry.sym_spec
+    if spec is not None:
+        waste = 0
+        for li, dims in spec.marks.items():
+            shape = [int(n) for n in flat_inps[li].shape]
+            padded = [dims[d][1] if d in dims else n for d, n in enumerate(shape)]
+            waste += int(np.prod(padded)) - int(np.prod(shape))
+        if waste:
+            obsm.PADDING_WASTE_ELEMENTS.inc(waste)
+
+
 # The global RNG seed (thunder_tpu/api.py:957-966): the k-th call of a
 # program with random draws after ``seed(n)`` draws from PRNGKey(n + k).
 _global_rng = {"seed": 0}
@@ -855,6 +939,9 @@ def jit(
     disable_jit_staging: bool = False,
     autocast: Any = None,
     debug_checks: Optional[bool] = None,
+    events: Optional[str] = None,
+    debug_watch: Optional[str] = None,
+    instrument: Any = None,
     _trace_transforms: Sequence[Callable] = (),
     **module_options,
 ) -> Callable:
@@ -906,6 +993,15 @@ def jit(
     compile and raises ``TraceVerificationError`` naming the pass that broke
     the trace; ``False`` turns it off; None (the default) defers to the
     ``THUNDER_TPU_CHECKS`` environment variable (thunder_tpu/api.py:1562).
+    Observability (``thunder_tpu_torch/observability``): ``events="<path>"``
+    writes this function's compile and cache events to its own JSONL log
+    (else the ``THUNDER_TPU_EVENTS`` log, if any); ``debug_watch="nan"`` (or
+    ``"inf"``, ``"nan+inf"``) runs each op and raises ``NaNWatchError`` at
+    the first one whose output is not finite, naming its line;
+    ``instrument`` takes ``"time"``, ``"memory"``, a hook, a callable or a
+    list of these (``observability.instrument_reports(fn)`` reads them). An
+    instrumented entry is not staged: it runs eagerly, on the card unless
+    the jit is on the CPU.
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
 
@@ -915,18 +1011,24 @@ def jit(
     every tensor input of rank 2 or more is padded with ``seq_pad_value``
     (default 0) up to the next multiple of m and the outputs that carry it
     are cropped back, so every length of a bucket runs one entry. On CUDA
-    its compiled forward and backward are staged as a CUDA graph each.
+    its compiled forward and backward are staged as a CUDA graph each; it
+    takes ``events=`` but refuses ``debug_watch``/``instrument``, as the JAX
+    package's module frontend does.
     """
     if fn is None:
         return functools.partial(jit, executors=executors, device=device, cache=cache,
                                  symbolic_dims=symbolic_dims, buckets=buckets, sharp_edges=sharp_edges,
                                  disable_jit_staging=disable_jit_staging, autocast=autocast,
-                                 debug_checks=debug_checks, _trace_transforms=_trace_transforms, **module_options)
+                                 debug_checks=debug_checks, events=events, debug_watch=debug_watch,
+                                 instrument=instrument, _trace_transforms=_trace_transforms, **module_options)
 
     cache = resolve_cache_option(cache)
     if isinstance(fn, torch.nn.Module):
         if _trace_transforms:
             raise NotImplementedError("trace transforms are not supported on the nn.Module frontend")
+        if debug_watch or instrument is not None:
+            raise NotImplementedError("debug_watch/instrument are not yet supported on the torch nn.Module "
+                                      "frontend — jit the functional forward instead")
         if cache is not CACHE_OPTIONS.CONSTANT_VALUES:
             raise TypeError("jit(nn.Module) got unexpected options ['cache']: a module buckets its sequences "
                             "with seq_bucket=")
@@ -934,7 +1036,7 @@ def jit(
 
         return thunder_module(fn, executors=executors, device=device, sharp_edges=sharp_edges,
                               disable_jit_staging=disable_jit_staging, autocast=autocast,
-                              debug_checks=debug_checks, **module_options)
+                              debug_checks=debug_checks, events=events, **module_options)
     if module_options:
         raise TypeError(f"jit() got unexpected options {sorted(module_options)}")
 
@@ -953,19 +1055,30 @@ def jit(
         disable_jit_staging=bool(disable_jit_staging),
         cache_option=cache,
         compile_options=compile_options,
+        event_log=obs_events.log_for_path(events) if events else None,
     )
+    if debug_watch or instrument is not None:
+        from thunder_tpu_torch.observability.instrument import resolve_hooks
+
+        cd.instrument_hooks = resolve_hooks(debug_watch, instrument)
     cs = CompileStats()
 
     @functools.wraps(fn)
     def fn_(*args, **kwargs):
         # The jit's device is what a numpy input's guard and conversion mean.
         with devices.default_device(cd.device):
-            return _dispatch(args, kwargs)
+            if cd.event_log is None:
+                return _dispatch(args, kwargs)
+            # The function's own log covers the whole dispatch, so that its
+            # run-time events (a capture) land beside its compile's.
+            with obs_events.event_scope(cd.event_log):
+                return _dispatch(args, kwargs)
 
     def _dispatch(args: tuple, kwargs: dict):
         cs.calls += 1
         start = time.perf_counter_ns()
         entry = flat_inps = prepared = key = None
+        hit_kind = "same_input"
         if cd.cache_option is CACHE_OPTIONS.SAME_INPUT and cs.cache_entries:
             # The newest entry, with no probing: its prologue only unpacks
             # (thunder_tpu/api.py:1721-1731).
@@ -979,17 +1092,24 @@ def jit(
             # every prologue, newest first; a prologue hit teaches the key.
             key, flat = _dispatch_key((args, kwargs))
             entry, flat_inps, prepared = _fast_probe(cs, key, flat, cd.device)
+            hit_kind = "fast"
             if entry is None and cs.cache_entries:
                 entry, flat_inps, prepared = _probe_entries(cs, args, kwargs, cd.device)
                 if entry is not None:
                     cs.slow_hits += 1
+                    hit_kind = "slow"
                     _learn(cs, key, entry)
-        cs.cache_lookup_ns += time.perf_counter_ns() - start
+        lookup_ns = time.perf_counter_ns() - start
+        cs.cache_lookup_ns += lookup_ns
         first = entry is None
         if not first:
             cs.cache_hits += 1
         else:
             cs.cache_misses += 1
+            hit_kind = None
+            if obsm.enabled():
+                obsm.CACHE_MISSES.inc()
+            obs_events.emit_event("cache_miss", fn=_fn_name(cd), call=cs.calls)
             entry = _compile_entry(cd, cs, args, kwargs)
             if key is not None:
                 _learn(cs, key, entry)
@@ -1004,17 +1124,21 @@ def jit(
             inps = inps + _extent_inputs(entry, extents, cd.device)
         if entry.needs_rng:
             inps = inps + [_next_key(cd.device)]
-        start = time.perf_counter()
+        run_start = time.perf_counter()
         out = entry.computation_fn(*inps)
         if first:
             if cd.device.type == "cuda":
                 torch.cuda.synchronize(cd.device)
-            entry.stats.first_run_s = time.perf_counter() - start
+            entry.stats.first_run_s = time.perf_counter() - run_start
             cs.first_run_seconds += entry.stats.first_run_s
+            _record_compile_phase(entry.compile_id, "warmup", entry.stats.first_run_s, log=cd.event_log)
         if entry.sym_spec is not None:
             out = _crop_outputs(entry, out, extents)
         if entry.epilogue_fn is not None:
             out = entry.epilogue_fn(args, kwargs, out)
+        # The hit path's one observability check (thunder_tpu/api.py:1785-1815).
+        if obsm.enabled():
+            _observe_dispatch(entry, hit_kind, lookup_ns, start, flat_inps)
         return out
 
     fn_._lc_cd = cd

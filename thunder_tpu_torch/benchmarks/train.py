@@ -28,6 +28,7 @@ unstaged, op by op.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -55,6 +56,11 @@ class Train:
     seconds: dict = field(default_factory=dict)
     staged: Any = None  # run_step staged (executors/staging.stage), set by build_train
     staging: Any = None  # its StagingStats
+    # The profiler range the SGD update runs in when the step was built
+    # under THUNDER_ANNOTATE_TRACES: line 2 of run_step (after the forward's
+    # and backward's programs, whose lines have their own ranges), so that
+    # its kernels are charged to a line (observability/attribution.py).
+    sgd_scope: Optional[str] = None
 
     def forward(self) -> tuple[torch.Tensor, list]:
         """(loss, saved): the augmented forward; ``saved`` is the list that
@@ -90,7 +96,8 @@ class Train:
         grads = list(self.bw_fn(saved, torch.ones((), dtype=loss.dtype, device=loss.device)))
         from thunder_tpu_torch.parallel.train import sgd_update
 
-        with torch.no_grad():
+        with torch.no_grad(), (torch.profiler.record_function(self.sgd_scope) if self.sgd_scope
+                               else contextlib.nullcontext()):
             sgd_update(flat_params, grads, LR, WD, in_place=True)
         return loss
 
@@ -115,6 +122,7 @@ def build_train(cfg, batch: int, seq: int, *, device: Any = None, params: Option
     from thunder_tpu_torch import api
     from thunder_tpu_torch.core import devices
     from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.core.trace import annotate_enabled
     from thunder_tpu_torch.executors import staging
     from thunder_tpu_torch.executors.passes import del_last_used, take_saved_as_list, transform_for_execution
     from thunder_tpu_torch.models import gpt
@@ -157,6 +165,7 @@ def build_train(cfg, batch: int, seq: int, *, device: Any = None, params: Option
 
     flat_params = [p for p in tree_flatten(params)[0] if isinstance(p, torch.Tensor)]
     tr = Train(params=params, flat_params=flat_params, idx=idx_t, tgt=tgt_t, fw_fn=fw_fn, bw_fn=bw_fn,
-               fw_trace=fw_ex, bw_trace=bw_ex, seconds=seconds)
+               fw_trace=fw_ex, bw_trace=bw_ex, seconds=seconds,
+               sgd_scope="L2.sgd_update#run_step" if annotate_enabled() else None)
     tr.staged, tr.staging = staging.stage(tr.run_step, [fw_ex, bw_ex], dev, name="train step")
     return tr

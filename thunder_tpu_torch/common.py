@@ -97,6 +97,15 @@ def sharp_edge(msg: str) -> None:
     if _sharp_edges_suppressed.get():
         return
     policy = _sharp_edges_policy.get()
+    # Observability tap (before the ALLOW return, as in the JAX package: the
+    # event log wants every sharp edge; the policy only governs warn/raise).
+    from thunder_tpu_torch.observability import events
+    from thunder_tpu_torch.observability import metrics as obsm
+
+    if obsm.enabled():
+        obsm.SHARP_EDGES.inc()
+    if events.active_log() is not None:
+        events.emit_event("sharp_edge", message=msg, policy=policy.name.lower())
     if policy is SHARP_EDGES_OPTIONS.ALLOW:
         return
     full = (
@@ -136,6 +145,12 @@ class CompileData:
     # The compile options given to jit (``autocast``; under symbolic values
     # ``bucket_policy`` and ``symbolic_dims``).
     compile_options: dict = field(default_factory=dict)
+    # jit(events=path): this function's own JSONL log (an EventLog), which
+    # its compiles and dispatches write to instead of the global one.
+    event_log: Any = None
+    # jit(debug_watch=, instrument=): the hooks, resolved once a function so
+    # that every entry feeds the same instances (observability/instrument.py).
+    instrument_hooks: tuple = ()
 
 
 class EntryStats:
@@ -185,6 +200,9 @@ class CacheEntry:
     leaf_meta: tuple = ()
     pad_buffers: dict = field(default_factory=dict)
     stats: EntryStats = field(default_factory=EntryStats)
+    # The id of the compile that built the entry (observability/events.py),
+    # which its first-run and capture phases carry.
+    compile_id: Optional[int] = None
 
 
 class CompileStats:

@@ -122,9 +122,13 @@ class TraceCtx:
 
     def _annotate_tag(self) -> str:
         """Compact pass-provenance tag for profiler scope names: the pass
-        name with spaces collapsed — e.g. "Transform_for_execution"."""
-        pss = self.pass_name()
-        return (pss or self.name).replace(" ", "_")
+        name with spaces collapsed, e.g. "Transform_for_execution". A trace
+        not named "computation" (a split step's "augmented_forward" and
+        "backward") has its name in front, "backward_Delete_Last_Used", so
+        that the lines of two traces run in one step keep apart in a
+        profile (``observability/attribution.py``)."""
+        tag = (self.pass_name() or self.name).replace(" ", "_")
+        return tag if self.name in ("computation", tag) else f"{self.name}_{tag}"
 
     def python(self, *, print_depth: int = 1, include_header: bool = True, annotate: bool = False) -> str:
         """Render the trace as Python source. ``annotate=True`` wraps each
@@ -181,12 +185,7 @@ class TraceCtx:
         return ctx
 
     def python_callable(self, **exec_ctx) -> Callable:
-        import os
-
-        def _env_flag(name: str) -> bool:
-            return os.environ.get(name, "").lower() not in ("", "0", "false", "off")
-
-        annotate = _env_flag("THUNDER_ANNOTATE_TRACES")
+        annotate = annotate_enabled()
         source = self.python(include_header=False, annotate=annotate)
         ctx = self.gen_ctx()
         if annotate:
@@ -200,6 +199,16 @@ class TraceCtx:
 
     def __repr__(self) -> str:
         return self.python()
+
+
+def annotate_enabled() -> bool:
+    """Whether generated programs run each line in a profiler range
+    (``THUNDER_ANNOTATE_TRACES=1``; the JAX package's spelling
+    ``THUNDER_TPU_ANNOTATE_TRACES`` too), read when a program is generated."""
+    import os
+
+    return any(os.environ.get(name, "").lower() not in ("", "0", "false", "off")
+               for name in ("THUNDER_ANNOTATE_TRACES", "THUNDER_TPU_ANNOTATE_TRACES"))
 
 
 def from_trace(trc: TraceCtx) -> TraceCtx:
@@ -263,8 +272,8 @@ def detached_trace():
 # (thunder_tpu_torch/analysis) on the pass's output, so the first malformed
 # trace is attributed to the pass that made it (thunder_tpu/core/trace.py:
 # 273-304). Enabled per compile by jit(debug_checks=True) (the context
-# variable) or process-wide by THUNDER_TPU_CHECKS=1. The JAX package's
-# observability taps at this point are a later part of the port (ROADMAP.md).
+# variable) or process-wide by THUNDER_TPU_CHECKS=1. The same point is the
+# observability tap (_record_pass): each pass's ms and a "pass" event.
 
 _debug_checks_ctx = contextvars.ContextVar("trace_debug_checks", default=None)
 
@@ -307,12 +316,36 @@ def _maybe_verify(trc: TraceCtx) -> TraceCtx:
 verify_seconds: collections.deque = collections.deque(maxlen=4096)
 
 
+def _record_pass(pass_name: str, elapsed_ms: Optional[float], trc: TraceCtx) -> None:
+    """Observability tap on the provenance-stamping point every pass flows
+    through (thunder_tpu/core/trace.py:307-323): the pass's ms into the
+    ``thunder_tpu_pass_ms`` histogram and a "pass" event in the JSONL log,
+    correlated to the enclosing compile. Each sink is one flag or
+    context-variable check when observability is off."""
+    from thunder_tpu_torch.observability import events
+    from thunder_tpu_torch.observability import metrics as obsm
+
+    if obsm.enabled() and elapsed_ms is not None:
+        obsm.PASS_MS.observe(elapsed_ms, **{"pass": pass_name})
+    if events.active_log() is not None:
+        events.emit_event(
+            "pass",
+            compile_id=events.current_compile_id(),
+            name=pass_name,
+            ms=elapsed_ms,
+            n_bsyms=len(trc.bound_symbols),
+            trace=trc.name,
+        )
+
+
 def wrap_in_trace_provenance(trc: TraceCtx, pass_name: str, start_ns: int) -> TraceCtx:
     elapsed_ms = (time.perf_counter_ns() - start_ns) / 1e6
     trc.provenance = TraceProvenance(f"{pass_name} (took {elapsed_ms:.2f} ms)")
+    _record_pass(pass_name, elapsed_ms, trc)
     return _maybe_verify(trc)
 
 
 def mark(trc: TraceCtx, pass_name: str) -> TraceCtx:
     trc.provenance = TraceProvenance(pass_name)
+    _record_pass(pass_name, None, trc)
     return _maybe_verify(trc)

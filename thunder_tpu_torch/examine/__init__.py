@@ -7,7 +7,8 @@ before spending time on the card:
 
 - :func:`examine`: which torch operations of a callable the port cannot trace;
 - :func:`lint`: the trace verifier over every stage of the pass pipeline,
-  with a compiled function's cache summary (:func:`format_cache_report`);
+  with a compiled function's cache summary (:func:`format_cache_report`) and,
+  when metrics are on, the process-wide metrics (:func:`format_metrics_report`);
 - :func:`memory_report`: the predicted peak device memory
   (``analysis/liveness.py``), against the card's capacity;
 - :func:`cost_report`: the roofline bound of each op on the card
@@ -15,8 +16,7 @@ before spending time on the card:
 - :func:`get_fusions`, :func:`get_alloc_memory` over a trace.
 
 ``hlo_report`` (the JAX package's compiled-HLO audit) has no counterpart yet
-(ROADMAP item 13), and ``format_metrics_report`` waits for the metrics
-registry of the observability layer (ROADMAP item 9).
+(ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -160,6 +160,10 @@ def lint(fn: Callable, *args, executors: Optional[Any] = None, verbose: bool = T
             print(d.format())
         if compiled is not None:
             print(format_cache_report(compiled))
+        from thunder_tpu_torch.observability import metrics as obsm
+
+        if obsm.enabled():
+            print(format_metrics_report())
     return diagnostics
 
 
@@ -190,6 +194,28 @@ def format_cache_report(jfn: Callable) -> str:
                      f"{e['prologue_runs']} prologue runs, {e['guard_fails']} guard fails, trace {e['trace_s']:.3f}s, "
                      f"first run {e['first_run_s']:.3f}s"
                      + ("" if peak is None else f", predicted peak {peak / 1e6:.2f} MB"))
+    return "\n".join(lines)
+
+
+def format_metrics_report() -> str:
+    """One-screen summary of the process-wide observability metrics
+    (``thunder_tpu_torch.monitor``): compiles and recompiles, cache
+    traffic, claim breakdown, padding waste. The cross-function counterpart
+    of :func:`format_cache_report`; empty series are elided."""
+    from thunder_tpu_torch.observability.metrics import REGISTRY
+
+    flat = REGISTRY.report_compact()
+    if not flat:
+        return "metrics: enabled, no samples yet"
+    lines = ["metrics (process-wide, thunder_tpu_torch.monitor.report()):"]
+    for name, v in flat.items():
+        if isinstance(v, dict):  # histogram summary
+            lines.append(
+                f"  {name}: n={v['count']} mean={v['mean']:.1f} "
+                f"min={v['min']:.1f} max={v['max']:.1f}"
+            )
+        else:
+            lines.append(f"  {name}: {v}")
     return "\n".join(lines)
 
 

@@ -92,7 +92,20 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor])
     for ex in executors_list:
         if isinstance(ex, FusionExecutor):
             extrace = ex.fusion_pass(extrace)
+    extrace.tags["claim_breakdown"] = _claim_breakdown(extrace)
     return wrap_in_trace_provenance(extrace, "Transform for execution", start)
+
+
+def _claim_breakdown(trace: TraceCtx) -> dict[str, int]:
+    """{executor name (or "host" for python_impl plumbing): claimed bsyms}:
+    the payload of the executor-claim metric and of ``compile_end`` events
+    (thunder_tpu/executors/passes.py:126)."""
+    out: dict[str, int] = {}
+    for bsym in trace.bound_symbols:
+        ex = bsym.sym.executor
+        name = ex.name if ex is not None else "host"
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def del_last_used(trace: TraceCtx) -> TraceCtx:

@@ -248,6 +248,9 @@ class CudaGraphStage:
         self._warm_addrs: dict[int, int] = {}
         self._mutated: set[int] = set()
         self._graph = None
+        # ``on_capture(seconds)``: told of each capture (the compile's
+        # "capture" phase, api._record_compile_phase).
+        self.on_capture: Optional[Callable[[float], None]] = None
 
     def __call__(self, *args):
         leaves, spec = tree_flatten(args)
@@ -421,6 +424,8 @@ class CudaGraphStage:
             pair.window = True
         torch.cuda.synchronize()
         self.stats.capture_s = time.perf_counter() - t0
+        if self.on_capture is not None:
+            self.on_capture(self.stats.capture_s)
         return result
 
     def _replay(self, args: tuple, leaves: list):

@@ -45,7 +45,7 @@ do.
 from __future__ import annotations
 
 import contextlib
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -297,11 +297,13 @@ class ThunderModule:
 
     def __init__(self, module, *, executors=None, device: Any = None, sharp_edges: Any = "allow",
                  rematerialize: bool = True, disable_jit_staging: bool = False, autocast: Any = None,
-                 seq_bucket: Any = None, seq_pad_value: Any = None, debug_checks: Any = None, **options):
+                 seq_bucket: Any = None, seq_pad_value: Any = None, debug_checks: Any = None,
+                 events: Optional[str] = None, **options):
         from thunder_tpu_torch.api import _autocast_transforms
         from thunder_tpu_torch.common import CompileData, CompileStats, resolve_sharp_edges_option
         from thunder_tpu_torch.core import devices
         from thunder_tpu_torch.extend import resolve_executors
+        from thunder_tpu_torch.observability.events import log_for_path
 
         # Sequence bucketing (thunder_tpu/frontend/module.py:977); the fill
         # is None when the caller chose none (0 is used, with a warning).
@@ -325,6 +327,7 @@ class ThunderModule:
             disable_jit_staging=bool(disable_jit_staging),
             compile_options={**({} if autocast is None else {"autocast": autocast}),
                              **({} if debug_checks is None else {"debug_checks": bool(debug_checks)})},
+            event_log=log_for_path(events) if events else None,
         )
         self._lc_cs = CompileStats()
         self._params()  # a parameter off the jit's device raises here, not at the first call
@@ -410,11 +413,34 @@ class ThunderModule:
 
     def _compile(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
         """One entry, under the module's ``debug_checks`` (the trace verifier
-        after every pass of the forward and backward)."""
-        from thunder_tpu_torch.core.trace import debug_checks
+        after every pass of the forward and backward) and its observability
+        bracket (thunder_tpu/frontend/module.py:494-560): a compile id for
+        the passes' events, ``compile_start`` and ``compile_end`` with the
+        forward's claimed trace. ``cache_option`` is "module", or
+        "module+seq_bucket", which the replay's storm rule reads as one
+        compile a sequence bucket."""
+        import time
 
-        with debug_checks(self._lc_cd.compile_options.get("debug_checks")):
-            return self._compile_impl(params, args, kwargs, grad)
+        from thunder_tpu_torch.core.trace import debug_checks
+        from thunder_tpu_torch.observability import events as obs_events
+        from thunder_tpu_torch.observability import metrics as obsm
+
+        cd, cs, name = self._lc_cd, self._lc_cs, type(self._module).__name__
+        t0 = time.perf_counter()
+        with debug_checks(cd.compile_options.get("debug_checks")), \
+                obs_events.compile_scope(cd.event_log) as compile_id:
+            obs_events.emit_event("compile_start", compile_id=compile_id, fn=name,
+                                  cache_option="module+seq_bucket" if self._seq_bucket else "module",
+                                  call=cs.calls)
+            entry = self._compile_impl(params, args, kwargs, grad)
+            cs.compile_count += 1
+            if obsm.enabled():
+                obsm.COMPILES.inc()
+                if cs.compile_count > 1:
+                    obsm.RECOMPILES.inc()
+            obs_events.emit_compile_end(compile_id, name, (time.perf_counter() - t0) * 1e3, entry["fw_trace"],
+                                        recompile=cs.compile_count > 1)
+            return entry
 
     def _compile_impl(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
         from thunder_tpu_torch.api import trace_program
@@ -667,12 +693,23 @@ class ThunderModule:
                                and x.shape[1] == t_pad else x for x in flat], spec)
 
     def _call_impl(self, args: tuple, kwargs: dict):
+        if self._lc_cd.event_log is None:
+            return self._run(args, kwargs)
+        from thunder_tpu_torch.observability.events import event_scope
+
+        with event_scope(self._lc_cd.event_log):
+            return self._run(args, kwargs)
+
+    def _run(self, args: tuple, kwargs: dict):
         from thunder_tpu_torch.core.concrete import first_holding
         from thunder_tpu_torch.executors import bridge
+        from thunder_tpu_torch.observability import events as obs_events
+        from thunder_tpu_torch.observability import metrics as obsm
 
         params = self._params()
         self._check_inputs(args, kwargs)
         cs = self._lc_cs
+        cs.calls += 1
         grad = torch.is_grad_enabled()
         key = self._cache_key(args, kwargs, grad)
         flat_concrete, _ = tree_flatten(((params,) + args, kwargs))
@@ -685,10 +722,15 @@ class ThunderModule:
         entry = None if held is None else cands[held]
         if entry is None:
             cs.cache_misses += 1
+            if obsm.enabled():
+                obsm.CACHE_MISSES.inc()
+            obs_events.emit_event("cache_miss", fn=type(self._module).__name__, call=cs.calls)
             entry = self._compile(params, args, kwargs, grad)
             self._cache.setdefault(key, []).append(entry)
         else:
             cs.cache_hits += 1
+            if obsm.enabled():
+                obsm.CACHE_HITS.inc(kind="module")
         traces = entry["traces"]
         cs.last_traces = traces[:-1] if entry["bwd"] is not None else list(traces)
         cs.last_backward_traces = traces[-1:] if entry["bwd"] is not None else []
