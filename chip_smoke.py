@@ -172,7 +172,34 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    kernel line, no recapture, the steps between probes within 1% of
    unsampled steps; (e) ``benchmarks.targets`` rows for ``sdpa`` and the
    Llama block's train unit under ``kernels`` and ``torch``;
-17. after phase 21, prints one JSON line describing every kernel, then the
+22. distribution on ``torch.distributed``, a process group of one NCCL rank
+   (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE`` set here, the
+   group torn down after): (a) each collective prim (all_reduce, sum and
+   avg, all_gather on dims 0 and 1, reduce_scatter, broadcast, synchronize
+   sharded and replicated, an async gather and its wait, ppermute,
+   all_to_all, mask_to_rank, hier_all_reduce) staged as a CUDA graph, at
+   a (3200, 8640) grad's and the (32000, 3200) embedding's shapes, equal to
+   its one-rank value on every call, each prim's count of collective calls
+   held to what it issues at one rank, the device work the profiler saw;
+   at one rank synchronize (fsdp or replicated), hier_all_reduce,
+   ppermute and mask_to_rank call no collective (the identity, a copy, a
+   local op), so their graphs hold no NCCL call, and the fsdp gathers of
+   (b) run no NCCL call on the card;
+   (b) the Llama stand-in at full depth on phase 11's padded batch and
+   weights: 3 staged SGD steps untagged, then under ``ddp``, ``fsdp``
+   ZERO2 and ZERO3, each step's loss and every grad ``torch.equal`` to the
+   untagged step's, the launches a step equal, ``synchronize`` in the
+   forward and the grad all-reduce or reduce-scatter (and ZERO3's gather)
+   in the backward, ms a step, device ms and peak memory side by side;
+   (e) the staged ddp step profiled and attributed through its eager
+   step's launch-order map: the collective rows, the compile's
+   ``COLLECTIVE_BYTES`` against its traces' collective operands and
+   ``cost.py``'s wire bytes; (c) ``no_sync`` at 2 layers, 2 microbatches
+   of B=1 against one B=2 step within phase 4's limits, no collective in
+   the no-sync backward; (d) the ZERO3 module's state saved through
+   ``distributed.checkpoint``, loaded with every leaf on the card, and
+   put into a fresh module bit-equal;
+17. after phase 22, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -3915,7 +3942,11 @@ def run_cost(cfg, rows: dict) -> None:
 # =============================================================================
 
 HIT_SAMPLES = 240  # fast hits timed with metrics off, and as many on, in turns
-HIT_ROUNDS = 12
+# One hit each way a turn: on the H100 machine the host's speed drifted by
+# more than the limit between blocks of 20 hits (a run of 12 such blocks
+# read 1.0645x, each side's p10-p90 spanning ±25%); a drift shared by the
+# two hits of a turn cancels in the medians.
+HIT_ROUNDS = HIT_SAMPLES
 METRICS_OVERHEAD = 1.05  # the median hit with metrics on against off
 OPTIMER_BAND = (1.0, 2.0)  # a kernel line's OpTimer time over its phase 3 row's
 MEMORY_REL = 0.02  # MemoryHighWater's peak against max_memory_allocated
@@ -4363,6 +4394,396 @@ def run_targets() -> None:
             torch.cuda.empty_cache()
 
 
+# =============================================================================
+# Phase 22: distribution on torch.distributed (an NCCL group of one rank)
+# =============================================================================
+
+DIST_MODES = ("ddp", "zero2", "zero3")
+
+
+def dist_init() -> dict:
+    """The process group of phase 22: NCCL, one rank, on this card, at a
+    free localhost port (the environment torchrun would give)."""
+    import os
+    import socket
+
+    import thunder_tpu_torch.distributed as td
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    info = td.init()
+    import torch.distributed as tdist
+
+    log(f"  process group: {info}, backend {tdist.get_backend()}, NCCL {torch.cuda.nccl.version()}")
+    require(tdist.get_backend() == "nccl" and info["num_processes"] == 1, "phase 22's group is not one NCCL rank")
+    return info
+
+
+def run_dist_prims() -> None:
+    """Phase 22 (a). Each collective prim staged (warm-up, capture,
+    replays), on CUDA tensors at the path's shapes, against its one-rank
+    value, with its own count of collective calls held to what it issues at
+    one rank: a CUDA graph holding one NCCL call for all_reduce, all_gather,
+    reduce_scatter, broadcast, the async gather and all_to_all; no
+    collective for synchronize, hier_all_reduce, ppermute and mask_to_rank,
+    which are the identity, a copy or a local op there. Then the NCCL device
+    work the profiler saw."""
+    import os
+    import tempfile
+
+    from thunder_tpu_torch.distributed import prims as dist
+    from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+    from thunder_tpu_torch.observability.attribution import _device_ops, _without_lead_in, load_trace_events
+    from thunder_tpu_torch.observability.profile import traced
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    grad = torch.randn((OPEN_LLAMA_3B.hidden_size, OPEN_LLAMA_3B.intermediate_size), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    emb = torch.randn((OPEN_LLAMA_3B.vocab_size, OPEN_LLAMA_3B.hidden_size), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    # Each case: (program, input, its one-rank value). At one rank
+    # synchronize (fsdp or replicated) and hier_all_reduce are the identity
+    # and call no collective, ppermute's one pair (0, 0) is a copy, and
+    # mask_to_rank is local at any group size: calls_of lists the others.
+    cases = {
+        "all_reduce": (lambda a: dist.all_reduce(a, "dp", 1), grad, lambda a: a),
+        "all_reduce avg": (lambda a: dist.all_reduce(a, "dp", 1, op="avg"), grad, lambda a: a / 1),
+        "all_gather": (lambda a: dist.all_gather(a, "dp", 1), emb, lambda a: a),
+        "all_gather dim 1": (lambda a: dist.all_gather(a, "dp", 1, dim=1), emb, lambda a: a),
+        "reduce_scatter": (lambda a: dist.reduce_scatter(a, "dp", 1), emb, lambda a: a),
+        "broadcast": (lambda a: dist.broadcast(a, "dp", 1), grad, lambda a: a),
+        "synchronize fsdp": (lambda a: dist.synchronize(a, "dp", 1, "fsdp"), emb, lambda a: a),
+        "synchronize replicated": (lambda a: dist.synchronize(a, "dp", 1, "replicated"), grad, lambda a: a),
+        "async all_gather + wait": (lambda a: dist.wait(dist.all_gather(a, "dp", 1, async_op=True)), emb,
+                                    lambda a: a),
+        "ppermute": (lambda a: dist.ppermute(a, "dp", [(0, 0)]), grad, lambda a: a),
+        "all_to_all": (lambda a: dist.all_to_all(a, "dp", 1, split_dim=1, concat_dim=0), grad, lambda a: a),
+        "mask_to_rank": (lambda a: dist.mask_to_rank(a, "dp", 0), grad, lambda a: a),
+        "hier_all_reduce": (lambda a: dist.hier_all_reduce(a, "dp", "dp", 1, 1), grad, lambda a: a),
+    }
+    calls_of = {"all_reduce": {"all_reduce": 1}, "all_reduce avg": {"all_reduce": 1}, "all_gather": {"all_gather": 1},
+                "all_gather dim 1": {"all_gather": 1}, "reduce_scatter": {"reduce_scatter": 1},
+                "broadcast": {"broadcast": 1}, "async all_gather + wait": {"all_gather": 1},
+                "all_to_all": {"all_to_all": 1}}
+    calls0 = dist.collective_launches()
+    no_collective = []
+    for label, (fn, x, want_fn) in cases.items():
+        before = dist.collective_launches()
+        jf, extrace = compile_with_collectives(fn, (x,), None, (P(),), P())
+        want = want_fn(x)
+        outs = [jf(x) for _ in range(3)]  # warm-up, capture and replay, replay
+        torch.cuda.synchronize()
+        st = jf.staging
+        same = all(torch.equal(o, want) for o in outs)
+        # The warm-up and the capture each call the program's collectives
+        # once, and a replay adds its capture's: 3 runs in all.
+        got = {k: v - before[k] for k, v in dist.collective_launches().items() if v != before[k]}
+        want_calls = {k: 3 * n for k, n in calls_of.get(label, {}).items()}
+        if not want_calls:
+            no_collective.append(label)
+        log(f"  (a) {label} {tuple(x.shape)} {x.dtype}: staged {st.staged} (captures {st.captures}, replays "
+            f"{st.replays}), equal to its one-rank value on each call {same}; collective calls over 3 runs "
+            f"{got or 'none (the identity or a local op at one rank)'}; schedule {jf.schedule}")
+        require(st.staged and st.captures == 1 and same, f"{label}: not staged, or not its one-rank value")
+        require(got == want_calls, f"{label}: collective calls {got}, expected {want_calls}")
+        del outs, want
+    calls = {k: v - calls0[k] for k, v in dist.collective_launches().items()}
+    jf, _ = compile_with_collectives(lambda a: dist.reduce_scatter(dist.all_gather(dist.all_reduce(a, "dp", 1), "dp", 1),
+                                                                   "dp", 1), (emb,), None, (P(),), P())
+    jf(emb), jf(emb)
+    torch.cuda.synchronize()
+    # traced(): a session whose lead-in takes the place of the records a
+    # long process's profiler sessions lose at their start (PERF.md).
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        path = os.path.join(d, "replay.trace.json")
+        with traced(path):
+            jf(emb)
+        events = _without_lead_in(load_trace_events(path))
+    device_ops = sorted({str(e.get("name")) for e in _device_ops(events)})
+    nccl = [k for k in device_ops if "nccl" in k.lower()]
+    log(f"  (a) the port's collective calls over the staged prims above (a replay counts its capture's): {calls}; "
+        f"staged with no collective at one rank: {no_collective}")
+    log(f"  (a) device work of one replay of all_reduce -> all_gather -> reduce_scatter on {tuple(emb.shape)}: "
+        f"{device_ops}; NCCL's own kernels among them: {nccl or 'none (one rank: a copy, or nothing)'}")
+    # ppermute's only pair at one rank is (0, 0): a copy, no send or receive.
+    require(all(v > 0 for k, v in calls.items() if k != "ppermute"), f"a collective was never called: {calls}")
+    del grad, emb
+
+
+def _dist_llama(mode: str, cfg, seed: int = SEED):
+    """The stand-in from ``seed``, tagged by ``mode`` (None: untagged)."""
+    from thunder_tpu_torch.distributed import FSDPType, ddp, fsdp
+
+    m = llama(cfg, seed=seed, device="cuda")
+    if mode == "ddp":
+        return ddp(m)
+    if mode in ("zero2", "zero3"):
+        return fsdp(m, sharding_strategy=FSDPType.ZERO2 if mode == "zero2" else FSDPType.ZERO3)
+    return m
+
+
+def _dist_steps(m, ids, am, labels, ref=None, annotate: bool = False):
+    """3 staged SGD steps of ``jit(m)`` (phase 11's), each step's loss and
+    launches kept, and its grads: with ``ref`` (the untagged steps' grads,
+    on the card), each checked ``torch.equal``; without, kept as ``ref``.
+    Returns the jitted module, its optimizer and the steps' record."""
+    import os
+
+    import thunder_tpu_torch as tt
+
+    if annotate:
+        os.environ["THUNDER_ANNOTATE_TRACES"] = "1"
+    try:
+        tm = tt.jit(m)
+        opt = torch.optim.SGD(m.parameters(), lr=LLAMA_LR)
+        rec = {"losses": [], "counts": [], "times": [], "grads": [], "unequal": [], "peaks": []}
+        for step in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            _zero_counts()
+            t = time.perf_counter()
+            out = tm(ids, am, labels)
+            out["loss"].backward()
+            torch.cuda.synchronize()
+            rec["times"].append(time.perf_counter() - t)
+            rec["peaks"].append(torch.cuda.max_memory_allocated() - held)
+            rec["counts"].append(_launch_counts())
+            rec["losses"].append(out["loss"].detach().clone())
+            del out
+            grads = [p.grad for p in m.parameters()]
+            if ref is None:
+                rec["grads"].append([g.clone() for g in grads])
+            else:
+                rec["unequal"].append([n for (n, _), g, r in zip(m.named_parameters(), grads, ref["grads"][step])
+                                       if not torch.equal(g, r)])
+            del grads
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+    finally:
+        if annotate:
+            del os.environ["THUNDER_ANNOTATE_TRACES"]
+    torch.cuda.synchronize()
+    rec["peak_over_held"] = max(rec["peaks"][1:])
+    cs = tm._lc_cs
+    rec["staged"] = (cs.last_staging.staged, cs.last_backward_staging.staged)
+    return tm, opt, rec
+
+
+def run_dist_llama(launches: dict) -> None:
+    """Phase 22 (b). The stand-in at open_llama_3b's full width and depth on
+    phase 11's padded batch and weights (``llama`` from SEED): 3 staged SGD
+    steps untagged, then under ddp, fsdp ZERO2 and fsdp ZERO3 on the one-rank
+    NCCL group, each step's loss and every grad ``torch.equal`` to the
+    untagged step's (every collective is the identity at one rank and
+    grad_scale is 1), the kernels' launches a step equal, the collectives in
+    the traces; ms a step, device ms (``profile_call``) and peak memory side
+    by side (each step's peak over what it found allocated, the untagged
+    grads kept for the comparison among that). The ddp module is compiled
+    under THUNDER_ANNOTATE_TRACES=1, and (e) runs on it."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.observability import metrics as obsm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = OPEN_LLAMA_3B
+    ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
+    rows = {}
+
+    def step_fn(tm, opt):
+        def step():
+            tm(ids, am, labels)["loss"].backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        return step
+
+    m = _dist_llama(None, cfg)
+    tm, opt, ref = _dist_steps(m, ids, am, labels)
+    rows["untagged"] = (ref, profile_call("llama_train_step_untagged", step_fn(tm, opt), batch=LOSS_BATCH, seq=SEQ,
+                                          config="open_llama_3b", module="chip_smoke.LlamaForCausalLM", staged=True))
+    del m, tm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_ref = sum(g.numel() * g.element_size() for gs in ref["grads"] for g in gs)
+    for mode in DIST_MODES:
+        m = _dist_llama(mode, cfg)
+        if mode == "ddp":
+            obsm.enable()
+            before = obsm.COLLECTIVE_BYTES.value()
+        tm, opt, rec = _dist_steps(m, ids, am, labels, ref=ref, annotate=mode == "ddp")
+        fw, bw = tt.last_traces(tm)[-1], tt.last_backward_traces(tm)[-1]
+        fw_src, bw_src = fw.python(), bw.python()
+        colls = {"fw synchronize": fw_src.count("synchronize("), "bw all_reduce": bw_src.count("all_reduce("),
+                 "bw reduce_scatter": bw_src.count("reduce_scatter("), "bw synchronize": bw_src.count("synchronize(")}
+        if mode == "ddp":
+            rec["collective_bytes_metric"] = obsm.COLLECTIVE_BYTES.value() - before
+            obsm.disable()
+        same_loss = all(torch.equal(a, b) for a, b in zip(rec["losses"], ref["losses"]))
+        unequal = sorted({n for u in rec["unequal"] for n in u})
+        log(f"  (b) {mode}: losses {', '.join(f'{x.item():.6f}' for x in rec['losses'])} (untagged "
+            f"{', '.join(f'{x.item():.6f}' for x in ref['losses'])}), bit-equal {same_loss}; grads of every "
+            f"param bit-equal at every step {not unequal}{'' if not unequal else f' (not: {unequal[:6]})'}; "
+            f"launches a step equal to untagged {rec['counts'] == ref['counts']}; staged (forward, backward) "
+            f"{rec['staged']}; collectives in the traces {colls}")
+        require(same_loss and not unequal, f"{mode}: a loss or a grad differs from the untagged step's")
+        require(rec["counts"] == ref["counts"], f"{mode}: launches {rec['counts']} differ from untagged "
+                f"{ref['counts']}")
+        require(rec["staged"] == (True, True), f"{mode}: the forward or backward is not staged")
+        want_bw = "bw all_reduce" if mode == "ddp" else "bw reduce_scatter"
+        require(colls["fw synchronize"] > 0 and colls[want_bw] > 0 and (colls["bw synchronize"] > 0) == (mode == "zero3"),
+                f"{mode}: the traces lack their collectives ({colls})")
+        rows[mode] = (rec, profile_call(f"llama_train_step_{mode}", step_fn(tm, opt), batch=LOSS_BATCH, seq=SEQ,
+                                        config="open_llama_3b", module="chip_smoke.LlamaForCausalLM", staged=True))
+        for c in rec["counts"]:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        if mode == "ddp":
+            # (e) now, while the ddp step's graphs hold their pools, and
+            # before the next module needs the memory.
+            run_dist_attribution(m, tm, opt, ids, am, labels, rec)
+        del m, tm, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_peak = rows["untagged"][0]["peak_over_held"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"  (b) on {smi}:")
+    for mode, (rec, prof) in rows.items():
+        log(f"  (b) {mode:8s}: s/step {', '.join(f'{x:.4f}' for x in rec['times'])}; device "
+            f"{prof['device_ms']:.2f} ms/step; peak of a fw+bw over what it found allocated (steps 2-3) "
+            f"{rec['peak_over_held'] / 2**30:.2f} GiB (untagged {ref_peak / 2**30:.2f})")
+    log(f"  (b) the untagged steps' grads kept on the card for the comparison: {held_ref / 2**30:.2f} GiB")
+    del ref
+
+
+def run_dist_no_sync() -> None:
+    """Phase 22 (c). no_sync at full width, 2 layers, under ddp: the padded
+    batch's 2 rows as 2 microbatches of B=1 inside the context, each loss
+    weighted by its row's share of the labelled positions, against one B=2
+    step, within phase 4's limits; the no-sync backward holds no
+    collective."""
+    import thunder_tpu_torch as tt
+
+    cfg2 = replace(OPEN_LLAMA_3B, num_hidden_layers=2)
+    ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg2.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
+    m = _dist_llama("ddp", cfg2)
+    tm = tt.jit(m)
+    loss = tm(ids, am, labels)["loss"]
+    loss.backward()
+    want_loss, want = loss.item(), {n: p.grad.float() for n, p in m.named_parameters()}
+    m.zero_grad(set_to_none=True)
+    counts = (labels != -100).sum(dim=1)
+    total = 0.0
+    with tm.no_sync():
+        for k in range(LOSS_BATCH):
+            part = tm(ids[k:k + 1], am[k:k + 1], labels[k:k + 1])["loss"] * (counts[k] / counts.sum())
+            part.backward()
+            total += part.item()
+        bw_src = tt.last_backward_traces(tm)[-1].python()
+    rels = {n: ((p.grad.float() - want[n]).norm() / want[n].norm().clamp_min(1e-30)).item()
+            for n, p in m.named_parameters()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(total - want_loss) / abs(want_loss)
+    has_coll = "all_reduce(" in bw_src or "reduce_scatter(" in bw_src
+    log(f"  (c) no_sync, 2 microbatches of B=1 (rows' labelled positions {counts.tolist()}): loss {total:.6f} vs "
+        f"one B=2 step {want_loss:.6f} rel_err={loss_rel:.3e} (limit {LOSS_REL:.0e}); worst grad norm-relative "
+        f"error {rels[worst]:.3e} on {worst} (limit {GRAD_REL:.3e}); a collective in the no-sync backward {has_coll}; "
+        f"accumulator drained {not tm._nosync_accum}")
+    require(loss_rel <= LOSS_REL and rels[worst] <= GRAD_REL, "no_sync's accumulated step differs from one B=2 step")
+    require(not has_coll and not tm._nosync_accum, "the no-sync backward holds a collective, or sums were left")
+    del m, tm, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_dist_checkpoint() -> None:
+    """Phase 22 (d). The ZERO3 module's state (2 layers) saved through
+    ``distributed.checkpoint`` with its specs, loaded (every leaf, sharded
+    or replicated, on the card) into a fresh module drawn from another
+    seed, ``torch.equal``."""
+    import tempfile
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.distributed import checkpoint as ck
+    from thunder_tpu_torch.distributed.runtime import P
+
+    cfg2 = replace(OPEN_LLAMA_3B, num_hidden_layers=2)
+    tm = tt.jit(_dist_llama("zero3", cfg2))
+    state = tm.state_dict()
+    specs = {k: P("fsdp") if k in tm._sharded else P() for k in state}
+    fresh = tt.jit(_dist_llama("zero3", cfg2, seed=SEED + 1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        t = time.perf_counter()
+        ck.save(state, d, specs=specs)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = ck.load(d, specs=specs)
+        off_card = [k for k, v in loaded.items() if not v.is_cuda]
+        fresh.load_state_dict(loaded)
+        load_s = time.perf_counter() - t
+        del loaded
+    got = fresh.state_dict()
+    unequal = [k for k in state if not torch.equal(got[k], state[k])]
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    log(f"  (d) ZERO3 state, {len(state)} tensors, {nbytes / 2**30:.2f} GiB ({len(tm._sharded)} sharded): saved in "
+        f"{save_s:.2f} s, loaded into a fresh module in {load_s:.2f} s; every loaded leaf on the card "
+        f"{not off_card}; bit-equal {not unequal}")
+    require(not off_card, f"loaded leaves off the card: {off_card[:5]}")
+    require(not unequal, f"the loaded state differs: {unequal[:5]}")
+    del tm, fresh, state, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_dist_attribution(m, tm, opt, ids, am, labels, rec) -> None:
+    """Phase 22 (e). The staged ddp step of (b) (compiled annotated),
+    profiled over 3 steps and attributed through the launch-order map of
+    its eager step (phase 21 (c)'s route): the collective rows, and the
+    compile's COLLECTIVE_BYTES against the collective operands of its
+    traces and ``cost.py``'s wire bytes for them."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.analysis.cost import trace_cost
+    from thunder_tpu_torch.observability.attribution import eager_stages, scope_map_of
+
+    def step():
+        tm(ids, am, labels)["loss"].backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    with eager_stages(tm):
+        lmap = scope_map_of(step)
+    # The graphs hold the programs' lines only: what the eager step ran
+    # outside them (autograd's ones, the SGD update) is left out of the map.
+    lmap = [(name, scope) for name, scope in lmap if scope is not None]
+    res = tt.profile(step, steps=3, warmup=0, launch_map=lmap)
+    fw, bw = tt.last_traces(tm)[-1], tt.last_backward_traces(tm)[-1]
+    join = monitor.attribution_report(res["trace_dir"], traces=[fw, bw], device="h100", steps=3, launch_map=lmap)
+    attr = join.attribution
+    rows = sorted(attr.collectives.values(), key=lambda r: -r.us)
+    by_cls = attr.collective_summary()
+    log(f"  (e) ddp step attributed: {attr.coverage:.2%} of {attr.device_busy_us / 3e3:.2f} device ms a step, graph "
+        f"kernels {attr.graph_placed} of {attr.graph_ops} placed (a {len(lmap)}-op map; graph kernels by step "
+        f"{attr.graph_steps}, {attr.graph_mismatched} differing from the map); collective rows {len(rows)}, "
+        f"{attr.collective_us / 3e3:.4f} ms a step ({attr.exposed_collective_us / 3e3:.4f} exposed); by family "
+        + ", ".join(f"{c}: {r.us / 3e3:.4f} ms x{r.count / 3:g}" for c, r in by_cls.items()))
+    for r in rows[:5]:
+        log(f"  (e)   {r.key:50s} {r.cls:14s} {r.us / 3e3:8.4f} ms a step, {r.count / 3:g} device ops, hidden "
+            f"{r.hidden_us / 3e3:.4f} ms")
+    tags = sum(t.tags.get("collective_bytes") or 0 for t in (fw, bw))
+    wire = sum(trace_cost(t, "h100").total_comm_bytes for t in (fw, bw))
+    param_bytes = sum(p.numel() * p.element_size() for p in m.parameters())
+    log(f"  (e) COLLECTIVE_BYTES of the ddp compile {rec['collective_bytes_metric'] / 1e9:.4f} GB (the forward's and "
+        f"backward's collective operands by their tags {tags / 1e9:.4f} GB, {tags / param_bytes:.3f}x the params' "
+        f"bytes); cost.py's ring wire bytes for the same traces at one rank {wire:.0f} B (each collective's factor "
+        "(g-1)/g is 0 at g=1)")
+    require(rows and all(r.cls == "all-reduce" for r in rows), f"the ddp step's collective rows: {rows[:3]}")
+    require(rec["collective_bytes_metric"] == tags and tags > 0, "COLLECTIVE_BYTES differs from the traces' tags")
+    require(wire == 0.0, "cost.py priced wire bytes on a one-rank group")
+
+
 def main() -> int:
     import torch
 
@@ -4487,6 +4908,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_targets()
+
+    log("[22] distribution on torch.distributed, one NCCL rank: (a) each collective prim staged at the path's shapes; "
+        f"(b) the Llama stand-in, {OPEN_LLAMA_3B.num_hidden_layers} layers, 3 staged SGD steps under ddp, fsdp ZERO2 "
+        "and ZERO3 against the untagged steps, (e) the ddp step attributed; (c) no_sync, 2 layers; (d) the ZERO3 "
+        "state through distributed.checkpoint")
+    import thunder_tpu_torch.distributed as td
+
+    dist_init()
+    try:
+        run_dist_prims()
+        run_dist_llama(launches)
+        run_dist_no_sync()
+        run_dist_checkpoint()
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 22")
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

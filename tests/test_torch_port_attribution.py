@@ -237,6 +237,21 @@ class TestChromeTraceAttribution:
         assert attr.unattributed == {"k_c": 10.0}
         assert (attr.graph_ops, attr.graph_placed, attr.graph_steps) == (6, 4, [3, 3])
 
+    def test_a_backward_graph_launched_from_another_thread_joins_its_step(self, tmp_path):
+        """A module's step replays its forward graph from the caller's thread
+        and its backward graph from autograd's: both are one step's kernels,
+        placed against the map of the whole eager step."""
+        lmap = [("k_a", "L7.add#F"), ("k_b", "L8.mul#F"), ("k_c", "L3.mul#B")]
+        evs = []
+        for step, t0 in enumerate((0.0, 1000.0)):
+            evs += [_range(f"thunder_step#{step}", t0, 400.0), _launch("cudaGraphLaunch", t0 + 10, 20 + step),
+                    dict(_launch("cudaGraphLaunch", t0 + 30, 30 + step), tid=12),
+                    _kernel("k_a", t0 + 50, 20.0, 20 + step), _kernel("k_b", t0 + 80, 30.0, 20 + step),
+                    _kernel("k_c", t0 + 120, 10.0, 30 + step)]
+        attr = attribute(_write(tmp_path, evs), launch_map=lmap)
+        assert (attr.graph_steps, attr.graph_placed, attr.graph_mismatched) == ([3, 3], 6, 0)
+        assert attr.by_line[ScopeRef(3, "mul", "B")] == 20.0
+
     def test_a_kernel_the_map_cannot_place_is_unattributed_and_named(self, tmp_path):
         """The replay launched a kernel the eager run did not, in place of
         one it did: a step of the map's length whose names differ anywhere

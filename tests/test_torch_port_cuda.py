@@ -2002,3 +2002,145 @@ def test_staged_attribution_places_every_graph_kernel(dev, tmp_path, monkeypatch
     final = tt.last_traces(jf)[-1]
     assert all(final.bound_symbols[r.line].sym.name == r.sym for r in attr.by_line)
     assert {"matmul", "sum"} <= {r.sym for r in attr.by_line} and attr.coverage > 0.5
+
+
+# -- distribution: a process group of one NCCL rank ----------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    """One NCCL rank on this card, on a FileStore, for this file's
+    distribution tests; torn down after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on one")
+    import thunder_tpu_torch.distributed as td
+
+    store = torch.distributed.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    info = td.init(store=store, num_processes=1, process_id=0)
+    yield info
+    td.shutdown()
+
+
+def _one_rank_prims():
+    from thunder_tpu_torch.distributed import prims as dist
+
+    return {
+        "all_reduce": lambda a: dist.all_reduce(a, "dp", 1),
+        "all_reduce_avg": lambda a: dist.all_reduce(a, "dp", 1, op="avg"),
+        "all_gather_dim1": lambda a: dist.all_gather(a, "dp", 1, dim=1),
+        "reduce_scatter": lambda a: dist.reduce_scatter(a, "dp", 1),
+        "broadcast": lambda a: dist.broadcast(a, "dp", 1),
+        "synchronize_fsdp": lambda a: dist.synchronize(a, "dp", 1, "fsdp"),
+        "async_wait": lambda a: dist.wait(dist.all_gather(a, "dp", 1, async_op=True)),
+        "ppermute": lambda a: dist.ppermute(a, "dp", [(0, 0)]),
+        "all_to_all": lambda a: dist.all_to_all(a, "dp", 1, split_dim=1, concat_dim=0),
+        "mask_to_rank": lambda a: dist.mask_to_rank(a, "dp", 0),
+        "hier_all_reduce": lambda a: dist.hier_all_reduce(a, "dp", "dp", 1, 1),
+    }
+
+
+# The collective each prim calls once at one rank. synchronize and
+# hier_all_reduce are the identity there, ppermute's one pair (0, 0) is a
+# copy, and mask_to_rank is local: they call none.
+_ONE_RANK_CALLS = {"all_reduce": "all_reduce", "all_reduce_avg": "all_reduce", "all_gather_dim1": "all_gather",
+                   "reduce_scatter": "reduce_scatter", "broadcast": "broadcast", "async_wait": "all_gather",
+                   "all_to_all": "all_to_all"}
+
+
+@pytest.mark.parametrize("prim", sorted(_one_rank_prims()))
+def test_each_prim_staged_through_one_nccl_rank(nccl_rank, prim):
+    """A collective of a one-rank group is its input; staged, the NCCL call
+    it issues there (if any) is captured with the program and replayed."""
+    from thunder_tpu_torch.distributed import prims as dist
+    from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+
+    x = _randn((64, 48), torch.bfloat16, torch.device("cuda"), 7)
+    before = dist.collective_launches()
+    jf, extrace = compile_with_collectives(_one_rank_prims()[prim], (x,), None, (P(),), P())
+    outs = [jf(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert jf.staging.staged and jf.staging.captures == 1 and jf.staging.replays >= 2
+    assert all(torch.equal(o, x) for o in outs)
+    assert extrace.tags["collective_order"]
+    # Warm-up, capture and one replay: each runs the program's calls once.
+    calls = {k: v - before[k] for k, v in dist.collective_launches().items() if v != before[k]}
+    assert calls == ({_ONE_RANK_CALLS[prim]: 3} if prim in _ONE_RANK_CALLS else {})
+
+
+def test_checkpoint_loads_every_leaf_onto_the_card(nccl_rank, tmp_path):
+    """A state of sharded and replicated leaves saved on one NCCL rank loads
+    back whole, every leaf on the card."""
+    from thunder_tpu_torch.distributed import checkpoint as ck
+    from thunder_tpu_torch.distributed.runtime import P
+
+    dev = torch.device("cuda")
+    state = {"w": _randn((64, 48), torch.bfloat16, dev, 1), "b": _randn((48,), torch.float32, dev, 2),
+             "step": torch.tensor(3, device=dev)}
+    specs = {"w": P("fsdp"), "b": P(), "step": P()}
+    ck.save(state, str(tmp_path / "sharded"), specs=specs)
+    ck.save(state, str(tmp_path / "full"), specs=specs, options=ck.StateDictOptions(full_state_dict=True))
+    for name in ("sharded", "full"):
+        got = ck.load(str(tmp_path / name), specs=specs)
+        assert all(v.is_cuda for v in got.values()), {k: v.device for k, v in got.items()}
+        assert all(torch.equal(got[k], state[k]) for k in state)
+
+
+def _dist_module(mode):
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.distributed import FSDPType, ddp, fsdp
+
+    class Block(nn.Module):
+        def __init__(self, dim=64, heads=2):
+            super().__init__()
+            self.heads = heads
+            self.emb = nn.Embedding(128, dim)
+            self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+            self.out = nn.Linear(dim, 128, bias=False)
+
+        def forward(self, idx):
+            x = self.emb(idx)
+            B, T, C = x.shape
+            q, k, v = self.qkv(x).view(B, T, 3, self.heads, C // self.heads).unbind(2)
+            y = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True)
+            return self.out(x + y.transpose(1, 2).reshape(B, T, C))
+
+    torch.manual_seed(0)
+    m = Block().to("cuda", torch.bfloat16)
+    if mode == "ddp":
+        return ddp(m)
+    if mode in ("zero2", "zero3"):
+        return fsdp(m, sharding_strategy=FSDPType.ZERO2 if mode == "zero2" else FSDPType.ZERO3)
+    return m
+
+
+@pytest.mark.parametrize("mode", ["ddp", "zero2", "zero3"])
+def test_staged_dist_step_is_bit_equal_to_untagged(nccl_rank, mode):
+    """Three staged SGD steps of a jitted module under ddp or fsdp on one
+    NCCL rank: each loss and grad equal to the untagged module's, both
+    staged, the collectives in the traces."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as tt
+
+    idx = torch.from_numpy(np.random.RandomState(0).randint(0, 128, (2, 128))).cuda()
+    runs = {}
+    for tag in (None, mode):
+        m = _dist_module(tag)
+        tm = tt.jit(m)
+        opt = torch.optim.SGD(m.parameters(), lr=0.1)
+        record = []
+        for _ in range(3):
+            loss = F.cross_entropy(tm(idx).float().reshape(-1, 128), idx.reshape(-1))
+            loss.backward()
+            record.append((loss.detach().clone(), [p.grad.clone() for p in m.parameters()]))
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        cs = tt.compile_stats(tm)
+        assert cs.last_staging.staged and cs.last_backward_staging.staged
+        runs[tag] = (record, tt.last_traces(tm)[-1].python(), tt.last_backward_traces(tm)[-1].python())
+    (want, _, _), (got, fw, bw) = runs[None], runs[mode]
+    for (lw, gw), (lg, gg) in zip(want, got):
+        assert torch.equal(lw, lg) and all(torch.equal(a, b) for a, b in zip(gw, gg))
+    assert "synchronize" in fw and ("all_reduce" if mode == "ddp" else "reduce_scatter") in bw

@@ -691,11 +691,18 @@ def test_jit_module_raises_on_a_tensor_off_its_device():
 def test_jit_module_options_of_later_slices_raise():
     # seq_bucket= (ROADMAP item 7) is ported: the module takes it.
     assert tt.jit(MLP(), device="cpu", seq_bucket=128)._seq_bucket == 128
-    tm = tt.jit(MLP(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm.configure_distributed({"mode": "ddp"})
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm.no_sync()
+    # The distributed calls (ROADMAP item 10) are ported and do what the JAX
+    # package's do: a config without an axis raises KeyError, no_sync on a
+    # module with no config leaves the grads as one backward made them, and
+    # a None config removes none.
+    x = torch.randn(4, 8)
+    for tm in (thunder_tpu.jit(MLP()), tt.jit(MLP(), device="cpu")):
+        with pytest.raises(KeyError, match="axis"):
+            tm.configure_distributed({"mode": "ddp"})
+        tm.configure_distributed(None)
+        with tm.no_sync():
+            tm(x).sum().backward()
+        assert all(p.grad is not None for p in tm.parameters())
     with pytest.raises(TypeError, match="unexpected options"):
         tt.jit(MLP(), device="cpu", cache="symbolic values")
     with pytest.raises(TypeError, match="unexpected options"):

@@ -128,11 +128,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     first, mods = out.stdout.splitlines()
     n, bad = first.split(" ", 1)
     assert int(n) > 30 and bad.strip() == ""
-    # The nn.Module frontend, the RNG and autocast transforms and the draw
-    # kernel's wrapper are among them.
+    # The nn.Module frontend, the RNG and autocast transforms, the draw
+    # kernel's wrapper and the distribution layer are among them.
     assert {"thunder_tpu_torch.frontend.module", "thunder_tpu_torch.frontend.dispatch",
             "thunder_tpu_torch.frontend.sharp", "thunder_tpu_torch.transforms.rng",
-            "thunder_tpu_torch.transforms.autocast", "thunder_tpu_torch.executors.rngex"} <= set(mods.split(","))
+            "thunder_tpu_torch.transforms.autocast", "thunder_tpu_torch.executors.rngex",
+            "thunder_tpu_torch.distributed", "thunder_tpu_torch.distributed.prims",
+            "thunder_tpu_torch.distributed.runtime", "thunder_tpu_torch.distributed.checkpoint",
+            "thunder_tpu_torch.frontend.batchdim", "thunder_tpu_torch.analysis.collectives",
+            "thunder_tpu_torch.analysis.schedule"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():

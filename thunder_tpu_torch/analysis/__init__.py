@@ -11,11 +11,13 @@ named rules checks the invariants every pass must preserve:
 - ``names.*``     name-registry hygiene
 - ``donation.*``  donated-buffer hazards (the port donates nothing: silent)
 - ``mem.*``       predicted peak device memory against the card's capacity
+- ``dist.*``      collective axes and group sizes, future/wait pairing, the
+                  forward and backward collective balance (``collectives.py``)
+- ``sched.*``     the per-axis collective order against the stamped schedule
+                  certificate (``schedule.py``)
 
-The JAX package's ``dist.*`` and ``sched.*`` rules (collectives, schedule
-certificates) wait for the port's distributed prims, its ``hlo.*`` audit
-for a compiled-program auditor, and its event-log replay for the
-observability layer (``ROADMAP.md``).
+The JAX package's ``hlo.*`` audit waits for a compiled-program auditor
+(``ROADMAP.md``).
 
 Pipeline wiring: with ``THUNDER_TPU_CHECKS=1`` or ``jit(debug_checks=True)``
 (``grad``, ``value_and_grad``, ``vmap``, ``jit(module)``) every pass's
@@ -35,6 +37,8 @@ from thunder_tpu_torch.analysis.cost import (  # noqa: F401
     OpCost,
     TraceCost,
     bsym_cost,
+    calibrate_ici,
+    collective_sym_class,
     cost_report,
     kernel_costs,
     resolve_device_spec,
@@ -62,6 +66,15 @@ from thunder_tpu_torch.analysis.registry import (  # noqa: F401
     get_rule,
     register_rule,
     set_rule_enabled,
+)
+from thunder_tpu_torch.analysis.schedule import (  # noqa: F401
+    CollectiveSite,
+    OverlapPrediction,
+    ScheduleCertificate,
+    SiteOverlap,
+    certify,
+    predict_overlap,
+    recertify,
 )
 from thunder_tpu_torch.core.trace import TraceCtx, tracectx
 

@@ -12,7 +12,12 @@ Conventions (the JAX package's, so that the two agree on the same program):
 - elementwise: 1 operation an output element; reductions 1 an input
   element (variance 2); fills 1 an output element;
 - layout ops (reshape, squeeze, broadcast) free; data-moving shape ops
-  (transpose, cat, pad, take, ...) charged their bytes in and out.
+  (transpose, cat, pad, take, ...) charged their bytes in and out;
+- collectives: no operations and no memory bytes, and the ring's wire bytes
+  a rank sends: ``2(g-1)/g`` of the tensor for an all-reduce, ``(g-1)/g``
+  of the full tensor for an all-gather (an fsdp ``synchronize``) or
+  reduce-scatter, at the link rate ``ici_bw`` or a family's fitted rate
+  (:func:`calibrate_ici`).
 
 The port's kernel claims are costed by the formulas of ``chip_smoke.py``'s
 ``bound()`` rows (``PERF.md`` §6), so that the table's bound is read off
@@ -61,18 +66,36 @@ class DeviceSpec:
     ("bf16": the tensor cores' f16/bf16 rate, "f32" outside them, "int8" the
     tensor cores' int8 rate, "int32" the integer units) to operations a
     second; ``hbm_bw`` is bytes a second, ``hbm_bytes`` the memory (0:
-    unknown). Datasheet values: real kernels see less, so the roofline is a
-    lower bound."""
+    unknown). ``ici_bw`` is the link rate between cards a second (the JAX
+    package's name; NVLink here), ``dcn_bw`` that of the slower tier between
+    hosts (0: none, priced at ``ici_bw``), and ``ici_class_bw`` the rates
+    :func:`calibrate_ici` fitted a collective family (None: the link rate).
+    Datasheet values: real kernels see less, so the roofline is a lower
+    bound."""
 
     name: str
     peak_flops: dict[str, float]
     hbm_bw: float
     hbm_bytes: float = 0.0
+    ici_bw: float = 0.0
+    dcn_bw: float = 0.0
+    ici_class_bw: Optional[dict] = None
 
     def peak_for(self, dtype_class: Any) -> float:
         if not isinstance(dtype_class, str):
             dtype_class = _dtype_class(dtype_class)
         return self.peak_flops.get(dtype_class, self.peak_flops["bf16"])
+
+    def ici_bw_for(self, cls: Optional[str]) -> float:
+        """The rate a collective of family ``cls`` ("all-gather", ...) is
+        priced at: its fitted rate when there is one, else ``ici_bw``."""
+        if cls and self.ici_class_bw and self.ici_class_bw.get(cls):
+            return float(self.ici_class_bw[cls])
+        return self.ici_bw
+
+    @property
+    def dcn_bw_or_ici(self) -> float:
+        return self.dcn_bw or self.ici_bw
 
 
 def _dtype_class(dtype: Any) -> str:
@@ -85,13 +108,49 @@ def _dtype_class(dtype: Any) -> str:
 # NVIDIA's H100 SXM datasheet, dense rates: 989 TFLOP/s bf16, 67 TFLOP/s f32
 # outside the tensor cores, 1,979 TOP/s int8, 3.35 TB/s, 80 GB; the int32
 # rate is 132 SMs x 128 integer lanes x 1.98 GHz (the boost clock), as
-# chip_smoke.py prices the draw kernel. "cpu" is a small spec so that
-# host-side plans still classify; its memory is unknown (0).
+# chip_smoke.py prices the draw kernel. The link rate is the same
+# datasheet's NVLink 4 figure, 900 GB/s a GPU counting both directions: a
+# ring sends one way, 450 GB/s. The card has no second tier (dcn_bw 0).
+# "cpu" is a small spec so that host-side plans still classify; its memory
+# is unknown (0).
 DEVICE_SPECS: dict[str, DeviceSpec] = {
     "h100": DeviceSpec("h100", {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "int32": 132 * 128 * 1.98e9},
-                       hbm_bw=3.35e12, hbm_bytes=80e9),
-    "cpu": DeviceSpec("cpu", {"bf16": 2e11, "f32": 2e11, "int8": 4e11, "int32": 2e11}, hbm_bw=5e10, hbm_bytes=0.0),
+                       hbm_bw=3.35e12, hbm_bytes=80e9, ici_bw=450e9),
+    "cpu": DeviceSpec("cpu", {"bf16": 2e11, "f32": 2e11, "int8": 4e11, "int32": 2e11}, hbm_bw=5e10, hbm_bytes=0.0,
+                      ici_bw=1e10, dcn_bw=1e9),
 }
+
+
+def collective_sym_class(sym_name: str) -> Optional[str]:
+    """The collective family ("all-gather", "all-reduce", ...) of a
+    trace-level collective symbol name, or None: the one map, shared with
+    the measured half (``observability/attribution.py``)."""
+    from thunder_tpu_torch.observability.attribution import COLLECTIVE_SYM_CLASS
+
+    return COLLECTIVE_SYM_CLASS.get(sym_name)
+
+
+def calibrate_ici(spec: DeviceSpec, samples: Sequence[tuple]) -> DeviceSpec:
+    """Fit each collective family's rate from measured collectives
+    (thunder_tpu/analysis/cost.py:153-182). ``samples`` are ``(family,
+    wire bytes, measured seconds)`` rows, the wire bytes this model's; the
+    fit is ``sum(bytes) / sum(seconds)`` a family, capped at the spec's
+    ``ici_bw`` (a measurement can only show the wire slower than its
+    datasheet). Returns a new spec whose :meth:`DeviceSpec.ici_bw_for`
+    prices each family at its fitted rate."""
+    import dataclasses
+
+    by_cls: dict[str, list[float]] = {}
+    for cls, comm_bytes, measured_s in samples:
+        if not cls or not comm_bytes or not measured_s or measured_s <= 0:
+            continue
+        agg = by_cls.setdefault(str(cls), [0.0, 0.0])
+        agg[0] += float(comm_bytes)
+        agg[1] += float(measured_s)
+    fitted = {cls: min(b / t, spec.ici_bw) if spec.ici_bw else b / t for cls, (b, t) in by_cls.items() if t > 0 and b > 0}
+    if not fitted:
+        return spec
+    return dataclasses.replace(spec, ici_class_bw=fitted)
 
 
 def resolve_device_spec(device: Any = None) -> DeviceSpec:
@@ -137,18 +196,26 @@ class OpCost:
     bytes_moved: float = 0.0
     kind: str = "other"
     dtype_class: Optional[str] = None
+    comm_bytes: float = 0.0  # bytes on the wire between cards, all tiers
+    dcn_bytes: float = 0.0  # of which on the slower tier between hosts
 
     @property
     def arithmetic_intensity(self) -> float:
         return self.flops / self.bytes_moved if self.bytes_moved else float("inf")
 
-    def seconds(self, spec: DeviceSpec, dtype: Any = None) -> tuple[float, str]:
-        """``(bound seconds, "operations" | "bytes" | "free")`` on ``spec``."""
+    def seconds(self, spec: DeviceSpec, dtype: Any = None, cls: Optional[str] = None) -> tuple[float, str]:
+        """``(bound seconds, "operations" | "bytes" | "comm" | "free")`` on
+        ``spec``; a collective's wire bytes at the rate of its family
+        ``cls``, the slower tier's at ``dcn_bw``."""
         t_ops = self.flops / spec.peak_for(self.dtype_class or dtype)
         t_bytes = self.bytes_moved / spec.hbm_bw
-        if t_ops == t_bytes == 0.0:
+        bw = spec.ici_bw_for(cls)
+        t_comm = ((self.comm_bytes - self.dcn_bytes) / bw + self.dcn_bytes / spec.dcn_bw_or_ici) if (
+            self.comm_bytes and bw) else 0.0
+        t = max(t_ops, t_bytes, t_comm)
+        if t == 0.0:
             return 0.0, "free"
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return t, "comm" if t == t_comm else "bytes" if t == t_bytes else "operations"
 
 
 def _tensor_args(bsym) -> list[TensorProxy]:
@@ -341,6 +408,62 @@ def _linear_cost(bsym) -> OpCost:
     return OpCost(flops=flops, bytes_moved=_io_bytes(bsym), kind="matmul")
 
 
+# Ring wire bytes a rank sends, as a factor of the tensor's bytes, by group
+# size g (thunder_tpu/analysis/cost.py:305-316).
+_COLLECTIVE_FACTORS: dict[str, Callable[[int], float]] = {
+    "all_reduce": lambda g: 2.0 * (g - 1) / g,
+    "all_gather": lambda g: (g - 1) / g,
+    "reduce_scatter": lambda g: (g - 1) / g,
+    "broadcast": lambda g: (g - 1) / g,
+    "all_to_all": lambda g: (g - 1) / g,
+    "ppermute": lambda g: 1.0,
+    "mask_to_rank": lambda g: 0.0,
+    "synchronize": lambda g: 0.0,
+    "wait": lambda g: 0.0,
+}
+
+# The axis whose hops cross hosts, priced at the slower tier (the JAX
+# package's parallel/mesh.DCN_AXIS).
+_DCN_AXIS = "dcn"
+
+
+def _hier_all_reduce_cost(bsym) -> OpCost:
+    """The hierarchical all-reduce: reduce-scatter and all-gather within the
+    inner group move ``2(g_in-1)/g_in`` of the bytes; the outer all-reduce
+    moves ``2(g_out-1)/g_out`` of the ``1/g_in`` shard, on the slower tier."""
+    nbytes = _bytes(_tensor_args(bsym))
+    g_in = _int(bsym.args[3] if len(bsym.args) > 3 else bsym.kwargs.get("inner_size", 1))
+    g_out = _int(bsym.args[4] if len(bsym.args) > 4 else bsym.kwargs.get("outer_size", 1))
+    inner = 2.0 * (g_in - 1) / g_in * nbytes if g_in > 1 else 0.0
+    outer = 2.0 * (g_out - 1) / g_out * nbytes / max(1, g_in) if g_out > 1 else 0.0
+    return OpCost(comm_bytes=inner + outer, dcn_bytes=outer, kind="collective")
+
+
+def _collective_cost(bsym) -> OpCost:
+    """A collective's wire bytes: the ring factor of its family times its
+    tensor's bytes (the full, gathered tensor's for a gather, which a
+    sharded ``synchronize`` is). Nothing on the device's memory: the bytes
+    the collective moves there are its kernel's, not the program's."""
+    name = bsym.sym.name
+    if name == "hier_all_reduce":
+        return _hier_all_reduce_cost(bsym)
+    nbytes = _bytes(_tensor_args(bsym))
+    axis = bsym.args[1] if len(bsym.args) > 1 else bsym.kwargs.get("axis")
+    on_dcn = axis == _DCN_AXIS
+    factor = _COLLECTIVE_FACTORS.get(name)
+    if factor is None:
+        return OpCost(comm_bytes=nbytes, dcn_bytes=nbytes if on_dcn else 0.0, kind="collective")
+    g = next((v for v in (pyval(a) for a in bsym.flat_args)
+              if isinstance(v, int) and not isinstance(v, bool) and v > 1), 1)
+    if name in ("all_gather", "synchronize"):
+        out_bytes = _bytes(_tensor_outs(bsym))
+        if out_bytes > nbytes:
+            wire = (g - 1) / g * out_bytes
+            return OpCost(comm_bytes=wire, dcn_bytes=wire if on_dcn else 0.0, kind="collective")
+    wire = factor(g) * nbytes
+    return OpCost(comm_bytes=wire, dcn_bytes=wire if on_dcn else 0.0, kind="collective")
+
+
 def bsym_cost(bsym, *, valid_pairs: Optional[int] = None) -> Optional[OpCost]:
     """Static cost of one BoundSymbol, or None for pure bookkeeping. A
     kernel claim's cost is the sum of :func:`kernel_costs` (its operations
@@ -355,6 +478,8 @@ def bsym_cost(bsym, *, valid_pairs: Optional[int] = None) -> Optional[OpCost]:
     sid = bsym.sym.id
     if sid in _FREE_IDS:
         return None
+    if OpTags.COMM_OP in bsym.sym.tags:
+        return _collective_cost(bsym)
     if sid is PrimIDs.MATMUL:
         return _matmul_cost(bsym)
     if sid is PrimIDs.LINEAR:
@@ -397,10 +522,11 @@ class OpCostRow:
     flops: float
     bytes_moved: float
     roofline_s: float
-    bound: str  # "operations" | "bytes" | "free"
+    bound: str  # "operations" | "bytes" | "comm" | "free"
     intensity: float
     executor: Optional[str] = None
     line: str = ""
+    comm_bytes: float = 0.0
 
 
 @dataclass
@@ -411,6 +537,8 @@ class TraceCost:
     rows: list[OpCostRow] = field(default_factory=list)
     total_flops: float = 0.0
     total_bytes: float = 0.0
+    total_comm_bytes: float = 0.0
+    total_dcn_bytes: float = 0.0  # of total_comm_bytes, on the slower tier
     compute_s: float = 0.0  # every byte free, each op at its own class's peak
 
     @property
@@ -421,6 +549,20 @@ class TraceCost:
     @property
     def memory_s(self) -> float:
         return self.total_bytes / self.device.hbm_bw
+
+    @property
+    def comm_s(self) -> float:
+        """Every wire byte at the link rate (the slower tier's at its own);
+        0 without collectives or a link rate."""
+        if not self.total_comm_bytes or not self.device.ici_bw:
+            return 0.0
+        return ((self.total_comm_bytes - self.total_dcn_bytes) / self.device.ici_bw
+                + self.total_dcn_bytes / self.device.dcn_bw_or_ici)
+
+    def collective_rows(self) -> list[OpCostRow]:
+        """The trace's collectives: the predicted half of the collective
+        rows of ``observability/attribution.py``."""
+        return [r for r in self.rows if r.kind == "collective"]
 
     def by_kind(self) -> dict[str, dict]:
         out: dict[str, dict] = {}
@@ -439,7 +581,8 @@ class TraceCost:
         dev = self.device
         lines = [
             f"cost model [{dev.name}: {dev.peak_flops['bf16'] / 1e12:.0f} bf16 TFLOP/s, {dev.hbm_bw / 1e9:.0f} GB/s]",
-            f"  total: {self.total_flops / 1e9:.3f} GFLOP, {self.total_bytes / 1e6:.2f} MB moved",
+            f"  total: {self.total_flops / 1e9:.3f} GFLOP, {self.total_bytes / 1e6:.2f} MB moved"
+            + (f", {self.total_comm_bytes / 1e6:.2f} MB on the wire" if self.total_comm_bytes else ""),
             f"  roofline bound: {self.roofline_s * 1e3:.3f} ms unfused (compute {self.compute_s * 1e3:.3f} ms, "
             f"memory {self.memory_s * 1e3:.3f} ms)",
             f"  {'line':>5} {'sym':<28} {'kind':<14} {'GFLOP':>10} {'MB':>9} {'bound':>10} {'us':>9}",
@@ -471,15 +614,19 @@ def trace_cost(trace: TraceCtx, device: Any = None) -> TraceCost:
         outs = _tensor_outs(bsym)
         dtype = outs[0].dtype if outs else None
         parts = kernel_costs(bsym) or [(bsym.sym.name, c)]
-        t = sum(p.seconds(dev, dtype)[0] for _, p in parts)
+        cls = collective_sym_class(bsym.sym.name) if c.comm_bytes else None
+        t = sum(p.seconds(dev, dtype, cls)[0] for _, p in parts)
         tc.compute_s += sum(p.flops / dev.peak_for(p.dtype_class or dtype) for _, p in parts)
-        bound = "free" if t == 0.0 else max((p.seconds(dev, dtype) for _, p in parts))[1]
+        bound = "free" if t == 0.0 else max((p.seconds(dev, dtype, cls) for _, p in parts))[1]
         ex = bsym.sym.executor
         tc.rows.append(OpCostRow(index=i, sym=bsym.sym.name, kind=c.kind, flops=c.flops, bytes_moved=c.bytes_moved,
                                  roofline_s=t, bound=bound, intensity=c.arithmetic_intensity,
-                                 executor=None if ex is None else ex.name, line=bsym.one_line()))
+                                 executor=None if ex is None else ex.name, line=bsym.one_line(),
+                                 comm_bytes=c.comm_bytes))
         tc.total_flops += c.flops
         tc.total_bytes += c.bytes_moved
+        tc.total_comm_bytes += c.comm_bytes
+        tc.total_dcn_bytes += c.dcn_bytes
     return tc
 
 

@@ -527,6 +527,8 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
         obsm.COMPILE_MS.observe(entry.stats.trace_s * 1e3)
         for ex_name, n in claims.items():
             obsm.CLAIMED_BSYMS.inc(n, executor=ex_name)
+        if extrace.tags.get("collective_bytes"):
+            obsm.COLLECTIVE_BYTES.inc(extrace.tags["collective_bytes"])
     obs_events.emit_compile_end(compile_id, _fn_name(cd), entry.stats.trace_s * 1e3, extrace,
                                 symbolic=sym_spec is not None, recompile=cs.compile_count > 1,
                                 staged=staging_stats.staged)

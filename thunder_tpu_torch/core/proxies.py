@@ -664,8 +664,8 @@ class FutureTensorProxy(TensorProxy):
     """Result of an async collective; must be resolved by a ``wait`` prim.
 
     Reference parity: thunder/core/proxies.py `FutureTensorProxy:1064`. The
-    IR keeps the future/wait structure for the distribution layer, which
-    this package does not have yet.
+    IR keeps the future/wait structure of the distribution layer's async
+    collectives (``distributed/prims.py``).
     """
 
     _counter_prefix = "fut"

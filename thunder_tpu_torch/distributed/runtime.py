@@ -1,0 +1,296 @@
+"""Running traces that hold collectives, one process a rank.
+
+The counterpart of ``thunder_tpu/distributed/runtime.py``. The JAX package is
+single-controller: one process stages the trace under ``shard_map`` over a
+mesh, which splits the global inputs by ``in_specs`` and joins the outputs by
+``out_specs``, each collective naming a mesh axis. The port is SPMD over
+processes, as Thunder itself is: every rank runs the same claimed trace, and
+each axis name resolves to a ``torch.distributed`` process group. The user's
+contract stays the JAX package's: every rank is called with the same global
+inputs, takes its block of each by its spec, runs, and joins the outputs by
+theirs, so a program gives the same result on N ranks as on one device.
+
+A spec is :class:`P`, ``jax.sharding.PartitionSpec``'s shape: ``P()`` is
+replicated (passed as it is, returned as this rank computed it), ``P(axis,
+None, ...)`` is split along dim 0 over the axis's group (this rank's block in,
+an all-gather out). ``mesh`` binds the axes: None is the world group for
+every axis (as ``fsdp(model)`` without a mesh is every device in the JAX
+package), a process group binds every axis to it, and a dict ``{axis:
+group}`` binds each as given (this rank's own group of that axis,
+:func:`grid_groups`).
+
+On the card the per-rank program is staged as one CUDA graph, its NCCL
+collectives included (``executors/staging.py``): the seat of
+``jax.jit(shard_map(...))``. NCCL makes a group's communicator at its first
+collective, which must not be the capture's, so a group is warmed with one
+small all-reduce when it is first bound (:func:`resolve_axes`). A capture
+that fails raises; nothing falls back to an unstaged run or another backend.
+
+The JAX package wraps the staged program in its collective watchdog
+(``resilience/watchdog.wrap``); the port's resilience layer comes with a
+later slice, and :func:`shard_map_callable` keeps ``trace_lines`` and
+``schedule`` on the callable it returns for it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+
+
+class P(tuple):
+    """A partition spec: one mesh-axis name (or None) a dim, or a tuple of
+    names for a dim split over several axes, the first the outermost;
+    ``P()`` is replicated. Only dim 0 may name axes here."""
+
+    def __new__(cls, *names):
+        return super().__new__(cls, names)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+    @property
+    def axis(self):
+        return self[0] if self else None
+
+    @property
+    def axes(self) -> tuple:
+        """The axes dim 0 is split over, outermost first."""
+        a = self.axis
+        return () if a is None else tuple(a) if isinstance(a, tuple) else (a,)
+
+
+_bound: contextvars.ContextVar[dict] = contextvars.ContextVar("thunder_axis_groups", default={})
+_warmed: set = set()
+
+
+def resolve_axes(mesh, axes) -> dict:
+    """``{axis: process group}`` for the axis names ``axes`` under ``mesh``
+    (None: the world group; a group: that one; a dict: as given). Each NCCL
+    group is warmed once, before any capture can meet it."""
+    if not dist.is_initialized():
+        raise RuntimeError("a program with collectives needs a process group: call "
+                           "thunder_tpu_torch.distributed.init() (or torch.distributed.init_process_group) first")
+    if isinstance(mesh, dict):
+        missing = sorted(set(axes) - set(mesh))
+        if missing:
+            raise ValueError(f"the mesh binds axes {sorted(mesh)}, not {missing}")
+        groups = {ax: mesh[ax] for ax in axes}
+    else:
+        group = dist.group.WORLD if mesh is None else mesh
+        groups = {ax: group for ax in axes}
+    for group in groups.values():
+        _warm(group)
+    return groups
+
+
+def _warm(group) -> None:
+    if id(group) in _warmed:
+        return
+    if dist.get_backend(group) == "nccl":
+        t = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+    _warmed.add(id(group))
+
+
+@contextlib.contextmanager
+def bound_axes(groups: dict):
+    """Resolve the axis names of ``groups`` to their groups inside the
+    context (what :func:`group_of` reads)."""
+    token = _bound.set({**_bound.get(), **groups})
+    try:
+        yield
+    finally:
+        _bound.reset(token)
+
+
+def group_of(axis: str, group_size: Optional[int] = None):
+    """The process group bound to ``axis``, checked to hold ``group_size``
+    ranks. An axis bound to no group raises."""
+    groups = _bound.get()
+    if axis not in groups:
+        raise RuntimeError(f"a collective on mesh axis {axis!r} ran outside a program bound to process groups "
+                           f"(bound: {sorted(groups)}); stage it with distributed.runtime")
+    group = groups[axis]
+    if group_size is not None and dist.get_world_size(group) != group_size:
+        raise RuntimeError(f"the trace's collective on axis {axis!r} has group size {group_size}, but its process "
+                           f"group has {dist.get_world_size(group)} ranks")
+    return group
+
+
+def grid_groups(names: tuple, shape: tuple) -> dict:
+    """This rank's group along each axis of a row-major grid of the world's
+    ranks (``names[i]`` spans ``shape[i]`` ranks). Every rank calls it with
+    the same arguments: each ``new_group`` is collective over the world."""
+    import math
+
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a grid of shape {shape} needs {math.prod(shape)} ranks, the world has {world}")
+    me = dist.get_rank()
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    mine = {}
+    for i, name in enumerate(names):
+        # Every line of ranks along axis i, in a fixed order on every rank.
+        for base in range(world):
+            if base // strides[i] % shape[i] != 0:
+                continue
+            ranks = [base + k * strides[i] for k in range(shape[i])]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine[name] = group
+    return mine
+
+
+# -- splitting and joining by spec --------------------------------------------
+
+
+def split(x, spec, groups: dict):
+    """This rank's block of ``x`` by ``spec`` (over several axes, the
+    blocks in row-major order of the ranks' coordinates)."""
+    if not isinstance(x, torch.Tensor) or spec is None or not spec.axes:
+        return x
+    n, r = 1, 0
+    for ax in spec.axes:
+        g = groups[ax]
+        n, r = n * dist.get_world_size(g), r * dist.get_world_size(g) + dist.get_rank(g)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of an input ({x.shape[0]}) does not split over the {n} ranks of {spec.axes}")
+    m = x.shape[0] // n
+    return x.narrow(0, r * m, m)
+
+
+def join(x, spec, groups: dict):
+    """The global value of an output that this rank holds by ``spec``: its
+    blocks all-gathered along dim 0, the innermost axis first."""
+    from thunder_tpu_torch.distributed.prims import gather_dim
+
+    if not isinstance(x, torch.Tensor) or spec is None:
+        return x
+    for ax in reversed(spec.axes):
+        n = dist.get_world_size(groups[ax])
+        if n > 1:
+            x = gather_dim(x, groups[ax], n, 0)
+    return x
+
+
+def shard_map_callable(fn: Callable, mesh, in_specs, out_specs, *, traces=(), name: str = "shard_map",
+                       trace_lines=None, schedule=None) -> Callable:
+    """``fn`` run on this rank's blocks: the global arguments split by
+    ``in_specs``, the outputs joined by ``out_specs``, the collectives of
+    ``fn`` resolved to the groups ``mesh`` binds. On CUDA the per-rank
+    program is staged as one CUDA graph (``traces`` are its claimed traces,
+    read for what keeps a program unstaged)."""
+    from thunder_tpu_torch.executors import staging
+
+    axes = {ax for s in tree_flatten(in_specs)[0] + tree_flatten(out_specs)[0] if isinstance(s, P) for ax in s.axes}
+    axes |= {ax for trc in traces for ax in _trace_axes(trc)}
+    groups = resolve_axes(mesh, sorted(axes))
+    backends = {dist.get_backend(g) for g in groups.values()} or {dist.get_backend()}
+    device = torch.device("cuda", torch.cuda.current_device()) if "nccl" in backends else torch.device("cpu")
+
+    def per_rank(*args):
+        with bound_axes(groups):
+            return fn(*args)
+
+    staged, stats = staging.stage(per_rank, list(traces), device, name=name)
+
+    def call(*args):
+        flat_specs = _flat_in_specs(args, in_specs)
+        local = [split(a, s, groups) for a, s in zip(args, flat_specs)]
+        out = staged(*local)
+        flat, tspec = tree_flatten(out)
+        ospecs = _flat_out_specs(out, out_specs)
+        return tree_unflatten([join(x, s, groups) for x, s in zip(flat, ospecs)], tspec)
+
+    call.staging = stats
+    call.groups = groups
+    call.trace_lines = trace_lines
+    call.schedule = schedule
+    return call
+
+
+def _flat_in_specs(args: tuple, in_specs) -> list:
+    if isinstance(in_specs, P):
+        return [in_specs] * len(args)
+    if len(in_specs) != len(args):
+        raise ValueError(f"{len(in_specs)} in_specs for {len(args)} arguments")
+    return list(in_specs)
+
+
+def _flat_out_specs(out, out_specs) -> list:
+    """A spec for each leaf of ``out``: ``out_specs`` mirrors the output's
+    tuple structure, a ``P`` standing for a whole subtree."""
+    flat, _ = tree_flatten(out)
+    if isinstance(out_specs, P):
+        return [out_specs] * len(flat)
+    res = []
+
+    def walk(o, s):
+        if isinstance(s, P) or s is None:
+            res.extend([s] * len(tree_flatten(o)[0]))
+        elif isinstance(o, (tuple, list)) and isinstance(s, (tuple, list)) and len(o) == len(s):
+            for oo, ss in zip(o, s):
+                walk(oo, ss)
+        elif isinstance(o, dict) and isinstance(s, dict):
+            for k in o:
+                walk(o[k], s[k])
+        else:
+            raise ValueError(f"out_specs {s!r} do not match the output structure")
+
+    walk(out, out_specs)
+    return res
+
+
+def _trace_axes(trc) -> set:
+    from thunder_tpu_torch.distributed.prims import DistOpIDs, is_collective_bsym
+
+    axes = set()
+    for bsym in trc.bound_symbols:
+        if not is_collective_bsym(bsym) or bsym.sym.id is DistOpIDs.WAIT:
+            continue
+        if bsym.sym.id is DistOpIDs.HIER_ALL_REDUCE:
+            axes.update(bsym.args[1:3])
+        elif len(bsym.args) > 1 and isinstance(bsym.args[1], str):
+            axes.add(bsym.args[1])
+    return axes
+
+
+def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, out_specs, *, grad: bool = False):
+    """Trace ``fn`` on this rank's example blocks (so its collectives record
+    into the trace), claim it, and stage it by :func:`stage_collective_trace`.
+    ``grad=True`` returns the value and the grads of the inputs, as
+    ``grad_transform(return_value=True)`` does. Returns ``(callable, claimed
+    trace)``; the callable takes the global arguments."""
+    from thunder_tpu_torch.api import trace_program
+    from thunder_tpu_torch.executors.passes import transform_for_execution
+    from thunder_tpu_torch.extend import resolve_executors
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+    from thunder_tpu_torch.transforms.common import dce
+
+    _, comp = trace_program(fn, example_args, {})
+    comp = dce(comp)
+    if grad:
+        comp = grad_transform(comp, return_value=True)
+    extrace = transform_for_execution(comp, resolve_executors(None))
+    return stage_collective_trace(extrace, mesh, in_specs, out_specs), extrace
+
+
+def stage_collective_trace(extrace, mesh, in_specs, out_specs) -> Callable:
+    """Stage a claimed trace that holds collectives: certify its collective
+    schedule (stamped on the trace, and handed on for the watchdog), then
+    :func:`shard_map_callable` over ``mesh``."""
+    from thunder_tpu_torch.analysis import schedule as sched_mod
+    from thunder_tpu_torch.distributed.prims import collective_trace_lines
+
+    schedule = sched_mod.stamp(extrace).axis_labels()
+    return shard_map_callable(extrace.python_callable(), mesh, in_specs, out_specs, traces=(extrace,),
+                              name=extrace.siginfo.name, trace_lines=collective_trace_lines(extrace),
+                              schedule=schedule)

@@ -93,6 +93,7 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor])
         if isinstance(ex, FusionExecutor):
             extrace = ex.fusion_pass(extrace)
     extrace.tags["claim_breakdown"] = _claim_breakdown(extrace)
+    extrace.tags["collective_bytes"] = _collective_bytes(extrace)
     return wrap_in_trace_provenance(extrace, "Transform for execution", start)
 
 
@@ -106,6 +107,18 @@ def _claim_breakdown(trace: TraceCtx) -> dict[str, int]:
         name = ex.name if ex is not None else "host"
         out[name] = out.get(name, 0) + 1
     return out
+
+
+def _collective_bytes(trace: TraceCtx) -> int:
+    """The bytes of the collectives' tensor operands (COMM_OP symbols), from
+    the trace's metadata: a per-trace constant, the payload of
+    ``compile_end`` events and of ``COLLECTIVE_BYTES``
+    (thunder_tpu/executors/passes.py:136-149). The wire bytes a ring moves
+    for them are ``analysis/cost.py``'s."""
+    from thunder_tpu_torch.core.proxies import TensorProxy
+
+    return sum(p.size_bytes for bsym in trace.bound_symbols if OpTags.COMM_OP in bsym.sym.tags
+               for p in bsym.flat_proxy_args if isinstance(p, TensorProxy))
 
 
 def del_last_used(trace: TraceCtx) -> TraceCtx:

@@ -1,10 +1,10 @@
-"""ThunderModule: ``thunder_tpu_torch.jit(torch.nn.Module)``, on one device.
+"""ThunderModule: ``thunder_tpu_torch.jit(torch.nn.Module)``.
 
 Reference parity: ``ThunderModule`` (thunder/__init__.py:178) and the
 torch-autograd bridge ``ThunderFunction`` (thunder/executors/torch_autograd.py:20).
-The counterpart of ``thunder_tpu/frontend/module.py`` without its
-distributed parts; ``seq_bucket=`` pads dim 1 of the inputs to a bucket
-and crops the outputs back, so each bucket is one entry.
+The counterpart of ``thunder_tpu/frontend/module.py``; ``seq_bucket=`` pads
+dim 1 of the inputs to a bucket and crops the outputs back, so each bucket
+is one entry.
 
 Acquisition (the seat of thunder's bytecode interpreter, see
 ``frontend/__init__.py``): parameters and buffers are swapped for
@@ -40,6 +40,23 @@ backward lends its grads to autograd, and copies them only once a
 package's module frontend takes the option and leaves the products in
 f32); random draws take a fresh key each call, as the functional entries'
 do.
+
+Distributed (``distributed.ddp``/``fsdp`` before jit, or
+``configure_distributed`` after; thunder_tpu/frontend/module.py:335-460,
+:576-957): one process a rank, each called with the same global inputs.
+Every parameter passes through ``synchronize`` at trace time, whose VJP
+puts the grad all-reduce (ddp) or reduce-scatter (fsdp) in the backward.
+Under fsdp each rank's parameter holds its dim-0 block (one whose dim 0
+does not divide stays replicated), so ``parameters()`` yields the shards
+and their ``.grad`` is the reduce-scattered shard grad; ZERO3 gathers
+again in the backward instead of saving the full parameter. The data
+inputs whose dim 0 is the batch (``frontend/batchdim.py``) run as this
+rank's block, and an output that still leads with the batch is joined by
+an all-gather; an output that reduces over the batch, or a differentiable
+input that is not the batch, falls back to replicated data. ``no_sync()``
+compiles its own entry, whose backward has no collective, and reduces the
+accumulated grads when the context exits. A group of one rank runs every
+collective too (each is then the identity), so its traces are those of N.
 """
 
 from __future__ import annotations
@@ -312,9 +329,6 @@ class ThunderModule:
         self._seq_crop_cache: dict = {}
         if options:
             raise TypeError(f"jit(nn.Module) got unexpected options {sorted(options)}")
-        if getattr(module, "_thunder_dist", None) is not None:
-            raise NotImplementedError("a module tagged by ddp()/fsdp() needs the distributed slice of the port "
-                                      "(ROADMAP slice 5), not yet ported")
         self._module = module
         self._rematerialize = bool(rematerialize)
         self._cache: dict[Any, list[dict]] = {}  # metadata key → entries (value-guard disambiguated)
@@ -331,6 +345,12 @@ class ThunderModule:
         )
         self._lc_cs = CompileStats()
         self._params()  # a parameter off the jit's device raises here, not at the first call
+        self._dist: Optional[dict] = None
+        self._groups: dict = {}
+        self._sharded: dict[str, tuple] = {}  # fsdp: qual → the full shape of a param held as its dim-0 block
+        self._nosync_accum: dict[str, torch.Tensor] = {}  # no_sync: qual → the local grads summed
+        if getattr(module, "_thunder_dist", None) is not None:
+            self.configure_distributed(module._thunder_dist)
 
     # -- module surface (reference: thunder/__init__.py:246-250) --------------
 
@@ -366,13 +386,107 @@ class ThunderModule:
     def original_module(self):
         return self._module
 
-    def configure_distributed(self, cfg) -> None:
-        raise NotImplementedError("configure_distributed needs the distributed slice of the port (ROADMAP "
-                                  "slice 5), not yet ported")
+    # -- distributed (thunder_tpu/frontend/module.py:335-485) -----------------
 
+    def configure_distributed(self, cfg: Optional[dict]) -> None:
+        """Install a ddp/fsdp config (``{mode, mesh, axis, ...}``), or None to
+        leave it: params an earlier fsdp config sharded are gathered back
+        first, compiled entries are dropped. Under ddp each param takes rank
+        ``broadcast_from``'s value; under fsdp each divisible param keeps its
+        dim-0 block."""
+        from thunder_tpu_torch.distributed import _validate_dist_cfg, runtime
+
+        if self._sharded:
+            self._gather_params()
+        self._dist, self._groups = None, {}
+        self._cache.clear()
+        if cfg is None:
+            return
+        _validate_dist_cfg(cfg)
+        self._groups = runtime.resolve_axes(cfg.get("mesh"), (cfg["axis"],))
+        self._dist = cfg
+        if cfg["mode"] == "ddp" and cfg.get("broadcast_from") is not None:
+            self._broadcast_params(cfg["broadcast_from"])
+        if cfg["mode"] == "fsdp":
+            self._shard_params()
+
+    def _group(self):
+        return self._groups[self._dist["axis"]]
+
+    def _dist_axis_size(self) -> int:
+        import torch.distributed as tdist
+
+        return tdist.get_world_size(self._group()) if self._dist is not None else 1
+
+    def _broadcast_params(self, root: int) -> None:
+        import torch.distributed as tdist
+
+        group = self._group()
+        src = tdist.get_global_rank(group, root)
+        with torch.no_grad():
+            for _, _, _, t in _named_slots(self._module):
+                tdist.broadcast(t.data, src=src, group=group)
+
+    def _shard_params(self) -> None:
+        """Each parameter whose dim 0 divides over the axis keeps this
+        rank's block (``_shard_param:406``; buffers stay replicated)."""
+        import torch.distributed as tdist
+
+        n, r = self._dist_axis_size(), tdist.get_rank(self._group())
+        for qual, _, _, t in _named_slots(self._module):
+            if isinstance(t, torch.nn.Parameter) and t.ndim >= 1 and t.shape[0] % n == 0:
+                self._sharded[qual] = tuple(t.shape)
+                if n > 1:
+                    m = t.shape[0] // n
+                    t.data = t.data.narrow(0, r * m, m).clone()
+                    t.grad = None
+
+    def _gather_params(self) -> None:
+        from thunder_tpu_torch.distributed.prims import gather_dim
+
+        n, named = self._dist_axis_size(), {qual: t for qual, _, _, t in _named_slots(self._module)}
+        for qual in self._sharded:
+            t = named[qual]
+            if n > 1:
+                t.data = gather_dim(t.data, self._group(), n, 0)
+                t.grad = None
+        self._sharded.clear()
+
+    @contextlib.contextmanager
     def no_sync(self):
-        raise NotImplementedError("no_sync needs the distributed slice of the port (ROADMAP slice 5), "
-                                  "not yet ported")
+        """Gradient accumulation: backwards inside the context run an entry
+        compiled without grad collectives, their local grads summed here;
+        leaving the context reduces the sums over the axis into ``.grad``
+        (thunder/__init__.py:197-239). On an exception the partial sums are
+        dropped and ``.grad`` is left as it was."""
+        from thunder_tpu_torch.distributed import no_sync
+
+        self._nosync_accum.clear()
+        try:
+            with no_sync():
+                yield
+        except BaseException:
+            self._nosync_accum.clear()
+            raise
+        self._sync_grads()
+
+    def _sync_grads(self) -> None:
+        """Reduce the no-sync sums over the axis onto ``.grad``: a sum (the
+        VJP already scaled them), reduce-scattered into an fsdp shard's
+        grad, all-reduced into a replicated param's."""
+        from thunder_tpu_torch.distributed.prims import _reduce, scatter_dim
+
+        if not self._nosync_accum:
+            return
+        group, n = self._group(), self._dist_axis_size()
+        named = {qual: t for qual, _, _, t in _named_slots(self._module)}
+        with torch.no_grad():
+            for qual, total in self._nosync_accum.items():
+                g = scatter_dim(total, group, n, 0) if qual in self._sharded else _reduce(total, group, n, "sum")
+                owner = named[qual]
+                g = g.to(owner.dtype)
+                owner.grad = g if owner.grad is None else owner.grad + g
+        self._nosync_accum.clear()
 
     # -- inputs ---------------------------------------------------------------
 
@@ -406,8 +520,11 @@ class ThunderModule:
                 return (tuple(shape), dev, str(dt), rg)
             return x if isinstance(x, (int, float, bool, str, type(None))) else type(x).__name__
 
+        from thunder_tpu_torch.distributed import skip_data_parallel_grad_sync
+
         flat, spec = tree_flatten((args, kwargs))
-        return (tuple(leaf_key(x) for x in flat), str(spec), grad)
+        nosync = self._dist is not None and skip_data_parallel_grad_sync()
+        return (tuple(leaf_key(x) for x in flat), str(spec), grad, nosync)
 
     # -- compilation ----------------------------------------------------------
 
@@ -433,16 +550,24 @@ class ThunderModule:
                                   cache_option="module+seq_bucket" if self._seq_bucket else "module",
                                   call=cs.calls)
             entry = self._compile_impl(params, args, kwargs, grad)
+            if entry["split"]:
+                entry["value_guards"] = [_BlockGuard(g, entry["split"], self._dist["axis"], self._groups)
+                                         for g in entry["value_guards"]]
             cs.compile_count += 1
             if obsm.enabled():
                 obsm.COMPILES.inc()
                 if cs.compile_count > 1:
                     obsm.RECOMPILES.inc()
+                # The forward's and the backward's collectives (the JAX
+                # package's module frontend counts none).
+                nbytes = sum(entry[k].tags.get("collective_bytes") or 0 for k in ("fw_trace", "bw_trace") if k in entry)
+                if nbytes:
+                    obsm.COLLECTIVE_BYTES.inc(nbytes)
             obs_events.emit_compile_end(compile_id, name, (time.perf_counter() - t0) * 1e3, entry["fw_trace"],
                                         recompile=cs.compile_count > 1)
             return entry
 
-    def _compile_impl(self, params: dict, args: tuple, kwargs: dict, grad: bool) -> dict:
+    def _compile_impl(self, params: dict, args: tuple, kwargs: dict, grad: bool, replicated: bool = False) -> dict:
         from thunder_tpu_torch.api import trace_program
         from thunder_tpu_torch.common import sharp_edges_policy
         from thunder_tpu_torch.core import dtypes, prims
@@ -457,8 +582,24 @@ class ThunderModule:
 
         module = self._module
         executors = self._lc_cd.executors_list
+        dist_cfg = self._dist
+        axis = dist_cfg["axis"] if dist_cfg is not None else None
+        n = self._dist_axis_size()
+        nosync = False
+        trace_args, trace_kwargs, batch0, split_ids = args, kwargs, None, set()
+        if axis is not None:
+            from thunder_tpu_torch.distributed import skip_data_parallel_grad_sync
+
+            nosync = skip_data_parallel_grad_sync()
+            if dist_cfg.get("shard_data", True) and not replicated:
+                trace_args, trace_kwargs, batch0, split_ids = self._split_data(args, kwargs)
+        # Split data: the ranks' partial grads sum; replicated data: every
+        # rank computes the same grad, and the sync averages the copies.
+        grad_scale = 1.0 if split_ids else 1.0 / n
 
         def functional_fwd(params: dict, *fargs, **fkwargs):
+            if axis is not None:
+                params = self._synchronized(params, axis, n, grad_scale, nosync)
             with _swapped_params(module, params), _tracing_patches():
                 out = module(*fargs, **fkwargs)
                 # Epilogue diff (reference: jit_ext.py:1302
@@ -477,7 +618,7 @@ class ThunderModule:
             return _normalize_output(out)
 
         with sharp_edges_policy(self._lc_cd.sharp_edges):
-            _, comp = trace_program(functional_fwd, (params,) + args, kwargs)
+            _, comp = trace_program(functional_fwd, (params,) + trace_args, trace_kwargs)
         vguards = value_guards_of(comp)
         traces = [comp]
         comp = cse(dce(comp))
@@ -488,14 +629,25 @@ class ThunderModule:
 
         # Mark requires_grad on the trace's tensor args, which align with the
         # concrete tensor leaves of ((params, *args), kwargs) in pytree order.
-        flat_concrete, _ = tree_flatten(((params,) + args, kwargs))
+        flat_concrete, _ = tree_flatten(((params,) + trace_args, trace_kwargs))
         concrete = [x for x in flat_concrete if bridge.is_concrete_tensor(x)]
+        split = {i for i, x in enumerate(concrete) if id(x) in split_ids}
         wrt = []  # positions in the flat tensor inputs of the grads the backward returns
         for i, (proxy_arg, conc) in enumerate(zip(comp.args, concrete)):
             rg = grad and bool(getattr(conc, "requires_grad", False)) and dtypes.is_inexact_dtype(proxy_arg.dtype)
             proxy_arg._requires_grad = rg
             if rg:
                 wrt.append(i)
+        if split and any(i >= len(params) and i not in split for i in wrt):
+            # A differentiable input that is not split would take each rank's
+            # partial grad with no sync: replicated data instead.
+            return self._compile_impl(params, args, kwargs, grad, replicated=True)
+        out_specs = ct_specs = None
+        if axis is not None:
+            out_specs = self._out_specs(comp, split, batch0, n)
+            if out_specs is None:  # an output that reduces over the batch
+                return self._compile_impl(params, args, kwargs, grad, replicated=True)
+            ct_specs = [s for leaf, s in zip(tree_flatten(comp.output)[0], out_specs) if isinstance(leaf, TensorProxy)]
         has_updates = isinstance(comp.output, dict) and "__updates" in comp.output
         # Random draws read a key passed in each call, the forward's last
         # input; the backward sees the forward's draws as saved tensors, or
@@ -505,29 +657,111 @@ class ThunderModule:
         if needs_rng:
             traces.append(comp)
         entry = {"wrt": wrt, "has_updates": has_updates, "needs_rng": needs_rng, "stages": None,
-                 "n_params": len(params)}
+                 "n_params": len(params), "split": split, "out_specs": out_specs, "ct_specs": ct_specs,
+                 "nosync": nosync}
 
         if not wrt:
             guard, claimed, _ = _with_mask_verdicts(transform_for_execution(comp, executors), None, concrete, needs_rng)
             ex = del_last_used(claimed)
             traces.append(ex)
-            return {**entry, "fwd": ex.python_callable(), "bwd": None, "traces": traces, "fw_trace": ex,
-                    "value_guards": vguards + guard}
+            return {**entry, "fwd": self._bound(ex.python_callable()), "bwd": None, "traces": traces,
+                    "fw_trace": ex, "value_guards": vguards + guard}
 
         fw, bw = forward_and_backward_from_trace(comp)
         fw, bw = save_sdpa_residuals(fw, bw, executors)
         if self._rematerialize:
+            from thunder_tpu_torch.distributed import FSDPType
             from thunder_tpu_torch.transforms.rematerialization import rematerialize_forward_and_backward
 
-            fw, bw = rematerialize_forward_and_backward(fw, bw)
+            # ZERO3: the backward gathers each param again from its shard
+            # instead of saving the gathered param; ZERO2 saves it.
+            zero3 = (dist_cfg is not None and dist_cfg["mode"] == "fsdp"
+                     and dist_cfg.get("fsdp_type", FSDPType.ZERO3) is FSDPType.ZERO3)
+            fw, bw = rematerialize_forward_and_backward(fw, bw, remat_collectives=zero3)
         n_saved = len(fw.tags["saved_for_backward"])
         guard, fw_claimed, bw_claimed = _with_mask_verdicts(transform_for_execution(fw, executors),
                                                             transform_for_execution(bw, executors), concrete, needs_rng)
         fw_ex = del_last_used(fw_claimed)
         bw_ex = del_last_used(take_saved_as_list(bw_claimed, n_saved))
-        return {**entry, "fwd": fw_ex.python_callable(), "bwd": bw_ex.python_callable(),
+        return {**entry, "fwd": self._bound(fw_ex.python_callable()), "bwd": self._bound(bw_ex.python_callable()),
                 "traces": traces + [fw_ex, bw_ex], "fw_trace": fw_ex, "bw_trace": bw_ex,
                 "value_guards": vguards + guard}
+
+    def _bound(self, fn):
+        """``fn`` with the config's axis resolved to its process group while
+        it runs (a staged program's warm-up and capture)."""
+        if self._dist is None:
+            return fn
+        from thunder_tpu_torch.distributed import runtime
+
+        groups = self._groups
+
+        def bound(*args):
+            with runtime.bound_axes(groups):
+                return fn(*args)
+
+        return bound
+
+    def _synchronized(self, params: dict, axis: str, n: int, grad_scale: float, nosync: bool) -> dict:
+        """Every param through ``synchronize`` (thunder/common.py:521-528):
+        an fsdp shard all-gathers, a replicated param passes through; the
+        VJP puts the grad sync in the backward."""
+        from thunder_tpu_torch.core.proxies import DistParallelType
+        from thunder_tpu_torch.distributed import prims as dist_prims
+
+        synced = {}
+        for qual, p in params.items():
+            if not isinstance(p, TensorProxy):
+                synced[qual] = p
+                continue
+            sharded = qual in self._sharded
+            p.dist_parallel_type = DistParallelType.FULLY_SHARDED if sharded else DistParallelType.REPLICATED
+            synced[qual] = dist_prims.synchronize(p, axis, n, "fsdp" if sharded else "replicated",
+                                                  grad_scale=grad_scale, grad_sync=not nosync)
+        return synced
+
+    def _split_data(self, args: tuple, kwargs: dict) -> tuple:
+        """``(args, kwargs, batch, ids)``: each tensor input of rank 2 or more
+        whose dim 0 is the batch (the most common such dim 0) and divides
+        over the axis, as this rank's block; ``ids`` are the blocks'. An
+        input whose dim 0 is another size (a (T, T) mask) stays whole."""
+        from thunder_tpu_torch.distributed import runtime
+
+        n = self._dist_axis_size()
+        flat, spec = tree_flatten((args, kwargs))
+        dim0s = [int(x.shape[0]) for x in flat if isinstance(x, torch.Tensor) and x.ndim >= 2]
+        if not dim0s:
+            return args, kwargs, None, set()
+        batch0 = max(set(dim0s), key=lambda d: (dim0s.count(d), -dim0s.index(d)))
+        if batch0 < n or batch0 % n:
+            return args, kwargs, None, set()
+        spec_p = runtime.P(self._dist["axis"])
+        blocks = [runtime.split(x, spec_p, self._groups) if isinstance(x, torch.Tensor) and x.ndim >= 2
+                  and x.shape[0] == batch0 else x for x in flat]
+        ids = {id(b) for b, x in zip(blocks, flat) if b is not x}
+        new_args, new_kwargs = tree_unflatten(blocks, spec)
+        return new_args, new_kwargs, batch0, ids
+
+    def _out_specs(self, comp, split: set, batch0, n: int):
+        """A spec for each leaf of the traced output: ``P(axis)`` for an
+        output that still leads with the split batch (joined by an
+        all-gather), ``P()`` for one no split input reaches; None when an
+        output depends on the split data but not batch-first (the compile
+        then falls back to replicated data)."""
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.frontend.batchdim import propagate_batch_lead
+
+        names = {comp.args[i].name for i in split}
+        tainted, lead = (propagate_batch_lead(comp.bound_symbols, names, batch0 // n) if names else (set(), set()))
+        specs = []
+        for leaf in tree_flatten(comp.output)[0]:
+            if isinstance(leaf, TensorProxy) and leaf.name in tainted:
+                if leaf.ndim == 0 or leaf.name not in lead:
+                    return None
+                specs.append(P(self._dist["axis"]))
+            else:
+                specs.append(P())
+        return specs
 
     def _staged(self, entry: dict) -> tuple:
         """The entry's forward and backward, each staged as a CUDA graph
@@ -740,12 +974,60 @@ class ThunderModule:
             inputs = inputs + [_next_key(self._lc_cd.device)]
 
         fwd, bwd, cs.last_staging, cs.last_backward_staging = self._staged(entry)
+        sources = inputs
+        if self._dist is not None:
+            from thunder_tpu_torch.distributed import runtime
+
+            spec = runtime.P(self._dist["axis"])
+            inputs = [runtime.split(x, spec, self._groups) if i in entry["split"] else x for i, x in enumerate(inputs)]
+            fwd, bwd = self._dist_fwd(entry, fwd), self._dist_bwd(entry, bwd, list(params))
         if bwd is None:
             with torch.no_grad():
                 out = fwd(*inputs)
         else:
-            out = _run_thunder_function(fwd, bwd, entry["wrt"], inputs)
+            out = _run_thunder_function(fwd, bwd, entry["wrt"], inputs, sources)
         return self._postprocess_output(entry, out)
+
+    def _dist_fwd(self, entry: dict, fwd):
+        """The forward with its outputs joined by their specs (a leaf that
+        leads with the split batch is all-gathered along dim 0)."""
+        from thunder_tpu_torch.distributed import runtime
+
+        groups, specs, grad = self._groups, entry["out_specs"], entry["bwd"] is not None
+
+        def joined(*inputs):
+            res = fwd(*inputs)
+            out = res[0] if grad else res
+            flat, spec = tree_flatten(out)
+            out = tree_unflatten([runtime.join(x, s, groups) for x, s in zip(flat, specs)], spec)
+            return (out, res[1]) if grad else out
+
+        return joined
+
+    def _dist_bwd(self, entry: dict, bwd, quals: list):
+        """The backward on this rank's blocks of the cotangents; the grad of
+        a split input joined; under ``no_sync`` the params' local grads
+        summed into the accumulator instead of returned."""
+        if bwd is None:
+            return None
+        from thunder_tpu_torch.distributed import runtime
+
+        groups, axis = self._groups, self._dist["axis"]
+        wrt, split, nosync, accum = entry["wrt"], entry["split"], entry["nosync"], self._nosync_accum
+        ct_specs = entry["ct_specs"]  # the cotangents follow the output's tensor leaves
+
+        def local(saved, *cotangents):
+            cts = [runtime.split(c, s, groups) for c, s in zip(cotangents, ct_specs)]
+            grads = list(bwd(saved, *cts))
+            for k, i in enumerate(wrt):
+                if i in split:
+                    grads[k] = runtime.join(grads[k], runtime.P(axis), groups)
+                elif nosync and i < len(quals):
+                    g, grads[k] = grads[k], None
+                    accum[quals[i]] = g if quals[i] not in accum else accum[quals[i]] + g
+            return grads
+
+        return local
 
     def _postprocess_output(self, entry: dict, out):
         """Split epilogue updates off the output tree and replay them onto
@@ -762,6 +1044,24 @@ class ThunderModule:
                 t = named.get(qual)
                 if t is not None:
                     t.copy_(val.to(t.dtype))
+
+
+class _BlockGuard:
+    """A value guard of an entry traced on this rank's blocks of split
+    inputs, read on the same blocks of a call's global inputs."""
+
+    def __init__(self, guard, split: set, axis: str, groups: dict):
+        self.guard, self.split, self.axis, self.groups = guard, split, axis, groups
+
+    def holds(self, tensor_inputs):
+        from thunder_tpu_torch.distributed.runtime import P, split
+
+        spec = P(self.axis)
+        return self.guard.holds([split(x, spec, self.groups) if i in self.split else x
+                                 for i, x in enumerate(tensor_inputs)])
+
+    def __getattr__(self, name):
+        return getattr(self.guard, name)
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -818,12 +1118,14 @@ def _with_mask_verdicts(fw_claimed, bw_claimed, inputs: list, needs_rng: bool) -
             None if bw_claimed is None else flashex.with_verdicts(bw_claimed, by_name))
 
 
-def _run_thunder_function(fwd, bwd, wrt: list, inputs: list):
+def _run_thunder_function(fwd, bwd, wrt: list, inputs: list, sources: Optional[list] = None):
     """Run a compiled forward and backward as one ``torch.autograd.Function``
     (reference parity: thunder/executors/torch_autograd.py:20). Its inputs are
-    the tensors that the backward returns grads for, so autograd sends each
-    grad to the right ``.grad`` or upstream node; the outputs are the tensor
-    leaves of the forward's output tree, rebuilt around its other leaves."""
+    the tensors that the backward returns grads for (of ``sources``, the
+    caller's tensors that ``inputs`` were taken from: the same but for a
+    rank's block of a split input), so autograd sends each grad to the right
+    ``.grad`` or upstream node; the outputs are the tensor leaves of the
+    forward's output tree, rebuilt around its other leaves."""
     holder: dict = {}
 
     class ThunderFunction(torch.autograd.Function):
@@ -855,7 +1157,8 @@ def _run_thunder_function(fwd, bwd, wrt: list, inputs: list):
             grads = bwd(saved, *cotangents)
             return tuple(grads)
 
-    outs = ThunderFunction.apply(*(inputs[i] for i in wrt))
+    sources = inputs if sources is None else sources
+    outs = ThunderFunction.apply(*(sources[i] for i in wrt))
     if not isinstance(outs, tuple):
         outs = (outs,)
     flat = list(holder["flat"])

@@ -40,9 +40,17 @@ Scope parsing accepts the JAX package's three spellings:
 ``L<idx>.<sym>#<pass>`` (the current one), ``L<idx>.<sym>@<pass>`` and
 the truncated ``L<idx>.<sym>`` (provenance lost: ``pass_name=None``).
 
-Not here: the JAX package's collective overlap rows (the port has no
-collectives until the distribution slice) and fusion groups (a kernel is
-charged whole to one range).
+Collectives (thunder_tpu/observability/attribution.py:60-218, :674): a
+device op is a collective when its line's symbol is a collective prim
+(:data:`COLLECTIVE_SYM_CLASS`) or it is an NCCL kernel (``nccl…AllReduce…``
+and the like, outside any line); each is a :class:`CollectiveRow` of
+``Attribution.collectives``, its time split into what kernels on other
+streams of the card overlapped (hidden) and the rest (exposed), and
+``PerfJoin.collectives`` joins each with the cost model's wire time
+(:func:`_join_collectives`).
+
+Not here: the JAX package's fusion groups (a kernel is charged whole to one
+range).
 """
 
 from __future__ import annotations
@@ -61,6 +69,39 @@ from typing import Any, Callable, Optional, Sequence
 _SCOPE_RE = re.compile(r"L(\d+)\.([A-Za-z_][\w.]*?)[#@]([\w]+)")
 # Truncated scope: L<idx>.<sym> at a path-segment boundary.
 _SCOPE_BARE_RE = re.compile(r"L(\d+)\.([A-Za-z_][\w.]*?)(?=/|$)")
+
+# Trace-level collective symbols (distributed/prims.py) → the collective
+# family their torch.distributed call runs. A line whose sym is one of these
+# is a collective whatever its kernels are named (at one rank NCCL may run a
+# copy, or nothing).
+COLLECTIVE_SYM_CLASS = {
+    "all_gather": "all-gather",
+    "all_reduce": "all-reduce",
+    "reduce_scatter": "reduce-scatter",
+    "broadcast": "broadcast",
+    "all_to_all": "all-to-all",
+    "ppermute": "collective-permute",
+    "synchronize": "all-gather",  # an fsdp gather; a replicated sync is the identity
+    "hier_all_reduce": "all-reduce",
+}
+
+# NCCL's kernels: ncclDevKernel_AllReduce_Sum_bf16_RING_LL, ncclKernel_AllGather_…
+_NCCL_RE = re.compile(r"nccl\w*?_(AllGather|AllReduce|ReduceScatter|Broadcast|Reduce|SendRecv|AllToAll)", re.I)
+_NCCL_CLASS = {"allgather": "all-gather", "allreduce": "all-reduce", "reducescatter": "reduce-scatter",
+               "broadcast": "broadcast", "reduce": "all-reduce", "sendrecv": "collective-permute",
+               "alltoall": "all-to-all"}
+
+
+def collective_class(name: str, refs: Sequence["ScopeRef"] = ()) -> Optional[str]:
+    """The collective family of a device op ("all-gather", "all-reduce",
+    ...), or None for compute: by its line's symbol when it has a line,
+    else by its NCCL kernel name."""
+    for ref in refs:
+        if ref is not None and ref.sym in COLLECTIVE_SYM_CLASS:
+            return COLLECTIVE_SYM_CLASS[ref.sym]
+    m = _NCCL_RE.search(name or "")
+    return _NCCL_CLASS[m.group(1).lower()] if m else None
+
 
 # Event categories that are device time.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -140,6 +181,27 @@ def load_trace_events(path: str) -> list[dict]:
 
 
 @dataclass
+class CollectiveRow:
+    """Measured device time of one collective: one line (``L<i>.<sym>``) or,
+    outside every line, one NCCL kernel name. ``hidden_us`` is the part
+    that kernels on another stream of the card overlapped."""
+
+    key: str
+    cls: str
+    us: float = 0.0
+    hidden_us: float = 0.0
+    count: int = 0
+
+    @property
+    def exposed_us(self) -> float:
+        return max(0.0, self.us - self.hidden_us)
+
+    @property
+    def hidden_frac(self) -> float:
+        return self.hidden_us / self.us if self.us else 0.0
+
+
+@dataclass
 class Attribution:
     """Measured device time aggregated per trace line / symbol / pass.
 
@@ -165,6 +227,25 @@ class Attribution:
     graph_placed: int = 0
     graph_mismatched: int = 0
     graph_steps: list = field(default_factory=list)  # graph kernels a step (or a launch), in trace order
+    collectives: dict[str, CollectiveRow] = field(default_factory=dict)  # key -> row
+
+    @property
+    def collective_us(self) -> float:
+        return sum(r.us for r in self.collectives.values())
+
+    @property
+    def exposed_collective_us(self) -> float:
+        return sum(r.exposed_us for r in self.collectives.values())
+
+    def collective_summary(self) -> dict[str, CollectiveRow]:
+        """The collective rows summed by family."""
+        out: dict[str, CollectiveRow] = {}
+        for row in self.collectives.values():
+            agg = out.setdefault(row.cls, CollectiveRow(key=row.cls, cls=row.cls))
+            agg.us += row.us
+            agg.hidden_us += row.hidden_us
+            agg.count += row.count
+        return out
 
     @property
     def attributed_us(self) -> float:
@@ -186,8 +267,15 @@ class Attribution:
         """``{op name: [us, count]}`` of the ops charged to ``ref``."""
         return {name: v for (r, name), v in self.ops.items() if r == ref}
 
-    def _charge(self, ref: Optional[ScopeRef], name: str, us: float) -> None:
+    def _charge(self, ref: Optional[ScopeRef], name: str, us: float, hidden_us: float = 0.0) -> None:
         self.device_busy_us += us
+        cls = collective_class(name, (ref,))
+        if cls is not None:
+            row = self.collectives.setdefault(ref.label if ref is not None else name,
+                                              CollectiveRow(key=ref.label if ref is not None else name, cls=cls))
+            row.us += us
+            row.hidden_us += hidden_us
+            row.count += 1
         slot = self.ops.setdefault((ref, name), [0.0, 0])
         slot[0] += us
         slot[1] += 1
@@ -218,6 +306,9 @@ class Attribution:
         if self.unattributed:
             worst = sorted(self.unattributed.items(), key=lambda kv: -kv[1])[:3]
             lines.append("  unattributed: " + ", ".join(f"{n[:60]}={us:.0f}us" for n, us in worst))
+        if self.collectives:
+            lines.append(f"  collectives: {self.collective_us:.1f}us, {self.exposed_collective_us:.1f}us exposed "
+                         f"over {len(self.collectives)} row(s)")
         return "\n".join(lines)
 
     def __str__(self) -> str:
@@ -404,8 +495,48 @@ def align_to_map(names: Sequence[str], map_names: Sequence[str], map_refs: Seque
     return placed
 
 
+def _hidden_fn(ops: list[dict]) -> Callable[[dict], float]:
+    """``hidden(ev)``: the microseconds of device op ``ev`` that compute ops
+    on the card's other streams overlapped (the union of their intervals,
+    NCCL's own kernels left out), the JAX package's hidden lane time."""
+    import bisect
+
+    streams: dict[Any, list] = {}
+    for ev in ops:
+        if _NCCL_RE.search(str(ev.get("name", ""))):
+            continue
+        ts = float(ev.get("ts", 0.0))
+        streams.setdefault(ev.get("tid"), []).append((ts, ts + float(ev.get("dur", 0.0))))
+    starts = {}
+    for tid, ivs in streams.items():
+        ivs.sort()
+        starts[tid] = [a for a, _ in ivs]
+
+    def hidden(ev: dict) -> float:
+        a = float(ev.get("ts", 0.0))
+        b = a + float(ev.get("dur", 0.0))
+        cut = []
+        for tid, ivs in streams.items():
+            if tid == ev.get("tid"):
+                continue
+            # A stream's ops do not overlap: walk back from the last one that
+            # starts before ev ends to the first that ends before it starts.
+            j = bisect.bisect_left(starts[tid], b) - 1
+            while j >= 0 and ivs[j][1] > a:
+                cut.append((max(a, ivs[j][0]), min(b, ivs[j][1])))
+                j -= 1
+        total, end = 0.0, a
+        for x, y in sorted(cut):
+            if y > end:
+                total += y - max(x, end)
+                end = y
+        return total
+
+    return hidden
+
+
 def _place_graph_ops(attr: Attribution, graph_ops: list, launch_map: Optional[LaunchMap],
-                     step_of: dict) -> None:
+                     step_of: dict, hidden: Optional[Callable] = None) -> None:
     """Charge a graph replay's kernels through the launch-order map: the
     kernels of each step (or of each graph launch, outside any step range)
     in device order, placed by :func:`align_to_map`."""
@@ -426,7 +557,9 @@ def _place_graph_ops(attr: Attribution, graph_ops: list, launch_map: Optional[La
         attr.graph_mismatched += bool(map_names) and names != map_names
         attr.graph_steps.append(len(evs))
         for i, ev in enumerate(evs):
-            attr._charge(placed.get(i), names[i], float(ev.get("dur", 0.0)))
+            ref = placed.get(i)
+            attr._charge(ref, names[i], float(ev.get("dur", 0.0)),
+                         hidden(ev) if hidden is not None and collective_class(names[i], (ref,)) else 0.0)
 
 def attribute(source: str, *, launch_map: Optional[LaunchMap] = None) -> Attribution:
     """Aggregate measured time per trace line from the profile at ``source``
@@ -442,6 +575,7 @@ def attribute(source: str, *, launch_map: Optional[LaunchMap] = None) -> Attribu
         if _device_ops(events):
             attr.mode = "cuda"
             _, others = _user_ranges(events)
+            hidden = _hidden_fn(_device_ops(events))
             graph_ops = []
             queries: dict[tuple, list] = {}
             for ev, ref, launch in _scoped_device_ops(events):
@@ -450,13 +584,22 @@ def attribute(source: str, *, launch_map: Optional[LaunchMap] = None) -> Attribu
                     queries.setdefault((launch.get("pid"), launch.get("tid")), []).append(
                         (float(launch.get("ts", 0.0)), id(launch)))
                 else:
-                    attr._charge(ref, str(ev.get("name", "")), float(ev.get("dur", 0.0)))
+                    name = str(ev.get("name", ""))
+                    attr._charge(ref, name, float(ev.get("dur", 0.0)),
+                                 hidden(ev) if collective_class(name, (ref,)) else 0.0)
             # A graph launch's step: the innermost other range holding it
-            # (profile()'s step range).
+            # (profile()'s step range). A backward's graph launches from
+            # autograd's own thread, inside the step the caller's thread
+            # holds: its step is the range of its process holding its time.
             step_of: dict = {}
             for thread, qs in queries.items():
                 step_of.update(_innermost(others.get(thread, []), qs))
-            _place_graph_ops(attr, graph_ops, launch_map, step_of)
+            for thread, qs in queries.items():
+                lost = [q for q in qs if step_of.get(q[1]) is None]
+                spans = [r for t, rs in others.items() if t[0] == thread[0] and t != thread for r in rs]
+                if lost and spans:
+                    step_of.update({k: v for k, v in _innermost(spans, lost).items() if v is not None})
+            _place_graph_ops(attr, graph_ops, launch_map, step_of, hidden)
             continue
         # The CPU: host ops' self time, each charged to the innermost scope
         # holding its start.
@@ -479,22 +622,34 @@ def attribute(source: str, *, launch_map: Optional[LaunchMap] = None) -> Attribu
 @contextmanager
 def eager_stages(fn: Any):
     """Within the block, every staged entry of the ``jit``-compiled ``fn``
-    runs its stage's eager program (the same annotated program, each line
-    in its range), so a profiled call launches its kernels where
-    attribution sees their lines; the stages are put back after, their
-    graphs untouched. Nothing for any other callable."""
+    (a function, or a module: its forward and backward stages) runs its
+    stage's eager program (the same annotated program, each line in its
+    range), so a profiled call launches its kernels where attribution sees
+    their lines; the stages are put back after, their graphs untouched.
+    Nothing for any other callable."""
     from thunder_tpu_torch.executors.staging import CudaGraphStage
+
+    def eager(stage):
+        return stage.eager if isinstance(stage, CudaGraphStage) else stage
 
     cs = getattr(fn, "_lc_cs", None)
     swapped = [] if cs is None else [
         (e, e.computation_fn) for e in cs.cache_entries if isinstance(e.computation_fn, CudaGraphStage)]
+    modules = [e for es in getattr(fn, "_cache", {}).values() if isinstance(es, list) for e in es
+               if isinstance(e, dict) and e.get("stages") is not None]
+    saved = [e["stages"] for e in modules]
     try:
         for entry, stage in swapped:
             entry.computation_fn = stage.eager
+        for e in modules:
+            fwd, bwd, fstats, bstats = e["stages"]
+            e["stages"] = (eager(fwd), eager(bwd), fstats, bstats)
         yield
     finally:
         for entry, stage in swapped:
             entry.computation_fn = stage
+        for e, stages in zip(modules, saved):
+            e["stages"] = stages
 
 
 def scope_map_of(fn: Callable, *args, **kwargs) -> LaunchMap:
@@ -543,9 +698,23 @@ class JoinedRow:
 
 
 @dataclass
+class CollectiveJoin:
+    """One collective row (per step) beside ``cost.py``'s wire time for it:
+    a line's own, or, for NCCL kernels outside any line, its family's."""
+
+    key: str
+    cls: str
+    count: float
+    us: float
+    hidden_us: float
+    exposed_us: float
+    predicted_wire_us: Optional[float] = None
+
+
+@dataclass
 class PerfJoin:
     """The joined report: measured lines annotated with predicted cost,
-    roofline ratio and boundedness."""
+    roofline ratio and boundedness, and the collective rows."""
 
     rows: list[JoinedRow]
     attribution: Attribution
@@ -554,6 +723,7 @@ class PerfJoin:
     measured_step_us: float = 0.0
     mfu: Optional[float] = None
     padding_waste_elements: Optional[float] = None
+    collectives: list[CollectiveJoin] = field(default_factory=list)
 
     def format(self, top_k: int = 10) -> str:
         a = self.attribution
@@ -589,6 +759,13 @@ class PerfJoin:
             worst = sorted(a.unattributed.items(), key=lambda kv: -kv[1])[:3]
             lines.append("  unattributed: " + ", ".join(
                 f"{n[:60]}={us / self.steps:.0f}us" for n, us in worst))
+        if self.collectives:
+            lines.append("  collectives (us/step):")
+            lines.append(f"  {'collective':<34} {'n':>5} {'measured':>9} {'hidden':>8} {'exposed':>8} {'predicted':>10}")
+            for c in self.collectives:
+                pred = f"{c.predicted_wire_us:.1f}" if c.predicted_wire_us is not None else "-"
+                lines.append(f"  {c.key:<34.34} {c.count:>5g} {c.us:>9.1f} {c.hidden_us:>8.1f} {c.exposed_us:>8.1f} "
+                             f"{pred:>10}")
         return "\n".join(lines)
 
     def __str__(self) -> str:
@@ -607,6 +784,39 @@ def trace_costs(traces: Sequence, device: Any = None) -> dict:
     from thunder_tpu_torch.analysis.cost import trace_cost
 
     return {trc._annotate_tag(): trace_cost(trc, device) for trc in traces}
+
+
+def _join_collectives(attr: Attribution, cost: Optional[Any], steps: int) -> list[CollectiveJoin]:
+    """The collective rows a step, each beside its wire time on the cost's
+    spec (thunder_tpu/observability/attribution.py:674): a line's row joins
+    its cost row by (line, symbol) in its pass's trace; the NCCL kernels
+    outside any line join, by family, the wire time of every collective of
+    that family in the traces, when no line row exists."""
+    if not attr.collectives:
+        return []
+    by_line: dict[tuple, float] = {}
+    by_cls: dict[str, float] = {}
+    for tag, c in (cost.items() if isinstance(cost, dict) else [(None, cost)] if cost is not None else []):
+        for r in c.rows:
+            if r.kind != "collective" or not r.comm_bytes:
+                continue
+            us = r.roofline_s * 1e6
+            by_line[(tag, r.index, r.sym)] = us
+            cls = COLLECTIVE_SYM_CLASS.get(r.sym)
+            if cls is not None:
+                by_cls[cls] = by_cls.get(cls, 0.0) + us
+    out = []
+    scoped = {k: v for k, v in attr.collectives.items() if parse_scope(k) is not None}
+    for key, row in sorted(attr.collectives.items(), key=lambda kv: -kv[1].us):
+        ref = parse_scope(key)
+        if ref is not None:
+            pred = by_line.get((ref.pass_name if isinstance(cost, dict) else None, ref.line, ref.sym))
+        else:
+            pred = None if scoped else by_cls.get(row.cls)
+        out.append(CollectiveJoin(key=key, cls=row.cls, count=row.count / steps, us=row.us / steps,
+                                  hidden_us=row.hidden_us / steps, exposed_us=row.exposed_us / steps,
+                                  predicted_wire_us=pred))
+    return out
 
 
 def join_cost_attribution(
@@ -658,6 +868,7 @@ def join_cost_attribution(
         rows=rows, attribution=attr, cost=cost, steps=steps,
         measured_step_us=attr.device_busy_us / steps,
     )
+    join.collectives = _join_collectives(attr, cost, steps)
     costs = _costs(cost)
     if costs and attr.device_busy_us:
         peak = costs[0].device.peak_flops["bf16"]

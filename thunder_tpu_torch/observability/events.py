@@ -229,8 +229,8 @@ def emit_compile_end(
     (``frontend/module.py``) so the schema cannot diverge between producers.
     ``trace`` is the final execution trace; its ``claim_breakdown`` tag
     (stamped by ``executors/passes.py``) becomes the event's executor
-    payload. ``collective_bytes`` stays in the schema, 0 until the port has
-    collectives (the distribution slice)."""
+    payload, its ``collective_bytes`` tag the bytes of its collectives'
+    operands."""
     log = active_log()
     if log is None and not _ops["taps"]:
         return

@@ -17,8 +17,8 @@ dump, or Prometheus text.
 
 The metric names are the JAX package's (``thunder_tpu_*``), so scrapes and
 dashboards of both join; only the series this port emits are registered
-(the collective, resilience, ops-plane and critical-path series wait for
-the distribution and resilience slices). Enable with
+(the resilience, ops-plane and critical-path series wait for later
+slices). Enable with
 ``THUNDER_TPU_METRICS=1`` or :func:`enable`.
 """
 
@@ -346,6 +346,10 @@ PASS_MS = REGISTRY.histogram(
 )
 CLAIMED_BSYMS = REGISTRY.counter(
     "thunder_tpu_claimed_bsyms_total", "Executor-claim breakdown of execution traces, labelled by executor"
+)
+COLLECTIVE_BYTES = REGISTRY.counter(
+    "thunder_tpu_collective_bytes_traced_total",
+    "Bytes moved by collectives per traced program (static, from trace metadata)",
 )
 PADDING_WASTE_ELEMENTS = REGISTRY.counter(
     "thunder_tpu_padding_waste_elements_total",

@@ -43,11 +43,17 @@ def _is_cheap(bsym) -> bool:
     return any(t in _CHEAP_TAGS for t in bsym.sym.tags)
 
 
-def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
+def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx, *, remat_collectives: bool = False):
     """Shrink saved-for-backward by recomputing cheap chains in backward.
 
     Returns (new_fw, new_bw). fw's output structure stays
     ``(outputs, saved_tuple)``; bw's args stay ``saved... + cotangents...``.
+
+    ``remat_collectives=True`` is FSDP's ZERO3 (thunder_tpu/transforms/
+    rematerialization.py:83-125): a ``synchronize`` or ``all_gather`` of a
+    trace argument (a parameter's dim-0 shard) counts as cheap, so the
+    backward gathers the parameter again from its shard instead of saving
+    the full parameter.
     """
     start = time.perf_counter_ns()
 
@@ -62,6 +68,17 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
 
     arg_proxies = {a.name: a for a in fw_trace.args if isinstance(a, TensorProxy)}
 
+    if remat_collectives:
+        from thunder_tpu_torch.distributed.prims import DistOpIDs
+
+        def is_cheap(bsym) -> bool:
+            if bsym.sym.id in (DistOpIDs.SYNCHRONIZE, DistOpIDs.ALL_GATHER):
+                a = next(iter(bsym.flat_proxy_args), None)
+                return a is not None and a.name in arg_proxies
+            return _is_cheap(bsym)
+    else:
+        is_cheap = _is_cheap
+
     # Closure analysis: name → (chain bsyms in topo order, frontier names) or None.
     memo: dict[str, Optional[tuple]] = {}
 
@@ -72,7 +89,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
             memo[name] = ([], {name})
             return memo[name]
         bsym = producers.get(name)
-        if bsym is None or not _is_cheap(bsym):
+        if bsym is None or not is_cheap(bsym):
             memo[name] = None  # must be saved / is a frontier
             return None
         chain: list = []
@@ -116,7 +133,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
                 return True
             visiting.add(n)
             b = producers.get(n)
-            if b is None or not _is_cheap(b):
+            if b is None or not is_cheap(b):
                 return False
             for a in b.flat_proxy_args:
                 if not walk(a.name):
@@ -129,7 +146,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
 
     keep: list[str] = []
     recompute: dict[str, tuple] = {}
-    cut_set = _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of)
+    cut_set = _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of, is_cheap)
 
     if cut_set is not None:
         # Min-cut chose the optimal save boundary (possibly mid-chain).
@@ -229,7 +246,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx):
     return new_fw, new_bw
 
 
-def _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of):
+def _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of, is_cheap=_is_cheap):
     """Optimal save boundary via s-t min cut (reference:
     rematerialization.py:245 — igraph max-flow; here the in-repo C++ Dinic,
     thunder_tpu_torch/csrc/mincut.cpp, or the same algorithm in Python).
@@ -284,7 +301,7 @@ def _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of):
         if name in targets:
             edges.append((vo, 1, INF_CAP))
         b = producers.get(name)
-        if name not in seeds and name not in arg_proxies and b is not None and _is_cheap(b):
+        if name not in seeds and name not in arg_proxies and b is not None and is_cheap(b):
             for a in b.flat_proxy_args:
                 if a.name in idx:
                     edges.append((idx[a.name] + 1, vi, INF_CAP))
