@@ -199,7 +199,24 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    the no-sync backward; (d) the ZERO3 module's state saved through
    ``distributed.checkpoint``, loaded with every leaf on the card, and
    put into a fresh module bit-equal;
-17. after phase 22, prints one JSON line describing every kernel, then the
+23. the mesh and the sharded training step (``parallel/``), a process group
+   of one NCCL rank of its own, torn down after: (a) ``build_train_step``
+   on ``make_mesh(dp=1, fsdp=1, tp=1)`` with ``gpt_param_specs`` and
+   ``shard_pytree`` at open_llama_3b's full size, bf16, B=2 x T=2048,
+   3 staged steps with SGD and with AdamW (both donated), each loss and
+   every param after step 3 ``torch.equal`` to the unmeshed step's from
+   the same weights, the launches of each kernel row a step equal, device
+   ms and enqueue ms (``profile_call``) and the peak of steps 2-3 beside
+   the unmeshed step's (within 1 GiB), the collectives the step's program
+   holds and the NCCL calls it made, by family; (b) the LitGPT CLI through
+   ``benchmarks/distributed.run_config("dp1", ...)`` on pythia-410m, rank
+   0's JSON line parsed; (c) the fleet timeline (``monitor.critpath``),
+   driven by phase 22 (b)'s staged ddp step while its graphs are alive:
+   20 steps of wall spans and the collective rows of (e)'s attribution
+   folded, the class fractions summing to each step's wall, the exposed
+   collective share beside attribution's, ``critpath_report()`` and the
+   replay of its event log with no unknown kind;
+17. after phase 23, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -4641,8 +4658,12 @@ def run_dist_llama(launches: dict) -> None:
                 launches[k] = launches.get(k, 0) + v
         if mode == "ddp":
             # (e) now, while the ddp step's graphs hold their pools, and
-            # before the next module needs the memory.
-            run_dist_attribution(m, tm, opt, ids, am, labels, rec)
+            # before the next module needs the memory; then phase 23 (c)
+            # on the same step.
+            attr = run_dist_attribution(m, tm, opt, ids, am, labels, rec)
+            log("[23] (c) the fleet timeline, driven by the staged ddp step of phase 22 (b)")
+            run_timeline(step_fn(tm, opt), attr)
+            del attr
         del m, tm, opt
         gc.collect()
         torch.cuda.empty_cache()
@@ -4737,7 +4758,7 @@ def run_dist_checkpoint() -> None:
     torch.cuda.empty_cache()
 
 
-def run_dist_attribution(m, tm, opt, ids, am, labels, rec) -> None:
+def run_dist_attribution(m, tm, opt, ids, am, labels, rec):
     """Phase 22 (e). The staged ddp step of (b) (compiled annotated),
     profiled over 3 steps and attributed through the launch-order map of
     its eager step (phase 21 (c)'s route): the collective rows, and the
@@ -4782,6 +4803,197 @@ def run_dist_attribution(m, tm, opt, ids, am, labels, rec) -> None:
     require(rows and all(r.cls == "all-reduce" for r in rows), f"the ddp step's collective rows: {rows[:3]}")
     require(rec["collective_bytes_metric"] == tags and tags > 0, "COLLECTIVE_BYTES differs from the traces' tags")
     require(wire == 0.0, "cost.py priced wire bytes on a one-rank group")
+    return attr
+
+
+TIMELINE_STEPS = 20
+
+
+def run_timeline(step, attr) -> None:
+    """Phase 23 (c). The fleet timeline driven by phase 22 (b)'s staged ddp
+    step (the driver ``monitor.critpath`` expects: the port's step has no
+    hook of its own): 20 steps, each one's wall span folded with the
+    collective rows (e) attributed to a step (exposed collective time as
+    ``exposed_ici``, the rest of the device's busy time as ``compute``).
+    Each breakdown's classes must sum to the step's wall within 1e-9
+    relative, and the replay of the recorder's event log must know every
+    record."""
+    import os
+    import tempfile
+
+    import thunder_tpu_torch.monitor as monitor
+    from thunder_tpu_torch.analysis.events import replay_events
+    from thunder_tpu_torch.observability import events as ev
+    from thunder_tpu_torch.observability.detect import DetectorBank
+
+    exposed_s = attr.exposed_collective_us / 3e6
+    coll_s = attr.collective_us / 3e6
+    busy_s = attr.device_busy_us / 3e6
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_timeline_") as d:
+        path = os.path.join(d, "timeline.jsonl")
+        ev.set_global_path(path)
+        rec = monitor.critpath(emulated_skew_s={0: 0.0}, bank=DetectorBank())
+        try:
+            bds = []
+            for i in range(TIMELINE_STEPS):
+                t = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                rec.note_collective(0, i, fn="ddp_step", s=coll_s, step=i)
+                bds.append(rec.record_step(i, {0: {"total_s": wall, "ici_s": exposed_s,
+                                                   "compute_s": max(0.0, busy_s - exposed_s)}}))
+            report = monitor.critpath_report()
+            totals, fractions = rec.ledger.totals(), rec.ledger.fractions()
+        finally:
+            monitor.shutdown_critpath()
+            ev.set_global_path(None)
+        summary, diags = replay_events(path)
+    worst = max(abs(sum(bd.classes.values()) - bd.total_s) / bd.total_s for bd in bds)
+    walls = [bd.total_s * 1e3 for bd in bds]
+    unknown = [d.message for d in diags if d.rule == "events.unknown-kind"]
+    log(f"  (c) {TIMELINE_STEPS} ddp steps folded: wall {min(walls):.2f}-{max(walls):.2f} ms a step; class fractions "
+        "(EWMA) " + ", ".join(f"{c} {fractions.get(c, 0.0):.4f}" for c in ("compute", "exposed_ici", "exposed_dcn",
+                                                                           "straggler_wait", "stall", "idle"))
+        + f"; worst |sum(classes) - wall| / wall {worst:.2e}")
+    log(f"  (c) exposed_ici {totals['exposed_ici'] / TIMELINE_STEPS * 1e3:.4f} ms a step in the ledger; attribution's "
+        f"collective rows (e) {coll_s * 1e3:.4f} ms a step, {exposed_s * 1e3:.4f} exposed, of {busy_s * 1e3:.2f} device "
+        "ms")
+    for line in (report or "").splitlines():
+        log(f"  (c) | {line}")
+    log(f"  (c) replay of the recorder's event log: kinds {summary.get('kinds')}, unknown kinds {len(unknown)}")
+    require(worst <= 1e-9, f"a step's classes do not sum to its wall ({worst:.2e})")
+    require(abs(totals["exposed_ici"] / TIMELINE_STEPS - exposed_s) <= 1e-9 * max(exposed_s, 1e-9) + 1e-12,
+            "the ledger's exposed_ici differs from attribution's exposed collective time")
+    require(not unknown and summary.get("kinds", {}).get("critpath_step") == TIMELINE_STEPS
+            and summary.get("kinds", {}).get("collective") == TIMELINE_STEPS,
+            f"the replay: unknown {unknown[:3]}, kinds {summary.get('kinds')}")
+
+
+# Phase 23 (a): the kernel rows a step of open_llama_3b's training program
+# launches (26 layers: q and k through rope forward and backward).
+MESH_STEP_LAUNCHES = {"flash_fwd_lse": 26, "flash_bwd": 26, "rope": 104, "ce_fwd": 1, "ce_bwd": 1}
+
+
+def _mesh_step_run(cfg, ids, tgt, optimizer: str, mesh=None) -> dict:
+    """TRAIN_STEPS staged steps of ``build_train_step`` from SEED's weights
+    (sharded by ``gpt_param_specs`` and ``shard_pytree`` onto ``mesh`` when
+    given), donated; each step's launches and loss, the peak of steps 2-3,
+    the params after the last step on the host, the collectives of the
+    program and the NCCL calls made, then ``profile_call``."""
+    from collections import Counter
+
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.distributed import prims as dprims
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step, gpt_param_specs, shard_pytree
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    kw = dict(donate=True, grads_in_f32=optimizer != "sgd", optimizer=optimizer, return_extrace=True)
+    t = time.perf_counter()
+    if mesh is not None:
+        specs = gpt_param_specs(cfg, mesh)
+        params = shard_pytree(params, mesh, specs)
+        step, opt, ex = build_train_step(cfg, params, ids, tgt, mesh=mesh, param_specs=specs, **kw)
+    else:
+        step, opt, ex = build_train_step(cfg, params, ids, tgt, **kw)
+    build_s = time.perf_counter() - t
+    state = {"p": params, "o": opt}
+    del params, opt
+    before = dprims.collective_launches()
+    losses, counts = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        state["p"], state["o"], loss = step(state["p"], state["o"], ids, tgt)
+        torch.cuda.synchronize()
+        counts.append(_launch_counts())
+        losses.append(loss.detach().clone())
+    peak = torch.cuda.max_memory_allocated()
+    calls = {k: v - before[k] for k, v in dprims.collective_launches().items() if v != before[k]}
+    final = [x.detach().to("cpu") for x in tree_flatten(state["p"])[0]]
+
+    def one():
+        state["p"], state["o"], _ = step(state["p"], state["o"], ids, tgt)
+
+    label = f"open_llama_3b_train_step_{optimizer}_{'mesh' if mesh is not None else 'unmeshed'}"
+    prof = profile_call(label, one, batch=LOSS_BATCH, seq=SEQ, config=CFG_NAME, staged=True)
+    out = {"losses": losses, "counts": counts, "peak": peak, "final": final, "calls": calls, "build_s": build_s,
+           "staged": step.staging.staged, "prof": prof,
+           "program": dict(Counter(b.sym.name for b in ex.bound_symbols if dprims.is_collective_bsym(b)))}
+    del step, state, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_step(launches: dict) -> None:
+    """Phase 23 (a). The sharded step on the mesh of one NCCL rank against
+    the unmeshed step, SGD then AdamW, at open_llama_3b's full size."""
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import make_mesh
+
+    cfg = gpt.name_to_config(CFG_NAME)
+    gen = np.random.RandomState(SEED)
+    idx_np = gen.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))
+    ids = torch.from_numpy(idx_np).cuda()
+    tgt = torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    mesh = make_mesh(dp=1, fsdp=1, tp=1)
+    log(f"  (a) mesh {mesh.shape}, groups bound to {sorted(mesh)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    for optimizer in ("sgd", "adamw"):
+        ref = _mesh_step_run(cfg, ids, tgt, optimizer)
+        got = _mesh_step_run(cfg, ids, tgt, optimizer, mesh=mesh)
+        same_loss = all(torch.equal(a, b) for a, b in zip(ref["losses"], got["losses"]))
+        unequal = sum(not torch.equal(a, b) for a, b in zip(ref["final"], got["final"]))
+        per_step = [{k: c[k] for k in MESH_STEP_LAUNCHES} for c in got["counts"]]
+        log(f"  (a) {optimizer}: losses {', '.join(f'{x.item():.6f}' for x in got['losses'])} (unmeshed "
+            f"{', '.join(f'{x.item():.6f}' for x in ref['losses'])}), bit-equal {same_loss}; params after step "
+            f"{TRAIN_STEPS} bit-equal {unequal == 0} ({len(got['final'])} leaves, {unequal} differ); launches a step "
+            f"{per_step[-1]}, equal to the unmeshed step's {got['counts'] == ref['counts']}; staged "
+            f"{got['staged']} (unmeshed {ref['staged']}); build {got['build_s']:.2f} s (unmeshed "
+            f"{ref['build_s']:.2f} s)")
+        log(f"  (a) {optimizer} on {smi}: device {got['prof']['device_ms']:.2f} ms a step (unmeshed "
+            f"{ref['prof']['device_ms']:.2f}); enqueue {_median(got['prof']['enqueue_ms']):.2f} ms (unmeshed "
+            f"{_median(ref['prof']['enqueue_ms']):.2f}); wall {min(got['prof']['wall_ms']):.2f} ms (unmeshed "
+            f"{min(ref['prof']['wall_ms']):.2f}); max_memory_allocated steps 2-{TRAIN_STEPS} "
+            f"{got['peak'] / 2**30:.2f} GiB (unmeshed {ref['peak'] / 2**30:.2f})")
+        log(f"  (a) {optimizer}: collectives in the program at one rank {got['program'] or 'none'}; NCCL calls made "
+            f"by family {got['calls'] or 'none'}")
+        require(same_loss and unequal == 0, f"{optimizer}: the meshed step differs from the unmeshed one")
+        require(got["counts"] == ref["counts"] and all(c == MESH_STEP_LAUNCHES for c in per_step),
+                f"{optimizer}: launches {per_step} (unmeshed {[{k: c[k] for k in MESH_STEP_LAUNCHES} for c in ref['counts']]})")
+        require(got["staged"] and ref["staged"], f"{optimizer}: a step is not staged")
+        require(abs(got["peak"] - ref["peak"]) <= 2**30, f"{optimizer}: peak {got['peak']} vs {ref['peak']}")
+        for c in got["counts"] + ref["counts"]:
+            for k in MESH_STEP_LAUNCHES:
+                launches[k] = launches.get(k, 0) + c[k]
+        del ref, got
+
+
+def run_mesh_cli() -> None:
+    """Phase 23 (b). The LitGPT CLI as the ranks of ``run_config("dp1")``
+    (one process, on this card): pythia-410m, B=2, T=2048, AdamW. With
+    ``WORLD_SIZE`` set the CLI takes the mesh path at a mesh of one
+    (``distributed.init`` on NCCL, ``make_mesh``, ``shard_pytree``, the
+    sharded step), and its line's ``process_group`` shows it."""
+    from thunder_tpu_torch.benchmarks.distributed import run_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = run_config("dp1", model=PYTHIA, micro_batch=LOSS_BATCH, seq=SEQ, iters=3, device="cuda",
+                     extra=["--warmup", "2"], timeout=600)
+    log(f"  (b) run_config('dp1', {PYTHIA}) in {time.perf_counter() - t:.1f} s: {json.dumps(out)}")
+    require("error" not in out, f"the CLI's ranks failed: {out.get('error')}")
+    require(out.get("process_group") == {"backend": "nccl", "world": 1},
+            f"the CLI did not run the sharded step on a one-rank NCCL group: {out}")
+    require(math.isfinite(out["loss_first"]) and out["tokens_per_sec"] > 0, f"rank 0's line: {out}")
 
 
 def main() -> int:
@@ -4926,6 +5138,19 @@ def main() -> int:
         torch.cuda.synchronize()
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 22")
+
+    log(f"[23] the mesh and the sharded training step, one NCCL rank: (a) {CFG_NAME}, {cfg.n_layer} layers, on "
+        "make_mesh(dp=1, fsdp=1, tp=1) against the unmeshed step, SGD and AdamW; (b) the LitGPT CLI through "
+        "benchmarks/distributed.run_config; (c) ran above, on phase 22 (b)'s ddp step")
+    dist_init()
+    try:
+        run_mesh_step(launches)
+        run_mesh_cli()
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 23")
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -4,9 +4,10 @@ Each scenario of ``tests/_dist_worker.py`` that item 10 of the port covers,
 written twice over the same inputs (one numpy seed; torch modules from one
 torch seed, which the JAX package's module frontend takes as they are):
 
-    python tests/_torch_port_dist_worker.py torch RANK WORLD STORE OUT [CKPT]
+    python tests/_torch_port_dist_worker.py torch RANK WORLD STORE OUT [CKPT [SCENARIOS]]
         one gloo rank of the port (``thunder_tpu_torch.distributed``),
         rendezvous on the FileStore STORE; writes OUT/rank<RANK>.json;
+        SCENARIOS (comma-separated) runs those in place of the size's list;
     python tests/_torch_port_dist_worker.py jax WORLD OUT
         the JAX package on WORLD virtual CPU devices (run it with
         ``XLA_FLAGS=--xla_force_host_platform_device_count=WORLD``); writes
@@ -108,9 +109,89 @@ def _grid_input():
     return np.arange(8 * 4, dtype=np.float32).reshape(8, 4)
 
 
+# The sharded training step's cases: (config, mesh axes, specs), each a JAX
+# scenario of tests/_dist_worker.py at the mesh shapes 2 and 4 ranks hold.
+TRAIN_CASES = {
+    2: {"ddp_train": ("gpt-tiny", {"dp": 2}, "replicated"),
+        "fsdp_train": ("llama-tiny", {"fsdp": 2}, "fsdp"),
+        "tp_fsdp_train": ("llama-tiny", {"tp": 2}, "full")},
+    4: {"ddp_train": ("gpt-tiny", {"dp": 4}, "replicated"),
+        "fsdp_train": ("llama-tiny", {"fsdp": 4}, "fsdp"),
+        "tp_fsdp_train": ("llama-tiny", {"fsdp": 2, "tp": 2}, "full"),
+        "dp_tp_train": ("gpt-tiny", {"dp": 2, "tp": 2}, "full")},
+}
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 16, 2
+
+
+def _np_params(cfg_name: str) -> dict:
+    """The params of a config as float32 numpy arrays from one seed, in the
+    structure both packages' ``init_params`` give."""
+    from thunder_tpu_torch.models import gpt as m
+
+    rng = np.random.RandomState(0)
+
+    def make(shape, init):
+        if init == "ones":
+            return np.ones(shape, np.float32)
+        if init == "zeros":
+            return np.zeros(shape, np.float32)
+        return (rng.randn(*shape) * init).astype(np.float32)
+
+    return m._map_spec(m._param_shapes(m.name_to_config(cfg_name)), make)
+
+
+def mlp_extrace(layers=3, d=64, B=16, fsdp=4, tp=2, grad=True):
+    """The fsdp x tp explicit-collective MLP's claimed fw(+bw) trace of
+    ``tests/test_comm_schedule.py``, through the port (the torch executor)."""
+    import torch
+
+    import thunder_tpu_torch.clang as clang
+    from thunder_tpu_torch.api import trace_program
+    from thunder_tpu_torch.distributed import prims as dist_prims
+    from thunder_tpu_torch.executors.passes import transform_for_execution
+    from thunder_tpu_torch.extend import resolve_executors
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+    from thunder_tpu_torch.transforms.common import dce
+
+    rng = np.random.RandomState(0)
+    ws = [torch.from_numpy(rng.randn(d // fsdp, d).astype(np.float32)) for _ in range(layers)]
+    x = torch.from_numpy(rng.randn(B, d).astype(np.float32))
+
+    def loss(*flat_in):
+        *w_shards, xv = flat_in
+        h = xv
+        for w_shard in w_shards:
+            w_full = dist_prims.synchronize(w_shard, "fsdp", fsdp, "fsdp")
+            h = clang.matmul(h, clang.transpose(w_full, 0, 1))
+            h = dist_prims.all_reduce(h, "tp", tp, op="avg")
+            h = clang.tanh(h)
+        return clang.mean(clang.mul(h, h))
+
+    _, comp = trace_program(loss, (*ws, x), {})
+    comp = dce(comp)
+    if grad:
+        comp = grad_transform(comp, return_value=True)
+    return transform_for_execution(comp, resolve_executors(["torch"]))
+
+
+def _train_tokens(vocab: int):
+    idx = np.random.RandomState(0).randint(0, vocab, (TRAIN_B, TRAIN_T))
+    return idx, np.roll(idx, -1, axis=1)
+
+
 def _flat(t) -> list:
     t = t.detach() if hasattr(t, "detach") else t
     return np.asarray(t, dtype=np.float64).ravel().tolist()
+
+
+def _flat_tree(tree, path: str = "") -> dict:
+    """{"/blocks/0/attn/qkv_w": flat values, ...} of a params tree, the
+    same keys for either package's tree (their flattening orders differ)."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in _flat_tree(tree[key], f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flat_tree(sub, f"{path}/{i}").items()}
+    return {path: _flat(tree)}
 
 
 # =============================================================================
@@ -118,9 +199,249 @@ def _flat(t) -> list:
 # =============================================================================
 
 
+SKEW_S = (0.0, 0.12, -0.08, 0.04)  # the clock offset each rank injects
+
+
 class TorchRank:
-    def __init__(self, rank: int, world: int, ckpt: str):
-        self.rank, self.world, self.ckpt = rank, world, ckpt
+    def __init__(self, rank: int, world: int, ckpt: str, out: str = ""):
+        self.rank, self.world, self.ckpt, self.out = rank, world, ckpt, out
+
+    def _sharded_train(self, case: str):
+        """The sharded step of a TRAIN_CASES case, 2 AdamW steps, beside the
+        one-device step from the same weights: the losses, the worst
+        relative gap of the gathered params, the gathered params after the
+        AdamW and the SGD steps (for the JAX package's), and checks that each rank
+        holds 1/n of each split leaf and of its moments, and that no tp
+        rank gathers a whole MLP weight."""
+        import torch
+
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import (build_train_step, gather_pytree, gpt_param_specs, make_mesh,
+                                                shard_pytree)
+        from thunder_tpu_torch.parallel.sharding import align_specs
+
+        cfg_name, axes, kind = TRAIN_CASES[self.world][case]
+        cfg = m.name_to_config(cfg_name)
+        full = m.params_from_jax(_np_params(cfg_name), device="cpu")
+        idx, tgt = (torch.from_numpy(a) for a in _train_tokens(cfg.vocab_size))
+        mesh = make_mesh(**axes)
+        if kind == "replicated":
+            specs = {k: v for k, v in gpt_param_specs(cfg, None).items()}
+        else:
+            specs = gpt_param_specs(cfg, mesh, tp=(kind == "full"))
+        blocks = shard_pytree(full, mesh, specs)
+        flat_specs = tree_flatten(align_specs(specs, full), is_leaf=lambda x: isinstance(x, P))[0]
+        for whole, mine, s in zip(tree_flatten(full)[0], tree_flatten(blocks)[0], flat_specs):
+            n = int(np.prod([mesh.shape[ax] for ax in s.axes])) if s.axes else 1
+            assert mine.numel() * n == whole.numel(), (s, tuple(mine.shape), tuple(whole.shape))
+        step, opt, extrace = build_train_step(cfg, blocks, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2,
+                                              donate=False, return_extrace=True)
+        losses, p, o = [], blocks, opt
+        for _ in range(TRAIN_STEPS):
+            p, o, loss = step(p, o, idx, tgt)
+            losses.append(float(loss))
+        for mom in (o["m"], o["v"]):
+            assert [tuple(x.shape) for x in tree_flatten(mom)[0]] == [tuple(x.shape) for x in tree_flatten(p)[0]]
+        if mesh.shape["tp"] > 1:
+            whole_mlp = {(cfg.mlp_hidden, cfg.n_embd), (cfg.n_embd, cfg.mlp_hidden)}
+            for b in extrace.bound_symbols:
+                if b.sym.name in ("all_gather", "synchronize"):
+                    assert tuple(b.output.shape) not in whole_mlp, b
+        gathered = gather_pytree(p, mesh, specs)
+        ref_step, ref_opt = build_train_step(cfg, m.params_from_jax(_np_params(cfg_name), device="cpu"), idx, tgt,
+                                             lr=1e-2, donate=False)
+        ref_losses, rp, ro = [], m.params_from_jax(_np_params(cfg_name), device="cpu"), ref_opt
+        for _ in range(TRAIN_STEPS):
+            rp, ro, loss = ref_step(rp, ro, idx, tgt)
+            ref_losses.append(float(loss))
+        worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                    for a, b in zip(tree_flatten(gathered)[0], tree_flatten(rp)[0]))
+        # SGD with donation: the blocks update in place; the params after it
+        # against one device's.
+        p = shard_pytree(m.params_from_jax(_np_params(cfg_name), device="cpu"), mesh, specs)
+        rp = m.params_from_jax(_np_params(cfg_name), device="cpu")
+        sgd, sgd_opt = build_train_step(cfg, p, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2, donate=True,
+                                        optimizer="sgd")
+        ref_sgd, _ = build_train_step(cfg, rp, idx, tgt, lr=1e-2, donate=True, optimizer="sgd")
+        for _ in range(TRAIN_STEPS):
+            p2, sgd_opt, _ = sgd(p, sgd_opt, idx, tgt)
+            assert all(a is b for a, b in zip(tree_flatten(p2)[0], tree_flatten(p)[0]))
+            rp, _, _ = ref_sgd(rp, {"step": 0}, idx, tgt)
+        sgd_gathered = gather_pytree(p, mesh, specs)
+        sgd_worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                        for a, b in zip(tree_flatten(sgd_gathered)[0], tree_flatten(rp)[0]))
+        return {"losses": losses, "ref_losses": ref_losses, "param_rel": worst, "sgd_param_rel": sgd_worst,
+                "params": _flat_tree(gathered), "sgd_params": _flat_tree(sgd_gathered),
+                "collectives": sorted({b.sym.name for b in extrace.bound_symbols if b.sym.name in (
+                    "all_gather", "all_reduce", "reduce_scatter", "synchronize", "axis_slice")})}
+
+    def ddp_train(self):
+        return self._sharded_train("ddp_train")
+
+    def fsdp_train(self):
+        return self._sharded_train("fsdp_train")
+
+    def tp_fsdp_train(self):
+        return self._sharded_train("tp_fsdp_train")
+
+    def dp_tp_train(self):
+        return self._sharded_train("dp_tp_train")
+
+    def scheduled_step(self):
+        """The sharded step on the widest mesh of this world with the comm
+        scheduler (the default) and without (THUNDER_TPU_COMM_SCHEDULE=0):
+        the same losses and params, bit for bit, and the scheduler moved
+        at least one gather."""
+        import torch
+
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import build_train_step, gpt_param_specs, make_mesh, shard_pytree
+
+        cfg = m.name_to_config("llama-tiny")
+        idx, tgt = (torch.from_numpy(a) for a in _train_tokens(cfg.vocab_size))
+        mesh = make_mesh(**({"fsdp": 2, "tp": 2} if self.world == 4 else {"fsdp": 2}))
+        specs = gpt_param_specs(cfg, mesh)
+        runs = []
+        for knob in ("0", "1"):
+            os.environ["THUNDER_TPU_COMM_SCHEDULE"] = knob
+            try:
+                blocks = shard_pytree(m.params_from_jax(_np_params("llama-tiny"), device="cpu"), mesh, specs)
+                step, opt, extrace = build_train_step(cfg, blocks, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2,
+                                                      donate=False, return_extrace=True)
+            finally:
+                del os.environ["THUNDER_TPU_COMM_SCHEDULE"]
+            losses, p, o = [], blocks, opt
+            for _ in range(TRAIN_STEPS):
+                p, o, loss = step(p, o, idx, tgt)
+                losses.append(loss)
+            runs.append((losses, tree_flatten(p)[0], extrace.tags.get("comm_schedule")))
+        (l0, p0, tag0), (l1, p1, tag1) = runs
+        assert tag0 is None and tag1 is not None and tag1["moves"] >= 1, (tag0, tag1 and tag1["moves"])
+        assert all(torch.equal(a, b) for a, b in zip(l0, l1)), (l0, l1)
+        assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+        return {"moves": tag1["moves"], "losses": [float(x) for x in l1]}
+
+    def comm_schedule(self):
+        """``tests/test_comm_schedule.py``'s two multi-device cases on a
+        fsdp2 x tp2 grid: the scheduled MLP program computes what the
+        unscheduled one does, and ``compile_with_collectives(comm_schedule=
+        True)`` schedules and runs."""
+        import torch
+
+        import thunder_tpu_torch.clang as clang
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.distributed import prims as dist_prims
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives, stage_collective_trace
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.transforms.comm_schedule import schedule_collectives
+
+        layers, d, B, fsdp, tp = 2, 32, 8, 2, 2
+        extrace = mlp_extrace(layers=layers, d=d, B=B, fsdp=fsdp, tp=tp)
+        scheduled, rep = schedule_collectives(extrace, device="cpu")
+        assert rep is not None and rep.moves >= 1
+        mesh = make_mesh(fsdp=fsdp, tp=tp)
+        w_spec = P("fsdp", None)
+        in_specs = tuple([w_spec] * layers + [P()])
+        out_specs = (P(), tuple([w_spec] * layers + [P()]))
+        rng = np.random.RandomState(0)
+        flat = [torch.from_numpy(rng.randn(d, d).astype(np.float32)) for _ in range(layers)]
+        flat.append(torch.from_numpy(rng.randn(B, d).astype(np.float32)))
+        out0 = tree_flatten(stage_collective_trace(extrace, mesh, in_specs, out_specs)(*flat))[0]
+        out1 = tree_flatten(stage_collective_trace(scheduled, mesh, in_specs, out_specs)(*flat))[0]
+        for a, b in zip(out0, out1):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+        w1, w2 = (torch.from_numpy(rng.randn(d, d).astype(np.float32)) for _ in range(2))
+        x = torch.from_numpy(rng.randn(B, d).astype(np.float32))
+
+        def loss(w1s, w2s, xv):
+            a = dist_prims.synchronize(w1s, "fsdp", fsdp, "fsdp")
+            h = clang.tanh(clang.matmul(xv, clang.transpose(a, 0, 1)))
+            b = dist_prims.synchronize(w2s, "fsdp", fsdp, "fsdp")
+            out = clang.matmul(h, clang.transpose(b, 0, 1))
+            return clang.mean(clang.mul(out, out))
+
+        specs = (P("fsdp", None), P("fsdp", None), P())
+        jf, ex = compile_with_collectives(loss, (w1[: d // fsdp], w2[: d // fsdp], x), mesh, specs, (P(), specs),
+                                          grad=True, comm_schedule=True)
+        tag = ex.tags.get("comm_schedule")
+        assert tag is not None and tag["moves"] >= 1, tag
+        value = float(tree_flatten(jf(w1, w2, x))[0][0])
+        assert np.isfinite(value)
+        return {"moves": rep.moves, "wired_moves": tag["moves"]}
+
+    def reshard(self):
+        """gpt-tiny's params as blocks of one mesh resharded onto another
+        shape (and back): each rank's blocks equal the direct sharding of
+        the whole params, bit for bit."""
+        import torch
+
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import gather_pytree, gpt_param_specs, make_mesh, reshard_pytree, shard_pytree
+
+        cfg = m.name_to_config("gpt-tiny")
+        full = m.params_from_jax(_np_params("gpt-tiny"), device="cpu")
+        shapes = [{"fsdp": 4}, {"dp": 2, "tp": 2}] if self.world == 4 else [{"fsdp": 2}, {"tp": 2}]
+        (ma, mb) = (make_mesh(**a) for a in shapes)
+        sa, sb = gpt_param_specs(cfg, ma), gpt_param_specs(cfg, mb)
+        on_a = shard_pytree(full, ma, sa)
+        on_b = reshard_pytree(on_a, mb, sb, src_mesh=ma, src_specs=sa)
+        for got, want in zip(tree_flatten(on_b)[0], tree_flatten(shard_pytree(full, mb, sb))[0]):
+            assert torch.equal(got, want)
+        back = reshard_pytree(on_b, ma, sa, src_mesh=mb, src_specs=sb)
+        for got, want in zip(tree_flatten(back)[0], tree_flatten(on_a)[0]):
+            assert torch.equal(got, want)
+        for got, want in zip(tree_flatten(gather_pytree(on_b, mb, sb))[0], tree_flatten(full)[0]):
+            assert torch.equal(got, want)
+        # A mesh is a dict of groups: the distributed API takes it as one.
+        from thunder_tpu_torch.distributed import ddp, fsdp
+
+        assert torch.equal(fsdp(full, mesh=ma)["wte"], on_a["wte"])
+        ddp(torch.nn.Linear(2, 2), mesh=ma, axis="fsdp")
+        return {}
+
+    def timeline_skew(self):
+        """Each rank notes 12 all-reduce completions and folds 12 steps with
+        a recorder whose clock is shifted by SKEW_S[rank]; its events go to
+        a log of its own. The merged logs' skew estimates are returned."""
+        import torch
+
+        import thunder_tpu_torch.monitor as monitor
+        from thunder_tpu_torch.analysis.events import merge_event_logs, replay_events
+        from thunder_tpu_torch.observability import events as ev
+        from thunder_tpu_torch.observability import timeline as tl
+
+        offs = SKEW_S[:self.world]
+        path = os.path.join(self.out, f"timeline{self.rank}.jsonl")
+        ev.set_global_path(path)
+        rec = monitor.critpath(emulated_skew_s={self.rank: offs[self.rank]})
+        sums = []
+        try:
+            x = torch.ones(1024)
+            for step in range(12):
+                t0 = time.perf_counter()
+                y = x * float(step)
+                c0 = time.perf_counter()
+                torch.distributed.all_reduce(y)
+                coll = time.perf_counter() - c0
+                rec.note_collective(self.rank, step, s=coll, step=step)
+                spans = [None] * self.world
+                torch.distributed.all_gather_object(spans, {"total_s": time.perf_counter() - t0, "ici_s": coll})
+                bd = rec.record_step(step, dict(enumerate(spans)))
+                sums.append(sum(bd.classes.values()) / bd.total_s)
+            torch.distributed.barrier()
+        finally:
+            ev.set_global_path(None)
+            monitor.shutdown_critpath()
+        records, _ = merge_event_logs([os.path.join(self.out, f"timeline{r}.jsonl") for r in range(self.world)])
+        ests = tl.estimate_skew(records)
+        _, diags = replay_events(path)
+        return {"injected": list(offs), "offsets": {str(h): e.offset_s for h, e in ests.items()}, "sums": sums,
+                "unknown_kinds": sum(d.rule == "events.unknown-kind" for d in diags)}
 
     def collectives(self):
         import torch
@@ -482,13 +803,19 @@ TORCH_SCENARIOS = {
         "fsdp_zero3", "fsdp_memory", "no_sync_ddp", "no_sync_fsdp", "batch_reduced_output", "masked_ddp", "grid",
         "checkpoint"],
 }
+# The sharded training step's scenarios: a spawn of their own (SCENARIOS
+# "@train"), which runs beside the one above.
+TRAIN_SCENARIOS = {
+    2: ["ddp_train", "fsdp_train", "tp_fsdp_train", "scheduled_step", "reshard"],
+    4: ["ddp_train", "fsdp_train", "tp_fsdp_train", "dp_tp_train", "scheduled_step", "comm_schedule", "reshard"],
+}
 
 
 def _timeout(signum, frame):
     raise TimeoutError(f"scenario exceeded {LIMIT_S} s")
 
 
-def run_torch(rank: int, world: int, store_path: str, out: str, ckpt: str) -> None:
+def run_torch(rank: int, world: int, store_path: str, out: str, ckpt: str, scenarios=None) -> None:
     from datetime import timedelta
 
     import torch
@@ -498,10 +825,10 @@ def run_torch(rank: int, world: int, store_path: str, out: str, ckpt: str) -> No
     torch.set_num_threads(1)
     store = torch.distributed.FileStore(store_path, world)
     td.init(device="cpu", store=store, num_processes=world, process_id=rank, timeout=timedelta(seconds=LIMIT_S))
-    runner = TorchRank(rank, world, ckpt)
+    runner = TorchRank(rank, world, ckpt, out)
     results = {}
     signal.signal(signal.SIGALRM, _timeout)
-    for name in TORCH_SCENARIOS[world]:
+    for name in scenarios or TORCH_SCENARIOS[world]:
         t0 = time.perf_counter()
         signal.alarm(LIMIT_S)
         try:
@@ -685,11 +1012,58 @@ def jax_grid(world: int):
     return {"p": _flat(p), "t": _flat(t), "h": _flat(h), "flat": _flat(flat)}
 
 
+def _jax_sharded_train(world: int, case: str):
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.core.pytree import tree_map
+    from thunder_tpu.models import gpt as jm
+    from thunder_tpu.parallel import build_train_step, make_mesh
+    from thunder_tpu.parallel.sharding import gpt_param_specs
+
+    cfg_name, axes, kind = TRAIN_CASES[world][case]
+    cfg = jm.name_to_config(cfg_name)
+    params = tree_map(jnp.asarray, _np_params(cfg_name))
+    idx, tgt = (a.astype(np.int32) for a in _train_tokens(cfg.vocab_size))
+    mesh = make_mesh(**axes)
+    if kind == "replicated":
+        specs = tree_map(lambda _: JP(), params)
+    else:
+        specs = gpt_param_specs(cfg, mesh, tp=(kind == "full"))
+    step, opt = build_train_step(cfg, params, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2, donate=False)
+    losses, p, o = [], params, opt
+    for _ in range(TRAIN_STEPS):
+        p, o, loss = step(p, o, idx, tgt)
+        losses.append(float(np.asarray(loss)))
+    sgd, sgd_opt = build_train_step(cfg, params, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2, donate=False,
+                                    optimizer="sgd")
+    sp = params
+    for _ in range(TRAIN_STEPS):
+        sp, sgd_opt, _ = sgd(sp, sgd_opt, idx, tgt)
+    return {"losses": losses, "params": _flat_tree(p), "sgd_params": _flat_tree(sp)}
+
+
+def jax_ddp_train(world: int):
+    return _jax_sharded_train(world, "ddp_train")
+
+
+def jax_fsdp_train(world: int):
+    return _jax_sharded_train(world, "fsdp_train")
+
+
+def jax_tp_fsdp_train(world: int):
+    return _jax_sharded_train(world, "tp_fsdp_train")
+
+
+def jax_dp_tp_train(world: int):
+    return _jax_sharded_train(world, "dp_tp_train")
+
+
 JAX_SCENARIOS = {
     2: ["collectives", "broadcast_grad", "module_ddp_train", "module_fsdp_train", "fsdp_zero3", "no_sync_ddp",
-        "no_sync_fsdp", "batch_reduced_output"],
+        "no_sync_fsdp", "batch_reduced_output", "ddp_train", "fsdp_train", "tp_fsdp_train"],
     4: ["collectives", "broadcast_grad", "module_ddp_train", "module_fsdp_train", "fsdp_zero3", "no_sync_ddp",
-        "no_sync_fsdp", "batch_reduced_output", "grid"],
+        "no_sync_fsdp", "batch_reduced_output", "grid", "ddp_train", "fsdp_train", "tp_fsdp_train", "dp_tp_train"],
 }
 
 
@@ -711,6 +1085,10 @@ def run_jax(world: int, out: str) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "torch":
-        run_torch(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+        names = sys.argv[7] if len(sys.argv) > 7 else None
+        if names == "@train":
+            names = ",".join(TRAIN_SCENARIOS[int(sys.argv[3])])
+        run_torch(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6],
+                  names.split(",") if names else None)
     else:
         run_jax(int(sys.argv[2]), sys.argv[3])

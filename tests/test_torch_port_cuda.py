@@ -17,6 +17,7 @@ and O are within two.
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -2144,3 +2145,109 @@ def test_staged_dist_step_is_bit_equal_to_untagged(nccl_rank, mode):
     for (lw, gw), (lg, gg) in zip(want, got):
         assert torch.equal(lw, lg) and all(torch.equal(a, b) for a, b in zip(gw, gg))
     assert "synchronize" in fw and ("all_reduce" if mode == "ddp" else "reduce_scatter") in bw
+
+
+# -- the mesh and the sharded training step (parallel/), C.2, the timeline ------
+
+
+def _step_counts():
+    from thunder_tpu_torch.executors import flashex, fusedex
+
+    return {"flash_fwd_lse": flashex.flash_attention_fwd_lse.launches, "flash_bwd": flashex.flash_attention_bwd.launches,
+            "rope": fusedex.apply_rope.launches, "ce_fwd": fusedex.cross_entropy_rows.launches,
+            "ce_bwd": fusedex.cross_entropy_bwd.launches}
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_meshed_step_at_one_nccl_rank_is_bit_equal(nccl_rank, optimizer):
+    """open_llama_3b's width at 2 layers, T=256: 3 staged steps of
+    ``build_train_step`` on ``make_mesh(dp=1, fsdp=1, tp=1)`` (the blocks by
+    ``gpt_param_specs``/``shard_pytree``) and unmeshed, from the same
+    weights: every loss and param after the last step ``torch.equal``, the
+    same kernel launches a step, both staged, no collective in the
+    program."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.distributed.prims import is_collective_bsym
+    from thunder_tpu_torch.executors import flashex, fusedex
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step, gpt_param_specs, make_mesh, shard_pytree
+
+    cfg = replace(gpt.name_to_config("open_llama_3b"), n_layer=2)
+    idx_np = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 256))
+    ids, tgt = torch.from_numpy(idx_np).cuda(), torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    mesh = make_mesh(dp=1, fsdp=1, tp=1)
+    runs = []
+    for meshed in (False, True):
+        params = gpt.init_params(cfg, seed=0, device="cuda")
+        kw = dict(donate=True, optimizer=optimizer, grads_in_f32=optimizer == "adamw", return_extrace=True)
+        if meshed:
+            specs = gpt_param_specs(cfg, mesh)
+            params = shard_pytree(params, mesh, specs)
+            step, opt, ex = build_train_step(cfg, params, ids, tgt, mesh=mesh, param_specs=specs, **kw)
+        else:
+            step, opt, ex = build_train_step(cfg, params, ids, tgt, **kw)
+        losses, counts = [], []
+        for _ in range(3):
+            for fn in (flashex.flash_attention_fwd_lse, flashex.flash_attention_bwd, fusedex.apply_rope,
+                       fusedex.cross_entropy_rows, fusedex.cross_entropy_bwd):
+                fn.launches = 0
+            params, opt, loss = step(params, opt, ids, tgt)
+            losses.append(loss.clone())
+            counts.append(_step_counts())
+        assert step.staging.staged
+        assert not [b for b in ex.bound_symbols if is_collective_bsym(b)]
+        runs.append((losses, counts, [p.clone() for p in tree_flatten(params)[0]]))
+    (l0, c0, p0), (l1, c1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert c0 == c1 and c1[-1] == {"flash_fwd_lse": 2, "flash_bwd": 2, "rope": 8, "ce_fwd": 1, "ce_bwd": 1}
+
+
+def test_compile_stats_timers_on_a_staged_hit(dev):
+    """C.2: a staged hit (the third call, a replay) sets the host, cache and
+    host-execution timers; the compile set the tracing ones."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+
+    jf = tt.jit(lambda x: ltorch.sum(ltorch.tanh(x) * 2.0))
+    x = torch.randn(64, 64, device=dev)
+    for _ in range(3):
+        jf(x)
+    cs = tt.compile_stats(jf)
+    assert cs.last_staging.staged and cs.cache_hits == 2
+    assert cs.last_compile_time_ms > 0 and cs.last_cache_lookup_us >= 0
+    assert 0 < cs.last_trace_host_start <= cs.last_trace_cache_start <= cs.last_trace_cache_stop
+    assert cs.last_trace_cache_stop <= cs.last_trace_host_execution_start <= cs.last_trace_host_execution_stop
+    assert cs.last_trace_host_execution_stop == cs.last_trace_host_stop
+
+
+def test_recorder_folds_a_staged_step(dev):
+    """The timeline recorder driven by a staged program: 5 steps' wall
+    spans folded, each breakdown's classes summing to its wall, the
+    ledger's steps and the always-export counter counting them."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.observability import metrics as obsm
+
+    jf = tt.jit(lambda a, b: ltorch.sum(ltorch.matmul(a, b)))
+    a, b = torch.randn(256, 256, device=dev), torch.randn(256, 256, device=dev)
+    for _ in range(2):
+        jf(a, b)
+    before = obsm.CRITPATH_STEPS.value()
+    rec = monitor.critpath(emit_events=False)
+    try:
+        for i in range(5):
+            t = time.perf_counter()
+            jf(a, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            bd = rec.record_step(i, {0: {"total_s": wall, "compute_s": wall / 2}})
+            assert sum(bd.classes.values()) == pytest.approx(bd.total_s, rel=1e-9)
+        assert rec.ledger.steps == 5 and "critical path" in monitor.critpath_report()
+    finally:
+        monitor.shutdown_critpath()
+    assert obsm.CRITPATH_STEPS.value() - before == 5
+    assert tt.compile_stats(jf).last_staging.staged

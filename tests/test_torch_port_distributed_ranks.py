@@ -6,7 +6,9 @@ under the test's temporary directory (no port, so parallel test workers
 never collide), each scenario under a time limit of its own. The JAX side
 runs the same scenarios once a size, in one process over as many virtual
 CPU devices, as ``tests/test_distributed.py`` runs its own. The 4-rank
-spawn runs first and saves the checkpoint that the 2-rank spawn loads.
+spawn runs first and saves the checkpoint that the 2-rank spawn loads. The
+sharded training step's scenarios (``TRAIN_SCENARIOS``) run in spawns of
+their own, a 4-rank and a 2-rank one beside the others.
 
 Tolerances are the JAX scenarios' own: ``rtol=1e-4`` on values and losses,
 ``rtol=2e-4, atol=1e-5`` on grads; the collectives of small integers
@@ -43,18 +45,34 @@ def _wait(procs: list, what: str) -> None:
                 p.wait()
     for p in procs:
         if p.returncode != 0:
-            out = p.stdout.read() if p.stdout else ""
+            out = p.stdout.read() if p.stdout else open(p.log).read()
             pytest.fail(f"{what} exited {p.returncode}:\n{out[-4000:]}")
 
 
-def _spawn_ranks(world: int, out: str, ckpt: str) -> dict:
+def _start_ranks(world: int, out: str, ckpt: str, scenarios: str = "") -> list:
     os.makedirs(out, exist_ok=True)
     store = os.path.join(out, "store")
-    procs = [subprocess.Popen([sys.executable, WORKER, "torch", str(r), str(world), store, out, ckpt],
-                              env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    _wait(procs, f"the {world}-rank spawn")
+    procs = []
+    for r in range(world):
+        # Each rank writes to a file of its own: a pipe nobody reads while
+        # the other spawns run could fill and stall the rank.
+        log = os.path.join(out, f"rank{r}.log")
+        with open(log, "w") as f:
+            p = subprocess.Popen([sys.executable, WORKER, "torch", str(r), str(world), store, out, ckpt]
+                                 + ([scenarios] if scenarios else []), env=_env(), stdout=f,
+                                 stderr=subprocess.STDOUT, text=True)
+        p.log = log
+        procs.append(p)
+    return procs
+
+
+def _results(world: int, out: str) -> dict:
     return {r: json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(world)}
+
+
+def _spawn_ranks(world: int, out: str, ckpt: str) -> dict:
+    _wait(_start_ranks(world, out, ckpt), f"the {world}-rank spawn")
+    return _results(world, out)
 
 
 @pytest.fixture(scope="module")
@@ -64,16 +82,26 @@ def runs(tmp_path_factory):
     jax_procs = []
     for n, d in jax_dirs.items():
         d.mkdir()
-        jax_procs.append(subprocess.Popen(
-            [sys.executable, WORKER, "jax", str(n), str(d)],
-            env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        # Output to a file: XLA's warnings could fill a pipe that nobody
+        # reads until the process ends, and stall it.
+        with open(d / "jax.log", "w") as f:
+            p = subprocess.Popen([sys.executable, WORKER, "jax", str(n), str(d)],
+                                 env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
+                                 stdout=f, stderr=subprocess.STDOUT, text=True)
+        p.log = str(d / "jax.log")
+        jax_procs.append(p)
+    train = {n: _start_ranks(n, str(root / f"train{n}"), "", "@train") for n in (4, 2)}
     try:
         ckpt = str(root / "ckpt")
         torch_runs = {4: _spawn_ranks(4, str(root / "torch4"), ckpt)}
         torch_runs[2] = _spawn_ranks(2, str(root / "torch2"), ckpt)
     finally:
+        for n, procs in train.items():
+            _wait(procs, f"the {n}-rank spawn of the sharded step")
         _wait(jax_procs, "the JAX package's run")
+    for n in train:
+        for r, res in _results(n, str(root / f"train{n}")).items():
+            torch_runs[n][r].update(res)
     jax_runs = {n: json.load(open(d / "jax.json")) for n, d in jax_dirs.items()}
     return torch_runs, jax_runs
 
@@ -227,3 +255,71 @@ def test_grid_collectives_at_four_ranks(runs):
 @pytest.mark.parametrize("world", [4, 2])
 def test_checkpoint_saved_by_four_ranks_loads_on_two(runs, world):
     _ranks(runs, world, "checkpoint")
+
+
+# -- the sharded training step (ROADMAP 11a) ------------------------------------
+
+TRAIN_CASES = [(2, "ddp_train"), (2, "fsdp_train"), (2, "tp_fsdp_train"),
+               (4, "ddp_train"), (4, "fsdp_train"), (4, "tp_fsdp_train"), (4, "dp_tp_train")]
+
+
+@pytest.mark.parametrize("world,name", TRAIN_CASES)
+def test_sharded_train_step(runs, world, name):
+    """``build_train_step(mesh=...)`` on this world's mesh shape
+    (``_torch_port_dist_worker.TRAIN_CASES``: dp2, fsdp2, tp2, dp4, fsdp4,
+    fsdp2·tp2, dp2·tp2), two AdamW steps: the losses against the JAX
+    package's sharded step over as many virtual devices and against the
+    port's one-device step, at the JAX scenarios' tolerances (rtol 1e-5 on
+    the first loss, 1e-4 on the second); the same on every rank. The
+    params gathered after two SGD steps (donated: the blocks update in
+    place) within 1e-5 of the JAX package's sharded step's and of one
+    device's, relative to each leaf's largest value; after AdamW within
+    1e-3, whose normalization m/sqrt(v) turns a grad's last bits into the
+    update's. The worker checked each rank's
+    1/n share of every split leaf and of its moments, and that no tp rank
+    gathers a whole MLP weight."""
+    jres = _jax(runs, world, name)
+    results = _ranks(runs, world, name)
+    for res in results:
+        for i, rtol in enumerate((1e-5, 1e-4)):
+            _close(res["losses"][i], jres["losses"][i], rtol)
+            _close(res["losses"][i], res["ref_losses"][i], rtol)
+        assert res["sgd_param_rel"] < 1e-5, res["sgd_param_rel"]
+        assert res["param_rel"] < 1e-3, res["param_rel"]
+        for key, tol in (("sgd_params", 1e-5), ("params", 1e-3)):
+            assert res[key].keys() == jres[key].keys(), key
+            for leaf, want in jres[key].items():
+                got, want = np.asarray(res[key][leaf]), np.asarray(want)
+                assert got.shape == want.shape, (key, leaf)
+                rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-12)
+                assert rel < tol, (key, leaf, rel)
+        assert res["losses"] == results[0]["losses"]
+    mesh_has_tp = name in ("tp_fsdp_train", "dp_tp_train")
+    assert ("axis_slice" in results[0]["collectives"]) == mesh_has_tp
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_scheduled_sharded_step_is_bit_equal(runs, world):
+    """The comm scheduler moved gathers of the sharded step, and the
+    scheduled step's losses and params equal the unscheduled step's bit for
+    bit (the worker compared them with ``torch.equal``)."""
+    for res in _ranks(runs, world, "scheduled_step"):
+        assert res["moves"] >= 1
+
+
+def test_scheduled_trace_matches_unscheduled_numerics(runs):
+    """``tests/test_comm_schedule.py``'s two multi-device cases on 4 gloo
+    ranks (fsdp2 x tp2): the scheduled MLP program computes what the
+    unscheduled one does (rtol 1e-6), and ``compile_with_collectives(
+    comm_schedule=True)`` schedules and runs."""
+    for res in _ranks(runs, 4, "comm_schedule"):
+        assert res["moves"] >= 1 and res["wired_moves"] >= 1
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_reshard_roundtrip_different_mesh(runs, world):
+    """``reshard_pytree`` between mesh shapes (fsdp4 and dp2·tp2; fsdp2
+    and tp2) and back keeps every bit (``TestCheckpoint.
+    test_reshard_roundtrip_different_mesh``'s question, through
+    ``distributed/checkpoint``'s gather)."""
+    _ranks(runs, world, "reshard")

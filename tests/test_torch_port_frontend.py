@@ -353,6 +353,136 @@ class TestHuggingFace:
 # =============================================================================
 
 
+class TestSeqBucketing:
+    """The cases of tests/test_torch_frontend.py:405-510 through the port.
+
+    VERDICT r2 item 9 / SURVEY §7 hard-part 5: shape-class caching.
+    T ∈ {120, 123, 128} under seq_bucket=128 compiles ONCE and the cropped
+    outputs match the exact-shape run (causal model: padded tail positions
+    cannot influence real ones). The reference collapses here (5715 s
+    dynamic-shape run, BASELINE.md)."""
+
+    def _tiny_causal(self):
+        class Causal(nn.Module):
+            def __init__(self, vocab=32, dim=16):
+                super().__init__()
+                self.wte = nn.Embedding(vocab, dim)
+                self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+                self.proj = nn.Linear(dim, dim, bias=False)
+                self.head = nn.Linear(dim, vocab, bias=False)
+
+            def forward(self, idx):
+                x = self.wte(idx)
+                B, T, C = x.shape
+                qkv = self.qkv(x).view(B, T, 3, 2, C // 2)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                y = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                return self.head(x + self.proj(y.transpose(1, 2).reshape(B, T, C)))
+
+        return Causal()
+
+    def test_bucketed_cache_reuse_and_parity(self):
+        torch.manual_seed(0)
+        m = self._tiny_causal()
+        # The torch executor (the JAX test's "jax"): no kernel's rounding
+        # masks what this test measures, pad-and-crop exactness.
+        tm = tt.jit(m, seq_bucket=128, executors=["torch"], device="cpu")
+
+        outs = {}
+        for t in (120, 123, 128):
+            idx = torch.randint(0, 32, (2, t))
+            out = tm(idx)
+            assert out.shape == (2, t, 32), out.shape
+            want = m(idx)
+            torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-5)
+            outs[t] = out
+        # One compiled entry serves all three lengths.
+        assert tt.cache_misses(tm) == 1, tt.cache_misses(tm)
+        assert tt.cache_hits(tm) == 2
+
+    def test_coincidental_size_output_not_cropped(self):
+        """VERDICT r4 weak #5: an output whose dim 1 COINCIDENTALLY equals
+        the padded length must not be truncated — the FakeTensor shape
+        probe distinguishes sequence-carrying outputs from fixed-size
+        ones."""
+        torch.manual_seed(2)
+
+        class TwoHeads(nn.Module):
+            def __init__(self, vocab=32, dim=16, n_stats=128):
+                super().__init__()
+                self.wte = nn.Embedding(vocab, dim)
+                self.head = nn.Linear(dim, vocab, bias=False)
+                # fixed-size head: (B, 128) — 128 == t_pad for seq_bucket=128
+                self.stats = nn.Linear(dim, n_stats, bias=False)
+
+            def forward(self, idx):
+                x = self.wte(idx)
+                return self.head(x), self.stats(x.mean(dim=1))
+
+        m = TwoHeads()
+        tm = tt.jit(m, seq_bucket=128, executors=["torch"], device="cpu")
+        idx = torch.randint(0, 32, (2, 100))
+        seq_out, stats_out = tm(idx)
+        assert seq_out.shape == (2, 100, 32), seq_out.shape
+        assert stats_out.shape == (2, 128), stats_out.shape  # NOT cropped to 100
+        want_seq, want_stats = m(idx)
+        # the per-position head is pad-invariant; the pooled stats head is
+        # not (mean over padded length — bucketing's documented sharp edge),
+        # so only its SHAPE is asserted above
+        torch.testing.assert_close(seq_out, want_seq, rtol=2e-4, atol=2e-5)
+
+    def test_transient_probe_failure_retries(self):
+        """ADVICE r5 #4: a shape probe that fails TRANSIENTLY (e.g. a lazy
+        init raising under FakeTensorMode on the first call only) must not
+        pin plan=None — the next call retries and caches the real plan."""
+        torch.manual_seed(3)
+        # External flag: the probe restores module state after itself, so a
+        # genuinely transient failure must clear OUTSIDE the module.
+        flag = {"fail": True}
+
+        class LazyFail(nn.Module):
+            def __init__(self, vocab=32, dim=16):
+                super().__init__()
+                self.wte = nn.Embedding(vocab, dim)
+                self.head = nn.Linear(dim, vocab, bias=False)
+
+            def forward(self, idx):
+                from torch._subclasses.fake_tensor import FakeTensor
+
+                x = self.wte(idx)
+                if flag["fail"] and isinstance(x, FakeTensor):
+                    flag["fail"] = False
+                    raise RuntimeError("transient lazy init under fake mode")
+                return self.head(x)
+
+        tm = tt.jit(LazyFail(), seq_bucket=64, executors=["torch"], device="cpu")
+        idx = torch.randint(0, 32, (2, 50))
+        out = tm(idx)
+        assert out.shape == (2, 50, 32)
+        tm(idx)
+        cache = getattr(tm, "_seq_crop_cache", {})
+        assert cache and all(v is not None for v in cache.values()), cache
+
+    def test_bucketed_grads_match(self):
+        torch.manual_seed(1)
+        m_ref = self._tiny_causal()
+        m_jit = self._tiny_causal()
+        m_jit.load_state_dict(m_ref.state_dict())
+        tm = tt.jit(m_jit, seq_bucket=64, executors=["torch"], device="cpu")
+
+        idx = torch.randint(0, 32, (2, 50))
+        tm(idx).sum().backward()
+        m_ref(idx).sum().backward()
+        ref = dict(m_ref.named_parameters())
+        checked = 0
+        for name, p in tm.named_parameters():
+            if p.grad is None:
+                continue
+            torch.testing.assert_close(p.grad, ref[name].grad, rtol=2e-4, atol=2e-5)
+            checked += 1
+        assert checked >= 3
+
+
 class TestCustomAutogradFunction:
     def test_function_forward_and_grad(self):
         """The Function's forward is traced op by op and its gradient is the

@@ -210,14 +210,21 @@ def test_litgpt_matrix_markdown_has_every_stack(small_model, capsys):
 
 @pytest.mark.parametrize("flag", ["--dp", "--fsdp", "--tp"])
 def test_litgpt_mesh_flags_raise(small_model, flag):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """A mesh of 2 in one process with no process group raises, as the JAX
+    package's CLI does with one device; its parity on gloo ranks is
+    ``tests/test_torch_port_parallel.py``'s."""
+    with pytest.raises(ValueError, match="Mesh needs 2 devices, only 1 available"):
         litgpt.main(_argv(small_model, flag, "2"))
 
 
 def test_build_train_step_refuses_a_mesh():
+    """A mesh with a pipeline axis waits for ROADMAP item 11b."""
+    from thunder_tpu_torch.parallel import AXIS_ORDER, Mesh
+
     _, tcfg, _, tparams, idx, tgt = _shared()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain.build_train_step(tcfg, tparams, torch.from_numpy(idx), torch.from_numpy(tgt), mesh=object())
+    pp = Mesh(AXIS_ORDER, np.zeros((1, 2, 1, 1, 1, 1), dtype=np.int64), {})
+    with pytest.raises(NotImplementedError, match="11b"):
+        ttrain.build_train_step(tcfg, tparams, torch.from_numpy(idx), torch.from_numpy(tgt), mesh=pp)
 
 
 def test_sgd_with_donate_updates_in_place():

@@ -136,7 +136,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "thunder_tpu_torch.distributed", "thunder_tpu_torch.distributed.prims",
             "thunder_tpu_torch.distributed.runtime", "thunder_tpu_torch.distributed.checkpoint",
             "thunder_tpu_torch.frontend.batchdim", "thunder_tpu_torch.analysis.collectives",
-            "thunder_tpu_torch.analysis.schedule"} <= set(mods.split(","))
+            "thunder_tpu_torch.analysis.schedule", "thunder_tpu_torch.observability.timeline",
+            "thunder_tpu_torch.parallel.mesh", "thunder_tpu_torch.parallel.sharding",
+            "thunder_tpu_torch.transforms.comm_schedule", "thunder_tpu_torch.benchmarks.distributed"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():

@@ -21,7 +21,6 @@ summarizes per-host step times over ``detect.HostHealthAccumulator``.
 Not yet here, with the kinds they read (the replay reports those kinds as
 unknown until then): the fault and autopilot correlation rules and the
 checkpoint, snapshot, restore and flight-recorder summaries (the resilience
-slice); the ``collective`` and ``critpath_step`` records (the distribution
 slice). Findings reuse :class:`~thunder_tpu_torch.analysis.diagnostics.Diagnostic`.
 """
 
@@ -48,6 +47,12 @@ SCHEMA: dict[str, frozenset] = {
     "straggler_suspect": frozenset({"host", "mean_s", "ratio"}),
     "anomaly": frozenset({"anomaly", "severity", "value", "baseline"}),
     "roofline_probe": frozenset({"step", "ops", "probe_s"}),
+    # The fleet timeline (observability/timeline.py): one rendezvous record
+    # a collective completion (the clock-alignment anchor; in_slice_s and
+    # cross_slice_s, when present, split its wire legs), and one
+    # critical-path breakdown a step.
+    "collective": frozenset({"fn", "cid", "s"}),
+    "critpath_step": frozenset({"step", "total_s", "classes", "slowest_host"}),
 }
 
 

@@ -415,8 +415,7 @@ def predict_overlap(trace: TraceCtx, *, device: Any = None,
     Windows share compute: each line's budget is consumed by sites in
     program order, so two collectives cannot both claim the same GEMM.
     ``hidden = min(wire, window-budget consumed)``; the rest is exposed.
-    The JAX package's comm scheduler (thunder_tpu/transforms/comm_schedule.py,
-    ROADMAP item 11 for the port) moves sites inside
+    The comm scheduler (``transforms/comm_schedule.py``) moves sites inside
     their certified intervals to maximize exactly this number, and the
     ``sched.exposed-collective`` rule reports it per site."""
     from thunder_tpu_torch.analysis.cost import resolve_device_spec, trace_cost

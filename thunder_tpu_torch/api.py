@@ -41,6 +41,7 @@ from thunder_tpu_torch.common import (
     resolve_cache_option,
     resolve_sharp_edges_option,
     sharp_edges_policy,
+    timer_ns,
 )
 from thunder_tpu_torch.core import devices, prims
 from thunder_tpu_torch.core.baseutils import GuardFailure, check
@@ -414,11 +415,13 @@ def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, *
 def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict, sym_spec,
                         compile_id: Optional[int]) -> CacheEntry:
     start = time.perf_counter()
+    cs.last_trace_tracing_start = timer_ns()
     with sharp_edges_policy(cd.sharp_edges):
         plg_trc, comp_trc = trace_program(cd.fn, args, kwargs, record_input_mutations=True,
                                           symbolic_marks=None if sym_spec is None else sym_spec.marks)
     mark(comp_trc, "Acquisition")
     mark(plg_trc, "Prologue construction")
+    cs.last_trace_tracing_stop = timer_ns()
     phases = {"trace": time.perf_counter() - start}
     input_mutations = comp_trc._input_mutations
     if input_mutations and cd.trace_transforms:
@@ -1078,7 +1081,7 @@ def jit(
 
     def _dispatch(args: tuple, kwargs: dict):
         cs.calls += 1
-        start = time.perf_counter_ns()
+        start = cs.last_trace_host_start = cs.last_trace_cache_start = timer_ns()
         entry = flat_inps = prepared = key = None
         hit_kind = "same_input"
         if cd.cache_option is CACHE_OPTIONS.SAME_INPUT and cs.cache_entries:
@@ -1101,7 +1104,8 @@ def jit(
                     cs.slow_hits += 1
                     hit_kind = "slow"
                     _learn(cs, key, entry)
-        lookup_ns = time.perf_counter_ns() - start
+        cs.last_trace_cache_stop = timer_ns()
+        lookup_ns = cs.last_trace_cache_stop - start
         cs.cache_lookup_ns += lookup_ns
         first = entry is None
         if not first:
@@ -1127,6 +1131,7 @@ def jit(
         if entry.needs_rng:
             inps = inps + [_next_key(cd.device)]
         run_start = time.perf_counter()
+        cs.last_trace_host_execution_start = timer_ns()
         out = entry.computation_fn(*inps)
         if first:
             if cd.device.type == "cuda":
@@ -1138,6 +1143,7 @@ def jit(
             out = _crop_outputs(entry, out, extents)
         if entry.epilogue_fn is not None:
             out = entry.epilogue_fn(args, kwargs, out)
+        cs.last_trace_host_execution_stop = cs.last_trace_host_stop = timer_ns()
         # The hit path's one observability check (thunder_tpu/api.py:1785-1815).
         if obsm.enabled():
             _observe_dispatch(entry, hit_kind, lookup_ns, start, flat_inps)
@@ -1420,9 +1426,11 @@ def vmap(fn: Callable, in_axes=0, out_axes=0, **options) -> Callable:
             run = cache.get(key)
             if run is None:
                 cs.cache_misses += 1
+                cs.last_trace_tracing_start = timer_ns()
                 run = cache[key] = _stage_vmapped(cs, inner_fn, transforms, _vmap_example(args, axes, device), kwargs,
                                                   flat_axes, out_axes, executors=executors, device=device,
                                                   disabled=disabled, name=name, checks=checks)
+                cs.last_trace_tracing_stop = timer_ns()
             else:
                 cs.cache_hits += 1
             return run(*flat_args)
@@ -1597,12 +1605,24 @@ def jvp(fn: Callable, primals: tuple, tangents: tuple, *, device: Any = None):
 jvp._lc_cs = _jvp_stats
 
 
+def _get_cs(fn: Callable) -> CompileStats:
+    cs = getattr(fn, "_lc_cs", None)
+    check(cs is not None, "Not a thunder_tpu_torch-compiled function", ValueError)
+    return cs
+
+
+def _get_cd(fn: Callable) -> CompileData:
+    cd = getattr(fn, "_lc_cd", None)
+    check(cd is not None, "Not a thunder_tpu_torch-compiled function", ValueError)
+    return cd
+
+
 def compile_data(fn: Callable) -> CompileData:
-    return fn._lc_cd
+    return _get_cd(fn)
 
 
 def compile_stats(fn: Callable) -> CompileStats:
-    return fn._lc_cs
+    return _get_cs(fn)
 
 
 def last_compile_options(fn: Callable) -> dict:
@@ -1613,33 +1633,33 @@ def last_compile_options(fn: Callable) -> dict:
 
 
 def last_traces(fn: Callable) -> list:
-    return fn._lc_cs.last_traces
+    return _get_cs(fn).last_traces
 
 
 def last_prologue_traces(fn: Callable) -> list:
     """The prologue traces of the entry compiled last: as built, and
     claimed."""
-    return fn._lc_cs.last_prologue_traces
+    return _get_cs(fn).last_prologue_traces
 
 
 def last_backward_traces(fn: Callable) -> list:
     """The backward traces of the last call of a jitted module that ran a
     backward (empty otherwise); a function's ``grad`` traces are joint."""
-    return fn._lc_cs.last_backward_traces
+    return _get_cs(fn).last_backward_traces
 
 
 def last_staging(fn: Callable):
     """The ``StagingStats`` of the entry ``fn`` ran last: whether it is
     staged as a CUDA graph and, if not, why (``executors/staging.py``)."""
-    return fn._lc_cs.last_staging
+    return _get_cs(fn).last_staging
 
 
 def cache_hits(fn: Callable) -> int:
-    return fn._lc_cs.cache_hits
+    return _get_cs(fn).cache_hits
 
 
 def cache_misses(fn: Callable) -> int:
-    return fn._lc_cs.cache_misses
+    return _get_cs(fn).cache_misses
 
 
 def cache_info(fn: Callable) -> dict:
@@ -1651,7 +1671,7 @@ def cache_info(fn: Callable) -> dict:
     execution trace (``analysis/liveness.py``)."""
     from thunder_tpu_torch.analysis.liveness import plan_liveness
 
-    cd, cs = fn._lc_cd, fn._lc_cs
+    cd, cs = _get_cd(fn), _get_cs(fn)
     phases: dict = {}
     for e in cs.cache_entries:
         for k, v in e.stats.phases.items():

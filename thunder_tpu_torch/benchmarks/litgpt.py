@@ -1,4 +1,4 @@
-"""LitGPT-style end-to-end training benchmark CLI, on one device.
+"""LitGPT-style end-to-end training benchmark CLI.
 
 The counterpart of ``thunder_tpu/benchmarks/litgpt.py``: a model name ×
 batch × sequence training benchmark (``parallel.build_train_step``: one
@@ -16,9 +16,17 @@ stacks (torch only → +flash → +fused → +norm).
         --micro-batch 2 --seq 2048 --iters 5 --markdown
 
 ``--device cpu`` runs on the CPU (the kernels' plain versions; no device
-metric). The mesh flags (``--dp``/``--fsdp``/``--tp`` above 1) come with
-the distribution slice of the port and raise here. A stack that fails fails
-the run.
+metric). The mesh flags (``--dp``/``--fsdp``/``--tp`` above 1) build
+``make_mesh``, ``gpt_param_specs`` and this rank's blocks
+(``shard_pytree``), then the sharded step, as
+``thunder_tpu/benchmarks/litgpt.py`` does. Each rank runs the CLI as a
+process of its own, joined by ``distributed.init()`` from the usual
+``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` environment (gloo
+with ``--device cpu``, NCCL on the card); every rank gets the same batch,
+and rank 0 prints the JSON line (``benchmarks/distributed.py`` spawns the
+ranks). With ``WORLD_SIZE`` set the CLI takes this path at a mesh of one
+too, and the line's ``process_group`` names the group's backend and size.
+A stack that fails fails the run.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -71,7 +80,8 @@ class Prepared:
     """One configuration, built and ready to time: ``fn`` runs one
     iteration. For training, ``params``/``opt`` hold the state that each
     iteration replaces (or updates in place) and ``losses`` the loss of
-    each iteration; ``step`` is ``build_train_step``'s step function."""
+    each iteration; ``step`` is ``build_train_step``'s step function and
+    ``mesh`` its mesh (None for the one-device step)."""
 
     name: str
     fn: Callable[[], Any]
@@ -86,6 +96,7 @@ class Prepared:
     step: Optional[Callable] = None
     opt: Optional[dict] = None
     losses: list = field(default_factory=list)
+    mesh: Any = None
 
 
 def prepare(args, executors: Optional[str] = None) -> Prepared:
@@ -98,13 +109,24 @@ def prepare(args, executors: Optional[str] = None) -> Prepared:
     from thunder_tpu_torch.core import devices
     from thunder_tpu_torch.models import gpt as m
 
-    if args.dp * args.fsdp * args.tp > 1:
-        raise NotImplementedError("--dp/--fsdp/--tp: the sharded step is not ported yet (ROADMAP.md, slice 5)")
     cfg = m.name_to_config(args.model)
     seq = min(args.seq, cfg.block_size)
+    mesh = specs = None
+    if args.dp * args.fsdp * args.tp > 1 or "WORLD_SIZE" in os.environ:
+        import thunder_tpu_torch.distributed as td
+        from thunder_tpu_torch.parallel import gpt_param_specs, make_mesh
+
+        if not td.is_initialized() and "WORLD_SIZE" in os.environ:
+            td.init(device=args.device)
+        mesh = make_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp)
+        specs = gpt_param_specs(cfg, mesh)
     dev = devices.resolve_device(args.device)
     params = m.init_params(cfg, dtype=getattr(torch, args.dtype), seed=0, device=dev)
     n_params = count_params(params)
+    if mesh is not None:
+        from thunder_tpu_torch.parallel import shard_pytree
+
+        params = shard_pytree(params, mesh, specs)
     idx_np = np.random.RandomState(0).randint(0, cfg.vocab_size, (args.micro_batch, seq))
     idx = torch.from_numpy(idx_np).to(dev)
     tgt = torch.from_numpy(np.roll(idx_np, -1, axis=1)).to(dev)
@@ -112,6 +134,8 @@ def prepare(args, executors: Optional[str] = None) -> Prepared:
     ex_list = [e for e in (executors or "").split(",") if e] or None
 
     if args.forward_only:
+        if mesh is not None:
+            raise NotImplementedError("--forward-only runs on one device: the mesh flags train")
         from thunder_tpu_torch import api
         from thunder_tpu_torch.core.pytree import tree_flatten
         from thunder_tpu_torch.executors import staging
@@ -132,12 +156,12 @@ def prepare(args, executors: Optional[str] = None) -> Prepared:
     from thunder_tpu_torch.parallel import build_train_step
 
     step, opt, extrace = build_train_step(
-        cfg, params, idx, tgt, lr=args.lr, donate=(args.optimizer == "sgd"),
+        cfg, params, idx, tgt, mesh=mesh, param_specs=specs, lr=args.lr, donate=(args.optimizer == "sgd"),
         grads_in_f32=(args.optimizer != "sgd"), executors=ex_list, optimizer=args.optimizer, return_extrace=True,
     )
     run = Prepared(name=f"{args.model}-train", fn=lambda: None, device=dev, extrace=extrace, tokens=tokens,
                    flops=training_flops_per_token(n_params) * tokens, n_params=n_params, idx=idx, tgt=tgt,
-                   params=params, step=step, opt=opt)
+                   params=params, step=step, opt=opt, mesh=mesh)
 
     def one_step():
         run.params, run.opt, loss = step(run.params, run.opt, idx, tgt)
@@ -164,6 +188,12 @@ def run_one(args, executors: Optional[str] = None, prepared: Optional[Prepared] 
     if executors:
         summary["executors"] = executors
     summary["n_params"] = run.n_params
+    summary["mesh"] = {"dp": args.dp, "fsdp": args.fsdp, "tp": args.tp}
+    if run.mesh is not None:
+        import torch.distributed as dist
+
+        summary["process_group"] = ({"backend": dist.get_backend(), "world": dist.get_world_size()}
+                                    if dist.is_initialized() else None)
     return summary
 
 
@@ -191,7 +221,16 @@ def _matrix_markdown(args, rows) -> str:
 def main(argv=None) -> None:
     args = parse_args(argv)
     if not args.matrix:
-        print(json.dumps(run_one(args, args.executors or None)))
+        import torch.distributed as dist
+
+        started = not dist.is_initialized()
+        summary = run_one(args, args.executors or None)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(json.dumps(summary))
+        if started and dist.is_initialized():
+            import thunder_tpu_torch.distributed as td
+
+            td.shutdown()
         return
 
     rows = []

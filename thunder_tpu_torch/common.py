@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import enum
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -151,6 +152,8 @@ class CompileData:
     # jit(debug_watch=, instrument=): the hooks, resolved once a function so
     # that every entry feeds the same instances (observability/instrument.py).
     instrument_hooks: tuple = ()
+    # A jitted nn.Module's (frontend/module.py): fn is the module itself.
+    is_module: bool = False
 
 
 class EntryStats:
@@ -231,7 +234,30 @@ class CompileStats:
         # (jvp: the torch executor alone), or None.
         self.executors_note: Optional[str] = None
         self.last_backward_staging = None  # a module's: that of the backward it ran with
+        # Nanosecond timers (thunder_tpu/common.py:262-270): a call's host
+        # span and its cache lookup, the last compile's tracing, and the
+        # program's run on the host (its enqueue, on the card).
+        self.last_trace_host_start: int = 0
+        self.last_trace_host_stop: int = 0
+        self.last_trace_cache_start: int = 0
+        self.last_trace_cache_stop: int = 0
+        self.last_trace_tracing_start: int = 0
+        self.last_trace_tracing_stop: int = 0
+        self.last_trace_host_execution_start: int = 0
+        self.last_trace_host_execution_stop: int = 0
+
+    @property
+    def last_compile_time_ms(self) -> float:
+        return (self.last_trace_tracing_stop - self.last_trace_tracing_start) / 1e6
 
     @property
     def recompile_count(self) -> int:
         return max(self.compile_count - 1, 0)
+
+    @property
+    def last_cache_lookup_us(self) -> float:
+        return (self.last_trace_cache_stop - self.last_trace_cache_start) / 1e3
+
+
+def timer_ns() -> int:
+    return time.perf_counter_ns()

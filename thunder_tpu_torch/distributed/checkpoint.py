@@ -7,11 +7,12 @@ own blocks (``torch.distributed.checkpoint``, the reference's own seat), and
 a load reads the blocks each rank of the target layout needs, which may be a
 different number of ranks than saved: a state saved by N ranks loads on M.
 
-A state is a pytree of tensors. Where a leaf is this rank's dim-0 block of a
-larger tensor (an fsdp shard), ``specs`` says so as ``P(axis)``
-(``distributed/runtime.P``) over the groups ``mesh`` binds, as a sharding
-says so of a ``jax.Array``; each such leaf is written as a ``DTensor``
-sharded along dim 0. The tree's structure and each leaf's key are kept
+A state is a pytree of tensors. Where a leaf is this rank's block of a
+larger tensor, ``specs`` says so (``distributed/runtime.P``, over the groups
+``mesh`` binds), as a sharding says so of a ``jax.Array``. A leaf split
+along dim 0 over one axis (an fsdp shard) is written as a ``DTensor``
+sharded along dim 0; a leaf split otherwise (another dim, several axes) is
+gathered whole before it is written and split again on load. The tree's structure and each leaf's key are kept
 beside the blocks (``structure.json``), so a load needs no template.
 """
 
@@ -74,8 +75,14 @@ def _leaf_specs(state: Any, specs: Any) -> list:
 def _groups(mesh, specs: list) -> dict:
     from thunder_tpu_torch.distributed import runtime
 
-    axes = sorted({s.axis for s in specs if s is not None and s.axis})
+    axes = sorted({ax for s in specs if s is not None for ax in s.axes})
     return runtime.resolve_axes(mesh, axes) if axes else {}
+
+
+def _dim0(s) -> bool:
+    """A spec that splits dim 0 over one axis and nothing else: the blocks
+    a ``DTensor`` sharded along dim 0 describes."""
+    return s is not None and len(s.sharded) == 1 and s.sharded[0][0] == 0 and len(s.sharded[0][1]) == 1
 
 
 def _group_device(group=None) -> str:
@@ -101,19 +108,14 @@ def _as_dtensor(t: torch.Tensor, group):
 
 def gather_full(state: Any, *, mesh=None, specs=None) -> Any:
     """Every leaf as its whole tensor, a block by ``specs`` all-gathered
-    along dim 0 over its group: the full-state export's gather."""
-    from thunder_tpu_torch.distributed.prims import gather_dim
+    along each split dim over its groups: the full-state export's gather."""
+    from thunder_tpu_torch.distributed import runtime
 
     leaves, spec = pytree.tree_flatten(state)
     lspecs = _leaf_specs(state, specs)
     groups = _groups(mesh, lspecs)
-    out = []
-    for x, s in zip(leaves, lspecs):
-        if isinstance(x, torch.Tensor) and s is not None and s.axis:
-            g = groups[s.axis]
-            x = gather_dim(x, g, tdist.get_world_size(g), 0)
-        out.append(x)
-    return pytree.tree_unflatten(out, spec)
+    return pytree.tree_unflatten([runtime.join(x, s, groups) if s is not None and s.axes else x
+                                  for x, s in zip(leaves, lspecs)], spec)
 
 
 def _keys(state: Any) -> list[str]:
@@ -130,6 +132,8 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
     :class:`AsyncSaveHandle`, the blocks written on a background thread.
     Every rank of the group must call it."""
     import torch.distributed.checkpoint as dcp
+
+    from thunder_tpu_torch.distributed import runtime
 
     options = options or StateDictOptions()
     path = os.path.abspath(path)
@@ -149,8 +153,10 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
     keys = _keys(state)
     flat = {}
     for k, x, s in zip(keys, leaves, lspecs):
-        if isinstance(x, torch.Tensor) and s is not None and s.axis and _dist_on():
+        if isinstance(x, torch.Tensor) and _dim0(s) and _dist_on():
             x = _as_dtensor(x.detach(), groups[s.axis])
+        elif isinstance(x, torch.Tensor) and s is not None and s.axes and _dist_on():
+            x = runtime.join(x.detach(), s, groups)
         elif isinstance(x, torch.Tensor):
             x = x.detach()
         flat[k] = x
@@ -166,9 +172,9 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
 
 def load(path: str, *, template: Any = None, mesh=None, specs=None) -> Any:
     """Restore a pytree (``load:197``). With ``specs`` (a tree of ``P``
-    matching the state) and ``mesh``, a leaf marked ``P(axis)`` comes back
-    as this rank's dim-0 block over that axis's group, read from whatever
-    blocks the saving ranks wrote; every other leaf comes back whole. Every
+    matching the state) and ``mesh``, a leaf a spec splits comes back as
+    this rank's block (a dim-0 block over one axis read from whatever blocks
+    the saving ranks wrote); every other leaf comes back whole. Every
     leaf lands on the device of the process group: the card under NCCL, the
     host under gloo or with no group.
     ``template`` (a tree of tensors) gives the structure when the state was
@@ -186,7 +192,7 @@ def load(path: str, *, template: Any = None, mesh=None, specs=None) -> Any:
         lspecs = _leaf_specs(state, specs)
         groups = _groups(mesh, lspecs)
         leaves, spec = pytree.tree_flatten(state)
-        return pytree.tree_unflatten([runtime.split(x, s, groups).clone() if s is not None and s.axis else x
+        return pytree.tree_unflatten([runtime.split(x, s, groups).clone() if s is not None and s.axes else x
                                       for x, s in zip(leaves, lspecs)], spec)
     if template is not None:
         keys, spec = _keys(template), pytree.tree_flatten(template)[1]
@@ -204,7 +210,7 @@ def load(path: str, *, template: Any = None, mesh=None, specs=None) -> Any:
             flat[k] = None
             continue
         shape, dtype = tuple(m.size), m.properties.dtype
-        if s is not None and s.axis and _dist_on():
+        if _dim0(s) and _dist_on():
             g = groups[s.axis]
             n = tdist.get_world_size(g)
             flat[k] = _as_dtensor(torch.empty((shape[0] // n,) + shape[1:], dtype=dtype, device=_group_device(g)), g)
@@ -212,4 +218,6 @@ def load(path: str, *, template: Any = None, mesh=None, specs=None) -> Any:
             flat[k] = torch.empty(shape, dtype=dtype, device=_group_device())
     dcp.load(flat, checkpoint_id=path, no_dist=not _dist_on())
     leaves = [flat[k].to_local() if hasattr(flat[k], "to_local") else flat[k] for k in keys]
+    leaves = [runtime.split(x, s, groups).clone() if s is not None and s.axes and not _dim0(s) and _dist_on() else x
+              for x, s in zip(leaves, lspecs)]
     return pytree.tree_unflatten(leaves, spec)

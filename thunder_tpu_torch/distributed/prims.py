@@ -46,6 +46,7 @@ class DistOpIDs(enum.Enum):
     ALL_TO_ALL = enum.auto()
     MASK_TO_RANK = enum.auto()
     HIER_ALL_REDUCE = enum.auto()
+    AXIS_SLICE = enum.auto()
 
 
 def _make(id: DistOpIDs, name: str, meta) -> Symbol:
@@ -62,13 +63,23 @@ def _out(like: TensorProxy, shape=None, future: bool = False) -> TensorProxy:
 # -- metas --------------------------------------------------------------------
 
 
-def _all_gather_meta(a: TensorProxy, axis: str, group_size: int, *, dim: int = 0, async_op: bool = False):
+def _all_gather_meta(a: TensorProxy, axis: str, group_size: int, *, dim: int = 0, async_op: bool = False,
+                     replicated_grad: bool = False):
+    """``replicated_grad=True``: every rank uses the gathered value alike, so
+    its cotangent is the same on each and the VJP is this rank's block of it
+    (:data:`axis_slice`), with no collective. Otherwise the cotangents are
+    each rank's part and the VJP sums them (a reduce-scatter)."""
     shape = list(a.shape)
     shape[dim] = shape[dim] * group_size
     return _out(a, shape, future=async_op)
 
 
-def _all_reduce_meta(a: TensorProxy, axis: str, group_size: int, *, op: str = "sum", async_op: bool = False):
+def _all_reduce_meta(a: TensorProxy, axis: str, group_size: int, *, op: str = "sum", async_op: bool = False,
+                     replicated_grad: bool = False):
+    """``replicated_grad=True``: every rank uses the reduced value alike, so
+    its cotangent is the same on each and is the cotangent of every rank's
+    part: the VJP passes it on with no collective (Megatron's exit of a
+    tensor-parallel block). Otherwise the VJP is an all-reduce."""
     check(op in ("sum", "avg", "max", "min"), lambda: f"Unsupported reduce op {op}")
     return _out(a, future=async_op)
 
@@ -95,15 +106,17 @@ def _sync_is_sharded(a, parallel_type: Optional[str]) -> bool:
 
 
 def _synchronize_meta(a: TensorProxy, axis: str, group_size: int, parallel_type: Optional[str] = None, *,
-                      grad_scale: Optional[float] = None, grad_sync: bool = True):
-    """An fsdp parameter enters as its dim-0 shard and synchronizes to the
-    full tensor (an all-gather); a replicated one passes through. The VJP
-    holds the grad sync. ``grad_sync=False`` is the ``no_sync`` variant:
-    its VJP keeps the scaled local grad, with no collective."""
+                      grad_scale: Optional[float] = None, grad_sync: bool = True, dim: int = 0):
+    """An fsdp parameter enters as its shard along ``dim`` (dim 0 unless
+    given) and synchronizes to the full tensor (an all-gather); a replicated
+    one passes through. The VJP holds the grad sync. ``grad_sync=False`` is
+    the ``no_sync`` variant: its VJP keeps the scaled local grad, with no
+    collective."""
     from thunder_tpu_torch.core.proxies import DistParallelType
 
     if _sync_is_sharded(a, parallel_type):
-        shape = (a.shape[0] * group_size,) + tuple(a.shape[1:])
+        shape = list(a.shape)
+        shape[dim] *= group_size
         out = TensorProxy(like=a, shape=shape, requires_grad=a.requires_grad)
         out.dist_parallel_type = DistParallelType.NONE
         return out
@@ -134,6 +147,18 @@ def _hier_all_reduce_meta(a: TensorProxy, inner_axis: str, outer_axis: str, inne
     return _out(a)
 
 
+def _axis_slice_meta(a: TensorProxy, axis: str, group_size: int, *, dim: int = 0):
+    """This rank's block of ``a`` along ``dim``: block i of ``group_size``
+    on the rank of index i along ``axis``. No collective runs; its VJP
+    all-gathers the blocks' cotangents (each rank's block of a value that
+    every rank holds alike)."""
+    check(a.shape[dim] % group_size == 0,
+          lambda: f"axis_slice dim {dim} ({a.shape[dim]}) not divisible by {group_size}")
+    shape = list(a.shape)
+    shape[dim] //= group_size
+    return TensorProxy(like=a, shape=tuple(shape), requires_grad=a.requires_grad)
+
+
 def _all_to_all_meta(a: TensorProxy, axis: str, group_size: int, *, split_dim: int, concat_dim: int):
     check(a.shape[split_dim] % group_size == 0, "all_to_all split dim not divisible by group size")
     shape = list(a.shape)
@@ -152,20 +177,24 @@ ppermute = _make(DistOpIDs.PPERMUTE, "ppermute", _ppermute_meta)
 all_to_all = _make(DistOpIDs.ALL_TO_ALL, "all_to_all", _all_to_all_meta)
 mask_to_rank = _make(DistOpIDs.MASK_TO_RANK, "mask_to_rank", _mask_to_rank_meta)
 hier_all_reduce = _make(DistOpIDs.HIER_ALL_REDUCE, "hier_all_reduce", _hier_all_reduce_meta)
+# Not a collective: it reads this rank's index along the axis and moves no
+# byte, so it carries no COMM_OP tag and no schedule lane.
+axis_slice = Symbol("axis_slice", _axis_slice_meta, id=DistOpIDs.AXIS_SLICE, is_prim=True, module="dist_prims")
 
 register_module("dist_prims", sys.modules[__name__])
 
 
 def is_collective_bsym(bsym) -> bool:
     """True for a BoundSymbol that dispatches a collective: its id is a
-    :class:`DistOpIDs` or it carries the COMM_OP tag."""
+    :class:`DistOpIDs` (but ``axis_slice``, which moves no byte) or it
+    carries the COMM_OP tag."""
     from thunder_tpu_torch.core.prims import OpTags
 
     sym = getattr(bsym, "sym", None)
     if sym is None:
         return False
     if isinstance(sym.id, DistOpIDs):
-        return True
+        return sym.id is not DistOpIDs.AXIS_SLICE
     return OpTags.COMM_OP in (getattr(sym, "tags", None) or ())
 
 
@@ -264,8 +293,13 @@ def gather_dim(a, group, group_size: int, dim: int = 0):
     return out.reshape(shape)
 
 
-def _ag(a, axis, group_size, *, dim=0, async_op=False):
+def _ag(a, axis, group_size, *, dim=0, async_op=False, replicated_grad=False):
     return gather_dim(a, _group(axis, group_size), group_size, dim)
+
+
+def _slice(a, axis, group_size, *, dim=0):
+    m = a.shape[dim] // group_size
+    return a.narrow(dim, dist.get_rank(_group(axis, group_size)) * m, m)
 
 
 def _reduce(a, group, group_size: int, op: str):
@@ -275,7 +309,7 @@ def _reduce(a, group, group_size: int, op: str):
     return out / group_size if op == "avg" else out
 
 
-def _ar(a, axis, group_size, *, op="sum", async_op=False):
+def _ar(a, axis, group_size, *, op="sum", async_op=False, replicated_grad=False):
     return _reduce(a, _group(axis, group_size), group_size, op)
 
 
@@ -301,13 +335,13 @@ def _rs(a, axis, group_size, *, op="sum", dim=0, async_op=False):
     return scatter_dim(a, _group(axis, group_size), group_size, dim, op)
 
 
-def _sync(a, axis, group_size, parallel_type=None, *, grad_scale=None, grad_sync=True):
+def _sync(a, axis, group_size, parallel_type=None, *, grad_scale=None, grad_sync=True, dim=0):
     # An fsdp shard all-gathers to the full param; a replicated param passes
     # through (its sync lives in the VJP's all-reduce); a group of one gathers
     # nothing. None is a call site that always gathers.
     if parallel_type == "replicated" or group_size == 1:
         return a
-    return gather_dim(a, _group(axis, group_size), group_size, 0)
+    return gather_dim(a, _group(axis, group_size), group_size, dim)
 
 
 def _pp(a, axis, perm):
@@ -373,7 +407,8 @@ def _register_torch_impls():
     for id, fn in ((DistOpIDs.ALL_GATHER, _ag), (DistOpIDs.ALL_REDUCE, _ar), (DistOpIDs.BROADCAST, _bc),
                    (DistOpIDs.REDUCE_SCATTER, _rs), (DistOpIDs.SYNCHRONIZE, _sync),
                    (DistOpIDs.WAIT, lambda fut: fut), (DistOpIDs.PPERMUTE, _pp), (DistOpIDs.ALL_TO_ALL, _a2a),
-                   (DistOpIDs.MASK_TO_RANK, _mask), (DistOpIDs.HIER_ALL_REDUCE, _har)):
+                   (DistOpIDs.MASK_TO_RANK, _mask), (DistOpIDs.HIER_ALL_REDUCE, _har),
+                   (DistOpIDs.AXIS_SLICE, _slice)):
         ex.register_implementation(id, fn=fn)
 
 
@@ -391,7 +426,15 @@ def _register_vjps():
     @register_vjp(DistOpIDs.ALL_GATHER)
     def _ag_vjp(bsym, g):
         a, axis, group_size = bsym.args[:3]
-        return (reduce_scatter(g, axis, group_size, dim=bsym.kwargs.get("dim", 0)), None, None)
+        dim = bsym.kwargs.get("dim", 0)
+        if bsym.kwargs.get("replicated_grad", False):
+            return (axis_slice(g, axis, group_size, dim=dim), None, None)
+        return (reduce_scatter(g, axis, group_size, dim=dim), None, None)
+
+    @register_vjp(DistOpIDs.AXIS_SLICE)
+    def _slice_vjp(bsym, g):
+        a, axis, group_size = bsym.args[:3]
+        return (all_gather(g, axis, group_size, dim=bsym.kwargs.get("dim", 0)), None, None)
 
     @register_vjp(DistOpIDs.REDUCE_SCATTER)
     def _rs_vjp(bsym, g):
@@ -401,6 +444,8 @@ def _register_vjps():
     @register_vjp(DistOpIDs.ALL_REDUCE)
     def _ar_vjp(bsym, g):
         a, axis, group_size = bsym.args[:3]
+        if bsym.kwargs.get("replicated_grad", False):
+            return (g, None, None)
         return (all_reduce(g, axis, group_size), None, None)
 
     @register_vjp(DistOpIDs.BROADCAST)
@@ -437,7 +482,7 @@ def _register_vjps():
             # when the context exits.
             return (scaled, None, None)
         if _sync_is_sharded(a, ptype):
-            return (reduce_scatter(scaled, axis, group_size, dim=0), None, None)
+            return (reduce_scatter(scaled, axis, group_size, dim=bsym.kwargs.get("dim", 0)), None, None)
         return (all_reduce(scaled, axis, group_size), None, None)
 
 

@@ -11,13 +11,15 @@ inputs, takes its block of each by its spec, runs, and joins the outputs by
 theirs, so a program gives the same result on N ranks as on one device.
 
 A spec is :class:`P`, ``jax.sharding.PartitionSpec``'s shape: ``P()`` is
-replicated (passed as it is, returned as this rank computed it), ``P(axis,
-None, ...)`` is split along dim 0 over the axis's group (this rank's block in,
-an all-gather out). ``mesh`` binds the axes: None is the world group for
-every axis (as ``fsdp(model)`` without a mesh is every device in the JAX
-package), a process group binds every axis to it, and a dict ``{axis:
-group}`` binds each as given (this rank's own group of that axis,
-:func:`grid_groups`).
+replicated (passed as it is, returned as this rank computed it); each dim may
+name an axis, or a tuple of axes outermost first, over whose groups it is
+split (this rank's block in, all-gathers out), so ``P(None, "tp")`` splits
+dim 1 over tp and ``P(("dp", "fsdp"))`` dim 0 over both. ``mesh`` binds the
+axes: None is the world group for every axis (as ``fsdp(model)`` without a
+mesh is every device in the JAX package), a process group binds every axis
+to it, and a dict ``{axis: group}`` binds each as given (this rank's own
+group of that axis, :func:`grid_groups`; ``parallel.make_mesh`` returns
+such a dict).
 
 On the card the per-rank program is staged as one CUDA graph, its NCCL
 collectives included (``executors/staging.py``): the seat of
@@ -47,7 +49,7 @@ from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 class P(tuple):
     """A partition spec: one mesh-axis name (or None) a dim, or a tuple of
     names for a dim split over several axes, the first the outermost;
-    ``P()`` is replicated. Only dim 0 may name axes here."""
+    ``P()`` is replicated, and dims past the spec's length are too."""
 
     def __new__(cls, *names):
         return super().__new__(cls, names)
@@ -57,13 +59,23 @@ class P(tuple):
 
     @property
     def axis(self):
+        """Dim 0's entry (an axis, a tuple of axes, or None)."""
         return self[0] if self else None
+
+    def dim_axes(self, dim: int) -> tuple:
+        """The axes dim ``dim`` is split over, outermost first."""
+        a = self[dim] if dim < len(self) else None
+        return () if a is None else tuple(a) if isinstance(a, tuple) else (a,)
+
+    @property
+    def sharded(self) -> tuple:
+        """``((dim, axes), ...)`` of every split dim."""
+        return tuple((d, self.dim_axes(d)) for d in range(len(self)) if self.dim_axes(d))
 
     @property
     def axes(self) -> tuple:
-        """The axes dim 0 is split over, outermost first."""
-        a = self.axis
-        return () if a is None else tuple(a) if isinstance(a, tuple) else (a,)
+        """Every axis the spec names, dim by dim, outermost first."""
+        return tuple(ax for _, axes in self.sharded for ax in axes)
 
 
 _bound: contextvars.ContextVar[dict] = contextvars.ContextVar("thunder_axis_groups", default={})
@@ -125,26 +137,28 @@ def group_of(axis: str, group_size: Optional[int] = None):
     return group
 
 
-def grid_groups(names: tuple, shape: tuple) -> dict:
-    """This rank's group along each axis of a row-major grid of the world's
-    ranks (``names[i]`` spans ``shape[i]`` ranks). Every rank calls it with
-    the same arguments: each ``new_group`` is collective over the world."""
+def grid_groups(names: tuple, shape: tuple, ranks: Optional[list] = None) -> dict:
+    """This rank's group along each axis of a row-major grid of ``ranks``
+    (default: the world's, in order; ``names[i]`` spans ``shape[i]``
+    ranks). Every rank of the world calls it with the same arguments: each
+    ``new_group`` is collective over the world. A rank outside ``ranks``
+    gets no group."""
     import math
 
-    world = dist.get_world_size()
-    if math.prod(shape) != world:
-        raise ValueError(f"a grid of shape {shape} needs {math.prod(shape)} ranks, the world has {world}")
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    if math.prod(shape) != len(ranks):
+        raise ValueError(f"a grid of shape {shape} needs {math.prod(shape)} ranks, it was given {len(ranks)}")
     me = dist.get_rank()
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
     mine = {}
     for i, name in enumerate(names):
         # Every line of ranks along axis i, in a fixed order on every rank.
-        for base in range(world):
+        for base in range(len(ranks)):
             if base // strides[i] % shape[i] != 0:
                 continue
-            ranks = [base + k * strides[i] for k in range(shape[i])]
-            group = dist.new_group(ranks)
-            if me in ranks:
+            line = [ranks[base + k * strides[i]] for k in range(shape[i])]
+            group = dist.new_group(line)
+            if me in line:
                 mine[name] = group
     return mine
 
@@ -153,31 +167,37 @@ def grid_groups(names: tuple, shape: tuple) -> dict:
 
 
 def split(x, spec, groups: dict):
-    """This rank's block of ``x`` by ``spec`` (over several axes, the
-    blocks in row-major order of the ranks' coordinates)."""
+    """This rank's block of ``x`` by ``spec``: along each split dim, the
+    block of this rank's coordinate over that dim's axes (over several
+    axes, the blocks in row-major order of the coordinates). A view."""
     if not isinstance(x, torch.Tensor) or spec is None or not spec.axes:
         return x
-    n, r = 1, 0
-    for ax in spec.axes:
-        g = groups[ax]
-        n, r = n * dist.get_world_size(g), r * dist.get_world_size(g) + dist.get_rank(g)
-    if x.shape[0] % n:
-        raise ValueError(f"dim 0 of an input ({x.shape[0]}) does not split over the {n} ranks of {spec.axes}")
-    m = x.shape[0] // n
-    return x.narrow(0, r * m, m)
+    if len(spec) > x.ndim:
+        raise ValueError(f"spec {spec!r} has {len(spec)} dims, the input {x.ndim}")
+    for d, axes in spec.sharded:
+        n, r = 1, 0
+        for ax in axes:
+            g = groups[ax]
+            n, r = n * dist.get_world_size(g), r * dist.get_world_size(g) + dist.get_rank(g)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of an input ({x.shape[d]}) does not split over the {n} ranks of {axes}")
+        m = x.shape[d] // n
+        x = x.narrow(d, r * m, m)
+    return x
 
 
 def join(x, spec, groups: dict):
     """The global value of an output that this rank holds by ``spec``: its
-    blocks all-gathered along dim 0, the innermost axis first."""
+    blocks all-gathered along each split dim, the innermost axis first."""
     from thunder_tpu_torch.distributed.prims import gather_dim
 
     if not isinstance(x, torch.Tensor) or spec is None:
         return x
-    for ax in reversed(spec.axes):
-        n = dist.get_world_size(groups[ax])
-        if n > 1:
-            x = gather_dim(x, groups[ax], n, 0)
+    for d, axes in spec.sharded:
+        for ax in reversed(axes):
+            n = dist.get_world_size(groups[ax])
+            if n > 1:
+                x = gather_dim(x, groups[ax], n, d)
     return x
 
 
@@ -263,11 +283,14 @@ def _trace_axes(trc) -> set:
     return axes
 
 
-def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, out_specs, *, grad: bool = False):
+def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, out_specs, *, grad: bool = False,
+                             comm_schedule: bool = False):
     """Trace ``fn`` on this rank's example blocks (so its collectives record
     into the trace), claim it, and stage it by :func:`stage_collective_trace`.
     ``grad=True`` returns the value and the grads of the inputs, as
-    ``grad_transform(return_value=True)`` does. Returns ``(callable, claimed
+    ``grad_transform(return_value=True)`` does. ``comm_schedule=True`` runs
+    the collective-overlap scheduler over the claimed trace
+    (``transforms/comm_schedule.py``). Returns ``(callable, claimed
     trace)``; the callable takes the global arguments."""
     from thunder_tpu_torch.api import trace_program
     from thunder_tpu_torch.executors.passes import transform_for_execution
@@ -279,7 +302,7 @@ def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, 
     comp = dce(comp)
     if grad:
         comp = grad_transform(comp, return_value=True)
-    extrace = transform_for_execution(comp, resolve_executors(None))
+    extrace = transform_for_execution(comp, resolve_executors(None), comm_schedule=comm_schedule)
     return stage_collective_trace(extrace, mesh, in_specs, out_specs), extrace
 
 

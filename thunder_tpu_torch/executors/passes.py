@@ -46,9 +46,13 @@ def _claimed(sym: Symbol, ex: Executor) -> Symbol:
     return new
 
 
-def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor]) -> TraceCtx:
+def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor], *,
+                            comm_schedule: bool = False) -> TraceCtx:
     """Claim every bound symbol. There is no re-claim after a failure: a
-    kernel that fails raises, and nothing quietly takes its place."""
+    kernel that fails raises, and nothing quietly takes its place. With
+    ``comm_schedule=True`` (and ``THUNDER_TPU_COMM_SCHEDULE`` not 0) the
+    collective-overlap scheduler (``transforms/comm_schedule.py``) runs
+    over the claimed trace with its default device and capacity."""
     start = time.perf_counter_ns()
     executors_list = tuple(executors_list) + get_always_executors()
     new_bsyms: list[BoundSymbol] = []
@@ -94,7 +98,13 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor])
             extrace = ex.fusion_pass(extrace)
     extrace.tags["claim_breakdown"] = _claim_breakdown(extrace)
     extrace.tags["collective_bytes"] = _collective_bytes(extrace)
-    return wrap_in_trace_provenance(extrace, "Transform for execution", start)
+    extrace = wrap_in_trace_provenance(extrace, "Transform for execution", start)
+    if comm_schedule:
+        from thunder_tpu_torch.transforms import comm_schedule as comm_sched
+
+        if comm_sched.enabled():
+            extrace, _ = comm_sched.schedule_collectives(extrace)
+    return extrace
 
 
 def _claim_breakdown(trace: TraceCtx) -> dict[str, int]:

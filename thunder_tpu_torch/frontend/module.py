@@ -66,7 +66,7 @@ from typing import Any, Optional
 
 import torch
 
-from thunder_tpu_torch.common import suppress_sharp_edges
+from thunder_tpu_torch.common import suppress_sharp_edges, timer_ns
 from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 
@@ -342,6 +342,7 @@ class ThunderModule:
             compile_options={**({} if autocast is None else {"autocast": autocast}),
                              **({} if debug_checks is None else {"debug_checks": bool(debug_checks)})},
             event_log=log_for_path(events) if events else None,
+            is_module=True,
         )
         self._lc_cs = CompileStats()
         self._params()  # a parameter off the jit's device raises here, not at the first call
@@ -959,7 +960,9 @@ class ThunderModule:
             if obsm.enabled():
                 obsm.CACHE_MISSES.inc()
             obs_events.emit_event("cache_miss", fn=type(self._module).__name__, call=cs.calls)
+            cs.last_trace_tracing_start = timer_ns()
             entry = self._compile(params, args, kwargs, grad)
+            cs.last_trace_tracing_stop = timer_ns()
             self._cache.setdefault(key, []).append(entry)
         else:
             cs.cache_hits += 1

@@ -10,6 +10,11 @@ tests hold the two packages against each other.
 
 Layout notes:
 - qkv is one fused projection (q heads, then k, then v);
+- ``tp`` (``forward``/``loss_fn``) is the sharded training step's tensor
+  parallelism (``parallel/train.py``): the regions below that run on tp
+  blocks (``tp.block``) are the only place that decides which weights are
+  read as blocks; a region runs on them where its weight's spec splits it
+  over tp (``tp.split_on``). None is the one-device program;
 - RoPE uses the rotate-half convention with ``rotary_percentage`` of
   head_size rotated; cos/sin are built from iota inside the trace.
 """
@@ -292,11 +297,16 @@ def _apply_rope(x, cos, sin, config: GPTConfig):
     return ttorch.apply_rope(x, cos, sin)
 
 
-def _attention(x, p, cos, sin, config: GPTConfig):
+def _attention(x, p, cos, sin, config: GPTConfig, tp=None):
     B, T, C = x.shape
     H, G, hs = config.n_head, config.query_groups, config.head_size
 
-    qkv = ttorch.linear(x, p["qkv_w"], p.get("qkv_b"))  # (B, T, (H+2G)*hs)
+    if tp is not None and tp.split_on(p, "qkv_w", 0):
+        # A block of qkv's rows holds no whole heads (q, k, v are laid out
+        # one after another): the blocks are gathered before the head split.
+        qkv = tp.gather(ttorch.linear(tp.enter(x), tp.block(p, "qkv_w", 0), tp.block(p, "qkv_b", 0)), 2)
+    else:
+        qkv = ttorch.linear(x, p["qkv_w"], p.get("qkv_b"))  # (B, T, (H+2G)*hs)
     q = qkv[..., : H * hs]
     k = qkv[..., H * hs : (H + G) * hs]
     v = qkv[..., (H + G) * hs :]
@@ -310,7 +320,13 @@ def _attention(x, p, cos, sin, config: GPTConfig):
 
     y = ttorch.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=(G != H))
     y = ttorch.reshape(ttorch.permute(y, (0, 2, 1, 3)), (B, T, H * hs))
+    if tp is not None and tp.split_on(p, "proj_w", 1):
+        return _bias(tp.exit(ttorch.linear(tp.split(y, 2), tp.block(p, "proj_w", 1))), p.get("proj_b"))
     return ttorch.linear(y, p["proj_w"], p.get("proj_b"))
+
+
+def _bias(y, b):
+    return y if b is None else y + b
 
 
 def _moe_mlp(x, p, config: GPTConfig):
@@ -332,9 +348,19 @@ def _moe_mlp(x, p, config: GPTConfig):
     return ttorch.reshape(out, (B, T, C))
 
 
-def _mlp(x, p, config: GPTConfig):
+def _mlp(x, p, config: GPTConfig, tp=None):
     if config.mlp_class == "MoEMLP":
         return _moe_mlp(x, p, config)
+    if tp is not None and tp.split_on(p, "proj_w", 1):
+        # Column-parallel fc on this rank's block of the hidden units, the
+        # activation on the block, row-parallel proj summed over tp.
+        x = tp.enter(x)
+        if config.mlp_class == "LLaMAMLP":
+            h = ttorch.silu(ttorch.linear(x, tp.block(p, "fc_1_w", 0), tp.block(p, "fc_1_b", 0))) * ttorch.linear(
+                x, tp.block(p, "fc_2_w", 0), tp.block(p, "fc_2_b", 0))
+        else:
+            h = ttorch.gelu(ttorch.linear(x, tp.block(p, "fc_w", 0), tp.block(p, "fc_b", 0)))
+        return _bias(tp.exit(ttorch.linear(h, tp.block(p, "proj_w", 1))), p.get("proj_b"))
     if config.mlp_class == "LLaMAMLP":
         h = ttorch.silu(ttorch.linear(x, p["fc_1_w"], p.get("fc_1_b"))) * ttorch.linear(
             x, p["fc_2_w"], p.get("fc_2_b")
@@ -344,30 +370,34 @@ def _mlp(x, p, config: GPTConfig):
     return ttorch.linear(h, p["proj_w"], p.get("proj_b"))
 
 
-def _block(x, p, cos, sin, config: GPTConfig):
+def _block(x, p, cos, sin, config: GPTConfig, tp=None):
     n1 = _norm(x, p["norm_1"], config)
-    attn_out = _attention(n1, p["attn"], cos, sin, config)
+    attn_out = _attention(n1, p["attn"], cos, sin, config, tp)
     if config.parallel_residual:
         n2 = n1 if config.shared_attention_norm else _norm(x, p["norm_2"], config)
-        return x + attn_out + _mlp(n2, p["mlp"], config)
+        return x + attn_out + _mlp(n2, p["mlp"], config, tp)
     x = x + attn_out
-    return x + _mlp(_norm(x, p["norm_2"], config), p["mlp"], config)
+    return x + _mlp(_norm(x, p["norm_2"], config), p["mlp"], config, tp)
 
 
-def forward(params: dict, idx, config: GPTConfig):
+def forward(params: dict, idx, config: GPTConfig, tp=None):
     """Token ids (B, T) int → logits (B, T, padded_vocab_size)."""
     B, T = idx.shape
     x = ttorch.embedding(idx, params["wte"])  # (B, T, C)
     cos, sin = _rope_cache(T, config, device=x.device, dtype=x.dtype)
     for p in params["blocks"]:
-        x = _block(x, p, cos, sin, config)
+        x = _block(x, p, cos, sin, config, tp)
     x = _norm(x, params["ln_f"], config)
+    if tp is not None and tp.split_on(params, "lm_head_w", 0):
+        # The vocab blocks of the logits are gathered, so that the CE
+        # kernel sees whole rows.
+        return tp.gather(ttorch.linear(tp.enter(x), tp.block(params, "lm_head_w", 0)), 2)
     return ttorch.linear(x, params["lm_head_w"])
 
 
-def loss_fn(params: dict, idx, targets, config: GPTConfig):
+def loss_fn(params: dict, idx, targets, config: GPTConfig, tp=None):
     """Next-token cross-entropy; logits in f32 for a stable softmax."""
-    logits = forward(params, idx, config)
+    logits = forward(params, idx, config, tp)
     B, T, V = logits.shape
     logits = ttorch.reshape(logits.float(), (B * T, V))
     return ttorch.cross_entropy(logits, ttorch.reshape(targets, (B * T,)))

@@ -14,8 +14,7 @@ and read the measured-against-predicted report of a profile:
 
 Not yet here: ``serve``/``ops_health``/``ops_state``/``flight_dump``,
 ``configure_watchdog`` and ``last_host_health`` (the ops plane and the
-watchdog: the resilience slice) and ``critpath*`` (the fleet timeline: the
-distribution slice).
+watchdog: the resilience slice).
 """
 
 from __future__ import annotations
@@ -153,3 +152,36 @@ def shutdown_roofline() -> None:
     from thunder_tpu_torch.observability import roofline as roofline_mod
 
     roofline_mod.disable()
+
+
+def critpath(**options):
+    """Arm the fleet critical-path timeline recorder: per-step host spans
+    fold into a skew-aligned fleet timeline whose critical path decomposes
+    into typed classes (compute / exposed-ICI / exposed-DCN /
+    straggler-wait / stall / idle), exported as
+    ``thunder_tpu_critpath_fraction{class=}`` gauges and streamed into the
+    detectors as ``bottleneck_shift`` anomalies. A driver feeds the
+    returned recorder (``record_step``, ``note_collective``); ``options``
+    forward to ``observability.timeline.enable`` (bank, emulated_skew_s,
+    ...)."""
+    from thunder_tpu_torch.observability import timeline as timeline_mod
+
+    return timeline_mod.enable(**options)
+
+
+def critpath_report() -> Optional[str]:
+    """The live fleet critical-path ledger as a printable report (EWMA
+    class fractions and trend, per-host clock-skew estimates with
+    confidence, the static-vs-measured exposed-collective cross-check).
+    None when no timeline recorder is installed."""
+    from thunder_tpu_torch.observability import timeline as timeline_mod
+
+    recorder = timeline_mod.current()
+    return recorder.format_report() if recorder is not None else None
+
+
+def shutdown_critpath() -> None:
+    """Uninstall the process-wide timeline recorder."""
+    from thunder_tpu_torch.observability import timeline as timeline_mod
+
+    timeline_mod.disable()

@@ -28,11 +28,14 @@ The counterpart of ``thunder_tpu/observability/``, built on ``torch.profiler``,
   folding probe joins into a bounded per-op ledger.
 - :mod:`~thunder_tpu_torch.observability.detect`: streaming detectors.
 
-Not yet here: ``opsplane.py`` (the HTTP endpoints and flight recorder) and
-``timeline.py`` (the cross-host critical path) come with the resilience and
-distribution slices.
+- :mod:`~thunder_tpu_torch.observability.timeline`: the fleet critical
+  path (clock skew from collective barriers, per-step class breakdowns, the
+  bounded ledger), armed by ``monitor.critpath()``.
 
-``metrics``, ``events`` and ``detect`` are stdlib-only (safe to import from
+Not yet here: ``opsplane.py`` (the HTTP endpoints and flight recorder) comes
+with the resilience slice.
+
+``metrics``, ``events``, ``detect`` and ``timeline`` are stdlib-only (safe to import from
 ``core/trace.py`` and ``common.py``); the others load lazily here.
 """
 
@@ -63,6 +66,8 @@ _LAZY = {
     "RooflineSampler": "thunder_tpu_torch.observability.roofline",
     "RooflineLedger": "thunder_tpu_torch.observability.roofline",
     "RooflineEntry": "thunder_tpu_torch.observability.roofline",
+    "TimelineRecorder": "thunder_tpu_torch.observability.timeline",
+    "CritPathLedger": "thunder_tpu_torch.observability.timeline",
 }
 
 

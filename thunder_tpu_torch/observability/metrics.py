@@ -414,3 +414,22 @@ ROOFLINE_PROBES = REGISTRY.counter(
     "Duty-cycled roofline probes (one profiled step folded into the per-op ledger)",
     always=True,
 )
+
+# -- fleet critical-path ledger (observability/timeline.py) ---------------------
+
+# Always-export: zero timeline steps with a run in flight means the recorder
+# is dead or unarmed, visible on the wire with metrics off.
+CRITPATH_STEPS = REGISTRY.counter(
+    "thunder_tpu_critpath_steps_total",
+    "Fleet steps folded into the critical-path ledger (observability/timeline.py)",
+    always=True,
+)
+CRITPATH_FRACTION = REGISTRY.gauge(
+    "thunder_tpu_critpath_fraction",
+    "EWMA share of fleet step wall time on the critical path, labelled by "
+    "class (compute|exposed_ici|exposed_dcn|straggler_wait|stall|idle)",
+)
+CRITPATH_SKEW_MS = REGISTRY.gauge(
+    "thunder_tpu_critpath_clock_skew_ms",
+    "Estimated per-host clock skew vs the fleet-median clock, from collective rendezvous alignment, labelled by host",
+)

@@ -1,7 +1,7 @@
-"""The training step of a GPT on one device: one joint fw+bw program, then AdamW or SGD.
+"""The training step of a GPT: one joint fw+bw program, then AdamW or SGD.
 
-The counterpart of ``thunder_tpu/parallel/train.py``'s single-device path
-(``build_train_step`` with no mesh), which the LitGPT benchmark drives:
+The counterpart of ``thunder_tpu/parallel/train.py``, which the LitGPT
+benchmark drives. On one device (no mesh):
 ``loss_fn`` is traced, dce'd, turned into one joint forward+backward trace
 (``grad_transform``), its attention pairs rewritten to save (out, lse) for
 the flash backward (``save_sdpa_residuals_joint``), claimed by the
@@ -14,8 +14,63 @@ bf16-true SGD with weight decay. With ``donate=True`` the params (and the
 AdamW state) are updated in place, the counterpart of donating them to the
 JAX step. The step is staged whole, as ``thunder_tpu/parallel/train.py:213``
 stages it under ``jax.jit``: on the card one CUDA graph
-(``executors/staging.py``) runs the program and the optimizer. The sharded step (``mesh``, ``param_specs``, ``batch_spec``)
-comes with the distribution slice of the port and raises here.
+(``executors/staging.py``) runs the program and the optimizer.
+
+**The sharded step** (``mesh``, ``param_specs``, ``batch_spec``). The JAX
+step is one ``jax.jit`` over ``NamedSharding``s, and GSPMD places every
+collective. The port is SPMD over processes with no partitioner: each rank
+runs its own program on its blocks (``parallel.shard_pytree``), and the
+program holds the collectives, placed per axis as follows.
+
+- The batch is split by ``batch_spec`` (default ``data_spec``: dim 0 over
+  ``(dp, fsdp)``); these are the data axes. Each rank's loss is its
+  block's mean, scaled by 1/N over the N data ranks, so that the grads
+  summed over them are the global mean's; the loss returned is that sum.
+- **dp** (a data axis over which a param is replicated): the param passes
+  through ``synchronize(..., "replicated")``, whose VJP all-reduces (sums)
+  its grad over the axis.
+- **fsdp** (a data axis over which a param is split, on whichever dim its
+  spec names): ``synchronize(..., "fsdp", dim=d)`` all-gathers it before
+  use, and its VJP reduce-scatters the grad back to the block. A param
+  split over an axis that holds the same data (fsdp left out of
+  ``batch_spec``) is gathered with ``all_gather(replicated_grad=True)``,
+  whose VJP keeps this rank's block of the grad, with no collective.
+- **tp**, Megatron's conjugate pair, with every replicated value's
+  cotangent the same on each tp rank. A tp block opens with
+  ``synchronize(x, "tp", ..., "replicated")`` (identity forward, all-reduce
+  backward) and closes with ``all_reduce(replicated_grad=True)`` (all-reduce
+  forward, identity backward).
+
+  - The MLP is real tensor parallelism: ``fc_1``/``fc_2`` (or ``fc``) on
+    this rank's block of the hidden units, the activation on the block,
+    ``proj_w`` row-parallel on the matching block of its columns, the
+    partial sums all-reduced over tp. No tp rank holds a whole MLP weight.
+  - Attention: the fused qkv is laid out q heads, then k, then v, so a
+    contiguous block of its rows holds no whole heads. The qkv block's
+    output is all-gathered over tp (``all_gather(replicated_grad=True)``)
+    before the head split, and every tp rank runs attention on all heads.
+    ``attn.proj_w`` stays row-parallel on this rank's columns of the
+    attention output (``axis_slice``, whose VJP all-gathers).
+  - ``wte`` is all-gathered over tp before the lookup, and the head's
+    vocab blocks of the logits before the CE kernel, so that it sees whole
+    rows. Head-parallel attention and a vocab-parallel CE are later work;
+    neither changes a result.
+  - A param that tp replicates (a norm weight, ``proj_b``) has the same
+    grad on every tp rank and is synced over the data axes only.
+
+The flash forward-with-residuals / backward pair, the CE kernel and rope
+stay claimed inside the sharded step, each between the collectives and
+never split by one. The comm scheduler (``transforms/comm_schedule.py``)
+runs over the claimed program, as ``thunder_tpu/parallel/train.py``'s
+``_compile_loss_and_grads`` asks it to; there it is a no-op under GSPMD,
+here it hoists the fsdp gathers. On the card the per-rank step (program,
+collectives and optimizer) is staged as one CUDA graph, each group warmed
+before the capture (``distributed/runtime.resolve_axes``). Each rank keeps
+only its blocks of the params and of the AdamW moments (ZeRO for the
+optimizer, as the JAX step gets from its specs). At one rank no collective
+is placed and the step is the one-device program, bit for bit. The axes
+``pp``, ``ep`` and ``sp`` (pipeline, experts, sequence) come with the next
+slice of the port and raise above size 1.
 """
 
 from __future__ import annotations
@@ -25,9 +80,6 @@ from typing import Any, Optional
 import torch
 
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
-
-_NO_MESH = "the sharded training step (mesh, param_specs, batch_spec) is not ported yet: ROADMAP.md, slice 5"
-
 
 # =============================================================================
 # AdamW
@@ -122,10 +174,23 @@ def sgd_update(flat_p: list, grads: list, lr: float, weight_decay: float, in_pla
 # =============================================================================
 
 
-def _compile_loss_and_grads(config, params, idx: torch.Tensor, targets: torch.Tensor, executors=None):
+def opt_state_specs(param_specs, optimizer: str = "adamw") -> dict:
+    """The spec tree of the optimizer state of :func:`adamw_init`: the
+    moments take the params' specs (each rank holds their blocks), the step
+    counter is replicated."""
+    from thunder_tpu_torch.distributed.runtime import P
+
+    if optimizer == "sgd":
+        return {"step": P()}
+    return {"step": P(), "m": param_specs, "v": param_specs}
+
+
+def _compile_loss_and_grads(config, params, idx: torch.Tensor, targets: torch.Tensor, executors=None, plan=None):
     """Trace ``loss_fn`` into one claimed joint program: ``(callable,
     extrace)``; the callable takes the params' leaves, idx and targets, and
-    returns ``(loss, grads)`` with a grad for every param leaf."""
+    returns ``(loss, grads)`` with a grad for every param leaf. ``plan``
+    (a :class:`_ShardPlan`) traces this rank's program on its blocks, with
+    the collectives; the comm scheduler runs over the claimed program."""
     from thunder_tpu_torch import api
     from thunder_tpu_torch.core import devices
     from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
@@ -136,12 +201,177 @@ def _compile_loss_and_grads(config, params, idx: torch.Tensor, targets: torch.Te
     from thunder_tpu_torch.transforms.common import dce
 
     ex_list = resolve_executors(executors)
+    fn = (lambda p, i, t: loss_fn(p, i, t, config)) if plan is None else plan.loss_fn(config)
     with devices.default_device(idx.device):
-        _, comp = api.trace_program(lambda p, i, t: loss_fn(p, i, t, config), (params, idx, targets), {})
+        _, comp = api.trace_program(fn, (params, idx, targets), {})
         joint = grad_transform(dce(comp), return_value=True)
         joint = save_sdpa_residuals_joint(joint, ex_list)
-        extrace = del_last_used(transform_for_execution(joint, ex_list))
+        extrace = del_last_used(transform_for_execution(joint, ex_list, comm_schedule=True))
     return extrace.python_callable(), extrace
+
+
+# =============================================================================
+# The sharded program
+# =============================================================================
+
+class _TensorParallel:
+    """The tp collectives and blocks ``models/gpt.py`` uses. The model
+    decides which weights it reads as tp blocks (:meth:`block`); a
+    weight's spec decides whether its region runs on blocks
+    (:meth:`split_on`)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def split_on(self, p, key: str, dim: int) -> bool:
+        """Whether ``p[key]``'s spec splits dim ``dim`` over tp alone."""
+        return key in p and p.spec(key).dim_axes(dim) == ("tp",)
+
+    def block(self, p, key: str, dim: int):
+        """This rank's tp block of ``p[key]`` along ``dim`` (None where
+        ``p`` has no ``key``)."""
+        return p.block(key, dim) if key in p else None
+
+    def enter(self, x):
+        from thunder_tpu_torch.distributed import prims as dist
+
+        return dist.synchronize(x, "tp", self.n, "replicated", grad_scale=1.0)
+
+    def exit(self, y):
+        from thunder_tpu_torch.distributed import prims as dist
+
+        return dist.all_reduce(y, "tp", self.n, replicated_grad=True)
+
+    def gather(self, x, dim: int):
+        from thunder_tpu_torch.distributed import prims as dist
+
+        return dist.all_gather(x, "tp", self.n, dim=dim, replicated_grad=True)
+
+    def split(self, x, dim: int):
+        from thunder_tpu_torch.distributed import prims as dist
+
+        return dist.axis_slice(x, "tp", self.n, dim=dim)
+
+
+class _Synced(dict):
+    """A params dict of this rank's blocks, read by the traced program: a
+    weight is synced (``_ShardPlan.sync``) where the program first reads
+    it, so each gather sits beside its use. ``p[k]`` is the whole weight,
+    ``p.block(k, dim)`` this rank's tp block of it."""
+
+    def __init__(self, tree: dict, specs: dict, plan: "_ShardPlan"):
+        super().__init__(tree)
+        self._specs, self._plan, self._done = specs, plan, {}
+
+    def __getitem__(self, k):
+        v, s = dict.__getitem__(self, k), self._specs[k]
+        if isinstance(v, dict):
+            return _Synced(v, s, self._plan)
+        if isinstance(v, list):
+            return [_Synced(b, sb, self._plan) for b, sb in zip(v, s)]
+        return self._synced(k, None)
+
+    def get(self, k, default=None):
+        return self[k] if k in self else default
+
+    def spec(self, k):
+        return self._specs[k]
+
+    def block(self, k, dim: int):
+        return self._synced(k, dim)
+
+    def _synced(self, k, tp_dim: Optional[int]):
+        if (k, tp_dim) not in self._done:
+            self._done[k, tp_dim] = self._plan.sync(dict.__getitem__(self, k), self._specs[k], tp_dim)
+        return self._done[k, tp_dim]
+
+
+class _ShardPlan:
+    """What one rank of the sharded step computes: the axis sizes, the data
+    axes, and each param's spec."""
+
+    def __init__(self, mesh, param_specs, batch_spec):
+        from thunder_tpu_torch.parallel.mesh import axis_sizes
+
+        self.sizes = axis_sizes(mesh)
+        for ax in ("pp", "ep", "sp"):
+            if self.sizes.get(ax, 1) > 1:
+                raise NotImplementedError(f"the sharded step over the {ax!r} axis (size {self.sizes[ax]}) comes "
+                                          "with ROADMAP item 11b (pipeline, experts, sequence parallelism)")
+        self.tp = self.sizes.get("tp", 1)
+        self.specs, self.batch_spec = param_specs, batch_spec
+        self.data_axes = tuple(ax for ax in batch_spec.dim_axes(0) if self.sizes.get(ax, 1) > 1)
+        if any(ax == "tp" for ax in self.data_axes):
+            raise ValueError("the batch cannot be split over tp: its ranks compute on the same rows")
+        if len(batch_spec) > 1 and any(batch_spec.dim_axes(d) for d in range(1, len(batch_spec))):
+            raise NotImplementedError("a batch split along the sequence comes with ROADMAP item 11b")
+        self.n_data = 1
+        for ax in self.data_axes:
+            self.n_data *= self.sizes[ax]
+
+    @property
+    def axes(self) -> tuple:
+        """The axes the program's collectives name."""
+        return tuple(ax for ax, n in self.sizes.items() if n > 1)
+
+    def sync(self, x, spec, tp_dim: Optional[int]):
+        """The value the program computes with for a param block ``x``: the
+        whole param, or with ``tp_dim`` this rank's tp block of it along
+        that dim. A dim split over tp alone is gathered last, so that the
+        other axes' gathers (and their reduce-scatters) move the block."""
+        from thunder_tpu_torch.distributed import prims as dist
+
+        named = set(spec.axes)
+        for ax in self.data_axes:
+            if ax not in named:
+                x = dist.synchronize(x, ax, self.sizes[ax], "replicated", grad_scale=1.0)
+        keep = tp_dim is not None and spec.dim_axes(tp_dim) == ("tp",)
+        for d, axes in sorted(spec.sharded, key=lambda da: da[1] == ("tp",)):
+            if keep and d == tp_dim:
+                continue
+            for ax in reversed(axes):
+                n = self.sizes.get(ax, 1)
+                if n == 1:
+                    continue
+                if ax in self.data_axes:
+                    x = dist.synchronize(x, ax, n, "fsdp", grad_scale=1.0, dim=d)
+                else:
+                    x = dist.all_gather(x, ax, n, dim=d, replicated_grad=True)
+        if tp_dim is not None and not keep:
+            x = dist.axis_slice(x, "tp", self.tp, dim=tp_dim)
+        return x
+
+    def loss_fn(self, config):
+        from thunder_tpu_torch.models.gpt import loss_fn
+
+        tp = _TensorParallel(self.tp) if self.tp > 1 else None
+
+        def sharded_loss(params, idx, targets):
+            loss = loss_fn(_Synced(params, self.specs, self), idx, targets, config, tp)
+            return loss * (1.0 / self.n_data) if self.n_data > 1 else loss
+
+        return sharded_loss
+
+    def check(self, config, params) -> None:
+        """Each leaf is this rank's block by its spec (not the whole
+        value)."""
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.models.gpt import _map_spec, _param_shapes
+        from thunder_tpu_torch.parallel.sharding import align_specs
+
+        full = align_specs(_map_spec(_param_shapes(config), lambda shape, init: tuple(shape)), params)
+        shapes = tree_flatten(full, is_leaf=lambda x: isinstance(x, tuple))[0]
+        got = [tuple(x.shape) for x in tree_flatten(params)[0]]
+        specs = tree_flatten(self.specs, is_leaf=lambda x: isinstance(x, P))[0]
+        for whole, have, s in zip(shapes, got, specs):
+            want = list(whole)
+            for d, axes in s.sharded:
+                for ax in axes:
+                    want[d] //= self.sizes.get(ax, 1)
+            if tuple(want) != have:
+                raise ValueError(f"a param of shape {have} is not this rank's block {tuple(want)} of {whole} by "
+                                 f"{s!r}: pass parallel.shard_pytree(params, mesh, specs)")
 
 
 def build_train_step(
@@ -177,17 +407,52 @@ def build_train_step(
     ``grads_in_f32`` casts each grad to f32 before the update. ``donate``
     updates params and optimizer state in place (the returned ones are the
     same tensors); without it the inputs are left as they were. ``executors``
-    lists executor names in priority order (default: flash, fused, torch)."""
-    if mesh is not None or param_specs is not None or batch_spec is not None:
-        raise NotImplementedError(_NO_MESH)
+    lists executor names in priority order (default: flash, fused, torch).
+
+    With ``mesh`` (``parallel.make_mesh``) the step is the sharded one (the
+    module docstring): ``params`` are this rank's blocks by ``param_specs``
+    (``parallel.shard_pytree``; default: all replicated, data parallelism),
+    and so are the params and AdamW moments the step takes and returns;
+    ``idx`` and ``targets`` are the global batch, the same on every rank,
+    split by ``batch_spec`` (default ``parallel.data_spec(mesh)``); the
+    loss is the global batch's. Every rank of the mesh calls the step."""
     if optimizer not in ("adamw", "sgd"):
         raise ValueError(f"optimizer must be 'adamw' or 'sgd', got {optimizer!r}")
-    loss_and_grads, extrace = _compile_loss_and_grads(config, params, idx, targets, executors)
+    if mesh is None and (param_specs is not None or batch_spec is not None):
+        raise ValueError("param_specs and batch_spec need a mesh")
+    plan = groups = None
+    local_idx, local_tgt = idx, targets
+    if mesh is not None:
+        from thunder_tpu_torch.distributed import runtime
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.parallel.sharding import align_specs, data_spec
+
+        if param_specs is None:
+            param_specs = tree_map(lambda _: P(), params)
+        plan = _ShardPlan(mesh, align_specs(param_specs, params), batch_spec if batch_spec is not None
+                          else data_spec(mesh))
+        plan.check(config, params)
+        groups = runtime.resolve_axes(mesh, plan.axes) if plan.axes else {}
+        local_idx, local_tgt = (runtime.split(x, plan.batch_spec, groups) for x in (idx, targets))
+    loss_and_grads, extrace = _compile_loss_and_grads(config, params, local_idx, local_tgt, executors, plan)
+
+    def run_program(flat_p, idx, targets):
+        if plan is None:
+            return loss_and_grads(*flat_p, idx, targets)
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed import runtime
+
+        with runtime.bound_axes(groups):
+            idx, targets = (runtime.split(x, plan.batch_spec, groups) for x in (idx, targets))
+            loss, grads = loss_and_grads(*flat_p, idx, targets)
+            for ax in plan.data_axes:
+                loss = dist._reduce(loss, groups[ax], plan.sizes[ax], "sum")
+        return loss, grads
 
     @torch.no_grad()
     def eager_step(params, opt_state, idx, targets):
         flat_p, p_spec = tree_flatten(params)
-        loss, grads = loss_and_grads(*flat_p, idx, targets)
+        loss, grads = run_program(flat_p, idx, targets)
         grads = [g.float() for g in grads] if grads_in_f32 else list(grads)
         if optimizer == "sgd":
             new_p = sgd_update(flat_p, grads, lr, weight_decay, in_place=donate)
@@ -198,7 +463,8 @@ def build_train_step(
 
     from thunder_tpu_torch.executors import staging
 
-    step, stats = staging.stage(eager_step, [extrace], idx.device, name="train step")
+    step, stats = staging.stage(eager_step, [extrace], idx.device,
+                                name="train step" if plan is None else "sharded train step")
     step.loss_and_grads, step.eager, step.staging = loss_and_grads, eager_step, stats
     opt_state = adamw_init(params) if optimizer == "adamw" else {"step": 0}
     return (step, opt_state, extrace) if return_extrace else (step, opt_state)
