@@ -216,7 +216,31 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    folded, the class fractions summing to each step's wall, the exposed
    collective share beside attribution's, ``critpath_report()`` and the
    replay of its event log with no unknown kind;
-17. after phase 23, prints one JSON line describing every kernel, then the
+24. context, pipeline and expert parallelism (``parallel/``), a process
+   group of one NCCL rank of its own, torn down after: (a) open_llama_3b at
+   full depth, bf16, B=4 x T=2048 in 4 microbatches of one row, on
+   ``make_mesh(pp=1)`` with the default executors: GPipe and 1F1B through
+   ``parallel.gpt_pp.gpt_pp_loss_and_grads``, 3 calls each (eager, capture,
+   replay: the whole step one CUDA graph), each call's loss and every grad
+   against the unpipelined joint program's on the same batch and weights
+   (phase 4's limits), the launches of rows 1-7 against the claimed stage
+   programs' sites times their calls (the one stage is the last, which runs
+   no stage forward: row 1 does not launch), the peak of calls 2-3 (1F1B's under
+   GPipe's), device ms beside the unpipelined program's, ``StagingStats``,
+   and a planted fault (microbatch 2's targets rolled by one) that must
+   fail; (b) ``parallel.moe.moe_mlp`` at ep=1 and mixtral-8x7b's widths (E=8,
+   d=4096, h=14336, 4096 tokens, top-2, f32) against the dense oracle,
+   values and router/w1/w2 grads within ``moe_ep``'s tolerances, a control
+   with the router softmax and the einsums in bf16 that must fail them; at capacity
+   1280 the kept assignments and the fully dropped tokens' zero rows against
+   a host replication of the slot accounting, the port's topk on the card
+   against the CPU's; a planted fault (the router weights left out of the
+   combine); (c) ring and Ulysses attention at sp=1 on (1, 32, 2048, 100)
+   bf16 against the flash kernel and its backward (phase 3's limits), a
+   planted fault (the ring's 1/l left out), every output on the card; (d)
+   ``build_train_step`` on ``make_mesh(pp=1, ep=1, sp=1)`` against the
+   unmeshed step at 2 layers, bit for bit;
+17. after phase 24, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -4996,6 +5020,395 @@ def run_mesh_cli() -> None:
     require(math.isfinite(out["loss_first"]) and out["tokens_per_sec"] > 0, f"rank 0's line: {out}")
 
 
+# =============================================================================
+# Phase 24: context, pipeline and expert parallelism (parallel/)
+# =============================================================================
+
+# The claimed names of rows 1-7 in a stage program (row 1 is the forward
+# without residuals, which 1F1B's stage forward claims on every stage but
+# the last: at pp=1 it does not launch).
+PP_CLAIM_ROWS = {**CLAIM_ROWS, "flash_scaled_dot_product_attention(": "flash_fwd"}
+PP_ROWS = ("flash_fwd", "flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd")
+PP_MICRO = 4
+
+
+def _pp_expected(step) -> dict:
+    """The launches of rows 1-7 a pipelined step makes: each claimed
+    program's sites times its calls a step (1F1B: the stage forward, which
+    the last stage has not, and the recompute-and-VJP once a microbatch;
+    GPipe: the joint program once)."""
+    st = step.schedule.stats if step.schedule is not None else None
+    calls = [1] if st is None else [st["fwd_calls"]] * (len(step.traces) - 1) + [st["bwd_calls"]]
+    out: dict = {}
+    for tr, n in zip(step.traces, calls):
+        src = tr.python()
+        for op, row in PP_CLAIM_ROWS.items():
+            if row in PP_ROWS and src.count(op):
+                out[row] = out.get(row, 0) + n * src.count(op)
+    return out
+
+
+def _leaf_names(tree, path: str = "") -> list:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{path}/{i}")]
+    return [path]
+
+
+def _against_reference(loss, grads, ref_loss: float, ref_grads: list) -> tuple:
+    """(loss relative gap, worst norm-relative grad gap, its leaf) of a
+    pipelined step's against the unpipelined program's (the same leaf
+    order)."""
+    from thunder_tpu_torch.core.pytree import tree_flatten
+
+    worst, where = 0.0, ""
+    for g, w, nm in zip(tree_flatten(grads)[0], ref_grads, _leaf_names(grads)):
+        w = w.to(g.device, torch.float32)
+        rel = ((g.float() - w).norm() / w.norm().clamp_min(1e-30)).item()
+        if not math.isfinite(rel) or rel > worst:
+            worst, where = rel if math.isfinite(rel) else float("inf"), nm
+    return abs(float(loss) - ref_loss) / abs(ref_loss), worst, where
+
+
+def run_pipelined(launches: dict) -> None:
+    """Phase 24 (a). open_llama_3b's pipelined step at full depth on a mesh
+    with pp=1: GPipe and 1F1B through ``gpt_pp_loss_and_grads``
+    (n_micro=4, mb=1, the default executors) against the unpipelined
+    program on the same B=4 batch and weights; launches against the
+    claimed stage programs; peaks, device ms, a planted fault."""
+    from thunder_tpu_torch.benchmarks.profile_gpt import profile_call
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step, make_mesh
+    from thunder_tpu_torch.parallel import gpt_pp
+
+    cfg = gpt.name_to_config(CFG_NAME)
+    mesh = make_mesh(pp=1)
+    gen = np.random.RandomState(SEED + 24)
+    idx_np = gen.randint(0, cfg.vocab_size, (PP_MICRO, SEQ))
+    ids = torch.from_numpy(idx_np).cuda()
+    tgt = torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    flat_p = tree_flatten(params)[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+
+    # The unpipelined program: one joint fw+bw over B=4, its grads kept on the host.
+    ref, _ = build_train_step(cfg, params, ids, tgt, donate=False, optimizer="sgd")
+    torch.cuda.reset_peak_memory_stats()
+    ref_loss, ref_grads = ref.loss_and_grads(*flat_p, ids, tgt)
+    torch.cuda.synchronize()
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_loss = float(ref_loss)
+    ref_grads = [g.to("cpu") for g in ref_grads]
+    prof_ref = profile_call("open_llama_3b_unpipelined_B4", lambda: ref.loss_and_grads(*flat_p, ids, tgt), batch=PP_MICRO,
+                            seq=SEQ, config=CFG_NAME, staged=False)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) unpipelined B={PP_MICRO} on {smi}: loss {ref_loss:.6f}, device {prof_ref['device_ms']:.2f} ms, "
+        f"max_memory_allocated {ref_peak / 2**30:.2f} GiB")
+
+    peaks = {}
+    for sched in ("gpipe", "1f1b"):
+        t = time.perf_counter()
+        results, counts = [], []
+        for call in range(3):  # eager, capture, replay
+            if call == 1:
+                torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            loss, grads = gpt_pp.gpt_pp_loss_and_grads(cfg, params, ids, tgt, mesh, n_micro=PP_MICRO,
+                                                       schedule=sched, executors=None)
+            torch.cuda.synchronize()
+            counts.append({k: v for k, v in _launch_counts().items() if k in PP_ROWS and v})
+            results.append(_against_reference(loss, grads, ref_loss, ref_grads))
+            if call == 0:
+                first_s = time.perf_counter() - t
+            del grads
+        peaks[sched] = torch.cuda.max_memory_allocated()
+        step = gpt_pp.gpt_pp_loss_and_grads.last_step
+        expected = _pp_expected(step)
+        st = step.staging
+        log(f"  (a) {sched}: loss gap {results[-1][0]:.3e} (limit {LOSS_REL:.0e}), worst grad {results[-1][1]:.3e} on "
+            f"{results[-1][2]} (limit {GRAD_REL:.3e}); calls 1-3 gaps {[f'{r[0]:.2e}/{r[1]:.2e}' for r in results]}; "
+            f"first call {first_s:.1f} s; launches a step {counts[-1]} (claimed sites x calls {expected}); "
+            f"{'stash ' + str(step.schedule.stats) + '; ' if step.schedule is not None else ''}staging: staged "
+            f"{st.staged}, captures {st.captures}, replays {st.replays}, first call {st.first_call_s:.2f} s, capture "
+            f"{st.capture_s:.2f} s, bytes copied a call {st.copied_bytes_per_call}")
+        for loss_gap, worst, where in results:
+            require(loss_gap <= LOSS_REL and worst <= GRAD_REL,
+                    f"{sched}: the pipelined step differs from the unpipelined one: loss {loss_gap:.3e}, {where} "
+                    f"{worst:.3e}")
+        require(all(c == expected for c in counts), f"{sched}: launches {counts}, claimed {expected}")
+        require(st.staged and st.captures == 1 and st.replays >= 1, f"{sched}: not staged and replayed: {st}")
+        for c in counts:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        if sched == "1f1b":
+            require(step.schedule.stats["stash_peak"] <= 1, f"1f1b stash {step.schedule.stats}")
+            # The planted fault: microbatch 2's targets rolled by one in the
+            # stream the last stage reads.
+            bad = tgt.clone()
+            bad[2] = torch.roll(tgt[2], 1)
+            loss, grads = gpt_pp.gpt_pp_loss_and_grads(cfg, params, ids, bad, mesh, n_micro=PP_MICRO, schedule=sched,
+                                                       executors=None)
+            gap, worst, where = _against_reference(loss, grads, ref_loss, ref_grads)
+            del grads
+            log(f"  (a) planted fault (microbatch 2's targets rolled): loss gap {gap:.3e}, worst grad {worst:.3e} "
+                f"on {where}")
+            require(gap > LOSS_REL or worst > GRAD_REL, "the rolled targets were not seen")
+
+        def one():
+            gpt_pp.gpt_pp_loss_and_grads(cfg, params, ids, tgt, mesh, n_micro=PP_MICRO, schedule=sched,
+                                         executors=None)
+
+        prof = profile_call(f"open_llama_3b_pipelined_{sched}", one, batch=PP_MICRO, seq=SEQ, config=CFG_NAME,
+                            staged=True)
+        log(f"  (a) {sched} on {smi}: device {prof['device_ms']:.2f} ms a step (unpipelined B={PP_MICRO} "
+            f"{prof_ref['device_ms']:.2f}); enqueue {_median(prof['enqueue_ms']):.2f} ms; wall "
+            f"{min(prof['wall_ms']):.2f} ms; max_memory_allocated calls 2-3 {peaks[sched] / 2**30:.2f} GiB")
+        del step
+        gpt_pp.gpt_pp_loss_and_grads.last_step = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    require(peaks["1f1b"] < peaks["gpipe"], f"1F1B's peak {peaks['1f1b']} is not under GPipe's {peaks['gpipe']}")
+
+
+# Phase 24 (b): mixtral-8x7b's expert MLP, f32 (the JAX function's type).
+MOE_E, MOE_D, MOE_H, MOE_N, MOE_TOPK = 8, 4096, 14336, 4096, 2
+
+
+def _allclose_ratio(got, want, rtol: float, atol: float) -> float:
+    """max |got − want| / (atol·max|want| + rtol·|want|): at most 1 is
+    allclose with the absolute part taken relative to the tensor's largest
+    |value|."""
+    want = want.float()
+    return ((got.float() - want).abs() / (atol * want.abs().max() + rtol * want.abs())).max().item()
+
+
+def run_moe(mesh) -> None:
+    """Phase 24 (b). ``moe_mlp`` at ep=1 and mixtral-8x7b's widths against
+    ``moe_mlp_dense_reference``: values and router/w1/w2 grads with the
+    no-drop capacity; a control with the router softmax and the einsums in
+    bf16, which the limits must fail; the drops at capacity
+    ceil(1.25·top_k·n/E) against a host replication of the slot
+    accounting; a planted fault."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.distributed import runtime
+    from thunder_tpu_torch.parallel import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    # Tokens with a common mean, as hidden states have: each expert's
+    # logits get an offset of their own, so the routing is unbalanced and
+    # the capacity drops.
+    x = torch.randn(MOE_N, MOE_D, generator=gen, device="cuda") + 1.0
+    rw = torch.randn(MOE_D, MOE_E, generator=gen, device="cuda") / math.sqrt(MOE_D)
+    w1 = torch.randn(MOE_E, MOE_D, MOE_H, generator=gen, device="cuda") / math.sqrt(MOE_D)
+    w2 = torch.randn(MOE_E, MOE_H, MOE_D, generator=gen, device="cuda") / math.sqrt(MOE_H)
+    args = (x, rw, w1, w2)
+    cap = math.ceil(1.25 * MOE_TOPK * MOE_N / MOE_E)
+    with runtime.bound_axes(runtime.mesh_groups(mesh)):
+        t = time.perf_counter()
+        got = tt.jit(lambda *a: moe.moe_mlp(*a, "ep", top_k=MOE_TOPK))(*args)
+        want = tt.jit(lambda *a: moe.moe_mlp_dense_reference(*a, top_k=MOE_TOPK))(*args)
+        _, g_ep = tt.value_and_grad(lambda *a: ttorch.sum(moe.moe_mlp(*a, "ep", top_k=MOE_TOPK) ** 2))(*args)
+        _, g_dn = tt.value_and_grad(lambda *a: ttorch.sum(moe.moe_mlp_dense_reference(*a, top_k=MOE_TOPK) ** 2))(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        val = _allclose_ratio(got, want, 1e-4, 1e-5)
+        grads = [_allclose_ratio(a, b, 1e-3, 1e-4) for a, b in zip(g_ep[1:], g_dn[1:])]
+        log("  (b) router, w1, w2 grads: largest |value| "
+            f"{[round(b.abs().max().item(), 3) for b in g_dn[1:]]}, largest |gap| "
+            f"{[float(f'{(a - b).abs().max().item():.3e}') for a, b in zip(g_ep[1:], g_dn[1:])]}, norm-relative gap "
+            f"{[float(f'{((a - b).norm() / b.norm()).item():.3e}') for a, b in zip(g_ep[1:], g_dn[1:])]}")
+        on_card = all(t.device.type == "cuda" for t in (got, want, *g_ep, *g_dn))
+        del g_ep
+        log(f"  (b) moe_mlp (E={MOE_E}, d={MOE_D}, h={MOE_H}, n={MOE_N}, top-{MOE_TOPK}, f32) against the dense "
+            f"oracle: values {val:.3f} of rtol 1e-4/atol 1e-5 (atol of the largest |value|); router, w1, w2 grads "
+            f"{', '.join(f'{r:.3f}' for r in grads)} of 1e-3/1e-4; on the card {on_card}; {secs:.1f} s")
+        require(val <= 1.0 and all(r <= 1.0 for r in grads) and on_card, "moe_mlp differs from the dense oracle")
+
+        # The control: moe_mlp with the router softmax and every einsum in
+        # bf16. The limits must see it in the values and in each grad.
+        class _Bf16Einsums:
+            def __getattr__(self, name):
+                return getattr(ttorch, name)
+
+            @staticmethod
+            def einsum(eq, *ops):
+                return ttorch.einsum(eq, *[o.to(torch.bfloat16) for o in ops]).float()
+
+            @staticmethod
+            def softmax(a, dim):
+                return ttorch.softmax(a.to(torch.bfloat16), dim).float()
+
+        moe.ttorch = _Bf16Einsums()
+        try:
+            ctl = tt.jit(lambda *a: moe.moe_mlp(*a, "ep", top_k=MOE_TOPK))(*args)
+            _, g_ctl = tt.value_and_grad(lambda *a: ttorch.sum(moe.moe_mlp(*a, "ep", top_k=MOE_TOPK) ** 2))(*args)
+        finally:
+            moe.ttorch = ttorch
+        ctl_val = _allclose_ratio(ctl, want, 1e-4, 1e-5)
+        ctl_grads = [_allclose_ratio(a, b, 1e-3, 1e-4) for a, b in zip(g_ctl[1:], g_dn[1:])]
+        log(f"  (b) control (router softmax and einsums in bf16): values {ctl_val:.3f} of the limit; router, w1, w2 "
+            f"grads {', '.join(f'{r:.3f}' for r in ctl_grads)}; norm-relative grad gap "
+            f"{[float(f'{((a - b).norm() / b.norm()).item():.3e}') for a, b in zip(g_ctl[1:], g_dn[1:])]}")
+        require(ctl_val > 1.0 and all(r > 1.0 for r in ctl_grads), "the limits do not see bf16 einsums")
+        del ctl, g_ctl, g_dn
+
+        # Drops at capacity `cap`, against the slot accounting replicated on
+        # the host over the card's router probabilities.
+        out_c = tt.jit(lambda *a: moe.moe_mlp(*a, "ep", top_k=MOE_TOPK, capacity=cap))(*args)
+        dispatch, _ = tt.jit(lambda x, rw: moe.dispatch_plan(x, rw, MOE_E, MOE_TOPK, cap))(x, rw)
+        probs = tt.jit(lambda x, rw: ttorch.softmax(ttorch.matmul(x, rw), -1))(x, rw)
+
+        def topk_ids(t, k, **kw):
+            return tt.jit(lambda p: ttorch.topk(p, k, -1)[1], **kw)(t)
+
+        top_i, cpu_i = topk_ids(probs, MOE_TOPK), topk_ids(probs.cpu(), MOE_TOPK, device="cpu")
+        p = probs.cpu().numpy()
+        order = np.argsort(-p, axis=-1, kind="stable")[:, :MOE_TOPK]
+        used, kept, dropped_rows = np.zeros(MOE_E, int), 0, 0
+        for row in order:
+            k_row = 0
+            for e in row:
+                if used[e] < cap:
+                    kept += 1
+                    k_row += 1
+                used[e] += 1
+            dropped_rows += k_row == 0
+        port_kept = int(dispatch.sum().item())
+        zero_rows = int((out_c.abs().amax(1) == 0).sum().item())
+        ties = torch.tensor([[0.25, 0.5, 0.25, 0.5, 0.0, 0.5, 0.0, 0.0]], device="cuda")
+        tie_card, tie_cpu = topk_ids(ties, 3).tolist(), topk_ids(ties.cpu(), 3, device="cpu").tolist()
+        log(f"  (b) capacity {cap}: kept {port_kept} of {MOE_N * MOE_TOPK} assignments (host replication {kept}), "
+            f"dropped {MOE_N * MOE_TOPK - port_kept}; fully dropped tokens {zero_rows} exact zero rows (host "
+            f"{dropped_rows}); topk on the card equals the CPU's on the router probabilities "
+            f"{torch.equal(top_i.cpu(), cpu_i)} and the host's stable order {bool((order == cpu_i.numpy()).all())}; "
+            f"on ties (0.5 at 1, 3, 5) the card picks {tie_card}, the CPU {tie_cpu}")
+        require(port_kept == kept and zero_rows == dropped_rows and MOE_N * MOE_TOPK > kept,
+                "the capacity's drops differ from the host's slot accounting")
+        require(torch.equal(top_i.cpu(), cpu_i), "topk on the card differs from the CPU's")
+        require(tie_card == tie_cpu == [[1, 3, 5]], "topk does not break ties lower index first (lax.top_k's order)")
+        del out_c, dispatch, probs
+
+        # The planted fault: the router weights left out of the combine.
+        plan = moe.dispatch_plan
+        moe.dispatch_plan = lambda *a: (plan(*a)[0],) * 2
+        try:
+            bad = tt.jit(lambda *a: moe.moe_mlp(*a, "ep", top_k=MOE_TOPK))(*args)
+        finally:
+            moe.dispatch_plan = plan
+        ratio = _allclose_ratio(bad, want, 1e-4, 1e-5)
+        log(f"  (b) planted fault (no router weights in the combine): {ratio:.3e} of the limit")
+        require(ratio > 1.0, "the combine without router weights was not seen")
+    del args, x, w1, w2, got, want, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _exact_attention_grads(q, k, v, dout, scale: float) -> list:
+    """Causal attention's grads in f32 by torch.autograd of the plain
+    product (the scores materialized), from the bf16 inputs."""
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    S = s.shape[-1]
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=s.device).tril(), float("-inf"))
+    (torch.softmax(s, -1) @ vf).mul(dout.float()).sum().backward()
+    return [t.grad for t in (qf, kf, vf)]
+
+
+def run_context(mesh) -> None:
+    """Phase 24 (c). Ring and Ulysses attention at sp=1 on open_llama_3b's
+    attention shape against the flash kernel (row 1) and its backward (row
+    7) within phase 3's limits; a planted fault; every output on the card."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+    from thunder_tpu_torch.distributed import runtime
+    from thunder_tpu_torch.executors import flashex
+    from thunder_tpu_torch.parallel import context
+
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config(CFG_NAME)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    shape = (1, cfg.n_head, SEQ, cfg.head_size)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(cfg.head_size)
+    want = flashex.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    out, lse = flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale)
+    want_g = flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale)
+    eps = 2.0 ** -7
+    with runtime.bound_axes(runtime.mesh_groups(mesh)):
+        for name, fn in (("ring", context.ring_attention), ("ulysses", context.ulysses_attention)):
+            got = tt.jit(lambda q, k, v: fn(q, k, v, "sp"))(q, k, v)
+            _, grads = tt.value_and_grad(lambda q, k, v, d: ttorch.sum(fn(q, k, v, "sp").float() * d.float()))(
+                q, k, v, dout)
+            rel = row_rel_err(got, want)
+            # Against the flash backward: dk and dv row by row; dq over the
+            # tensor (norm-relative), since the flash backward's rows whose
+            # exact dq nearly cancels hold its bf16 rounding of O in
+            # rowsum(dO·O) (its plain version shares it, so phase 3 cannot
+            # see it). Every grad is held row by row against exact f32.
+            g_rel = [((grads[0].float() - want_g[0].float()).norm() / want_g[0].float().norm()).item()]
+            g_rel += [row_rel_err(g, w, floor=eps * eps) for g, w in zip(grads[1:3], want_g[1:])]
+            exact = _exact_attention_grads(q, k, v, dout, scale)
+            x_rel = [row_rel_err(g, w, floor=eps * eps) for g, w in zip(grads[:3], exact)]
+            f_rel = [row_rel_err(g, w, floor=eps * eps) for g, w in zip(want_g, exact)]
+            del exact
+            on_card = all(t.device.type == "cuda" for t in (got, *grads))
+            log(f"  (c) {name} attention {shape} bf16 causal at sp=1 against the flash kernel: row_rel_err {rel:.3e} "
+                f"(limit {FLASH_ROW_REL:.3e}); grads q (norm-relative), k, v against the flash backward "
+                f"{', '.join(f'{r:.3e}' for r in g_rel)}, against exact f32 {', '.join(f'{r:.3e}' for r in x_rel)} "
+                f"(limit {FLASH_BWD_ROW_REL:.3e}); the flash backward against exact f32 "
+                f"{', '.join(f'{r:.3e}' for r in f_rel)}; on the card {on_card}")
+            require(rel <= FLASH_ROW_REL and max(g_rel + x_rel) <= FLASH_BWD_ROW_REL and on_card,
+                    f"{name} attention differs from the flash kernel")
+            del got, grads
+        normalize = context._normalize
+        context._normalize = lambda o, l, dtype: o.to(dtype)
+        try:
+            bad = tt.jit(lambda q, k, v: context.ring_attention(q, k, v, "sp"))(q, k, v)
+        finally:
+            context._normalize = normalize
+        rel = row_rel_err(bad, want)
+        log(f"  (c) planted fault (the ring's 1/l left out): row_rel_err {rel:.3e}")
+        require(rel > FLASH_ROW_REL, "the ring without its 1/l was not seen")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_axes_at_one(cfg, launches: dict) -> None:
+    """Phase 24 (d). ``build_train_step`` on a mesh naming pp, ep and sp
+    (all 1) against the unmeshed step, phase 23 (a)'s comparison at 2
+    layers: losses and params bit-equal, the launches equal."""
+    from thunder_tpu_torch.parallel import make_mesh
+
+    two = replace(cfg, n_layer=2)
+    gen = np.random.RandomState(SEED)
+    idx_np = gen.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))
+    ids = torch.from_numpy(idx_np).cuda()
+    tgt = torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    ref = _mesh_step_run(two, ids, tgt, "sgd")
+    got = _mesh_step_run(two, ids, tgt, "sgd", mesh=make_mesh(pp=1, ep=1, sp=1))
+    same = all(torch.equal(a, b) for a, b in zip(ref["losses"], got["losses"]))
+    unequal = sum(not torch.equal(a, b) for a, b in zip(ref["final"], got["final"]))
+    log(f"  (d) make_mesh(pp=1, ep=1, sp=1), {two.n_layer} layers, SGD: losses bit-equal {same}, params after step "
+        f"{TRAIN_STEPS} bit-equal {unequal == 0} ({unequal} of {len(got['final'])} differ); launches equal "
+        f"{got['counts'] == ref['counts']}; collectives in the program {got['program'] or 'none'}")
+    require(same and unequal == 0 and got["counts"] == ref["counts"] and not got["program"],
+            "the mesh naming pp, ep and sp differs from the unmeshed step")
+    for c in got["counts"]:
+        for k in MESH_STEP_LAUNCHES:
+            launches[k] = launches.get(k, 0) + c[k]
+
+
 def main() -> int:
     import torch
 
@@ -5151,6 +5564,23 @@ def main() -> int:
         torch.cuda.synchronize()
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 23")
+
+    log(f"[24] context, pipeline and expert parallelism, one NCCL rank: (a) {CFG_NAME}, {cfg.n_layer} layers, "
+        f"pipelined on pp=1, GPipe and 1F1B against the unpipelined step; (b) mixtral-8x7b's expert MLP at ep=1; "
+        "(c) ring and Ulysses attention at sp=1; (d) a mesh naming pp, ep and sp at 1")
+    dist_init()
+    try:
+        from thunder_tpu_torch.parallel import make_mesh
+
+        run_pipelined(launches)
+        run_moe(make_mesh(ep=1))
+        run_context(make_mesh(sp=1))
+        run_axes_at_one(cfg, launches)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 24")
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -8,10 +8,14 @@ torch seed, which the JAX package's module frontend takes as they are):
         one gloo rank of the port (``thunder_tpu_torch.distributed``),
         rendezvous on the FileStore STORE; writes OUT/rank<RANK>.json;
         SCENARIOS (comma-separated) runs those in place of the size's list;
-    python tests/_torch_port_dist_worker.py jax WORLD OUT
+    python tests/_torch_port_dist_worker.py jax WORLD OUT [SCENARIOS]
         the JAX package on WORLD virtual CPU devices (run it with
         ``XLA_FLAGS=--xla_force_host_platform_device_count=WORLD``); writes
         OUT/jax.json.
+
+SCENARIOS may name a group: "@train" (the sharded step over dp, fsdp and
+tp), "@parallel" (context, pipeline and expert parallelism, and the step
+over pp, ep and sp).
 
 A scenario returns the numbers the test compares (lists of floats) and its
 own checks' verdicts; each runs under a time limit of its own, and after a
@@ -128,6 +132,13 @@ def _np_params(cfg_name: str) -> dict:
     structure both packages' ``init_params`` give."""
     from thunder_tpu_torch.models import gpt as m
 
+    return _np_params_of(m.name_to_config(cfg_name))
+
+
+def _np_params_of(config) -> dict:
+    """:func:`_np_params` of a config (either package's ``GPTConfig``)."""
+    from thunder_tpu_torch.models import gpt as m
+
     rng = np.random.RandomState(0)
 
     def make(shape, init):
@@ -137,7 +148,7 @@ def _np_params(cfg_name: str) -> dict:
             return np.zeros(shape, np.float32)
         return (rng.randn(*shape) * init).astype(np.float32)
 
-    return m._map_spec(m._param_shapes(m.name_to_config(cfg_name)), make)
+    return m._map_spec(m._param_shapes(config), make)
 
 
 def mlp_extrace(layers=3, d=64, B=16, fsdp=4, tp=2, grad=True):
@@ -192,6 +203,124 @@ def _flat_tree(tree, path: str = "") -> dict:
     if isinstance(tree, (list, tuple)):
         return {k: v for i, sub in enumerate(tree) for k, v in _flat_tree(sub, f"{path}/{i}").items()}
     return {path: _flat(tree)}
+
+
+# -- the inputs of the context, pipeline and expert scenarios (ROADMAP 11b):
+# tests/_dist_worker.py's, at 4 ranks in place of 8 -------------------------
+
+LC_B, LC_H, LC_S, LC_D, LC_V = 2, 2, 128, 8, 32
+MOE_E, MOE_D, MOE_H, MOE_N, MOE_TOPK, MOE_CAP = 8, 32, 64, 32, 2, 1
+MOE_SEEDS = {False: 0, True: 1}  # moe_ep's seed, moe_capacity's
+PP_CONFIG = dict(name="pp-test", block_size=64, vocab_size=96, padded_vocab_size=96, n_layer=4, n_head=4, n_embd=32,
+                 n_query_groups=2, rotary_percentage=1.0, parallel_residual=False, bias=False, norm_class="RMSNorm",
+                 mlp_class="LLaMAMLP", intermediate_size=88)
+PP_B, T_PP = 8, 32
+# The sharded SGD step over pp, ep and sp: (config, mesh axes, "full" where
+# tp splits the weights too).
+PARALLEL_TRAIN_CASES = {
+    2: {"sp_train": ("llama-tiny", {"sp": 2}, ""),
+        "pp_train": ("gpt-tiny", {"pp": 2}, ""),
+        "ep_train": ("gpt-tiny", {"ep": 2}, "")},
+    4: {"dp_sp_train": ("llama-tiny", {"dp": 2, "sp": 2}, ""),
+        "fsdp_sp_train": ("llama-tiny", {"fsdp": 2, "sp": 2}, ""),
+        "sp_tp_train": ("llama-tiny", {"sp": 2, "tp": 2}, "full")},
+}
+
+
+def _qkv(which: str):
+    """ring_attention's (B, H, S, D) = (2, 4, 64, 16) from seed 0, or
+    ulysses_attention's (2, 8, 64, 16) from seed 1."""
+    H, seed = (4, 0) if which == "ring" else (8, 1)
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(2, H, 64, 16) * 0.5).astype(np.float32) for _ in range(3)]
+
+
+def _plain_attention(q, k, v):
+    """Causal softmax attention in f32 (the scenarios' ``_full_attention``)."""
+    import torch
+
+    S = q.shape[-2]
+    s = (q @ k.transpose(-1, -2)) / np.sqrt(q.shape[-1])
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+def _long_context_inputs():
+    rng = np.random.RandomState(2)
+    wq = (rng.randn(LC_H * LC_D, LC_H * LC_D) * 0.1).astype(np.float32)
+    wo = (rng.randn(LC_V, LC_H * LC_D) * 0.1).astype(np.float32)
+    x = rng.randn(LC_B, LC_S, LC_H * LC_D).astype(np.float32)
+    return wq, wo, x, rng.randint(0, LC_V, (LC_B, LC_S))
+
+
+def _moe_np(seed: int):
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(MOE_N, MOE_D) * 0.5).astype(np.float32), (rng.randn(MOE_D, MOE_E) * 0.3).astype(np.float32),
+            (rng.randn(MOE_E, MOE_D, MOE_H) * 0.2).astype(np.float32),
+            (rng.randn(MOE_E, MOE_H, MOE_D) * 0.2).astype(np.float32))
+
+
+def _moe_inputs(seed: int):
+    import torch
+
+    return tuple(torch.from_numpy(a) for a in _moe_np(seed))
+
+
+def _moe_capacity_oracle(x, rw, w1, w2, world: int):
+    """moe_capacity's numpy replication of the routing and the slot
+    accounting, a source rank at a time (plain loops, not einsums):
+    (outputs, dropped assignments, all assignments)."""
+    def softmax(z):
+        e = np.exp(z - z.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    def expert(z, e):
+        h = z @ w1[e]
+        h = 0.5 * h * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (h + 0.044715 * h ** 3)))  # gelu, tanh
+        return h @ w2[e]
+
+    n_local = len(x) // world
+    want, kept = np.zeros_like(x), 0
+    for s in range(world):
+        xs = x[s * n_local:(s + 1) * n_local]
+        probs = softmax(xs @ rw)
+        order = np.argsort(-probs, axis=-1, kind="stable")[:, :MOE_TOPK]
+        top_p = np.take_along_axis(probs, order, axis=-1)
+        used = np.zeros(MOE_E, dtype=int)
+        for t in range(n_local):
+            acc = np.zeros(MOE_D, dtype=np.float64)
+            for k in range(MOE_TOPK):
+                e = order[t, k]
+                if used[e] < MOE_CAP:
+                    used[e] += 1
+                    kept += 1
+                    acc += top_p[t, k] * expert(xs[t], e)
+            want[s * n_local + t] = acc
+    return want, len(x) * MOE_TOPK - kept, len(x) * MOE_TOPK
+
+
+def _pipeline_inputs(n_stages: int):
+    """pipeline_pp's W, b, xs and targets: n_micro=4, mb=4, d=16."""
+    rng = np.random.RandomState(0)
+    W = (rng.randn(n_stages, 16, 16) * 0.3).astype(np.float32)
+    b = (rng.randn(n_stages, 16) * 0.1).astype(np.float32)
+    xs = rng.randn(4, 4, 16).astype(np.float32)
+    return W, b, xs, rng.randn(4, 4, 16).astype(np.float32)
+
+
+def _pp_config():
+    from thunder_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(**PP_CONFIG)
+
+
+def _pp_params() -> dict:
+    return _np_params_of(_pp_config())
+
+
+def _pp_tokens(B: int):
+    idx = np.random.RandomState(0).randint(0, PP_CONFIG["vocab_size"], (B, T_PP))
+    return idx, np.roll(idx, -1, axis=1)
 
 
 # =============================================================================
@@ -796,6 +925,376 @@ class TorchRank:
         return {}
 
 
+    # -- context, pipeline and expert parallelism (ROADMAP 11b) -------------
+
+    def _vjp_case(self, perm_kind: str):
+        """grad of sum(w * ppermute(x)) over a ring or an open chain, and of
+        sum(w * all_to_all(x)), against the same done by hand."""
+        import torch
+
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_mesh
+
+        n = self.world
+        mesh = make_mesh(dp=n)
+        rng = np.random.RandomState(3)
+        x = torch.from_numpy(rng.randn(n, n, 3).astype(np.float32))
+        w = torch.from_numpy(rng.randn(n, n, 3).astype(np.float32))
+        u = torch.from_numpy(rng.randn(n * n, 1, 3).astype(np.float32))
+        perm = ([(i, (i + 1) % n) for i in range(n)] if perm_kind == "ring"
+                else [(i, i + 1) for i in range(n - 1)])
+
+        def f(x, w, u):
+            y = dist.ppermute(x, "dp", perm)
+            t = dist.all_to_all(x, "dp", n, split_dim=1, concat_dim=0)
+            return dist.all_reduce(ttorch.sum(w * y) + ttorch.sum(u * t), "dp", n, replicated_grad=True)
+
+        spec = P("dp")
+        jf, extrace = compile_with_collectives(f, (x[:1], w[:1], u[:n]), mesh, (spec,) * 3, (P(), (spec,) * 3),
+                                               grad=True)
+        _, (gx, _, _) = jf(x, w, u)
+        # By hand: rank s's x reaches rank d of (s, d) and meets w there, so
+        # its grad is w's block of d (zeros where s sends nowhere); the
+        # all_to_all sends x[s][0, r] to rank r's row s, which meets
+        # u[r·n + s].
+        want = torch.zeros_like(x)
+        for s, d in perm:
+            want[s] += w[d]
+        want += u.reshape(n, n, 3).permute(1, 0, 2)
+        assert torch.allclose(gx, want, rtol=1e-6, atol=1e-6), (gx - want).abs().max()
+        names = [b.sym.name for b in extrace.bound_symbols]
+        assert names.count("ppermute") == 2 and names.count("all_to_all") == 2, names
+        return {"max_err": float((gx - want).abs().max())}
+
+    def vjp_ring(self):
+        return self._vjp_case("ring")
+
+    def vjp_chain(self):
+        return self._vjp_case("chain")
+
+    def _attention_case(self, which: str):
+        """ring (seed 0, H=4) or Ulysses (seed 1, H=8) attention over sp, and
+        the grads of sum(out²), against plain attention (rtol 1e-4, atol
+        1e-5; grads 1e-3, 1e-4)."""
+        import torch
+
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import context, make_mesh
+
+        n = self.world
+        mesh = make_mesh(sp=n)
+        fn = context.ring_attention if which == "ring" else context.ulysses_attention
+        q, k, v = (torch.from_numpy(a) for a in _qkv(which))
+        spec = P(None, None, "sp", None)
+        blk = [a[:, :, :a.shape[2] // n] for a in (q, k, v)]
+        jf, _ = compile_with_collectives(lambda q, k, v: fn(q, k, v, "sp"), tuple(blk), mesh, (spec,) * 3, spec)
+        got = jf(q, k, v)
+
+        def loss(q, k, v):
+            return dist.all_reduce(ttorch.sum(fn(q, k, v, "sp").float() ** 2), "sp", n, replicated_grad=True)
+
+        gf, extrace = compile_with_collectives(loss, tuple(blk), mesh, (spec,) * 3, (P(), (spec,) * 3), grad=True)
+        _, grads = gf(q, k, v)
+        qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
+        want = _plain_attention(qr, kr, vr)
+        (want ** 2).sum().backward()
+        torch.testing.assert_close(got, want.detach(), rtol=1e-4, atol=1e-5)
+        for g, r in zip(grads, (qr, kr, vr)):
+            torch.testing.assert_close(g, r.grad, rtol=1e-3, atol=1e-4)
+        coll = sorted({b.sym.name for b in extrace.bound_symbols if b.sym.name in ("ppermute", "all_to_all")})
+        return {"out": _flat(got), "grads": [_flat(g) for g in grads], "collectives": coll}
+
+    def ring_attention(self):
+        return self._attention_case("ring")
+
+    def ulysses_attention(self):
+        return self._attention_case("ulysses")
+
+    def long_context_train(self):
+        """``long_context_train``: a tiny attention LM, the sequence split
+        over sp, ring attention, the loss and the grads of wq and wo against
+        one device (rtol 1e-5; grads 1e-3, 1e-5)."""
+        import torch
+        import torch.nn.functional as F
+
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.parallel.context import ring_attention
+
+        n = self.world
+        mesh = make_mesh(sp=n)
+        wq, wo, x, tgt = (torch.from_numpy(a) for a in _long_context_inputs())
+        B, S = tgt.shape
+        H, D = LC_H, LC_D
+
+        def loss(wq, wo, x, tgt):
+            wq = dist.synchronize(wq, "sp", n, "replicated", grad_scale=1.0)
+            wo = dist.synchronize(wo, "sp", n, "replicated", grad_scale=1.0)
+            q = ttorch.permute(ttorch.reshape(ttorch.matmul(x, ttorch.t(wq)), (B, -1, H, D)), (0, 2, 1, 3))
+            o = ring_attention(q, q, q, "sp", causal=True)
+            h = ttorch.reshape(ttorch.permute(o, (0, 2, 1, 3)), (B, -1, H * D))
+            logp = ttorch.log_softmax(ttorch.matmul(h, ttorch.t(wo)).float(), -1)
+            nll = -ttorch.mean(ttorch.take_along_dim(logp, ttorch.unsqueeze(tgt, -1), -1)) * (1.0 / n)
+            return dist.all_reduce(nll, "sp", n, replicated_grad=True)
+
+        seq = P(None, "sp", None)
+        ex = (wq, wo, x[:, :S // n], tgt[:, :S // n])
+        gf, _ = compile_with_collectives(loss, ex, mesh, (P(), P(), seq, P(None, "sp")),
+                                         (P(), (P(), P(), seq)), grad=True)
+        l1, (gq, go, _) = gf(wq, wo, x, tgt)
+        wqr, wor = wq.clone().requires_grad_(), wo.clone().requires_grad_()
+        q = (x @ wqr.T).reshape(B, S, H, D).permute(0, 2, 1, 3)
+        o = _plain_attention(q, q, q).permute(0, 2, 1, 3).reshape(B, S, H * D)
+        l2 = -torch.gather(F.log_softmax(o @ wor.T, -1), -1, tgt[..., None]).mean()
+        l2.backward()
+        np.testing.assert_allclose(float(l1), float(l2), rtol=1e-5)
+        torch.testing.assert_close(gq, wqr.grad, rtol=1e-3, atol=1e-5)
+        torch.testing.assert_close(go, wor.grad, rtol=1e-3, atol=1e-5)
+        return {"loss": [float(l1)], "grads": [_flat(gq), _flat(go)]}
+
+    def _moe_fns(self, capacity=None):
+        """(forward, grad) of moe_mlp over ep: the forward joined by tokens,
+        the grad of sum(out²) w.r.t. (x, router, w1, w2)."""
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.parallel.moe import moe_mlp
+
+        n = self.world
+        mesh = make_mesh(ep=n)
+        x, rw, w1, w2 = _moe_inputs(MOE_SEEDS[capacity is not None])
+        specs = (P("ep", None), P(), P("ep"), P("ep"))
+        ex = (x[:len(x) // n], rw, w1[:len(w1) // n], w2[:len(w2) // n])
+        fwd, _ = compile_with_collectives(lambda x, rw, w1, w2: moe_mlp(x, rw, w1, w2, "ep", top_k=MOE_TOPK,
+                                                                        capacity=capacity),
+                                          ex, mesh, specs, P("ep", None))
+
+        def loss(x, rw, w1, w2):
+            rw = dist.synchronize(rw, "ep", n, "replicated", grad_scale=1.0)
+            out = moe_mlp(x, rw, w1, w2, "ep", top_k=MOE_TOPK, capacity=capacity)
+            return dist.all_reduce(ttorch.sum(out.float() ** 2), "ep", n, replicated_grad=True)
+
+        grad, extrace = compile_with_collectives(loss, ex, mesh, specs, (P(), specs), grad=True)
+        assert [b.sym.name for b in extrace.bound_symbols].count("all_to_all") == 4
+        return (x, rw, w1, w2), fwd, grad
+
+    def moe_ep(self):
+        """``moe_ep`` at ep=4 (E=8, 2 experts and 8 tokens a rank): the
+        no-drop capacity against the dense oracle (rtol 1e-4, atol 1e-5),
+        the router and expert grads (1e-3, 1e-4); capacity 1 runs finite."""
+        import torch
+
+        import thunder_tpu_torch as tt
+        from thunder_tpu_torch.parallel.moe import moe_mlp_dense_reference
+
+        args, fwd, grad = self._moe_fns()
+        got = fwd(*args)
+        want_fn = tt.value_and_grad(lambda x, rw, w1, w2: (moe_mlp_dense_reference(x, rw, w1, w2, top_k=MOE_TOPK)
+                                                           .float() ** 2).sum(), device="cpu")
+        want = tt.jit(lambda *a: moe_mlp_dense_reference(*a, top_k=MOE_TOPK), device="cpu")(*args)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        _, g_ep = grad(*args)
+        _, g_dn = want_fn(*args)
+        for a, b in zip(g_ep[1:], g_dn[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+        _, tiny, _ = self._moe_fns(capacity=1)
+        dropped = tiny(*args)
+        assert dropped.shape == got.shape and torch.isfinite(dropped).all()
+        return {"out": _flat(got), "grads": [_flat(g) for g in g_ep[1:]], "dropped": _flat(dropped)}
+
+    def moe_capacity(self):
+        """``moe_capacity`` at ep=4 (E=8, C=1): the dropped assignments
+        against a host replication of the slot accounting, the outputs
+        against the drop-aware oracle (rtol 2e-3, atol 2e-4), fully dropped
+        tokens exactly zero; 15 SGD steps under drops converge."""
+        import torch
+
+        args, fwd, grad = self._moe_fns(capacity=MOE_CAP)
+        want, dropped, total = _moe_capacity_oracle(*(a.numpy() for a in args), self.world)
+        assert dropped > 0, "capacity below the lossless bound must drop tokens"
+        got = fwd(*args)
+        np.testing.assert_allclose(got.numpy(), want.astype(np.float32), rtol=2e-3, atol=2e-4)
+        zero_rows = int((got.abs().amax(1) < 1e-7).sum())
+        assert zero_rows == int((np.abs(want).max(axis=1) == 0.0).sum())
+        x, rw, w1, w2 = args
+        losses = []
+        for _ in range(15):
+            loss, (_, g_rw, g_w1, g_w2) = grad(x, rw, w1, w2)
+            rw, w1, w2 = rw - 0.02 * g_rw, w1 - 0.02 * g_w1, w2 - 0.02 * g_w2
+            losses.append(float(loss))
+        assert losses[-1] < 0.4 * losses[0], losses
+        return {"out": _flat(got), "dropped": dropped, "total": total, "zero_rows": zero_rows, "losses": losses}
+
+    def pipeline_pp(self):
+        """``pipeline_pp`` at pp=4: GPipe against applying the stages in
+        sequence (rtol 1e-5, atol 1e-6), its grads (1e-4, 1e-5), and 25
+        pipelined SGD steps that take the loss under 0.6 of the first."""
+        import torch
+
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_mesh, pipeline_apply
+
+        n = self.world
+        mesh = make_mesh(pp=n)
+        W, b, xs, tgt = (torch.from_numpy(a) for a in _pipeline_inputs(n))
+
+        def stage_fn(params, x):
+            w, bb = params
+            return ttorch.tanh(ttorch.matmul(x, w) + bb)
+
+        def piped(Wl, bl, xs):
+            return pipeline_apply(stage_fn, (Wl[0], bl[0]), xs, "pp")
+
+        def loss(Wl, bl, xs, tgt):
+            return ttorch.mean((piped(Wl, bl, xs) - tgt) ** 2)
+
+        specs = (P("pp"), P("pp"), P(), P())
+        ex = (W[:1], b[:1], xs, tgt)
+        fwd, _ = compile_with_collectives(piped, ex[:3], mesh, specs[:3], P())
+        grad, _ = compile_with_collectives(loss, ex, mesh, specs, (P(), (P("pp"), P("pp"), P(), P())), grad=True)
+        got = fwd(W, b, xs)
+        Wr, br = W.clone().requires_grad_(), b.clone().requires_grad_()
+        y = xs
+        for i in range(n):
+            y = torch.tanh(y @ Wr[i] + br[i])
+        torch.testing.assert_close(got, y.detach(), rtol=1e-5, atol=1e-6)
+        ((y - tgt) ** 2).mean().backward()
+        _, (gW, gb, _, _) = grad(W, b, xs, tgt)
+        torch.testing.assert_close(gW, Wr.grad, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(gb, br.grad, rtol=1e-4, atol=1e-5)
+        out = {"out": _flat(got), "grads": [_flat(gW), _flat(gb)], "losses": []}
+        for _ in range(25):
+            l, (gW, gb, _, _) = grad(W, b, xs, tgt)
+            W, b = W - 0.5 * gW, b - 0.5 * gb
+            out["losses"].append(float(l))
+        assert out["losses"][-1] < 0.6 * out["losses"][0], out["losses"]
+        return out
+
+    def gpt_pipeline(self):
+        """``gpt_pipeline`` at pp=4 (4 layers): both schedules against the
+        port's one-device program (loss rtol 2e-5; grads rtol 1e-2, atol
+        3e-4); the 1F1B stash never above n_stages inputs; GPipe's planned
+        peak (plan_liveness of its joint program) grows from n_micro=4 to
+        16 at mb=1 while 1F1B's (its programs' peaks and its stash) does
+        not; 8 pipelined SGD steps take the loss down by 0.3."""
+        import torch
+
+        from thunder_tpu_torch.analysis.liveness import plan_liveness
+        from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.parallel.gpt_pp import build_gpt_pp_step, gpt_pp_loss_and_grads
+        from thunder_tpu_torch.parallel.train import _compile_loss_and_grads
+
+        n = self.world
+        cfg = _pp_config()
+        params = m.params_from_jax(_pp_params(), device="cpu")
+        idx, tgt = (torch.from_numpy(a) for a in _pp_tokens(PP_B))
+        mesh = make_mesh(pp=n)
+        lg, _ = _compile_loss_and_grads(cfg, params, idx, tgt, executors=["torch"])
+        want_loss, want_grads = lg(*tree_flatten(params)[0], idx, tgt)
+        out = {}
+        for sched in ("gpipe", "1f1b"):
+            loss, grads = gpt_pp_loss_and_grads(cfg, params, idx, tgt, mesh, n_micro=4, schedule=sched)
+            np.testing.assert_allclose(float(loss), float(want_loss), rtol=2e-5, err_msg=sched)
+            got = tree_flatten(grads)[0]
+            assert [tuple(g.shape) for g in got] == [tuple(g.shape) for g in want_grads]
+            for a, w in zip(got, want_grads):
+                np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-2, atol=3e-4, err_msg=sched)
+            out[sched] = {"loss": [float(loss)], "grads": _flat_tree(grads)}
+        peaks = {}
+        for n_micro in (4, 16):
+            i, t = (torch.from_numpy(a) for a in _pp_tokens(n_micro))
+            for sched in ("gpipe", "1f1b"):
+                step = build_gpt_pp_step(cfg, params, i, t, mesh, n_micro=n_micro, schedule=sched)
+                step(params, i, t)
+                plans = [plan_liveness(tr, device="cpu").peak_bytes for tr in step.traces]
+                if sched == "1f1b":
+                    st = step.schedule.stats
+                    last = step.schedule.stage == n - 1  # the last stage runs no stage forward
+                    assert st["stash_peak"] <= n and st["bwd_calls"] == n_micro, st
+                    assert st["fwd_calls"] == (0 if last else n_micro) and len(step.traces) == (1 if last else 2), st
+                    act = cfg.n_embd * T_PP * 4  # one (1, T, n_embd) f32 input a slot
+                    peaks[sched, n_micro] = max(plans) + st["stash_peak"] * act
+                else:
+                    peaks[sched, n_micro] = plans[0]
+        assert peaks["gpipe", 16] > peaks["gpipe", 4], peaks
+        assert peaks["1f1b", 16] == peaks["1f1b", 4], peaks
+        assert peaks["1f1b", 16] < peaks["gpipe", 16], peaks
+        p_cur, losses = params, []
+        for _ in range(8):
+            loss, grads = gpt_pp_loss_and_grads(cfg, p_cur, idx, tgt, mesh, n_micro=4, schedule="1f1b")
+            flat_p, spec = tree_flatten(p_cur)
+            p_cur = tree_unflatten([p - 0.5 * g.to(p.dtype) for p, g in zip(flat_p, tree_flatten(grads)[0])], spec)
+            losses.append(float(loss))
+        assert losses[-1] < losses[0] - 0.3, losses
+        out["losses"] = losses
+        out["peaks"] = {f"{k[0]}{k[1]}": v for k, v in peaks.items()}
+        return out
+
+    def _sharded_sgd(self, case: str):
+        """The sharded SGD step of a PARALLEL_TRAIN_CASES case (sp, pp, ep,
+        and sp beside dp, fsdp or tp), 2 steps from one numpy seed's
+        weights: the losses and the gathered params, for the JAX package's
+        sharded step's, and against the port's one-device step."""
+        import torch
+
+        from thunder_tpu_torch.core.pytree import tree_flatten
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import build_train_step, gather_pytree, gpt_param_specs, make_mesh
+        from thunder_tpu_torch.parallel import shard_pytree
+
+        cfg_name, axes, kind = PARALLEL_TRAIN_CASES[self.world][case]
+        cfg = m.name_to_config(cfg_name)
+        idx, tgt = (torch.from_numpy(a) for a in _train_tokens(cfg.vocab_size))
+        mesh = make_mesh(**axes)
+        specs = gpt_param_specs(cfg, mesh, tp=(kind == "full"))
+        p = shard_pytree(m.params_from_jax(_np_params(cfg_name), device="cpu"), mesh, specs)
+        step, opt, extrace = build_train_step(cfg, p, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2,
+                                              optimizer="sgd", return_extrace=True)
+        rp = m.params_from_jax(_np_params(cfg_name), device="cpu")
+        ref, ref_opt = build_train_step(cfg, rp, idx, tgt, lr=1e-2, optimizer="sgd")
+        losses, ref_losses = [], []
+        for _ in range(TRAIN_STEPS):
+            p, opt, loss = step(p, opt, idx, tgt)
+            rp, ref_opt, rloss = ref(rp, ref_opt, idx, tgt)
+            losses.append(float(loss))
+            ref_losses.append(float(rloss))
+        gathered = gather_pytree(p, mesh, specs)
+        worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                    for a, b in zip(tree_flatten(gathered)[0], tree_flatten(rp)[0]))
+        names = {b.sym.name for b in extrace.bound_symbols}
+        return {"losses": losses, "ref_losses": ref_losses, "param_rel": worst, "params": _flat_tree(gathered),
+                "ring": "ppermute" in names, "collectives": sorted(names & {
+                    "all_gather", "all_reduce", "reduce_scatter", "synchronize", "axis_slice", "ppermute"})}
+
+    def sp_train(self):
+        return self._sharded_sgd("sp_train")
+
+    def pp_train(self):
+        return self._sharded_sgd("pp_train")
+
+    def ep_train(self):
+        return self._sharded_sgd("ep_train")
+
+    def dp_sp_train(self):
+        return self._sharded_sgd("dp_sp_train")
+
+    def fsdp_sp_train(self):
+        return self._sharded_sgd("fsdp_sp_train")
+
+    def sp_tp_train(self):
+        return self._sharded_sgd("sp_tp_train")
+
+
 TORCH_SCENARIOS = {
     2: ["multihost_init", "collectives", "calibration", "broadcast_grad", "fsdp_api", "module_ddp_train", "module_fsdp_train",
         "fsdp_zero3", "fsdp_memory", "no_sync_ddp", "no_sync_fsdp", "batch_reduced_output", "masked_ddp", "checkpoint"],
@@ -808,6 +1307,13 @@ TORCH_SCENARIOS = {
 TRAIN_SCENARIOS = {
     2: ["ddp_train", "fsdp_train", "tp_fsdp_train", "scheduled_step", "reshard"],
     4: ["ddp_train", "fsdp_train", "tp_fsdp_train", "dp_tp_train", "scheduled_step", "comm_schedule", "reshard"],
+}
+# Context, pipeline and expert parallelism and the step over pp, ep and sp
+# (tests/test_torch_port_parallel_ranks.py): SCENARIOS "@parallel".
+PARALLEL_SCENARIOS = {
+    2: ["vjp_ring", "vjp_chain", "sp_train", "pp_train", "ep_train"],
+    4: ["vjp_ring", "vjp_chain", "ring_attention", "ulysses_attention", "long_context_train", "moe_ep",
+        "moe_capacity", "pipeline_pp", "gpt_pipeline", "dp_sp_train", "fsdp_sp_train", "sp_tp_train"],
 }
 
 
@@ -1059,6 +1565,196 @@ def jax_dp_tp_train(world: int):
     return _jax_sharded_train(world, "dp_tp_train")
 
 
+
+def _shard_map():
+    try:
+        from jax.experimental.shard_map import shard_map
+    except ImportError:
+        from jax.shard_map import shard_map
+    return shard_map
+
+
+def _jax_attention(world: int, which: str):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.context import ring_attention, ulysses_attention
+
+    fn = ring_attention if which == "ring" else ulysses_attention
+    mesh = make_mesh(sp=world)
+    q, k, v = (jnp.asarray(a) for a in _qkv(which))
+    spec = JP(None, None, "sp", None)
+    f = jax.jit(_shard_map()(lambda q, k, v: fn(q, k, v, "sp", causal=True), mesh=mesh, in_specs=(spec,) * 3,
+                             out_specs=spec, check_rep=False))
+    out = {"out": _flat(np.asarray(f(q, k, v)))}
+    if which == "ring":
+        # jax.grad through Ulysses' tiled=False all_to_all fails in jax 0.9
+        # (its transpose's cotangent has the source axis in the wrong
+        # place); the ranks hold Ulysses' grads against plain attention.
+        grads = jax.grad(lambda q, k, v: (f(q, k, v).astype(jnp.float32) ** 2).sum(), argnums=(0, 1, 2))(q, k, v)
+        out["grads"] = [_flat(np.asarray(g)) for g in grads]
+    return out
+
+
+def jax_ring_attention(world: int):
+    return _jax_attention(world, "ring")
+
+
+def jax_ulysses_attention(world: int):
+    return _jax_attention(world, "ulysses")
+
+
+def jax_long_context_train(world: int):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.context import ring_attention
+
+    mesh = make_mesh(sp=world)
+    wq, wo, x, tgt = (jnp.asarray(a) for a in _long_context_inputs())
+
+    def attn_local(xq, wq):
+        q = (xq @ wq.T).reshape(LC_B, -1, LC_H, LC_D).transpose(0, 2, 1, 3)
+        o = ring_attention(q, q, q, "sp", causal=True)
+        return o.transpose(0, 2, 1, 3).reshape(LC_B, -1, LC_H * LC_D)
+
+    def loss_fn(wq, wo, x, tgt):
+        h = _shard_map()(attn_local, mesh=mesh, in_specs=(JP(None, "sp", None), JP()),
+                         out_specs=JP(None, "sp", None), check_rep=False)(x, wq)
+        logp = jax.nn.log_softmax((h @ wo.T).astype(jnp.float32), axis=-1)
+        return -jnp.take_along_axis(logp, tgt[..., None], axis=-1).mean()
+
+    l1, g1 = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(wq, wo, x, tgt)
+    return {"loss": [float(l1)], "grads": [_flat(np.asarray(g)) for g in g1]}
+
+
+def _jax_moe(world: int, capacity=None):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.moe import moe_mlp
+
+    mesh = make_mesh(ep=world)
+    return jax.jit(_shard_map()(
+        lambda x, rw, w1, w2: moe_mlp(x, rw, w1, w2, "ep", top_k=MOE_TOPK, capacity=capacity), mesh=mesh,
+        in_specs=(JP("ep", None), JP(), JP("ep", None, None), JP("ep", None, None)), out_specs=JP("ep", None),
+        check_rep=False)), jnp
+
+
+def jax_moe_ep(world: int):
+    import jax
+
+    f, jnp = _jax_moe(world)
+    x, rw, w1, w2 = (jnp.asarray(a) for a in _moe_np(MOE_SEEDS[False]))
+    g = jax.grad(lambda rw, w1, w2: (f(x, rw, w1, w2).astype(jnp.float32) ** 2).sum(), argnums=(0, 1, 2))(rw, w1, w2)
+    tiny, _ = _jax_moe(world, capacity=1)
+    return {"out": _flat(np.asarray(f(x, rw, w1, w2))), "grads": [_flat(np.asarray(a)) for a in g],
+            "dropped": _flat(np.asarray(tiny(x, rw, w1, w2)))}
+
+
+def jax_moe_capacity(world: int):
+    import jax
+
+    f, jnp = _jax_moe(world, capacity=MOE_CAP)
+    x, rw, w1, w2 = (jnp.asarray(a) for a in _moe_np(MOE_SEEDS[True]))
+
+    @jax.jit
+    def step(rw, w1, w2):
+        l, g = jax.value_and_grad(lambda rw, w1, w2: (f(x, rw, w1, w2).astype(jnp.float32) ** 2).sum(),
+                                  argnums=(0, 1, 2))(rw, w1, w2)
+        return l, tuple(p - 0.02 * gp for p, gp in zip((rw, w1, w2), g))
+
+    out, losses = _flat(np.asarray(f(x, rw, w1, w2))), []
+    for _ in range(15):
+        loss, (rw, w1, w2) = step(rw, w1, w2)
+        losses.append(float(loss))
+    return {"out": out, "losses": losses}
+
+
+def jax_pipeline_pp(world: int):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh(pp=world)
+    W, b, xs, tgt = (jnp.asarray(a) for a in _pipeline_inputs(world))
+
+    def stage_fn(params, x):
+        w, bb = params
+        return jnp.tanh(x @ w + bb)
+
+    def piped(W, b, xs):
+        return _shard_map()(lambda Wl, bl, xs: pipeline_apply(stage_fn, (Wl[0], bl[0]), xs, "pp"), mesh=mesh,
+                            in_specs=(JP("pp", None, None), JP("pp", None), JP()), out_specs=JP(),
+                            check_rep=False)(W, b, xs)
+
+    loss_p = lambda W, b: ((piped(W, b, xs) - tgt) ** 2).mean()  # noqa: E731
+    step = jax.jit(lambda W, b: jax.value_and_grad(loss_p, argnums=(0, 1))(W, b))
+    out = _flat(np.asarray(jax.jit(piped)(W, b, xs)))
+    grads = [_flat(np.asarray(g)) for g in step(W, b)[1]]
+    losses = []
+    for _ in range(25):
+        loss, (gW, gb) = step(W, b)
+        W, b = W - 0.5 * gW, b - 0.5 * gb
+        losses.append(float(loss))
+    return {"out": out, "grads": grads, "losses": losses}
+
+
+def jax_gpt_pipeline(world: int):
+    import jax.numpy as jnp
+
+    from thunder_tpu.core.pytree import tree_map
+    from thunder_tpu.models import gpt as jm
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.gpt_pp import gpt_pp_loss_and_grads
+
+    cfg = jm.GPTConfig(**PP_CONFIG)
+    params = tree_map(jnp.asarray, _np_params_of(cfg))
+    idx, tgt = (a.astype(np.int32) for a in _pp_tokens(PP_B))
+    mesh = make_mesh(pp=world)
+    out = {}
+    for sched in ("gpipe", "1f1b"):
+        loss, grads = gpt_pp_loss_and_grads(cfg, params, idx, tgt, mesh, n_micro=4, schedule=sched)
+        out[sched] = {"loss": [float(loss)], "grads": _flat_tree(grads)}
+    return out
+
+
+def _jax_sharded_sgd(world: int, case: str):
+    import jax.numpy as jnp
+
+    from thunder_tpu.core.pytree import tree_map
+    from thunder_tpu.models import gpt as jm
+    from thunder_tpu.parallel import build_train_step, make_mesh
+    from thunder_tpu.parallel.sharding import gpt_param_specs
+
+    cfg_name, axes, kind = PARALLEL_TRAIN_CASES[world][case]
+    cfg = jm.name_to_config(cfg_name)
+    params = tree_map(jnp.asarray, _np_params(cfg_name))
+    idx, tgt = (a.astype(np.int32) for a in _train_tokens(cfg.vocab_size))
+    mesh = make_mesh(**axes)
+    specs = gpt_param_specs(cfg, mesh, tp=(kind == "full"))
+    step, opt = build_train_step(cfg, params, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2, donate=False,
+                                 optimizer="sgd")
+    losses, p = [], params
+    for _ in range(TRAIN_STEPS):
+        p, opt, loss = step(p, opt, idx, tgt)
+        losses.append(float(np.asarray(loss)))
+    return {"losses": losses, "params": _flat_tree(p)}
+
+
+for _case in {c for cases in PARALLEL_TRAIN_CASES.values() for c in cases}:
+    globals()[f"jax_{_case}"] = (lambda c: lambda world: _jax_sharded_sgd(world, c))(_case)
+
+
 JAX_SCENARIOS = {
     2: ["collectives", "broadcast_grad", "module_ddp_train", "module_fsdp_train", "fsdp_zero3", "no_sync_ddp",
         "no_sync_fsdp", "batch_reduced_output", "ddp_train", "fsdp_train", "tp_fsdp_train"],
@@ -1067,12 +1763,19 @@ JAX_SCENARIOS = {
 }
 
 
-def run_jax(world: int, out: str) -> None:
+JAX_PARALLEL_SCENARIOS = {
+    2: ["sp_train", "pp_train", "ep_train"],
+    4: ["ring_attention", "gpt_pipeline", "ulysses_attention", "long_context_train", "moe_ep", "moe_capacity",
+        "pipeline_pp", "dp_sp_train", "fsdp_sp_train", "sp_tp_train"],
+}
+
+
+def run_jax(world: int, out: str, scenarios=None) -> None:
     import jax
 
     assert len(jax.devices()) == world, jax.devices()
     results = {}
-    for name in JAX_SCENARIOS[world]:
+    for name in scenarios or JAX_SCENARIOS[world]:
         t0 = time.perf_counter()
         try:
             results[name] = {"ok": True, **globals()[f"jax_{name}"](world)}
@@ -1083,12 +1786,17 @@ def run_jax(world: int, out: str) -> None:
         json.dump(results, f)
 
 
+GROUPS = {"@train": TRAIN_SCENARIOS, "@parallel": PARALLEL_SCENARIOS}
+
 if __name__ == "__main__":
     if sys.argv[1] == "torch":
         names = sys.argv[7] if len(sys.argv) > 7 else None
-        if names == "@train":
-            names = ",".join(TRAIN_SCENARIOS[int(sys.argv[3])])
+        if names in GROUPS:
+            names = ",".join(GROUPS[names][int(sys.argv[3])])
         run_torch(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6],
                   names.split(",") if names else None)
     else:
-        run_jax(int(sys.argv[2]), sys.argv[3])
+        names = sys.argv[4] if len(sys.argv) > 4 else None
+        if names == "@parallel":
+            names = ",".join(JAX_PARALLEL_SCENARIOS[int(sys.argv[2])])
+        run_jax(int(sys.argv[2]), sys.argv[3], names.split(",") if names else None)

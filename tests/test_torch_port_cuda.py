@@ -2251,3 +2251,174 @@ def test_recorder_folds_a_staged_step(dev):
         monitor.shutdown_critpath()
     assert obsm.CRITPATH_STEPS.value() - before == 5
     assert tt.compile_stats(jf).last_staging.staged
+
+
+# -- context, pipeline and expert parallelism (ROADMAP 11b) -------------------
+
+
+def _pp_launches() -> dict:
+    from thunder_tpu_torch.executors import flashex
+
+    return {"flash_fwd": flashex.flash_attention_fwd.launches, **_step_counts()}
+
+
+_PP_SITES = {"flash_scaled_dot_product_attention(": "flash_fwd", "flash_sdpa_fwd_res(": "flash_fwd_lse",
+             "flash_sdpa_bwd_res(": "flash_bwd", "fused_apply_rope(": "rope", "fused_cross_entropy(": "ce_fwd",
+             "fused_cross_entropy_bwd(": "ce_bwd"}
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipelined_step_on_the_card(nccl_rank, schedule):
+    """open_llama_3b's width at 2 layers, T=256, B=4 in 4 microbatches on a
+    pp=1 mesh with the default executors: 3 calls (eager, capture, replay)
+    of ``gpt_pp_loss_and_grads``, staged, each with the launches of the
+    claimed stage programs times their calls, the loss within 1e-4 and each
+    grad within 2^-4 (norm-relative) of the unpipelined program's."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.executors import flashex, fusedex
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step, gpt_pp, make_mesh
+
+    cfg = replace(gpt.name_to_config("open_llama_3b"), n_layer=2)
+    idx_np = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 256))
+    ids, tgt = torch.from_numpy(idx_np).cuda(), torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    ref, _ = build_train_step(cfg, params, ids, tgt, donate=False, optimizer="sgd")
+    ref_loss, ref_grads = ref.loss_and_grads(*tree_flatten(params)[0], ids, tgt)
+    mesh = make_mesh(pp=1)
+    gpt_pp.gpt_pp_loss_and_grads.last_step = None
+    try:
+        for _ in range(3):
+            for fn in (flashex.flash_attention_fwd, flashex.flash_attention_fwd_lse, flashex.flash_attention_bwd,
+                       fusedex.apply_rope, fusedex.cross_entropy_rows, fusedex.cross_entropy_bwd):
+                fn.launches = 0
+            loss, grads = gpt_pp.gpt_pp_loss_and_grads(cfg, params, ids, tgt, mesh, n_micro=4, schedule=schedule,
+                                                       executors=None)
+            torch.cuda.synchronize()
+            step = gpt_pp.gpt_pp_loss_and_grads.last_step
+            calls = (1,) if step.schedule is None else (4,)  # the one stage is the last: no stage forward
+            want = {}
+            for tr, n in zip(step.traces, calls):
+                for op, row in _PP_SITES.items():
+                    want[row] = want.get(row, 0) + n * tr.python().count(op)
+            assert _pp_launches() == want
+            assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+            for g, w in zip(tree_flatten(grads)[0], ref_grads):
+                assert g.device.type == "cuda"
+                assert ((g.float() - w.float()).norm() / w.float().norm()).item() <= 2.0 ** -4
+        assert step.staging.staged and step.staging.captures == 1 and step.staging.replays >= 1
+        assert want["flash_fwd"] == 0 and want["flash_bwd"] == 8
+    finally:
+        gpt_pp.gpt_pp_loss_and_grads.last_step = None
+
+
+@pytest.mark.parametrize("which", ["ring", "ulysses"])
+def test_sequence_parallel_attention_on_the_card(nccl_rank, which):
+    """Ring and Ulysses attention at sp=1 on (1, 8, 512, 100) bf16 against
+    the flash kernel and its backward, row by row (phase 3's limits: 2^-6
+    and 2^-5), every output on the card. The grads are held against exact
+    f32 grads too; dq against the flash backward's over the tensor
+    (norm-relative), since the flash backward's rows whose exact dq nearly
+    cancels hold its bf16 rounding (``chip_smoke.py`` phase 24 (c))."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+    from thunder_tpu_torch.distributed import runtime
+    from thunder_tpu_torch.executors import flashex
+    from thunder_tpu_torch.parallel import context, make_mesh
+
+    fn = context.ring_attention if which == "ring" else context.ulysses_attention
+    dev = torch.device("cuda")
+    q, k, v, dout = (_randn((1, 8, 512, 100), torch.bfloat16, dev, s) for s in range(4))
+    scale = 0.1
+    with runtime.bound_axes(runtime.mesh_groups(make_mesh(sp=1))):
+        got = tt.jit(lambda q, k, v: fn(q, k, v, "sp", scale=scale))(q, k, v)
+        _, grads = tt.value_and_grad(lambda q, k, v, d: ltorch.sum(fn(q, k, v, "sp", scale=scale).float()
+                                                                     * d.float()))(q, k, v, dout)
+    out, lse = flashex.flash_attention_fwd_lse(q, k, v, causal=True, scale=scale)
+    want_g = flashex.flash_attention_bwd(dout, q, k, v, out, lse, causal=True, scale=scale)
+
+    def row_rel(a, b, floor=0.0):
+        a, b = a.float(), b.float()
+        ref = b.abs().amax(-1).clamp_min(max(floor * b.abs().max().item(), 1e-30))
+        return ((a - b).abs().amax(-1) / ref).max().item()
+
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    s = s.masked_fill(~torch.ones(512, 512, dtype=torch.bool, device=dev).tril(), float("-inf"))
+    (torch.softmax(s, -1) @ vf).mul(dout.float()).sum().backward()
+    assert got.device.type == "cuda" and all(g.device.type == "cuda" for g in grads)
+    assert row_rel(got, out) <= 2.0 ** -6
+    assert max(row_rel(g, w.grad, 2.0 ** -14) for g, w in zip(grads[:3], (qf, kf, vf))) <= 2.0 ** -5
+    assert max(row_rel(g, w, 2.0 ** -14) for g, w in zip(grads[1:3], want_g[1:])) <= 2.0 ** -5
+    assert ((grads[0].float() - want_g[0].float()).norm() / want_g[0].float().norm()).item() <= 2.0 ** -5
+
+
+def test_moe_mlp_on_the_card(nccl_rank):
+    """``moe_mlp`` at ep=1 on the card (E=8, d=256, h=512, n=512, f32)
+    against the dense oracle (rtol 1e-4, atol 1e-5) and its grads (1e-3,
+    1e-4); at a capacity that drops, the kept count against the host's slot
+    accounting; topk's indices on the card equal the CPU's, ties lower
+    index first."""
+    import math
+
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ltorch
+    from thunder_tpu_torch.distributed import runtime
+    from thunder_tpu_torch.parallel import make_mesh, moe
+
+    E, d, h, n = 8, 256, 512, 512
+    dev = torch.device("cuda")
+    x = _randn((n, d), torch.float32, dev, 0)
+    rw, w1, w2 = (_randn(s, torch.float32, dev, i) / math.sqrt(s[-2]) for i, s in
+                  ((1, (d, E)), (2, (E, d, h)), (3, (E, h, d))))
+    args, cap = (x, rw, w1, w2), 100
+    with runtime.bound_axes(runtime.mesh_groups(make_mesh(ep=1))):
+        got = tt.jit(lambda *a: moe.moe_mlp(*a, "ep"))(*args)
+        want = tt.jit(moe.moe_mlp_dense_reference)(*args)
+        _, g_ep = tt.value_and_grad(lambda *a: ltorch.sum(moe.moe_mlp(*a, "ep") ** 2))(*args)
+        _, g_dn = tt.value_and_grad(lambda *a: ltorch.sum(moe.moe_mlp_dense_reference(*a) ** 2))(*args)
+        dispatch, _ = tt.jit(lambda x, rw: moe.dispatch_plan(x, rw, E, 2, cap))(x, rw)
+        probs = tt.jit(lambda x, rw: ltorch.softmax(ltorch.matmul(x, rw), -1))(x, rw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_ep[1:], g_dn[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+    ids = tt.jit(lambda p: ltorch.topk(p, 2, -1)[1])(probs)
+    assert torch.equal(ids.cpu(), tt.jit(lambda p: ltorch.topk(p, 2, -1)[1], device="cpu")(probs.cpu()))
+    ties = torch.tensor([[0.25, 0.5, 0.25, 0.5, 0.0, 0.5, 0.0, 0.0]], device=dev)
+    assert tt.jit(lambda p: ltorch.topk(p, 3, -1)[1])(ties).tolist() == [[1, 3, 5]]  # lax.top_k's order
+    used, kept = [0] * E, 0
+    for row in ids.tolist():
+        for e in row:
+            kept += used[e] < cap
+            used[e] += 1
+    assert int(dispatch.sum().item()) == kept < 2 * n
+
+
+def test_mesh_naming_pp_ep_sp_at_one_nccl_rank_is_bit_equal(nccl_rank):
+    """``make_mesh(pp=1, ep=1, sp=1)``: open_llama_3b's width at 2 layers,
+    3 staged SGD steps bit-equal to the unmeshed step's, no collective."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.distributed.prims import is_collective_bsym
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step, make_mesh
+
+    cfg = replace(gpt.name_to_config("open_llama_3b"), n_layer=2)
+    idx_np = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 256))
+    ids, tgt = torch.from_numpy(idx_np).cuda(), torch.from_numpy(np.roll(idx_np, -1, axis=1)).cuda()
+    runs = []
+    for mesh in (None, make_mesh(pp=1, ep=1, sp=1)):
+        params = gpt.init_params(cfg, seed=0, device="cuda")
+        step, opt, ex = build_train_step(cfg, params, ids, tgt, mesh=mesh, optimizer="sgd", return_extrace=True)
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, ids, tgt)
+            losses.append(loss.clone())
+        assert step.staging.staged and not [b for b in ex.bound_symbols if is_collective_bsym(b)]
+        runs.append((losses, [p.clone() for p in tree_flatten(params)[0]]))
+    (l0, p0), (l1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -218,13 +218,25 @@ def test_litgpt_mesh_flags_raise(small_model, flag):
 
 
 def test_build_train_step_refuses_a_mesh():
-    """A mesh with a pipeline axis waits for ROADMAP item 11b."""
-    from thunder_tpu_torch.parallel import AXIS_ORDER, Mesh
+    """A pipeline mesh of one rank (ROADMAP item 11b, no process group)
+    gives the one-device step's losses, bit for bit: no collective names
+    its axes."""
+    import copy
+
+    from thunder_tpu_torch.parallel import make_mesh
 
     _, tcfg, _, tparams, idx, tgt = _shared()
-    pp = Mesh(AXIS_ORDER, np.zeros((1, 2, 1, 1, 1, 1), dtype=np.int64), {})
-    with pytest.raises(NotImplementedError, match="11b"):
-        ttrain.build_train_step(tcfg, tparams, torch.from_numpy(idx), torch.from_numpy(tgt), mesh=pp)
+    i, t = torch.from_numpy(idx), torch.from_numpy(tgt)
+    losses = []
+    for mesh in (None, make_mesh(pp=1)):
+        params = copy.deepcopy(tparams)
+        step, opt = ttrain.build_train_step(tcfg, params, i, t, mesh=mesh, optimizer="sgd", donate=False)
+        run = []
+        for _ in range(2):
+            params, opt, loss = step(params, opt, i, t)
+            run.append(loss)
+        losses.append(run)
+    assert all(torch.equal(a, b) for a, b in zip(*losses)), losses
 
 
 def test_sgd_with_donate_updates_in_place():

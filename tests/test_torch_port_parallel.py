@@ -144,18 +144,39 @@ def test_one_rank_sharded_step_is_the_one_device_step():
 
 
 def test_sharded_step_refuses_what_comes_later():
-    """An axis of the next slice (pp, ep, sp) raises, naming item 11b;
-    param_specs without a mesh raises; a param that is not this rank's
-    block raises, naming shard_pytree."""
+    """What came with item 11b now runs: a mesh of 2 pipeline and 2 expert
+    ranks names no collective (no spec names pp or ep), so its step is the
+    one-device program, bit for bit, with no process group. What it still
+    refuses: a sequence that does not split over sp (naming both sizes), a
+    batch split over tp; param_specs without a mesh; a param that is not
+    this rank's block, naming shard_pytree."""
     from thunder_tpu_torch.models import gpt as m
     from thunder_tpu_torch.parallel import AXIS_ORDER, Mesh, build_train_step, gpt_param_specs
 
     cfg = m.name_to_config("gpt-tiny")
+    idx = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 8)))
+    tgt = torch.roll(idx, -1, 1)
+    pp_ep = Mesh(AXIS_ORDER, np.zeros((1, 2, 1, 2, 1, 1), dtype=np.int64), {})
+    runs = []
+    for mesh in (None, pp_ep):
+        params = m.init_params(cfg, dtype=torch.float32, seed=1, device="cpu")
+        step, opt, ex = build_train_step(cfg, params, idx, tgt, mesh=mesh, lr=1e-2, optimizer="sgd",
+                                         return_extrace=True)
+        losses = []
+        for _ in range(2):
+            params, opt, loss = step(params, opt, idx, tgt)
+            losses.append(loss)
+        runs.append((losses, params, [b.sym.name for b in ex.bound_symbols]))
+    (l0, p0, names0), (l1, p1, names1) = runs
+    assert names0 == names1 and all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(p0), torch.utils._pytree.tree_leaves(p1)))
     params = m.init_params(cfg, dtype=torch.float32, device="cpu")
-    idx = torch.zeros(4, 8, dtype=torch.int64)
-    pp = Mesh(AXIS_ORDER, np.zeros((1, 2, 1, 1, 1, 1), dtype=np.int64), {})
-    with pytest.raises(NotImplementedError, match="11b"):
-        build_train_step(cfg, params, idx, idx, mesh=pp)
+    sp3 = Mesh(AXIS_ORDER, np.zeros((1, 1, 1, 1, 3, 1), dtype=np.int64), {})
+    with pytest.raises(ValueError, match="8 positions does not split over the 3 ranks of 'sp'"):
+        build_train_step(cfg, params, idx, tgt, mesh=sp3)
+    tp2 = Mesh(AXIS_ORDER, np.zeros((1, 1, 1, 1, 1, 2), dtype=np.int64), {})
+    with pytest.raises(ValueError, match="over tp"):
+        build_train_step(cfg, params, idx, tgt, mesh=tp2, batch_spec=P("tp"))
     with pytest.raises(ValueError, match="need a mesh"):
         build_train_step(cfg, params, idx, idx, param_specs=gpt_param_specs(cfg, None))
     fsdp = Mesh(AXIS_ORDER, np.zeros((1, 1, 2, 1, 1, 1), dtype=np.int64), {})

@@ -9,6 +9,13 @@ them on ``torch.distributed``, each axis name resolving to the process group
 the runtime bound it to (``distributed/runtime.py``): NCCL on the card, gloo
 on the CPU.
 
+``ppermute`` and ``all_to_all`` have VJP rules of their own, the transposes
+``lax`` gives the JAX package: the reverse hop, and the shuffle with its split
+and concat dims swapped. Every rank must issue both, so dce keeps them when
+their result is unused, and the backward transposes them on every rank, with
+a zero cotangent where none reaches this rank's output
+(``autodiff.register_paired``).
+
 ``async_op=True`` keeps the future/wait structure in the IR, as in the JAX
 package, and the implementation runs the collective at once (``wait`` is the
 identity): on the card the program is captured whole as one CUDA graph, whose
@@ -49,10 +56,14 @@ class DistOpIDs(enum.Enum):
     AXIS_SLICE = enum.auto()
 
 
-def _make(id: DistOpIDs, name: str, meta) -> Symbol:
+def _make(id: DistOpIDs, name: str, meta, *, paired: bool = False) -> Symbol:
+    """``paired``: every rank must issue the call, used or not (a hop or a
+    shuffle whose peers post the matching send or receive), so neither dce
+    nor cse may drop or merge it."""
     from thunder_tpu_torch.core.prims import OpTags
 
-    return Symbol(name, meta, id=id, is_prim=True, module="dist_prims", tags=(OpTags.COMM_OP,))
+    tags = (OpTags.COMM_OP, OpTags.DONT_DCE) if paired else (OpTags.COMM_OP,)
+    return Symbol(name, meta, id=id, is_prim=True, module="dist_prims", tags=tags)
 
 
 def _out(like: TensorProxy, shape=None, future: bool = False) -> TensorProxy:
@@ -173,8 +184,8 @@ broadcast = _make(DistOpIDs.BROADCAST, "broadcast", _broadcast_meta)
 reduce_scatter = _make(DistOpIDs.REDUCE_SCATTER, "reduce_scatter", _reduce_scatter_meta)
 synchronize = _make(DistOpIDs.SYNCHRONIZE, "synchronize", _synchronize_meta)
 wait = _make(DistOpIDs.WAIT, "wait", _wait_meta)
-ppermute = _make(DistOpIDs.PPERMUTE, "ppermute", _ppermute_meta)
-all_to_all = _make(DistOpIDs.ALL_TO_ALL, "all_to_all", _all_to_all_meta)
+ppermute = _make(DistOpIDs.PPERMUTE, "ppermute", _ppermute_meta, paired=True)
+all_to_all = _make(DistOpIDs.ALL_TO_ALL, "all_to_all", _all_to_all_meta, paired=True)
 mask_to_rank = _make(DistOpIDs.MASK_TO_RANK, "mask_to_rank", _mask_to_rank_meta)
 hier_all_reduce = _make(DistOpIDs.HIER_ALL_REDUCE, "hier_all_reduce", _hier_all_reduce_meta)
 # Not a collective: it reads this rank's index along the axis and moves no
@@ -421,7 +432,7 @@ _register_torch_impls()
 
 
 def _register_vjps():
-    from thunder_tpu_torch.transforms.autodiff import register_vjp
+    from thunder_tpu_torch.transforms.autodiff import register_paired, register_vjp
 
     @register_vjp(DistOpIDs.ALL_GATHER)
     def _ag_vjp(bsym, g):
@@ -458,6 +469,26 @@ def _register_vjps():
     @register_vjp(DistOpIDs.WAIT)
     def _wait_vjp(bsym, g):
         return (g,)
+
+    @register_vjp(DistOpIDs.PPERMUTE)
+    def _pp_vjp(bsym, g):
+        # The cotangent hops back: each pair reversed. A rank nobody sent to
+        # got zeros, so its input's cotangent is what nobody sends back:
+        # zeros, as the forward gives and lax.ppermute's transpose does.
+        a, axis, perm = bsym.args[:3]
+        return (ppermute(g, axis, [(d, s) for s, d in perm]), None, None)
+
+    @register_vjp(DistOpIDs.ALL_TO_ALL)
+    def _a2a_vjp(bsym, g):
+        # The tiled transpose: split where the forward concatenated, and
+        # concatenate where it split (lax.all_to_all's transpose rule).
+        a, axis, group_size = bsym.args[:3]
+        return (all_to_all(g, axis, group_size, split_dim=bsym.kwargs["concat_dim"],
+                           concat_dim=bsym.kwargs["split_dim"]), None, None)
+
+    # Each rank runs its transposed hop or shuffle whether or not a
+    # cotangent reaches it here: its peers post the matching call.
+    register_paired(DistOpIDs.PPERMUTE, DistOpIDs.ALL_TO_ALL)
 
     @register_vjp(DistOpIDs.HIER_ALL_REDUCE)
     def _har_vjp(bsym, g):

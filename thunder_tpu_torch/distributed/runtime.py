@@ -131,10 +131,39 @@ def group_of(axis: str, group_size: Optional[int] = None):
         raise RuntimeError(f"a collective on mesh axis {axis!r} ran outside a program bound to process groups "
                            f"(bound: {sorted(groups)}); stage it with distributed.runtime")
     group = groups[axis]
+    if group is None:
+        raise RuntimeError(f"mesh axis {axis!r} is bound to one rank and no process group: a program on it holds "
+                           "no collective (call thunder_tpu_torch.distributed.init() for a group)")
     if group_size is not None and dist.get_world_size(group) != group_size:
         raise RuntimeError(f"the trace's collective on axis {axis!r} has group size {group_size}, but its process "
                            f"group has {dist.get_world_size(group)} ranks")
     return group
+
+
+def axis_size(axis: str) -> int:
+    """The size of the group bound to ``axis`` (``lax.psum(1, axis)``):
+    read when a rank traces its program, so that a loop over the axis
+    unrolls, as a static axis size does under ``shard_map``. An axis bound
+    to None (a mesh of one rank with no process group) has size 1."""
+    return 1 if _bound.get().get(axis, False) is None else dist.get_world_size(group_of(axis))
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index in the group bound to ``axis``
+    (``lax.axis_index(axis)``), a number known when the rank traces."""
+    return 0 if _bound.get().get(axis, False) is None else dist.get_rank(group_of(axis))
+
+
+def mesh_groups(mesh) -> dict:
+    """``{axis: group}`` of every axis of a ``parallel.Mesh``, an axis of
+    one rank with no process group bound to None (:func:`axis_size` reads
+    1 for it, and a collective on it raises). Each NCCL group is warmed,
+    as :func:`resolve_axes` warms it."""
+    groups = {ax: mesh.get(ax) for ax in mesh.axis_names}
+    for group in groups.values():
+        if group is not None:
+            _warm(group)
+    return groups
 
 
 def grid_groups(names: tuple, shape: tuple, ranks: Optional[list] = None) -> dict:
@@ -286,10 +315,11 @@ def _trace_axes(trc) -> set:
 def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, out_specs, *, grad: bool = False,
                              comm_schedule: bool = False):
     """Trace ``fn`` on this rank's example blocks (so its collectives record
-    into the trace), claim it, and stage it by :func:`stage_collective_trace`.
-    ``grad=True`` returns the value and the grads of the inputs, as
-    ``grad_transform(return_value=True)`` does. ``comm_schedule=True`` runs
-    the collective-overlap scheduler over the claimed trace
+    into the trace; a dict ``mesh``'s axes are bound meanwhile), claim it,
+    and stage it by :func:`stage_collective_trace`. ``grad=True`` returns
+    the value and the grads of the inputs, as ``grad_transform(
+    return_value=True)`` does. ``comm_schedule=True`` runs the
+    collective-overlap scheduler over the claimed trace
     (``transforms/comm_schedule.py``). Returns ``(callable, claimed
     trace)``; the callable takes the global arguments."""
     from thunder_tpu_torch.api import trace_program
@@ -298,7 +328,10 @@ def compile_with_collectives(fn: Callable, example_args: tuple, mesh, in_specs, 
     from thunder_tpu_torch.transforms.autodiff import grad_transform
     from thunder_tpu_torch.transforms.common import dce
 
-    _, comp = trace_program(fn, example_args, {})
+    # A dict mesh's axes are bound while fn traces, so that it may read
+    # their sizes and this rank's index (axis_size, axis_index).
+    with bound_axes(resolve_axes(mesh, sorted(mesh)) if isinstance(mesh, dict) else {}):
+        _, comp = trace_program(fn, example_args, {})
     comp = dce(comp)
     if grad:
         comp = grad_transform(comp, return_value=True)

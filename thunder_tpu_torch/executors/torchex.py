@@ -292,7 +292,16 @@ def _widen_exact(a) -> dict:
 
 _reg(PrimIDs.CUMSUM, lambda a, dim: torch.cumsum(a, dim, **_widen_exact(a)))
 _reg(PrimIDs.CUMPROD, lambda a, dim: torch.cumprod(a, dim, **_widen_exact(a)))
-_reg(PrimIDs.TOPK, lambda a, k, dim, largest, sorted: tuple(torch.topk(a, k, dim, largest=largest, sorted=sorted)))
+def _topk(a, k, dim, largest, sorted):
+    """The k largest (or smallest) along ``dim``, in order, ties broken
+    lower index first on every device: ``lax.top_k``'s order, which the
+    JAX package's topk gives. ``torch.topk`` orders ties one way on the CPU
+    and another on the card, so this is a stable sort's first k."""
+    values, indices = torch.sort(a, dim=dim, descending=largest, stable=True)
+    return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
+
+
+_reg(PrimIDs.TOPK, _topk)
 
 
 # -- elementwise unary --------------------------------------------------------

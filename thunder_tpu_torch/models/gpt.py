@@ -15,6 +15,11 @@ Layout notes:
   blocks (``tp.block``) are the only place that decides which weights are
   read as blocks; a region runs on them where its weight's spec splits it
   over tp (``tp.split_on``). None is the one-device program;
+- ``sp`` is the sharded step's sequence parallelism: each rank holds a
+  block of consecutive positions, rope takes their global positions
+  (``sp.offset``) and attention runs over the whole sequence
+  (``sp.attention``: ring attention over the axis). None is the one-device
+  program;
 - RoPE uses the rotate-half convention with ``rotary_percentage`` of
   head_size rotated; cos/sin are built from iota inside the trace.
 """
@@ -280,13 +285,14 @@ def _norm(x, p, config: GPTConfig):
     return ttorch.layer_norm(x, (config.n_embd,), p["weight"], p.get("bias"), eps=config.norm_eps)
 
 
-def _rope_cache(T: int, config: GPTConfig, device, dtype):
-    """cos/sin of shape (T, rope_n_elem), built from iota in the trace."""
+def _rope_cache(T: int, config: GPTConfig, device, dtype, offset: int = 0):
+    """cos/sin of shape (T, rope_n_elem) for positions offset..offset+T-1,
+    built from iota in the trace."""
     n = config.rope_n_elem
     half = n // 2
     theta = clang.pow(float(config.rope_base), clang.true_divide(
         clang.mul(clang.arange(0, half, 1, device=device, dtype=dtypes.float32), -2.0), float(n)))
-    pos = clang.arange(0, T, 1, device=device, dtype=dtypes.float32)
+    pos = clang.arange(offset, offset + T, 1, device=device, dtype=dtypes.float32)
     freqs = clang.mul(clang.unsqueeze(pos, 1), clang.unsqueeze(theta, 0))  # (T, half)
     emb = clang.cat([freqs, freqs], dim=1)  # (T, n) rotate-half convention
     return clang.maybe_convert_to_dtype(clang.cos(emb), dtype), clang.maybe_convert_to_dtype(clang.sin(emb), dtype)
@@ -297,7 +303,7 @@ def _apply_rope(x, cos, sin, config: GPTConfig):
     return ttorch.apply_rope(x, cos, sin)
 
 
-def _attention(x, p, cos, sin, config: GPTConfig, tp=None):
+def _attention(x, p, cos, sin, config: GPTConfig, tp=None, sp=None):
     B, T, C = x.shape
     H, G, hs = config.n_head, config.query_groups, config.head_size
 
@@ -318,7 +324,10 @@ def _attention(x, p, cos, sin, config: GPTConfig, tp=None):
     q = _apply_rope(q, cos, sin, config)
     k = _apply_rope(k, cos, sin, config)
 
-    y = ttorch.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=(G != H))
+    if sp is not None:
+        y = sp.attention(q, k, v, H, G)
+    else:
+        y = ttorch.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=(G != H))
     y = ttorch.reshape(ttorch.permute(y, (0, 2, 1, 3)), (B, T, H * hs))
     if tp is not None and tp.split_on(p, "proj_w", 1):
         return _bias(tp.exit(ttorch.linear(tp.split(y, 2), tp.block(p, "proj_w", 1))), p.get("proj_b"))
@@ -370,9 +379,9 @@ def _mlp(x, p, config: GPTConfig, tp=None):
     return ttorch.linear(h, p["proj_w"], p.get("proj_b"))
 
 
-def _block(x, p, cos, sin, config: GPTConfig, tp=None):
+def _block(x, p, cos, sin, config: GPTConfig, tp=None, sp=None):
     n1 = _norm(x, p["norm_1"], config)
-    attn_out = _attention(n1, p["attn"], cos, sin, config, tp)
+    attn_out = _attention(n1, p["attn"], cos, sin, config, tp, sp)
     if config.parallel_residual:
         n2 = n1 if config.shared_attention_norm else _norm(x, p["norm_2"], config)
         return x + attn_out + _mlp(n2, p["mlp"], config, tp)
@@ -380,13 +389,13 @@ def _block(x, p, cos, sin, config: GPTConfig, tp=None):
     return x + _mlp(_norm(x, p["norm_2"], config), p["mlp"], config, tp)
 
 
-def forward(params: dict, idx, config: GPTConfig, tp=None):
+def forward(params: dict, idx, config: GPTConfig, tp=None, sp=None):
     """Token ids (B, T) int → logits (B, T, padded_vocab_size)."""
     B, T = idx.shape
     x = ttorch.embedding(idx, params["wte"])  # (B, T, C)
-    cos, sin = _rope_cache(T, config, device=x.device, dtype=x.dtype)
+    cos, sin = _rope_cache(T, config, device=x.device, dtype=x.dtype, offset=sp.offset(T) if sp is not None else 0)
     for p in params["blocks"]:
-        x = _block(x, p, cos, sin, config, tp)
+        x = _block(x, p, cos, sin, config, tp, sp)
     x = _norm(x, params["ln_f"], config)
     if tp is not None and tp.split_on(params, "lm_head_w", 0):
         # The vocab blocks of the logits are gathered, so that the CE
@@ -395,9 +404,9 @@ def forward(params: dict, idx, config: GPTConfig, tp=None):
     return ttorch.linear(x, params["lm_head_w"])
 
 
-def loss_fn(params: dict, idx, targets, config: GPTConfig, tp=None):
+def loss_fn(params: dict, idx, targets, config: GPTConfig, tp=None, sp=None):
     """Next-token cross-entropy; logits in f32 for a stable softmax."""
-    logits = forward(params, idx, config, tp)
+    logits = forward(params, idx, config, tp, sp)
     B, T, V = logits.shape
     logits = ttorch.reshape(logits.float(), (B * T, V))
     return ttorch.cross_entropy(logits, ttorch.reshape(targets, (B * T,)))

@@ -23,9 +23,11 @@ runs its own program on its blocks (``parallel.shard_pytree``), and the
 program holds the collectives, placed per axis as follows.
 
 - The batch is split by ``batch_spec`` (default ``data_spec``: dim 0 over
-  ``(dp, fsdp)``); these are the data axes. Each rank's loss is its
-  block's mean, scaled by 1/N over the N data ranks, so that the grads
-  summed over them are the global mean's; the loss returned is that sum.
+  ``(dp, fsdp)``, dim 1, the sequence, over ``sp``); these are the data
+  axes. Each rank's loss is its block's mean, scaled by 1/N over the N data
+  ranks, so that the grads summed over them are the global mean's; the
+  loss returned is that sum. That is the global mean because every block
+  holds as many positions and the step assumes targets that ignore none.
 - **dp** (a data axis over which a param is replicated): the param passes
   through ``synchronize(..., "replicated")``, whose VJP all-reduces (sums)
   its grad over the axis.
@@ -57,6 +59,21 @@ program holds the collectives, placed per axis as follows.
     neither changes a result.
   - A param that tp replicates (a norm weight, ``proj_b``) has the same
     grad on every tp rank and is synced over the data axes only.
+- **sp** (the sequence split over dim 1 of the batch): each rank holds
+  ``T/n`` consecutive positions. The model takes a hook (``models/gpt.py``
+  ``sp``): rope at the block's global positions, and attention over the
+  whole sequence by ``parallel.context.ring_attention`` over ``sp``, the
+  JAX package's own sequence-parallel attention (K/V heads of a GQA config
+  expanded to the query heads first). With ``sp > 1`` attention is the
+  ring's plain f32 products, not the flash kernel, and the step agrees
+  with one device within a tolerance, not bit for bit. A param replicated
+  over ``sp`` sums its grad over it, as over any data axis.
+- **pp** and **ep**: the JAX step's param specs name neither and its batch
+  spec splits no dim over them, so GSPMD runs the same program on every
+  ``pp``/``ep`` rank. So does the port: no collective names them unless a
+  spec does (then a split param is gathered, a batch dim 0 split over them
+  is a data axis). The pipeline schedules and the expert shuffle are
+  ``parallel/gpt_pp.py`` and ``parallel/moe.py``, outside this step.
 
 The flash forward-with-residuals / backward pair, the CE kernel and rope
 stay claimed inside the sharded step, each between the collectives and
@@ -68,9 +85,7 @@ collectives and optimizer) is staged as one CUDA graph, each group warmed
 before the capture (``distributed/runtime.resolve_axes``). Each rank keeps
 only its blocks of the params and of the AdamW moments (ZeRO for the
 optimizer, as the JAX step gets from its specs). At one rank no collective
-is placed and the step is the one-device program, bit for bit. The axes
-``pp``, ``ep`` and ``sp`` (pipeline, experts, sequence) come with the next
-slice of the port and raise above size 1.
+is placed and the step is the one-device program, bit for bit.
 """
 
 from __future__ import annotations
@@ -185,29 +200,46 @@ def opt_state_specs(param_specs, optimizer: str = "adamw") -> dict:
     return {"step": P(), "m": param_specs, "v": param_specs}
 
 
+def claimed_program(fn, example_args: tuple, executors, *, wrt: Optional[list] = None, comm_schedule: bool = False):
+    """``(callable, extrace)``: ``fn`` traced on ``example_args``, claimed by
+    ``executors`` (names, or None for the defaults) and run eagerly with a
+    ``del`` after each last use. With ``wrt`` (the positions of the trace's
+    tensor inputs to differentiate) the program is ``grad_transform``'s joint
+    one, ``(value, grads)``, its attention pairs rewritten to save (out, lse)
+    for the flash backward. ``comm_schedule`` runs the comm scheduler over
+    the claimed program. The callable takes the tensor leaves of the
+    arguments in pytree order."""
+    from thunder_tpu_torch import api
+    from thunder_tpu_torch.core import devices
+    from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+    from thunder_tpu_torch.extend import resolve_executors
+    from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
+    from thunder_tpu_torch.transforms.autodiff import grad_transform
+    from thunder_tpu_torch.transforms.common import dce
+
+    ex_list = resolve_executors(list(executors) if executors else None)
+    device = next(x.device for x in tree_flatten(example_args)[0] if isinstance(x, torch.Tensor))
+    with devices.default_device(device):
+        _, comp = api.trace_program(fn, example_args, {})
+        comp = dce(comp)
+        if wrt is not None:
+            comp = grad_transform(comp, return_value=True, wrt=[comp.args[i] for i in wrt])
+            comp = save_sdpa_residuals_joint(comp, ex_list)
+        extrace = del_last_used(transform_for_execution(comp, ex_list, comm_schedule=comm_schedule))
+    return extrace.python_callable(), extrace
+
+
 def _compile_loss_and_grads(config, params, idx: torch.Tensor, targets: torch.Tensor, executors=None, plan=None):
     """Trace ``loss_fn`` into one claimed joint program: ``(callable,
     extrace)``; the callable takes the params' leaves, idx and targets, and
     returns ``(loss, grads)`` with a grad for every param leaf. ``plan``
     (a :class:`_ShardPlan`) traces this rank's program on its blocks, with
     the collectives; the comm scheduler runs over the claimed program."""
-    from thunder_tpu_torch import api
-    from thunder_tpu_torch.core import devices
-    from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
-    from thunder_tpu_torch.extend import resolve_executors
     from thunder_tpu_torch.models.gpt import loss_fn
-    from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
-    from thunder_tpu_torch.transforms.autodiff import grad_transform
-    from thunder_tpu_torch.transforms.common import dce
 
-    ex_list = resolve_executors(executors)
     fn = (lambda p, i, t: loss_fn(p, i, t, config)) if plan is None else plan.loss_fn(config)
-    with devices.default_device(idx.device):
-        _, comp = api.trace_program(fn, (params, idx, targets), {})
-        joint = grad_transform(dce(comp), return_value=True)
-        joint = save_sdpa_residuals_joint(joint, ex_list)
-        extrace = del_last_used(transform_for_execution(joint, ex_list, comm_schedule=True))
-    return extrace.python_callable(), extrace
+    n_params = len(tree_flatten(params)[0])
+    return claimed_program(fn, (params, idx, targets), executors, wrt=list(range(n_params)), comm_schedule=True)
 
 
 # =============================================================================
@@ -253,6 +285,32 @@ class _TensorParallel:
         return dist.axis_slice(x, "tp", self.n, dim=dim)
 
 
+class _SequenceParallel:
+    """The sequence split ``models/gpt.py`` reads: this rank's block of
+    positions starts at its index along the axis times the block's length,
+    and attention runs over the whole sequence as ring attention. The
+    index is read from the group bound to the axis when the rank traces."""
+
+    def __init__(self, axis: str):
+        self.axis = axis
+
+    def offset(self, T_local: int) -> int:
+        from thunder_tpu_torch.distributed import runtime
+
+        return runtime.axis_index(self.axis) * T_local
+
+    def attention(self, q, k, v, n_head: int, n_groups: int):
+        import thunder_tpu_torch.torch as ttorch
+        from thunder_tpu_torch.parallel.context import ring_attention
+
+        if n_groups != n_head:
+            # Query head h reads K/V head h // (n_head / n_groups), as SDPA's
+            # enable_gqa does.
+            k = ttorch.repeat_interleave(k, n_head // n_groups, 1)
+            v = ttorch.repeat_interleave(v, n_head // n_groups, 1)
+        return ring_attention(q, k, v, self.axis, causal=True)
+
+
 class _Synced(dict):
     """A params dict of this rank's blocks, read by the traced program: a
     weight is synced (``_ShardPlan.sync``) where the program first reads
@@ -291,28 +349,29 @@ class _ShardPlan:
     axes, and each param's spec."""
 
     def __init__(self, mesh, param_specs, batch_spec):
+        from thunder_tpu_torch.distributed.runtime import P
         from thunder_tpu_torch.parallel.mesh import axis_sizes
+        from thunder_tpu_torch.parallel.sharding import _flat_specs
 
         self.sizes = axis_sizes(mesh)
-        for ax in ("pp", "ep", "sp"):
-            if self.sizes.get(ax, 1) > 1:
-                raise NotImplementedError(f"the sharded step over the {ax!r} axis (size {self.sizes[ax]}) comes "
-                                          "with ROADMAP item 11b (pipeline, experts, sequence parallelism)")
         self.tp = self.sizes.get("tp", 1)
         self.specs, self.batch_spec = param_specs, batch_spec
-        self.data_axes = tuple(ax for ax in batch_spec.dim_axes(0) if self.sizes.get(ax, 1) > 1)
-        if any(ax == "tp" for ax in self.data_axes):
+        wide = lambda d: tuple(ax for ax in batch_spec.dim_axes(d) if self.sizes.get(ax, 1) > 1)  # noqa: E731
+        if any(wide(d) for d in range(2, len(batch_spec))):
+            raise ValueError(f"batch_spec {batch_spec!r} splits a dim past the sequence of a (B, T) batch")
+        seq = wide(1)
+        if len(seq) > 1:
+            raise ValueError(f"the sequence splits over one axis, not {seq}")
+        self.data_axes = wide(0) + seq
+        if "tp" in self.data_axes:
             raise ValueError("the batch cannot be split over tp: its ranks compute on the same rows")
-        if len(batch_spec) > 1 and any(batch_spec.dim_axes(d) for d in range(1, len(batch_spec))):
-            raise NotImplementedError("a batch split along the sequence comes with ROADMAP item 11b")
+        self.seq_axis = seq[0] if seq else None
         self.n_data = 1
         for ax in self.data_axes:
             self.n_data *= self.sizes[ax]
-
-    @property
-    def axes(self) -> tuple:
-        """The axes the program's collectives name."""
-        return tuple(ax for ax, n in self.sizes.items() if n > 1)
+        named = {ax for s in _flat_specs(param_specs) if isinstance(s, P) for ax in s.axes}
+        self.axes = tuple(ax for ax, n in self.sizes.items()
+                          if n > 1 and (ax in self.data_axes or ax in named or ax == "tp"))
 
     def sync(self, x, spec, tp_dim: Optional[int]):
         """The value the program computes with for a param block ``x``: the
@@ -345,9 +404,10 @@ class _ShardPlan:
         from thunder_tpu_torch.models.gpt import loss_fn
 
         tp = _TensorParallel(self.tp) if self.tp > 1 else None
+        sp = _SequenceParallel(self.seq_axis) if self.seq_axis is not None else None
 
         def sharded_loss(params, idx, targets):
-            loss = loss_fn(_Synced(params, self.specs, self), idx, targets, config, tp)
+            loss = loss_fn(_Synced(params, self.specs, self), idx, targets, config, tp, sp)
             return loss * (1.0 / self.n_data) if self.n_data > 1 else loss
 
         return sharded_loss
@@ -420,10 +480,11 @@ def build_train_step(
         raise ValueError(f"optimizer must be 'adamw' or 'sgd', got {optimizer!r}")
     if mesh is None and (param_specs is not None or batch_spec is not None):
         raise ValueError("param_specs and batch_spec need a mesh")
-    plan = groups = None
+    from thunder_tpu_torch.distributed import runtime
+
+    plan, groups = None, {}
     local_idx, local_tgt = idx, targets
     if mesh is not None:
-        from thunder_tpu_torch.distributed import runtime
         from thunder_tpu_torch.distributed.runtime import P
         from thunder_tpu_torch.parallel.sharding import align_specs, data_spec
 
@@ -432,15 +493,18 @@ def build_train_step(
         plan = _ShardPlan(mesh, align_specs(param_specs, params), batch_spec if batch_spec is not None
                           else data_spec(mesh))
         plan.check(config, params)
+        if plan.seq_axis is not None and idx.shape[1] % plan.sizes[plan.seq_axis]:
+            raise ValueError(f"a sequence of {idx.shape[1]} positions does not split over the "
+                             f"{plan.sizes[plan.seq_axis]} ranks of {plan.seq_axis!r}")
         groups = runtime.resolve_axes(mesh, plan.axes) if plan.axes else {}
         local_idx, local_tgt = (runtime.split(x, plan.batch_spec, groups) for x in (idx, targets))
-    loss_and_grads, extrace = _compile_loss_and_grads(config, params, local_idx, local_tgt, executors, plan)
+    with runtime.bound_axes(groups):
+        loss_and_grads, extrace = _compile_loss_and_grads(config, params, local_idx, local_tgt, executors, plan)
 
     def run_program(flat_p, idx, targets):
         if plan is None:
             return loss_and_grads(*flat_p, idx, targets)
         from thunder_tpu_torch.distributed import prims as dist
-        from thunder_tpu_torch.distributed import runtime
 
         with runtime.bound_axes(groups):
             idx, targets = (runtime.split(x, plan.batch_spec, groups) for x in (idx, targets))

@@ -91,6 +91,17 @@ def register_nondiff(*sym_ids) -> None:
         _vjp_rules[sid] = NONDIFF
 
 
+# Collectives whose peers post the matching call in their own backward: the
+# rule runs on every rank, with a zero cotangent where none reaches this
+# rank's output (a pipeline stage that discards what it receives still sends
+# and receives the transposed hop, as ``lax.ppermute``'s transpose does).
+_paired: set = set()
+
+
+def register_paired(*sym_ids) -> None:
+    _paired.update(sym_ids)
+
+
 def has_vjp(sym_id) -> bool:
     return sym_id in _vjp_rules
 
@@ -782,7 +793,9 @@ class BackwardBuilder:
             outs = bsym.flat_proxy_outs
             cts = [self.env.get(variableify(o)) for o in outs]
             if not any(c is not None for c in cts):
-                continue
+                if bsym.sym.id not in _paired:
+                    continue
+                cts = [_zeros_for(o) for o in outs]
             rule = _vjp_rules.get(bsym.sym.id)
             if rule is NONDIFF:
                 continue
