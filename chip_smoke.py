@@ -218,7 +218,7 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    replay of its event log with no unknown kind;
 24. context, pipeline and expert parallelism (``parallel/``), a process
    group of one NCCL rank of its own, torn down after: (a) open_llama_3b at
-   full depth, bf16, B=4 x T=2048 in 4 microbatches of one row, on
+   full width and 13 layers, bf16, B=4 x T=2048 in 4 microbatches of one row, on
    ``make_mesh(pp=1)`` with the default executors: GPipe and 1F1B through
    ``parallel.gpt_pp.gpt_pp_loss_and_grads``, 3 calls each (eager, capture,
    replay: the whole step one CUDA graph), each call's loss and every grad
@@ -240,7 +240,37 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    planted fault (the ring's 1/l left out), every output on the card; (d)
    ``build_train_step`` on ``make_mesh(pp=1, ep=1, sp=1)`` against the
    unmeshed step at 2 layers, bit for bit;
-17. after phase 24, prints one JSON line describing every kernel, then the
+25. the recovery layer (``thunder_tpu_torch/resilience``), at
+   open_llama_3b's full width, bf16, B=2 x T=2048, through
+   ``jit(value_and_grad(loss_fn))`` and the port's in-place SGD: (a)
+   ``run_training`` for 4 steps, then preempted at step 2 (chaos
+   ``preempt@2``) into a ``CheckpointManager`` in a temporary directory and
+   resumed by a fresh manager and a fresh jit, the 4 losses and every final
+   param ``torch.equal`` to the uninterrupted run's, the checkpoint's bytes,
+   save and restore seconds and free disk (the layers cut, width kept, when
+   the disk is short); (b) ``snapshot_every=1`` with a ``SnapshotStore`` and
+   ``host_loss@3``: ``elastic_resume`` onto the same one-rank mesh wins from
+   the RAM tier, the continued step bit-equal, each snapshot's ``stall_ms``
+   and copy rate; (c) at 4 layers, a real ``torch.OutOfMemoryError`` under
+   ``set_per_process_memory_fraction`` (the cap from ``predict_level_peaks``
+   against L0's measured peak) climbs the de-opt ladder, its
+   ``compile_deopt`` events printed, the recovered step against the uncapped
+   one (or, when no level is predicted to fit, the typed error of the
+   exhausted ladder), ``memory_allocated`` after it equal to a fresh
+   compile's; (d) at 2 layers, ``kernel_raise`` on the flash wrapper: the
+   WARNING and the events, rows 6-7 launched zero times by the demoted entry,
+   its loss within phase 4's limit of the undemoted one and equal to the
+   fused and torch executors'; after ``clear_quarantine()`` a recompile
+   launches them again; (e) ``on_nan=None`` against ``"raise"`` on the staged step, event
+   and wall ms over 10 calls in two rounds and the profiler's device ms, and
+   at 2 layers a ``nan`` on the ``sdpa_fwd_res`` line named by the
+   instrumented re-run; (f) at one NCCL rank, a ``collective_hang`` under a
+   2 s watchdog at the two dispatch sites it guards: ``jit``'s staged ddp
+   ``value_and_grad`` at 2 layers and a ``shard_map_callable`` all-reduce
+   each raise ``CollectiveTimeoutError`` naming their own collective lines,
+   and the next unguarded call gives the step with no collectives (the
+   one-rank value);
+17. after phase 25, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -279,7 +309,14 @@ FWD_BATCH = 10
 SEED = 0
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header (``[N] ...``) ends with the seconds
+    since the script started."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -5030,6 +5067,10 @@ def run_mesh_cli() -> None:
 PP_CLAIM_ROWS = {**CLAIM_ROWS, "flash_scaled_dot_product_attention(": "flash_fwd"}
 PP_ROWS = ("flash_fwd", "flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd")
 PP_MICRO = 4
+# Phase 24 (a)'s depth, cut from the model's 26 (width kept) to keep the
+# whole script inside its time budget: the pipelined and the unpipelined
+# programs are compared at the same depth.
+PP_LAYERS = 13
 
 
 def _pp_expected(step) -> dict:
@@ -5072,7 +5113,7 @@ def _against_reference(loss, grads, ref_loss: float, ref_grads: list) -> tuple:
 
 
 def run_pipelined(launches: dict) -> None:
-    """Phase 24 (a). open_llama_3b's pipelined step at full depth on a mesh
+    """Phase 24 (a). open_llama_3b's pipelined step at PP_LAYERS layers on a mesh
     with pp=1: GPipe and 1F1B through ``gpt_pp_loss_and_grads``
     (n_micro=4, mb=1, the default executors) against the unpipelined
     program on the same B=4 batch and weights; launches against the
@@ -5083,7 +5124,7 @@ def run_pipelined(launches: dict) -> None:
     from thunder_tpu_torch.parallel import build_train_step, make_mesh
     from thunder_tpu_torch.parallel import gpt_pp
 
-    cfg = gpt.name_to_config(CFG_NAME)
+    cfg = replace(gpt.name_to_config(CFG_NAME), n_layer=PP_LAYERS)
     mesh = make_mesh(pp=1)
     gen = np.random.RandomState(SEED + 24)
     idx_np = gen.randint(0, cfg.vocab_size, (PP_MICRO, SEQ))
@@ -5409,6 +5450,689 @@ def run_axes_at_one(cfg, launches: dict) -> None:
             launches[k] = launches.get(k, 0) + c[k]
 
 
+# =============================================================================
+# Phase 25: the recovery layer (thunder_tpu_torch/resilience)
+# =============================================================================
+
+P25_STEPS = 4
+P25_LR = 1e-4
+P25_OOM_LAYERS = 4
+NAN_GUARD_CALLS = 10
+
+
+def _p25_batches(vocab: int) -> list:
+    """One (ids, targets) batch a step, from SEED: step k reads batch k (the
+    data order a resumed run must restore)."""
+    gen = np.random.RandomState(SEED + 25)
+    out = []
+    for _ in range(P25_STEPS):
+        a = gen.randint(0, vocab, (LOSS_BATCH, SEQ))
+        out.append((torch.from_numpy(a).cuda(), torch.from_numpy(np.roll(a, -1, axis=1)).cuda()))
+    return out
+
+
+def _p25_step(vg, batches):
+    """``run_training``'s step: ``jit(value_and_grad(loss_fn))`` on the step's
+    batch, then the port's bf16-true SGD in place. The state is the params
+    and the step counter."""
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.parallel.train import sgd_update
+
+    def p25_step(state):
+        k = int(state["k"])
+        ids, tgt = batches[k]
+        loss, grads = vg(state["params"], ids, tgt)
+        flat, _ = tree_flatten(state["params"])
+        sgd_update(flat, list(grads), P25_LR, 0.0, in_place=True)
+        return {"params": state["params"], "k": k + 1}, loss
+
+    return p25_step
+
+
+def _p25_vg(cfg, **options):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    def loss_fn(p, i, t):
+        return gpt.loss_fn(p, i, t, cfg)
+
+    return tt.value_and_grad(loss_fn, **options)
+
+
+def _timed_manager(directory: str, **kw):
+    """A ``CheckpointManager`` that keeps the seconds of its last save and
+    restore."""
+    from thunder_tpu_torch.resilience import CheckpointManager
+
+    class Timed(CheckpointManager):
+        save_s = restore_s = None
+
+        def save(self, *a, **k):
+            t = time.perf_counter()
+            out = super().save(*a, **k)
+            self.save_s = time.perf_counter() - t
+            return out
+
+        def restore(self):
+            t = time.perf_counter()
+            out = super().restore()
+            self.restore_s = time.perf_counter() - t
+            return out
+
+    return Timed(directory, backoff_s=0, **kw)
+
+
+def _tree_bytes(tree) -> int:
+    from thunder_tpu_torch.core.pytree import tree_flatten
+
+    return sum(x.numel() * x.element_size() for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor))
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _count_delta(before: dict, launches: dict) -> dict:
+    after = _launch_counts()
+    delta = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    for k, v in delta.items():
+        launches[k] = launches.get(k, 0) + v
+    return delta
+
+
+def run_preempt_resume(cfg, batches, root: str, launches: dict) -> dict:
+    """Phase 25 (a). ``run_training`` for P25_STEPS steps uninterrupted, then
+    preempted at step 2 (the chaos ``preempt`` seam) into a checkpoint, then
+    resumed by a fresh manager and a fresh jit: the losses and every final
+    param bit-equal to the uninterrupted run's. Returns the uninterrupted
+    run's losses and final params for (b)."""
+    import os
+    import shutil
+
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.resilience import Preempted, chaos_scope, run_training
+
+    before = _launch_counts()
+    vg = _p25_vg(cfg)
+    state = {"params": gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda"), "k": 0}
+    nbytes = _tree_bytes(state["params"])
+    t = time.perf_counter()
+    final, losses = run_training(_p25_step(vg, batches), state, P25_STEPS,
+                                 manager=_timed_manager(os.path.join(root, "uninterrupted")))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    ref_params, ref_spec = tree_flatten(final["params"])
+    del state, final
+
+    free0 = shutil.disk_usage(root).free
+    mgr = _timed_manager(os.path.join(root, "preempted"))
+    state = {"params": gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda"), "k": 0}
+    first = []
+    with chaos_scope("preempt@2"):
+        try:
+            run_training(_p25_step(vg, batches), state, P25_STEPS, manager=mgr, on_loss=lambda k, x: first.append(x))
+            stopped = None
+        except Preempted as e:
+            stopped = e.step
+    free1 = shutil.disk_usage(root).free
+    ckpt_bytes = _dir_bytes(mgr._step_dir(2)) if stopped == 2 else 0
+    del state, vg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A fresh "process": a new manager on the directory and a new jit; the
+    # template only says where the restored leaves land.
+    fresh = _timed_manager(os.path.join(root, "preempted"))
+    template = {"params": _cuda_template(ref_spec, len(ref_params)), "k": 0}
+    vg2 = _p25_vg(cfg)
+    resumed, tail = run_training(_p25_step(vg2, batches), template, P25_STEPS, manager=fresh)
+    torch.cuda.synchronize()
+    got = tree_flatten(resumed["params"])[0]
+    same_losses = [bool(torch.equal(a, b)) for a, b in zip(losses, first + tail)]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(ref_params, got))
+    delta = _count_delta(before, launches)
+    log(f"  (a) {cfg.n_layer} layers, params {nbytes / 1e9:.2f} GB: uninterrupted losses "
+        f"{', '.join(f'{x.item():.6f}' for x in losses)} ({full_s:.1f} s); preempted at step {stopped}, then resumed "
+        f"by a fresh manager and jit: {', '.join(f'{x.item():.6f}' for x in first + tail)}; bit-equal "
+        f"{same_losses}; final params bit-equal {unequal == 0} ({unequal} of {len(got)} differ)")
+    log(f"  (a) checkpoint of step {stopped}: {ckpt_bytes / 1e9:.3f} GB on disk, save {mgr.save_s:.2f} s "
+        f"({ckpt_bytes / 1e9 / mgr.save_s:.2f} GB/s), restore {fresh.restore_s:.2f} s "
+        f"({ckpt_bytes / 1e9 / fresh.restore_s:.2f} GB/s, warm: the file cache holds what was just written); "
+        f"free disk {free0 / 1e9:.1f} GB before, {free1 / 1e9:.1f} GB after; launches {delta}")
+    require(stopped == 2 and len(tail) == P25_STEPS - 2, f"the preempted run stopped at {stopped}")
+    require(all(same_losses) and unequal == 0, "the resumed run differs from the uninterrupted one")
+    del resumed, got, template, vg2
+    shutil.rmtree(os.path.join(root, "preempted"), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "params": ref_params, "spec": ref_spec}
+
+
+def _cuda_template(spec, n: int) -> dict:
+    """The params' tree with an empty CUDA tensor a leaf: where a restore
+    lands its leaves."""
+    from thunder_tpu_torch.core.pytree import tree_unflatten
+
+    return tree_unflatten([torch.empty(0, device="cuda") for _ in range(n)], spec)
+
+
+def run_tiered_restore(cfg, batches, ref: dict, root: str, launches: dict) -> None:
+    """Phase 25 (b). ``snapshot_every=1`` with a SnapshotStore, ``host_loss@3``:
+    ``elastic_resume`` onto the same one-rank mesh wins from the RAM tier
+    and the continued step is bit-equal; the snapshots' stall and copy
+    rate."""
+    import json as _json
+    import os
+    import shutil
+
+    from thunder_tpu_torch.core.pytree import tree_flatten, tree_map
+    from thunder_tpu_torch.distributed.runtime import P
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.observability import events as ev
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.resilience import HostLost, SnapshotStore, chaos_scope, elastic_resume, run_training
+
+    before = _launch_counts()
+    vg = _p25_vg(cfg)
+    store = SnapshotStore(host=0, ring=2)
+    mgr = _timed_manager(os.path.join(root, "tiered"), store=store)
+    state = {"params": gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda"), "k": 0}
+    nbytes = _tree_bytes(state["params"])
+    log_path = os.path.join(root, "tiered.jsonl")
+    ev.set_global_path(log_path)
+    try:
+        head = []
+        with chaos_scope("host_loss@3"):
+            try:
+                run_training(_p25_step(vg, batches), state, P25_STEPS, manager=mgr, snapshot_every=1,
+                             on_loss=lambda k, x: head.append(x))
+                lost = None
+            except HostLost as e:
+                lost = e.step
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = make_mesh()
+        template = {"params": _cuda_template(ref["spec"], len(ref["params"])), "k": 0}
+        specs = {"params": tree_map(lambda _: P(), template["params"]), "k": P()}
+        restored, start = elastic_resume(mgr, template, mesh=mesh, specs=specs)
+        _, tail = run_training(_p25_step(vg, batches), restored, P25_STEPS,
+                               manager=_timed_manager(os.path.join(root, "tiered-cont")), start_step=start)
+        torch.cuda.synchronize()
+    finally:
+        ev.set_global_path(None)
+    recs = [_json.loads(line) for line in open(log_path)]
+    snaps = [r for r in recs if r["kind"] == "snapshot"]
+    resume = next(r for r in recs if r["kind"] == "elastic_resume")
+    got = tree_flatten(restored["params"])[0]
+    same = [bool(torch.equal(a, b)) for a, b in zip(ref["losses"], head + tail)]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(ref["params"], got))
+    delta = _count_delta(before, launches)
+    stalls = [r["stall_ms"] for r in snaps]
+    log(f"  (b) host loss at step {lost}; elastic_resume onto {mesh.shape} from tier {resume['tier']} at step "
+        f"{start}; losses {', '.join(f'{x.item():.6f}' for x in head + tail)} bit-equal {same}; final params "
+        f"bit-equal {unequal == 0}; launches {delta}")
+    log(f"  (b) snapshots at steps {[r['step'] for r in snaps]}: stall_ms {stalls} (device -> pinned host, one "
+        f"synchronize, and the crc32 of {nbytes / 1e9:.2f} GB), copy+crc rate "
+        f"{[round(nbytes / 1e6 / ms, 2) for ms in stalls]} GB/s; the disk save at the host loss {mgr.save_s:.2f} s")
+    require(lost == 3 and resume["tier"] == "local" and start == 3, f"tier {resume['tier']} at step {start}")
+    require(all(same) and unequal == 0, "the RAM-tier resume differs from the uninterrupted run")
+    del restored, got, store, mgr, vg
+    shutil.rmtree(os.path.join(root, "tiered"), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ladder_under_cap(vg, params, ids, tgt, cap: int):
+    """One call of ``vg`` with the caching allocator held to ``cap`` bytes
+    (``set_per_process_memory_fraction``, restored to 1.0 after): the
+    outcome (None when it returned, else the error's type), the loss and
+    grads moved to the host, and ``memory_allocated`` once they have left
+    the card."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        try:
+            loss, grads = vg(params, ids, tgt)
+            torch.cuda.synchronize()
+            outcome = None
+        except torch.OutOfMemoryError as e:
+            loss = grads = None
+            outcome = type(e).__name__
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+    if loss is not None:
+        loss, grads = loss.cpu(), [g.cpu() for g in grads]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outcome, loss, grads, torch.cuda.memory_allocated()
+
+
+def run_deopt_oom(cfg, batches, root: str, launches: dict) -> None:
+    """Phase 25 (c). A real ``torch.OutOfMemoryError`` under
+    ``set_per_process_memory_fraction`` climbs the de-opt ladder. L2 is the
+    joint program rematerialized (``rematerialize_joint``); a real failure
+    skips a level that would compile the failing program again (L3 here: no
+    buckets), so the levels climbed only need to rise. Two caps:
+
+    - from ``predict_level_peaks``: between the lowest fitting level's
+      prediction and L0's measured peak (allocated bytes). The planner's
+      prediction is of allocated bytes, and the cap holds the allocator's
+      reserved bytes, which fragmentation puts above them; so the ladder
+      may recover there or end in the typed error, and the outcome is the
+      reading;
+    - from the allocator itself: between that level's measured reserved
+      peak (the level forced, uncapped) and L0's. There the ladder must
+      recover, with the uncapped step's loss and grads.
+
+    When no level is predicted more than 8% below L0 (the planner's
+    measured error), the cap goes under every level and the typed error of
+    the exhausted ladder is the finding. After every run
+    ``memory_allocated`` is a fresh compile's."""
+    import json as _json
+    import os
+
+    from thunder_tpu_torch.analysis.liveness import predict_level_peaks
+    from thunder_tpu_torch.models import gpt
+
+    import thunder_tpu_torch as tt
+
+    small = replace(cfg, n_layer=P25_OOM_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(small, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    ids, tgt = batches[0]
+    base = torch.cuda.memory_allocated()
+    before = _launch_counts()
+
+    def peak_of(level=None):
+        vg = _p25_vg(small)
+        if level is not None:
+            vg._lc_cd._deopt_level = level
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = vg(params, ids, tgt)
+        torch.cuda.synchronize()
+        # Kept on the host: on the card they would shrink the room that a
+        # capped run has beside the params and batch, which the predictions
+        # count.
+        return (vg, loss.cpu(), [g.cpu() for g in grads], torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+
+    vg0, l0, g0, measured, measured_res = peak_of()
+    peaks = predict_level_peaks(tt.last_traces(vg0)[-1])
+    del vg0
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = torch.cuda.memory_allocated()
+    fits = [lv for lv in (1, 2, 3) if peaks[lv] < peaks[0] * 0.92]
+    log(f"  (c) {small.n_layer} layers: L0 measured peak {measured / 2**30:.3f} GiB allocated, "
+        f"{measured_res / 2**30:.3f} reserved; predicted per level "
+        f"{ {k: round(v / 2**30, 3) for k, v in peaks.items()} } GiB")
+    caps = []
+    if fits:
+        lf = min(fits)
+        vgf, lf_loss, lf_grads, lf_alloc, lf_res = peak_of(lf)
+        remat = tt.last_traces(vgf)[-1].tags.get("remat_joint")
+        same = torch.equal(lf_loss, l0) and all(torch.equal(a, b) for a, b in zip(lf_grads, g0))
+        log(f"  (c) L{lf} forced, uncapped: peak {lf_alloc / 2**30:.3f} GiB allocated (predicted "
+            f"{peaks[lf] / 2**30:.3f}), {lf_res / 2**30:.3f} reserved; joint remat {remat}; loss and grads "
+            f"bit-equal to L0's {same}")
+        del vgf, lf_loss, lf_grads
+        caps.append(("predicted", (peaks[lf] + measured) // 2,
+                     f"between L{lf}'s prediction and L0's measured allocated peak"))
+        if lf_res < measured_res * 0.92:
+            caps.append(("reserved", (lf_res + measured_res) // 2,
+                         f"between L{lf}'s and L0's measured reserved peaks"))
+        else:
+            log(f"  (c) L{lf}'s reserved peak is not 8% under L0's: no cap between them")
+    else:
+        caps.append(("under every level", (peaks[0] + measured) // 2 if peaks[0] < measured else int(measured * 0.9),
+                     "under every level (no level is predicted more than 8% below L0)"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, cap, case in caps:
+        log_path = os.path.join(root, f"deopt-{name.replace(' ', '-')}.jsonl")
+        vg = _p25_vg(small, events=log_path)
+        outcome, l1, g1, after = _ladder_under_cap(vg, params, ids, tgt, cap)
+        deopts = [r for r in (_json.loads(line) for line in open(log_path)) if r["kind"] == "compile_deopt"]
+        info = tt.cache_info(vg)
+        log(f"  (c) cap {cap / 2**30:.3f} GiB ({case}), fraction {cap / total:.4f}:")
+        for r in deopts:
+            log(f"  (c)   compile_deopt level {r['level']} ({r['action']}), reason {r['reason']!r}, attempt "
+                f"{r['attempt']}, predicted_peak_bytes {r.get('predicted_peak_bytes')}, capacity_bytes "
+                f"{r.get('capacity_bytes')}, skipped_levels {r.get('skipped_levels')}, repeated_levels "
+                f"{r.get('repeated_levels')}")
+        remat = tt.last_traces(vg)[-1].tags.get("remat_joint") if outcome is None else None
+        log(f"  (c)   outcome: {outcome or 'recovered'} at ladder level {info['degradation_level']} (joint remat "
+            f"{remat}); memory_allocated after {after / 2**30:.4f} GiB, a fresh compile's {fresh / 2**30:.4f} GiB "
+            f"(params and batch {base / 2**30:.4f})")
+        levels = [r["level"] for r in deopts]
+        require(levels and levels == sorted(set(levels)), f"levels {deopts}")
+        require(after == fresh, f"memory_allocated {after} after the ladder, {fresh} after a fresh compile")
+        if outcome is None:
+            require(info["degradation_level"] < 2 or (remat and remat["recomputed"] > 0),
+                    f"level {info['degradation_level']} ran without the joint remat")
+            same = torch.equal(l1, l0) and all(torch.equal(a, b) for a, b in zip(g1, g0))
+            worst = max(float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30))
+                        for a, b in zip(g1, g0))
+            log(f"  (c)   the recovered step against the uncapped one: bit-equal {same}; worst grad rel {worst:.3e}")
+            require(same or worst <= 2.0 ** -7, "the recovered step differs from the uncapped one")
+        else:
+            require(outcome == "OutOfMemoryError", f"the exhausted ladder gave {outcome}")
+        require(name != "reserved" or outcome is None, f"the ladder did not recover under {case}: {outcome}")
+        require(name != "under every level" or outcome is not None, "the step fit under every level's cap")
+        del vg, l1, g1
+    log(f"  (c) launches {_count_delta(before, launches)}")
+    del params, g0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_demotion(cfg, launches: dict) -> None:
+    """Phase 25 (d). ``kernel_raise`` on the flash wrapper: the first call
+    demotes loudly and its entry launches rows 6-7 zero times, its loss
+    within phase 4's flash-against-torch limit of the undemoted loss and
+    equal to the fused and torch executors' (the default less flash); after
+    ``clear_quarantine`` a recompile launches the flash kernels again."""
+    import json as _json
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.resilience import clear_quarantine, quarantine_snapshot
+
+    two = replace(cfg, n_layer=2)
+    params = gpt.init_params(two, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    gen = np.random.RandomState(SEED)
+    a = gen.randint(0, two.vocab_size, (LOSS_BATCH, SEQ))
+    ids, tgt = torch.from_numpy(a).cuda(), torch.from_numpy(np.roll(a, -1, axis=1)).cuda()
+    kernels = ("flash_fwd_lse", "flash_bwd")
+    want = float(_p25_vg(two)(params, ids, tgt)[0])
+    # The default executors less flash: the program the demoted entry runs.
+    fused_loss = _p25_vg(two, executors=["fused", "torch"])(params, ids, tgt)[0]
+
+    class Grab(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.msgs = []
+
+        def emit(self, record):
+            self.msgs.append(record.getMessage())
+
+    grab = Grab()
+    logger = logging.getLogger("thunder_tpu_torch")
+    logger.addHandler(grab)
+    log_path = os.path.join(tempfile.mkdtemp(), "demote.jsonl")
+    try:
+        vg = _p25_vg(two, chaos="kernel_raise@flash*1", events=log_path)
+        before = _launch_counts()
+        losses = [vg(params, ids, tgt)[0] for _ in range(3)]  # the demoted entry: eager, capture, replay
+        torch.cuda.synchronize()
+        delta = _count_delta(before, launches)
+    finally:
+        logger.removeHandler(grab)
+    events = [r for r in (_json.loads(line) for line in open(log_path)) if r["kind"] in ("fault_injected",
+                                                                                       "executor_demoted")]
+    shutil.rmtree(os.path.dirname(log_path), ignore_errors=True)
+    quarantined = sorted(f"{s}:{e}" for s, e in quarantine_snapshot())
+    rel = abs(float(losses[0]) - want) / abs(want)
+    log(f"  (d) WARNING lines: {grab.msgs}")
+    log(f"  (d) events: {[(r['kind'], r.get('sym') or r.get('target'), r.get('executor')) for r in events]}; "
+        f"quarantined {quarantined}")
+    log(f"  (d) demoted loss {float(losses[0]):.6f} (3 calls bit-equal {all(torch.equal(x, losses[0]) for x in losses)}; "
+        f"fused and torch executors {float(fused_loss):.6f}, bit-equal {bool(torch.equal(losses[0], fused_loss))}), "
+        f"undemoted {want:.6f}, rel {rel:.3e} (phase 4's limit {LOSS_REL:.0e}); launches of rows 6-7 over the 3 calls "
+        f"{ {k: delta.get(k, 0) for k in kernels} }")
+    require(grab.msgs and any("flash" in m for m in grab.msgs), "the demotion logged no WARNING")
+    require([r["kind"] for r in events][:2] == ["fault_injected", "executor_demoted"], f"events {events}")
+    require(all(delta.get(k, 0) == 0 for k in kernels), f"the demoted entry launched {delta}")
+    require(rel <= LOSS_REL and bool(torch.equal(losses[0], fused_loss)), "the demoted loss")
+    clear_quarantine()
+    before = _launch_counts()
+    again = _p25_vg(two)
+    back = float(again(params, ids, tgt)[0])
+    delta = _count_delta(before, launches)
+    log(f"  (d) after clear_quarantine(): a recompile launches {({k: delta.get(k, 0) for k in kernels})}, loss "
+        f"{back:.6f} (undemoted {want:.6f})")
+    require(all(delta.get(k, 0) == two.n_layer for k in kernels) and back == want, "flash did not come back")
+    del params, vg, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_nan_guard(cfg, batches, launches: dict) -> None:
+    """Phase 25 (e). The isfinite guard's cost on the clean staged step
+    (``on_nan=None`` against ``"raise"``, device and wall ms over
+    NAN_GUARD_CALLS calls, in turns), then a ``nan`` on one line under
+    ``"rerun-instrumented"`` naming that line's symbol, at 2 layers."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.resilience import NonFiniteOutputError
+
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    ids, tgt = batches[0]
+    before = _launch_counts()
+    plain, guarded = _p25_vg(cfg), _p25_vg(cfg, on_nan="raise")
+    n_grads = len(plain(params, ids, tgt)[1])
+    guarded(params, ids, tgt)
+    for f in (plain, guarded):
+        f(params, ids, tgt)  # the capture
+    torch.cuda.synchronize()
+
+    def timed(f):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        for _ in range(NAN_GUARD_CALLS):
+            f(params, ids, tgt)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / NAN_GUARD_CALLS, (time.perf_counter() - t) * 1e3 / NAN_GUARD_CALLS
+
+    rounds = [(timed(plain), timed(guarded)) for _ in range(2)]
+    staged = (tt.last_staging(plain).staged, tt.last_staging(guarded).staged)
+    split = {}
+    for name, f in (("off", plain), ("raise", guarded)):
+        split[name] = sum(kernel_split_us(lambda f=f: f(params, ids, tgt), calls=3).values()) / 1e3
+    delta = _count_delta(before, launches)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"  (e) {cfg.n_layer} layers on {smi}, staged {staged}, {n_grads} grads + the loss checked: "
+        + "; ".join(f"round {i + 1}: on_nan=None {a[0]:.2f} ms event-timed, {a[1]:.2f} ms wall; 'raise' "
+                    f"{b[0]:.2f} ms, {b[1]:.2f} ms wall" for i, (a, b) in enumerate(rounds))
+        + f"; device busy (profiler, kernels only) off {split['off']:.2f} ms, raise {split['raise']:.2f} ms a call; "
+        f"launches {delta}")
+    require(all(staged), "a step is not staged")
+    del plain, guarded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    two = replace(cfg, n_layer=2)
+    p2 = gpt.init_params(two, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    probe = _p25_vg(two)
+    probe(p2, ids, tgt)
+    claimed = tt.last_traces(probe)[-2]
+    i, target = next((i, b) for i, b in enumerate(claimed.bound_symbols) if b.sym.name == "sdpa_fwd_res")
+    out_name = target.flat_proxy_outs[0].name
+    vg = _p25_vg(two, chaos=f"nan@L{i}*1", on_nan="rerun-instrumented")
+    try:
+        vg(p2, ids, tgt)
+        err = None
+    except NonFiniteOutputError as e:
+        err = e
+    log(f"  (e) nan on line L{i} ({target.sym.name}, output {out_name}) under 'rerun-instrumented': "
+        f"{type(err).__name__ if err else 'no error'}: symbol {err and err.symbol!r}, line {err and err.line!r}, "
+        f"provenance {err and err.provenance!r}")
+    require(err is not None and err.symbol == "chaos_nan_poison" and f"chaos_nan_poison({out_name})" in err.line,
+            "the NaN guard did not name the poisoned line")
+    del p2, probe, vg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+P25_WATCHDOG_LAYERS = 2
+
+
+def _hang_under_watchdog(label: str, call, want_lines, staging=None):
+    """One call of ``call()`` under a 2 s watchdog (``monitor.
+    configure_watchdog``) and ``collective_hang~3.0`` (a 3 s sleep inside the
+    guarded region): the ``CollectiveTimeoutError`` it raises, the seconds to
+    it, and the replays the abandoned worker ran once it woke. Then the
+    watchdog is turned off again."""
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.resilience import CollectiveTimeoutError, chaos_scope, watchdog
+
+    replays = staging.replays if staging is not None else None
+    monitor.configure_watchdog(2.0)
+    t = time.perf_counter()
+    try:
+        with chaos_scope("collective_hang~3.0"):
+            call()
+        err = None
+    except CollectiveTimeoutError as e:
+        err = e
+    finally:
+        elapsed = time.perf_counter() - t
+        monitor.configure_watchdog(None)
+    for worker in list(watchdog._abandoned):
+        worker.join(timeout=60)
+    torch.cuda.synchronize()
+    ran = None if staging is None else staging.replays - replays
+    lines = list(err.trace_lines) if err is not None else None
+    log(f"  (f) {label}: {type(err).__name__ if err else 'no error'} after {elapsed:.2f} s naming {lines}; the "
+        f"program's own collective lines {list(want_lines)}; replays run by the abandoned worker {ran}")
+    require(err is not None and elapsed < 2.9, f"{label}: the watchdog did not fire within its timeout")
+    require(want_lines and lines == list(want_lines), f"{label}: the error names {lines}, not {list(want_lines)}")
+    require(staging is None or ran == 1, f"{label}: the abandoned worker ran {ran} replays, not 1")
+
+
+def run_watchdog(cfg, batches, launches: dict) -> None:
+    """Phase 25 (f), at one NCCL rank, through the two dispatch sites the
+    watchdog guards. (1) ``jit``: open_llama_3b's ddp step as one
+    ``value_and_grad`` program, every param through ``synchronize`` over
+    dp (its backward all-reduces the grad), staged; under the watchdog the
+    staged replay runs on a worker thread on the caller's stream, and the
+    error names the entry's own collective lines. The next unguarded call
+    gives the loss and grads of the same step with no collectives, bit for
+    bit (at one rank the average divides by 1). (2)
+    ``distributed/runtime.shard_map_callable``: the all-reduce of a
+    (hidden, intermediate) bf16 grad, staged; the error names the
+    callable's ``trace_lines``; the next call gives its one-rank value."""
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+    from thunder_tpu_torch.distributed import prims as dist
+    from thunder_tpu_torch.distributed.prims import collective_trace_lines
+    from thunder_tpu_torch.distributed.runtime import P, bound_axes, compile_with_collectives, resolve_axes
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import make_mesh
+
+    small = replace(cfg, n_layer=P25_WATCHDOG_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = gpt.init_params(small, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    ids, tgt = batches[0]
+
+    def ddp_loss(p, i, t):
+        flat, spec = tree_flatten(p)
+        return gpt.loss_fn(tree_unflatten(spec, [dist.synchronize(w, "dp", 1, "replicated") for w in flat]), i, t,
+                           small)
+
+    before = _launch_counts()
+    dist_init()
+    try:
+        ddp = tt.value_and_grad(ddp_loss)
+        plain = _p25_vg(small)
+        with bound_axes(resolve_axes(make_mesh(dp=1), ["dp"])):
+            want_l, want_g = plain(params, ids, tgt)
+            want_g = [g.clone() for g in tree_flatten(want_g)[0]]
+            for _ in range(3):  # warm-up, capture, replay
+                ddp(params, ids, tgt)
+            torch.cuda.synchronize()
+            st = tt.last_staging(ddp)
+            lines = collective_trace_lines(tt.last_traces(ddp)[-1])
+            log(f"  (f) jit: the ddp step of {small.n_layer} layers staged {st.staged} (captures {st.captures}, "
+                f"replays {st.replays}); {len(collective_trace_lines(tt.last_traces(ddp)[-1], limit=10**6))} "
+                f"collective lines")
+            require(st.staged and st.replays >= 1, "the ddp step is not staged")
+            _hang_under_watchdog("jit", lambda: ddp(params, ids, tgt), lines, st)
+            got_l, got_g = ddp(params, ids, tgt)
+            torch.cuda.synchronize()
+            same = torch.equal(got_l, want_l) and all(torch.equal(a, b)
+                                                      for a, b in zip(tree_flatten(got_g)[0], want_g))
+            log(f"  (f) jit: the next unguarded call's loss {got_l.item():.6f}, the step with no collectives "
+                f"{want_l.item():.6f}; loss and {len(want_g)} grads bit-equal {same}")
+            require(same, "the ddp step after the hang differs from the step with no collectives")
+            del got_g, want_g, ddp, plain
+        grad = torch.randn((OPEN_LLAMA_3B.hidden_size, OPEN_LLAMA_3B.intermediate_size),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 25), device="cuda"
+                           ).to(torch.bfloat16)
+        jf, _ = compile_with_collectives(lambda a: dist.all_reduce(a, "dp", 1), (grad,), None, (P(),), P())
+        for _ in range(3):
+            jf(grad)
+        torch.cuda.synchronize()
+        _hang_under_watchdog("shard_map_callable", lambda: jf(grad), jf.trace_lines, jf.staging)
+        out = jf(grad)
+        torch.cuda.synchronize()
+        log(f"  (f) shard_map_callable: the next call equals its one-rank value {torch.equal(out, grad)}")
+        require(torch.equal(out, grad), "the all-reduce after the hang differs from its one-rank value")
+        del jf, out, grad
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 25 (f)")
+    log(f"  (f) launches {_count_delta(before, launches)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_resilience(cfg, launches: dict) -> None:
+    """Phase 25 (a)-(f)."""
+    import shutil
+    import tempfile
+
+    batches = _p25_batches(cfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="phase25-")
+    try:
+        free = shutil.disk_usage(root).free
+        need = 4 * 7e9
+        full = cfg if free > need else replace(cfg, n_layer=max(2, int(cfg.n_layer * free / need)))
+        if full is not cfg:
+            log(f"  only {free / 1e9:.1f} GB of disk free: (a)-(b) run at {full.n_layer} layers, full width")
+        t = time.perf_counter()
+        ref = run_preempt_resume(full, batches, root, launches)
+        log(f"  (a) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_tiered_restore(full, batches, ref, root, launches)
+        log(f"  (b) took {time.perf_counter() - t:.1f} s")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        run_deopt_oom(cfg, batches, root, launches)
+        log(f"  (c) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_demotion(cfg, launches)
+        log(f"  (d) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_nan_guard(cfg, batches, launches)
+        log(f"  (e) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_watchdog(cfg, batches, launches)
+        log(f"  (f) took {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5565,7 +6289,7 @@ def main() -> int:
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 23")
 
-    log(f"[24] context, pipeline and expert parallelism, one NCCL rank: (a) {CFG_NAME}, {cfg.n_layer} layers, "
+    log(f"[24] context, pipeline and expert parallelism, one NCCL rank: (a) {CFG_NAME}, {PP_LAYERS} layers, "
         f"pipelined on pp=1, GPipe and 1F1B against the unpipelined step; (b) mixtral-8x7b's expert MLP at ep=1; "
         "(c) ring and Ulysses attention at sp=1; (d) a mesh naming pp, ep and sp at 1")
     dist_init()
@@ -5581,6 +6305,12 @@ def main() -> int:
         torch.cuda.synchronize()
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 24")
+
+    log(f"[25] the recovery layer: (a) {CFG_NAME}, {cfg.n_layer} layers, run_training preempted at step 2 and "
+        "resumed by a fresh manager and jit; (b) snapshots and a host loss, the RAM-tier elastic resume; (c) the "
+        "de-opt ladder on a real out-of-memory; (d) kernel_raise on the flash wrapper; (e) the NaN guard; (f) the "
+        "collective watchdog at jit's and shard_map_callable's dispatch, one NCCL rank")
+    run_resilience(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

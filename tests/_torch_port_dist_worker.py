@@ -15,7 +15,9 @@ torch seed, which the JAX package's module frontend takes as they are):
 
 SCENARIOS may name a group: "@train" (the sharded step over dp, fsdp and
 tp), "@parallel" (context, pipeline and expert parallelism, and the step
-over pp, ep and sp).
+over pp, ep and sp), "@resilience" (the recovery layer: a synced
+preemption, the SDC guard, host loss and the elastic resume, reshards, the
+collective watchdog).
 
 A scenario returns the numbers the test compares (lists of floats) and its
 own checks' verdicts; each runs under a time limit of its own, and after a
@@ -1317,6 +1319,266 @@ PARALLEL_SCENARIOS = {
 }
 
 
+# =============================================================================
+# The recovery layer on ranks (tests/test_torch_port_resilience_ranks.py):
+# SCENARIOS "@resilience"
+# =============================================================================
+
+# The state and step of tests/test_mesh_resilience.py, on a fsdp x tp mesh:
+# "b" replicated on every rank, "w" split over both axes (insertion order
+# puts "b" first, as the JAX package's sorted keys do: it is leaf0 in both).
+RES_STEPS = 6
+RES_LOSS_AT = 3
+
+
+def _res_state_np() -> dict:
+    return {"b": np.ones(4, np.float32), "w": np.arange(32, dtype=np.float32).reshape(8, 4) * 0.01}
+
+
+def _res_layout(axes: dict):
+    from thunder_tpu_torch.distributed.runtime import P
+    from thunder_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(**axes)
+    split = tuple(a for a in ("fsdp", "tp") if axes.get(a, 1) > 1)
+    w_spec = P(split[0] if split else None, split[1] if len(split) > 1 else None)
+    return mesh, {"b": P(), "w": w_spec}
+
+
+def _res_step(mesh, specs):
+    """One SGD step of mean((w @ b)^2) on the whole leaves, gathered from and
+    split back to this rank's blocks: a new state each call, never the input
+    updated in place (the SDC guard re-runs from the previous state)."""
+    import torch
+
+    from thunder_tpu_torch.parallel import gather_pytree, shard_pytree
+
+    def step(state):
+        whole = gather_pytree(state, mesh, specs)
+        b = whole["b"].detach().clone().requires_grad_()
+        w = whole["w"].detach().clone().requires_grad_()
+        loss = torch.mean((w @ b) ** 2)
+        loss.backward()
+        new = {"b": (b - 0.1 * b.grad).detach(), "w": (w - 0.1 * w.grad).detach()}
+        return shard_pytree(new, mesh, specs), float(loss)
+
+    return step
+
+
+class ResilienceRank:
+    """The "@resilience" scenarios, a rank each."""
+
+    def _blocks(self, axes):
+        import torch
+
+        from thunder_tpu_torch.parallel import shard_pytree
+
+        mesh, specs = _res_layout(axes)
+        state = shard_pytree({k: torch.from_numpy(v) for k, v in _res_state_np().items()}, mesh, specs)
+        return mesh, specs, state
+
+    def res_synced_preemption(self):
+        """SIGTERM's flag on rank 1 only (the chaos preempt seam with a host
+        clause): every rank stops at the same step boundary and enters the
+        same save; only rank 0 writes META.json and renames the step."""
+        from thunder_tpu_torch.resilience import chaos, preemption
+
+        mesh, specs, state = self._blocks(RES_MESH[self.world])
+        mgr = preemption.CheckpointManager(os.path.join(self.ckpt, "preempt"), backoff_s=0)
+        metas = []
+        real_dump = json.dump
+
+        class _Json:
+            load = staticmethod(json.load)
+
+            @staticmethod
+            def dump(obj, f, **kw):
+                metas.append(os.path.basename(f.name))
+                return real_dump(obj, f, **kw)
+
+        preemption.json = _Json
+        try:
+            with chaos.chaos_scope("preempt@2,host=1"):
+                try:
+                    preemption.run_training(_res_step(mesh, specs), state, RES_STEPS, manager=mgr, mesh=mesh,
+                                            specs=specs)
+                    stopped = None
+                except preemption.Preempted as e:
+                    stopped = e.step
+        finally:
+            preemption.json = json
+        import torch.distributed as dist
+
+        dist.barrier()
+        return {"stopped": stopped, "meta_writes": metas, "primary": preemption._is_primary(),
+                "committed": mgr.latest_complete_step()}
+
+    def _sdc_run(self, spec, guard):
+        from thunder_tpu_torch.resilience import chaos, preemption
+        from thunder_tpu_torch.observability import events as ev
+
+        mesh, specs, state = self._blocks(RES_MESH[self.world])
+        log = os.path.join(self.out, f"sdc{self.rank}-{abs(hash(spec)) % 1000}.jsonl")
+        ev.set_global_path(log)
+        try:
+            with chaos.chaos_scope(spec):
+                _, losses = preemption.run_training(
+                    _res_step(mesh, specs), state, 5,
+                    manager=preemption.CheckpointManager(os.path.join(self.ckpt, f"sdc{abs(hash(spec)) % 1000}"),
+                                                         backoff_s=0),
+                    mesh=mesh, specs=specs, sdc_guard=guard)
+        finally:
+            ev.set_global_path(None)
+        recs = [json.loads(line) for line in open(log)] if os.path.exists(log) else []
+        return losses, recs
+
+    def res_sdc_guard(self):
+        """``sdc`` injected into one replica of the replicated leaf on the
+        fsdp x tp mesh: the guard names that leaf and that rank, quarantines
+        the step and re-runs it; the losses are the uninterrupted run's. A
+        corruption that persists raises SDCDetectedError."""
+        from thunder_tpu_torch.resilience import preemption, watchdog
+
+        mesh, specs, state = self._blocks(RES_MESH[self.world])
+        _, baseline = preemption.run_training(
+            _res_step(mesh, specs), state, 5,
+            manager=preemption.CheckpointManager(os.path.join(self.ckpt, "sdc-base"), backoff_s=0))
+        losses, recs = self._sdc_run("sdc*1", True)
+        suspect = [r for r in recs if r["kind"] == "sdc_suspect"]
+        rerun = [r for r in recs if r["kind"] == "sdc_rerun"]
+        try:
+            self._sdc_run("sdc*inf", watchdog.SDCGuard(max_reruns=2))
+            persistent = None
+        except watchdog.SDCDetectedError as e:
+            persistent = e.leaves
+        return {"baseline": baseline, "losses": losses, "suspect_leaves": [r["leaves"] for r in suspect],
+                "suspect_devices": [r["devices"] for r in suspect], "reruns_ok": [r["ok"] for r in rerun],
+                "persistent": persistent}
+
+    def res_host_loss(self):
+        """``host_loss`` at step 3 on the fsdp x tp mesh: every rank agrees,
+        saves the step with the mesh shape, and raises HostLost; the
+        uninterrupted run's losses are returned for the resume to meet."""
+        from thunder_tpu_torch.resilience import chaos, preemption
+
+        mesh, specs, state = self._blocks(RES_MESH[self.world])
+        _, baseline = preemption.run_training(
+            _res_step(mesh, specs), state, RES_STEPS,
+            manager=preemption.CheckpointManager(os.path.join(self.ckpt, "loss-base"), backoff_s=0))
+        mgr = preemption.CheckpointManager(os.path.join(self.ckpt, "host-loss"), backoff_s=0)
+        with chaos.chaos_scope(f"host_loss@{RES_LOSS_AT}"):
+            try:
+                preemption.run_training(_res_step(mesh, specs), state, RES_STEPS, manager=mgr, mesh=mesh,
+                                        specs=specs)
+                lost = None
+            except preemption.HostLost as e:
+                lost = e.step
+        import torch.distributed as dist
+
+        dist.barrier()
+        meta = json.load(open(os.path.join(mgr._step_dir(RES_LOSS_AT), mgr.META)))
+        return {"baseline": baseline, "lost": lost, "mesh": meta["mesh"]}
+
+    def res_elastic_resume(self):
+        """The surviving ranks (this spawn, 2 of them) resume the 4-rank
+        spawn's host-loss checkpoint onto fsdp2 through the tiered restore
+        and continue the run."""
+        import torch
+
+        from thunder_tpu_torch.observability import events as ev
+        from thunder_tpu_torch.resilience import elastic, preemption
+
+        mesh, specs = _res_layout({"fsdp": 2})
+        mgr = preemption.CheckpointManager(os.path.join(self.ckpt, "host-loss"), backoff_s=0)
+        log = os.path.join(self.out, f"elastic{self.rank}.jsonl")
+        ev.set_global_path(log)
+        try:
+            init = {k: torch.from_numpy(v) for k, v in _res_state_np().items()}
+            state, start = elastic.elastic_resume(mgr, init, mesh=mesh, specs=specs)
+        finally:
+            ev.set_global_path(None)
+        _, cont = preemption.run_training(
+            _res_step(mesh, specs), state, RES_STEPS,
+            manager=preemption.CheckpointManager(os.path.join(self.ckpt, f"cont{self.rank}"), backoff_s=0),
+            start_step=start)
+        rec = next(json.loads(line) for line in open(log) if json.loads(line)["kind"] == "elastic_resume")
+        return {"start": start, "continued": cont, "event": rec}
+
+    def res_reshard(self):
+        """gpt-tiny's params and SGD state: fsdp2·tp2 -> dp2·fsdp2 (fsdp2
+        replicated twice over the 4 ranks) -> fsdp4 (4x1) -> fsdp2·tp2, each
+        hop bitwise against the whole params, and the reshard to one rank's
+        layout (every leaf whole on each rank) bitwise too."""
+        import torch
+
+        from thunder_tpu_torch.core.pytree import tree_flatten, tree_map
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import gather_pytree, gpt_param_specs, make_mesh, shard_pytree
+        from thunder_tpu_torch.parallel.sharding import _is_spec
+        from thunder_tpu_torch.resilience import elastic
+
+        cfg = m.name_to_config("gpt-tiny")
+        full = m.params_from_jax(_np_params("gpt-tiny"), device="cpu")
+        ref = tree_flatten(full)[0]
+        hops = [{"fsdp": 2, "tp": 2}, {"dp": 2, "fsdp": 2}, {"fsdp": 4}, {"fsdp": 2, "tp": 2}]
+        mesh = make_mesh(**hops[0])
+        specs = gpt_param_specs(cfg, mesh)
+        current = shard_pytree(full, mesh, specs)
+        for axes in hops[1:]:
+            to = make_mesh(**axes)
+            to_specs = gpt_param_specs(cfg, to)
+            current = elastic.reshard_state(current, to, to_specs, src_mesh=mesh, src_specs=specs)
+            got = tree_flatten(gather_pytree(current, to, to_specs))[0]
+            assert len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref)), axes
+            mesh, specs = to, to_specs
+        one = tree_map(lambda s: P(), specs, is_leaf=_is_spec)
+        whole = elastic.reshard_state(current, mesh, one, src_mesh=mesh, src_specs=specs)
+        assert all(torch.equal(a, b) for a, b in zip(tree_flatten(whole)[0], ref))
+        return {"hops": len(hops) - 1, "leaves": len(ref)}
+
+    def res_watchdog(self):
+        """A guarded ``shard_map_callable`` whose collective hangs (the chaos
+        seam's sleep, longer than the timeout) raises CollectiveTimeoutError
+        within the timeout, naming its collective lines; the next call,
+        unguarded, gives the right sum."""
+        import torch
+
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.resilience import chaos, watchdog
+
+        n = self.world
+        x = torch.arange(4 * n, dtype=torch.float32).reshape(n, 4)
+        jf, _ = compile_with_collectives(lambda a: dist.all_reduce(a, "dp", n), (x[:1],), make_mesh(dp=n),
+                                         (P("dp", None),), P(None, None))
+        watchdog.configure(1.0)
+        t0 = time.perf_counter()
+        try:
+            with chaos.chaos_scope("collective_hang~3.0"):
+                jf(x)
+            raised = None
+        except watchdog.CollectiveTimeoutError as e:
+            raised = {"lines": e.trace_lines, "timeout_s": e.timeout_s}
+        elapsed = time.perf_counter() - t0
+        watchdog.configure(None)
+        # The abandoned workers finish their sleep and their collective
+        # together, on every rank, before the next call.
+        for t in list(watchdog._abandoned):
+            t.join(timeout=30)
+        out = jf(x)
+        ok = bool(torch.equal(out[0], x.sum(0)))
+        return {"raised": raised, "elapsed": elapsed, "sum_ok": ok}
+
+
+RES_MESH = {4: {"fsdp": 2, "tp": 2}, 2: {"fsdp": 2}}
+RESILIENCE_SCENARIOS = {
+    4: ["res_synced_preemption", "res_sdc_guard", "res_host_loss", "res_reshard", "res_watchdog"],
+    2: ["res_elastic_resume", "res_synced_preemption", "res_watchdog"],
+}
+
+
 def _timeout(signum, frame):
     raise TimeoutError(f"scenario exceeded {LIMIT_S} s")
 
@@ -1332,13 +1594,15 @@ def run_torch(rank: int, world: int, store_path: str, out: str, ckpt: str, scena
     store = torch.distributed.FileStore(store_path, world)
     td.init(device="cpu", store=store, num_processes=world, process_id=rank, timeout=timedelta(seconds=LIMIT_S))
     runner = TorchRank(rank, world, ckpt, out)
+    res_runner = ResilienceRank()
+    res_runner.rank, res_runner.world, res_runner.ckpt, res_runner.out = rank, world, ckpt, out
     results = {}
     signal.signal(signal.SIGALRM, _timeout)
     for name in scenarios or TORCH_SCENARIOS[world]:
         t0 = time.perf_counter()
         signal.alarm(LIMIT_S)
         try:
-            results[name] = {"ok": True, **getattr(runner, name)()}
+            results[name] = {"ok": True, **getattr(res_runner if name.startswith("res_") else runner, name)()}
             torch.distributed.barrier()
         except BaseException:  # noqa: BLE001 - recorded for the test, and the rank stops here
             results[name] = {"ok": False, "error": traceback.format_exc()[-4000:]}
@@ -1770,6 +2034,89 @@ JAX_PARALLEL_SCENARIOS = {
 }
 
 
+def _jax_res(world: int):
+    """The JAX side of "@resilience": tests/test_mesh_resilience.py's step
+    on fsdp2 x tp2 (4 devices), the same state as the ranks'."""
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.sharding import shard_pytree
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_mesh_resilience import _mesh_step
+
+    mesh = make_mesh(fsdp=2, tp=2)
+    specs = {"b": JP(), "w": JP("fsdp", "tp")}
+    return mesh, specs, _mesh_step(mesh, specs), shard_pytree(_res_state_np(), mesh, specs)
+
+
+def jax_res_sdc_guard(world: int):
+    import tempfile
+
+    from thunder_tpu.observability import events as ev
+    from thunder_tpu.resilience import chaos, watchdog
+    from thunder_tpu.resilience.preemption import CheckpointManager, run_training
+
+    mesh, specs, step, state = _jax_res(world)
+    root = tempfile.mkdtemp()
+    _, baseline = run_training(step, state, 5, manager=CheckpointManager(os.path.join(root, "a")))
+    log = os.path.join(root, "ev.jsonl")
+    ev.set_global_path(log)
+    try:
+        with chaos.chaos_scope("sdc*1"):
+            _, losses = run_training(step, state, 5, manager=CheckpointManager(os.path.join(root, "b")),
+                                     sdc_guard=True)
+    finally:
+        ev.set_global_path(None)
+    recs = [json.loads(line) for line in open(log)]
+    try:
+        with chaos.chaos_scope("sdc*inf"):
+            run_training(step, state, 3, manager=CheckpointManager(os.path.join(root, "c")),
+                         sdc_guard=watchdog.SDCGuard(max_reruns=2))
+        persistent = None
+    except watchdog.SDCDetectedError as e:
+        persistent = e.leaves
+    suspect = [r for r in recs if r["kind"] == "sdc_suspect"]
+    return {"baseline": baseline, "losses": losses, "suspect_leaves": [r["leaves"] for r in suspect],
+            "suspect_devices": [r["devices"] for r in suspect],
+            "reruns_ok": [r["ok"] for r in recs if r["kind"] == "sdc_rerun"], "persistent": persistent}
+
+
+def jax_res_host_loss(world: int):
+    """Host loss at step 3 on fsdp2 x tp2, then the elastic resume onto
+    fsdp2 over the first 2 devices."""
+    import tempfile
+
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.resilience import chaos, elastic
+    from thunder_tpu.resilience.preemption import CheckpointManager, HostLost, run_training
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_mesh_resilience import _mesh_step
+
+    mesh, specs, step, state = _jax_res(world)
+    root = tempfile.mkdtemp()
+    _, baseline = run_training(step, state, RES_STEPS, manager=CheckpointManager(os.path.join(root, "a")))
+    mgr = CheckpointManager(os.path.join(root, "ck"))
+    with chaos.chaos_scope(f"host_loss@{RES_LOSS_AT}"):
+        try:
+            run_training(step, state, RES_STEPS, manager=mgr, mesh=mesh)
+            lost = None
+        except HostLost as e:
+            lost = e.step
+    mesh2 = make_mesh(fsdp=2)
+    specs2 = {"b": JP(), "w": JP("fsdp", None)}
+    restored, start = elastic.elastic_resume(mgr, state, mesh=mesh2, specs=specs2)
+    _, cont = run_training(_mesh_step(mesh2, specs2), restored, RES_STEPS,
+                           manager=CheckpointManager(os.path.join(root, "b")), start_step=start)
+    return {"baseline": baseline, "lost": lost, "start": start, "continued": cont}
+
+
+JAX_RESILIENCE_SCENARIOS = {4: ["res_sdc_guard", "res_host_loss"]}
+
+
 def run_jax(world: int, out: str, scenarios=None) -> None:
     import jax
 
@@ -1786,7 +2133,7 @@ def run_jax(world: int, out: str, scenarios=None) -> None:
         json.dump(results, f)
 
 
-GROUPS = {"@train": TRAIN_SCENARIOS, "@parallel": PARALLEL_SCENARIOS}
+GROUPS = {"@train": TRAIN_SCENARIOS, "@parallel": PARALLEL_SCENARIOS, "@resilience": RESILIENCE_SCENARIOS}
 
 if __name__ == "__main__":
     if sys.argv[1] == "torch":
@@ -1799,4 +2146,6 @@ if __name__ == "__main__":
         names = sys.argv[4] if len(sys.argv) > 4 else None
         if names == "@parallel":
             names = ",".join(JAX_PARALLEL_SCENARIOS[int(sys.argv[2])])
+        elif names == "@resilience":
+            names = ",".join(JAX_RESILIENCE_SCENARIOS[int(sys.argv[2])])
         run_jax(int(sys.argv[2]), sys.argv[3], names.split(",") if names else None)

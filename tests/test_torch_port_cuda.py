@@ -2422,3 +2422,155 @@ def test_mesh_naming_pp_ep_sp_at_one_nccl_rank_is_bit_equal(nccl_rank):
     (l0, p0), (l1, p1) = runs
     assert all(torch.equal(a, b) for a, b in zip(l0, l1))
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+# =============================================================================
+# The recovery layer on the card (thunder_tpu_torch/resilience)
+# =============================================================================
+
+
+def _tiny_llama(dev, n_layer=2):
+    """open_llama_3b's head size and layout at a test width, on the card."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch.models import gpt
+
+    cfg = replace(gpt.name_to_config("open_llama_3b"), n_layer=n_layer, n_embd=400, n_head=4, n_query_groups=4,
+                  intermediate_size=1088, vocab_size=512, padded_vocab_size=512)
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+    gen = np.random.RandomState(0)
+    batches = []
+    for _ in range(4):
+        a = gen.randint(0, cfg.vocab_size, (2, 256))
+        batches.append((torch.from_numpy(a).to(dev), torch.from_numpy(np.roll(a, -1, axis=1)).to(dev)))
+    return cfg, params, batches
+
+
+def _vg(cfg, **options):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+
+    return tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), **options)
+
+
+def _sgd_step(vg, batches):
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.parallel.train import sgd_update
+
+    def step(state):
+        k = int(state["k"])
+        loss, grads = vg(state["params"], *batches[k])
+        sgd_update(tree_flatten(state["params"])[0], list(grads), 1e-3, 0.0, in_place=True)
+        return {"params": state["params"], "k": k + 1}, loss
+
+    return step
+
+
+def test_resume_is_bit_equal_on_the_card(dev, tmp_path, monkeypatch):
+    """A 2-layer staged step preempted at step 2 and resumed by a fresh
+    manager and a fresh jit: losses and final params ``torch.equal`` to the
+    uninterrupted run's."""
+    from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+    from thunder_tpu_torch.resilience import CheckpointManager, Preempted, chaos_scope, run_training
+
+    monkeypatch.setenv("THUNDER_TPU_RETRY_BACKOFF_S", "0")
+    cfg, params, batches = _tiny_llama(dev)
+    init = [p.clone() for p in tree_flatten(params)[0]]
+    spec = tree_flatten(params)[1]
+    final, losses = run_training(_sgd_step(_vg(cfg), batches), {"params": params, "k": 0}, 4,
+                                 manager=CheckpointManager(str(tmp_path / "a"), backoff_s=0))
+    ref = [p.clone() for p in tree_flatten(final["params"])[0]]
+    first = []
+    mgr = CheckpointManager(str(tmp_path / "b"), backoff_s=0)
+    with chaos_scope("preempt@2"):
+        with pytest.raises(Preempted):
+            run_training(_sgd_step(_vg(cfg), batches), {"params": tree_unflatten([p.clone() for p in init], spec),
+                                                        "k": 0}, 4, manager=mgr,
+                         on_loss=lambda k, x: first.append(x))
+    template = {"params": tree_unflatten([torch.empty(0, device=dev) for _ in init], spec), "k": 0}
+    resumed, tail = run_training(_sgd_step(_vg(cfg), batches), template, 4,
+                                 manager=CheckpointManager(str(tmp_path / "b"), backoff_s=0))
+    assert all(torch.equal(a, b) for a, b in zip(losses, first + tail))
+    got = tree_flatten(resumed["params"])[0]
+    assert all(x.device.type == "cuda" for x in got)
+    assert all(torch.equal(a, b) for a, b in zip(ref, got))
+
+
+def test_oom_during_capture_recovers_and_frees(dev, monkeypatch):
+    """An OOM planted at the capturing call (the second; chaos ``oom``, the
+    dispatch seam running inside the capture) ends the capture, drops its
+    pool, climbs to ladder level 1 and recompiles; after it
+    ``memory_allocated`` equals a fresh compile's, and the result is right."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.resilience import chaos_scope
+
+    monkeypatch.setenv("THUNDER_TPU_RETRY_BACKOFF_S", "0")
+    cfg, params, batches = _tiny_llama(dev)
+    ids, tgt = batches[0]
+    ref = _vg(cfg)
+    want = ref(params, ids, tgt)[0]
+    ref(params, ids, tgt)  # its capture
+    del ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    vg = _vg(cfg)
+    vg(params, ids, tgt)  # warm-up, eager
+    torch.cuda.synchronize()
+    fresh = torch.cuda.memory_allocated()
+    with chaos_scope("oom*1"):
+        loss, grads = vg(params, ids, tgt)  # the capture fails, the ladder recompiles at L1
+    assert tt.cache_info(vg)["degradation_level"] == 1
+    assert len(tt.compile_stats(vg).cache_entries) == 1
+    assert torch.equal(loss, want)
+    del loss, grads
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == fresh
+    loss, _ = vg(params, ids, tgt)  # the L1 entry captures and replays
+    assert tt.last_staging(vg).staged and torch.equal(loss, want)
+
+
+def test_demotion_and_restore_on_the_card(dev, caplog):
+    """``kernel_raise`` on the flash wrapper: a WARNING, no flash launch by
+    the demoted entry (eager, capture, replay), the loss of the default
+    executors less flash bit for bit; after ``clear_quarantine`` a recompile
+    launches flash again."""
+    from thunder_tpu_torch.executors import flashex
+    from thunder_tpu_torch.resilience import clear_quarantine
+
+    cfg, params, batches = _tiny_llama(dev)
+    ids, tgt = batches[0]
+    torch_loss = _vg(cfg, executors=["fused", "torch"])(params, ids, tgt)[0]
+    flashex.flash_attention_fwd_lse.launches = flashex.flash_attention_bwd.launches = 0
+    try:
+        with caplog.at_level("WARNING", logger="thunder_tpu_torch"):
+            vg = _vg(cfg, chaos="kernel_raise@flash*1")
+            losses = [vg(params, ids, tgt)[0] for _ in range(3)]
+        assert any("flash" in r.getMessage() for r in caplog.records if r.levelname == "WARNING")
+        assert flashex.flash_attention_fwd_lse.launches == flashex.flash_attention_bwd.launches == 0
+        assert all(torch.equal(x, torch_loss) for x in losses)
+    finally:
+        clear_quarantine()
+    _vg(cfg)(params, ids, tgt)
+    assert flashex.flash_attention_fwd_lse.launches == flashex.flash_attention_bwd.launches == cfg.n_layer
+
+
+def test_nan_guard_after_a_replay(dev):
+    """The isfinite guard checks a replayed call's outputs too: the third
+    call of a staged entry, given a NaN, raises."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.resilience import NonFiniteOutputError
+
+    jf = tt.jit(lambda a, b: (a * b).sum(dim=1), on_nan="raise")
+    a = torch.randn(64, 128, device=dev)
+    b = torch.randn(64, 128, device=dev)
+    # b is a new tensor each call, so the stage copies it into its own
+    # buffer before each replay: the third call is a replay.
+    jf(a, b.clone())
+    jf(a, b.clone())  # the capture, and its first replay
+    stats = tt.last_staging(jf)
+    assert stats.staged and stats.captures == 1 and stats.replays == 1
+    bad = b.clone()
+    bad[3, 5] = float("nan")
+    with pytest.raises(NonFiniteOutputError):
+        jf(a, bad)
+    assert stats.captures == 1 and stats.replays == 2

@@ -13,15 +13,20 @@ the event pipeline (``observability/events.py`` writes, this module reads):
   ``cache="symbolic values"``), or a module under ``seq_bucket`` past four
   times the threshold;
 - unbalanced compile brackets (a ``compile_start`` whose ``compile_end``
-  never arrived: a crash or exception mid-compile).
+  never arrived: a crash or exception mid-compile);
+- **unrecovered faults**: a chaos ``fault_injected`` with no later recovery
+  event of its seam (:data:`FAULT_RECOVERY_KINDS`); a failed save, re-run,
+  flush or restore does not count as a recovery.
 
 :func:`merge_event_logs` merges per-process logs; :func:`host_health`
 summarizes per-host step times over ``detect.HostHealthAccumulator``.
 
-Not yet here, with the kinds they read (the replay reports those kinds as
-unknown until then): the fault and autopilot correlation rules and the
-checkpoint, snapshot, restore and flight-recorder summaries (the resilience
-slice). Findings reuse :class:`~thunder_tpu_torch.analysis.diagnostics.Diagnostic`.
+The summary also carries the checkpoint, snapshot and restore record: where
+restores landed, how many fell through an invalid candidate, and the
+snapshots' stall. Not yet here, with the kinds they read (the replay
+reports those kinds as unknown until then): the autopilot correlation rule
+and the flight-recorder and federation records (the fleet layer). Findings
+reuse :class:`~thunder_tpu_torch.analysis.diagnostics.Diagnostic`.
 """
 
 from __future__ import annotations
@@ -53,6 +58,68 @@ SCHEMA: dict[str, frozenset] = {
     # critical-path breakdown a step.
     "collective": frozenset({"fn", "cid", "s"}),
     "critpath_step": frozenset({"step", "total_s", "classes", "slowest_host"}),
+    # The recovery layer (thunder_tpu_torch/resilience).
+    "fault_injected": frozenset({"seam", "target", "n"}),
+    "executor_demoted": frozenset({"sym", "executor", "ttl_s", "reason"}),
+    "compile_deopt": frozenset({"level", "action", "reason", "attempt"}),
+    "nan_guard": frozenset({"action"}),
+    "checkpoint_save": frozenset({"path", "step", "ok", "attempt"}),
+    "checkpoint_restore": frozenset({"path", "step", "ok"}),
+    "preemption": frozenset({"signal", "step"}),
+    "cache_repair": frozenset({"action", "path", "reason"}),
+    "collective_timeout": frozenset({"fn", "timeout_s", "lines", "suspected_host"}),
+    "host_loss": frozenset({"step", "host"}),
+    # Every elastic_resume names the restore tier it landed on.
+    "elastic_resume": frozenset({"step", "from_mesh", "to_mesh", "resharded", "tier"}),
+    "sdc_suspect": frozenset({"step", "leaves"}),
+    "sdc_rerun": frozenset({"step", "ok"}),
+    # Tiered checkpointing: the step-boundary device-to-host snapshot
+    # (stall_ms is the only hot-path cost), the background writer's disk
+    # commit, the per-tier restore verdicts, and the restore-entry sweep of
+    # orphan tmp dirs.
+    "snapshot": frozenset({"step", "stall_ms"}),
+    "snapshot_flush": frozenset({"step", "ok"}),
+    "restore": frozenset({"step", "tier", "ok"}),
+    "ckpt_tmp_sweep": frozenset({"count"}),
+}
+
+# The chaos correlation contract (thunder_tpu/analysis/events.py:112-160):
+# every injected fault must be followed by its recovery event, the seams
+# mapped to the kinds that prove the runtime degraded instead of dying.
+# Seams absent here (straggler, and the fleet layer's dcn_partition and
+# slice_slow) recover by simply completing.
+FAULT_RECOVERY_KINDS: dict[str, frozenset] = {
+    "kernel_raise": frozenset({"executor_demoted"}),
+    "compile_fail": frozenset({"compile_deopt", "executor_demoted"}),
+    "compile_timeout": frozenset({"compile_deopt"}),
+    "oom": frozenset({"compile_deopt"}),
+    "nan": frozenset({"nan_guard"}),
+    "ckpt_io": frozenset({"checkpoint_save"}),
+    "preempt": frozenset({"checkpoint_save"}),
+    "cache_corrupt": frozenset({"cache_repair"}),
+    # A hung collective is recovered by the watchdog turning it into a
+    # typed, attributed timeout; a host loss by the survivors' agreed
+    # checkpoint (the elastic resume happens in the NEXT process); an SDC
+    # injection by the guard's quarantine + re-run, or an elastic restore
+    # that discards the poisoned state.
+    "collective_hang": frozenset({"collective_timeout"}),
+    "host_loss": frozenset({"checkpoint_save"}),
+    "sdc": frozenset({"sdc_rerun", "elastic_resume"}),
+    # A corrupted comm-scheduler placement is recovered by the pass's own
+    # validation falling back to the unscheduled trace: a sharp_edge record
+    # with policy="comm_schedule_fallback" (only those count).
+    "sched_bad": frozenset({"sharp_edge"}),
+    # A torn background flush is recovered when the checkpoint pipeline
+    # keeps working (a later commit, or a restore past the incomplete
+    # step); a slow flush by its own eventual commit; a corrupted RAM
+    # replica by the tier ladder landing a restore on a clean tier.
+    "snap_torn": frozenset({"snapshot_flush", "checkpoint_save", "restore"}),
+    "snap_slow": frozenset({"snapshot_flush", "checkpoint_save"}),
+    "snap_corrupt": frozenset({"restore"}),
+    # The fleet layer's seams: a whole-slice loss by the survivors' elastic
+    # resume, a flapping slice by the federation ledger's transition.
+    "slice_loss": frozenset({"elastic_resume"}),
+    "slice_flap": frozenset({"slice_state"}),
 }
 
 
@@ -194,6 +261,11 @@ def host_health(
                     hint="per-host step logs merge via merge_event_logs; the "
                          "spread gauge is thunder_tpu_host_step_time_spread_ratio",
                 ))
+    # The collective watchdog names the first straggler of the last summary
+    # in its timeout errors (resilience/watchdog.py).
+    from thunder_tpu_torch.resilience import watchdog as _watchdog
+
+    _watchdog.note_host_health(summary)
     return summary, diags
 
 
@@ -227,6 +299,12 @@ def replay_events(
     buckets: list[str] = []
     sharp_edges: list[str] = []
     anomaly_counts: dict[str, int] = {}
+    fault_events: list[tuple[int, str, dict]] = []  # (lineno, seam, record)
+    recovery_positions: dict[str, list[int]] = {}  # recovery kind -> linenos
+    restore_tiers: dict[str, int] = {}  # tier -> ok restores
+    restore_fallthroughs = 0  # ok restores that skipped an invalid candidate
+    snapshot_stall_ms = 0.0
+    n_snapshots = 0
     n_lines = 0
 
     merged = isinstance(path, (list, tuple)) and len(path) != 1
@@ -315,9 +393,33 @@ def replay_events(
             bucket_by_cid[(*_writer(rec), rec["compile_id"])] = str(rec["buckets"])
         elif kind == "sharp_edge":
             sharp_edges.append(str(rec["message"]))
+            # The comm scheduler's fallback record is the recovery event of
+            # an injected sched_bad placement; other sharp edges are not.
+            if rec.get("policy") == "comm_schedule_fallback":
+                recovery_positions.setdefault("sharp_edge", []).append(lineno)
         elif kind == "anomaly":
             a = str(rec.get("anomaly"))
             anomaly_counts[a] = anomaly_counts.get(a, 0) + 1
+        elif kind == "fault_injected":
+            fault_events.append((lineno, str(rec["seam"]), rec))
+        elif kind in ("executor_demoted", "compile_deopt", "nan_guard", "cache_repair", "collective_timeout",
+                      "elastic_resume"):
+            recovery_positions.setdefault(kind, []).append(lineno)
+        elif kind in ("checkpoint_save", "sdc_rerun", "snapshot_flush", "restore"):
+            # Only a SUCCESSFUL save/re-run/flush/restore proves recovery.
+            if rec.get("ok"):
+                recovery_positions.setdefault(kind, []).append(lineno)
+            if kind == "restore" and rec.get("ok"):
+                tier = str(rec.get("tier"))
+                restore_tiers[tier] = restore_tiers.get(tier, 0) + 1
+                if rec.get("tried"):
+                    restore_fallthroughs += 1
+        elif kind == "snapshot":
+            n_snapshots += 1
+            try:
+                snapshot_stall_ms += float(rec.get("stall_ms") or 0.0)
+            except (TypeError, ValueError):
+                pass
 
     for fn, n in sorted(exact_compiles_by_fn.items()):
         if n > storm_threshold:
@@ -360,6 +462,26 @@ def replay_events(
             rule="events.unclosed-compile", severity=Severity.WARNING,
             message=f"compile {cid[-1]} of {fn!r} has no compile_end (crashed mid-compile?)",
         ))
+    # Chaos correlation: every injected fault with a declared recovery must
+    # be followed by its recovery event; a fault_injected with none after it
+    # means the runtime died or the recovery path lost its event.
+    unrecovered: list[str] = []
+    for lineno, seam, rec in fault_events:
+        expected = FAULT_RECOVERY_KINDS.get(seam)
+        if not expected:
+            continue
+        if not any(pos > lineno for k in expected for pos in recovery_positions.get(k, [])):
+            unrecovered.append(f"{seam}@{rec.get('target')}")
+            diags.append(Diagnostic(
+                rule="events.unrecovered-fault", severity=Severity.ERROR,
+                message=(
+                    f"line {lineno}: fault_injected seam={seam!r} "
+                    f"target={rec.get('target')!r} has no subsequent "
+                    f"{'/'.join(sorted(expected))} event — the fault was not "
+                    f"recovered (or the recovery path lost its event)"
+                ),
+                hint="analysis.events.FAULT_RECOVERY_KINDS lists the expected recovery event per seam",
+            ))
 
     summary = {
         "path": src,
@@ -375,6 +497,14 @@ def replay_events(
         "bucket_selects": buckets,
         "sharp_edges": sharp_edges,
         "anomalies": anomaly_counts,
+        "faults_injected": [f"{seam}@{rec.get('target')}" for _, seam, rec in fault_events],
+        "unrecovered_faults": unrecovered,
+        # Tiered checkpointing: where restores landed, how many fell
+        # through an invalid candidate, and the snapshots' stall.
+        "restore_tiers": restore_tiers,
+        "restore_fallthroughs": restore_fallthroughs,
+        "snapshots": n_snapshots,
+        "snapshot_stall_ms_total": round(snapshot_stall_ms, 3),
     }
     return summary, diags
 

@@ -58,7 +58,7 @@ from thunder_tpu_torch.analysis.registry import register_rule
 from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.core.pytree import tree_flatten
-from thunder_tpu_torch.core.trace import TraceCtx
+from thunder_tpu_torch.core.trace import TraceCtx, debug_checks
 
 BLOCK_BYTES = 512  # PyTorch's CUDA caching allocator rounds every block up to this
 
@@ -163,11 +163,12 @@ class MemoryPlan:
 
 def device_capacity_bytes(device: Any = None) -> Optional[int]:
     """Usable device-memory bytes: the ``THUNDER_TPU_HBM_BYTES`` override
-    first (re-read every call, as in the JAX package), then the card's
-    ``torch.cuda.get_device_properties(...).total_memory`` when a CUDA device
-    is present (``device``: a torch device or index; the current one by
-    default), then the spec's datasheet capacity (0, unknown, for "cpu").
-    None when nothing is known."""
+    first (re-read every call, as in the JAX package), then the allocator's
+    limit when a CUDA device is present (``device``: a torch device or
+    index; the current one by default): the card's ``total_memory`` times
+    the fraction ``torch.cuda.set_per_process_memory_fraction`` set (the
+    seat of the JAX backend's ``bytes_limit``), then the spec's datasheet
+    capacity (0, unknown, for "cpu"). None when nothing is known."""
     env = os.environ.get("THUNDER_TPU_HBM_BYTES", "").strip()
     if env:
         try:
@@ -178,8 +179,10 @@ def device_capacity_bytes(device: Any = None) -> Optional[int]:
 
     if not isinstance(device, (DeviceSpec, str)) and torch.cuda.is_available():
         index = device.index if isinstance(device, torch.device) else device
-        return int(torch.cuda.get_device_properties(torch.cuda.current_device() if index is None else index)
-                   .total_memory)
+        index = torch.cuda.current_device() if index is None else index
+        total = torch.cuda.get_device_properties(index).total_memory
+        fraction = getattr(torch.cuda, "get_per_process_memory_fraction", None)
+        return int(total * (fraction(index) if fraction is not None else 1.0))
     try:
         spec = resolve_device_spec(device)
     except Exception:
@@ -323,11 +326,16 @@ def plan_fw_bw(fw: TraceCtx, bw: TraceCtx, *, device: Any = None, block_bytes: i
 
 
 def predict_level_peaks(trace: TraceCtx, *, donated: Sequence[str] = (), device: Any = None) -> dict:
-    """Predicted peak bytes at each level of the JAX package's de-opt ladder
-    (``thunder_tpu/analysis/liveness.py``): L0 as compiled (with ``donated``),
-    L1 donation off, L2 = L1, L3 = L1. The port has no ladder and no
-    bucket-exact re-stage yet, so L3 is L1's plan; a caller uses it to skip
-    a level that cannot fit."""
+    """Predicted peak bytes at each level of the de-opt ladder
+    (``resilience/deopt.py``; ``thunder_tpu/analysis/liveness.py``): L0 as
+    compiled (with ``donated``), L1 donation off, L2 the joint program
+    rematerialized as the ladder compiles it (``rematerialize_joint`` under
+    ``aggressive_remat``; L1's plan when it recomputes nothing), L3 = L2
+    (the exact-shape entry is not priced from a padded plan). The ladder
+    uses them to skip a level that cannot fit."""
+    from thunder_tpu_torch.executors.passes import del_last_used
+    from thunder_tpu_torch.transforms.rematerialization import aggressive_remat, rematerialize_joint
+
     base = plan_liveness(trace, device=device, donated=donated, include_rows=False)
     if donated or trace.tags.get("donated_inputs"):
         tag = trace.tags.pop("donated_inputs", None)
@@ -338,7 +346,10 @@ def predict_level_peaks(trace: TraceCtx, *, donated: Sequence[str] = (), device:
                 trace.tags["donated_inputs"] = tag
     else:
         no_don = base
-    return {0: base.peak_bytes, 1: no_don.peak_bytes, 2: no_don.peak_bytes, 3: no_don.peak_bytes}
+    with aggressive_remat(), debug_checks(False):
+        remat = rematerialize_joint(trace)
+    l2 = no_don if remat is trace else plan_liveness(del_last_used(remat), device=device, include_rows=False)
+    return {0: base.peak_bytes, 1: no_don.peak_bytes, 2: l2.peak_bytes, 3: l2.peak_bytes}
 
 
 # =============================================================================
@@ -354,7 +365,6 @@ def claimed_trace(fn: Callable, args: tuple, kwargs: dict, executors: Any = None
     through its original function and transforms, with its executors unless
     ``executors`` is given."""
     from thunder_tpu_torch.api import trace_program
-    from thunder_tpu_torch.core.trace import debug_checks
     from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
     from thunder_tpu_torch.extend import resolve_executors
     from thunder_tpu_torch.transforms.common import cse, dce

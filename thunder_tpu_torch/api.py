@@ -66,13 +66,17 @@ from thunder_tpu_torch.core.trace import TraceCtx, debug_checks, from_trace, mar
 from thunder_tpu_torch.executors import bridge, pythonex, torchex  # register executors  # noqa: F401
 from thunder_tpu_torch.executors import flashex, fusedex, normex, quantex  # kernel executors  # noqa: F401
 from thunder_tpu_torch.executors import batching, rngex, staging
-from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+from thunder_tpu_torch.executors.passes import claim_breakdown, del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import add_default_executor, get_executor, resolve_executors
 from thunder_tpu_torch.observability import events as obs_events
 from thunder_tpu_torch.observability import metrics as obsm
+from thunder_tpu_torch.resilience import chaos as chaos_mod
+from thunder_tpu_torch.resilience import deopt as deopt_mod
+from thunder_tpu_torch.resilience import watchdog as watchdog_mod
 from thunder_tpu_torch.transforms.attention_residuals import save_sdpa_residuals_joint
 from thunder_tpu_torch.transforms.common import cse, dce
 from thunder_tpu_torch.transforms.padmask import analyze_crop_plan, thread_pad_masks
+from thunder_tpu_torch.transforms.rematerialization import rematerialize_joint
 from thunder_tpu_torch.transforms.rng import RNG_TAG, functionalize_rng_ops
 
 # The kernel executors claim their composite ops whole; the torch executor
@@ -385,13 +389,23 @@ def _compile_entry(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict)
         obs_events.emit_event("compile_start", compile_id=compile_id, fn=_fn_name(cd),
                               cache_option=cd.cache_option.name.lower(), call=cs.calls)
         sym_spec = None
-        if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES:
+        # De-opt ladder (resilience/deopt.py): L3 compiles exact shapes, with
+        # no bucket padding; L2 rematerializes the joint program under
+        # aggressive_remat, scoped here so that an aborted compile cannot
+        # leak it.
+        level = deopt_mod.current_level(cd)
+        if cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES and level < 3:
             sym_spec = _symbolic_spec_for_call(cd, cs, args, kwargs)
         if sym_spec is not None:
             obs_events.emit_event("bucket_select", compile_id=compile_id, buckets=sym_spec.describe(),
                                   marks={str(li): sorted(d.keys()) for li, d in sym_spec.marks.items()})
             args, kwargs = _pad_example(args, kwargs, sym_spec)
-        return _compile_entry_impl(cd, cs, args, kwargs, sym_spec, compile_id)
+        if level >= 2:
+            from thunder_tpu_torch.transforms.rematerialization import aggressive_remat
+
+            with aggressive_remat():
+                return _compile_entry_impl(cd, cs, args, kwargs, sym_spec, compile_id, level)
+        return _compile_entry_impl(cd, cs, args, kwargs, sym_spec, compile_id, level)
 
 
 def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, **extra) -> None:
@@ -413,8 +427,11 @@ def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, *
 
 
 def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict, sym_spec,
-                        compile_id: Optional[int]) -> CacheEntry:
+                        compile_id: Optional[int], deopt_level: int = 0) -> CacheEntry:
     start = time.perf_counter()
+    # Chaos seam: an injected compile failure or timeout takes the recovery
+    # path (the de-opt ladder) a real one would.
+    chaos_mod.compile_seam(_fn_name(cd))
     cs.last_trace_tracing_start = timer_ns()
     with sharp_edges_policy(cd.sharp_edges):
         plg_trc, comp_trc = trace_program(cd.fn, args, kwargs, record_input_mutations=True,
@@ -450,16 +467,37 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
         # grad made new outputs: which of them carry padding.
         sym_spec.crop_plan = analyze_crop_plan(comp_trc, sym_spec)
     # A joint fw+bw trace (from grad): let the flash backward run from the
-    # saved (out, lse) instead of recomputing the softmax.
-    comp_trc = save_sdpa_residuals_joint(comp_trc, cd.executors_list)
+    # saved (out, lse) instead of recomputing the softmax; skipped from the
+    # de-opt ladder's level 1 ("disable fusion").
+    if deopt_level < 1:
+        comp_trc = save_sdpa_residuals_joint(comp_trc, cd.executors_list)
     # Random draws read a key passed in each call (thunder_tpu/api.py:651).
     comp_trc = functionalize_rng_ops(comp_trc)
     if comp_trc.tags.get(RNG_TAG):
         traces.append(comp_trc)
     phases["transforms"] = time.perf_counter() - start - phases["trace"]
-    extrace = transform_for_execution(comp_trc, cd.executors_list)
+    # The comm scheduler runs on a trace with collectives, and the de-opt
+    # ladder turns it off from level 1, so a bad schedule demotes to the
+    # certified program order (thunder_tpu/api.py:703).
+    extrace = transform_for_execution(comp_trc, cd.executors_list, comm_schedule=deopt_level < 1)
     traces.append(extrace)
+    if deopt_level >= 2:
+        # De-opt ladder level 2: a joint fw+bw program recomputes cheap
+        # forward values in the backward (aggressive_remat is in scope).
+        remat = rematerialize_joint(extrace)
+        if remat is not extrace:
+            remat.tags["claim_breakdown"] = claim_breakdown(remat)
+            extrace = remat
+            traces.append(extrace)
     claims = extrace.tags.get("claim_breakdown") or {}
+    # Chaos seam: NaN-poison a chosen line, after claiming, so the poison is
+    # in both the staged entry and the on_nan guard's instrumented re-run.
+    poisoned = chaos_mod.maybe_poison_nan(extrace)
+    if poisoned is not extrace:
+        extrace = poisoned
+        traces.append(extrace)
+    on_nan = cd.compile_options.get("on_nan")
+    claimed_extrace = extrace
     # Per-op instrumentation (observability/instrument.py;
     # thunder_tpu/api.py:710-720): each value-producing line bracketed by
     # host hooks, after claiming (records carry the executor) and before the
@@ -509,7 +547,12 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
         sym_spec=sym_spec,
         treedef=treedef,
         leaf_meta=_leaf_meta(flat),
+        on_nan=on_nan,
+        claimed_extrace=claimed_extrace if on_nan else None,
     )
+    entry.stats.degradation_level = deopt_level
+    if staging_stats.staged:
+        computation_fn.seam = functools.partial(_run_seam, entry)
     entry.stats.trace_s = time.perf_counter() - start
     entry.stats.phases = phases
     entry.compile_id = compile_id
@@ -895,6 +938,39 @@ def _observe_dispatch(entry: CacheEntry, hit_kind: Optional[str], lookup_ns: int
             obsm.PADDING_WASTE_ELEMENTS.inc(waste)
 
 
+def _run_seam(entry: CacheEntry) -> None:
+    """The dispatch's chaos seam (thunder_tpu/api.py:1077-1087): an injected
+    device OOM (its ``oom@<L`` form reads the entry's de-opt level) and the
+    collective-straggler delay. One context-variable probe with chaos off."""
+    if not chaos_mod.enabled():
+        return
+    trc = entry.computation_traces[-1] if entry.computation_traces else None
+    chaos_mod.run_seam(has_collectives=bool(trc is not None and int(trc.tags.get("collective_bytes") or 0)),
+                       deopt_level=entry.stats.degradation_level)
+
+
+def _guarded_call(entry: CacheEntry, inps: list):
+    """The entry's program on ``inps``; under the collective watchdog
+    (``resilience/watchdog.py``) when a timeout is configured and the
+    program holds collectives (thunder_tpu/api.py:1088-1110). One dict probe
+    with no timeout configured."""
+    if watchdog_mod.active_timeout() is None:
+        return entry.computation_fn(*inps)
+    trc = entry.computation_traces[-1] if entry.computation_traces else None
+    if entry.collective_lines is None:
+        from thunder_tpu_torch.analysis import schedule as sched_mod
+        from thunder_tpu_torch.distributed.prims import collective_trace_lines
+
+        entry.collective_lines = tuple(collective_trace_lines(trc)) if trc is not None else ()
+        if entry.collective_lines:
+            entry.schedule = sched_mod.certify(trc).axis_labels()
+    if not entry.collective_lines:
+        return entry.computation_fn(*inps)
+    return watchdog_mod.guard_call(entry.computation_fn, tuple(inps),
+                                   fn_name=getattr(entry.computation_fn, "__name__", "computation"),
+                                   trace_lines=entry.collective_lines, schedule=entry.schedule)
+
+
 # The global RNG seed (thunder_tpu/api.py:957-966): the k-th call of a
 # program with random draws after ``seed(n)`` draws from PRNGKey(n + k).
 _global_rng = {"seed": 0}
@@ -947,6 +1023,8 @@ def jit(
     events: Optional[str] = None,
     debug_watch: Optional[str] = None,
     instrument: Any = None,
+    chaos: Any = None,
+    on_nan: Optional[str] = None,
     _trace_transforms: Sequence[Callable] = (),
     **module_options,
 ) -> Callable:
@@ -1007,6 +1085,17 @@ def jit(
     list of these (``observability.instrument_reports(fn)`` reads them). An
     instrumented entry is not staged: it runs eagerly, on the card unless
     the jit is on the CPU.
+    Recovery (``thunder_tpu_torch/resilience``): ``chaos`` takes a chaos
+    spec string (or ``ChaosConfig``) active around every call of this
+    function (else the ``THUNDER_TPU_CHAOS`` one); ``on_nan`` ("raise",
+    "rerun-instrumented" or "warn") checks every call's floating outputs for
+    NaN/Inf with one host sync, and on a trip raises
+    ``NonFiniteOutputError`` (after re-running the call under a NaN watcher
+    that names the producing line, for "rerun-instrumented") or warns. A
+    compile or first run that fails with an out-of-memory (or an injected
+    compile fault) climbs the de-opt ladder and retries; an injected kernel
+    fault demotes that executor's claims and retries; every other failure,
+    a real kernel failure included, propagates.
     ``_trace_transforms`` (private) are trace-to-trace transforms run after
     dce/cse, before claiming.
 
@@ -1025,7 +1114,8 @@ def jit(
                                  symbolic_dims=symbolic_dims, buckets=buckets, sharp_edges=sharp_edges,
                                  disable_jit_staging=disable_jit_staging, autocast=autocast,
                                  debug_checks=debug_checks, events=events, debug_watch=debug_watch,
-                                 instrument=instrument, _trace_transforms=_trace_transforms, **module_options)
+                                 instrument=instrument, chaos=chaos, on_nan=on_nan,
+                                 _trace_transforms=_trace_transforms, **module_options)
 
     cache = resolve_cache_option(cache)
     if isinstance(fn, torch.nn.Module):
@@ -1034,6 +1124,9 @@ def jit(
         if debug_watch or instrument is not None:
             raise NotImplementedError("debug_watch/instrument are not yet supported on the torch nn.Module "
                                       "frontend — jit the functional forward instead")
+        if chaos is not None or on_nan is not None:
+            raise NotImplementedError("chaos/on_nan are not yet supported on the torch nn.Module frontend — use "
+                                      "THUNDER_TPU_CHAOS for process-wide chaos, or jit the functional forward")
         if cache is not CACHE_OPTIONS.CONSTANT_VALUES:
             raise TypeError("jit(nn.Module) got unexpected options ['cache']: a module buckets its sequences "
                             "with seq_bucket=")
@@ -1051,6 +1144,9 @@ def jit(
     if cache is CACHE_OPTIONS.SYMBOLIC_VALUES:
         # The bucket rules, resolved once: defaults <- THUNDER_TPU_BUCKETS <- buckets=.
         compile_options.update(bucket_policy=BucketPolicy.resolve(buckets), symbolic_dims=symbolic_dims)
+    on_nan = deopt_mod.resolve_on_nan(on_nan)
+    if on_nan is not None:
+        compile_options["on_nan"] = on_nan
     cd = CompileData(
         fn=fn,
         executors_list=resolve_executors(executors),
@@ -1061,6 +1157,7 @@ def jit(
         cache_option=cache,
         compile_options=compile_options,
         event_log=obs_events.log_for_path(events) if events else None,
+        chaos=chaos_mod.resolve(chaos),
     )
     if debug_watch or instrument is not None:
         from thunder_tpu_torch.observability.instrument import resolve_hooks
@@ -1072,11 +1169,12 @@ def jit(
     def fn_(*args, **kwargs):
         # The jit's device is what a numpy input's guard and conversion mean.
         with devices.default_device(cd.device):
-            if cd.event_log is None:
+            if cd.event_log is None and cd.chaos is None:
                 return _dispatch(args, kwargs)
-            # The function's own log covers the whole dispatch, so that its
-            # run-time events (a capture) land beside its compile's.
-            with obs_events.event_scope(cd.event_log):
+            # The function's own log and chaos config cover the whole
+            # dispatch, so that its run-time events (a capture, an
+            # injection, a demotion, a de-opt) land beside its compile's.
+            with obs_events.event_scope(cd.event_log), chaos_mod.chaos_scope(cd.chaos):
                 return _dispatch(args, kwargs)
 
     def _dispatch(args: tuple, kwargs: dict):
@@ -1107,32 +1205,78 @@ def jit(
         cs.last_trace_cache_stop = timer_ns()
         lookup_ns = cs.last_trace_cache_stop - start
         cs.cache_lookup_ns += lookup_ns
-        first = entry is None
-        if not first:
+        if entry is not None:
             cs.cache_hits += 1
-        else:
-            cs.cache_misses += 1
-            hit_kind = None
-            if obsm.enabled():
-                obsm.CACHE_MISSES.inc()
-            obs_events.emit_event("cache_miss", fn=_fn_name(cd), call=cs.calls)
-            entry = _compile_entry(cd, cs, args, kwargs)
+            entry.stats.hits += 1
+            cs.last_staging = entry.staging
+            try:
+                out = _run_entry(cd, entry, args, kwargs, flat_inps, prepared, first=False)
+            except Exception as e:
+                # Resilience (resilience/deopt.py): a recoverable failure of
+                # a warm entry evicts it, quarantines or de-opts, and falls
+                # through to the recompile below; anything else propagates.
+                if not deopt_mod.handle_run_failure(e, cd, cs, entry, 0):
+                    raise
+                cs.cache_hits -= 1
+                entry = None
+            else:
+                # The hit path's one observability check (thunder_tpu/api.py:1785-1815).
+                if obsm.enabled():
+                    _observe_dispatch(entry, hit_kind, lookup_ns, start, flat_inps)
+                return out
+        cs.cache_misses += 1
+        if obsm.enabled():
+            obsm.CACHE_MISSES.inc()
+        obs_events.emit_event("cache_miss", fn=_fn_name(cd), call=cs.calls)
+        # Compile and first run under the recovery driver
+        # (thunder_tpu/api.py:1806-1850): an injected kernel fault demotes
+        # the executor's claims and re-claims; a compile failure or an
+        # out-of-memory climbs the de-opt ladder; both retry, bounded, with
+        # backoff. Anything else propagates on the first throw, and a failed
+        # first run leaves no entry behind.
+        attempt = 0
+        while True:
+            try:
+                entry = _compile_entry(cd, cs, args, kwargs)
+            except Exception as e:
+                if deopt_mod.handle_compile_failure(e, cd, cs, attempt):
+                    attempt += 1
+                    continue
+                raise
             if key is not None:
                 _learn(cs, key, entry)
             cs.prologue_runs += 1
             entry.stats.prologue_runs += 1
-            flat_inps = entry.prologue_fn(*args, **kwargs)
-            prepared = _prepare_inputs(entry, flat_inps, cd.device)
-        entry.stats.hits += 1
-        cs.last_staging = entry.staging
+            entry.stats.hits += 1
+            cs.last_staging = entry.staging
+            try:
+                flat_inps = entry.prologue_fn(*args, **kwargs)
+                prepared = _prepare_inputs(entry, flat_inps, cd.device)
+                out = _run_entry(cd, entry, args, kwargs, flat_inps, prepared, first=True)
+            except Exception as e:
+                if deopt_mod.handle_run_failure(e, cd, cs, entry, attempt):
+                    attempt += 1
+                    continue
+                deopt_mod.evict(cs, entry)
+                raise
+            if obsm.enabled():
+                _observe_dispatch(entry, None, lookup_ns, start, flat_inps)
+            return out
+
+    def _run_entry(cd: CompileData, entry: CacheEntry, args: tuple, kwargs: dict, flat_inps, prepared,
+                   *, first: bool):
         inps, extents = prepared
         if entry.sym_spec is not None:
             inps = inps + _extent_inputs(entry, extents, cd.device)
         if entry.needs_rng:
             inps = inps + [_next_key(cd.device)]
+        if not entry.staging.staged:
+            # A staged entry runs the seam inside its program's call (a
+            # capture included): executors/staging.py.
+            _run_seam(entry)
         run_start = time.perf_counter()
         cs.last_trace_host_execution_start = timer_ns()
-        out = entry.computation_fn(*inps)
+        out = _guarded_call(entry, inps)
         if first:
             if cd.device.type == "cuda":
                 torch.cuda.synchronize(cd.device)
@@ -1141,12 +1285,14 @@ def jit(
             _record_compile_phase(entry.compile_id, "warmup", entry.stats.first_run_s, log=cd.event_log)
         if entry.sym_spec is not None:
             out = _crop_outputs(entry, out, extents)
+        if entry.on_nan is not None and not deopt_mod.outputs_finite(out):
+            # The post-step isfinite guard (jit(on_nan=...)), on the cropped
+            # outputs: a bucket's padding lanes may hold inf/NaN that the
+            # crop discards. The attribution re-runs the same inputs.
+            deopt_mod.handle_nonfinite(entry, inps, entry.on_nan)
         if entry.epilogue_fn is not None:
             out = entry.epilogue_fn(args, kwargs, out)
         cs.last_trace_host_execution_stop = cs.last_trace_host_stop = timer_ns()
-        # The hit path's one observability check (thunder_tpu/api.py:1785-1815).
-        if obsm.enabled():
-            _observe_dispatch(entry, hit_kind, lookup_ns, start, flat_inps)
         return out
 
     fn_._lc_cd = cd
@@ -1666,9 +1812,11 @@ def cache_info(fn: Callable) -> dict:
     """Cache counters and seconds, with the keys of the JAX package's
     ``cache_info`` (thunder_tpu/api.py:1404): hits split into ``fast_hits``
     (found by the inputs' metadata key) and ``slow_hits`` (found by running
-    prologues). The port has no de-opt ladder (``degradation_level`` 0);
-    ``predicted_peak_bytes`` is the liveness planner's peak of the entry's
-    execution trace (``analysis/liveness.py``)."""
+    prologues). ``degradation_level`` is the de-opt ladder position new
+    compiles use, and each entry's the level it was compiled at
+    (``resilience/deopt.py``); ``predicted_peak_bytes`` is the liveness
+    planner's peak of the entry's execution trace
+    (``analysis/liveness.py``)."""
     from thunder_tpu_torch.analysis.liveness import plan_liveness
 
     cd, cs = _get_cd(fn), _get_cs(fn)
@@ -1690,9 +1838,9 @@ def cache_info(fn: Callable) -> dict:
         "first_run_seconds": cs.first_run_seconds,
         "cache_lookup_us_total": cs.cache_lookup_ns / 1e3,
         "compile_phase_seconds": phases,
-        "degradation_level": 0,
+        "degradation_level": deopt_mod.current_level(cd),
         "entries": [dict(index=i, symbolic=e.sym_spec is not None,
-                         buckets="exact" if e.sym_spec is None else e.sym_spec.describe(), degradation_level=0,
+                         buckets="exact" if e.sym_spec is None else e.sym_spec.describe(),
                          predicted_peak_bytes=plan_liveness(e.computation_traces[-1], include_rows=False).peak_bytes,
                          **e.stats.as_dict())
                     for i, e in enumerate(cs.cache_entries)],

@@ -154,14 +154,18 @@ class CompileData:
     instrument_hooks: tuple = ()
     # A jitted nn.Module's (frontend/module.py): fn is the module itself.
     is_module: bool = False
+    # jit(chaos=...): the function's chaos config (resilience/chaos.py),
+    # active around each of its dispatches.
+    chaos: Any = None
 
 
 class EntryStats:
     """One cache entry's counters (reference: thunder_tpu/common.py:156),
-    those the port keeps: it has no de-opt ladder or liveness planner
-    (``api.cache_info``)."""
+    those the port keeps (``api.cache_info``), with the de-opt ladder level
+    the entry was compiled at (``resilience/deopt.py``)."""
 
-    __slots__ = ("hits", "fast_hits", "prologue_runs", "guard_fails", "trace_s", "first_run_s", "phases")
+    __slots__ = ("hits", "fast_hits", "prologue_runs", "guard_fails", "trace_s", "first_run_s", "phases",
+                 "degradation_level")
 
     def __init__(self):
         self.hits = 0  # calls this entry served, its first included
@@ -171,6 +175,7 @@ class EntryStats:
         self.trace_s = 0.0  # host seconds tracing, transforming and claiming it
         self.first_run_s = 0.0  # its first run, ending in a synchronize on CUDA
         self.phases: dict = {}
+        self.degradation_level = 0
 
     def as_dict(self) -> dict:
         return {k: getattr(self, k) for k in self.__slots__}
@@ -206,6 +211,15 @@ class CacheEntry:
     # The id of the compile that built the entry (observability/events.py),
     # which its first-run and capture phases carry.
     compile_id: Optional[int] = None
+    # jit(on_nan=...): the guard's mode, and the claimed trace (before the
+    # dels) its instrumented re-run runs (resilience/deopt.py).
+    on_nan: Optional[str] = None
+    claimed_extrace: Any = None
+    # The collective lines and certified per-axis order the watchdog names
+    # on a timeout (resilience/watchdog.py); computed at the first guarded
+    # call.
+    collective_lines: Optional[tuple] = None
+    schedule: Optional[dict] = None
 
 
 class CompileStats:

@@ -28,10 +28,11 @@ collective, which must not be the capture's, so a group is warmed with one
 small all-reduce when it is first bound (:func:`resolve_axes`). A capture
 that fails raises; nothing falls back to an unstaged run or another backend.
 
-The JAX package wraps the staged program in its collective watchdog
-(``resilience/watchdog.wrap``); the port's resilience layer comes with a
-later slice, and :func:`shard_map_callable` keeps ``trace_lines`` and
-``schedule`` on the callable it returns for it.
+The staged program is wrapped in the collective watchdog
+(``resilience/watchdog.wrap``): with a timeout configured, a call whose
+collectives hang raises ``CollectiveTimeoutError`` naming the callable's
+``trace_lines`` and certified ``schedule``, which :func:`shard_map_callable`
+also keeps on the callable it returns.
 """
 
 from __future__ import annotations
@@ -249,7 +250,10 @@ def shard_map_callable(fn: Callable, mesh, in_specs, out_specs, *, traces=(), na
         with bound_axes(groups):
             return fn(*args)
 
+    from thunder_tpu_torch.resilience import watchdog
+
     staged, stats = staging.stage(per_rank, list(traces), device, name=name)
+    staged = watchdog.wrap(staged, fn_name=name, trace_lines=trace_lines, schedule=schedule)
 
     def call(*args):
         flat_specs = _flat_in_specs(args, in_specs)

@@ -8,10 +8,16 @@ at first use, into ``thunder_tpu_torch/_build/<hash of sources and flags>/``
 process with the same sources loads the library without building.
 
 There is no fallback: no ``nvcc``, a failed build or a failed launch raises.
+The first look at a build directory in a process sweeps it
+(``resilience/compile_cache.sweep_corrupt_entries``): a zero-length object
+or library left by a crashed or disk-full build is removed and rebuilt. A
+library too torn to load raises ``resilience.demotion.KernelCacheCorrupt``,
+which the recovery driver answers by purging the directory and rebuilding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -63,6 +69,7 @@ class BuildInfo:
 
 
 _lib = None
+_swept: set = set()
 
 
 def _sources() -> list[Path]:
@@ -110,13 +117,53 @@ def _run_parallel(cmds: list[list[str]], label=None) -> str:
     return "".join(outs)
 
 
+def build_dir() -> str:
+    """The build directory of this set of sources and flags."""
+    return str(BUILD_ROOT / _digest())
+
+
+def forget() -> None:
+    """Drop the loaded library, so the next use loads (or builds) it anew."""
+    global _lib
+    _lib = None
+    _swept.clear()
+
+
+@contextlib.contextmanager
+def dir_lock(out_dir: Path):
+    """Hold ``out_dir``'s build lock (an exclusive ``flock`` on its
+    ``lock`` file). A build, the sweep of torn entries and a purge each run
+    under it, so none of them deletes or reads a file that another
+    process's ``nvcc`` is still writing."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
+def _sweep(out_dir: Path) -> None:
+    """The first look at ``out_dir`` in this process, under its lock: the
+    chaos ``cache_corrupt`` seam, then the sweep of torn entries, then one
+    INFO line naming the directory (the JAX package logs its persistent
+    cache directory once the same way)."""
+    if out_dir in _swept:
+        return
+    _swept.add(out_dir)
+    import logging
+
+    from thunder_tpu_torch.resilience import chaos, compile_cache
+
+    chaos.corrupt_cache_seam(str(out_dir))
+    compile_cache.sweep_corrupt_entries(str(out_dir))
+    logging.getLogger("thunder_tpu_torch").info("kernel build directory: %s", out_dir)
+
+
 def build() -> BuildInfo:
     """Build the library if this set of sources has not been built yet."""
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / LIB_NAME
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with dir_lock(out_dir):
+        _sweep(out_dir)
         if lib_path.exists():
             log_path = out_dir / "build.log"
             return BuildInfo(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
@@ -138,7 +185,15 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build().path))
+        path = build().path
+        try:
+            handle = ctypes.CDLL(str(path))
+        except OSError as e:
+            if not any(m in str(e) for m in ("file too short", "invalid ELF header")):
+                raise
+            from thunder_tpu_torch.resilience.demotion import KernelCacheCorrupt
+
+            raise KernelCacheCorrupt(f"the kernel library {path} is torn: {e}") from e
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes

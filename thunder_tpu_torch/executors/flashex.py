@@ -80,6 +80,7 @@ from thunder_tpu_torch.core.proxies import pyval
 from thunder_tpu_torch.core.trace import from_trace
 from thunder_tpu_torch.executors import _build
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+from thunder_tpu_torch.resilience import chaos
 
 ex = OperatorExecutor("flash")
 register_executor(ex)
@@ -681,6 +682,7 @@ def _scale_of(q, scale) -> float:
 
 
 def _sdpa_impl(*args, **kwargs):
+    chaos.kernel_seam("flash", "sdpa")
     b = _sdpa_bound(args, kwargs)
     q, k, v, mask = b["query"], b["key"], b["value"], b["attn_mask"]
     scale, causal = _scale_of(q, b["scale"]), bool(b["is_causal"])
@@ -698,6 +700,7 @@ def _sdpa_bwd_impl(g, query, key, value, attn_mask=None, is_causal=False, scale=
     """The recompute-path backward (``flashex.py:474-496`` of the JAX
     package): the forward again with logsumexp under the same plan, then the
     backward kernel; dk/dv come summed over each kv group."""
+    chaos.kernel_seam("flash", "sdpa_bwd")
     scale, causal = _scale_of(query, scale), bool(is_causal)
     if _impl_name() == "legacy":
         return legacy_flash_bwd(g, query, key, value, causal=causal, scale=scale)
@@ -755,11 +758,13 @@ def _bwd_res_checker(g, query, key, value, out, lse, attn_mask=None, is_causal=F
 
 
 def _sdpa_fwd_res_impl(query, key, value, attn_mask=None, is_causal=False, scale=None, enable_gqa=False):
+    chaos.kernel_seam("flash", "sdpa")
     return flash_attention_fwd_lse(query, key, value, causal=bool(is_causal), scale=_scale_of(query, scale))
 
 
 def _sdpa_bwd_res_impl(g, query, key, value, out, lse, attn_mask=None, is_causal=False, scale=None,
                        enable_gqa=False):
+    chaos.kernel_seam("flash", "sdpa_bwd")
     return flash_attention_bwd(g, query, key, value, out, lse, causal=bool(is_causal),
                                scale=_scale_of(query, scale))
 

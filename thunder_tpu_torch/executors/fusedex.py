@@ -36,6 +36,7 @@ from thunder_tpu_torch.core import dtypes
 from thunder_tpu_torch.core.proxies import pyval
 from thunder_tpu_torch.executors import _build
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+from thunder_tpu_torch.resilience import chaos
 
 ex = OperatorExecutor("fused")
 register_executor(ex)
@@ -150,6 +151,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     a table a segment of B / S batch rows (per-sample positions; a vmapped
     table). x may be a strided view (last dim contiguous); the result is
     contiguous."""
+    chaos.kernel_seam("fused", "apply_rope")
     _build.refuse_transformed("rope", x, cos, sin)
     if x.device.type == "cpu":
         return rope_plain(x, cos, sin)
@@ -257,6 +259,7 @@ def _ce_impl(input, target, weight=None, ignore_index=-100, reduction="mean", la
     """The claimed cross-entropy: per-row losses from the kernel (``rows``,
     under vmap its batching rule; by default ``cross_entropy_rows``), then
     their sum or mean."""
+    chaos.kernel_seam("fused", "cross_entropy")
     total = (rows or cross_entropy_rows)(input, target, int(ignore_index)).sum()
     if reduction == "mean":
         count = (target != ignore_index).sum().to(torch.float32).clamp_min(1.0)
@@ -328,6 +331,7 @@ def _ce_bwd_checker(g, input, target, ignore_index=-100, reduction="mean") -> bo
 
 
 def _ce_bwd_impl(g, input, target, ignore_index=-100, reduction="mean"):
+    chaos.kernel_seam("fused", "cross_entropy_bwd")
     return cross_entropy_bwd(input, target, ce_row_scale(g, target, int(ignore_index), reduction))
 
 

@@ -47,6 +47,7 @@ from thunder_tpu_torch.core import dtypes
 from thunder_tpu_torch.core.proxies import pyval
 from thunder_tpu_torch.executors import _build
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+from thunder_tpu_torch.resilience import chaos
 
 ex = OperatorExecutor("norm")
 register_executor(ex)
@@ -406,19 +407,23 @@ def _ln_bwd_checker(g, a, weight, bias, eps) -> bool:
 
 
 def _rms_impl(a, normalized_shape, weight=None, eps=None):
+    chaos.kernel_seam("norm", "rms_norm")
     return rms_norm_fwd(a, weight, RMS_EPS if eps is None else float(pyval(eps)))
 
 
 def _rms_bwd_impl(g, a, weight, eps):
+    chaos.kernel_seam("norm", "rms_norm_bwd")
     dx, dw = rms_norm_bwd(g, a, weight, float(pyval(eps)))
     return dx, dw.to(weight.dtype)
 
 
 def _ln_impl(a, normalized_shape, weight=None, bias=None, eps=1e-5):
+    chaos.kernel_seam("norm", "layer_norm")
     return layer_norm_fwd(a, weight, bias, float(pyval(eps)))
 
 
 def _ln_bwd_impl(g, a, weight, bias, eps):
+    chaos.kernel_seam("norm", "layer_norm_bwd")
     dx, dw, db = layer_norm_bwd(g, a, weight, float(pyval(eps)), with_bias=bias is not None)
     return dx, dw.to(weight.dtype), None if db is None else db.to(weight.dtype)
 

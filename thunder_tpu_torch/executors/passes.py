@@ -26,6 +26,7 @@ from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.symbol import BoundSymbol, Symbol
 from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in_trace_provenance
 from thunder_tpu_torch.extend import Executor, FusionExecutor, get_always_executors
+from thunder_tpu_torch.resilience.demotion import is_quarantined
 
 _PASSTHROUGH_IDS = {
     PrimIDs.DEL,
@@ -48,8 +49,13 @@ def _claimed(sym: Symbol, ex: Executor) -> Symbol:
 
 def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor], *,
                             comm_schedule: bool = False) -> TraceCtx:
-    """Claim every bound symbol. There is no re-claim after a failure: a
-    kernel that fails raises, and nothing quietly takes its place. With
+    """Claim every bound symbol. A ``(sym, executor)`` pair that the
+    recovery driver quarantined (``resilience/demotion.py``) is skipped, so
+    the op re-claims further down the list or descends into its
+    decomposition, which ``torch`` claims. Only an injected kernel fault
+    (the chaos seam ``kernel_raise``) quarantines a pair, and every
+    quarantine logs a warning and an ``executor_demoted`` event; a real
+    kernel failure raises, and nothing quietly takes its place. With
     ``comm_schedule=True`` (and ``THUNDER_TPU_COMM_SCHEDULE`` not 0) the
     collective-overlap scheduler (``transforms/comm_schedule.py``) runs
     over the claimed trace with its default device and capacity."""
@@ -62,6 +68,8 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor],
             new_bsyms.append(bsym)
             return
         for ex in executors_list:
+            if is_quarantined(bsym.sym.id, ex.name):
+                continue
             if ex.can_execute(bsym):
                 new_bsyms.append(bsym.from_bsym(sym=_claimed(bsym.sym, ex)))
                 return
@@ -96,7 +104,7 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor],
     for ex in executors_list:
         if isinstance(ex, FusionExecutor):
             extrace = ex.fusion_pass(extrace)
-    extrace.tags["claim_breakdown"] = _claim_breakdown(extrace)
+    extrace.tags["claim_breakdown"] = claim_breakdown(extrace)
     extrace.tags["collective_bytes"] = _collective_bytes(extrace)
     extrace = wrap_in_trace_provenance(extrace, "Transform for execution", start)
     if comm_schedule:
@@ -107,7 +115,7 @@ def transform_for_execution(trace: TraceCtx, executors_list: Sequence[Executor],
     return extrace
 
 
-def _claim_breakdown(trace: TraceCtx) -> dict[str, int]:
+def claim_breakdown(trace: TraceCtx) -> dict[str, int]:
     """{executor name (or "host" for python_impl plumbing): claimed bsyms}:
     the payload of the executor-claim metric and of ``compile_end`` events
     (thunder_tpu/executors/passes.py:126)."""

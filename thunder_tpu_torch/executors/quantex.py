@@ -31,6 +31,7 @@ from thunder_tpu_torch.core import dtypes
 from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.executors import _build
 from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+from thunder_tpu_torch.resilience import chaos
 
 ex = OperatorExecutor("quant")
 register_executor(ex)
@@ -322,6 +323,7 @@ def quant_linear(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] 
     ``tensor``, ``rows`` and ``gemm`` are the batching rules under vmap
     (``executors/batching.py``); by default the wrappers in this module's
     seats, looked up at each call."""
+    chaos.kernel_seam("quant", "linear")
     tensor, rows, gemm = tensor or quantize_tensor, rows or quantize_rows, gemm or int8_gemm
     r = _recipe
     qa, sa = tensor(a.reshape(-1, a.shape[-1]), r.qmax)

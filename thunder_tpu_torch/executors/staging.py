@@ -67,7 +67,14 @@ A backward whose saved tensors are not where its graph reads them (a second
 forward moved the first's out of the pool) runs eagerly.
 
 No fallback: a capture that fails raises ``StagingError``, naming the line of
-the program that was running; nothing runs eagerly in its place.
+the program that was running; nothing runs eagerly in its place. A failed
+capture ends the capture and drops the graph and its memory pool, and hands
+the allocator's cached blocks back (``torch.cuda.empty_cache``), so the
+recovery driver's retry (``resilience/deopt.py``: an out-of-memory, or an
+injected fault, during the capture) does not see the failed attempt's
+blocks. ``seam`` (the dispatch's chaos seam, ``resilience/chaos.run_seam``)
+runs at the start of each call's program: inside the capture when the call
+captures.
 """
 
 from __future__ import annotations
@@ -251,6 +258,16 @@ class CudaGraphStage:
         # ``on_capture(seconds)``: told of each capture (the compile's
         # "capture" phase, api._record_compile_phase).
         self.on_capture: Optional[Callable[[float], None]] = None
+        self.seam: Optional[Callable[[], None]] = None
+
+    def release(self) -> None:
+        """Drop the graph, its static buffers and its memory pool (an entry
+        the recovery driver evicts); a later call warms up anew."""
+        self._graph = self._static = self._outs = None
+        self._sig = self._spec = None
+        self._lent, self._held = [], []
+        if self.pair is not None and self.role == "forward":
+            self.pair.retire()
 
     def __call__(self, *args):
         leaves, spec = tree_flatten(args)
@@ -333,6 +350,8 @@ class CudaGraphStage:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
+            if self.seam is not None:
+                self.seam()
             out = self.eager(*args)
         except RuntimeError as e:
             if "synchronizing" not in str(e):
@@ -388,8 +407,15 @@ class CudaGraphStage:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=None if pair is None else pair.pool):
+                if self.seam is not None:
+                    self.seam()
                 out = self.eager(*call)
         except Exception as e:
+            # The capture has ended (the context's exit); drop what it made.
+            del call, graph, copies
+            self.release()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             raise StagingError(f"staging {self.name}: the CUDA graph capture failed{_where(e)}: {e}") from e
         del call
         after = _build.launch_counts()
@@ -429,6 +455,8 @@ class CudaGraphStage:
         return result
 
     def _replay(self, args: tuple, leaves: list):
+        if self.seam is not None:
+            self.seam()
         if self._reclaim() and self.pair is None:
             self.lend_from = None
             return self._capture(args, leaves, self._by_address)

@@ -12,9 +12,10 @@ and read the measured-against-predicted report of a profile:
     monitor.prometheus_text()         # text exposition for a /metrics endpoint
     monitor.dump_json("metrics.json")
 
-Not yet here: ``serve``/``ops_health``/``ops_state``/``flight_dump``,
-``configure_watchdog`` and ``last_host_health`` (the ops plane and the
-watchdog: the resilience slice).
+``configure_watchdog`` arms the collective watchdog and
+``last_host_health`` reads the straggler record it names. Not yet here:
+``serve``/``ops_health``/``ops_state``/``flight_dump`` and
+``shutdown_ops`` (the ops plane, with the fleet layer).
 """
 
 from __future__ import annotations
@@ -65,6 +66,27 @@ def host_health(source, *, spread_threshold: float = 1.5):
     from thunder_tpu_torch.analysis.events import host_health as _hh
 
     return _hh(source, spread_threshold=spread_threshold)
+
+
+def configure_watchdog(timeout_s) -> None:
+    """Arm (None disarms) the collective watchdog process-wide: the
+    programmatic spelling of ``THUNDER_TPU_COLLECTIVE_TIMEOUT_S``. A
+    dispatch holding collectives that exceeds the timeout raises a typed
+    ``CollectiveTimeoutError`` naming the pending collective trace lines and
+    the suspected host (from the last :func:`host_health` summary) instead
+    of hanging forever (thunder_tpu/monitor.py:120-130)."""
+    from thunder_tpu_torch.resilience import watchdog
+
+    watchdog.configure(timeout_s)
+
+
+def last_host_health():
+    """The most recent :func:`host_health` summary this process computed:
+    the straggler record the collective watchdog joins its timeout errors
+    against. None until ``host_health`` has run."""
+    from thunder_tpu_torch.resilience import watchdog
+
+    return watchdog.last_host_health()
 
 
 def dump_json(path: str) -> None:

@@ -33,7 +33,7 @@ The counterpart of ``thunder_tpu/observability/``, built on ``torch.profiler``,
   bounded ledger), armed by ``monitor.critpath()``.
 
 Not yet here: ``opsplane.py`` (the HTTP endpoints and flight recorder) comes
-with the resilience slice.
+with the fleet layer (slice 6b).
 
 ``metrics``, ``events``, ``detect`` and ``timeline`` are stdlib-only (safe to import from
 ``core/trace.py`` and ``common.py``); the others load lazily here.

@@ -25,8 +25,8 @@ Anomaly kinds: ``step_time_drift`` (CUSUM over per-step seconds),
 band).
 
 Not yet here: the JAX package installs the bank as an ops-plane event tap
-and routes each anomaly into its autopilot; both come with the resilience
-slice. Module-top imports are stdlib-only.
+and routes each anomaly into its autopilot; both come with the fleet layer
+(slice 6b). Module-top imports are stdlib-only.
 """
 
 from __future__ import annotations
@@ -522,7 +522,7 @@ class DetectorBank:
         sl = fields.get("slice")
         if sl is None:
             # A record without a slice: the port has no slice topology until
-            # the resilience slice (the JAX package reads
+            # the fleet layer (slice 6b; the JAX package reads
             # ``resilience.chaos.slice_id``).
             return []
         self._slice_acc.add(int(sl), s)
@@ -705,7 +705,7 @@ class DetectorBank:
     def _publish(self, a: Anomaly) -> None:
         # The JAX package also routes each anomaly into an installed
         # autopilot (``note_anomaly``); the port's autopilot comes with the
-        # resilience slice, so until then an anomaly stays in the bank and
+        # fleet layer (slice 6b), so until then an anomaly stays in the bank and
         # its counter, as the JAX package's does with no autopilot installed.
         self.anomalies.append(a)
         try:

@@ -27,7 +27,7 @@ one dict lookup when no log is active.
 
 The ops plane's taps (the flight recorder and the streaming detectors) are
 installed here by the JAX package's ``observability/opsplane``; the port's
-ops plane comes with the resilience slice, so the taps tuple stays empty
+ops plane comes with the fleet layer (slice 6b), so the taps tuple stays empty
 and every emit path pays one module-global truth test for it.
 """
 
@@ -44,7 +44,7 @@ from typing import Any, Optional
 
 SCHEMA_VERSION = 1
 
-# -- ops-plane taps (empty until the ops plane is ported: slice 6) ------------
+# -- ops-plane taps (empty until the ops plane is ported: slice 6b) -----------
 # A tuple of ``tap(kind, fields)`` callables that see every emitted record,
 # independent of whether a JSONL sink is configured. One module-global truth
 # test when empty.

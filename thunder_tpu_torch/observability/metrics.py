@@ -17,8 +17,8 @@ dump, or Prometheus text.
 
 The metric names are the JAX package's (``thunder_tpu_*``), so scrapes and
 dashboards of both join; only the series this port emits are registered
-(the resilience, ops-plane and critical-path series wait for later
-slices). Enable with
+(the autopilot and soak series and the ops plane's wait for the fleet
+layer). Enable with
 ``THUNDER_TPU_METRICS=1`` or :func:`enable`.
 """
 
@@ -387,6 +387,73 @@ HOST_STEP_TIME_S = REGISTRY.gauge(
 HOST_STEP_SPREAD = REGISTRY.gauge(
     "thunder_tpu_host_step_time_spread_ratio",
     "Slowest host mean step time over fleet median (straggler suspect when above threshold)",
+)
+# -- resilience (thunder_tpu_torch/resilience) ----------------------------------
+
+FAULTS_INJECTED = REGISTRY.counter(
+    "thunder_tpu_faults_injected_total",
+    "Chaos-harness fault injections, labelled by seam",
+)
+EXECUTOR_DEMOTIONS = REGISTRY.counter(
+    "thunder_tpu_executor_demotions_total",
+    "Quarantined (sym, executor) pairs after kernel failures, labelled by executor",
+)
+COMPILE_DEOPTS = REGISTRY.counter(
+    "thunder_tpu_compile_deopts_total",
+    "Compile de-optimization ladder escalations, labelled by level",
+)
+NAN_GUARD_TRIPS = REGISTRY.counter(
+    "thunder_tpu_nan_guard_trips_total",
+    "Post-step isfinite guard trips (jit(on_nan=...))",
+)
+CHECKPOINT_RETRIES = REGISTRY.counter(
+    "thunder_tpu_checkpoint_retries_total",
+    "Checkpoint save attempts retried after transient I/O errors",
+)
+# Mesh-wide fault tolerance: the collective watchdog, elastic resume, and
+# the SDC guard.
+WATCHDOG_TIMEOUTS = REGISTRY.counter(
+    "thunder_tpu_collective_watchdog_timeouts_total",
+    "Guarded dispatches abandoned after the collective timeout, labelled by fn",
+)
+ELASTIC_RESUMES = REGISTRY.counter(
+    "thunder_tpu_elastic_resumes_total",
+    "Checkpoint restores resharded onto a different mesh shape",
+)
+SDC_SUSPECTS = REGISTRY.counter(
+    "thunder_tpu_sdc_suspects_total",
+    "Replica-checksum divergences (or loss spikes) flagged by the SDC guard",
+)
+SDC_RERUNS = REGISTRY.counter(
+    "thunder_tpu_sdc_reruns_total",
+    "Quarantined-step re-runs by the SDC guard, labelled ok=true|false",
+)
+WATCHDOG_UNGUARDED = REGISTRY.counter(
+    "thunder_tpu_collective_watchdog_unguarded_total",
+    "Guarded dispatches run UNguarded because the abandoned-worker cap "
+    "(THUNDER_TPU_WATCHDOG_MAX_ABANDONED) was reached",
+)
+# Tiered checkpointing: the step-boundary snapshot stall (the only hot-path
+# cost), the background writer's disk commits, and the restore-tier ladder.
+SNAPSHOTS = REGISTRY.counter(
+    "thunder_tpu_snapshots_total",
+    "Step-boundary RAM snapshots taken (CheckpointManager.snapshot)",
+)
+CHECKPOINT_STALL_MS = REGISTRY.histogram(
+    "thunder_tpu_checkpoint_stall_ms",
+    "Milliseconds the training loop stalls per snapshot (device->host copy "
+    "+ crc32; disk durability runs on the background writer)",
+    buckets=(0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0),
+)
+SNAPSHOT_FLUSHES = REGISTRY.counter(
+    "thunder_tpu_snapshot_flushes_total",
+    "Background/synchronous disk flushes of RAM snapshots, labelled "
+    "ok=true|false",
+)
+RESTORES = REGISTRY.counter(
+    "thunder_tpu_restores_total",
+    "Tiered checkpoint restores, labelled by winning tier "
+    "(local|peer|disk)",
 )
 # inc_always + always-export: a dropped event-log sink must be visible even
 # with the metrics gate off.

@@ -13,8 +13,8 @@ roofline bound, achieved fraction, bound class and a trend over recent
 probes. ``thunder_tpu_torch.monitor.roofline_report()`` prints it.
 
 The JAX package also streams each op's measured/predicted ratio into its
-ops plane's detector bank; the port's ops plane comes with the resilience
-slice, so a bank is fed only when one is passed (``bank=``).
+ops plane's detector bank; the port's ops plane comes with the fleet layer
+(slice 6b), so a bank is fed only when one is passed (``bank=``).
 
 Off-path cost: when no probe is due, :meth:`RooflineSampler.maybe_sample`
 is one counter bump and a modulo; with ``every=0`` (the default) no probe

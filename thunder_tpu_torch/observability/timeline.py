@@ -48,8 +48,8 @@ Surfaces: ``monitor.critpath()``/``critpath_report()``, the
 ``thunder_tpu_critpath_fraction{class=}`` and ``..._clock_skew_ms`` gauges,
 the always-export ``thunder_tpu_critpath_steps_total`` counter, and the
 ``collective``/``critpath_step`` event records. The ops plane's
-``/debug/critpath`` and ``/healthz`` component come with the resilience
-slice: :func:`debug_state` and :func:`health_state` return their dicts.
+``/debug/critpath`` and ``/healthz`` component come with the fleet layer
+(slice 6b): :func:`debug_state` and :func:`health_state` return their dicts.
 """
 
 from __future__ import annotations

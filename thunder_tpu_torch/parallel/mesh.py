@@ -17,7 +17,8 @@ dict of groups takes it (``distributed.ddp``/``fsdp``/``shard_map_callable``,
 arguments after ``distributed.init()``.
 
 The federated mesh (``SliceTopology``, ``make_federated_mesh``,
-``is_federated``, ``slice_axis_size``) belongs to the resilience slice.
+``is_federated``, ``slice_axis_size``) belongs to the fleet layer (slice 6b)
+of the resilience port.
 """
 
 from __future__ import annotations

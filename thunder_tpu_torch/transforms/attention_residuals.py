@@ -28,6 +28,12 @@ from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in
 
 
 def _flash_active(executors) -> bool:
+    """The flash executor is listed, and the recovery driver has not
+    quarantined its residual pair (``resilience/demotion.py``)."""
+    from thunder_tpu_torch.resilience.demotion import is_quarantined
+
+    if any(is_quarantined(sym, "flash") for sym in ("torch.sdpa_fwd_res", "torch.sdpa_bwd_res")):
+        return False
     return any(getattr(e, "name", None) == "flash" for e in (executors or ()))
 
 

@@ -882,8 +882,9 @@ def grad_transform(
 
     with tracectx(gtrace):
         builder = BackwardBuilder()
-        for out in out_tensors:
-            builder.seed(out, clang.full(tuple(out.shape), 1.0, device=out.device, dtype=out.dtype))
+        seeds = [clang.full(tuple(out.shape), 1.0, device=out.device, dtype=out.dtype) for out in out_tensors]
+        for out, seed in zip(out_tensors, seeds):
+            builder.seed(out, seed)
         builder.run(flat)
         grads = tuple(
             builder.cotangent_of(p) if builder.cotangent_of(p) is not None else _zeros_for(p) for p in wrt
@@ -892,6 +893,9 @@ def grad_transform(
         prims.python_return(result)
 
     gtrace.output = result
+    # Where the backward starts: the joint remat
+    # (transforms/rematerialization.rematerialize_joint) cuts here.
+    gtrace.tags["grad_seed"] = [s.name for s in seeds]
     gtrace = wrap_in_trace_provenance(gtrace, "Grad transform (joint fw+bw)", start)
     return dce(gtrace)
 

@@ -32,8 +32,10 @@ site's predicted hidden and exposed µs.
 The pass is advisory: an internal failure falls back to the unscheduled
 trace and emits a ``sharp_edge`` event (``policy="comm_schedule_fallback"``),
 the JAX package's logged policy; it never happens silently. The chaos
-``sched_bad`` seam and the de-opt ladder that disables the pass come with
-the resilience slice of the port. Kill switch: ``THUNDER_TPU_COMM_SCHEDULE=0``.
+``sched_bad`` seam (``resilience/chaos.sched_seam``) corrupts a computed
+placement so that this validation must catch it, and the de-opt ladder
+(``resilience/deopt.py``) turns the pass off from its level 1. Kill switch:
+``THUNDER_TPU_COMM_SCHEDULE=0``.
 """
 
 from __future__ import annotations
@@ -272,6 +274,7 @@ def _schedule(trace: TraceCtx, *, device, capacity_bytes,
     from thunder_tpu_torch.analysis.cost import resolve_device_spec
     from thunder_tpu_torch.analysis.liveness import device_capacity_bytes, plan_liveness
     from thunder_tpu_torch.distributed.prims import is_collective_bsym
+    from thunder_tpu_torch.resilience import chaos as chaos_mod
 
     bsyms = list(trace.bound_symbols)
     if not any(is_collective_bsym(b) for b in bsyms):
@@ -350,6 +353,7 @@ def _schedule(trace: TraceCtx, *, device, capacity_bytes,
             if so.hidden_us + gained >= so.wire_us:
                 p = q
                 break
+        p = chaos_mod.sched_seam(key, p, site.latest)
         _validate_placement(site, p)
 
         # Liveness back-off: retreat the hoist toward the original index

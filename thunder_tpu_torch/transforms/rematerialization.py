@@ -8,18 +8,27 @@ recomputed in the backward when its producer closure contains only cheap ops
 (elementwise / shape / creation / cast) and the closure's inputs cost fewer
 saved bytes than the tensor itself; the save boundary is the s-t min cut of
 ``_min_cut_saved_set``. Matmul/reduction/random results are never
-recomputed. Run eagerly, each recomputed op is one more kernel in the
+recomputed, except that under ``aggressive_remat()`` (the de-opt ladder's
+level 2) reductions are, and chains may run four times longer. Run eagerly, each recomputed op is one more kernel in the
 backward, paid for with the saved bytes it frees.
+
+Two entry points: ``rematerialize_forward_and_backward`` on a split fw/bw
+pair (the module frontend, the training benchmark), and
+``rematerialize_joint`` on a joint fw+bw program (``grad``/``value_and_grad``),
+which the functional ``jit`` runs from the de-opt ladder's level 2.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
 from typing import Optional
 
 from thunder_tpu_torch.core.prims import OpTags, PrimIDs
-from thunder_tpu_torch.core.proxies import TensorProxy
-from thunder_tpu_torch.core.trace import TraceCtx, from_trace, wrap_in_trace_provenance
+from thunder_tpu_torch.core.proxies import Proxy, TensorProxy, variableify
+from thunder_tpu_torch.core.pytree import tree_flatten
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in_trace_provenance
 from thunder_tpu_torch.transforms.common import dce
 
 # Ops worth recomputing: one elementwise or shape pass each. Everything else
@@ -36,11 +45,41 @@ _CHEAP_IDS = {
 
 _MAX_CHAIN = 64  # recompute-chain length bound
 
+# De-opt ladder escalation (resilience/deopt.py, level >= 2): under memory
+# pressure the ladder widens what counts as recomputable (reductions join
+# the cheap set, and chains may run 4x longer), trading recompute FLOPs for
+# saved-for-backward bytes (thunder_tpu/transforms/rematerialization.py:43-66).
+# RNG, collective and matmul results stay saved in both modes.
+_aggressive = contextvars.ContextVar("thunder_tpu_torch_remat_aggressive", default=False)
+_AGGRESSIVE_EXTRA_TAGS = {OpTags.REDUCTION_OP}
+
+
+@contextlib.contextmanager
+def aggressive_remat():
+    """Scope escalated rematerialization (the de-opt ladder's L2 knob)."""
+    tok = _aggressive.set(True)
+    try:
+        yield
+    finally:
+        _aggressive.reset(tok)
+
+
+def aggressiveness() -> str:
+    return "aggressive" if _aggressive.get() else "normal"
+
+
+def _max_chain() -> int:
+    return _MAX_CHAIN * 4 if _aggressive.get() else _MAX_CHAIN
+
 
 def _is_cheap(bsym) -> bool:
     if bsym.sym.id in _CHEAP_IDS:
         return True
-    return any(t in _CHEAP_TAGS for t in bsym.sym.tags)
+    if any(t in _CHEAP_TAGS for t in bsym.sym.tags):
+        return True
+    if _aggressive.get():
+        return any(t in _AGGRESSIVE_EXTRA_TAGS for t in bsym.sym.tags)
+    return False
 
 
 def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx, *, remat_collectives: bool = False):
@@ -79,6 +118,148 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx, *
     else:
         is_cheap = _is_cheap
 
+    keep, recompute = _plan_recompute(saved_names, producers, arg_proxies, is_cheap)
+
+    if not recompute:
+        return fw_trace, bw_trace
+
+    # New saved set: kept names + all recompute frontiers not already
+    # available. Frontiers are sets — iterate them SORTED so the saved-tuple
+    # order is identical across processes (unsorted iteration varies with
+    # the per-process hash seed).
+    new_saved: list[str] = list(keep)
+    for name, (chain, frontier) in recompute.items():
+        for f in sorted(frontier):
+            if f not in new_saved and f not in arg_proxies:
+                new_saved.append(f)
+    # Frontier values that are fw *args* must still be passed to bw.
+    needed_args = sorted(
+        {f for _, (c, fr) in recompute.items() for f in fr if f in arg_proxies}
+    )
+    for f in needed_args:
+        if f not in new_saved:
+            new_saved.append(f)
+
+    def proxy_of(name: str) -> TensorProxy:
+        if name in arg_proxies:
+            return arg_proxies[name]
+        b = producers[name]
+        return next(o for o in b.flat_proxy_outs if o.name == name)
+
+    # --- rebuild bw: original body, each recomputed op just before its first
+    # consumer (deduped, fw order) ---
+    chain_bsyms: list = []
+    seen = set()
+    for name, (chain, _) in recompute.items():
+        for b in chain:
+            if id(b) not in seen:
+                seen.add(id(b))
+                chain_bsyms.append(b)
+    fw_order = {id(b): i for i, b in enumerate(fw_trace.bound_symbols)}
+    chain_bsyms.sort(key=lambda b: fw_order.get(id(b), 0))
+
+    cotangents = list(bw_trace.args[len(saved_names):])
+
+    new_bw = from_trace(bw_trace)
+    new_bw.args = tuple(proxy_of(n) for n in new_saved) + tuple(cotangents)
+    new_bw.bound_symbols.extend(_sink(chain_bsyms, bw_trace.bound_symbols))
+    new_bw = dce(new_bw)
+
+    # --- rebuild fw: same body, new saved tuple in the output -----------------
+    new_fw = from_trace(fw_trace)
+    primal_out = fw_trace.output[0]
+    saved_tuple = tuple(proxy_of(n) for n in new_saved)
+    new_fw.bound_symbols.extend(
+        b for b in fw_trace.bound_symbols if b.sym.id is not PrimIDs.RETURN
+    )
+    from thunder_tpu_torch.core import prims as _prims
+
+    new_out = (primal_out, saved_tuple)
+    with tracectx(new_fw):
+        _prims.python_return(new_out)
+    new_fw.output = new_out
+    new_fw = dce(new_fw)
+    new_fw.tags["saved_for_backward"] = list(new_saved)
+
+    new_fw = wrap_in_trace_provenance(new_fw, "Rematerialization (fw)", start)
+    new_bw = wrap_in_trace_provenance(new_bw, "Rematerialization (bw)", start)
+    return new_fw, new_bw
+
+
+def rematerialize_joint(trace: TraceCtx) -> TraceCtx:
+    """The joint trace's rematerialization (``grad``/``value_and_grad``,
+    whose forward and backward are one program). The de-opt ladder runs it
+    from level 2, under ``aggressive_remat()``, on the claimed trace.
+
+    The forward is every line before the backward's seed (the names
+    ``grad_transform`` tags ``grad_seed``). The saved values are the
+    forward's tensors that the backward reads, less those the program
+    returns. ``_plan_recompute`` decides which to recompute. Each chosen
+    value's chain is copied under fresh names, just before the backward's
+    first use of it. The forward's own copy then dies at its last forward
+    use, and DCE drops it when only the backward read it. ``del`` lines are
+    dropped: the caller places them anew (``del_last_used``). Returns
+    ``trace`` itself when there is nothing to recompute."""
+    seeds = set(trace.tags.get("grad_seed") or ())
+    bsyms = [b for b in trace.bound_symbols if b.sym.id is not PrimIDs.DEL]
+    cut = next((i for i, b in enumerate(bsyms) if any(o.name in seeds for o in b.flat_proxy_outs)), None)
+    if cut is None:
+        return trace
+    start = time.perf_counter_ns()
+    fw, bw = bsyms[:cut], bsyms[cut:]
+    producers: dict[str, object] = {}
+    for bsym in fw:
+        for o in bsym.flat_proxy_outs:
+            producers.setdefault(o.name, bsym)
+    arg_proxies = {a.name: a for a in tree_flatten((trace.args, trace.kwargs))[0] if isinstance(a, TensorProxy)}
+    returned = {p.name for p in tree_flatten(trace.output)[0] if isinstance(p, Proxy)}
+    for bsym in bw:
+        if bsym.sym.id is PrimIDs.RETURN:
+            returned |= {p.name for p in bsym.flat_proxy_args}
+    saved: list[str] = []
+    for bsym in bw:
+        for a in bsym.flat_proxy_args:
+            if isinstance(a, TensorProxy) and a.name in producers and a.name not in returned and a.name not in saved:
+                saved.append(a.name)
+    if not saved:
+        return trace
+    _, recompute = _plan_recompute(saved, producers, arg_proxies, _is_cheap)
+    # A chain that makes a value other than a tensor stays saved: only
+    # tensors get fresh names here.
+    recompute = {n: c for n, c in recompute.items()
+                 if all(isinstance(o, TensorProxy) for b in c[0] for o in b.flat_proxy_outs)}
+    if not recompute:
+        return trace
+
+    order = {id(b): i for i, b in enumerate(fw)}
+    chain: dict[int, object] = {}
+    for c, _ in recompute.values():
+        for b in c:
+            chain.setdefault(id(b), b)
+    new = from_trace(trace)
+    swap: dict = {}
+    copies: list = []
+    with tracectx(new):
+        for b in sorted(chain.values(), key=lambda b: order[id(b)]):
+            for o in b.flat_proxy_outs:
+                swap[variableify(o)] = TensorProxy(like=o)
+            copies.append(b.from_bsym_swap_proxies(swap))
+    # The backward reads the copies of the recomputed values; a kept value
+    # that a chain also recomputes stays the saved one there.
+    uses = {v: p for v, p in swap.items() if v.proxy.name in recompute}
+    body = [b if b.sym.id is PrimIDs.RETURN else b.from_bsym_swap_proxies(uses, skip_output=True) for b in bw]
+    new.bound_symbols = fw + _sink(copies, body)
+    new = dce(new)
+    new.tags["remat_joint"] = {"mode": aggressiveness(), "recomputed": len(recompute), "ops": len(copies)}
+    return wrap_in_trace_provenance(new, "Rematerialization (joint)", start)
+
+
+def _plan_recompute(saved_names: list, producers: dict, arg_proxies: dict, is_cheap) -> tuple[list, dict]:
+    """Which saved values stay saved (``keep``) and which the backward
+    recomputes (``recompute``: name → (chain of forward bsyms, frontier
+    names)): the min cut of ``_min_cut_saved_set`` when the region is not
+    trivial, else a greedy choice that recomputes a value only when its
+    chain's new frontier costs fewer bytes than the value."""
     # Closure analysis: name → (chain bsyms in topo order, frontier names) or None.
     memo: dict[str, Optional[tuple]] = {}
 
@@ -105,7 +286,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx, *
                         chain.append(b)
                 frontier |= sub_frontier
         chain.append(bsym)
-        if len(chain) > _MAX_CHAIN:
+        if len(chain) > _max_chain():
             memo[name] = None
             return None
         memo[name] = (chain, frontier)
@@ -179,71 +360,7 @@ def rematerialize_forward_and_backward(fw_trace: TraceCtx, bw_trace: TraceCtx, *
                 continue
             recompute[name] = (chain, frontier)
 
-    if not recompute:
-        return fw_trace, bw_trace
-
-    # New saved set: kept names + all recompute frontiers not already
-    # available. Frontiers are sets — iterate them SORTED so the saved-tuple
-    # order is identical across processes (unsorted iteration varies with
-    # the per-process hash seed).
-    new_saved: list[str] = list(keep)
-    for name, (chain, frontier) in recompute.items():
-        for f in sorted(frontier):
-            if f not in new_saved and f not in arg_proxies:
-                new_saved.append(f)
-    # Frontier values that are fw *args* must still be passed to bw.
-    needed_args = sorted(
-        {f for _, (c, fr) in recompute.items() for f in fr if f in arg_proxies}
-    )
-    for f in needed_args:
-        if f not in new_saved:
-            new_saved.append(f)
-
-    def proxy_of(name: str) -> TensorProxy:
-        if name in arg_proxies:
-            return arg_proxies[name]
-        b = producers[name]
-        return next(o for o in b.flat_proxy_outs if o.name == name)
-
-    # --- rebuild bw: original body, each recomputed op just before its first
-    # consumer (deduped, fw order) ---
-    chain_bsyms: list = []
-    seen = set()
-    for name, (chain, _) in recompute.items():
-        for b in chain:
-            if id(b) not in seen:
-                seen.add(id(b))
-                chain_bsyms.append(b)
-    fw_order = {id(b): i for i, b in enumerate(fw_trace.bound_symbols)}
-    chain_bsyms.sort(key=lambda b: fw_order.get(id(b), 0))
-
-    cotangents = list(bw_trace.args[len(saved_names):])
-
-    new_bw = from_trace(bw_trace)
-    new_bw.args = tuple(proxy_of(n) for n in new_saved) + tuple(cotangents)
-    new_bw.bound_symbols.extend(_sink(chain_bsyms, bw_trace.bound_symbols))
-    new_bw = dce(new_bw)
-
-    # --- rebuild fw: same body, new saved tuple in the output -----------------
-    new_fw = from_trace(fw_trace)
-    primal_out = fw_trace.output[0]
-    saved_tuple = tuple(proxy_of(n) for n in new_saved)
-    new_fw.bound_symbols.extend(
-        b for b in fw_trace.bound_symbols if b.sym.id is not PrimIDs.RETURN
-    )
-    from thunder_tpu_torch.core import prims as _prims
-    from thunder_tpu_torch.core.trace import tracectx
-
-    new_out = (primal_out, saved_tuple)
-    with tracectx(new_fw):
-        _prims.python_return(new_out)
-    new_fw.output = new_out
-    new_fw = dce(new_fw)
-    new_fw.tags["saved_for_backward"] = list(new_saved)
-
-    new_fw = wrap_in_trace_provenance(new_fw, "Rematerialization (fw)", start)
-    new_bw = wrap_in_trace_provenance(new_bw, "Rematerialization (bw)", start)
-    return new_fw, new_bw
+    return keep, recompute
 
 
 def _min_cut_saved_set(saved_names, producers, arg_proxies, closure, size_of, is_cheap=_is_cheap):
