@@ -268,9 +268,31 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    2 s watchdog at the two dispatch sites it guards: ``jit``'s staged ddp
    ``value_and_grad`` at 2 layers and a ``shard_map_callable`` all-reduce
    each raise ``CollectiveTimeoutError`` naming their own collective lines,
-   and the next unguarded call gives the step with no collectives (the
-   one-rank value);
-17. after phase 25, prints one JSON line describing every kernel, then the
+   the abandoned worker runs no replay once its hang ends, and the next
+   unguarded call gives the step with no collectives (the one-rank value);
+26. the fleet layer, a process group of one NCCL rank, the ops plane armed
+   by ``monitor.serve(port=0)``: (a) open_llama_3b at P26_LAYERS layers
+   (width kept), ``build_train_step`` (SGD) under
+   ``run_autopiloted_training`` with a 2 s watchdog and a RAM snapshot a
+   step: a collective hang at step 2 gives one same-mesh ``elastic_resume``
+   decision, the resume from the RAM tier and losses bit-equal to the run
+   with no fault; ``preempt@3`` a ``checkpoint_halt`` decision and
+   ``AutopilotHalt``, then a fresh manager and step resume from disk to the
+   end, bit-equal; ``oom*1`` at the first call of a staged
+   ``value_and_grad``: the ``deopt_escalate`` decision before its
+   ``compile_deopt``; the event log replays with no unrecovered fault and
+   no unactuated decision, ``AUTOPILOT_DECISIONS`` counts each decision;
+   (b) ``/healthz`` (degraded after the timeout), ``/metrics``,
+   ``/debug/state`` (the de-opted step's ``entry_degradation_levels``) and
+   ``/debug/flightrec`` read over HTTP during the run, one schema-valid
+   dump each for the timeout and the halt, a staged hit's host µs and the
+   step's device ms with the plane armed and off; (c) at P26_FED_LAYERS
+   layers, ``run_federated_training`` over 2 slices of one rank under
+   ``slice_loss@2,slice=1``: ``shrink_dp`` then ``regrow_dp``, the shrink's
+   restore from the buddy's RAM, width 1's two B=1 micro-steps within
+   bf16 of the full-width run's B=2 step, and the peer-tier restore
+   seconds;
+17. after phase 26, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -5984,8 +6006,9 @@ def _hang_under_watchdog(label: str, call, want_lines, staging=None):
     """One call of ``call()`` under a 2 s watchdog (``monitor.
     configure_watchdog``) and ``collective_hang~3.0`` (a 3 s sleep inside the
     guarded region): the ``CollectiveTimeoutError`` it raises, the seconds to
-    it, and the replays the abandoned worker ran once it woke. Then the
-    watchdog is turned off again."""
+    it, and the replays the abandoned worker ran once it woke: none, as a
+    hung collective never completes. Then the watchdog is turned off
+    again."""
     from thunder_tpu_torch import monitor
     from thunder_tpu_torch.resilience import CollectiveTimeoutError, chaos_scope, watchdog
 
@@ -6010,7 +6033,7 @@ def _hang_under_watchdog(label: str, call, want_lines, staging=None):
         f"program's own collective lines {list(want_lines)}; replays run by the abandoned worker {ran}")
     require(err is not None and elapsed < 2.9, f"{label}: the watchdog did not fire within its timeout")
     require(want_lines and lines == list(want_lines), f"{label}: the error names {lines}, not {list(want_lines)}")
-    require(staging is None or ran == 1, f"{label}: the abandoned worker ran {ran} replays, not 1")
+    require(staging is None or ran == 0, f"{label}: the abandoned worker ran {ran} replays, not 0")
 
 
 def run_watchdog(cfg, batches, launches: dict) -> None:
@@ -6131,6 +6154,452 @@ def run_resilience(cfg, launches: dict) -> None:
         log(f"  (f) took {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# =============================================================================
+# Phase 26: the fleet layer (resilience/autopilot.py, resilience/federation.py,
+# observability/opsplane.py)
+# =============================================================================
+
+# The depths of (a) and (c), cut from the model's 26 (width kept) to fit the
+# phase's share of the call: every run here writes a disk anchor of the
+# whole state and a RAM snapshot a step, whose cost grows with the depth.
+P26_LAYERS = 4
+P26_FED_LAYERS = 2
+P26_STEPS = 4
+P26_FED_STEPS = 7
+P26_LR = 1e-4
+P26_WATCHDOG_S = 2.0
+# The hang outlives the watchdog by long enough that its abandoned worker is
+# still asleep when /healthz is read after the resume.
+P26_HANG_S = 8.0
+OPS_HIT_OVERHEAD = 1.05  # a staged hit with the plane armed against off
+OPS_DEVICE_REL = 0.01  # the step's device ms armed against off
+FED_LOSS_RTOL = 1e-2  # bf16: width 1's two B=1 micro-steps against one B=2 call
+
+
+def _p26_batches(vocab: int, n: int, seed: int) -> list:
+    gen = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        a = gen.randint(0, vocab, (LOSS_BATCH, SEQ))
+        out.append((torch.from_numpy(a).cuda(), torch.from_numpy(np.roll(a, -1, axis=1)).cuda()))
+    return out
+
+
+def _p26_step(cfg, mesh, batches):
+    """``build_train_step`` (SGD, not donating: the driver's warm-up step
+    and the snapshots read a state no step updates) on the one-rank mesh,
+    as ``run_training``'s ``step(state) -> (state, loss)``: step k reads
+    batch k, the data order a resumed run restores."""
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import build_train_step
+
+    params = gpt.init_params(cfg, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    step, opt = build_train_step(cfg, params, *batches[0], mesh=mesh, optimizer="sgd", lr=P26_LR, donate=False)
+
+    def p26_step(state):
+        k = int(state["k"])
+        p, o, loss = step(state["params"], state["opt"], *batches[k])
+        return {"params": p, "opt": o, "k": k + 1}, loss
+
+    return p26_step, {"params": params, "opt": opt, "k": 0}
+
+
+def _http(port: int, route: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _drive(step_fn, state, root: str, name: str, *, spec: str = "", on_step=None, store=True):
+    """``run_autopiloted_training`` of ``step_fn`` for P26_STEPS steps on the
+    one-rank mesh under ``spec``, the watchdog at P26_WATCHDOG_S and, with
+    ``store``, a RAM snapshot a step: ``(state, report, autopilot,
+    manager)``."""
+    import os
+
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.resilience import Autopilot, SnapshotStore, chaos_scope, run_autopiloted_training
+
+    mgr = _timed_manager(os.path.join(root, name), store=SnapshotStore() if store else None)
+    ap = Autopilot()
+    with chaos_scope(spec):
+        state, report = run_autopiloted_training(
+            ap, lambda m: step_fn, state, P26_STEPS, manager=mgr, mesh=make_mesh(dp=1),
+            specs_for_mesh=lambda m: None, sdc_guard=False, watchdog_timeout_s=P26_WATCHDOG_S,
+            snapshot_every=1 if store else 0, on_step=on_step)
+    return state, report, ap, mgr
+
+
+def run_autopilot(cfg, root: str, plane, launches: dict) -> dict:
+    """Phase 26 (a) and (b). Under one event log, metrics on, the ops plane
+    armed: (1) ``oom*1`` at the first call of a staged ``value_and_grad``:
+    the autopilot's deopt_escalate decision, then its compile_deopt; (2)
+    the autopiloted run with no fault; (3) the same under a collective hang
+    planted at step 2: one same-mesh elastic_resume from the RAM tier, the
+    losses bit-equal to (2)'s, the four endpoints read over HTTP during the
+    run (/healthz degraded by the abandoned worker); (4) ``preempt@3``: a
+    checkpoint_halt decision and AutopilotHalt, then a fresh manager and a
+    fresh step resume from disk to the end, bit-equal. The log replays with
+    no unrecovered fault and no unactuated decision; AUTOPILOT_DECISIONS
+    counts every decision; the recorder left one collective_timeout and one
+    autopilot_halt dump, each replaying schema-valid. Returns the staged
+    ``value_and_grad`` and its inputs for the plane's overhead readings."""
+    import glob
+    import os
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.analysis import events as ev_replay
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.observability import metrics as obsm
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.resilience import Autopilot, AutopilotHalt, chaos
+
+    small = replace(cfg, n_layer=P26_LAYERS)
+    batches = _p26_batches(small.vocab_size, P26_STEPS, SEED + 26)
+    log_path = os.path.join(root, "events.jsonl")
+    before = _launch_counts()
+    monitor.reset()
+    monitor.enable()
+    monitor.set_event_log(log_path)
+    try:
+        # (1) the de-opt climb as a decision.
+        params = gpt.init_params(small, dtype=torch.bfloat16, seed=SEED, device="cuda")
+        vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, small), chaos="oom*1")
+        ap = Autopilot()
+        with ap.installed():
+            for _ in range(3):  # the recovered first call, the capture, a replay
+                out = vg(params, *batches[0])
+        torch.cuda.synchronize()
+        del out
+        level = tt.cache_info(vg)["entries"][0]["degradation_level"]
+        recs = [json.loads(line) for line in open(log_path)]
+        order = [(r["kind"], r.get("actuator")) for r in recs if r["kind"] in ("autopilot_decision", "compile_deopt")]
+        log(f"  (a) oom*1 at the first call of the staged value_and_grad, {small.n_layer} layers: decisions "
+            f"{[(d.signal.kind, d.actuator) for d in ap.decisions]}; events in order {order}; the entry's de-opt "
+            f"level {level}, staged {tt.last_staging(vg).staged}")
+        require(order == [("autopilot_decision", "deopt_escalate"), ("compile_deopt", None)] and level == 1,
+                "the de-opt climb was not the autopilot's decision before its compile_deopt")
+
+        # (2) the run with no fault, (3) the same with a hang at step 2.
+        step_fn, state0 = _p26_step(small, make_mesh(dp=1), batches)
+        t = time.perf_counter()
+        _, base, base_ap, _ = _drive(step_fn, state0, root, "base")
+        base_s = time.perf_counter() - t
+        require(base.halted is None and not base_ap.decisions, "the run with no fault decided something")
+        seen = {}
+
+        def hang_at_2(step, loss):
+            if step == 1:
+                chaos.active().rules.append(chaos.FaultRule("collective_hang", delay_s=P26_HANG_S))
+            elif step == 2 and "healthz" not in seen:
+                for route in ("/healthz", "/metrics", "/debug/state", "/debug/flightrec"):
+                    seen[route.strip("/").replace("debug/", "")] = _http(plane.port, route)
+
+        t = time.perf_counter()
+        _, hung, _, _ = _drive(step_fn, state0, root, "hang", on_step=hang_at_2)
+        hung_s = time.perf_counter() - t
+        recs = [json.loads(line) for line in open(log_path)]
+        resume = [r for r in recs if r["kind"] == "elastic_resume"]
+        same = [bool(torch.equal(a, b)) for a, b in zip(base.losses, hung.losses)]
+        log(f"  (a) the autopiloted run, {P26_STEPS} steps, watchdog {P26_WATCHDOG_S} s, a snapshot a step: no fault "
+            f"{base_s:.1f} s, losses {', '.join(f'{x.item():.6f}' for x in base.losses)}; collective_hang "
+            f"~{P26_HANG_S} s at step 2 {hung_s:.1f} s: decisions "
+            f"{[(d.signal.kind, d.actuator, d.mode) for d in hung.decisions]}, resume tiers "
+            f"{[(r['step'], r['tier']) for r in resume[-1:]]}; losses bit-equal {same}")
+        require([(d.actuator, d.mode) for d in hung.decisions] == [("elastic_resume", "same_mesh")],
+                "the hang did not give one same-mesh elastic_resume")
+        require(resume and resume[-1]["tier"] == "local" and resume[-1]["step"] == 2,
+                "the hang's resume did not come from the RAM tier at step 2")
+        require(all(same) and len(same) == P26_STEPS, "the resumed run differs from the run with no fault")
+        hz = json.loads(seen["healthz"][1])
+        st = json.loads(seen["state"][1])
+        fr = json.loads(seen["flightrec"][1])
+        vg_state = [f for f in st["cache"] if f["fn"] == "<lambda>" and 1 in f["entry_degradation_levels"]]
+        log(f"  (b) during the resumed run: /healthz {seen['healthz'][0]} {hz['status']} (watchdog "
+            f"{hz['components']['watchdog']}, deopt {hz['components']['deopt']}); /metrics {seen['metrics'][0]} "
+            f"({len(seen['metrics'][1].splitlines())} lines); /debug/state {seen['state'][0]}: {len(st['cache'])} live "
+            f"functions, the staged value_and_grad's entry_degradation_levels "
+            f"{[f['entry_degradation_levels'] for f in vg_state]}, autopilot decisions "
+            f"{[d['actuator'] for d in (st['autopilot'] or {}).get('decisions', [])]}; /debug/flightrec "
+            f"{seen['flightrec'][0]} ({fr['records']} records)")
+        require(all(code == 200 for code, _ in seen.values()), f"an endpoint failed: {[c for c, _ in seen.values()]}")
+        require(hz["status"] == "degraded" and hz["components"]["watchdog"]["status"] == "degraded",
+                "/healthz did not read degraded after the watchdog timeout")
+        require(vg_state and st["autopilot"] is not None, "/debug/state misses the de-opted step or the autopilot")
+        require("thunder_tpu_autopilot_decisions_total" in seen["metrics"][1], "/metrics has no decision counter")
+
+        # (4) preempt@3: halt, then a fresh manager and step resume from disk.
+        try:
+            _drive(step_fn, state0, root, "preempt", spec="preempt@3", store=False)
+            halt = None
+        except AutopilotHalt as e:
+            halt = e
+        del step_fn, state0
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh_step, fresh0 = _p26_step(small, make_mesh(dp=1), batches)
+        flat, spec = tree_flatten(fresh0["params"])
+        fresh0 = {"params": _cuda_template(spec, len(flat)), "opt": fresh0["opt"], "k": 0}
+        t = time.perf_counter()
+        _, tail, _, tail_mgr = _drive(fresh_step, fresh0, root, "preempt", store=False)
+        tail_s = time.perf_counter() - t
+        same = [bool(torch.equal(a, b)) for a, b in zip(base.losses[3:], tail.losses[3:])]
+        log(f"  (a) preempt@3: {type(halt).__name__ if halt else 'no halt'} at step {halt.step if halt else None}, "
+            f"decisions {[(d.signal.kind, d.actuator) for d in halt.report.decisions] if halt else None}; a fresh "
+            f"manager and step resumed from disk (restore {tail_mgr.restore_s:.2f} s) and ran steps 3-"
+            f"{P26_STEPS - 1} in {tail_s:.1f} s, bit-equal {same}")
+        require(halt is not None and halt.step == 3
+                and [d.actuator for d in halt.report.decisions] == ["checkpoint_halt"], "preempt@3 did not halt")
+        require(tail.losses[:3] == [None] * 3 and all(same) and len(same) == P26_STEPS - 3,
+                "the resumed run after the halt differs from the run with no fault")
+    finally:
+        monitor.set_event_log(None)
+    summary, diags = ev_replay.replay_events(log_path, storm_threshold=64)
+    decided = {"deopt_escalate": 1, "elastic_resume": 1, "checkpoint_halt": 1}
+    counted = {a: obsm.AUTOPILOT_DECISIONS.value(actuator=a) for a in decided}
+    monitor.disable()
+    log(f"  (a) the log replayed: autopilot decisions {summary['autopilot_decisions']}, unactuated "
+        f"{summary['unactuated_decisions']}, faults {summary['faults_injected']}, unrecovered "
+        f"{summary['unrecovered_faults']}, errors {[d.rule for d in diags if d.severity.name == 'ERROR']}; "
+        f"AUTOPILOT_DECISIONS {counted}")
+    require(summary["autopilot_decisions"] == decided and not summary["unactuated_decisions"]
+            and not summary["unrecovered_faults"] and not any(d.severity.name == "ERROR" for d in diags),
+            "the phase's event log does not replay clean")
+    require(counted == decided, "AUTOPILOT_DECISIONS does not count each decision")
+    dumps = {}
+    for reason in ("collective_timeout", "autopilot_halt"):
+        paths = glob.glob(os.path.join(root, "flightrec", f"flightrec-*-{reason}.jsonl"))
+        findings = [ev_replay.replay_events(p) for p in paths]
+        dumps[reason] = [(s["lines"], s["flightrec_dumps"], [d.rule for d in ds if d.severity.name == "ERROR"])
+                         for s, ds in findings]
+    log(f"  (b) flight-recorder dumps (records, trailers, replay errors): {dumps}")
+    require(all(len(v) == 1 and v[0][1] == 1 and not v[0][2] for v in dumps.values()),
+            "the recorder did not leave one schema-valid dump per fault")
+    log(f"  (a) launches {_count_delta(before, launches)}")
+    return {"vg": vg, "params": params, "batch": batches[0]}
+
+
+def _device_ms(fn, iters: int) -> float:
+    """The card's ms a call of ``fn`` over ``iters`` calls back to back
+    between two CUDA events: for a call the card takes far longer to run
+    than the host to enqueue (a training step), the host stays ahead."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def run_plane_overhead(plane, cfg, vg, params, batch) -> None:
+    """Phase 26 (b), the plane's cost: the host µs of a cache hit of the
+    staged forward loss at P26_LAYERS (its card time is the wait of each
+    sample) with the plane armed and with it off (its event taps
+    uninstalled), HIT_SAMPLES each in turns, the medians held within
+    OPS_HIT_OVERHEAD; the staged step's device ms (CUDA events around 20
+    replays) armed and off in turns (off, on, on, off), held within
+    OPS_DEVICE_REL."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.observability import events
+
+    taps, rec = events.ops_taps()
+
+    def arm(on: bool) -> None:
+        events.set_ops_taps(taps if on else (), recorder=rec if on else None)
+
+    small = replace(cfg, n_layer=P26_LAYERS)
+    loss = tt.jit(lambda p, i, t: gpt.loss_fn(p, i, t, small))
+    for _ in range(3):  # warm-up, capture, replay
+        loss(params, *batch)
+
+    def hit_us() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss(params, *batch)
+        dt = (time.perf_counter() - t) * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    off, on = [], []
+    try:
+        for _ in range(HIT_ROUNDS):
+            arm(False)
+            off.append(hit_us())
+            arm(True)
+            on.append(hit_us())
+        dev = {False: [], True: []}
+        for armed in (False, True, True, False):
+            arm(armed)
+            dev[armed].append(_device_ms(lambda: vg(params, *batch), 20))
+    finally:
+        arm(True)
+    m_off, m_on = _median(off), _median(on)
+    d_off, d_on = float(np.mean(dev[False])), float(np.mean(dev[True]))
+    log(f"  (b) a staged hit of the forward loss, host µs to return: plane off median {m_off:.1f} (p10 "
+        f"{np.percentile(off, 10):.1f}, p90 {np.percentile(off, 90):.1f}), armed median {m_on:.1f} (p10 "
+        f"{np.percentile(on, 10):.1f}, p90 {np.percentile(on, 90):.1f}) over {len(off)} hits each: "
+        f"{m_on / m_off:.4f}x; the staged value_and_grad step's device ms off {dev[False]}, armed {dev[True]}: "
+        f"{d_on / d_off:.4f}x")
+    require(m_on <= OPS_HIT_OVERHEAD * m_off, f"the armed plane cost {m_on / m_off:.4f}x a staged hit")
+    require(abs(d_on / d_off - 1.0) <= OPS_DEVICE_REL, f"the armed plane moved the step's device ms {d_on / d_off:.4f}x")
+    require(plane.server is not None and events.ops_active(), "the plane is not armed after the readings")
+
+
+def run_federation(cfg, root: str) -> None:
+    """Phase 26 (c). ``run_federated_training`` over 2 emulated slices of
+    one rank each (the one-rank mesh at every width): ``build_for_width``
+    runs ``accum`` micro-steps of a staged ``value_and_grad``, so the global
+    batch stays two rows of SEQ: one B=2 call at width 2, two B=1 calls with
+    their grads averaged at width 1; then bf16-true SGD. Under
+    ``slice_loss@2,slice=1`` and ``recover_after=3``: decisions shrink_dp
+    then regrow_dp, the shrink's restore from the buddy's RAM
+    (``tier="peer"``) and no disk read after the anchor, the losses within
+    FED_LOSS_RTOL of the full-width run's on the same tokens, a clean
+    replay; the peer-tier restore seconds (the shrink decision to its
+    elastic_resume event)."""
+    import os
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import monitor
+    from thunder_tpu_torch.analysis import events as ev_replay
+    from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.parallel.train import sgd_update
+    from thunder_tpu_torch.resilience import (
+        Autopilot,
+        CheckpointManager,
+        FederationLedger,
+        FleetController,
+        SnapshotStore,
+        chaos_scope,
+        run_federated_training,
+    )
+    from thunder_tpu_torch.resilience.federation import install_ledger
+
+    small = replace(cfg, n_layer=P26_FED_LAYERS)
+    batches = _p26_batches(small.vocab_size, P26_FED_STEPS, SEED + 261)
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, small))
+    widths = []
+
+    def build_for_width(mesh, width, accum):
+        rows = LOSS_BATCH // accum
+
+        def fed_step(state):
+            k = int(state["k"])
+            ids, tgt = batches[k]
+            losses, grads = [], None
+            for j in range(accum):
+                loss, g = vg(state["params"], ids[j * rows:(j + 1) * rows], tgt[j * rows:(j + 1) * rows])
+                g = tree_flatten(g)[0]
+                losses.append(loss)
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            if accum > 1:
+                grads = [x / accum for x in grads]
+            flat, spec = tree_flatten(state["params"])
+            new = sgd_update(flat, grads, P26_LR, 0.0, in_place=False)
+            return {"params": tree_unflatten(new, spec), "k": k + 1}, sum(losses) / accum
+
+        return fed_step
+
+    def run(name: str, spec: str):
+        ledger = FederationLedger(2)
+        fc = FleetController(ledger, Autopilot(), rejoin_backoff_s=0.0, hysteresis_s=0.0)
+        stores = [SnapshotStore(host=i, ring=2) for i in range(2)]
+        SnapshotStore.make_ring(stores)
+        mgr = CheckpointManager(os.path.join(root, name), store=stores[0], backoff_s=0)
+        state = {"params": gpt.init_params(small, dtype=torch.bfloat16, seed=SEED, device="cuda"), "k": 0}
+        log_path = os.path.join(root, f"{name}.jsonl")
+        monitor.set_event_log(log_path)
+        t = time.perf_counter()
+        try:
+            with chaos_scope(spec):
+                _, report = run_federated_training(
+                    fc, build_for_width, state, P26_FED_STEPS, manager=mgr,
+                    mesh_for_width=lambda w: (make_mesh(dp=1), None), stores=stores, snapshot_every=1,
+                    recover_after=3, on_step=lambda step, loss, width: widths.append(width))
+        finally:
+            monitor.set_event_log(None)
+            install_ledger(None)
+        torch.cuda.synchronize()
+        return report, ledger, [json.loads(line) for line in open(log_path)], log_path, time.perf_counter() - t
+
+    full, _, _, _, full_s = run("full", "")
+    widths.clear()
+    lost, ledger, recs, log_path, lost_s = run("lost", "slice_loss@2,slice=1")
+    decisions = [r["actuator"] for r in recs if r["kind"] == "autopilot_decision"]
+    tiers = [(r["step"], r["tier"]) for r in recs if r["kind"] == "restore" and r.get("ok")]
+    ts = {r["kind"] + (r.get("actuator") or ""): r["ts"] for r in recs
+          if r["kind"] in ("autopilot_decision", "elastic_resume") and (r.get("actuator") == "shrink_dp"
+                                                                        or r.get("tier") == "peer")}
+    peer_s = ts.get("elastic_resume", 0.0) - ts.get("autopilot_decisionshrink_dp", 0.0)
+    summary, diags = ev_replay.replay_events(log_path, storm_threshold=64)
+    rel = [abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(lost.losses, full.losses)]
+    log(f"  (c) 2 slices of one rank, {small.n_layer} layers, {P26_FED_STEPS} steps: full width {full_s:.1f} s, "
+        f"losses {', '.join(f'{x.item():.6f}' for x in full.losses)}; slice_loss@2,slice=1 with recover_after=3 "
+        f"{lost_s:.1f} s: widths {widths}, decisions {decisions}, restores {tiers}, ledger "
+        f"{[(f, t) for _, f, t, _ in ledger.transitions]}, report shrinks {lost.shrinks} regrows {lost.regrows} "
+        f"degraded_steps {lost.degraded_steps}; losses {', '.join(f'{x.item():.6f}' for x in lost.losses)}, "
+        f"largest relative gap {max(rel):.2e} (limit {FED_LOSS_RTOL}); the peer-tier restore {peer_s:.3f} s; "
+        f"replay unrecovered {summary['unrecovered_faults']}, unactuated {summary['unactuated_decisions']}")
+    require(decisions == ["shrink_dp", "regrow_dp"] and lost.shrinks == 1 and lost.regrows == 1,
+            "the slice loss did not shrink and regrow once each")
+    require([t for _, t in tiers].count("peer") == 1 and "disk" not in [t for _, t in tiers[1:]],
+            "the shrink's restore did not come from the buddy's RAM alone")
+    require(1 in widths and all(x <= FED_LOSS_RTOL for x in rel) and rel[0] == rel[1] == 0.0,
+            "the width-1 losses are not those of the full-width run")
+    require(not summary["unrecovered_faults"] and not summary["unactuated_decisions"]
+            and not any(d.severity.name == "ERROR" for d in diags), "the federation's log does not replay clean")
+
+
+def run_fleet(cfg, launches: dict) -> None:
+    """Phase 26 (a)-(c), one NCCL rank, the ops plane armed by
+    ``monitor.serve(port=0)`` for (a) and (b)."""
+    import os
+    import shutil
+    import tempfile
+
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch import monitor
+
+    root = tempfile.mkdtemp(prefix="phase26-")
+    dist_init()
+    plane = monitor.serve(port=0, flightrec_dir=os.path.join(root, "flightrec"))
+    try:
+        log(f"  (b) the ops plane on 127.0.0.1:{plane.port}")
+        t = time.perf_counter()
+        got = run_autopilot(cfg, root, plane, launches)
+        log(f"  (a) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        run_plane_overhead(plane, cfg, got["vg"], got["params"], got["batch"])
+        log(f"  (b) took {time.perf_counter() - t:.1f} s")
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+        monitor.shutdown_ops()
+        t = time.perf_counter()
+        run_federation(cfg, root)
+        log(f"  (c) took {time.perf_counter() - t:.1f} s")
+    finally:
+        monitor.shutdown_ops()
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    require(not td.is_initialized(), "the process group outlived phase 26")
 
 
 def main() -> int:
@@ -6311,6 +6780,12 @@ def main() -> int:
         "de-opt ladder on a real out-of-memory; (d) kernel_raise on the flash wrapper; (e) the NaN guard; (f) the "
         "collective watchdog at jit's and shard_map_callable's dispatch, one NCCL rank")
     run_resilience(cfg, launches)
+
+    log(f"[26] the fleet layer, one NCCL rank, the ops plane armed: (a) {CFG_NAME} at {P26_LAYERS} layers, the "
+        "autopiloted run under a collective hang, a preemption and an out-of-memory; (b) the four endpoints, the "
+        "flight recorder's dumps and the plane's cost on a staged hit; (c) the federated run over 2 slices under a "
+        f"slice loss, {P26_FED_LAYERS} layers")
+    run_fleet(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -17,7 +17,9 @@ SCENARIOS may name a group: "@train" (the sharded step over dp, fsdp and
 tp), "@parallel" (context, pipeline and expert parallelism, and the step
 over pp, ep and sp), "@resilience" (the recovery layer: a synced
 preemption, the SDC guard, host loss and the elastic resume, reshards, the
-collective watchdog).
+collective watchdog), "@fleet" (the fleet layer: the autopiloted driver's
+scenarios, the federated mesh, the hierarchical all-reduce and the
+federated driver).
 
 A scenario returns the numbers the test compares (lists of floats) and its
 own checks' verdicts; each runs under a time limit of its own, and after a
@@ -1579,6 +1581,273 @@ RESILIENCE_SCENARIOS = {
 }
 
 
+# =============================================================================
+# The fleet layer on ranks (tests/test_torch_port_fleet_ranks.py):
+# SCENARIOS "@fleet"
+# =============================================================================
+
+# tests/test_autopilot.py's TestAutopilotDriver on fsdp2 x tp2 over 4 ranks
+# (the JAX side on 4 virtual devices), the state and step of "@resilience".
+FLEET_STEPS = 6
+FLEET_SPECS_AXES = ("fsdp", "tp")
+
+
+def _fleet_replay(log_dir: str, world: int, pkg: str = "torch") -> dict:
+    """The replay of every rank's log merged (the fleet's view: a rank that
+    sat out a shrink decided it, the survivors actuated it)."""
+    if pkg == "torch":
+        from thunder_tpu_torch.analysis.events import replay_events
+    else:
+        from thunder_tpu.analysis.events import replay_events
+    paths = [os.path.join(log_dir, f"ev{r}.jsonl") for r in range(world)]
+    summary, diags = replay_events([p for p in paths if os.path.exists(p)], storm_threshold=64)
+    return {"unrecovered": summary["unrecovered_faults"], "unactuated": summary["unactuated_decisions"],
+            "decisions": summary["autopilot_decisions"],
+            "errors": sorted(d.rule for d in diags if d.severity.name == "ERROR")}
+
+
+def _decisions(report) -> list:
+    return [[d.signal.kind, d.actuator, d.mode, d.rung] for d in report.decisions]
+
+
+class FleetRank:
+    """The "@fleet" scenarios, a rank each."""
+
+    def _layout(self):
+        from thunder_tpu_torch.distributed.runtime import P
+
+        return {"b": P(), "w": P(*FLEET_SPECS_AXES)}
+
+    def _state(self, mesh, specs):
+        import torch
+
+        from thunder_tpu_torch.parallel import shard_pytree
+
+        return shard_pytree({k: torch.from_numpy(v) for k, v in _res_state_np().items()}, mesh, specs)
+
+    def _drive(self, name: str, spec: str, n: int = FLEET_STEPS, specs_hook=None, dir_name=None, **kw):
+        """``run_autopiloted_training`` of the "@resilience" step on
+        fsdp2 x tp2 under ``spec``, every rank logging to its own file."""
+        from thunder_tpu_torch.observability import events as ev
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.resilience import autopilot, chaos, preemption
+
+        mesh = make_mesh(**RES_MESH[4])
+        specs = self._layout()
+        state0 = self._state(mesh, specs)
+        mgr = preemption.CheckpointManager(os.path.join(self.ckpt, dir_name or name), backoff_s=0)
+        ap = autopilot.Autopilot()
+
+        def specs_for(m):
+            if specs_hook is not None:
+                specs_hook(m)
+            return specs
+
+        log_dir = os.path.join(self.out, name)
+        os.makedirs(log_dir, exist_ok=True)
+        ev.set_global_path(os.path.join(log_dir, f"ev{self.rank}.jsonl"))
+        try:
+            with chaos.chaos_scope(spec):
+                state, report = autopilot.run_autopiloted_training(
+                    ap, lambda m: _res_step(m, specs), state0, n, manager=mgr, mesh=mesh,
+                    specs_for_mesh=specs_for, **kw)
+        finally:
+            ev.set_global_path(None)
+        return ap, report, log_dir
+
+    def _result(self, ap, report, log_dir) -> dict:
+        import torch.distributed as dist
+
+        dist.barrier()  # every rank's log is complete before the replay
+        return {"decisions": _decisions(report), "final_shape": report.final_mesh_shape,
+                "losses": report.losses, "halted": report.halted is not None,
+                "recoveries": report.recoveries, "by_actuator": ap.stats()["by_actuator"],
+                "intervals_ok": _serialized(ap), "replay": _fleet_replay(log_dir, self.world)}
+
+    def _baseline(self) -> list:
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.resilience import preemption
+
+        mesh = make_mesh(**RES_MESH[4])
+        specs = self._layout()
+        _, losses = preemption.run_training(
+            _res_step(mesh, specs), self._state(mesh, specs), FLEET_STEPS,
+            manager=preemption.CheckpointManager(os.path.join(self.ckpt, "fl-base"), backoff_s=0))
+        return losses
+
+    def fl_host_loss(self):
+        """host_loss@2: shrink onto fsdp1 x tp2 over ranks 0-1 and continue;
+        ranks 2-3 sit out the remaining steps."""
+        baseline = self._baseline()
+        out = self._result(*self._drive("fl_host_loss", "host_loss@2"))
+        return {**out, "baseline": baseline}
+
+    def fl_hang_same_mesh(self):
+        """collective_hang~3.0 under a 0.5 s watchdog: one same-mesh resume."""
+        return self._result(*self._drive("fl_hang", "collective_hang~3.0", save_every=2, watchdog_timeout_s=0.5))
+
+    def fl_persistent_sdc(self):
+        """sdc*3 with one re-run: the quarantine, then the shrink away."""
+        from thunder_tpu_torch.resilience.watchdog import SDCGuard
+
+        return self._result(*self._drive("fl_sdc", "sdc*3", sdc_guard=SDCGuard(max_reruns=1)))
+
+    def fl_preempt_restart(self):
+        """preempt@2 halts; a fresh drive on the same directory resumes."""
+        from thunder_tpu_torch.resilience.autopilot import AutopilotHalt
+
+        try:
+            self._drive("fl_preempt", "preempt@2")
+            halt = None
+        except AutopilotHalt as e:
+            halt = {"step": e.step, "decisions": _decisions(e.report)}
+        out = self._result(*self._drive("fl_preempt2", "", dir_name="fl_preempt"))
+        return {**out, "halt": halt}
+
+    def fl_overlap_sdc_host_loss(self):
+        """sdc*2;host_loss@1: a quarantine re-run, then a shrink."""
+        from thunder_tpu_torch.resilience.watchdog import SDCGuard
+
+        return self._result(*self._drive("fl_overlap1", "sdc*2;host_loss@1", sdc_guard=SDCGuard(max_reruns=2)))
+
+    def fl_overlap_hang_in_resume(self):
+        """host_loss@1, and a hang planted inside the shrink's resume (the
+        specs hook runs under the recovery's lock): decided after it."""
+        from thunder_tpu_torch.parallel.mesh import axis_sizes
+        from thunder_tpu_torch.resilience import chaos
+
+        armed = {"done": False}
+
+        def arm(mesh):
+            if not armed["done"] and axis_sizes(mesh).get("fsdp") == 1:
+                armed["done"] = True
+                chaos.active().rules.append(chaos.FaultRule("collective_hang", delay_s=3.0))
+
+        return self._result(*self._drive("fl_overlap2", "host_loss@1", specs_hook=arm, watchdog_timeout_s=0.5))
+
+    def fl_regrow(self):
+        """host_loss@1, 8 steps, regrow after 2 healthy ones: the ranks that
+        sat out come back for the regrow and its restore."""
+        return self._result(*self._drive("fl_regrow", "host_loss@1", n=8, regrow_after=2))
+
+    def fl_federated_mesh(self):
+        """TestFederatedMesh on 2 slices x 2 ranks."""
+        from thunder_tpu_torch.parallel import make_federated_mesh, make_mesh
+        from thunder_tpu_torch.parallel.mesh import DCN_AXIS, is_federated, slice_axis_size
+
+        mesh, topo = make_federated_mesh(2, dp=1, tp=2)
+        shape = {"axis0": mesh.axis_names[0], "slices": int(mesh.devices.shape[0]), "n_slices": topo.n_slices,
+                 "per_slice": topo.devices_per_slice, "federated": is_federated(mesh)}
+        _, topo = make_federated_mesh(2, dp=2)
+        blocks = {"s0": list(topo.device_indices(0)), "s1": list(topo.device_indices(1)),
+                  "of1": topo.slice_of_device(1), "of2": topo.slice_of_device(2)}
+        plain = make_mesh(dp=4)
+        fed, _ = make_federated_mesh(2, dp=2)
+        try:
+            make_federated_mesh(4, dp=2)
+            too_many = None
+        except ValueError as e:
+            too_many = str(e)
+        return {"shape": shape, "dcn": shape["axis0"] == DCN_AXIS, "blocks": blocks,
+                "plain": [is_federated(plain), slice_axis_size(plain)], "slice_axis_size": slice_axis_size(fed),
+                "too_many": too_many, "dcn_group": fed.get(DCN_AXIS) is not None}
+
+    def fl_hier_numerics(self):
+        """hier_all_reduce (reduce-scatter over dp, all-reduce over dcn,
+        all-gather over dp) against the flat sum over both axes, on the
+        federated mesh of 2 slices x 2."""
+        import torch
+
+        from thunder_tpu_torch.distributed import prims as dist
+        from thunder_tpu_torch.distributed.runtime import P, compile_with_collectives
+        from thunder_tpu_torch.parallel import make_federated_mesh
+
+        mesh, _ = make_federated_mesh(2, dp=2)
+        x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+        hier, _ = compile_with_collectives(lambda a: dist.hier_all_reduce(a, "dp", "dcn", 2, 2), (x,), mesh,
+                                           (P(),), P())
+        flat, _ = compile_with_collectives(lambda a: dist.all_reduce(dist.all_reduce(a, "dcn", 2), "dp", 2), (x,),
+                                           mesh, (P(),), P())
+        got, want = hier(x), flat(x)
+        return {"equal": bool(torch.equal(got, want)), "sum_ok": bool(torch.equal(want, 4 * x)),
+                "got": got.flatten().tolist()}
+
+    def _federated(self, name: str, spec: str, n: int = 20, **kw):
+        """run_federated_training of the toy step over 2 slices, the mesh of
+        width w the first 2*w ranks (dp), every rank driving alike."""
+        import torch
+
+        from thunder_tpu_torch.distributed.runtime import P
+        from thunder_tpu_torch.observability import events as ev
+        from thunder_tpu_torch.parallel import make_mesh
+        from thunder_tpu_torch.resilience import autopilot, chaos, federation, preemption, snapshot
+
+        clock = [0.0]
+        led = federation.FederationLedger(2, clock=lambda: clock[0])
+        fc = federation.FleetController(led, autopilot.Autopilot(), rejoin_backoff_s=0.02, hysteresis_s=0.02,
+                                        clock=lambda: clock[0])
+        stores = [snapshot.SnapshotStore(host=i, ring=4) for i in range(2)]
+        snapshot.SnapshotStore.make_ring(stores)
+        mgr = preemption.CheckpointManager(os.path.join(self.ckpt, name), store=stores[0], backoff_s=0)
+        widths = []
+
+        def step_for(mesh, width, accum):
+            def step_fn(state):
+                w = state["w"]
+                return {"w": w - 0.01 * w}, float(torch.sum(w * w))
+            return step_fn
+
+        def on_step(step, loss, width):
+            clock[0] += 0.01
+            widths.append(width)
+
+        log_dir = os.path.join(self.out, name)
+        os.makedirs(log_dir, exist_ok=True)
+        ev.set_global_path(os.path.join(log_dir, f"ev{self.rank}.jsonl"))
+        try:
+            with chaos.chaos_scope(spec):
+                _, report = federation.run_federated_training(
+                    fc, step_for, {"w": torch.ones(8)}, n, manager=mgr,
+                    mesh_for_width=lambda w: (make_mesh(dp=2 * w), {"w": P()}), stores=stores, snapshot_every=2,
+                    on_step=on_step, **kw)
+        finally:
+            ev.set_global_path(None)
+            federation.install_ledger(None)
+        import torch.distributed as dist
+
+        dist.barrier()
+        recs = [json.loads(line) for line in open(os.path.join(log_dir, f"ev{self.rank}.jsonl"))]
+        from thunder_tpu_torch.analysis.events import replay_events
+
+        summary, _ = replay_events(os.path.join(log_dir, f"ev{self.rank}.jsonl"), storm_threshold=64)
+        return {"report": [report.shrinks, report.regrows, report.degraded_steps, report.partitioned_steps,
+                           report.full_width, report.final_width, report.steps_executed],
+                "decisions": [[d.signal.kind, d.actuator] for d in report.decisions],
+                "edges": [list(t) for t in led.transitions],
+                "tiers": [r["tier"] for r in recs if r["kind"] == "restore" and r.get("ok")],
+                "losses": report.losses, "widths": widths,
+                "replay": {"unrecovered": summary["unrecovered_faults"],
+                           "unactuated": summary["unactuated_decisions"]}}
+
+    def fl_slice_loss(self):
+        return self._federated("fl_slice_loss", "slice_loss@6,slice=1;seed=3", recover_after=4)
+
+    def fl_slice_flap(self):
+        return self._federated("fl_slice_flap", "slice_flap@4,slice=1;seed=3")
+
+
+def _serialized(ap) -> bool:
+    ivals = sorted(ap.recovery_intervals)
+    return all(e0 <= s1 for (s0, e0, _), (s1, e1, _) in zip(ivals, ivals[1:]))
+
+
+FLEET_SCENARIOS = {
+    4: ["fl_federated_mesh", "fl_hier_numerics", "fl_slice_loss", "fl_slice_flap", "fl_host_loss",
+        "fl_hang_same_mesh", "fl_persistent_sdc", "fl_preempt_restart", "fl_overlap_sdc_host_loss",
+        "fl_overlap_hang_in_resume", "fl_regrow"],
+}
+
+
 def _timeout(signum, frame):
     raise TimeoutError(f"scenario exceeded {LIMIT_S} s")
 
@@ -1596,13 +1865,16 @@ def run_torch(rank: int, world: int, store_path: str, out: str, ckpt: str, scena
     runner = TorchRank(rank, world, ckpt, out)
     res_runner = ResilienceRank()
     res_runner.rank, res_runner.world, res_runner.ckpt, res_runner.out = rank, world, ckpt, out
+    fleet_runner = FleetRank()
+    fleet_runner.rank, fleet_runner.world, fleet_runner.ckpt, fleet_runner.out = rank, world, ckpt, out
     results = {}
     signal.signal(signal.SIGALRM, _timeout)
     for name in scenarios or TORCH_SCENARIOS[world]:
         t0 = time.perf_counter()
         signal.alarm(LIMIT_S)
         try:
-            results[name] = {"ok": True, **getattr(res_runner if name.startswith("res_") else runner, name)()}
+            owner = res_runner if name.startswith("res_") else fleet_runner if name.startswith("fl_") else runner
+            results[name] = {"ok": True, **getattr(owner, name)()}
             torch.distributed.barrier()
         except BaseException:  # noqa: BLE001 - recorded for the test, and the rank stops here
             results[name] = {"ok": False, "error": traceback.format_exc()[-4000:]}
@@ -2117,6 +2389,230 @@ def jax_res_host_loss(world: int):
 JAX_RESILIENCE_SCENARIOS = {4: ["res_sdc_guard", "res_host_loss"]}
 
 
+def _jax_fleet_drive(name: str, spec: str, n: int = FLEET_STEPS, specs_hook=None, dir_name=None, **kw):
+    """tests/test_autopilot.py's TestAutopilotDriver._drive on fsdp2 x tp2
+    over the 4 virtual devices."""
+    import tempfile
+
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.observability import events as ev
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.sharding import shard_pytree
+    from thunder_tpu.resilience import autopilot, chaos
+    from thunder_tpu.resilience.preemption import CheckpointManager
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_mesh_resilience import _mesh_step
+
+    mesh = make_mesh(**RES_MESH[4])
+    specs = {"b": JP(), "w": JP(*FLEET_SPECS_AXES)}
+    state0 = shard_pytree(_res_state_np(), mesh, specs)
+    root = _JAX_FLEET_ROOT.setdefault("root", tempfile.mkdtemp())
+    mgr = CheckpointManager(os.path.join(root, dir_name or name))
+    ap = autopilot.Autopilot()
+
+    def specs_for(m):
+        if specs_hook is not None:
+            specs_hook(m)
+        return specs
+
+    log_dir = os.path.join(root, name)
+    os.makedirs(log_dir, exist_ok=True)
+    ev.set_global_path(os.path.join(log_dir, "ev0.jsonl"))
+    try:
+        with chaos.chaos_scope(spec):
+            _, report = autopilot.run_autopiloted_training(
+                ap, lambda m: _mesh_step(m, specs), state0, n, manager=mgr, mesh=mesh, specs_for_mesh=specs_for,
+                **kw)
+    finally:
+        ev.set_global_path(None)
+    return {"decisions": _decisions(report), "final_shape": report.final_mesh_shape, "losses": report.losses,
+            "halted": report.halted is not None, "recoveries": report.recoveries,
+            "by_actuator": ap.stats()["by_actuator"], "intervals_ok": _serialized(ap),
+            "replay": _fleet_replay(log_dir, 1, "jax")}
+
+
+_JAX_FLEET_ROOT: dict = {}
+
+
+def jax_fl_host_loss(world: int):
+    import tempfile
+
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.parallel.sharding import shard_pytree
+    from thunder_tpu.resilience.preemption import CheckpointManager, run_training
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_mesh_resilience import _mesh_step
+
+    mesh = make_mesh(**RES_MESH[4])
+    specs = {"b": JP(), "w": JP(*FLEET_SPECS_AXES)}
+    _, baseline = run_training(_mesh_step(mesh, specs), shard_pytree(_res_state_np(), mesh, specs), FLEET_STEPS,
+                               manager=CheckpointManager(tempfile.mkdtemp()))
+    return {**_jax_fleet_drive("fl_host_loss", "host_loss@2"), "baseline": baseline}
+
+
+def jax_fl_hang_same_mesh(world: int):
+    return _jax_fleet_drive("fl_hang", "collective_hang~3.0", save_every=2, watchdog_timeout_s=0.5)
+
+
+def jax_fl_persistent_sdc(world: int):
+    from thunder_tpu.resilience.watchdog import SDCGuard
+
+    return _jax_fleet_drive("fl_sdc", "sdc*3", sdc_guard=SDCGuard(max_reruns=1))
+
+
+def jax_fl_preempt_restart(world: int):
+    from thunder_tpu.resilience.autopilot import AutopilotHalt
+
+    try:
+        _jax_fleet_drive("fl_preempt", "preempt@2")
+        halt = None
+    except AutopilotHalt as e:
+        halt = {"step": e.step, "decisions": _decisions(e.report)}
+    return {**_jax_fleet_drive("fl_preempt2", "", dir_name="fl_preempt"), "halt": halt}
+
+
+def jax_fl_overlap_sdc_host_loss(world: int):
+    from thunder_tpu.resilience.watchdog import SDCGuard
+
+    return _jax_fleet_drive("fl_overlap1", "sdc*2;host_loss@1", sdc_guard=SDCGuard(max_reruns=2))
+
+
+def jax_fl_overlap_hang_in_resume(world: int):
+    from thunder_tpu.parallel.mesh import axis_sizes
+    from thunder_tpu.resilience import chaos
+
+    armed = {"done": False}
+
+    def arm(mesh):
+        if not armed["done"] and axis_sizes(mesh).get("fsdp") == 1:
+            armed["done"] = True
+            chaos.active().rules.append(chaos.FaultRule("collective_hang", delay_s=3.0))
+
+    return _jax_fleet_drive("fl_overlap2", "host_loss@1", specs_hook=arm, watchdog_timeout_s=0.5)
+
+
+def jax_fl_regrow(world: int):
+    return _jax_fleet_drive("fl_regrow", "host_loss@1", n=8, regrow_after=2)
+
+
+def jax_fl_federated_mesh(world: int):
+    from thunder_tpu.parallel import make_federated_mesh, make_mesh
+    from thunder_tpu.parallel.mesh import DCN_AXIS, is_federated, slice_axis_size
+
+    mesh, topo = make_federated_mesh(2, dp=1, tp=2)
+    shape = {"axis0": mesh.axis_names[0], "slices": int(mesh.devices.shape[0]), "n_slices": topo.n_slices,
+             "per_slice": topo.devices_per_slice, "federated": is_federated(mesh)}
+    _, topo = make_federated_mesh(2, dp=2)
+    blocks = {"s0": list(topo.device_indices(0)), "s1": list(topo.device_indices(1)),
+              "of1": topo.slice_of_device(1), "of2": topo.slice_of_device(2)}
+    plain = make_mesh(dp=4)
+    fed, _ = make_federated_mesh(2, dp=2)
+    try:
+        make_federated_mesh(4, dp=2)
+        too_many = None
+    except ValueError as e:
+        too_many = str(e)
+    return {"shape": shape, "dcn": shape["axis0"] == DCN_AXIS, "blocks": blocks,
+            "plain": [is_federated(plain), slice_axis_size(plain)], "slice_axis_size": slice_axis_size(fed),
+            "too_many": too_many}
+
+
+def jax_fl_hier_numerics(world: int):
+    """tests/test_federation.py's test_hier_numerics_match_flat on 2 slices
+    x 2 devices."""
+    import jax
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.parallel import make_federated_mesh
+
+    mesh, _ = make_federated_mesh(2, dp=2)
+    x = np.arange(64, dtype=np.float32).reshape(8, 8)
+
+    def hier(a):
+        part = jax.lax.psum_scatter(a, "dp", scatter_dimension=0, tiled=True)
+        part = jax.lax.psum(part, "dcn")
+        return jax.lax.all_gather(part, "dp", axis=0, tiled=True)
+
+    def flat(a):
+        return jax.lax.psum(a, ("dcn", "dp"))
+
+    kw = dict(mesh=mesh, in_specs=JP(), out_specs=JP(), check_rep=False)
+    sm = _shard_map()
+    got, want = np.asarray(sm(hier, **kw)(x)), np.asarray(sm(flat, **kw)(x))
+    return {"equal": bool(np.allclose(got, want, rtol=1e-6)), "sum_ok": bool(np.array_equal(want, 4 * x)),
+            "got": got.flatten().tolist()}
+
+
+def _jax_federated(name: str, spec: str, n: int = 20, **kw):
+    import tempfile
+
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from thunder_tpu.analysis.events import replay_events
+    from thunder_tpu.observability import events as ev
+    from thunder_tpu.parallel import make_mesh
+    from thunder_tpu.resilience import autopilot, chaos, federation, snapshot
+    from thunder_tpu.resilience.preemption import CheckpointManager
+
+    clock = [0.0]
+    led = federation.FederationLedger(2, clock=lambda: clock[0])
+    fc = federation.FleetController(led, autopilot.Autopilot(), rejoin_backoff_s=0.02, hysteresis_s=0.02,
+                                    clock=lambda: clock[0])
+    stores = [snapshot.SnapshotStore(host=i, ring=4) for i in range(2)]
+    snapshot.SnapshotStore.make_ring(stores)
+    root = tempfile.mkdtemp()
+    mgr = CheckpointManager(os.path.join(root, "ck"), store=stores[0])
+    widths = []
+
+    def step_for(mesh, width, accum):
+        def step_fn(state):
+            w = state["w"]
+            return {"w": w - 0.01 * w}, float(np.asarray(jnp.sum(w * w)))
+        return step_fn
+
+    def on_step(step, loss, width):
+        clock[0] += 0.01
+        widths.append(width)
+
+    log = os.path.join(root, "ev.jsonl")
+    ev.set_global_path(log)
+    try:
+        with chaos.chaos_scope(spec):
+            _, report = federation.run_federated_training(
+                fc, step_for, {"w": jnp.ones((8,), jnp.float32)}, n, manager=mgr,
+                mesh_for_width=lambda w: (make_mesh(dp=2 * w), {"w": JP()}), stores=stores, snapshot_every=2,
+                on_step=on_step, **kw)
+    finally:
+        ev.set_global_path(None)
+        federation.install_ledger(None)
+    recs = [json.loads(line) for line in open(log)]
+    summary, _ = replay_events(log, storm_threshold=64)
+    return {"report": [report.shrinks, report.regrows, report.degraded_steps, report.partitioned_steps,
+                       report.full_width, report.final_width, report.steps_executed],
+            "decisions": [[d.signal.kind, d.actuator] for d in report.decisions],
+            "edges": [list(t) for t in led.transitions],
+            "tiers": [r["tier"] for r in recs if r["kind"] == "restore" and r.get("ok")],
+            "losses": report.losses, "widths": widths,
+            "replay": {"unrecovered": summary["unrecovered_faults"], "unactuated": summary["unactuated_decisions"]}}
+
+
+def jax_fl_slice_loss(world: int):
+    return _jax_federated("fl_slice_loss", "slice_loss@6,slice=1;seed=3", recover_after=4)
+
+
+def jax_fl_slice_flap(world: int):
+    return _jax_federated("fl_slice_flap", "slice_flap@4,slice=1;seed=3")
+
+
+JAX_FLEET_SCENARIOS = {4: FLEET_SCENARIOS[4]}
+
+
 def run_jax(world: int, out: str, scenarios=None) -> None:
     import jax
 
@@ -2133,7 +2629,8 @@ def run_jax(world: int, out: str, scenarios=None) -> None:
         json.dump(results, f)
 
 
-GROUPS = {"@train": TRAIN_SCENARIOS, "@parallel": PARALLEL_SCENARIOS, "@resilience": RESILIENCE_SCENARIOS}
+GROUPS = {"@train": TRAIN_SCENARIOS, "@parallel": PARALLEL_SCENARIOS, "@resilience": RESILIENCE_SCENARIOS,
+          "@fleet": FLEET_SCENARIOS}
 
 if __name__ == "__main__":
     if sys.argv[1] == "torch":
@@ -2148,4 +2645,6 @@ if __name__ == "__main__":
             names = ",".join(JAX_PARALLEL_SCENARIOS[int(sys.argv[2])])
         elif names == "@resilience":
             names = ",".join(JAX_RESILIENCE_SCENARIOS[int(sys.argv[2])])
+        elif names == "@fleet":
+            names = ",".join(JAX_FLEET_SCENARIOS[int(sys.argv[2])])
         run_jax(int(sys.argv[2]), sys.argv[3], names.split(",") if names else None)

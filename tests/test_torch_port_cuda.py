@@ -2574,3 +2574,93 @@ def test_nan_guard_after_a_replay(dev):
     with pytest.raises(NonFiniteOutputError):
         jf(a, bad)
     assert stats.captures == 1 and stats.replays == 2
+
+
+# =============================================================================
+# The fleet layer on the card (resilience/autopilot.py, observability/opsplane.py)
+# =============================================================================
+
+
+def test_autopiloted_hang_recovery_at_one_nccl_rank(nccl_rank, dev, tmp_path, monkeypatch):
+    """``run_autopiloted_training`` of a 2-layer staged SGD step on the
+    one-rank NCCL mesh, a RAM snapshot a step, a 1 s watchdog and a
+    collective hang planted at step 2: one same-mesh elastic_resume decision,
+    the resume from the RAM tier, the losses ``torch.equal`` to the same run
+    with no fault."""
+    from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.parallel.train import sgd_update
+    from thunder_tpu_torch.resilience import (
+        Autopilot,
+        CheckpointManager,
+        SnapshotStore,
+        chaos,
+        chaos_scope,
+        run_autopiloted_training,
+    )
+
+    monkeypatch.setenv("THUNDER_TPU_RETRY_BACKOFF_S", "0")
+    cfg, params, batches = _tiny_llama(dev)
+    vg = _vg(cfg)
+
+    def step(state):
+        k = int(state["k"])
+        loss, grads = vg(state["params"], *batches[k])
+        flat, spec = tree_flatten(state["params"])
+        return {"params": tree_unflatten(sgd_update(flat, list(grads), 1e-3, 0.0, in_place=False), spec),
+                "k": k + 1}, loss
+
+    def drive(name, on_step=None):
+        ap = Autopilot()
+        with chaos_scope(""):
+            _, report = run_autopiloted_training(
+                ap, lambda m: step, {"params": params, "k": 0}, 4,
+                manager=CheckpointManager(str(tmp_path / name), backoff_s=0, store=SnapshotStore()),
+                mesh=make_mesh(dp=1), specs_for_mesh=lambda m: None, sdc_guard=False, watchdog_timeout_s=1.0,
+                snapshot_every=1, on_step=on_step)
+        return ap, report
+
+    _, base = drive("base")
+
+    def hang_at_2(k, loss):
+        if k == 1:
+            chaos.active().rules.append(chaos.FaultRule("collective_hang", delay_s=3.0))
+
+    ap, hung = drive("hang", hang_at_2)
+    assert [(d.signal.kind, d.actuator, d.mode) for d in hung.decisions] == [
+        ("collective_hang", "elastic_resume", "same_mesh")]
+    assert hung.recoveries == 1
+    assert all(torch.equal(a, b) for a, b in zip(base.losses, hung.losses)) and len(hung.losses) == 4
+
+
+def test_flight_dump_after_a_dispatch_fault_on_the_card(dev, tmp_path):
+    """The NaN guard's raise out of a staged entry's replay is an unhandled
+    dispatch fault: the flight recorder dumps, and the dump replays with no
+    error and holds the guard's record."""
+    import glob
+    import json
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis.events import replay_events
+    from thunder_tpu_torch.observability import opsplane
+    from thunder_tpu_torch.resilience import NonFiniteOutputError
+
+    opsplane.enable(serve=False, flightrec_dir=str(tmp_path))
+    try:
+        jf = tt.jit(lambda a, b: (a * b).sum(dim=1), on_nan="raise")
+        a = torch.randn(64, 128, device=dev)
+        b = torch.randn(64, 128, device=dev)
+        jf(a, b.clone())
+        jf(a, b.clone())  # the capture
+        bad = b.clone()
+        bad[3, 5] = float("nan")
+        with pytest.raises(NonFiniteOutputError):
+            jf(a, bad)
+    finally:
+        opsplane.disable()
+    dumps = glob.glob(str(tmp_path / "flightrec-*-dispatch_fault.jsonl"))
+    assert len(dumps) == 1
+    summary, diags = replay_events(dumps[0])
+    assert not [d for d in diags if d.severity.name == "ERROR"]
+    assert summary["flightrec_dumps"] == 1 and summary["kinds"].get("nan_guard", 0) >= 1
+    assert json.loads(open(dumps[0]).read().splitlines()[-1])["reason"] == "dispatch_fault"

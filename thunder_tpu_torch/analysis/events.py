@@ -21,12 +21,16 @@ the event pipeline (``observability/events.py`` writes, this module reads):
 :func:`merge_event_logs` merges per-process logs; :func:`host_health`
 summarizes per-host step times over ``detect.HostHealthAccumulator``.
 
-The summary also carries the checkpoint, snapshot and restore record: where
+- **unactuated decisions**: an ``autopilot_decision`` with no later
+  recovery event of its actuator (:data:`DECISION_RECOVERY_KINDS`).
+
+A ``flightrec_dump`` trailer (the last record of a flight-recorder dump)
+satisfies both correlation rules for the faults and decisions before it:
+the dump is a capture taken while their recovery was still in flight. The
+summary also carries the checkpoint, snapshot and restore record: where
 restores landed, how many fell through an invalid candidate, and the
-snapshots' stall. Not yet here, with the kinds they read (the replay
-reports those kinds as unknown until then): the autopilot correlation rule
-and the flight-recorder and federation records (the fleet layer). Findings
-reuse :class:`~thunder_tpu_torch.analysis.diagnostics.Diagnostic`.
+snapshots' stall. Findings reuse
+:class:`~thunder_tpu_torch.analysis.diagnostics.Diagnostic`.
 """
 
 from __future__ import annotations
@@ -81,6 +85,17 @@ SCHEMA: dict[str, frozenset] = {
     "snapshot_flush": frozenset({"step", "ok"}),
     "restore": frozenset({"step", "tier", "ok"}),
     "ckpt_tmp_sweep": frozenset({"count"}),
+    # The fleet autopilot (resilience/autopilot.py): one record a policy
+    # decision, with its evidence; a soak run summarizes itself with one
+    # goodput record.
+    "autopilot_decision": frozenset({"decision_id", "signal", "actuator"}),
+    "goodput": frozenset({"goodput_tokens_per_sec", "useful_tokens", "wall_s"}),
+    # The ops plane (observability/opsplane.py): the trailer a flight
+    # recorder dump ends with, present only in flightrec-*.jsonl dumps.
+    "flightrec_dump": frozenset({"reason", "records"}),
+    # The federation (resilience/federation.py): one record a transition of
+    # the slice-membership ledger.
+    "slice_state": frozenset({"slice", "from", "to", "reason"}),
 }
 
 # The chaos correlation contract (thunder_tpu/analysis/events.py:112-160):
@@ -120,6 +135,22 @@ FAULT_RECOVERY_KINDS: dict[str, frozenset] = {
     # resume, a flapping slice by the federation ledger's transition.
     "slice_loss": frozenset({"elastic_resume"}),
     "slice_flap": frozenset({"slice_state"}),
+}
+
+# The autopilot correlation contract: every autopilot_decision must be
+# followed by its actuator's recovery event. checkpoint_halt and
+# quarantine_rerun count only successful saves and re-runs (ok=true); an
+# interrupted quarantine re-run may instead be superseded by an elastic
+# restore, which discards the poisoned state.
+DECISION_RECOVERY_KINDS: dict[str, frozenset] = {
+    "elastic_resume": frozenset({"elastic_resume"}),
+    "quarantine_rerun": frozenset({"sdc_rerun", "elastic_resume"}),
+    "deopt_escalate": frozenset({"compile_deopt"}),
+    "checkpoint_halt": frozenset({"checkpoint_save"}),
+    # The fleet actuators actuate as the elastic resume that re-enters
+    # training at the new data-parallel width.
+    "shrink_dp": frozenset({"elastic_resume"}),
+    "regrow_dp": frozenset({"elastic_resume"}),
 }
 
 
@@ -262,10 +293,16 @@ def host_health(
                          "spread gauge is thunder_tpu_host_step_time_spread_ratio",
                 ))
     # The collective watchdog names the first straggler of the last summary
-    # in its timeout errors (resilience/watchdog.py).
+    # in its timeout errors (resilience/watchdog.py); the installed
+    # autopilot consumes the same summary: a host flagged in consecutive
+    # summaries loses its gentle same-mesh rung on the next hang.
+    from thunder_tpu_torch.resilience import autopilot as _autopilot
     from thunder_tpu_torch.resilience import watchdog as _watchdog
 
     _watchdog.note_host_health(summary)
+    ap = _autopilot.current()
+    if ap is not None:
+        ap.note_host_health(summary)
     return summary, diags
 
 
@@ -300,7 +337,9 @@ def replay_events(
     sharp_edges: list[str] = []
     anomaly_counts: dict[str, int] = {}
     fault_events: list[tuple[int, str, dict]] = []  # (lineno, seam, record)
+    decision_events: list[tuple[int, str, dict]] = []  # (lineno, actuator, record)
     recovery_positions: dict[str, list[int]] = {}  # recovery kind -> linenos
+    dump_positions: list[int] = []  # flightrec_dump trailers (dump files only)
     restore_tiers: dict[str, int] = {}  # tier -> ok restores
     restore_fallthroughs = 0  # ok restores that skipped an invalid candidate
     snapshot_stall_ms = 0.0
@@ -402,8 +441,12 @@ def replay_events(
             anomaly_counts[a] = anomaly_counts.get(a, 0) + 1
         elif kind == "fault_injected":
             fault_events.append((lineno, str(rec["seam"]), rec))
+        elif kind == "autopilot_decision":
+            decision_events.append((lineno, str(rec["actuator"]), rec))
+        elif kind == "flightrec_dump":
+            dump_positions.append(lineno)
         elif kind in ("executor_demoted", "compile_deopt", "nan_guard", "cache_repair", "collective_timeout",
-                      "elastic_resume"):
+                      "elastic_resume", "slice_state"):
             recovery_positions.setdefault(kind, []).append(lineno)
         elif kind in ("checkpoint_save", "sdc_rerun", "snapshot_flush", "restore"):
             # Only a SUCCESSFUL save/re-run/flush/restore proves recovery.
@@ -470,6 +513,11 @@ def replay_events(
         expected = FAULT_RECOVERY_KINDS.get(seam)
         if not expected:
             continue
+        if any(pos > lineno for pos in dump_positions):
+            # A flight-recorder dump landed after this injection: the log is
+            # a capture taken at fault time, and the recovery runs in the
+            # process that continues, outside it.
+            continue
         if not any(pos > lineno for k in expected for pos in recovery_positions.get(k, [])):
             unrecovered.append(f"{seam}@{rec.get('target')}")
             diags.append(Diagnostic(
@@ -481,6 +529,30 @@ def replay_events(
                     f"recovered (or the recovery path lost its event)"
                 ),
                 hint="analysis.events.FAULT_RECOVERY_KINDS lists the expected recovery event per seam",
+            ))
+    # The autopilot correlation: every decision must be followed by its
+    # actuator's recovery event, the fault rule one layer up.
+    unactuated: list[str] = []
+    decisions_by_actuator: dict[str, int] = {}
+    for lineno, actuator, rec in decision_events:
+        decisions_by_actuator[actuator] = decisions_by_actuator.get(actuator, 0) + 1
+        expected = DECISION_RECOVERY_KINDS.get(actuator)
+        if not expected:
+            continue
+        if any(pos > lineno for pos in dump_positions):
+            continue  # a capture taken while the recovery was in flight
+        if not any(pos > lineno for k in expected for pos in recovery_positions.get(k, [])):
+            unactuated.append(f"{actuator}<-{rec.get('signal')}")
+            diags.append(Diagnostic(
+                rule="events.unactuated-decision", severity=Severity.ERROR,
+                message=(
+                    f"line {lineno}: autopilot_decision "
+                    f"id={rec.get('decision_id')} actuator={actuator!r} "
+                    f"(signal {rec.get('signal')!r}) has no subsequent "
+                    f"{'/'.join(sorted(expected))} event — the chosen "
+                    f"recovery never ran (or lost its event)"
+                ),
+                hint="analysis.events.DECISION_RECOVERY_KINDS lists the recovery event per actuator",
             ))
 
     summary = {
@@ -499,12 +571,16 @@ def replay_events(
         "anomalies": anomaly_counts,
         "faults_injected": [f"{seam}@{rec.get('target')}" for _, seam, rec in fault_events],
         "unrecovered_faults": unrecovered,
+        "autopilot_decisions": decisions_by_actuator,
+        "unactuated_decisions": unactuated,
         # Tiered checkpointing: where restores landed, how many fell
         # through an invalid candidate, and the snapshots' stall.
         "restore_tiers": restore_tiers,
         "restore_fallthroughs": restore_fallthroughs,
         "snapshots": n_snapshots,
         "snapshot_stall_ms_total": round(snapshot_stall_ms, 3),
+        # Flight-recorder dump markers (non-zero only for a dump file).
+        "flightrec_dumps": len(dump_positions),
     }
     return summary, diags
 
@@ -531,6 +607,29 @@ def format_replay(summary: dict, diags: list[Diagnostic]) -> str:
         lines.append(f"  bucket selects: {len(summary['bucket_selects'])}")
     if summary["sharp_edges"]:
         lines.append(f"  sharp edges: {len(summary['sharp_edges'])}")
+    if summary.get("faults_injected"):
+        lines.append(
+            f"  faults injected: {len(summary['faults_injected'])} "
+            f"({', '.join(summary['faults_injected'])}); "
+            f"unrecovered: {len(summary.get('unrecovered_faults') or [])}"
+        )
+    if summary.get("autopilot_decisions"):
+        lines.append(
+            "  autopilot decisions: " + ", ".join(
+                f"{a}×{n}" for a, n in sorted(summary["autopilot_decisions"].items())
+            ) + f"; unactuated: {len(summary.get('unactuated_decisions') or [])}"
+        )
+    if summary.get("restore_tiers"):
+        lines.append(
+            "  restores by tier: " + ", ".join(
+                f"{t}×{n}" for t, n in sorted(summary["restore_tiers"].items())
+            ) + f"; fall-throughs: {summary.get('restore_fallthroughs', 0)}"
+        )
+    if summary.get("snapshots"):
+        lines.append(
+            f"  snapshots: {summary['snapshots']} "
+            f"(stall total {summary.get('snapshot_stall_ms_total', 0.0)} ms)"
+        )
     if summary.get("anomalies"):
         lines.append(
             "  anomalies: " + ", ".join(

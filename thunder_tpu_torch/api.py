@@ -23,8 +23,10 @@ to its inputs onto the caller's objects (``_build_epilogue``).
 from __future__ import annotations
 
 import functools
+import os
 import time
 import warnings
+import weakref
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -1117,6 +1119,13 @@ def jit(
                                  instrument=instrument, chaos=chaos, on_nan=on_nan,
                                  _trace_transforms=_trace_transforms, **module_options)
 
+    # Ops plane autostart: THUNDER_TPU_OPS_PORT arms the live endpoints and
+    # the flight recorder with no code change (a scheduler exports one port
+    # a process). One env probe; nothing is imported without it.
+    if os.environ.get("THUNDER_TPU_OPS_PORT", "").strip():
+        from thunder_tpu_torch.observability import opsplane
+
+        opsplane.maybe_autostart()
     cache = resolve_cache_option(cache)
     if isinstance(fn, torch.nn.Module):
         if _trace_transforms:
@@ -1214,8 +1223,11 @@ def jit(
             except Exception as e:
                 # Resilience (resilience/deopt.py): a recoverable failure of
                 # a warm entry evicts it, quarantines or de-opts, and falls
-                # through to the recompile below; anything else propagates.
+                # through to the recompile below; anything else propagates,
+                # after the flight recorder dumps what led to it (one probe
+                # with the ops plane off).
                 if not deopt_mod.handle_run_failure(e, cd, cs, entry, 0):
+                    obs_events.flight_dump("dispatch_fault")
                     raise
                 cs.cache_hits -= 1
                 entry = None
@@ -1242,6 +1254,7 @@ def jit(
                 if deopt_mod.handle_compile_failure(e, cd, cs, attempt):
                     attempt += 1
                     continue
+                obs_events.flight_dump("dispatch_fault")
                 raise
             if key is not None:
                 _learn(cs, key, entry)
@@ -1258,6 +1271,7 @@ def jit(
                     attempt += 1
                     continue
                 deopt_mod.evict(cs, entry)
+                obs_events.flight_dump("dispatch_fault")
                 raise
             if obsm.enabled():
                 _observe_dispatch(entry, None, lookup_ns, start, flat_inps)
@@ -1297,6 +1311,7 @@ def jit(
 
     fn_._lc_cd = cd
     fn_._lc_cs = cs
+    _live_functions.add(fn_)  # the ops plane's /debug/state lists it
     return fn_
 
 
@@ -1806,6 +1821,32 @@ def cache_hits(fn: Callable) -> int:
 
 def cache_misses(fn: Callable) -> int:
     return _get_cs(fn).cache_misses
+
+
+# Live jitted functions, weakly held: the ops plane's /debug/state reads each
+# one's cache and compile summary without the operator holding a handle.
+# A WeakSet, so registration never keeps a dropped function's entries alive.
+_live_functions: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_function_state() -> list[dict]:
+    """Per-function cache and compile summaries across every live jitted
+    function: :func:`cache_info` trimmed to what an operator scans (the
+    entry list collapsed to a count and each entry's de-opt level)."""
+    out = []
+    for f in list(_live_functions):
+        try:
+            info = cache_info(f)
+        except Exception:
+            continue
+        entries = info.pop("entries", [])
+        info["n_entries"] = len(entries)
+        info["entry_degradation_levels"] = [e.get("degradation_level", 0) for e in entries]
+        info["fn"] = getattr(f, "__name__", "?")
+        info["trace_seconds"] = round(info.get("trace_seconds") or 0.0, 4)
+        info["first_run_seconds"] = round(info.get("first_run_seconds") or 0.0, 4)
+        out.append(info)
+    return sorted(out, key=lambda i: str(i.get("fn")))
 
 
 def cache_info(fn: Callable) -> dict:

@@ -130,14 +130,16 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
     the whole. ``options.full_state_dict`` gathers first and writes one
     file from rank 0. ``async_save=True`` returns an
     :class:`AsyncSaveHandle`, the blocks written on a background thread.
-    Every rank of the group must call it."""
+    Every rank of the job's group (``runtime.job_group``: the world unless
+    a shrunk job bound its survivors) must call it."""
     import torch.distributed.checkpoint as dcp
 
     from thunder_tpu_torch.distributed import runtime
 
     options = options or StateDictOptions()
     path = os.path.abspath(path)
-    rank0 = not _dist_on() or tdist.get_rank() == 0
+    group = runtime.job_group()
+    rank0 = not _dist_on() or tdist.get_rank(group) == 0
     if options.full_state_dict:
         full = gather_full(state, mesh=mesh, specs=specs)
         full = pytree.tree_map(lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x, full)
@@ -145,7 +147,7 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
             os.makedirs(path, exist_ok=True)
             torch.save(full, os.path.join(path, _FULL))
         if _dist_on():
-            tdist.barrier()
+            tdist.barrier(group=group)
         return AsyncSaveHandle() if async_save else None
     leaves, spec = pytree.tree_flatten(state)
     lspecs = _leaf_specs(state, specs)
@@ -165,8 +167,8 @@ def save(state: Any, path: str, *, options: Optional[StateDictOptions] = None, a
         with open(os.path.join(path, _STRUCTURE), "w") as f:
             json.dump({"treespec": pytree.treespec_dumps(spec), "keys": keys}, f)
     if async_save:
-        return AsyncSaveHandle(dcp.async_save(flat, checkpoint_id=path, no_dist=not _dist_on()))
-    dcp.save(flat, checkpoint_id=path, no_dist=not _dist_on())
+        return AsyncSaveHandle(dcp.async_save(flat, checkpoint_id=path, process_group=group, no_dist=not _dist_on()))
+    dcp.save(flat, checkpoint_id=path, process_group=group, no_dist=not _dist_on())
     return None
 
 
@@ -216,7 +218,7 @@ def load(path: str, *, template: Any = None, mesh=None, specs=None) -> Any:
             flat[k] = _as_dtensor(torch.empty((shape[0] // n,) + shape[1:], dtype=dtype, device=_group_device(g)), g)
         else:
             flat[k] = torch.empty(shape, dtype=dtype, device=_group_device())
-    dcp.load(flat, checkpoint_id=path, no_dist=not _dist_on())
+    dcp.load(flat, checkpoint_id=path, process_group=runtime.job_group(), no_dist=not _dist_on())
     leaves = [flat[k].to_local() if hasattr(flat[k], "to_local") else flat[k] for k in keys]
     leaves = [runtime.split(x, s, groups).clone() if s is not None and s.axes and not _dim0(s) and _dist_on() else x
               for x, s in zip(leaves, lspecs)]

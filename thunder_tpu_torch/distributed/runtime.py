@@ -167,6 +167,32 @@ def mesh_groups(mesh) -> dict:
     return groups
 
 
+# -- the job's ranks ------------------------------------------------------------
+# The group the recovery layer's agreements, checkpoints and replica checks
+# run over: the world, unless a job that shrank onto its first ranks binds
+# the group of the survivors (resilience/autopilot.py). A contextvar, so a
+# watchdog worker or the checkpoint writer, which run in a copy of the
+# caller's context, see it too.
+_job: contextvars.ContextVar = contextvars.ContextVar("thunder_job_group", default=None)
+
+
+def job_group():
+    """The process group that stands for the job's world: the survivors'
+    group inside :func:`job_scope`, else None (the world group)."""
+    return _job.get()
+
+
+@contextlib.contextmanager
+def job_scope(group):
+    """Run the recovery layer over ``group`` (None: the world) inside the
+    context: the ranks outside it have left the job."""
+    token = _job.set(group)
+    try:
+        yield
+    finally:
+        _job.reset(token)
+
+
 def grid_groups(names: tuple, shape: tuple, ranks: Optional[list] = None) -> dict:
     """This rank's group along each axis of a row-major grid of ``ranks``
     (default: the world's, in order; ``names[i]`` spans ``shape[i]``

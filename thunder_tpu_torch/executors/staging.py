@@ -80,6 +80,7 @@ captures.
 from __future__ import annotations
 
 import linecache
+import threading
 import time
 import weakref
 from dataclasses import dataclass
@@ -91,6 +92,22 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from thunder_tpu_torch.core.prims import OpTags
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 from thunder_tpu_torch.executors import _build
+
+_blas_threads = threading.local()
+
+
+def _ready_blas() -> None:
+    """Give this thread its cuBLAS and cuBLASLt handles before a capture.
+    cuBLAS makes a thread's handles at the thread's first product, and
+    ``cublasCreate`` fails inside a capture: a capture on a thread that ran
+    no product yet (the collective watchdog runs each guarded call on a
+    worker thread of its own) makes them first, with one small product."""
+    if getattr(_blas_threads, "ready", False):
+        return
+    a = torch.ones(16, 16, device=torch.device("cuda", torch.cuda.current_device()), dtype=torch.bfloat16)
+    torch.nn.functional.linear(a, a, a[0])
+    torch.mm(a.float(), a.float())
+    _blas_threads.ready = True
 
 
 class StagingError(RuntimeError):
@@ -404,6 +421,7 @@ class CudaGraphStage:
             ids = {id(static[i]): i for i in self._warm_addrs}
         del static
         before = _build.launch_counts()
+        _ready_blas()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=None if pair is None else pair.pool):

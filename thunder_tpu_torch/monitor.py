@@ -13,9 +13,11 @@ and read the measured-against-predicted report of a profile:
     monitor.dump_json("metrics.json")
 
 ``configure_watchdog`` arms the collective watchdog and
-``last_host_health`` reads the straggler record it names. Not yet here:
-``serve``/``ops_health``/``ops_state``/``flight_dump`` and
-``shutdown_ops`` (the ops plane, with the fleet layer).
+``last_host_health`` reads the straggler record it names. ``serve()``
+starts the live ops plane (``/metrics``, ``/healthz``, ``/debug/state``,
+``/debug/flightrec``, the flight recorder and the streaming detectors);
+``ops_health``/``ops_state`` read its verdict and state in-process,
+``flight_dump`` dumps the recorder and ``shutdown_ops`` stops it.
 """
 
 from __future__ import annotations
@@ -66,6 +68,50 @@ def host_health(source, *, spread_threshold: float = 1.5):
     from thunder_tpu_torch.analysis.events import host_health as _hh
 
     return _hh(source, spread_threshold=spread_threshold)
+
+
+def serve(port: Optional[int] = None, **options):
+    """Start the live ops plane: a per-process stdlib-threaded HTTP endpoint
+    serving ``/metrics`` (:func:`prometheus_text` with host labels),
+    ``/healthz`` (the typed verdict), ``/debug/state`` and
+    ``/debug/flightrec``, with the flight recorder and the streaming anomaly
+    detectors riding the event taps. ``port`` 0 binds an ephemeral port
+    (read it from the returned plane's ``.port``); the default is
+    ``THUNDER_TPU_OPS_PORT``. Off by default; with it off the hot paths pay
+    nothing. ``options`` forward to ``observability.opsplane.enable``
+    (``flightrec_dir``, ``detectors``, ...)."""
+    from thunder_tpu_torch.observability import opsplane
+
+    options.setdefault("serve", True)
+    return opsplane.enable(port=port, **options)
+
+
+def ops_health() -> dict:
+    """The ``/healthz`` verdict, in-process (no server needed)."""
+    from thunder_tpu_torch.observability import opsplane
+
+    return opsplane.health_verdict()
+
+
+def ops_state() -> dict:
+    """The ``/debug/state`` payload, in-process."""
+    from thunder_tpu_torch.observability import opsplane
+
+    return opsplane.debug_state()
+
+
+def flight_dump(reason: str = "manual"):
+    """Dump the flight recorder's ring now (None when the plane is off)."""
+    from thunder_tpu_torch.observability.events import flight_dump as _fd
+
+    return _fd(reason)
+
+
+def shutdown_ops() -> None:
+    """Stop the ops server and uninstall the event taps."""
+    from thunder_tpu_torch.observability import opsplane
+
+    opsplane.disable()
 
 
 def configure_watchdog(timeout_s) -> None:

@@ -32,8 +32,9 @@ The counterpart of ``thunder_tpu/observability/``, built on ``torch.profiler``,
   path (clock skew from collective barriers, per-step class breakdowns, the
   bounded ledger), armed by ``monitor.critpath()``.
 
-Not yet here: ``opsplane.py`` (the HTTP endpoints and flight recorder) comes
-with the fleet layer (slice 6b).
+- :mod:`~thunder_tpu_torch.observability.opsplane`: the live ops plane:
+  the flight recorder and the HTTP endpoints (``/metrics``, ``/healthz``,
+  ``/debug/state``, ``/debug/flightrec``), armed by ``monitor.serve()``.
 
 ``metrics``, ``events``, ``detect`` and ``timeline`` are stdlib-only (safe to import from
 ``core/trace.py`` and ``common.py``); the others load lazily here.
@@ -66,6 +67,8 @@ _LAZY = {
     "RooflineSampler": "thunder_tpu_torch.observability.roofline",
     "RooflineLedger": "thunder_tpu_torch.observability.roofline",
     "RooflineEntry": "thunder_tpu_torch.observability.roofline",
+    "FlightRecorder": "thunder_tpu_torch.observability.opsplane",
+    "OpsServer": "thunder_tpu_torch.observability.opsplane",
     "TimelineRecorder": "thunder_tpu_torch.observability.timeline",
     "CritPathLedger": "thunder_tpu_torch.observability.timeline",
 }

@@ -24,9 +24,10 @@ Anomaly kinds: ``step_time_drift`` (CUSUM over per-step seconds),
 ``cost_model_drift`` (a roofline op's measured/predicted ratio out of its
 band).
 
-Not yet here: the JAX package installs the bank as an ops-plane event tap
-and routes each anomaly into its autopilot; both come with the fleet layer
-(slice 6b). Module-top imports are stdlib-only.
+The ops plane (``observability/opsplane.py``) installs the bank as an event
+tap, and every anomaly is routed into the installed autopilot
+(``resilience/autopilot.py``: ``note_anomaly``), whose decisions cite it.
+Module-top imports are stdlib-only.
 """
 
 from __future__ import annotations
@@ -521,10 +522,12 @@ class DetectorBank:
         cfg = self.config
         sl = fields.get("slice")
         if sl is None:
-            # A record without a slice: the port has no slice topology until
-            # the fleet layer (slice 6b; the JAX package reads
-            # ``resilience.chaos.slice_id``).
-            return []
+            try:
+                from thunder_tpu_torch.resilience.chaos import slice_id
+
+                sl = slice_id()
+            except Exception:
+                return []
         self._slice_acc.add(int(sl), s)
         if len(self._slice_acc) < 2:
             return []
@@ -703,10 +706,6 @@ class DetectorBank:
     # -- publication (outside the lock) ----------------------------------------
 
     def _publish(self, a: Anomaly) -> None:
-        # The JAX package also routes each anomaly into an installed
-        # autopilot (``note_anomaly``); the port's autopilot comes with the
-        # fleet layer (slice 6b), so until then an anomaly stays in the bank and
-        # its counter, as the JAX package's does with no autopilot installed.
         self.anomalies.append(a)
         try:
             from thunder_tpu_torch.observability import events as obs_events
@@ -715,6 +714,18 @@ class DetectorBank:
             if obsm.enabled():
                 obsm.ANOMALIES.inc(kind=a.kind)
             obs_events.emit_event("anomaly", **a.as_event_fields())
+        except Exception:
+            pass
+        try:
+            from thunder_tpu_torch.resilience import autopilot as ap_mod
+
+            ap = ap_mod.current()
+            if ap is not None:
+                ap.note_anomaly({
+                    "anomaly": a.kind, "severity": a.severity, "ts": a.ts,
+                    "value": a.value, "baseline": a.baseline,
+                    "suspect_host": a.suspect_host,
+                })
         except Exception:
             pass
 

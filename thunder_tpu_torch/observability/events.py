@@ -25,10 +25,12 @@ Kind-specific required fields live in
 ``thunder_tpu_torch.analysis.events.SCHEMA``. Emission is a no-op costing
 one dict lookup when no log is active.
 
-The ops plane's taps (the flight recorder and the streaming detectors) are
-installed here by the JAX package's ``observability/opsplane``; the port's
-ops plane comes with the fleet layer (slice 6b), so the taps tuple stays empty
-and every emit path pays one module-global truth test for it.
+Ops plane: when ``observability/opsplane`` is enabled it installs **taps**
+here: the flight-recorder ring and the streaming detector bank see every
+emitted record, with or without a JSONL log configured. With the plane off
+(the default) the taps tuple is empty and every emit path pays one
+module-global truth test; the dispatch fast path emits nothing and pays
+nothing.
 """
 
 from __future__ import annotations
@@ -44,16 +46,28 @@ from typing import Any, Optional
 
 SCHEMA_VERSION = 1
 
-# -- ops-plane taps (empty until the ops plane is ported: slice 6b) -----------
+# -- ops-plane taps (observability/opsplane installs them; empty = plane off) --
 # A tuple of ``tap(kind, fields)`` callables that see every emitted record,
-# independent of whether a JSONL sink is configured. One module-global truth
-# test when empty.
-_ops: dict[str, Any] = {"taps": ()}
+# independent of whether a JSONL sink is configured: the flight recorder's
+# ring and the detector bank. One module-global truth test when empty.
+_ops: dict[str, Any] = {"taps": (), "recorder": None}
 
 
-def set_ops_taps(taps: tuple) -> None:
-    """Install (or clear, with ``()``) the event taps."""
+def set_ops_taps(taps: tuple, *, recorder=None) -> None:
+    """Install (or clear, with ``()``) the ops-plane event taps. ``recorder``
+    is the flight recorder :func:`flight_dump` delegates to."""
     _ops["taps"] = tuple(taps)
+    _ops["recorder"] = recorder
+
+
+def ops_active() -> bool:
+    return bool(_ops["taps"])
+
+
+def ops_taps() -> tuple:
+    """(taps, recorder): for a caller that restores the installed taps
+    around an armed/off measurement without tearing down a live server."""
+    return _ops["taps"], _ops["recorder"]
 
 
 def _tap(kind: str, fields: dict) -> None:
@@ -71,6 +85,20 @@ def tap_event(kind: str, fields: dict) -> None:
     entirely when no log is configured."""
     if _ops["taps"]:
         _tap(kind, fields)
+
+
+def flight_dump(reason: str = "manual"):
+    """Dump the installed flight recorder's ring (``flightrec-<ts>-
+    <reason>.jsonl``); None when the ops plane is off. The spelling the
+    fault sites use (watchdog timeout, SDC exhaustion, autopilot halt, an
+    unhandled dispatch fault): one global probe when off, never raises."""
+    rec = _ops["recorder"]
+    if rec is None:
+        return None
+    try:
+        return rec.dump(reason)
+    except Exception:
+        return None
 
 
 _identity: dict[str, Any] = {}

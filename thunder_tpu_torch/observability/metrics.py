@@ -16,10 +16,8 @@ dump, or Prometheus text.
   aggregates across every compiled function.
 
 The metric names are the JAX package's (``thunder_tpu_*``), so scrapes and
-dashboards of both join; only the series this port emits are registered
-(the autopilot and soak series and the ops plane's wait for the fleet
-layer). Enable with
-``THUNDER_TPU_METRICS=1`` or :func:`enable`.
+dashboards of both join. Enable with ``THUNDER_TPU_METRICS=1`` or
+:func:`enable`.
 """
 
 from __future__ import annotations
@@ -428,6 +426,18 @@ SDC_RERUNS = REGISTRY.counter(
     "thunder_tpu_sdc_reruns_total",
     "Quarantined-step re-runs by the SDC guard, labelled ok=true|false",
 )
+# The fleet autopilot (resilience/autopilot.py): the policy engine's
+# choices, and a soak run's headline goodput.
+AUTOPILOT_DECISIONS = REGISTRY.counter(
+    "thunder_tpu_autopilot_decisions_total",
+    "Fleet-autopilot policy decisions, labelled by actuator "
+    "(elastic_resume|quarantine_rerun|deopt_escalate|checkpoint_halt)",
+)
+SOAK_GOODPUT = REGISTRY.gauge(
+    "thunder_tpu_soak_goodput_tokens_per_sec",
+    "Soak-run goodput: useful tokens/sec over wall clock, discounted by the "
+    "measured resilience overhead (scripts/soak_fleet.py)",
+)
 WATCHDOG_UNGUARDED = REGISTRY.counter(
     "thunder_tpu_collective_watchdog_unguarded_total",
     "Guarded dispatches run UNguarded because the abandoned-worker cap "
@@ -462,10 +472,25 @@ EVENT_LOG_DROPPED = REGISTRY.counter(
     "Event-log sinks disabled after I/O failure (each loses all later events)",
     always=True,
 )
+
+# -- the live ops plane (observability/opsplane.py) ------------------------------
+
+OPS_REQUESTS = REGISTRY.counter(
+    "thunder_tpu_ops_requests_total",
+    "Ops-server HTTP requests, labelled by route "
+    "(/metrics|/healthz|/debug/state|/debug/flightrec)",
+)
 ANOMALIES = REGISTRY.counter(
     "thunder_tpu_anomalies_total",
     "Streaming-detector anomalies, labelled by kind "
     "(step_time_drift|goodput_drop|recompile_storm|host_spread)",
+)
+# inc_always + always-export like the drop counter: a flight-recorder dump
+# means a fault fired, so monitor.report() shows it with metrics off.
+FLIGHTREC_DUMPS = REGISTRY.counter(
+    "thunder_tpu_flightrec_dumps_total",
+    "Flight-recorder black-box dumps, labelled by trigger reason",
+    always=True,
 )
 # Always-export. The JAX package counts ok="false" when its profiler plugin
 # is missing and the bracket degrades to wall clock; the port never

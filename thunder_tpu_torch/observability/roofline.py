@@ -12,9 +12,10 @@ on the card's spec) and folds the result into a bounded in-memory
 roofline bound, achieved fraction, bound class and a trend over recent
 probes. ``thunder_tpu_torch.monitor.roofline_report()`` prints it.
 
-The JAX package also streams each op's measured/predicted ratio into its
-ops plane's detector bank; the port's ops plane comes with the fleet layer
-(slice 6b), so a bank is fed only when one is passed (``bank=``).
+Each probed op's measured/predicted ratio streams into a detector bank:
+the one passed as ``bank=``, else the installed ops plane's
+(``observability/opsplane.py``), where it can raise ``kernel_regression``
+or ``cost_model_drift``.
 
 Off-path cost: when no probe is due, :meth:`RooflineSampler.maybe_sample`
 is one counter bump and a modulo; with ``every=0`` (the default) no probe
@@ -28,6 +29,7 @@ import contextlib
 import logging
 import os
 import shutil
+import sys
 import tempfile
 import time
 from collections import deque
@@ -350,11 +352,18 @@ class RooflineSampler:
         return box.get("out")
 
     def _feed_bank(self, touched: list[RooflineEntry]) -> None:
-        if self._bank is None:
+        bank = self._bank
+        if bank is None:
+            # The installed ops plane's bank; with the plane never armed its
+            # module was never imported, and the probe imports nothing.
+            opsplane = sys.modules.get("thunder_tpu_torch.observability.opsplane")
+            plane = opsplane.current() if opsplane is not None else None
+            bank = plane.bank if plane is not None else None
+        if bank is None:
             return
         for e in touched:
             if e.roofline_us and e.measured_us:
-                self._bank.note_roofline_op(
+                bank.note_roofline_op(
                     e.label, e.measured_us, e.roofline_us,
                     executor=e.executor)
 

@@ -47,9 +47,10 @@ Three layers, as in the JAX package:
 Surfaces: ``monitor.critpath()``/``critpath_report()``, the
 ``thunder_tpu_critpath_fraction{class=}`` and ``..._clock_skew_ms`` gauges,
 the always-export ``thunder_tpu_critpath_steps_total`` counter, and the
-``collective``/``critpath_step`` event records. The ops plane's
-``/debug/critpath`` and ``/healthz`` component come with the fleet layer
-(slice 6b): :func:`debug_state` and :func:`health_state` return their dicts.
+``collective``/``critpath_step`` event records, and the ops plane's
+``/debug/critpath`` route and ``/healthz`` component
+(``observability/opsplane.py``), which read :func:`debug_state` and
+:func:`health_state`.
 """
 
 from __future__ import annotations

@@ -22,14 +22,30 @@ library, a hung collective or a preemption:
   step-boundary checkpointing, the checkpoint manager, ``resume`` and
   ``run_training``;
 - :mod:`~thunder_tpu_torch.resilience.elastic`: the tiered restore and the
-  resharded resume onto a smaller mesh.
-
-The fleet layer of the JAX package's ``resilience`` (the autopilot, the
-federation and their names: ``Autopilot``, ``AutopilotHalt``, ``Policy``,
-``Signal``, ``run_autopiloted_training``, ``FederationLedger``,
-``FleetController``, ``FleetReport``, ``run_federated_training``) is not
-ported yet.
+  resharded resume onto a smaller mesh;
+- :mod:`~thunder_tpu_torch.resilience.autopilot`: the fleet autopilot, the
+  policy engine that decides WHICH of the above actuators to apply when
+  faults arrive mixed and concurrent, with per-policy hysteresis and
+  serialized recoveries, every choice a typed ``autopilot_decision`` event,
+  and the autopiloted training driver;
+- :mod:`~thunder_tpu_torch.resilience.federation`: slice-granular failure
+  domains: the typed slice-membership ledger, the shrink/regrow state
+  machine, and the federated training driver.
 """
+
+from thunder_tpu_torch.resilience.autopilot import (  # noqa: F401
+    Autopilot,
+    AutopilotHalt,
+    Policy,
+    Signal,
+    run_autopiloted_training,
+)
+from thunder_tpu_torch.resilience.federation import (  # noqa: F401
+    FederationLedger,
+    FleetController,
+    FleetReport,
+    run_federated_training,
+)
 
 from thunder_tpu_torch.resilience.chaos import (  # noqa: F401
     ChaosConfig,
@@ -83,4 +99,8 @@ __all__ = [
     "CollectiveTimeoutError", "SDCDetectedError", "SDCGuard",
     "elastic_resume", "reshard_state", "tiered_restore",
     "Snapshot", "SnapshotStore",
+    "Autopilot", "AutopilotHalt", "Policy", "Signal",
+    "run_autopiloted_training",
+    "FederationLedger", "FleetController", "FleetReport",
+    "run_federated_training",
 ]

@@ -58,8 +58,9 @@ Seams and their typed errors:
 ``slice_flap``     a slice fails and recovers faster than the rejoin window
 =================  =====================================================
 
-The four slice seams are parsed and fired here; the fleet layer that
-recovers from them (the autopilot and the federation) is not in the port yet.
+The four slice seams fire at the step boundaries of the federated driver
+(``resilience/federation.run_federated_training``), which recovers from them
+through the autopilot's ``shrink_dp``/``regrow_dp`` decisions.
 
 Spec grammar (``THUNDER_TPU_CHAOS=<spec>`` or ``jit(chaos=<spec>)``)::
 

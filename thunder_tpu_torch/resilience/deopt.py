@@ -52,6 +52,7 @@ capped at 2 s; 0 in tests).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -166,7 +167,9 @@ def escalate(cd, reason: str, attempt: int, *, entry=None, cs=None, real: bool =
     False when the ladder is exhausted: the caller re-raises. A ``real``
     run failure (not a chaos fault, whose rule may name the level) skips
     the levels that would compile the failing entry's program again
-    (:func:`_repeats`); the event lists them as ``repeated_levels``."""
+    (:func:`_repeats`); the event lists them as ``repeated_levels``. With an
+    autopilot installed the climb is its ``deopt_escalate`` decision
+    first."""
     base = current_level(cd)
     repeated: tuple = ()
     if real and entry is not None:
@@ -184,35 +187,51 @@ def escalate(cd, reason: str, attempt: int, *, entry=None, cs=None, real: bool =
             level, predicted, skipped = _choose_level(peaks, capacity, base, repeated)
     if level > MAX_LEVEL or attempt >= max_attempts():
         return False
-    cd._deopt_level = level
-    if level > _process_state["max_level"]:
-        _process_state["max_level"] = level
-    backoff = _backoff_s(attempt)
-    if obsm.enabled():
-        obsm.COMPILE_DEOPTS.inc(level=str(level))
-    # Planner fields appear only on planner-guided escalations: consumers
-    # detect guidance by field presence.
-    planner = {}
-    if predicted is not None or skipped:
-        planner = {
-            k: v
-            for k, v in (("predicted_peak_bytes", predicted),
-                         ("capacity_bytes", capacity),
-                         ("skipped_levels", skipped or None))
-            if v is not None
-        }
-    obs_events.emit_event(
-        "compile_deopt",
-        level=level,
-        action=_LEVEL_ACTIONS.get(level, "?"),
-        reason=reason,
-        attempt=attempt,
-        backoff_s=backoff,
-        **planner,
-        **({"repeated_levels": [lv for lv in repeated if lv < level]} if any(lv < level for lv in repeated) else {}),
-    )
-    if backoff:
-        time.sleep(backoff)
+    # With an autopilot installed the climb is a policy decision: the typed
+    # autopilot_decision (actuator deopt_escalate) precedes the
+    # compile_deopt recovery event it correlates with, and the escalation
+    # applies inside the serialized-recovery critical section, so a de-opt
+    # on another thread cannot interleave with an elastic resume in flight.
+    from thunder_tpu_torch.resilience import autopilot as ap_mod
+
+    ap = ap_mod.current()
+    ctx = contextlib.nullcontext()
+    if ap is not None:
+        decision = ap.decide(ap_mod.Signal(
+            "oom" if "oom" in reason else "compile_fail",
+            evidence={"reason": reason, "level": level, "attempt": attempt},
+        ))
+        ctx = ap.recovery(decision)
+    with ctx:
+        cd._deopt_level = level
+        if level > _process_state["max_level"]:
+            _process_state["max_level"] = level
+        backoff = _backoff_s(attempt)
+        if obsm.enabled():
+            obsm.COMPILE_DEOPTS.inc(level=str(level))
+        # Planner fields appear only on planner-guided escalations: consumers
+        # detect guidance by field presence.
+        planner = {}
+        if predicted is not None or skipped:
+            planner = {
+                k: v
+                for k, v in (("predicted_peak_bytes", predicted),
+                             ("capacity_bytes", capacity),
+                             ("skipped_levels", skipped or None))
+                if v is not None
+            }
+        obs_events.emit_event(
+            "compile_deopt",
+            level=level,
+            action=_LEVEL_ACTIONS.get(level, "?"),
+            reason=reason,
+            attempt=attempt,
+            backoff_s=backoff,
+            **planner,
+            **({"repeated_levels": [lv for lv in repeated if lv < level]} if any(lv < level for lv in repeated) else {}),
+        )
+        if backoff:
+            time.sleep(backoff)
     return True
 
 

@@ -29,13 +29,15 @@ thread) and the tiered restore in :mod:`~thunder_tpu_torch.resilience.elastic`
 restores from RAM when it can (local RAM -> buddy peer RAM -> disk,
 checksum-validated per tier).
 
-The JAX package routes the preemption and SDC choices through its fleet
-autopilot; the autopilot is not in the port yet, so these paths act
-directly.
+With an autopilot installed (``resilience/autopilot.py``), the preemption
+branch and the SDC quarantine and re-run are its decisions: the typed
+``autopilot_decision`` event first, then the actuator inside its
+serialized-recovery section. With none installed they act directly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -88,9 +90,13 @@ class HostLost(RuntimeError):
 
 
 def _world() -> int:
+    """The job's rank count: the world's, or the survivors' group's after a
+    shrink onto the first ranks (``distributed.runtime.job_scope``)."""
     import torch.distributed as dist
 
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    from thunder_tpu_torch.distributed.runtime import job_group
+
+    return dist.get_world_size(job_group()) if dist.is_available() and dist.is_initialized() else 1
 
 
 def _is_primary() -> bool:
@@ -102,12 +108,14 @@ def _is_primary() -> bool:
     if _world() > 1:
         import torch.distributed as dist
 
-        return dist.get_rank() == 0
+        from thunder_tpu_torch.distributed.runtime import job_group
+
+        return dist.get_rank(job_group()) == 0
     return True
 
 
 def _agree(local: bool, op: str) -> bool:
-    """``local`` all-reduced (``op``: "min" or "max") over the world group
+    """``local`` all-reduced (``op``: "min" or "max") over the job's group
     (one process: itself), on the group's device (the card under NCCL, the
     host under gloo)."""
     if _world() <= 1:
@@ -116,9 +124,11 @@ def _agree(local: bool, op: str) -> bool:
     import torch.distributed as dist
 
     from thunder_tpu_torch.distributed.checkpoint import _group_device
+    from thunder_tpu_torch.distributed.runtime import job_group
 
-    flag = torch.tensor([1 if local else 0], dtype=torch.int32, device=_group_device())
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX)
+    group = job_group()
+    flag = torch.tensor([1 if local else 0], dtype=torch.int32, device=_group_device(group))
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.MAX, group=group)
     return bool(flag.item())
 
 
@@ -888,8 +898,14 @@ def run_training(
       CollectiveTimeoutError`;
     - ``start_step`` skips the internal :func:`resume` and starts the loop
       there with ``state`` as passed (a caller that restored, and perhaps
-      resharded, the state itself)."""
+      resharded, the state itself).
+
+    With an autopilot installed (``resilience.autopilot.current()``), the
+    preemption branch and the SDC quarantine route their choices through it
+    first, so every recovery carries a typed ``autopilot_decision``
+    event."""
     from thunder_tpu_torch import api
+    from thunder_tpu_torch.resilience import autopilot as ap_mod
     from thunder_tpu_torch.resilience import watchdog as wd
 
     sdc = wd.resolve_sdc_guard(sdc_guard)
@@ -924,9 +940,18 @@ def run_training(
             state, start = resume(manager, state)
         for step in range(start, n_steps):
             if guard.should_checkpoint(step):
-                path = manager.save(
-                    state, step, rng_seed=api._global_rng["seed"], mesh=mesh, specs=specs
-                )
+                ap = ap_mod.current()
+                ctx = contextlib.nullcontext()
+                if ap is not None:
+                    # The decision precedes its recovery event (the ok
+                    # checkpoint_save below) so the replay can pair them;
+                    # the save, the actuator, runs inside the
+                    # serialized-recovery section.
+                    ctx = ap.recovery(ap.decide(ap_mod.Signal("preempt", step=step)))
+                with ctx:
+                    path = manager.save(
+                        state, step, rng_seed=api._global_rng["seed"], mesh=mesh, specs=specs
+                    )
                 raise Preempted(step, path)
             # Host-loss agreement runs through the same any-rank collective
             # as preemption: a rank-targeted injection (host_loss@N,host=1)
@@ -1003,19 +1028,36 @@ def _sdc_check_and_rerun(sdc, run_step, corrupt, prev_state, state, loss, step):
         "sdc_suspect", step=int(step), leaves=leaves,
         devices=wd.suspect_devices(divergence), detail=divergence or None,
     )
-    for attempt in range(sdc.max_reruns):
-        state, loss = run_step(prev_state)
-        # A truly bad device corrupts the re-run too: the chaos seam stays
-        # in the path so persistent (count>1) SDC rules exercise the
-        # rerun-exhausted -> SDCDetectedError ladder.
-        state = corrupt(state)
-        divergence = sdc.check_state(state)
-        ok = not divergence
-        if obsm.enabled():
-            obsm.SDC_RERUNS.inc(ok=str(ok).lower())
-        obs_events.emit_event(
-            "sdc_rerun", step=int(step), ok=ok, attempt=attempt
-        )
-        if ok:
-            return state, loss
+    # With an autopilot installed, the quarantine and re-run is a decision:
+    # the typed autopilot_decision event precedes the re-run, which runs
+    # inside the serialized-recovery section, so an overlapping fault's
+    # actuator cannot interleave with it.
+    from thunder_tpu_torch.resilience import autopilot as ap_mod
+
+    ap = ap_mod.current()
+    ctx = contextlib.nullcontext()
+    if ap is not None:
+        ctx = ap.recovery(ap.decide(ap_mod.Signal(
+            "sdc_suspect", step=int(step),
+            evidence={"leaves": leaves, "devices": wd.suspect_devices(divergence)},
+        )))
+    with ctx:
+        for attempt in range(sdc.max_reruns):
+            state, loss = run_step(prev_state)
+            # A truly bad device corrupts the re-run too: the chaos seam
+            # stays in the path so persistent (count>1) SDC rules exercise
+            # the rerun-exhausted -> SDCDetectedError ladder.
+            state = corrupt(state)
+            divergence = sdc.check_state(state)
+            ok = not divergence
+            if obsm.enabled():
+                obsm.SDC_RERUNS.inc(ok=str(ok).lower())
+            obs_events.emit_event(
+                "sdc_rerun", step=int(step), ok=ok, attempt=attempt
+            )
+            if ok:
+                return state, loss
+    # Persistent corruption is about to raise: the flight recorder's ring
+    # holds the sdc_suspect/sdc_rerun chain that led here.
+    obs_events.flight_dump("sdc")
     raise wd.SDCDetectedError(step, sorted(divergence))

@@ -192,10 +192,12 @@ def guard_call(
     timeout: on expiry the worker is abandoned (a hung collective cannot be
     cancelled: the process must restart, and recovery is checkpoint +
     elastic resume in a fresh process) and :class:`CollectiveTimeoutError` raises, after
-    emitting a ``collective_timeout`` event and bumping
-    ``thunder_tpu_collective_watchdog_timeouts_total``. The chaos
-    ``collective_hang`` seam fires inside the guarded region, so injected
-    hangs exercise exactly this path."""
+    emitting a ``collective_timeout`` event, bumping
+    ``thunder_tpu_collective_watchdog_timeouts_total`` and dumping the
+    flight recorder. The chaos ``collective_hang`` seam fires inside the
+    guarded region, so injected hangs exercise exactly this path; a worker
+    abandoned during an injected hang does not go on to run the call, as a
+    really hung collective never would."""
     timeout = timeout_s if timeout_s is not None else active_timeout()
     if timeout is None:
         return fn(*args, **(kwargs or {}))
@@ -231,10 +233,19 @@ def guard_call(
     grad = torch.is_grad_enabled()
     stream = torch.cuda.current_stream() if torch.cuda.is_available() and torch.cuda.is_initialized() else None
 
+    abandoned = threading.Event()
+
     def worker():
         try:
             def body():
                 chaos.collective_hang_seam()
+                if abandoned.is_set():
+                    # The caller gave up on this call while the injected hang
+                    # slept: a hung collective never completes, so the stale
+                    # call does not run (its collectives would pair with the
+                    # resumed run's, and its in-place updates land in the
+                    # resumed state).
+                    return None
                 # Sub-timeout slowdown (straggler@step): the streaming
                 # detectors (observability/detect.py) must see a drifting
                 # step before it becomes a hang.
@@ -255,6 +266,7 @@ def guard_call(
     t.start()
     t.join(timeout)
     if t.is_alive():
+        abandoned.set()
         with _abandoned_lock:
             _abandoned.append(t)
         lines = list(trace_lines or [])
@@ -268,6 +280,9 @@ def guard_call(
             "collective_timeout", fn=fn_name, timeout_s=timeout,
             lines=lines, suspected_host=suspect, **extra,
         )
+        # The flight recorder's ring holds what led here: dump it before the
+        # error unwinds (one probe when the ops plane is off).
+        obs_events.flight_dump("collective_timeout")
         raise CollectiveTimeoutError(fn_name, timeout, lines, suspect, schedule)
     if "exc" in box:
         raise box["exc"]
@@ -357,9 +372,12 @@ def replica_layout(mesh=None, specs=None) -> Callable:
 
     if not (dist.is_available() and dist.is_initialized()):
         return lambda i, leaf: None
-    rank, world = dist.get_rank(), dist.get_world_size()
+    from thunder_tpu_torch.distributed.runtime import job_group
+
+    rank, world = dist.get_rank(), dist.get_world_size(job_group())
     if mesh is None:
-        return (lambda i, leaf: ((), rank, world)) if world > 1 else (lambda i, leaf: None)
+        ordinal = dist.get_rank(job_group())
+        return (lambda i, leaf: ((), ordinal, world)) if world > 1 else (lambda i, leaf: None)
     from thunder_tpu_torch.parallel.sharding import _flat_specs
 
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
@@ -386,7 +404,8 @@ def replica_layout(mesh=None, specs=None) -> Callable:
 
 def replica_checksums(state, *, mesh=None, specs=None) -> dict:
     """Per-leaf, per-replica-group crc32 checksums of this rank's training
-    state, all-gathered over the world: each rank's crc32 of every leaf that
+    state, all-gathered over the job's group (the world unless a shrunk job
+    bound its survivors): each rank's crc32 of every leaf that
     has replicas (:func:`replica_layout`). Returns ``{leaf_name:
     {block_index: {rank: crc}}}`` covering only leaves that have replicas;
     a fully sharded leaf is skipped without a host read."""
@@ -407,10 +426,14 @@ def replica_checksums(state, *, mesh=None, specs=None) -> dict:
         mine[f"leaf{i}"] = (str(where[0]), array_crc32(leaf))
     if not mine:
         return {}
-    gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, mine)
+    from thunder_tpu_torch.distributed.runtime import job_group
+
+    group = job_group()
+    gathered = [None] * dist.get_world_size(group)
+    dist.all_gather_object(gathered, mine, group=group)
     out: dict = {}
-    for rank, per_leaf in enumerate(gathered):
+    for r, per_leaf in enumerate(gathered):
+        rank = dist.get_global_rank(group, r) if group is not None else r
         for leaf, (idx, crc) in per_leaf.items():
             out.setdefault(leaf, {}).setdefault(idx, {})[rank] = crc
     return out
