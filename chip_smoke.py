@@ -292,7 +292,26 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    restore from the buddy's RAM, width 1's two B=1 micro-steps within
    bf16 of the full-width run's B=2 step, and the peer-tier restore
    seconds;
-17. after phase 26, prints one JSON line describing every kernel, then the
+27. the compiled-program audit (``analysis/hlo_audit.py``; there is no HLO:
+   the staged CUDA graph and the profiler's op record): (a) open_llama_3b at
+   full width, AUDIT_LAYERS layers, bf16, B=2 x T=2048, the staged
+   ``value_and_grad``: the ``hlo_audit`` compile phase attached its report
+   to the entry; the graph's nodes of kernel rows 1-7 (flash forward with
+   lse and backward, rope forward and backward, cross-entropy forward and
+   backward) equal to the launches the capture counted; the priced nodes'
+   operations within 1% of ``cost.trace_cost``; no host transfer; the
+   layout copies, the dump's bytes, parse and audit seconds printed; (b) the
+   ddp step of phase 22 (the Llama stand-in, DDP_AUDIT_LAYERS layers, one
+   NCCL rank), its forward and backward graphs: a site for each collective
+   line of the two traces, all explicit, the nodes NCCL made for them at
+   one rank, the exposed share beside the timeline's measured one from
+   phase 23 (c); (c) planted faults: an ``.item()`` in a program (which
+   keeps it from staging) makes ``hlo.host-transfer-in-step`` fire in the
+   audit of its record, a staged program's copy into pinned host memory
+   makes it fire in the audit of its graph (whose DOT text is printed: the
+   CPU tests' golden excerpt), and ``THUNDER_TPU_HLO_AUDIT=0`` leaves no
+   report, no kept graph and no line marks;
+28. after phase 27, prints one JSON line describing every kernel, then the
    device line.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -332,6 +351,8 @@ SEED = 0
 
 
 _START = time.perf_counter()
+# Readings a later phase prints beside its own (phase 27 (b): phase 23 (c)'s).
+_NOTES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -4131,7 +4152,7 @@ def run_events(cfg) -> None:
         phases = [r["phase"] for r in records if r["kind"] == "compile_phase" and r["compile_id"] == entry.compile_id]
         log(f"  (a) compile {entry.compile_id}: {len(passes)} pass events "
             f"({sum(r['ms'] is not None for r in passes)} timed), phases {phases}")
-        require(phases == ["trace", "transforms", "claim", "warmup", "capture"],
+        require(phases == ["trace", "transforms", "claim", "warmup", "capture", "hlo_audit"],
                 f"compile {entry.compile_id}'s phases are {phases}")
     require(not missing, f"no pass event with ms for {missing}")
     hits = report["thunder_tpu_cache_hits_total"]["values"]
@@ -4945,6 +4966,7 @@ def run_timeline(step, attr) -> None:
     for line in (report or "").splitlines():
         log(f"  (c) | {line}")
     log(f"  (c) replay of the recorder's event log: kinds {summary.get('kinds')}, unknown kinds {len(unknown)}")
+    _NOTES["timeline_exposed_pct"] = rec.measured_exposed_pct()
     require(worst <= 1e-9, f"a step's classes do not sum to its wall ({worst:.2e})")
     require(abs(totals["exposed_ici"] / TIMELINE_STEPS - exposed_s) <= 1e-9 * max(exposed_s, 1e-9) + 1e-12,
             "the ledger's exposed_ici differs from attribution's exposed collective time")
@@ -6602,6 +6624,236 @@ def run_fleet(cfg, launches: dict) -> None:
     require(not td.is_initialized(), "the process group outlived phase 26")
 
 
+# Phase 27: the layers of (a)'s staged step and of (b)'s ddp step (width kept).
+AUDIT_LAYERS = 4
+DDP_AUDIT_LAYERS = 2
+# (a): the kernel rows of the path, by the csrc/ function whose graph nodes
+# count one launch of each wrapper.
+AUDIT_ROWS = {"flash_fwd_lse": "flash_fwd_kernel", "flash_bwd": "flash_bwd_dkdv_kernel", "rope": "rope_kernel",
+              "ce_fwd": "ce_fwd_kernel", "ce_bwd": "ce_bwd_kernel"}
+AUDIT_FLOPS_REL = 0.01
+
+
+def run_audited_step(cfg, launches: dict) -> None:
+    """Phase 27 (a). The staged ``value_and_grad`` of open_llama_3b at
+    AUDIT_LAYERS layers: the compile phase's report of the captured graph,
+    its kernel nodes against the capture's launch counts, its priced
+    operations against ``trace_cost``."""
+    import os
+    import tempfile
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis.cost import trace_cost
+    from thunder_tpu_torch.models import gpt
+
+    cfg = replace(cfg, n_layer=AUDIT_LAYERS)
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    gen = np.random.RandomState(SEED + 270)
+    idx = torch.from_numpy(gen.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    tgt = torch.from_numpy(gen.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))).cuda()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as d:
+        log_path = os.path.join(d, "events.jsonl")
+        vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg), events=log_path)
+        _zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(2):  # warm-up, capture (and the audit)
+            loss, _ = vg(params, idx, tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        phase = [json.loads(line) for line in open(log_path) if '"hlo_audit"' in line]
+    entry = tt.compile_stats(vg).cache_entries[-1]
+    rep, stage = entry.hlo_audit, entry.computation_fn
+    require(rep is not None and rep.source == "graph" and tt.last_staging(vg).staged,
+            "(a): the staged step carries no report of its graph")
+    # The same step compiled and captured again, the audit off and on in
+    # turns: what the audit adds to a capture (the graph kept,
+    # the line marks, the dump), and its phase after it.
+    turns = {"0": [], "1": []}
+    for knob in ("0", "1", "0", "1"):
+        os.environ["THUNDER_TPU_HLO_AUDIT"] = knob
+        try:
+            again = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg))
+            for _ in range(2):
+                again(params, idx, tgt)
+            torch.cuda.synchronize()
+            phases = tt.compile_stats(again).cache_entries[-1].stats.phases
+            turns[knob].append((tt.last_staging(again).capture_s, phases.get("hlo_audit", 0.0)))
+        finally:
+            del os.environ["THUNDER_TPU_HLO_AUDIT"]
+        del again
+    launched = {name: n for (_, name), n in stage._delta.items()}
+    wrappers = {"flash_fwd_lse": "flash_attention_fwd_lse", "flash_bwd": "flash_attention_bwd", "rope": "apply_rope",
+                "ce_fwd": "cross_entropy_rows", "ce_bwd": "cross_entropy_bwd"}
+    rows = {row: (rep.port_kernels.get(fn, 0), launched.get(wrappers[row], 0)) for row, fn in AUDIT_ROWS.items()}
+    want = trace_cost(entry.computation_traces[-1]).total_flops
+    rel = abs(rep.flops - want) / want
+    (span,) = phase
+    log(f"  (a) {cfg.n_layer} layers, B={LOSS_BATCH}, T={SEQ}: loss {loss.item():.6f}; warm-up and capture "
+        f"{wall:.2f} s; graph {rep.n_ops} nodes ({sum(rep.kernels.values())} kernels, {len(rep.kernels)} by name), "
+        f"{rep.streams} branch(es); dump {span.get('hlo_dump_bytes')} bytes, parsed in {span['hlo_acquire_s']:.3f} s, "
+        f"audited in {span['hlo_analyze_s']:.3f} s (phase {span['s']:.3f} s)")
+    log(f"  (a) capture (and first replay), then the audit phase, s, in turns: audit off "
+        f"{', '.join(f'{c:.3f}' for c, _ in turns['0'])}; on {', '.join(f'{c:.3f} + {a:.3f}' for c, a in turns['1'])} "
+        f"(the first entry's: {tt.last_staging(vg).capture_s:.3f} + {span['s']:.3f})")
+    log(f"  (a) kernel rows (graph nodes, launches the capture counted): {rows}; port kernels {rep.port_kernels}")
+    log(f"  (a) priced {rep.flops / 1e12:.4f} TFLOP over {rep.lines_priced} lines against trace_cost's "
+        f"{want / 1e12:.4f} (rel {rel:.2e}); {rep.matmuls} matmul nodes; {rep.unpriced} unpriced; layout copies "
+        f"{rep.layout_copies} ({rep.layout_copy_bytes / 1e6:.2f} MB); host transfers {rep.host_transfers}; "
+        f"sites {len(rep.sites)}, exposed {rep.exposed_pct:.1f}%")
+    for line in rep.format().splitlines()[:3]:
+        log(f"  (a) | {line}")
+    by_line: dict = {}
+    for op in rep.layout_copy_ops:
+        sym = op.split("@")[-1].split("#")[0].split(".", 1)[-1] if "@" in op else "(no line)"
+        by_line[sym] = by_line.get(sym, 0) + 1
+    log(f"  (a) layout copies by the symbol of their line: {dict(sorted(by_line.items(), key=lambda kv: -kv[1]))}")
+    require(all(n == c and n > 0 for n, c in rows.values()), f"(a): graph nodes against launches {rows}")
+    require(rel <= AUDIT_FLOPS_REL, f"(a): priced operations {rep.flops} against trace_cost's {want}")
+    require(rep.host_transfers == 0, f"(a): host transfers in the step: {rep.host_transfer_ops[:4]}")
+    require(stage.graph_dump is None, "(a): the stage kept its dump after the audit")
+    for row in AUDIT_ROWS:
+        require(counts[row] > 0, f"(a): the path launched no {row}")
+        launches[row] = launches.get(row, 0) + counts[row]
+    del vg, params, loss, entry, stage
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_audited_ddp() -> None:
+    """Phase 27 (b). Phase 22's ddp step (the Llama stand-in at full width,
+    DDP_AUDIT_LAYERS layers) at one NCCL rank, staged forward and backward,
+    audited from its two graphs (``audit_jitted``)."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis.hlo_audit import audit_jitted
+    from thunder_tpu_torch.observability.attribution import COLLECTIVE_SYM_CLASS
+
+    cfg = replace(OPEN_LLAMA_3B, num_hidden_layers=DDP_AUDIT_LAYERS)
+    ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
+    m = _dist_llama("ddp", cfg)
+    tm = tt.jit(m)
+    opt = torch.optim.SGD(m.parameters(), lr=LLAMA_LR)
+    for _ in range(2):  # warm-up, capture
+        tm(ids, am, labels)["loss"].backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = audit_jitted(tm)
+    audit_s = time.perf_counter() - t0
+    traces = (tt.last_traces(tm)[-1], tt.last_backward_traces(tm)[-1])
+    lines = [b.sym.name for trc in traces for b in trc.bound_symbols if b.sym.name in COLLECTIVE_SYM_CLASS]
+    with_nodes = [s for s in rep.sites if s.nodes]
+    log(f"  (b) ddp, {cfg.num_hidden_layers} layers: graphs {rep.n_computations} ({rep.n_ops} nodes), audited in "
+        f"{audit_s:.3f} s; sites {len(rep.sites)} by family {{{', '.join(f'{f}: {a['count']}' for f, a in rep.by_family.items())}}}, "
+        f"{rep.explicit_collectives} explicit, {rep.inserted_collectives} inserted; collective lines in the traces "
+        f"{len(lines)}; sites with nodes at one rank {len(with_nodes)} ({sum(s.nodes for s in with_nodes)} nodes: "
+        f"{sorted({s.opcode for s in with_nodes})[:3]})")
+    measured = _NOTES.get("timeline_exposed_pct")
+    log(f"  (b) predicted exposed share {rep.exposed_pct:.1f}% of {rep.wire_us:.3f} us of wire (one rank: no byte "
+        f"on the wire); the timeline's measured exposed share of the 26-layer ddp step's working time, phase 23 (c): "
+        f"{'not measured' if measured is None else f'{measured:.3f}%'}")
+    require(rep.inserted_collectives == 0 and rep.explicit_collectives == len(lines) == len(rep.sites) > 0,
+            f"(b): {len(rep.sites)} sites ({rep.inserted_collectives} inserted) for {len(lines)} collective lines")
+    del tm, m, opt, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_audit_faults(cfg) -> None:
+    """Phase 27 (c). Planted host transfers, and the kill switch."""
+    import os
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis import hlo_audit
+    from thunder_tpu_torch.examine import hlo_report
+    from thunder_tpu_torch.executors import fusedex, staging
+
+    x = torch.randn(256, 256, device="cuda")
+
+    def with_item(a):
+        s = a.sum().item()  # the planted host read: the program cannot stage
+        return a * 2, s
+
+    jg = tt.jit(with_item)
+    rep = hlo_report(jg, x, verbose=False)
+    fired = [d.rule for d in rep.diagnostics()]
+    log(f"  (c) .item() in a program: staged {tt.last_staging(jg).staged} ({tt.last_staging(jg).reason}); its record's "
+        f"audit: host transfers {rep.host_transfer_ops[:3]}; findings {fired}")
+    require("hlo.host-transfer-in-step" in fired, "(c): the .item() did not fire hlo.host-transfer-in-step")
+
+    pinned = torch.empty(256, 256, pin_memory=True)
+    host_src = torch.randn(64, pin_memory=True)
+    side = torch.cuda.Stream()
+    B, T, H, D = 1, 16, 2, 64
+    q = torch.randn(B, H, T, D, device="cuda", dtype=torch.bfloat16)
+    cos, sin = (torch.randn(T, D, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+
+    def probe(a):
+        y = a * 2 + 1
+        z = torch.mm(y, y)
+        c = torch.empty_like(z)
+        c.copy_(z)  # a memcpy from the device to the device
+        t = z.t().contiguous()  # a copy kernel
+        pinned.copy_(z, non_blocking=True)  # the planted transfer to the host
+        h = host_src.to("cuda", non_blocking=True)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            s2 = y.sin()
+        torch.cuda.current_stream().wait_stream(side)
+        r = fusedex.apply_rope(q, cos, sin)  # a port kernel
+        return c, t, h, s2, r
+
+    stage = staging.CudaGraphStage(probe, name="audit probe")
+    for _ in range(2):
+        stage(x)
+    dump = stage.graph_dump
+    rep = hlo_audit.audit_jitted(stage)
+    fired = [d.rule for d in rep.diagnostics()]
+    log(f"  (c) staged probe with a copy into pinned host memory: {rep.n_ops} nodes, host transfers "
+        f"{rep.host_transfer_ops}, layout copies {rep.layout_copies}, port kernels {rep.port_kernels}; findings {fired}")
+    log(f"  (c) the probe's graph, {len(dump)} bytes of DOT text (the CPU tests' golden excerpt):")
+    for line in dump.splitlines():
+        print(f"  (c) | {line}")
+    require("hlo.host-transfer-in-step" in fired and rep.host_transfers == 2 and rep.port_kernels.get("rope_kernel") == 1,
+            "(c): the staged probe's transfers or its port kernel were not found")
+
+    os.environ["THUNDER_TPU_HLO_AUDIT"] = "0"
+    try:
+        jf = tt.jit(lambda a: (a @ a).tanh().sum())
+        for _ in range(3):
+            jf(x)
+        entry = tt.compile_stats(jf).cache_entries[-1]
+        killed = (entry.hlo_audit, entry.computation_fn.graph_dump, entry.computation_fn.line_marks,
+                  "hlo_audit" in entry.stats.phases)
+    finally:
+        del os.environ["THUNDER_TPU_HLO_AUDIT"]
+    log(f"  (c) THUNDER_TPU_HLO_AUDIT=0: staged {tt.last_staging(jf).staged}; report, dump, marks, phase {killed}")
+    require(tt.last_staging(jf).staged and killed == (None, None, [], False), "(c): the kill switch left an audit")
+
+
+def run_hlo_audit(cfg, launches: dict) -> None:
+    """Phase 27 (a)-(c); (b) in its own one-rank NCCL group."""
+    import thunder_tpu_torch.distributed as td
+
+    t = time.perf_counter()
+    run_audited_step(cfg, launches)
+    log(f"  (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dist_init()
+    try:
+        run_audited_ddp()
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 27 (b)")
+    log(f"  (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    run_audit_faults(cfg)
+    log(f"  (c) took {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6786,6 +7038,11 @@ def main() -> int:
         "flight recorder's dumps and the plane's cost on a staged hit; (c) the federated run over 2 slices under a "
         f"slice loss, {P26_FED_LAYERS} layers")
     run_fleet(cfg, launches)
+
+    log(f"[27] the compiled-program audit: (a) {CFG_NAME} at {AUDIT_LAYERS} layers, the staged value_and_grad's graph "
+        f"against the capture's launches and trace_cost; (b) phase 22's ddp step at {DDP_AUDIT_LAYERS} layers, one "
+        "NCCL rank; (c) planted host transfers, the kill switch")
+    run_hlo_audit(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

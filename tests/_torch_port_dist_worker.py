@@ -14,8 +14,9 @@ torch seed, which the JAX package's module frontend takes as they are):
         OUT/jax.json.
 
 SCENARIOS may name a group: "@train" (the sharded step over dp, fsdp and
-tp), "@parallel" (context, pipeline and expert parallelism, and the step
-over pp, ep and sp), "@resilience" (the recovery layer: a synced
+tp), "@parallel" (context, pipeline and expert parallelism, the step
+over pp, ep and sp, and the compiled-program audit of the fsdp x tp step),
+"@resilience" (the recovery layer: a synced
 preemption, the SDC guard, host loss and the elastic resume, reshards, the
 collective watchdog), "@fleet" (the fleet layer: the autopiloted driver's
 scenarios, the federated mesh, the hierarchical all-reduce and the
@@ -1298,6 +1299,57 @@ class TorchRank:
     def sp_tp_train(self):
         return self._sharded_sgd("sp_tp_train")
 
+    def hlo_audit_fsdp_tp(self):
+        """``TestLivePjit``'s counterpart (tests/test_hlo_audit.py:323): the
+        fsdp2 x tp2 ``build_train_step`` of gpt-tiny audited from the op
+        record of one real step (``audit_jitted`` with example inputs). Every
+        collective of the claimed program is a line of its trace, so every
+        site of the program is explicit, each with its line's wire bytes; on
+        one stream (gloo runs the wire on its own thread, no compute beside
+        it) every site is exposed. The step's loss is summed over the data
+        axis outside the program (``parallel/train.py``'s ``run_program``):
+        that all-reduce is the audit's inserted site. A second all-reduce
+        launched outside the trace (planted) is named inserted too."""
+        import torch
+        import torch.distributed as tdist
+
+        from thunder_tpu_torch.analysis.cost import trace_cost
+        from thunder_tpu_torch.analysis.hlo_audit import audit_jitted, audit_record
+        from thunder_tpu_torch.models import gpt as m
+        from thunder_tpu_torch.parallel import build_train_step, gpt_param_specs, make_mesh, shard_pytree
+
+        cfg = m.name_to_config("gpt-tiny")
+        idx, tgt = (torch.from_numpy(a) for a in _train_tokens(cfg.vocab_size))
+        mesh = make_mesh(fsdp=2, tp=2)
+        specs = gpt_param_specs(cfg, mesh)
+        p = shard_pytree(m.params_from_jax(_np_params("gpt-tiny"), device="cpu"), mesh, specs)
+        step, opt, extrace = build_train_step(cfg, p, idx, tgt, mesh=mesh, param_specs=specs, lr=1e-2, donate=False,
+                                              return_extrace=True)
+        p, opt, _ = step(p, opt, idx, tgt)
+        rep = audit_jitted(step, p, opt, idx, tgt)
+        rows = {extrace.scope_of(r.index): r for r in trace_cost(extrace, "cpu").rows}
+        explicit = [s for s in rep.sites if not s.inserted]
+        assert all(s.wire_bytes == rows[s.scope].comm_bytes for s in explicit)
+        lines = [sc for sc, r in rows.items() if r.sym in ("all_gather", "all_reduce", "reduce_scatter", "synchronize")]
+
+        def planted(*args):
+            out = step(*args)
+            tdist.all_reduce(torch.ones(1024))  # launched outside the trace
+            return out
+
+        rep2 = audit_record(planted, p, opt, idx, tgt)
+
+        def inserted(r):
+            return [(s.family, s.wire_bytes, s.group_size, s.name) for s in r.sites if s.inserted]
+
+        return {"families": {f: a["count"] for f, a in rep.by_family.items()},
+                "explicit_families": {f: sum(1 for s in explicit if s.family == f) for f in rep.by_family},
+                "wire_bytes": {f: sum(s.wire_bytes for s in explicit if s.family == f) for f in rep.by_family},
+                "sites": len(rep.sites), "explicit": rep.explicit_collectives, "inserted": inserted(rep),
+                "collective_lines": len(lines), "explicit_scopes": sorted({s.scope for s in explicit}) == sorted(lines),
+                "exposed_pct": rep.exposed_pct, "single_stream": rep.single_stream,
+                "planted": inserted(rep2), "planted_explicit": rep2.explicit_collectives}
+
 
 TORCH_SCENARIOS = {
     2: ["multihost_init", "collectives", "calibration", "broadcast_grad", "fsdp_api", "module_ddp_train", "module_fsdp_train",
@@ -1317,7 +1369,8 @@ TRAIN_SCENARIOS = {
 PARALLEL_SCENARIOS = {
     2: ["vjp_ring", "vjp_chain", "sp_train", "pp_train", "ep_train"],
     4: ["vjp_ring", "vjp_chain", "ring_attention", "ulysses_attention", "long_context_train", "moe_ep",
-        "moe_capacity", "pipeline_pp", "gpt_pipeline", "dp_sp_train", "fsdp_sp_train", "sp_tp_train"],
+        "moe_capacity", "pipeline_pp", "gpt_pipeline", "dp_sp_train", "fsdp_sp_train", "sp_tp_train",
+        "hlo_audit_fsdp_tp"],
 }
 
 
@@ -2291,6 +2344,30 @@ for _case in {c for cases in PARALLEL_TRAIN_CASES.values() for c in cases}:
     globals()[f"jax_{_case}"] = (lambda c: lambda world: _jax_sharded_sgd(world, c))(_case)
 
 
+def jax_hlo_audit_fsdp_tp(world: int):
+    """``TestLivePjit`` at fsdp2 x tp2: the compiled step's collectives, all
+    inserted by the SPMD partitioner."""
+    import jax.numpy as jnp
+
+    from thunder_tpu.analysis.hlo_audit import audit_jitted
+    from thunder_tpu.core.pytree import tree_map
+    from thunder_tpu.models import gpt as jm
+    from thunder_tpu.parallel import build_train_step, make_mesh
+    from thunder_tpu.parallel.sharding import gpt_param_specs
+
+    cfg = jm.name_to_config("gpt-tiny")
+    params = tree_map(jnp.asarray, _np_params("gpt-tiny"))
+    idx, tgt = (a.astype(np.int32) for a in _train_tokens(cfg.vocab_size))
+    mesh = make_mesh(fsdp=2, tp=2)
+    step, opt = build_train_step(cfg, params, idx, tgt, mesh=mesh, param_specs=gpt_param_specs(cfg, mesh), lr=1e-2,
+                                 executors=["jax"], donate=False)
+    rep = audit_jitted(step, params, opt, idx, tgt)
+    return {"families": {f: a["count"] for f, a in rep.by_family.items()},
+            "wire_bytes": {f: a["wire_bytes"] for f, a in rep.by_family.items()},
+            "sites": len(rep.sites), "inserted": rep.inserted_collectives, "explicit": rep.explicit_collectives,
+            "exposed_pct": rep.exposed_pct}
+
+
 JAX_SCENARIOS = {
     2: ["collectives", "broadcast_grad", "module_ddp_train", "module_fsdp_train", "fsdp_zero3", "no_sync_ddp",
         "no_sync_fsdp", "batch_reduced_output", "ddp_train", "fsdp_train", "tp_fsdp_train"],
@@ -2302,7 +2379,7 @@ JAX_SCENARIOS = {
 JAX_PARALLEL_SCENARIOS = {
     2: ["sp_train", "pp_train", "ep_train"],
     4: ["ring_attention", "gpt_pipeline", "ulysses_attention", "long_context_train", "moe_ep", "moe_capacity",
-        "pipeline_pp", "dp_sp_train", "fsdp_sp_train", "sp_tp_train"],
+        "pipeline_pp", "dp_sp_train", "fsdp_sp_train", "sp_tp_train", "hlo_audit_fsdp_tp"],
 }
 
 

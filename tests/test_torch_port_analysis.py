@@ -19,7 +19,7 @@ GPT under ``+norm``, the ``quant`` stack, autocast, dropout's keyed draw,
 symbolic values, ``vmap(grad)``, masked attention's verdicts, a module's
 split forward and backward) finds no error; a planted bad transform is
 attributed to its pass; the cost model's kernel rows on the ``h100`` spec
-and the CPU's spec; ``hlo_report`` raising.
+and the CPU's spec; ``hlo_report`` auditing a call's record.
 """
 
 from types import SimpleNamespace
@@ -659,8 +659,12 @@ def test_cost_model_prices_the_kernel_claims_by_the_tables_formulas(tiny):
 
 
 def test_hlo_report_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        texamine.hlo_report(lambda x: x, torch.ones(2))
+    """ROADMAP item 13 is done: ``hlo_report`` audits the program, here the
+    record of one eager call on the CPU (an unstaged entry)."""
+    from thunder_tpu_torch.analysis.hlo_audit import HloScheduleReport
+
+    rep = texamine.hlo_report(lambda x: x * 2, torch.ones(2), verbose=False)
+    assert isinstance(rep, HloScheduleReport) and rep.source == "record" and rep.n_ops >= 1
 
 
 @BOTH

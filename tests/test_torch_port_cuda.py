@@ -2664,3 +2664,111 @@ def test_flight_dump_after_a_dispatch_fault_on_the_card(dev, tmp_path):
     assert not [d for d in diags if d.severity.name == "ERROR"]
     assert summary["flightrec_dumps"] == 1 and summary["kinds"].get("nan_guard", 0) >= 1
     assert json.loads(open(dumps[0]).read().splitlines()[-1])["reason"] == "dispatch_fault"
+
+
+# -- the compiled-program audit (analysis/hlo_audit.py) -----------------------
+
+
+def _audit_loss(dev, **jit_options):
+    import thunder_tpu_torch as tt
+    import thunder_tpu_torch.torch as ttorch
+
+    jf = tt.jit(lambda a, b: ttorch.sum(ttorch.tanh(ttorch.matmul(a, b))), **jit_options)
+    a, b = torch.randn(256, 512, device=dev), torch.randn(512, 256, device=dev)
+    return jf, a, b
+
+
+def test_audit_phase_attaches_report(dev, tmp_path):
+    """The ``hlo_audit`` compile phase after a staged entry's capture
+    (tests/test_hlo_audit.py:256): the report on the entry, in the last
+    trace's tags and in ``stats.phases``, one ``compile_phase`` event with
+    its fields; every node on a line, so the priced operations are the
+    trace's; the stage keeps no dump once audited."""
+    import json
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis.cost import trace_cost
+    from thunder_tpu_torch.analysis.hlo_audit import HloScheduleReport
+
+    log = str(tmp_path / "ev.jsonl")
+    jf, a, b = _audit_loss(dev, events=log)
+    for _ in range(3):  # warm-up, capture (and audit), replay
+        jf(a, b)
+    entry = tt.compile_stats(jf).cache_entries[0]
+    rep = entry.hlo_audit
+    assert isinstance(rep, HloScheduleReport) and rep.source == "graph" and tt.last_staging(jf).staged
+    assert rep.n_ops > 0 and rep.matmuls >= 1 and rep.host_transfers == 0 and rep.unpriced == 0
+    assert rep.flops == pytest.approx(trace_cost(entry.computation_traces[-1]).total_flops, rel=1e-9)
+    assert entry.stats.phases.get("hlo_audit", 0) > 0
+    assert entry.computation_traces[-1].tags.get("hlo_audit") is rep
+    assert entry.computation_fn.graph_dump is None
+    recs = [json.loads(line) for line in open(log)]
+    spans = [r for r in recs if r.get("kind") == "compile_phase" and r.get("phase") == "hlo_audit"]
+    assert len(spans) == 1 and spans[0]["hlo_ops"] == rep.n_ops
+    assert spans[0]["hlo_acquire_s"] >= 0 and spans[0]["hlo_analyze_s"] >= 0
+
+
+def test_kill_switch_disables_phase(dev, monkeypatch):
+    """``THUNDER_TPU_HLO_AUDIT=0``: no report, no phase, no kept graph
+    and no line marks; ``examine.hlo_report`` still audits on demand, from
+    the record of one more call."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.examine import hlo_report
+
+    monkeypatch.setenv("THUNDER_TPU_HLO_AUDIT", "0")
+    jf, a, b = _audit_loss(dev)
+    for _ in range(3):
+        jf(a, b)
+    entry = tt.compile_stats(jf).cache_entries[0]
+    assert entry.hlo_audit is None and "hlo_audit" not in entry.stats.phases
+    stage = entry.computation_fn
+    assert stage.graph_dump is None and stage.line_marks == [] and tt.last_staging(jf).captures == 1
+    rep = hlo_report(jf, a, b, verbose=False)
+    assert rep.source == "record" and rep.matmuls >= 1 and tt.last_staging(jf).captures == 1
+
+
+def test_corrupt_auditor_never_breaks_compile(dev, monkeypatch):
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis import hlo_audit
+
+    def boom(*args, **kwargs):
+        raise ValueError("seeded parser corruption")
+
+    monkeypatch.setattr(hlo_audit, "parse_graph_dump", boom)
+    jf, a, b = _audit_loss(dev)
+    want = torch.tanh(a @ b).sum()
+    outs = [jf(a, b) for _ in range(3)]
+    assert all(torch.allclose(o, want, rtol=1e-4) for o in outs)
+    assert tt.last_staging(jf).staged and tt.last_staging(jf).replays == 2
+    assert tt.compile_stats(jf).cache_entries[0].hlo_audit is None
+
+
+def test_graph_and_record_readers_agree(dev):
+    """A staged ``value_and_grad`` of a 2-layer GPT at open_llama_3b's head
+    size: the graph's audit (reader (a), the compile phase's) and the audit
+    of the profiler's record of one eager call (reader (b)) find the same
+    kernels by name, and price the same operations; the graph's port kernels
+    equal the launches the capture counted."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.analysis import hlo_audit
+    from thunder_tpu_torch.models import gpt
+
+    cfg = gpt.name_to_config(_TINY)
+    params = gpt.init_params(cfg, seed=0, device=dev)
+    vg = tt.value_and_grad(lambda p, i, t: gpt.loss_fn(p, i, t, cfg))
+    batch = _tiny_batch(cfg, dev, 0)
+    for _ in range(2):
+        vg(params, *batch)
+    entry = tt.compile_stats(vg).cache_entries[-1]
+    graph = entry.hlo_audit
+    record = hlo_audit.audit_record(vg, params, *batch)
+    assert graph.source == "graph" and record.source == "record"
+    assert graph.kernels == record.kernels and sum(graph.kernels.values()) > 20
+    assert graph.flops == pytest.approx(record.flops, rel=1e-9) and graph.flops > 0
+    launched = {name: n for (_, name), n in entry.computation_fn._delta.items()}
+    assert graph.port_kernels["flash_fwd_kernel"] == launched["flash_attention_fwd_lse"]
+    assert graph.port_kernels["flash_bwd_dkdv_kernel"] == launched["flash_attention_bwd"]
+    assert graph.port_kernels["rope_kernel"] == launched["apply_rope"]
+    assert graph.port_kernels["ce_fwd_kernel"] == launched["cross_entropy_rows"]
+    assert graph.port_kernels["ce_bwd_kernel"] == launched["cross_entropy_bwd"]
+    assert graph.host_transfers == 0 and graph.unpriced == 0

@@ -22,6 +22,10 @@ at 4, with these reduced sizes:
 - ``gpt_pipeline``: pp=4, 4 layers, unchanged; XLA's ``temp_size_in_bytes``
   becomes ``analysis/liveness.plan_liveness`` of the claimed programs.
 
+The compiled-program audit of the fsdp2·tp2 step (``hlo_audit_fsdp_tp``,
+ROADMAP item 13) rides in the same spawn, beside the JAX package's audit of
+its compiled step on 4 virtual devices.
+
 Tolerances are the scenarios' own: values rtol 1e-4, atol 1e-5 (GPipe 1e-5,
 1e-6), grads 1e-3, 1e-4 (long context 1e-3, 1e-5; GPipe 1e-4, 1e-5), drops
 2e-3, 2e-4, the pipelined GPT's loss 2e-5 and grads 1e-2, 3e-4; the sharded
@@ -225,3 +229,30 @@ def test_sharded_step_over_pp_ep_sp(runs, world, name):
     assert results[0]["ring"] == ("sp" in name)
     if name in ("pp_train", "ep_train"):
         assert results[0]["collectives"] == []
+
+
+def test_compiled_program_audit_on_ranks(runs):
+    """``TestLivePjit``'s counterpart (``tests/test_hlo_audit.py:323``), the
+    fsdp2·tp2 step of gpt-tiny on 4 gloo ranks, audited from the op record
+    of one real step (``analysis/hlo_audit.audit_jitted``). The port's audit
+    names all-gather and reduce-scatter sites with nonzero wire bytes, all
+    explicit: a site a collective line of the claimed trace (every such line
+    that ran), its wire bytes the line's ``cost`` wire bytes (the worker
+    held them equal). Its one inserted site is the loss's sum over the data
+    axis that ``build_train_step``'s step makes outside the claimed program;
+    an all-reduce planted outside the trace is a second one, of 4096 bytes at
+    the all-reduce factor 2(g-1)/g. One stream on the CPU: every site
+    exposed. The JAX package's audit of its compiled step finds the same two
+    families, every site inserted by the SPMD partitioner."""
+    jres = _jax(runs, 4, "hlo_audit_fsdp_tp")
+    assert jres["families"].get("all-gather", 0) >= 1 and jres["families"].get("reduce-scatter", 0) >= 1
+    assert jres["explicit"] == 0 and jres["inserted"] == jres["sites"]
+    for res in _ranks(runs, 4, "hlo_audit_fsdp_tp"):
+        for fam in ("all-gather", "reduce-scatter"):
+            assert res["explicit_families"][fam] == res["families"][fam] >= 1
+            assert res["wire_bytes"][fam] > 0
+        assert res["explicit"] == res["collective_lines"] and res["explicit_scopes"]
+        assert [(f, w, g) for f, w, g, _ in res["inserted"]] == [("all-reduce", 4 * 1.5, 4)]
+        assert res["planted_explicit"] == res["explicit"]
+        assert sorted(w for _, w, _, _ in res["planted"]) == [6.0, 4096 * 1.5]
+        assert res["single_stream"] and 0.0 < res["exposed_pct"] <= 100.0

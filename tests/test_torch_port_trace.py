@@ -129,8 +129,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n, bad = first.split(" ", 1)
     assert int(n) > 30 and bad.strip() == ""
     # The nn.Module frontend, the RNG and autocast transforms, the draw
-    # kernel's wrapper, the distribution layer and the fleet layer are
-    # among them.
+    # kernel's wrapper, the distribution layer, the fleet layer and the
+    # compiled-program auditor are among them.
     assert {"thunder_tpu_torch.frontend.module", "thunder_tpu_torch.frontend.dispatch",
             "thunder_tpu_torch.frontend.sharp", "thunder_tpu_torch.transforms.rng",
             "thunder_tpu_torch.transforms.autocast", "thunder_tpu_torch.executors.rngex",
@@ -141,7 +141,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "thunder_tpu_torch.parallel.mesh", "thunder_tpu_torch.parallel.sharding",
             "thunder_tpu_torch.transforms.comm_schedule", "thunder_tpu_torch.benchmarks.distributed",
             "thunder_tpu_torch.resilience.autopilot", "thunder_tpu_torch.resilience.federation",
-            "thunder_tpu_torch.observability.opsplane"} <= set(mods.split(","))
+            "thunder_tpu_torch.observability.opsplane", "thunder_tpu_torch.analysis.hlo_audit"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():

@@ -15,9 +15,10 @@ named rules checks the invariants every pass must preserve:
                   forward and backward collective balance (``collectives.py``)
 - ``sched.*``     the per-axis collective order against the stamped schedule
                   certificate (``schedule.py``)
-
-The JAX package's ``hlo.*`` audit waits for a compiled-program auditor
-(``ROADMAP.md``).
+- ``hlo.*``       advisory findings of the compiled-program audit
+                  (``hlo_audit.py``: a staged entry's CUDA graph or one call's
+                  op record, read below the trace), from the report the
+                  ``hlo_audit`` compile phase puts in the trace's tags
 
 Pipeline wiring: with ``THUNDER_TPU_CHECKS=1`` or ``jit(debug_checks=True)``
 (``grad``, ``value_and_grad``, ``vmap``, ``jit(module)``) every pass's
@@ -50,6 +51,14 @@ from thunder_tpu_torch.analysis.diagnostics import (  # noqa: F401
     TraceVerificationError,
     attach_trace_lines,
     max_severity,
+)
+from thunder_tpu_torch.analysis.hlo_audit import (  # noqa: F401
+    HloCollectiveSite,
+    HloScheduleReport,
+    audit_hlo,
+    audit_jitted,
+    ops_of_record,
+    parse_graph_dump,
 )
 from thunder_tpu_torch.analysis.liveness import (  # noqa: F401
     MemoryPlan,

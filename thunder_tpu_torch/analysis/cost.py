@@ -439,6 +439,13 @@ def _hier_all_reduce_cost(bsym) -> OpCost:
     return OpCost(comm_bytes=inner + outer, dcn_bytes=outer, kind="collective")
 
 
+def collective_group_size(bsym) -> int:
+    """The ranks a collective line spans: its first int argument above 1
+    (the prims take the axis's size after the axis), else 1."""
+    return next((v for v in (pyval(a) for a in bsym.flat_args)
+                 if isinstance(v, int) and not isinstance(v, bool) and v > 1), 1)
+
+
 def _collective_cost(bsym) -> OpCost:
     """A collective's wire bytes: the ring factor of its family times its
     tensor's bytes (the full, gathered tensor's for a gather, which a
@@ -453,8 +460,7 @@ def _collective_cost(bsym) -> OpCost:
     factor = _COLLECTIVE_FACTORS.get(name)
     if factor is None:
         return OpCost(comm_bytes=nbytes, dcn_bytes=nbytes if on_dcn else 0.0, kind="collective")
-    g = next((v for v in (pyval(a) for a in bsym.flat_args)
-              if isinstance(v, int) and not isinstance(v, bool) and v > 1), 1)
+    g = collective_group_size(bsym)
     if name in ("all_gather", "synchronize"):
         out_bytes = _bytes(_tensor_outs(bsym))
         if out_bytes > nbytes:
@@ -527,6 +533,7 @@ class OpCostRow:
     executor: Optional[str] = None
     line: str = ""
     comm_bytes: float = 0.0
+    compute_s: float = 0.0  # its operations at their class's peak, every byte free
 
 
 @dataclass
@@ -611,23 +618,35 @@ def trace_cost(trace: TraceCtx, device: Any = None) -> TraceCost:
         c = bsym_cost(bsym)
         if c is None:
             continue
-        outs = _tensor_outs(bsym)
-        dtype = outs[0].dtype if outs else None
-        parts = kernel_costs(bsym) or [(bsym.sym.name, c)]
-        cls = collective_sym_class(bsym.sym.name) if c.comm_bytes else None
-        t = sum(p.seconds(dev, dtype, cls)[0] for _, p in parts)
-        tc.compute_s += sum(p.flops / dev.peak_for(p.dtype_class or dtype) for _, p in parts)
-        bound = "free" if t == 0.0 else max((p.seconds(dev, dtype, cls) for _, p in parts))[1]
-        ex = bsym.sym.executor
-        tc.rows.append(OpCostRow(index=i, sym=bsym.sym.name, kind=c.kind, flops=c.flops, bytes_moved=c.bytes_moved,
-                                 roofline_s=t, bound=bound, intensity=c.arithmetic_intensity,
-                                 executor=None if ex is None else ex.name, line=bsym.one_line(),
-                                 comm_bytes=c.comm_bytes))
+        row = cost_row(i, bsym, dev, c)
+        row.line = bsym.one_line()
+        tc.rows.append(row)
+        tc.compute_s += row.compute_s
         tc.total_flops += c.flops
         tc.total_bytes += c.bytes_moved
         tc.total_comm_bytes += c.comm_bytes
         tc.total_dcn_bytes += c.dcn_bytes
     return tc
+
+
+def cost_row(index: int, bsym, dev: DeviceSpec, c: Optional[OpCost] = None) -> Optional[OpCostRow]:
+    """The :class:`OpCostRow` of trace line ``index`` on ``dev`` (its line
+    text left empty), or None for bookkeeping: one row of
+    :func:`trace_cost`, for a caller that prices a few lines of a trace."""
+    c = bsym_cost(bsym) if c is None else c
+    if c is None:
+        return None
+    outs = _tensor_outs(bsym)
+    dtype = outs[0].dtype if outs else None
+    parts = kernel_costs(bsym) or [(bsym.sym.name, c)]
+    cls = collective_sym_class(bsym.sym.name) if c.comm_bytes else None
+    t = sum(p.seconds(dev, dtype, cls)[0] for _, p in parts)
+    bound = "free" if t == 0.0 else max((p.seconds(dev, dtype, cls) for _, p in parts))[1]
+    ex = bsym.sym.executor
+    return OpCostRow(index=index, sym=bsym.sym.name, kind=c.kind, flops=c.flops, bytes_moved=c.bytes_moved,
+                     roofline_s=t, bound=bound, intensity=c.arithmetic_intensity,
+                     executor=None if ex is None else ex.name, comm_bytes=c.comm_bytes,
+                     compute_s=sum(p.flops / dev.peak_for(p.dtype_class or dtype) for _, p in parts))
 
 
 def cost_report(fn: Callable, *args, executors: Any = None, device: Any = None, **kwargs) -> TraceCost:
@@ -638,3 +657,87 @@ def cost_report(fn: Callable, *args, executors: Any = None, device: Any = None, 
     from thunder_tpu_torch.analysis.liveness import claimed_trace
 
     return trace_cost(claimed_trace(fn, args, kwargs, executors), device)
+
+
+# =============================================================================
+# Device-op pricing (the compiled-program auditor's; thunder_tpu/analysis/cost.py:680-777)
+# =============================================================================
+
+# Ring wire factors by collective family, the JAX package's HLO names: the
+# compiled-program counterpart of _COLLECTIVE_FACTORS.
+HLO_COLLECTIVE_FACTORS: dict[str, Callable[[int], float]] = {
+    "all-reduce": lambda g: 2.0 * (g - 1) / g,
+    "all-gather": lambda g: (g - 1) / g,
+    "reduce-scatter": lambda g: (g - 1) / g,
+    "collective-broadcast": lambda g: (g - 1) / g,
+    "all-to-all": lambda g: (g - 1) / g,
+    "ragged-all-to-all": lambda g: (g - 1) / g,
+    "collective-permute": lambda g: 1.0,
+}
+
+
+def hlo_collective_wire_bytes(family: str, full_bytes: float, group_size: int) -> float:
+    """Ring wire traffic of one collective op: the family's factor applied to
+    the full tensor's bytes (a gather's output, a reduction's input)."""
+    factor_fn = HLO_COLLECTIVE_FACTORS.get(family)
+    if factor_fn is None or group_size <= 1:
+        return full_bytes if factor_fn is not None else 0.0
+    return factor_fn(group_size) * full_bytes
+
+
+# Opcode classes, the JAX package's: layout-only ops are free, data movers
+# are charged their bytes in and out, elementwise ops 1 operation an output
+# element, reductions 1 an input element.
+_HLO_FREE_OPS = frozenset({
+    "parameter", "constant", "iota", "bitcast", "bitcast-convert", "reshape",
+    "broadcast", "get-tuple-element", "tuple", "after-all", "partition-id",
+    "replica-id", "domain", "opt-barrier", "while", "call", "conditional",
+    "custom-call", "rng-get-and-update-state", "get-dimension-size",
+    "add-dependency", "token",
+})
+_HLO_MOVE_OPS = frozenset({
+    "slice", "dynamic-slice", "dynamic-update-slice", "concatenate", "pad",
+    "gather", "transpose", "reverse", "copy", "copy-start", "copy-done",
+    "send", "recv", "send-done", "recv-done", "infeed", "outfeed",
+})
+_HLO_REDUCE_OPS = frozenset({"reduce", "reduce-window", "scatter", "sort", "select-and-scatter"})
+
+
+def hlo_op_cost(op: Any, *, inner_flops: float = 0.0) -> Optional[OpCost]:
+    """Static cost of one device op by the JAX package's HLO-op rules
+    (thunder_tpu/analysis/cost.py:731-777), for the ops the auditor
+    (``analysis/hlo_audit.py``) cannot price by the trace line they ran in:
+    a memcpy or memset node, an aten op outside every line whose shapes the
+    profiler recorded, a collective launched outside the trace.
+
+    ``op`` is duck-typed as the JAX package's: ``opcode``, ``result_bytes``/
+    ``result_numel``, ``operand_bytes``/``operand_numel``, ``group_size``,
+    ``k_dim`` (a product's contraction size), ``family`` (a collective's,
+    else None). ``inner_flops`` is a fused launch's arithmetic, charged with
+    its boundary bytes. None for a ``-done`` half (its ``-start`` carries the
+    cost) and for free ops."""
+    opcode = op.opcode
+    fam = getattr(op, "family", None) or (
+        opcode[:-6] if opcode.endswith("-start") and opcode[:-6] in HLO_COLLECTIVE_FACTORS
+        else opcode if opcode in HLO_COLLECTIVE_FACTORS else None
+    )
+    if fam is not None:
+        if opcode.endswith("-done"):
+            return None
+        # (g-1)/g of the full tensor: a gather's output, a native
+        # reduce-scatter's input; an all-reduce's in and out are both full.
+        full = op.operand_bytes if opcode.startswith("reduce-scatter") else op.result_bytes
+        return OpCost(comm_bytes=hlo_collective_wire_bytes(fam, full, max(1, int(op.group_size))),
+                      kind="collective")
+    io = op.operand_bytes + op.result_bytes
+    if opcode == "fusion":
+        return OpCost(flops=inner_flops, bytes_moved=io, kind="fusion")
+    if opcode in ("dot", "convolution"):
+        return OpCost(flops=2.0 * op.result_numel * max(1.0, op.k_dim), bytes_moved=io, kind="matmul")
+    if opcode in _HLO_FREE_OPS:
+        return None
+    if opcode in _HLO_MOVE_OPS:
+        return OpCost(bytes_moved=io, kind="layout" if opcode.startswith("copy") else "shape")
+    if opcode in _HLO_REDUCE_OPS:
+        return OpCost(flops=op.operand_numel, bytes_moved=io, kind="reduction")
+    return OpCost(flops=op.result_numel, bytes_moved=io, kind="elementwise")

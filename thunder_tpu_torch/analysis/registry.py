@@ -77,4 +77,4 @@ def _ensure_builtin_rules() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    from thunder_tpu_torch.analysis import collectives, liveness, rules, schedule  # noqa: F401
+    from thunder_tpu_torch.analysis import collectives, hlo_audit, liveness, rules, schedule  # noqa: F401

@@ -416,8 +416,9 @@ def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, *
     ``thunder_tpu_compile_phase_s{phase=...}`` histogram. The port's phases:
     trace, transforms, claim (claiming, the dels, codegen and the staging
     wrapper), then the entry's first call (warmup: eager, on the card under
-    the sync check) and its CUDA-graph capture (capture, at the second
-    call). The port has no XLA compile."""
+    the sync check), its CUDA-graph capture (capture, at the second call)
+    and, while the compiled-program audit is on, the audit of the captured
+    graph (hlo_audit). The port has no XLA compile."""
     if obsm.enabled():
         obsm.COMPILE_PHASE_S.observe(seconds, phase=phase)
     target = log if log is not None else obs_events.active_log()
@@ -426,6 +427,72 @@ def _record_compile_phase(compile_id, phase: str, seconds: float, *, log=None, *
         target.emit("compile_phase", **fields)
     else:
         obs_events.tap_event("compile_phase", fields)
+
+
+def _bucket_pad_fractions(entry: CacheEntry) -> dict:
+    """Bucket class label -> padded-away fraction (1 - true/padded extent)
+    of a symbolic entry's last call: the ``hlo.padding-waste`` rule's input
+    (thunder_tpu/api.py:1134)."""
+    spec = entry.sym_spec
+    true_ext = entry.last_true_extents
+    if spec is None or not true_ext:
+        return {}
+    out: dict = {}
+    for cid, (li, d, _lo, hi) in spec.classes.items():
+        t = true_ext.get(cid)
+        if t is None or hi <= 0:
+            continue
+        out[f"leaf{li}.dim{d}"] = round(max(0.0, 1.0 - t / hi), 4)
+    return out
+
+
+def _maybe_hlo_audit(entry: CacheEntry, log=None) -> None:
+    """The ``hlo_audit`` compile phase, after a staged entry's capture
+    (thunder_tpu/api.py:1150-1192): audit the graph the capture dumped
+    (``analysis/hlo_audit.py``: collectives and where they were launched,
+    the port's kernels, layout copies, host transfers, the exposed wire) and
+    attach the report to the entry, to the last trace's tags (where the
+    ``hlo.*`` rules read it) and to ``stats.phases``. Advisory: any failure
+    is a ``sharp_edge`` and never breaks the compile or the capture.
+    Unstaged entries get no compile-time audit: their record needs a real
+    call (``examine.hlo_report`` makes one)."""
+    stage = entry.computation_fn
+    if getattr(stage, "graph_dump", None) is None:
+        return
+    t0 = time.perf_counter()
+    try:
+        from thunder_tpu_torch.analysis import hlo_audit
+
+        dump_bytes = len(stage.graph_dump)
+        program = hlo_audit.program_of_stages([stage])
+        acquire_s = time.perf_counter() - t0
+        report = hlo_audit.audit_hlo(program, pad_fractions=_bucket_pad_fractions(entry))
+        total_s = time.perf_counter() - t0
+        report.audit_s = total_s
+        entry.hlo_audit = report
+        if entry.computation_traces:
+            entry.computation_traces[-1].tags["hlo_audit"] = report
+        entry.stats.phases["hlo_audit"] = total_s
+        # Optional fields by presence: absent means the audit had nothing
+        # to say there, not zero.
+        extra: dict = dict(hlo_ops=report.n_ops, hlo_acquire_s=round(acquire_s, 6),
+                           hlo_analyze_s=round(total_s - acquire_s, 6), hlo_dump_bytes=dump_bytes)
+        if report.sites:
+            extra["hlo_collectives"] = len(report.sites)
+            extra["hlo_inserted_collectives"] = report.inserted_collectives
+            extra["hlo_exposed_pct"] = round(report.exposed_pct, 2)
+        if report.host_transfers:
+            extra["hlo_host_transfers"] = report.host_transfers
+        _record_compile_phase(entry.compile_id, "hlo_audit", total_s, log=log, **extra)
+    except Exception as e:  # noqa: BLE001 - the audit must never break a compile
+        sharp_edge(f"hlo_audit failed (advisory): {type(e).__name__}: {e}")
+    finally:
+        stage.graph_dump = None  # the report keeps what the audit read
+
+
+def _on_capture(entry: CacheEntry, log, seconds: float) -> None:
+    _record_compile_phase(entry.compile_id, "capture", seconds, log=log)
+    _maybe_hlo_audit(entry, log=log)
 
 
 def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict, sym_spec,
@@ -563,7 +630,7 @@ def _compile_entry_impl(cd: CompileData, cs: CompileStats, args: tuple, kwargs: 
     for phase in ("trace", "transforms", "claim"):
         _record_compile_phase(compile_id, phase, phases[phase])
     if staging_stats.staged:
-        computation_fn.on_capture = lambda s: _record_compile_phase(compile_id, "capture", s, log=cd.event_log)
+        computation_fn.on_capture = functools.partial(_on_capture, entry, cd.event_log)
     # Compile-side metrics and the compile_end event with the claimed
     # trace's executor breakdown (thunder_tpu/api.py:839-860).
     if obsm.enabled():
@@ -1281,6 +1348,7 @@ def jit(
                    *, first: bool):
         inps, extents = prepared
         if entry.sym_spec is not None:
+            entry.last_true_extents = extents
             inps = inps + _extent_inputs(entry, extents, cd.device)
         if entry.needs_rng:
             inps = inps + [_next_key(cd.device)]

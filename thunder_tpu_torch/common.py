@@ -220,6 +220,11 @@ class CacheEntry:
     # call.
     collective_lines: Optional[tuple] = None
     schedule: Optional[dict] = None
+    # The compiled-program audit of the entry's last capture
+    # (analysis/hlo_audit.py), and a symbolic entry's true extents at its
+    # last call (the audit's padded-away fractions).
+    hlo_audit: Any = None
+    last_true_extents: Optional[dict] = None
 
 
 class CompileStats:

@@ -13,9 +13,11 @@ debugging tool, as in the reference.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextvars
 import time
+import weakref
 from contextlib import contextmanager
 from typing import Any, Callable, Optional, Sequence
 
@@ -146,19 +148,31 @@ class TraceCtx:
             lines.append("import thunder_tpu_torch.core.devices as devices")
             lines.append("")
         lines.append(self.siginfo.prettyprint())
+        lines.extend(self._body(print_depth, annotate)[0])
+        return "\n".join(lines) + "\n"
+
+    def _body(self, print_depth: int, annotate: bool) -> tuple[list[str], list[Optional[int]]]:
+        """The body's source lines, and the index of the bound symbol that
+        each line of it belongs to."""
         body: list[str] = []
+        owners: list[Optional[int]] = []
         tag = self._annotate_tag() if annotate else ""
         for i, bsym in enumerate(self.bound_symbols):
+            n = len(body)
             if annotate and bsym.flat_proxy_outs:
-                scope = f"L{i}.{bsym.sym.name}#{tag}"
-                body.append(f"{baseutils.indent(1)}with __annotate_scope({scope!r}):")
+                body.append(f"{baseutils.indent(1)}with __annotate_scope({self.scope_of(i, tag)!r}):")
                 body.extend(bsym.python(indent=2, print_depth=print_depth))
             else:
                 body.extend(bsym.python(indent=1, print_depth=print_depth))
+            owners.extend([i] * sum(line.count("\n") + 1 for line in body[n:]))
         if not body:
             body = [f"{baseutils.indent(1)}pass"]
-        lines.extend(body)
-        return "\n".join(lines) + "\n"
+            owners = [None]
+        return body, owners
+
+    def scope_of(self, index: int, tag: Optional[str] = None) -> str:
+        """The profiler scope of line ``index``, ``L<idx>.<sym>#<pass>``."""
+        return f"L{index}.{self.bound_symbols[index].sym.name}#{self._annotate_tag() if tag is None else tag}"
 
     def gen_ctx(self) -> dict[str, Any]:
         """Build the exec namespace: every call target of every top-level
@@ -185,20 +199,62 @@ class TraceCtx:
         return ctx
 
     def python_callable(self, **exec_ctx) -> Callable:
+        """The trace compiled to a function. Its globals hold a
+        :class:`ProgramLines` under ``__thunder_program__``: which line of
+        the trace each source line runs (the compiled-program auditor
+        follows a capture or a profiled call line by line through it)."""
         annotate = annotate_enabled()
-        source = self.python(include_header=False, annotate=annotate)
+        body, owners = self._body(1, annotate)
+        source = "\n".join([self.siginfo.prettyprint(), *body]) + "\n"
         ctx = self.gen_ctx()
         if annotate:
             import torch
 
             ctx["__annotate_scope"] = torch.profiler.record_function
+        lines = ProgramLines(self, (None, *owners))
+        ctx["__thunder_program__"] = lines
         ctx.update(exec_ctx)
         fn = baseutils.compile_and_exec(self.siginfo.name, source, ctx)
         fn.__thunder_trace__ = self
+        lines.code = fn.__code__
         return fn
 
     def __repr__(self) -> str:
         return self.python()
+
+
+class ProgramLines:
+    """A generated program's map from source lines to trace lines:
+    ``owners[n - 1]`` is the index in ``trace.bound_symbols`` of the line
+    that source line ``n`` runs (None: the signature); ``code`` is the
+    program's code object. Every live one is in :func:`live_programs`."""
+
+    __slots__ = ("trace", "owners", "code", "_starts", "_lines", "__weakref__")
+
+    def __init__(self, trace: "TraceCtx", owners: tuple):
+        self.trace, self.owners, self.code = trace, owners, None
+        self._starts = self._lines = None
+        _LIVE_PROGRAMS.add(self)
+
+    def line_of(self, lineno: Optional[int]) -> Optional[int]:
+        return self.owners[lineno - 1] if lineno is not None and 0 < lineno <= len(self.owners) else None
+
+    def line_at(self, offset: int) -> Optional[int]:
+        """The trace line that the program's bytecode at ``offset`` runs."""
+        if self._starts is None:
+            ranges = sorted(self.code.co_lines())
+            self._starts = [start for start, _, _ in ranges]
+            self._lines = [self.line_of(line) for _, _, line in ranges]
+        k = bisect.bisect_right(self._starts, offset) - 1
+        return self._lines[k] if k >= 0 else None
+
+
+_LIVE_PROGRAMS: "weakref.WeakSet[ProgramLines]" = weakref.WeakSet()
+
+
+def live_programs() -> list:
+    """The :class:`ProgramLines` of every generated program still alive."""
+    return list(_LIVE_PROGRAMS)
 
 
 def annotate_enabled() -> bool:

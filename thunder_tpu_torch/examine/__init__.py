@@ -13,10 +13,10 @@ before spending time on the card:
   (``analysis/liveness.py``), against the card's capacity;
 - :func:`cost_report`: the roofline bound of each op on the card
   (``analysis/cost.py``);
+- :func:`hlo_report`: the audit of the compiled program below the trace
+  (``analysis/hlo_audit.py``; there is no HLO: a staged entry's CUDA graph,
+  or the profiler's record of one eager call);
 - :func:`get_fusions`, :func:`get_alloc_memory` over a trace.
-
-``hlo_report`` (the JAX package's compiled-HLO audit) has no counterpart yet
-(ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -167,12 +167,55 @@ def lint(fn: Callable, *args, executors: Optional[Any] = None, verbose: bool = T
     return diagnostics
 
 
-def hlo_report(fn: Callable, *args, **kwargs):
-    """The JAX package's audit of the compiled XLA program has no
-    counterpart in the port yet."""
-    raise NotImplementedError("examine.hlo_report: the audit of the compiled program is ROADMAP item 13 of the "
-                              "port, not yet ported (the port runs no XLA program; its counterpart would read the "
-                              "CUDA graph or the profiler's kernels)")
+def hlo_report(fn: Callable, *args, device: Optional[Any] = None, verbose: bool = True, **kwargs):
+    """Audit the program behind ``fn`` below its trace (thunder_tpu/examine/
+    __init__.py:178-232): the collectives and where they were launched, the
+    port's kernels, the layout copies, the host transfers and the exposed
+    wire time of what actually ran.
+
+    Accepts, in order of preference:
+
+    - a ``thunder_tpu_torch.jit``-compiled function: the report the
+      ``hlo_audit`` compile phase attached to its latest entry (a staged
+      entry on the card, audited from its captured graph); else, after a
+      call on the example inputs, the report that call's capture attached;
+      else (an unstaged entry: the CPU, or a program that reads the host)
+      the audit of the profiler's record of one more real call;
+    - a staged step (``build_train_step``'s, ``Train.staged``) or a
+      ``jit(module)``: ``analysis.hlo_audit.audit_jitted``;
+    - a plain callable: compiled with ``jit`` first, on the device of its
+      first tensor argument.
+
+    ``device`` is the spec the audit prices at (default: the card's, or the
+    CPU's). Returns the :class:`~thunder_tpu_torch.analysis.hlo_audit.HloScheduleReport`;
+    with ``verbose`` prints it and its ``hlo.*`` findings."""
+    import torch
+
+    from thunder_tpu_torch.analysis import hlo_audit
+    from thunder_tpu_torch.executors.staging import CudaGraphStage
+
+    staged_step = isinstance(fn, CudaGraphStage) or hasattr(fn, "staging") or hasattr(fn, "_cache")
+    cs = None if staged_step else getattr(fn, "_lc_cs", None)
+    if cs is None and not staged_step:
+        from thunder_tpu_torch.api import jit
+
+        first = next((x for x in tree_flatten((args, kwargs))[0] if isinstance(x, torch.Tensor)), None)
+        fn = jit(fn, device=first.device if first is not None else None)
+        cs = fn._lc_cs
+    if cs is not None:
+        report = cs.cache_entries[-1].hlo_audit if cs.cache_entries else None
+        if report is None:
+            fn(*args, **kwargs)
+            report = cs.cache_entries[-1].hlo_audit
+        if report is None:
+            report = hlo_audit.audit_record(fn, *args, device=device, **kwargs)
+    else:
+        report = hlo_audit.audit_jitted(fn, *args, device=device, **kwargs)
+    if verbose:
+        print(report.format())
+        for d in report.diagnostics():
+            print(d.format())
+    return report
 
 
 def format_cache_report(jfn: Callable) -> str:

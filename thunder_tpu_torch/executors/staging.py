@@ -75,13 +75,27 @@ injected fault, during the capture) does not see the failed attempt's
 blocks. ``seam`` (the dispatch's chaos seam, ``resilience/chaos.run_seam``)
 runs at the start of each call's program: inside the capture when the call
 captures.
+
+While the compiled-program audit is on (``analysis/hlo_audit.py``; off with
+``THUNDER_TPU_HLO_AUDIT=0``) a capture keeps its ``cudaGraph_t``
+(``keep_graph=True``) to dump it (``graph_dump``: the verbose DOT text of
+``CUDAGraph.debug_dump``) and follows the program line by line, noting the
+graph's node count as each line starts (``line_marks``), through the
+CUDA driver API (``cuStreamGetCaptureInfo``/``cuGraphGetNodes``): the exact join
+from a graph node to the trace line that made it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import linecache
+import os
+import tempfile
 import threading
 import time
+import warnings
 import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
@@ -108,6 +122,72 @@ def _ready_blas() -> None:
     torch.nn.functional.linear(a, a, a[0])
     torch.mm(a.float(), a.float())
     _blas_threads.ready = True
+
+
+@functools.lru_cache(maxsize=1)
+def _cuda_driver():
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuStreamGetCaptureInfo_v2.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                              ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_void_p),
+                                              ctypes.c_void_p, ctypes.c_void_p]
+    lib.cuStreamGetCaptureInfo_v2.restype = ctypes.c_int
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    return lib
+
+
+def _node_counter() -> Optional[Callable[[], int]]:
+    """``count()``: the nodes the capture on the current stream has made so
+    far (the CUDA driver API permits every query on the graph being
+    captured), or None where the CUDA driver cannot say."""
+    try:
+        lib = _cuda_driver()
+    except (OSError, AttributeError):
+        return None
+    status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if lib.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), ctypes.byref(cid), ctypes.byref(graph), None,
+                                     None) != 0 or status.value != 1 or not graph.value:
+        return None
+    n = ctypes.c_size_t()
+
+    def count() -> int:
+        lib.cuGraphGetNodes(graph, None, ctypes.byref(n))
+        return n.value
+
+    return count
+
+
+@contextlib.contextmanager
+def _line_marks(marks: list, traces: Sequence):
+    """Within a capture: append ``(node count, trace, line index)`` as each
+    line of a program of ``traces`` starts (``(count, None, None)`` outside
+    every line), so that a node belongs to the last mark whose count is at
+    most its ID."""
+    from thunder_tpu_torch.analysis.hlo_audit import follow_lines
+
+    count = _node_counter()
+    if count is None:
+        yield
+        return
+    marks.append((count(), None, None))
+    with follow_lines(lambda trace, idx: marks.append((count(), trace, idx)), traces):
+        yield
+
+
+def _graph_dump(graph) -> Optional[str]:
+    """The verbose DOT text of a graph captured with ``keep_graph=True``
+    (``CUDAGraph.debug_dump`` writes a file, and warns as it does)."""
+    fd, path = tempfile.mkstemp(prefix="thunder_graph_", suffix=".dot")
+    os.close(fd)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as f:
+            return f.read() or None
+    finally:
+        os.unlink(path)
 
 
 class StagingError(RuntimeError):
@@ -238,13 +318,16 @@ def _view_of(meta: tuple) -> torch.Tensor:
 
 class CudaGraphStage:
     """``fn`` staged as one CUDA graph. ``eager`` is ``fn`` itself, unstaged;
-    ``stats`` is the entry's :class:`StagingStats`."""
+    ``stats`` is the entry's :class:`StagingStats`; ``traces`` are the
+    claimed traces whose programs ``fn`` runs (the capture's line marks
+    follow those)."""
 
     def __init__(self, fn: Callable, *, name: str, fresh: Optional[Callable[[tuple], set]] = None,
                  lend_from: Optional[Callable[[Any], int]] = None, pair: Optional[GraphPair] = None,
-                 role: str = "forward", strict: bool = False):
+                 role: str = "forward", strict: bool = False, traces: Sequence = ()):
         self.eager = fn
         self.name = name
+        self.traces = tuple(traces)
         # ``strict``: inputs of another signature than the first call's
         # raise instead of warming up anew (an entry of cache="same input",
         # whose prologue checks nothing: this is its only check).
@@ -272,6 +355,10 @@ class CudaGraphStage:
         self._warm_addrs: dict[int, int] = {}
         self._mutated: set[int] = set()
         self._graph = None
+        # The last capture's graph as DOT text and its line marks (the
+        # compiled-program audit's reader (a)), while the audit is on.
+        self.graph_dump: Optional[str] = None
+        self.line_marks: list = []
         # ``on_capture(seconds)``: told of each capture (the compile's
         # "capture" phase, api._record_compile_phase).
         self.on_capture: Optional[Callable[[float], None]] = None
@@ -283,6 +370,7 @@ class CudaGraphStage:
         self._graph = self._static = self._outs = None
         self._sig = self._spec = None
         self._lent, self._held = [], []
+        self.graph_dump, self.line_marks = None, []
         if self.pair is not None and self.role == "forward":
             self.pair.retire()
 
@@ -422,12 +510,19 @@ class CudaGraphStage:
         del static
         before = _build.launch_counts()
         _ready_blas()
-        graph = torch.cuda.CUDAGraph()
+        from thunder_tpu_torch.analysis import hlo_audit
+
+        # While auditing, the graph keeps its cudaGraph_t to dump it
+        # (``enable_debug_mode`` would do so for every graph of the process).
+        audit = hlo_audit.enabled()
+        graph = torch.cuda.CUDAGraph(keep_graph=audit)
+        marks: list = []
         try:
             with torch.cuda.graph(graph, pool=None if pair is None else pair.pool):
                 if self.seam is not None:
                     self.seam()
-                out = self.eager(*call)
+                with _line_marks(marks, self.traces) if audit else contextlib.nullcontext():
+                    out = self.eager(*call)
         except Exception as e:
             # The capture has ended (the context's exit); drop what it made.
             del call, graph, copies
@@ -436,6 +531,15 @@ class CudaGraphStage:
             torch.cuda.empty_cache()
             raise StagingError(f"staging {self.name}: the CUDA graph capture failed{_where(e)}: {e}") from e
         del call
+        self.graph_dump, self.line_marks = None, marks
+        if audit:
+            graph.instantiate()
+            try:
+                self.graph_dump = _graph_dump(graph)
+            except (OSError, RuntimeError) as e:
+                from thunder_tpu_torch.common import sharp_edge
+
+                sharp_edge(f"hlo_audit: the captured graph of {self.name} could not be dumped (advisory): {e}")
         after = _build.launch_counts()
         self._delta = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
         out_leaves, self._out_spec = tree_flatten(out)
@@ -519,5 +623,5 @@ def stage(fn: Callable, traces: Sequence, device: torch.device, *, name: str,
     reason = unstaged_reason(traces, device, disabled)
     if reason is not None:
         return fn, StagingStats(staged=False, reason=reason)
-    staged = CudaGraphStage(fn, name=name, **options)
+    staged = CudaGraphStage(fn, name=name, traces=traces, **options)
     return staged, staged.stats

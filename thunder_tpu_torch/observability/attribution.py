@@ -319,7 +319,14 @@ def _self_times(ops: list[dict]) -> dict[int, float]:
     """Self time (dur minus nested children) per event, keyed by ``id(ev)``:
     host ops nest (``aten::linear`` holds ``aten::addmm``), so each is
     charged only the time not covered by a child on the same (pid, tid)."""
+    return _nesting(ops)[0]
+
+
+def _nesting(ops: list[dict]) -> tuple[dict[int, float], dict[int, list]]:
+    """``(self times, children)``: :func:`_self_times`, and the events each
+    event directly holds on its thread, by ``id`` of the holder."""
     out: dict[int, float] = {}
+    parents: dict[int, list] = {}
     by_tid: dict[tuple, list[dict]] = {}
     for ev in ops:
         by_tid.setdefault((ev.get("pid"), ev.get("tid")), []).append(ev)
@@ -337,8 +344,9 @@ def _self_times(ops: list[dict]) -> dict[int, float]:
             out[id(ev)] = dur
             if stack:
                 out[stack[-1][1]] -= dur  # direct parent loses this child's span
+                parents.setdefault(stack[-1][1], []).append(ev)
             stack.append((ts + dur, id(ev)))
-    return out
+    return out, parents
 
 
 def _innermost(ranges: list[tuple], queries: list[tuple]) -> dict:
@@ -445,14 +453,102 @@ def _scoped_device_ops(events: list[dict]) -> list[tuple[dict, Optional[ScopeRef
 
 LaunchMap = list  # [(op name, scope label or None)] of one call, in device order
 
+# A collective's own work on the CPU: gloo's (and NCCL's) range on its thread.
+_COMM_RANGE_RE = re.compile(r"^(gloo|nccl):")
+# Host ops that only make a view or an empty tensor: no work of their own.
+INERT_OPS = frozenset({
+    "aten::view", "aten::reshape", "aten::_reshape_alias", "aten::_unsafe_view", "aten::as_strided", "aten::t",
+    "aten::transpose", "aten::permute", "aten::expand", "aten::unsqueeze", "aten::squeeze", "aten::select",
+    "aten::slice", "aten::narrow", "aten::split", "aten::chunk", "aten::unbind", "aten::detach", "aten::alias",
+    "aten::empty", "aten::empty_like", "aten::empty_strided", "aten::resolve_conj", "aten::resolve_neg",
+    "aten::lift_fresh", "aten::set_", "aten::resize_", "aten::numpy_T", "aten::view_as", "aten::expand_as",
+})
+# Host ops whose work is their own, whatever ops they hold: a product
+# (addmm's copy of its bias into the output is the product's), a read of a
+# value to the host.
+WHOLE_OPS = frozenset({"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::addbmm", "aten::addmv",
+                       "aten::mv", "aten::dot", "aten::_scaled_mm", "aten::item"})
+
+
+@dataclass
+class RecordOp:
+    """One op of a profiler record, in the order it started: a device op
+    (kernel, memcpy, memset) on the card, a leaf host op (an ``aten::`` op
+    holding no other) on the CPU. ``scope``: the line whose range held its
+    launch (the op itself on the CPU); ``launch``: the host call that
+    launched a device op; ``host_op``: the op whose call launched it (its
+    recorded input shapes and types), the op itself on the CPU."""
+
+    event: dict
+    scope: Optional[ScopeRef]
+    launch: Optional[dict]
+    host_op: Optional[dict]
+    device: bool
+
+
+def record_ops(events: list[dict]) -> list[RecordOp]:
+    """The ops of one profiled call's trace events, a session's lead-in
+    (``profile.LEAD_IN``) left out: the one reading that the launch-order map
+    (:func:`launch_map_of_events`) and the compiled-program auditor's op
+    record (``analysis/hlo_audit.ops_of_record``) share. On the card, each
+    device op with its scope and the innermost ``cpu_op`` holding its launch
+    on that thread; on the CPU (no device ops), each ``cpu_op`` that did the
+    work, not the ones that called it: an op holding no op but views and
+    allocations (:data:`INERT_OPS`), or a product or a host read
+    (:data:`WHOLE_OPS`, the ops it holds left out), with the innermost scope holding its start; ops
+    inside a collective's own range (``gloo:…``, ``nccl:…``, on the
+    library's thread) left out."""
+    events = _without_lead_in(events)
+    host = [ev for ev in events if ev.get("ph") == "X" and ev.get("cat") == "cpu_op"]
+    by_thread: dict[tuple, list] = {}
+    for ev in host:
+        ts = float(ev.get("ts", 0.0))
+        by_thread.setdefault((ev.get("pid"), ev.get("tid")), []).append((ts, ts + float(ev.get("dur", 0.0)), ev))
+    if _device_ops(events):
+        scoped = _scoped_device_ops(events)
+        queries: dict[tuple, list] = {}
+        for ev, _, launch in scoped:
+            if launch is not None:
+                queries.setdefault((launch.get("pid"), launch.get("tid")), []).append(
+                    (float(launch.get("ts", 0.0)), id(ev)))
+        held: dict = {}
+        for thread, qs in queries.items():
+            held.update(_innermost(by_thread.get(thread, []), qs))
+        out = [RecordOp(ev, ref, launch, held.get(id(ev)), True) for ev, ref, launch in scoped]
+    else:
+        _, children = _nesting(host)
+        inner: set = set()
+        stack = [c for ev in host if ev.get("name") in WHOLE_OPS for c in children.get(id(ev), ())]
+        while stack:
+            ev = stack.pop()
+            inner.add(id(ev))
+            stack += children.get(id(ev), ())
+        comm: dict[tuple, list] = {}
+        for ev in events:
+            if ev.get("ph") == "X" and _COMM_RANGE_RE.match(str(ev.get("name", ""))):
+                ts = float(ev.get("ts", 0.0))
+                comm.setdefault((ev.get("pid"), ev.get("tid")), []).append((ts, ts + float(ev.get("dur", 0.0))))
+        leaves = [ev for ev in host if id(ev) not in inner
+                  and (ev.get("name") in WHOLE_OPS or all(c.get("name") in INERT_OPS for c in children.get(id(ev), ())))
+                  and not any(a <= float(ev.get("ts", 0.0)) < b for a, b in comm.get((ev.get("pid"), ev.get("tid")), ()))]
+        scopes, _ = _user_ranges(events)
+        queries = {}
+        for ev in leaves:
+            queries.setdefault((ev.get("pid"), ev.get("tid")), []).append((float(ev.get("ts", 0.0)), id(ev)))
+        found: dict = {}
+        for thread, qs in queries.items():
+            found.update(_innermost(scopes.get(thread, []), qs))
+        out = [RecordOp(ev, found.get(id(ev)), None, ev, False) for ev in leaves]
+    out.sort(key=lambda r: float(r.event.get("ts", 0.0)))
+    return out
+
 
 def launch_map_of_events(events: list[dict]) -> LaunchMap:
     """The launch-order map of one annotated eager call's trace events: each
     device op in the order it started on the device, with its scope's
     label; a session's lead-in (``profile.LEAD_IN``) left out."""
-    scoped = _scoped_device_ops(_without_lead_in(events))
-    scoped.sort(key=lambda t: float(t[0].get("ts", 0.0)))
-    return [(str(ev.get("name", "")), ref.label if ref is not None else None) for ev, ref, _ in scoped]
+    return [(str(r.event.get("name", "")), r.scope.label if r.scope is not None else None)
+            for r in record_ops(events) if r.device]
 
 
 def launch_map_of_trace(source: str) -> LaunchMap:

@@ -49,9 +49,10 @@ LEAD_IN = "thunder_profile_lead_in"
 
 
 @contextlib.contextmanager
-def traced(trace_path: str):
+def traced(trace_path: str, *, record_shapes: bool = False):
     """One ``torch.profiler`` session around the block, CPU and (with a card)
-    CUDA activities, written to ``trace_path`` as a Chrome trace. The
+    CUDA activities, written to ``trace_path`` as a Chrome trace (with each
+    op's input shapes and types when ``record_shapes``). The
     session opens with a lead-in, in a range (``LEAD_IN``) that attribution
     leaves out: on the card a 20 ms sleep kernel and 1024 small kernels,
     then a synchronize. On an NVIDIA H100 80GB HBM3 (700 W), after many
@@ -66,7 +67,7 @@ def traced(trace_path: str):
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with torch_profile(activities=activities) as prof:
+    with torch_profile(activities=activities, record_shapes=record_shapes) as prof:
         with record_function(LEAD_IN):
             if cuda:
                 torch.cuda._sleep(int(20e-3 * 2e9))  # cycles; the H100 clocks below 2 GHz

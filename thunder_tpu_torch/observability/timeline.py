@@ -531,9 +531,11 @@ class TimelineRecorder:
         """Install a static wire split: per-tier shares of one step's work
         the driver uses to charge ``exposed_ici`` / ``exposed_dcn`` when
         per-leg measurements are unavailable, plus the static exposed-pct
-        the cross-check compares the measured ledger against (the JAX
-        package prices them from its HLO audit; the port has no HLO, and a
-        driver may price them from ``analysis/cost.py``)."""
+        the cross-check compares the measured ledger against: a driver
+        prices them from the compiled-program audit
+        (``analysis/hlo_audit.py``), ``split_static_wire(report.sites,
+        ...)`` and ``static_exposed_pct=report.exposed_pct``, as the JAX
+        package's drivers do from its HLO audit."""
         self._wire_fracs = (max(0.0, float(ici_frac)), max(0.0, float(dcn_frac)))
         if static_exposed_pct is not None:
             self.static_exposed_pct = float(static_exposed_pct)
@@ -869,13 +871,14 @@ def ledger_from_records(records, **kw) -> tuple:
 
 
 # =============================================================================
-# Static wire-tier split (HLO auditor join)
+# Static wire-tier split (the compiled-program audit's join)
 # =============================================================================
 
 
 def split_static_wire(sites, devices_per_slice: int) -> dict:
-    """Split collective sites (each with ``wire_us`` and ``group_size``)
-    into interconnect tiers by group size: a group that fits inside one
+    """Split collective sites (each with ``wire_us`` and ``group_size``:
+    an ``HloScheduleReport``'s, ``analysis/hlo_audit.py``) into
+    interconnect tiers by group size: a group that fits inside one
     node (``devices_per_slice`` cards: NVLink) is charged to ``ici``, a
     larger (or unknown-size) one to ``dcn`` (the network between nodes). A
     group of exactly ``devices_per_slice`` devices *could* be a cross-node
