@@ -2772,3 +2772,37 @@ def test_graph_and_record_readers_agree(dev):
     assert graph.port_kernels["ce_fwd_kernel"] == launched["cross_entropy_rows"]
     assert graph.port_kernels["ce_bwd_kernel"] == launched["cross_entropy_bwd"]
     assert graph.host_transfers == 0 and graph.unpriced == 0
+
+
+def test_example_trainer_step_launches_the_counted_kernels(dev):
+    """``examples.train.run`` on the card, staged: its timed steps launch
+    flash forward-with-lse and backward, CE forward and backward, and rope
+    (the tiny config's rotary covers the whole head); the losses are finite
+    and the step replays its graph."""
+    from thunder_tpu_torch.examples import train
+
+    args = train.parse_args(["--model", _TINY, "--iters", "3", "--warmup", "2", "--seq-len", "128"])
+    assert args.device == "cuda"
+    before = _counts()
+    out = {}
+    losses = train.run(args, out=out)
+    counts = {k: v - before.get(k, 0) for k, v in _counts().items()}
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd", "cross_entropy_rows", "cross_entropy_bwd",
+                 "apply_rope"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    assert out["step"].staging.staged and out["step"].staging.replays >= 4
+    assert all(p.is_cuda for p in out["params"].values() if isinstance(p, torch.Tensor))
+
+
+def test_tools_default_to_the_card(dev):
+    """Every runnable tool's ``--device`` defaults to ``cuda``; the lint
+    corpus runs there clean."""
+    from thunder_tpu_torch.examples import train, train_fsdp
+    from thunder_tpu_torch.scripts import lint_traces, profile_train
+
+    assert train.parse_args([]).device == train_fsdp.parse_args([]).device == "cuda"
+    assert profile_train.parse_args([]).device == "cuda"
+    # A call that asked for the CPU leaves the next call on the card.
+    assert lint_traces.main(["reduction-mix", "--device", "cpu"]) == 0
+    assert lint_traces.main(["gpt-tiny"]) == 0 and lint_traces._DEVICE == "cuda"

@@ -63,6 +63,7 @@ from thunder_tpu_torch.analysis.hlo_audit import (  # noqa: F401
 from thunder_tpu_torch.analysis.liveness import (  # noqa: F401
     MemoryPlan,
     device_capacity_bytes,
+    exact_shape_scale,
     memory_report,
     plan_fw_bw,
     plan_liveness,

@@ -325,14 +325,78 @@ def plan_fw_bw(fw: TraceCtx, bw: TraceCtx, *, device: Any = None, block_bytes: i
     return plan
 
 
-def predict_level_peaks(trace: TraceCtx, *, donated: Sequence[str] = (), device: Any = None) -> dict:
+def _marked_bytes(sym_spec, true_extents: Optional[dict], arg_proxies: Optional[Sequence]) -> Optional[tuple]:
+    """(padded_bytes, exact_bytes) summed over the marked input leaves: full
+    numel times dtype bytes with marked dims at the bucket ceiling against
+    the failing call's exact extents (two marked dims of one leaf multiply).
+    None when the spec, extents or shapes are unknown."""
+    if sym_spec is None or not true_extents:
+        return None
+    padded = 0.0
+    exact = 0.0
+    for li, dims in sym_spec.marks.items():
+        if arg_proxies is None or li >= len(arg_proxies):
+            return None
+        p = arg_proxies[li]
+        if not isinstance(p, TensorProxy):
+            return None
+        padded_numel = float(p.numel)
+        exact_numel = padded_numel
+        for _d, (_lo, hi, cid) in dims.items():
+            e = true_extents.get(cid)
+            if e is None or not hi:
+                return None
+            exact_numel *= float(e) / float(hi)
+        padded += padded_numel * p.dtype.bytes
+        exact += exact_numel * p.dtype.bytes
+    if not padded:
+        return None
+    return padded, exact
+
+
+def exact_shape_scale(sym_spec, true_extents: Optional[dict], arg_proxies: Optional[Sequence] = None) -> Optional[float]:
+    """Byte ratio exact/padded over the marked input leaves: how much the
+    de-opt ladder's L3 (exact shapes) shrinks the bucket-padded activations.
+    Each marked leaf weighs in with its full numel times dtype bytes, marked
+    dims at the padded ceiling against the failing call's exact extents, so
+    a tiny mask leaf cannot dilute a large activation's shrinkage.
+    ``arg_proxies`` are the trace's tensor args, aligned with the spec's
+    leaf indices. None when the spec, extents or shapes are unknown: the
+    caller treats that level as unprovable, never skippable."""
+    mb = _marked_bytes(sym_spec, true_extents, arg_proxies)
+    if mb is None:
+        return None
+    return _scale_of(*mb)
+
+
+def _scale_of(padded_bytes: float, exact_bytes: float) -> float:
+    """The clamped byte ratio, shared by :func:`exact_shape_scale` and the L3
+    pricing of :func:`predict_level_peaks`."""
+    return max(min(exact_bytes / padded_bytes, 1.0), 1e-3)
+
+
+def predict_level_peaks(
+    trace: TraceCtx,
+    *,
+    sym_spec=None,
+    donated: Sequence[str] = (),
+    true_extents: Optional[dict] = None,
+    device: Any = None,
+    bucketing_unknown: bool = False,
+) -> dict[int, Optional[int]]:
     """Predicted peak bytes at each level of the de-opt ladder
     (``resilience/deopt.py``; ``thunder_tpu/analysis/liveness.py``): L0 as
     compiled (with ``donated``), L1 donation off, L2 the joint program
     rematerialized as the ladder compiles it (``rematerialize_joint`` under
-    ``aggressive_remat``; L1's plan when it recomputes nothing), L3 = L2
-    (the exact-shape entry is not priced from a padded plan). The ladder
-    uses them to skip a level that cannot fit."""
+    ``aggressive_remat``; L1's plan when it recomputes nothing), L3 exact
+    shapes: L2's plan with the marked inputs at their exact bytes and the
+    activation share scaled by the exact/padded byte ratio, so it stays a
+    lower bound. A ``None`` peak means unknown, never skipped:
+    ``bucketing_unknown=True`` forces L3 unknown (a symbolic-cache function
+    failing before its entry exists may hold a padded trace), as does a
+    padded entry whose extents are unknown. With no ``sym_spec`` the entry
+    has no padding and L3 is L2. The ladder uses the peaks to skip a level
+    that cannot fit."""
     from thunder_tpu_torch.executors.passes import del_last_used
     from thunder_tpu_torch.transforms.rematerialization import aggressive_remat, rematerialize_joint
 
@@ -349,7 +413,25 @@ def predict_level_peaks(trace: TraceCtx, *, donated: Sequence[str] = (), device:
     with aggressive_remat(), debug_checks(False):
         remat = rematerialize_joint(trace)
     l2 = no_don if remat is trace else plan_liveness(del_last_used(remat), device=device, include_rows=False)
-    return {0: base.peak_bytes, 1: no_don.peak_bytes, 2: l2.peak_bytes, 3: l2.peak_bytes}
+    peaks: dict[int, Optional[int]] = {0: base.peak_bytes, 1: no_don.peak_bytes, 2: l2.peak_bytes,
+                                       3: l2.peak_bytes}
+    args = [a for a in tree_flatten((trace.args, trace.kwargs))[0] if isinstance(a, TensorProxy)]
+    mb = _marked_bytes(sym_spec, true_extents, args)
+    if bucketing_unknown:
+        peaks[3] = None
+    elif mb is not None:
+        # The marked inputs shrink to their exact bytes and the activations
+        # by the byte ratio; unmarked inputs (weights) do not. A ratio of 1.0
+        # (the call sits at its bucket ceilings) is a known peak equal to
+        # L2's, so L3 is proven unfit when L2 is.
+        padded_m, exact_m = mb
+        scale = _scale_of(padded_m, exact_m)
+        inputs_l3 = max(l2.input_bytes - padded_m + exact_m, 0.0)
+        act = max(l2.peak_bytes - l2.input_bytes, 0)
+        peaks[3] = int(inputs_l3 + act * scale)
+    elif sym_spec is not None:
+        peaks[3] = None  # a padded entry with unknown extents proves nothing
+    return peaks
 
 
 # =============================================================================

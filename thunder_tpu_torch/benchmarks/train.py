@@ -61,6 +61,10 @@ class Train:
     # and backward's programs, whose lines have their own ranges), so that
     # its kernels are charged to a line (observability/attribution.py).
     sgd_scope: Optional[str] = None
+    # The backward's seed, d loss / d loss = 1, made at the first step: a
+    # step then launches no fill kernel outside its programs' lines, where
+    # the launch-order map could not place it (observability/attribution.py).
+    seed: Optional[torch.Tensor] = None
 
     def forward(self) -> tuple[torch.Tensor, list]:
         """(loss, saved): the augmented forward; ``saved`` is the list that
@@ -71,7 +75,12 @@ class Train:
     def backward(self, loss: torch.Tensor, saved: list) -> list:
         """The grads of every float param, in ``flat_params`` order; empties
         ``saved`` as it goes, so nothing else may hold its tensors."""
-        return list(self.bw_fn(saved, torch.ones((), dtype=loss.dtype, device=loss.device)))
+        return list(self.bw_fn(saved, self._seed(loss)))
+
+    def _seed(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.seed is None:
+            self.seed = torch.ones((), dtype=loss.dtype, device=loss.device)
+        return self.seed
 
     def forward_backward(self) -> tuple[torch.Tensor, list]:
         """(loss, grads) of one forward and backward, params unchanged."""
@@ -93,7 +102,7 @@ class Train:
         program that ``step`` stages."""
         loss, saved = self.fw_fn(*flat_params, idx, tgt)
         saved = list(saved)  # the backward empties this list as it goes; nothing else may hold its tensors
-        grads = list(self.bw_fn(saved, torch.ones((), dtype=loss.dtype, device=loss.device)))
+        grads = list(self.bw_fn(saved, self._seed(loss)))
         from thunder_tpu_torch.parallel.train import sgd_update
 
         with torch.no_grad(), (torch.profiler.record_function(self.sgd_scope) if self.sgd_scope

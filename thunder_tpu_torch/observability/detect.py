@@ -586,7 +586,9 @@ class DetectorBank:
         if measured <= 0 or predicted <= 0:
             return
         cfg = self.config
-        claimed = executor not in (None, "", "jax")
+        # The torch executor is the terminal one (the JAX package's "jax"):
+        # an op it runs has no kernel of its own to regress.
+        claimed = executor not in (None, "", "torch")
         raised: list[Anomaly] = []
         with self._lock:
             det = self._roofline.get(label)

@@ -106,10 +106,20 @@ def reset_process_state() -> None:
 def _planned_peaks(entry, cs, cd=None):
     """(predicted per-level peak bytes, device capacity bytes) for the
     failing entry's claimed trace, or (None, None) when no trace or capacity
-    is known (the ladder then climbs blind)."""
+    is known (the ladder then climbs blind). The entry's symbolic spec and
+    its last call's true extents price L3 (exact shapes); a
+    symbolic-cache function failing before its entry exists leaves L3
+    unknown, never skipped."""
+    from thunder_tpu_torch.common import CACHE_OPTIONS
+
     trace = None
-    if entry is not None and entry.computation_traces:
-        trace = entry.computation_traces[-1]
+    sym_spec = None
+    true_extents = None
+    if entry is not None:
+        sym_spec = entry.sym_spec
+        true_extents = entry.last_true_extents
+        if entry.computation_traces:
+            trace = entry.computation_traces[-1]
     if trace is None and cs is not None and getattr(cs, "last_traces", None):
         trace = cs.last_traces[-1]
     if trace is None:
@@ -119,7 +129,10 @@ def _planned_peaks(entry, cs, cd=None):
     capacity = device_capacity_bytes(getattr(cd, "device", None) if cd is not None else None)
     if not capacity:
         return None, None
-    return predict_level_peaks(trace), capacity
+    bucketing_unknown = entry is None and getattr(cd, "cache_option", None) is CACHE_OPTIONS.SYMBOLIC_VALUES
+    peaks = predict_level_peaks(trace, sym_spec=sym_spec, donated=trace.tags.get("donated_inputs") or (),
+                                true_extents=true_extents, bucketing_unknown=bucketing_unknown)
+    return peaks, capacity
 
 
 def _choose_level(peaks: dict, capacity: int, base: int, repeated: tuple = ()):

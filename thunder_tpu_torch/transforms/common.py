@@ -1,18 +1,21 @@
-"""Common trace passes: DCE and CSE.
+"""Common trace passes: DCE, CSE, and the trace evaluator.
 
-Reference parity: thunder/core/transform_common.py (`dce:41`, `cse:194`).
+Reference parity: thunder/core/transform_common.py (`dce:41`, `cse:194`)
+and the evaluation machinery in thunder/core/transforms.py
+(`eval_trace:1641`, `visitor_transform:353`); the counterpart of
+``thunder_tpu/transforms/common.py``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 from thunder_tpu_torch.core.prims import OpTags, PrimIDs
 from thunder_tpu_torch.core.proxies import Proxy, Variable, variableify
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 from thunder_tpu_torch.core.symbol import BoundSymbol
-from thunder_tpu_torch.core.trace import TraceCtx, from_trace, wrap_in_trace_provenance
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx, wrap_in_trace_provenance
 
 
 def has_tag(bsym: BoundSymbol, tag: OpTags) -> bool:
@@ -91,3 +94,97 @@ def cse(trace: TraceCtx) -> TraceCtx:
         spec, [swap_map.get(variableify(p), p) if isinstance(p, Proxy) else p for p in flat_out]
     )
     return wrap_in_trace_provenance(ntrace, "Common Subexpression Elimination", start)
+
+
+def eval_trace(trace: TraceCtx, *args, symbol_mapper: Optional[Callable] = None, **kwargs) -> Any:
+    """Interpret a trace, binding ``args`` to the trace's signature proxies.
+
+    The workhorse of transform construction (reference: transforms.py
+    `eval_trace:1641`): called under an active trace context it re-records
+    the program (possibly transformed per ``symbol_mapper``), and on tensors
+    it runs it.
+    """
+    env: dict[str, Any] = {}
+
+    def bind(proxies, values):
+        flat_p, _ = tree_flatten(proxies)
+        flat_v, _ = tree_flatten(values)
+        for p, v in zip(flat_p, flat_v):
+            if isinstance(p, Proxy):
+                env[p.name] = v
+
+    bind(trace.args, args)
+    bind(trace.kwargs, kwargs)
+
+    def read(x):
+        if isinstance(x, Proxy):
+            if x.name not in env:
+                raise RuntimeError(f"eval_trace: undefined proxy {x.name}")
+            return env[x.name]
+        return x
+
+    def read_tree(tree):
+        flat, spec = tree_flatten(tree)
+        return tree_unflatten(spec, [read(x) for x in flat])
+
+    for bsym in trace.bound_symbols:
+        if bsym.sym.id == PrimIDs.RETURN:
+            break
+        if bsym.sym.id in (PrimIDs.DEL, PrimIDs.COMMENT):
+            continue
+        fn = symbol_mapper(bsym) if symbol_mapper is not None else bsym.sym
+        if fn is None:
+            continue
+        result = fn(*read_tree(bsym.args), **read_tree(bsym.kwargs))
+        flat_out, _ = tree_flatten(bsym.output)
+        flat_res, _ = tree_flatten(result)
+        for p, v in zip(flat_out, flat_res):
+            if isinstance(p, Proxy):
+                env[p.name] = v
+
+    return read_tree(trace.output)
+
+
+def visitor_transform(trace: TraceCtx, visit: Callable, provenance: str = "Visitor transform") -> TraceCtx:
+    """Rebuild a trace by visiting each bound symbol under a recording scope.
+
+    ``visit(bsym)`` returns None (keep the symbol as it is), or records
+    replacement ops into the active scope and returns a swap map
+    (``Variable`` -> proxy) for the outputs it replaced.
+    Reference parity: transforms.py `visitor_transform:353`.
+    """
+    start = time.perf_counter_ns()
+    ntrace = from_trace(trace)
+    swap_map: dict[Variable, Proxy] = {}
+
+    with tracectx(ntrace):
+        for bsym in trace.bound_symbols:
+            bsym = bsym.from_bsym_swap_proxies(swap_map)
+            result = visit(bsym)
+            if result is None:
+                ntrace.bound_symbols.append(bsym)
+            elif isinstance(result, dict):
+                swap_map.update(result)
+
+    flat_out, spec = tree_flatten(ntrace.output)
+    ntrace.output = tree_unflatten(
+        spec, [swap_map.get(variableify(p), p) if isinstance(p, Proxy) else p for p in flat_out]
+    )
+    return wrap_in_trace_provenance(ntrace, provenance, start)
+
+
+def replace_redundant_inputs(trace: TraceCtx) -> TraceCtx:
+    """Deduplicate repeated proxy inputs (reference: transform_common.py:107).
+    The identity, as in the JAX package: a trace's inputs are distinct
+    proxies by construction."""
+    return trace
+
+
+def order_proxies(bsyms: Sequence[BoundSymbol]) -> dict[str, int]:
+    """Proxy name -> index of the bound symbol that first produces it
+    (definition order)."""
+    order: dict[str, int] = {}
+    for i, bsym in enumerate(bsyms):
+        for o in bsym.flat_proxy_outs:
+            order.setdefault(o.name, i)
+    return order
