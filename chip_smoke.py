@@ -186,8 +186,8 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    ppermute and mask_to_rank call no collective (the identity, a copy, a
    local op), so their graphs hold no NCCL call, and the fsdp gathers of
    (b) run no NCCL call on the card;
-   (b) the Llama stand-in at full depth on phase 11's padded batch and
-   weights: 3 staged SGD steps untagged, then under ``ddp``, ``fsdp``
+   (b) the Llama stand-in at full width and P22_LAYERS layers on phase 11's
+   padded batch and weights: 3 staged SGD steps untagged, then under ``ddp``, ``fsdp``
    ZERO2 and ZERO3, each step's loss and every grad ``torch.equal`` to the
    untagged step's, the launches a step equal, ``synchronize`` in the
    forward and the grad all-reduce or reduce-scatter (and ZERO3's gather)
@@ -203,7 +203,8 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
 23. the mesh and the sharded training step (``parallel/``), a process group
    of one NCCL rank of its own, torn down after: (a) ``build_train_step``
    on ``make_mesh(dp=1, fsdp=1, tp=1)`` with ``gpt_param_specs`` and
-   ``shard_pytree`` at open_llama_3b's full size, bf16, B=2 x T=2048,
+   ``shard_pytree`` at open_llama_3b's full width and P23_LAYERS layers,
+   bf16, B=2 x T=2048,
    3 staged steps with SGD and with AdamW (both donated), each loss and
    every param after step 3 ``torch.equal`` to the unmeshed step's from
    the same weights, the launches of each kernel row a step equal, device
@@ -219,7 +220,7 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    replay of its event log with no unknown kind;
 24. context, pipeline and expert parallelism (``parallel/``), a process
    group of one NCCL rank of its own, torn down after: (a) open_llama_3b at
-   full width and 13 layers, bf16, B=4 x T=2048 in 4 microbatches of one row, on
+   full width and PP_LAYERS (8) layers, bf16, B=4 x T=2048 in 4 microbatches of one row, on
    ``make_mesh(pp=1)`` with the default executors: GPipe and 1F1B through
    ``parallel.gpt_pp.gpt_pp_loss_and_grads``, 3 calls each (eager, capture,
    replay: the whole step one CUDA graph), each call's loss and every grad
@@ -242,7 +243,7 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    ``build_train_step`` on ``make_mesh(pp=1, ep=1, sp=1)`` against the
    unmeshed step at 2 layers, bit for bit;
 25. the recovery layer (``thunder_tpu_torch/resilience``), at
-   open_llama_3b's full width, bf16, B=2 x T=2048, through
+   open_llama_3b's full width (P25_LAYERS layers in (a), (b) and (e)), bf16, B=2 x T=2048, through
    ``jit(value_and_grad(loss_fn))`` and the port's in-place SGD: (a)
    ``run_training`` for 4 steps, then preempted at step 2 (chaos
    ``preempt@2``) into a ``CheckpointManager`` in a temporary directory and
@@ -326,8 +327,31 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    placed on a line, the flash, CE and rope kernels under the lines that
    claim them, at least ATTRIBUTED_SHARE (95%) of device time attributed,
    a line priced by the join;
-29. after phase 28, prints one JSON line describing every kernel, then the
+29. the int8 convergence run and the soak scripts
+   (``thunder_tpu_torch/scripts``): (a) ``quant_convergence.run`` on
+   pythia-160m at full width and depth, B=4 x T=1024, AdamW, bf16 weights
+   from seed 0, Q29_ITERS (16) iterations of each variant (bf16, int8_all,
+   int8_skip_lm_head): finite losses falling from the first to the last,
+   int8_all's first loss within QUANT_LOSS_REL of bf16's, a step's launches
+   (flash forward-with-lse and backward 12 each, CE forward and backward 1
+   each, the int8 product and both quantizations 49 a step in int8_all, 48
+   in the skip variant, none in bf16; the ``mma.sync`` products those the
+   routes predict), s/iter and the GEMM route of each product's shape; (b)
+   ``soak_fleet --smoke --seed 7`` in a one-rank NCCL group: ``soak_ok``, a
+   decision of every policy class whose seam was armed,
+   ``soak_seams_not_armed`` the seams one rank cannot show (sdc), every
+   armed seam fired; goodput,
+   wall and recovery seconds a fault; (c) ``soak_pod --smoke --seed 7``, 2
+   slices of the one rank: ``pod_ok``, the slice-loss restore from the peer
+   tier, one shrink, one regrow, no restart; degraded and full-width
+   tokens/s;
+30. after phase 29, prints one JSON line describing every kernel, then the
    device line.
+
+Depths cut to make room for phase 29 (width kept, every check kept): phase
+22 (b) (and 23 (c), which its ddp step drives) at P22_LAYERS (8) of the
+stand-in's 26, phase 23 (a) at P23_LAYERS (8) of 26, phase 25 (a), (b) and
+(e) at P25_LAYERS (6) of 26, phase 24 (a) at PP_LAYERS (8; 13 before).
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -4721,8 +4745,14 @@ def _dist_steps(m, ids, am, labels, ref=None, annotate: bool = False):
     return tm, opt, rec
 
 
+# Phase 22 (b)'s depth, cut from the stand-in's 26 (width kept) to make room
+# for phase 29: its four modules' steps, (e)'s attribution and phase 23 (c)'s
+# 20 timeline steps all grow with the depth.
+P22_LAYERS = 8
+
+
 def run_dist_llama(launches: dict) -> None:
-    """Phase 22 (b). The stand-in at open_llama_3b's full width and depth on
+    """Phase 22 (b). The stand-in at open_llama_3b's full width and P22_LAYERS layers on
     phase 11's padded batch and weights (``llama`` from SEED): 3 staged SGD
     steps untagged, then under ddp, fsdp ZERO2 and fsdp ZERO3 on the one-rank
     NCCL group, each step's loss and every grad ``torch.equal`` to the
@@ -4738,7 +4768,7 @@ def run_dist_llama(launches: dict) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = OPEN_LLAMA_3B
+    cfg = replace(OPEN_LLAMA_3B, num_hidden_layers=P22_LAYERS)
     ids, am, labels = padded_batch(LOSS_BATCH, SEQ, cfg.vocab_size, LLAMA_PAD, seed=SEED, device="cuda")
     rows = {}
 
@@ -5004,9 +5034,6 @@ def run_timeline(step, attr) -> None:
             f"the replay: unknown {unknown[:3]}, kinds {summary.get('kinds')}")
 
 
-# Phase 23 (a): the kernel rows a step of open_llama_3b's training program
-# launches (26 layers: q and k through rope forward and backward).
-MESH_STEP_LAUNCHES = {"flash_fwd_lse": 26, "flash_bwd": 26, "rope": 104, "ce_fwd": 1, "ce_bwd": 1}
 
 
 def _mesh_step_run(cfg, ids, tgt, optimizer: str, mesh=None) -> dict:
@@ -5065,13 +5092,23 @@ def _mesh_step_run(cfg, ids, tgt, optimizer: str, mesh=None) -> dict:
     return out
 
 
+# Phase 23 (a)'s depth, cut from the model's 26 (width kept) to make room for
+# phase 29: four builds and twelve steps of both optimizers grow with it.
+P23_LAYERS = 8
+# Phase 23 (a): the kernel rows a step of open_llama_3b's training program
+# launches at that depth (q and k through rope forward and backward).
+MESH_STEP_LAUNCHES = {"flash_fwd_lse": P23_LAYERS, "flash_bwd": P23_LAYERS, "rope": 4 * P23_LAYERS, "ce_fwd": 1,
+                      "ce_bwd": 1}
+
+
 def run_mesh_step(launches: dict) -> None:
     """Phase 23 (a). The sharded step on the mesh of one NCCL rank against
-    the unmeshed step, SGD then AdamW, at open_llama_3b's full size."""
+    the unmeshed step, SGD then AdamW, at open_llama_3b's full width and
+    P23_LAYERS layers."""
     from thunder_tpu_torch.models import gpt
     from thunder_tpu_torch.parallel import make_mesh
 
-    cfg = gpt.name_to_config(CFG_NAME)
+    cfg = replace(gpt.name_to_config(CFG_NAME), n_layer=P23_LAYERS)
     gen = np.random.RandomState(SEED)
     idx_np = gen.randint(0, cfg.vocab_size, (LOSS_BATCH, SEQ))
     ids = torch.from_numpy(idx_np).cuda()
@@ -5141,9 +5178,10 @@ PP_CLAIM_ROWS = {**CLAIM_ROWS, "flash_scaled_dot_product_attention(": "flash_fwd
 PP_ROWS = ("flash_fwd", "flash_fwd_lse", "flash_bwd", "rope", "ce_fwd", "ce_bwd")
 PP_MICRO = 4
 # Phase 24 (a)'s depth, cut from the model's 26 (width kept) to keep the
-# whole script inside its time budget: the pipelined and the unpipelined
-# programs are compared at the same depth.
-PP_LAYERS = 13
+# whole script inside its time budget (13, then 8 to make room for phase
+# 29): the pipelined and the unpipelined programs are compared at the same
+# depth.
+PP_LAYERS = 8
 
 
 def _pp_expected(step) -> dict:
@@ -6169,6 +6207,12 @@ def run_watchdog(cfg, batches, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The depth of phase 25 (a), (b) and (e), cut from the model's 26 (width
+# kept) to make room for phase 29: the checkpoint, the snapshots' copies and
+# crc32s and the staged steps grow with it.
+P25_LAYERS = 6
+
+
 def run_resilience(cfg, launches: dict) -> None:
     """Phase 25 (a)-(f)."""
     import shutil
@@ -6178,9 +6222,9 @@ def run_resilience(cfg, launches: dict) -> None:
     root = tempfile.mkdtemp(prefix="phase25-")
     try:
         free = shutil.disk_usage(root).free
-        need = 4 * 7e9
-        full = cfg if free > need else replace(cfg, n_layer=max(2, int(cfg.n_layer * free / need)))
-        if full is not cfg:
+        need = 4 * 7e9 * P25_LAYERS / cfg.n_layer
+        full = replace(cfg, n_layer=P25_LAYERS if free > need else max(2, int(P25_LAYERS * free / need)))
+        if full.n_layer != P25_LAYERS:
             log(f"  only {free / 1e9:.1f} GB of disk free: (a)-(b) run at {full.n_layer} layers, full width")
         t = time.perf_counter()
         ref = run_preempt_resume(full, batches, root, launches)
@@ -6198,7 +6242,7 @@ def run_resilience(cfg, launches: dict) -> None:
         run_demotion(cfg, launches)
         log(f"  (d) took {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        run_nan_guard(cfg, batches, launches)
+        run_nan_guard(replace(cfg, n_layer=P25_LAYERS), batches, launches)
         log(f"  (e) took {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         run_watchdog(cfg, batches, launches)
@@ -7015,6 +7059,161 @@ def run_tools(launches: dict) -> None:
     log(f"  (c) took {time.perf_counter() - t:.1f} s")
 
 
+# =============================================================================
+# Phase 29: the int8 convergence run and the soak scripts
+# (thunder_tpu_torch/scripts/quant_convergence.py, soak_fleet.py, soak_pod.py)
+# =============================================================================
+
+# Iterations of each quant_convergence variant: two passes over its 8 fixed
+# batches (the script's default is 200).
+Q29_ITERS = 16
+
+
+def _quant_routes(cfg, rows: int) -> dict:
+    """Each int8 product of ``cfg``'s step, ``(N, K) -> "wgmma"`` or
+    ``"mma.sync"``: the route ``quantex.int8_gemm`` takes for the operands
+    its quantization kernels make at those shapes (``tma_describes``)."""
+    from thunder_tpu_torch.executors import quantex
+
+    shapes = {"qkv": ((cfg.n_head + 2 * cfg.query_groups) * cfg.head_size, cfg.n_embd),
+              "attn proj": (cfg.n_embd, cfg.n_embd), "fc": (cfg.intermediate_size, cfg.n_embd),
+              "mlp proj": (cfg.n_embd, cfg.intermediate_size), "lm_head": (cfg.padded_vocab_size, cfg.n_embd)}
+    out = {}
+    for name, (n, k) in shapes.items():
+        a = torch.randn(rows, k, device="cuda", dtype=torch.bfloat16)
+        w = torch.randn(n, k, device="cuda", dtype=torch.bfloat16)
+        qa, _ = quantex.quantize_tensor(a, 127.0)
+        qw, _ = quantex.quantize_rows(w, 127.0)
+        out[name] = (n, k, "wgmma" if quantex.tma_describes(qa, qw) else "mma.sync")
+    return out
+
+
+def run_quant_convergence(launches: dict) -> None:
+    """Phase 29 (a). ``quant_convergence.run`` for its three variants on
+    pythia-160m at full width and depth (B=4 x T=1024, AdamW, bf16 weights
+    from seed 0), Q29_ITERS iterations each: finite losses, each variant's
+    last below its first, ``int8_all``'s first loss within QUANT_LOSS_REL of
+    ``bf16``'s (the same weights and batch); launches a step: flash
+    forward-with-lse and backward once a layer, CE forward and backward once,
+    the int8 GEMM (either route) and both quantization kernels once a
+    quantized linear in the int8 variants and never in ``bf16``, the skip
+    variant exactly the lm_head's one product fewer. Prints s/iter and the
+    route of each product's shape."""
+    from thunder_tpu_torch.executors import quantex
+    from thunder_tpu_torch.models import gpt
+    from thunder_tpu_torch.scripts import quant_convergence as qc
+
+    cfg = gpt.name_to_config(qc.MODEL)
+    routes = _quant_routes(cfg, qc.B * qc.T)
+    log("  (a) int8 routes at M = B*T = " + f"{qc.B * qc.T}: "
+        + ", ".join(f"{name} (N={n}, K={k}) {r}" for name, (n, k, r) in routes.items()))
+    variants = {"bf16": (None, ()), "int8_all": (qc.INT8_STACK, ()),
+                "int8_skip_lm_head": (qc.INT8_STACK, (cfg.padded_vocab_size,))}
+    per_step, results = {}, {}
+    for tag, (executors, skip) in variants.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_counts()
+        quantex.int8_gemm_sync.launches = 0
+        results[tag] = res = qc.run(tag, executors, skip, iters=Q29_ITERS, device="cuda")
+        counts = _launch_counts()
+        counts["int8_gemm_sync"] = quantex.int8_gemm_sync.launches
+        for k, v in counts.items():
+            require(v % Q29_ITERS == 0, f"(a) {tag}: {k} launched {v} times in {Q29_ITERS} steps")
+            if k != "int8_gemm_sync":
+                launches[k] = launches.get(k, 0) + v
+        per_step[tag] = step = {k: v // Q29_ITERS for k, v in counts.items() if v}
+        losses = res["losses"]
+        log(f"  (a) {tag}: {res['avg_iter_s']:.4f} s/iter over {Q29_ITERS} iters, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; launches a step {step}")
+        require(len(losses) == Q29_ITERS and all(math.isfinite(x) for x in losses), f"(a) {tag}: losses {losses}")
+        require(losses[-1] < losses[0], f"(a) {tag}: the last loss {losses[-1]} is not below the first {losses[0]}")
+        for k, n in (("flash_fwd_lse", cfg.n_layer), ("flash_bwd", cfg.n_layer), ("ce_fwd", 1), ("ce_bwd", 1)):
+            require(step.get(k, 0) == n, f"(a) {tag}: {k} launched {step.get(k, 0)} times a step, want {n}")
+    linears = 4 * cfg.n_layer + 1
+    for tag, n in (("bf16", 0), ("int8_all", linears), ("int8_skip_lm_head", linears - 1)):
+        step = per_step[tag]
+        gemms = step.get("int8_gemm", 0) + step.get("int8_gemm_sync", 0)
+        require(gemms == n and step.get("quantize_tensor", 0) == n and step.get("quantize_rows", 0) == n,
+                f"(a) {tag}: int8 products {gemms}, quantizations {step.get('quantize_tensor', 0)} and "
+                f"{step.get('quantize_rows', 0)} a step, want {n} each")
+    want_sync = sum(1 if name == "lm_head" else cfg.n_layer for name, (_, _, r) in routes.items() if r == "mma.sync")
+    require(per_step["int8_all"].get("int8_gemm_sync", 0) == want_sync,
+            f"(a) int8_all: {per_step['int8_all'].get('int8_gemm_sync', 0)} mma.sync products a step, the routes "
+            f"say {want_sync}")
+    first = abs(results["int8_all"]["losses"][0] - results["bf16"]["losses"][0]) / abs(results["bf16"]["losses"][0])
+    log(f"  (a) int8_all's first loss {first:.3e} from bf16's (limit {QUANT_LOSS_REL:.0e}); the skip variant "
+        f"launches {per_step['int8_all'].get('int8_gemm', 0) - per_step['int8_skip_lm_head'].get('int8_gemm', 0)} "
+        "wgmma product a step fewer; rope not claimed (pythia's rotary covers a quarter of the head)")
+    require(first <= QUANT_LOSS_REL, f"(a) int8_all's first loss is {first:.3e} from bf16's")
+    require(not any(per_step[t].get("rope") for t in per_step), "(a) pythia's step launched the rope kernel")
+
+
+def run_soaks() -> None:
+    """Phase 29 (b)-(c), each in a one-rank NCCL group of its own on a
+    FileStore. (b) ``soak_fleet --smoke --seed 7``: ``soak_ok``, a decision
+    of every policy class whose seam was armed, ``soak_seams_not_armed``
+    exactly the seams one rank cannot show, every armed seam fired; goodput, wall and recovery
+    seconds a fault printed. (c) ``soak_pod --smoke --seed 7`` on 2 slices of
+    the one rank: ``pod_ok``, the slice-loss restores from the peer tier,
+    one shrink and one regrow, no restart; the degraded and full-width
+    tokens/s printed."""
+    import os
+    import tempfile
+
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch.scripts import ranks, soak_fleet, soak_pod
+
+    policy_seams = {"elastic_resume": ("host_loss", "collective_hang"), "quarantine_rerun": ("sdc",),
+                    "deopt_escalate": ("oom",), "checkpoint_halt": ("preempt",)}
+    for name, mod, run in (("(b)", soak_fleet, soak_fleet.run_soak), ("(c)", soak_pod, soak_pod.run_pod)):
+        t = time.perf_counter()
+        work = tempfile.mkdtemp(prefix="phase29-")
+        args = mod.parse_args(["--smoke", "--seed", "7", "--workdir", work])
+        require(args.devices == 1, f"{name} the smoke on the card asks for {args.devices} ranks")
+        ranks.join_group("cuda", 0, 1, os.path.join(work, "store"))
+        try:
+            res = run(args)
+        finally:
+            gc.collect()
+            torch.cuda.synchronize()
+            td.shutdown()
+        require(not td.is_initialized(), f"the process group outlived phase 29 {name}")
+        if mod is soak_fleet:
+            decisions = res["soak_decisions"]
+            log(f"  (b) soak_fleet --smoke --seed 7, one NCCL rank: goodput {res['soak_goodput_tokens_per_sec']} tok/s "
+                f"(ideal {res['soak_ideal_tokens_per_sec']}), wall {res['soak_wall_s']} s, recovery "
+                f"{res['soak_recovery_per_fault_s']} s a fault; {res['soak_faults_injected']} faults "
+                f"{res['soak_fault_seams']}, decisions {decisions}, restarts {res['soak_restarts']}; anomalies "
+                f"{res['soak_anomalies']}, detection lead {res['soak_detection_lead']} s; restores "
+                f"{res['soak_restore_tiers']}, {res['soak_restore_fallthroughs']} fall-through(s); stall "
+                f"{res['checkpoint_stall_ms_per_step']} ms a step; straggler delay {res['soak_straggler_delay_s']} s; "
+                f"not armed {res['soak_seams_not_armed']}; not fired {res['soak_seams_not_fired']}")
+            require(soak_fleet.soak_ok(res), "(b) soak_ok failed")
+            require(set(res["soak_seams_not_armed"]) == set(soak_fleet.ONE_RANK_SEAMS),
+                    f"(b) seams not armed {res['soak_seams_not_armed']}")
+            require(res["soak_seams_not_fired"] == soak_fleet.seams_expected_not_fired(res["soak_fault_seams"], 1),
+                    f"(b) armed seams never fired: {res['soak_seams_not_fired']}")
+            for cls, seams in policy_seams.items():
+                if any(s not in res["soak_seams_not_armed"] and res["soak_fault_seams"].get(s) for s in seams):
+                    require(decisions.get(cls, 0) > 0, f"(b) no {cls} decision ({decisions})")
+        else:
+            log(f"  (c) soak_pod --smoke --seed 7, 2 slices of one NCCL rank: goodput "
+                f"{res['soak_pod_goodput_tokens_per_sec']} tok/s, full width "
+                f"{res['soak_pod_full_width_tokens_per_sec']} tok/s, degraded {res['soak_pod_degraded_tokens_per_sec']} "
+                f"tok/s over {res['soak_pod_degraded_steps']} steps (accum {res['soak_pod_grad_accum_max']}); shrinks "
+                f"{res['soak_pod_shrinks']}, regrows {res['soak_pod_regrows']}, restarts {res['soak_pod_restarts']}; "
+                f"slice-loss restores {res['soak_pod_slice_loss_restore_tiers']}, tiers {res['soak_pod_restore_tiers']}; "
+                f"wall {res['soak_pod_wall_s']} s")
+            require(soak_pod.pod_ok(res), "(c) pod_ok failed")
+            require(res["soak_pod_slice_loss_restore_tiers"] and
+                    all(t == "peer" for t in res["soak_pod_slice_loss_restore_tiers"]),
+                    f"(c) slice-loss restores {res['soak_pod_slice_loss_restore_tiers']}")
+            require(res["soak_pod_shrinks"] == 1 == res["soak_pod_regrows"] and res["soak_pod_restarts"] == 0,
+                    "(c) not one shrink, one regrow and no restart")
+        log(f"  {name} took {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -7141,7 +7340,7 @@ def main() -> int:
     run_targets()
 
     log("[22] distribution on torch.distributed, one NCCL rank: (a) each collective prim staged at the path's shapes; "
-        f"(b) the Llama stand-in, {OPEN_LLAMA_3B.num_hidden_layers} layers, 3 staged SGD steps under ddp, fsdp ZERO2 "
+        f"(b) the Llama stand-in, {P22_LAYERS} layers, 3 staged SGD steps under ddp, fsdp ZERO2 "
         "and ZERO3 against the untagged steps, (e) the ddp step attributed; (c) no_sync, 2 layers; (d) the ZERO3 "
         "state through distributed.checkpoint")
     import thunder_tpu_torch.distributed as td
@@ -7158,7 +7357,7 @@ def main() -> int:
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 22")
 
-    log(f"[23] the mesh and the sharded training step, one NCCL rank: (a) {CFG_NAME}, {cfg.n_layer} layers, on "
+    log(f"[23] the mesh and the sharded training step, one NCCL rank: (a) {CFG_NAME}, {P23_LAYERS} layers, on "
         "make_mesh(dp=1, fsdp=1, tp=1) against the unmeshed step, SGD and AdamW; (b) the LitGPT CLI through "
         "benchmarks/distributed.run_config; (c) ran above, on phase 22 (b)'s ddp step")
     dist_init()
@@ -7188,7 +7387,7 @@ def main() -> int:
         td.shutdown()
     require(not td.is_initialized(), "the process group outlived phase 24")
 
-    log(f"[25] the recovery layer: (a) {CFG_NAME}, {cfg.n_layer} layers, run_training preempted at step 2 and "
+    log(f"[25] the recovery layer: (a) {CFG_NAME}, {P25_LAYERS} layers, run_training preempted at step 2 and "
         "resumed by a fresh manager and jit; (b) snapshots and a host loss, the RAM-tier elastic resume; (c) the "
         "de-opt ladder on a real out-of-memory; (d) kernel_raise on the flash wrapper; (e) the NaN guard; (f) the "
         "collective watchdog at jit's and shard_map_callable's dispatch, one NCCL rank")
@@ -7209,6 +7408,14 @@ def main() -> int:
         f"trace verifier's corpus on the card; (c) profile_train on {CFG_NAME} at {P28_PROFILE_LAYERS} layers, then "
         "perf_report --trace-dir with the cost join")
     run_tools(launches)
+
+    log(f"[29] the int8 convergence run and the soak scripts: (a) quant_convergence on pythia-160m, full depth, "
+        f"B=4 x T=1024, {Q29_ITERS} iterations of bf16, int8_all and int8_skip_lm_head; (b) soak_fleet --smoke "
+        "--seed 7, one NCCL rank; (c) soak_pod --smoke --seed 7, 2 slices of one NCCL rank")
+    t = time.perf_counter()
+    run_quant_convergence(launches)
+    log(f"  (a) took {time.perf_counter() - t:.1f} s")
+    run_soaks()
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -2806,3 +2806,92 @@ def test_tools_default_to_the_card(dev):
     # A call that asked for the CPU leaves the next call on the card.
     assert lint_traces.main(["reduction-mix", "--device", "cpu"]) == 0
     assert lint_traces.main(["gpt-tiny"]) == 0 and lint_traces._DEVICE == "cuda"
+
+
+def test_convergence_and_soak_entries_default_to_the_card(dev):
+    """The int8 convergence run and both soak scripts run on the card unless
+    asked otherwise: one NCCL rank a card, and one rank for ``--smoke``."""
+    from thunder_tpu_torch.scripts import quant_convergence, soak_fleet, soak_pod
+
+    assert quant_convergence.parse_args([]).device == "cuda"
+    for mod in (soak_fleet, soak_pod):
+        args = mod.parse_args([])
+        assert args.device == "cuda" and args.devices == torch.cuda.device_count()
+        assert mod.parse_args(["--smoke"]).devices == 1
+
+
+def test_int8_convergence_run_launches_the_counted_int8_kernels(dev):
+    """Two ``int8_all`` steps of pythia-160m (full width and depth, B=1,
+    T=128) on the card: 49 quantized products a step (12 layers x 4 and the
+    lm_head), each launching the int8 GEMM on one route and both
+    quantization kernels; finite losses."""
+    from thunder_tpu_torch.scripts import quant_convergence as qc
+
+    before = _counts()
+    res = qc.run("int8_all", qc.INT8_STACK, batch=1, seq=128, iters=2)
+    counts = {k: v - before.get(k, 0) for k, v in _counts().items()}
+    assert len(res["losses"]) == 2 and all(math.isfinite(x) for x in res["losses"])
+    assert counts.get("int8_gemm", 0) + counts.get("int8_gemm_sync", 0) == 2 * 49, counts
+    assert counts.get("quantize_tensor", 0) == counts.get("quantize_rows", 0) == 2 * 49, counts
+
+
+def test_soak_fleet_at_one_rank_names_its_unarmed_seams(dev, tmp_path):
+    """``soak_fleet --smoke --seed 7`` in a one-rank NCCL group: the SDC seam
+    is not armed (one rank holds no replica) and is named with its reason;
+    every other seam fires (the flush's seams too, silent only on ranks),
+    every armed seam recovers and ``soak_ok`` holds."""
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch.scripts import ranks, soak_fleet
+
+    args = soak_fleet.parse_args(["--smoke", "--seed", "7", "--workdir", str(tmp_path)])
+    ranks.join_group("cuda", 0, 1, str(tmp_path / "store"))
+    try:
+        res = soak_fleet.run_soak(args)
+    finally:
+        td.shutdown()
+    assert res["n_devices"] == 1 and res["soak_seams_not_armed"] == soak_fleet.ONE_RANK_SEAMS
+    assert res["soak_fault_seams"].get("sdc") and res["soak_fault_seams"].get("snap_torn")
+    assert res["soak_seams_not_fired"] == soak_fleet.seams_expected_not_fired(res["soak_fault_seams"], 1) == []
+    assert soak_fleet.soak_ok(res), res
+
+
+def test_a_capture_survives_another_threads_cuda_calls(dev):
+    """A staged entry captures while another thread copies from pinned host
+    memory on a stream of its own and queries an event (what a background
+    snapshot flush does as it releases pinned memory): the capture, made in
+    the capturing thread's error mode, holds, and the replays give the
+    eager values."""
+    import threading
+
+    import thunder_tpu_torch as tt
+
+    f = tt.jit(lambda a: (a * 2.0).sum(1))
+    x = torch.randn(8, 64, device=dev)
+    want = (x * 2.0).sum(1)
+    torch.testing.assert_close(f(x), want)  # call 1: eager
+    stage = f._lc_cs.cache_entries[-1].computation_fn
+    seam = stage.seam
+
+    def work():
+        h = torch.ones(1 << 16, pin_memory=True)
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            h.to(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(s)
+        ev.query()
+
+    def other_thread():
+        seam()
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+
+    stage.seam = other_thread
+    try:
+        torch.testing.assert_close(f(x), want)  # call 2: the capture, the other thread's calls inside it
+    finally:
+        stage.seam = seam
+    torch.testing.assert_close(f(x), want)
+    stats = tt.last_staging(f)
+    assert stats.staged and stats.captures == 1 and stats.replays >= 2

@@ -15,8 +15,10 @@
   ``tests/test_perf_attribution.py:587``); a record missing its fields is
   an ERROR, exit 1;
 - exit 2 on a bad ``--storm-threshold``, a ``--device`` with no value, and
-  each mode that waits for the port's benchmark PR (lint's ``--soak``,
-  ``--federation``, ``--multichip``; ``perf_report --history``/``--gate``);
+  each mode that waits for the port's benchmark PR (lint's ``--multichip``;
+  ``perf_report --history``/``--gate``); ``--soak`` and ``--federation`` run
+  their smokes (``tests/test_torch_port_soak_ranks.py``) and no longer wait,
+  and a bad flag beside them still exits 2;
 - ``--static``, ``--schedule``, ``--chaos``, ``--ops``, ``--roofline`` and
   ``--critpath`` on ``--device cpu`` exit 0 (run side by side, a process
   each, every output in a file);
@@ -150,14 +152,32 @@ def test_events_cli_planted_error_exits_1(tmp_path):
     ["--events", "x.jsonl", "--storm-threshold"],
     ["--events"],
     ["--device"],
-    ["--soak"],
-    ["--federation"],
     ["--multichip", "--device", "cpu"],
-], ids=["storm-word", "storm-missing", "events-no-log", "device-no-value", "soak", "federation", "multichip"])
+    ["--soak", "--device"],
+    ["--federation", "--device"],
+], ids=["storm-word", "storm-missing", "events-no-log", "device-no-value", "multichip", "soak-device-no-value",
+        "federation-device-no-value"])
 def test_usage_errors_and_waiting_modes_exit_2(args, tmp_path):
     from thunder_tpu_torch.scripts import lint_traces
 
     assert lint_traces.main(list(args)) == 2
+
+
+@pytest.mark.parametrize("mode,smoke", [("--soak", "_soak_smoke"), ("--federation", "_federation_smoke")],
+                         ids=["soak", "federation"])
+def test_soak_and_federation_no_longer_wait(mode, smoke, monkeypatch, capsys):
+    """Each mode runs its smoke (stubbed here: the smokes run on gloo ranks in
+    ``tests/test_torch_port_soak_ranks.py``) and returns its verdict; no line
+    says it waits."""
+    from thunder_tpu_torch.scripts import lint_traces
+
+    calls = []
+    monkeypatch.setitem(lint_traces._SMOKES, mode, lambda: calls.append(mode) or 0)
+    assert getattr(lint_traces, smoke) is not None
+    assert lint_traces.main([mode]) == 0 and calls == [mode]
+    monkeypatch.setitem(lint_traces._SMOKES, mode, lambda: 3)
+    assert lint_traces.main([mode]) == 1
+    assert "waits" not in capsys.readouterr().out
 
 
 def test_each_call_resolves_its_own_device(monkeypatch):

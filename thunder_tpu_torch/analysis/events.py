@@ -343,6 +343,7 @@ def replay_events(
     restore_tiers: dict[str, int] = {}  # tier -> ok restores
     restore_fallthroughs = 0  # ok restores that skipped an invalid candidate
     snapshot_stall_ms = 0.0
+    snapshot_peer_wait_ms = 0.0
     n_snapshots = 0
     n_lines = 0
 
@@ -461,6 +462,7 @@ def replay_events(
             n_snapshots += 1
             try:
                 snapshot_stall_ms += float(rec.get("stall_ms") or 0.0)
+                snapshot_peer_wait_ms += float(rec.get("peer_wait_ms") or 0.0)
             except (TypeError, ValueError):
                 pass
 
@@ -579,6 +581,9 @@ def replay_events(
         "restore_fallthroughs": restore_fallthroughs,
         "snapshots": n_snapshots,
         "snapshot_stall_ms_total": round(snapshot_stall_ms, 3),
+        # On ranks, the wait for the other ranks before each snapshot's
+        # gather (outside its stall_ms).
+        "snapshot_peer_wait_ms_total": round(snapshot_peer_wait_ms, 3),
         # Flight-recorder dump markers (non-zero only for a dump file).
         "flightrec_dumps": len(dump_positions),
     }
@@ -628,7 +633,10 @@ def format_replay(summary: dict, diags: list[Diagnostic]) -> str:
     if summary.get("snapshots"):
         lines.append(
             f"  snapshots: {summary['snapshots']} "
-            f"(stall total {summary.get('snapshot_stall_ms_total', 0.0)} ms)"
+            f"(stall total {summary.get('snapshot_stall_ms_total', 0.0)} ms"
+            + (f", peer wait total {summary['snapshot_peer_wait_ms_total']} ms"
+               if summary.get("snapshot_peer_wait_ms_total") else "")
+            + ")"
         )
     if summary.get("anomalies"):
         lines.append(

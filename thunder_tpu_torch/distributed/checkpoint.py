@@ -108,14 +108,39 @@ def _as_dtensor(t: torch.Tensor, group):
 
 def gather_full(state: Any, *, mesh=None, specs=None) -> Any:
     """Every leaf as its whole tensor, a block by ``specs`` all-gathered
-    along each split dim over its groups: the full-state export's gather."""
+    along each split dim over its groups (``runtime.join_plan``'s order):
+    the full-state export's gather. The k-th gather
+    of every leaf that takes one over the same group, of the same dtype and
+    device, rides one all-gather of their blocks laid end to end, so a
+    state of many small leaves costs a few collectives, not one a leaf."""
     from thunder_tpu_torch.distributed import runtime
+    from thunder_tpu_torch.distributed.prims import coll_all_gather
 
     leaves, spec = pytree.tree_flatten(state)
     lspecs = _leaf_specs(state, specs)
     groups = _groups(mesh, lspecs)
-    return pytree.tree_unflatten([runtime.join(x, s, groups) if s is not None and s.axes else x
-                                  for x, s in zip(leaves, lspecs)], spec)
+    plans = [runtime.join_plan(s, groups) if isinstance(x, torch.Tensor) and s is not None else []
+             for x, s in zip(leaves, lspecs)]
+    out = list(leaves)
+    for k in range(max(map(len, plans), default=0)):
+        batches: dict = {}
+        for i, ops in enumerate(plans):
+            if k < len(ops):
+                d, ax, n = ops[k]
+                batches.setdefault((ax, n, out[i].dtype, out[i].device), []).append((i, d))
+        for (ax, n, dtype, device), members in batches.items():
+            flat = torch.cat([out[i].detach().reshape(-1) for i, _ in members])
+            gathered = torch.empty((n, flat.numel()), dtype=dtype, device=device)
+            coll_all_gather(gathered.view(-1), flat, groups[ax])
+            off = 0
+            for i, d in members:
+                x = out[i]
+                blocks = gathered[:, off:off + x.numel()].reshape((n,) + tuple(x.shape))
+                off += x.numel()
+                shape = list(x.shape)
+                shape[d] *= n
+                out[i] = blocks.movedim(0, d).reshape(shape)
+    return pytree.tree_unflatten(out, spec)
 
 
 def _keys(state: Any) -> list[str]:

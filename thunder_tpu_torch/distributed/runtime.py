@@ -242,18 +242,28 @@ def split(x, spec, groups: dict):
     return x
 
 
-def join(x, spec, groups: dict):
-    """The global value of an output that this rank holds by ``spec``: its
-    blocks all-gathered along each split dim, the innermost axis first."""
-    from thunder_tpu_torch.distributed.prims import gather_dim
-
-    if not isinstance(x, torch.Tensor) or spec is None:
-        return x
+def join_plan(spec, groups: dict) -> list:
+    """The gathers that join a block held by ``spec``, in order: (dim, axis,
+    the axis group's size) along each split dim, the innermost axis first;
+    axes of one rank take none."""
+    plan = []
     for d, axes in spec.sharded:
         for ax in reversed(axes):
             n = dist.get_world_size(groups[ax])
             if n > 1:
-                x = gather_dim(x, groups[ax], n, d)
+                plan.append((d, ax, n))
+    return plan
+
+
+def join(x, spec, groups: dict):
+    """The global value of an output that this rank holds by ``spec``: its
+    blocks all-gathered by ``join_plan``."""
+    from thunder_tpu_torch.distributed.prims import gather_dim
+
+    if not isinstance(x, torch.Tensor) or spec is None:
+        return x
+    for d, ax, n in join_plan(spec, groups):
+        x = gather_dim(x, groups[ax], n, d)
     return x
 
 

@@ -107,6 +107,11 @@ from thunder_tpu_torch.core.prims import OpTags
 from thunder_tpu_torch.core.pytree import tree_flatten, tree_unflatten
 from thunder_tpu_torch.executors import _build
 
+# ``torch.cuda.graph``'s capture_error_mode: a capture is broken only by
+# unsafe CUDA calls of the capturing thread (the watchdog's worker or the
+# caller), never by another thread's (a background snapshot flush).
+CAPTURE_ERROR_MODE = "thread_local"
+
 _blas_threads = threading.local()
 
 
@@ -518,7 +523,8 @@ class CudaGraphStage:
         graph = torch.cuda.CUDAGraph(keep_graph=audit)
         marks: list = []
         try:
-            with torch.cuda.graph(graph, pool=None if pair is None else pair.pool):
+            with torch.cuda.graph(graph, pool=None if pair is None else pair.pool,
+                                  capture_error_mode=CAPTURE_ERROR_MODE):
                 if self.seam is not None:
                     self.seam()
                 with _line_marks(marks, self.traces) if audit else contextlib.nullcontext():

@@ -147,6 +147,20 @@ def _multi_process() -> bool:
     return _world() > 1
 
 
+def _wait_for_peers() -> float:
+    """Milliseconds this rank waited at a barrier of the job's group: taken
+    before a snapshot's gather, so its ``stall_ms`` counts the copy, the
+    gather and the crc32, not the skew of the ranks' steps (each process
+    its own, where the JAX package's devices share one)."""
+    import torch.distributed as dist
+
+    from thunder_tpu_torch.distributed.runtime import job_group
+
+    t0 = time.perf_counter()
+    dist.barrier(group=job_group())
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _multihost_any(local: bool) -> bool:
     """True iff ANY rank reports ``local`` (one process: the local flag):
     the agreement primitive for 'one rank saw it, every rank must act on
@@ -461,9 +475,14 @@ class CheckpointManager:
         one that has not started writing — latest-wins backpressure, so a
         slow disk can never grow a backlog). Returns the
         :class:`~thunder_tpu_torch.resilience.snapshot.Snapshot` (its state
-        whole: the blocks ``specs`` splits over ``mesh`` are gathered)."""
+        whole: the blocks ``specs`` splits over ``mesh`` are gathered). On
+        more than one rank the gather waits first at a barrier of the job's
+        group, outside ``stall_ms``; the event's ``peer_wait_ms`` holds the
+        wait."""
         from thunder_tpu_torch.resilience import snapshot as snap_mod
 
+        gathers = specs is not None and hasattr(mesh, "axis_names") and _multi_process()
+        wait_ms = _wait_for_peers() if gathers else None
         t0 = time.perf_counter()
         host_state = snap_mod.to_host(state, mesh=mesh if hasattr(mesh, "axis_names") else None, specs=specs)
         crcs = snap_mod.pytree_crc32(host_state)
@@ -481,6 +500,7 @@ class CheckpointManager:
             "snapshot", step=int(step), stall_ms=round(stall_ms, 3),
             replicated=replicated,
             ring=len(self.store.local_snapshots()) if self.store is not None else 0,
+            **({} if wait_ms is None else {"peer_wait_ms": round(wait_ms, 3)}),
         )
         if flush:
             if _multi_process():

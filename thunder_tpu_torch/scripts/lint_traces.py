@@ -47,8 +47,20 @@ Usage:
                     on 4 gloo ranks: every collective site explicit but the
                     loss all-reduce, a planted one named inserted, the
                     report schema-valid
-    --soak, --federation, --multichip
-                    wait for the port's benchmark PR (ROADMAP): they exit 2
+    --soak          the fleet soak smoke (``scripts/soak_fleet.py --smoke
+                    --seed 7`` on 4 gloo ranks): nothing unrecovered or
+                    unactuated, every policy class decided, the schedule's
+                    seams and overlaps, the snapshot stall, RAM and disk
+                    restores with a fall-through, the detectors and the
+                    flight recorder; then the torn-write fall-through in
+                    this process
+    --federation    the pod soak smoke (``scripts/soak_pod.py --smoke --seed
+                    7``, 2 slices of 2 gloo ranks) inside 60 s: one shrink
+                    and one regrow, the slice-loss restore from the peer
+                    tier, a clean replay
+    --multichip     waits for the port's benchmark PR (ROADMAP): exits 2.
+                    So do the committed-series gates of --soak and
+                    --federation: each prints one line saying so
 
 ``--device`` (default ``cuda``) is where the programs run; the rank modes run
 on the CPU's gloo ranks. Without a card and without ``--device cpu`` a mode
@@ -65,7 +77,7 @@ import numpy as np
 SPAWN_TIMEOUT_S = 300  # each spawn of gloo ranks
 RANKS = 4
 _DEVICE = "cuda"
-_WAITING = ("--soak", "--federation", "--multichip")
+_WAITING = ("--multichip",)
 
 
 def _dev():
@@ -1078,60 +1090,29 @@ def _critpath_smoke() -> int:
 # =============================================================================
 
 
-def _spawn_ranks(mode: str, what: str) -> int:
-    """Run ``mode`` as 4 gloo ranks of this module, one process each,
-    meeting on a FileStore in a temporary directory; each rank's output
-    goes to a file of its own. Prints rank 0's output and returns 1 if any
+def _rank_smoke(mode: str, what: str) -> int:
+    """Run ``mode`` as 4 gloo ranks of this module (``ranks.spawn_ranks``,
+    in a temporary directory). Prints rank 0's output and returns 1 if any
     rank failed or the spawn outlasted ``SPAWN_TIMEOUT_S``."""
-    import subprocess
     import tempfile
 
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from thunder_tpu_torch.scripts import ranks
+
     out = tempfile.mkdtemp(prefix="ttpu_ranks_")
-    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    env.update(PYTHONPATH=repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""),
-               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", THUNDER_TPU_RETRY_BACKOFF_S="0")
     print(f"--- {what} ({RANKS} gloo ranks)")
-    procs, logs = [], []
-    for r in range(RANKS):
-        logs.append(os.path.join(out, f"rank{r}.log"))
-        with open(logs[-1], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "thunder_tpu_torch.scripts.lint_traces", mode, str(r), str(RANKS),
-                 os.path.join(out, "store"), out], stdout=f, stderr=subprocess.STDOUT, env=env, cwd=repo))
-    timed_out = False
-    try:
-        for p in procs:
-            p.wait(timeout=SPAWN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        timed_out = True
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for line in open(logs[0]).read().strip().splitlines()[-60:]:
+    codes, timed_out, logs = ranks.spawn_ranks(
+        "thunder_tpu_torch.scripts.lint_traces", lambda r, store: [mode, str(r), str(RANKS), store, out],
+        RANKS, out, SPAWN_TIMEOUT_S, cpu=True)
+    for line in ranks.tail(logs[0], 60):
         print(f"    {line}")
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    failed = [r for r, c in enumerate(codes) if c != 0]
     if timed_out:
         print(f"    FAILED: the ranks outlasted {SPAWN_TIMEOUT_S} s")
     for r in failed:
         if r:
-            print(f"    rank {r}: " + " | ".join(open(logs[r]).read().strip().splitlines()[-8:]))
-        print(f"    FAILED: rank {r} exited {procs[r].returncode}")
+            print(f"    rank {r}: " + " | ".join(ranks.tail(logs[r], 8)))
+        print(f"    FAILED: rank {r} exited {codes[r]}")
     return 1 if timed_out or failed else 0
-
-
-def _join_ranks(argv: list) -> tuple:
-    """(rank, world, outdir) after joining the gloo group of a rank mode's
-    argument list ``[mode, rank, world, store, outdir]``."""
-    import torch.distributed as tdist
-
-    import thunder_tpu_torch.distributed as td
-
-    rank, world, store, out = int(argv[1]), int(argv[2]), argv[3], argv[4]
-    td.init(device="cpu", store=tdist.FileStore(store, world), num_processes=world, process_id=rank)
-    return rank, world, out
 
 
 def _chaos_multihost_rank(rank: int, world: int, out: str) -> int:
@@ -1399,14 +1380,343 @@ def _hlo_rank(rank: int, world: int, out: str) -> int:
 
 
 # =============================================================================
+# The soak smokes: --soak and --federation on 4 gloo ranks
+# =============================================================================
+
+# The soak result's schema: the keys the JAX CLI requires
+# (scripts/lint_traces.py ``_SOAK_REQUIRED_KEYS``).
+_SOAK_REQUIRED_KEYS = (
+    "metric", "value", "unit", "seed", "n_devices", "mesh", "model", "steps",
+    "soak_goodput_tokens_per_sec", "soak_tokens_per_sec",
+    "soak_ideal_tokens_per_sec", "soak_goodput_ratio",
+    "resilience_overhead_pct", "soak_wall_s", "soak_recovery_per_fault_s",
+    "soak_faults_injected",
+    "soak_fault_seams", "soak_overlapping_pairs", "soak_decisions",
+    "soak_unrecovered", "soak_unactuated",
+    # Tiered checkpointing.
+    "checkpoint_stall_ms_per_step", "snapshot_every", "soak_snapshots",
+    "soak_restore_tiers", "soak_restore_fallthroughs",
+    # Live ops plane.
+    "soak_ops_port", "soak_anomalies", "soak_anomalies_total",
+    "soak_detection_lead", "soak_decisions_citing_anomaly",
+    "soak_undetected_detector_classes", "soak_flightrec_dumps",
+    "soak_flightrec_invalid", "soak_flightrec_missing",
+)
+
+# The hot loop's amortized checkpoint cost must stay snapshot-shaped (a
+# device→host copy every few steps). A synchronous disk save leaking back
+# onto the hot path costs ~100ms+ per cadence hit — far past this cap.
+_SOAK_STALL_MS_PER_STEP_CAP = 25.0
+
+# The four autopilot policy classes the smoke must see decided at least
+# once (the schedule's REQUIRED_SEAMS guarantee the triggering faults).
+_SOAK_POLICY_CLASSES = (
+    "elastic_resume", "quarantine_rerun", "deopt_escalate", "checkpoint_halt",
+)
+
+# The pod result's schema: the keys the JAX CLI requires
+# (scripts/lint_traces.py ``_POD_REQUIRED_KEYS``).
+_POD_REQUIRED_KEYS = (
+    "metric", "value", "unit", "n_devices", "n_slices", "mesh", "model",
+    "steps", "soak_pod_goodput_tokens_per_sec", "soak_pod_wall_s",
+    "soak_pod_degraded_steps", "soak_pod_degraded_tokens_per_sec",
+    "soak_pod_full_width", "soak_pod_final_width", "soak_pod_min_width",
+    "soak_pod_shrinks", "soak_pod_regrows", "soak_pod_restarts",
+    "soak_pod_slice_loss_restores", "soak_pod_slice_loss_nonpeer_restores",
+    "soak_pod_disk_restores_after_anchor", "soak_pod_restore_tiers",
+    "soak_pod_decisions", "soak_pod_unrecovered", "soak_pod_unactuated",
+    "soak_pod_replay_errors",
+)
+
+# The federation smoke's wall: shrink -> degraded training -> regrow, on
+# the CPU, compiles for both widths included.
+_FEDERATION_WALL_S = 60.0
+
+_SERIES_WAITS = "series gate: waits for the port's benchmark PR (ROADMAP); no error counted"
+
+
+def _run_driver(module: str, what: str, timeout_s: float) -> tuple:
+    """``python -m module --smoke --seed 7 --device cpu --out F`` (4 gloo
+    ranks); its stderr's tail printed. Returns (rc, result or None,
+    seconds)."""
+    import json
+    import subprocess
+    import tempfile
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    out_path = os.path.join(tempfile.mkdtemp(prefix="ttpu_smoke_"), "result.json")
+    cmd = [sys.executable, "-m", module, "--smoke", "--seed", "7", "--device", "cpu", "--out", out_path]
+    print(f"--- {what}: " + " ".join(cmd[1:]))
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env.update(PYTHONPATH=repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s, env=env, cwd=repo)
+    elapsed = time.perf_counter() - t0
+    for line in r.stderr.strip().splitlines()[-20:]:
+        print(f"    {line}")
+    if r.returncode != 0:
+        print(f"    FAILED: {module.rsplit('.', 1)[-1]} exited {r.returncode}")
+    result = None
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            result = json.load(f)
+    return r.returncode, result, elapsed
+
+
+def _torn_fallthrough_check() -> int:
+    """Deterministic torn-write disk fall-through: a ``snap_torn`` background
+    flush leaves its step directory WITHOUT the META commit marker; the
+    tiered restore must skip the incomplete step and land on the older
+    complete one — asserted from the replayed event log, not from
+    in-process state. In this process, on the CPU. Returns the error
+    count."""
+    import json
+    import tempfile
+
+    import torch
+
+    import thunder_tpu_torch.monitor as monitor
+    from thunder_tpu_torch.analysis.events import replay_events
+    from thunder_tpu_torch.resilience import chaos, elastic
+    from thunder_tpu_torch.resilience.preemption import CheckpointManager
+
+    tmp = tempfile.mkdtemp(prefix="ttpu_torn_")
+    log = os.path.join(tmp, "ev.jsonl")
+    n_errors = 0
+    monitor.set_event_log(log)
+    try:
+        mgr = CheckpointManager(os.path.join(tmp, "ck"), backoff_s=0, async_flush=True)
+        state = {"p": torch.arange(8, dtype=torch.float32)}
+        mgr.save(state, 10)
+        with chaos.chaos_scope("snap_torn"):
+            mgr.snapshot(state, 20, flush=True)
+            mgr.close()  # drain: the torn flush's events are in the log
+        _, meta, tier, _tried = elastic.tiered_restore(mgr)
+    finally:
+        monitor.set_event_log(None)
+    if not (tier == "disk" and meta["step"] == 10):
+        n_errors += 1
+        print(f"    FAILED: torn fall-through restored {tier}@{meta['step']} (want disk@10)")
+    summary, _ = replay_events(log)
+    records = [json.loads(line) for line in open(log)]
+    torn_flush = any(r["kind"] == "snapshot_flush" and not r["ok"] and r.get("reason") == "torn" for r in records)
+    skipped = any(r["kind"] == "checkpoint_restore" and not r["ok"] for r in records)
+    if not (torn_flush and skipped):
+        n_errors += 1
+        print(f"    FAILED: torn-write log shape (torn_flush={torn_flush}, incomplete-skip={skipped})")
+    if summary.get("unrecovered_faults"):
+        n_errors += 1
+        print(f"    FAILED: snap_torn unrecovered: {summary['unrecovered_faults']}")
+    if not n_errors:
+        print("    torn-write fall-through OK: flush tore at step 20, restore skipped it and landed on disk@10")
+    return n_errors
+
+
+def soak_checks(result: dict) -> int:
+    """The checks of ``--soak`` on a fleet soak result (the JAX CLI's, but
+    the committed-series comparisons): the schema, zero unrecovered and
+    unactuated, every policy class decided, the schedule's diversity, the
+    snapshot stall, the restore tiers and a fall-through, the detectors and
+    the flight recorder, a usable goodput. Returns the error count."""
+    n_errors = 0
+    missing = [k for k in _SOAK_REQUIRED_KEYS if k not in result]
+    if missing:
+        n_errors += 1
+        print(f"    FAILED: soak JSON missing keys: {missing}")
+    else:
+        print(f"    schema OK ({len(_SOAK_REQUIRED_KEYS)} required keys)")
+
+    if result.get("soak_unrecovered") or result.get("soak_unactuated"):
+        n_errors += 1
+        print(f"    FAILED: unrecovered={result.get('soak_unrecovered')} unactuated={result.get('soak_unactuated')}")
+    else:
+        print("    correlation OK: zero unrecovered faults, zero unactuated decisions")
+
+    decisions = result.get("soak_decisions") or {}
+    absent = [c for c in _SOAK_POLICY_CLASSES if not decisions.get(c)]
+    if absent:
+        n_errors += 1
+        print(f"    FAILED: policy classes never decided: {absent} (got {decisions})")
+    else:
+        print("    policy coverage OK: " + ", ".join(f"{c}×{decisions[c]}" for c in _SOAK_POLICY_CLASSES))
+
+    from thunder_tpu_torch.scripts.soak_fleet import seams_expected_not_fired
+
+    scheduled = result.get("soak_fault_seams") or {}
+    not_fired = result.get("soak_seams_not_fired")
+    expected = seams_expected_not_fired(scheduled, int(result.get("n_devices") or 0))
+    if not isinstance(not_fired, list) or sorted(not_fired) != expected:
+        n_errors += 1
+        print(f"    FAILED: seams armed and never fired {not_fired}, expected {expected} at "
+              f"{result.get('n_devices')} rank(s)")
+    else:
+        print(f"    firing OK: every armed seam fired" + (f" but {expected} (silent on ranks)" if expected else ""))
+    # The schedule's diversity, counted on the seams that were injected.
+    seams = [s for s in scheduled
+             if s not in (result.get("soak_seams_not_armed") or {}) and s not in (not_fired or [])]
+    if len(seams) < 5 or not result.get("soak_overlapping_pairs"):
+        n_errors += 1
+        print(f"    FAILED: schedule diversity (injected seams={sorted(seams)}, "
+              f"overlaps={result.get('soak_overlapping_pairs')})")
+    else:
+        print(f"    schedule OK: {result.get('soak_faults_injected')} faults across {len(seams)} injected seam kinds, "
+              f"{result['soak_overlapping_pairs']} overlapping pair(s)")
+
+    stall = result.get("checkpoint_stall_ms_per_step")
+    # On ranks each snapshot first waits for the others, outside its stall:
+    # printed beside it, since the step pays that wait too.
+    peer_wait = result.get("checkpoint_peer_wait_ms_per_step")
+    if not isinstance(stall, (int, float)) or not (0.0 < stall <= _SOAK_STALL_MS_PER_STEP_CAP):
+        n_errors += 1
+        print(f"    FAILED: checkpoint_stall_ms_per_step={stall} not in (0, {_SOAK_STALL_MS_PER_STEP_CAP}] — "
+              f"snapshots missing, or disk IO leaked back onto the hot path (peer wait {peer_wait} ms/step)")
+    else:
+        print(f"    stall OK: {stall:.2f} ms/step over {result.get('soak_snapshots')} snapshots "
+              f"(peer wait {peer_wait} ms/step, outside the stall)")
+    tiers = result.get("soak_restore_tiers") or {}
+    ram = (tiers.get("local") or 0) + (tiers.get("peer") or 0)
+    if not ram or not tiers.get("disk"):
+        n_errors += 1
+        print(f"    FAILED: restore-tier coverage {tiers} (need >=1 RAM-tier and >=1 disk-tier restore)")
+    elif not result.get("soak_restore_fallthroughs"):
+        n_errors += 1
+        print(f"    FAILED: no restore fell through an invalid tier (snap_corrupt must force the checksum gate; "
+              f"tiers={tiers})")
+    else:
+        print("    tiers OK: " + ", ".join(f"{t}×{n}" for t, n in sorted(tiers.items()))
+              + f"; {result['soak_restore_fallthroughs']} fall-through(s)")
+    # The detectors must have flagged every detector-covered fault class, an
+    # anomaly must PRECEDE the decision citing it (positive detection lead),
+    # and every timeout/halt must have left a schema-valid flight dump.
+    anomalies = result.get("soak_anomalies") or {}
+    if result.get("soak_undetected_detector_classes") or not anomalies:
+        n_errors += 1
+        print(f"    FAILED: detector coverage (anomalies={anomalies}, "
+              f"missed={result.get('soak_detector_classes_missed')})")
+    elif not (isinstance(result.get("soak_detection_lead"), (int, float)) and result["soak_detection_lead"] > 0):
+        n_errors += 1
+        print(f"    FAILED: detection lead {result.get('soak_detection_lead')} not > 0 (no decision cited a "
+              "preceding anomaly)")
+    else:
+        print("    detectors OK: " + ", ".join(f"{k}×{n}" for k, n in sorted(anomalies.items()))
+              + f"; lead {result['soak_detection_lead']:.2f}s over {result.get('soak_decisions_citing_anomaly')} "
+              "cited decision(s)")
+    if (result.get("soak_flightrec_invalid") or result.get("soak_flightrec_missing")
+            or not result.get("soak_flightrec_dumps")):
+        n_errors += 1
+        print(f"    FAILED: flight recorder (dumps={result.get('soak_flightrec_dumps')}, "
+              f"invalid={result.get('soak_flightrec_invalid')}, missing={result.get('soak_flightrec_missing')})")
+    else:
+        print("    flight recorder OK: "
+              + ", ".join(f"{r}×{n}" for r, n in sorted((result.get("soak_flightrec_by_reason") or {}).items()))
+              + " dump(s), all schema-valid")
+    goodput = result.get("soak_goodput_tokens_per_sec")
+    if not isinstance(goodput, (int, float)) or goodput <= 0:
+        n_errors += 1
+        print(f"    FAILED: no usable goodput ({goodput})")
+    else:
+        print(f"    goodput OK: {goodput:.0f} tok/s; recovery {result.get('soak_recovery_per_fault_s')} s/fault")
+    return n_errors
+
+
+def _soak_smoke() -> int:
+    """--soak: the fleet soak smoke. Runs ``thunder_tpu_torch.scripts.soak_fleet
+    --smoke --seed 7`` on 4 gloo ranks and holds its result to
+    :func:`soak_checks`, then the torn-write fall-through
+    (:func:`_torn_fallthrough_check`). The JAX CLI also compares the
+    per-fault recovery with the committed ``SOAK_r*`` round and gates the
+    series; here one line says that waits. Returns the error count."""
+    rc, result, _ = _run_driver("thunder_tpu_torch.scripts.soak_fleet", "soak smoke", 1500)
+    if rc != 0 or result is None:
+        return 1
+    n_errors = soak_checks(result) + _torn_fallthrough_check()
+    print(f"    {_SERIES_WAITS}")
+    print(f"\nlint_traces --soak: {n_errors} error(s)")
+    return n_errors
+
+
+def federation_checks(result: dict, elapsed_s: float) -> int:
+    """The checks of ``--federation`` on a pod soak result and its wall
+    seconds: the schema, the 60 s wall, one shrink and one regrow through a
+    degraded window back to full width with no restart, the slice-loss
+    restores from the peer tier and no disk restore after the anchor, a
+    clean replay. Returns the error count."""
+    n_errors = 0
+    missing = [k for k in _POD_REQUIRED_KEYS if k not in result]
+    if missing:
+        n_errors += 1
+        print(f"    FAILED: pod JSON missing keys: {missing}")
+    else:
+        print(f"    schema OK ({len(_POD_REQUIRED_KEYS)} required keys)")
+
+    if elapsed_s >= _FEDERATION_WALL_S:
+        n_errors += 1
+        print(f"    FAILED: smoke took {elapsed_s:.1f}s (budget {_FEDERATION_WALL_S:.0f}s)")
+    else:
+        print(f"    budget OK: shrink->train->regrow in {elapsed_s:.1f}s")
+
+    full = result.get("soak_pod_full_width")
+    if not (result.get("soak_pod_shrinks") == 1
+            and result.get("soak_pod_regrows") == 1
+            and result.get("soak_pod_degraded_steps", 0) > 0
+            and result.get("soak_pod_min_width", full) < full
+            and result.get("soak_pod_final_width") == full
+            and not result.get("soak_pod_restarts")):
+        n_errors += 1
+        print(f"    FAILED: elastic cycle (shrinks={result.get('soak_pod_shrinks')} "
+              f"regrows={result.get('soak_pod_regrows')} degraded={result.get('soak_pod_degraded_steps')} widths "
+              f"{result.get('soak_pod_min_width')}->{result.get('soak_pod_final_width')}/{full})")
+    else:
+        print(f"    elastic cycle OK: width {full}->{result.get('soak_pod_min_width')}->{full}, "
+              f"{result.get('soak_pod_degraded_steps')} degraded step(s)")
+
+    if (not result.get("soak_pod_slice_loss_restores")
+            or result.get("soak_pod_slice_loss_nonpeer_restores")
+            or result.get("soak_pod_disk_restores_after_anchor")):
+        n_errors += 1
+        print(f"    FAILED: peer-tier proof (restores={result.get('soak_pod_slice_loss_restores')} "
+              f"nonpeer={result.get('soak_pod_slice_loss_nonpeer_restores')} "
+              f"disk_after_anchor={result.get('soak_pod_disk_restores_after_anchor')})")
+    else:
+        print(f"    peer-tier proof OK: tiers {result.get('soak_pod_restore_tiers')}")
+
+    if result.get("soak_pod_unrecovered") or result.get("soak_pod_unactuated") or result.get("soak_pod_replay_errors"):
+        n_errors += 1
+        print(f"    FAILED: replay (unrecovered={result.get('soak_pod_unrecovered')} "
+              f"unactuated={result.get('soak_pod_unactuated')} errors={result.get('soak_pod_replay_errors')})")
+    else:
+        print("    correlation OK: zero unrecovered faults, zero unactuated decisions")
+    return n_errors
+
+
+def _federation_smoke() -> int:
+    """--federation: the slice-failure-domain smoke. Runs
+    ``thunder_tpu_torch.scripts.soak_pod --smoke --seed 7`` (2 slices of 2
+    gloo ranks, one scripted whole-slice loss) and holds its result and
+    wall seconds to :func:`federation_checks`. The JAX CLI also gates the
+    committed ``SOAK_POD_r*`` round; here one line says that waits.
+    Returns the error count."""
+    rc, result, elapsed = _run_driver("thunder_tpu_torch.scripts.soak_pod", "federation smoke", 600)
+    if rc != 0 or result is None:
+        return 1
+    n_errors = federation_checks(result, elapsed)
+    print(f"    {_SERIES_WAITS}")
+    print(f"\nlint_traces --federation: {n_errors} error(s)")
+    return n_errors
+
+
+# =============================================================================
 # main
 # =============================================================================
 
 _USAGE = ("usage: lint_traces [pattern] [--device cpu|cuda] | --static | --schedule | --chaos | --chaos-multihost | "
-          "--hlo | --ops | --roofline | --critpath | --events <log.jsonl> [...] [--storm-threshold N]")
+          "--hlo | --ops | --roofline | --critpath | --soak | --federation | --events <log.jsonl> [...] "
+          "[--storm-threshold N]")
 _SMOKES = {
     "--static": _static_smoke, "--schedule": _schedule_smoke, "--ops": _ops_smoke,
     "--roofline": _roofline_smoke, "--critpath": _critpath_smoke, "--chaos": _chaos_smoke,
+    "--soak": _soak_smoke, "--federation": _federation_smoke,
 }
 _RANK_MODES = {"--_chaos-multihost-rank": _chaos_multihost_rank, "--_hlo-rank": _hlo_rank}
 
@@ -1433,8 +1743,12 @@ def main(argv=None) -> int:
     if argv and argv[0] in _RANK_MODES:
         import thunder_tpu_torch.distributed as td
 
+        from thunder_tpu_torch.scripts.ranks import join_group
+
         _DEVICE = "cpu"
-        rank, world, out = _join_ranks(argv)
+        # [mode, rank, world, store, outdir], as _rank_smoke passes them.
+        rank, world, store, out = int(argv[1]), int(argv[2]), argv[3], argv[4]
+        join_group("cpu", rank, world, store)
         try:
             return 1 if _RANK_MODES[argv[0]](rank, world, out) else 0
         finally:
@@ -1453,9 +1767,9 @@ def main(argv=None) -> int:
         _DEVICE = dev
 
     if "--hlo" in argv:
-        return _spawn_ranks("--_hlo-rank", "hlo smoke")
+        return _rank_smoke("--_hlo-rank", "hlo smoke")
     if "--chaos-multihost" in argv:
-        return _spawn_ranks("--_chaos-multihost-rank", "chaos-multihost smoke")
+        return _rank_smoke("--_chaos-multihost-rank", "chaos-multihost smoke")
     for mode, smoke in _SMOKES.items():
         if mode in argv:
             if mode == "--static":
