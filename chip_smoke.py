@@ -345,13 +345,33 @@ It drives ``thunder_tpu_torch`` only (no JAX, nothing of ``thunder_tpu``):
    slices of the one rank: ``pod_ok``, the slice-loss restore from the peer
    tier, one shrink, one regrow, no restart; degraded and full-width
    tokens/s;
-30. after phase 29, prints one JSON line describing every kernel, then the
+30. the measurement tools (``thunder_tpu_torch/scripts``): (a) ``bench.run``,
+   the counterpart of ``bench.py``'s driver, on open_llama_3b at full width
+   and depth, B=2 x T=2048 and the forward at B=10, P30_ITERS async
+   iterations (bench.py's 45, cut to fit the budget): every key of
+   ``bench.py``'s line, ``device_spec`` "h100", finite falling losses,
+   ``vs_rev`` null (no round of the port's series is committed), the
+   launches a training step of rows 2-7 (flash forward-with-lse and
+   backward one a layer, rope four a layer, cross-entropy forward and
+   backward one) and a forward's of rows 1-2, over the calls the bench
+   made; (b) ``bench_attn`` at B=2 H=32 T=2048 D=100: each route's forward
+   within FLASH_ROW_REL of the materialized one and its gradients within
+   FLASH_RECOMPUTE_ROW_REL, each kernel route launched, the times beside
+   ``F.scaled_dot_product_attention``'s (a yardstick); (c)
+   ``bench_multichip`` in a one-rank NCCL group: the schema
+   ``lint_traces --multichip`` requires, the overlap table and its site
+   counts, and the collective rows (none where one rank launches no
+   collective kernel); (d) ``perf_report --history --gate`` over two rounds
+   of (a)'s line in a scratch directory: exit 0, no regression; a third
+   round whose ``value`` is 20% slower: exit 1, ``value`` named;
+31. after phase 30, prints one JSON line describing every kernel, then the
    device line.
 
 Depths cut to make room for phase 29 (width kept, every check kept): phase
 22 (b) (and 23 (c), which its ddp step drives) at P22_LAYERS (8) of the
 stand-in's 26, phase 23 (a) at P23_LAYERS (8) of 26, phase 25 (a), (b) and
 (e) at P25_LAYERS (6) of 26, phase 24 (a) at PP_LAYERS (8; 13 before).
+Phase 30 runs P30_ITERS iterations where ``bench.py`` runs 45.
 
 Any failed check raises, and the script exits non-zero without printing the
 last line. Exits non-zero at once when there is no CUDA card.
@@ -7214,6 +7234,194 @@ def run_soaks() -> None:
         log(f"  {name} took {time.perf_counter() - t:.1f} s")
 
 
+# =============================================================================
+# Phase 30: the measurement tools
+# (thunder_tpu_torch/scripts/bench.py, bench_attn.py, bench_multichip.py, perf_report.py --history)
+# =============================================================================
+
+# The bench driver's async iterations (bench.py's 45; its synced and strict
+# protocols run 4 and 2 in proportion).
+P30_ITERS = 10
+# A planted round's headline, this much slower than the bench's own.
+P30_PLANTED_SLOWDOWN = 1.2
+
+
+def run_bench_driver(cfg, launches: dict) -> dict:
+    """Phase 30 (a). ``bench.run`` at bench.py's workload (open_llama_3b,
+    full width and depth, B=2 x T=2048, the forward at B=10) with P30_ITERS
+    iterations: every key of bench.py's line and of its compile phases,
+    ``device_spec`` "h100", finite losses falling from the first step to
+    the last, ``vs_rev`` null; the launches of the bench's forwards and
+    training steps, over the calls it made: a step 26 flash
+    forward-with-lse and 26 backward, 104 rope, one CE forward and one
+    backward; a forward 26 flash forward and 52 rope. Returns the line."""
+    from thunder_tpu_torch.scripts import bench
+
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    res = bench.run(bench.parse_args(["--iters", str(P30_ITERS)]))
+    counts = _launch_counts()
+    train, fwd = res.pop("_train"), res.pop("_forward")
+    del train["train"], fwd["jfn"], fwd["eager"], fwd["flat_args"]
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    n, steps, fwds = cfg.n_layer, train["steps"], fwd["calls"]
+    missing = [k for k in bench.BENCH_KEYS if k not in res]
+    missing += [f"train_compile_phases.{k}" for k in bench.COMPILE_PHASE_KEYS if k not in res["train_compile_phases"]]
+    require(not missing, f"(a) the line lacks {missing}")
+    require(res["device_spec"] == "h100", f"(a) device_spec {res['device_spec']!r}")
+    require(res["vs_rev"] is None and res["deltas_vs_prev"] == {}, f"(a) vs_rev {res['vs_rev']!r}")
+    l0, l1 = train["loss0"], train["loss_last"]
+    require(math.isfinite(l0) and math.isfinite(l1) and l1 < l0, f"(a) losses {l0} -> {l1}")
+    want = {"flash_fwd_lse": n * steps, "flash_bwd": n * steps, "ce_fwd": steps, "ce_bwd": steps,
+            "flash_fwd": n * fwds, "rope": 4 * n * steps + 2 * n * fwds}
+    got = {k: counts.get(k, 0) for k in want}
+    require(got == want, f"(a) launches {got} over {steps} steps and {fwds} forwards, want {want}")
+    shown = {k: res[k] for k in ("value", "train_iter_synced_s", "train_iter_strict_sync_s", "train_tokens_per_sec",
+                                 "train_mfu", "vs_baseline", "fwd_b10_s", "fwd_mfu", "fwd_vs_baseline",
+                                 "fwd_xla_compile_s", "train_trace_claim_s", "train_xla_compile_s",
+                                 "recompile_count", "trace_cache_lookup_us", "obs_gpt_block_dispatch_us",
+                                 "obs_disabled_overhead_pct", "obs_metrics_overhead_pct", "ops_overhead_pct")}
+    log(f"  (a) {res['metric']}: {shown}; compile phases {res['train_compile_phases']}; losses {l0:.4f} -> "
+        f"{l1:.4f}; forward attributed {res['attribution']['coverage_pct']}%; launches {steps} steps x (26 "
+        f"flash fwd-lse, 26 bwd, 104 rope, 1+1 CE) and {fwds} forwards x (26 flash fwd, 52 rope): as counted")
+    log(f"  (a) took {time.perf_counter() - t:.1f} s")
+    return res
+
+
+def run_bench_attn(launches: dict) -> None:
+    """Phase 30 (b). ``bench_attn.run`` at the bench shape, D=100: every
+    route's forward output within FLASH_ROW_REL of the materialized route's
+    (row 1's and row 10's limit in phase 3) and its gradients within
+    FLASH_RECOMPUTE_ROW_REL (phase 3's end-to-end limit of the recomputing
+    backward); the kernels of the splash and legacy routes launched; the
+    times printed beside the SDPA yardstick's."""
+    from thunder_tpu_torch.scripts import bench_attn
+
+    t = time.perf_counter()
+    _zero_counts()
+    res = bench_attn.run(device="cuda", out=_Log())
+    counts = _launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    for r in res["routes"]:
+        if r["yardstick"]:
+            continue
+        require(r["row_rel_err"] <= FLASH_ROW_REL, f"(b) {r['route']}: forward row_rel_err {r['row_rel_err']:.3e}")
+        require(r["bwd_row_rel_err"] <= FLASH_RECOMPUTE_ROW_REL,
+                f"(b) {r['route']}: gradients' row_rel_err {r['bwd_row_rel_err']:.3e}")
+    for k in ("flash_fwd", "flash_fwd_lse", "flash_bwd", "legacy_fwd", "legacy_bwd"):
+        require(counts.get(k, 0) > 0, f"(b) bench_attn launched no {k}")
+    log(f"  (b) limits: forward {FLASH_ROW_REL:.3e}, gradients {FLASH_RECOMPUTE_ROW_REL:.3e}; launches "
+        + ", ".join(f"{k} {counts[k]}" for k in ("flash_fwd", "flash_fwd_lse", "flash_bwd", "legacy_fwd", "legacy_bwd")))
+    log(f"  (b) took {time.perf_counter() - t:.1f} s")
+
+
+class _Log:
+    """A file whose lines go through ``log``."""
+
+    def write(self, text: str) -> None:
+        for line in text.splitlines():
+            if line:
+                log(f"  (b) {line}")
+
+    def flush(self) -> None:
+        pass
+
+
+def run_bench_multichip() -> None:
+    """Phase 30 (c). ``bench_multichip.run`` in a one-rank NCCL group of its
+    own (mesh fsdp1-tp1, llama-tiny, 3 iterations, 2 profiled steps): every
+    key of ``lint_traces --multichip``'s schema, finite timings, no overlap
+    error, the overlap table with its site counts; collective rows with
+    their overlap fields, or, where the one rank launched no collective
+    kernel (every collective is the identity there), none, said so."""
+    import os
+    import tempfile
+
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch.scripts import bench_multichip, lint_traces, ranks
+
+    t = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="phase30-")
+    args = bench_multichip.parse_args(["--iters", "3", "--profile-steps", "2", "--workdir", work])
+    require(args.devices == 1, f"(c) the bench on the card asks for {args.devices} ranks")
+    ranks.join_group("cuda", 0, 1, os.path.join(work, "store"))
+    try:
+        res = bench_multichip.run(args)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        td.shutdown()
+    require(not td.is_initialized(), "the process group outlived phase 30 (c)")
+    missing = [k for k in lint_traces._MULTICHIP_REQUIRED_KEYS if k not in res]
+    require(not missing, f"(c) the line lacks {missing}")
+    require(not res.get("overlap_error"), f"(c) the overlap workload failed: {res.get('overlap_error')}")
+    require(res.get("overlap") and res["overlap_sites_shown"] == len(res["overlap"]) <= res["overlap_sites_total"],
+            f"(c) overlap table {res.get('overlap_sites_shown')}/{res.get('overlap_sites_total')}")
+    require(all(math.isfinite(res[k]) and res[k] > 0 for k in ("train_iter_s", "train_iter_synced_s",
+                                                               "train_iter_strict_sync_s")), "(c) timings")
+    colls = res.get("collectives")
+    require(colls is not None, "(c) no profiled attribution")
+    fields = ("us_per_step", "hidden_us_per_step", "exposed_us_per_step", "calls")
+    require(all(all(f in v for f in fields) for v in colls.values()), f"(c) collective rows {colls}")
+    rows = (f"collective rows {colls}" if colls else
+            "no collective rows: the one rank launched no collective kernel (every collective is the identity)")
+    log(f"  (c) mesh {res['mesh']}, {res['model']} B={res['batch']} T={res['seq']}: iter {res['train_iter_s']} s "
+        f"(synced {res['train_iter_synced_s']}, strict {res['train_iter_strict_sync_s']}), MFU {res['train_mfu']} "
+        f"[{res['device_spec']}], compile {res['multichip_xla_compile_s']} s, phases {res['compile_phases']}; audit: "
+        f"{res['hlo_static_collectives']}, static exposed {res['spmd_collective_exposed_pct_static']}%; {rows}; "
+        f"overlap {res['overlap_sites_shown']}/{res['overlap_sites_total']} sites, moves "
+        f"{(res.get('comm_schedule') or {}).get('moves')}, static exposed {res['collective_exposed_pct_unscheduled']}% "
+        f"-> {res['collective_exposed_pct']}%")
+    log(f"  (c) took {time.perf_counter() - t:.1f} s")
+
+
+def run_history_gate(line: dict) -> None:
+    """Phase 30 (d). ``perf_report --history --gate`` over two rounds of the
+    port's BENCH series in a scratch directory, (a)'s line and a copy of
+    it: exit 0, no regression; with a third round whose ``value`` is
+    P30_PLANTED_SLOWDOWN times (a)'s: exit 1, ``value`` named."""
+    import io
+    import os
+    import tempfile
+
+    from thunder_tpu_torch.scripts import perf_report
+
+    d = tempfile.mkdtemp(prefix="phase30-rounds-")
+    ack = os.path.join(d, perf_report.ACK_FILE)
+    paths = []
+    for n, value in ((1, line["value"]), (2, line["value"]), (3, line["value"] * P30_PLANTED_SLOWDOWN)):
+        paths.append(os.path.join(d, f"{perf_report.SERIES_PREFIX}BENCH_r{n:02d}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(dict(line, value=value), f)
+    out = io.StringIO()
+    rc = perf_report.run_history_gate(paths[:2], ack_path=ack, gate=True, out=out)
+    require(rc == 0 and "no regressions beyond threshold" in out.getvalue(), f"(d) two equal rounds: rc {rc}\n"
+            + out.getvalue())
+    out = io.StringIO()
+    rc = perf_report.run_history_gate(paths, ack_path=ack, gate=True, out=out)
+    flagged = [ln.strip() for ln in out.getvalue().splitlines() if "REGRESSION" in ln]
+    require(rc == 1 and any(ln.startswith("REGRESSION: value ") for ln in flagged),
+            f"(d) the planted round: rc {rc}, flagged {flagged}")
+    log(f"  (d) two rounds of (a)'s line: exit 0, no regression; a third at {P30_PLANTED_SLOWDOWN}x value: exit 1, "
+        f"{flagged}")
+
+
+def run_measurement_tools(cfg, launches: dict) -> None:
+    """Phase 30 (a)-(d)."""
+    line = run_bench_driver(cfg, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_bench_attn(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_bench_multichip()
+    run_history_gate(line)
+
+
 def main() -> int:
     import torch
 
@@ -7416,6 +7624,11 @@ def main() -> int:
     run_quant_convergence(launches)
     log(f"  (a) took {time.perf_counter() - t:.1f} s")
     run_soaks()
+
+    log(f"[30] the measurement tools: (a) the bench driver on {CFG_NAME}, {cfg.n_layer} layers, B={LOSS_BATCH} x "
+        f"T={SEQ}, {P30_ITERS} iterations, the forward at B={FWD_BATCH}; (b) bench_attn at B=2 H=32 T={SEQ} D=100; "
+        "(c) bench_multichip, one NCCL rank; (d) perf_report --history --gate over (a)'s rounds")
+    run_measurement_tools(cfg, launches)
 
     rows = list(rows.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "row_rel_err", "row_rel_limit",

@@ -2895,3 +2895,69 @@ def test_a_capture_survives_another_threads_cuda_calls(dev):
     torch.testing.assert_close(f(x), want)
     stats = tt.last_staging(f)
     assert stats.staged and stats.captures == 1 and stats.replays >= 2
+
+
+def test_bench_attn_routes_at_full_shape_against_the_materialized_one(dev):
+    """``bench_attn`` at the bench shape (B=2 H=32 T=2048 D=100, a short
+    chain): the splash and legacy routes' forward outputs within two bf16
+    ulps of each row's largest |value| of the materialized route's (phase
+    3's flash limit) and their gradients within four ulps doubled (the
+    recomputing backward's end-to-end limit), each launching its kernels."""
+    import io
+
+    from thunder_tpu_torch.scripts import bench_attn
+
+    before = _counts()
+    res = bench_attn.run(device="cuda", n_short=1, n_long=3, out=io.StringIO())
+    counts = {k: v - before.get(k, 0) for k, v in _counts().items()}
+    routes = {r["route"]: r for r in res["routes"]}
+    for name in ("splash", "legacy"):
+        r = routes[name]
+        assert r["row_rel_err"] <= 2.0 ** -6 and r["bwd_row_rel_err"] <= 2.0 ** -4, r
+        assert r["fwd_ms"] > 0 and r["fwd_bwd_ms"] > 0
+    assert routes["materialized"]["maxerr"] == 0.0 and routes["sdpa"]["yardstick"]
+    for k in ("flash_attention_fwd", "flash_attention_fwd_lse", "flash_attention_bwd", "legacy_flash_fwd",
+              "legacy_flash_bwd"):
+        assert counts.get(k, 0) > 0, (k, counts)
+
+
+def test_bench_driver_at_full_width_two_layers(dev):
+    """The bench driver on open_llama_3b's full width, 2 layers, B=2 x
+    T=2048, 2 iterations: every key of bench.py's line, the H100 spec,
+    falling losses, no round to compare with, and the launches a training
+    step of rows 2-7 over the steps it ran."""
+    from thunder_tpu_torch.scripts import bench
+
+    before = _counts()
+    res = bench.run(bench.parse_args(["--layers", "2", "--iters", "2"]))
+    counts = {k: v - before.get(k, 0) for k, v in _counts().items()}
+    train, fwd = res.pop("_train"), res.pop("_forward")
+    assert all(k in res for k in bench.BENCH_KEYS) and res["device_spec"] == "h100" and res["vs_rev"] is None
+    assert set(res["train_compile_phases"]) == set(bench.COMPILE_PHASE_KEYS)
+    assert math.isfinite(train["loss0"]) and train["loss_last"] < train["loss0"]
+    steps, fwds = train["steps"], fwd["calls"]
+    assert counts.get("flash_attention_fwd_lse") == counts.get("flash_attention_bwd") == 2 * steps, counts
+    assert counts.get("cross_entropy_rows") == counts.get("cross_entropy_bwd") == steps
+    assert counts.get("flash_attention_fwd") == 2 * fwds
+    assert counts.get("apply_rope") == 8 * steps + 4 * fwds
+    assert 0 < res["train_mfu"] < 1 and res["attribution"]["coverage_pct"] > 90
+
+
+def test_bench_multichip_at_one_nccl_rank(dev, tmp_path):
+    """``bench_multichip`` in a one-rank NCCL group: the schema
+    ``lint_traces --multichip`` requires, the overlap table with its site
+    counts, no overlap error, finite timings; at one rank the collectives
+    are the identity and launch no kernel, so the rows are empty."""
+    import thunder_tpu_torch.distributed as td
+    from thunder_tpu_torch.scripts import bench_multichip, lint_traces, ranks
+
+    ranks.join_group("cuda", 0, 1, str(tmp_path / "store"))
+    try:
+        res = bench_multichip.run(bench_multichip.parse_args(["--iters", "3", "--profile-steps", "2"]))
+    finally:
+        td.shutdown()
+    assert all(k in res for k in lint_traces._MULTICHIP_REQUIRED_KEYS) and res["n_devices"] == 1
+    assert not res.get("overlap_error") and res["overlap"] and res["overlap_sites_total"] >= res["overlap_sites_shown"]
+    assert res["mesh"] == {"fsdp": 1, "tp": 1} and res["device_spec"] == "h100"
+    assert math.isfinite(res["train_iter_s"]) and res["train_iter_s"] > 0
+    assert res["collectives"] == {}

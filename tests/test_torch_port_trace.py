@@ -115,12 +115,15 @@ def test_jit_without_a_card_raises(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # Every module of the port, the training path's included.
+    # Every module of the port, the training path's and the tools' included;
+    # nor the JAX side's root scripts (bench.py, scripts/*.py) by their names.
+    jax_side = ("jax", "jaxlib", "thunder_tpu", "bench", "scripts",
+                *sorted(p.stem for p in (REPO / "scripts").glob("*.py")))
     code = (
         "import importlib, pkgutil, sys, thunder_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(thunder_tpu_torch.__path__, 'thunder_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'thunder_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {jax_side!r})\n"
         "print(len(mods), ','.join(bad))\n"
         "print(','.join(mods))\n"
     )
@@ -141,11 +144,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "thunder_tpu_torch.parallel.mesh", "thunder_tpu_torch.parallel.sharding",
             "thunder_tpu_torch.transforms.comm_schedule", "thunder_tpu_torch.benchmarks.distributed",
             "thunder_tpu_torch.resilience.autopilot", "thunder_tpu_torch.resilience.federation",
-            "thunder_tpu_torch.observability.opsplane", "thunder_tpu_torch.analysis.hlo_audit"} <= set(mods.split(","))
+            "thunder_tpu_torch.observability.opsplane", "thunder_tpu_torch.analysis.hlo_audit",
+            "thunder_tpu_torch.scripts.bench", "thunder_tpu_torch.scripts.bench_attn",
+            "thunder_tpu_torch.scripts.bench_multichip", "thunder_tpu_torch.scripts.perf_report"} <= set(mods.split(","))
 
 
 def test_port_sources_have_no_jax_imports():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|thunder_tpu)(\s|\.|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|thunder_tpu|bench|scripts|perf_report|lint_traces)(\s|\.|$)",
+                         re.M)
     files = sorted((REPO / "thunder_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert len(files) > 10 and offenders == []

@@ -58,13 +58,24 @@ Usage:
                     7``, 2 slices of 2 gloo ranks) inside 60 s: one shrink
                     and one regrow, the slice-loss restore from the peer
                     tier, a clean replay
-    --multichip     waits for the port's benchmark PR (ROADMAP): exits 2.
-                    So do the committed-series gates of --soak and
-                    --federation: each prints one line saying so
+    --multichip     ``scripts/bench_multichip --iters 3 --profile-steps 2``
+                    on 4 gloo ranks (fsdp2-tp2): the result's schema, the
+                    collective rows with their overlap split, the comm
+                    scheduler moving a site and cutting the static exposed
+                    share
 
 ``--device`` (default ``cuda``) is where the programs run; the rank modes run
 on the CPU's gloo ranks. Without a card and without ``--device cpu`` a mode
 that runs a program raises.
+
+The series gates: ``--multichip``, ``--soak``, ``--federation``,
+``--roofline`` and ``--critpath`` end with ``perf_report --history --gate``
+over the committed rounds of their series, and the unfiltered default run
+over all six (``perf_report.series_paths``: the port's own series,
+``H100_BENCH_r*.json`` and so on, never a JAX round). A series with fewer
+rounds than its gate needs prints one line and counts no error; ``--soak``
+also holds its per-fault recovery seconds to the newest round of
+``H100_SOAK_r*``, where one exists.
 """
 
 from __future__ import annotations
@@ -77,7 +88,6 @@ import numpy as np
 SPAWN_TIMEOUT_S = 300  # each spawn of gloo ranks
 RANKS = 4
 _DEVICE = "cuda"
-_WAITING = ("--multichip",)
 
 
 def _dev():
@@ -195,16 +205,19 @@ def _get(port: int, route: str):
         return e.code, e.read().decode()
 
 
-def _forward_step_s(jf, params, idx) -> float:
-    """One compiled gpt-tiny forward's seconds, the mean of 5 after a first
-    call: the denominator of the overhead budgets."""
+def _forward_step_s(jf, params, idx, repeats: int = 5) -> float:
+    """One compiled gpt-tiny forward's seconds, the least of ``repeats``
+    calls after a first (load on the host only adds time): the denominator
+    of the overhead budgets."""
     import time
 
     _host(jf(params, idx))
-    t0 = time.perf_counter()
-    for _ in range(5):
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
         _host(jf(params, idx))
-    return (time.perf_counter() - t0) / 5
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 # =============================================================================
@@ -800,12 +813,15 @@ def _ops_smoke() -> int:
 
     # The plane's cost a step is one tap an emitted event (one step_time
     # event a step), composed against the measured step: an A/B wall-clock
-    # difference under 1% would drown in the host's noise.
-    N = 20_000
-    t0 = time.perf_counter()
-    for _ in range(N):
-        obs_events.emit_event("step_time", fn="overhead_probe", step=0, s=0.01)
-    tap_ns = (time.perf_counter() - t0) / N * 1e9
+    # difference under 1% would drown in the host's noise. Both sides are
+    # the least of several repeats, since load on the host only adds time.
+    N, REPEATS = 4_000, 5
+    tap_ns = float("inf")
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(N):
+            obs_events.emit_event("step_time", fn="overhead_probe", step=0, s=0.01)
+        tap_ns = min(tap_ns, (time.perf_counter() - t0) / N * 1e9)
     ops_pct = tap_ns / (step_s * 1e9) * 100.0
     monitor.shutdown_ops()
     if obs_events.ops_active():
@@ -833,9 +849,9 @@ def _roofline_smoke() -> int:
     every row in ``roofline.ROW_FIELDS``) served live at /debug/roofline; an
     op whose static bound is deflated 8x trips a typed ``cost_model_drift``
     through the detector bank; the armed-but-not-due cost a step stays under
-    1% of the step; with sampling off no probe runs. The committed
-    ``ROOFLINE_r*`` series gate waits for the port's benchmark PR. Returns
-    the error count."""
+    1% of the step; with sampling off no probe runs; then the gate of the
+    port's ``ROOFLINE`` series (one round suffices). Returns the error
+    count."""
     import json
     import time
 
@@ -932,6 +948,7 @@ def _roofline_smoke() -> int:
 
     monitor.shutdown_roofline()
     monitor.shutdown_ops()
+    n_errors += _bench_history_gate("ROOFLINE", min_rounds=1)
     print(f"\nlint_traces --roofline: {n_errors} error(s)")
     return n_errors
 
@@ -949,8 +966,8 @@ def _critpath_smoke() -> int:
     component of /healthz); a seeded straggler host trips a host-named
     ``bottleneck_shift``; the exposed-collective cross-check agrees within
     the noise floor; the armed cost a step stays under 1% of a measured
-    gpt-tiny step. The committed ``CRITPATH_r*`` series gate waits for the
-    port's benchmark PR. Returns the error count."""
+    gpt-tiny step; then the gate of the port's ``CRITPATH`` series (one round
+    suffices). Returns the error count."""
     import json
     import time
 
@@ -1081,6 +1098,7 @@ def _critpath_smoke() -> int:
 
     monitor.shutdown_critpath()
     monitor.shutdown_ops()
+    n_errors += _bench_history_gate("CRITPATH", min_rounds=1)
     print(f"\nlint_traces --critpath: {n_errors} error(s)")
     return n_errors
 
@@ -1432,13 +1450,57 @@ _POD_REQUIRED_KEYS = (
 # the CPU, compiles for both widths included.
 _FEDERATION_WALL_S = 60.0
 
-_SERIES_WAITS = "series gate: waits for the port's benchmark PR (ROADMAP); no error counted"
+
+def _bench_history_gate(series: str = "BENCH", min_rounds: int = 2, root=None) -> int:
+    """``perf_report --history --gate`` over the committed rounds of the
+    port's ``series`` (``perf_report.series_paths``) under ``root`` (default:
+    the repo's root). Returns the error count: 0 when fewer than
+    ``min_rounds`` rounds exist (the pod, roofline and critpath series pass
+    1: their absolute invariants gate from the first round)."""
+    from thunder_tpu_torch.scripts import perf_report
+
+    paths = perf_report.series_paths(series, root)
+    pattern = os.path.basename(perf_report.series_glob(series, root))
+    if len(paths) < min_rounds:
+        print(f"--- series gate [{pattern}]: {len(paths)} round(s), fewer than {min_rounds}; no error counted")
+        return 0
+    print(f"--- bench regression gate (perf_report --history --gate) [{pattern}]")
+    return perf_report.run_history_gate(paths, gate=True)
 
 
-def _run_driver(module: str, what: str, timeout_s: float) -> tuple:
-    """``python -m module --smoke --seed 7 --device cpu --out F`` (4 gloo
-    ranks); its stderr's tail printed. Returns (rc, result or None,
-    seconds)."""
+def _soak_per_fault_check(result: dict, root=None) -> int:
+    """The soak's recovery seconds a fault against the newest committed
+    round of the port's ``SOAK`` series, within twice the soak series'
+    noise floor (the smoke's shorter run amortizes one-off rebuilds over
+    fewer faults); nothing to compare without a round. The goodput ratio
+    swings with the machine's ideal step, so the recovery cost is the
+    portable comparator. Returns the error count."""
+    import json
+
+    from thunder_tpu_torch.scripts import perf_report
+
+    committed = perf_report.series_paths("SOAK", root)
+    per_fault = result.get("soak_recovery_per_fault_s")
+    if not committed or not isinstance(per_fault, (int, float)):
+        print(f"    recovery {per_fault} s/fault; {len(committed)} round(s) of "
+              f"{os.path.basename(perf_report.series_glob('SOAK', root))} to compare with")
+        return 0
+    with open(committed[-1]) as f:
+        doc = json.load(f)
+    ref = doc.get("parsed", doc).get("soak_recovery_per_fault_s")
+    floor = 2 * perf_report.noise_floor("per_fault_s", "soak_goodput")
+    if isinstance(ref, (int, float)) and abs(per_fault - ref) > floor:
+        print(f"    FAILED: recovery cost {per_fault:.2f}s/fault vs committed {ref:.2f} (floor ±{floor:.1f}s)")
+        return 1
+    print(f"    recovery OK: {per_fault:.2f}s/fault (committed {ref}, {os.path.basename(committed[-1])}, floor "
+          f"±{floor:.1f}s)")
+    return 0
+
+
+
+def _run_driver(module: str, what: str, timeout_s: float, args: tuple = ("--smoke", "--seed", "7")) -> tuple:
+    """``python -m module *args --device cpu --out F`` (4 gloo ranks); its
+    stderr's tail printed. Returns (rc, result or None, seconds)."""
     import json
     import subprocess
     import tempfile
@@ -1446,7 +1508,7 @@ def _run_driver(module: str, what: str, timeout_s: float) -> tuple:
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     out_path = os.path.join(tempfile.mkdtemp(prefix="ttpu_smoke_"), "result.json")
-    cmd = [sys.executable, "-m", module, "--smoke", "--seed", "7", "--device", "cpu", "--out", out_path]
+    cmd = [sys.executable, "-m", module, *args, "--device", "cpu", "--out", out_path]
     print(f"--- {what}: " + " ".join(cmd[1:]))
     env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
     env.update(PYTHONPATH=repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""))
@@ -1624,14 +1686,14 @@ def _soak_smoke() -> int:
     """--soak: the fleet soak smoke. Runs ``thunder_tpu_torch.scripts.soak_fleet
     --smoke --seed 7`` on 4 gloo ranks and holds its result to
     :func:`soak_checks`, then the torn-write fall-through
-    (:func:`_torn_fallthrough_check`). The JAX CLI also compares the
-    per-fault recovery with the committed ``SOAK_r*`` round and gates the
-    series; here one line says that waits. Returns the error count."""
+    (:func:`_torn_fallthrough_check`), the per-fault recovery against the
+    newest round of the port's ``SOAK`` series (:func:`_soak_per_fault_check`)
+    and the series' gate. Returns the error count."""
     rc, result, _ = _run_driver("thunder_tpu_torch.scripts.soak_fleet", "soak smoke", 1500)
     if rc != 0 or result is None:
         return 1
-    n_errors = soak_checks(result) + _torn_fallthrough_check()
-    print(f"    {_SERIES_WAITS}")
+    n_errors = soak_checks(result) + _torn_fallthrough_check() + _soak_per_fault_check(result)
+    n_errors += _bench_history_gate("SOAK")
     print(f"\nlint_traces --soak: {n_errors} error(s)")
     return n_errors
 
@@ -1694,15 +1756,93 @@ def _federation_smoke() -> int:
     """--federation: the slice-failure-domain smoke. Runs
     ``thunder_tpu_torch.scripts.soak_pod --smoke --seed 7`` (2 slices of 2
     gloo ranks, one scripted whole-slice loss) and holds its result and
-    wall seconds to :func:`federation_checks`. The JAX CLI also gates the
-    committed ``SOAK_POD_r*`` round; here one line says that waits.
-    Returns the error count."""
+    wall seconds to :func:`federation_checks`, then gates the port's
+    ``SOAK_POD`` series (one round suffices). Returns the error count."""
     rc, result, elapsed = _run_driver("thunder_tpu_torch.scripts.soak_pod", "federation smoke", 600)
     if rc != 0 or result is None:
         return 1
-    n_errors = federation_checks(result, elapsed)
-    print(f"    {_SERIES_WAITS}")
+    n_errors = federation_checks(result, elapsed) + _bench_history_gate("SOAK_POD", min_rounds=1)
     print(f"\nlint_traces --federation: {n_errors} error(s)")
+    return n_errors
+
+
+# =============================================================================
+# --multichip on 4 gloo ranks
+# =============================================================================
+
+# The multichip result's schema: the keys the JAX CLI requires
+# (scripts/lint_traces.py ``_MULTICHIP_REQUIRED_KEYS``).
+_MULTICHIP_REQUIRED_KEYS = (
+    "metric", "value", "unit", "n_devices", "mesh", "model", "batch", "seq",
+    "train_iter_s", "train_iter_synced_s", "train_iter_strict_sync_s",
+    "train_tokens_per_sec", "train_mfu", "device_spec", "train_flops_per_step",
+    "multichip_trace_claim_s", "multichip_xla_compile_s", "compile_phases",
+)
+
+
+def multichip_checks(result: dict) -> int:
+    """The checks of ``--multichip`` on a ``bench_multichip`` result: the
+    schema; collective rows from the profiled attribution, each with its
+    hidden/exposed split; the overlap workload ran, its table counts its
+    sites, and the comm scheduler moved at least one site and cut the
+    static exposed share. Returns the error count."""
+    n_errors = 0
+    missing = [k for k in _MULTICHIP_REQUIRED_KEYS if k not in result]
+    if missing:
+        n_errors += 1
+        print(f"    FAILED: bench JSON missing keys: {missing}")
+    else:
+        print(f"    schema OK ({len(_MULTICHIP_REQUIRED_KEYS)} required keys)")
+
+    colls = result.get("collectives") or {}
+    bad = [c for c, v in colls.items()
+           if not all(k in v for k in ("us_per_step", "hidden_us_per_step", "exposed_us_per_step", "calls"))]
+    if not colls:
+        n_errors += 1
+        print("    FAILED: no collective rows in the profiled attribution (expected all-gather/all-reduce/... on the "
+              "FSDP x TP step)")
+    elif bad:
+        n_errors += 1
+        print(f"    FAILED: collective rows missing overlap fields: {bad}")
+    else:
+        print(f"    collective rows OK: {sorted(colls)} ({result.get('spmd_collective_exposed_pct')}% of the step's "
+              "time exposed)")
+
+    if result.get("overlap_error"):
+        n_errors += 1
+        print(f"    FAILED: overlap workload errored: {result['overlap_error']}")
+    elif not result.get("overlap"):
+        n_errors += 1
+        print("    FAILED: no overlap table")
+    else:
+        shown, total = result.get("overlap_sites_shown"), result.get("overlap_sites_total")
+        moves = (result.get("comm_schedule") or {}).get("moves", 0)
+        exp, exp_raw = result.get("collective_exposed_pct"), result.get("collective_exposed_pct_unscheduled")
+        if total is None or shown is None:
+            n_errors += 1
+            print("    FAILED: overlap table lacks its site counts (overlap_sites_total/shown)")
+        elif moves < 1 or exp is None or exp_raw is None or exp >= exp_raw:
+            n_errors += 1
+            print(f"    FAILED: scheduler must move sites and cut the static exposed pct (moves={moves}, "
+                  f"{exp_raw} -> {exp})")
+        else:
+            print(f"    overlap table OK: {shown}/{total} site(s), {moves} scheduler move(s), static exposed "
+                  f"{exp_raw}% -> {exp}%")
+    return n_errors
+
+
+def _multichip_smoke() -> int:
+    """--multichip: the distributed observatory's smoke. Runs
+    ``thunder_tpu_torch.scripts.bench_multichip --iters 3 --profile-steps
+    2`` on 4 gloo ranks (fsdp2-tp2), holds its result to
+    :func:`multichip_checks`, then gates the port's ``MULTICHIP_BENCH``
+    series. Returns the error count."""
+    rc, result, _ = _run_driver("thunder_tpu_torch.scripts.bench_multichip", "multichip smoke", 600,
+                                ("--devices", str(RANKS), "--iters", "3", "--profile-steps", "2"))
+    if rc != 0 or result is None:
+        return 1
+    n_errors = multichip_checks(result) + _bench_history_gate("MULTICHIP_BENCH")
+    print(f"\nlint_traces --multichip: {n_errors} error(s)")
     return n_errors
 
 
@@ -1711,12 +1851,12 @@ def _federation_smoke() -> int:
 # =============================================================================
 
 _USAGE = ("usage: lint_traces [pattern] [--device cpu|cuda] | --static | --schedule | --chaos | --chaos-multihost | "
-          "--hlo | --ops | --roofline | --critpath | --soak | --federation | --events <log.jsonl> [...] "
+          "--hlo | --ops | --roofline | --critpath | --soak | --federation | --multichip | --events <log.jsonl> [...] "
           "[--storm-threshold N]")
 _SMOKES = {
     "--static": _static_smoke, "--schedule": _schedule_smoke, "--ops": _ops_smoke,
     "--roofline": _roofline_smoke, "--critpath": _critpath_smoke, "--chaos": _chaos_smoke,
-    "--soak": _soak_smoke, "--federation": _federation_smoke,
+    "--soak": _soak_smoke, "--federation": _federation_smoke, "--multichip": _multichip_smoke,
 }
 _RANK_MODES = {"--_chaos-multihost-rank": _chaos_multihost_rank, "--_hlo-rank": _hlo_rank}
 
@@ -1753,11 +1893,6 @@ def main(argv=None) -> int:
             return 1 if _RANK_MODES[argv[0]](rank, world, out) else 0
         finally:
             td.shutdown()
-
-    for mode in _WAITING:
-        if mode in argv:
-            print(f"lint_traces {mode}: waits for the port's benchmark PR (ROADMAP)")
-            return 2
 
     dev = _take_device(argv)
     if dev is False:
@@ -1834,6 +1969,15 @@ def main(argv=None) -> int:
         except TraceVerificationError as e:
             n_errors += 1
             print(f"    FAILED: {e}")
+
+    # The series gates, as the JAX CLI's unfiltered run ends.
+    if not pattern:
+        n_errors += _bench_history_gate("BENCH")
+        n_errors += _bench_history_gate("MULTICHIP_BENCH")
+        n_errors += _bench_history_gate("SOAK")
+        n_errors += _bench_history_gate("SOAK_POD", min_rounds=1)
+        n_errors += _bench_history_gate("ROOFLINE", min_rounds=1)
+        n_errors += _bench_history_gate("CRITPATH", min_rounds=1)
 
     print(f"\nlint_traces: {n_errors} error(s), {n_warnings} warning(s)")
     return 1 if n_errors else 0
