@@ -1,0 +1,12 @@
+"""The share of the traced window in which no kernel, memcpy or memset ran
+on the card (one minus the union of their intervals over the window)."""
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "score_tokens_per_s"
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
